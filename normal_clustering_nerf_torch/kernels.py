@@ -1,0 +1,196 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+Each `csrc/*.cu` file is compiled by `nvcc` for `sm_90a` into its own
+shared library with a plain C interface and loaded with `ctypes` (no
+PyTorch headers, so a build takes seconds). Libraries are built at first
+use into `build/kernels/` at the repository root (listed in
+`.gitignore`), keyed by a hash of the sources and flags, so a fresh
+checkout builds them itself. `build_all()` starts one `nvcc` per source,
+all at once.
+
+Every launch goes through `Kernel.launch`, which checks the
+`cudaGetLastError()` code the C function returns, raises if it is not 0,
+and counts the launch in `Kernel.launches`. Nothing here falls back to
+another implementation: a missing `nvcc`, a failed build or a failed
+launch raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, List, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
+# --fmad=false: the march must reproduce the reference's t/xyz/cell
+# arithmetic bit for bit (no multiply-add contraction); the other
+# kernels are memory- or latency-bound, so contraction buys nothing.
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
+]
+
+# argument types of the exported launchers
+P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA toolkit is needed to "
+                           "build the port's kernels")
+    return path
+
+
+def _lib_path(source: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cuh")) + [CSRC / source]:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    stem = Path(source).stem
+    return BUILD_ROOT / f"{stem}-{h.hexdigest()[:16]}" / f"lib{stem}.so"
+
+
+def _start_build(source: str):
+    out = _lib_path(source)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.NamedTemporaryFile(dir=out.parent, suffix=".so",
+                                      delete=False).name
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
+           str(CSRC / source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish_build(proc, tmp: str, out: Path, source: str) -> str:
+    log, _ = proc.communicate()
+    (out.parent / "nvcc.log").write_text(log)
+    if proc.returncode != 0:
+        Path(tmp).unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {source} "
+                           f"(exit {proc.returncode}):\n{log}")
+    os.replace(tmp, out)
+    return log
+
+
+def build_all(sources: Sequence[str] = ()) -> Dict[str, str]:
+    """Build every kernel source not built yet, one `nvcc` per source,
+    all started together. Returns {source: nvcc log} of what it built."""
+    sources = list(sources) or sorted(p.name for p in CSRC.glob("*.cu"))
+    with _lock:
+        todo = [s for s in sources if not _lib_path(s).exists()]
+        started = [(s, *_start_build(s)) for s in todo]
+        logs, errors = {}, []
+        for s, proc, tmp, out in started:
+            try:
+                logs[s] = _finish_build(proc, tmp, out, s)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    return logs
+
+
+def _load(source: str) -> ctypes.CDLL:
+    lib = _libs.get(source)
+    if lib is None:
+        path = _lib_path(source)
+        if not path.exists():
+            build_all([source])
+        lib = ctypes.CDLL(str(path))
+        lib.ncn_error_string.argtypes = [I]
+        lib.ncn_error_string.restype = ctypes.c_char_p
+        _libs[source] = lib
+    return lib
+
+
+class Kernel:
+    """One exported C launcher: `int fn(args..., cudaStream_t)` that
+    returns `cudaGetLastError()` after its launch."""
+
+    def __init__(self, name: str, source: str, argtypes: List):
+        self.name = name
+        self.source = source
+        self.argtypes = list(argtypes) + [P]   # trailing stream
+        self.launches = 0
+        self._fn = None
+
+    @property
+    def path(self) -> str:
+        """Source path relative to the repository root."""
+        return f"normal_clustering_nerf_torch/csrc/{self.source}"
+
+    def launch(self, *args, device: torch.device):
+        if self._fn is None:
+            lib = _load(self.source)
+            fn = getattr(lib, self.name)
+            fn.argtypes = self.argtypes
+            fn.restype = I
+            self._fn, self._lib = fn, lib
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = self._fn(*args, stream)
+        if err != 0:
+            msg = self._lib.ncn_error_string(err).decode()
+            raise RuntimeError(f"kernel {self.name} failed to launch: "
+                               f"CUDA error {err} ({msg})")
+        self.launches += 1
+
+
+def ptr(t: torch.Tensor):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
+    """Validate a kernel argument: CUDA, dtype, contiguity and shape."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    return ptr(t)
+
+
+MARCH = Kernel("march_bootstrap", "march.cu",
+               [P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P])
+TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",
+                      [P, P, P, P, I, I, I, I, I, I, F, F, I])
+TRIPLANE_BWD = Kernel("triplane_bwd", "triplane.cu",
+                      [P, P, P, P, I, I, I, I, I, I, F, F])
+COMPOSITE_FWD = Kernel("composite_fwd", "composite.cu",
+                       [P, P, P, P, P, I, I, I, F, P, P, P, P, P])
+COMPOSITE_BWD = Kernel("composite_bwd", "composite.cu",
+                       [P, P, P, P, P, P, P, P, P, I, I, I, F, P, P])
+DISTORTION_FWD = Kernel("distortion_fwd", "distortion.cu",
+                        [P, P, P, P, I, I, P])
+DISTORTION_BWD = Kernel("distortion_bwd", "distortion.cu",
+                        [P, P, P, P, P, I, I, P])
+
+ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
+               COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD)
+
+
+def reset_counts():
+    for k in ALL_KERNELS:
+        k.launches = 0
+
+
+def counts() -> Dict[str, int]:
+    return {k.name: k.launches for k in ALL_KERNELS}

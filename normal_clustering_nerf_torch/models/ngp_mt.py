@@ -1,0 +1,118 @@
+"""NGP-MT field with multi-task heads — port of the JAX package's
+`models/ngp_mt.py` for the triplane layout.
+
+  * encoding: triplane + coarse grid (models/triplane.py, kernel H2)
+  * sigma_net: enc -> 64 -> 16, ReLU, sigma = trunc_exp(h[:, 0])
+  * rgb_net: [d, h] (3+16) -> 64 -> 64 -> 3, trunc_sigmoid
+  * sem_net / norm_net: 16 -> 64 -> 64 -> n_cls / 3
+All MLPs are bias-free (tcnn FullyFusedMLP style) and run as
+`torch.matmul` in the compute dtype: plain products, as the JAX package
+leaves them to XLA (ROADMAP K6 fuses them once a profile asks for it).
+
+Parameter names follow the JAX pytree: `hash_table.planes`,
+`hash_table.grid3d`, `sigma_net.w0`, ..., so parameters convert 1:1.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from ..config import ModelConfig
+from ..ops.trunc_exp import trunc_exp, trunc_sigmoid
+from .triplane import TriplaneSpec, init_triplane, triplane_encode
+
+
+def _init_mlp(dims: List[int], generator, device) -> nn.ParameterDict:
+    """Bias-free Xavier-uniform weights, (fan_in, fan_out) each."""
+    ws = {}
+    for i, (fan_in, fan_out) in enumerate(zip(dims[:-1], dims[1:])):
+        bound = math.sqrt(6.0 / (fan_in + fan_out))
+        u = torch.rand((fan_in, fan_out), generator=generator, device=device)
+        ws[f"w{i}"] = nn.Parameter(u * (2 * bound) - bound)
+    return nn.ParameterDict(ws)
+
+
+def apply_mlp(params: nn.ParameterDict, x, out_act=None,
+              compute_dtype=torch.float32):
+    h = x.to(compute_dtype)
+    n = len(params)
+    for i in range(n):
+        h = torch.matmul(h, params[f"w{i}"].to(compute_dtype))
+        if i < n - 1:
+            h = torch.relu(h)
+    if out_act == "sigmoid":
+        h = trunc_sigmoid(h)
+    return h
+
+
+class NGPMT(nn.Module):
+    def __init__(self, cfg: ModelConfig, device: torch.device,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.hash_layout != "triplane":
+            raise NotImplementedError(
+                f"hash_layout {cfg.hash_layout!r} is not ported: the port "
+                "has the triplane field (brick/tcnn layouts: ROADMAP A12)")
+        if cfg.use_exposure:
+            raise NotImplementedError(
+                "the exposure tonemapper is not ported (ROADMAP A14)")
+        self.cfg = cfg
+        self.scale = cfg.scale
+        self.spec = TriplaneSpec.create(
+            plane_res=cfg.plane_res, plane_feats=cfg.plane_feats,
+            grid3d_res=cfg.grid3d_res, grid3d_feats=cfg.grid3d_feats)
+        self.compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
+                              else torch.float32)
+        if generator is None:
+            generator = torch.Generator(device=device).manual_seed(0)
+        W, geo = cfg.hidden_dim, cfg.geo_feat_dim
+        self.hash_table = nn.ParameterDict(
+            {k: nn.Parameter(v) for k, v in
+             init_triplane(self.spec, generator, device).items()})
+        self.sigma_net = _init_mlp(
+            [self.spec.out_dim] + [W] * cfg.sigma_hidden_layers + [geo],
+            generator, device)
+        self.rgb_net = _init_mlp(
+            [3 + geo] + [W] * cfg.rgb_hidden_layers + [3], generator, device)
+        if cfg.pred_sem:
+            self.sem_net = _init_mlp(
+                [geo] + [W] * cfg.head_hidden_layers + [cfg.n_sem_cls],
+                generator, device)
+        if cfg.pred_norm_nn:
+            self.norm_net = _init_mlp(
+                [geo] + [W] * cfg.head_hidden_layers + [3], generator, device)
+
+    def density(self, x, return_feat: bool = False):
+        """sigma at world positions x in [-scale, scale]^3."""
+        xn = (x + self.scale) / (2.0 * self.scale)
+        enc = triplane_encode(dict(self.hash_table), xn, self.spec,
+                              self.compute_dtype)
+        h = apply_mlp(self.sigma_net, enc, compute_dtype=self.compute_dtype)
+        sigmas = trunc_exp(h[:, 0].to(torch.float32))
+        if return_feat:
+            return sigmas, h
+        return sigmas
+
+    def forward(self, x, d) -> Dict[str, torch.Tensor]:
+        """Full field: (M, 3) positions and view directions -> sigmas (M,),
+        rgbs (M, 3) [+ sems, norms], all f32."""
+        sigmas, h = self.density(x, return_feat=True)
+        d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+        if not self.cfg.rgb_use_dir:
+            d = d * 0.0
+        rgb_in = torch.cat([d.to(h.dtype), h], dim=1)
+        rgbs = apply_mlp(self.rgb_net, rgb_in, out_act="sigmoid",
+                         compute_dtype=self.compute_dtype)
+        out = {"sigmas": sigmas, "rgbs": rgbs.to(torch.float32)}
+        if self.cfg.pred_sem:
+            out["sems"] = apply_mlp(self.sem_net, h,
+                                    compute_dtype=self.compute_dtype
+                                    ).to(torch.float32)
+        if self.cfg.pred_norm_nn:
+            out["norms"] = apply_mlp(self.norm_net, h,
+                                     compute_dtype=self.compute_dtype
+                                     ).to(torch.float32)
+        return out

@@ -1,0 +1,180 @@
+"""Training loop of the port — the JAX package's `training/trainer.py`
+for one device, as plain eager steps.
+
+One step: sample a triangle batch -> assemble rays -> render (bootstrap
+march, triplane field, compositing) -> multi-task loss -> gradients ->
+optax-equivalent clipped AdamW. `fit` refreshes the occupancy grid every
+`update_interval` steps (every cell before `warmup_steps`). The JAX
+version's lax.scan chunking, shard_map and host sampler are not ported;
+only the bootstrap steps (step < render.bootstrap_steps) run, and a
+later step raises NotImplementedError (the sv march is ROADMAP K1).
+
+Random draws come from one `torch.Generator` seeded with `cfg.seed`; each
+step's draws can be handed in instead (`train_step_core(draws=...)`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..config import TrainConfig
+from ..datasets.base import SceneData
+from ..datasets.ray_utils import get_rays
+from ..datasets.sampler import RaySampler
+from ..device import resolve_device
+from ..losses import compute_losses
+from ..models.ngp_mt import NGPMT
+from ..models.occupancy import OccupancyGrid, OccupancyState
+from ..models.rendering import render_train
+from .state import AdamW
+
+_LABELS = ("semantics",)
+
+
+class Trainer:
+    def __init__(self, cfg: TrainConfig, scene_train: SceneData,
+                 device=None):
+        self.device = dev = resolve_device(device)
+        if scene_train.n_classes:
+            cfg = cfg.replace(model=dataclasses.replace(
+                cfg.model, n_sem_cls=scene_train.n_classes))
+        if cfg.render.bootstrap_steps % cfg.optim.update_interval != 0:
+            raise ValueError("render.bootstrap_steps must be a multiple of "
+                             "optim.update_interval")
+        unported = [k for k, on in (
+            ("optimize_ext", cfg.optim.optimize_ext),
+            ("lr_dR_norm_glob", cfg.optim.lr_dR_norm_glob > 0),
+            ("random_tr_poses", cfg.data.random_tr_poses),
+            ("keep_N_tr", cfg.data.keep_N_tr != -1),
+            ("host_sampler", cfg.data.host_sampler)) if on]
+        if unported:
+            raise NotImplementedError(f"{unported} not ported (ROADMAP A10)")
+        self.cfg = cfg
+        self.scene_train = scene_train
+        self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+        init_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
+        self.model = NGPMT(cfg.model, dev, generator=init_gen)
+        self.occ_grid = OccupancyGrid(cfg.model, dev)
+        self.sampler = RaySampler(
+            cfg.data.ray_sampling_strategy, cfg.data.batch_size,
+            scene_train.img_wh, scene_train.n_images,
+            max_expand=cfg.data.triang_max_expand, device=dev)
+        self.scene = {
+            "poses": torch.as_tensor(scene_train.poses, dtype=torch.float32,
+                                     device=dev),
+            "directions": torch.as_tensor(scene_train.directions,
+                                          dtype=torch.float32, device=dev),
+            "rays": torch.as_tensor(scene_train.rays, dtype=torch.float32,
+                                    device=dev),
+        }
+        for k in _LABELS:
+            if k in scene_train.labels:
+                self.scene[f"label_{k}"] = torch.as_tensor(
+                    scene_train.labels[k], device=dev)
+        self.params = dict(self.model.named_parameters())
+        self.opt = AdamW(self.params, cfg.optim)
+        self.occ: OccupancyState = self.occ_grid.init_state()
+        self.step = 0
+        self.last_grads: Dict[str, torch.Tensor] = {}
+
+    def load_state(self, params: Dict[str, torch.Tensor],
+                   occ: OccupancyState, opt_state: Optional[Dict] = None,
+                   step: int = 0):
+        """Take over parameters, occupancy and optimizer state (e.g. from
+        `convert.convert_jax_state`)."""
+        with torch.no_grad():
+            for n, p in self.params.items():
+                p.copy_(params[n])
+        self.occ = occ
+        self.opt.state = opt_state or self.opt.init_state()
+        self.step = step
+
+    # ------------------------------------------------------- occupancy ops
+    def density_threshold(self) -> float:
+        m = self.cfg.model
+        return 0.01 * m.max_samples / math.sqrt(3.0) * m.density_tresh_decay
+
+    def occ_update(self, warmup: bool, *, jitter=None, cell_draws=None):
+        """Occupancy refresh (train_nerf.py:314-320)."""
+        self.occ = self.occ_grid.update(
+            self.occ, self.model.density, self.density_threshold(), warmup,
+            generator=self.generator, jitter=jitter, cell_draws=cell_draws)
+
+    def mark_invisible_cells(self):
+        """One-time camera-coverage marking (train_nerf.py:306-312)."""
+        s = self.scene_train
+        if s.K is None:
+            raise NotImplementedError(
+                "projection-matrix cameras (Hypersim) are ROADMAP A15")
+        self.occ = self.occ_grid.mark_invisible_cells(
+            self.occ, s.poses, s.img_wh, self.cfg.model.near_dist, s.K)
+
+    # ------------------------------------------------------------ train step
+    def train_step_core(self, bootstrap: bool = True,
+                        draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        """One optimisation step. `draws` may hold this step's random
+        draws: "batch" ({"img", "tri"}), "noise" (N,), "bg" (3,) and
+        "kmeans_init" (cluster_K,). Returns the step's metrics as
+        tensors (no host synchronisation)."""
+        cfg, scene, g = self.cfg, self.scene, self.generator
+        draws = dict(draws or {})
+        for k, dt in (("noise", torch.float32), ("bg", torch.float32),
+                      ("kmeans_init", torch.int64)):
+            if k in draws:
+                draws[k] = torch.as_tensor(np.array(draws[k]), dtype=dt,
+                                           device=self.device)
+        batch = self.sampler.sample(g, draws.get("batch"))
+        img, pix = batch["img_idxs"], batch["pix_idxs"]
+        target = {"rgb": scene["rays"][img, pix][..., :3]}
+        for k in _LABELS:
+            if f"label_{k}" in scene:
+                target[k] = scene[f"label_{k}"][img, pix]
+        rays_o, rays_d = get_rays(scene["directions"][pix], scene["poses"][img])
+        results = render_train(
+            self.model, self.occ.density_bitfield, rays_o.contiguous(),
+            rays_d.contiguous(), cfg.render, global_step=self.step,
+            bootstrap=bootstrap, noise=draws.get("noise"), bg=draws.get("bg"),
+            generator=g)
+        loss_d = compute_losses(
+            results, target, cfg.loss, self.model.cfg, step=self.step,
+            ray_sampling_strategy=cfg.data.ray_sampling_strategy,
+            kmeans_init=draws.get("kmeans_init"), generator=g)
+        names = list(self.params)
+        grads = torch.autograd.grad(loss_d["total"],
+                                    [self.params[n] for n in names],
+                                    allow_unused=True)
+        self.last_grads = {n: torch.zeros_like(self.params[n]) if gr is None
+                           else gr for n, gr in zip(names, grads)}
+        self.opt.step(self.last_grads)
+        self.step += 1
+        n_rays = self.sampler.batch_size
+        mse = torch.mean((results["rgb"][: target["rgb"].shape[0]].detach()
+                          - target["rgb"]) ** 2)
+        metrics = {
+            "psnr": -10.0 * torch.log10(torch.clamp(mse, min=1e-12)),
+            "rm_samples_per_ray": results["rm_samples"].float() / n_rays,
+            "vr_samples_per_ray": results["vr_samples"].float() / n_rays,
+            "trunc_ray_frac": results["trunc_rays"].float() / n_rays,
+        }
+        metrics.update({f"loss_{k}": v.detach() for k, v in loss_d.items()})
+        return metrics
+
+    # ------------------------------------------------------------------ fit
+    def fit(self, n_steps: int) -> List[Dict[str, float]]:
+        """Train `n_steps` steps from the current step, refreshing the
+        occupancy grid every `update_interval` steps. Call
+        `mark_invisible_cells()` once before the first step, as bench.py
+        does. Returns every step's metrics as floats."""
+        cfg = self.cfg
+        history = []
+        for _ in range(n_steps):
+            step = self.step
+            if step % cfg.optim.update_interval == 0:
+                self.occ_update(warmup=step < cfg.optim.warmup_steps)
+            boot = step < cfg.render.bootstrap_steps
+            history.append(self.train_step_core(bootstrap=boot))
+        return [{k: float(v) for k, v in m.items()} for m in history]

@@ -1,0 +1,95 @@
+"""Triplane encode (kernel H2's plain versions) against the JAX package's
+`triplane_encode_vjp` (forward `_encode_impl`, backward `_tp_bwd`) and
+its numpy oracle `triplane_encode_reference_np`.
+
+Tolerances:
+  * f32 forward and table gradients: rtol 1e-5, atol 1e-6 — the same
+    products, summed in another order (4/8 corner terms here, 16/64
+    slots with zeros in JAX);
+  * bf16 forward: the same bf16-rounded products, so the same bound;
+  * bf16 table gradients: JAX scatter-adds in bf16 (one bf16 rounding per
+    add, ~2^-8 relative each) while the port accumulates in f32, so the
+    two differ by bf16 accumulation error: atol 2e-2 of the largest
+    gradient.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_common import J, N, T
+
+from normal_clustering_nerf_torch.models import triplane as tt
+from normal_clustering_nerf_tpu.models import triplane as jt
+
+
+def _case(seed, res=(32, 16), M=600):
+    spec_j = jt.TriplaneSpec.create(plane_res=res[0], grid3d_res=res[1])
+    spec_t = tt.TriplaneSpec.create(plane_res=res[0], grid3d_res=res[1])
+    rng = np.random.default_rng(seed)
+    shapes = spec_t.param_shapes()
+    params = {k: rng.standard_normal(v).astype(np.float32)
+              for k, v in shapes.items()}
+    x = rng.random((M, 3)).astype(np.float32)
+    x[:6] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1], [0.5, 0.5, 0.5],
+             [1 / 3, 2 / 3, 1]]                 # box faces and corners
+    g = rng.standard_normal((M, spec_t.out_dim)).astype(np.float32)
+    return spec_j, spec_t, params, x, g
+
+
+def _tparams(params):
+    return {k: T(v).requires_grad_(True) for k, v in params.items()}
+
+
+@pytest.mark.parametrize("res", [(32, 16), (65, 17)])
+def test_forward_matches_jax_and_numpy_oracle(res):
+    spec_j, spec_t, params, x, _ = _case(0, res)
+    ref = np.asarray(jt.triplane_encode_vjp(
+        {k: J(v) for k, v in params.items()}, J(x), spec_j))
+    oracle = jt.triplane_encode_reference_np(params, x, spec_j)
+    out = N(tt.triplane_encode(_tparams(params), T(x), spec_t))
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out, oracle, rtol=1e-5, atol=1e-6)
+
+
+def test_forward_bf16_rows_match_jax():
+    spec_j, spec_t, params, x, _ = _case(1)
+    ref = np.asarray(jt.triplane_encode_vjp(
+        {k: J(v) for k, v in params.items()}, J(x), spec_j, False,
+        jnp.bfloat16))
+    out = tt.encode_plain(T(params["planes"]), T(params["grid3d"]), T(x),
+                          spec_t, bf16=True)
+    np.testing.assert_allclose(N(out), ref, rtol=1e-5, atol=1e-6)
+    # and the compute-dtype output is that, rounded to bf16
+    enc = tt.triplane_encode(_tparams(params), T(x), spec_t, torch.bfloat16)
+    assert enc.dtype == torch.bfloat16
+    np.testing.assert_array_equal(N(enc), N(out.to(torch.bfloat16)))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_table_gradients_match_jax_vjp(bf16):
+    spec_j, spec_t, params, x, g = _case(2)
+    table = jnp.bfloat16 if bf16 else jnp.float32
+    _, vjp = jax.vjp(lambda p: jt.triplane_encode_vjp(p, J(x), spec_j,
+                                                      False, table),
+                     {k: J(v) for k, v in params.items()})
+    ref = vjp(J(g))[0]
+    tp = _tparams(params)
+    out = tt.TriplaneEncode.apply(tp["planes"], tp["grid3d"], T(x), spec_t,
+                                  bf16)
+    out.backward(T(g))
+    for k in ("planes", "grid3d"):
+        r = np.asarray(ref[k], np.float32)
+        if bf16:
+            np.testing.assert_allclose(N(tp[k].grad), r,
+                                       atol=2e-2 * np.abs(r).max(), err_msg=k)
+        else:
+            np.testing.assert_allclose(N(tp[k].grad), r, rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+
+
+def test_position_gradients_are_refused():
+    spec_j, spec_t, params, x, _ = _case(3, M=8)
+    with pytest.raises(NotImplementedError):
+        tt.triplane_encode(_tparams(params), T(x), spec_t, need_dx=True)
