@@ -39,8 +39,9 @@ def convert_params(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
 
 def convert_occupancy(occ_np, device) -> OccupancyState:
     """JAX OccupancyState (NamedTuple or mapping of numpy arrays) -> the
-    port's OccupancyState with the same dtypes. The JAX state's march
-    tables, which no ported march reads, are left behind."""
+    port's OccupancyState with the same dtypes, the sv march's tables
+    included. The JAX state's `coarse_occ`, which no ported march reads,
+    is left behind."""
     get = (occ_np.get if isinstance(occ_np, Mapping)
            else lambda k: getattr(occ_np, k))
     return OccupancyState(*(torch.as_tensor(np.array(get(f)), device=device)

@@ -2,12 +2,14 @@
 // forward and backward.
 //
 // Replaces the JAX package's `composite_rays`
-// (normal_clustering_nerf_tpu/ops/composite.py:34-83, without T_start),
-// whose backward JAX derives by autodiff; here the backward is written out
-// (the reference's volumerendering.cu:298-364 in the dense layout).
+// (normal_clustering_nerf_tpu/ops/composite.py:34-83), whose backward JAX
+// derives by autodiff; here the backward is written out (the reference's
+// volumerendering.cu:298-364 in the dense layout). The forward takes the
+// optional per-ray T_start of inference rounds (composite.py:60-61); the
+// backward, which only training calls, does not.
 //
 // Forward, per ray: x_s = clip(valid ? sigma*delta : 0, 0, 80),
-// T_s = exp(-(sum_{k<=s} x_k - x_s)), alpha_s = 1 - exp(-x_s),
+// T_s = exp(-(sum_{k<=s} x_k - x_s)) [* T_start], alpha_s = 1 - exp(-x_s),
 // include_s = valid_s & T_s > T_threshold, w_s = include_s ? alpha_s*T_s : 0;
 // opacity = sum w, depth = sum w*t, rend_c = sum w*raw_c, and the sample
 // counter skips the sample that crosses the threshold (composite.py:64-75).
@@ -42,12 +44,14 @@ __device__ __forceinline__ float clipped(float sigma, float delta, bool valid) {
 __global__ void composite_fwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
     const float* __restrict__ deltas, const float* __restrict__ ts,
-    const uint8_t* __restrict__ valid, int N, int K, int C, float thr,
-    float* __restrict__ opacity, float* __restrict__ depth,
-    float* __restrict__ rend, float* __restrict__ ws, int* __restrict__ vr) {
+    const uint8_t* __restrict__ valid, const float* __restrict__ T_start,
+    int N, int K, int C, float thr, float* __restrict__ opacity,
+    float* __restrict__ depth, float* __restrict__ rend,
+    float* __restrict__ ws, int* __restrict__ vr) {
   int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
   const size_t b = static_cast<size_t>(n) * K;
+  const float t_start = T_start ? T_start[n] : 1.0f;
   float csum = 0.0f, op = 0.0f, dp = 0.0f;
   float acc[16];
   for (int c = 0; c < C; ++c) acc[c] = 0.0f;
@@ -58,6 +62,7 @@ __global__ void composite_fwd_kernel(
     float x = clipped(sigmas[b + s], deltas[b + s], v);
     csum = __fadd_rn(csum, x);
     float T = expf(-__fsub_rn(csum, x));
+    if (T_start) T = __fmul_rn(T, t_start);
     float alpha = -expm1f(-x);
     bool inc = v && T > thr;
     float w = inc ? __fmul_rn(alpha, T) : 0.0f;
@@ -119,17 +124,21 @@ __global__ void composite_bwd_kernel(
 
 }  // namespace
 
+// T_start may be null (training); the forward keeps no per-sample array,
+// so it takes any K (inference rounds use up to 64).
 extern "C" int composite_fwd(const void* sigmas, const void* raws,
                              const void* deltas, const void* ts,
-                             const void* valid, int N, int K, int C, float thr,
-                             void* opacity, void* depth, void* rend, void* ws,
-                             void* vr, cudaStream_t stream) {
-  if (K > MAXK || C > 16) return static_cast<int>(cudaErrorInvalidValue);
+                             const void* valid, const void* T_start, int N,
+                             int K, int C, float thr, void* opacity,
+                             void* depth, void* rend, void* ws, void* vr,
+                             cudaStream_t stream) {
+  if (C > 16) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = 64;
   composite_fwd_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
       static_cast<const float*>(sigmas), static_cast<const float*>(raws),
       static_cast<const float*>(deltas), static_cast<const float*>(ts),
-      static_cast<const uint8_t*>(valid), N, K, C, thr,
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(T_start),
+      N, K, C, thr,
       static_cast<float*>(opacity), static_cast<float*>(depth),
       static_cast<float*>(rend), static_cast<float*>(ws),
       static_cast<int*>(vr));

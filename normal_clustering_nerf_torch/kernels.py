@@ -175,16 +175,21 @@ TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",
 TRIPLANE_BWD = Kernel("triplane_bwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F])
 COMPOSITE_FWD = Kernel("composite_fwd", "composite.cu",
-                       [P, P, P, P, P, I, I, I, F, P, P, P, P, P])
+                       [P, P, P, P, P, P, I, I, I, F, P, P, P, P, P])
 COMPOSITE_BWD = Kernel("composite_bwd", "composite.cu",
                        [P, P, P, P, P, P, P, P, P, I, I, I, F, P, P])
 DISTORTION_FWD = Kernel("distortion_fwd", "distortion.cu",
                         [P, P, P, P, I, I, P])
 DISTORTION_BWD = Kernel("distortion_bwd", "distortion.cu",
                         [P, P, P, P, P, I, I, P])
+MARCH_SV_TRAIN = Kernel("march_sv_train", "march_sv.cu",
+                        [P] * 6 + [I] * 7 + [F] * 4 + [P] * 5)
+MARCH_SV_TEST = Kernel("march_sv_test_round", "march_sv.cu",
+                       [P] * 7 + [I] * 6 + [F] * 3 + [P] * 4)
 
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
-               COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD)
+               COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
+               MARCH_SV_TEST)
 
 
 def reset_counts():

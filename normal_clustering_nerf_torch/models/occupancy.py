@@ -25,13 +25,16 @@ _MARK_CHUNK = 8
 
 
 class OccupancyState(NamedTuple):
-    """The JAX state's first three fields. Its march tables (coarse_occ,
-    sv_mask, sv_payload) are read only by the supervoxel march, which is
-    not ported yet (ROADMAP K1), so no refresh builds them; the functions
-    that build them are below."""
+    """The JAX `OccupancyState`'s fields but its dilated supervoxel mask
+    `coarse_occ`, which only the unported two-level bitfield march reads.
+    Every refresh rebuilds the supervoxel-run march's tables of cascade 0
+    from the bitfield: its undilated mask and 16-word payload
+    (`supervoxel_tables`)."""
     density_grid: torch.Tensor      # (C, G^3) f32; -1 marks invisible cells
     density_bitfield: torch.Tensor  # (C*G^3/8,) uint8
     count_grid: torch.Tensor        # (C, G^3) f32 camera-coverage fraction
+    sv_mask: torch.Tensor           # ((G/8)^3,) uint8
+    sv_payload: torch.Tensor        # ((G/8)^3, 16) int32
 
 
 def _occ_cube(bitfield: torch.Tensor, G: int) -> torch.Tensor:
@@ -84,12 +87,15 @@ class OccupancyGrid:
 
     def init_state(self) -> OccupancyState:
         G3 = self.G ** 3
+        Gc3 = (self.G // 8) ** 3
         z = dict(device=self.device)
+        u8 = dict(dtype=torch.uint8, **z)
         return OccupancyState(
             density_grid=torch.zeros((self.cascades, G3), **z),
-            density_bitfield=torch.zeros((self.cascades * G3 // 8,),
-                                         dtype=torch.uint8, **z),
+            density_bitfield=torch.zeros((self.cascades * G3 // 8,), **u8),
             count_grid=torch.zeros((self.cascades, G3), **z),
+            sv_mask=torch.zeros((Gc3,), **u8),
+            sv_payload=torch.zeros((Gc3, 16), dtype=torch.int32, **z),
         )
 
     # ------------------------------------------------------------ geometry
@@ -161,8 +167,9 @@ class OccupancyGrid:
                jitter: Optional[torch.Tensor] = None,
                cell_draws: Optional[Dict] = None,
                decay: float = 0.95) -> OccupancyState:
-        """EMA-merge fresh sigma samples into the grid and repack the bits
-        (occupancy.py:179-237; erode=False as the trainer calls it).
+        """EMA-merge fresh sigma samples into the grid, repack the bits and
+        rebuild the sv march's tables (occupancy.py:179-237; erode=False
+        as the trainer calls it).
 
         density_fn: (M, 3) world positions -> (M,) sigma.
         warmup: evaluate every cell (steps < warmup_steps).
@@ -197,7 +204,9 @@ class OccupancyGrid:
         mean_density = (torch.where(pos, grid, torch.zeros_like(grid)).sum()
                         / torch.clamp(pos.sum(), min=1))
         thr = torch.clamp(mean_density, max=density_threshold)
-        return OccupancyState(grid, packbits(grid, thr), state.count_grid)
+        bitfield = packbits(grid, thr)
+        return OccupancyState(grid, bitfield, state.count_grid,
+                              *supervoxel_tables(bitfield, self.G))
 
     # ---------------------------------------------------- visibility marks
     def mark_invisible_cells(self, state: OccupancyState, poses, img_wh,
@@ -239,4 +248,4 @@ class OccupancyGrid:
             counts[c] = count
             density[c] = torch.where(valid, torch.zeros_like(count),
                                      torch.full_like(count, -1.0))
-        return OccupancyState(density, state.density_bitfield, counts)
+        return state._replace(density_grid=density, count_grid=counts)

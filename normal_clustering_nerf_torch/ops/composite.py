@@ -10,7 +10,8 @@ on opacity, depth, rend and ws.
 
 `composite_rays` launches kernel H3 (`csrc/composite.cu`) for CUDA
 tensors and runs `composite_plain` / `composite_grad_plain` for CPU
-tensors. T_start continuation (inference rounds) is not ported.
+tensors. Inference rounds continue a ray's transmittance with `T_start`
+(forward only: nothing differentiates an inference round).
 """
 from __future__ import annotations
 
@@ -23,20 +24,24 @@ from .. import kernels
 SIGDT_MAX = 80.0  # exp(-80) ~ 1.8e-35: far below any T_threshold
 
 
-def _scan(sigmas, deltas, valid, T_threshold):
+def _scan(sigmas, deltas, valid, T_threshold, T_start=None):
     raw_x = sigmas * deltas
     x = torch.clamp(torch.where(valid, raw_x, torch.zeros_like(raw_x)),
                     0.0, SIGDT_MAX)
     T = torch.exp(-(torch.cumsum(x, dim=-1) - x))
+    if T_start is not None:
+        T = T * T_start[:, None]
     alpha = -torch.expm1(-x)
     include = valid & (T > T_threshold)
     w = torch.where(include, alpha * T, torch.zeros_like(T))
     return raw_x, x, T, alpha, include, w
 
 
-def composite_plain(sigmas, raws, deltas, ts, valid, T_threshold):
+def composite_plain(sigmas, raws, deltas, ts, valid, T_threshold,
+                    T_start=None):
     """Plain PyTorch version of the H3 forward."""
-    _, _, T, alpha, include, w = _scan(sigmas, deltas, valid, T_threshold)
+    _, _, T, alpha, include, w = _scan(sigmas, deltas, valid, T_threshold,
+                                       T_start)
     early = torch.any(include & (T * (1.0 - alpha) <= T_threshold), dim=-1)
     vr = include.sum(dim=-1) - early.to(torch.int64)
     return (w.sum(dim=-1), (w * ts).sum(dim=-1),
@@ -60,11 +65,13 @@ def composite_grad_plain(sigmas, raws, deltas, ts, valid, T_threshold,
     return d_sigmas, d_raws
 
 
-def _check_inputs(sigmas, raws, deltas, ts, valid):
+def _check_inputs(sigmas, raws, deltas, ts, valid, max_k=32):
+    """The backward keeps K <= 32 values per ray in registers; the forward
+    keeps none and passes max_k=None."""
     N, K = sigmas.shape
     C = raws.shape[-1]
-    if K > 32 or C > 16:
-        raise ValueError(f"composite kernel takes K <= 32, C <= 16; "
+    if (max_k is not None and K > max_k) or C > 16:
+        raise ValueError(f"composite kernel takes K <= {max_k}, C <= 16; "
                          f"got K={K}, C={C}")
     dev, f32 = sigmas.device, torch.float32
     return N, K, C, [
@@ -76,8 +83,11 @@ def _check_inputs(sigmas, raws, deltas, ts, valid):
     ]
 
 
-def composite_kernel(sigmas, raws, deltas, ts, valid, T_threshold):
-    N, K, C, args = _check_inputs(sigmas, raws, deltas, ts, valid)
+def composite_kernel(sigmas, raws, deltas, ts, valid, T_threshold,
+                     T_start=None):
+    N, K, C, args = _check_inputs(sigmas, raws, deltas, ts, valid, None)
+    args.append(None if T_start is None else kernels.check(
+        T_start, "T_start", torch.float32, (N,), sigmas.device))
     e = dict(dtype=torch.float32, device=sigmas.device)
     opacity, depth = torch.empty(N, **e), torch.empty(N, **e)
     rend, ws = torch.empty((N, C), **e), torch.empty((N, K), **e)
@@ -137,16 +147,26 @@ class CompositeRays(torch.autograd.Function):
         return d_sigmas, d_raws, None, None, None, None
 
 
-def composite_rays(sigmas, raws, deltas, ts, valid,
-                   T_threshold=1e-4) -> Dict[str, torch.Tensor]:
+def composite_rays(sigmas, raws, deltas, ts, valid, T_threshold=1e-4,
+                   T_start=None) -> Dict[str, torch.Tensor]:
     """Composite dense per-ray samples front to back.
 
-    sigmas, deltas, ts: (N, K) f32; raws: (N, K, C) f32; valid: (N, K) bool.
+    sigmas, deltas, ts: (N, K) f32; raws: (N, K, C) f32; valid: (N, K) bool;
+    T_start: optional (N,) transmittance each ray enters with (inference
+    rounds continue a ray's composite; no gradient then).
     Returns opacity (N,), depth (N,), rend (N, C), ws (N, K) and
     vr_samples (N,) int32. Gradients flow to sigmas and raws.
     """
-    opacity, depth, rend, ws, vr = CompositeRays.apply(
-        sigmas.contiguous(), raws.contiguous(), deltas.contiguous(),
-        ts.contiguous(), valid.contiguous(), float(T_threshold))
+    args = (sigmas.contiguous(), raws.contiguous(), deltas.contiguous(),
+            ts.contiguous(), valid.contiguous(), float(T_threshold))
+    if T_start is None:
+        opacity, depth, rend, ws, vr = CompositeRays.apply(*args)
+    else:
+        if torch.is_grad_enabled() and (sigmas.requires_grad
+                                        or raws.requires_grad):
+            raise NotImplementedError(
+                "composite_rays with T_start is forward-only (inference)")
+        fn = composite_kernel if sigmas.is_cuda else composite_plain
+        opacity, depth, rend, ws, vr = fn(*args, T_start.contiguous())
     return {"opacity": opacity, "depth": depth, "rend": rend, "ws": ws,
             "vr_samples": vr}

@@ -1,13 +1,18 @@
-"""Occupancy-bitfield ray marching on the dense (N, K) training layout.
+"""Occupancy ray marching on the dense (N, K) layout.
 
-Port of the JAX package's `ops/ray_march.py` for the bootstrap march of
-the first `bootstrap_steps` training steps: a uniform step grid
-(exp_step_factor 0), one cascade, every step probed. The supervoxel-run
-march that takes over afterwards is ROADMAP K1.
+Port of the JAX package's `ops/ray_march.py` for a uniform step grid
+(exp_step_factor 0) and one cascade:
 
-`march_rays_train_dense` launches kernel H1 (`csrc/march.cu`) for CUDA
-tensors and runs `march_rays_train_dense_plain`, the same function in
-plain PyTorch, for CPU tensors.
+  * `march_rays_train_dense`: the bootstrap march of the first
+    `bootstrap_steps` training steps, every step probed in the bitfield;
+    kernel H1 (`csrc/march.cu`);
+  * `march_rays_train_dense_sv`: the supervoxel-run ("sv") march of the
+    later training steps, and `march_rays_test_round_sv`, one round of
+    the held-out renderer; kernel K1 (`csrc/march_sv.cu`), both on
+    `sv_scan_plain`'s algorithm.
+
+Each launches its kernel for CUDA tensors and runs its `*_plain` version,
+the same function in plain PyTorch, for CPU tensors.
 """
 from __future__ import annotations
 
@@ -235,3 +240,305 @@ def march_rays_train_dense(rays_o, rays_d, hits_t, bitfield, noise, *,
               grid_size=grid_size, max_samples=max_samples,
               samples_per_ray=samples_per_ray, march_steps=march_steps,
               tail_k=tail_k)
+
+
+# ------------------------------------------------ supervoxel-run march (K1)
+# The kernel keeps each ray's selected intervals in local arrays of this
+# size; the bench's 24 intervals and the auto-full 3 * G/8 = 48 of the
+# 128^3 grid fit.
+SV_MAX_INTERVALS = 64
+
+
+def _sv_geometry(scale, grid_size, lo):
+    """(Gc, mip bound, supervoxel edge, lattice steps per interval SI)."""
+    if grid_size % 8:
+        raise ValueError(f"the sv march needs grid_size % 8 == 0, got "
+                         f"{grid_size}")
+    Gc = grid_size // 8
+    mb = min(0.5, scale)
+    sv = 2.0 * mb / Gc
+    return Gc, mb, sv, int(sv * SQRT3 / lo) + 3
+
+
+def sv_intervals_plain(rays_o, rays_d, t0, t_end, hit, sv_mask, *, scale,
+                       grid_size, RI):
+    """Phase A of `_sv_scan` (ray_march.py:614-669): the ray's box interval
+    cut at every supervoxel boundary plane, each piece's supervoxel from
+    its midpoint, the occupied pieces de-duplicated, and the first RI of
+    them selected. Returns a dict of the intermediates phases B and C
+    (and the bound of kernel K1) read."""
+    N = rays_o.shape[0]
+    Gc, mb, sv, _ = _sv_geometry(scale, grid_size, 1.0)
+    dev = rays_o.device
+    inf = float("inf")
+    jj = torch.arange(Gc + 1, dtype=torch.float32, device=dev)
+    denom = torch.where(rays_d.abs() < 1e-9, torch.full_like(rays_d, 1e-9),
+                        rays_d)
+    tb = ((jj[None, None, :] * sv - mb) - rays_o[:, :, None]) / denom[:, :, None]
+    tb = tb.reshape(N, 3 * (Gc + 1))
+    tb = torch.where((tb > t0[:, None]) & (tb < t_end[:, None]), tb,
+                     torch.full_like(tb, inf))
+    t0b = torch.where(hit, t0, torch.full_like(t0, inf))[:, None]
+    teb = torch.where(hit, t_end, torch.full_like(t_end, inf))[:, None]
+    bounds = torch.sort(torch.cat([t0b, tb, teb], dim=1), dim=1).values
+    b0, b1 = bounds[:, :-1], bounds[:, 1:]                  # (N, NB)
+    tm = 0.5 * (b0 + b1)
+    iv_valid = torch.isfinite(b1) & (b1 > b0 + 1e-9)
+    tmz = torch.where(iv_valid, tm, torch.zeros_like(tm))
+    svc = [torch.clamp(torch.floor((rays_o[:, a:a + 1] + tmz * rays_d[:, a:a + 1]
+                                    + mb) / sv), 0, Gc - 1).to(torch.int64)
+           for a in range(3)]
+    sv_id = (svc[2] * Gc + svc[1]) * Gc + svc[0]
+    occ_iv = (sv_mask[sv_id] > 0) & iv_valid
+    # an interval repeating its IMMEDIATE predecessor's supervoxel is
+    # dropped; an invalid predecessor counts as id -1 (ray_march.py:662-664)
+    cmp = torch.where(iv_valid, sv_id, torch.full_like(sv_id, -1))
+    first = torch.arange(cmp.shape[1], device=dev) == 0
+    occ_iv = occ_iv & ((cmp != torch.roll(cmp, 1, dims=1)) | first[None, :])
+    iidx, ivalid = select_first_k(occ_iv, min(RI, occ_iv.shape[1]))
+    return dict(b0=b0, b1=b1, iv_valid=iv_valid, sv_id=sv_id, iidx=iidx,
+                ivalid=ivalid, iv_extra=occ_iv.sum(-1) - ivalid.sum(-1))
+
+
+def sv_scan_plain(rays_o, rays_d, t0, t_end, hit, sv_mask, sv_payload, *,
+                  scale, grid_size, K, S, lo, RI, tail_k=0):
+    """Plain PyTorch version of kernel K1: the JAX `_sv_scan`
+    (ray_march.py:595-770) step for step, with its one-hot selects
+    written as gathers (the same values).
+
+    Returns (t_k (N, K), dt_k, valid, ray_count, rm_samples, scan_end,
+    iv_extra)."""
+    N = rays_o.shape[0]
+    G = grid_size
+    Gc, mb, sv, SI = _sv_geometry(scale, grid_size, lo)
+    dev = rays_o.device
+    A = sv_intervals_plain(rays_o, rays_d, t0, t_end, hit, sv_mask,
+                           scale=scale, grid_size=grid_size, RI=RI)
+    iidx, ivalid = A["iidx"], A["ivalid"]
+    RI = iidx.shape[1]
+    ts_r = torch.gather(A["b0"], 1, iidx)
+    svid_r = torch.gather(A["sv_id"], 1, iidx)
+    payload = sv_payload[svid_r].to(torch.int64)            # (N, RI, 16)
+    te_last = torch.gather(A["b1"], 1, iidx[:, -1:])[:, 0]
+    scan_end = torch.where(ivalid[:, -1], te_last, t_end)
+
+    # ---- phase B: SI lattice steps from each interval's start
+    k0 = torch.ceil((ts_r - t0[:, None]) / lo)
+    k0 = torch.where(ivalid, k0, torch.zeros_like(k0)).to(torch.int64) - 1
+    kk = k0[:, :, None] + torch.arange(SI, device=dev)[None, None, :]
+    tt = t0[:, None, None] + kk.to(torch.float32) * lo
+    own = ((kk >= 0) & (kk < S) & (tt < t_end[:, None, None])
+           & ivalid[:, :, None])
+    svcs = (svid_r % Gc, (svid_r // Gc) % Gc, svid_r // (Gc * Gc))
+    loc = []
+    for a in range(3):
+        pos = rays_o[:, a, None, None] + tt * rays_d[:, a, None, None]
+        cell = torch.clamp(0.5 * (pos / mb + 1.0) * G, 0.0,
+                           G - 1.0).to(torch.int64)
+        own = own & ((cell >> 3) == svcs[a][:, :, None])
+        loc.append(cell - 8 * svcs[a][:, :, None])
+    L = (loc[2] * 8 + loc[1]) * 8 + loc[0]
+    L = torch.where(own, L, torch.zeros_like(L))            # [0, 512)
+    word = torch.gather(payload, 2, L >> 5)
+    include = own & (((word >> (L & 31)) & 1) > 0)
+
+    # ---- phase C: the slot of each target occupied rank
+    cnt = torch.cumsum(include.to(torch.int64), dim=2)      # (N, RI, SI)
+    tot = cnt[:, :, -1]
+    cum = torch.cumsum(tot, dim=1)
+    m_tot = cum[:, -1]
+    targets, span_k = rank_targets(m_tot, K, tail_k)
+    valid = targets <= m_tot[:, None]
+    r = (cum[:, None, :] < targets[:, :, None]).sum(-1).clamp(max=RI - 1)
+    local = targets - torch.gather(cum - tot, 1, r)
+    cnt_r = torch.gather(cnt, 1, r[:, :, None].expand(N, K, SI))
+    jsel = torch.argmax((cnt_r >= local[:, :, None]).to(torch.int32), dim=2)
+    kk_sel = torch.gather(k0, 1, r) + jsel
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    t_k = torch.where(valid, t0[:, None] + kk_sel.to(torch.float32) * lo, zero)
+    dt_k = torch.where(valid, torch.full_like(t_k, lo), zero)
+    if tail_k > 0:
+        dt_k = dt_k * span_k.to(torch.float32)
+    ray_count = valid.sum(-1).to(torch.int32)
+    return (t_k, dt_k, valid, ray_count, ray_count.sum(), scan_end,
+            A["iv_extra"])
+
+
+def _sv_intervals(n_intervals: int, grid_size: int) -> int:
+    # auto-full horizon (ray_march.py:561-571): no ray visits more than
+    # 3 * (G/8) supervoxels, so nothing truncates
+    return n_intervals if n_intervals > 0 else 3 * (grid_size // 8)
+
+
+def _test_intervals(n_intervals: int) -> int:
+    # a test round has no auto-full horizon: the JAX version takes
+    # n_intervals as given and fails on 0
+    if n_intervals <= 0:
+        raise ValueError(f"a test round needs n_intervals >= 1, got "
+                         f"{n_intervals}")
+    return n_intervals
+
+
+def march_rays_train_dense_sv_plain(rays_o, rays_d, hits_t, sv_mask,
+                                    sv_payload, noise, *, scale, grid_size,
+                                    max_samples, samples_per_ray,
+                                    march_steps=0, n_intervals=8,
+                                    tail_k=0) -> DenseMarchResult:
+    """Plain PyTorch version of K1's training launcher
+    (ray_march.py:519-592)."""
+    lo = SQRT3 / max_samples
+    S = march_steps or max_samples
+    K = min(samples_per_ray, S)
+    t1, t2 = hits_t[:, 0], hits_t[:, 1]
+    hit = t1 >= 0
+    t0 = t1 + lo * noise
+    t_end = torch.where(hit, torch.minimum(t2, t0 + S * lo),
+                        torch.full_like(t2, -float("inf")))
+    t_k, dt_k, valid, ray_count, rm, _, iv_extra = sv_scan_plain(
+        rays_o, rays_d, t0, t_end, hit, sv_mask, sv_payload, scale=scale,
+        grid_size=grid_size, K=K, S=S, lo=lo,
+        RI=_sv_intervals(n_intervals, grid_size), tail_k=tail_k)
+    cut = hit & (iv_extra > 0)
+    if tail_k <= 0:
+        # first-K: only under-filled rays lost samples
+        cut = cut & (ray_count < K)
+    return DenseMarchResult(t_k, dt_k, valid, ray_count, rm.to(torch.int32),
+                            cut.sum().to(torch.int32))
+
+
+def march_rays_test_round_sv_plain(rays_o, rays_d, cursor, t_far, alive,
+                                   sv_mask, sv_payload, *, scale, grid_size,
+                                   max_samples, n_steps, n_intervals=8):
+    """Plain PyTorch version of K1's test-round launcher
+    (ray_march.py:773-817). Returns (t, dt, valid, new_cursor)."""
+    lo = SQRT3 / max_samples
+    K = n_steps
+    hit = alive & (cursor >= 0)
+    t0 = cursor
+    t_end = torch.where(hit, t_far, torch.full_like(t_far, -float("inf")))
+    t_k, dt_k, valid, ray_count, _, scan_end, _ = sv_scan_plain(
+        rays_o, rays_d, t0, t_end, hit, sv_mask, sv_payload, scale=scale,
+        grid_size=grid_size, K=K, S=max_samples, lo=lo,
+        RI=_test_intervals(n_intervals))
+    # lattice-aligned cursor: one step past the last sample when K were
+    # found, else the first lattice point at or after the scan horizon;
+    # torch.round rounds half to even, as jnp.round does
+    t_last = torch.where(valid, t_k, torch.full_like(t_k, -float("inf")))
+    t_last = t_last.max(dim=1).values
+    k_last = torch.round((t_last - t0) / lo)
+    cur_full = t0 + (k_last + 1.0) * lo
+    cur_part = t0 + torch.ceil(torch.clamp(scan_end - t0, min=0.0) / lo) * lo
+    new_cursor = torch.where(ray_count >= K, cur_full, cur_part)
+    return t_k, dt_k, valid, torch.where(hit, new_cursor, cursor)
+
+
+def _sv_tables(sv_mask, sv_payload, grid_size, dev):
+    Gc3 = (grid_size // 8) ** 3
+    return [kernels.check(sv_mask, "sv_mask", torch.uint8, (Gc3,), dev),
+            kernels.check(sv_payload, "sv_payload", torch.int32, (Gc3, 16),
+                          dev)]
+
+
+def _sv_check_intervals(RI: int):
+    if RI > SV_MAX_INTERVALS:
+        raise ValueError(f"the sv march kernel takes at most "
+                         f"{SV_MAX_INTERVALS} intervals, got {RI}")
+
+
+def _march_sv_train_kernel(rays_o, rays_d, hits_t, sv_mask, sv_payload,
+                           noise, *, scale, grid_size, max_samples,
+                           samples_per_ray, march_steps, n_intervals,
+                           tail_k) -> DenseMarchResult:
+    lo = SQRT3 / max_samples
+    S = march_steps or max_samples
+    K = min(samples_per_ray, S)
+    _, mb, sv, SI = _sv_geometry(scale, grid_size, lo)
+    RI = min(_sv_intervals(n_intervals, grid_size),
+             3 * (grid_size // 8 + 1) + 1)
+    _sv_check_intervals(RI)
+    N = rays_o.shape[0]
+    dev, f32 = rays_o.device, torch.float32
+    args = [kernels.check(rays_o, "rays_o", f32, (N, 3), dev),
+            kernels.check(rays_d, "rays_d", f32, (N, 3), dev),
+            kernels.check(hits_t, "hits_t", f32, (N, 2), dev),
+            *_sv_tables(sv_mask, sv_payload, grid_size, dev),
+            kernels.check(noise, "noise", f32, (N,), dev)]
+    t = torch.empty((N, K), dtype=f32, device=dev)
+    dt = torch.empty((N, K), dtype=f32, device=dev)
+    valid = torch.empty((N, K), dtype=torch.bool, device=dev)
+    count = torch.empty((N,), dtype=torch.int32, device=dev)
+    sums = torch.zeros((2,), dtype=torch.int32, device=dev)  # rm, trunc
+    if N > 0:
+        # S * lo in double, then f32: the constant the JAX t_end adds
+        kernels.MARCH_SV_TRAIN.launch(
+            *args, N, S, K, tail_k, RI, SI, grid_size, lo, S * lo, mb, sv,
+            kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
+            kernels.ptr(count), kernels.ptr(sums), device=dev)
+    return DenseMarchResult(t, dt, valid, count, sums[0], sums[1])
+
+
+def _march_sv_test_round_kernel(rays_o, rays_d, cursor, t_far, alive,
+                                sv_mask, sv_payload, *, scale, grid_size,
+                                max_samples, n_steps, n_intervals):
+    lo = SQRT3 / max_samples
+    K = n_steps
+    _, mb, sv, SI = _sv_geometry(scale, grid_size, lo)
+    RI = min(_test_intervals(n_intervals), 3 * (grid_size // 8 + 1) + 1)
+    _sv_check_intervals(RI)
+    N = rays_o.shape[0]
+    dev, f32 = rays_o.device, torch.float32
+    args = [kernels.check(rays_o, "rays_o", f32, (N, 3), dev),
+            kernels.check(rays_d, "rays_d", f32, (N, 3), dev),
+            kernels.check(cursor, "cursor", f32, (N,), dev),
+            kernels.check(t_far, "t_far", f32, (N,), dev),
+            kernels.check(alive, "alive", torch.bool, (N,), dev),
+            *_sv_tables(sv_mask, sv_payload, grid_size, dev)]
+    t = torch.empty((N, K), dtype=f32, device=dev)
+    dt = torch.empty((N, K), dtype=f32, device=dev)
+    valid = torch.empty((N, K), dtype=torch.bool, device=dev)
+    new_cursor = torch.empty((N,), dtype=f32, device=dev)
+    if N > 0:
+        kernels.MARCH_SV_TEST.launch(
+            *args, N, max_samples, K, RI, SI, grid_size, lo, mb, sv,
+            kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
+            kernels.ptr(new_cursor), device=dev)
+    return t, dt, valid, new_cursor
+
+
+def march_rays_train_dense_sv(rays_o, rays_d, hits_t, sv_mask, sv_payload,
+                              noise, *, scale, grid_size, max_samples,
+                              samples_per_ray, march_steps=0, n_intervals=8,
+                              tail_k=0) -> DenseMarchResult:
+    """Supervoxel-run training march (the JAX
+    `march_rays_train_dense_sv`): the same sample set as the bitfield
+    march over S = march_steps steps of sqrt(3)/max_samples, unless a ray
+    holds more than `n_intervals` occupied supervoxel runs (counted in
+    `trunc_rays`). n_intervals <= 0: every run (3 * G/8).
+
+    rays_o, rays_d: (N, 3) f32; hits_t: (N, 2) box interval (-1 on miss);
+    sv_mask: ((G/8)^3,) uint8; sv_payload: ((G/8)^3, 16) int32 (see
+    `models/occupancy.py:supervoxel_tables`); noise: (N,) in [0, 1).
+    """
+    fn = (_march_sv_train_kernel if rays_o.is_cuda
+          else march_rays_train_dense_sv_plain)
+    return fn(rays_o, rays_d, hits_t, sv_mask, sv_payload, noise,
+              scale=scale, grid_size=grid_size, max_samples=max_samples,
+              samples_per_ray=samples_per_ray, march_steps=march_steps,
+              n_intervals=n_intervals, tail_k=tail_k)
+
+
+def march_rays_test_round_sv(rays_o, rays_d, cursor, t_far, alive, sv_mask,
+                             sv_payload, *, scale, grid_size, max_samples,
+                             n_steps, n_intervals=8):
+    """One inference marching round (the JAX `march_rays_test_round_sv`):
+    the next `n_steps` occupied lattice samples of each alive ray from its
+    cursor, and the cursor of the next round, on the ray's step lattice.
+
+    cursor, t_far: (N,) f32; alive: (N,) bool. Returns (t (N, K), dt,
+    valid, new_cursor (N,)).
+    """
+    fn = (_march_sv_test_round_kernel if rays_o.is_cuda
+          else march_rays_test_round_sv_plain)
+    return fn(rays_o, rays_d, cursor, t_far, alive, sv_mask, sv_payload,
+              scale=scale, grid_size=grid_size, max_samples=max_samples,
+              n_steps=n_steps, n_intervals=n_intervals)

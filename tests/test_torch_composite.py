@@ -91,6 +91,30 @@ def test_ws_cotangent_alone_reaches_sigmas():
     np.testing.assert_allclose(N(st.grad), ref, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("K", [16, 64])
+def test_forward_with_T_start_matches_jax(K):
+    """Inference rounds continue each ray from its transmittance so far
+    (composite.py:60-61), at the test renderer's K up to 64; T_start near
+    the threshold makes rays stop on their first sample."""
+    sig, raws, dt, ts, valid, _ = _case(6 + K, K=K)
+    rng = np.random.default_rng(K)
+    T_start = rng.uniform(0.0, 1.0, sig.shape[0]).astype(np.float32)
+    T_start[:20] = rng.uniform(THR, 3 * THR, 20)
+    ref = jc.composite_rays(J(sig), J(raws), J(dt), J(ts), J(valid), THR,
+                            T_start=J(T_start))
+    out = tc.composite_rays(T(sig), T(raws), T(dt), T(ts), T(valid), THR,
+                            T_start=T(T_start))
+    for k in ("opacity", "depth", "rend", "ws"):
+        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]),
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    np.testing.assert_array_equal(N(out["vr_samples"]),
+                                  np.asarray(ref["vr_samples"]))
+    assert (N(out["opacity"]) <= T_start + 1e-5).all()   # f32 sums of 64 terms
+    with pytest.raises(NotImplementedError):
+        tc.composite_rays(T(sig).requires_grad_(True), T(raws), T(dt),
+                          T(ts), T(valid), THR, T_start=T(T_start))
+
+
 def test_kernel_wrapper_refuses_wide_rows():
     sig, raws, dt, ts, valid, _ = _case(5, n=4, K=40)
     with pytest.raises(ValueError):

@@ -60,17 +60,18 @@ def _state_pair(seed, scale_grid):
 
 
 def _assert_states_equal(out, ref):
-    """The port's state fields, and the march tables the JAX state also
-    carries, built from the port's bitfield."""
+    """Every field of the port's state, the sv tables (sv_mask,
+    sv_payload) that the refresh rebuilds included, and the JAX state's
+    coarse_occ built from the port's bitfield."""
+    assert set(to.OccupancyState._fields) == \
+        set(jo.OccupancyState._fields) - {"coarse_occ"}
     for name in to.OccupancyState._fields:
         np.testing.assert_array_equal(N(getattr(out, name)),
                                       np.asarray(getattr(ref, name)),
                                       err_msg=name)
-    mask, payload = to.supervoxel_tables(out.density_bitfield, G)
-    for name, a in (("coarse_occ", to.coarse_occupancy(out.density_bitfield, G)),
-                    ("sv_mask", mask), ("sv_payload", payload)):
-        np.testing.assert_array_equal(N(a), np.asarray(getattr(ref, name)),
-                                      err_msg=name)
+    np.testing.assert_array_equal(
+        N(to.coarse_occupancy(out.density_bitfield, G)),
+        np.asarray(ref.coarse_occ), err_msg="coarse_occ")
 
 
 def test_supervoxel_tables_and_coarse_mask():
@@ -97,6 +98,7 @@ def test_warmup_update_with_injected_jitter():
     out = tg.update(st_t, _density_t, THR, warmup=True, jitter=T(jitter))
     _assert_states_equal(out, ref)
     assert int(N(out.density_bitfield).astype(bool).sum()) > 0
+    assert int(N(out.sv_mask).sum()) > 0
 
 
 @pytest.mark.parametrize("scale_grid", [1.0, 0.0])

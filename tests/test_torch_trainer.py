@@ -2,6 +2,7 @@
 at the slice configuration (tests/test_torch_common.py:slice_configs),
 and the refusal to run anywhere but on the card unless asked.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -36,10 +37,20 @@ def test_a_few_steps_give_a_finite_falling_loss(scene):
 
 
 def test_steps_after_the_bootstrap_are_refused(scene):
+    """After the bootstrap only the supervoxel-run march is ported: a
+    configuration that turns it off raises (the bitfield march over
+    march_block steps is ROADMAP A13), and the default one trains."""
     _, cfg = slice_configs()
-    tr = Trainer(cfg, scene, device="cpu")
+    off = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                 march_coarse=False))
+    tr = Trainer(off, scene, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tr.train_step_core(bootstrap=False)
+    tr = Trainer(cfg, scene, device="cpu")
+    tr.occ_update(warmup=True)
+    m = tr.train_step_core(bootstrap=False)
+    assert math.isfinite(float(m["loss_total"]))
+    assert 0 < float(m["rm_samples_per_ray"]) <= 16
 
 
 def test_the_card_is_the_default_device(scene):
