@@ -5,6 +5,7 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py                  # what the acceptance run does
     python3 chip_smoke.py --profile DIR    # also trace 4 steps of each march
+                                           # with each field
 
 Phases (any failed check raises, so the script exits non-zero):
   1. build the kernels (`csrc/*.cu`, one nvcc per source, all at once);
@@ -36,9 +37,20 @@ Phases (any failed check raises, so the script exits non-zero):
      views, counts read: the test-round march, the field and the
      compositing must have launched; every metric finite and rotation
      recovery done;
-  6. step times (bootstrap and sv steps), then the device time of each
-     kernel and of its plain version (torch.profiler), which tracing
-     would slow if it ran before.
+  then phases 2, 3 and 5 again at the bench configuration with the brick
+  field (hash_layout "brick", kernels H5/H6) and with the tcnn hash grid
+  ("tcnn", H7/H8): the encode kernels against their plain versions on
+  the batch's march samples (forward in f32 and bf16, the table gradient)
+  and on every cell of the grid (the refresh's shape), H5 also at the
+  shape of the Pallas probe P4 (the (16, 8192, 128) table, 262,144
+  points); the step parity at the CPU tests' size; 576 counted steps
+  through `Trainer.fit` (H5/H6 or H7/H8, H1, H3, H4 and K1 must launch);
+  `validate`;
+  6. for each field: step times (bootstrap and sv steps) and one refresh
+     of each form; then the device time of each kernel, of its plain
+     version and of its PyTorch yardstick (`index_select` of the rows a
+     hash-grid forward reads, `index_add_` of its backward's terms; for
+     H5 also at P4's shape) by CUDA events (`device_ms`).
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -70,33 +82,61 @@ def log(msg):
 
 
 def traced(fn):
-    """Run `fn` under torch.profiler; return its device events (kernels,
-    fills, copies: one entry per name)."""
+    """Run `fn` under torch.profiler; return the profile and its device
+    events (kernels, fills, copies: one entry per name), which may be empty:
+    the profiler's CUPTI trace can come back without device events."""
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as p:
         fn()
         torch.cuda.synchronize()
-    dev = [e for e in p.key_averages() if e.device_type == DeviceType.CUDA]
-    if not dev:
-        raise RuntimeError("the profiler recorded no device time")
-    return p, dev
+    return p, [e for e in p.key_averages()
+               if e.device_type == DeviceType.CUDA]
 
 
-def device_ms(fn, iters=20, warm=3):
-    """Device time of one call of `fn` in ms: the summed durations of the
-    kernels, fills and copies it launches, mean over `iters` calls. A
-    wrapper's host time (argument checks, allocation, the ctypes call) is
-    not counted: at these sizes it is longer than most kernels, and CUDA
-    events around back-to-back calls would time the host instead."""
+CARD_CLOCK_HZ = 2.0e9   # above the H100's highest SM clock (1.98 GHz)
+QUEUED = []   # labels of the device_ms calls not captured in a graph
+
+
+def device_ms(fn, label, iters=20, warm=3):
+    """Time of one call of `fn` on the card in ms, mean over `iters` calls,
+    by CUDA events (not torch.profiler, whose trace can come back without
+    device events). The call is captured once in a CUDA graph, and the
+    graph's `iters` replays are queued behind a sleep kernel, so the card
+    runs them back to back and the host's time per launch (argument
+    checks, allocation, the ctypes call, longer at these sizes than most
+    kernels) is not counted. A call that cannot be captured is queued
+    itself, behind a sleep twice as long as the host's time to queue the
+    calls, and its `label` is added to QUEUED: a call that launches more
+    kernels than the launch queue holds can then still show its host
+    time."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
     for _ in range(warm):
         fn()
-
-    def run():
-        for _ in range(iters):
+    host_s = (time.perf_counter() - t) / warm
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
             fn()
-    _, dev = traced(run)
-    return sum(e.self_device_time_total for e in dev) / 1e3 / iters
+    except RuntimeError:
+        graph = None
+    torch.cuda.synchronize()
+    if graph is not None:
+        call, sleep_s = graph.replay, 5e-3
+        graph.replay()   # the first replay uploads the graph
+    else:
+        QUEUED.append(label)
+        call, sleep_s = fn, min(2.0, 2 * host_s * iters + 1e-3)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(sleep_s * CARD_CLOCK_HZ))
+    start.record()
+    for _ in range(iters):
+        call()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def nbytes(*ts):
@@ -140,16 +180,26 @@ class Check:
             raise RuntimeError(f"{phase}: checks failed: {self.failures}")
 
 
-def small_config():
+# the CPU parity tests' cut of each field (tests/test_torch_model.py,
+# tests/test_torch_slice_layouts.py): 2^8 bricks or 2^12 rows a level, 64
+# vertices at the finest level
+SMALL_FIELD = {"triplane": dict(plane_res=32, grid3d_res=16),
+               "brick": dict(log2_bricks=8, finest_resolution=128),
+               "tcnn": dict(log2_hashmap_size=12, finest_resolution=128)}
+
+
+def small_config(layout="triplane"):
     """The bench configuration at the size of the CPU parity tests
-    (tests/test_torch_common.py:slice_configs): f32 compute, plane_res 32,
-    grid3d_res 16, grid 32, batch 96 at 16 samples per ray."""
+    (tests/test_torch_common.py:slice_configs): f32 compute, the field
+    cut as `SMALL_FIELD[layout]`, grid 32, batch 96 at 16 samples per
+    ray."""
     from normal_clustering_nerf_torch.bench import bench_config
-    cfg = bench_config()
+    cfg = bench_config(hash_layout=layout)
     batch = 96
     return cfg.replace(
-        model=dataclasses.replace(cfg.model, grid_size=32, plane_res=32,
-                                  grid3d_res=16, compute_dtype="float32"),
+        model=dataclasses.replace(cfg.model, grid_size=32,
+                                  compute_dtype="float32",
+                                  **SMALL_FIELD[layout]),
         render=dataclasses.replace(cfg.render, sample_budget=batch * 16),
         data=dataclasses.replace(cfg.data, batch_size=batch))
 
@@ -160,20 +210,20 @@ def _to_card(tree):
     return tree.cuda() if isinstance(tree, torch.Tensor) else tree
 
 
-def step_parity(seed=11):
-    """Two training steps at `small_config`, each on the card through the
-    kernels and on the CPU through the plain versions, from the same
-    parameters, optimizer state, occupancy and draws (made with numpy from
-    `seed`): a bootstrap step, then, after a refresh that rebuilds the sv
-    tables, a supervoxel-run step. The CPU path is the one the tests hold
-    against the JAX package."""
+def step_parity(layout="triplane", seed=11):
+    """Two training steps at `small_config(layout)`, each on the card
+    through the kernels and on the CPU through the plain versions, from
+    the same parameters, optimizer state, occupancy and draws (made with
+    numpy from `seed`): a bootstrap step, then, after a refresh that
+    rebuilds the sv tables, a supervoxel-run step. The CPU path is the one
+    the tests hold against the JAX package."""
     import numpy as np
     from normal_clustering_nerf_torch.datasets.synthetic import (
         SyntheticDataset)
     from normal_clustering_nerf_torch.models.occupancy import OccupancyState
     from normal_clustering_nerf_torch.training import Trainer
 
-    cfg = small_config()
+    cfg = small_config(layout)
     scene = SyntheticDataset(split="train", img_wh=(24, 24),
                              n_images=6).load()
     cpu = Trainer(cfg, scene, device="cpu")
@@ -197,18 +247,24 @@ def step_parity(seed=11):
         ref = cpu.train_step_core(bootstrap=boot, draws=draws)
         got = {k: v.cpu() for k, v in
                card.train_step_core(bootstrap=boot, draws=draws).items()}
-        log(f"step parity, {'bootstrap' if boot else 'sv'} step at grid "
-            f"{cfg.model.grid_size}, batch {cfg.data.batch_size}, f32: the "
-            f"card against the CPU (rm/ray {float(ref['rm_samples_per_ray']):.3f},"
-            f" trunc {float(ref['trunc_ray_frac']):.4f})")
+        log(f"step parity, {layout}, {'bootstrap' if boot else 'sv'} step "
+            f"at grid {cfg.model.grid_size}, batch {cfg.data.batch_size}, "
+            f"f32: the card against the CPU (rm/ray "
+            f"{float(ref['rm_samples_per_ray']):.3f}, trunc "
+            f"{float(ref['trunc_ray_frac']):.4f})")
         # the same tolerances as tests/test_torch_slice.py: sums in another
         # order (cuBLAS, the H2 atomics) through three MLP layers
         for k in sorted(ref):
             if k.startswith("loss_"):
                 chk.close(k, got[k], ref[k], 1e-4)
+        # the counters, compared as counts of the batch's rays: the card
+        # divides a count by the ray count as a product with its
+        # reciprocal, which can round the ratio one ulp off the CPU's
+        n_rays = card.sampler.batch_size
         for k in ("rm_samples_per_ray", "vr_samples_per_ray",
                   "trunc_ray_frac"):
-            chk.equal(k, got[k], ref[k])
+            chk.equal(k, torch.round(got[k] * n_rays),
+                      torch.round(ref[k] * n_rays))
         for n, g in cpu.last_grads.items():
             chk.close(f"d {n}", card.last_grads[n].cpu(), g, 1e-3)
         if boot:   # the refresh that builds the sv march's tables
@@ -216,7 +272,7 @@ def step_parity(seed=11):
             if not int(cpu.occ.sv_mask.sum()):
                 raise RuntimeError("step parity: the refresh left no "
                                    "occupied supervoxel")
-    chk.done("step parity")
+    chk.done(f"step parity, {layout}")
 
 
 def main_path_inputs(tr, gen):
@@ -442,6 +498,142 @@ def check_kernels(tr, gen):
     return rec, (a[0], a[1], a[2], a[4])
 
 
+# the field's launchers of each layout, and the launchers every path shares
+FIELD_KERNELS = {"triplane": ("triplane_fwd", "triplane_bwd"),
+                 "brick": ("brick_fwd", "brick_bwd"),
+                 "tcnn": ("hash_grid_fwd", "hash_grid_bwd")}
+PATH_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
+                "distortion_fwd", "distortion_bwd", "march_sv_train")
+P4_POINTS = 262_144   # experiments/pallas_gather2.py: M = 8192 rays x 32
+ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
+
+
+def encode_module(layout):
+    from normal_clustering_nerf_torch.models import brick_hash, hash_encoding
+    return brick_hash if layout == "brick" else hash_encoding
+
+
+def encode_lanes(x, spec, layout):
+    """Flat table indices of the values the encode of `x` reads with a
+    non-zero weight (brick: (row, slot, feature) of the 8 corners; tcnn:
+    (row, feature)), and the values' weights: (M*L*8, F) each."""
+    mod, F = encode_module(layout), spec.n_features
+    f = torch.arange(F, device=x.device)
+    lanes, ws = [], []
+    for l in range(spec.n_levels):
+        if layout == "brick":
+            row, slots, w = mod.level_geometry(x, spec, l)
+            lanes.append(((l * spec.n_bricks + row[:, None]) * 64 + slots)
+                         [..., None] * F + f)
+        else:
+            rows, w = mod.level_corners(x, spec, l)
+            lanes.append(rows[..., None] * F + f)
+        ws.append(w[..., None].expand(-1, -1, F))
+    return (torch.stack(lanes, 1).reshape(-1, F),
+            torch.stack(ws, 1).reshape(-1, F))
+
+
+def touched_encode_bytes(x, spec, layout):
+    """Bytes of the table that the encode of `x` needs: the distinct values
+    read with a non-zero weight."""
+    lanes, w = encode_lanes(x, spec, layout)
+    return 4 * torch.unique(lanes[w != 0]).numel()
+
+
+def gathered_rows(x, spec):
+    """Brick rows of `x` at every level, as flat rows of the (L*n_bricks,
+    128) table: the rows the JAX forward and the Pallas probes gather."""
+    from normal_clustering_nerf_torch.models.brick_hash import level_geometry
+    return torch.cat([l * spec.n_bricks + level_geometry(x, spec, l)[0]
+                      for l in range(spec.n_levels)])
+
+
+def check_encoding(tr, gen):
+    """Phase 2 of the brick and the tcnn path: H5/H6 (brick) or H7/H8
+    (tcnn) against their plain versions on the main path's inputs (the
+    bootstrap march's samples of one batch, forward in f32 and bf16, the
+    table gradient under an f32 and a bf16-rounded cotangent) and on a
+    refresh-sized batch (every cell of the grid, forward in the compute
+    dtype); H5 also at the Pallas probe P4's shape. Returns the records
+    of both launchers for `time_kernels`, with the PyTorch yardsticks:
+    `index_select` of the rows the forward reads (brick: whole 128-value
+    rows, as the JAX forward and the probes gather them), `index_add_` of
+    the backward's terms into a zeroed table."""
+    layout = tr.cfg.model.hash_layout
+    mod, (fwd, bwd) = encode_module(layout), FIELD_KERNELS[layout]
+    inp = main_path_inputs(tr, gen)
+    x, spec = inp["x"], tr.model.spec
+    table = tr.model.hash_table.detach()
+    M, L, F = x.shape[0], spec.n_levels, spec.n_features
+    f32, bf16 = torch.float32, torch.bfloat16
+    out_dt = tr.model.compute_dtype
+    chk = Check()
+    log(f"{LABEL[fwd]}/{LABEL[bwd]} {layout} encode: M={M}, L={L}, table "
+        f"{tuple(table.shape)}, dense levels {sum(spec.dense)}")
+    # the same operations in the same order as the plain version (no FMA
+    # either side): equal but for the last bit, 1e-6 of the largest value
+    errs = [chk.close(f"encode {dt}", mod.encode_kernel(table, x, spec, dt),
+                      mod.encode_plain(table, x, spec).to(dt), 1e-6)
+            for dt in (f32, bf16)]
+    xr = torch.rand((tr.cfg.model.grid_size ** 3, 3), generator=gen,
+                    device=x.device)
+    errs.append(chk.close(f"encode {out_dt}, refresh shape M={xr.shape[0]}",
+                          mod.encode_kernel(table, xr, spec, out_dt),
+                          mod.encode_plain(table, xr, spec).to(out_dt), 1e-6))
+    g = torch.randn((M, spec.out_dim), generator=gen, device=x.device)
+    gerrs = []
+    for name, gg in (("f32", g), ("bf16", g.to(bf16).to(f32))):
+        # fp32 atomics in launch order vs index_add_: up to ~10^4 terms
+        # per value at the coarse levels, summed in another order
+        gerrs.append(chk.close(f"d_table ({name} cotangent)",
+                               mod.encode_grad_kernel(x, gg, spec),
+                               mod.encode_grad_plain(x, gg, spec), 1e-4))
+    lanes, w = encode_lanes(x, spec, layout)
+    lanes, upd = lanes.reshape(-1), (w * g.reshape(M, L, 1, F)
+                                     .expand(-1, -1, 8, -1)
+                                     .reshape(-1, F)).reshape(-1)
+    d_lib = torch.zeros(table.numel(), dtype=f32, device=x.device)
+    if layout == "brick":
+        rows, src = gathered_rows(x, spec), table.view(-1, spec.row_width)
+    else:
+        rows, src = lanes[::F] // F, table
+    touched = touched_encode_bytes(x, spec, layout)
+    log(f"  table bytes the batch touches {touched} of {nbytes(table)}")
+    ops = M * L * ENCODE_OPS
+    rec = {fwd: dict(
+        err=max(errs),
+        kernel=(lambda: mod.encode_kernel(table, x, spec, out_dt)),
+        plain=(lambda: mod.encode_plain(table, x, spec).to(out_dt)),
+        library=(lambda: torch.index_select(src, 0, rows)),
+        bound=bound(nbytes(x) + touched
+                    + M * spec.out_dim * (2 if out_dt == bf16 else 4), ops),
+        at_refresh_shape=(xr.shape[0], lambda: mod.encode_kernel(
+            table, xr, spec, out_dt))),
+        bwd: dict(
+        err=max(gerrs),
+        kernel=(lambda: mod.encode_grad_kernel(x, g, spec)),
+        plain=(lambda: mod.encode_grad_plain(x, g, spec)),
+        library=(lambda: d_lib.index_add_(0, lanes, upd)),
+        bound=bound(nbytes(x, g, table), ops))}
+    if layout == "brick":
+        # P4's shape: the (16, 8192, 128) table and 262,144 points, whose
+        # rows P4 gathers whole into a (16, 262144, 128) f32 array
+        xp = torch.rand((P4_POINTS, 3), generator=gen, device=x.device)
+        rp = gathered_rows(xp, spec)
+        errs.append(chk.close(f"encode f32, P4 shape M={P4_POINTS}",
+                              mod.encode_kernel(table, xp, spec, f32),
+                              mod.encode_plain(table, xp, spec), 1e-6))
+        rec[fwd]["err"] = max(errs)
+        rec[fwd]["at_p4_shape"] = dict(
+            kernel=lambda: mod.encode_kernel(table, xp, spec, f32),
+            library=lambda: torch.index_select(src, 0, rp),
+            bound=bound(nbytes(xp) + touched_encode_bytes(xp, spec, layout)
+                        + P4_POINTS * spec.out_dim * 4,
+                        P4_POINTS * L * ENCODE_OPS))
+    chk.done(f"{layout} encode checks")
+    return rec
+
+
 def random_occupancy(tr, gen, density=0.2):
     """An occupancy state whose cells are set at random with `density`, plus
     two solid slabs and a wall shell, so that many rays cross more occupied
@@ -646,23 +838,45 @@ REPLACES = {
     "distortion_bwd": "normal_clustering_nerf_tpu/ops/distortion.py:36",
     "march_sv_train": "normal_clustering_nerf_tpu/ops/ray_march.py:519",
     "march_sv_test_round": "normal_clustering_nerf_tpu/ops/ray_march.py:773",
+    # the Pallas probe P4 (pallas16) of the brick forward's gather stage;
+    # the JAX function is models/brick_hash.py:178 `_brick_encode_impl`
+    "brick_fwd": "experiments/pallas_gather2.py:77",
+    "brick_bwd": "normal_clustering_nerf_tpu/models/brick_hash.py:208",
+    "hash_grid_fwd": "normal_clustering_nerf_tpu/models/hash_encoding.py:123",
+    "hash_grid_bwd": "normal_clustering_nerf_tpu/models/hash_encoding.py:199",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
          "distortion_fwd": "H4", "distortion_bwd": "H4",
-         "march_sv_train": "K1", "march_sv_test_round": "K1"}
+         "march_sv_train": "K1", "march_sv_test_round": "K1",
+         "brick_fwd": "H5", "brick_bwd": "H6", "hash_grid_fwd": "H7",
+         "hash_grid_bwd": "H8"}
 
 
 def time_kernels(rec):
-    """Device time of each kernel and of its plain version, on the inputs
-    the checks kept. Runs after the main path, because tracing with
-    torch.profiler slows the host's launches in the rest of the process."""
+    """Device time of each kernel, of its plain version and of its PyTorch
+    yardstick where it has one, on the inputs the checks kept."""
     for name, r in rec.items():
-        r["ms"], r["plain_ms"] = device_ms(r.pop("kernel")), device_ms(r.pop("plain"))
+        r["ms"] = device_ms(r.pop("kernel"), name)
+        r["plain_ms"] = device_ms(r.pop("plain"), f"{name} plain")
+        lib = r.pop("library", None)
+        r["library_ms"] = device_ms(lib, f"{name} library") if lib else None
         if "at_refresh_shape" in r:
             M, fn = r.pop("at_refresh_shape")
             log(f"  {name} at the refresh shape, M={M}: "
-                f"{device_ms(fn, 5):.4f} ms")
+                f"{device_ms(fn, f'{name} refresh', 5):.4f} ms")
+        if "at_p4_shape" in r:
+            p4 = r.pop("at_p4_shape")
+            r["p4_ms"] = device_ms(p4["kernel"], f"{name} P4")
+            r["p4_library_ms"] = device_ms(p4["library"], f"{name} P4 library",
+                                           5)
+            r["p4_bound_ms"] = p4["bound"][0]
+            log(f"  {name} at P4's shape, {P4_POINTS} points: {r['p4_ms']:.4f}"
+                f" ms (bound {r['p4_bound_ms']:.4f}, {p4['bound'][1]}); "
+                f"index_select of the 16 x {P4_POINTS} whole rows P4 gathers: "
+                f"{r['p4_library_ms']:.4f} ms")
+    log("  timed from a CUDA graph: every call"
+        + (f" but {', '.join(QUEUED)} (timed queued)" if QUEUED else ""))
 
 
 def counted(fn):
@@ -678,9 +892,11 @@ def counted(fn):
 
 
 def train(tr):
-    """Phase 3: the main path's training steps, counted: BOOT_STEPS
-    bootstrap steps, then SV_STEPS supervoxel-run steps, timed apart.
+    """Phase 3: a path's training steps, counted: BOOT_STEPS bootstrap
+    steps, then SV_STEPS supervoxel-run steps, timed apart. Every launcher
+    of the path (its field's and the shared ones) must have launched.
     Returns (history, counts, bootstrap s, sv s)."""
+    layout = tr.cfg.model.hash_layout
     times = []
 
     def run():
@@ -692,9 +908,9 @@ def train(tr):
             times.append(time.perf_counter() - t)
         return hist
     hist, counts, _ = counted(run)
-    log(f"launches in {STEPS} steps: {counts}")
-    missing = [n for n, c in counts.items()
-               if c == 0 and n != "march_sv_test_round"]
+    log(f"launches in {STEPS} {layout} steps: {counts}")
+    missing = [n for n in PATH_KERNELS + FIELD_KERNELS[layout]
+               if counts[n] == 0]
     if missing:
         raise RuntimeError(f"kernels never launched on the main path: {missing}")
     if counts["march_sv_train"] != SV_STEPS:
@@ -728,9 +944,11 @@ def check_losses(hist):
 
 def validate(tr):
     """Phase 5: `Trainer.validate()` on the held-out views, counted."""
+    layout = tr.cfg.model.hash_layout
     out, counts, wall = counted(tr.validate)
-    log(f"launches in validate: {counts}")
-    for name in ("march_sv_test_round", "triplane_fwd", "composite_fwd"):
+    log(f"launches in {layout} validate: {counts}")
+    for name in ("march_sv_test_round", FIELD_KERNELS[layout][0],
+                 "composite_fwd"):
         if not counts[name]:
             raise RuntimeError(f"validate never launched {name}")
     bad = {k: v for k, v in out.items() if not math.isfinite(v)}
@@ -739,7 +957,8 @@ def validate(tr):
     rot = [f"ang/clust/{a}_abs" for a in ("yaw", "pitch", "roll")]
     if "ang/clust/failed" in out or not all(k in out for k in rot):
         raise RuntimeError(f"rotation recovery failed: {out}")
-    log(f"phase 5: validate {wall * 1e3:.1f} ms ({tr.last_render['rounds']} "
+    log(f"phase 5, {layout}: validate {wall * 1e3:.1f} ms "
+        f"({tr.last_render['rounds']} "
         f"rounds, {tr.last_render['total_samples']} samples): psnr "
         f"{out['psnr']:.3f}, norm_depth_ang_mean "
         f"{out['norm_depth_ang_mean']:.3f}, rot yaw/pitch/roll "
@@ -771,17 +990,22 @@ def profile(tr, out_dir, step_ms, n=4):
     time per step split into the port's kernels, matrix products and the
     rest, the launches per step, and the idle share against the
     unprofiled step time `step_ms[boot]`. Writes each trace's per-kernel
-    table and a chrome trace."""
+    table and a chrome trace, named by the field's layout and the march."""
     import os
     from normal_clustering_nerf_torch import kernels
     os.makedirs(out_dir, exist_ok=True)
+    layout = tr.cfg.model.hash_layout
     for boot in (True, False):
-        tag = "bootstrap" if boot else "sv"
+        tag = f"{layout}_{'bootstrap' if boot else 'sv'}"
 
         def steps():
             for _ in range(n):
                 tr.train_step_core(bootstrap=boot)
         p, dev = traced(steps)
+        if not dev:
+            log(f"profile of {n} {tag} steps: the profiler recorded no "
+                "device time; no profile")
+            continue
         table = p.key_averages().table(sort_by="self_cuda_time_total",
                                        row_limit=40)
         with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
@@ -802,6 +1026,22 @@ def profile(tr, out_dir, step_ms, n=4):
             f"{step_ms[boot]:.2f} ms step")
         for line in table.splitlines()[:24]:
             print(line)
+
+
+def path_training(tr, launches):
+    """Phase 3 of one path: `train`, the loss checks, and its launches
+    added to `launches`. Returns fit's ms/step over the bootstrap and the
+    sv steps."""
+    hist, counts, boot_s, sv_s = train(tr)
+    head, tail = check_losses(hist)
+    for name, c in counts.items():
+        launches[name] += c
+    boot, sv = boot_s * 1e3 / BOOT_STEPS, sv_s * 1e3 / SV_STEPS
+    log(f"  losses finite and falling ({head:.6f} -> {tail:.6f}, means of "
+        f"6 steps); fit {boot:.2f} ms/step over the {BOOT_STEPS} bootstrap "
+        f"steps, {sv:.2f} ms/step over the {SV_STEPS} sv steps "
+        f"({math.ceil(STEPS / 16)} refreshes)")
+    return boot, sv
 
 
 def main():
@@ -836,8 +1076,9 @@ def main():
 
     tr = build_trainer(bench_config(), device="cuda")
     tr.mark_invisible_cells()
-    log(f"phase 2: trainer built ({sum(p.numel() for p in tr.params.values())}"
-        f" parameters); kernels against their plain versions")
+    log(f"phase 2, triplane: trainer built "
+        f"({sum(p.numel() for p in tr.params.values())} parameters); "
+        f"kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(7)
     rec, train_in = check_kernels(tr, gen)
     test_in = held_out_rays(tr)
@@ -847,13 +1088,10 @@ def main():
                          step=tr.cfg.render.anneal_steps)
     step_parity()
 
-    log(f"phase 3: {STEPS} training steps through Trainer.fit")
-    hist, counts, boot_s, sv_s = train(tr)
-    head, tail = check_losses(hist)
-    log(f"  losses finite and falling ({head:.6f} -> {tail:.6f}, means of "
-        f"6 steps); fit {boot_s * 1e3 / BOOT_STEPS:.2f} ms/step over the "
-        f"{BOOT_STEPS} bootstrap steps, {sv_s * 1e3 / SV_STEPS:.2f} ms/step "
-        f"over the {SV_STEPS} sv steps ({math.ceil(STEPS / 16)} refreshes)")
+    log(f"phase 3, triplane: {STEPS} training steps through Trainer.fit")
+    launches = {k.name: 0 for k in kernels.ALL_KERNELS}
+    paths = {"triplane": tr}
+    fit_ms = {"triplane": path_training(tr, launches)}
 
     log("phase 4: K1 and H3 with T_start on the trained occupancy")
     rec.update(check_k1(tr, tr.occ, train_in, test_in, "trained occupancy",
@@ -863,31 +1101,54 @@ def main():
     rec["composite_fwd"]["err"] = max(
         rec["composite_fwd"]["err"],
         check_t_start(tr, rec["march_sv_test_round"].pop("first_round")))
+    for name, c in validate(tr).items():
+        launches[name] += c
+
+    # the brick and the tcnn field: the same phases 2, 3 and 5 at the
+    # bench configuration with that hash_layout
+    for layout in ("brick", "tcnn"):
+        tl = build_trainer(bench_config(hash_layout=layout), device="cuda")
+        tl.mark_invisible_cells()
+        log(f"phase 2, {layout}: trainer built "
+            f"({sum(p.numel() for p in tl.params.values())} parameters)")
+        rec.update(check_encoding(tl, gen))
+        step_parity(layout)
+        log(f"phase 3, {layout}: {STEPS} training steps through Trainer.fit")
+        fit_ms[layout] = path_training(tl, launches)
+        for name, c in validate(tl).items():
+            launches[name] += c
+        paths[layout] = tl
     missing = [k.name for k in kernels.ALL_KERNELS if k.name not in rec]
     if missing:
         raise RuntimeError(f"kernels not checked: {missing}")
 
-    val_counts = validate(tr)
-    boot_ms, sv_ms, warm_ms, sampled_ms = step_times(tr)
-    log(f"phase 6: one bootstrap step {boot_ms:.2f} ms, one sv step "
-        f"{sv_ms:.2f} ms (medians of 8); one refresh {warm_ms:.2f} ms "
-        f"(every cell), {sampled_ms:.2f} ms (sampled)")
-    log("  device time of each kernel and of its plain version")
+    step_ms = {}
+    for layout, t in paths.items():
+        boot_ms, sv_ms, warm_ms, sampled_ms = step_times(t)
+        step_ms[layout] = {True: boot_ms, False: sv_ms}
+        log(f"phase 6, {layout}: one bootstrap step {boot_ms:.2f} ms, one sv "
+            f"step {sv_ms:.2f} ms (medians of 8); one refresh {warm_ms:.2f} "
+            f"ms (every cell), {sampled_ms:.2f} ms (sampled); Trainer.fit "
+            f"{fit_ms[layout][0]:.2f} / {fit_ms[layout][1]:.2f} ms/step")
+    log("  device time of each kernel, of its plain version and of its "
+        "PyTorch yardstick")
     time_kernels(rec)
     if args.profile:
-        profile(tr, args.profile, {True: boot_ms, False: sv_ms})
+        for layout, t in paths.items():
+            profile(t, args.profile, step_ms[layout])
 
     out = []
     for k in kernels.ALL_KERNELS:
         r = rec[k.name]
-        out.append({
-            "name": f"{LABEL[k.name]} {k.name}", "route": "cuda",
-            "source": k.path, "replaces": REPLACES[k.name],
-            "launches": counts[k.name] + val_counts[k.name],
-            "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-            "library_ms": None})
+        o = {"name": f"{LABEL[k.name]} {k.name}", "route": "cuda",
+             "source": k.path, "replaces": REPLACES[k.name],
+             "launches": launches[k.name], "max_abs_err": r["err"],
+             "ms": r["ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+             "library_ms": r["library_ms"]}
+        o.update({key: r[key] for key in ("p4_ms", "p4_library_ms",
+                                          "p4_bound_ms") if key in r})
+        out.append(o)
     print("kernels: " + ", ".join(f"{o['name']} {o['ms']:.4f} ms "
                                   f"(plain {o['plain_ms']:.4f}, bound "
                                   f"{o['bound_ms']:.4f})" for o in out))

@@ -1,8 +1,10 @@
 """Training-throughput and quality benchmark of the port on one card.
 
-    python -m normal_clustering_nerf_torch.bench
+    python -m normal_clustering_nerf_torch.bench [--hash_layout brick|tcnn]
 
-The JAX package's `bench.py` run at its defaults, on one CUDA device:
+The JAX package's `bench.py` run at its defaults (the triplane field
+unless `--hash_layout` names the brick or the tcnn grid, as
+`bench.py:148-149`), on one CUDA device:
 build the bench configuration (`bench_config`, `build_trainer`), mark the
 invisible cells, train 600 warmup steps (past the occupancy warmup at
 256 and the bootstrap march at 512), time 200 steps, train on to step
@@ -33,10 +35,11 @@ BASELINE_RAYS_PER_S = 0.25e6   # the reference on an RTX 2080 Ti (BASELINE.md)
 
 
 def bench_config(batch: int = 8192, samples_per_ray: int = 16,
-                 sv_intervals: int = 24,
-                 compute_dtype: str = "bfloat16") -> TrainConfig:
-    """`bench.py:44-109` at bench.py's defaults: the triplane field in bf16,
-    16 samples per ray with the full stratified tail, 24 sv intervals,
+                 sv_intervals: int = 24, compute_dtype: str = "bfloat16",
+                 hash_layout: str = "triplane") -> TrainConfig:
+    """`bench.py:44-109` at bench.py's defaults: the triplane field (or
+    `hash_layout`) in bf16, 16 samples per ray with the full stratified
+    tail, 24 sv intervals,
     avoid_near annealing over 600 steps, the production loss weights, the
     triangle sampler with 3-pixel legs, 4 epochs of 1000 steps."""
     return TrainConfig(
@@ -44,7 +47,7 @@ def bench_config(batch: int = 8192, samples_per_ray: int = 16,
                           pred_norm_nn=True, pred_norm_depth=True,
                           pred_sem=True, n_sem_cls=3,
                           compute_dtype=compute_dtype,
-                          hash_layout="triplane"),
+                          hash_layout=hash_layout),
         render=RenderConfig(march_block=1024,
                             sample_budget=batch * samples_per_ray,
                             sv_intervals=sv_intervals,
@@ -92,8 +95,10 @@ def gate_failures(out) -> list:
 
 
 def main(argv=None):
-    argparse.ArgumentParser(description=__doc__.split("\n")[0]).parse_args(
-        argv)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--hash_layout", default="triplane",
+                    choices=["brick", "tcnn", "triplane"])
+    args = ap.parse_args(argv)
     t_start = time.time()
 
     def log(msg):
@@ -102,9 +107,10 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = bench_config()
+    cfg = bench_config(hash_layout=args.hash_layout)
     tr = build_trainer(cfg)
-    log(f"card: {torch.cuda.get_device_name(tr.device)}")
+    log(f"card: {torch.cuda.get_device_name(tr.device)}; hash_layout "
+        f"{args.hash_layout}")
     batch = cfg.data.batch_size
     tr.mark_invisible_cells()
 

@@ -31,8 +31,9 @@ class ModelConfig:
     log2_hashmap_size: int = 19
     base_resolution: int = 16
     finest_resolution: int = 2048
-    # 'triplane' is the only layout the port has; 'brick' and 'tcnn'
-    # raise NotImplementedError (ROADMAP A12)
+    # 'brick' = 4^3-vertex brick rows (models/brick_hash.py), 'tcnn' = the
+    # canonical tiny-cuda-nn vertex layout (models/hash_encoding.py),
+    # 'triplane' = triplane + coarse 3D grid (models/triplane.py)
     hash_layout: str = "brick"
     log2_bricks: int = 13
     plane_res: int = 512
@@ -51,6 +52,15 @@ class ModelConfig:
     @property
     def cascades(self) -> int:
         return max(1 + int(math.ceil(math.log2(2 * self.scale))), 1)
+
+    @property
+    def per_level_scale(self) -> float:
+        # b = exp(ln(finest * scale / base) / (L - 1)), as the JAX
+        # package's config.py:71-77 (reference: models/ngp_mt.py:41)
+        return math.exp(
+            math.log(self.finest_resolution * self.scale / self.base_resolution)
+            / (self.n_levels - 1)
+        )
 
     @property
     def exp_step_factor(self) -> float:

@@ -5,8 +5,12 @@ The JAX `TrainState` keeps parameters as a nested pytree
 ...}}) and occupancy as an `OccupancyState` of arrays. The port names its
 parameters by the same path ("hash_table.planes", "sigma_net.w0", ...)
 and keeps the triplane rows in the same feature-major v2 layout, so every
-array converts 1:1. Inputs are numpy arrays (e.g. `np.asarray` of each
-leaf), so nothing of JAX is imported here.
+array converts 1:1. The brick and tcnn layouts keep the table as one
+leaf, `hash_table` ((L, n_bricks, 128) or (total_rows, F), the JAX
+layouts), which `_flatten` maps to the port's single `hash_table`
+parameter (tests/test_torch_slice_layouts.py carries such a state across).
+Inputs are numpy arrays (e.g. `np.asarray` of each leaf), so nothing of
+JAX is imported here.
 """
 from __future__ import annotations
 

@@ -187,9 +187,14 @@ MARCH_SV_TRAIN = Kernel("march_sv_train", "march_sv.cu",
 MARCH_SV_TEST = Kernel("march_sv_test_round", "march_sv.cu",
                        [P] * 7 + [I] * 6 + [F] * 3 + [P] * 4)
 
+BRICK_FWD = Kernel("brick_fwd", "brick_hash.cu", [P, P, P, P, I, I, I, I])
+BRICK_BWD = Kernel("brick_bwd", "brick_hash.cu", [P, P, P, P, I, I, I])
+HASH_FWD = Kernel("hash_grid_fwd", "hash_grid.cu", [P, P, P, P, I, I, I, I])
+HASH_BWD = Kernel("hash_grid_bwd", "hash_grid.cu", [P, P, P, P, I, I, I])
+
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
-               MARCH_SV_TEST)
+               MARCH_SV_TEST, BRICK_FWD, BRICK_BWD, HASH_FWD, HASH_BWD)
 
 
 def reset_counts():

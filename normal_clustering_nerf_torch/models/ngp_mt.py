@@ -1,7 +1,10 @@
 """NGP-MT field with multi-task heads — port of the JAX package's
-`models/ngp_mt.py` for the triplane layout.
+`models/ngp_mt.py`.
 
-  * encoding: triplane + coarse grid (models/triplane.py, kernel H2)
+  * encoding, by `hash_layout` (ngp_mt.py:78-102): `triplane`, the
+    triplane + coarse grid (models/triplane.py, kernel H2); `brick`, the
+    brick-hash grid (models/brick_hash.py, kernels H5/H6); any other
+    value, the tcnn hash grid (models/hash_encoding.py, kernels H7/H8)
   * sigma_net: enc -> 64 -> 16, ReLU, sigma = trunc_exp(h[:, 0])
   * rgb_net: [d, h] (3+16) -> 64 -> 64 -> 3, trunc_sigmoid
   * sem_net / norm_net: 16 -> 64 -> 64 -> n_cls / 3
@@ -9,8 +12,9 @@ All MLPs are bias-free (tcnn FullyFusedMLP style) and run as
 `torch.matmul` in the compute dtype: plain products, as the JAX package
 leaves them to XLA (ROADMAP K6 fuses them once a profile asks for it).
 
-Parameter names follow the JAX pytree: `hash_table.planes`,
-`hash_table.grid3d`, `sigma_net.w0`, ..., so parameters convert 1:1.
+Parameter names follow the JAX pytree: `hash_table.planes` and
+`hash_table.grid3d` (triplane) or one `hash_table` (brick, tcnn),
+`sigma_net.w0`, ..., so parameters convert 1:1.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..ops.trunc_exp import trunc_exp, trunc_sigmoid
+from .brick_hash import BrickGridSpec, brick_encode, init_brick_table
+from .hash_encoding import HashGridSpec, hash_encode, init_hash_table
 from .triplane import TriplaneSpec, init_triplane, triplane_encode
 
 
@@ -52,26 +58,37 @@ class NGPMT(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.hash_layout != "triplane":
-            raise NotImplementedError(
-                f"hash_layout {cfg.hash_layout!r} is not ported: the port "
-                "has the triplane field (brick/tcnn layouts: ROADMAP A12)")
         if cfg.use_exposure:
             raise NotImplementedError(
                 "the exposure tonemapper is not ported (ROADMAP A14)")
         self.cfg = cfg
         self.scale = cfg.scale
-        self.spec = TriplaneSpec.create(
-            plane_res=cfg.plane_res, plane_feats=cfg.plane_feats,
-            grid3d_res=cfg.grid3d_res, grid3d_feats=cfg.grid3d_feats)
+        grid = dict(n_levels=cfg.n_levels,
+                    n_features=cfg.n_features_per_level,
+                    base_res=cfg.base_resolution,
+                    per_level_scale=cfg.per_level_scale)
+        if cfg.hash_layout == "brick":
+            self.spec = BrickGridSpec.create(log2_bricks=cfg.log2_bricks,
+                                             **grid)
+            init, self._encode = init_brick_table, brick_encode
+        elif cfg.hash_layout == "triplane":
+            self.spec = TriplaneSpec.create(
+                plane_res=cfg.plane_res, plane_feats=cfg.plane_feats,
+                grid3d_res=cfg.grid3d_res, grid3d_feats=cfg.grid3d_feats)
+            init, self._encode = init_triplane, triplane_encode
+        else:
+            self.spec = HashGridSpec.create(
+                log2_table_size=cfg.log2_hashmap_size, **grid)
+            init, self._encode = init_hash_table, hash_encode
         self.compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                               else torch.float32)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         W, geo = cfg.hidden_dim, cfg.geo_feat_dim
-        self.hash_table = nn.ParameterDict(
-            {k: nn.Parameter(v) for k, v in
-             init_triplane(self.spec, generator, device).items()})
+        table = init(self.spec, generator, device)
+        self.hash_table = (
+            nn.ParameterDict({k: nn.Parameter(v) for k, v in table.items()})
+            if isinstance(table, dict) else nn.Parameter(table))
         self.sigma_net = _init_mlp(
             [self.spec.out_dim] + [W] * cfg.sigma_hidden_layers + [geo],
             generator, device)
@@ -88,8 +105,10 @@ class NGPMT(nn.Module):
     def density(self, x, return_feat: bool = False):
         """sigma at world positions x in [-scale, scale]^3."""
         xn = (x + self.scale) / (2.0 * self.scale)
-        enc = triplane_encode(dict(self.hash_table), xn, self.spec,
-                              self.compute_dtype)
+        table = (dict(self.hash_table)
+                 if isinstance(self.hash_table, nn.ParameterDict)
+                 else self.hash_table)
+        enc = self._encode(table, xn, self.spec, self.compute_dtype)
         h = apply_mlp(self.sigma_net, enc, compute_dtype=self.compute_dtype)
         sigmas = trunc_exp(h[:, 0].to(torch.float32))
         if return_feat:

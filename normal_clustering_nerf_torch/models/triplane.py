@@ -131,7 +131,8 @@ def encode_plain(planes, grid3d, x, spec: TriplaneSpec, bf16: bool):
     Fp, Fg = spec.plane_feats, spec.grid3d_feats
     feats = []
     for pi, (a, b) in enumerate(PLANES):
-        row, slots, w = plane_corners(x[:, (a, b)], spec)
+        row, slots, w = plane_corners(torch.stack((x[:, a], x[:, b]), 1),
+                                       spec)
         feats.append(_fold(planes[pi].reshape(-1),
                            _lanes(row, slots, Fp, 128, 16), w, bf16))
     row, slots, w = grid_corners(x, spec)
@@ -146,7 +147,8 @@ def encode_grad_plain(x, g, spec: TriplaneSpec, plane_shape, grid_shape):
     Fp, Fg = spec.plane_feats, spec.grid3d_feats
     d_planes = torch.zeros(plane_shape, dtype=torch.float32, device=x.device)
     for pi, (a, b) in enumerate(PLANES):
-        row, slots, w = plane_corners(x[:, (a, b)], spec)
+        row, slots, w = plane_corners(torch.stack((x[:, a], x[:, b]), 1),
+                                       spec)
         upd = g[:, pi * Fp:(pi + 1) * Fp, None] * w[:, None, :]
         d_planes[pi].view(-1).index_add_(
             0, _lanes(row, slots, Fp, 128, 16).reshape(-1), upd.reshape(-1))

@@ -21,18 +21,22 @@ class _Scene:
         return self.kw
 
 
-def test_bench_config_matches_bench_py(monkeypatch):
-    """bench.py:44-109 at bench.py's defaults (triplane, bf16, 16 samples
-    per ray, 24 sv intervals): every field the port's config has takes
-    the JAX value, and the scenes are the same."""
+@pytest.mark.parametrize("layout", ["triplane", "brick", "tcnn"])
+def test_bench_config_matches_bench_py(monkeypatch, layout):
+    """bench.py:44-109 at bench.py's defaults (bf16, 16 samples per ray,
+    24 sv intervals) with each `--hash_layout` (triplane by default):
+    every field the port's config has takes the JAX value, and the scenes
+    are the same."""
     monkeypatch.setattr(j_synthetic, "SyntheticDataset", _Scene)
     monkeypatch.setattr(j_training, "Trainer", lambda *a: a)
     (_, scene_tr, scene_te), jcfg = jax_bench.build_trainer(
-        8192, compute_dtype="bfloat16", hash_layout="triplane",
+        8192, compute_dtype="bfloat16", hash_layout=layout,
         samples_per_ray=16, sv_intervals=24)
     assert scene_tr == dict(split="train", img_wh=(128, 128), n_images=48)
     assert scene_te == dict(split="test", img_wh=(128, 128), n_images=4)
-    cfg = bench.bench_config()
+    cfg = (bench.bench_config() if layout == "triplane"
+           else bench.bench_config(hash_layout=layout))
+    assert cfg.model.per_level_scale == jcfg.model.per_level_scale
     for part in ("model", "render", "loss", "data", "optim"):
         ours, ref = getattr(cfg, part), getattr(jcfg, part)
         for f in dataclasses.fields(ours):
@@ -65,3 +69,7 @@ def test_bench_needs_the_card():
         pytest.skip("a card is present: the bench would run for minutes")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         bench.main([])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        bench.main(["--hash_layout", "brick"])
+    with pytest.raises(SystemExit):   # bench.py's three choices only
+        bench.main(["--hash_layout", "grid"])

@@ -1,0 +1,126 @@
+"""Brick-hash encode (kernels H5/H6's plain versions) against the JAX
+package's `brick_encode_vjp` (forward `_brick_encode_impl`, backward
+`_brick_vjp_bwd`) and its numpy oracle `brick_encode_reference_np`.
+
+The JAX reference runs eagerly (`jax.disable_jit()`): its forward and
+backward are `lax.scan`s, whose compiled body XLA evaluates x*scale + 0.5
+as an FMA; at a stride-3 brick face a one-ulp move of floor(pos) picks
+another brick's copy of the face vertex, a real jump in value (the eager
+JAX, the numpy oracle and the port all round the product first).
+
+Inputs: 16 levels at the bench's per-level scale with 2^8 bricks a level
+(level 0 dense, 1-15 hashed), random points plus points on the cell faces
+of every level, on stride-3 brick faces, and at 0 and 1.
+
+Tolerances (f32): forward rtol 1e-5, atol 1e-6 (the same products, the
+8 corner terms summed in another order: JAX folds 128 lanes, zeros
+included, with a matmul); table gradients atol 1e-5 of the largest entry
+(up to a few hundred terms per entry, scattered in another order).
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_common import J, N, T
+
+from normal_clustering_nerf_torch.models import brick_hash as tb
+from normal_clustering_nerf_tpu.models import brick_hash as jb
+
+BENCH_B = math.exp(math.log(2048 * 0.5 / 16) / 15)   # bench per_level_scale
+
+
+def face_points(rng, spec, M):
+    """M points in [0, 1]^3: random, then one coordinate of 8 points per
+    level on that level's cell faces (pos = x*scale + 0.5 an integer up
+    to f32 rounding), 8 per level on stride-3 brick faces, and the
+    corners of the box."""
+    x = rng.random((M, 3)).astype(np.float32)
+    i = 0
+    for l in range(spec.n_levels):
+        s, res = np.float32(spec.scales[l]), spec.resolutions[l]
+        for n in (rng.integers(1, res, 8), 3 * rng.integers(1, res // 3, 8)):
+            x[i:i + 8, rng.integers(0, 3)] = np.clip(
+                ((n - 0.5) / s).astype(np.float32), 0.0, 1.0)
+            i += 8
+    x[i:i + 4] = [[0, 0, 0], [1, 1, 1], [0, 1, 0.5], [1, 0, 1]]
+    assert i + 4 <= M
+    return x
+
+
+def _case(seed, M=520):
+    kw = dict(n_levels=16, log2_bricks=8, per_level_scale=BENCH_B)
+    spec_j, spec_t = jb.BrickGridSpec.create(**kw), tb.BrickGridSpec.create(**kw)
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal(spec_t.table_shape()).astype(np.float32)
+    x = face_points(rng, spec_t, M)
+    g = rng.standard_normal((M, spec_t.out_dim)).astype(np.float32)
+    return spec_j, spec_t, table, x, g
+
+
+@pytest.mark.parametrize("log2_bricks,b", [(13, BENCH_B), (8, BENCH_B),
+                                           (8, 2.0)])
+def test_spec_matches_jax(log2_bricks, b):
+    """Level constants bit for bit: at the bench scale s lands on 63.0,
+    255.0 and 1023.0 at levels 5, 10 and 15, where a float32 recomputation
+    could flip ceil(s) and change res, nb and dense."""
+    kw = dict(n_levels=16, log2_bricks=log2_bricks, per_level_scale=b)
+    sj, st = jb.BrickGridSpec.create(**kw), tb.BrickGridSpec.create(**kw)
+    assert tuple(st) == tuple(sj)
+    assert st.table_shape() == sj.table_shape()
+    if (log2_bricks, b) == (13, BENCH_B):
+        assert st.dense == (True,) * 5 + (False,) * 11
+        assert st.resolutions[0] == 16 and st.resolutions[-1] == 1024
+
+
+def test_forward_matches_jax_and_numpy_oracle():
+    spec_j, spec_t, table, x, _ = _case(0)
+    assert any(spec_t.dense) and not all(spec_t.dense)
+    with jax.disable_jit():
+        ref = np.asarray(jb.brick_encode_vjp(J(table), J(x), spec_j))
+    oracle = jb.brick_encode_reference_np(table, x, spec_j)
+    out = N(tb.brick_encode(T(table), T(x), spec_t))
+    np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(out, oracle, rtol=1e-5, atol=1e-6)
+
+
+def test_compute_dtype_rounds_the_f32_fold():
+    spec_j, spec_t, table, x, _ = _case(1)
+    with jax.disable_jit():
+        ref = np.asarray(jb.brick_encode(J(table), J(x), spec_j,
+                                         jnp.bfloat16), np.float32)
+    out = tb.brick_encode(T(table), T(x), spec_t, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    f32 = tb.encode_plain(T(table), T(x), spec_t)
+    np.testing.assert_array_equal(N(out), N(f32.to(torch.bfloat16)))
+    # f32 values that agree to f32 rounding may round to neighbouring
+    # bf16 values: one bf16 ulp, 2^-7 relative
+    np.testing.assert_allclose(N(out), ref, rtol=2 ** -7, atol=1e-6)
+
+
+def test_table_gradient_matches_jax_vjp():
+    spec_j, spec_t, table, x, g = _case(2)
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda t: jb.brick_encode_vjp(t, J(x), spec_j),
+                         J(table))
+        ref = np.asarray(vjp(J(g))[0])
+    tab = T(table).requires_grad_(True)
+    tb.brick_encode(tab, T(x), spec_t).backward(T(g))
+    np.testing.assert_allclose(N(tab.grad), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    assert np.count_nonzero(ref) > 0
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """No fallback: the kernel wrappers take CUDA tensors only, and
+    `brick_encode` picks them by the tensor's device."""
+    _, spec_t, table, x, g = _case(3)
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.encode_kernel(T(table), T(x), spec_t)
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.encode_grad_kernel(T(x), T(g), spec_t)
+    with pytest.raises(NotImplementedError):
+        tb.brick_encode(T(table), T(x), spec_t, need_dx=True)

@@ -1,7 +1,11 @@
-"""NGP-MT field of the port (triplane layout, kernel H2 + MLPs) against
-the JAX package's NGPMT, with the JAX parameters carried across by
-`convert.py`: density, the full multi-head call, and every parameter's
-gradient.
+"""NGP-MT field of the port (MLPs, and the triplane (kernel H2), brick
+(H5/H6) or tcnn (H7/H8) encoding) against the JAX package's NGPMT, with
+the JAX parameters carried across by `convert.py`: density, the full
+multi-head call, and every parameter's gradient. The brick and tcnn
+tables are cut to 2^8 bricks / 2^12 rows a level (16 levels at the bench
+scale). The JAX reference runs eagerly (`jax.disable_jit()`), so that the
+brick encode's `lax.scan` rounds x*scale + 0.5 as the port does (see
+test_torch_brick_hash.py).
 
 Tolerances:
   * f32: outputs rtol 1e-5, atol 1e-6; gradients rtol 1e-4 with atol
@@ -25,8 +29,13 @@ from normal_clustering_nerf_torch.models.ngp_mt import NGPMT as TModel
 from normal_clustering_nerf_tpu.models.ngp_mt import NGPMT as JModel
 
 
-def _models(dtype):
-    jc, tc = slice_configs(compute_dtype=dtype)
+LAYOUTS = {"triplane": {}, "brick": dict(log2_bricks=8),
+           "tcnn": dict(log2_hashmap_size=12)}
+
+
+def _models(dtype, layout="triplane"):
+    jc, tc = slice_configs(compute_dtype=dtype, hash_layout=layout,
+                           **LAYOUTS[layout])
     jm = JModel(jc.model)
     params = jm.init(jax.random.PRNGKey(0))
     # tables well away from their tiny init, so the field is not flat
@@ -43,9 +52,10 @@ TOL = {"float32": dict(out=dict(rtol=1e-5, atol=1e-6), grad=(1e-4, 1e-6)),
        "bfloat16": dict(out=dict(rtol=0, atol=3e-2), grad=(0, 5e-2))}
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_field_outputs_and_gradients_match_jax(dtype):
-    jm, params, tm = _models(dtype)
+def test_field_outputs_and_gradients_match_jax(dtype, layout):
+    jm, params, tm = _models(dtype, layout)
     rng = np.random.default_rng(0)
     x, d = random_rays(rng, 400)
     cot = {"sigmas": rng.standard_normal(400), "rgbs":
@@ -57,7 +67,8 @@ def test_field_outputs_and_gradients_match_jax(dtype):
         out = jm(p, J(x), J(d))
         return sum(jnp.sum(out[k] * J(c)) for k, c in cot.items()), out
 
-    (_, ref), grads = jax.value_and_grad(loss_j, has_aux=True)(params)
+    with jax.disable_jit():
+        (_, ref), grads = jax.value_and_grad(loss_j, has_aux=True)(params)
     out = tm(T(x), T(d))
     sum((out[k] * T(c)).sum() for k, c in cot.items()).backward()
     for k in cot:
@@ -74,17 +85,35 @@ def test_field_outputs_and_gradients_match_jax(dtype):
                                    atol=atol * np.abs(r).max(), err_msg=n)
 
 
-def test_density_matches_jax():
-    jm, params, tm = _models("float32")
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_density_matches_jax(layout):
+    jm, params, tm = _models("float32", layout)
     x = np.random.default_rng(1).uniform(-0.5, 0.5, (500, 3)).astype(
         np.float32)
-    ref = jm.density(params, J(x))
+    with jax.disable_jit():
+        ref = jm.density(params, J(x))
     with torch.no_grad():
         out = tm.density(T(x))
     np.testing.assert_allclose(N(out), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
-def test_unported_layouts_raise():
-    _, tc = slice_configs(hash_layout="brick")
+def test_exposure_tonemapper_raises():
+    """Every hash layout is ported; the exposure tonemapper is not
+    (ROADMAP A14)."""
+    _, tc = slice_configs(use_exposure=True)
     with pytest.raises(NotImplementedError):
         TModel(tc.model, CPU)
+
+
+def test_layouts_size_the_encoding_as_jax():
+    """brick / tcnn: enc_dim L*F and one `hash_table` parameter of the JAX
+    leaf's shape; any value but brick and triplane is the tcnn grid, as
+    the JAX `else` branch."""
+    for layout, kw in (("brick", LAYOUTS["brick"]), ("tcnn", LAYOUTS["tcnn"]),
+                       ("hash", LAYOUTS["tcnn"])):
+        jc, tc = slice_configs(hash_layout=layout, **kw)
+        jm, tm = JModel(jc.model), TModel(tc.model, CPU)
+        assert tm.spec.out_dim == jm.enc_dim == 32
+        assert tuple(tm.hash_table.shape) == tuple(
+            jax.eval_shape(jm.init, jax.random.PRNGKey(0))["hash_table"].shape)
+        assert type(tm.spec).__name__ == type(jm.grid_spec).__name__
