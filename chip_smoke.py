@@ -19,38 +19,52 @@ Phases (any failed check raises, so the script exits non-zero):
      on them. H1-H4 are held against their plain PyTorch versions on
      those inputs, gradients included; H3 and H4 also at sigmas scaled up
      per ray, so that rays terminate early and sigma*delta reaches its
-     clip. K1 (the sv march: its training launcher on the batch, its
-     test-round launcher on the 65,536 rays of the 4 held-out views,
-     three rounds) on a random 20% occupancy with solid blocks, where rays
-     exceed the 24-interval budget. Then one bootstrap step and one sv
-     step at the CPU tests' size run on the card and on the CPU from the
-     same state and draws: every loss and gradient must agree;
+     clip. On a random 20% occupancy with solid blocks: K1 (the sv march:
+     its training launcher on the batch, its test-round launcher on the
+     65,536 rays of the 4 held-out views, three rounds), where rays exceed
+     the 24-interval budget; H9 (the bitfield march over 1024 steps, and
+     the two-level march with a 4-block budget, where rays truncate), H11
+     (the flat budget, and half of it), H10 (three rounds of each mode over
+     the held-out rays, and the full window at the Pallas probe P2's
+     (8192, 1024) block, beside P2's own form in torch). Then the training
+     steps at the CPU tests' size run on the card and on the CPU from the
+     same state and draws (bootstrap, sv, bitfield and flat steps): every
+     loss and gradient must agree;
   3. set every launch count to 0, train STEPS (576) steps with
      `Trainer.fit`: 512 bootstrap steps, then 64 sv steps; an occupancy
      refresh every 16 steps (every cell before step 256, sampled after),
      the clustering ramp from step 500. Read the counts: every training
      launcher must have launched, K1's training launcher 64 times. Every
      loss must be finite and the loss must fall;
-  4. K1 against its plain versions on the trained occupancy, and H3's
-     forward with T_start on the first test round's samples;
+  4. K1 and H9-H11 against their plain versions on the trained occupancy,
+     the segment launchers of H3/H4 against their plain versions and bit
+     for bit against the dense launchers on the flat batch (and with
+     T_start on a flat test round), and H3's forward with T_start on the
+     first test round's samples;
   5. validation: counts to 0, `Trainer.validate()` on the 4 held-out
      views, counts read: the test-round march, the field and the
      compositing must have launched; every metric finite and rotation
      recovery done;
-  then phases 2, 3 and 5 again at the bench configuration with the brick
-  field (hash_layout "brick", kernels H5/H6) and with the tcnn hash grid
-  ("tcnn", H7/H8): the encode kernels against their plain versions on
-  the batch's march samples (forward in f32 and bf16, the table gradient)
-  and on every cell of the grid (the refresh's shape), H5 also at the
-  shape of the Pallas probe P4 (the (16, 8192, 128) table, 262,144
-  points); the step parity at the CPU tests' size; 576 counted steps
-  through `Trainer.fit` (H5/H6 or H7/H8, H1, H3, H4 and K1 must launch);
-  `validate`;
-  6. for each field: step times (bootstrap and sv steps) and one refresh
-     of each form; then the device time of each kernel, of its plain
-     version and of its PyTorch yardstick (`index_select` of the rows a
-     hash-grid forward reads, `index_add_` of its backward's terms; for
-     H5 also at P4's shape) by CUDA events (`device_ms`).
+  then the bitfield path (the triplane bench configuration with
+  march_coarse False: 576 counted steps, H9 64 times and K1 never, and
+  `validate` through bitfield bucket rounds, H10), the flat path
+  (march_layout and test_layout "flat": FLAT_STEPS (64) counted steps
+  through H9, H11 and the segment launchers, finite losses, and `validate`
+  through flat rounds), and phases 2, 3 and 5 again at the bench
+  configuration with the brick field (hash_layout "brick", kernels H5/H6)
+  and with the tcnn hash grid ("tcnn", H7/H8): the encode kernels against
+  their plain versions on the batch's march samples (forward in f32 and
+  bf16, the table gradient) and on every cell of the grid (the refresh's
+  shape), H5 also at the shape of the Pallas probe P4 (the (16, 8192,
+  128) table, 262,144 points); the step parity at the CPU tests' size;
+  576 counted steps through `Trainer.fit` (H5/H6 or H7/H8, H1, H3, H4 and
+  K1 must launch); `validate`; every launcher must have launched on some
+  path;
+  6. for each path: step times and one refresh of each form; then the
+     device time of each kernel, of its plain version and of its PyTorch
+     yardstick (`index_select` of the rows a hash-grid forward reads,
+     `index_add_` of its backward's terms; for H5 also at P4's shape, for
+     H10 P2's probe at P2's block) by CUDA events (`device_ms`).
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -74,7 +88,12 @@ BOOT_STEPS, SV_STEPS = 512, 64
 STEPS = BOOT_STEPS + SV_STEPS   # the main path's steps: 0-575
 K1_CHUNK = 16384   # rays per plain-version call (its (N, 24, 67) tensors)
 K1_STEP_OPS = 30   # f32 operations per enumerated step of the sv march
-TEST_ROUNDS = 3    # test rounds per K1 check, each from the last cursors
+TEST_ROUNDS = 3    # test rounds per K1 / H10 check, each from the last cursors
+STEP_OPS = 26      # f32 operations per probed step of the bitfield march:
+                   # t_k (2), three positions (6), three cells (18)
+COARSE_K_BLOCKS = 4   # a tight two-level budget, so that rays truncate
+P2_RAYS, P2_STEPS = 8192, 1024   # the Pallas probe P2's (rays, steps) block
+FLAT_STEPS = 64    # counted steps of the flat path
 
 
 def log(msg):
@@ -210,13 +229,22 @@ def _to_card(tree):
     return tree.cuda() if isinstance(tree, torch.Tensor) else tree
 
 
+# the steps of the step parity: (name, bootstrap flag, render config
+# changes); the brick and tcnn paths take the first two
+PARITY_STEPS = (("bootstrap", True, {}), ("sv", False, {}),
+                ("fine", False, dict(march_coarse=False)),
+                ("flat", False, dict(march_layout="flat")))
+
+
 def step_parity(layout="triplane", seed=11):
-    """Two training steps at `small_config(layout)`, each on the card
-    through the kernels and on the CPU through the plain versions, from
-    the same parameters, optimizer state, occupancy and draws (made with
-    numpy from `seed`): a bootstrap step, then, after a refresh that
-    rebuilds the sv tables, a supervoxel-run step. The CPU path is the one
-    the tests hold against the JAX package."""
+    """Training steps at `small_config(layout)`, each on the card through
+    the kernels and on the CPU through the plain versions, from the same
+    parameters, optimizer state, occupancy and draws (made with numpy from
+    `seed`): a bootstrap step, then, after a refresh that rebuilds the sv
+    tables and the coarse mask, a supervoxel-run step and (triplane) a
+    step of the bitfield march without the sv march and a flat-layout
+    step. The CPU path is the one the tests hold against the JAX
+    package."""
     import numpy as np
     from normal_clustering_nerf_torch.datasets.synthetic import (
         SyntheticDataset)
@@ -233,7 +261,11 @@ def step_parity(layout="triplane", seed=11):
     rng = np.random.default_rng(seed)
     n_tri = cfg.data.batch_size // 3
     chk = Check()
-    for boot in (True, False):
+    steps = PARITY_STEPS if layout == "triplane" else PARITY_STEPS[:2]
+    for name, boot, render in steps:
+        for t in (cpu, card):
+            t.cfg = cfg.replace(render=dataclasses.replace(cfg.render,
+                                                           **render))
         card.load_state({n: p.detach().cuda() for n, p in cpu.params.items()},
                         OccupancyState(*(t.cuda() for t in cpu.occ)),
                         _to_card(cpu.opt.state), cpu.step)
@@ -247,7 +279,7 @@ def step_parity(layout="triplane", seed=11):
         ref = cpu.train_step_core(bootstrap=boot, draws=draws)
         got = {k: v.cpu() for k, v in
                card.train_step_core(bootstrap=boot, draws=draws).items()}
-        log(f"step parity, {layout}, {'bootstrap' if boot else 'sv'} step "
+        log(f"step parity, {layout}, {name} step "
             f"at grid {cfg.model.grid_size}, batch {cfg.data.batch_size}, "
             f"f32: the card against the CPU (rm/ray "
             f"{float(ref['rm_samples_per_ray']):.3f}, trunc "
@@ -267,7 +299,7 @@ def step_parity(layout="triplane", seed=11):
                       torch.round(ref[k] * n_rays))
         for n, g in cpu.last_grads.items():
             chk.close(f"d {n}", card.last_grads[n].cpu(), g, 1e-3)
-        if boot:   # the refresh that builds the sv march's tables
+        if boot:   # the refresh that builds the sv tables and coarse mask
             cpu.occ_update(warmup=True)
             if not int(cpu.occ.sv_mask.sum()):
                 raise RuntimeError("step parity: the refresh left no "
@@ -299,7 +331,7 @@ def main_path_inputs(tr, gen):
                                               rays_d),
               occ.density_bitfield,
               torch.rand(N, generator=gen, device=dev)),
-        kw=train_march_args(cfg.model, cfg.render, N, True))
+        kw=train_march_args(cfg.model, cfg.render, N, "bootstrap"))
     mr = march_rays_train_dense_plain(*march["args"], **march["kw"])
     K = mr.t.shape[1]
     xyz = (rays_o[:, None, :] + mr.t[..., None] * rays_d[:, None, :])
@@ -351,7 +383,7 @@ def check_kernels(tr, gen):
     log(f"H1 march: N={N} S={inp['march']['kw']['march_steps']} K={K} "
         f"G={tr.cfg.model.grid_size}, occupied cells {inp['occupied']}")
     a, kw = inp["march"]["args"], inp["march"]["kw"]
-    got = rm.march_rays_train_dense(*a, **kw)
+    got = rm.march_rays_train_bootstrap(*a, **kw)
     err = max(chk.equal("t", got.t, mr.t), chk.equal("dt", got.dt, mr.dt),
               chk.equal("valid", got.valid, mr.valid),
               chk.equal("ray_count", got.ray_count, mr.ray_count),
@@ -360,16 +392,15 @@ def check_kernels(tr, gen):
     S = kw["march_steps"]
     b = nbytes(*a[:5]) + nbytes(mr.t, mr.dt, mr.valid, mr.ray_count) + 4
     # the steps this batch's rays take inside their box interval, each
-    # probed once: t_k (2), three positions (6), three cells (18) = 26 f32
-    # operations (the kernel's second pass is its own design choice)
+    # probed once (the kernel's second pass is its own design choice)
     t1, t2 = a[2][:, 0], a[2][:, 1]
     lo = math.sqrt(3.0) / kw["max_samples"]
     in_box = torch.clamp(torch.ceil((t2 - (t1 + lo * a[4])) / lo), 0, S)
     probes = int(torch.where(t1 >= 0, in_box, torch.zeros_like(in_box)).sum())
     rec["march_bootstrap"] = dict(
-        err=err, kernel=(lambda: rm.march_rays_train_dense(*a, **kw)),
+        err=err, kernel=(lambda: rm.march_rays_train_bootstrap(*a, **kw)),
         plain=(lambda: rm.march_rays_train_dense_plain(*a, **kw)),
-        bound=bound(b, probes * 26))
+        bound=bound(b, probes * STEP_OPS))
     log(f"  rm/ray {float(mr.rm_samples) / N:.2f}, rays hitting the box "
         f"{hit}, steps inside it {probes}")
 
@@ -639,7 +670,7 @@ def random_occupancy(tr, gen, density=0.2):
     two solid slabs and a wall shell, so that many rays cross more occupied
     supervoxels than the interval budget holds (seeded by `gen`)."""
     from normal_clustering_nerf_torch.models.occupancy import (
-        supervoxel_tables)
+        coarse_occupancy, supervoxel_tables)
     from normal_clustering_nerf_torch.ops.packbits import packbits
     G = tr.cfg.model.grid_size
     occ = torch.rand((G, G, G), generator=gen, device=tr.device) < density
@@ -650,6 +681,7 @@ def random_occupancy(tr, gen, density=0.2):
     occ[-w:] = True
     bitfield = packbits(occ.permute(2, 1, 0).float(), 0.5)   # x fastest
     return tr.occ._replace(density_bitfield=bitfield,
+                           coarse_occ=coarse_occupancy(bitfield, G),
                            **dict(zip(("sv_mask", "sv_payload"),
                                       supervoxel_tables(bitfield, G))))
 
@@ -728,7 +760,7 @@ def check_k1(tr, occ, train_in, test_in, tag, need_trunc, step):
     o, d, noise = train_in[0], train_in[1], train_in[3]
     N = o.shape[0]
     hits = train_intervals(m, cfg.render, o, d, step)
-    kw = train_march_args(m, cfg.render, N, False)
+    kw = train_march_args(m, cfg.render, N, "sv")
     args = (o, d, hits, occ.sv_mask, occ.sv_payload, noise)
     got = rm.march_rays_train_dense_sv(*args, **kw)
     ref = rm.march_rays_train_dense_sv_plain(*args, **kw)
@@ -828,6 +860,327 @@ def check_t_start(tr, first_round):
     return err
 
 
+def steps_in(t0, t_end, hit, lo, S):
+    """Per ray, the lattice steps t0 + k*lo (k < S) before t_end; 0 where
+    the ray does not march."""
+    n = torch.clamp(torch.ceil((t_end - t0) / lo), 0, S)
+    return torch.where(hit, n, torch.zeros_like(n))
+
+
+def check_bitfield(tr, occ, train_in, test_in, tag, need_trunc, step):
+    """H9, H10 and H11 against their plain versions on one occupancy: the
+    fine march (H9) on the batch's rays with their march intervals at
+    training step `step`, and the two-level march with COARSE_K_BLOCKS
+    candidate blocks; H11 compacting the fine march's samples into the
+    flat training budget and into half the samples (a budget that drops
+    the tail); TEST_ROUNDS rounds of each H10 mode over the held-out rays,
+    each from the cursors the last returned (the full window of
+    test_n_samples steps, compacted by H11 into its N * n_steps budget, and
+    the first K of a test_march_window window with the renderer's K); and
+    H10's full window at P2's (8192, 1024) block, beside P2's own form in
+    torch. Sample sets, counts and cursors must be identical. Returns the
+    records of the three launchers and the flat batch for the segment
+    checks."""
+    from normal_clustering_nerf_torch.models.rendering import (
+        bucket_ladder, train_intervals, train_march_args)
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    cfg, m, rc, chk, rec = tr.cfg, tr.cfg.model, tr.cfg.render, Check(), {}
+    lo = math.sqrt(3.0) / m.max_samples
+    bits = occ.density_bitfield
+    o, d, noise = train_in[0], train_in[1], train_in[3]
+    N = o.shape[0]
+    hits = train_intervals(m, rc, o, d, step)
+    kw = train_march_args(m, rc, N, "fine")
+    args = (o, d, hits, bits, noise)
+    errs = []
+    for name, extra in (("fine", {}), ("two-level", dict(
+            coarse_occ=occ.coarse_occ, coarse_k_blocks=COARSE_K_BLOCKS))):
+        k = dict(kw, **extra)
+        got = rm.march_rays_train_dense(*args, **k)
+        ref = rm.march_rays_train_dense_plain(*args, **k)
+        log(f"H9 {name}, {tag}: N={N} S={k['march_steps']} "
+            f"K={ref.t.shape[1]}{' KB=%d' % COARSE_K_BLOCKS if extra else ''}"
+            f"; rm/ray {int(ref.rm_samples) / N:.2f}, truncated rays "
+            f"{int(ref.trunc_rays)}")
+        errs += [chk.equal(f, getattr(got, f), getattr(ref, f)) for f in
+                 ("t", "dt", "valid", "ray_count", "rm_samples", "trunc_rays")]
+        if extra and need_trunc and not int(ref.trunc_rays):
+            raise RuntimeError("H9 check: the two-level budget cut no ray")
+        if not extra:
+            fine = ref
+    S = kw["march_steps"]
+    t1, t2 = hits[:, 0], hits[:, 1]
+    probes = int(steps_in(t1 + lo * noise, t2, t1 >= 0, lo, S).sum())
+    log(f"  work: {probes} steps inside the box")
+    rec["march_fine_train"] = dict(
+        err=max(errs), kernel=(lambda: rm.march_rays_train_dense(*args, **kw)),
+        plain=(lambda: rm.march_rays_train_dense_plain(*args, **kw)),
+        bound=bound(nbytes(o, d, hits, noise, bits, fine.t, fine.dt,
+                           fine.valid, fine.ray_count) + 8,
+                    STEP_OPS * probes))
+
+    # H11: the flat training batch (the fine march's samples, H9 at the
+    # per-ray cap) and a budget that drops half of them
+    budget = rc.sample_budget or N * 32
+    cargs = (fine.valid, fine.t, fine.dt)
+    cerrs = []
+    for B in (budget, int(fine.rm_samples) // 2):
+        got = rm.compact_samples(*cargs, B)
+        ref = rm.compact_samples_plain(*cargs, B)
+        log(f"H11 compact, {tag}: N={N} S={fine.t.shape[1]} B={B}, "
+            f"{int(ref.rm_samples)} samples, {int(ref.valid.sum())} kept")
+        cerrs += [chk.equal(f, getattr(got, f), getattr(ref, f))
+                  for f in rm.MarchResult._fields]
+        if B == budget:
+            flat = got
+    rec["compact_samples"] = dict(
+        kernel=(lambda: rm.compact_samples(*cargs, budget)),
+        plain=(lambda: rm.compact_samples_plain(*cargs, budget)),
+        bound=bound(nbytes(*cargs) + nbytes(*flat[:6]) + 4, 0))
+
+    # H10, both modes, over the held-out rays
+    ro, rd, near, far = test_in
+    Nt = ro.shape[0]
+    mk = dict(cascades=m.cascades, scale=m.scale,
+              exp_step_factor=m.exp_step_factor, grid_size=m.grid_size,
+              max_samples=m.max_samples)
+    S_win, n_steps = rc.test_march_window, rc.test_n_samples
+    rungs = bucket_ladder(Nt, max(1, rc.test_min_k), S_win)
+    errs = []
+    for mode in ("full", "window"):
+        cursor, alive = near, near >= 0
+        for r in range(TEST_ROUNDS):
+            n_alive = int(alive.sum())
+            if mode == "full":
+                tkw = dict(mk, n_steps=n_steps)
+                fn, pfn = (rm.march_rays_test_round_dense,
+                           rm.march_rays_test_round_dense_plain)
+            else:
+                K = next(k for b, k in rungs if b >= n_alive)
+                tkw = dict(mk, S_march=S_win, n_steps=K)
+                fn, pfn = (rm.march_rays_test_round_window,
+                           rm.march_rays_test_round_window_plain)
+            targs = (ro, rd, cursor, far, alive, bits)
+            got, ref = fn(*targs, **tkw), pfn(*targs, **tkw)
+            log(f"H10 {mode} round {r}, {tag}: N={Nt} alive {n_alive} "
+                + (f"S={n_steps}" if mode == "full" else
+                   f"S_march={S_win} K={tkw['n_steps']}")
+                + f"; valid samples {int(ref[2].sum())}")
+            errs += [chk.equal(name, a, b) for name, a, b in
+                     zip(("t", "dt", "valid", "cursor"), got, ref)]
+            if mode == "full" and r == 0:
+                # the flat test round: H11 on the window, budget N * n_steps
+                cg = rm.compact_samples(ref[2], ref[0], ref[1], Nt * n_steps)
+                cr = rm.compact_samples_plain(ref[2], ref[0], ref[1],
+                                              Nt * n_steps)
+                cerrs += [chk.equal(f"compact {f}", getattr(cg, f),
+                                    getattr(cr, f))
+                          for f in rm.MarchResult._fields]
+                flat_round = (targs, tkw, cg)
+            if mode == "window" and r == 0:
+                hit = alive & (cursor >= 0)
+                probed = int(steps_in(cursor, torch.minimum(ref[3], far), hit,
+                                      lo, S_win).sum())
+                log(f"  work: {probed} steps probed")
+                rec["march_fine_test_round"] = dict(
+                    kernel=(lambda a=targs, k=tkw, f=fn: f(*a, **k)),
+                    plain=(lambda a=targs, k=tkw, f=pfn: f(*a, **k)),
+                    bound=bound(nbytes(ro, rd, cursor, far, alive, bits)
+                                + nbytes(*ref), STEP_OPS * probed))
+            cursor = ref[3]
+            alive = alive & (cursor < far)
+    rec["compact_samples"]["err"] = max(cerrs)
+
+    # H10's full window at P2's block: the first 8192 held-out rays from
+    # their near ends, 1024 steps; P2's form on the int32 words and the
+    # plain version's cells
+    pr, pd = ro[:P2_RAYS].contiguous(), rd[:P2_RAYS].contiguous()
+    pc, pf = near[:P2_RAYS].contiguous(), far[:P2_RAYS].contiguous()
+    pa = pc >= 0
+    pkw = dict(mk, n_steps=P2_STEPS)
+    pargs = (pr, pd, pc, pf, pa, bits)
+    got = rm.march_rays_test_round_dense(*pargs, **pkw)
+    ref = rm.march_rays_test_round_dense_plain(*pargs, **pkw)
+    G, mb = m.grid_size, min(0.5, m.scale)
+    xyz = pr[:, None, :] + ref[0][..., None] * pd[:, None, :]
+    cell = torch.clamp(0.5 * (xyz / mb + 1.0) * G, 0.0, G - 1.0).to(torch.int64)
+    cells = ((cell[..., 2] * G + cell[..., 1]) * G + cell[..., 0]).to(
+        torch.int32).contiguous()
+    words = bits.view(torch.int32)
+
+    def p2_probe():
+        return (words[cells >> 5] >> (cells & 31)) & 1
+    in_range = pa[:, None] & (ref[0] < pf[:, None])
+    log(f"H10 full window at P2's block, {tag}: {P2_RAYS} x {P2_STEPS}, "
+        f"{int(in_range.sum())} steps in range, {int(ref[2].sum())} occupied")
+    errs.append(max(chk.equal(name, a, b) for name, a, b in
+                    zip(("t", "dt", "valid", "cursor"), got, ref)))
+    errs.append(chk.equal("P2's form, in range", (p2_probe() > 0) & in_range,
+                          got[2]))
+    n_in = int(in_range.sum())
+    rec["march_fine_test_round"]["err"] = max(errs)
+    rec["march_fine_test_round"]["at_p2_shape"] = dict(
+        kernel=(lambda: rm.march_rays_test_round_dense(*pargs, **pkw)),
+        library=p2_probe,
+        bound=bound(nbytes(pr, pd, pc, pf, pa, bits) + nbytes(*got),
+                    STEP_OPS * n_in + 2 * (P2_RAYS * P2_STEPS - n_in)))
+    chk.done(f"H9-H11 checks, {tag}")
+    return rec, (hits, noise, flat), flat_round
+
+
+def dense_of(mr, x, n_rays, width):
+    """The flat slots of `mr` laid out as dense (N, width) rows."""
+    from normal_clustering_nerf_torch.ops.segops import (
+        segment_slots, to_segments)
+    pos = segment_slots(mr.ray_id, mr.ray_start)
+    return to_segments(x, mr.ray_id, pos, mr.valid, n_rays,
+                       width).contiguous()
+
+
+def check_segments(tr, train_in, flat_in, flat_round, gen):
+    """H3's and H4's segment launchers against their plain versions and,
+    bit for bit, against the dense launchers on the same samples: on the
+    flat training batch (the field's sigmas, and the same scaled by
+    10^U(0, 4) per ray so that rays end early and sigma*delta reaches the
+    clip), and the forward with T_start on the first flat test round's
+    samples. Returns the four launchers' records (timed on the batch)."""
+    from normal_clustering_nerf_torch.models.rendering import field_raws
+    from normal_clustering_nerf_torch.ops import composite as cp
+    from normal_clustering_nerf_torch.ops import distortion as ds
+    o, d = train_in[0], train_in[1]
+    _, _, mr = flat_in
+    N, B, K = o.shape[0], mr.t.shape[0], int(mr.ray_count.max())
+    rid = mr.ray_id.long()
+    with torch.no_grad():
+        sig, raws = field_raws(tr.model, o[rid] + mr.t[:, None] * d[rid],
+                               d[rid])
+    sig, raws = sig.float().contiguous(), raws.float().contiguous()
+    C, thr = raws.shape[-1], tr.cfg.render.T_threshold
+    seg = (mr.ray_start, mr.ray_count)
+    dense = {k: dense_of(mr, x, N, K) for k, x in
+             (("dt", mr.dt), ("t", mr.t), ("valid", mr.valid))}
+    scale = 10.0 ** (4.0 * torch.rand(N, generator=gen, device=o.device))
+    gs = (torch.randn(N, generator=gen, device=o.device),
+          torch.randn(N, generator=gen, device=o.device),
+          torch.randn((N, C), generator=gen, device=o.device),
+          torch.randn(B, generator=gen, device=o.device))
+    gl = torch.randn(N, generator=gen, device=o.device)
+    chk, errs = Check(), {k: [] for k in ("composite_seg_fwd",
+                                          "composite_seg_bwd",
+                                          "distortion_seg_fwd",
+                                          "distortion_seg_bwd")}
+    v = mr.valid
+    pos = (torch.arange(B, device=o.device) - mr.ray_start.long()[rid])[v]
+    at = (rid[v], pos)
+    for tag, s in (("main", sig), ("opaque", (sig * scale[rid]).contiguous())):
+        ca = (s, raws, mr.dt, mr.t, mr.ray_id, mr.ray_start, v, N, thr)
+        ka = (s, raws, mr.dt, mr.t, *seg, v, thr)
+        ref = cp.composite_compact_plain(*ca)
+        got = cp.composite_compact_kernel(*ka)
+        dd = (dense_of(mr, s, N, K), dense_of(mr, raws, N, K), dense["dt"],
+              dense["t"], dense["valid"], thr)
+        dg = cp.composite_kernel(*dd)
+        log(f"H3 segments, {tag} sigmas: N={N} B={B} (longest {K}) C={C}; "
+            f"rays ended early {int((ref[4] < mr.ray_count).sum())}, "
+            f"samples clipped {int((v & (s * mr.dt >= cp.SIGDT_MAX)).sum())}")
+        errs["composite_seg_fwd"].append(max(
+            chk.close("opacity", got[0], ref[0], 1e-5),
+            chk.close("depth", got[1], ref[1], 1e-5),
+            chk.close("rend", got[2], ref[2], 1e-5),
+            chk.close("ws", got[3], ref[3], 1e-5),
+            chk.equal("vr_samples", got[4], ref[4]),
+            *(chk.equal(f"{n} = dense H3", got[i], dg[i]) for n, i in
+              (("opacity", 0), ("depth", 1), ("rend", 2), ("vr_samples", 4))),
+            chk.equal("ws = dense H3", got[3][v], dg[3][at])))
+        gref = cp.composite_compact_grad_plain(*ca, *gs)
+        ggot = cp.composite_compact_grad_kernel(*ka, *gs)
+        gdn = cp.composite_grad_kernel(*dd, *gs[:3], dense_of(mr, gs[3], N, K))
+        errs["composite_seg_bwd"].append(max(
+            chk.close("d_sigmas", ggot[0], gref[0], 1e-4),
+            chk.close("d_raws", ggot[1], gref[1], 1e-5),
+            chk.equal("d_sigmas = dense H3", ggot[0][v], gdn[0][at]),
+            chk.equal("d_raws = dense H3", ggot[1][v], gdn[1][at])))
+        da = (ref[3].contiguous(), mr.dt, mr.t)
+        dref = ds.distortion_compact_plain(*da, mr.ray_id, mr.ray_start, v, N)
+        dgot = ds.distortion_compact_kernel(*da, v, *seg)
+        ddn = (dense_of(mr, ref[3], N, K), dense["dt"], dense["t"],
+               dense["valid"])
+        log(f"H4 segments, {tag} sigmas: N={N} B={B}")
+        errs["distortion_seg_fwd"].append(max(
+            chk.close("loss", dgot, dref, 1e-5),
+            chk.equal("loss = dense H4", dgot, ds.distortion_kernel(*ddn))))
+        gg = ds.distortion_compact_grad_kernel(gl, *da, v, *seg)
+        errs["distortion_seg_bwd"].append(max(
+            chk.close("d_ws", gg, ds.distortion_compact_grad_plain(
+                gl, *da, mr.ray_id, mr.ray_start, v, N), 1e-4),
+            chk.equal("d_ws = dense H4", gg[v],
+                      ds.distortion_grad_kernel(gl, *ddn)[at])))
+        if tag == "main":
+            mka, mda, mref = ka, da, ref
+    ka, da = mka, mda
+    n_valid = int(v.sum())
+    flops = n_valid * (10 + 2 * C)
+    in_b = nbytes(*ka[:4], v, *seg)
+    rec = {
+        "composite_seg_fwd": dict(
+            kernel=(lambda: cp.composite_compact_kernel(*ka)),
+            plain=(lambda: cp.composite_compact_plain(
+                *ka[:4], mr.ray_id, mr.ray_start, v, N, thr)),
+            bound=bound(in_b + nbytes(*mref), flops)),
+        "composite_seg_bwd": dict(
+            kernel=(lambda: cp.composite_compact_grad_kernel(
+                *ka, *gs, max_len=K)),
+            plain=(lambda: cp.composite_compact_grad_plain(
+                *ka[:4], mr.ray_id, mr.ray_start, v, N, thr, *gs)),
+            bound=bound(in_b + nbytes(*gs) + nbytes(sig, raws),
+                        2 * flops + n_valid * C * 3)),
+        "distortion_seg_fwd": dict(
+            kernel=(lambda: ds.distortion_compact_kernel(*da, v, *seg)),
+            plain=(lambda: ds.distortion_compact_plain(
+                *da, mr.ray_id, mr.ray_start, v, N)),
+            bound=bound(nbytes(*da, v, *seg) + 4 * N, n_valid * 12)),
+        "distortion_seg_bwd": dict(
+            kernel=(lambda: ds.distortion_compact_grad_kernel(
+                gl, *da, v, *seg)),
+            plain=(lambda: ds.distortion_compact_grad_plain(
+                gl, *da, mr.ray_id, mr.ray_start, v, N)),
+            bound=bound(nbytes(gl, *da, v, *seg) + nbytes(da[0]),
+                        n_valid * 18))}
+
+    # the forward with T_start on the first flat test round's samples
+    (ro, rd, *_), _, tm = flat_round
+    Nt, Kt = ro.shape[0], int(tm.ray_count.max())
+    trid = tm.ray_id.long()
+    with torch.no_grad():
+        ts_, traws = field_raws(tr.model, ro[trid] + tm.t[:, None] * rd[trid],
+                                rd[trid])
+    ts_, traws = ts_.float().contiguous(), traws.float().contiguous()
+    T_start = torch.rand(Nt, generator=gen, device=o.device)
+    T_start[::8] = thr * (1.0 + 2.0 * T_start[::8])
+    got = cp.composite_compact_kernel(ts_, traws, tm.dt, tm.t, tm.ray_start,
+                                      tm.ray_count, tm.valid, thr, T_start)
+    ref = cp.composite_compact_plain(ts_, traws, tm.dt, tm.t, tm.ray_id,
+                                     tm.ray_start, tm.valid, Nt, thr, T_start)
+    dg = cp.composite_kernel(
+        dense_of(tm, ts_, Nt, Kt), dense_of(tm, traws, Nt, Kt),
+        dense_of(tm, tm.dt, Nt, Kt), dense_of(tm, tm.t, Nt, Kt),
+        dense_of(tm, tm.valid, Nt, Kt), thr, T_start)
+    log(f"H3 segments with T_start, first flat test round: N={Nt} "
+        f"B={tm.t.shape[0]} (longest {Kt}); rays ended early "
+        f"{int((ref[4] < tm.ray_count).sum())}")
+    errs["composite_seg_fwd"].append(max(
+        chk.close("opacity", got[0], ref[0], 1e-5),
+        chk.close("depth", got[1], ref[1], 1e-5),
+        chk.close("rend", got[2], ref[2], 1e-5),
+        chk.equal("vr_samples", got[4], ref[4]),
+        *(chk.equal(f"{n} = dense H3", got[i], dg[i]) for n, i in
+          (("opacity", 0), ("depth", 1), ("rend", 2), ("vr_samples", 4)))))
+    for k, e in errs.items():
+        rec[k]["err"] = max(e)
+    chk.done("segment launcher checks")
+    return rec
+
+
 REPLACES = {
     "march_bootstrap": "normal_clustering_nerf_tpu/ops/ray_march.py:402",
     "triplane_fwd": "normal_clustering_nerf_tpu/models/triplane.py:177",
@@ -844,13 +1197,26 @@ REPLACES = {
     "brick_bwd": "normal_clustering_nerf_tpu/models/brick_hash.py:208",
     "hash_grid_fwd": "normal_clustering_nerf_tpu/models/hash_encoding.py:123",
     "hash_grid_bwd": "normal_clustering_nerf_tpu/models/hash_encoding.py:199",
+    # the Pallas bit probe P2 (pallas_bit) of the bitfield march; the JAX
+    # functions are ops/ray_march.py:402 `march_rays_train_dense` and :820
+    # `march_rays_test_round_dense` (and the bucket round's window)
+    "march_fine_train": "experiments/pallas_gather_probe.py:84",
+    "march_fine_test_round": "experiments/pallas_gather_probe.py:84",
+    "compact_samples": "normal_clustering_nerf_tpu/ops/ray_march.py:157",
+    "composite_seg_fwd": "normal_clustering_nerf_tpu/ops/composite.py:86",
+    "composite_seg_bwd": "normal_clustering_nerf_tpu/ops/composite.py:86",
+    "distortion_seg_fwd": "normal_clustering_nerf_tpu/ops/distortion.py:19",
+    "distortion_seg_bwd": "normal_clustering_nerf_tpu/ops/distortion.py:19",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
          "distortion_fwd": "H4", "distortion_bwd": "H4",
          "march_sv_train": "K1", "march_sv_test_round": "K1",
          "brick_fwd": "H5", "brick_bwd": "H6", "hash_grid_fwd": "H7",
-         "hash_grid_bwd": "H8"}
+         "hash_grid_bwd": "H8", "march_fine_train": "H9",
+         "march_fine_test_round": "H10", "compact_samples": "H11",
+         "composite_seg_fwd": "H3", "composite_seg_bwd": "H3",
+         "distortion_seg_fwd": "H4", "distortion_seg_bwd": "H4"}
 
 
 def time_kernels(rec):
@@ -875,6 +1241,15 @@ def time_kernels(rec):
                 f" ms (bound {r['p4_bound_ms']:.4f}, {p4['bound'][1]}); "
                 f"index_select of the 16 x {P4_POINTS} whole rows P4 gathers: "
                 f"{r['p4_library_ms']:.4f} ms")
+        if "at_p2_shape" in r:
+            p2 = r.pop("at_p2_shape")
+            r["p2_ms"] = device_ms(p2["kernel"], f"{name} P2")
+            r["p2_library_ms"] = device_ms(p2["library"], f"{name} P2 library")
+            r["p2_bound_ms"] = p2["bound"][0]
+            log(f"  {name} full window at P2's block, {P2_RAYS} x "
+                f"{P2_STEPS}: {r['p2_ms']:.4f} ms (bound "
+                f"{r['p2_bound_ms']:.4f}, {p2['bound'][1]}); P2's form in "
+                f"torch on precomputed cells: {r['p2_library_ms']:.4f} ms")
     log("  timed from a CUDA graph: every call"
         + (f" but {', '.join(QUEUED)} (timed queued)" if QUEUED else ""))
 
@@ -891,78 +1266,82 @@ def counted(fn):
     return out, kernels.counts(), time.perf_counter() - t
 
 
-def train(tr):
-    """Phase 3: a path's training steps, counted: BOOT_STEPS bootstrap
-    steps, then SV_STEPS supervoxel-run steps, timed apart. Every launcher
-    of the path (its field's and the shared ones) must have launched.
-    Returns (history, counts, bootstrap s, sv s)."""
-    layout = tr.cfg.model.hash_layout
+def train(tr, name, phases, need, exact):
+    """Phase 3: a path's training steps through `Trainer.fit`, counted:
+    `phases` (label, steps), timed apart. Every launcher in `need` must
+    have launched, and those in `exact` exactly so many times. Returns
+    (history, counts, seconds of each phase)."""
     times = []
 
     def run():
         hist = []
-        for n in (BOOT_STEPS, SV_STEPS):
+        for _, n in phases:
             t = time.perf_counter()
             hist += tr.fit(n)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
         return hist
     hist, counts, _ = counted(run)
-    log(f"launches in {STEPS} {layout} steps: {counts}")
-    missing = [n for n in PATH_KERNELS + FIELD_KERNELS[layout]
-               if counts[n] == 0]
+    log(f"launches in {sum(n for _, n in phases)} {name} steps: {counts}")
+    missing = [n for n in need if counts[n] == 0]
     if missing:
-        raise RuntimeError(f"kernels never launched on the main path: {missing}")
-    if counts["march_sv_train"] != SV_STEPS:
-        raise RuntimeError(f"the sv march launched {counts['march_sv_train']}"
-                           f" times in {SV_STEPS} sv steps")
-    return hist, counts, times[0], times[1]
+        raise RuntimeError(f"kernels never launched on the {name} path: "
+                           f"{missing}")
+    wrong = {k: counts[k] for k, v in exact.items() if counts[k] != v}
+    if wrong:
+        raise RuntimeError(f"{name} path: launch counts {wrong}, expected "
+                           f"{ {k: exact[k] for k in wrong} }")
+    return hist, counts, times
 
 
-def check_losses(hist):
+def check_losses(hist, marks, fall=True):
+    """Every loss finite; the losses at the steps `marks` (label, index)
+    logged; with `fall`, the mean of the last 6 steps under 0.75 of the
+    first 6 (the random background makes single steps noisy)."""
     bad = [(i, k) for i, m in enumerate(hist) for k, v in m.items()
            if k.startswith("loss_") and not math.isfinite(v)]
     if bad:
         raise RuntimeError(f"non-finite losses: {bad[:10]}")
-    for name, i in (("first", 0), ("last bootstrap", BOOT_STEPS - 1),
-                    ("first sv", BOOT_STEPS), ("last", -1)):
+    for name, i in marks:
         m = hist[i]
         log(f"  {name} step: loss {m['loss_total']:.6f} psnr {m['psnr']:.3f} "
             f"rm/ray {m['rm_samples_per_ray']:.3f} "
             f"vr/ray {m['vr_samples_per_ray']:.3f} "
             f"trunc {m['trunc_ray_frac']:.4f}")
-    # the random background makes single steps noisy: compare the means
-    # of the first and the last 6 steps
     q = 6
     head, tail = (sum(m["loss_total"] for m in ms) / q
                   for ms in (hist[:q], hist[-q:]))
-    if not tail < 0.75 * head:
+    if fall and not tail < 0.75 * head:
         raise RuntimeError(f"the loss did not fall: mean {head:.6f} over the "
                            f"first {q} steps, {tail:.6f} over the last {q}")
     return head, tail
 
 
-def validate(tr):
-    """Phase 5: `Trainer.validate()` on the held-out views, counted."""
-    layout = tr.cfg.model.hash_layout
+def validate(tr, name, need, absent=(), rotation=True):
+    """Phase 5: `Trainer.validate()` on the held-out views, counted: the
+    launchers in `need` must launch and those in `absent` must not; every
+    metric finite and, with `rotation`, the rotation recovered."""
     out, counts, wall = counted(tr.validate)
-    log(f"launches in {layout} validate: {counts}")
-    for name in ("march_sv_test_round", FIELD_KERNELS[layout][0],
-                 "composite_fwd"):
-        if not counts[name]:
-            raise RuntimeError(f"validate never launched {name}")
+    log(f"launches in {name} validate: {counts}")
+    for k in need:
+        if not counts[k]:
+            raise RuntimeError(f"{name} validate never launched {k}")
+    for k in absent:
+        if counts[k]:
+            raise RuntimeError(f"{name} validate launched {k}")
     bad = {k: v for k, v in out.items() if not math.isfinite(v)}
     if bad:
         raise RuntimeError(f"non-finite metrics: {bad}")
     rot = [f"ang/clust/{a}_abs" for a in ("yaw", "pitch", "roll")]
-    if "ang/clust/failed" in out or not all(k in out for k in rot):
+    if rotation and ("ang/clust/failed" in out
+                     or not all(k in out for k in rot)):
         raise RuntimeError(f"rotation recovery failed: {out}")
-    log(f"phase 5, {layout}: validate {wall * 1e3:.1f} ms "
+    log(f"phase 5, {name}: validate {wall * 1e3:.1f} ms "
         f"({tr.last_render['rounds']} "
         f"rounds, {tr.last_render['total_samples']} samples): psnr "
         f"{out['psnr']:.3f}, norm_depth_ang_mean "
         f"{out['norm_depth_ang_mean']:.3f}, rot yaw/pitch/roll "
-        + "/".join(f"{out[k]:.3f}" for k in rot)
+        + "/".join(f"{out.get(k, float('nan')):.3f}" for k in rot)
         + f", ssim {out['ssim']:.4f}, depth_rmse {out['depth_rmse']:.4f}, "
         f"miou {out['miou']:.4f}")
     return counts
@@ -985,18 +1364,20 @@ def step_times(tr, n=8):
             once(lambda: tr.occ_update(warmup=False)))
 
 
-def profile(tr, out_dir, step_ms, n=4):
+def profile(tr, name, out_dir, step_ms, n=4):
     """Trace `n` steps of each march with torch.profiler: the device's busy
     time per step split into the port's kernels, matrix products and the
     rest, the launches per step, and the idle share against the
     unprofiled step time `step_ms[boot]`. Writes each trace's per-kernel
-    table and a chrome trace, named by the field's layout and the march."""
+    table and a chrome trace, named by the path and the march (bootstrap
+    steps, and steps after the bootstrap)."""
+    import gzip
     import os
+    import shutil
     from normal_clustering_nerf_torch import kernels
     os.makedirs(out_dir, exist_ok=True)
-    layout = tr.cfg.model.hash_layout
     for boot in (True, False):
-        tag = f"{layout}_{'bootstrap' if boot else 'sv'}"
+        tag = f"{name}_{'bootstrap' if boot else 'after'}"
 
         def steps():
             for _ in range(n):
@@ -1010,7 +1391,12 @@ def profile(tr, out_dir, step_ms, n=4):
                                        row_limit=40)
         with open(os.path.join(out_dir, f"profile_{tag}.txt"), "w") as f:
             f.write(table)
-        p.export_chrome_trace(os.path.join(out_dir, f"trace_{tag}.json"))
+        # gzipped: ten traces of 4 steps each would pass 64 MB as JSON
+        trace = os.path.join(out_dir, f"trace_{tag}.json")
+        p.export_chrome_trace(trace)
+        with open(trace, "rb") as f, gzip.open(trace + ".gz", "wb") as g:
+            shutil.copyfileobj(f, g)
+        os.remove(trace)
         ours = tuple(f"{k.name}_kernel" for k in kernels.ALL_KERNELS)
         gemm = ("gemm", "gemv", "nvjet", "cutlass")   # cuBLAS / CUTLASS names
         split = {"port kernels": 0.0, "gemm": 0.0, "other": 0.0}
@@ -1028,20 +1414,32 @@ def profile(tr, out_dir, step_ms, n=4):
             print(line)
 
 
-def path_training(tr, launches):
+TWO_PHASES = (("bootstrap", BOOT_STEPS), ("after the bootstrap", SV_STEPS))
+
+
+def path_training(tr, name, launches, need, exact, phases=TWO_PHASES,
+                  fall=True):
     """Phase 3 of one path: `train`, the loss checks, and its launches
-    added to `launches`. Returns fit's ms/step over the bootstrap and the
-    sv steps."""
-    hist, counts, boot_s, sv_s = train(tr)
-    head, tail = check_losses(hist)
-    for name, c in counts.items():
-        launches[name] += c
-    boot, sv = boot_s * 1e3 / BOOT_STEPS, sv_s * 1e3 / SV_STEPS
-    log(f"  losses finite and falling ({head:.6f} -> {tail:.6f}, means of "
-        f"6 steps); fit {boot:.2f} ms/step over the {BOOT_STEPS} bootstrap "
-        f"steps, {sv:.2f} ms/step over the {SV_STEPS} sv steps "
-        f"({math.ceil(STEPS / 16)} refreshes)")
-    return boot, sv
+    added to `launches`. Returns fit's ms/step over each phase."""
+    hist, counts, secs = train(tr, name, phases, need, exact)
+    marks, i = [("first", 0)], 0
+    for label, n in phases[:-1]:
+        i += n
+        marks += [(f"last {label}", i - 1), (f"first {phases[1][0]}", i)]
+    head, tail = check_losses(hist, marks + [("last", -1)], fall)
+    for k, c in counts.items():
+        launches[k] += c
+    ms = [t * 1e3 / n for (_, n), t in zip(phases, secs)]
+    log(f"  losses finite{' and falling' if fall else ''} ({head:.6f} -> "
+        f"{tail:.6f}, means of 6 steps); fit "
+        + ", ".join(f"{m:.2f} ms/step over the {n} {label} steps"
+                    for m, (label, n) in zip(ms, phases))
+        + f" ({math.ceil(sum(n for _, n in phases) / 16)} refreshes)")
+    return ms
+
+
+def render_config(cfg, **kw):
+    return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
 
 
 def main():
@@ -1083,26 +1481,83 @@ def main():
     rec, train_in = check_kernels(tr, gen)
     test_in = held_out_rays(tr)
     # at the intervals of the steps after the near-field annealing
-    k1_random = check_k1(tr, random_occupancy(tr, gen), train_in, test_in,
-                         "random 20% occupancy", need_trunc=True,
-                         step=tr.cfg.render.anneal_steps)
+    occ_random = random_occupancy(tr, gen)
+    step = tr.cfg.render.anneal_steps
+    early = check_k1(tr, occ_random, train_in, test_in,
+                     "random 20% occupancy", need_trunc=True, step=step)
+    early.update(check_bitfield(tr, occ_random, train_in, test_in,
+                                "random 20% occupancy", need_trunc=True,
+                                step=step)[0])
     step_parity()
 
     log(f"phase 3, triplane: {STEPS} training steps through Trainer.fit")
     launches = {k.name: 0 for k in kernels.ALL_KERNELS}
     paths = {"triplane": tr}
-    fit_ms = {"triplane": path_training(tr, launches)}
+    shared = PATH_KERNELS + FIELD_KERNELS["triplane"]
+    fit_ms = {"triplane": path_training(
+        tr, "triplane", launches, shared,
+        {"march_sv_train": SV_STEPS, "march_fine_train": 0})}
 
-    log("phase 4: K1 and H3 with T_start on the trained occupancy")
+    log("phase 4: K1, H9-H11, the segment launchers and H3 with T_start "
+        "on the trained occupancy")
     rec.update(check_k1(tr, tr.occ, train_in, test_in, "trained occupancy",
                         need_trunc=False, step=tr.step))
-    for name, r in k1_random.items():
+    bf, flat_in, flat_round = check_bitfield(
+        tr, tr.occ, train_in, test_in, "trained occupancy", need_trunc=False,
+        step=tr.step)
+    rec.update(bf)
+    rec.update(check_segments(tr, train_in, flat_in, flat_round, gen))
+    for name, r in early.items():
         rec[name]["err"] = max(rec[name]["err"], r["err"])
     rec["composite_fwd"]["err"] = max(
         rec["composite_fwd"]["err"],
         check_t_start(tr, rec["march_sv_test_round"].pop("first_round")))
-    for name, c in validate(tr).items():
+    for name, c in validate(tr, "triplane", ("march_sv_test_round",
+                                             "triplane_fwd", "composite_fwd"),
+                            ("march_fine_test_round",)).items():
         launches[name] += c
+
+    # the bitfield path: the same configuration without the supervoxel-run
+    # march, so that the steps after the bootstrap and the held-out rounds
+    # probe the bitfield (H9, H10)
+    cfg = render_config(bench_config(), march_coarse=False)
+    tb = build_trainer(cfg, device="cuda")
+    tb.mark_invisible_cells()
+    log(f"phase 3, bitfield: {STEPS} training steps through Trainer.fit, "
+        f"march_coarse False")
+    fit_ms["bitfield"] = path_training(
+        tb, "bitfield", launches,
+        tuple(k for k in shared if k != "march_sv_train")
+        + ("march_fine_train",),
+        {"march_fine_train": SV_STEPS, "march_sv_train": 0})
+    for name, c in validate(tb, "bitfield", ("march_fine_test_round",
+                                             "triplane_fwd", "composite_fwd"),
+                            ("march_sv_test_round",)).items():
+        launches[name] += c
+    paths["bitfield"] = tb
+
+    # the flat path: the flat march layout (no bootstrap march: H9 from
+    # step 0, H11, the segment launchers) and flat test rounds
+    cfg = render_config(bench_config(), march_layout="flat",
+                        test_layout="flat")
+    tf = build_trainer(cfg, device="cuda")
+    tf.mark_invisible_cells()
+    log(f"phase 3, flat: {FLAT_STEPS} training steps through Trainer.fit, "
+        f"march_layout and test_layout flat")
+    flat_kernels = ("march_fine_train", "compact_samples",
+                    "composite_seg_fwd", "composite_seg_bwd",
+                    "distortion_seg_fwd", "distortion_seg_bwd")
+    fit_ms["flat"] = path_training(
+        tf, "flat", launches, flat_kernels + FIELD_KERNELS["triplane"],
+        {"march_fine_train": FLAT_STEPS, "march_bootstrap": 0,
+         "composite_fwd": 0}, phases=(("flat", FLAT_STEPS),), fall=False)
+    for name, c in validate(tf, "flat", ("march_fine_test_round",
+                                         "compact_samples",
+                                         "composite_seg_fwd", "triplane_fwd"),
+                            ("march_sv_test_round", "composite_fwd"),
+                            rotation=False).items():
+        launches[name] += c
+    paths["flat"] = tf
 
     # the brick and the tcnn field: the same phases 2, 3 and 5 at the
     # bench configuration with that hash_layout
@@ -1114,28 +1569,36 @@ def main():
         rec.update(check_encoding(tl, gen))
         step_parity(layout)
         log(f"phase 3, {layout}: {STEPS} training steps through Trainer.fit")
-        fit_ms[layout] = path_training(tl, launches)
-        for name, c in validate(tl).items():
+        fit_ms[layout] = path_training(
+            tl, layout, launches, PATH_KERNELS + FIELD_KERNELS[layout],
+            {"march_sv_train": SV_STEPS})
+        for name, c in validate(tl, layout, ("march_sv_test_round",
+                                             FIELD_KERNELS[layout][0],
+                                             "composite_fwd")).items():
             launches[name] += c
         paths[layout] = tl
     missing = [k.name for k in kernels.ALL_KERNELS if k.name not in rec]
     if missing:
         raise RuntimeError(f"kernels not checked: {missing}")
+    unlaunched = [k for k, c in launches.items() if not c]
+    if unlaunched:
+        raise RuntimeError(f"kernels no main path launched: {unlaunched}")
 
     step_ms = {}
-    for layout, t in paths.items():
+    for name, t in paths.items():
         boot_ms, sv_ms, warm_ms, sampled_ms = step_times(t)
-        step_ms[layout] = {True: boot_ms, False: sv_ms}
-        log(f"phase 6, {layout}: one bootstrap step {boot_ms:.2f} ms, one sv "
-            f"step {sv_ms:.2f} ms (medians of 8); one refresh {warm_ms:.2f} "
-            f"ms (every cell), {sampled_ms:.2f} ms (sampled); Trainer.fit "
-            f"{fit_ms[layout][0]:.2f} / {fit_ms[layout][1]:.2f} ms/step")
+        step_ms[name] = {True: boot_ms, False: sv_ms}
+        log(f"phase 6, {name}: one step of each march {boot_ms:.2f} / "
+            f"{sv_ms:.2f} ms (medians of 8; bootstrap / after it); one "
+            f"refresh {warm_ms:.2f} ms (every cell), {sampled_ms:.2f} ms "
+            f"(sampled); Trainer.fit "
+            + " / ".join(f"{m:.2f}" for m in fit_ms[name]) + " ms/step")
     log("  device time of each kernel, of its plain version and of its "
         "PyTorch yardstick")
     time_kernels(rec)
     if args.profile:
-        for layout, t in paths.items():
-            profile(t, args.profile, step_ms[layout])
+        for name, t in paths.items():
+            profile(t, name, args.profile, step_ms[name])
 
     out = []
     for k in kernels.ALL_KERNELS:
@@ -1147,7 +1610,9 @@ def main():
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
              "library_ms": r["library_ms"]}
         o.update({key: r[key] for key in ("p4_ms", "p4_library_ms",
-                                          "p4_bound_ms") if key in r})
+                                          "p4_bound_ms", "p2_ms",
+                                          "p2_library_ms", "p2_bound_ms")
+                  if key in r})
         out.append(o)
     print("kernels: " + ", ".join(f"{o['name']} {o['ms']:.4f} ms "
                                   f"(plain {o['plain_ms']:.4f}, bound "

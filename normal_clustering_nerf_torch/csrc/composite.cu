@@ -22,7 +22,11 @@
 // Design: one thread per ray; the forward is one pass with running sums,
 // the backward recomputes T/alpha/w into registers (K <= 32) and walks the
 // samples back to front with a running suffix sum. Nothing per-sample is
-// saved by the forward beyond its outputs.
+// saved by the forward beyond its outputs. The segment launchers
+// (`composite_seg_fwd` / `composite_seg_bwd`) replace the flat layout's
+// `composite_rays_compact` (ops/composite.py:86-144) with the same loops
+// over ray-major segments instead of dense rows; they keep JAX's per-ray
+// math and not its global cumsum minus segment base.
 //
 // Bound on the H100: memory. Per ray it reads K*(C+4) values and writes
 // K (+ K*C in the backward) values once, with a handful of flops each; the
@@ -36,21 +40,39 @@ namespace {
 constexpr int MAXK = 32;
 constexpr float SIGDT_MAX = 80.0f;
 
+// The rows a launcher reads: dense (N, K) rows, or the flat layout's
+// ray-major segments [ray_start[n], ray_start[n] + ray_count[n]) of the
+// budget. The loop bodies below are shared, so a segment gives the same
+// bits as the dense row of the same samples.
+struct DenseRows {
+  int K;
+  __device__ size_t base(int n) const { return static_cast<size_t>(n) * K; }
+  __device__ int len(int) const { return K; }
+};
+struct SegmentRows {
+  const int* start;
+  const int* count;
+  __device__ size_t base(int n) const { return static_cast<size_t>(start[n]); }
+  __device__ int len(int n) const { return count[n]; }
+};
+
 __device__ __forceinline__ float clipped(float sigma, float delta, bool valid) {
   float x = valid ? __fmul_rn(sigma, delta) : 0.0f;
   return fminf(fmaxf(x, 0.0f), SIGDT_MAX);
 }
 
+template <class Rows>
 __global__ void composite_fwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
     const float* __restrict__ deltas, const float* __restrict__ ts,
     const uint8_t* __restrict__ valid, const float* __restrict__ T_start,
-    int N, int K, int C, float thr, float* __restrict__ opacity,
+    Rows rows, int N, int C, float thr, float* __restrict__ opacity,
     float* __restrict__ depth, float* __restrict__ rend,
     float* __restrict__ ws, int* __restrict__ vr) {
   int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const size_t b = static_cast<size_t>(n) * K;
+  const size_t b = rows.base(n);
+  const int K = rows.len(n);
   const float t_start = T_start ? T_start[n] : 1.0f;
   float csum = 0.0f, op = 0.0f, dp = 0.0f;
   float acc[16];
@@ -81,16 +103,20 @@ __global__ void composite_fwd_kernel(
   vr[n] = n_inc - (early ? 1 : 0);
 }
 
+template <class Rows>
 __global__ void composite_bwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
     const float* __restrict__ deltas, const float* __restrict__ ts,
     const uint8_t* __restrict__ valid, const float* __restrict__ g_op,
     const float* __restrict__ g_depth, const float* __restrict__ g_rend,
-    const float* __restrict__ g_ws, int N, int K, int C, float thr,
+    const float* __restrict__ g_ws, Rows rows, int N, int C, float thr,
     float* __restrict__ d_sigmas, float* __restrict__ d_raws) {
   int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
-  const size_t b = static_cast<size_t>(n) * K;
+  const size_t b = rows.base(n);
+  // the launchers refuse rows longer than MAXK; the clamp keeps the
+  // register arrays in bounds whatever the counts hold
+  const int K = min(rows.len(n), MAXK);
   float gr[16];
   for (int c = 0; c < C; ++c) gr[c] = g_rend[static_cast<size_t>(n) * C + c];
   const float go = g_op[n], gd = g_depth[n];
@@ -122,6 +148,42 @@ __global__ void composite_bwd_kernel(
   }
 }
 
+template <class Rows>
+int launch_fwd(const void* sigmas, const void* raws, const void* deltas,
+               const void* ts, const void* valid, const void* T_start,
+               Rows rows, int N, int C, float thr, void* opacity, void* depth,
+               void* rend, void* ws, void* vr, cudaStream_t stream) {
+  if (C > 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 64;
+  composite_fwd_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
+      static_cast<const float*>(sigmas), static_cast<const float*>(raws),
+      static_cast<const float*>(deltas), static_cast<const float*>(ts),
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(T_start),
+      rows, N, C, thr,
+      static_cast<float*>(opacity), static_cast<float*>(depth),
+      static_cast<float*>(rend), static_cast<float*>(ws),
+      static_cast<int*>(vr));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Rows>
+int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
+               const void* ts, const void* valid, const void* g_op,
+               const void* g_depth, const void* g_rend, const void* g_ws,
+               Rows rows, int N, int max_len, int C, float thr,
+               void* d_sigmas, void* d_raws, cudaStream_t stream) {
+  if (max_len > MAXK || C > 16) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 64;
+  composite_bwd_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
+      static_cast<const float*>(sigmas), static_cast<const float*>(raws),
+      static_cast<const float*>(deltas), static_cast<const float*>(ts),
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(g_op),
+      static_cast<const float*>(g_depth), static_cast<const float*>(g_rend),
+      static_cast<const float*>(g_ws), rows, N, C, thr,
+      static_cast<float*>(d_sigmas), static_cast<float*>(d_raws));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // T_start may be null (training); the forward keeps no per-sample array,
@@ -132,17 +194,8 @@ extern "C" int composite_fwd(const void* sigmas, const void* raws,
                              int K, int C, float thr, void* opacity,
                              void* depth, void* rend, void* ws, void* vr,
                              cudaStream_t stream) {
-  if (C > 16) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 64;
-  composite_fwd_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
-      static_cast<const float*>(sigmas), static_cast<const float*>(raws),
-      static_cast<const float*>(deltas), static_cast<const float*>(ts),
-      static_cast<const uint8_t*>(valid), static_cast<const float*>(T_start),
-      N, K, C, thr,
-      static_cast<float*>(opacity), static_cast<float*>(depth),
-      static_cast<float*>(rend), static_cast<float*>(ws),
-      static_cast<int*>(vr));
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd(sigmas, raws, deltas, ts, valid, T_start, DenseRows{K},
+                    N, C, thr, opacity, depth, rend, ws, vr, stream);
 }
 
 extern "C" int composite_bwd(const void* sigmas, const void* raws,
@@ -152,14 +205,38 @@ extern "C" int composite_bwd(const void* sigmas, const void* raws,
                              const void* g_ws, int N, int K, int C, float thr,
                              void* d_sigmas, void* d_raws,
                              cudaStream_t stream) {
-  if (K > MAXK || C > 16) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 64;
-  composite_bwd_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
-      static_cast<const float*>(sigmas), static_cast<const float*>(raws),
-      static_cast<const float*>(deltas), static_cast<const float*>(ts),
-      static_cast<const uint8_t*>(valid), static_cast<const float*>(g_op),
-      static_cast<const float*>(g_depth), static_cast<const float*>(g_rend),
-      static_cast<const float*>(g_ws), N, K, C, thr,
-      static_cast<float*>(d_sigmas), static_cast<float*>(d_raws));
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd(sigmas, raws, deltas, ts, valid, g_op, g_depth, g_rend,
+                    g_ws, DenseRows{K}, N, K, C, thr, d_sigmas, d_raws,
+                    stream);
+}
+
+// The flat layout (composite_rays_compact): ray n's samples are the budget
+// slots [ray_start[n], ray_start[n] + ray_count[n]); slots outside every
+// segment are not touched (the caller zeroes ws, d_sigmas and d_raws).
+extern "C" int composite_seg_fwd(const void* sigmas, const void* raws,
+                                 const void* deltas, const void* ts,
+                                 const void* valid, const void* T_start,
+                                 const void* ray_start, const void* ray_count,
+                                 int N, int C, float thr, void* opacity,
+                                 void* depth, void* rend, void* ws, void* vr,
+                                 cudaStream_t stream) {
+  SegmentRows rows{static_cast<const int*>(ray_start),
+                   static_cast<const int*>(ray_count)};
+  return launch_fwd(sigmas, raws, deltas, ts, valid, T_start, rows, N, C, thr,
+                    opacity, depth, rend, ws, vr, stream);
+}
+
+// max_len: the longest segment, which the caller has checked (<= 32).
+extern "C" int composite_seg_bwd(const void* sigmas, const void* raws,
+                                 const void* deltas, const void* ts,
+                                 const void* valid, const void* g_op,
+                                 const void* g_depth, const void* g_rend,
+                                 const void* g_ws, const void* ray_start,
+                                 const void* ray_count, int N, int max_len,
+                                 int C, float thr, void* d_sigmas,
+                                 void* d_raws, cudaStream_t stream) {
+  SegmentRows rows{static_cast<const int*>(ray_start),
+                   static_cast<const int*>(ray_count)};
+  return launch_bwd(sigmas, raws, deltas, ts, valid, g_op, g_depth, g_rend,
+                    g_ws, rows, N, max_len, C, thr, d_sigmas, d_raws, stream);
 }

@@ -1,0 +1,433 @@
+// H9, H10, H11: the bitfield march with one warp per ray, and the flat
+// ray-major compaction.
+//
+// Replaces the Pallas bit probe P2 (experiments/pallas_gather_probe.py:84
+// `pallas_bit`, the occupancy test (w[c >> 5] >> (c & 31)) & 1 over an
+// (8192, 1024) block of (ray, step) cells of a 128^3 bitfield) together
+// with the JAX functions of its path (normal_clustering_nerf_tpu/ops/
+// ray_march.py): `march_rays_train_dense` at S = march_block steps, with
+// and without the two-level coarse mask (:402-516, H9);
+// `march_rays_test_round_dense` (:820-856) and the bucket renderer's
+// non-sv round (models/rendering.py:332-353), H10; `compact_samples`
+// (:157-192), H11.
+//
+// H9 `march_fine_train`, per ray: the steps t_k = t0 + k*lo (t0 = t1 +
+// lo*noise) inside [t1, t2) whose occupancy bit is set; of those m_tot
+// occupied steps the K slots that `stratified_budget` + `select_first_k`
+// keep. Lane l probes steps k = 32j + l; the bitfield is read as 32-bit
+// words in P2's form (the uint8 buffer is little-endian: bit i of byte n
+// is cell 8n+i, so word c >> 5 holds cell c at bit c & 31). Pass 1 counts
+// m_tot with __ballot_sync/__popc; pass 2 gives each occupied step its
+// 1-based rank (popc of the lower lanes' ballot bits) and the lane whose
+// rank is selected writes its slot directly, from the inverse of
+// `rank_targets` (the closed form of stratified_budget, ray_march.py:
+// 320-338). Nothing of size (N, S) exists. With the coarse mask
+// (`coarse_lookup`, :376-391, its own cell formula at G/8), a pass 0
+// probes each 4-step block's first step, keeps the candidate-block bits in
+// shared memory and finds the KB-th candidate; the fine passes then probe
+// only candidate blocks up to it (a chunk of 8 blocks without a candidate
+// is skipped whole) and `trunc_rays` counts the rays whose candidates went
+// past KB (:500-512).
+//
+// H10 `march_fine_test_round`, the same warp probe from each ray's
+// cursor over a window of S steps: K == 0 writes the whole (N, S) window
+// (t, dt = lo, valid) and the cursor S steps on for alive rays; K > 0
+// writes the first K occupied steps and the cursor just past the K-th, or
+// past the window when fewer were found.
+//
+// H11 `compact_samples`: given (N, S) t, dt and valid, each ray's count
+// and the exclusive scan of the counts (torch.sum / torch.cumsum in the
+// wrapper), a warp per ray writes its valid samples ray-major from its
+// start, dropping those at or past the budget B, and the grid pads the
+// slots after the last sample (ray N-1, t = dt = 0, invalid).
+//
+// Exactness: t, xyz and the cells are the reference's operations in its
+// order (t_step_grid :120, occupancy_lookup :83-86, coarse_lookup
+// :387-390) with __fmul_rn/__fadd_rn/__fdiv_rn and --fmad=false, as H1.
+//
+// Bound on the H100: latency and the 256 KB bitfield's cache traffic.
+// P2's work at its shape is N*S probes; the outputs are 9 bytes per slot
+// (H9: per kept sample; H10 full window: per step, 75 MB at 8192 x 1024).
+// The design answers H1's one-thread-per-ray serial walk (2*S probes per
+// thread, fewer than 2 warps per scheduler at 8190 rays) with 8190 warps
+// that fill the 132 SMs, each step's probe on its own lane and the
+// selection by ballots instead of a serial rank walk.
+#include "common.cuh"
+
+namespace {
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int WARPS = 8;              // warps (rays) per block
+constexpr int MAX_BLOCK_WORDS = 32;   // coarse candidate bits per warp
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, t0, t2;
+  bool hit;
+};
+
+__device__ __forceinline__ int cell_of(float x, float mip_bound, int G) {
+  // clip(0.5 * (x / mip_bound + 1) * G, 0, G - 1) truncated to int
+  float v = __fmul_rn(__fmul_rn(0.5f, __fadd_rn(__fdiv_rn(x, mip_bound), 1.0f)),
+                      static_cast<float>(G));
+  v = fminf(fmaxf(v, 0.0f), static_cast<float>(G - 1));
+  return static_cast<int>(v);
+}
+
+__device__ __forceinline__ float step_t(float t0, int k, float lo) {
+  return __fadd_rn(t0, __fmul_rn(static_cast<float>(k), lo));
+}
+
+// linear x-fastest cell of the point at t on a G^3 grid
+__device__ __forceinline__ int cell_at(const Ray& r, float t, float mb, int G) {
+  int cx = cell_of(__fadd_rn(r.ox, __fmul_rn(t, r.dx)), mb, G);
+  int cy = cell_of(__fadd_rn(r.oy, __fmul_rn(t, r.dy)), mb, G);
+  int cz = cell_of(__fadd_rn(r.oz, __fmul_rn(t, r.dz)), mb, G);
+  return (cz * G + cy) * G + cx;
+}
+
+// P2's probe
+__device__ __forceinline__ bool bit_at(const uint32_t* __restrict__ w, int c) {
+  return (__ldg(w + (c >> 5)) >> (c & 31)) & 1u;
+}
+
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
+                                        const float* __restrict__ d, int n) {
+  Ray r;
+  r.ox = o[3 * n]; r.oy = o[3 * n + 1]; r.oz = o[3 * n + 2];
+  r.dx = d[3 * n]; r.dy = d[3 * n + 1]; r.dz = d[3 * n + 2];
+  return r;
+}
+
+__device__ __forceinline__ unsigned lanes_below() {
+  unsigned lt;
+  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(lt));
+  return lt;
+}
+
+// 0-based position of the need-th (1-based) set bit of m
+__device__ __forceinline__ int nth_bit(unsigned m, int need) {
+  for (int i = 1; i < need; ++i) m &= m - 1;
+  return __ffs(m) - 1;
+}
+
+// rank_targets (ray_march.py:341-373): the 1-based occupied rank slot i
+// holds.
+__device__ __forceinline__ int target_rank(int i, int K1, int K2, int E,
+                                           bool tail) {
+  if (!tail || i < K1) return i + 1;
+  int j = i - K1 + 1;
+  if (E <= K2) return K1 + j;
+  return K1 + (j * E) / K2;
+}
+
+// Its inverse, stratified_budget's rule (ray_march.py:320-338): the slot
+// of occupied rank x (1-based) and its span, or -1 if x is not kept.
+__device__ __forceinline__ int slot_of_rank(int x, int K1, int K2, int E,
+                                            bool tail, int* span) {
+  *span = 1;
+  if (x <= K1) return x - 1;
+  if (!tail) return -1;
+  int y = x - K1;                       // rank inside the tail, >= 1
+  if (E <= K2) return K1 + y - 1;
+  int js = (y * K2 + E - 1) / E;        // ceil(y*K2/E)
+  if ((js * E) / K2 != y) return -1;
+  *span = y - ((js - 1) * E) / K2;
+  return K1 + js - 1;
+}
+
+__global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
+    const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+    const float* __restrict__ hits_t, const uint32_t* __restrict__ bits,
+    const float* __restrict__ noise, const uint8_t* __restrict__ coarse,
+    int N, int S, int K, int Kout, int tail_k, int G, int KB, float lo,
+    float mb, float* __restrict__ t_out, float* __restrict__ dt_out,
+    uint8_t* __restrict__ valid_out, int* __restrict__ count_out,
+    int* __restrict__ sums) {
+  __shared__ unsigned cand_s[WARPS][MAX_BLOCK_WORDS];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int n = blockIdx.x * WARPS + wib;
+  if (n >= N) return;   // the whole warp leaves together
+  Ray r = load_ray(rays_o, rays_d, n);
+  const float t1 = hits_t[2 * n];
+  r.t2 = hits_t[2 * n + 1];
+  r.hit = t1 >= 0.0f;
+  r.t0 = __fadd_rn(t1, __fmul_rn(lo, noise[n]));
+  unsigned* cand = cand_s[wib];
+
+  // pass 0 (two-level march): the candidate blocks, and the KB-th of them
+  int k_end = S;          // fine steps probed: k < k_end
+  bool extra = false;     // a candidate block past the KB-th exists
+  if (KB > 0) {
+    const int n_blocks = S / 4;
+    int found = 0, kb_block = -1;
+    for (int jw = 0; jw * 32 < n_blocks; ++jw) {
+      if (!r.hit || !(step_t(r.t0, 4 * 32 * jw, lo) < r.t2)) break;
+      const int b = jw * 32 + lane;
+      bool c = false;
+      if (b < n_blocks) {
+        float tb = step_t(r.t0, 4 * b, lo);
+        c = tb < r.t2 && coarse[cell_at(r, tb, mb, G / 8)] > 0;
+      }
+      const unsigned m = __ballot_sync(FULL, c);
+      if (lane == 0) cand[jw] = m;
+      const int pc = __popc(m);
+      if (kb_block >= 0) {          // only whether more candidates exist
+        extra = pc > 0;
+        if (extra) break;
+        continue;
+      }
+      if (found + pc >= KB) {
+        const int need = KB - found;
+        kb_block = jw * 32 + nth_bit(m, need);
+        extra = pc > need;
+        if (extra) break;
+      }
+      found += pc;
+    }
+    // fewer than KB candidates: every block may hold kept steps (the words
+    // never scanned lie past t2, where no chunk is probed)
+    if (kb_block >= 0) k_end = 4 * (kb_block + 1);
+    __syncwarp();
+  }
+
+  // one chunk of 32 steps: the occupied-and-kept ballot of steps 32j + lane
+  auto probe = [&](int j, float* t_lane) -> unsigned {
+    const int k = 32 * j + lane;
+    const float t = step_t(r.t0, k, lo);
+    *t_lane = t;
+    bool inc = k < k_end && t < r.t2;
+    if (inc && KB > 0) {
+      const int blk = k >> 2;
+      inc = (cand[blk >> 5] >> (blk & 31)) & 1u;
+    }
+    if (inc) inc = bit_at(bits, cell_at(r, t, mb, G));
+    return __ballot_sync(FULL, inc);
+  };
+  // a chunk is skipped whole when its first step is past t2 (t grows with
+  // k) or, in the two-level march, when its 8 blocks hold no candidate
+  auto chunk_live = [&](int j) -> bool {
+    if (!r.hit || 32 * j >= k_end || !(step_t(r.t0, 32 * j, lo) < r.t2))
+      return false;
+    if (KB > 0) return ((cand[j >> 2] >> ((8 * j) & 31)) & 0xffu) != 0u;
+    return true;
+  };
+
+  // pass 1: occupied count
+  int m_tot = 0;
+  const int n_chunks = (k_end + 31) / 32;
+  float t;
+  for (int j = 0; j < n_chunks; ++j) {
+    if (!r.hit || !(step_t(r.t0, 32 * j, lo) < r.t2)) break;
+    if (!chunk_live(j)) continue;
+    m_tot += __popc(probe(j, &t));
+  }
+
+  const bool tail = tail_k > 0;
+  const int K1 = tail ? max(K - tail_k, 0) : K;
+  const int K2 = tail_k;
+  const int E = max(m_tot - K1, 0);
+  // rm: the samples stratified_budget selects; the first Kout are kept
+  const int rm = tail ? min(m_tot, K1) + min(E, K2) : min(m_tot, K);
+  const int n_valid = min(rm, Kout);
+  const size_t base = static_cast<size_t>(n) * Kout;
+
+  // pass 2: each kept rank writes its slot
+  if (n_valid > 0) {
+    const int last = target_rank(n_valid - 1, K1, K2, E, tail);
+    int seen = 0;
+    for (int j = 0; j < n_chunks && seen < last; ++j) {
+      if (!chunk_live(j)) continue;
+      const unsigned m = probe(j, &t);
+      if ((m >> lane) & 1u) {
+        int span;
+        const int slot = slot_of_rank(seen + __popc(m & lanes_below()) + 1,
+                                      K1, K2, E, tail, &span);
+        if (slot >= 0 && slot < n_valid) {
+          t_out[base + slot] = t;
+          dt_out[base + slot] = __fmul_rn(lo, static_cast<float>(span));
+          valid_out[base + slot] = 1;
+        }
+      }
+      seen += __popc(m);
+    }
+  }
+  for (int slot = n_valid + lane; slot < Kout; slot += 32) {
+    t_out[base + slot] = 0.0f;
+    dt_out[base + slot] = 0.0f;
+    valid_out[base + slot] = 0;
+  }
+  if (lane == 0) {
+    count_out[n] = n_valid;
+    if (rm) atomicAdd(sums, rm);
+    // first-K: only under-filled rays lost samples; a stratified tail is
+    // biased by any skipped candidate block
+    if (extra && (tail || n_valid < K)) atomicAdd(sums + 1, 1);
+  }
+}
+
+__global__ void __launch_bounds__(WARPS * 32) march_fine_test_kernel(
+    const float* __restrict__ rays_o, const float* __restrict__ rays_d,
+    const float* __restrict__ cursor, const float* __restrict__ t_far,
+    const uint8_t* __restrict__ alive, const uint32_t* __restrict__ bits,
+    int N, int S, int K, int G, float lo, float mb, float* __restrict__ t_out,
+    float* __restrict__ dt_out, uint8_t* __restrict__ valid_out,
+    float* __restrict__ cursor_out) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (n >= N) return;
+  Ray r = load_ray(rays_o, rays_d, n);
+  const float cur = cursor[n];
+  const bool al = alive[n];
+  r.t0 = cur;
+  r.t2 = t_far[n];
+  r.hit = al && cur >= 0.0f;
+  const int n_chunks = (S + 31) / 32;
+
+  if (K == 0) {   // full window: every step written, masked by valid
+    const size_t base = static_cast<size_t>(n) * S;
+    for (int j = 0; j < n_chunks; ++j) {
+      const int k = 32 * j + lane;
+      if (k >= S) break;
+      const float t = step_t(cur, k, lo);
+      bool v = r.hit && t < r.t2;
+      if (v) v = bit_at(bits, cell_at(r, t, mb, G));
+      t_out[base + k] = t;
+      dt_out[base + k] = lo;
+      valid_out[base + k] = v;
+    }
+    if (lane == 0) cursor_out[n] = al ? step_t(cur, S, lo) : cur;
+    return;
+  }
+
+  // first K occupied steps of the window
+  const size_t base = static_cast<size_t>(n) * K;
+  int found = 0, last_k = -1;
+  for (int j = 0; j < n_chunks && found < K; ++j) {
+    if (!r.hit || !(step_t(cur, 32 * j, lo) < r.t2)) break;
+    const int k = 32 * j + lane;
+    const float t = step_t(cur, k, lo);
+    bool v = k < S && t < r.t2;
+    if (v) v = bit_at(bits, cell_at(r, t, mb, G));
+    const unsigned m = __ballot_sync(FULL, v);
+    const int rank = found + __popc(m & lanes_below());
+    if (v && rank < K) {
+      t_out[base + rank] = t;
+      dt_out[base + rank] = lo;
+      valid_out[base + rank] = 1;
+    }
+    const int pc = __popc(m);
+    if (found + pc >= K) last_k = 32 * j + nth_bit(m, K - found);
+    found += pc;
+  }
+  for (int slot = min(found, K) + lane; slot < K; slot += 32) {
+    t_out[base + slot] = 0.0f;
+    dt_out[base + slot] = 0.0f;
+    valid_out[base + slot] = 0;
+  }
+  if (lane == 0)
+    cursor_out[n] = step_t(cur, found >= K ? last_k + 1 : S, lo);
+}
+
+__global__ void __launch_bounds__(WARPS * 32) compact_kernel(
+    const float* __restrict__ tg, const float* __restrict__ dtg,
+    const uint8_t* __restrict__ include, const int* __restrict__ count,
+    const int* __restrict__ start, int N, int S, int B,
+    int* __restrict__ ray_id, float* __restrict__ t_out,
+    float* __restrict__ dt_out, uint8_t* __restrict__ valid_out,
+    int* __restrict__ ray_start, int* __restrict__ ray_count) {
+  const int lane = threadIdx.x & 31;
+  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
+  if (n < N) {
+    const int st = start[n], cnt = count[n];
+    if (lane == 0) {
+      ray_start[n] = min(st, B);
+      ray_count[n] = max(min(B - st, cnt), 0);
+    }
+    const size_t row = static_cast<size_t>(n) * S;
+    int seen = 0;
+    for (int j = 0; 32 * j < S && seen < cnt && st + seen < B; ++j) {
+      const int s = 32 * j + lane;
+      const bool v = s < S && include[row + s];
+      const unsigned m = __ballot_sync(FULL, v);
+      const int pos = st + seen + __popc(m & lanes_below());
+      if (v && pos < B) {
+        ray_id[pos] = n;
+        t_out[pos] = tg[row + s];
+        dt_out[pos] = dtg[row + s];
+        valid_out[pos] = 1;
+      }
+      seen += __popc(m);
+    }
+  }
+  // padding after the last kept sample
+  const long long total = static_cast<long long>(start[N - 1]) + count[N - 1];
+  const int first_pad = static_cast<int>(min(total, static_cast<long long>(B)));
+  const int stride = gridDim.x * blockDim.x;
+  for (int b = first_pad + blockIdx.x * blockDim.x + threadIdx.x; b < B;
+       b += stride) {
+    ray_id[b] = N - 1;
+    t_out[b] = 0.0f;
+    dt_out[b] = 0.0f;
+    valid_out[b] = 0;
+  }
+}
+
+}  // namespace
+
+// coarse may be null (no two-level march: KB must then be 0). sums: [rm,
+// trunc], zeroed by the caller.
+extern "C" int march_fine_train(const void* rays_o, const void* rays_d,
+                                const void* hits_t, const void* bitfield,
+                                const void* noise, const void* coarse, int N,
+                                int S, int K, int Kout, int tail_k, int G,
+                                int KB, float lo, float mip_bound,
+                                void* t_out, void* dt_out, void* valid_out,
+                                void* count_out, void* sums,
+                                cudaStream_t stream) {
+  if (KB > 0 && (coarse == nullptr || S / 4 > 32 * MAX_BLOCK_WORDS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  march_fine_train_kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
+      static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
+      static_cast<const float*>(hits_t), static_cast<const uint32_t*>(bitfield),
+      static_cast<const float*>(noise), static_cast<const uint8_t*>(coarse),
+      N, S, K, Kout, tail_k, G, KB, lo, mip_bound,
+      static_cast<float*>(t_out), static_cast<float*>(dt_out),
+      static_cast<uint8_t*>(valid_out), static_cast<int*>(count_out),
+      static_cast<int*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K == 0: full-window mode, (N, S) outputs; K > 0: first-K mode, (N, K).
+extern "C" int march_fine_test_round(const void* rays_o, const void* rays_d,
+                                     const void* cursor, const void* t_far,
+                                     const void* alive, const void* bitfield,
+                                     int N, int S, int K, int G, float lo,
+                                     float mip_bound, void* t_out,
+                                     void* dt_out, void* valid_out,
+                                     void* cursor_out, cudaStream_t stream) {
+  if (K < 0 || K > S) return static_cast<int>(cudaErrorInvalidValue);
+  march_fine_test_kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
+      static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
+      static_cast<const float*>(cursor), static_cast<const float*>(t_far),
+      static_cast<const uint8_t*>(alive), static_cast<const uint32_t*>(bitfield),
+      N, S, K, G, lo, mip_bound, static_cast<float*>(t_out),
+      static_cast<float*>(dt_out), static_cast<uint8_t*>(valid_out),
+      static_cast<float*>(cursor_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int compact_samples(const void* tg, const void* dtg,
+                               const void* include, const void* count,
+                               const void* start, int N, int S, int B,
+                               void* ray_id, void* t_out, void* dt_out,
+                               void* valid_out, void* ray_start,
+                               void* ray_count, cudaStream_t stream) {
+  compact_kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
+      static_cast<const float*>(tg), static_cast<const float*>(dtg),
+      static_cast<const uint8_t*>(include), static_cast<const int*>(count),
+      static_cast<const int*>(start), N, S, B, static_cast<int*>(ray_id),
+      static_cast<float*>(t_out), static_cast<float*>(dt_out),
+      static_cast<uint8_t*>(valid_out), static_cast<int*>(ray_start),
+      static_cast<int*>(ray_count));
+  return static_cast<int>(cudaGetLastError());
+}

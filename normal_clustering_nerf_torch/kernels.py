@@ -187,6 +187,21 @@ MARCH_SV_TRAIN = Kernel("march_sv_train", "march_sv.cu",
 MARCH_SV_TEST = Kernel("march_sv_test_round", "march_sv.cu",
                        [P] * 7 + [I] * 6 + [F] * 3 + [P] * 4)
 
+MARCH_FINE_TRAIN = Kernel("march_fine_train", "march_fine.cu",
+                          [P] * 6 + [I] * 7 + [F] * 2 + [P] * 5)
+MARCH_FINE_TEST = Kernel("march_fine_test_round", "march_fine.cu",
+                         [P] * 6 + [I] * 4 + [F] * 2 + [P] * 4)
+COMPACT = Kernel("compact_samples", "march_fine.cu",
+                 [P] * 5 + [I] * 3 + [P] * 6)
+COMPOSITE_SEG_FWD = Kernel("composite_seg_fwd", "composite.cu",
+                           [P] * 8 + [I] * 2 + [F] + [P] * 5)
+COMPOSITE_SEG_BWD = Kernel("composite_seg_bwd", "composite.cu",
+                           [P] * 11 + [I] * 3 + [F] + [P] * 2)
+DISTORTION_SEG_FWD = Kernel("distortion_seg_fwd", "distortion.cu",
+                            [P] * 6 + [I] + [P])
+DISTORTION_SEG_BWD = Kernel("distortion_seg_bwd", "distortion.cu",
+                            [P] * 7 + [I] + [P])
+
 BRICK_FWD = Kernel("brick_fwd", "brick_hash.cu", [P, P, P, P, I, I, I, I])
 BRICK_BWD = Kernel("brick_bwd", "brick_hash.cu", [P, P, P, P, I, I, I])
 HASH_FWD = Kernel("hash_grid_fwd", "hash_grid.cu", [P, P, P, P, I, I, I, I])
@@ -194,7 +209,9 @@ HASH_BWD = Kernel("hash_grid_bwd", "hash_grid.cu", [P, P, P, P, I, I, I])
 
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
-               MARCH_SV_TEST, BRICK_FWD, BRICK_BWD, HASH_FWD, HASH_BWD)
+               MARCH_SV_TEST, BRICK_FWD, BRICK_BWD, HASH_FWD, HASH_BWD,
+               MARCH_FINE_TRAIN, MARCH_FINE_TEST, COMPACT, COMPOSITE_SEG_FWD,
+               COMPOSITE_SEG_BWD, DISTORTION_SEG_FWD, DISTORTION_SEG_BWD)
 
 
 def reset_counts():

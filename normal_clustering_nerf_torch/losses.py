@@ -17,7 +17,7 @@ import torch
 from .config import LossConfig, ModelConfig
 from .datasets.normals import extract_normals_from_ray_batch, normalize
 from .datasets.sampler import TRIANG_STRATEGIES
-from .ops.distortion import distortion_loss_dense
+from .ops.distortion import distortion_loss, distortion_loss_dense
 from .ops.kmeans import normals_clustering
 
 
@@ -152,8 +152,16 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
         loss_d["opacity"] = _finite_or_zero(
             lcfg.opacity_w * torch.mean(-o * torch.log(o)))
     if lcfg.distortion_w > 0:
-        dl = distortion_loss_dense(pred["ws"], pred["deltas"], pred["ts"],
-                                   pred["sample_valid"])
+        if pred["ws"].ndim == 2:
+            # the dense (N, K) layout
+            dl = distortion_loss_dense(pred["ws"], pred["deltas"],
+                                       pred["ts"], pred["sample_valid"])
+        else:
+            # the flat layout's ray-major segments (losses.py:266-270)
+            dl = distortion_loss(pred["ws"], pred["deltas"], pred["ts"],
+                                 pred["ray_id"], pred["ray_start"],
+                                 pred["sample_valid"], pred["rgb"].shape[0],
+                                 ray_count=pred["ray_count"])
         loss_d["distortion"] = _finite_or_zero(
             lcfg.distortion_w * torch.mean(dl))
     clustering_on = (lcfg.norm_D_C_ort_dot_w > 0

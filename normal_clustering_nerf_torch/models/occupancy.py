@@ -25,14 +25,15 @@ _MARK_CHUNK = 8
 
 
 class OccupancyState(NamedTuple):
-    """The JAX `OccupancyState`'s fields but its dilated supervoxel mask
-    `coarse_occ`, which only the unported two-level bitfield march reads.
-    Every refresh rebuilds the supervoxel-run march's tables of cascade 0
-    from the bitfield: its undilated mask and 16-word payload
+    """The JAX `OccupancyState`'s fields, in its order. Every refresh
+    rebuilds the tables of cascade 0 from the bitfield: the two-level
+    march's dilated supervoxel mask `coarse_occ` (`coarse_occupancy`) and
+    the supervoxel-run march's undilated mask and 16-word payload
     (`supervoxel_tables`)."""
     density_grid: torch.Tensor      # (C, G^3) f32; -1 marks invisible cells
     density_bitfield: torch.Tensor  # (C*G^3/8,) uint8
     count_grid: torch.Tensor        # (C, G^3) f32 camera-coverage fraction
+    coarse_occ: torch.Tensor        # ((G/8)^3,) uint8, dilated
     sv_mask: torch.Tensor           # ((G/8)^3,) uint8
     sv_payload: torch.Tensor        # ((G/8)^3, 16) int32
 
@@ -94,6 +95,7 @@ class OccupancyGrid:
             density_grid=torch.zeros((self.cascades, G3), **z),
             density_bitfield=torch.zeros((self.cascades * G3 // 8,), **u8),
             count_grid=torch.zeros((self.cascades, G3), **z),
+            coarse_occ=torch.zeros((Gc3,), **u8),
             sv_mask=torch.zeros((Gc3,), **u8),
             sv_payload=torch.zeros((Gc3, 16), dtype=torch.int32, **z),
         )
@@ -168,8 +170,8 @@ class OccupancyGrid:
                cell_draws: Optional[Dict] = None,
                decay: float = 0.95) -> OccupancyState:
         """EMA-merge fresh sigma samples into the grid, repack the bits and
-        rebuild the sv march's tables (occupancy.py:179-237; erode=False
-        as the trainer calls it).
+        rebuild the coarse mask and the sv march's tables
+        (occupancy.py:179-237; erode=False as the trainer calls it).
 
         density_fn: (M, 3) world positions -> (M,) sigma.
         warmup: evaluate every cell (steps < warmup_steps).
@@ -206,6 +208,7 @@ class OccupancyGrid:
         thr = torch.clamp(mean_density, max=density_threshold)
         bitfield = packbits(grid, thr)
         return OccupancyState(grid, bitfield, state.count_grid,
+                              coarse_occupancy(bitfield, self.G),
                               *supervoxel_tables(bitfield, self.G))
 
     # ---------------------------------------------------- visibility marks

@@ -1,16 +1,24 @@
-"""Train- and test-time rendering — port of the dense branch of the JAX
-package's `models/rendering.py:render_train` and of the bucket layout of
-its `render_test`.
+"""Train- and test-time rendering — port of the JAX package's
+`models/rendering.py:render_train` (both march layouts) and
+`render_test` (the bucket and the flat test layouts).
 
-Training: AABB intersect -> near clamp -> interval annealing -> the
-bootstrap march (kernel H1) for the first `bootstrap_steps` steps, the
-supervoxel-run march (kernel K1) after them -> field on the (N*K)
-samples (kernel H2 + MLPs) -> compositing (kernel H3) -> random
-background. The random draws (march noise, background colour) are
-separable: pass them as `noise` / `bg`, or a `generator` to draw them.
+Training, dense layout: AABB intersect -> near clamp -> interval
+annealing -> the bootstrap march (kernel H1) for the first
+`bootstrap_steps` steps; after them the supervoxel-run march (K1) where
+it applies, else the bitfield march over `march_block` steps (H9),
+two-level through the coarse mask when `march_coarse` -> field on the
+(N*K) samples (kernel H2/H5/H7 + MLPs) -> compositing (H3) -> random
+background. Flat layout (the training oracle): the bitfield march
+compacted into the sample budget (H9, H11) from step 0 -> field on the B
+slots -> compositing of the ray-major segments (H3's segment launchers).
+The random draws (march noise, background colour) are separable: pass
+them as `noise` / `bg`, or a `generator` to draw them.
 
-Test: rounds of the sv test march (K1) over the rays still alive, each
-composited (H3 with T_start) onto the ray's running result.
+Test, bucket layout: rounds over the rays still alive, each marching
+from the ray's cursor (sv rounds, K1, or a probe window of the bitfield,
+H10) and composited (H3 with T_start) onto the ray's running result.
+Flat layout: rounds of the full window (H10) compacted (H11) and
+composited by segments with T_start, until no ray is alive.
 """
 from __future__ import annotations
 
@@ -20,10 +28,12 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..ops.composite import composite_rays
+from ..ops.composite import composite_rays, composite_rays_compact
 from ..ops.ray_aabb import ray_aabb_intersect
 from ..ops.ray_march import (
-    march_rays_test_round_sv, march_rays_train_dense,
+    march_rays_test_round, march_rays_test_round_sv,
+    march_rays_test_round_window, march_rays_train,
+    march_rays_train_bootstrap, march_rays_train_dense,
     march_rays_train_dense_sv,
 )
 
@@ -100,34 +110,58 @@ def train_intervals(cfg, rcfg: RenderConfig, rays_o, rays_d,
                        rcfg.anneal_steps).contiguous()
 
 
-def uses_sv(cfg, rcfg: RenderConfig) -> bool:
+def uses_sv(cfg, rcfg: RenderConfig, occ) -> bool:
     """Whether the supervoxel-run march applies (rendering.py:163-165,
-    621-623): one cascade, a uniform step grid, G a multiple of 8."""
-    return (rcfg.march_coarse and cfg.cascades == 1
-            and cfg.exp_step_factor == 0.0 and cfg.grid_size % 8 == 0)
+    621-623): the state holds its tables, one cascade, a uniform step
+    grid, G a multiple of 8."""
+    return (rcfg.march_coarse and occ.sv_mask is not None
+            and cfg.cascades == 1 and cfg.exp_step_factor == 0.0
+            and cfg.grid_size % 8 == 0)
 
 
-def train_march_args(cfg, rcfg: RenderConfig, n_rays: int,
-                     bootstrap: bool) -> Dict:
-    """Keyword arguments of the training march for `n_rays` rays: K =
-    budget // N samples with the stratified tail. The bootstrap march
-    takes S_boot coarse steps of sqrt(3)/S_boot; the sv march takes
-    `march_block` steps of sqrt(3)/max_samples over at most
-    `sv_intervals` occupied supervoxel runs."""
+def train_march_kind(cfg, rcfg: RenderConfig, occ, bootstrap: bool) -> str:
+    """The dense layout's training march (rendering.py:163-196):
+    "bootstrap" (H1), "sv" (K1) or "fine" (H9, the bitfield march)."""
+    if bootstrap:
+        return "bootstrap"
+    return "sv" if uses_sv(cfg, rcfg, occ) else "fine"
+
+
+def train_march_args(cfg, rcfg: RenderConfig, n_rays: int, kind: str) -> Dict:
+    """Keyword arguments of the training march `kind` for `n_rays` rays:
+    K = budget // N samples with the stratified tail. The bootstrap march
+    takes S_boot coarse steps of sqrt(3)/S_boot; the sv and the fine march
+    take `march_block` steps of sqrt(3)/max_samples, the sv march over at
+    most `sv_intervals` occupied supervoxel runs, the fine march with
+    `coarse_k_blocks` (its `coarse_occ` comes from the state)."""
     budget = rcfg.sample_budget or n_rays * 32
     K = budget // n_rays
     tail_k = K if rcfg.march_tail_k < 0 else rcfg.march_tail_k
-    if bootstrap:
+    if kind == "bootstrap":
         S_boot = min(rcfg.bootstrap_max_samples, cfg.max_samples)
         return dict(
             cascades=cfg.cascades, scale=cfg.scale,
             exp_step_factor=cfg.exp_step_factor, grid_size=cfg.grid_size,
             max_samples=S_boot, samples_per_ray=K, march_steps=S_boot,
             tail_k=tail_k)
-    return dict(scale=cfg.scale, grid_size=cfg.grid_size,
+    if kind == "sv":
+        return dict(scale=cfg.scale, grid_size=cfg.grid_size,
+                    max_samples=cfg.max_samples, samples_per_ray=K,
+                    march_steps=rcfg.march_block,
+                    n_intervals=rcfg.sv_intervals, tail_k=tail_k)
+    return dict(cascades=cfg.cascades, scale=cfg.scale,
+                exp_step_factor=cfg.exp_step_factor, grid_size=cfg.grid_size,
                 max_samples=cfg.max_samples, samples_per_ray=K,
-                march_steps=rcfg.march_block, n_intervals=rcfg.sv_intervals,
-                tail_k=tail_k)
+                march_steps=rcfg.march_block,
+                coarse_k_blocks=rcfg.coarse_k_blocks, tail_k=tail_k)
+
+
+def _finish(cfg, rcfg, results, comp, bg, generator, dev):
+    results.update(split_rend(cfg, comp["rend"]))
+    if bg is None:
+        bg = bg_color(cfg, rcfg.random_bg, generator, dev)
+    results["rgb"] = results["rgb"] + bg[None, :] * (1.0 - comp["opacity"][:, None])
+    return results
 
 
 def render_train(model, occ, rays_o, rays_d, rcfg: RenderConfig, *,
@@ -135,30 +169,37 @@ def render_train(model, occ, rays_o, rays_d, rcfg: RenderConfig, *,
                  noise: Optional[torch.Tensor] = None,
                  bg: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None) -> Dict:
-    """Render N rays with K = budget // N samples each; returns the same
-    keys as the JAX `render_train` dense branch. `occ` is the
-    `OccupancyState`: the bootstrap march reads its bitfield, the sv
-    march its `sv_mask` and `sv_payload`."""
-    if rcfg.march_layout != "dense":
-        raise NotImplementedError("the flat march layout is ROADMAP A13")
+    """Render N rays; returns the keys of the JAX `render_train`'s branch
+    of `rcfg.march_layout`. `occ` is the `OccupancyState`: the bootstrap
+    and the fine march read its bitfield (the two-level march also its
+    `coarse_occ`), the sv march its `sv_mask` and `sv_payload` (a state
+    whose `sv_mask` is None has no sv march, as a JAX call without it).
+    The flat layout marches the bitfield from step 0 (no bootstrap), as
+    the JAX flat branch does, into a budget of `sample_budget` slots."""
     cfg = model.cfg
-    if not (bootstrap or uses_sv(cfg, rcfg)):
-        raise NotImplementedError(
-            "after the bootstrap only the supervoxel-run march is ported; "
-            "the bitfield march over march_block steps is ROADMAP A13")
     N = rays_o.shape[0]
     dev = rays_o.device
     hits_t = train_intervals(cfg, rcfg, rays_o, rays_d, global_step)
     if noise is None:
         noise = torch.rand(N, generator=generator, device=dev)
     noise = noise * rcfg.march_noise
-    kw = train_march_args(cfg, rcfg, N, bootstrap)
-    if bootstrap:
-        mr = march_rays_train_dense(rays_o, rays_d, hits_t,
-                                    occ.density_bitfield, noise, **kw)
-    else:
+    if rcfg.march_layout == "flat":
+        return _render_train_flat(model, occ, rays_o, rays_d, rcfg, hits_t,
+                                  noise, bg, generator)
+    if rcfg.march_layout != "dense":
+        raise ValueError(f"march_layout {rcfg.march_layout!r}")
+    kind = train_march_kind(cfg, rcfg, occ, bootstrap)
+    kw = train_march_args(cfg, rcfg, N, kind)
+    if kind == "bootstrap":
+        mr = march_rays_train_bootstrap(rays_o, rays_d, hits_t,
+                                        occ.density_bitfield, noise, **kw)
+    elif kind == "sv":
         mr = march_rays_train_dense_sv(rays_o, rays_d, hits_t, occ.sv_mask,
                                        occ.sv_payload, noise, **kw)
+    else:
+        mr = march_rays_train_dense(
+            rays_o, rays_d, hits_t, occ.density_bitfield, noise,
+            coarse_occ=occ.coarse_occ if rcfg.march_coarse else None, **kw)
     K = mr.t.shape[1]
     # t is a constant of the geometry (no gradient to the march)
     xyz = (rays_o[:, None, :] + mr.t[..., None] * rays_d[:, None, :])
@@ -181,19 +222,57 @@ def render_train(model, occ, rays_o, rays_d, rcfg: RenderConfig, *,
         "rays_o": rays_o,
         "rays_d": rays_d,
     }
-    results.update(split_rend(cfg, comp["rend"]))
-    if bg is None:
-        bg = bg_color(cfg, rcfg.random_bg, generator, dev)
-    results["rgb"] = results["rgb"] + bg[None, :] * (1.0 - comp["opacity"][:, None])
-    return results
+    return _finish(cfg, rcfg, results, comp, bg, generator, dev)
+
+
+def _render_train_flat(model, occ, rays_o, rays_d, rcfg, hits_t, noise, bg,
+                       generator):
+    """The flat branch (rendering.py:233-277): ws, deltas, ts and
+    sample_valid are (B,) slots, with `ray_id`, `ray_start` and
+    `ray_count` for the losses; trunc_rays 0 (the march is exact)."""
+    cfg = model.cfg
+    N, dev = rays_o.shape[0], rays_o.device
+    budget = rcfg.sample_budget or N * 32
+    kw = train_march_args(cfg, rcfg, N, "fine")
+    mr = march_rays_train(
+        rays_o, rays_d, hits_t, occ.density_bitfield, noise,
+        cascades=cfg.cascades, scale=cfg.scale,
+        exp_step_factor=cfg.exp_step_factor, grid_size=cfg.grid_size,
+        max_samples=cfg.max_samples, sample_budget=budget,
+        march_steps=rcfg.march_block, per_ray_cap=kw["samples_per_ray"],
+        tail_k=kw["tail_k"])
+    rid = mr.ray_id.to(torch.int64)
+    xyz = rays_o[rid] + mr.t[:, None] * rays_d[rid]
+    sigmas, raws = field_raws(model, xyz, rays_d[rid])
+    comp = composite_rays_compact(sigmas, raws, mr.dt, mr.t, mr.ray_id,
+                                  mr.ray_start, mr.valid, N, rcfg.T_threshold,
+                                  ray_count=mr.ray_count)
+    results = {
+        "opacity": comp["opacity"],
+        "depth": comp["depth"],
+        "ws": comp["ws"],
+        "deltas": mr.dt,
+        "ts": mr.t,
+        "ray_id": mr.ray_id,
+        "ray_start": mr.ray_start,
+        "ray_count": mr.ray_count,
+        "sample_valid": mr.valid,
+        "rm_samples": mr.rm_samples,
+        "trunc_rays": torch.zeros((), dtype=torch.int32, device=dev),
+        "vr_samples": comp["vr_samples"].sum(),
+        "rays_o": rays_o,
+        "rays_d": rays_d,
+    }
+    return _finish(cfg, rcfg, results, comp, bg, generator, dev)
 
 
 # ---------------------------------------------------------------- test time
-def bucket_ladder(N: int, min_samples: int):
-    """Every (B, K) rung of the bucket renderer with sv rounds for N rays
-    (rendering.py:441-456): B from 256 doubling while below N, then N;
-    K the reference's adaptive N // B capped at 64 and floored at
-    min_samples, doubled for the full-width rung."""
+def bucket_ladder(N: int, min_samples: int, S_march: Optional[int] = None):
+    """Every (B, K) rung of the bucket renderer for N rays
+    (rendering.py:441-456): B from 256 doubling while below N, then N; K
+    the reference's adaptive N // B capped at 64 and floored at
+    min_samples, doubled for the full-width rung, and clamped to the probe
+    window `S_march` for rounds without the sv march (None: sv rounds)."""
     ladder, b = [], 256
     while b < N:
         ladder.append(b)
@@ -202,16 +281,20 @@ def bucket_ladder(N: int, min_samples: int):
     out = []
     for B in ladder:
         K = max(min(N // B, 64), min_samples)
-        out.append((B, min(2 * K, 64) if B == N else K))
+        if B == N:
+            K = min(2 * K, 64)
+        out.append((B, K if S_march is None else min(K, S_march)))
     return out
 
 
 def _test_round(model, occ, rcfg: RenderConfig, rays_o, rays_d, t2,
-                state: Dict, K: int):
+                state: Dict, K: int, use_sv: bool):
     """One round over the alive rays (rendering.py:312-381): the sv test
-    march from each cursor, the field on the n_alive * K samples and the
-    composite continued from each ray's opacity. Updates `state` in
-    place; returns the round's valid samples (a tensor, or 0)."""
+    march from each cursor, or the first K occupied steps of a
+    `test_march_window`-step probe window of the bitfield, the field on
+    the n_alive * K samples and the composite continued from each ray's
+    opacity. Updates `state` in place; returns the round's valid samples
+    (a tensor, or 0)."""
     cfg = model.cfg
     cursor, alive, opacity, depth, rend = (
         state[k] for k in ("cursor", "alive", "opacity", "depth", "rend"))
@@ -220,11 +303,20 @@ def _test_round(model, occ, rcfg: RenderConfig, rays_o, rays_d, t2,
     if n == 0:
         return 0
     ro, rd, far = rays_o[idx], rays_d[idx], t2[idx]
-    t_k, dt_k, valid, new_cur = march_rays_test_round_sv(
-        ro, rd, cursor[idx], far, torch.ones_like(far, dtype=torch.bool),
-        occ.sv_mask, occ.sv_payload, scale=cfg.scale,
-        grid_size=cfg.grid_size, max_samples=cfg.max_samples, n_steps=K,
-        n_intervals=rcfg.test_sv_intervals)
+    sel = torch.ones_like(far, dtype=torch.bool)
+    if use_sv:
+        t_k, dt_k, valid, new_cur = march_rays_test_round_sv(
+            ro, rd, cursor[idx], far, sel, occ.sv_mask, occ.sv_payload,
+            scale=cfg.scale, grid_size=cfg.grid_size,
+            max_samples=cfg.max_samples, n_steps=K,
+            n_intervals=rcfg.test_sv_intervals)
+    else:
+        t_k, dt_k, valid, new_cur = march_rays_test_round_window(
+            ro, rd, cursor[idx], far, sel, occ.density_bitfield,
+            cascades=cfg.cascades, scale=cfg.scale,
+            exp_step_factor=cfg.exp_step_factor, grid_size=cfg.grid_size,
+            max_samples=cfg.max_samples, S_march=rcfg.test_march_window,
+            n_steps=K)
     xyz = (ro[:, None, :] + t_k[..., None] * rd[:, None, :]).reshape(n * K, 3)
     dirs = rd[:, None, :].expand(n, K, 3).reshape(n * K, 3)
     sigmas, raws = field_raws(model, xyz, dirs)
@@ -240,26 +332,54 @@ def _test_round(model, occ, rcfg: RenderConfig, rays_o, rays_d, t2,
     return valid.sum()
 
 
-def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig) -> Dict:
-    """Inference render of N rays: the bucket layout with supervoxel-run
-    rounds (rendering.py:573-740). Returns opacity (N,), depth (N,), rgb
-    (N, 3) [+ norm_nn, sem], total_samples (the valid samples of every
-    round, an int) and rounds.
+def _flat_round(model, occ, rcfg: RenderConfig, rays_o, rays_d, t2,
+                state: Dict):
+    """One flat round (rendering.py:503-527): the full window of
+    `test_n_samples` steps from every cursor compacted into N *
+    test_n_samples slots, the field on all of them, the segments
+    composited from each ray's opacity. Updates `state` in place; returns
+    the round's kept samples (a tensor)."""
+    cfg = model.cfg
+    N = rays_o.shape[0]
+    n_steps = rcfg.test_n_samples
+    mres, new_cursor = march_rays_test_round(
+        rays_o, rays_d, state["cursor"], t2, state["alive"],
+        occ.density_bitfield, cascades=cfg.cascades, scale=cfg.scale,
+        exp_step_factor=cfg.exp_step_factor, grid_size=cfg.grid_size,
+        max_samples=cfg.max_samples, n_steps=n_steps,
+        sample_budget=N * n_steps)
+    rid = mres.ray_id.to(torch.int64)
+    xyz = rays_o[rid] + mres.t[:, None] * rays_d[rid]
+    sigmas, raws = field_raws(model, xyz, rays_d[rid])
+    comp = composite_rays_compact(
+        sigmas, raws, mres.dt, mres.t, mres.ray_id, mres.ray_start,
+        mres.valid, N, rcfg.T_threshold, T_start=1.0 - state["opacity"],
+        ray_count=mres.ray_count)
+    state["opacity"] += comp["opacity"]
+    state["depth"] += comp["depth"]
+    state["rend"] += comp["rend"]
+    state["cursor"] = new_cursor
+    converged = (1.0 - state["opacity"]) <= rcfg.T_threshold
+    state["alive"] = state["alive"] & ~converged & ~(new_cursor >= t2)
+    return mres.ray_count.sum()
 
-    Each dispatch takes the finest rung whose B covers the alive count
-    and runs R rounds with that rung's K: one while the rung is wider
-    than N/8 (or it is the first dispatch), else
+
+def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig) -> Dict:
+    """Inference render of N rays (rendering.py:573-768). Returns opacity
+    (N,), depth (N,), rgb (N, 3) [+ norm_nn, sem], total_samples (the
+    samples of every round, an int) and rounds.
+
+    Bucket layout: each dispatch takes the finest rung whose B covers the
+    alive count and runs R rounds with that rung's K: one while the rung
+    is wider than N/8 (or it is the first dispatch), else
     `test_rounds_per_dispatch`, never past `max_samples` samples in all.
     A round takes the rays alive at its start (`nonzero`), so B only
     sets K. The JAX version's compile-readiness choice, blind rounds and
     one-round-stale counts serve its compiled programs and are not kept.
+    Flat layout: rounds of `test_n_samples` steps over every ray until no
+    ray is alive or `max_samples` steps are marched.
     """
     cfg = model.cfg
-    if rcfg.test_layout != "bucket":
-        raise NotImplementedError("the flat test layout is ROADMAP A13")
-    if not uses_sv(cfg, rcfg):
-        raise NotImplementedError(
-            "test rounds without the supervoxel-run march are ROADMAP K13")
     N = rays_o.shape[0]
     dev = rays_o.device
     hits_t = near_intervals(cfg, rays_o, rays_d)
@@ -268,23 +388,38 @@ def render_test(model, occ, rays_o, rays_d, rcfg: RenderConfig) -> Dict:
              "opacity": torch.zeros(N, device=dev),
              "depth": torch.zeros(N, device=dev),
              "rend": torch.zeros((N, cfg.rend_channels), device=dev)}
-    min_samples = max(1 if cfg.exp_step_factor == 0 else 4, rcfg.test_min_k)
-    rungs = bucket_ladder(N, min_samples)
-    total, rounds, samples, first = 0, 0, 0, True
-    n_alive = int(state["alive"].sum())
+    total, rounds, samples = 0, 0, 0
     with torch.no_grad():
-        while samples < cfg.max_samples and n_alive > 0:
-            B, K = next((b, k) for b, k in rungs if b >= n_alive)
-            R = 1 if (first or B > N // 8) else max(
-                rcfg.test_rounds_per_dispatch, 1)
-            R = min(R, max((cfg.max_samples - samples) // K, 1))
-            for _ in range(R):
-                total += int(_test_round(model, occ, rcfg, rays_o, rays_d,
-                                         t2, state, K))
+        if rcfg.test_layout == "flat":
+            while samples < cfg.max_samples:
+                total += int(_flat_round(model, occ, rcfg, rays_o, rays_d,
+                                         t2, state))
                 rounds += 1
-            samples += K * R
-            first = False
+                samples += rcfg.test_n_samples
+                if not bool(state["alive"].any()):
+                    break
+        elif rcfg.test_layout == "bucket":
+            use_sv = uses_sv(cfg, rcfg, occ)
+            min_samples = max(1 if cfg.exp_step_factor == 0 else 4,
+                              rcfg.test_min_k)
+            rungs = bucket_ladder(
+                N, min_samples, None if use_sv else rcfg.test_march_window)
+            first = True
             n_alive = int(state["alive"].sum())
+            while samples < cfg.max_samples and n_alive > 0:
+                B, K = next((b, k) for b, k in rungs if b >= n_alive)
+                R = 1 if (first or B > N // 8) else max(
+                    rcfg.test_rounds_per_dispatch, 1)
+                R = min(R, max((cfg.max_samples - samples) // K, 1))
+                for _ in range(R):
+                    total += int(_test_round(model, occ, rcfg, rays_o,
+                                             rays_d, t2, state, K, use_sv))
+                    rounds += 1
+                samples += K * R
+                first = False
+                n_alive = int(state["alive"].sum())
+        else:
+            raise ValueError(f"test_layout {rcfg.test_layout!r}")
     opacity = state["opacity"]
     results = {"opacity": opacity, "depth": state["depth"],
                "total_samples": total, "rounds": rounds}

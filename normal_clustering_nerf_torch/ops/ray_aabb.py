@@ -19,3 +19,22 @@ def ray_aabb_intersect(rays_o, rays_d, center, half_size):
     near = torch.clamp(t1, min=0.0)
     out = torch.stack([near, t2], dim=-1)
     return torch.where(hit[:, None], out, torch.full_like(out, -1.0))
+
+
+def ray_sphere_intersect(rays_o, rays_d, center, radius):
+    """Ray / sphere intersection by the quadratic solve (reference:
+    models/csrc/intersection.cu:103-197; not on the main path). The same
+    conventions as `ray_aabb_intersect`: (N, 2) [t_near, t_far], near
+    clamped to 0, (-1, -1) on a miss."""
+    oc = rays_o - center
+    a = torch.sum(rays_d * rays_d, dim=-1)
+    b = 2.0 * torch.sum(oc * rays_d, dim=-1)
+    c = torch.sum(oc * oc, dim=-1) - radius * radius
+    disc = b * b - 4.0 * a * c
+    ok = disc >= 0
+    sq = torch.sqrt(torch.where(ok, disc, torch.zeros_like(disc)))
+    t1 = (-b - sq) / (2.0 * a)
+    t2 = (-b + sq) / (2.0 * a)
+    hit = ok & (t2 > 0)
+    out = torch.stack([torch.clamp(t1, min=0.0), t2], dim=-1)
+    return torch.where(hit[:, None], out, torch.full_like(out, -1.0))

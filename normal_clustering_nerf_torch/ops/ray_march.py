@@ -1,18 +1,26 @@
-"""Occupancy ray marching on the dense (N, K) layout.
+"""Occupancy ray marching — port of the JAX package's `ops/ray_march.py`
+for a uniform step grid (exp_step_factor 0) and one cascade:
 
-Port of the JAX package's `ops/ray_march.py` for a uniform step grid
-(exp_step_factor 0) and one cascade:
-
-  * `march_rays_train_dense`: the bootstrap march of the first
+  * `march_rays_train_bootstrap`: the bootstrap march of the first
     `bootstrap_steps` training steps, every step probed in the bitfield;
-    kernel H1 (`csrc/march.cu`);
+    kernel H1 (`csrc/march.cu`, a thread per ray);
+  * `march_rays_train_dense`: the bitfield march over `march_block` steps,
+    optionally two-level through the coarse mask; kernel H9
+    (`csrc/march_fine.cu`, a warp per ray, the port of the Pallas bit
+    probe P2);
+  * `march_rays_test_round_dense` and `march_rays_test_round_window`:
+    bitfield test rounds, the full window or its first K occupied steps;
+    kernel H10 (same file);
+  * `compact_samples`, `march_rays_train` and `march_rays_test_round`:
+    the flat ray-major layout; kernel H11 (same file);
   * `march_rays_train_dense_sv`: the supervoxel-run ("sv") march of the
     later training steps, and `march_rays_test_round_sv`, one round of
     the held-out renderer; kernel K1 (`csrc/march_sv.cu`), both on
     `sv_scan_plain`'s algorithm.
 
 Each launches its kernel for CUDA tensors and runs its `*_plain` version,
-the same function in plain PyTorch, for CPU tensors.
+the same function in plain PyTorch, for CPU tensors. The multi-cascade
+lookup and the geometric step grid raise (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -70,7 +78,7 @@ def occupancy_lookup(xyz, bitfield, *, cascades, scale, grid_size):
     (linear x-fastest cell index, ray_march.py:80-87)."""
     if cascades != 1:
         raise NotImplementedError(
-            "multi-cascade occupancy lookup is not ported (ROADMAP A13)")
+            "multi-cascade occupancy lookup is not ported (ROADMAP A15)")
     G = grid_size
     mip_bound = min(0.5, scale)
     cell = torch.clamp(0.5 * (xyz / mip_bound + 1.0) * G, 0.0,
@@ -151,17 +159,51 @@ def _uniform_step(exp_step_factor, max_samples, grid_size, scale) -> float:
     if not (exp_step_factor == 0.0 or lo >= hi):
         raise NotImplementedError(
             "the port's march takes a uniform step grid only "
-            "(exp_step_factor 0); the geometric grid is ROADMAP A13")
+            "(exp_step_factor 0); the geometric grid is ROADMAP A15")
     return lo
+
+
+def coarse_lookup(xyz, coarse_occ, *, scale, grid_size):
+    """Dilated supervoxel occupancy probe of cascade 0
+    (ray_march.py:376-391): the cell formula of `occupancy_lookup` at
+    resolution G/8 (not the fine cell >> 3: the two differ at cell
+    boundaries)."""
+    Gc = grid_size // 8
+    mip_bound = min(0.5, scale)
+    cell = torch.clamp(0.5 * (xyz / mip_bound + 1.0) * Gc, 0.0,
+                       Gc - 1.0).to(torch.int64)
+    idx = (cell[..., 2] * Gc + cell[..., 1]) * Gc + cell[..., 0]
+    return coarse_occ[idx] > 0
+
+
+# Steps per coarse block (ray_march.py:394-399): the probe at a block's
+# first step covers its 4 steps through the mask's one-supervoxel dilation.
+COARSE_BLOCK = 4
+# H9 keeps a warp's candidate-block bits in shared memory: 32 words, so
+# the two-level march takes S <= 4 * 32 * 32 steps.
+COARSE_MAX_STEPS = 4096
+
+
+def _coarse_blocks(coarse_occ, cascades, S, K, coarse_k_blocks):
+    """KB, the candidate blocks the two-level march probes finely
+    (ray_march.py:461-463), or 0 when it does not apply."""
+    if coarse_occ is None or cascades != 1 or S % COARSE_BLOCK:
+        return 0
+    return min(coarse_k_blocks or max(2 * K // COARSE_BLOCK, 8),
+               S // COARSE_BLOCK)
 
 
 def march_rays_train_dense_plain(rays_o, rays_d, hits_t, bitfield, noise, *,
                                  cascades, scale, exp_step_factor, grid_size,
                                  max_samples, samples_per_ray, march_steps=0,
+                                 coarse_occ=None, coarse_k_blocks=0,
                                  tail_k=0) -> DenseMarchResult:
-    """Plain PyTorch version of H1: the JAX algorithm as written
-    (ray_march.py:446-516): the (N, S) step grid, one probe per step,
-    stratified_budget and select_first_k."""
+    """Plain PyTorch version of H1 and H9: the JAX algorithm as written
+    (ray_march.py:446-516): the (N, S) step grid, with `coarse_occ` the
+    coarse probe of each block's first step and the first KB candidate
+    blocks kept, one fine probe per kept step, stratified_budget and
+    select_first_k."""
+    N = rays_o.shape[0]
     S = march_steps or max_samples
     K = min(samples_per_ray, S)
     _uniform_step(exp_step_factor, max_samples, grid_size, scale)
@@ -171,45 +213,84 @@ def march_rays_train_dense_plain(rays_o, rays_d, hits_t, bitfield, noise, *,
     tg = t_step_grid(t0, S, exp_step_factor=exp_step_factor,
                      max_samples=max_samples, grid_size=grid_size,
                      scale=scale)
+
+    def in_range(t):
+        return (t1 >= 0)[:, None] & (t < t2[:, None])
+
+    KB = _coarse_blocks(coarse_occ, cascades, S, K, coarse_k_blocks)
+    gate = True
+    if KB:
+        BS = COARSE_BLOCK
+        tgc = tg[:, ::BS]
+        xyz_c = rays_o[:, None, :] + tgc[..., None] * rays_d[:, None, :]
+        cand = coarse_lookup(xyz_c, coarse_occ, scale=scale,
+                             grid_size=grid_size) & in_range(tgc)
+        bidx, bval = select_first_k(cand, KB)
+        n_cand_extra = cand.sum(-1) - bval.sum(-1)
+        cols = (bidx[:, :, None] * BS
+                + torch.arange(BS, device=tg.device)[None, None, :]
+                ).reshape(N, KB * BS)
+        gate = bval.repeat_interleave(BS, dim=1)
+        tg = torch.gather(tg, 1, cols)
     dtg = calc_dt(tg, exp_step_factor, max_samples, grid_size, scale)
     xyz = rays_o[:, None, :] + tg[..., None] * rays_d[:, None, :]
     occ = occupancy_lookup(xyz, bitfield, cascades=cascades, scale=scale,
                            grid_size=grid_size)
-    include = occ & (t1 >= 0)[:, None] & (tg < t2[:, None])
+    include = occ & gate & in_range(tg)
     sel, span = stratified_budget(include, K, tail_k)
     rm_samples = sel.sum().to(torch.int32)
-    idx, valid = select_first_k(sel, K)
+    idx, valid = select_first_k(sel, min(K, include.shape[1]))
     zero = torch.zeros((), dtype=tg.dtype, device=tg.device)
     t_k = torch.where(valid, torch.gather(tg, 1, idx), zero)
     dt_k = torch.where(valid, torch.gather(dtg, 1, idx), zero)
     if tail_k > 0:
         dt_k = dt_k * torch.gather(span, 1, idx).to(dt_k.dtype)
     ray_count = valid.sum(dim=-1).to(torch.int32)
-    return DenseMarchResult(t_k, dt_k, valid, ray_count, rm_samples,
-                            torch.zeros((), dtype=torch.int32,
-                                        device=tg.device))
+    if not KB:
+        trunc = torch.zeros((), dtype=torch.int32, device=tg.device)
+    elif tail_k > 0:
+        # any skipped candidate block biases the stratified tail
+        trunc = (n_cand_extra > 0).sum().to(torch.int32)
+    else:
+        # first-K: only under-filled rays lost samples
+        trunc = ((ray_count < K) & (n_cand_extra > 0)).sum().to(torch.int32)
+    return DenseMarchResult(t_k, dt_k, valid, ray_count, rm_samples, trunc)
 
 
-def _march_kernel(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
-                  scale, exp_step_factor, grid_size, max_samples,
-                  samples_per_ray, march_steps, tail_k) -> DenseMarchResult:
-    if cascades != 1:
-        raise NotImplementedError(
-            "the march kernel takes one cascade (ROADMAP A13)")
-    lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
-    N = rays_o.shape[0]
-    S = march_steps or max_samples
-    K = min(samples_per_ray, S)
-    dev = rays_o.device
-    f32 = torch.float32
-    args = [
+def _march_inputs(rays_o, rays_d, hits_t, bitfield, noise, grid_size):
+    N, dev, f32 = rays_o.shape[0], rays_o.device, torch.float32
+    return N, [
         kernels.check(rays_o, "rays_o", f32, (N, 3), dev),
         kernels.check(rays_d, "rays_d", f32, (N, 3), dev),
         kernels.check(hits_t, "hits_t", f32, (N, 2), dev),
-        kernels.check(bitfield, "bitfield", torch.uint8,
-                      (grid_size ** 3 // 8,), dev),
+        _bitfield_arg(bitfield, grid_size, dev),
         kernels.check(noise, "noise", f32, (N,), dev),
     ]
+
+
+def _bitfield_arg(bitfield, grid_size, dev):
+    """The cascade-0 bitfield; H9 and H10 read it as 32-bit words."""
+    p = kernels.check(bitfield, "bitfield", torch.uint8,
+                      (grid_size ** 3 // 8,), dev)
+    if bitfield.data_ptr() % 4:
+        raise ValueError("bitfield: the march kernels read 32-bit words; "
+                         "its storage must be 4-byte aligned")
+    return p
+
+
+def _march_bootstrap_kernel(rays_o, rays_d, hits_t, bitfield, noise, *,
+                            cascades, scale, exp_step_factor, grid_size,
+                            max_samples, samples_per_ray, march_steps,
+                            tail_k) -> DenseMarchResult:
+    if cascades != 1:
+        raise NotImplementedError(
+            "the march kernel takes one cascade (ROADMAP A15)")
+    lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
+    S = march_steps or max_samples
+    K = min(samples_per_ray, S)
+    N, args = _march_inputs(rays_o, rays_d, hits_t, bitfield, noise,
+                            grid_size)
+    dev, f32 = rays_o.device, torch.float32
     t = torch.empty((N, K), dtype=f32, device=dev)
     dt = torch.empty((N, K), dtype=f32, device=dev)
     valid = torch.empty((N, K), dtype=torch.bool, device=dev)
@@ -224,22 +305,322 @@ def _march_kernel(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
                             torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def march_rays_train_dense(rays_o, rays_d, hits_t, bitfield, noise, *,
-                           cascades, scale, exp_step_factor, grid_size,
-                           max_samples, samples_per_ray, march_steps=0,
-                           tail_k=0) -> DenseMarchResult:
-    """March N rays into K dense samples each (the bootstrap form of the
-    JAX `march_rays_train_dense` with coarse_occ=None).
+def march_rays_train_bootstrap(rays_o, rays_d, hits_t, bitfield, noise, *,
+                               cascades, scale, exp_step_factor, grid_size,
+                               max_samples, samples_per_ray, march_steps=0,
+                               tail_k=0) -> DenseMarchResult:
+    """The bootstrap march of the first `bootstrap_steps` training steps
+    (rendering.py:166-176): `march_rays_train_dense` without the coarse
+    mask, at S_boot coarse steps; kernel H1 (one thread per ray).
 
     rays_o, rays_d: (N, 3) f32; hits_t: (N, 2) box interval (-1 on miss);
     bitfield: (G^3/8,) uint8; noise: (N,) first-step jitter in [0, 1).
     """
-    fn = _march_kernel if rays_o.is_cuda else march_rays_train_dense_plain
+    fn = (_march_bootstrap_kernel if rays_o.is_cuda
+          else march_rays_train_dense_plain)
     return fn(rays_o, rays_d, hits_t, bitfield, noise, cascades=cascades,
               scale=scale, exp_step_factor=exp_step_factor,
               grid_size=grid_size, max_samples=max_samples,
               samples_per_ray=samples_per_ray, march_steps=march_steps,
               tail_k=tail_k)
+
+
+def _march_fine_kernel(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
+                       scale, exp_step_factor, grid_size, max_samples,
+                       samples_per_ray, march_steps, coarse_occ,
+                       coarse_k_blocks, tail_k) -> DenseMarchResult:
+    if cascades != 1:
+        raise NotImplementedError(
+            "the march kernel takes one cascade (ROADMAP A15)")
+    lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
+    S = march_steps or max_samples
+    K = min(samples_per_ray, S)
+    KB = _coarse_blocks(coarse_occ, cascades, S, K, coarse_k_blocks)
+    N, args = _march_inputs(rays_o, rays_d, hits_t, bitfield, noise,
+                            grid_size)
+    dev, f32 = rays_o.device, torch.float32
+    if KB:
+        if grid_size % 8 or S > COARSE_MAX_STEPS:
+            raise ValueError(f"the two-level march kernel takes G % 8 == 0 "
+                             f"and S <= {COARSE_MAX_STEPS}; got G "
+                             f"{grid_size}, S {S}")
+        args.append(kernels.check(coarse_occ, "coarse_occ", torch.uint8,
+                                  ((grid_size // 8) ** 3,), dev))
+    else:
+        args.append(None)
+    Kout = min(K, KB * COARSE_BLOCK) if KB else K
+    t = torch.empty((N, Kout), dtype=f32, device=dev)
+    dt = torch.empty((N, Kout), dtype=f32, device=dev)
+    valid = torch.empty((N, Kout), dtype=torch.bool, device=dev)
+    count = torch.empty((N,), dtype=torch.int32, device=dev)
+    sums = torch.zeros((2,), dtype=torch.int32, device=dev)  # rm, trunc
+    if N > 0:
+        kernels.MARCH_FINE_TRAIN.launch(
+            *args, N, S, K, Kout, tail_k, grid_size, KB, lo, min(0.5, scale),
+            kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
+            kernels.ptr(count), kernels.ptr(sums), device=dev)
+    return DenseMarchResult(t, dt, valid, count, sums[0], sums[1])
+
+
+def march_rays_train_dense(rays_o, rays_d, hits_t, bitfield, noise, *,
+                           cascades, scale, exp_step_factor, grid_size,
+                           max_samples, samples_per_ray, march_steps=0,
+                           coarse_occ=None, coarse_k_blocks=0,
+                           tail_k=0) -> DenseMarchResult:
+    """March N rays into K dense samples each: every one of the S =
+    march_steps steps of sqrt(3)/max_samples probed in the bitfield (the
+    JAX `march_rays_train_dense`); kernel H9 (one warp per ray).
+
+    With `coarse_occ` ((G/8)^3 uint8, the dilated mask of
+    `models/occupancy.py:coarse_occupancy`) the two-level march: one
+    coarse probe per 4-step block, fine probes only in the first KB
+    candidate blocks (`coarse_k_blocks`, or max(2K/4, 8)), and the rays
+    whose samples that budget cut counted in `trunc_rays`. The output
+    then has min(K, 4 KB) slots.
+    """
+    fn = _march_fine_kernel if rays_o.is_cuda else march_rays_train_dense_plain
+    return fn(rays_o, rays_d, hits_t, bitfield, noise, cascades=cascades,
+              scale=scale, exp_step_factor=exp_step_factor,
+              grid_size=grid_size, max_samples=max_samples,
+              samples_per_ray=samples_per_ray, march_steps=march_steps,
+              coarse_occ=coarse_occ, coarse_k_blocks=coarse_k_blocks,
+              tail_k=tail_k)
+
+
+# ------------------------------------------- bitfield test rounds (H10)
+def march_rays_test_round_dense_plain(rays_o, rays_d, cursor, t_far, alive,
+                                      bitfield, *, cascades, scale,
+                                      exp_step_factor, grid_size,
+                                      max_samples, n_steps):
+    """Plain PyTorch version of H10's full-window mode: the JAX
+    `march_rays_test_round_dense` (ray_march.py:820-856)."""
+    _uniform_step(exp_step_factor, max_samples, grid_size, scale)
+    tg_ext = t_step_grid(cursor, n_steps + 1, exp_step_factor=exp_step_factor,
+                         max_samples=max_samples, grid_size=grid_size,
+                         scale=scale)
+    tg = tg_ext[:, :n_steps].contiguous()
+    dtg = calc_dt(tg, exp_step_factor, max_samples, grid_size, scale)
+    xyz = rays_o[:, None, :] + tg[..., None] * rays_d[:, None, :]
+    occ = occupancy_lookup(xyz, bitfield, cascades=cascades, scale=scale,
+                           grid_size=grid_size)
+    valid = (occ & alive[:, None] & (cursor >= 0)[:, None]
+             & (tg < t_far[:, None]))
+    return tg, dtg, valid, torch.where(alive, tg_ext[:, -1], cursor)
+
+
+def march_rays_test_round_window_plain(rays_o, rays_d, cursor, t_far, alive,
+                                       bitfield, *, cascades, scale,
+                                       exp_step_factor, grid_size,
+                                       max_samples, S_march, n_steps):
+    """Plain PyTorch version of H10's first-K mode: the bucket round's
+    non-sv march (rendering.py:332-353), written out."""
+    _check_window(n_steps, S_march)
+    K = n_steps
+    tg_ext = t_step_grid(cursor, S_march + 1, exp_step_factor=exp_step_factor,
+                         max_samples=max_samples, grid_size=grid_size,
+                         scale=scale)
+    tg = tg_ext[:, :S_march]
+    dtg = calc_dt(tg, exp_step_factor, max_samples, grid_size, scale)
+    xyz = rays_o[:, None, :] + tg[..., None] * rays_d[:, None, :]
+    occ = occupancy_lookup(xyz, bitfield, cascades=cascades, scale=scale,
+                           grid_size=grid_size)
+    include = (occ & alive[:, None] & (cursor >= 0)[:, None]
+               & (tg < t_far[:, None]))
+    sidx, valid = select_first_k(include, K)
+    zero = torch.zeros((), dtype=tg.dtype, device=tg.device)
+    t_k = torch.where(valid, torch.gather(tg, 1, sidx), zero)
+    dt_k = torch.where(valid, torch.gather(dtg, 1, sidx), zero)
+    last_col = torch.where(valid.sum(-1) >= K, sidx[:, K - 1] + 1,
+                           torch.full_like(sidx[:, 0], S_march))
+    return t_k, dt_k, valid, torch.gather(tg_ext, 1, last_col[:, None])[:, 0]
+
+
+def _check_window(K: int, S_march: int):
+    # rendering.py:302-306: the selection is a row top_k over the window
+    if K > S_march:
+        raise ValueError(f"bucket round K={K} exceeds probe window "
+                         f"S_march={S_march}: the first K occupied steps "
+                         "are taken from the window, so K <= S_march")
+
+
+def _march_test_kernel(rays_o, rays_d, cursor, t_far, alive, bitfield, *,
+                       cascades, scale, exp_step_factor, grid_size,
+                       max_samples, S, K):
+    """H10: K == 0 is the full-window mode ((N, S) outputs), else the
+    first K occupied steps of the window."""
+    if cascades != 1:
+        raise NotImplementedError(
+            "the march kernel takes one cascade (ROADMAP A15)")
+    lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
+    N, dev, f32 = rays_o.shape[0], rays_o.device, torch.float32
+    args = [kernels.check(rays_o, "rays_o", f32, (N, 3), dev),
+            kernels.check(rays_d, "rays_d", f32, (N, 3), dev),
+            kernels.check(cursor, "cursor", f32, (N,), dev),
+            kernels.check(t_far, "t_far", f32, (N,), dev),
+            kernels.check(alive, "alive", torch.bool, (N,), dev),
+            _bitfield_arg(bitfield, grid_size, dev)]
+    W = K or S
+    t = torch.empty((N, W), dtype=f32, device=dev)
+    dt = torch.empty((N, W), dtype=f32, device=dev)
+    valid = torch.empty((N, W), dtype=torch.bool, device=dev)
+    new_cursor = torch.empty((N,), dtype=f32, device=dev)
+    if N > 0:
+        kernels.MARCH_FINE_TEST.launch(
+            *args, N, S, K, grid_size, lo, min(0.5, scale), kernels.ptr(t),
+            kernels.ptr(dt), kernels.ptr(valid), kernels.ptr(new_cursor),
+            device=dev)
+    return t, dt, valid, new_cursor
+
+
+def march_rays_test_round_dense(rays_o, rays_d, cursor, t_far, alive,
+                                bitfield, *, cascades, scale,
+                                exp_step_factor, grid_size, max_samples,
+                                n_steps):
+    """One inference round in the dense (N, n_steps) layout (the JAX
+    `march_rays_test_round_dense`): the whole window of n_steps steps from
+    each cursor, unmasked t and dt, `valid` the occupied in-range steps of
+    alive rays, and the cursor n_steps steps on for alive rays. Kernel
+    H10, full-window mode."""
+    if not rays_o.is_cuda:
+        return march_rays_test_round_dense_plain(
+            rays_o, rays_d, cursor, t_far, alive, bitfield,
+            cascades=cascades, scale=scale, exp_step_factor=exp_step_factor,
+            grid_size=grid_size, max_samples=max_samples, n_steps=n_steps)
+    return _march_test_kernel(
+        rays_o, rays_d, cursor, t_far, alive, bitfield, cascades=cascades,
+        scale=scale, exp_step_factor=exp_step_factor, grid_size=grid_size,
+        max_samples=max_samples, S=n_steps, K=0)
+
+
+def march_rays_test_round_window(rays_o, rays_d, cursor, t_far, alive,
+                                 bitfield, *, cascades, scale,
+                                 exp_step_factor, grid_size, max_samples,
+                                 S_march, n_steps):
+    """One round of the bucket renderer without the sv march
+    (rendering.py:332-353): probe an `S_march`-step window from each
+    cursor, keep the first K = n_steps occupied in-range steps of alive
+    rays, and move the cursor just past the K-th (tg_ext[sidx[K-1] + 1])
+    when K were found, else past the window (tg_ext[S_march]); the
+    cursor moves for every row, as the JAX round computes it. Kernel
+    H10, first-K mode. Returns (t (N, K), dt, valid, new_cursor (N,))."""
+    if not rays_o.is_cuda:
+        return march_rays_test_round_window_plain(
+            rays_o, rays_d, cursor, t_far, alive, bitfield,
+            cascades=cascades, scale=scale, exp_step_factor=exp_step_factor,
+            grid_size=grid_size, max_samples=max_samples, S_march=S_march,
+            n_steps=n_steps)
+    _check_window(n_steps, S_march)
+    if n_steps < 1:
+        raise ValueError(f"a window round takes n_steps >= 1, got {n_steps}")
+    return _march_test_kernel(
+        rays_o, rays_d, cursor, t_far, alive, bitfield, cascades=cascades,
+        scale=scale, exp_step_factor=exp_step_factor, grid_size=grid_size,
+        max_samples=max_samples, S=S_march, K=n_steps)
+
+
+# ------------------------------------------------ flat layout (H11)
+class MarchResult(NamedTuple):
+    """Compact (budget-sized) sample buffers, ray-major ordered."""
+    ray_id: torch.Tensor     # (B,) int32 owning ray of each slot
+    t: torch.Tensor          # (B,) sample distance
+    dt: torch.Tensor         # (B,) integration step
+    valid: torch.Tensor      # (B,) bool
+    ray_start: torch.Tensor  # (N,) int32 first slot of each ray's segment
+    ray_count: torch.Tensor  # (N,) int32 samples of each ray in budget
+    rm_samples: torch.Tensor  # () int32 samples before the budget
+
+
+def compact_samples_plain(include, tg, dtg, budget: int) -> MarchResult:
+    """Plain PyTorch version of H11: the JAX `compact_samples`
+    (ray_march.py:157-192) as written, a scatter of the included steps'
+    flat indices into the budget."""
+    N, S = include.shape
+    B = budget
+    dev = include.device
+    flat_inc = include.reshape(-1)
+    rm_samples = flat_inc.sum().to(torch.int32)
+    pos = torch.cumsum(flat_inc.to(torch.int64), 0) - 1
+    within = flat_inc & (pos < B)
+    src = torch.full((B + 1,), N * S, dtype=torch.int64, device=dev)
+    src[torch.where(within, pos, torch.full_like(pos, B))] = torch.arange(
+        N * S, device=dev)
+    src = src[:B]
+    valid = torch.arange(B, device=dev) < torch.clamp(rm_samples, max=B)
+    src_safe = torch.clamp(src, max=N * S - 1)
+    zero = torch.zeros((), dtype=tg.dtype, device=dev)
+    t_c = torch.where(valid, tg.reshape(-1)[src_safe], zero)
+    dt_c = torch.where(valid, dtg.reshape(-1)[src_safe], zero)
+    ray_id = torch.where(valid, src_safe // S, torch.full_like(src, N - 1))
+    ray_count = (include & within.reshape(N, S)).sum(-1).to(torch.int32)
+    ray_start = (torch.cumsum(ray_count, 0) - ray_count).to(torch.int32)
+    return MarchResult(ray_id.to(torch.int32), t_c, dt_c, valid, ray_start,
+                       ray_count, rm_samples)
+
+
+def _compact_kernel(include, tg, dtg, budget: int) -> MarchResult:
+    N, S = include.shape
+    B, dev, f32, i32 = budget, include.device, torch.float32, torch.int32
+    args = [kernels.check(tg, "tg", f32, (N, S), dev),
+            kernels.check(dtg, "dtg", f32, (N, S), dev),
+            kernels.check(include, "include", torch.bool, (N, S), dev)]
+    # the per-ray counts and their scan (ray-major slot of each ray's first
+    # sample before the budget cut)
+    count = include.sum(-1, dtype=i32)
+    end = torch.cumsum(count, 0, dtype=i32)
+    start = end - count
+    out = MarchResult(torch.empty(B, dtype=i32, device=dev),
+                      torch.empty(B, dtype=f32, device=dev),
+                      torch.empty(B, dtype=f32, device=dev),
+                      torch.empty(B, dtype=torch.bool, device=dev),
+                      torch.empty(N, dtype=i32, device=dev),
+                      torch.empty(N, dtype=i32, device=dev),
+                      end[-1] if N else torch.zeros((), dtype=i32,
+                                                    device=dev))
+    if N > 0 and B > 0:
+        kernels.COMPACT.launch(
+            *args, kernels.ptr(count), kernels.ptr(start), N, S, B,
+            *map(kernels.ptr, out[:6]), device=dev)
+    return out
+
+
+def compact_samples(include, tg, dtg, budget: int) -> MarchResult:
+    """Compact the included (ray, step) samples of (N, S) grids into a
+    flat ray-major budget of B slots (the JAX `compact_samples`): samples
+    past B are dropped (`rm_samples` counts them all, `ray_count` only
+    those kept), `ray_start` is the exclusive scan of `ray_count`, and
+    padding slots take ray N-1, t = dt = 0, invalid. Kernel H11."""
+    fn = _compact_kernel if include.is_cuda else compact_samples_plain
+    return fn(include, tg, dtg, budget)
+
+
+def march_rays_train(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
+                     scale, exp_step_factor, grid_size, max_samples,
+                     sample_budget, march_steps=0, per_ray_cap=0,
+                     tail_k=0) -> MarchResult:
+    """March all rays and compact their samples into a flat budget (the
+    JAX `march_rays_train`, the flat training oracle): the dense march
+    (H9) at K = min(max_samples, per_ray_cap), whose sample set is the
+    flat march's (ray_march.py:421-423), then `compact_samples` (H11)."""
+    cap = min(max_samples, per_ray_cap) if per_ray_cap else max_samples
+    mr = march_rays_train_dense(
+        rays_o, rays_d, hits_t, bitfield, noise, cascades=cascades,
+        scale=scale, exp_step_factor=exp_step_factor, grid_size=grid_size,
+        max_samples=max_samples, samples_per_ray=cap,
+        march_steps=march_steps, tail_k=tail_k)
+    return compact_samples(mr.valid, mr.t, mr.dt, sample_budget)
+
+
+def march_rays_test_round(rays_o, rays_d, cursor, t_far, alive, bitfield, *,
+                          cascades, scale, exp_step_factor, grid_size,
+                          max_samples, n_steps, sample_budget):
+    """One flat inference round (the JAX `march_rays_test_round`): the
+    full-window round (H10) compacted into the budget (H11). Returns
+    (MarchResult, new_cursor (N,))."""
+    tg, dtg, valid, new_cursor = march_rays_test_round_dense(
+        rays_o, rays_d, cursor, t_far, alive, bitfield, cascades=cascades,
+        scale=scale, exp_step_factor=exp_step_factor, grid_size=grid_size,
+        max_samples=max_samples, n_steps=n_steps)
+    return compact_samples(valid, tg, dtg, sample_budget), new_cursor
 
 
 # ------------------------------------------------ supervoxel-run march (K1)

@@ -2,8 +2,10 @@
 `training/trainer.py` for one device, as plain eager steps.
 
 One step: sample a triangle batch -> assemble rays -> render (the
-bootstrap march before `render.bootstrap_steps`, the supervoxel-run march
-after; triplane field, compositing) -> multi-task loss -> gradients ->
+bootstrap march before `render.bootstrap_steps`, after it the
+supervoxel-run march or the bitfield march, or the flat layout's march
+from step 0, as `render.march_layout` and `render.march_coarse` choose;
+the field, compositing) -> multi-task loss -> gradients ->
 optax-equivalent clipped AdamW. `fit` refreshes the occupancy grid every
 `update_interval` steps (every cell before `warmup_steps`). `validate`
 renders the held-out views (`render_images`), computes the metric suite
@@ -136,7 +138,8 @@ class Trainer:
     def train_step_core(self, bootstrap: bool = True,
                         draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         """One optimisation step: the bootstrap march when `bootstrap`,
-        else the supervoxel-run march on the occupancy tables. `draws`
+        else the march `render_train` picks from the occupancy state (the
+        flat layout ignores `bootstrap`, as the JAX one does). `draws`
         may hold this step's random draws: "batch" ({"img", "tri"}),
         "noise" (N,), "bg" (3,) and "kmeans_init" (cluster_K,). Returns
         the step's metrics as tensors (no host synchronisation)."""

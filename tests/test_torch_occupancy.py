@@ -60,18 +60,14 @@ def _state_pair(seed, scale_grid):
 
 
 def _assert_states_equal(out, ref):
-    """Every field of the port's state, the sv tables (sv_mask,
-    sv_payload) that the refresh rebuilds included, and the JAX state's
-    coarse_occ built from the port's bitfield."""
-    assert set(to.OccupancyState._fields) == \
-        set(jo.OccupancyState._fields) - {"coarse_occ"}
+    """Every field of the JAX state, in its order, the tables the refresh
+    rebuilds (the dilated coarse mask coarse_occ, sv_mask, sv_payload)
+    included."""
+    assert to.OccupancyState._fields == jo.OccupancyState._fields
     for name in to.OccupancyState._fields:
         np.testing.assert_array_equal(N(getattr(out, name)),
                                       np.asarray(getattr(ref, name)),
                                       err_msg=name)
-    np.testing.assert_array_equal(
-        N(to.coarse_occupancy(out.density_bitfield, G)),
-        np.asarray(ref.coarse_occ), err_msg="coarse_occ")
 
 
 def test_supervoxel_tables_and_coarse_mask():
@@ -99,6 +95,7 @@ def test_warmup_update_with_injected_jitter():
     _assert_states_equal(out, ref)
     assert int(N(out.density_bitfield).astype(bool).sum()) > 0
     assert int(N(out.sv_mask).sum()) > 0
+    assert (N(out.coarse_occ) >= N(out.sv_mask)).all()   # dilated
 
 
 @pytest.mark.parametrize("scale_grid", [1.0, 0.0])

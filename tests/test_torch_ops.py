@@ -1,6 +1,6 @@
 """Small ops of the port against the JAX package: step grids, bit
-packing, the clamped activations, rays, normals from depth, and the
-triangle sampler.
+packing, Morton codes, the ray-sphere intersection, the clamped
+activations, rays, normals from depth, and the triangle sampler.
 
 Tolerances: exact for integer and selection outputs and for ops that
 repeat the JAX arithmetic op for op; float32 rtol 1e-6 where a library
@@ -17,7 +17,9 @@ from normal_clustering_nerf_torch.datasets import normals as tn
 from normal_clustering_nerf_torch.datasets import ray_utils as tr
 from normal_clustering_nerf_torch.datasets.sampler import RaySampler as TS
 from normal_clustering_nerf_torch.losses import triang_idx as t_triang_idx
+from normal_clustering_nerf_torch.ops import morton as tmo
 from normal_clustering_nerf_torch.ops import packbits as tp
+from normal_clustering_nerf_torch.ops import ray_aabb as tra
 from normal_clustering_nerf_torch.ops import ray_march as tm
 from normal_clustering_nerf_torch.ops import trunc_exp as tt
 from normal_clustering_nerf_tpu.datasets import normals as jn
@@ -26,6 +28,8 @@ from normal_clustering_nerf_tpu.datasets.sampler import RaySampler as JS
 from normal_clustering_nerf_tpu.losses import triang_idx as j_triang_idx
 from normal_clustering_nerf_tpu.ops.packbits import packbits as j_packbits
 from normal_clustering_nerf_tpu.ops.packbits import unpack_bit as j_unpack_bit
+from normal_clustering_nerf_tpu.ops import morton as jmo
+from normal_clustering_nerf_tpu.ops import ray_aabb as jra
 from normal_clustering_nerf_tpu.ops import ray_march as jm
 from normal_clustering_nerf_tpu.ops.trunc_exp import trunc_exp as j_trunc_exp
 from normal_clustering_nerf_tpu.ops.trunc_exp import trunc_sigmoid as j_trunc_sigmoid
@@ -59,6 +63,35 @@ def test_packbits_roundtrip_and_parity():
     np.testing.assert_array_equal(
         N(tp.unpack_bit(out, T(idx))),
         np.asarray(j_unpack_bit(J(ref), J(idx, np.int32))))
+
+
+def test_morton_codes_match_jax():
+    """Every cell of a 1024^3 grid's corners and random cells; the codes
+    reach bit 29, and decode back."""
+    rng = np.random.default_rng(2)
+    coords = rng.integers(0, 1024, (4096, 3)).astype(np.int32)
+    coords[:8] = [[x, y, z] for x in (0, 1023) for y in (0, 1023)
+                  for z in (0, 1023)]
+    ref = np.asarray(jmo.morton3d(J(coords)))
+    out = tmo.morton3d(T(coords))
+    np.testing.assert_array_equal(N(out), ref)
+    assert out.dtype == torch.int32 and int(out.max()) == 2 ** 30 - 1
+    np.testing.assert_array_equal(N(tmo.morton3d_invert(out)),
+                                  np.asarray(jmo.morton3d_invert(J(ref))))
+    np.testing.assert_array_equal(N(tmo.morton3d_invert(out)), coords)
+
+
+def test_ray_sphere_intersect_matches_jax():
+    """Origins inside, outside and behind the sphere (misses give -1)."""
+    rng = np.random.default_rng(3)
+    o, d = random_rays(rng, 500)
+    o = o * 4.0
+    c = np.array([0.1, -0.2, 0.05], np.float32)
+    ref = np.asarray(jra.ray_sphere_intersect(J(o), J(d), J(c), 0.7))
+    out = N(tra.ray_sphere_intersect(T(o), T(d), T(c), 0.7))
+    np.testing.assert_allclose(out, ref, rtol=1e-6, atol=1e-6)
+    assert (ref[:, 0] == -1).any() and (ref[:, 0] > 0).any() \
+        and ((ref[:, 0] == 0) & (ref[:, 1] > 0)).any()
 
 
 @pytest.mark.parametrize("fn", ["exp", "sigmoid"])

@@ -1,8 +1,10 @@
 """Rendering of the port against the JAX package's `models/rendering.py`:
-the supervoxel-run ("sv") branch of `render_train` (values and gradients,
-the march noise and background handed in) and the bucket test renderer
-`render_test` with sv rounds, both on a triplane field whose JAX
-parameters are carried across by `convert.py`.
+the branches of `render_train` (values and gradients, the march noise and
+background handed in): the supervoxel-run ("sv") march, the bitfield
+march over march_block steps with and without the two-level coarse mask,
+and the flat layout; and `render_test`: bucket rounds with the sv march
+or the bitfield window, and the flat layout. All on a triplane field
+whose JAX parameters are carried across by `convert.py`.
 
 Tolerances:
   * render_train: the march's outputs (ts, deltas, sample_valid,
@@ -11,6 +13,10 @@ Tolerances:
     tests/test_torch_model.py); gradients rtol 1e-4 with atol 1e-5 of
     the parameter's largest gradient (the field's sums in another order,
     then compositing's closed-form backward, tests/test_torch_composite.py);
+  * the flat branch: the composited outputs rtol 2e-5, atol 2e-6, the
+    tolerance of JAX's own flat-vs-dense test
+    (tests/test_render_parity.py:55-58): JAX's flat prefix sums are one
+    global cumsum minus each segment's base, the port's are per segment;
   * render_test: rtol 2e-4, atol 2e-5 and total_samples equal: the
     tolerance the JAX suite holds between two schedules of the same
     render (tests/test_render_test_bucket.py:58-67). Each round continues
@@ -35,7 +41,9 @@ from normal_clustering_nerf_tpu.config import ModelConfig as JMC
 from normal_clustering_nerf_tpu.config import RenderConfig as JRC
 from normal_clustering_nerf_tpu.models import rendering as jr
 from normal_clustering_nerf_tpu.models.ngp_mt import NGPMT as JModel
-from normal_clustering_nerf_tpu.models.occupancy import supervoxel_tables
+from normal_clustering_nerf_tpu.models.occupancy import (
+    coarse_occupancy, supervoxel_tables,
+)
 from normal_clustering_nerf_tpu.ops.packbits import packbits
 
 
@@ -69,7 +77,8 @@ def _occupancy(rng, G, p_empty):
     bitfield = packbits(jnp.asarray(flat.astype(np.float32)), 0.5)
     mask, payload = supervoxel_tables(bitfield, G)
     state = OccupancyGrid(TMC(grid_size=G), CPU).init_state()._replace(
-        density_bitfield=T(bitfield), sv_mask=T(mask), sv_payload=T(payload))
+        density_bitfield=T(bitfield), sv_mask=T(mask), sv_payload=T(payload),
+        coarse_occ=T(coarse_occupancy(bitfield, G)))
     return bitfield, mask, payload, state
 
 
@@ -85,29 +94,37 @@ def _flat(tree):
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-@pytest.mark.parametrize("sv_intervals,global_step", [(24, 700), (3, 300)])
-def test_render_train_sv_branch_matches_jax(sv_intervals, global_step):
-    """The bench's budget (16 samples, full stratified tail) over the sv
-    march; 3 intervals truncate rays and step 300 anneals the near end."""
+def _train_case(seed, global_step, rkw, *, use_sv=True, coarse=False):
+    """The bench's budget (16 samples, full stratified tail) at G 32 and
+    1024 steps: the JAX and the port's render_train on the same rays,
+    noise, background and cotangents. use_sv=False drops the sv tables (a
+    JAX call without them, a port state whose sv_mask is None); coarse
+    hands the JAX call the coarse mask, as the trainer does."""
     G, n = 32, 120
     jm, params, tm = _models(0.5, grid_size=G, max_samples=1024)
-    rng = np.random.default_rng(sv_intervals)
+    rng = np.random.default_rng(seed)
     bitfield, mask, payload, state = _occupancy(rng, G, 0.7)
+    if not use_sv:
+        mask = payload = None
+        state = state._replace(sv_mask=None, sv_payload=None)
     o, d = _rays(rng, n, -0.45, 0.45)
-    rkw = dict(march_block=1024, sample_budget=16 * n,
-               sv_intervals=sv_intervals, anneal_strategy="avoid_near",
-               anneal_steps=600)
+    rkw = dict(dict(march_block=1024, sample_budget=16 * n,
+                    anneal_strategy="avoid_near", anneal_steps=600), **rkw)
     key = jax.random.PRNGKey(3)
     k_noise, k_bg = jax.random.split(key)
     noise = np.asarray(jax.random.uniform(k_noise, (n,)))
     bg = np.asarray(jax.random.uniform(k_bg, (3,)))
+    flat = rkw.get("march_layout") == "flat"
     cot = {k: rng.standard_normal(s).astype(np.float32) for k, s in (
         ("rgb", (n, 3)), ("depth", (n,)), ("opacity", (n,)),
-        ("norm_nn", (n, 3)), ("sem", (n, 3)), ("ws", (n, 16)))}
+        ("norm_nn", (n, 3)), ("sem", (n, 3)),
+        ("ws", (16 * n,) if flat else (n, 16)))}
 
     def loss_j(p):
         res = jr.render_train(jm, p, bitfield, J(o), J(d), key,
                               JRC(**rkw), global_step=global_step,
+                              coarse_occ=(coarse_occupancy(bitfield, G)
+                                          if coarse else None),
                               sv_mask=mask, sv_payload=payload,
                               bootstrap=False)
         return sum(jnp.sum(res[k] * J(c)) for k, c in cot.items()), res
@@ -119,25 +136,56 @@ def test_render_train_sv_branch_matches_jax(sv_intervals, global_step):
                           global_step=global_step, bootstrap=False,
                           noise=T(noise), bg=T(bg))
     sum((out[k] * T(c)).sum() for k, c in cot.items()).backward()
-
-    for k in ("ts", "deltas", "sample_valid", "ray_count", "rm_samples",
-              "trunc_rays", "vr_samples"):
+    exact = ["ts", "deltas", "sample_valid", "ray_count", "rm_samples",
+             "trunc_rays", "vr_samples"]
+    if flat:
+        exact += ["ray_id", "ray_start"]
+    for k in exact:
         np.testing.assert_array_equal(N(out[k]), np.asarray(ref[k]),
                                       err_msg=k)
+    rtol, atol = (2e-5, 2e-6) if flat else (1e-5, 1e-6)
     for k in cot:
-        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]), rtol=1e-5,
-                                   atol=1e-6, err_msg=k)
-    if sv_intervals == 3:
-        assert int(out["trunc_rays"]) > 0
+        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]), rtol=rtol,
+                                   atol=atol, err_msg=k)
     assert int(out["rm_samples"]) > 4 * n
     g_ref = _flat(grads)
     for name, p in tm.named_parameters():
         r = g_ref[name]
         np.testing.assert_allclose(N(p.grad), r, rtol=1e-4,
                                    atol=1e-5 * np.abs(r).max(), err_msg=name)
+    return out
 
 
-def _render_both(n_rays, table_scale, seed=0, **rkw):
+@pytest.mark.parametrize("sv_intervals,global_step", [(24, 700), (3, 300)])
+def test_render_train_sv_branch_matches_jax(sv_intervals, global_step):
+    """The sv march; 3 intervals truncate rays and step 300 anneals the
+    near end."""
+    out = _train_case(sv_intervals, global_step,
+                      dict(sv_intervals=sv_intervals))
+    if sv_intervals == 3:
+        assert int(out["trunc_rays"]) > 0
+
+
+@pytest.mark.parametrize("rkw,use_sv,coarse", [
+    (dict(march_coarse=False), True, False),
+    # the two-level march: coarse mask, no sv tables; 5 candidate blocks
+    # of 4 steps truncate rays
+    (dict(coarse_k_blocks=5), False, True),
+])
+def test_render_train_fine_branch_matches_jax(rkw, use_sv, coarse):
+    """The bitfield march over march_block steps (rendering.py:186-196)."""
+    out = _train_case(24, 700, rkw, use_sv=use_sv, coarse=coarse)
+    assert (int(out["trunc_rays"]) > 0) == coarse
+
+
+def test_render_train_flat_branch_matches_jax():
+    """The flat layout (rendering.py:233-277): the march compacted into
+    16 * n slots from step 0, segments composited."""
+    out = _train_case(5, 700, dict(march_layout="flat"))
+    assert out["ws"].shape == (16 * 120,) and int(out["trunc_rays"]) == 0
+
+
+def _render_both(n_rays, table_scale, seed=0, disable_jit=False, **rkw):
     G = 16
     jm, params, tm = _models(table_scale, grid_size=G, max_samples=128)
     rng = np.random.default_rng(seed)
@@ -145,11 +193,19 @@ def _render_both(n_rays, table_scale, seed=0, **rkw):
     o, d = _rays(rng, n_rays)
     rc = dict(test_layout="bucket", test_march_window=32, test_n_samples=16)
     rc.update(rkw)
-    ref = jr.render_test(jm, params, bitfield, J(o), J(d), JRC(**rc),
-                         sv_mask=mask, sv_payload=payload)
+    with jax.disable_jit(disable_jit):
+        ref = jr.render_test(jm, params, bitfield, J(o), J(d), JRC(**rc),
+                             sv_mask=mask, sv_payload=payload)
     with torch.no_grad():
         out = tr.render_test(tm, state, T(o), T(d), TRC(**rc))
     return out, ref
+
+
+def _assert_render_close(out, ref):
+    for k in ("rgb", "opacity", "depth", "norm_nn", "sem"):
+        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]), rtol=2e-4,
+                                   atol=2e-5, err_msg=k)
+    assert out["total_samples"] == int(ref["total_samples"]) > 0
 
 
 @pytest.mark.parametrize("n_rays,table_scale", [(37, 8.0), (37, 0.0),
@@ -162,10 +218,7 @@ def test_render_test_matches_jax(n_rays, table_scale):
     schedules differ, and on the nearly transparent field every ray runs
     to its far end in both (the samples are the same set)."""
     out, ref = _render_both(n_rays, table_scale)
-    for k in ("rgb", "opacity", "depth", "norm_nn", "sem"):
-        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]), rtol=2e-4,
-                                   atol=2e-5, err_msg=k)
-    assert out["total_samples"] == int(ref["total_samples"]) > 0
+    _assert_render_close(out, ref)
     op = N(out["opacity"])
     if table_scale:
         assert ((op > 1 - 2e-4) & (op < 1)).any()   # rays ended early
@@ -173,14 +226,38 @@ def test_render_test_matches_jax(n_rays, table_scale):
         assert out["rounds"] >= 2
 
 
+@pytest.mark.parametrize("table_scale", [8.0, 0.0])
+def test_render_test_bucket_window_matches_jax(table_scale):
+    """Bucket rounds without the sv march (rendering.py:331-353): K
+    clamped to the 32-step window, the cursor just past the K-th
+    occupied step."""
+    out, ref = _render_both(37, table_scale, march_coarse=False)
+    _assert_render_close(out, ref)
+    assert out["rounds"] >= 2
+
+
+@pytest.mark.parametrize("table_scale", [8.0, 0.0])
+def test_render_test_flat_matches_jax(table_scale):
+    """Flat rounds (rendering.py:742-768) of 16 steps, the JAX rounds
+    run eagerly (its round function is jitted, where XLA contracts the
+    step grid into FMAs)."""
+    out, ref = _render_both(37, table_scale, disable_jit=True,
+                            test_layout="flat")
+    _assert_render_close(out, ref)
+    assert out["rounds"] >= 2
+
+
 def test_render_test_refuses_unported_layouts():
-    """The flat layout (A13) and rounds without the sv march (K13)."""
-    _, _, tm = _models(0.0, grid_size=16, max_samples=128)
+    """A scene past scale 0.5 (several cascades, the geometric step grid:
+    ROADMAP A15) is refused by the bitfield test rounds of both layouts;
+    the flat layout and the rounds without the sv march themselves run
+    (the tests above)."""
+    _, _, tm = _models(0.0, grid_size=16, max_samples=128, scale=1.0)
     rng = np.random.default_rng(1)
     *_, state = _occupancy(rng, 16, 0.6)
     o, d = _rays(rng, 8)
     for rc in (TRC(test_layout="flat"), TRC(march_coarse=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
             tr.render_test(tm, state, T(o), T(d), rc)
 
 
@@ -188,3 +265,6 @@ def test_bucket_ladder_matches_jax():
     for N_, min_k in ((37, 32), (600, 32), (65536, 32), (5000, 1)):
         assert tr.bucket_ladder(N_, min_k) == \
             jr._bucket_ladder_BK(N_, min_k, 128, True)
+        for S_march in (16, 128):
+            assert tr.bucket_ladder(N_, min_k, S_march) == \
+                jr._bucket_ladder_BK(N_, min_k, S_march, False)

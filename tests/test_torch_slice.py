@@ -2,8 +2,9 @@
 `Trainer.train_step_core`, at a small size that keeps the bench.py
 structure: all heads on, the triplane field, 16 samples per ray with the
 full stratified tail, the bootstrap march and after it the supervoxel-run
-march, avoid_near annealing and the production loss weights (plane_res
-32, grid3d_res 16, grid 32, 6 views at 24^2, batch 96).
+march (or the bitfield march, or the flat layout), avoid_near annealing
+and the production loss weights (plane_res 32, grid3d_res 16, grid 32, 6
+views at 24^2, batch 96).
 
 The JAX parameters and occupancy state are carried across by
 `convert.py`; every random draw of a step (batch, march noise,
@@ -56,11 +57,12 @@ def _flat(tree):
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def _jax_draws(jt, state, bootstrap=True):
+def _jax_draws(jt, state, bootstrap=True, render=None):
     """Replay the key splits of train_step_core for one step, and the
-    JAX loss function to get its gradients and the clustering-valid mask
-    the k-means init is drawn over."""
-    cfg = jt.cfg
+    JAX loss function (eagerly, at the trainer's render config or
+    `render`) to get its gradients and the clustering-valid mask the
+    k-means init is drawn over."""
+    cfg = jt.cfg if render is None else jt.cfg.replace(render=render)
     _, k_batch, k_render, k_loss = jax.random.split(state.key, 4)
     k_img, k_pix, _ = jax.random.split(k_batch, 3)
     n_tri = cfg.data.batch_size // 3
@@ -132,6 +134,12 @@ def trainers():
         jax.tree_util.tree_map(np.asarray, jt.state.params),
         jax.tree_util.tree_map(np.asarray, jt.state.occ), tt.opt, CPU)
     tt.load_state(params, occ_t, opt_state, step=int(jt.state.step))
+    # every field of the state crosses, the coarse mask included
+    for name in occ_t._fields:
+        np.testing.assert_array_equal(N(getattr(occ_t, name)),
+                                      np.asarray(getattr(jt.state.occ, name)),
+                                      err_msg=name)
+    assert int(N(occ_t.coarse_occ).sum()) > 0
     # a copy: the JAX step donates the state it is given
     return jt, tt, jax.tree_util.tree_map(lambda a: a.copy(), jt.state)
 
@@ -222,3 +230,40 @@ def test_steps_across_the_bootstrap_switch_match_jax(trainers):
     for n, p in tt.params.items():
         np.testing.assert_allclose(N(p), p_ref[n], rtol=0, atol=atol,
                                    err_msg=f"param {n} after 3 steps")
+
+
+@pytest.mark.parametrize("render", [dict(march_coarse=False),
+                                    dict(march_layout="flat")])
+def test_fine_and_flat_steps_match_jax(trainers, render):
+    """One step after the bootstrap without the sv march (the bitfield
+    march over march_block = 1024 steps, kernel H9) and one flat-layout
+    step (H9 + H11, the segment launchers of H3/H4; the flat layout
+    marches the bitfield from step 0), each from the JAX trainer's
+    current state (a copy: the other tests' steps donate the states they
+    are given) and draws, against the eager JAX loss and gradients."""
+    jt = trainers[0]
+    state0 = jax.tree_util.tree_map(lambda a: a.copy(), jt.state)
+    rcfg = dataclasses.replace(jt.cfg.render, **render)
+    draws, grads, loss_ref, rm, vr = _jax_draws(jt, state0, False, rcfg)
+    _, tcfg = slice_configs()
+    tt = TTrainer(_render(tcfg, bootstrap_steps=16, sv_intervals=24,
+                          **render),
+                  TSyn(split="train", img_wh=(24, 24), n_images=6).load(),
+                  device="cpu")
+    tt.load_state(*convert_jax_state(
+        jax.tree_util.tree_map(np.asarray, state0.params),
+        jax.tree_util.tree_map(np.asarray, state0.occ), tt.opt, CPU),
+        step=int(state0.step))
+    m = tt.train_step_core(bootstrap=False, draws=draws)
+    for k, v in loss_ref.items():
+        np.testing.assert_allclose(float(m[f"loss_{k}"]), float(v),
+                                   rtol=1e-4, atol=1e-7, err_msg=f"loss {k}")
+    assert round(float(m["rm_samples_per_ray"]) * 96) == rm > 0
+    assert round(float(m["vr_samples_per_ray"]) * 96) == vr
+    assert float(m["trunc_ray_frac"]) == 0.0
+    g_ref = _flat(grads["model"])
+    for n, g in tt.last_grads.items():
+        r = g_ref[n]
+        np.testing.assert_allclose(N(g), r, rtol=1e-3,
+                                   atol=1e-4 * np.abs(r).max(),
+                                   err_msg=f"grad {n}")

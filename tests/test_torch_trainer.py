@@ -1,6 +1,7 @@
 """The port's own trainer, without JAX: a few bootstrap steps on the CPU
 at the slice configuration (tests/test_torch_common.py:slice_configs),
-and the refusal to run anywhere but on the card unless asked.
+steps of the marches after the bootstrap, and the refusal to run
+anywhere but on the card unless asked.
 """
 import dataclasses
 import math
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_common import slice_configs
+from test_torch_common import replace_model, slice_configs
 
 from normal_clustering_nerf_torch.datasets.synthetic import SyntheticDataset
 from normal_clustering_nerf_torch.device import resolve_device
@@ -36,21 +37,26 @@ def test_a_few_steps_give_a_finite_falling_loss(scene):
     assert loss[-5:].mean() < 0.75 * loss[:5].mean(), loss
 
 
-def test_steps_after_the_bootstrap_are_refused(scene):
-    """After the bootstrap only the supervoxel-run march is ported: a
-    configuration that turns it off raises (the bitfield march over
-    march_block steps is ROADMAP A13), and the default one trains."""
+@pytest.mark.parametrize("render", [dict(march_coarse=False),
+                                    dict(march_layout="flat")])
+def test_steps_after_the_bootstrap_are_refused(scene, render):
+    """Steps after the bootstrap without the supervoxel-run march (the
+    bitfield march over march_block steps) and in the flat layout train
+    (tests/test_torch_slice.py holds them against JAX); what stays
+    refused is a scene past scale 0.5: several cascades and the geometric
+    step grid (ROADMAP A15)."""
     _, cfg = slice_configs()
-    off = cfg.replace(render=dataclasses.replace(cfg.render,
-                                                 march_coarse=False))
-    tr = Trainer(off, scene, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.train_step_core(bootstrap=False)
+    cfg = cfg.replace(render=dataclasses.replace(cfg.render, **render))
     tr = Trainer(cfg, scene, device="cpu")
     tr.occ_update(warmup=True)
-    m = tr.train_step_core(bootstrap=False)
-    assert math.isfinite(float(m["loss_total"]))
-    assert 0 < float(m["rm_samples_per_ray"]) <= 16
+    for _ in range(2):
+        m = tr.train_step_core(bootstrap=False)
+        assert math.isfinite(float(m["loss_total"]))
+        assert 0 < float(m["rm_samples_per_ray"]) <= 16
+        assert float(m["trunc_ray_frac"]) == 0.0
+    big = Trainer(replace_model(cfg, scale=1.0), scene, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        big.train_step_core(bootstrap=False)
 
 
 def test_the_card_is_the_default_device(scene):
