@@ -54,17 +54,22 @@ Phases (any failed check raises, so the script exits non-zero):
   configuration with the brick field (hash_layout "brick", kernels H5/H6)
   and with the tcnn hash grid ("tcnn", H7/H8): the encode kernels against
   their plain versions on the batch's march samples (forward in f32 and
-  bf16, the table gradient) and on every cell of the grid (the refresh's
+  bf16; the table gradient under an f32, a bf16-rounded and a bf16
+  cotangent, and with every sample inside one cell of level 0; no
+  gradient entry -0.0) and on every cell of the grid (the refresh's
   shape), H5 also at the shape of the Pallas probe P4 (the (16, 8192,
   128) table, 262,144 points); the step parity at the CPU tests' size;
   576 counted steps through `Trainer.fit` (H5/H6 or H7/H8, H1, H3, H4 and
-  K1 must launch); `validate`; every launcher must have launched on some
-  path;
+  K1 must launch); the table gradient on the cotangent of one more
+  training step, captured from autograd with its zero rows; `validate`;
+  every launcher must have launched on some path;
   6. for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
      yardstick (`index_select` of the rows a hash-grid forward reads,
      `index_add_` of its backward's terms; for H5 also at P4's shape, for
-     H10 P2's probe at P2's block) by CUDA events (`device_ms`).
+     H10 P2's probe at P2's block) by CUDA events (`device_ms`); H6 and
+     H8 also on the training step's cotangent, and their gradient table's
+     zero fill alone.
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -193,6 +198,14 @@ class Check:
         if bad:
             self.failures.append(name)
         return 0.0 if not bad else float((got.float() - ref.float()).abs().max())
+
+    def no_negative_zero(self, name, t):
+        """A table gradient starts at +0.0 and only adds: no entry may be
+        -0.0."""
+        bad = int((torch.signbit(t) & (t == 0)).sum())
+        log(f"  {name}: {bad} entries -0.0 {'ok' if not bad else 'FAIL'}")
+        if bad:
+            self.failures.append(f"{name} -0.0")
 
     def done(self, phase):
         if self.failures:
@@ -582,14 +595,17 @@ def gathered_rows(x, spec):
 def check_encoding(tr, gen):
     """Phase 2 of the brick and the tcnn path: H5/H6 (brick) or H7/H8
     (tcnn) against their plain versions on the main path's inputs (the
-    bootstrap march's samples of one batch, forward in f32 and bf16, the
-    table gradient under an f32 and a bf16-rounded cotangent) and on a
-    refresh-sized batch (every cell of the grid, forward in the compute
-    dtype); H5 also at the Pallas probe P4's shape. Returns the records
-    of both launchers for `time_kernels`, with the PyTorch yardsticks:
-    `index_select` of the rows the forward reads (brick: whole 128-value
-    rows, as the JAX forward and the probes gather them), `index_add_` of
-    the backward's terms into a zeroed table."""
+    bootstrap march's samples of one batch, forward in f32 and bf16; the
+    table gradient under an f32 cotangent, a bf16-rounded one passed as
+    f32 and the same passed as bf16) and on a refresh-sized batch (every
+    cell of the grid, forward in the compute dtype); the table gradient
+    also with every sample inside one cell of level 0 (the warp merge's
+    worst case) and with no entry -0.0; H5 also at the Pallas probe P4's
+    shape. Returns the records of both launchers for `time_kernels`, with
+    the PyTorch yardsticks: `index_select` of the rows the forward reads
+    (brick: whole 128-value rows, as the JAX forward and the probes gather
+    them), `index_add_` of the backward's terms into a zeroed table; and
+    the gradient table's zero fill alone."""
     layout = tr.cfg.model.hash_layout
     mod, (fwd, bwd) = encode_module(layout), FIELD_KERNELS[layout]
     inp = main_path_inputs(tr, gen)
@@ -612,13 +628,23 @@ def check_encoding(tr, gen):
                           mod.encode_kernel(table, xr, spec, out_dt),
                           mod.encode_plain(table, xr, spec).to(out_dt), 1e-6))
     g = torch.randn((M, spec.out_dim), generator=gen, device=x.device)
+    # every sample inside the cell of level 0 at the middle of the grid
+    s0, c0 = spec.scales[0], spec.resolutions[0] // 2
+    xc = (c0 - 0.45 + 0.9 * torch.rand((M, 3), generator=gen,
+                                        device=x.device)) / s0
     gerrs = []
-    for name, gg in (("f32", g), ("bf16", g.to(bf16).to(f32))):
-        # fp32 atomics in launch order vs index_add_: up to ~10^4 terms
-        # per value at the coarse levels, summed in another order
-        gerrs.append(chk.close(f"d_table ({name} cotangent)",
-                               mod.encode_grad_kernel(x, gg, spec),
-                               mod.encode_grad_plain(x, gg, spec), 1e-4))
+    for name, xx, gg in (
+            ("f32 cotangent", x, g), ("bf16-rounded f32 cotangent", x,
+                                      g.to(bf16).to(f32)),
+            ("bf16 cotangent", x, g.to(bf16)),
+            ("one level-0 cell, f32 cotangent", xc.contiguous(), g)):
+        # float2 reductions in launch order, runs of a cell summed in
+        # registers, vs index_add_: up to ~10^4 terms per value at the
+        # coarse levels (M in the one-cell case), summed in another order
+        got = mod.encode_grad_kernel(xx, gg, spec)
+        gerrs.append(chk.close(f"d_table ({name})", got,
+                               mod.encode_grad_plain(xx, gg, spec), 1e-4))
+        chk.no_negative_zero(f"d_table ({name})", got)
     lanes, w = encode_lanes(x, spec, layout)
     lanes, upd = lanes.reshape(-1), (w * g.reshape(M, L, 1, F)
                                      .expand(-1, -1, 8, -1)
@@ -645,6 +671,8 @@ def check_encoding(tr, gen):
         kernel=(lambda: mod.encode_grad_kernel(x, g, spec)),
         plain=(lambda: mod.encode_grad_plain(x, g, spec)),
         library=(lambda: d_lib.index_add_(0, lanes, upd)),
+        fill=(lambda: torch.zeros(spec.table_shape(), dtype=f32,
+                                  device=x.device)),
         bound=bound(nbytes(x, g, table), ops))}
     if layout == "brick":
         # P4's shape: the (16, 8192, 128) table and 262,144 points, whose
@@ -663,6 +691,53 @@ def check_encoding(tr, gen):
                         P4_POINTS * L * ENCODE_OPS))
     chk.done(f"{layout} encode checks")
     return rec
+
+
+def step_cotangent(tr):
+    """The positions and the cotangent that one training step after the
+    bootstrap hands the field's table gradient (H6 or H8), captured in the
+    wrapper's call: g in the compute dtype, with the zero rows of the
+    samples that are invalid or lie past a ray's end. The step is taken:
+    the trainer's state moves on."""
+    mod = encode_module(tr.cfg.model.hash_layout)
+    seen, kernel = [], mod.encode_grad_kernel
+
+    def spy(x, g, spec):
+        seen.append((x.detach().clone(), g.detach().clone()))
+        return kernel(x, g, spec)
+    mod.encode_grad_kernel = spy
+    try:
+        tr.train_step_core(bootstrap=False)
+    finally:
+        mod.encode_grad_kernel = kernel
+    if len(seen) != 1:
+        raise RuntimeError(f"a training step called the table gradient "
+                           f"{len(seen)} times, expected once")
+    return seen[0]
+
+
+def check_step_cotangent(tr, rec):
+    """The brick and the tcnn path after their training: H6 or H8 against
+    its plain version on the cotangent of one training step of the
+    trained field (`step_cotangent`), with no entry -0.0; the call is kept
+    in `rec` for `time_kernels`."""
+    layout = tr.cfg.model.hash_layout
+    mod, bwd = encode_module(layout), FIELD_KERNELS[layout][1]
+    x, g = step_cotangent(tr)
+    spec = tr.model.spec
+    M, L = x.shape[0], spec.n_levels
+    zero = int((g.view(M, L, -1) == 0).all(-1).sum())
+    log(f"{LABEL[bwd]} on one training step's cotangent ({layout}, step "
+        f"{tr.step - 1}): M={M}, {g.dtype}, {zero} of {M * L} (sample, "
+        f"level) pairs zero")
+    chk = Check()
+    got = mod.encode_grad_kernel(x, g, spec)
+    err = chk.close("d_table (step cotangent)", got,
+                    mod.encode_grad_plain(x, g, spec), 1e-4)
+    chk.no_negative_zero("d_table (step cotangent)", got)
+    chk.done(f"{LABEL[bwd]} on a step's cotangent")
+    rec[bwd]["err"] = max(rec[bwd]["err"], err)
+    rec[bwd]["step_cotangent"] = lambda: mod.encode_grad_kernel(x, g, spec)
 
 
 def random_occupancy(tr, gen, density=0.2):
@@ -1227,6 +1302,15 @@ def time_kernels(rec):
         r["plain_ms"] = device_ms(r.pop("plain"), f"{name} plain")
         lib = r.pop("library", None)
         r["library_ms"] = device_ms(lib, f"{name} library") if lib else None
+        if "fill" in r:
+            r["fill_ms"] = device_ms(r.pop("fill"), f"{name} fill")
+        if "step_cotangent" in r:
+            r["step_cotangent_ms"] = device_ms(r.pop("step_cotangent"),
+                                               f"{name} step cotangent")
+            log(f"  {name}: {r['ms']:.4f} ms on a random f32 cotangent, "
+                f"{r['step_cotangent_ms']:.4f} ms on a training step's; "
+                f"the zero fill alone {r['fill_ms']:.4f} ms, index_add_ "
+                f"{r['library_ms']:.4f} ms")
         if "at_refresh_shape" in r:
             M, fn = r.pop("at_refresh_shape")
             log(f"  {name} at the refresh shape, M={M}: "
@@ -1397,7 +1481,9 @@ def profile(tr, name, out_dir, step_ms, n=4):
         with open(trace, "rb") as f, gzip.open(trace + ".gz", "wb") as g:
             shutil.copyfileobj(f, g)
         os.remove(trace)
-        ours = tuple(f"{k.name}_kernel" for k in kernels.ALL_KERNELS)
+        # each launcher's `<name>_kernel`, and the scatter H6 and H8 share
+        ours = tuple(f"{k.name}_kernel" for k in kernels.ALL_KERNELS) + (
+            "grad_scatter::scatter_kernel",)
         gemm = ("gemm", "gemv", "nvjet", "cutlass")   # cuBLAS / CUTLASS names
         split = {"port kernels": 0.0, "gemm": 0.0, "other": 0.0}
         for e in dev:
@@ -1572,6 +1658,7 @@ def main():
         fit_ms[layout] = path_training(
             tl, layout, launches, PATH_KERNELS + FIELD_KERNELS[layout],
             {"march_sv_train": SV_STEPS})
+        check_step_cotangent(tl, rec)
         for name, c in validate(tl, layout, ("march_sv_test_round",
                                              FIELD_KERNELS[layout][0],
                                              "composite_fwd")).items():
@@ -1609,7 +1696,8 @@ def main():
              "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
              "library_ms": r["library_ms"]}
-        o.update({key: r[key] for key in ("p4_ms", "p4_library_ms",
+        o.update({key: r[key] for key in ("fill_ms", "step_cotangent_ms",
+                                          "p4_ms", "p4_library_ms",
                                           "p4_bound_ms", "p2_ms",
                                           "p2_library_ms", "p2_bound_ms")
                   if key in r})

@@ -32,22 +32,38 @@
 // kernel reads 64 of the 512 bytes and writes just the (M, 32) features,
 // in f32 or rounded once to bf16.
 //
-// Backward (H6): one thread per (sample, level) adds g[f] * w to the 8
-// corner slots x 2 features of its row with fp32 atomicAdd into a zeroed
-// (L, n_bricks, 128) gradient; a corner of weight 0 (the merged top face)
-// is skipped. The JAX version scatter-adds the whole weighted 128-value
-// row, mostly zeros; adding a zero to the zeroed table changes nothing
-// but, at most, the sign of a zero, so the sums agree up to the order of
-// the additions (which the atomics leave to the hardware).
+// Bound of the forward on the H100: memory latency. Each (sample, level)
+// reads 8 random 8-byte values (in 1-4 32-byte sectors of one 512-byte
+// row) from a 67 MB table, larger than the 50 MB L2, with about 40 f32
+// operations between. The design keeps each access to the slots that are
+// needed and keeps many independent (sample, level) pairs in flight (256
+// threads a block, M*16 threads) to hide the latency.
 //
-// Bound on the H100: memory latency. Each (sample, level) reads 8 random
-// 8-byte values (in 1-4 32-byte sectors of one 512-byte row) from a 67 MB
-// table, larger than the 50 MB L2, with about 40 f32 operations between;
-// the gradient adds 16 values. The design keeps each access to the slots
-// that are needed, keeps many independent (sample, level) pairs in flight
-// (256 threads a block, M*16 threads) to hide the latency, and lets the
-// atomics resolve in L2 (atomicAdd without a used result compiles to RED).
-#include "common.cuh"
+// Backward (H6): the table gradient, g[f] * w_c of the 8 corner slots x 2
+// features added into a zeroed (L, n_bricks, 128) f32 table
+// (grad_scatter.cuh; the cotangent arrives in f32 or bf16 and is read as
+// it is). The JAX version scatter-adds the whole weighted 128-value row,
+// mostly zeros; a term of (+-0, +-0) (a corner of weight 0 on the merged
+// top face, a sample whose cotangent pair is 0) changes no entry of a
+// table that starts at +0.0 and is skipped, so the sums agree up to the
+// order of the additions, which the reductions leave to the hardware.
+// What bounds it: the bytes (x and g read once, the 67 MB table zeroed
+// and written once: ~0.03 ms at 3.35 TB/s) and, above them, the L2's
+// reductions: one a distinct (cell, corner) of a warp's samples, about 16
+// M float2 at the bench batch before the merge. Why each choice: (1) a
+// warp holds one level of 32 consecutive samples, not the 2 samples x 16
+// levels of a thread per (sample, level), so its reductions go to one
+// level's table and its lanes walk along one or two rays; (2) the
+// x and g of the tile are staged in shared memory with 16-byte loads,
+// since a level-major warp would read them with a stride of 2L values;
+// (3) a corner's two features go as one float2 reduction (sm_90's
+// atomicAdd(float2*, float2) on global memory), half the requests of two
+// scalar ones; (4) the samples of a ray that fall in one cell, common at the
+// coarse levels (level 0 is 216 bricks), are summed in registers first
+// and reach the L2 as one reduction a corner; (5) the reductions of a
+// pass are 4 cells x 8 corners, so a warp instruction touches 4 rows (1-4
+// sectors each) where a lane-per-sample pass would touch 32.
+#include "grad_scatter.cuh"
 
 namespace {
 
@@ -56,12 +72,14 @@ constexpr unsigned P1 = 2654435761u, P2 = 805459861u;   // tcnn primes
 
 // Geometry of one (sample, level), in the operation order of the JAX
 // `_brick_geometry` / `_w64` (see the file note): the 8 corner slots and
-// weights, and the offset of the brick's row in the (L, n_bricks, 128)
-// table.
+// weights, the offset of the brick's row in the (L, n_bricks, 128) table,
+// and the cell's key, its clipped base vertex p0 (which fixes the row and
+// the slots).
 __device__ __forceinline__ long long corners(const float* __restrict__ x,
                                              const int* __restrict__ levels,
                                              int m, int l, int n_bricks,
-                                             int slot[8], float w[8]) {
+                                             int slot[8], float w[8],
+                                             int key[3]) {
   const int4 lv = reinterpret_cast<const int4*>(levels)[l];
   const float scale = __int_as_float(lv.x);
   const int res = lv.y, nb = lv.z, dense = lv.w;
@@ -73,6 +91,7 @@ __device__ __forceinline__ long long corners(const float* __restrict__ x,
     float p0f = floorf(pos);
     float f = __fsub_rn(pos, p0f);
     int p0 = min(max(static_cast<int>(p0f), 0), res - 1);
+    key[a] = p0;
     b[a] = p0 / 3;
     s0[a] = p0 - 3 * b[a];
     s1[a] = min(p0 + 1, res - 1) - 3 * b[a];
@@ -114,10 +133,10 @@ __global__ void brick_fwd_kernel(const float* __restrict__ table,
                       threadIdx.x;
   if (i >= static_cast<long long>(M) * L) return;
   const int m = static_cast<int>(i / L), l = static_cast<int>(i % L);
-  int slot[8];
+  int slot[8], key[3];
   float w[8];
   const float2* row = reinterpret_cast<const float2*>(
-      table + corners(x, levels, m, l, n_bricks, slot, w));
+      table + corners(x, levels, m, l, n_bricks, slot, w, key));
   float2 v[8];
 #pragma unroll
   for (int c = 0; c < 8; ++c) v[c] = __ldg(row + slot[c]);
@@ -135,26 +154,20 @@ __global__ void brick_fwd_kernel(const float* __restrict__ table,
   }
 }
 
-__global__ void brick_bwd_kernel(const float* __restrict__ g,
-                                 const float* __restrict__ x,
-                                 const int* __restrict__ levels,
-                                 float* __restrict__ d_table, int M, int L,
-                                 int n_bricks) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(M) * L) return;
-  const int m = static_cast<int>(i / L), l = static_cast<int>(i % L);
-  int slot[8];
-  float w[8];
-  float* row = d_table + corners(x, levels, m, l, n_bricks, slot, w);
-  const float2 gv = reinterpret_cast<const float2*>(g)[i];
+// H6's geometry for grad_scatter.cuh: the corners' f32 offsets in the
+// table (below 2^31: the wrapper checks the table's size).
+struct BrickGeom {
+  const int* levels;
+  int n_bricks;
+  __device__ __forceinline__ void operator()(const float* x3, int l,
+                                             int key[3], int idx[8],
+                                             float w[8]) const {
+    int slot[8];
+    const long long row = corners(x3, levels, 0, l, n_bricks, slot, w, key);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    if (w[c] == 0.0f) continue;
-    atomicAdd(row + slot[c] * F, __fmul_rn(w[c], gv.x));
-    atomicAdd(row + slot[c] * F + 1, __fmul_rn(w[c], gv.y));
+    for (int c = 0; c < 8; ++c) idx[c] = static_cast<int>(row + slot[c] * F);
   }
-}
+};
 
 }  // namespace
 
@@ -171,12 +184,8 @@ extern "C" int brick_fwd(const void* table, const void* x, const void* levels,
 
 extern "C" int brick_bwd(const void* g, const void* x, const void* levels,
                          void* d_table, int M, int L, int n_bricks,
-                         cudaStream_t stream) {
-  const int threads = 256;
-  brick_bwd_kernel<<<ncn_blocks(static_cast<long long>(M) * L, threads),
-                     threads, 0, stream>>>(
-      static_cast<const float*>(g), static_cast<const float*>(x),
-      static_cast<const int*>(levels), static_cast<float*>(d_table), M, L,
-      n_bricks);
-  return static_cast<int>(cudaGetLastError());
+                         int g_bf16, cudaStream_t stream) {
+  return grad_scatter::launch(
+      g, x, d_table, M, L, g_bf16,
+      BrickGeom{static_cast<const int*>(levels), n_bricks}, stream);
 }

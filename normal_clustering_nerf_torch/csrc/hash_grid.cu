@@ -21,20 +21,29 @@
 // (--fmad=false, __fmul_rn / __fadd_rn) so that floor(pos) and the weights
 // are the reference's.
 //
-// Backward (H8): one thread per (sample, level) adds g[f] * w_c to the 8
-// corner rows x 2 features with fp32 atomicAdd into a zeroed
-// (total_rows, 2) gradient, as tcnn does; the sums agree with the JAX
-// scatter-add up to the order of the additions. The run-dedupe scatter of
-// the JAX package (hash_encoding.py:154-196, off by default) computes the
-// same sum and is not ported.
+// Bound of the forward on the H100: memory latency. Each (sample, level)
+// reads 8 random 8-byte rows of a 45.7 MB table (fine levels hash corners
+// to unrelated rows: 8 sectors, where a brick level needs 1-4), with
+// about 50 integer and f32 operations between. The design keeps many
+// independent (sample, level) pairs in flight (256 threads a block, M*16
+// threads).
 //
-// Bound on the H100: memory latency. Each (sample, level) reads 8 random
-// 8-byte rows of a 45.7 MB table (fine levels hash corners to unrelated
-// rows: 8 sectors, where a brick level needs 1-4), with about 50 integer
-// and f32 operations between; the gradient adds 16 values. The design
-// keeps many independent (sample, level) pairs in flight (256 threads a
-// block, M*16 threads) and lets the atomics resolve in L2 (RED).
-#include "common.cuh"
+// Backward (H8): the table gradient, g[f] * w_c added to the 8 corner
+// rows x 2 features of a zeroed (total_rows, 2) f32 table, as tcnn does,
+// through the scatter of grad_scatter.cuh (the design of H6, whose note in
+// brick_hash.cu gives the reasons; the cotangent arrives in f32 or bf16).
+// A term of (+-0, +-0) is skipped, which is exact on a table that starts
+// at +0.0; the sums agree with the JAX scatter-add up to the order of the
+// additions. What bounds it: the bytes (x and g read once, the 45.7 MB
+// table zeroed and written once: ~0.02 ms at 3.35 TB/s) and, above them,
+// the L2's reductions, one a distinct (cell, corner) of a warp's samples.
+// Here a cell's 8 corners are 8 rows of 8 bytes: at a dense level the z
+// neighbours are adjacent (4-8 sectors a cell); at a hashed level ix has
+// the prime 1, so an x pair from an even ix differs in the hash's last
+// bit and shares a sector. The run-dedupe scatter of the JAX package
+// (hash_encoding.py:154-196, off by default) computes the same sum and is
+// not ported: the warp's merge of equal cells takes its place.
+#include "grad_scatter.cuh"
 
 namespace {
 
@@ -42,11 +51,13 @@ constexpr int F = 2;     // features per level: a row is one float2
 constexpr unsigned P1 = 2654435761u, P2 = 805459861u;   // tcnn primes
 
 // Rows (absolute, in the whole table) and weights of the 8 corners of
-// one (sample, level), in the operation order of `_level_corners`.
+// one (sample, level), in the operation order of `_level_corners`, and
+// the cell's key, its base vertex p0 before the clip (which fixes the
+// rows).
 __device__ __forceinline__ void corners(const float* __restrict__ x,
                                         const int* __restrict__ levels,
                                         int m, int l, int table_size,
-                                        int row[8], float w[8]) {
+                                        int row[8], float w[8], int key[3]) {
   const int4 lv = reinterpret_cast<const int4*>(levels)[l];
   const float scale = __int_as_float(lv.x);
   const int res = lv.y, dense = lv.z, offset = lv.w;
@@ -59,6 +70,7 @@ __device__ __forceinline__ void corners(const float* __restrict__ x,
     f[a] = __fsub_rn(pos, p0f);
     omf[a] = __fsub_rn(1.0f, f[a]);
     p0[a] = static_cast<int>(p0f);
+    key[a] = p0[a];
   }
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -90,9 +102,9 @@ __global__ void hash_grid_fwd_kernel(const float* __restrict__ table,
                       threadIdx.x;
   if (i >= static_cast<long long>(M) * L) return;
   const int m = static_cast<int>(i / L), l = static_cast<int>(i % L);
-  int row[8];
+  int row[8], key[3];
   float w[8];
-  corners(x, levels, m, l, table_size, row, w);
+  corners(x, levels, m, l, table_size, row, w, key);
   const float2* tab = reinterpret_cast<const float2*>(table);
   float2 v[8];
 #pragma unroll
@@ -111,26 +123,20 @@ __global__ void hash_grid_fwd_kernel(const float* __restrict__ table,
   }
 }
 
-__global__ void hash_grid_bwd_kernel(const float* __restrict__ g,
-                                     const float* __restrict__ x,
-                                     const int* __restrict__ levels,
-                                     float* __restrict__ d_table, int M,
-                                     int L, int table_size) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(M) * L) return;
-  const int m = static_cast<int>(i / L), l = static_cast<int>(i % L);
-  int row[8];
-  float w[8];
-  corners(x, levels, m, l, table_size, row, w);
-  const float2 gv = reinterpret_cast<const float2*>(g)[i];
+// H8's geometry for grad_scatter.cuh: the corners' f32 offsets in the
+// table (below 2^31: the wrapper checks the table's size).
+struct HashGeom {
+  const int* levels;
+  int table_size;
+  __device__ __forceinline__ void operator()(const float* x3, int l,
+                                             int key[3], int idx[8],
+                                             float w[8]) const {
+    int row[8];
+    corners(x3, levels, 0, l, table_size, row, w, key);
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    float* dst = d_table + static_cast<long long>(row[c]) * F;
-    atomicAdd(dst, __fmul_rn(w[c], gv.x));
-    atomicAdd(dst + 1, __fmul_rn(w[c], gv.y));
+    for (int c = 0; c < 8; ++c) idx[c] = row[c] * F;
   }
-}
+};
 
 }  // namespace
 
@@ -148,12 +154,8 @@ extern "C" int hash_grid_fwd(const void* table, const void* x,
 
 extern "C" int hash_grid_bwd(const void* g, const void* x, const void* levels,
                              void* d_table, int M, int L, int table_size,
-                             cudaStream_t stream) {
-  const int threads = 256;
-  hash_grid_bwd_kernel<<<ncn_blocks(static_cast<long long>(M) * L, threads),
-                         threads, 0, stream>>>(
-      static_cast<const float*>(g), static_cast<const float*>(x),
-      static_cast<const int*>(levels), static_cast<float*>(d_table), M, L,
-      table_size);
-  return static_cast<int>(cudaGetLastError());
+                             int g_bf16, cudaStream_t stream) {
+  return grad_scatter::launch(
+      g, x, d_table, M, L, g_bf16,
+      HashGeom{static_cast<const int*>(levels), table_size}, stream);
 }

@@ -13,7 +13,9 @@ The table is (L, n_bricks, 64*F) and converts 1:1 from JAX.
 
 `brick_encode` launches kernels H5 (forward) and H6 (table gradient) of
 `csrc/brick_hash.cu` for CUDA tensors, and runs `encode_plain` /
-`encode_grad_plain` for CPU tensors.
+`encode_grad_plain` for CPU tensors. The cotangent arrives in the compute
+dtype, f32 or bf16: H6 reads it as it is, the plain version casts it to
+f32 first.
 """
 from __future__ import annotations
 
@@ -152,7 +154,9 @@ def encode_plain(table, x, spec: BrickGridSpec):
 
 def encode_grad_plain(x, g, spec: BrickGridSpec):
     """Plain PyTorch version of the H6 backward: scatter-add g (x) w of the
-    8 corners into a zeroed (L, n_bricks, 64*F) f32 table gradient."""
+    8 corners into a zeroed (L, n_bricks, 64*F) f32 table gradient (g cast
+    to f32 first)."""
+    g = g.to(torch.float32)
     F = spec.n_features
     d_table = torch.zeros(spec.table_shape(), dtype=torch.float32,
                           device=x.device)
@@ -203,14 +207,21 @@ def encode_kernel(table, x, spec: BrickGridSpec, out_dtype=torch.float32):
 
 
 def encode_grad_kernel(x, g, spec: BrickGridSpec):
-    """H6: the table gradient of g, a zeroed (L, n_bricks, 64*F) f32 table
-    with the non-zero-weight corner terms added by fp32 atomics."""
+    """H6: the table gradient of g ((M, L*F) in f32 or bf16, read in its
+    own dtype), a zeroed (L, n_bricks, 64*F) f32 table with the corner terms
+    added by float2 reductions (`csrc/grad_scatter.cuh`)."""
     M, dev, args = _kernel_args(x, spec)
-    gp = kernels.check(g, "g", torch.float32, (M, spec.out_dim), dev)
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
+    gp = kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)
+    if math.prod(spec.table_shape()) >= 2 ** 31:
+        raise ValueError("H6 addresses the table with 32-bit offsets: "
+                         f"{spec.table_shape()} is too large")
     d_table = torch.zeros(spec.table_shape(), dtype=torch.float32, device=dev)
     if M > 0:
         kernels.BRICK_BWD.launch(gp, *args, kernels.ptr(d_table), M,
-                                 spec.n_levels, spec.n_bricks, device=dev)
+                                 spec.n_levels, spec.n_bricks,
+                                 int(g.dtype == torch.bfloat16), device=dev)
     return d_table
 
 
@@ -228,9 +239,10 @@ class BrickEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        fn = encode_grad_kernel if x.is_cuda else encode_grad_plain
-        return (fn(x, g.to(torch.float32).contiguous(), ctx.spec),
-                None, None, None)
+        if x.is_cuda:   # the kernel reads g in the compute dtype
+            return (encode_grad_kernel(x, g.contiguous(), ctx.spec),
+                    None, None, None)
+        return encode_grad_plain(x, g, ctx.spec), None, None, None
 
 
 def brick_encode(table: torch.Tensor, x: torch.Tensor, spec: BrickGridSpec,

@@ -12,10 +12,11 @@ from JAX.
 
 `hash_encode` launches kernels H7 (forward) and H8 (table gradient) of
 `csrc/hash_grid.cu` for CUDA tensors, and runs `encode_plain` /
-`encode_grad_plain` for CPU tensors. The JAX package's optional
-run-dedupe scatter (`_run_dedupe_scatter`, behind an environment toggle,
-off by default) computes the same sum as the direct scatter and is not
-ported.
+`encode_grad_plain` for CPU tensors. The cotangent arrives in the
+compute dtype, f32 or bf16: H8 reads it as it is, the plain version casts
+it to f32 first. The JAX package's optional run-dedupe scatter
+(`_run_dedupe_scatter`, behind an environment toggle, off by default)
+computes the same sum as the direct scatter and is not ported.
 """
 from __future__ import annotations
 
@@ -139,7 +140,8 @@ def encode_plain(table, x, spec: HashGridSpec):
 def encode_grad_plain(x, g, spec: HashGridSpec):
     """Plain PyTorch version of the H8 backward: scatter-add g (x) w of
     the 8 corners into a zeroed (total_rows, F) f32 table gradient
-    (hash_encoding.py:199-245, direct scatter)."""
+    (hash_encoding.py:199-245, direct scatter; g cast to f32 first)."""
+    g = g.to(torch.float32)
     F = spec.n_features
     d_table = torch.zeros(spec.table_shape(), dtype=torch.float32,
                           device=x.device)
@@ -191,14 +193,21 @@ def encode_kernel(table, x, spec: HashGridSpec, out_dtype=torch.float32):
 
 
 def encode_grad_kernel(x, g, spec: HashGridSpec):
-    """H8: the table gradient of g, a zeroed (total_rows, F) f32 table
-    with every corner term added by fp32 atomics."""
+    """H8: the table gradient of g ((M, L*F) in f32 or bf16, read in its
+    own dtype), a zeroed (total_rows, F) f32 table with the corner terms
+    added by float2 reductions (`csrc/grad_scatter.cuh`)."""
     M, dev, args = _kernel_args(x, spec)
-    gp = kernels.check(g, "g", torch.float32, (M, spec.out_dim), dev)
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
+    gp = kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)
+    if math.prod(spec.table_shape()) >= 2 ** 31:
+        raise ValueError("H8 addresses the table with 32-bit offsets: "
+                         f"{spec.table_shape()} is too large")
     d_table = torch.zeros(spec.table_shape(), dtype=torch.float32, device=dev)
     if M > 0:
         kernels.HASH_BWD.launch(gp, *args, kernels.ptr(d_table), M,
-                                spec.n_levels, spec.table_size, device=dev)
+                                spec.n_levels, spec.table_size,
+                                int(g.dtype == torch.bfloat16), device=dev)
     return d_table
 
 
@@ -216,9 +225,10 @@ class HashEncode(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        fn = encode_grad_kernel if x.is_cuda else encode_grad_plain
-        return (fn(x, g.to(torch.float32).contiguous(), ctx.spec),
-                None, None, None)
+        if x.is_cuda:   # the kernel reads g in the compute dtype
+            return (encode_grad_kernel(x, g.contiguous(), ctx.spec),
+                    None, None, None)
+        return encode_grad_plain(x, g, ctx.spec), None, None, None
 
 
 def hash_encode(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
