@@ -19,10 +19,15 @@ Phases (any failed check raises, so the script exits non-zero):
      on them. H1-H4 are held against their plain PyTorch versions on
      those inputs, gradients included; H3 and H4 also at sigmas scaled up
      per ray, so that rays terminate early and sigma*delta reaches its
-     clip. On a random 20% occupancy with solid blocks: K1 (the sv march:
-     its training launcher on the batch, its test-round launcher on the
-     65,536 rays of the 4 held-out views, three rounds), where rays exceed
-     the 24-interval budget; H9 (the bitfield march over 1024 steps, and
+     clip; H2's backward also under a bf16 cotangent read as bf16, with no
+     entry -0.0. On a random 20% occupancy with solid blocks: K1 (the sv
+     march: its training launcher on the batch, its test-round launcher on
+     the 65,536 rays of the 4 held-out views, three rounds), where rays
+     exceed the 24-interval budget, and both launchers on an adversarial
+     set (axis-parallel rays, tied crossings at supervoxel edges and
+     corners, t0 at or past t_end, more occupied runs than the budget with
+     and without the stratified tail, a supervoxel re-entered across an
+     invalid piece; every kind must occur); H9 (the bitfield march over 1024 steps, and
      the two-level march with a 4-block budget, where rays truncate), H11
      (the flat budget, and half of it), H10 (three rounds of each mode over
      the held-out rays, and the full window at the Pallas probe P2's
@@ -31,11 +36,11 @@ Phases (any failed check raises, so the script exits non-zero):
      same state and draws (bootstrap, sv, bitfield and flat steps): every
      loss and gradient must agree;
   3. set every launch count to 0, train STEPS (576) steps with
-     `Trainer.fit`: 512 bootstrap steps, then 64 sv steps; an occupancy
-     refresh every 16 steps (every cell before step 256, sampled after),
-     the clustering ramp from step 500. Read the counts: every training
-     launcher must have launched, K1's training launcher 64 times. Every
-     loss must be finite and the loss must fall;
+     `Trainer.fit`: 512 bootstrap steps, then 64 sv steps (counted apart);
+     an occupancy refresh every 16 steps (every cell before step 256,
+     sampled after), the clustering ramp from step 500. Read the counts:
+     every training launcher must have launched, K1's training launcher 64
+     times. Every loss must be finite and the loss must fall;
   4. K1 and H9-H11 against their plain versions on the trained occupancy,
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
@@ -44,7 +49,10 @@ Phases (any failed check raises, so the script exits non-zero):
   5. validation: counts to 0, `Trainer.validate()` on the 4 held-out
      views, counts read: the test-round march, the field and the
      compositing must have launched; every metric finite and rotation
-     recovery done;
+     recovery done. From the counts of phases 3 and 5, each launcher's
+     launches in one bench run (512 bootstrap steps, 3488 sv steps, 4
+     renders). Then H2's backward on one more training step's own bf16
+     cotangent, captured from autograd, with no entry -0.0;
   then the bitfield path (the triplane bench configuration with
   march_coarse False: 576 counted steps, H9 64 times and K1 never, and
   `validate` through bitfield bucket rounds, H10), the flat path
@@ -65,11 +73,12 @@ Phases (any failed check raises, so the script exits non-zero):
   every launcher must have launched on some path;
   6. for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
-     yardstick (`index_select` of the rows a hash-grid forward reads,
+     yardstick (`index_select` of the rows a field's forward reads,
      `index_add_` of its backward's terms; for H5 also at P4's shape, for
-     H10 P2's probe at P2's block) by CUDA events (`device_ms`); H6 and
-     H8 also on the training step's cotangent, and their gradient table's
-     zero fill alone.
+     H10 P2's probe at P2's block) by CUDA events (`device_ms`); H2, H6
+     and H8 also on the training step's cotangent, and their gradient
+     tables' zero fill alone; and the kernels ranked by the device time a
+     bench run loses to their bound, bench launches x (ms - bound).
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -375,6 +384,30 @@ def touched_table_bytes(x, spec):
     return 4 * n
 
 
+def triplane_terms(x, g, spec):
+    """For the H2 yardsticks: the 128-value rows the encode of `x` reads
+    (3 plane rows and the 2 halves of a grid3d row a sample) as rows of
+    the planes' and grid3d's rows stacked (grid3d's as 2 rows of 128
+    each), and the backward's 128 terms a sample, g[f] * w, with their
+    indices in a flat table of both (grid3d after the planes)."""
+    from normal_clustering_nerf_torch.models.triplane import (
+        PLANES, _lanes, grid_corners, plane_corners)
+    Fp, Fg = spec.plane_feats, spec.grid3d_feats
+    n_plane = spec.nb2 ** 2
+    rows, lanes, upd = [], [], []
+    for pi, (a, b) in enumerate(PLANES):
+        row, slots, w = plane_corners(x[:, (a, b)], spec)
+        rows.append(pi * n_plane + row)
+        lanes.append(pi * n_plane * 128 + _lanes(row, slots, Fp, 128, 16))
+        upd.append(g[:, pi * Fp:(pi + 1) * Fp, None] * w[:, None, :])
+    row, slots, w = grid_corners(x, spec)
+    rows += [3 * n_plane + 2 * row, 3 * n_plane + 2 * row + 1]
+    lanes.append(3 * n_plane * 128 + _lanes(row, slots, Fg, 64 * Fg, 64))
+    upd.append(g[:, 3 * Fp:, None] * w[:, None, :])
+    return (torch.cat(rows), torch.cat([t.reshape(-1) for t in lanes]),
+            torch.cat([t.reshape(-1) for t in upd]))
+
+
 def check_kernels(tr, gen):
     """Phase 2: H1-H4 against their plain versions on the main path's
     inputs. Returns {launcher name: record} with the largest error, the
@@ -390,7 +423,7 @@ def check_kernels(tr, gen):
     inp = main_path_inputs(tr, gen)
     chk, rec = Check(), {}
     N, K, mr = inp["N"], inp["K"], inp["mr"]
-    f32 = torch.float32
+    f32, bf16 = torch.float32, torch.bfloat16
 
     # H1: bootstrap march. Exact: same operations, same rounding.
     log(f"H1 march: N={N} S={inp['march']['kw']['march_steps']} K={K} "
@@ -427,44 +460,60 @@ def check_kernels(tr, gen):
         f"grid3d {tuple(grid3d.shape)}")
     # 4 (8) products summed in another order: a few f32 ulps of the row
     errs = []
-    for bf16 in (False, True):
-        ref = tp.encode_plain(planes, grid3d, x, spec, bf16)
-        errs.append(chk.close(f"encode bf16={bf16}",
-                              tp.encode_kernel(planes, grid3d, x, spec, bf16),
-                              ref, 2e-6))
+    for rows_bf16 in (False, True):
+        ref = tp.encode_plain(planes, grid3d, x, spec, rows_bf16)
+        errs.append(chk.close(f"encode bf16={rows_bf16}",
+                              tp.encode_kernel(planes, grid3d, x, spec,
+                                               rows_bf16), ref, 2e-6))
     g = torch.randn((M, spec.out_dim), generator=gen, device=x.device)
     shapes = (planes.shape, grid3d.shape)
     gerrs = []
-    for name, gg in (("f32", g), ("bf16", g.to(torch.bfloat16).to(f32))):
-        ref = tp.encode_grad_plain(x, gg, spec, *shapes)
+    for name, gg in (("f32", g), ("bf16-rounded f32", g.to(bf16).to(f32)),
+                     ("bf16", g.to(bf16))):
+        ref = tp.encode_grad_plain(x, gg.to(f32), spec, *shapes)
         got = tp.encode_grad_kernel(x, gg, spec, *shapes)
-        # fp32 atomics in launch order vs index_add_: up to ~10^3
-        # contributions per table value summed in another order
+        # reductions in launch order, runs of a cell summed first, vs
+        # index_add_: up to ~10^3 terms per table value in another order
         gerrs.append(max(chk.close(f"d_planes ({name} cotangent)", got[0],
                                    ref[0], 1e-4),
                          chk.close(f"d_grid ({name} cotangent)", got[1],
                                    ref[1], 1e-4)))
+        chk.no_negative_zero(f"d_planes ({name} cotangent)", got[0])
+        chk.no_negative_zero(f"d_grid ({name} cotangent)", got[1])
     table_b = touched_table_bytes(x, spec)
     out_dim = spec.out_dim
     fwd_flops = M * (3 * (4 + spec.plane_feats * 4 * 2)
                      + (16 + spec.grid3d_feats * 8 * 2))
-    bf16 = tr.model.compute_dtype == torch.bfloat16
+    compute_bf16 = tr.model.compute_dtype == bf16
+    # the yardsticks: the 128-value rows H2 reads (3 plane rows and the 2
+    # halves of a grid3d row a sample) by one index_select of a table of
+    # all rows, and H2's 128 terms a sample by one index_add_ into a flat
+    # zeroed table of both (its fill not timed)
+    rows, lanes, upd = triplane_terms(x, g, spec)
+    all_rows = torch.cat([planes.reshape(-1, 128), grid3d.reshape(-1, 128)])
+    d_lib = torch.zeros(all_rows.numel(), dtype=f32, device=x.device)
     rec["triplane_fwd"] = dict(
         err=max(errs),
-        kernel=(lambda: tp.encode_kernel(planes, grid3d, x, spec, bf16)),
+        kernel=(lambda: tp.encode_kernel(planes, grid3d, x, spec,
+                                         compute_bf16)),
         plain=(lambda: tp.encode_plain(planes, grid3d, x, spec,
-                                                 bf16)),
+                                       compute_bf16)),
+        library=(lambda: torch.index_select(all_rows, 0, rows)),
         bound=bound(nbytes(x) + table_b + M * out_dim * 4, fwd_flops))
     rec["triplane_bwd"] = dict(
         err=max(gerrs),
         kernel=(lambda: tp.encode_grad_kernel(x, g, spec, *shapes)),
         plain=(lambda: tp.encode_grad_plain(x, g, spec, *shapes)),
+        library=(lambda: d_lib.index_add_(0, lanes, upd)),
+        fill=(lambda: (torch.zeros(shapes[0], dtype=f32, device=x.device),
+                       torch.zeros(shapes[1], dtype=f32, device=x.device))),
         bound=bound(nbytes(x, g) + nbytes(planes, grid3d), fwd_flops))
     # the occupancy refresh's shape: every cell of the 128^3 grid
     xr = torch.rand((tr.cfg.model.grid_size ** 3, 3), generator=gen,
                     device=x.device)
     rec["triplane_fwd"]["at_refresh_shape"] = (
-        xr.shape[0], lambda: tp.encode_kernel(planes, grid3d, xr, spec, bf16))
+        xr.shape[0], lambda: tp.encode_kernel(planes, grid3d, xr, spec,
+                                              compute_bf16))
 
     # H3 and H4 at two inputs: the untrained field's sigmas (the main
     # path's; no ray reaches T_threshold there), and the same sigmas scaled
@@ -553,8 +602,10 @@ ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
 
 
 def encode_module(layout):
-    from normal_clustering_nerf_torch.models import brick_hash, hash_encoding
-    return brick_hash if layout == "brick" else hash_encoding
+    from normal_clustering_nerf_torch.models import (brick_hash, hash_encoding,
+                                                     triplane)
+    return {"brick": brick_hash, "tcnn": hash_encoding,
+            "triplane": triplane}[layout]
 
 
 def encode_lanes(x, spec, layout):
@@ -695,16 +746,16 @@ def check_encoding(tr, gen):
 
 def step_cotangent(tr):
     """The positions and the cotangent that one training step after the
-    bootstrap hands the field's table gradient (H6 or H8), captured in the
-    wrapper's call: g in the compute dtype, with the zero rows of the
+    bootstrap hands the field's table gradient (H2, H6 or H8), captured in
+    the wrapper's call: g in the compute dtype, with the zero rows of the
     samples that are invalid or lie past a ray's end. The step is taken:
     the trainer's state moves on."""
     mod = encode_module(tr.cfg.model.hash_layout)
     seen, kernel = [], mod.encode_grad_kernel
 
-    def spy(x, g, spec):
+    def spy(x, g, *rest):
         seen.append((x.detach().clone(), g.detach().clone()))
-        return kernel(x, g, spec)
+        return kernel(x, g, *rest)
     mod.encode_grad_kernel = spy
     try:
         tr.train_step_core(bootstrap=False)
@@ -717,27 +768,37 @@ def step_cotangent(tr):
 
 
 def check_step_cotangent(tr, rec):
-    """The brick and the tcnn path after their training: H6 or H8 against
-    its plain version on the cotangent of one training step of the
-    trained field (`step_cotangent`), with no entry -0.0; the call is kept
-    in `rec` for `time_kernels`."""
+    """Each path after its training: the field's table gradient (H2, H6 or
+    H8) against its plain version on the cotangent of one training step of
+    the trained field (`step_cotangent`), with no entry -0.0; the call is
+    kept in `rec` for `time_kernels`."""
     layout = tr.cfg.model.hash_layout
     mod, bwd = encode_module(layout), FIELD_KERNELS[layout][1]
     x, g = step_cotangent(tr)
     spec = tr.model.spec
-    M, L = x.shape[0], spec.n_levels
-    zero = int((g.view(M, L, -1) == 0).all(-1).sum())
+    if layout == "triplane":   # the tables' shapes; the 4 tables' columns
+        extra = tuple(tr.model.hash_table[k].shape
+                      for k in ("planes", "grid3d"))
+        widths = (spec.plane_feats,) * 3 + (spec.grid3d_feats,)
+    else:
+        extra, widths = (), (spec.n_features,) * spec.n_levels
+    zero = sum(int((part == 0).all(-1).sum())
+               for part in torch.split(g, widths, dim=1))
     log(f"{LABEL[bwd]} on one training step's cotangent ({layout}, step "
-        f"{tr.step - 1}): M={M}, {g.dtype}, {zero} of {M * L} (sample, "
-        f"level) pairs zero")
+        f"{tr.step - 1}): M={x.shape[0]}, {g.dtype}, {zero} of "
+        f"{x.shape[0] * len(widths)} (sample, level) pairs zero")
     chk = Check()
-    got = mod.encode_grad_kernel(x, g, spec)
-    err = chk.close("d_table (step cotangent)", got,
-                    mod.encode_grad_plain(x, g, spec), 1e-4)
-    chk.no_negative_zero("d_table (step cotangent)", got)
+    got = mod.encode_grad_kernel(x, g, spec, *extra)
+    ref = mod.encode_grad_plain(x, g.float(), spec, *extra)
+    got, ref = ((got, ref) if layout == "triplane" else ((got,), (ref,)))
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        err = max(err, chk.close(f"table {i} (step cotangent)", a, b, 1e-4))
+        chk.no_negative_zero(f"table {i} (step cotangent)", a)
     chk.done(f"{LABEL[bwd]} on a step's cotangent")
     rec[bwd]["err"] = max(rec[bwd]["err"], err)
-    rec[bwd]["step_cotangent"] = lambda: mod.encode_grad_kernel(x, g, spec)
+    rec[bwd]["step_cotangent"] = lambda: mod.encode_grad_kernel(x, g, spec,
+                                                                *extra)
 
 
 def random_occupancy(tr, gen, density=0.2):
@@ -902,6 +963,122 @@ def check_k1(tr, occ, train_in, test_in, tag, need_trunc, step):
     rec["march_sv_test_round"]["err"] = max(errs)
     chk.done(f"K1 checks, {tag}")
     return rec
+
+
+ADV_RAYS = 512   # rays of each kind in K1's adversarial set
+
+
+def adversarial_rays(tr, gen):
+    """K1's adversarial set at the bench's grid, ADV_RAYS rays of each kind
+    from `gen` (o, d, hits, noise): axis-parallel rays and components below
+    1e-9; rays with equal x/y (and z) coordinates and directions, whose
+    crossings of two or three axes tie at supervoxel edges and corners;
+    hit rays whose t2 lies at or before t0 = t1 + lo*noise (t2 = t0, t2
+    between t1 and t0, t2 = t1, t2 just below t1); rays along z at x = y =
+    -c*1e-9, "crossing" the x and y planes through 0 together at t = c (an
+    invalid piece, then the same supervoxel again) and, with d_y > 0, the x
+    plane alone (two valid pieces of one supervoxel); random rays through
+    the box, which cross more occupied supervoxels than the budget."""
+    from normal_clustering_nerf_torch.models.rendering import near_intervals
+    m, dev, n = tr.cfg.model, tr.device, ADV_RAYS
+    lo = math.sqrt(3.0) / m.max_samples
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    o = u(6 * n, 3) * 0.8 - 0.4
+    d = torch.randn((6 * n, 3), generator=gen, device=dev)
+    d = d / d.norm(dim=1, keepdim=True)
+    hits = torch.tensor([0.01, 0.9], device=dev).repeat(6 * n, 1)
+    noise = u(6 * n)
+    k = torch.arange(n, device=dev)
+    axis = torch.randint(0, 3, (n,), generator=gen, device=dev)
+    sign = torch.where(u(n) < 0.5, -1.0, 1.0)
+    tiny = (u(n, 3) - 0.5) * 1.8e-9 * (k % 2 == 1)[:, None]
+    d[:n] = torch.where(torch.nn.functional.one_hot(axis, 3).bool(),
+                        sign[:, None], tiny)
+    t = slice(n, 2 * n)                      # ties
+    o[t, 1] = o[t, 0]
+    d[t, 1] = d[t, 0]
+    o[t, 2] = torch.where(k % 2 == 0, o[t, 0], o[t, 2])
+    d[t, 2] = torch.where(k % 2 == 0, d[t, 0], d[t, 2])
+    t = slice(2 * n, 3 * n)                  # t0 at or past t_end
+    t1 = hits[t, 0]
+    t0 = t1 + lo * noise[t]
+    hits[t, 1] = torch.stack([t0, t1 + 0.5 * (t0 - t1), t1, t1 - 1e-6],
+                             1)[k, k % 4]
+    t = slice(3 * n, 5 * n)                  # the 1e-9 denominator at x, y = 0
+    o[t, :2] = (-(0.1 + 0.7 * u(2 * n)) * 1e-9)[:, None]
+    o[t, 2] = -0.45
+    d[t] = torch.tensor([0.0, 0.0, 1.0], device=dev)
+    d[4 * n:5 * n] = torch.tensor([0.0, 0.6, 0.8], device=dev)
+    o[4 * n:5 * n, 1] = -0.3
+    hits[5 * n:] = near_intervals(m, o[5 * n:], d[5 * n:])
+    return o.contiguous(), d.contiguous(), hits.contiguous(), noise
+
+
+def check_k1_adversarial(tr, occ, gen):
+    """Both K1 launchers bit-exact against their plain versions on
+    `adversarial_rays`: the training launcher with the stratified tail
+    (the bench's) and with first-K, TEST_ROUNDS test rounds from the
+    rays' near points; every kind must occur in each. Returns the largest
+    error (0.0 when exact)."""
+    from normal_clustering_nerf_torch.models.rendering import train_march_args
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    m, rc, chk = tr.cfg.model, tr.cfg.render, Check()
+    lo, inf = math.sqrt(3.0) / m.max_samples, float("inf")
+    o, d, hits, noise = adversarial_rays(tr, gen)
+    N = o.shape[0]
+    errs, empty = [], []
+    kw = train_march_args(m, rc, tr.cfg.data.batch_size, "sv")   # K 16
+    for tail_k in (kw["tail_k"], 0):
+        kw["tail_k"] = tail_k
+        args = (o, d, hits, occ.sv_mask, occ.sv_payload, noise)
+        got = rm.march_rays_train_dense_sv(*args, **kw)
+        ref = rm.march_rays_train_dense_sv_plain(*args, **kw)
+        S, t1, t2 = kw["march_steps"], hits[:, 0], hits[:, 1]
+        hit = t1 >= 0
+        t0 = t1 + lo * noise
+        t_end = torch.where(hit, torch.minimum(t2, t0 + S * lo),
+                            torch.full_like(t2, -inf))
+        kinds = rm.sv_ray_kinds(
+            o, d, t0, t_end, hit, occ.sv_mask, scale=m.scale,
+            grid_size=m.grid_size,
+            RI=rm._sv_intervals(kw["n_intervals"], m.grid_size))
+        log(f"K1 train, adversarial set, tail_k {tail_k}: N={N}; rays of "
+            f"each kind {kinds}; rm/ray {int(ref.rm_samples) / N:.2f}, "
+            f"truncated {int(ref.trunc_rays)}")
+        empty += [f"train tail_k {tail_k}: {k}" for k in rm.SV_RAY_KINDS
+                  if not kinds[k]]
+        errs += [chk.equal(name, getattr(got, name), getattr(ref, name))
+                 for name in ("t", "dt", "valid", "ray_count", "rm_samples",
+                              "trunc_rays")]
+    cursor, far = hits[:, 0].contiguous(), hits[:, 1].contiguous()
+    alive = cursor >= 0
+    tkw = dict(scale=m.scale, grid_size=m.grid_size,
+               max_samples=m.max_samples, n_steps=32,
+               n_intervals=rc.test_sv_intervals)
+    for r in range(TEST_ROUNDS):
+        targs = (o, d, cursor, far, alive, occ.sv_mask, occ.sv_payload)
+        got = rm.march_rays_test_round_sv(*targs, **tkw)
+        ref = test_round_plain(targs, tkw)
+        log(f"K1 test round {r}, adversarial set: N={N} K=32 "
+            f"RI={rc.test_sv_intervals}")
+        if r == 0:
+            hit = alive & (cursor >= 0)
+            kinds = rm.sv_ray_kinds(
+                o, d, cursor, torch.where(hit, far, torch.full_like(far, -inf)),
+                hit, occ.sv_mask, scale=m.scale, grid_size=m.grid_size,
+                RI=rc.test_sv_intervals)
+            log(f"  rays of each kind {kinds}")
+            empty += [f"test round: {k}" for k in rm.SV_RAY_KINDS
+                      if not kinds[k]]
+        errs += [chk.equal(name, a, b) for name, a, b in
+                 zip(("t", "dt", "valid", "cursor"), got, ref)]
+        cursor, alive = ref[3], alive & (ref[3] < far)
+    if empty:
+        raise RuntimeError(f"K1 adversarial set: kinds with no ray: {empty}")
+    chk.done("K1 checks, adversarial set")
+    return max(errs)
 
 
 def check_t_start(tr, first_round):
@@ -1571,6 +1748,9 @@ def main():
     step = tr.cfg.render.anneal_steps
     early = check_k1(tr, occ_random, train_in, test_in,
                      "random 20% occupancy", need_trunc=True, step=step)
+    adv_err = check_k1_adversarial(tr, occ_random, gen)
+    for name in ("march_sv_train", "march_sv_test_round"):
+        early[name]["err"] = max(early[name]["err"], adv_err)
     early.update(check_bitfield(tr, occ_random, train_in, test_in,
                                 "random 20% occupancy", need_trunc=True,
                                 step=step)[0])
@@ -1602,6 +1782,7 @@ def main():
                                              "triplane_fwd", "composite_fwd"),
                             ("march_fine_test_round",)).items():
         launches[name] += c
+    check_step_cotangent(tr, rec)
 
     # the bitfield path: the same configuration without the supervoxel-run
     # march, so that the steps after the bootstrap and the held-out rounds

@@ -12,7 +12,8 @@ invisible cells, train 600 warmup steps (past the occupancy warmup at
 three more times (the median is the render rate), print one JSON line
 with the keys of `bench.py:212-277`, and then hold the four quality gates
 of `bench.py:313-338`, exiting non-zero when one fails. It writes no
-history file.
+history file. On standard error it also logs each kernel's launches over
+the whole run, from the first step to the last render, as a JSON object.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import time
 
 import torch
 
+from . import kernels
 from .config import (
     DataConfig, LossConfig, ModelConfig, OptimConfig, RenderConfig,
     TrainConfig,
@@ -114,6 +116,7 @@ def main(argv=None):
     batch = cfg.data.batch_size
     tr.mark_invisible_cells()
 
+    kernels.reset_counts()
     t = time.perf_counter()
     m = tr.fit(1)[-1]
     compile_s = time.perf_counter() - t
@@ -169,6 +172,7 @@ def main(argv=None):
         if k in val:
             out[k.replace("ang/clust/", "rot_")] = round(val[k], 2)
     out["render_rays_per_s"] = round(scene.n_images * W * H / render_s, 1)
+    log(f"kernel launches in this run: {json.dumps(kernels.counts())}")
 
     # the record first, so that a failed gate cannot hide the measurement
     print(json.dumps(out), flush=True)

@@ -26,8 +26,6 @@
 //      term equal to (+-0, +-0) is skipped: it changes no entry of a table
 //      that starts at +0.0.
 #pragma once
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace grad_scatter {
@@ -35,52 +33,11 @@ namespace grad_scatter {
 constexpr int TILE = 32;        // samples a block takes, one a lane
 constexpr int MAX_WARPS = 16;   // warps a block
 constexpr int STRIDE = 9;       // buffer entries a cell: 8 corners, 1 pad
-constexpr unsigned FULL = 0xffffffffu;
 
 inline size_t smem_bytes(int L, int warps) {
   return sizeof(float) * (TILE * 3 + TILE * (2 * L + 2)) +
          static_cast<size_t>(warps) * TILE * STRIDE *
              (sizeof(int) + sizeof(float2));
-}
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// The tile's x and cotangent rows into shared memory (all threads).
-template <bool BF16>
-__device__ __forceinline__ void stage(const void* __restrict__ g,
-                                      const float* __restrict__ x, int m0,
-                                      int rows, int L, float* xs, float* gs) {
-  using T = typename std::conditional<BF16, __nv_bfloat16, float>::type;
-  constexpr int PER16 = 16 / sizeof(T);
-  const int tid = threadIdx.y * TILE + threadIdx.x;
-  const int nt = blockDim.y * TILE;
-  const int width = 2 * L, gstride = width + 2;
-  for (int i = tid; i < rows * 3; i += nt) xs[i] = x[3LL * m0 + i];
-  const T* src = static_cast<const T*>(g) + static_cast<long long>(m0) * width;
-  if (width % PER16 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    const int words = rows * width / PER16;
-    for (int i = tid; i < words; i += nt) {
-      const uint4 u = __ldg(reinterpret_cast<const uint4*>(src) + i);
-      float2* dst = reinterpret_cast<float2*>(
-          gs + (i * PER16 / width) * gstride + i * PER16 % width);
-      if constexpr (BF16) {   // a bf16 is the top half of its f32
-        const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          dst[k] = make_float2(__uint_as_float(w[k] << 16),
-                               __uint_as_float(w[k] & 0xffff0000u));
-      } else {
-        dst[0] = make_float2(__uint_as_float(u.x), __uint_as_float(u.y));
-        dst[1] = make_float2(__uint_as_float(u.z), __uint_as_float(u.w));
-      }
-    }
-  } else {
-    for (int i = tid; i < rows * width; i += nt)
-      gs[(i / width) * gstride + i % width] = to_f32(src[i]);
-  }
 }
 
 // Steps 2 and 3 of the file note for one level of the warp's samples.
@@ -155,7 +112,11 @@ __global__ void __launch_bounds__(TILE * MAX_WARPS)
   bidx += threadIdx.y * TILE * STRIDE;
   bval += threadIdx.y * TILE * STRIDE;
   const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
-  stage<BF16>(g, x, m0, rows, L, xs, gs);
+  const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
+  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
+  ncn_stage<BF16>(static_cast<const char*>(g) +
+                      (BF16 ? 2LL : 4LL) * 2 * L * m0,
+                  rows * 2 * L, 2 * L, gstride, gs, tid, nt);
   __syncthreads();
   const float* x3 = xs + 3 * min(lane, rows - 1);
   for (int l = threadIdx.y; l < L; l += warps) {

@@ -44,6 +44,8 @@
 // Exactness: t, xyz and the cells are the reference's operations in its
 // order (t_step_grid :120, occupancy_lookup :83-86, coarse_lookup
 // :387-390) with __fmul_rn/__fadd_rn/__fdiv_rn and --fmad=false, as H1.
+// The cell, lattice-step and rank helpers are K1's too
+// (march_common.cuh).
 //
 // Bound on the H100: latency and the 256 KB bitfield's cache traffic.
 // P2's work at its shape is N*S probes; the outputs are 9 bytes per slot
@@ -52,11 +54,10 @@
 // thread, fewer than 2 warps per scheduler at 8190 rays) with 8190 warps
 // that fill the 132 SMs, each step's probe on its own lane and the
 // selection by ballots instead of a serial rank walk.
-#include "common.cuh"
+#include "march_common.cuh"
 
 namespace {
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int WARPS = 8;              // warps (rays) per block
 constexpr int MAX_BLOCK_WORDS = 32;   // coarse candidate bits per warp
 
@@ -64,18 +65,6 @@ struct Ray {
   float ox, oy, oz, dx, dy, dz, t0, t2;
   bool hit;
 };
-
-__device__ __forceinline__ int cell_of(float x, float mip_bound, int G) {
-  // clip(0.5 * (x / mip_bound + 1) * G, 0, G - 1) truncated to int
-  float v = __fmul_rn(__fmul_rn(0.5f, __fadd_rn(__fdiv_rn(x, mip_bound), 1.0f)),
-                      static_cast<float>(G));
-  v = fminf(fmaxf(v, 0.0f), static_cast<float>(G - 1));
-  return static_cast<int>(v);
-}
-
-__device__ __forceinline__ float step_t(float t0, int k, float lo) {
-  return __fadd_rn(t0, __fmul_rn(static_cast<float>(k), lo));
-}
 
 // linear x-fastest cell of the point at t on a G^3 grid
 __device__ __forceinline__ int cell_at(const Ray& r, float t, float mb, int G) {
@@ -96,43 +85,6 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   r.ox = o[3 * n]; r.oy = o[3 * n + 1]; r.oz = o[3 * n + 2];
   r.dx = d[3 * n]; r.dy = d[3 * n + 1]; r.dz = d[3 * n + 2];
   return r;
-}
-
-__device__ __forceinline__ unsigned lanes_below() {
-  unsigned lt;
-  asm("mov.u32 %0, %%lanemask_lt;" : "=r"(lt));
-  return lt;
-}
-
-// 0-based position of the need-th (1-based) set bit of m
-__device__ __forceinline__ int nth_bit(unsigned m, int need) {
-  for (int i = 1; i < need; ++i) m &= m - 1;
-  return __ffs(m) - 1;
-}
-
-// rank_targets (ray_march.py:341-373): the 1-based occupied rank slot i
-// holds.
-__device__ __forceinline__ int target_rank(int i, int K1, int K2, int E,
-                                           bool tail) {
-  if (!tail || i < K1) return i + 1;
-  int j = i - K1 + 1;
-  if (E <= K2) return K1 + j;
-  return K1 + (j * E) / K2;
-}
-
-// Its inverse, stratified_budget's rule (ray_march.py:320-338): the slot
-// of occupied rank x (1-based) and its span, or -1 if x is not kept.
-__device__ __forceinline__ int slot_of_rank(int x, int K1, int K2, int E,
-                                            bool tail, int* span) {
-  *span = 1;
-  if (x <= K1) return x - 1;
-  if (!tail) return -1;
-  int y = x - K1;                       // rank inside the tail, >= 1
-  if (E <= K2) return K1 + y - 1;
-  int js = (y * K2 + E - 1) / E;        // ceil(y*K2/E)
-  if ((js * E) / K2 != y) return -1;
-  *span = y - ((js - 1) * E) / K2;
-  return K1 + js - 1;
 }
 
 __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(

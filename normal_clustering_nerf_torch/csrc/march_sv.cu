@@ -27,30 +27,53 @@
 //   march_sv_test_round  first K (tail_k = 0) from each alive ray's cursor:
 //                        t, dt, valid and the lattice-aligned next cursor.
 //
-// Design: one thread per ray, no (N, NB) or (N, RI, SI) intermediate. The
-// plane crossings of each axis are monotone in the plane index (a correctly
-// rounded division by a fixed denominator preserves order), so a 3-way
-// merge yields the pieces in the order of JAX's sort. The kept pieces
-// (start, supervoxel, occupied-step count) sit in local arrays of
-// SV_MAX_RI entries. Pass 1 counts m_tot; pass 2 walks again, skipping
-// whole pieces below the next target rank, and emits the targets.
+// Design: one warp per ray, 8 rays a block, as H9 (march_fine.cu).
+//   A. Each lane computes its share of the crossings into shared memory,
+//      per axis in ascending t: an axis's crossings are monotone in the
+//      plane index (a correctly rounded division by a fixed denominator
+//      preserves order), so the in-range ones are a contiguous run,
+//      found by binary search. A crossing's place in the sorted bounds
+//      is its index within its axis plus the count of the other axes'
+//      in-range crossings below it (binary searches), ties going to the
+//      lower axis: no serial merge. Equal crossings make a piece with
+//      b1 = b0, invalid in any order, so the pieces (b0, b1) are JAX's
+//      sorted sequence whatever the tie order. Then a lane per piece:
+//      midpoint supervoxel, mask probe, the piece before by a shuffle,
+//      occupied ranks by ballots; kept piece r lands on lane r % 32 (slot
+//      r / 32: RI <= 64) as its k0 and supervoxel, iv_extra and the
+//      horizon follow from the ballots.
+//   B. The (piece, j < SI) steps of the kept pieces, flattened piece-major
+//      onto the lanes, 32 a round. The range tests become masks (each is
+//      monotone in k, so the reference's `break`s and masks agree), a
+//      step is owned when its fine cell's supervoxel is the piece's, and
+//      its bit comes from the piece's 64-byte payload row (L1-resident).
+//      Each round's ballot and the count before it go to shared memory:
+//      one probe pass gives m_tot.
+//   C. A lane per slot: its target rank (`rank_targets`), the round that
+//      holds it by binary search over the stored counts, the step by the
+//      rank-th set bit of that round's ballot. There is no second probe
+//      pass, which the stratified tail (whose last target is m_tot) would
+//      make a full second walk; the selection reads ~2 words a slot.
 //
 // Exactness: every t, position and cell is computed with the operations and
 // order of the JAX reference (__fmul_rn/__fadd_rn/__fdiv_rn, built with
-// --fmad=false), so the sample set and the cursor are identical.
+// --fmad=false; t from k, never accumulated), so the sample set and the
+// cursor are identical. A step's x / mb is a multiply by 1 / mb when mb
+// is a power of two (the bench's 0.5): the same correctly rounded value.
 //
-// Bound on the H100: latency. The work per ray is a few dozen mask probes
-// and RI*SI (24*67 at the bench) step tests against a 64-byte payload row
-// that stays in L1; with 8190 rays there are fewer than 2 warps per SM
-// scheduler, so the time is one thread's serial walk, twice. Splitting a
-// ray's pieces over a warp is the next step if it shows in a profile.
+// Bound on the H100: issue rate of the step tests. The work per ray is
+// 3*(Gc+1) crossings, a mask probe per piece and RI*SI (24*67 at the
+// bench) step tests of ~30 f32 operations against a 64-byte payload row;
+// 8190 warps fill the 132 SMs (the thread-per-ray design left fewer than 2
+// warps per scheduler and walked the steps serially, twice).
 #include <math_constants.h>
 
-#include "common.cuh"
+#include "march_common.cuh"
 
 namespace {
 
-constexpr int SV_MAX_RI = 64;
+constexpr int WARPS = 8;       // warps (rays) per block
+constexpr int SV_MAX_RI = 64;  // kept pieces: two slots a lane
 
 struct SvRay {
   float o[3], d[3];
@@ -61,214 +84,259 @@ struct SvRay {
 struct Geo {
   int G, Gc, S, RI, SI;
   float lo, mb, sv;
+  float inv_mb;   // 1 / mb for a power-of-two mb (the bench's 0.5), else 0
 };
 
-__device__ __forceinline__ int cell_of(float x, float mb, int G) {
-  // clip(0.5 * (x / mb + 1) * G, 0, G - 1) truncated to int
-  float v = __fmul_rn(__fmul_rn(0.5f, __fadd_rn(__fdiv_rn(x, mb), 1.0f)),
-                      static_cast<float>(G));
-  v = fminf(fmaxf(v, 0.0f), static_cast<float>(G - 1));
-  return static_cast<int>(v);
+// Shared memory of one warp, in 4-byte words: phase A's crossings and
+// sorted bounds, then phase B's ballots and counts, in the same space.
+__host__ __device__ inline int warp_words(int Gc, int RI, int SI) {
+  const int a = 3 * (Gc + 1) + 3 * (Gc + 1) + 2;
+  const int b = 2 * ((RI * SI + 31) / 32);
+  return a > b ? a : b;
 }
 
-// The plane crossings of one axis in ascending t, restricted to
-// (t0, t_end): ((j*sv - mb) - o) / denom, j ascending for denom > 0 and
-// descending otherwise.
-struct Axis {
-  float o, den;
-  int j, step, left;   // next plane index, its increment, planes left
-  float v;             // the current crossing, +inf when exhausted
-};
-
-__device__ __forceinline__ float crossing(const Axis& a, const Geo& g) {
-  return __fdiv_rn(__fsub_rn(__fsub_rn(__fmul_rn(static_cast<float>(a.j), g.sv),
-                                       g.mb), a.o), a.den);
-}
-
-__device__ __forceinline__ void axis_next(Axis& a, const Geo& g, float t0,
-                                          float t_end) {
-  while (a.left > 0) {
-    float v = crossing(a, g);
-    a.j += a.step;
-    --a.left;
-    if (!(v > t0)) continue;            // before the interval
-    if (v < t_end) { a.v = v; return; }
-    break;                              // at or past its end: no more
+// entries of a[0..n) (ascending) below v, or at or below v
+__device__ __forceinline__ int count_below(const float* a, int n, float v,
+                                           bool or_equal) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (or_equal ? a[mid] <= v : a[mid] < v) lo = mid + 1;
+    else hi = mid;
   }
-  a.left = 0;
-  a.v = CUDART_INF_F;
+  return lo;
 }
 
-__device__ __forceinline__ void axis_init(Axis& a, float o, float d,
-                                          const Geo& g, float t0, float t_end) {
-  a.o = o;
-  a.den = fabsf(d) < 1e-9f ? 1e-9f : d;
-  a.step = a.den > 0.0f ? 1 : -1;
-  a.j = a.den > 0.0f ? 0 : g.Gc;
-  a.left = g.Gc + 1;
-  axis_next(a, g, t0, t_end);
+// The kept pieces: piece r on lane r & 31, slot r >> 5.
+struct Kept {
+  int k0[2], id[2];
+};
+
+// piece P's (k0, supervoxel) from the lane that keeps it (every lane calls)
+__device__ __forceinline__ int2 kept_piece(const Kept& kp, int P, bool two) {
+  const int src = P & 31;
+  int k0 = __shfl_sync(FULL, kp.k0[0], src);
+  int id = __shfl_sync(FULL, kp.id[0], src);
+  if (two) {   // warp-uniform
+    const int k1 = __shfl_sync(FULL, kp.k0[1], src);
+    const int i1 = __shfl_sync(FULL, kp.id[1], src);
+    if (P >= 32) k0 = k1, id = i1;
+  }
+  return make_int2(k0, id);
 }
 
-// Phase A. Fills the kept pieces' start b0 and supervoxel id; returns their
-// number (<= RI) and sets the occupied pieces beyond RI and the horizon.
+// Phase A. Returns the kept pieces' count; sets iv_extra and the horizon.
 __device__ int sv_pieces(const SvRay& r, const Geo& g,
-                         const uint8_t* __restrict__ sv_mask,
-                         float* __restrict__ p_b0, int* __restrict__ p_id,
-                         int* iv_extra, float* scan_end) {
+                         const uint8_t* __restrict__ sv_mask, float* sm,
+                         Kept& kp, int* iv_extra, float* scan_end) {
+  const int lane = threadIdx.x & 31, n1 = g.Gc + 1;
   *iv_extra = 0;
   *scan_end = r.t_end;
   if (!r.hit) return 0;
-  int n = 0, prev = -1;
-  bool first = true;
-  // the sorted finite bounds: [t0, crossings..., t_end] when t0 < t_end,
-  // else [t_end, t0] (JAX sorts t0, t_end and the in-range crossings)
-  Axis ax[3];
-  float b0, b1;
-  bool last;
+  float* A = sm;            // crossings, 3 x (Gc+1), ascending per axis
+  float* B = sm + 3 * n1;   // the sorted finite bounds
+  // [t0, crossings..., t_end] when t0 < t_end, else [t_end, t0] (JAX
+  // sorts t0, t_end and the crossings in (t0, t_end))
+  int n_in = 0;
   if (r.t0 < r.t_end) {
-    for (int a = 0; a < 3; ++a) axis_init(ax[a], r.o[a], r.d[a], g, r.t0, r.t_end);
-    b0 = r.t0;
-  } else {
-    ax[0].v = ax[1].v = ax[2].v = CUDART_INF_F;
-    b0 = r.t_end;
-  }
-  do {
-    int m = 0;
-    if (ax[1].v < ax[m].v) m = 1;
-    if (ax[2].v < ax[m].v) m = 2;
-    if (ax[m].v < CUDART_INF_F) {
-      b1 = ax[m].v;
-      axis_next(ax[m], g, r.t0, r.t_end);
-      last = false;
-    } else {
-      b1 = r.t0 < r.t_end ? r.t_end : r.t0;
-      last = true;
+    for (int e = lane; e < 3 * n1; e += 32) {
+      const int a = e / n1, i = e - a * n1;
+      // (selects, not r.o[a]: a runtime index would put the ray in local
+      // memory)
+      const float o = a == 0 ? r.o[0] : a == 1 ? r.o[1] : r.o[2];
+      const float d = a == 0 ? r.d[0] : a == 1 ? r.d[1] : r.d[2];
+      const float den = fabsf(d) < 1e-9f ? 1e-9f : d;
+      const int j = den > 0.0f ? i : g.Gc - i;
+      A[e] = __fdiv_rn(__fsub_rn(__fsub_rn(__fmul_rn(static_cast<float>(j),
+                                                     g.sv), g.mb), o),
+                       den);
     }
-    const bool valid = isfinite(b1) && b1 > __fadd_rn(b0, 1e-9f);
-    int cmp = -1;
-    if (valid) {
-      const float tm = __fmul_rn(0.5f, __fadd_rn(b0, b1));
-      int c[3];
-      for (int a = 0; a < 3; ++a) {
-        float p = __fadd_rn(r.o[a], __fmul_rn(tm, r.d[a]));
-        float s = floorf(__fdiv_rn(__fadd_rn(p, g.mb), g.sv));
-        c[a] = static_cast<int>(fminf(fmaxf(s, 0.0f),
-                                      static_cast<float>(g.Gc - 1)));
-      }
-      cmp = (c[2] * g.Gc + c[1]) * g.Gc + c[0];
-      if ((first || cmp != prev) && sv_mask[cmp]) {
-        if (n < g.RI) {
-          p_b0[n] = b0;
-          p_id[n] = cmp;
-          if (++n == g.RI) *scan_end = b1;
-        } else {
-          ++*iv_extra;
+    __syncwarp();
+    int first[3], last[3];   // the in-range run of each axis
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      first[a] = count_below(A + a * n1, n1, r.t0, true);
+      last[a] = count_below(A + a * n1, n1, r.t_end, false);
+      n_in += last[a] - first[a];
+    }
+    for (int e = lane; e < 3 * n1; e += 32) {
+      const int a = e / n1, i = e - a * n1;
+      const int fa = a == 0 ? first[0] : a == 1 ? first[1] : first[2];
+      const int la = a == 0 ? last[0] : a == 1 ? last[1] : last[2];
+      if (i < fa || i >= la) continue;
+      const float v = A[e];
+      int place = 1 + i - fa;
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        if (b != a)
+          place += count_below(A + b * n1, n1, v, b < a) - first[b];
+      B[place] = v;
+    }
+    if (lane == 0) {
+      B[0] = r.t0;
+      B[n_in + 1] = r.t_end;
+    }
+  } else if (lane == 0) {
+    B[0] = r.t_end;
+    B[1] = r.t0;
+  }
+  __syncwarp();
+
+  const int n_pieces = n_in + 1;
+  int occ_before = 0, prev_id = -1;
+  float end = r.t_end;
+  for (int p0 = 0; p0 < n_pieces; p0 += 32) {
+    const int p = p0 + lane;
+    bool valid = false;
+    int id = -1, k0 = 0;
+    float b1 = 0.0f;
+    if (p < n_pieces) {
+      const float b0 = B[p];
+      b1 = B[p + 1];
+      valid = isfinite(b1) && b1 > __fadd_rn(b0, 1e-9f);
+      if (valid) {
+        const float tm = __fmul_rn(0.5f, __fadd_rn(b0, b1));
+        int c[3];
+        for (int a = 0; a < 3; ++a) {
+          const float x = __fadd_rn(r.o[a], __fmul_rn(tm, r.d[a]));
+          const float s = floorf(__fdiv_rn(__fadd_rn(x, g.mb), g.sv));
+          c[a] = static_cast<int>(fminf(fmaxf(s, 0.0f),
+                                        static_cast<float>(g.Gc - 1)));
         }
+        id = (c[2] * g.Gc + c[1]) * g.Gc + c[0];
+        k0 = static_cast<int>(ceilf(__fdiv_rn(__fsub_rn(b0, r.t0), g.lo))) - 1;
       }
     }
-    prev = cmp;
-    first = false;
-    b0 = b1;
-  } while (!last);
-  return n;
-}
-
-// Phase B for one piece: calls f(t) for each of its occupied lattice steps,
-// in order; f returns false to stop. Returns the steps it accepted.
-template <typename F>
-__device__ __forceinline__ int sv_piece_steps(const SvRay& r, const Geo& g,
-                                              const int* __restrict__ payload,
-                                              float b0, int id, F f) {
-  const int sx = id % g.Gc, sy = (id / g.Gc) % g.Gc, sz = id / (g.Gc * g.Gc);
-  const int* row = payload + static_cast<size_t>(id) * 16;
-  const int k0 = static_cast<int>(ceilf(__fdiv_rn(__fsub_rn(b0, r.t0), g.lo))) - 1;
-  int n = 0;
-  for (int j = 0; j < g.SI; ++j) {
-    const int kk = k0 + j;
-    if (kk < 0) continue;
-    if (kk >= g.S) break;
-    const float tt = __fadd_rn(r.t0, __fmul_rn(static_cast<float>(kk), g.lo));
-    if (!(tt < r.t_end)) break;
-    const int cx = cell_of(__fadd_rn(r.o[0], __fmul_rn(tt, r.d[0])), g.mb, g.G);
-    const int cy = cell_of(__fadd_rn(r.o[1], __fmul_rn(tt, r.d[1])), g.mb, g.G);
-    const int cz = cell_of(__fadd_rn(r.o[2], __fmul_rn(tt, r.d[2])), g.mb, g.G);
-    if ((cx >> 3) != sx || (cy >> 3) != sy || (cz >> 3) != sz) continue;
-    const int L = (((cz - 8 * sz) * 8) + (cy - 8 * sy)) * 8 + (cx - 8 * sx);
-    const unsigned w = static_cast<unsigned>(row[L >> 5]);
-    if (!((w >> (L & 31)) & 1u)) continue;
-    ++n;
-    if (!f(tt)) break;
+    int before = __shfl_up_sync(FULL, id, 1);
+    if (lane == 0) before = prev_id;
+    prev_id = __shfl_sync(FULL, id, 31);
+    const bool occ = valid && (p == 0 || id != before) && sv_mask[id];
+    const unsigned m = __ballot_sync(FULL, occ);
+    const int rank = occ_before + __popc(m & lanes_below());
+    const unsigned at_ri = __ballot_sync(FULL, occ && rank == g.RI - 1);
+    if (at_ri) end = __shfl_sync(FULL, b1, __ffs(at_ri) - 1);
+    // kept piece of rank occ_before + offs goes to lane (occ_before + offs)
+    // & 31: this lane takes offs = (lane - occ_before) & 31
+    const int offs = (lane - occ_before) & 31;
+    const bool take = offs < __popc(m) && occ_before + offs < g.RI;
+    const int src = take ? nth_bit(m, offs + 1) : lane;
+    const int k0_in = __shfl_sync(FULL, k0, src);
+    const int id_in = __shfl_sync(FULL, id, src);
+    if (take) {
+      if (occ_before + offs < 32) {
+        kp.k0[0] = k0_in;
+        kp.id[0] = id_in;
+      } else {
+        kp.k0[1] = k0_in;
+        kp.id[1] = id_in;
+      }
+    }
+    occ_before += __popc(m);
   }
-  return n;
-}
-
-// rank_targets (ray_march.py:341-373): 1-based occupied rank of slot i and
-// its represented span.
-__device__ __forceinline__ int target_rank(int i, int K1, int K2, int E,
-                                           bool tail, int* span) {
-  *span = 1;
-  if (!tail || i < K1) return i + 1;
-  int j = i - K1 + 1;
-  if (E <= K2) return K1 + j;
-  int cur = (j * E) / K2;
-  int prev = ((j - 1) * E) / K2;
-  *span = max(cur - prev, 1);
-  return K1 + cur;
+  *iv_extra = max(occ_before - g.RI, 0);
+  *scan_end = end;
+  __syncwarp();   // phase B reuses the shared memory
+  return min(occ_before, g.RI);
 }
 
 // Phases A-C for one ray: writes its K slots; returns the valid slots and
 // the largest sample t through *t_last (-inf when none).
 __device__ int sv_scan_ray(const SvRay& r, const Geo& g, int K, int tail_k,
                            const uint8_t* __restrict__ sv_mask,
-                           const int* __restrict__ payload, size_t base,
-                           float* __restrict__ t_out, float* __restrict__ dt_out,
+                           const int* __restrict__ payload, float* sm,
+                           size_t base, float* __restrict__ t_out,
+                           float* __restrict__ dt_out,
                            uint8_t* __restrict__ valid_out, int* iv_extra,
                            float* scan_end, float* t_last) {
-  float p_b0[SV_MAX_RI];
-  int p_id[SV_MAX_RI], p_n[SV_MAX_RI];
-  const int n_iv = sv_pieces(r, g, sv_mask, p_b0, p_id, iv_extra, scan_end);
+  const int lane = threadIdx.x & 31;
+  Kept kp = {{0, 0}, {0, 0}};
+  const int n_kept = sv_pieces(r, g, sv_mask, sm, kp, iv_extra, scan_end);
+  const bool two = n_kept > 32;
 
-  // pass 1: occupied steps per piece
+  // phase B: one ballot a round of 32 (piece, j) steps, and the count
+  // before it
+  const int total = n_kept * g.SI;
+  const int rounds = (total + 31) / 32;
+  unsigned* ballot = reinterpret_cast<unsigned*>(sm);
+  int* before = reinterpret_cast<int*>(sm) + rounds;
   int m_tot = 0;
-  for (int i = 0; i < n_iv; ++i) {
-    p_n[i] = sv_piece_steps(r, g, payload, p_b0[i], p_id[i],
-                            [](float) { return true; });
-    m_tot += p_n[i];
+  int piece = lane / g.SI, step = lane - piece * g.SI;   // lane's q
+  for (int w = 0; w < rounds; ++w) {
+    const int q = 32 * w + lane;
+    const int2 pc = kept_piece(kp, min(piece, n_kept - 1), two);
+    const int kk = pc.x + step;
+    bool inc = false;
+    if (q < total && kk >= 0 && kk < g.S) {
+      const float tt = step_t(r.t0, kk, g.lo);
+      if (tt < r.t_end) {
+        const int cx = cell_of(__fadd_rn(r.o[0], __fmul_rn(tt, r.d[0])), g.mb,
+                               g.G, g.inv_mb);
+        const int cy = cell_of(__fadd_rn(r.o[1], __fmul_rn(tt, r.d[1])), g.mb,
+                               g.G, g.inv_mb);
+        const int cz = cell_of(__fadd_rn(r.o[2], __fmul_rn(tt, r.d[2])), g.mb,
+                               g.G, g.inv_mb);
+        // owned: the fine cell's supervoxel is the piece's
+        if ((((cz >> 3) * g.Gc + (cy >> 3)) * g.Gc + (cx >> 3)) == pc.y) {
+          const int L = (((cz & 7) * 8) + (cy & 7)) * 8 + (cx & 7);
+          const unsigned word = static_cast<unsigned>(
+              __ldg(payload + static_cast<size_t>(pc.y) * 16 + (L >> 5)));
+          inc = (word >> (L & 31)) & 1u;
+        }
+      }
+    }
+    const unsigned m = __ballot_sync(FULL, inc);
+    if (lane == 0) {
+      ballot[w] = m;
+      before[w] = m_tot;
+    }
+    m_tot += __popc(m);
+    for (step += 32; step >= g.SI; step -= g.SI) ++piece;   // q += 32
   }
+  __syncwarp();
 
+  // phase C: a lane per slot finds the step of its target rank
   const bool tail = tail_k > 0;
   const int K1 = tail ? max(K - tail_k, 0) : K;
   const int K2 = tail_k;
   const int E = max(m_tot - K1, 0);
-  int n_valid = 0, span;
-  while (n_valid < K && target_rank(n_valid, K1, K2, E, tail, &span) <= m_tot)
-    ++n_valid;
-
-  // pass 2: emit the target ranks in order
-  int slot = 0, rank = 0;
-  int tgt = n_valid > 0 ? target_rank(0, K1, K2, E, tail, &span) : 0;
+  int n_valid = 0;
   float tmax = -CUDART_INF_F;
-  for (int i = 0; i < n_iv && slot < n_valid; ++i) {
-    if (rank + p_n[i] < tgt) {       // no target in this piece
-      rank += p_n[i];
-      continue;
+  for (int i0 = 0; i0 < K; i0 += 32) {
+    const int i = i0 + lane;
+    int span = 1;
+    const int rank = i < K ? target_rank(i, K1, K2, E, tail, &span) : 0;
+    const bool v = i < K && rank <= m_tot;
+    int P = 0, j = 0;
+    if (v) {
+      int lo = 0, hi = rounds;   // the last round whose count before < rank
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (before[mid] < rank) lo = mid;
+        else hi = mid;
+      }
+      const int q = 32 * lo + nth_bit(ballot[lo], rank - before[lo]);
+      P = q / g.SI;
+      j = q - P * g.SI;
     }
-    sv_piece_steps(r, g, payload, p_b0[i], p_id[i], [&](float tt) {
-      if (++rank != tgt) return true;
-      t_out[base + slot] = tt;
-      dt_out[base + slot] = tail ? __fmul_rn(g.lo, static_cast<float>(span))
-                                 : g.lo;
-      valid_out[base + slot] = 1;
-      tmax = fmaxf(tmax, tt);
-      if (++slot < n_valid) tgt = target_rank(slot, K1, K2, E, tail, &span);
-      return slot < n_valid;
-    });
+    const int2 pc = kept_piece(kp, P, two);
+    if (i < K) {
+      const size_t o = base + i;
+      if (v) {
+        const float tt = step_t(r.t0, pc.x + j, g.lo);
+        t_out[o] = tt;
+        dt_out[o] = __fmul_rn(g.lo, static_cast<float>(span));
+        valid_out[o] = 1;
+        tmax = fmaxf(tmax, tt);
+      } else {
+        t_out[o] = 0.0f;
+        dt_out[o] = 0.0f;
+        valid_out[o] = 0;
+      }
+    }
+    n_valid += __popc(__ballot_sync(FULL, v));
   }
-  for (; slot < K; ++slot) {
-    t_out[base + slot] = 0.0f;
-    dt_out[base + slot] = 0.0f;
-    valid_out[base + slot] = 0;
-  }
+  for (int off = 16; off > 0; off >>= 1)
+    tmax = fmaxf(tmax, __shfl_xor_sync(FULL, tmax, off));
   *t_last = tmax;
   return n_valid;
 }
@@ -281,16 +349,20 @@ __device__ __forceinline__ void load_ray(SvRay& r, const float* __restrict__ o,
   }
 }
 
-__global__ void march_sv_train_kernel(
+__global__ void __launch_bounds__(WARPS * 32) march_sv_train_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ hits_t, const uint8_t* __restrict__ sv_mask,
     const int* __restrict__ payload, const float* __restrict__ noise, int N,
     int K, int tail_k, Geo g, float S_lo, float* __restrict__ t_out,
     float* __restrict__ dt_out, uint8_t* __restrict__ valid_out,
     int* __restrict__ count_out, int* __restrict__ sums) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  int rm = 0, cut = 0;
-  if (n < N) {
+  extern __shared__ float smem[];
+  __shared__ int block_sums[2];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int n = blockIdx.x * WARPS + wib;
+  if (threadIdx.x == 0) block_sums[0] = block_sums[1] = 0;
+  __syncthreads();
+  if (n < N) {   // warp-uniform
     SvRay r;
     load_ray(r, rays_o, rays_d, n);
     const float t1 = hits_t[2 * n], t2 = hits_t[2 * n + 1];
@@ -299,33 +371,38 @@ __global__ void march_sv_train_kernel(
     r.t_end = r.hit ? fminf(t2, __fadd_rn(r.t0, S_lo)) : -CUDART_INF_F;
     int iv_extra;
     float scan_end, t_last;
-    rm = sv_scan_ray(r, g, K, tail_k, sv_mask, payload,
-                     static_cast<size_t>(n) * K, t_out, dt_out, valid_out,
-                     &iv_extra, &scan_end, &t_last);
-    count_out[n] = rm;
-    // a skipped occupied run biases the stratified set; under first-K only
-    // an under-filled ray lost samples (ray_march.py:580-588)
-    cut = r.hit && iv_extra > 0 && (tail_k > 0 || rm < K);
+    const int rm = sv_scan_ray(
+        r, g, K, tail_k, sv_mask, payload,
+        smem + wib * warp_words(g.Gc, g.RI, g.SI),
+        static_cast<size_t>(n) * K, t_out, dt_out, valid_out, &iv_extra,
+        &scan_end, &t_last);
+    if (lane == 0) {
+      count_out[n] = rm;
+      if (rm) atomicAdd(block_sums, rm);
+      // a skipped occupied run biases the stratified set; under first-K
+      // only an under-filled ray lost samples (ray_march.py:580-588)
+      if (r.hit && iv_extra > 0 && (tail_k > 0 || rm < K))
+        atomicAdd(block_sums + 1, 1);
+    }
   }
-  for (int off = 16; off > 0; off >>= 1) {
-    rm += __shfl_down_sync(0xffffffffu, rm, off);
-    cut += __shfl_down_sync(0xffffffffu, cut, off);
-  }
-  if ((threadIdx.x & 31) == 0) {
-    if (rm) atomicAdd(sums, rm);
-    if (cut) atomicAdd(sums + 1, cut);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (block_sums[0]) atomicAdd(sums, block_sums[0]);
+    if (block_sums[1]) atomicAdd(sums + 1, block_sums[1]);
   }
 }
 
-__global__ void march_sv_test_round_kernel(
+__global__ void __launch_bounds__(WARPS * 32) march_sv_test_round_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ cursor, const float* __restrict__ t_far,
     const uint8_t* __restrict__ alive, const uint8_t* __restrict__ sv_mask,
     const int* __restrict__ payload, int N, int K, Geo g,
     float* __restrict__ t_out, float* __restrict__ dt_out,
     uint8_t* __restrict__ valid_out, float* __restrict__ cursor_out) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
+  const int n = blockIdx.x * WARPS + wib;
+  if (n >= N) return;   // the whole warp leaves together
   SvRay r;
   load_ray(r, rays_o, rays_d, n);
   const float cur = cursor[n];
@@ -334,20 +411,38 @@ __global__ void march_sv_test_round_kernel(
   r.t_end = r.hit ? t_far[n] : -CUDART_INF_F;
   int iv_extra;
   float scan_end, t_last;
-  const int found = sv_scan_ray(r, g, K, 0, sv_mask, payload,
-                                static_cast<size_t>(n) * K, t_out, dt_out,
-                                valid_out, &iv_extra, &scan_end, &t_last);
+  const int found = sv_scan_ray(
+      r, g, K, 0, sv_mask, payload, smem + wib * warp_words(g.Gc, g.RI, g.SI),
+      static_cast<size_t>(n) * K, t_out, dt_out, valid_out, &iv_extra,
+      &scan_end, &t_last);
+  if (lane != 0) return;
   if (!r.hit) {
     cursor_out[n] = cur;
-    return;
-  }
-  if (found >= K) {   // one lattice step past the last sample (round half even)
+  } else if (found >= K) {   // one lattice step past the last sample
+    // (round half even)
     const float k_last = rintf(__fdiv_rn(__fsub_rn(t_last, r.t0), g.lo));
     cursor_out[n] = __fadd_rn(r.t0, __fmul_rn(__fadd_rn(k_last, 1.0f), g.lo));
-  } else {            // the first lattice point at or after the horizon
+  } else {                   // the first lattice point at or after the horizon
     const float k = ceilf(__fdiv_rn(fmaxf(__fsub_rn(scan_end, r.t0), 0.0f), g.lo));
     cursor_out[n] = __fadd_rn(r.t0, __fmul_rn(k, g.lo));
   }
+}
+
+// The warps' shared memory in bytes, with the opt-in above 48 KB set on
+// every launch (it holds per device); 0 if the geometry is refused.
+template <class Kern>
+size_t shared_bytes(Kern kernel, const Geo& g, int* err) {
+  *err = 0;
+  if (g.RI > SV_MAX_RI || g.RI < 1 || g.G % 8 || g.SI < 1) {
+    *err = static_cast<int>(cudaErrorInvalidValue);
+    return 0;
+  }
+  const size_t bytes = sizeof(float) * WARPS * warp_words(g.Gc, g.RI, g.SI);
+  if (bytes > 48 * 1024)
+    *err = static_cast<int>(cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes)));
+  return bytes;
 }
 
 }  // namespace
@@ -359,10 +454,11 @@ extern "C" int march_sv_train(const void* rays_o, const void* rays_d,
                               float lo, float S_lo, float mb, float sv,
                               void* t_out, void* dt_out, void* valid_out,
                               void* count_out, void* sums, cudaStream_t stream) {
-  if (RI > SV_MAX_RI || RI < 1 || G % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const Geo g{G, G / 8, S, RI, SI, lo, mb, sv};
-  const int threads = 64;
-  march_sv_train_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
+  const Geo g{G, G / 8, S, RI, SI, lo, mb, sv, pow2_inverse(mb)};
+  int err;
+  const size_t bytes = shared_bytes(march_sv_train_kernel, g, &err);
+  if (err) return err;
+  march_sv_train_kernel<<<ncn_blocks(N, WARPS), WARPS * 32, bytes, stream>>>(
       static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
       static_cast<const float*>(hits_t), static_cast<const uint8_t*>(sv_mask),
       static_cast<const int*>(sv_payload), static_cast<const float*>(noise), N,
@@ -380,10 +476,12 @@ extern "C" int march_sv_test_round(const void* rays_o, const void* rays_d,
                                    float sv, void* t_out, void* dt_out,
                                    void* valid_out, void* cursor_out,
                                    cudaStream_t stream) {
-  if (RI > SV_MAX_RI || RI < 1 || G % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const Geo g{G, G / 8, S, RI, SI, lo, mb, sv};
-  const int threads = 64;
-  march_sv_test_round_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
+  const Geo g{G, G / 8, S, RI, SI, lo, mb, sv, pow2_inverse(mb)};
+  int err;
+  const size_t bytes = shared_bytes(march_sv_test_round_kernel, g, &err);
+  if (err) return err;
+  march_sv_test_round_kernel<<<ncn_blocks(N, WARPS), WARPS * 32, bytes,
+                               stream>>>(
       static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
       static_cast<const float*>(cursor), static_cast<const float*>(t_far),
       static_cast<const uint8_t*>(alive), static_cast<const uint8_t*>(sv_mask),

@@ -173,7 +173,7 @@ MARCH = Kernel("march_bootstrap", "march.cu",
 TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F, I])
 TRIPLANE_BWD = Kernel("triplane_bwd", "triplane.cu",
-                      [P, P, P, P, I, I, I, I, I, I, F, F])
+                      [P, P, P, P, I, I, I, I, I, I, F, F, I])
 COMPOSITE_FWD = Kernel("composite_fwd", "composite.cu",
                        [P, P, P, P, P, P, I, I, I, F, P, P, P, P, P])
 COMPOSITE_BWD = Kernel("composite_bwd", "composite.cu",

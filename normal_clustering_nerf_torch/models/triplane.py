@@ -10,7 +10,9 @@ The tables convert 1:1 from JAX parameters.
 
 `triplane_encode` launches kernel H2 (`csrc/triplane.cu`) for CUDA
 tensors, forward and backward, and runs `encode_plain` /
-`encode_grad_plain` for CPU tensors.
+`encode_grad_plain` for CPU tensors. The cotangent arrives in the compute
+dtype, f32 or bf16: H2 reads it as it is, the plain version casts it to
+f32 first.
 """
 from __future__ import annotations
 
@@ -185,35 +187,49 @@ def encode_kernel(planes, grid3d, x, spec: TriplaneSpec, bf16: bool):
 
 
 def encode_grad_kernel(x, g, spec: TriplaneSpec, plane_shape, grid_shape):
+    """H2's backward: the table gradients of g ((M, 3Fp+Fg) in f32 or bf16,
+    read in its own dtype), zeroed f32 tables with the corner terms added
+    a cell a warp instruction."""
     geo = _kernel_geometry(spec)
     M, dev, f32 = x.shape[0], x.device, torch.float32
+    if g.dtype not in (f32, torch.bfloat16):
+        raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
     args = [kernels.check(x, "x", f32, (M, 3), dev),
-            kernels.check(g, "g", f32, (M, spec.out_dim), dev)]
+            kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)]
     d_planes = torch.zeros(plane_shape, dtype=f32, device=dev)
     d_grid = torch.zeros(grid_shape, dtype=f32, device=dev)
     if M > 0:
         kernels.TRIPLANE_BWD.launch(*args, kernels.ptr(d_planes),
-                                    kernels.ptr(d_grid), M, *geo, device=dev)
+                                    kernels.ptr(d_grid), M, *geo,
+                                    int(g.dtype == torch.bfloat16),
+                                    device=dev)
     return d_planes, d_grid
 
 
 class TriplaneEncode(torch.autograd.Function):
-    """Table gradients only (need_dx=False: no extrinsic optimisation)."""
+    """Table gradients only (need_dx=False: no extrinsic optimisation).
+    The encode folds bf16 rows when `out_dtype` (the compute dtype) is
+    bf16, and its output is cast to `out_dtype` here, so that the
+    cotangent comes back in it: H2's backward reads a bf16 cotangent as it
+    is, the plain version casts it to f32."""
 
     @staticmethod
-    def forward(ctx, planes, grid3d, x, spec, bf16):
+    def forward(ctx, planes, grid3d, x, spec, out_dtype):
         ctx.save_for_backward(x)
         ctx.spec = spec
         ctx.shapes = (planes.shape, grid3d.shape)
         fn = encode_kernel if x.is_cuda else encode_plain
-        return fn(planes, grid3d, x, spec, bf16)
+        return fn(planes, grid3d, x, spec,
+                  out_dtype == torch.bfloat16).to(out_dtype)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        fn = encode_grad_kernel if x.is_cuda else encode_grad_plain
-        d_planes, d_grid = fn(x, g.to(torch.float32).contiguous(), ctx.spec,
-                              *ctx.shapes)
+        if x.is_cuda:
+            fn, g = encode_grad_kernel, g.contiguous()
+        else:
+            fn, g = encode_grad_plain, g.to(torch.float32)
+        d_planes, d_grid = fn(x, g, ctx.spec, *ctx.shapes)
         return d_planes, d_grid, None, None, None
 
 
@@ -227,7 +243,5 @@ def triplane_encode(params: Dict[str, torch.Tensor], x: torch.Tensor,
         raise NotImplementedError(
             "position gradients (extrinsic optimisation) are not ported "
             "(ROADMAP A16)")
-    bf16 = compute_dtype == torch.bfloat16
-    out = TriplaneEncode.apply(params["planes"], params["grid3d"],
-                               x.contiguous(), spec, bf16)
-    return out.to(compute_dtype)
+    return TriplaneEncode.apply(params["planes"], params["grid3d"],
+                                x.contiguous(), spec, compute_dtype)

@@ -681,6 +681,45 @@ def sv_intervals_plain(rays_o, rays_d, t0, t_end, hit, sv_mask, *, scale,
                 ivalid=ivalid, iv_extra=occ_iv.sum(-1) - ivalid.sum(-1))
 
 
+SV_RAY_KINDS = ("axis", "tie", "late", "over", "reenter")
+
+
+def sv_ray_kinds(rays_o, rays_d, t0, t_end, hit, sv_mask, *, scale,
+                 grid_size, RI):
+    """How many rays of each kind in SV_RAY_KINDS a batch holds, from the
+    plain phase A: "axis", a hit ray with a component below 1e-9 (its
+    crossings divide by 1e-9); "tie", in-range crossings of two axes at
+    one t; "late", a hit ray with t0 >= t_end; "over", more occupied
+    pieces than RI; "reenter", an occupied piece whose predecessor is
+    invalid and whose last valid predecessor has its supervoxel. The
+    cases kernel K1's phase A must get right, counted so that a test set
+    can show it holds each."""
+    A = sv_intervals_plain(rays_o, rays_d, t0, t_end, hit, sv_mask,
+                           scale=scale, grid_size=grid_size, RI=RI)
+    Gc, mb, sv, _ = _sv_geometry(scale, grid_size, 1.0)
+    dev, nan = rays_o.device, float("nan")
+    jj = torch.arange(Gc + 1, dtype=torch.float32, device=dev)
+    den = torch.where(rays_d.abs() < 1e-9, torch.full_like(rays_d, 1e-9),
+                      rays_d)
+    tb = ((jj * sv - mb)[None, None, :] - rays_o[:, :, None]) / den[:, :, None]
+    tb = torch.where((tb > t0[:, None, None]) & (tb < t_end[:, None, None]),
+                     tb, torch.full_like(tb, nan))
+    tie = torch.zeros_like(hit)
+    for a, b in ((0, 1), (0, 2), (1, 2)):
+        tie |= (tb[:, a, :, None] == tb[:, b, None, :]).flatten(1).any(1)
+    valid, sv_id = A["iv_valid"], A["sv_id"]
+    idx = torch.arange(valid.shape[1], device=dev).expand_as(sv_id)
+    last = torch.cummax(torch.where(valid, idx, -1), 1).values
+    prev = torch.cat([torch.full_like(last[:, :1], -1), last[:, :-1]], 1)
+    same = torch.gather(sv_id, 1, prev.clamp(min=0)) == sv_id
+    gap = torch.cat([torch.zeros_like(valid[:, :1]), ~valid[:, :-1]], 1)
+    occ = valid & (sv_mask[sv_id] > 0)
+    return dict(axis=int((hit & (rays_d.abs() < 1e-9).any(1)).sum()),
+                tie=int(tie.sum()), late=int((hit & (t0 >= t_end)).sum()),
+                over=int((A["iv_extra"] > 0).sum()),
+                reenter=int((occ & gap & (prev >= 0) & same).any(1).sum()))
+
+
 def sv_scan_plain(rays_o, rays_d, t0, t_end, hit, sv_mask, sv_payload, *,
                   scale, grid_size, K, S, lo, RI, tail_k=0):
     """Plain PyTorch version of kernel K1: the JAX `_sv_scan`

@@ -77,8 +77,8 @@ def test_table_gradients_match_jax_vjp(bf16):
     ref = vjp(J(g))[0]
     tp = _tparams(params)
     out = tt.TriplaneEncode.apply(tp["planes"], tp["grid3d"], T(x), spec_t,
-                                  bf16)
-    out.backward(T(g))
+                                  torch.bfloat16 if bf16 else torch.float32)
+    out.backward(T(g).to(out.dtype))
     for k in ("planes", "grid3d"):
         r = np.asarray(ref[k], np.float32)
         if bf16:
