@@ -20,14 +20,20 @@ Phases (any failed check raises, so the script exits non-zero):
      those inputs, gradients included; H3 and H4 also at sigmas scaled up
      per ray, so that rays terminate early and sigma*delta reaches its
      clip; H2's backward also under a bf16 cotangent read as bf16, with no
-     entry -0.0. On a random 20% occupancy with solid blocks: K1 (the sv
-     march: its training launcher on the batch, its test-round launcher on
-     the 65,536 rays of the 4 held-out views, three rounds), where rays
-     exceed the 24-interval budget, and both launchers on an adversarial
-     set (axis-parallel rays, tied crossings at supervoxel edges and
-     corners, t0 at or past t_end, more occupied runs than the budget with
-     and without the stratified tail, a supervoxel re-entered across an
-     invalid piece; every kind must occur); H9 (the bitfield march over 1024 steps, and
+     entry -0.0; H2's forward with f32 and bf16 rows and f32 and bf16
+     output, also on the batch cut to a ragged last tile, to one sample
+     and to none, and with every sample in one cell; a model of the
+     lines and sectors each warp load of H2's forward touches, worked out
+     from the mapping of lanes to loads (not read from hardware counters),
+     for a thread a sample (the baseline) and for the kernel's own (a warp
+     a table, lane = term). On a random 20% occupancy with solid blocks:
+     K1 (the sv march: its training launcher on the batch, its test-round
+     launcher on the 65,536 rays of the 4 held-out views, three rounds),
+     where rays exceed the 24-interval budget, and both launchers on an
+     adversarial set (axis-parallel rays, tied crossings at supervoxel
+     edges and corners, t0 at or past t_end, more occupied runs than the
+     budget with and without the stratified tail, a supervoxel re-entered
+     across an invalid piece; every kind must occur); H9 (the bitfield march over 1024 steps, and
      the two-level march with a 4-block budget, where rays truncate), H11
      (the flat budget, and half of it), H10 (three rounds of each mode over
      the held-out rays, and the full window at the Pallas probe P2's
@@ -52,7 +58,9 @@ Phases (any failed check raises, so the script exits non-zero):
      recovery done. From the counts of phases 3 and 5, each launcher's
      launches in one bench run (512 bootstrap steps, 3488 sv steps, 4
      renders). Then H2's backward on one more training step's own bf16
-     cotangent, captured from autograd, with no entry -0.0;
+     cotangent, captured from autograd, with no entry -0.0, and H2's
+     forward (checks and modelled warp load counts) on that step's
+     positions;
   then the bitfield path (the triplane bench configuration with
   march_coarse False: 576 counted steps, H9 64 times and K1 never, and
   `validate` through bitfield bucket rounds, H10), the flat path
@@ -66,10 +74,14 @@ Phases (any failed check raises, so the script exits non-zero):
   cotangent, and with every sample inside one cell of level 0; no
   gradient entry -0.0) and on every cell of the grid (the refresh's
   shape), H5 also at the shape of the Pallas probe P4 (the (16, 8192,
-  128) table, 262,144 points); the step parity at the CPU tests' size;
-  576 counted steps through `Trainer.fit` (H5/H6 or H7/H8, H1, H3, H4 and
-  K1 must launch); the table gradient on the cotangent of one more
-  training step, captured from autograd with its zero rows; `validate`;
+  128) table, 262,144 points), H7 bit for bit also on the ragged, one-
+  and no-sample cuts and the one-cell input, with its modelled warp
+  load counts, and a table 8 bytes off 16-byte alignment refused;
+  the step parity at the CPU tests' size; 576 counted steps through
+  `Trainer.fit` (H5/H6 or H7/H8, H1, H3, H4 and K1 must launch); the
+  table gradient on the cotangent of one more training step, captured
+  from autograd with its zero rows, and H7 on that step's positions;
+  `validate`;
   every launcher must have launched on some path;
   6. for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
@@ -77,8 +89,9 @@ Phases (any failed check raises, so the script exits non-zero):
      `index_add_` of its backward's terms; for H5 also at P4's shape, for
      H10 P2's probe at P2's block) by CUDA events (`device_ms`); H2, H6
      and H8 also on the training step's cotangent, and their gradient
-     tables' zero fill alone; and the kernels ranked by the device time a
-     bench run loses to their bound, bench launches x (ms - bound).
+     tables' zero fill alone; H2's and H7's forward also on the sv step's
+     positions and at the refresh shape, with the modelled warp load
+     counts logged beside the times.
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -207,6 +220,47 @@ class Check:
         if bad:
             self.failures.append(name)
         return 0.0 if not bad else float((got.float() - ref.float()).abs().max())
+
+    def bf16_flips(self, name, got, ref, got_f32, rtol_of_max):
+        """A bf16 output `got` against the plain f32 sum `ref`: it must be
+        the kernel's own f32 sum `got_f32` rounded once, so it equals `ref`
+        rounded to bf16 but for flips where the two f32 sums differ. A flip
+        must stay within one bf16 ulp (2^-7 of the larger value) plus the
+        f32 sums' tolerance (`rtol_of_max` of the largest |ref|), which
+        covers a sum near 0 whose sign the summation order decides.
+        Counted: the flips, and those between adjacent bf16 values.
+        Returns the largest error."""
+        want = ref.to(torch.bfloat16)
+        gf, wf = got.float(), want.float()
+        diff = got != want
+        tol = rtol_of_max * ref.abs().max().item() if ref.numel() else 0.0
+        lim = 2.0 ** -7 * torch.maximum(gf.abs(), wf.abs()) + tol
+        bits = [torch.where(t == 0, 0, t.view(torch.int16).int())
+                for t in (got, want)]
+        adjacent = int((diff & ((bits[0] - bits[1]).abs() == 1)).sum())
+        bad = int((got != got_f32.to(torch.bfloat16)).sum()
+                  + (diff & ((got_f32 == ref) | ((gf - wf).abs() > lim)))
+                  .sum())
+        ok = not bad and bool(torch.isfinite(gf).all())
+        err = (gf - wf).abs().max().item() if got.numel() else 0.0
+        log(f"  {name}: {int(diff.sum())} of {ref.numel()} flips where the "
+            f"f32 sums differ ({adjacent} between adjacent bf16 values), "
+            f"{bad} other differences, max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failures.append(name)
+        return err
+
+    def refused(self, name, fn):
+        """`fn` must raise ValueError (a wrapper's check, before launch)."""
+        try:
+            fn()
+            ok = False
+        except ValueError:
+            ok = True
+        log(f"  {name}: {'refused ok' if ok else 'not refused FAIL'}")
+        if not ok:
+            self.failures.append(name)
 
     def no_negative_zero(self, name, t):
         """A table gradient starts at +0.0 and only adds: no entry may be
@@ -408,6 +462,183 @@ def triplane_terms(x, g, spec):
             torch.cat([t.reshape(-1) for t in upd]))
 
 
+# ---------------------------------------------------------------- step 1
+# What a warp load instruction costs the L1: one tag lookup for each
+# distinct 128-byte line its active lanes touch, and one request for each
+# distinct 32-byte sector. The counts below are a model, not a reading of
+# hardware counters: they restate in torch each forward encode's mapping
+# of lanes to table loads (only the gathers are counted) and apply it to
+# the real inputs. "thread" is the baseline mapping, a thread a sample
+# (H2) or a (sample, level) (H7), as those kernels were first written;
+# "tile" is the kernels' own, and must be changed together with
+# `csrc/triplane.cu` and `csrc/hash_grid.cu`, which nothing here checks.
+# On the H100 the forwards' times followed the sectors, not the lines
+# (PERF.md, section 6).
+LINE, SECTOR = 128, 32
+GRID_BASE = 1 << 40   # grid3d's byte addresses, apart from the planes'
+
+
+def distinct_per_instruction(addr, active, chunk=1 << 18):
+    """addr, active: (n, 32) byte addresses and masks of the lanes of n warp
+    load instructions. Returns (lines, sectors): the distinct 128-byte lines
+    and 32-byte sectors of each instruction's active lanes, summed."""
+    n = {LINE: 0, SECTOR: 0}
+    for i in range(0, addr.shape[0], chunk):
+        a, m = addr[i:i + chunk], active[i:i + chunk]
+        for unit in n:
+            s = torch.sort(torch.where(m, a // unit, -1), dim=1).values
+            n[unit] += int((s[:, 0] >= 0).sum()
+                           + ((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0))
+                           .sum())
+    return n[LINE], n[SECTOR]
+
+
+def lanes_of(rows_per_sample, tile=32):
+    """(M, ...) -> (ceil(M/32), 32, ...) with the padding lanes inactive:
+    32 consecutive samples, one a lane."""
+    M = rows_per_sample.shape[0]
+    pad = -M % tile
+    a = torch.cat([rows_per_sample, rows_per_sample[:pad].new_zeros(
+        (pad,) + rows_per_sample.shape[1:])])
+    act = torch.arange(M + pad, device=a.device) < M
+    return (a.reshape(-1, tile, *a.shape[1:]),
+            act.reshape(-1, tile))
+
+
+def hash_grid_rows(x, spec):
+    """(M, L, 8) absolute table rows of the 8 corners of every level."""
+    from normal_clustering_nerf_torch.models.hash_encoding import (
+        level_corners)
+    return torch.stack([level_corners(x, spec, l)[0]
+                        for l in range(spec.n_levels)], 1)
+
+
+def hash_grid_warp_loads(rows, dense, mapping):
+    """The table loads of H7 as (addr, active) of (n, 32) lanes.
+    "thread": a thread a (sample, level), i = m*L + l, 8 float2 loads;
+    "tile": a warp a (tile of 32 samples, level), lane = sample; for each
+    of the 4 corner pairs (z neighbours at a dense level, x neighbours at
+    a hashed one) the float4 of the first row's aligned pair, then a
+    float2 of the second row in the lanes where it lies elsewhere."""
+    M, L, _ = rows.shape
+    if mapping == "thread":
+        a, act = lanes_of(rows.reshape(M * L, 8) * 8)      # (W, 32, 8)
+        return (a.permute(0, 2, 1).reshape(-1, 32),
+                act[:, None, :].expand(-1, 8, -1).reshape(-1, 32))
+    a, act = lanes_of(rows)                                  # (T, 32, L, 8)
+    addr, acts = [], []
+    for l in range(L):
+        S = 1 if dense[l] else 4
+        for k in range(4):
+            ca = 2 * k if S == 1 else k
+            ra, rb = a[:, :, l, ca], a[:, :, l, ca ^ S]
+            addr += [(ra >> 1) * 16, rb * 8]
+            acts += [act, act & ((ra >> 1) != (rb >> 1))]
+    return torch.stack(addr, 1).reshape(-1, 32), torch.stack(acts, 1).reshape(
+        -1, 32)
+
+
+def triplane_lanes(x, spec):
+    """(M, 4, 32) flat value offsets H2 reads for each (sample, table), in
+    the forward's lane order (feature, corner); grid3d's from GRID_BASE."""
+    from normal_clustering_nerf_torch.models.triplane import (
+        PLANES, _lanes, grid_corners, plane_corners)
+    out = []
+    for pi, (a, b) in enumerate(PLANES):
+        row, slots, _ = plane_corners(torch.stack((x[:, a], x[:, b]), 1),
+                                      spec)
+        out.append(_lanes(pi * spec.nb2 ** 2 + row, slots, spec.plane_feats,
+                          128, 16).reshape(-1, 32))
+    row, slots, _ = grid_corners(x, spec)
+    out.append(GRID_BASE // 4 + _lanes(row, slots, spec.grid3d_feats,
+                                       64 * spec.grid3d_feats, 64)
+               .reshape(-1, 32))
+    return torch.stack(out, 1)
+
+
+def triplane_warp_loads(lanes, mapping):
+    """The table loads of H2 as (addr, active) of (n, 32) lanes.
+    "thread": a thread a sample, 128 scalar loads (table, feature, corner);
+    "tile": a warp a (tile, table), lane = term, one load a sample."""
+    M = lanes.shape[0]
+    if mapping == "thread":
+        a, act = lanes_of(lanes.reshape(M, 128) * 4)        # (W, 32, 128)
+        return (a.permute(0, 2, 1).reshape(-1, 32),
+                act[:, None, :].expand(-1, 128, -1).reshape(-1, 32))
+    return (lanes.reshape(-1, 32) * 4,
+            torch.ones((M * 4, 32), dtype=torch.bool, device=lanes.device))
+
+
+def warp_load_counts(layout, x, spec):
+    """{mapping: (instructions, lines, sectors), "M": samples} of the
+    forward encode of `x` (H2 for the triplane field, H7 for tcnn)."""
+    if layout == "triplane":
+        lanes = triplane_lanes(x, spec)
+        loads = {m: triplane_warp_loads(lanes, m) for m in ("thread", "tile")}
+    else:
+        rows = hash_grid_rows(x, spec)
+        loads = {m: hash_grid_warp_loads(rows, spec.dense, m)
+                 for m in ("thread", "tile")}
+    out = {m: (int(act.any(1).sum()), *distinct_per_instruction(a, act))
+           for m, (a, act) in loads.items()}
+    out["M"] = x.shape[0]
+    return out
+
+
+def log_counts(name, where, counts):
+    """counts: {"M": samples, mapping: (instructions, lines, sectors)}."""
+    M = max(counts["M"], 1)
+    maps = {m: c for m, c in counts.items() if m != "M"}
+    log(f"  {name} warp table loads on {where} (M={counts['M']}; modelled "
+        f"from each mapping, not read from hardware counters): "
+        + "; ".join(f"{m}: {i} instructions, {ln} lines ({ln / M:.2f} a "
+                    f"sample), {s} sectors ({s / M:.2f} a sample)"
+                    for m, (i, ln, s) in maps.items()))
+
+
+def edge_inputs(x, xc):
+    """The forward encodes' extra inputs: the batch cut to a ragged last
+    tile, to one sample and to none, and `xc` (all samples in one cell)."""
+    M = x.shape[0]
+    return ((f"M={M - 7}", x[:M - 7]), ("M=1", x[:1]), ("M=0", x[:0]),
+            ("one cell", xc))
+
+
+def check_triplane_fwd(chk, planes, grid3d, x, spec, where):
+    """H2's forward against its plain version on `x`, with f32 and bf16
+    rows and f32 and bf16 output: f32 output within 2e-6 of the largest
+    value (the 4 or 8 corner products summed in another order than
+    torch's sum); bf16 output its own f32 sum rounded once, so equal to
+    the plain f32 sum rounded to bf16 but for flips where the two f32 sums
+    differ (`Check.bf16_flips`, counted). Returns the largest error."""
+    from normal_clustering_nerf_torch.models import triplane as tp
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = []
+    for rows_bf16 in (False, True):
+        ref = tp.encode_plain(planes, grid3d, x, spec, rows_bf16)
+        got = tp.encode_kernel(planes, grid3d, x, spec, rows_bf16, f32)
+        tag = f"H2 fwd {where}, rows bf16={rows_bf16}"
+        errs.append(chk.close(f"{tag}, f32 out", got, ref, 2e-6))
+        gotb = tp.encode_kernel(planes, grid3d, x, spec, rows_bf16, bf16)
+        errs.append(chk.bf16_flips(f"{tag}, bf16 out", gotb, ref, got,
+                                   2e-6))
+    return max(errs)
+
+
+def check_hash_grid_fwd(chk, table, x, spec, where):
+    """H7 against its plain version on `x` in f32 and bf16 output: bit for
+    bit (the plain version sums the 8 corner products in the kernel's
+    order, each op rounded, no FMA either side). Returns the largest
+    error."""
+    from normal_clustering_nerf_torch.models import hash_encoding as he
+    errs = []
+    for dt in (torch.float32, torch.bfloat16):
+        got = he.encode_kernel(table, x, spec, dt)
+        errs.append(chk.equal(f"H7 {where}, {dt} out", got,
+                              he.encode_plain(table, x, spec).to(dt)))
+    return max(errs)
+
+
 def check_kernels(tr, gen):
     """Phase 2: H1-H4 against their plain versions on the main path's
     inputs. Returns {launcher name: record} with the largest error, the
@@ -458,13 +689,15 @@ def check_kernels(tr, gen):
     M = x.shape[0]
     log(f"H2 triplane: M={M}, planes {tuple(planes.shape)}, "
         f"grid3d {tuple(grid3d.shape)}")
-    # 4 (8) products summed in another order: a few f32 ulps of the row
-    errs = []
-    for rows_bf16 in (False, True):
-        ref = tp.encode_plain(planes, grid3d, x, spec, rows_bf16)
-        errs.append(chk.close(f"encode bf16={rows_bf16}",
-                              tp.encode_kernel(planes, grid3d, x, spec,
-                                               rows_bf16), ref, 2e-6))
+    # every sample inside one plane cell and one grid3d cell at the middle
+    # (drawn apart, so that the later checks keep their inputs)
+    own = torch.Generator(device=x.device).manual_seed(8)
+    xc = 0.5 + (0.9 / (spec.plane_res - 1)) * (
+        torch.rand((M, 3), generator=own, device=x.device) - 0.5)
+    errs = [check_triplane_fwd(chk, planes, grid3d, xx, spec, where)
+            for where, xx in (("batch", x),) + edge_inputs(x, xc)]
+    counts = warp_load_counts("triplane", x, spec)
+    log_counts("H2", "the bootstrap batch", counts)
     g = torch.randn((M, spec.out_dim), generator=gen, device=x.device)
     shapes = (planes.shape, grid3d.shape)
     gerrs = []
@@ -484,7 +717,8 @@ def check_kernels(tr, gen):
     out_dim = spec.out_dim
     fwd_flops = M * (3 * (4 + spec.plane_feats * 4 * 2)
                      + (16 + spec.grid3d_feats * 8 * 2))
-    compute_bf16 = tr.model.compute_dtype == bf16
+    out_dt = tr.model.compute_dtype
+    compute_bf16 = out_dt == bf16
     # the yardsticks: the 128-value rows H2 reads (3 plane rows and the 2
     # halves of a grid3d row a sample) by one index_select of a table of
     # all rows, and H2's 128 terms a sample by one index_add_ into a flat
@@ -492,14 +726,21 @@ def check_kernels(tr, gen):
     rows, lanes, upd = triplane_terms(x, g, spec)
     all_rows = torch.cat([planes.reshape(-1, 128), grid3d.reshape(-1, 128)])
     d_lib = torch.zeros(all_rows.numel(), dtype=f32, device=x.device)
+    # the occupancy refresh's shape: every cell of the 128^3 grid
+    xr = torch.rand((tr.cfg.model.grid_size ** 3, 3), generator=gen,
+                    device=x.device)
     rec["triplane_fwd"] = dict(
-        err=max(errs),
+        err=max(errs), counts={"bootstrap batch": counts},
         kernel=(lambda: tp.encode_kernel(planes, grid3d, x, spec,
-                                         compute_bf16)),
+                                         compute_bf16, out_dt)),
         plain=(lambda: tp.encode_plain(planes, grid3d, x, spec,
-                                       compute_bf16)),
+                                       compute_bf16).to(out_dt)),
         library=(lambda: torch.index_select(all_rows, 0, rows)),
-        bound=bound(nbytes(x) + table_b + M * out_dim * 4, fwd_flops))
+        bound=bound(nbytes(x) + table_b
+                    + M * out_dim * (2 if compute_bf16 else 4), fwd_flops),
+        variants={f"refresh shape M={xr.shape[0]}": (
+            lambda: tp.encode_kernel(planes, grid3d, xr, spec, compute_bf16,
+                                     out_dt))})
     rec["triplane_bwd"] = dict(
         err=max(gerrs),
         kernel=(lambda: tp.encode_grad_kernel(x, g, spec, *shapes)),
@@ -508,12 +749,6 @@ def check_kernels(tr, gen):
         fill=(lambda: (torch.zeros(shapes[0], dtype=f32, device=x.device),
                        torch.zeros(shapes[1], dtype=f32, device=x.device))),
         bound=bound(nbytes(x, g) + nbytes(planes, grid3d), fwd_flops))
-    # the occupancy refresh's shape: every cell of the 128^3 grid
-    xr = torch.rand((tr.cfg.model.grid_size ** 3, 3), generator=gen,
-                    device=x.device)
-    rec["triplane_fwd"]["at_refresh_shape"] = (
-        xr.shape[0], lambda: tp.encode_kernel(planes, grid3d, xr, spec,
-                                              compute_bf16))
 
     # H3 and H4 at two inputs: the untrained field's sigmas (the main
     # path's; no ray reaches T_threshold there), and the same sigmas scaled
@@ -668,27 +903,44 @@ def check_encoding(tr, gen):
     chk = Check()
     log(f"{LABEL[fwd]}/{LABEL[bwd]} {layout} encode: M={M}, L={L}, table "
         f"{tuple(table.shape)}, dense levels {sum(spec.dense)}")
-    # the same operations in the same order as the plain version (no FMA
-    # either side): equal but for the last bit, 1e-6 of the largest value
-    errs = [chk.close(f"encode {dt}", mod.encode_kernel(table, x, spec, dt),
-                      mod.encode_plain(table, x, spec).to(dt), 1e-6)
-            for dt in (f32, bf16)]
     xr = torch.rand((tr.cfg.model.grid_size ** 3, 3), generator=gen,
                     device=x.device)
-    errs.append(chk.close(f"encode {out_dt}, refresh shape M={xr.shape[0]}",
-                          mod.encode_kernel(table, xr, spec, out_dt),
-                          mod.encode_plain(table, xr, spec).to(out_dt), 1e-6))
+    refresh = f"refresh shape M={xr.shape[0]}"
     g = torch.randn((M, spec.out_dim), generator=gen, device=x.device)
     # every sample inside the cell of level 0 at the middle of the grid
     s0, c0 = spec.scales[0], spec.resolutions[0] // 2
-    xc = (c0 - 0.45 + 0.9 * torch.rand((M, 3), generator=gen,
-                                        device=x.device)) / s0
+    xc = ((c0 - 0.45 + 0.9 * torch.rand((M, 3), generator=gen,
+                                         device=x.device)) / s0).contiguous()
+    if layout == "tcnn":
+        errs = [check_hash_grid_fwd(chk, table, xx, spec, where)
+                for where, xx in (("batch", x), (refresh, xr))
+                + edge_inputs(x, xc)]
+        counts = warp_load_counts(layout, x, spec)
+        log_counts(LABEL[fwd], "the bootstrap batch", counts)
+        # H7 reads row pairs as 16-byte words: a table 8 bytes off that
+        # alignment must be refused, not launched
+        off = torch.empty(table.numel() + 2, device=x.device)[2:]
+        chk.refused("H7, a table 8 bytes off 16-byte alignment",
+                    lambda: mod.encode_kernel(off.view(table.shape), x[:32],
+                                              spec, out_dt))
+    else:
+        # the same operations in the same order as the plain version (no
+        # FMA either side): equal but for the last bit, 1e-6 of the
+        # largest value
+        errs = [chk.close(f"encode {dt}",
+                          mod.encode_kernel(table, x, spec, dt),
+                          mod.encode_plain(table, x, spec).to(dt), 1e-6)
+                for dt in (f32, bf16)]
+        errs.append(chk.close(
+            f"encode {out_dt}, {refresh}",
+            mod.encode_kernel(table, xr, spec, out_dt),
+            mod.encode_plain(table, xr, spec).to(out_dt), 1e-6))
     gerrs = []
     for name, xx, gg in (
             ("f32 cotangent", x, g), ("bf16-rounded f32 cotangent", x,
                                       g.to(bf16).to(f32)),
             ("bf16 cotangent", x, g.to(bf16)),
-            ("one level-0 cell, f32 cotangent", xc.contiguous(), g)):
+            ("one level-0 cell, f32 cotangent", xc, g)):
         # float2 reductions in launch order, runs of a cell summed in
         # registers, vs index_add_: up to ~10^4 terms per value at the
         # coarse levels (M in the one-cell case), summed in another order
@@ -715,8 +967,8 @@ def check_encoding(tr, gen):
         library=(lambda: torch.index_select(src, 0, rows)),
         bound=bound(nbytes(x) + touched
                     + M * spec.out_dim * (2 if out_dt == bf16 else 4), ops),
-        at_refresh_shape=(xr.shape[0], lambda: mod.encode_kernel(
-            table, xr, spec, out_dt))),
+        variants={refresh: (
+            lambda: mod.encode_kernel(table, xr, spec, out_dt))}),
         bwd: dict(
         err=max(gerrs),
         kernel=(lambda: mod.encode_grad_kernel(x, g, spec)),
@@ -740,6 +992,8 @@ def check_encoding(tr, gen):
             bound=bound(nbytes(xp) + touched_encode_bytes(xp, spec, layout)
                         + P4_POINTS * spec.out_dim * 4,
                         P4_POINTS * L * ENCODE_OPS))
+    if layout == "tcnn":
+        rec[fwd]["counts"] = {"bootstrap batch": counts}
     chk.done(f"{layout} encode checks")
     return rec
 
@@ -770,10 +1024,13 @@ def step_cotangent(tr):
 def check_step_cotangent(tr, rec):
     """Each path after its training: the field's table gradient (H2, H6 or
     H8) against its plain version on the cotangent of one training step of
-    the trained field (`step_cotangent`), with no entry -0.0; the call is
-    kept in `rec` for `time_kernels`."""
+    the trained field (`step_cotangent`), with no entry -0.0; H2's and H7's
+    forward on that step's positions (the sv march's samples, which most
+    of a bench run's forward launches see), with their modelled warp load
+    counts;
+    the calls are kept in `rec` for `time_kernels`."""
     layout = tr.cfg.model.hash_layout
-    mod, bwd = encode_module(layout), FIELD_KERNELS[layout][1]
+    mod, (fwd, bwd) = encode_module(layout), FIELD_KERNELS[layout]
     x, g = step_cotangent(tr)
     spec = tr.model.spec
     if layout == "triplane":   # the tables' shapes; the 4 tables' columns
@@ -795,10 +1052,28 @@ def check_step_cotangent(tr, rec):
     for i, (a, b) in enumerate(zip(got, ref)):
         err = max(err, chk.close(f"table {i} (step cotangent)", a, b, 1e-4))
         chk.no_negative_zero(f"table {i} (step cotangent)", a)
-    chk.done(f"{LABEL[bwd]} on a step's cotangent")
     rec[bwd]["err"] = max(rec[bwd]["err"], err)
     rec[bwd]["step_cotangent"] = lambda: mod.encode_grad_kernel(x, g, spec,
                                                                 *extra)
+    out_dt, where = tr.model.compute_dtype, f"sv step M={x.shape[0]}"
+    if layout == "triplane":
+        planes, grid3d = (tr.model.hash_table[k].detach()
+                          for k in ("planes", "grid3d"))
+        bf16 = out_dt == torch.bfloat16
+        err = check_triplane_fwd(chk, planes, grid3d, x, spec, "sv step")
+        fn = lambda: mod.encode_kernel(planes, grid3d, x, spec, bf16, out_dt)
+    elif layout == "tcnn":
+        table = tr.model.hash_table.detach()
+        err = check_hash_grid_fwd(chk, table, x, spec, "sv step")
+        fn = lambda: mod.encode_kernel(table, x, spec, out_dt)
+    chk.done(f"{LABEL[bwd]} on a step's cotangent, {LABEL[fwd]} on its "
+             f"positions")
+    if layout in ("triplane", "tcnn"):
+        counts = warp_load_counts(layout, x, spec)
+        log_counts(LABEL[fwd], "an sv step's positions", counts)
+        rec[fwd]["err"] = max(rec[fwd]["err"], err)
+        rec[fwd]["counts"]["sv step"] = counts
+        rec[fwd]["variants"][where] = fn
 
 
 def random_occupancy(tr, gen, density=0.2):
@@ -1488,10 +1763,12 @@ def time_kernels(rec):
                 f"{r['step_cotangent_ms']:.4f} ms on a training step's; "
                 f"the zero fill alone {r['fill_ms']:.4f} ms, index_add_ "
                 f"{r['library_ms']:.4f} ms")
-        if "at_refresh_shape" in r:
-            M, fn = r.pop("at_refresh_shape")
-            log(f"  {name} at the refresh shape, M={M}: "
-                f"{device_ms(fn, f'{name} refresh', 5):.4f} ms")
+        for where, fn in r.pop("variants", {}).items():
+            ms = device_ms(fn, f"{name} {where}")
+            r.setdefault("variants_ms", {})[where] = ms
+            log(f"  {name} at the {where}: {ms:.4f} ms")
+        for where, c in r.pop("counts", {}).items():
+            log_counts(name, where, c)
         if "at_p4_shape" in r:
             p4 = r.pop("at_p4_shape")
             r["p4_ms"] = device_ms(p4["kernel"], f"{name} P4")
@@ -1732,7 +2009,8 @@ def main():
     log(f"phase 1: built {sorted(logs)} in {time.perf_counter() - t:.1f} s")
     for src, text in sorted(logs.items()):
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
                 log(f"  {src}: {line.strip()}")
 
     tr = build_trainer(bench_config(), device="cuda")
@@ -1877,7 +2155,8 @@ def main():
              "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
              "library_ms": r["library_ms"]}
-        o.update({key: r[key] for key in ("fill_ms", "step_cotangent_ms",
+        o.update({key: r[key] for key in ("variants_ms", "fill_ms",
+                                          "step_cotangent_ms",
                                           "p4_ms", "p4_library_ms",
                                           "p4_bound_ms", "p2_ms",
                                           "p2_library_ms", "p2_bound_ms")

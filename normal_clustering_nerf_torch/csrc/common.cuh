@@ -57,3 +57,47 @@ __device__ __forceinline__ void ncn_stage(const void* __restrict__ src, int n,
     dst[(e / width) * stride + e % width] = v;
   }
 }
+
+__device__ __forceinline__ unsigned ncn_pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// The inverse of ncn_stage: n values of shared-memory rows (`width` values
+// `stride` floats apart) written contiguously to dst as f32, or rounded
+// once to bf16 when BF16, by the block's threads tid < nt: 16-byte stores
+// where dst is 16-byte aligned.
+template <bool BF16>
+__device__ __forceinline__ void ncn_unstage(const float* src, int n, int width,
+                                            int stride, void* __restrict__ dst,
+                                            int tid, int nt) {
+  constexpr int PER16 = BF16 ? 8 : 4;
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int words = n / PER16;
+    for (int i = tid; i < words; i += nt) {
+      float v[PER16];
+#pragma unroll
+      for (int k = 0; k < PER16; ++k) {
+        const int e = i * PER16 + k;
+        v[k] = src[(e / width) * stride + e % width];
+      }
+      uint4 u;
+      if constexpr (BF16)
+        u = make_uint4(ncn_pack_bf16(v[0], v[1]), ncn_pack_bf16(v[2], v[3]),
+                       ncn_pack_bf16(v[4], v[5]), ncn_pack_bf16(v[6], v[7]));
+      else
+        u = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                       __float_as_uint(v[2]), __float_as_uint(v[3]));
+      reinterpret_cast<uint4*>(dst)[i] = u;
+    }
+    done = words * PER16;
+  }
+  for (int e = done + tid; e < n; e += nt) {
+    const float v = src[(e / width) * stride + e % width];
+    if constexpr (BF16)
+      static_cast<__nv_bfloat16*>(dst)[e] = __float2bfloat16_rn(v);
+    else
+      static_cast<float*>(dst)[e] = v;
+  }
+}

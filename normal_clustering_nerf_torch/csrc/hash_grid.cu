@@ -4,29 +4,42 @@
 // Replaces the JAX package's `hash_encode_vjp`
 // (normal_clustering_nerf_tpu/models/hash_encoding.py:133-248: forward
 // `_hash_encode_fwd_impl` :123-130, backward `_hash_vjp_bwd` :199-245 with
-// need_dx=False and the direct scatter).
+// need_dx=False and the direct scatter). No Pallas kernel: the repo's
+// Pallas probes (experiments/pallas_gather*.py) measured the brick
+// encode's gather and belong to H5.
 //
 // Layout: one (total_rows, 2) f32 table; level l's rows start at
-// level_offsets[l]. Per level, pos = x*scale + 0.5, p0 = floor(pos),
-// w = pos - p0; corner c = p0 + (cx, cy, cz), each axis clipped to
-// [0, res-1]; its row is (ix*res + iy)*res + iz when res^3 fits in the
-// level's table, else the tcnn XOR-prime hash with uint32 wraparound,
-// & (T-1); its weight (wx*wy)*wz from the unclipped fraction
-// (hash_encoding.py:99-120).
+// level_offsets[l], a multiple of 8. Per level, pos = x*scale + 0.5,
+// p0 = floor(pos), w = pos - p0; corner c = p0 + (cx, cy, cz), each axis
+// clipped to [0, res-1]; its row is (ix*res + iy)*res + iz when res^3
+// fits in the level's table, else the tcnn XOR-prime hash with uint32
+// wraparound, & (T-1); its weight (wx*wy)*wz from the unclipped fraction
+// (hash_encoding.py:99-120). pos is computed without FMA (--fmad=false,
+// __fmul_rn / __fadd_rn) so that floor(pos) and the weights are the
+// reference's.
 //
-// Forward (H7): one thread per (sample, level), thread i = m*L + l, so a
-// sample's 16 threads write its 32 outputs contiguously: 8 float2 loads of
-// the corners' rows and the blend in registers, in corner order; written
-// in f32 or rounded once to bf16. pos is computed without FMA
-// (--fmad=false, __fmul_rn / __fadd_rn) so that floor(pos) and the weights
-// are the reference's.
-//
-// Bound of the forward on the H100: memory latency. Each (sample, level)
-// reads 8 random 8-byte rows of a 45.7 MB table (fine levels hash corners
-// to unrelated rows: 8 sectors, where a brick level needs 1-4), with
-// about 50 integer and f32 operations between. The design keeps many
-// independent (sample, level) pairs in flight (256 threads a block, M*16
-// threads).
+// Forward (H7). What bounds it on the H100 (counts that `chip_smoke.py`'s
+// `warp_load_counts` models from each design's mapping of lanes to
+// loads, on the bench batch of 131,040 samples; no hardware counter): the
+// distinct 32-byte sectors that each warp load touches: the time follows
+// them (at ~120-140 G sectors a second), not the 128-byte lines.
+// Corner rows are random 8-byte rows of a 45.7 MB table (fine levels hash
+// the corners to unrelated rows). A thread per (sample, level), i = m*L
+// + l, sent each of its 8 float2 loads to 32 rows of 16 levels: 119.7
+// sectors a sample. Here a block takes TILE = 32 samples (x staged once
+// in shared memory, where the thread read it 16 times); a warp takes a
+// level, lane = sample, so a ray's samples that share a coarse cell share
+// its sectors in one load; and two corners whose rows lie in one aligned
+// row pair go as one float4 load: the z neighbours r, r + 1 at a dense
+// level when r is even, the x neighbours at a hashed level when ix is
+// even (x's prime is 1, so the rows are h and h ^ 1). 82.5 sectors a
+// sample are left: at a hashed level the other neighbours are unrelated
+// rows, and a pair that straddles a float4 still costs two loads of one
+// sector. The 8 corners' products and sums keep the thread's order, so
+// the output is bit for bit the thread's; the tile's 32 x 2L outputs are
+// staged in shared memory and written as 16-byte words, in f32 or rounded
+// once to bf16. 16 warps a block at 52-54 registers: capping the
+// registers for more blocks an SM spills and loses.
 //
 // Backward (H8): the table gradient, g[f] * w_c added to the 8 corner
 // rows x 2 features of a zeroed (total_rows, 2) f32 table, as tcnn does,
@@ -51,13 +64,13 @@ constexpr int F = 2;     // features per level: a row is one float2
 constexpr unsigned P1 = 2654435761u, P2 = 805459861u;   // tcnn primes
 
 // Rows (absolute, in the whole table) and weights of the 8 corners of
-// one (sample, level), in the operation order of `_level_corners`, and
-// the cell's key, its base vertex p0 before the clip (which fixes the
-// rows).
+// level l of the sample at x (its 3 coordinates), in the operation order
+// of `_level_corners`, and the cell's key, its base vertex p0 before the
+// clip (which fixes the rows).
 __device__ __forceinline__ void corners(const float* __restrict__ x,
                                         const int* __restrict__ levels,
-                                        int m, int l, int table_size,
-                                        int row[8], float w[8], int key[3]) {
+                                        int l, int table_size, int row[8],
+                                        float w[8], int key[3]) {
   const int4 lv = reinterpret_cast<const int4*>(levels)[l];
   const float scale = __int_as_float(lv.x);
   const int res = lv.y, dense = lv.z, offset = lv.w;
@@ -65,7 +78,7 @@ __device__ __forceinline__ void corners(const float* __restrict__ x,
   float f[3], omf[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    float pos = __fadd_rn(__fmul_rn(x[3 * m + a], scale), 0.5f);
+    float pos = __fadd_rn(__fmul_rn(x[a], scale), 0.5f);
     float p0f = floorf(pos);
     f[a] = __fsub_rn(pos, p0f);
     omf[a] = __fsub_rn(1.0f, f[a]);
@@ -93,34 +106,88 @@ __device__ __forceinline__ void corners(const float* __restrict__ x,
   }
 }
 
-__global__ void hash_grid_fwd_kernel(const float* __restrict__ table,
-                                     const float* __restrict__ x,
-                                     const int* __restrict__ levels,
-                                     void* __restrict__ out, int M, int L,
-                                     int table_size, int out_bf16) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(M) * L) return;
-  const int m = static_cast<int>(i / L), l = static_cast<int>(i % L);
-  int row[8], key[3];
-  float w[8];
-  corners(x, levels, m, l, table_size, row, w, key);
-  const float2* tab = reinterpret_cast<const float2*>(table);
-  float2 v[8];
+// The two halves of a float4 that holds rows 2k and 2k + 1: row r's.
+__device__ __forceinline__ float2 half_of(float4 q, int r) {
+  return (r & 1) ? make_float2(q.z, q.w) : make_float2(q.x, q.y);
+}
+
+// The 8 corners' rows as 4 pairs (a, a ^ S): S = 1 pairs the z neighbours
+// (a dense level), S = 4 the x neighbours (a hashed level, where x's prime
+// is 1). Each pair's first row comes as the float4 of its aligned row
+// pair, which holds the second row too when both share it; a lane whose
+// second row lies elsewhere loads it as a float2 (the other lanes are
+// masked off that load).
+template <int S>
+__device__ __forceinline__ void load_corners(const float* __restrict__ table,
+                                             const int row[8], float2 v[8]) {
+  float4 q[4];
+  float2 u[4];
 #pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = __ldg(tab + row[c]);
-  float a0 = 0.0f, a1 = 0.0f;
+  for (int k = 0; k < 4; ++k) {
+    const int a = S == 1 ? 2 * k : k;
+    q[k] = __ldg(reinterpret_cast<const float4*>(table) + (row[a] >> 1));
+  }
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    a0 = __fadd_rn(a0, __fmul_rn(w[c], v[c].x));
-    a1 = __fadd_rn(a1, __fmul_rn(w[c], v[c].y));
+  for (int k = 0; k < 4; ++k) {
+    const int a = S == 1 ? 2 * k : k, b = a ^ S;
+    u[k] = make_float2(0.0f, 0.0f);
+    if ((row[b] >> 1) != (row[a] >> 1))
+      u[k] = __ldg(reinterpret_cast<const float2*>(table) + row[b]);
   }
-  if (out_bf16) {
-    reinterpret_cast<__nv_bfloat162*>(out)[i] =
-        __floats2bfloat162_rn(a0, a1);
-  } else {
-    reinterpret_cast<float2*>(out)[i] = make_float2(a0, a1);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int a = S == 1 ? 2 * k : k, b = a ^ S;
+    v[a] = half_of(q[k], row[a]);
+    v[b] = (row[b] >> 1) == (row[a] >> 1) ? half_of(q[k], row[b]) : u[k];
   }
+}
+
+// H7: a block takes TILE consecutive samples (x staged once in shared
+// memory), warp w levels w, w + warps, ...; lane = sample. The blend is
+// the 8 corners in corner order, without FMA; the tile's outputs are
+// staged in shared memory and written as 16-byte words.
+constexpr int TILE = 32;
+constexpr int FWD_WARPS = 16;
+
+template <bool BF16>
+__global__ void __launch_bounds__(TILE * FWD_WARPS)
+    hash_grid_fwd_kernel(const float* __restrict__ table,
+                         const float* __restrict__ x,
+                         const int* __restrict__ levels,
+                         void* __restrict__ out, int M, int L,
+                         int table_size) {
+  extern __shared__ float4 smem[];
+  const int width = F * L, ostride = width + 2;   // float2 stores: no
+  float* xs = reinterpret_cast<float*>(smem);     // bank conflicts
+  float* os = xs + TILE * 3;
+  const int lane = threadIdx.x, warps = blockDim.y;
+  const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
+  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
+  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
+  __syncthreads();
+  const float* x3 = xs + 3 * min(lane, rows - 1);
+  for (int l = threadIdx.y; l < L; l += warps) {
+    int row[8], key[3];
+    float w[8];
+    corners(x3, levels, l, table_size, row, w, key);
+    float2 v[8];
+    if (levels[4 * l + 2])   // dense: warp-uniform
+      load_corners<1>(table, row, v);
+    else
+      load_corners<4>(table, row, v);
+    float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      a0 = __fadd_rn(a0, __fmul_rn(w[c], v[c].x));
+      a1 = __fadd_rn(a1, __fmul_rn(w[c], v[c].y));
+    }
+    *reinterpret_cast<float2*>(os + lane * ostride + F * l) =
+        make_float2(a0, a1);
+  }
+  __syncthreads();
+  ncn_unstage<BF16>(os, rows * width, width, ostride,
+                    static_cast<char*>(out) + (BF16 ? 2LL : 4LL) * width * m0,
+                    tid, nt);
 }
 
 // H8's geometry for grad_scatter.cuh: the corners' f32 offsets in the
@@ -132,7 +199,7 @@ struct HashGeom {
                                              int key[3], int idx[8],
                                              float w[8]) const {
     int row[8];
-    corners(x3, levels, 0, l, table_size, row, w, key);
+    corners(x3, levels, l, table_size, row, w, key);
 #pragma unroll
     for (int c = 0; c < 8; ++c) idx[c] = row[c] * F;
   }
@@ -144,11 +211,19 @@ extern "C" int hash_grid_fwd(const void* table, const void* x,
                              const void* levels, void* out, int M, int L,
                              int table_size, int out_bf16,
                              cudaStream_t stream) {
-  const int threads = 256;
-  hash_grid_fwd_kernel<<<ncn_blocks(static_cast<long long>(M) * L, threads),
-                         threads, 0, stream>>>(
+  const int warps = L < FWD_WARPS ? L : FWD_WARPS;
+  const size_t bytes = sizeof(float) * TILE * (3 + F * L + 2);
+  auto kernel = out_bf16 ? hash_grid_fwd_kernel<true>
+                         : hash_grid_fwd_kernel<false>;
+  if (bytes > 48 * 1024) {   // the opt-in holds per device: set it each time
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
       static_cast<const float*>(table), static_cast<const float*>(x),
-      static_cast<const int*>(levels), out, M, L, table_size, out_bf16);
+      static_cast<const int*>(levels), out, M, L, table_size);
   return static_cast<int>(cudaGetLastError());
 }
 

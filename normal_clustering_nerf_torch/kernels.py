@@ -171,7 +171,7 @@ def check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
 MARCH = Kernel("march_bootstrap", "march.cu",
                [P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P])
 TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",
-                      [P, P, P, P, I, I, I, I, I, I, F, F, I])
+                      [P, P, P, P, I, I, I, I, I, I, F, F, I, I])
 TRIPLANE_BWD = Kernel("triplane_bwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F, I])
 COMPOSITE_FWD = Kernel("composite_fwd", "composite.cu",

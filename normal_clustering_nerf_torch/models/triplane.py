@@ -171,7 +171,11 @@ def _kernel_geometry(spec: TriplaneSpec):
             spec.clip_hi(spec.grid3d_res))
 
 
-def encode_kernel(planes, grid3d, x, spec: TriplaneSpec, bf16: bool):
+def encode_kernel(planes, grid3d, x, spec: TriplaneSpec, bf16: bool,
+                  out_dtype=torch.float32):
+    """H2's forward: (M, 3Fp+Fg) features in `out_dtype` (f32, or rounded
+    once from the f32 sum to bf16), folding bf16-rounded rows when
+    `bf16`."""
     geo = _kernel_geometry(spec)
     M, dev, f32 = x.shape[0], x.device, torch.float32
     args = [kernels.check(x, "x", f32, (M, 3), dev),
@@ -179,10 +183,14 @@ def encode_kernel(planes, grid3d, x, spec: TriplaneSpec, bf16: bool):
                           spec.param_shapes()["planes"], dev),
             kernels.check(grid3d, "grid3d", f32,
                           spec.param_shapes()["grid3d"], dev)]
-    out = torch.empty((M, spec.out_dim), dtype=f32, device=dev)
+    if out_dtype not in (f32, torch.bfloat16):
+        raise ValueError(f"out_dtype {out_dtype}: f32 or bf16")
+    out = torch.empty((M, spec.out_dim), dtype=out_dtype, device=dev)
     if M > 0:
         kernels.TRIPLANE_FWD.launch(*args, kernels.ptr(out), M, *geo,
-                                    int(bf16), device=dev)
+                                    int(bf16),
+                                    int(out_dtype == torch.bfloat16),
+                                    device=dev)
     return out
 
 
@@ -209,18 +217,20 @@ def encode_grad_kernel(x, g, spec: TriplaneSpec, plane_shape, grid_shape):
 class TriplaneEncode(torch.autograd.Function):
     """Table gradients only (need_dx=False: no extrinsic optimisation).
     The encode folds bf16 rows when `out_dtype` (the compute dtype) is
-    bf16, and its output is cast to `out_dtype` here, so that the
-    cotangent comes back in it: H2's backward reads a bf16 cotangent as it
-    is, the plain version casts it to f32."""
+    bf16, and returns its output in `out_dtype` (H2 writes it so; the
+    plain version's f32 sum is cast), so that the cotangent comes back in
+    it: H2's backward reads a bf16 cotangent as it is, the plain version
+    casts it to f32."""
 
     @staticmethod
     def forward(ctx, planes, grid3d, x, spec, out_dtype):
         ctx.save_for_backward(x)
         ctx.spec = spec
         ctx.shapes = (planes.shape, grid3d.shape)
-        fn = encode_kernel if x.is_cuda else encode_plain
-        return fn(planes, grid3d, x, spec,
-                  out_dtype == torch.bfloat16).to(out_dtype)
+        bf16 = out_dtype == torch.bfloat16
+        if x.is_cuda:
+            return encode_kernel(planes, grid3d, x, spec, bf16, out_dtype)
+        return encode_plain(planes, grid3d, x, spec, bf16).to(out_dtype)
 
     @staticmethod
     def backward(ctx, g):

@@ -14,6 +14,10 @@ cell faces of every level and at 0 and 1.
 Tolerances (f32): forward rtol 1e-5, atol 1e-6 (the same products, the
 8 corner terms summed in another order); table gradients atol 1e-5 of
 the largest entry (sums scattered in another order).
+
+Also: the row pairs of `level_corners` that H7 loads as one float4, and
+the smoke's model of the lines and sectors each warp load of H7 touches
+(`chip_smoke.hash_grid_warp_loads`), on hand-built warps.
 """
 import math
 
@@ -22,6 +26,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
+
+import chip_smoke
 
 from test_torch_brick_hash import BENCH_B, face_points
 from test_torch_common import J, N, T
@@ -97,3 +104,68 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         th.encode_grad_kernel(T(x), T(g), spec_t)
     with pytest.raises(NotImplementedError):
         th.hash_encode(T(table), T(x), spec_t, need_dx=True)
+
+
+@settings(max_examples=25, deadline=None, database=None)
+@given(seed=st.integers(0, 2 ** 16))
+def test_level_corners_pair_rows_as_h7_loads_them(seed):
+    """H7 loads a corner pair as one float4 when both rows lie in one
+    aligned row pair: at a hashed level the x neighbours from an even ix
+    are rows h and h ^ 1 (x's prime is 1); at a dense level the z
+    neighbours are rows r and r + 1, or r twice where iz + 1 is clipped.
+    Both need level offsets that are multiples of 8 (of 2 at least)."""
+    spec = th.HashGridSpec.create(n_levels=16, log2_table_size=19,
+                                  per_level_scale=BENCH_B)
+    assert all(o % 8 == 0 for o in spec.level_offsets)
+    x = T(face_points(np.random.default_rng(seed), spec, 300))
+    for l in range(spec.n_levels):
+        rows, _ = th.level_corners(x, spec, l)
+        res = spec.resolutions[l]
+        p0 = torch.floor(x * torch.tensor(spec.scales[l], dtype=torch.float32)
+                         + 0.5).to(torch.int64)
+        lo, hi = (torch.clamp(p0 + d, 0, res - 1) for d in (0, 1))
+        if spec.dense[l]:
+            z_clipped = hi[:, 2] == lo[:, 2]
+            for c in (0, 2, 4, 6):
+                want = torch.where(z_clipped, rows[:, c], rows[:, c] + 1)
+                assert torch.equal(rows[:, c + 1], want)
+        else:
+            even = (lo[:, 0] % 2 == 0) & (hi[:, 0] == lo[:, 0] + 1)
+            assert even.any()
+            for c in range(4):
+                assert torch.equal(rows[even, c + 4], rows[even, c] ^ 1)
+
+
+def test_warp_load_counter_on_hand_built_warps():
+    # one float2 row in every lane: 1 line, 1 sector an instruction
+    one = torch.full((3, 32), 8 * 1001, dtype=torch.int64)
+    act = torch.ones((3, 32), dtype=torch.bool)
+    assert chip_smoke.distinct_per_instruction(one, act) == (3, 3)
+    # 32 rows in 32 lines; 32 consecutive float2 rows: 2 lines, 8 sectors
+    far = torch.arange(32, dtype=torch.int64)[None] * 4096
+    near = torch.arange(32, dtype=torch.int64)[None] * 8
+    assert chip_smoke.distinct_per_instruction(far, act[:1]) == (32, 32)
+    assert chip_smoke.distinct_per_instruction(near, act[:1]) == (2, 8)
+    # masked lanes touch nothing
+    part = act[:1].clone()
+    part[0, 1:] = False
+    assert chip_smoke.distinct_per_instruction(far, part) == (1, 1)
+    # a ragged tile: 33 samples of one dense level, all in one cell whose
+    # z pairs are aligned (rows 8c, 8c + 1), so no float2 load is live
+    rows = (8 * torch.arange(4).repeat_interleave(2)
+            + torch.arange(8) % 2).expand(33, 1, 8)
+    a, m = chip_smoke.hash_grid_warp_loads(rows, (True,), "tile")
+    assert a.shape == (2 * 8, 32)   # 2 tiles x (4 float4 + 4 float2)
+    assert int(m.any(1).sum()) == 8
+    assert chip_smoke.distinct_per_instruction(a, m) == (8, 8)
+    a, m = chip_smoke.hash_grid_warp_loads(rows, (True,), "thread")
+    assert int(m.any(1).sum()) == 16   # 2 warps (32 + 1 threads) x 8
+    assert chip_smoke.distinct_per_instruction(a, m) == (16, 16)
+    # a hashed level pairs the x neighbours (corners c, c + 4): rows 2k
+    # and 2k + 1 share a float4, rows 2k + 1 and 2k + 2 do not
+    rows = torch.tensor([0, 2, 4, 6, 1, 3, 5, 7]).expand(32, 1, 8)
+    a, m = chip_smoke.hash_grid_warp_loads(rows, (False,), "tile")
+    assert int(m.any(1).sum()) == 4
+    rows = torch.tensor([1, 3, 5, 7, 2, 4, 6, 8]).expand(32, 1, 8)
+    a, m = chip_smoke.hash_grid_warp_loads(rows, (False,), "tile")
+    assert int(m.any(1).sum()) == 8

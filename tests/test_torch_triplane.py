@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from test_torch_common import J, N, T
 
 from normal_clustering_nerf_torch.models import triplane as tt
@@ -93,3 +94,49 @@ def test_position_gradients_are_refused():
     spec_j, spec_t, params, x, _ = _case(3, M=8)
     with pytest.raises(NotImplementedError):
         tt.triplane_encode(_tparams(params), T(x), spec_t, need_dx=True)
+
+
+def test_bf16_output_matches_jax_triplane_encode():
+    """The compute-dtype output under bf16 (what H2 writes, and what the
+    plain version's f32 sum rounds to) against the JAX encode with
+    compute_dtype bf16, eager: within one bf16 ulp."""
+    spec_j, spec_t, params, x, _ = _case(4)
+    with jax.disable_jit():
+        ref = jt.triplane_encode({k: J(v) for k, v in params.items()}, J(x),
+                                 spec_j, compute_dtype=jnp.bfloat16)
+    assert ref.dtype == jnp.bfloat16
+    out = tt.triplane_encode(_tparams(params), T(x), spec_t, torch.bfloat16)
+    assert out.dtype == torch.bfloat16
+    # adjacent bf16 values of one sign have adjacent bit patterns (-0 as +0)
+    bits = [torch.where(t == 0, 0, t.view(torch.int16).to(torch.int32))
+            for t in (out, T(np.asarray(ref, np.float32), torch.bfloat16))]
+    assert int((bits[0] - bits[1]).abs().max()) <= 1
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    _, spec_t, params, x, g = _case(5, M=8)
+    planes, grid3d = T(params["planes"]), T(params["grid3d"])
+    for out_dtype in (torch.float32, torch.bfloat16):
+        with pytest.raises(ValueError, match="CUDA"):
+            tt.encode_kernel(planes, grid3d, T(x), spec_t, True, out_dtype)
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.encode_grad_kernel(T(x), T(g), spec_t, planes.shape, grid3d.shape)
+
+
+def test_warp_load_counter_on_hand_built_warps():
+    # H2's lanes of 33 samples (a ragged last warp), 4 tables x 32 terms
+    lanes = (torch.arange(4)[:, None] * 4096
+             + torch.arange(32)[None, :]).expand(33, 4, 32)
+    # a warp a (sample, table): 32 consecutive floats, 1 line, 4 sectors
+    a, m = chip_smoke.triplane_warp_loads(lanes, "tile")
+    assert a.shape == (33 * 4, 32) and bool(m.all())
+    assert chip_smoke.distinct_per_instruction(a, m) == (33 * 4, 33 * 16)
+    # a thread a sample: 2 warps x 128 loads, every lane on one value
+    a, m = chip_smoke.triplane_warp_loads(lanes, "thread")
+    assert int(m.any(1).sum()) == 2 * 128
+    assert chip_smoke.distinct_per_instruction(a, m) == (256, 256)
+    # and 32 samples in 32 rows: every thread-mapped load touches 32 lines
+    rows = (torch.arange(32)[:, None, None] * 512 + lanes[:32])
+    a, m = chip_smoke.triplane_warp_loads(rows, "thread")
+    assert chip_smoke.distinct_per_instruction(a, m) == (128 * 32,
+                                                         128 * 32)
