@@ -19,7 +19,10 @@ Phases (any failed check raises, so the script exits non-zero):
      on them. H1-H4 are held against their plain PyTorch versions on
      those inputs, gradients included; H3 and H4 also at sigmas scaled up
      per ray, so that rays terminate early and sigma*delta reaches its
-     clip; H2's backward also under a bf16 cotangent read as bf16, with no
+     clip; H3's backward also at K = 1, 16 and 32 on random rays (N rays,
+     one and none), its d_raws bit for bit g_rend (x) H3 forward's own ws
+     and its d_sigmas exactly 0 on invalid or clipped samples; H2's
+     backward also under a bf16 cotangent read as bf16, with no
      entry -0.0; H2's forward with f32 and bf16 rows and f32 and bf16
      output, also on the batch cut to a ragged last tile, to one sample
      and to none, and with every sample in one cell; a model of the
@@ -50,8 +53,9 @@ Phases (any failed check raises, so the script exits non-zero):
   4. K1 and H9-H11 against their plain versions on the trained occupancy,
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
-     T_start on a flat test round), and H3's forward with T_start on the
-     first test round's samples;
+     T_start on a flat test round), H3's segment backward on segments of
+     every length 0..32, and H3's forward with T_start on the first test
+     round's samples;
   5. validation: counts to 0, `Trainer.validate()` on the 4 held-out
      views, counts read: the test-round march, the field and the
      compositing must have launched; every metric finite and rotation
@@ -74,13 +78,15 @@ Phases (any failed check raises, so the script exits non-zero):
   cotangent, and with every sample inside one cell of level 0; no
   gradient entry -0.0) and on every cell of the grid (the refresh's
   shape), H5 also at the shape of the Pallas probe P4 (the (16, 8192,
-  128) table, 262,144 points), H7 bit for bit also on the ragged, one-
-  and no-sample cuts and the one-cell input, with its modelled warp
-  load counts, and a table 8 bytes off 16-byte alignment refused;
+  128) table, 262,144 points), H5 and H7 bit for bit, also on the
+  ragged, one- and no-sample cuts and the one-cell input, with their
+  modelled warp load counts (per load and across each warp's loads), and
+  a table 8 bytes off 16-byte alignment refused;
   the step parity at the CPU tests' size; 576 counted steps through
   `Trainer.fit` (H5/H6 or H7/H8, H1, H3, H4 and K1 must launch); the
   table gradient on the cotangent of one more training step, captured
-  from autograd with its zero rows, and H7 on that step's positions;
+  from autograd with its zero rows, and H5 or H7 on that step's
+  positions;
   `validate`;
   every launcher must have launched on some path;
   6. for each path: step times and one refresh of each form; then the
@@ -89,7 +95,7 @@ Phases (any failed check raises, so the script exits non-zero):
      `index_add_` of its backward's terms; for H5 also at P4's shape, for
      H10 P2's probe at P2's block) by CUDA events (`device_ms`); H2, H6
      and H8 also on the training step's cotangent, and their gradient
-     tables' zero fill alone; H2's and H7's forward also on the sv step's
+     tables' zero fill alone; the fields' forwards also on the sv step's
      positions and at the refresh shape, with the modelled warp load
      counts logged beside the times.
 
@@ -469,11 +475,14 @@ def triplane_terms(x, g, spec):
 # hardware counters: they restate in torch each forward encode's mapping
 # of lanes to table loads (only the gathers are counted) and apply it to
 # the real inputs. "thread" is the baseline mapping, a thread a sample
-# (H2) or a (sample, level) (H7), as those kernels were first written;
+# (H2) or a (sample, level) (H5, H7), as those kernels were first written;
 # "tile" is the kernels' own, and must be changed together with
-# `csrc/triplane.cu` and `csrc/hash_grid.cu`, which nothing here checks.
-# On the H100 the forwards' times followed the sectors, not the lines
-# (PERF.md, section 6).
+# `csrc/triplane.cu`, `csrc/brick_hash.cu` and `csrc/hash_grid.cu`, which
+# nothing here checks. For H5 and H7 the sectors are also counted across
+# each warp's 8 loads (a sector that several of a warp's loads touch
+# counted once, as if the L1 served the repeats). On the H100 the
+# forwards' times followed the sectors, not the lines (PERF.md, section
+# 6).
 LINE, SECTOR = 128, 32
 GRID_BASE = 1 << 40   # grid3d's byte addresses, apart from the planes'
 
@@ -491,6 +500,13 @@ def distinct_per_instruction(addr, active, chunk=1 << 18):
                            + ((s[:, 1:] != s[:, :-1]) & (s[:, 1:] >= 0))
                            .sum())
     return n[LINE], n[SECTOR]
+
+
+def distinct_per_warp(addr, active, loads=8):
+    """As `distinct_per_instruction`, over each run of `loads` consecutive
+    instructions (one warp's) taken together."""
+    return distinct_per_instruction(addr.reshape(-1, loads * 32),
+                                    active.reshape(-1, loads * 32))
 
 
 def lanes_of(rows_per_sample, tile=32):
@@ -513,13 +529,27 @@ def hash_grid_rows(x, spec):
                         for l in range(spec.n_levels)], 1)
 
 
+def brick_slots(x, spec):
+    """(M, L, 8) float2 slots of the 8 corners of every level, counted in
+    the whole (L, n_bricks, 64) table of float2 slots."""
+    from normal_clustering_nerf_torch.models.brick_hash import level_geometry
+    out = []
+    for l in range(spec.n_levels):
+        row, slots, _ = level_geometry(x, spec, l)
+        out.append((l * spec.n_bricks + row)[:, None] * 64 + slots)
+    return torch.stack(out, 1)
+
+
 def hash_grid_warp_loads(rows, dense, mapping):
-    """The table loads of H7 as (addr, active) of (n, 32) lanes.
-    "thread": a thread a (sample, level), i = m*L + l, 8 float2 loads;
-    "tile": a warp a (tile of 32 samples, level), lane = sample; for each
-    of the 4 corner pairs (z neighbours at a dense level, x neighbours at
-    a hashed one) the float4 of the first row's aligned pair, then a
-    float2 of the second row in the lanes where it lies elsewhere."""
+    """The table loads of H7 (rows: (M, L, 8) float2 rows), or of H5
+    (rows: `brick_slots`, every level "dense": its corner pairs (2k, 2k +
+    1) are a slot's z neighbours), as (addr, active) of (n, 32) lanes, 8
+    instructions a warp in turn. "thread": a thread a (sample, level), i =
+    m*L + l, 8 float2 loads; "tile": a warp a (tile of 32 samples, level),
+    lane = sample; for each of the 4 corner pairs (z neighbours at a dense
+    level, x neighbours at a hashed one) the float4 of the first row's
+    aligned pair, then a float2 of the second row in the lanes where it
+    lies elsewhere."""
     M, L, _ = rows.shape
     if mapping == "thread":
         a, act = lanes_of(rows.reshape(M * L, 8) * 8)      # (W, 32, 8)
@@ -571,29 +601,42 @@ def triplane_warp_loads(lanes, mapping):
 
 def warp_load_counts(layout, x, spec):
     """{mapping: (instructions, lines, sectors), "M": samples} of the
-    forward encode of `x` (H2 for the triplane field, H7 for tcnn)."""
+    forward encode of `x` (H2 for the triplane field, H5 for brick, H7 for
+    tcnn); for H5 and H7 also the lines and sectors across each warp's 8
+    loads, (..., warp lines, warp sectors)."""
+    maps = ("thread", "tile")
     if layout == "triplane":
         lanes = triplane_lanes(x, spec)
-        loads = {m: triplane_warp_loads(lanes, m) for m in ("thread", "tile")}
+        loads = {m: triplane_warp_loads(lanes, m) for m in maps}
+    elif layout == "brick":
+        slots = brick_slots(x, spec)
+        loads = {m: hash_grid_warp_loads(slots, (True,) * spec.n_levels, m)
+                 for m in maps}
     else:
         rows = hash_grid_rows(x, spec)
-        loads = {m: hash_grid_warp_loads(rows, spec.dense, m)
-                 for m in ("thread", "tile")}
+        loads = {m: hash_grid_warp_loads(rows, spec.dense, m) for m in maps}
     out = {m: (int(act.any(1).sum()), *distinct_per_instruction(a, act))
+           + (distinct_per_warp(a, act) if layout != "triplane" else ())
            for m, (a, act) in loads.items()}
     out["M"] = x.shape[0]
     return out
 
 
 def log_counts(name, where, counts):
-    """counts: {"M": samples, mapping: (instructions, lines, sectors)}."""
+    """counts: {"M": samples, mapping: (instructions, lines, sectors[,
+    warp lines, warp sectors])}."""
     M = max(counts["M"], 1)
     maps = {m: c for m, c in counts.items() if m != "M"}
+
+    def per(ln, s):
+        return (f"{ln} lines ({ln / M:.2f} a sample), {s} sectors "
+                f"({s / M:.2f} a sample)")
     log(f"  {name} warp table loads on {where} (M={counts['M']}; modelled "
         f"from each mapping, not read from hardware counters): "
-        + "; ".join(f"{m}: {i} instructions, {ln} lines ({ln / M:.2f} a "
-                    f"sample), {s} sectors ({s / M:.2f} a sample)"
-                    for m, (i, ln, s) in maps.items()))
+        + "; ".join(f"{m}: {c[0]} instructions, {per(*c[1:3])}"
+                    + (f"; across each warp's 8 loads {per(*c[3:])}"
+                       if len(c) > 3 else "")
+                    for m, c in maps.items()))
 
 
 def edge_inputs(x, xc):
@@ -625,17 +668,17 @@ def check_triplane_fwd(chk, planes, grid3d, x, spec, where):
     return max(errs)
 
 
-def check_hash_grid_fwd(chk, table, x, spec, where):
-    """H7 against its plain version on `x` in f32 and bf16 output: bit for
-    bit (the plain version sums the 8 corner products in the kernel's
-    order, each op rounded, no FMA either side). Returns the largest
-    error."""
-    from normal_clustering_nerf_torch.models import hash_encoding as he
+def check_encode_fwd(chk, layout, table, x, spec, where):
+    """H5 (brick) or H7 (tcnn) against its plain version on `x` in f32 and
+    bf16 output: bit for bit (the plain version sums the 8 corner products
+    in the kernel's order, each op rounded, no FMA either side). Returns
+    the largest error."""
+    mod, name = encode_module(layout), LABEL[FIELD_KERNELS[layout][0]]
     errs = []
     for dt in (torch.float32, torch.bfloat16):
-        got = he.encode_kernel(table, x, spec, dt)
-        errs.append(chk.equal(f"H7 {where}, {dt} out", got,
-                              he.encode_plain(table, x, spec).to(dt)))
+        got = mod.encode_kernel(table, x, spec, dt)
+        errs.append(chk.equal(f"{name} {where}, {dt} out", got,
+                              mod.encode_plain(table, x, spec).to(dt)))
     return max(errs)
 
 
@@ -782,13 +825,7 @@ def check_kernels(tr, gen):
             chk.close("rend", got[2], ref[2], 1e-5),
             chk.close("ws", got[3], ref[3], 1e-5),
             chk.equal("vr_samples", got[4], ref[4])))
-        gref = cp.composite_grad_plain(*ca, *gs)
-        ggot = cp.composite_grad_kernel(*ca, *gs)
-        # the sigma gradient subtracts a suffix sum from G*T*exp(-x): keep
-        # the tolerance at 1e-4 of its largest value for the cancellation
-        errs["composite_bwd"].append(max(
-            chk.close("d_sigmas", ggot[0], gref[0], 1e-4),
-            chk.close("d_raws", ggot[1], gref[1], 1e-5)))
+        errs["composite_bwd"].append(check_composite_bwd(chk, ca, gs))
 
         # H4: distortion loss on the composite's weights
         da = (ref[3].contiguous(), mr.dt, mr.t, mr.valid)
@@ -800,6 +837,15 @@ def check_kernels(tr, gen):
             ds.distortion_grad_plain(gl, *da), 1e-4))
         if tag == "main":   # timed and bounded at the main path's input
             ma, mda, mgot = ca, da, got
+    # H3's backward at K = 1, 16 and 32 (lane groups of 1, 16 and 32), on
+    # N rays (a ragged last block at each K), one ray and none
+    for k in (1, 16, 32):
+        kca, kgs = composite_case(N, k, C, gen)
+        for n in (N, 1, 0):
+            cut = tuple(t[:n] for t in kca) + (thr,)
+            log(f"H3 backward, random inputs: N={n} K={k} C={C}")
+            errs["composite_bwd"].append(check_composite_bwd(
+                chk, cut, tuple(t[:n] for t in kgs)))
     ca, da = ma, mda
     flops_fwd = N * K * (10 + 2 * C)
     rec["composite_fwd"] = dict(
@@ -824,6 +870,53 @@ def check_kernels(tr, gen):
     chk.done("kernel checks")
     a = inp["march"]["args"]
     return rec, (a[0], a[1], a[2], a[4])
+
+
+def composite_case(N, K, C, gen):
+    """Dense composite inputs (sigmas, raws, deltas, ts, valid) and the four
+    cotangents, drawn as the CPU tests draw them
+    (`tests/test_torch_composite.py`): log-normal sigmas, a quarter of the
+    rays 200 times denser (they end early, samples reach the clip), valid
+    a random prefix of each row."""
+    dev = gen.device
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    sig = torch.exp(1.0 + 2.0 * r(N, K))
+    sig[: N // 4] *= 200.0
+    dt = 0.005 + 0.045 * u(N, K)
+    count = torch.clamp((u(N) * (K + 1)).long(), max=K)
+    valid = torch.arange(K, device=dev)[None] < count[:, None]
+    return ((sig, r(N, K, C), dt, torch.cumsum(dt, 1), valid),
+            (r(N), r(N), r(N, C), r(N, K)))
+
+
+def check_composite_bwd(chk, ca, gs):
+    """H3's backward on the inputs `ca` (sigmas, raws, deltas, ts, valid,
+    T_threshold) and cotangents `gs`: against its plain version (d_sigmas
+    within 1e-4 of its largest value: it subtracts a suffix sum from
+    G*T*exp(-x), summed in another order than torch's cumsum; d_raws
+    within 1e-5); d_raws bit for bit g_rend (x) ws with ws H3 forward's
+    own output, which holds the backward's weights and inclusion mask to
+    the forward's; d_sigmas exactly 0 on the samples that are invalid or
+    whose sigma*delta is clipped. Returns the largest error."""
+    from normal_clustering_nerf_torch.ops import composite as cp
+    sig, _, dt, _, valid, _ = ca
+    ws = cp.composite_kernel(*ca)[3]
+    got = cp.composite_grad_kernel(*ca, *gs)
+    ref = cp.composite_grad_plain(*ca, *gs)
+    raw_x = sig * dt
+    off = ~(valid & (raw_x > 0) & (raw_x < cp.SIGDT_MAX))
+    return max(
+        chk.close("d_sigmas", got[0], ref[0], 1e-4),
+        chk.close("d_raws", got[1], ref[1], 1e-5),
+        chk.equal("d_raws = g_rend x H3 fwd's ws", got[1],
+                  gs[2][:, None, :] * ws[:, :, None]),
+        chk.equal(f"d_sigmas = 0 on {int(off.sum())} invalid or clipped "
+                  f"samples", got[0][off], torch.zeros_like(got[0][off])))
 
 
 # the field's launchers of each layout, and the launchers every path shares
@@ -911,30 +1004,17 @@ def check_encoding(tr, gen):
     s0, c0 = spec.scales[0], spec.resolutions[0] // 2
     xc = ((c0 - 0.45 + 0.9 * torch.rand((M, 3), generator=gen,
                                          device=x.device)) / s0).contiguous()
-    if layout == "tcnn":
-        errs = [check_hash_grid_fwd(chk, table, xx, spec, where)
-                for where, xx in (("batch", x), (refresh, xr))
-                + edge_inputs(x, xc)]
-        counts = warp_load_counts(layout, x, spec)
-        log_counts(LABEL[fwd], "the bootstrap batch", counts)
-        # H7 reads row pairs as 16-byte words: a table 8 bytes off that
-        # alignment must be refused, not launched
-        off = torch.empty(table.numel() + 2, device=x.device)[2:]
-        chk.refused("H7, a table 8 bytes off 16-byte alignment",
-                    lambda: mod.encode_kernel(off.view(table.shape), x[:32],
-                                              spec, out_dt))
-    else:
-        # the same operations in the same order as the plain version (no
-        # FMA either side): equal but for the last bit, 1e-6 of the
-        # largest value
-        errs = [chk.close(f"encode {dt}",
-                          mod.encode_kernel(table, x, spec, dt),
-                          mod.encode_plain(table, x, spec).to(dt), 1e-6)
-                for dt in (f32, bf16)]
-        errs.append(chk.close(
-            f"encode {out_dt}, {refresh}",
-            mod.encode_kernel(table, xr, spec, out_dt),
-            mod.encode_plain(table, xr, spec).to(out_dt), 1e-6))
+    errs = [check_encode_fwd(chk, layout, table, xx, spec, where)
+            for where, xx in (("batch", x), (refresh, xr))
+            + edge_inputs(x, xc)]
+    counts = warp_load_counts(layout, x, spec)
+    log_counts(LABEL[fwd], "the bootstrap batch", counts)
+    # H5 and H7 read slot or row pairs as 16-byte words: a table 8 bytes
+    # off that alignment must be refused, not launched
+    off = torch.empty(table.numel() + 2, device=x.device)[2:]
+    chk.refused(f"{LABEL[fwd]}, a table 8 bytes off 16-byte alignment",
+                lambda: mod.encode_kernel(off.view(table.shape), x[:32],
+                                          spec, out_dt))
     gerrs = []
     for name, xx, gg in (
             ("f32 cotangent", x, g), ("bf16-rounded f32 cotangent", x,
@@ -968,7 +1048,8 @@ def check_encoding(tr, gen):
         bound=bound(nbytes(x) + touched
                     + M * spec.out_dim * (2 if out_dt == bf16 else 4), ops),
         variants={refresh: (
-            lambda: mod.encode_kernel(table, xr, spec, out_dt))}),
+            lambda: mod.encode_kernel(table, xr, spec, out_dt))},
+        counts={"bootstrap batch": counts}),
         bwd: dict(
         err=max(gerrs),
         kernel=(lambda: mod.encode_grad_kernel(x, g, spec)),
@@ -982,9 +1063,8 @@ def check_encoding(tr, gen):
         # rows P4 gathers whole into a (16, 262144, 128) f32 array
         xp = torch.rand((P4_POINTS, 3), generator=gen, device=x.device)
         rp = gathered_rows(xp, spec)
-        errs.append(chk.close(f"encode f32, P4 shape M={P4_POINTS}",
-                              mod.encode_kernel(table, xp, spec, f32),
-                              mod.encode_plain(table, xp, spec), 1e-6))
+        errs.append(check_encode_fwd(chk, layout, table, xp, spec,
+                                     f"P4 shape M={P4_POINTS}"))
         rec[fwd]["err"] = max(errs)
         rec[fwd]["at_p4_shape"] = dict(
             kernel=lambda: mod.encode_kernel(table, xp, spec, f32),
@@ -992,8 +1072,6 @@ def check_encoding(tr, gen):
             bound=bound(nbytes(xp) + touched_encode_bytes(xp, spec, layout)
                         + P4_POINTS * spec.out_dim * 4,
                         P4_POINTS * L * ENCODE_OPS))
-    if layout == "tcnn":
-        rec[fwd]["counts"] = {"bootstrap batch": counts}
     chk.done(f"{layout} encode checks")
     return rec
 
@@ -1024,10 +1102,10 @@ def step_cotangent(tr):
 def check_step_cotangent(tr, rec):
     """Each path after its training: the field's table gradient (H2, H6 or
     H8) against its plain version on the cotangent of one training step of
-    the trained field (`step_cotangent`), with no entry -0.0; H2's and H7's
-    forward on that step's positions (the sv march's samples, which most
-    of a bench run's forward launches see), with their modelled warp load
-    counts;
+    the trained field (`step_cotangent`), with no entry -0.0; the field's
+    forward (H2, H5 or H7) on that step's positions (the sv march's
+    samples, which most of a bench run's forward launches see), with its
+    modelled warp load counts;
     the calls are kept in `rec` for `time_kernels`."""
     layout = tr.cfg.model.hash_layout
     mod, (fwd, bwd) = encode_module(layout), FIELD_KERNELS[layout]
@@ -1062,18 +1140,17 @@ def check_step_cotangent(tr, rec):
         bf16 = out_dt == torch.bfloat16
         err = check_triplane_fwd(chk, planes, grid3d, x, spec, "sv step")
         fn = lambda: mod.encode_kernel(planes, grid3d, x, spec, bf16, out_dt)
-    elif layout == "tcnn":
+    else:
         table = tr.model.hash_table.detach()
-        err = check_hash_grid_fwd(chk, table, x, spec, "sv step")
+        err = check_encode_fwd(chk, layout, table, x, spec, "sv step")
         fn = lambda: mod.encode_kernel(table, x, spec, out_dt)
     chk.done(f"{LABEL[bwd]} on a step's cotangent, {LABEL[fwd]} on its "
              f"positions")
-    if layout in ("triplane", "tcnn"):
-        counts = warp_load_counts(layout, x, spec)
-        log_counts(LABEL[fwd], "an sv step's positions", counts)
-        rec[fwd]["err"] = max(rec[fwd]["err"], err)
-        rec[fwd]["counts"]["sv step"] = counts
-        rec[fwd]["variants"][where] = fn
+    counts = warp_load_counts(layout, x, spec)
+    log_counts(LABEL[fwd], "an sv step's positions", counts)
+    rec[fwd]["err"] = max(rec[fwd]["err"], err)
+    rec[fwd]["counts"]["sv step"] = counts
+    rec[fwd]["variants"][where] = fn
 
 
 def random_occupancy(tr, gen, density=0.2):
@@ -1644,6 +1721,7 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
                       ds.distortion_grad_kernel(gl, *ddn)[at])))
         if tag == "main":
             mka, mda, mref = ka, da, ref
+    errs["composite_seg_bwd"].append(check_seg_lengths(chk, C, thr, gen))
     ka, da = mka, mda
     n_valid = int(v.sum())
     flops = n_valid * (10 + 2 * C)
@@ -1706,6 +1784,45 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
         rec[k]["err"] = max(e)
     chk.done("segment launcher checks")
     return rec
+
+
+SEG_REPEATS = 64   # rays of each segment length 0..32 in `check_seg_lengths`
+
+
+def check_seg_lengths(chk, C, thr, gen):
+    """H3's segment backward on segments of every length 0..32
+    (SEG_REPEATS rays each, in shuffled order, a tenth of the slots
+    invalid, unused slots after the last segment) against its plain
+    version (the tolerances of `check_composite_bwd`), `max_len` read
+    from the counts as in training; d_raws bit for bit g_rend (x) the
+    segment forward's own ws. Returns the largest error."""
+    from normal_clustering_nerf_torch.ops import composite as cp
+    dev = gen.device
+    order = torch.randperm(33 * SEG_REPEATS, generator=gen, device=dev)
+    count = (torch.arange(33 * SEG_REPEATS, device=dev) % 33)[order].int()
+    N = count.shape[0]
+    start = (torch.cumsum(count, 0) - count).int()
+    B = int(count.sum()) + 37
+    (sig, raws, dt, ts, _), gs = composite_case(B, 1, C, gen)
+    sig, raws, dt, ts = sig[:, 0], raws[:, 0], dt[:, 0], ts[:, 0]
+    rid = torch.repeat_interleave(torch.arange(N, device=dev), count.long())
+    used = torch.zeros(B, dtype=torch.bool, device=dev)
+    used[:rid.shape[0]] = True
+    rid = torch.cat([rid, rid.new_full((B - rid.shape[0],), N - 1)]).int()
+    valid = used & (torch.rand(B, generator=gen, device=dev) >= 0.1)
+    g = (gs[0][:N], gs[1][:N], gs[2][:N], gs[3][:, 0])
+    log(f"H3 segment backward, every length 0..32: N={N} B={B} C={C}")
+    ref = cp.composite_compact_grad_plain(sig, raws, dt, ts, rid, start,
+                                          valid, N, thr, *g)
+    ws = cp.composite_compact_kernel(sig, raws, dt, ts, start, count, valid,
+                                     thr)[3]
+    got = cp.composite_compact_grad_kernel(sig, raws, dt, ts, start, count,
+                                           valid, thr, *g)
+    want = torch.where(used[:, None], g[2][rid.long()] * ws[:, None], 0.0)
+    return max(chk.close("d_sigmas", got[0], ref[0], 1e-4),
+               chk.close("d_raws", got[1], ref[1], 1e-5),
+               chk.equal("d_raws = g_rend x H3 segment fwd's ws", got[1],
+                         want))
 
 
 REPLACES = {

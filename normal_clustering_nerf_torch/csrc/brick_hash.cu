@@ -17,27 +17,52 @@
 // (b0*nb + b1)*nb + b2, when nb^3 <= n_bricks, else the tcnn XOR-prime
 // hash of b, & (n_bricks - 1).
 //
-// Forward (H5): one thread per (sample, level), thread i = m*L + l, so the
-// 16 threads of a sample write its 32 output values contiguously. It
-// computes pos = x*scale + 0.5 (no FMA: the file is built with
-// --fmad=false and uses __fmul_rn / __fadd_rn, since a one-ulp flip of
-// floor(pos) at a stride-3 face moves a sample to another brick's copy of
-// the face vertex), p0, f, the row and the per-axis weights (1-f, f), or
-// (1-f)+f on one slot where l1 == l0 at the top face, as the JAX one-hot
-// sum gives; then it reads only the 8 corner slots of the row (one float2
-// each) and folds them in registers, corner weight wx*(wy*wz) as `_w64`
-// builds it. The TPU code and the probes gather the whole 512-byte row
-// per (sample, level), (16, M, 128) f32 through device memory, and fold it
-// with a matmul; only 8 of its 64 slots have a non-zero weight, so this
-// kernel reads 64 of the 512 bytes and writes just the (M, 32) features,
-// in f32 or rounded once to bf16.
+// Forward (H5). It replaces the JAX forward `_brick_encode_impl`
+// (models/brick_hash.py:178) and the Pallas probe P4 `pallas16`
+// (experiments/pallas_gather2.py:77). Per level, pos = x*scale + 0.5 (no
+// FMA: the file is built with --fmad=false and uses __fmul_rn /
+// __fadd_rn, since a one-ulp flip of floor(pos) at a stride-3 face moves a
+// sample to another brick's copy of the face vertex), p0, f, the row and
+// the per-axis weights (1-f, f), or (1-f)+f on one slot where l1 == l0 at
+// the top face, as the JAX one-hot sum gives; the 8 corner slots of the
+// row are read and folded in registers, corner weight wx*(wy*wz) as `_w64`
+// builds it, the 8 products added in corner order. The TPU code and the
+// probes gather the whole 512-byte row per (sample, level), (16, M, 128)
+// f32 through device memory, and fold it with a matmul; only 8 of its 64
+// slots have a non-zero weight, so this kernel reads 64 of the 512 bytes
+// and writes just the (M, 32) features.
 //
-// Bound of the forward on the H100: memory latency. Each (sample, level)
-// reads 8 random 8-byte values (in 1-4 32-byte sectors of one 512-byte
-// row) from a 67 MB table, larger than the 50 MB L2, with about 40 f32
-// operations between. The design keeps each access to the slots that are
-// needed and keeps many independent (sample, level) pairs in flight (256
-// threads a block, M*16 threads) to hide the latency.
+// What bounds it on the H100: the distinct 32-byte sectors each warp's
+// loads touch (counts that `chip_smoke.py`'s `warp_load_counts` models
+// from each mapping of lanes to loads; no hardware counter), not the
+// bytes: a (sample, level)
+// needs 8 float2 slots in 4 sectors of one 512-byte row of a 67 MB table.
+// The layout puts a corner's z pair (lz0, lz1) in one sector, since
+// (lx*16 + ly*4)*8 bytes is a multiple of 32: the pair is one aligned
+// float4 when lz0 is even, two float2 of one sector when lz0 = 1, one
+// float2 on the top face. The first design ran a thread per (sample,
+// level), i = m*L + l, so each of a warp's 8 float2 loads touched 32 rows
+// of 16 level tables, and a ray's consecutive samples never shared a load.
+// Here a block takes TILE = 32 samples (x staged once in shared memory,
+// where the thread read it 16 times); a warp takes a level at a time
+// (two in turn), lane = sample, so a ray's samples that fall in one brick
+// row at a coarse level share its sectors in one load; each (x, y) corner
+// reads its z pair as the float4 of the first slot's aligned pair, then,
+// in the lanes where lz0 = 1, a float2 of the second slot from the same
+// sector (`ncn_load_pairs`, shared with H7): 4 float4 and at most 4
+// float2 loads a level (reading the sector as two float4 would take 8,
+// each touching every lane's sector). What is left is the layout's own:
+// 4 distinct sectors a (sample, level), shared between lanes only at the
+// coarse levels. On the bench batch the tile's loads touch 73.9 sectors a
+// sample against the thread's 120.1 counted load by load, but 51.3
+// against 58.6 counted across each warp's loads, and the time followed
+// the second count (~100 G sectors a second in both designs: the L1
+// serves a warp's repeated sectors), so the tile gains ~8%. The products
+// and sums are the first design's, in its order, so the output is bit
+// for bit its own and `encode_plain`'s; the tile's 32 x 2L outputs are
+// staged in shared memory and written as 16-byte words, in f32 or
+// rounded once to bf16. The wrapper refuses a table that is not 16-byte
+// aligned.
 //
 // Backward (H6): the table gradient, g[f] * w_c of the 8 corner slots x 2
 // features added into a zeroed (L, n_bricks, 128) f32 table
@@ -124,34 +149,53 @@ __device__ __forceinline__ long long corners(const float* __restrict__ x,
   return (static_cast<long long>(l) * n_bricks + row) * (64 * F);
 }
 
-__global__ void brick_fwd_kernel(const float* __restrict__ table,
-                                 const float* __restrict__ x,
-                                 const int* __restrict__ levels,
-                                 void* __restrict__ out, int M, int L,
-                                 int n_bricks, int out_bf16) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= static_cast<long long>(M) * L) return;
-  const int m = static_cast<int>(i / L), l = static_cast<int>(i % L);
-  int slot[8], key[3];
-  float w[8];
-  const float2* row = reinterpret_cast<const float2*>(
-      table + corners(x, levels, m, l, n_bricks, slot, w, key));
-  float2 v[8];
+// H5: a block takes TILE consecutive samples (x staged once in shared
+// memory), warp w levels w, w + warps, ...; lane = sample. The tile's
+// outputs are staged in shared memory and written as 16-byte words.
+// 8 warps of 2 levels each: twice the blocks an SM of 16 warps of one
+// level, so more blocks' staging barriers overlap; 16 warps of one level,
+// 4 warps of 4 levels, two levels' loads issued together, x read without
+// staging, 8 float2 loads a level, or a sector read as two float4 lost
+// to it on the card.
+constexpr int TILE = 32;
+constexpr int FWD_WARPS = 8;
+
+template <bool BF16>
+__global__ void __launch_bounds__(TILE * FWD_WARPS)
+    brick_fwd_kernel(const float* __restrict__ table,
+                     const float* __restrict__ x,
+                     const int* __restrict__ levels, void* __restrict__ out,
+                     int M, int L, int n_bricks) {
+  extern __shared__ float4 smem[];
+  const int width = F * L, ostride = width + 2;   // float2 stores: no
+  float* xs = reinterpret_cast<float*>(smem);     // bank conflicts
+  float* os = xs + TILE * 3;
+  const int lane = threadIdx.x, warps = blockDim.y;
+  const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
+  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
+  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
+  __syncthreads();
+  const float* x3 = xs + 3 * min(lane, rows - 1);
+  for (int l = threadIdx.y; l < L; l += warps) {
+    int slot[8], key[3];
+    float w[8];
+    const float* row = table + corners(x3, levels, 0, l, n_bricks, slot, w,
+                                       key);
+    float2 v[8];
+    ncn_load_pairs<1>(row, slot, v);   // z pairs: slots 2k, 2k + 1
+    float a0 = 0.0f, a1 = 0.0f;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) v[c] = __ldg(row + slot[c]);
-  float a0 = 0.0f, a1 = 0.0f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    a0 = __fadd_rn(a0, __fmul_rn(w[c], v[c].x));
-    a1 = __fadd_rn(a1, __fmul_rn(w[c], v[c].y));
+    for (int c = 0; c < 8; ++c) {
+      a0 = __fadd_rn(a0, __fmul_rn(w[c], v[c].x));
+      a1 = __fadd_rn(a1, __fmul_rn(w[c], v[c].y));
+    }
+    *reinterpret_cast<float2*>(os + lane * ostride + F * l) =
+        make_float2(a0, a1);
   }
-  if (out_bf16) {
-    reinterpret_cast<__nv_bfloat162*>(out)[i] =
-        __floats2bfloat162_rn(a0, a1);
-  } else {
-    reinterpret_cast<float2*>(out)[i] = make_float2(a0, a1);
-  }
+  __syncthreads();
+  ncn_unstage<BF16>(os, rows * width, width, ostride,
+                    static_cast<char*>(out) + (BF16 ? 2LL : 4LL) * width * m0,
+                    tid, nt);
 }
 
 // H6's geometry for grad_scatter.cuh: the corners' f32 offsets in the
@@ -174,11 +218,12 @@ struct BrickGeom {
 extern "C" int brick_fwd(const void* table, const void* x, const void* levels,
                          void* out, int M, int L, int n_bricks, int out_bf16,
                          cudaStream_t stream) {
-  const int threads = 256;
-  brick_fwd_kernel<<<ncn_blocks(static_cast<long long>(M) * L, threads),
-                     threads, 0, stream>>>(
+  const int warps = L < FWD_WARPS ? L : FWD_WARPS;
+  const size_t bytes = sizeof(float) * TILE * (3 + F * L + 2);
+  auto kernel = out_bf16 ? brick_fwd_kernel<true> : brick_fwd_kernel<false>;
+  kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
       static_cast<const float*>(table), static_cast<const float*>(x),
-      static_cast<const int*>(levels), out, M, L, n_bricks, out_bf16);
+      static_cast<const int*>(levels), out, M, L, n_bricks);
   return static_cast<int>(cudaGetLastError());
 }
 

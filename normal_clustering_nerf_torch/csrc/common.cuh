@@ -101,3 +101,41 @@ __device__ __forceinline__ void ncn_unstage(const float* src, int n, int width,
       static_cast<float*>(dst)[e] = v;
   }
 }
+
+// The 8 corners' float2 rows (H7) or slots (H5), counted from `table`, as
+// 4 pairs (a, a ^ S): S = 1 pairs the z neighbours (a dense tcnn level,
+// every brick row), S = 4 the x neighbours (a hashed tcnn level, where
+// x's prime is 1). Each pair's first row comes as the float4 of its
+// aligned row pair, which holds the second row too when both share it; a
+// lane whose second row lies elsewhere loads it as a float2 (the other
+// lanes are masked off that load). `table` must be 16-byte aligned.
+template <int S>
+__device__ __forceinline__ void ncn_load_pairs(
+    const float* __restrict__ table, const int row[8], float2 v[8]) {
+  float4 q[4];
+  float2 u[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int a = S == 1 ? 2 * k : k;
+    q[k] = __ldg(reinterpret_cast<const float4*>(table) + (row[a] >> 1));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int a = S == 1 ? 2 * k : k, b = a ^ S;
+    u[k] = make_float2(0.0f, 0.0f);
+    if ((row[b] >> 1) != (row[a] >> 1))
+      u[k] = __ldg(reinterpret_cast<const float2*>(table) + row[b]);
+  }
+  // each half selected in place: the same selection through a helper
+  // compiled H5 to 33 registers and ~7% slower on the card
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int a = S == 1 ? 2 * k : k, b = a ^ S;
+    const int ra = row[a], rb = row[b];
+    v[a] = (ra & 1) ? make_float2(q[k].z, q[k].w)
+                    : make_float2(q[k].x, q[k].y);
+    v[b] = (rb >> 1) != (ra >> 1) ? u[k]
+           : (rb & 1)             ? make_float2(q[k].z, q[k].w)
+                                  : make_float2(q[k].x, q[k].y);
+  }
+}

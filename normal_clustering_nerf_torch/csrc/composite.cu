@@ -19,20 +19,44 @@
 //   dL/dx_j = G_j*T_j*exp(-x_j) - sum_{s>j} G_s*w_s,
 //   dL/dsigma_j = delta_j * dL/dx_j inside the clip, dL/draw_jc = g_rend_c*w_j.
 //
-// Design: one thread per ray; the forward is one pass with running sums,
-// the backward recomputes T/alpha/w into registers (K <= 32) and walks the
-// samples back to front with a running suffix sum. Nothing per-sample is
-// saved by the forward beyond its outputs. The segment launchers
-// (`composite_seg_fwd` / `composite_seg_bwd`) replace the flat layout's
-// `composite_rays_compact` (ops/composite.py:86-144) with the same loops
-// over ray-major segments instead of dense rows; they keep JAX's per-ray
-// math and not its global cumsum minus segment base.
+// Forward design (unchanged since it was first written): one thread per
+// ray, one pass with running sums. It stores nothing per sample beyond
+// its outputs.
 //
-// Bound on the H100: memory. Per ray it reads K*(C+4) values and writes
-// K (+ K*C in the backward) values once, with a handful of flops each; the
-// launch of one thread per ray (8190 rays) fills few warps, so at this size
-// latency matters as much as bandwidth. Consecutive threads read rows K*C
-// floats apart, which L1 absorbs (each ray's row is read once, in order).
+// Backward design. It replaces the autodiff backward of `composite_rays`
+// (normal_clustering_nerf_tpu/ops/composite.py:34). What bounds it on the
+// H100: latency and the memory transactions, not the bytes (~12.6 MB read
+// and written at the bench batch, N 8190, K 16, C 9: ~0.004 ms at 3.35
+// TB/s). The first design ran one thread per ray: 8190 rays made 256
+// warps on 132 SMs, each thread walked its K samples twice with dependent
+// loads, lanes read `raws` and wrote `d_raws` K*C floats apart (32 lines
+// a warp instruction), and G, w and T*exp(-x) lived in runtime-indexed
+// arrays, in local memory. Here a group of gw lanes (the power of two at
+// or above the row length: 16 at K = 16, two rays a warp, ~4,100 warps)
+// takes one ray, lane = sample: sigma, delta, t, valid and the ws
+// cotangent are lane-contiguous loads; the ray's K*C raws are staged in
+// shared memory with 16-byte loads where aligned (`ncn_stage`), and its
+// d_raws = g_rend_c * w_s written from there as contiguous 16-byte words;
+// nothing per sample is kept in an array. Bits kept: the prefix
+// csum_s = x_0 + ... + x_s is walked in the forward's serial order by a
+// chain of __shfl_up_sync steps (a parallel scan would round differently,
+// and at the threshold could include a sample the forward left out), so
+// T, the mask T > T_threshold and w_s are the forward's bit for bit, and
+// d_raws equals g_rend (x) the forward's ws exactly; G_s is added in the
+// first design's order, and the suffix sum_{s>j} G_s*w_s is taken back
+// to front in its serial order by a chain of __shfl_down_sync steps, so
+// d_sigmas keeps the first design's bits.
+//
+// The segment launchers (`composite_seg_fwd` / `composite_seg_bwd`)
+// replace the flat layout's `composite_rays_compact` (ops/composite.py:
+// 86-144) with the same bodies over ray-major segments instead of dense
+// rows (a segment of 0..32 samples in the backward, the lanes past it
+// masked); they keep JAX's per-ray math and not its global cumsum minus
+// segment base.
+//
+// The forward's bound: memory. Per ray it reads K*(C+4) values and
+// writes K values once, with a handful of flops each; one thread per ray
+// (8190 rays) fills few warps, so latency matters as much as bandwidth.
 #include "common.cuh"
 
 namespace {
@@ -103,49 +127,104 @@ __global__ void composite_fwd_kernel(
   vr[n] = n_inc - (early ? 1 : 0);
 }
 
+// H3 backward: group grp of gw lanes takes ray blockIdx.x * (blockDim.x /
+// gw) + grp, lane s = sample s. Every lane runs the chains' max_len - 1
+// steps (warp-uniform), masked past its ray's length or past N.
+constexpr int BWD_THREADS = 256;
+
+// d_raws of one ray, g_rend_c * w_s for its n_vals = len*C values, written
+// contiguously by the gw lanes of its group from shared memory: 16-byte
+// stores where dst is 16-byte aligned.
+__device__ __forceinline__ void store_d_raws(float* __restrict__ dst,
+                                             int n_vals, int C,
+                                             const float* gr, const float* w,
+                                             int s, int gw) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int words = n_vals / 4;
+    for (int i = s; i < words; i += gw) {
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int e = 4 * i + k;
+        v[k] = __fmul_rn(gr[e % C], w[e / C]);
+      }
+      reinterpret_cast<float4*>(dst)[i] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    done = words * 4;
+  }
+  for (int e = done + s; e < n_vals; e += gw)
+    dst[e] = __fmul_rn(gr[e % C], w[e / C]);
+}
+
 template <class Rows>
-__global__ void composite_bwd_kernel(
+__global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
     const float* __restrict__ deltas, const float* __restrict__ ts,
     const uint8_t* __restrict__ valid, const float* __restrict__ g_op,
     const float* __restrict__ g_depth, const float* __restrict__ g_rend,
-    const float* __restrict__ g_ws, Rows rows, int N, int C, float thr,
-    float* __restrict__ d_sigmas, float* __restrict__ d_raws) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const size_t b = rows.base(n);
-  // the launchers refuse rows longer than MAXK; the clamp keeps the
-  // register arrays in bounds whatever the counts hold
-  const int K = min(rows.len(n), MAXK);
-  float gr[16];
-  for (int c = 0; c < C; ++c) gr[c] = g_rend[static_cast<size_t>(n) * C + c];
-  const float go = g_op[n], gd = g_depth[n];
-  float G[MAXK], W[MAXK], TE[MAXK];   // G_s, w_s, T_s*exp(-x_s)
-  float csum = 0.0f;
-  for (int s = 0; s < K; ++s) {
-    bool v = valid[b + s];
-    float x = clipped(sigmas[b + s], deltas[b + s], v);
-    csum = __fadd_rn(csum, x);
-    float T = expf(-__fsub_rn(csum, x));
-    bool inc = v && T > thr;
-    float w = inc ? __fmul_rn(-expm1f(-x), T) : 0.0f;
-    const float* r = raws + (b + s) * C;
-    float g = __fadd_rn(__fadd_rn(go, __fmul_rn(gd, ts[b + s])), g_ws[b + s]);
-    for (int c = 0; c < C; ++c) g = __fadd_rn(g, __fmul_rn(gr[c], r[c]));
-    G[s] = inc ? g : 0.0f;
-    W[s] = w;
-    TE[s] = inc ? __fmul_rn(T, expf(-x)) : 0.0f;
-    float* dr = d_raws + (b + s) * C;
-    for (int c = 0; c < C; ++c) dr[c] = __fmul_rn(gr[c], w);
+    const float* __restrict__ g_ws, Rows rows, int N, int C, int max_len,
+    int gw, float thr, float* __restrict__ d_sigmas,
+    float* __restrict__ d_raws) {
+  extern __shared__ float sm[];
+  const int s = threadIdx.x & (gw - 1), grp = threadIdx.x / gw;
+  const int n = blockIdx.x * (blockDim.x / gw) + grp;
+  float* rs = sm + grp * (gw * C + gw + C);   // the ray's raws, len x C
+  float* wsh = rs + gw * C;                   // its w_s
+  float* gr = wsh + gw;                       // its g_rend row
+  const bool live = n < N;
+  const size_t b = live ? rows.base(n) : 0;
+  // the launchers refuse rows longer than max_len <= gw; the clamp keeps
+  // the lanes in bounds whatever the counts hold
+  const int len = live ? min(rows.len(n), max_len) : 0;
+  if (live) {
+    ncn_stage<false>(raws + b * C, len * C, C, C, rs, s, gw);
+    for (int c = s; c < C; c += gw)
+      gr[c] = g_rend[static_cast<size_t>(n) * C + c];
   }
-  float suffix = 0.0f;   // sum_{s>j} G_s * w_s
-  for (int j = K - 1; j >= 0; --j) {
-    float dx = __fsub_rn(__fmul_rn(G[j], TE[j]), suffix);
-    suffix = __fadd_rn(suffix, __fmul_rn(G[j], W[j]));
-    float raw_x = __fmul_rn(sigmas[b + j], deltas[b + j]);
-    bool pass = valid[b + j] && raw_x > 0.0f && raw_x < SIGDT_MAX;
-    d_sigmas[b + j] = pass ? __fmul_rn(dx, deltas[b + j]) : 0.0f;
+  const bool in = s < len;
+  bool v = false;
+  float sig = 0.0f, del = 0.0f;
+  if (in) {
+    v = valid[b + s];
+    sig = sigmas[b + s];
+    del = deltas[b + s];
   }
+  const float x = clipped(sig, del, v);
+  float csum = __fadd_rn(0.0f, x);   // x_0 + ... + x_s, the forward's order
+  for (int k = 1; k < max_len; ++k) {
+    const float prev = __shfl_up_sync(FULL, csum, 1, gw);
+    if (s == k) csum = __fadd_rn(prev, x);
+  }
+  const float T = expf(-__fsub_rn(csum, x));
+  const bool inc = v && T > thr;
+  const float w = inc ? __fmul_rn(-expm1f(-x), T) : 0.0f;
+  __syncwarp();   // the group's raws and g_rend are staged
+  float G = 0.0f, TE = 0.0f;   // G_s and T_s*exp(-x_s) where included
+  if (inc) {
+    G = __fadd_rn(__fadd_rn(g_op[n], __fmul_rn(g_depth[n], ts[b + s])),
+                  g_ws[b + s]);
+    const float* r = rs + s * C;
+    for (int c = 0; c < C; ++c) G = __fadd_rn(G, __fmul_rn(gr[c], r[c]));
+    TE = __fmul_rn(T, expf(-x));
+  }
+  const float gw_s = __fmul_rn(G, w);
+  float suffix = __fadd_rn(0.0f, gw_s);   // sum_{s'>=s} G w, back to front
+  for (int k = max_len - 2; k >= 0; --k) {
+    const float next = __shfl_down_sync(FULL, suffix, 1, gw);
+    if (s == k) suffix = __fadd_rn(next, gw_s);
+  }
+  float after = __shfl_down_sync(FULL, suffix, 1, gw);   // sum_{s'>s}
+  if (s + 1 >= len) after = 0.0f;
+  if (in) {
+    const float dx = __fsub_rn(__fmul_rn(G, TE), after);
+    const float raw_x = __fmul_rn(sig, del);
+    const bool pass = v && raw_x > 0.0f && raw_x < SIGDT_MAX;
+    d_sigmas[b + s] = pass ? __fmul_rn(dx, del) : 0.0f;
+    wsh[s] = w;
+  }
+  __syncwarp();
+  if (live) store_d_raws(d_raws + b * C, len * C, C, gr, wsh, s, gw);
 }
 
 template <class Rows>
@@ -173,13 +252,17 @@ int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
                Rows rows, int N, int max_len, int C, float thr,
                void* d_sigmas, void* d_raws, cudaStream_t stream) {
   if (max_len > MAXK || C > 16) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 64;
-  composite_bwd_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
+  int gw = 1;   // the group: the power of two at or above the longest row
+  while (gw < max_len) gw <<= 1;
+  const int per_block = BWD_THREADS / gw;
+  const size_t bytes = sizeof(float) * per_block * (gw * C + gw + C);
+  composite_bwd_kernel<<<ncn_blocks(N, per_block), BWD_THREADS, bytes,
+                         stream>>>(
       static_cast<const float*>(sigmas), static_cast<const float*>(raws),
       static_cast<const float*>(deltas), static_cast<const float*>(ts),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(g_op),
       static_cast<const float*>(g_depth), static_cast<const float*>(g_rend),
-      static_cast<const float*>(g_ws), rows, N, C, thr,
+      static_cast<const float*>(g_ws), rows, N, C, max_len, gw, thr,
       static_cast<float*>(d_sigmas), static_cast<float*>(d_raws));
   return static_cast<int>(cudaGetLastError());
 }

@@ -38,8 +38,9 @@
 // sector. The 8 corners' products and sums keep the thread's order, so
 // the output is bit for bit the thread's; the tile's 32 x 2L outputs are
 // staged in shared memory and written as 16-byte words, in f32 or rounded
-// once to bf16. 16 warps a block at 52-54 registers: capping the
-// registers for more blocks an SM spills and loses.
+// once to bf16. 16 warps a block at 64 registers (the pair loader,
+// `ncn_load_pairs`, is shared with H5): capping the registers for more
+// blocks an SM spills and loses.
 //
 // Backward (H8): the table gradient, g[f] * w_c added to the 8 corner
 // rows x 2 features of a zeroed (total_rows, 2) f32 table, as tcnn does,
@@ -106,42 +107,6 @@ __device__ __forceinline__ void corners(const float* __restrict__ x,
   }
 }
 
-// The two halves of a float4 that holds rows 2k and 2k + 1: row r's.
-__device__ __forceinline__ float2 half_of(float4 q, int r) {
-  return (r & 1) ? make_float2(q.z, q.w) : make_float2(q.x, q.y);
-}
-
-// The 8 corners' rows as 4 pairs (a, a ^ S): S = 1 pairs the z neighbours
-// (a dense level), S = 4 the x neighbours (a hashed level, where x's prime
-// is 1). Each pair's first row comes as the float4 of its aligned row
-// pair, which holds the second row too when both share it; a lane whose
-// second row lies elsewhere loads it as a float2 (the other lanes are
-// masked off that load).
-template <int S>
-__device__ __forceinline__ void load_corners(const float* __restrict__ table,
-                                             const int row[8], float2 v[8]) {
-  float4 q[4];
-  float2 u[4];
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int a = S == 1 ? 2 * k : k;
-    q[k] = __ldg(reinterpret_cast<const float4*>(table) + (row[a] >> 1));
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int a = S == 1 ? 2 * k : k, b = a ^ S;
-    u[k] = make_float2(0.0f, 0.0f);
-    if ((row[b] >> 1) != (row[a] >> 1))
-      u[k] = __ldg(reinterpret_cast<const float2*>(table) + row[b]);
-  }
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int a = S == 1 ? 2 * k : k, b = a ^ S;
-    v[a] = half_of(q[k], row[a]);
-    v[b] = (row[b] >> 1) == (row[a] >> 1) ? half_of(q[k], row[b]) : u[k];
-  }
-}
-
 // H7: a block takes TILE consecutive samples (x staged once in shared
 // memory), warp w levels w, w + warps, ...; lane = sample. The blend is
 // the 8 corners in corner order, without FMA; the tile's outputs are
@@ -172,9 +137,9 @@ __global__ void __launch_bounds__(TILE * FWD_WARPS)
     corners(x3, levels, l, table_size, row, w, key);
     float2 v[8];
     if (levels[4 * l + 2])   // dense: warp-uniform
-      load_corners<1>(table, row, v);
+      ncn_load_pairs<1>(table, row, v);
     else
-      load_corners<4>(table, row, v);
+      ncn_load_pairs<4>(table, row, v);
     float a0 = 0.0f, a1 = 0.0f;
 #pragma unroll
     for (int c = 0; c < 8; ++c) {

@@ -16,7 +16,7 @@ from typing import Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from ..device import as_index
+from ..device import as_index, resolve_device
 
 TRIANG_STRATEGIES = ("all_images_triang", "same_image_triang",
                      "all_images_triang_val")
@@ -39,11 +39,12 @@ def build_triang_tables(h: int, w: int) -> TriangTables:
 
 
 class RaySampler:
-    """Triangle-batch sampler; tables live on `device`."""
+    """Triangle-batch sampler; tables live on `device` (None: the card;
+    the CPU only when asked for, as `device.resolve_device` rules)."""
 
     def __init__(self, strategy: str, batch_size: int, img_wh,
                  n_images: int, *, max_expand: int = 0,
-                 device: torch.device = torch.device("cpu")):
+                 device=None):
         if strategy not in TRIANG_STRATEGIES:
             raise NotImplementedError(
                 f"ray_sampling_strategy {strategy!r} is not ported yet "
@@ -54,7 +55,7 @@ class RaySampler:
         self.N = self.W * self.H
         self.n_images = n_images
         self.max_expand = max_expand
-        self.device = device
+        self.device = device = resolve_device(device)
         t = build_triang_tables(self.H, self.W)
         self.triang = TriangTables(*(torch.as_tensor(a, dtype=torch.int64,
                                                      device=device)

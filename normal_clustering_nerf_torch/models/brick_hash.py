@@ -196,6 +196,9 @@ def encode_kernel(table, x, spec: BrickGridSpec, out_dtype=torch.float32):
     from the f32 sum)."""
     M, dev, args = _kernel_args(x, spec)
     tab = kernels.check(table, "table", torch.float32, spec.table_shape(), dev)
+    if table.data_ptr() % 16:
+        raise ValueError("table: H5 reads aligned slot pairs as 16-byte "
+                         "words; the table must start 16-byte aligned")
     if out_dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"out_dtype {out_dtype}: f32 or bf16")
     out = torch.empty((M, spec.out_dim), dtype=out_dtype, device=dev)

@@ -73,8 +73,8 @@ def composite_grad_plain(sigmas, raws, deltas, ts, valid, T_threshold,
 
 
 def _check_inputs(sigmas, raws, deltas, ts, valid, max_k=32):
-    """The backward keeps K <= 32 values per ray in registers; the forward
-    keeps none and passes max_k=None."""
+    """The backward takes a ray on at most 32 lanes, a lane a sample, so
+    K <= 32; the forward keeps nothing per sample and passes max_k=None."""
     N, K = sigmas.shape
     C = raws.shape[-1]
     if (max_k is not None and K > max_k) or C > 16:
@@ -240,8 +240,9 @@ def composite_compact_kernel(sigmas, raws, deltas, ts, ray_start, ray_count,
 def composite_compact_grad_kernel(sigmas, raws, deltas, ts, ray_start,
                                   ray_count, valid, T_threshold, g_op,
                                   g_depth, g_rend, g_ws, max_len=None):
-    """`max_len` bounds the segments (the backward keeps <= 32 samples per
-    ray in registers); None reads it from `ray_count` (a host sync)."""
+    """`max_len` bounds the segments (the backward takes a ray on at most
+    32 lanes, a lane a sample, and sizes its lane groups by `max_len`);
+    None reads it from `ray_count` (a host sync)."""
     B, N, C, args, seg = _check_compact(sigmas, raws, deltas, ts, ray_start,
                                         ray_count, valid)
     if max_len is None:

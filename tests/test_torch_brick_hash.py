@@ -16,6 +16,11 @@ Tolerances (f32): forward rtol 1e-5, atol 1e-6 (the same products, the
 8 corner terms summed in another order: JAX folds 128 lanes, zeros
 included, with a matmul); table gradients atol 1e-5 of the largest entry
 (up to a few hundred terms per entry, scattered in another order).
+
+Also H5's load geometry (hypothesis: a corner's z pair lies in one
+32-byte sector, one aligned float4 exactly when lz0 is even) and the
+smoke's model of H5's warp loads (`chip_smoke.hash_grid_warp_loads` on
+`brick_slots`, counted per instruction and per warp) on hand-built warps.
 """
 import math
 
@@ -24,7 +29,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
+import chip_smoke
 from test_torch_common import J, N, T
 
 from normal_clustering_nerf_torch.models import brick_hash as tb
@@ -124,3 +131,77 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tb.encode_grad_kernel(T(x), T(g), spec_t)
     with pytest.raises(NotImplementedError):
         tb.brick_encode(T(table), T(x), spec_t, need_dx=True)
+
+
+@settings(max_examples=25, deadline=None, database=None)
+@given(seed=st.integers(0, 2 ** 16))
+def test_z_pairs_lie_in_one_sector(seed):
+    """H5 reads each (x, y) corner's z pair (corners 2k, 2k + 1) from one
+    32-byte sector of its 512-byte row: slot = lx*16 + ly*4 + lz, so
+    (lx*16 + ly*4)*8 bytes is a multiple of 32. The pair is one aligned
+    float4 (both slots in slot pair a >> 1) exactly when lz0 is even or
+    the corner sits on the top face (one slot); when lz0 = 1 the second
+    slot is the next float4's, still in the same sector."""
+    spec = tb.BrickGridSpec.create(n_levels=16, log2_bricks=13,
+                                   per_level_scale=BENCH_B)
+    x = T(face_points(np.random.default_rng(seed), spec, 300))
+    for l in range(spec.n_levels):
+        _, slots, _ = tb.level_geometry(x, spec, l)
+        for k in range(4):
+            a, b = slots[:, 2 * k], slots[:, 2 * k + 1]
+            assert torch.equal(a // 4, b // 4)           # one sector
+            lz0, top = a % 4, b == a
+            assert bool(((lz0 <= 2) & (top | (b == a + 1))).all())
+            assert torch.equal(a // 2 == b // 2, (lz0 % 2 == 0) | top)
+
+
+def test_brick_warp_load_model_on_hand_built_warps():
+    L = 1
+    # 33 samples (a ragged tile: the second tile has one live lane), all
+    # in one cell whose z pairs straddle a float4 (lz0 = 1): slots 1, 2 of
+    # each (x, y) corner, in sectors 0, 1, 4, 5 and lines 0, 1 of row 0
+    cell = torch.tensor([1, 2, 5, 6, 17, 18, 21, 22])
+    slots = cell.expand(33, L, 8)
+    a, m = chip_smoke.hash_grid_warp_loads(slots, (True,) * L, "tile")
+    assert a.shape == (2 * 8, 32)    # 2 tiles x (4 float4 + 4 float2)
+    assert int(m.any(1).sum()) == 16   # every float2 live
+    assert int(m[8:].sum()) == 8       # the second tile: one lane
+    assert chip_smoke.distinct_per_instruction(a, m) == (16, 16)
+    # each warp: 2 lines and 4 sectors across its 8 loads
+    assert chip_smoke.distinct_per_warp(a, m) == (4, 8)
+    a, m = chip_smoke.hash_grid_warp_loads(slots, (True,) * L, "thread")
+    assert int(m.any(1).sum()) == 16   # 2 warps (32 + 1 threads) x 8
+    assert chip_smoke.distinct_per_instruction(a, m) == (16, 16)
+    assert chip_smoke.distinct_per_warp(a, m) == (4, 8)
+    # lz0 even (0) and the top face (lz0 = lz1 = 2): no float2 is live
+    for cell in ([0, 1, 4, 5, 16, 17, 20, 21], [2, 2, 6, 6, 18, 18, 22, 22]):
+        a, m = chip_smoke.hash_grid_warp_loads(
+            torch.tensor(cell).expand(32, L, 8), (True,) * L, "tile")
+        assert int(m.any(1).sum()) == 4
+        assert chip_smoke.distinct_per_instruction(a, m) == (4, 4)
+        assert chip_smoke.distinct_per_warp(a, m) == (2, 4)
+    # 32 samples in 32 rows 4 KB apart, lz0 = 1: the thread mapping's
+    # warp is 2 samples x 16 levels; each tile load touches 32 sectors,
+    # the tile's warp 4 sectors a sample, as the thread's
+    rows = (torch.arange(32) * 512)[:, None, None]
+    slots = (rows + torch.tensor([1, 2, 5, 6, 17, 18, 21, 22])).expand(
+        32, L, 8)
+    a, m = chip_smoke.hash_grid_warp_loads(slots, (True,) * L, "tile")
+    assert chip_smoke.distinct_per_instruction(a, m) == (8 * 32, 8 * 32)
+    assert chip_smoke.distinct_per_warp(a, m) == (2 * 32, 4 * 32)
+    a, m = chip_smoke.hash_grid_warp_loads(slots, (True,) * L, "thread")
+    assert chip_smoke.distinct_per_instruction(a, m) == (8 * 32, 8 * 32)
+    assert chip_smoke.distinct_per_warp(a, m) == (2 * 32, 4 * 32)
+    # a masked lane touches nothing
+    part = m.clone()
+    part[:, 1:] = False
+    assert chip_smoke.distinct_per_warp(a, part) == (2, 4)
+    # the counts of a real encode: per warp never above per instruction
+    spec = tb.BrickGridSpec.create(n_levels=4, log2_bricks=8,
+                                   per_level_scale=BENCH_B)
+    x = T(face_points(np.random.default_rng(5), spec, 100))
+    counts = chip_smoke.warp_load_counts("brick", x, spec)
+    assert counts["M"] == 100
+    for mapping in ("thread", "tile"):
+        i, ln, sec, wln, wsec = counts[mapping]
+        assert wln <= ln and wsec <= sec and 0 < wsec <= 4 * 4 * 100

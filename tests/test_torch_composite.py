@@ -54,9 +54,12 @@ def test_forward_matches_jax(seed):
     assert (valid & (sig * dt >= tc.SIGDT_MAX)).any()    # clipped samples
 
 
+@pytest.mark.parametrize("K", [1, 16, 32])
 @pytest.mark.parametrize("seed", [2, 3])
-def test_backward_matches_jax_vjp_and_reference_grads(seed):
-    sig, raws, dt, ts, valid, cot = _case(seed)
+def test_backward_matches_jax_vjp_and_reference_grads(seed, K):
+    """At K = 1, 16 and 32: the row lengths for which H3's backward takes
+    a ray on a group of 1, 16 and 32 lanes."""
+    sig, raws, dt, ts, valid, cot = _case(seed, K=K)
     assert (valid & (sig * dt >= tc.SIGDT_MAX)).any()    # clip mask used
     _, vjp = jax.vjp(lambda s, r: _jax_outputs(s, r, dt, ts, valid),
                      J(sig), J(raws))
@@ -75,6 +78,19 @@ def test_backward_matches_jax_vjp_and_reference_grads(seed):
                            (d_raw_cuda, rt.grad, "d_raws reference")):
         np.testing.assert_allclose(N(got), np.asarray(ref), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+def test_d_raws_is_g_rend_times_forward_ws_bit_for_bit():
+    """d_raws = g_rend_c * w_s with w_s the forward's own ws, bit for bit:
+    the property `chip_smoke.py` holds H3's backward to against H3's
+    forward on the card."""
+    sig, raws, dt, ts, valid, cot = _case(7)
+    args = (T(sig), T(raws), T(dt), T(ts), T(valid), THR)
+    ws = tc.composite_plain(*args)[3]
+    _, d_raws = tc.composite_grad_plain(*args, *(T(c) for c in cot))
+    assert (N(ws) > 0).any()
+    np.testing.assert_array_equal(
+        N(d_raws), N(T(cot[2])[:, None, :] * ws[:, :, None]))
 
 
 def test_ws_cotangent_alone_reaches_sigmas():

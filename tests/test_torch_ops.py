@@ -159,7 +159,8 @@ def test_normals_from_ray_batch_and_grad():
 @pytest.mark.parametrize("expand", [0, 3])
 def test_triangle_sampler_with_injected_draws(expand):
     js = JS("all_images_triang", 96, (24, 20), 6, max_expand=expand)
-    ts = TS("all_images_triang", 96, (24, 20), 6, max_expand=expand)
+    ts = TS("all_images_triang", 96, (24, 20), 6, max_expand=expand,
+            device="cpu")
     key = jax.random.PRNGKey(expand)
     ref = js.sample(key)
     k_img, k_pix, _ = jax.random.split(key, 3)
