@@ -17,9 +17,15 @@ Phases (any failed check raises, so the script exits non-zero):
      take one batch of the main path's inputs: rays of the scene, a
      refreshed occupancy grid, the march's samples and the field's outputs
      on them. H1-H4 are held against their plain PyTorch versions on
-     those inputs, gradients included; H3 and H4 also at sigmas scaled up
-     per ray, so that rays terminate early and sigma*delta reaches its
-     clip; H3's backward also at K = 1, 16 and 32 on random rays (N rays,
+     those inputs, gradients included; H1 exact also at N - 3 rays (a
+     ragged last block), one and none, and on an empty and a full
+     bitfield, first-K and with the full tail; H3 and H4 also at sigmas
+     scaled up per ray, so that rays terminate early and sigma*delta
+     reaches its clip; H3's forward also bit for bit its serial-order
+     reference (`composite_serial`), there and at K = 1, 16, 32, 33 and
+     64 (and at C = 16) on random rays (N rays, one and none, with and
+     without T_start);
+     H3's backward also at K = 1, 16 and 32 on random rays (N rays,
      one and none), its d_raws bit for bit g_rend (x) H3 forward's own ws
      and its d_sigmas exactly 0 on invalid or clipped samples; H2's
      backward also under a bf16 cotangent read as bf16, with no
@@ -54,8 +60,9 @@ Phases (any failed check raises, so the script exits non-zero):
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
      T_start on a flat test round), H3's segment backward on segments of
-     every length 0..32, and H3's forward with T_start on the first test
-     round's samples;
+     every length 0..32 and its segment forward on every length 0..64
+     (bit for bit the serial order, with and without T_start), and H3's
+     forward with T_start on the first test round's samples;
   5. validation: counts to 0, `Trainer.validate()` on the 4 held-out
      views, counts read: the test-round march, the field and the
      compositing must have launched; every metric finite and rotation
@@ -97,7 +104,8 @@ Phases (any failed check raises, so the script exits non-zero):
      and H8 also on the training step's cotangent, and their gradient
      tables' zero fill alone; the fields' forwards also on the sv step's
      positions and at the refresh shape, with the modelled warp load
-     counts logged beside the times.
+     counts logged beside the times; H1 also on a full bitfield, and H3's
+     forward also at the first test round's shape with T_start.
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -717,12 +725,32 @@ def check_kernels(tr, gen):
     lo = math.sqrt(3.0) / kw["max_samples"]
     in_box = torch.clamp(torch.ceil((t2 - (t1 + lo * a[4])) / lo), 0, S)
     probes = int(torch.where(t1 >= 0, in_box, torch.zeros_like(in_box)).sum())
+    log(f"  rm/ray {float(mr.rm_samples) / N:.2f}, rays hitting the box "
+        f"{hit}, steps inside it {probes}")
+    # the edges: N - 3 rays (a ragged last block of the warps' blocks), one
+    # and none; an empty and a full bitfield, first-K and the full tail
+    bits = a[3]
+    full = torch.full_like(bits, 255)
+    edges = [(f"N={n}", tuple(x[:n] for x in a[:3]) + (bits, a[4][:n]), kw)
+             for n in (N - 3, 1, 0)]
+    edges += [(f"{name} bitfield, tail_k {tk}", a[:3] + (f, a[4]),
+               dict(kw, tail_k=tk))
+              for name, f in (("empty", torch.zeros_like(bits)),
+                              ("full", full)) for tk in (0, 16)]
+    for where, ea, ekw in edges:
+        got = rm.march_rays_train_bootstrap(*ea, **ekw)
+        ref = rm.march_rays_train_dense_plain(*ea, **ekw)
+        log(f"H1 march, {where}: rm {int(ref.rm_samples)}")
+        err = max(err, *(chk.equal(f"{f} ({where})", getattr(got, f),
+                                   getattr(ref, f))
+                         for f in ("t", "dt", "valid", "ray_count",
+                                   "rm_samples")))
     rec["march_bootstrap"] = dict(
         err=err, kernel=(lambda: rm.march_rays_train_bootstrap(*a, **kw)),
         plain=(lambda: rm.march_rays_train_dense_plain(*a, **kw)),
-        bound=bound(b, probes * STEP_OPS))
-    log(f"  rm/ray {float(mr.rm_samples) / N:.2f}, rays hitting the box "
-        f"{hit}, steps inside it {probes}")
+        bound=bound(b, probes * STEP_OPS),
+        variants={"full 128^3 bitfield": (
+            lambda: rm.march_rays_train_bootstrap(*a[:3], full, a[4], **kw))})
 
     # H2: triplane encode, forward in f32 and bf16, backward (f32 atomics)
     spec = tr.model.spec
@@ -818,13 +846,7 @@ def check_kernels(tr, gen):
         if tag == "opaque" and not (early and clipped):
             raise RuntimeError("the opaque input reaches neither early "
                                "termination nor the clip")
-        # sequential running sums vs torch.cumsum, expf vs torch.exp
-        errs["composite_fwd"].append(max(
-            chk.close("opacity", got[0], ref[0], 1e-5),
-            chk.close("depth", got[1], ref[1], 1e-5),
-            chk.close("rend", got[2], ref[2], 1e-5),
-            chk.close("ws", got[3], ref[3], 1e-5),
-            chk.equal("vr_samples", got[4], ref[4])))
+        errs["composite_fwd"].append(check_composite_fwd(chk, ca, got, ref))
         errs["composite_bwd"].append(check_composite_bwd(chk, ca, gs))
 
         # H4: distortion loss on the composite's weights
@@ -846,6 +868,24 @@ def check_kernels(tr, gen):
             log(f"H3 backward, random inputs: N={n} K={k} C={C}")
             errs["composite_bwd"].append(check_composite_bwd(
                 chk, cut, tuple(t[:n] for t in kgs)))
+    # H3's forward at K = 1, 16, 32, 33 and 64 (at C = 9 groups of 1 and
+    # 16 lanes: one chunk, one of 16, two, two and a sample, four) and at
+    # C = 16, K = 64 (32 lanes, two chunks), on N rays, one and none, with
+    # and without T_start (an eighth of the rays just above T_threshold)
+    for k, c in ((1, C), (16, C), (32, C), (33, C), (64, C), (64, 16)):
+        kca, _ = composite_case(N, k, c, gen)
+        T_start = torch.rand(N, generator=gen, device=x.device)
+        T_start[::8] = thr * (1.0 + 2.0 * T_start[::8])
+        for n in (N, 1, 0):
+            for tsn in (None, T_start[:n]):
+                cut = tuple(t[:n] for t in kca) + (thr,)
+                cut += () if tsn is None else (tsn,)
+                ref, got = cp.composite_plain(*cut), cp.composite_kernel(*cut)
+                log(f"H3 forward, random inputs: N={n} K={k} C={c}"
+                    f"{'' if tsn is None else ', T_start'}; rays ended early "
+                    f"{int((ref[4] < cut[4].sum(1)).sum())}")
+                errs["composite_fwd"].append(
+                    check_composite_fwd(chk, cut, got, ref))
     ca, da = ma, mda
     flops_fwd = N * K * (10 + 2 * C)
     rec["composite_fwd"] = dict(
@@ -892,6 +932,54 @@ def composite_case(N, K, C, gen):
     valid = torch.arange(K, device=dev)[None] < count[:, None]
     return ((sig, r(N, K, C), dt, torch.cumsum(dt, 1), valid),
             (r(N), r(N), r(N, C), r(N, K)))
+
+
+def composite_serial(sigmas, raws, deltas, ts, valid, thr, T_start=None):
+    """H3's forward as its first design computed it: one thread a ray, the
+    samples one after the other, in that thread's order of f32 operations
+    (each torch op on the card rounds once; expf and expm1f as torch.exp
+    and torch.expm1). The bit-for-bit reference of the lane-group kernel.
+    Returns (opacity, depth, rend, ws, vr_samples)."""
+    from normal_clustering_nerf_torch.ops.composite import SIGDT_MAX
+    N, K = sigmas.shape
+    csum, op, dp = (sigmas.new_zeros(N) for _ in range(3))
+    acc = raws.new_zeros((N, raws.shape[-1]))
+    ws = torch.zeros_like(sigmas)
+    n_inc = torch.zeros(N, dtype=torch.int32, device=sigmas.device)
+    early = torch.zeros(N, dtype=torch.bool, device=sigmas.device)
+    for s in range(K):
+        v = valid[:, s]
+        x = torch.clamp(torch.where(v, sigmas[:, s] * deltas[:, s], 0.0),
+                        0.0, SIGDT_MAX)
+        csum = csum + x
+        T = torch.exp(-(csum - x))
+        if T_start is not None:
+            T = T * T_start
+        alpha = -torch.expm1(-x)
+        inc = v & (T > thr)
+        w = torch.where(inc, alpha * T, 0.0)
+        ws[:, s] = w
+        op = torch.where(inc, op + w, op)
+        dp = torch.where(inc, dp + w * ts[:, s], dp)
+        acc = torch.where(inc[:, None], acc + w[:, None] * raws[:, s], acc)
+        n_inc += inc.int()
+        early |= inc & (T * (1.0 - alpha) <= thr)
+    return op, dp, acc, ws, n_inc - early.int()
+
+
+def check_composite_fwd(chk, ca, got, ref):
+    """H3's forward output `got` on the inputs `ca` (sigmas, raws, deltas,
+    ts, valid, T_threshold[, T_start]): against its plain version `ref`
+    within 1e-5 of the largest value (running sums against torch.cumsum
+    and einsum), and bit for bit against `composite_serial`. Returns the
+    largest error."""
+    ser = composite_serial(*ca)
+    names = ("opacity", "depth", "rend", "ws")
+    return max(
+        *(chk.close(nm, got[i], ref[i], 1e-5) for i, nm in enumerate(names)),
+        chk.equal("vr_samples", got[4], ref[4]),
+        *(chk.equal(f"{nm} = serial order", got[i], ser[i])
+          for i, nm in enumerate(names + ("vr_samples",))))
 
 
 def check_composite_bwd(chk, ca, gs):
@@ -1434,9 +1522,11 @@ def check_k1_adversarial(tr, occ, gen):
 
 
 def check_t_start(tr, first_round):
-    """H3's forward with T_start against its plain version, on the samples
-    of the held-out render's first round through the field, with T_start
-    drawn per ray (an eighth of the rays just above T_threshold)."""
+    """H3's forward with T_start against its plain version and its serial
+    order (`check_composite_fwd`), on the samples of the held-out render's
+    first round through the field, with T_start drawn per ray (an eighth
+    of the rays just above T_threshold). Returns the largest error and
+    the kernel's `variants` entry at this shape."""
     from normal_clustering_nerf_torch.models.rendering import field_raws
     from normal_clustering_nerf_torch.ops import composite as cp
     (ro, rd, *_), _, (t, dt, valid, _) = first_round
@@ -1455,13 +1545,10 @@ def check_t_start(tr, first_round):
     log(f"H3 composite with T_start: N={Nt} K={K} C={ca[1].shape[-1]}; rays "
         f"ended early {int((ref[4] < valid.sum(1)).sum())}")
     chk = Check()
-    err = max(chk.close("opacity", got[0], ref[0], 1e-5),
-              chk.close("depth", got[1], ref[1], 1e-5),
-              chk.close("rend", got[2], ref[2], 1e-5),
-              chk.close("ws", got[3], ref[3], 1e-5),
-              chk.equal("vr_samples", got[4], ref[4]))
+    err = check_composite_fwd(chk, ca, got, ref)
     chk.done("H3 with T_start")
-    return err
+    return err, {f"first test round N={Nt} K={K}, T_start": (
+        lambda: cp.composite_kernel(*ca))}
 
 
 def steps_in(t0, t_end, hit, lo, S):
@@ -1722,6 +1809,7 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
         if tag == "main":
             mka, mda, mref = ka, da, ref
     errs["composite_seg_bwd"].append(check_seg_lengths(chk, C, thr, gen))
+    errs["composite_seg_fwd"].append(check_seg_fwd_lengths(chk, C, thr, gen))
     ka, da = mka, mda
     n_valid = int(v.sum())
     flops = n_valid * (10 + 2 * C)
@@ -1786,31 +1874,43 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
     return rec
 
 
-SEG_REPEATS = 64   # rays of each segment length 0..32 in `check_seg_lengths`
+SEG_REPEATS = 64   # rays of each segment length in `segment_case`
+SEG_FWD_LONGEST = 64   # test_n_samples: the flat test round's segments
 
 
-def check_seg_lengths(chk, C, thr, gen):
-    """H3's segment backward on segments of every length 0..32
+def segment_case(longest, C, gen):
+    """Flat composite inputs on segments of every length 0..longest
     (SEG_REPEATS rays each, in shuffled order, a tenth of the slots
-    invalid, unused slots after the last segment) against its plain
-    version (the tolerances of `check_composite_bwd`), `max_len` read
-    from the counts as in training; d_raws bit for bit g_rend (x) the
-    segment forward's own ws. Returns the largest error."""
-    from normal_clustering_nerf_torch.ops import composite as cp
-    dev = gen.device
-    order = torch.randperm(33 * SEG_REPEATS, generator=gen, device=dev)
-    count = (torch.arange(33 * SEG_REPEATS, device=dev) % 33)[order].int()
+    invalid, 37 unused slots after the last segment): the (B,) slots
+    (sigmas, raws, deltas, ts), the segments (count, start, ray_id, used,
+    valid) and the four cotangents, drawn as `composite_case` draws."""
+    dev, L = gen.device, longest + 1
+    order = torch.randperm(L * SEG_REPEATS, generator=gen, device=dev)
+    count = (torch.arange(L * SEG_REPEATS, device=dev) % L)[order].int()
     N = count.shape[0]
     start = (torch.cumsum(count, 0) - count).int()
     B = int(count.sum()) + 37
     (sig, raws, dt, ts, _), gs = composite_case(B, 1, C, gen)
-    sig, raws, dt, ts = sig[:, 0], raws[:, 0], dt[:, 0], ts[:, 0]
     rid = torch.repeat_interleave(torch.arange(N, device=dev), count.long())
     used = torch.zeros(B, dtype=torch.bool, device=dev)
     used[:rid.shape[0]] = True
     rid = torch.cat([rid, rid.new_full((B - rid.shape[0],), N - 1)]).int()
     valid = used & (torch.rand(B, generator=gen, device=dev) >= 0.1)
-    g = (gs[0][:N], gs[1][:N], gs[2][:N], gs[3][:, 0])
+    return ((sig[:, 0], raws[:, 0], dt[:, 0], ts[:, 0]),
+            (count, start, rid, used, valid),
+            (gs[0][:N], gs[1][:N], gs[2][:N], gs[3][:, 0]))
+
+
+def check_seg_lengths(chk, C, thr, gen):
+    """H3's segment backward on segments of every length 0..32
+    (`segment_case`) against its plain version (the tolerances of
+    `check_composite_bwd`), `max_len` read from the counts as in
+    training; d_raws bit for bit g_rend (x) the segment forward's own ws.
+    Returns the largest error."""
+    from normal_clustering_nerf_torch.ops import composite as cp
+    (sig, raws, dt, ts), (count, start, rid, used, valid), g = segment_case(
+        32, C, gen)
+    N, B = count.shape[0], sig.shape[0]
     log(f"H3 segment backward, every length 0..32: N={N} B={B} C={C}")
     ref = cp.composite_compact_grad_plain(sig, raws, dt, ts, rid, start,
                                           valid, N, thr, *g)
@@ -1823,6 +1923,46 @@ def check_seg_lengths(chk, C, thr, gen):
                chk.close("d_raws", got[1], ref[1], 1e-5),
                chk.equal("d_raws = g_rend x H3 segment fwd's ws", got[1],
                          want))
+
+
+def check_seg_fwd_lengths(chk, C, thr, gen):
+    """H3's segment forward on segments of every length 0..SEG_FWD_LONGEST
+    (`segment_case`), with and without T_start: against its plain version
+    (the tolerances of `check_composite_fwd`) and bit for bit against
+    `composite_serial` on the segments laid out as dense rows. Returns the
+    largest error."""
+    from normal_clustering_nerf_torch.ops import composite as cp
+    (sig, raws, dt, ts), (count, start, rid, _, valid), _ = segment_case(
+        SEG_FWD_LONGEST, C, gen)
+    N, B, dev = count.shape[0], sig.shape[0], gen.device
+    # the dense rows of the segments: slot start + p of ray n at (n, p)
+    p = torch.arange(SEG_FWD_LONGEST, device=dev)
+    inside = p[None] < count[:, None]
+    slot = torch.where(inside, start[:, None] + p[None], 0).long()
+    rows = [x[slot] for x in (sig, raws, dt, ts)] + [valid[slot] & inside]
+    T_start = torch.rand(N, generator=gen, device=dev)
+    T_start[::8] = thr * (1.0 + 2.0 * T_start[::8])
+    err = 0.0
+    for tsn in (None, T_start):
+        extra = () if tsn is None else (tsn,)
+        log(f"H3 segment forward, every length 0..{SEG_FWD_LONGEST}: N={N} "
+            f"B={B} C={C}{'' if tsn is None else ', T_start'}")
+        got = cp.composite_compact_kernel(sig, raws, dt, ts, start, count,
+                                          valid, thr, *extra)
+        ref = cp.composite_compact_plain(sig, raws, dt, ts, rid, start, valid,
+                                         N, thr, *extra)
+        ser = composite_serial(*rows, thr, *extra)
+        ws = torch.zeros(B, device=dev)
+        ws[slot[inside]] = ser[3][inside]
+        names = ("opacity", "depth", "rend", "ws", "vr_samples")
+        err = max(err,
+                  *(chk.close(nm, got[i], ref[i], 1e-5)
+                    for i, nm in enumerate(names[:4])),
+                  chk.equal("vr_samples", got[4], ref[4]),
+                  *(chk.equal(f"{nm} = serial order", got[i],
+                              ws if i == 3 else ser[i])
+                    for i, nm in enumerate(names)))
+    return err
 
 
 REPLACES = {
@@ -2170,9 +2310,9 @@ def main():
     rec.update(check_segments(tr, train_in, flat_in, flat_round, gen))
     for name, r in early.items():
         rec[name]["err"] = max(rec[name]["err"], r["err"])
-    rec["composite_fwd"]["err"] = max(
-        rec["composite_fwd"]["err"],
-        check_t_start(tr, rec["march_sv_test_round"].pop("first_round")))
+    err, rec["composite_fwd"]["variants"] = check_t_start(
+        tr, rec["march_sv_test_round"].pop("first_round"))
+    rec["composite_fwd"]["err"] = max(rec["composite_fwd"]["err"], err)
     for name, c in validate(tr, "triplane", ("march_sv_test_round",
                                              "triplane_fwd", "composite_fwd"),
                             ("march_fine_test_round",)).items():

@@ -19,9 +19,33 @@
 //   dL/dx_j = G_j*T_j*exp(-x_j) - sum_{s>j} G_s*w_s,
 //   dL/dsigma_j = delta_j * dL/dx_j inside the clip, dL/draw_jc = g_rend_c*w_j.
 //
-// Forward design (unchanged since it was first written): one thread per
-// ray, one pass with running sums. It stores nothing per sample beyond
-// its outputs.
+// Forward design. It replaces `composite_rays` (normal_clustering_nerf_tpu/
+// ops/composite.py:34) and, with T_start, its inference rounds. What
+// bounds it on the H100: latency and the memory transactions, not the
+// bytes (~7.3 MB read and written at the bench batch, N 8190, K 16, C 9:
+// ~0.0022 ms at 3.35 TB/s). The first design ran one thread per ray in
+// blocks of 64 (128 blocks of two warps on 132 SMs): each thread walked
+// its K samples with dependent loads, lanes read `raws` K*C floats apart
+// and wrote `ws` K floats apart (32 lines a warp instruction), and the
+// channel sums lived in a runtime-indexed acc[16], in a stack frame. Here
+// it takes the backward's mapping: a group of gw lanes takes one ray,
+// lane = sample, in chunks of gw samples; sigma, delta, t, valid and ws
+// are lane-contiguous, and the chunk's raws are staged in shared memory
+// (`ncn_stage`, 16-byte loads where aligned). Bits kept: the prefix
+// csum_s is the shuffle-up chain in the serial order (a chunk starts
+// from the last csum of the one before), so T, the mask and w_s are the
+// first design's; w_s and t_s go to shared memory, and the group's lanes
+// take the C + 2 sums round-robin (rend_c as sum c, opacity C, depth
+// C + 1), each over the included samples in the serial order (the next
+// sample's operand loaded before the add), a lane's sum carried across
+// chunks in a register. The sample counter is the popc of the inclusion
+// ballots, less one if an included sample has T*(1 - alpha) <=
+// T_threshold. Nothing is kept in a runtime-indexed array. A warp's time
+// is its chains and sum loops, whatever its width, so gw is as narrow as
+// the sums allow: the power of two at or above min(row bound, C + 2) (16
+// at C = 9), so that a row of several chunks leaves each lane one sum.
+// The segment launcher takes that width with no bound on the segment
+// lengths (and no host sync to find one).
 //
 // Backward design. It replaces the autodiff backward of `composite_rays`
 // (normal_clustering_nerf_tpu/ops/composite.py:34). What bounds it on the
@@ -50,13 +74,9 @@
 // The segment launchers (`composite_seg_fwd` / `composite_seg_bwd`)
 // replace the flat layout's `composite_rays_compact` (ops/composite.py:
 // 86-144) with the same bodies over ray-major segments instead of dense
-// rows (a segment of 0..32 samples in the backward, the lanes past it
-// masked); they keep JAX's per-ray math and not its global cumsum minus
-// segment base.
-//
-// The forward's bound: memory. Per ray it reads K*(C+4) values and
-// writes K values once, with a handful of flops each; one thread per ray
-// (8190 rays) fills few warps, so latency matters as much as bandwidth.
+// rows (a segment of 0..32 samples in the backward, any length in the
+// forward, the lanes past it masked); they keep JAX's per-ray math and
+// not its global cumsum minus segment base.
 #include "common.cuh"
 
 namespace {
@@ -85,46 +105,122 @@ __device__ __forceinline__ float clipped(float sigma, float delta, bool valid) {
   return fminf(fmaxf(x, 0.0f), SIGDT_MAX);
 }
 
+// The C + 2 sums of a ray: rend_c (i < C), opacity (C), depth (C + 1).
+__device__ __forceinline__ void store_sum(int i, float v, int n, int C,
+                                          float* __restrict__ opacity,
+                                          float* __restrict__ depth,
+                                          float* __restrict__ rend) {
+  if (i < C)
+    rend[static_cast<size_t>(n) * C + i] = v;
+  else if (i == C)
+    opacity[n] = v;
+  else
+    depth[n] = v;
+}
+
+// H3 forward: group grp of gw lanes takes ray blockIdx.x * (blockDim.x /
+// gw) + grp, lane s = sample c0 + s of each chunk [c0, c0 + gw). The
+// chunk loop and its chain run the warp's longest row (warp-uniform),
+// masked past each group's own row or past N. Every lane owns the sums
+// s, s + gw, ...; the launchers take gw >= C + 2 wherever a row may take
+// several chunks, so a lane then owns one sum, carried across them in
+// `acc`.
+constexpr int FWD_THREADS = 256;
+
 template <class Rows>
-__global__ void composite_fwd_kernel(
+__global__ void __launch_bounds__(FWD_THREADS) composite_fwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
     const float* __restrict__ deltas, const float* __restrict__ ts,
     const uint8_t* __restrict__ valid, const float* __restrict__ T_start,
-    Rows rows, int N, int C, float thr, float* __restrict__ opacity,
+    Rows rows, int N, int C, int gw, float thr, float* __restrict__ opacity,
     float* __restrict__ depth, float* __restrict__ rend,
     float* __restrict__ ws, int* __restrict__ vr) {
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= N) return;
-  const size_t b = rows.base(n);
-  const int K = rows.len(n);
-  const float t_start = T_start ? T_start[n] : 1.0f;
-  float csum = 0.0f, op = 0.0f, dp = 0.0f;
-  float acc[16];
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
+  extern __shared__ float sm[];
+  const int s = threadIdx.x & (gw - 1), grp = threadIdx.x / gw;
+  const int n = blockIdx.x * (blockDim.x / gw) + grp;
+  float* rs = sm + grp * (gw * C + 2 * gw);   // the chunk's raws, gw x C
+  float* wsh = rs + gw * C;                   // its w_s
+  float* tsh = wsh + gw;                      // its t_s
+  const bool live = n < N;
+  const size_t b = live ? rows.base(n) : 0;
+  const int len = live ? rows.len(n) : 0;
+  const float t_start = live && T_start ? T_start[n] : 1.0f;
+  const int wlen = __reduce_max_sync(FULL, len);
+  // the group's bits of a warp ballot
+  const int base = (threadIdx.x & 31) & ~(gw - 1);
+  const unsigned low = gw == 32 ? FULL : (1u << gw) - 1u;
+  const int n_sums = C + 2;
+  float carry = 0.0f;   // csum of the samples before the chunk
+  float acc = 0.0f;     // sum s
   int n_inc = 0;
   bool early = false;
-  for (int s = 0; s < K; ++s) {
-    bool v = valid[b + s];
-    float x = clipped(sigmas[b + s], deltas[b + s], v);
-    csum = __fadd_rn(csum, x);
+  // at least one chunk, so that an empty row still writes its sums
+  const int n_chunks = max((wlen + gw - 1) / gw, 1);
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c0 = ch * gw;
+    const int clen = max(min(gw, len - c0), 0);   // the group's samples
+    const int steps = min(gw, wlen - c0);         // the chain's, uniform
+    const size_t bs = b + c0 + s;
+    if (clen > 0) ncn_stage<false>(raws + (b + c0) * C, clen * C, C, C, rs, s, gw);
+    const bool in = s < clen;
+    bool v = false;
+    float sig = 0.0f, del = 0.0f, t = 0.0f;
+    if (in) {
+      v = valid[bs];
+      sig = sigmas[bs];
+      del = deltas[bs];
+      t = ts[bs];
+    }
+    const float x = clipped(sig, del, v);
+    float csum = __fadd_rn(carry, x);   // carry + x_c0 + ... + x_s, in order
+    for (int k = 1; k < steps; ++k) {
+      const float prev = __shfl_up_sync(FULL, csum, 1, gw);
+      if (s == k) csum = __fadd_rn(prev, x);
+    }
+    carry = __shfl_sync(FULL, csum, gw - 1, gw);
     float T = expf(-__fsub_rn(csum, x));
     if (T_start) T = __fmul_rn(T, t_start);
-    float alpha = -expm1f(-x);
-    bool inc = v && T > thr;
-    float w = inc ? __fmul_rn(alpha, T) : 0.0f;
-    ws[b + s] = w;
-    if (!inc) continue;
-    op = __fadd_rn(op, w);
-    dp = __fadd_rn(dp, __fmul_rn(w, ts[b + s]));
-    const float* r = raws + (b + s) * C;
-    for (int c = 0; c < C; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(w, r[c]));
-    ++n_inc;
-    early |= __fmul_rn(T, __fsub_rn(1.0f, alpha)) <= thr;
+    const float alpha = -expm1f(-x);
+    const bool inc = v && T > thr;
+    const float w = inc ? __fmul_rn(alpha, T) : 0.0f;
+    if (in) ws[bs] = w;
+    const unsigned incm = (__ballot_sync(FULL, inc) >> base) & low;
+    const unsigned endm =
+        (__ballot_sync(FULL, inc && __fmul_rn(T, __fsub_rn(1.0f, alpha)) <= thr)
+         >> base) & low;
+    n_inc += __popc(incm);
+    early |= endm != 0u;
+    wsh[s] = w;
+    tsh[s] = t;
+    __syncwarp();   // the group's raws, w and t are staged
+    for (int i = s; i < n_sums; i += gw) {
+      auto operand = [&](unsigned m) {   // the term of m's lowest sample
+        const int j = __ffs(m) - 1;
+        const float wj = wsh[j];
+        return i < C    ? __fmul_rn(wj, rs[j * C + i])
+               : i == C ? wj
+                        : __fmul_rn(wj, tsh[j]);
+      };
+      float a = i == s ? acc : 0.0f;
+      if (incm) {
+        float p = operand(incm);
+        for (unsigned m = incm & (incm - 1u); m; m &= m - 1u) {
+          const float q = operand(m);
+          a = __fadd_rn(a, p);
+          p = q;
+        }
+        a = __fadd_rn(a, p);
+      }
+      if (i == s)
+        acc = a;
+      else if (live)   // a single chunk: the sum is complete
+        store_sum(i, a, n, C, opacity, depth, rend);
+    }
+    __syncwarp();   // the staging is read before the next chunk
   }
-  opacity[n] = op;
-  depth[n] = dp;
-  for (int c = 0; c < C; ++c) rend[static_cast<size_t>(n) * C + c] = acc[c];
-  vr[n] = n_inc - (early ? 1 : 0);
+  if (!live) return;
+  if (s < n_sums) store_sum(s, acc, n, C, opacity, depth, rend);
+  if (s == 0) vr[n] = n_inc - (early ? 1 : 0);
 }
 
 // H3 backward: group grp of gw lanes takes ray blockIdx.x * (blockDim.x /
@@ -227,18 +323,31 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
   if (live) store_d_raws(d_raws + b * C, len * C, C, gr, wsh, s, gw);
 }
 
+// gw: the power of two at or above the row bound max_len, at most 32
+inline int group_width(int max_len) {
+  int gw = 1;
+  while (gw < max_len && gw < 32) gw <<= 1;
+  return gw;
+}
+
 template <class Rows>
 int launch_fwd(const void* sigmas, const void* raws, const void* deltas,
                const void* ts, const void* valid, const void* T_start,
-               Rows rows, int N, int C, float thr, void* opacity, void* depth,
-               void* rend, void* ws, void* vr, cudaStream_t stream) {
+               Rows rows, int N, int max_len, int C, float thr, void* opacity,
+               void* depth, void* rend, void* ws, void* vr,
+               cudaStream_t stream) {
   if (C > 16) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 64;
-  composite_fwd_kernel<<<ncn_blocks(N, threads), threads, 0, stream>>>(
+  // as narrow as a row of several chunks allows (a sum a lane: gw >= C +
+  // 2), and no wider than the row bound
+  const int gw = group_width(min(max_len, C + 2));
+  const int per_block = FWD_THREADS / gw;
+  const size_t bytes = sizeof(float) * per_block * (gw * C + 2 * gw);
+  composite_fwd_kernel<<<ncn_blocks(N, per_block), FWD_THREADS, bytes,
+                         stream>>>(
       static_cast<const float*>(sigmas), static_cast<const float*>(raws),
       static_cast<const float*>(deltas), static_cast<const float*>(ts),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(T_start),
-      rows, N, C, thr,
+      rows, N, C, gw, thr,
       static_cast<float*>(opacity), static_cast<float*>(depth),
       static_cast<float*>(rend), static_cast<float*>(ws),
       static_cast<int*>(vr));
@@ -252,8 +361,7 @@ int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
                Rows rows, int N, int max_len, int C, float thr,
                void* d_sigmas, void* d_raws, cudaStream_t stream) {
   if (max_len > MAXK || C > 16) return static_cast<int>(cudaErrorInvalidValue);
-  int gw = 1;   // the group: the power of two at or above the longest row
-  while (gw < max_len) gw <<= 1;
+  const int gw = group_width(max_len);
   const int per_block = BWD_THREADS / gw;
   const size_t bytes = sizeof(float) * per_block * (gw * C + gw + C);
   composite_bwd_kernel<<<ncn_blocks(N, per_block), BWD_THREADS, bytes,
@@ -269,8 +377,8 @@ int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
 
 }  // namespace
 
-// T_start may be null (training); the forward keeps no per-sample array,
-// so it takes any K (inference rounds use up to 64).
+// T_start may be null (training); the forward takes rows of more than 32
+// samples in chunks, so it takes any K (inference rounds use up to 64).
 extern "C" int composite_fwd(const void* sigmas, const void* raws,
                              const void* deltas, const void* ts,
                              const void* valid, const void* T_start, int N,
@@ -278,7 +386,7 @@ extern "C" int composite_fwd(const void* sigmas, const void* raws,
                              void* depth, void* rend, void* ws, void* vr,
                              cudaStream_t stream) {
   return launch_fwd(sigmas, raws, deltas, ts, valid, T_start, DenseRows{K},
-                    N, C, thr, opacity, depth, rend, ws, vr, stream);
+                    N, K, C, thr, opacity, depth, rend, ws, vr, stream);
 }
 
 extern "C" int composite_bwd(const void* sigmas, const void* raws,
@@ -296,6 +404,7 @@ extern "C" int composite_bwd(const void* sigmas, const void* raws,
 // The flat layout (composite_rays_compact): ray n's samples are the budget
 // slots [ray_start[n], ray_start[n] + ray_count[n]); slots outside every
 // segment are not touched (the caller zeroes ws, d_sigmas and d_raws).
+// The forward takes segments of any length (in chunks).
 extern "C" int composite_seg_fwd(const void* sigmas, const void* raws,
                                  const void* deltas, const void* ts,
                                  const void* valid, const void* T_start,
@@ -305,8 +414,8 @@ extern "C" int composite_seg_fwd(const void* sigmas, const void* raws,
                                  cudaStream_t stream) {
   SegmentRows rows{static_cast<const int*>(ray_start),
                    static_cast<const int*>(ray_count)};
-  return launch_fwd(sigmas, raws, deltas, ts, valid, T_start, rows, N, C, thr,
-                    opacity, depth, rend, ws, vr, stream);
+  return launch_fwd(sigmas, raws, deltas, ts, valid, T_start, rows, N,
+                    C + 2, C, thr, opacity, depth, rend, ws, vr, stream);
 }
 
 // max_len: the longest segment, which the caller has checked (<= 32).

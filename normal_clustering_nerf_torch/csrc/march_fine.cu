@@ -1,5 +1,5 @@
-// H9, H10, H11: the bitfield march with one warp per ray, and the flat
-// ray-major compaction.
+// H1, H9, H10, H11: the bitfield march with one warp per ray (the
+// bootstrap march among them), and the flat ray-major compaction.
 //
 // Replaces the Pallas bit probe P2 (experiments/pallas_gather_probe.py:84
 // `pallas_bit`, the occupancy test (w[c >> 5] >> (c & 31)) & 1 over an
@@ -29,6 +29,13 @@
 // is skipped whole) and `trunc_rays` counts the rays whose candidates went
 // past KB (:500-512).
 //
+// H1 `march_bootstrap`, the bootstrap march of the first 512 training
+// steps (`march_rays_train_dense` with coarse_occ=None, :402: S = 128
+// steps of sqrt(3)/128, K = 16), is a launcher of H9's body without pass
+// 0 and with every selected sample kept. At S <= 128 the body keeps pass
+// 1's (at most 4) ballot words in registers, and pass 2 recomputes only
+// its lane's t from them: no step's cell or bit is probed twice.
+//
 // H10 `march_fine_test_round`, the same warp probe from each ray's
 // cursor over a window of S steps: K == 0 writes the whole (N, S) window
 // (t, dt = lo, valid) and the cursor S steps on for alive rays; K > 0
@@ -43,17 +50,19 @@
 //
 // Exactness: t, xyz and the cells are the reference's operations in its
 // order (t_step_grid :120, occupancy_lookup :83-86, coarse_lookup
-// :387-390) with __fmul_rn/__fadd_rn/__fdiv_rn and --fmad=false, as H1.
-// The cell, lattice-step and rank helpers are K1's too
+// :387-390) with __fmul_rn/__fadd_rn/__fdiv_rn and --fmad=false (x /
+// mip_bound stays a division), so samples at cell boundaries select the
+// reference's cells. The cell, lattice-step and rank helpers are K1's too
 // (march_common.cuh).
 //
 // Bound on the H100: latency and the 256 KB bitfield's cache traffic.
 // P2's work at its shape is N*S probes; the outputs are 9 bytes per slot
 // (H9: per kept sample; H10 full window: per step, 75 MB at 8192 x 1024).
-// The design answers H1's one-thread-per-ray serial walk (2*S probes per
+// The design answers a one-thread-per-ray serial walk (2*S probes per
 // thread, fewer than 2 warps per scheduler at 8190 rays) with 8190 warps
 // that fill the 132 SMs, each step's probe on its own lane and the
-// selection by ballots instead of a serial rank walk.
+// selection by ballots instead of a serial rank walk; a block adds its
+// rays' rm (and trunc) to the batch totals with one atomic, not 8.
 #include "march_common.cuh"
 
 namespace {
@@ -87,6 +96,10 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   return r;
 }
 
+// H9's body (and H1's, with neither COARSE nor more than 128 steps). The
+// block's rm and trunc counts are summed in shared memory and added to
+// `sums` by one atomic each, not one per ray.
+template <bool COARSE, bool SHORT>
 __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ hits_t, const uint32_t* __restrict__ bits,
@@ -95,125 +108,155 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     float mb, float* __restrict__ t_out, float* __restrict__ dt_out,
     uint8_t* __restrict__ valid_out, int* __restrict__ count_out,
     int* __restrict__ sums) {
-  __shared__ unsigned cand_s[WARPS][MAX_BLOCK_WORDS];
+  __shared__ unsigned cand_s[COARSE ? WARPS : 1][COARSE ? MAX_BLOCK_WORDS : 1];
+  __shared__ int warp_rm[WARPS], warp_cut[WARPS];
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int n = blockIdx.x * WARPS + wib;
-  if (n >= N) return;   // the whole warp leaves together
-  Ray r = load_ray(rays_o, rays_d, n);
-  const float t1 = hits_t[2 * n];
-  r.t2 = hits_t[2 * n + 1];
-  r.hit = t1 >= 0.0f;
-  r.t0 = __fadd_rn(t1, __fmul_rn(lo, noise[n]));
-  unsigned* cand = cand_s[wib];
+  int rm = 0;
+  bool cut = false;
+  if (n < N) {   // the whole warp takes this branch or not
+    Ray r = load_ray(rays_o, rays_d, n);
+    const float t1 = hits_t[2 * n];
+    r.t2 = hits_t[2 * n + 1];
+    r.hit = t1 >= 0.0f;
+    r.t0 = __fadd_rn(t1, __fmul_rn(lo, noise[n]));
+    unsigned* cand = cand_s[COARSE ? wib : 0];
 
-  // pass 0 (two-level march): the candidate blocks, and the KB-th of them
-  int k_end = S;          // fine steps probed: k < k_end
-  bool extra = false;     // a candidate block past the KB-th exists
-  if (KB > 0) {
-    const int n_blocks = S / 4;
-    int found = 0, kb_block = -1;
-    for (int jw = 0; jw * 32 < n_blocks; ++jw) {
-      if (!r.hit || !(step_t(r.t0, 4 * 32 * jw, lo) < r.t2)) break;
-      const int b = jw * 32 + lane;
-      bool c = false;
-      if (b < n_blocks) {
-        float tb = step_t(r.t0, 4 * b, lo);
-        c = tb < r.t2 && coarse[cell_at(r, tb, mb, G / 8)] > 0;
-      }
-      const unsigned m = __ballot_sync(FULL, c);
-      if (lane == 0) cand[jw] = m;
-      const int pc = __popc(m);
-      if (kb_block >= 0) {          // only whether more candidates exist
-        extra = pc > 0;
-        if (extra) break;
-        continue;
-      }
-      if (found + pc >= KB) {
-        const int need = KB - found;
-        kb_block = jw * 32 + nth_bit(m, need);
-        extra = pc > need;
-        if (extra) break;
-      }
-      found += pc;
-    }
-    // fewer than KB candidates: every block may hold kept steps (the words
-    // never scanned lie past t2, where no chunk is probed)
-    if (kb_block >= 0) k_end = 4 * (kb_block + 1);
-    __syncwarp();
-  }
-
-  // one chunk of 32 steps: the occupied-and-kept ballot of steps 32j + lane
-  auto probe = [&](int j, float* t_lane) -> unsigned {
-    const int k = 32 * j + lane;
-    const float t = step_t(r.t0, k, lo);
-    *t_lane = t;
-    bool inc = k < k_end && t < r.t2;
-    if (inc && KB > 0) {
-      const int blk = k >> 2;
-      inc = (cand[blk >> 5] >> (blk & 31)) & 1u;
-    }
-    if (inc) inc = bit_at(bits, cell_at(r, t, mb, G));
-    return __ballot_sync(FULL, inc);
-  };
-  // a chunk is skipped whole when its first step is past t2 (t grows with
-  // k) or, in the two-level march, when its 8 blocks hold no candidate
-  auto chunk_live = [&](int j) -> bool {
-    if (!r.hit || 32 * j >= k_end || !(step_t(r.t0, 32 * j, lo) < r.t2))
-      return false;
-    if (KB > 0) return ((cand[j >> 2] >> ((8 * j) & 31)) & 0xffu) != 0u;
-    return true;
-  };
-
-  // pass 1: occupied count
-  int m_tot = 0;
-  const int n_chunks = (k_end + 31) / 32;
-  float t;
-  for (int j = 0; j < n_chunks; ++j) {
-    if (!r.hit || !(step_t(r.t0, 32 * j, lo) < r.t2)) break;
-    if (!chunk_live(j)) continue;
-    m_tot += __popc(probe(j, &t));
-  }
-
-  const bool tail = tail_k > 0;
-  const int K1 = tail ? max(K - tail_k, 0) : K;
-  const int K2 = tail_k;
-  const int E = max(m_tot - K1, 0);
-  // rm: the samples stratified_budget selects; the first Kout are kept
-  const int rm = tail ? min(m_tot, K1) + min(E, K2) : min(m_tot, K);
-  const int n_valid = min(rm, Kout);
-  const size_t base = static_cast<size_t>(n) * Kout;
-
-  // pass 2: each kept rank writes its slot
-  if (n_valid > 0) {
-    const int last = target_rank(n_valid - 1, K1, K2, E, tail);
-    int seen = 0;
-    for (int j = 0; j < n_chunks && seen < last; ++j) {
-      if (!chunk_live(j)) continue;
-      const unsigned m = probe(j, &t);
-      if ((m >> lane) & 1u) {
-        int span;
-        const int slot = slot_of_rank(seen + __popc(m & lanes_below()) + 1,
-                                      K1, K2, E, tail, &span);
-        if (slot >= 0 && slot < n_valid) {
-          t_out[base + slot] = t;
-          dt_out[base + slot] = __fmul_rn(lo, static_cast<float>(span));
-          valid_out[base + slot] = 1;
+    // pass 0 (two-level march): the candidate blocks, and the KB-th of them
+    int k_end = S;          // fine steps probed: k < k_end
+    bool extra = false;     // a candidate block past the KB-th exists
+    if constexpr (COARSE) {
+      const int n_blocks = S / 4;
+      int found = 0, kb_block = -1;
+      for (int jw = 0; jw * 32 < n_blocks; ++jw) {
+        if (!r.hit || !(step_t(r.t0, 4 * 32 * jw, lo) < r.t2)) break;
+        const int b = jw * 32 + lane;
+        bool c = false;
+        if (b < n_blocks) {
+          float tb = step_t(r.t0, 4 * b, lo);
+          c = tb < r.t2 && coarse[cell_at(r, tb, mb, G / 8)] > 0;
         }
+        const unsigned m = __ballot_sync(FULL, c);
+        if (lane == 0) cand[jw] = m;
+        const int pc = __popc(m);
+        if (kb_block >= 0) {          // only whether more candidates exist
+          extra = pc > 0;
+          if (extra) break;
+          continue;
+        }
+        if (found + pc >= KB) {
+          const int need = KB - found;
+          kb_block = jw * 32 + nth_bit(m, need);
+          extra = pc > need;
+          if (extra) break;
+        }
+        found += pc;
       }
-      seen += __popc(m);
+      // fewer than KB candidates: every block may hold kept steps (the
+      // words never scanned lie past t2, where no chunk is probed)
+      if (kb_block >= 0) k_end = 4 * (kb_block + 1);
+      __syncwarp();
     }
-  }
-  for (int slot = n_valid + lane; slot < Kout; slot += 32) {
-    t_out[base + slot] = 0.0f;
-    dt_out[base + slot] = 0.0f;
-    valid_out[base + slot] = 0;
-  }
-  if (lane == 0) {
-    count_out[n] = n_valid;
-    if (rm) atomicAdd(sums, rm);
+
+    // one chunk of 32 steps: the occupied-and-kept ballot of steps 32j + lane
+    auto probe = [&](int j) -> unsigned {
+      const int k = 32 * j + lane;
+      const float t = step_t(r.t0, k, lo);
+      bool inc = k < k_end && t < r.t2;
+      if (COARSE && inc) {
+        const int blk = k >> 2;
+        inc = (cand[blk >> 5] >> (blk & 31)) & 1u;
+      }
+      if (inc) inc = bit_at(bits, cell_at(r, t, mb, G));
+      return __ballot_sync(FULL, inc);
+    };
+    // a chunk is skipped whole when its first step is past t2 (t grows with
+    // k) or, in the two-level march, when its 8 blocks hold no candidate
+    auto chunk_live = [&](int j) -> bool {
+      if (!r.hit || 32 * j >= k_end || !(step_t(r.t0, 32 * j, lo) < r.t2))
+        return false;
+      if (COARSE) return ((cand[j >> 2] >> ((8 * j) & 31)) & 0xffu) != 0u;
+      return true;
+    };
+
+    // pass 1: occupied count; at S <= 128 the (at most 4) ballots are kept
+    // in registers, so pass 2 probes nothing again
+    int m_tot = 0;
+    const int n_chunks = (k_end + 31) / 32;
+    unsigned word[4] = {0u, 0u, 0u, 0u};
+    if constexpr (SHORT) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (chunk_live(j)) {
+          word[j] = probe(j);
+          m_tot += __popc(word[j]);
+        }
+    } else {
+      for (int j = 0; j < n_chunks; ++j) {
+        if (!r.hit || !(step_t(r.t0, 32 * j, lo) < r.t2)) break;
+        if (chunk_live(j)) m_tot += __popc(probe(j));
+      }
+    }
+
+    const bool tail = tail_k > 0;
+    const int K1 = tail ? max(K - tail_k, 0) : K;
+    const int K2 = tail_k;
+    const int E = max(m_tot - K1, 0);
+    // rm: the samples stratified_budget selects; the first Kout are kept
+    rm = tail ? min(m_tot, K1) + min(E, K2) : min(m_tot, K);
+    const int n_valid = min(rm, Kout);
+    const size_t base = static_cast<size_t>(n) * Kout;
+
+    // pass 2: each kept rank writes its slot
+    if (n_valid > 0) {
+      const int last = target_rank(n_valid - 1, K1, K2, E, tail);
+      int seen = 0;
+      auto emit = [&](int j, unsigned m) {
+        if ((m >> lane) & 1u) {
+          int span;
+          const int slot = slot_of_rank(seen + __popc(m & lanes_below()) + 1,
+                                        K1, K2, E, tail, &span);
+          if (slot >= 0 && slot < n_valid) {
+            t_out[base + slot] = step_t(r.t0, 32 * j + lane, lo);
+            dt_out[base + slot] = __fmul_rn(lo, static_cast<float>(span));
+            valid_out[base + slot] = 1;
+          }
+        }
+        seen += __popc(m);
+      };
+      if constexpr (SHORT) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (seen < last) emit(j, word[j]);
+      } else {
+        for (int j = 0; j < n_chunks && seen < last; ++j)
+          if (chunk_live(j)) emit(j, probe(j));
+      }
+    }
+    for (int slot = n_valid + lane; slot < Kout; slot += 32) {
+      t_out[base + slot] = 0.0f;
+      dt_out[base + slot] = 0.0f;
+      valid_out[base + slot] = 0;
+    }
+    if (lane == 0) count_out[n] = n_valid;
     // first-K: only under-filled rays lost samples; a stratified tail is
     // biased by any skipped candidate block
-    if (extra && (tail || n_valid < K)) atomicAdd(sums + 1, 1);
+    cut = extra && (tail || n_valid < K);
+  }
+  if (lane == 0) {
+    warp_rm[wib] = rm;
+    warp_cut[wib] = cut;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int a = 0, c = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      a += warp_rm[w];
+      c += warp_cut[w];
+    }
+    if (a) atomicAdd(sums, a);
+    if (COARSE && c) atomicAdd(sums + 1, c);
   }
 }
 
@@ -324,10 +367,30 @@ __global__ void __launch_bounds__(WARPS * 32) compact_kernel(
   }
 }
 
+template <bool COARSE, bool SHORT>
+int launch_train(const void* rays_o, const void* rays_d, const void* hits_t,
+                 const void* bitfield, const void* noise, const void* coarse,
+                 int N, int S, int K, int Kout, int tail_k, int G, int KB,
+                 float lo, float mip_bound, void* t_out, void* dt_out,
+                 void* valid_out, void* count_out, void* sums,
+                 cudaStream_t stream) {
+  march_fine_train_kernel<COARSE, SHORT>
+      <<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
+          static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
+          static_cast<const float*>(hits_t),
+          static_cast<const uint32_t*>(bitfield),
+          static_cast<const float*>(noise), static_cast<const uint8_t*>(coarse),
+          N, S, K, Kout, tail_k, G, KB, lo, mip_bound,
+          static_cast<float*>(t_out), static_cast<float*>(dt_out),
+          static_cast<uint8_t*>(valid_out), static_cast<int*>(count_out),
+          static_cast<int*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // coarse may be null (no two-level march: KB must then be 0). sums: [rm,
-// trunc], zeroed by the caller.
+// trunc], zeroed by the caller (trunc is written only when KB > 0).
 extern "C" int march_fine_train(const void* rays_o, const void* rays_d,
                                 const void* hits_t, const void* bitfield,
                                 const void* noise, const void* coarse, int N,
@@ -338,15 +401,26 @@ extern "C" int march_fine_train(const void* rays_o, const void* rays_d,
                                 cudaStream_t stream) {
   if (KB > 0 && (coarse == nullptr || S / 4 > 32 * MAX_BLOCK_WORDS))
     return static_cast<int>(cudaErrorInvalidValue);
-  march_fine_train_kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
-      static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
-      static_cast<const float*>(hits_t), static_cast<const uint32_t*>(bitfield),
-      static_cast<const float*>(noise), static_cast<const uint8_t*>(coarse),
-      N, S, K, Kout, tail_k, G, KB, lo, mip_bound,
-      static_cast<float*>(t_out), static_cast<float*>(dt_out),
-      static_cast<uint8_t*>(valid_out), static_cast<int*>(count_out),
-      static_cast<int*>(sums));
-  return static_cast<int>(cudaGetLastError());
+  auto launch = KB > 0     ? launch_train<true, false>
+                : S <= 128 ? launch_train<false, true>
+                           : launch_train<false, false>;
+  return launch(rays_o, rays_d, hits_t, bitfield, noise, coarse, N, S, K,
+                Kout, tail_k, G, KB, lo, mip_bound, t_out, dt_out, valid_out,
+                count_out, sums, stream);
+}
+
+// H1: the bootstrap march, H9 without the coarse mask and with every
+// selected sample kept (Kout = K); rm_out: one int, zeroed by the caller.
+extern "C" int march_bootstrap(const void* rays_o, const void* rays_d,
+                               const void* hits_t, const void* bitfield,
+                               const void* noise, int N, int S, int K,
+                               int tail_k, int G, float lo, float mip_bound,
+                               void* t_out, void* dt_out, void* valid_out,
+                               void* count_out, void* rm_out,
+                               cudaStream_t stream) {
+  return march_fine_train(rays_o, rays_d, hits_t, bitfield, noise, nullptr, N,
+                          S, K, K, tail_k, G, 0, lo, mip_bound, t_out, dt_out,
+                          valid_out, count_out, rm_out, stream);
 }
 
 // K == 0: full-window mode, (N, S) outputs; K > 0: first-K mode, (N, K).

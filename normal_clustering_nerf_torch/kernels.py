@@ -168,7 +168,8 @@ def check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
     return ptr(t)
 
 
-MARCH = Kernel("march_bootstrap", "march.cu",
+# H1, the bootstrap march: a launcher of H9's body
+MARCH = Kernel("march_bootstrap", "march_fine.cu",
                [P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P])
 TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F, I, I])

@@ -74,7 +74,8 @@ def composite_grad_plain(sigmas, raws, deltas, ts, valid, T_threshold,
 
 def _check_inputs(sigmas, raws, deltas, ts, valid, max_k=32):
     """The backward takes a ray on at most 32 lanes, a lane a sample, so
-    K <= 32; the forward keeps nothing per sample and passes max_k=None."""
+    K <= 32; the forward takes longer rows in chunks of 32 and passes
+    max_k=None."""
     N, K = sigmas.shape
     C = raws.shape[-1]
     if (max_k is not None and K > max_k) or C > 16:

@@ -3,7 +3,7 @@ for a uniform step grid (exp_step_factor 0) and one cascade:
 
   * `march_rays_train_bootstrap`: the bootstrap march of the first
     `bootstrap_steps` training steps, every step probed in the bitfield;
-    kernel H1 (`csrc/march.cu`, a thread per ray);
+    kernel H1 (`csrc/march_fine.cu`, a launcher of H9's body);
   * `march_rays_train_dense`: the bitfield march over `march_block` steps,
     optionally two-level through the coarse mask; kernel H9
     (`csrc/march_fine.cu`, a warp per ray, the port of the Pallas bit
@@ -311,7 +311,7 @@ def march_rays_train_bootstrap(rays_o, rays_d, hits_t, bitfield, noise, *,
                                tail_k=0) -> DenseMarchResult:
     """The bootstrap march of the first `bootstrap_steps` training steps
     (rendering.py:166-176): `march_rays_train_dense` without the coarse
-    mask, at S_boot coarse steps; kernel H1 (one thread per ray).
+    mask, at S_boot coarse steps; kernel H1 (H9's body, a warp per ray).
 
     rays_o, rays_d: (N, 3) f32; hits_t: (N, 2) box interval (-1 on miss);
     bitfield: (G^3/8,) uint8; noise: (N,) first-step jitter in [0, 1).

@@ -7,7 +7,9 @@ depth, rend AND ws, which feeds the distortion loss).
 Tolerances: vr_samples exact; f32 outputs rtol 1e-5, atol 1e-6 (prefix
 sums accumulated in another order); gradients rtol 1e-4, atol 1e-5
 (the closed form multiplies the same terms in another order than
-autodiff, over K = 16 suffix sums).
+autodiff, over K = 16 suffix sums); the flat layout's forward against
+`composite_rays_compact` rtol 2e-5, atol 2e-6 (JAX's global cumsum,
+as in tests/test_torch_flat.py).
 """
 import jax
 import numpy as np
@@ -107,11 +109,13 @@ def test_ws_cotangent_alone_reaches_sigmas():
     np.testing.assert_allclose(N(st.grad), ref, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("K", [16, 64])
+@pytest.mark.parametrize("K", [1, 16, 32, 33, 64])
 def test_forward_with_T_start_matches_jax(K):
     """Inference rounds continue each ray from its transmittance so far
     (composite.py:60-61), at the test renderer's K up to 64; T_start near
-    the threshold makes rays stop on their first sample."""
+    the threshold makes rays stop on their first sample. The K are the
+    edges of H3 forward's lanes at C = 9: a group of 1 lane, and groups
+    of 16 taking a row in one chunk, two, two and a sample, and four."""
     sig, raws, dt, ts, valid, _ = _case(6 + K, K=K)
     rng = np.random.default_rng(K)
     T_start = rng.uniform(0.0, 1.0, sig.shape[0]).astype(np.float32)
@@ -129,6 +133,51 @@ def test_forward_with_T_start_matches_jax(K):
     with pytest.raises(NotImplementedError):
         tc.composite_rays(T(sig).requires_grad_(True), T(raws), T(dt),
                           T(ts), T(valid), THR, T_start=T(T_start))
+
+
+@pytest.mark.parametrize("with_t_start", [False, True])
+def test_segment_forward_on_every_length_matches_jax(with_t_start):
+    """The flat layout's forward (the plain version of H3's segment
+    launcher) on segments of every length 0..64, in shuffled order: the
+    lengths a flat test round gives it (test_n_samples = 64), which the
+    launcher takes on a warp in chunks of 32. Against
+    `composite_rays_compact`, eager (`jax.disable_jit()`), within the
+    tolerance of tests/test_torch_flat.py: the batch's sigma*delta sums
+    to ~60, where JAX's global cumsum minus the segment base stays inside
+    it. A tenth of the segments' slots are invalid, 7 padding slots
+    follow the last segment."""
+    rng = np.random.default_rng(11)
+    count = rng.permutation(65).astype(np.int32)
+    n, used_slots = count.shape[0], int(count.sum())
+    start = (np.cumsum(count) - count).astype(np.int32)
+    B = used_slots + 7
+    ray_id = np.full(B, n - 1, np.int32)
+    ray_id[:used_slots] = np.repeat(np.arange(n), count)
+    valid = (np.arange(B) < used_slots) & (rng.random(B) >= 0.1)
+    dt = rng.uniform(0.002, 0.02, B).astype(np.float32)
+    ts = np.cumsum(dt).astype(np.float32)
+    sig = (8.0 * rng.random(B) ** 2).astype(np.float32)
+    raws = rng.standard_normal((B, 9)).astype(np.float32)
+    t_start = None
+    if with_t_start:
+        t_start = rng.random(n).astype(np.float32)
+        t_start[::5] = THR * 1.5   # rays that enter just above the threshold
+    with jax.disable_jit():
+        ref = jc.composite_rays_compact(
+            J(sig), J(raws), J(dt), J(ts), J(ray_id), J(start), J(valid), n,
+            THR, T_start=None if t_start is None else J(t_start))
+    out = tc.composite_rays_compact(
+        T(sig), T(raws), T(dt), T(ts), T(ray_id), T(start), T(valid), n, THR,
+        T_start=None if t_start is None else T(t_start), ray_count=T(count))
+    for k in ("opacity", "depth", "rend", "ws"):
+        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]), rtol=2e-5,
+                                   atol=2e-6, err_msg=k)
+    np.testing.assert_array_equal(N(out["vr_samples"]),
+                                  np.asarray(ref["vr_samples"]))
+    n_valid = np.bincount(ray_id[valid], minlength=n)
+    assert (N(out["vr_samples"]) > 32).any()   # two chunks' worth kept
+    if with_t_start:   # rays entering near T_threshold end early
+        assert (N(out["vr_samples"]) < n_valid).any()
 
 
 def test_kernel_wrapper_refuses_wide_rows():

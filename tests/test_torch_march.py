@@ -110,3 +110,15 @@ def test_kernel_wrapper_refuses_non_uniform_steps():
             T(o), T(d), T(hits), T(bitfield), T(noise), cascades=1,
             scale=2.0, exp_step_factor=1 / 256, grid_size=32,
             max_samples=1024, samples_per_ray=16, march_steps=128)
+
+
+def test_bootstrap_march_is_a_launcher_of_the_fine_march():
+    """H1 runs H9's warp-per-ray body: its launcher sits in march_fine.cu
+    beside H9's, and the thread-per-ray march.cu is gone."""
+    from normal_clustering_nerf_torch import kernels
+    assert kernels.MARCH.name == "march_bootstrap"
+    assert kernels.MARCH.source == "march_fine.cu"
+    assert kernels.MARCH.source == kernels.MARCH_FINE_TRAIN.source
+    assert not (kernels.CSRC / "march.cu").exists()
+    src = (kernels.CSRC / "march_fine.cu").read_text()
+    assert 'extern "C" int march_bootstrap(' in src

@@ -1,0 +1,103 @@
+#!/usr/bin/env python3
+"""Device time of the bootstrap march (H1) and of the dense compositing
+forward (H3) as the main path calls them.
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 time_calls.py              # this checkout
+    python3 time_calls.py --root DIR   # the checkout at DIR
+
+It builds the bench trainer (triplane field) of the checkout at `--root`
+(`normal_clustering_nerf_torch.bench`), takes one training step (the
+first refresh of the occupancy grid) and captures the arguments of the
+calls that `models/rendering.py` makes: `march_rays_train_bootstrap` and
+`composite_rays` in a bootstrap step, and the first `composite_rays` of a
+render of the held-out views (the first round, with T_start). It times
+each captured call, and the march on a full bitfield, under
+`torch.no_grad()`, each the mean of 20 replays of a CUDA graph of one
+call (`time_encodes.device_ms`). The calls go through the wrappers'
+public signatures, which every checkout of the port shares, so two
+checkouts compare in one call when the script runs in each in turns.
+Prints the card's name and power limit, then one JSON line.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+from time_encodes import device_ms
+
+
+def captured(module, name, run):
+    """Run `run()` with `module.<name>` spied on; return the (args, kwargs)
+    of its first call."""
+    fn, seen = getattr(module, name), []
+
+    def spy(*args, **kw):
+        if not seen:
+            seen.append((args, kw))
+        return fn(*args, **kw)
+    setattr(module, name, spy)
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    if not seen:
+        raise RuntimeError(f"no call of {name}")
+    return seen[0]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(
+        os.path.abspath(__file__)), help="checkout whose package is timed")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_calls: CUDA is not available", file=sys.stderr)
+        sys.exit(1)
+    sys.path.insert(0, os.path.abspath(args.root))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0
+          else "nvidia-smi: not available", flush=True)
+    t0 = time.perf_counter()
+    import normal_clustering_nerf_torch as package
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    from normal_clustering_nerf_torch.models import rendering
+    tr = build_trainer(bench_config(), device="cuda")
+    tr.mark_invisible_cells()
+    tr.fit(1)
+    step = lambda: tr.train_step_core(bootstrap=True)   # noqa: E731
+    march = captured(rendering, "march_rays_train_bootstrap", step)
+    comp = captured(rendering, "composite_rays", step)
+    with torch.no_grad():
+        first = captured(rendering, "composite_rays",
+                         lambda: tr.render_images(tr.scene_test.poses))
+    a, kw = march
+    full = a[:3] + (torch.full_like(a[3], 255),) + a[4:]
+    calls = {
+        "march_bootstrap": (a, kw, rendering.march_rays_train_bootstrap),
+        "march_bootstrap, full bitfield": (
+            full, kw, rendering.march_rays_train_bootstrap),
+        "composite_fwd": comp + (rendering.composite_rays,),
+        "composite_fwd, first test round": first + (rendering.composite_rays,),
+    }
+    out = {"package": os.path.dirname(package.__file__)}
+    for where, (ca, ckw, fn) in calls.items():
+        def call(ca=ca, ckw=ckw, fn=fn):
+            with torch.no_grad():
+                return fn(*ca, **ckw)
+        out[where] = {"shapes": [list(t.shape) for t in ca[:2]],
+                      "ms": device_ms(call)}
+    out["march_kw"] = kw
+    out["seconds"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
