@@ -24,7 +24,9 @@ Phases (any failed check raises, so the script exits non-zero):
      reaches its clip; H3's forward also bit for bit its serial-order
      reference (`composite_serial`), there and at K = 1, 16, 32, 33 and
      64 (and at C = 16) on random rays (N rays, one and none, with and
-     without T_start);
+     without T_start); H4's forward and backward also bit for bit their
+     serial-order reference (`distortion_serial`), there and at K = 1,
+     16, 32, 33 and 64 on random rows (N rays, one and none);
      H3's backward also at K = 1, 16 and 32 on random rays (N rays,
      one and none), its d_raws bit for bit g_rend (x) H3 forward's own ws
      and its d_sigmas exactly 0 on invalid or clipped samples; H2's
@@ -61,7 +63,9 @@ Phases (any failed check raises, so the script exits non-zero):
      for bit against the dense launchers on the flat batch (and with
      T_start on a flat test round), H3's segment backward on segments of
      every length 0..32 and its segment forward on every length 0..64
-     (bit for bit the serial order, with and without T_start), and H3's
+     (bit for bit the serial order, with and without T_start), H4's
+     segment launchers on every length 0..64 (bit for bit the serial
+     order and dense H4), and H3's
      forward with T_start on the first test round's samples;
   5. validation: counts to 0, `Trainer.validate()` on the 4 held-out
      views, counts read: the test-round march, the field and the
@@ -852,11 +856,9 @@ def check_kernels(tr, gen):
         # H4: distortion loss on the composite's weights
         da = (ref[3].contiguous(), mr.dt, mr.t, mr.valid)
         log(f"H4 distortion, {tag} sigmas: N={N} K={K}")
-        dref, dgot = ds.distortion_plain(*da), ds.distortion_kernel(*da)
-        errs["distortion_fwd"].append(chk.close("loss", dgot, dref, 1e-5))
-        errs["distortion_bwd"].append(chk.close(
-            "d_ws", ds.distortion_grad_kernel(gl, *da),
-            ds.distortion_grad_plain(gl, *da), 1e-4))
+        for k, e in zip(("distortion_fwd", "distortion_bwd"),
+                        check_distortion(chk, da, gl)):
+            errs[k].append(e)
         if tag == "main":   # timed and bounded at the main path's input
             ma, mda, mgot = ca, da, got
     # H3's backward at K = 1, 16 and 32 (lane groups of 1, 16 and 32), on
@@ -886,6 +888,17 @@ def check_kernels(tr, gen):
                     f"{int((ref[4] < cut[4].sum(1)).sum())}")
                 errs["composite_fwd"].append(
                     check_composite_fwd(chk, cut, got, ref))
+    # H4 at K = 1, 16, 32, 33 and 64 (chunks of 16 samples on 4 lanes: a
+    # run of one sample; one chunk; two; three, the last of one sample,
+    # with rows off 16-byte alignment; four) on N rays, one and none
+    for k in (1, 16, 32, 33, 64):
+        kda, kg = distortion_case(N, k, gen)
+        for n in (N, 1, 0):
+            log(f"H4 distortion, random inputs: N={n} K={k}")
+            for name, e in zip(("distortion_fwd", "distortion_bwd"),
+                               check_distortion(chk, tuple(t[:n] for t in kda),
+                                                kg[:n])):
+                errs[name].append(e)
     ca, da = ma, mda
     flops_fwd = N * K * (10 + 2 * C)
     rec["composite_fwd"] = dict(
@@ -965,6 +978,76 @@ def composite_serial(sigmas, raws, deltas, ts, valid, thr, T_start=None):
         n_inc += inc.int()
         early |= inc & (T * (1.0 - alpha) <= thr)
     return op, dp, acc, ws, n_inc - early.int()
+
+
+def distortion_case(N, K, gen):
+    """Dense H4 inputs (ws, deltas, ts, valid) and a cotangent on random
+    rows: weights in [0, 1/K) scaled per ray (a row sums to less than 1,
+    as a ray's compositing weights do), t rising along each row, valid a
+    random prefix of each row with a tenth of it invalid at random."""
+    dev = gen.device
+
+    def u(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+    dt = 0.005 + 0.045 * u(N, K)
+    count = torch.clamp((u(N) * (K + 1)).long(), max=K)
+    valid = ((torch.arange(K, device=dev)[None] < count[:, None])
+             & (u(N, K) >= 0.1))
+    return ((u(N, K) * (u(N, 1) / max(K, 1)), dt,
+             torch.cumsum(dt, 1) + u(N, 1), valid),
+            torch.randn(N, generator=gen, device=dev))
+
+
+def distortion_serial(ws, deltas, ts, valid, g=None):
+    """H4 as its thread-a-ray design computed it: the samples one after
+    the other, in that thread's order of f32 operations (each torch op
+    rounds once). The bit-for-bit reference of the lane-group kernels. Returns the (N,) loss or, given the (N,) cotangent g, the
+    closed-form backward's (N, K) d_ws (0 on invalid samples)."""
+    N, K = ws.shape
+    W = A = out = ws.new_zeros(N)
+
+    def w_of(s):
+        return torch.where(valid[:, s], ws[:, s], 0.0)
+    if g is None:
+        for s in range(K):
+            w = w_of(s)
+            wt = w * ts[:, s]
+            W, A = W + w, A + wt
+            per = (2.0 * (A * (W - w) - W * (A - wt))
+                   + ((1.0 / 3.0) * w) * w * deltas[:, s])
+            out = torch.where(valid[:, s], out + per, out)
+        return out
+    Wk = Ak = ws.new_zeros(N)
+    for s in range(K):
+        w = w_of(s)
+        Wk, Ak = Wk + w, Ak + w * ts[:, s]
+    d_ws = torch.zeros_like(ws)
+    for j in range(K):
+        w, t = w_of(j), ts[:, j]
+        head = t * W - A   # W_{j-1}, A_{j-1}
+        W, A = W + w, A + w * t
+        tail = (Ak - A) - t * (Wk - W)
+        d = (g * 2.0) * (head + tail) + ((g * (2.0 / 3.0)) * w) * deltas[:, j]
+        d_ws[:, j] = torch.where(valid[:, j], d, 0.0)
+    return d_ws
+
+
+def check_distortion(chk, da, g):
+    """H4's dense forward and backward on the inputs `da` (ws, deltas, ts,
+    valid) and the cotangent `g`: against the plain versions (within 1e-5
+    and 1e-4 of the largest value: torch.cumsum and a sum in another
+    order, a closed form grouped otherwise) and bit for bit against
+    `distortion_serial`. Returns the forward's and the backward's largest
+    errors."""
+    from normal_clustering_nerf_torch.ops import distortion as ds
+    loss, d_ws = ds.distortion_kernel(*da), ds.distortion_grad_kernel(g, *da)
+    return (max(chk.close("loss", loss, ds.distortion_plain(*da), 1e-5),
+                chk.equal("loss = serial order", loss,
+                          distortion_serial(*da))),
+            max(chk.close("d_ws", d_ws, ds.distortion_grad_plain(g, *da),
+                          1e-4),
+                chk.equal("d_ws = serial order", d_ws,
+                          distortion_serial(*da, g))))
 
 
 def check_composite_fwd(chk, ca, got, ref):
@@ -1799,17 +1882,23 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
         log(f"H4 segments, {tag} sigmas: N={N} B={B}")
         errs["distortion_seg_fwd"].append(max(
             chk.close("loss", dgot, dref, 1e-5),
-            chk.equal("loss = dense H4", dgot, ds.distortion_kernel(*ddn))))
+            chk.equal("loss = dense H4", dgot, ds.distortion_kernel(*ddn)),
+            chk.equal("loss = serial order", dgot, distortion_serial(*ddn))))
         gg = ds.distortion_compact_grad_kernel(gl, *da, v, *seg)
         errs["distortion_seg_bwd"].append(max(
             chk.close("d_ws", gg, ds.distortion_compact_grad_plain(
                 gl, *da, mr.ray_id, mr.ray_start, v, N), 1e-4),
             chk.equal("d_ws = dense H4", gg[v],
-                      ds.distortion_grad_kernel(gl, *ddn)[at])))
+                      ds.distortion_grad_kernel(gl, *ddn)[at]),
+            chk.equal("d_ws = serial order", gg[v],
+                      distortion_serial(*ddn, gl)[at])))
         if tag == "main":
             mka, mda, mref = ka, da, ref
     errs["composite_seg_bwd"].append(check_seg_lengths(chk, C, thr, gen))
     errs["composite_seg_fwd"].append(check_seg_fwd_lengths(chk, C, thr, gen))
+    for k, e in zip(("distortion_seg_fwd", "distortion_seg_bwd"),
+                    check_seg_distortion_lengths(chk, gen)):
+        errs[k].append(e)
     ka, da = mka, mda
     n_valid = int(v.sum())
     flops = n_valid * (10 + 2 * C)
@@ -1963,6 +2052,50 @@ def check_seg_fwd_lengths(chk, C, thr, gen):
                               ws if i == 3 else ser[i])
                     for i, nm in enumerate(names)))
     return err
+
+
+def check_seg_distortion_lengths(chk, gen):
+    """H4's segment launchers on segments of every length
+    0..SEG_FWD_LONGEST (`segment_case`; as in `distortion_case`, a
+    segment's weights sum to less than 1 and its t rise): against their
+    plain versions (the tolerances of `check_distortion`), and bit for bit
+    against `distortion_serial` and dense H4 on the segments laid out as
+    dense rows; d_ws 0 outside every segment. Returns the forward's and
+    the backward's largest errors."""
+    from normal_clustering_nerf_torch.ops import distortion as ds
+    (_, _, dt, _), (count, start, rid, _, valid), _ = segment_case(
+        SEG_FWD_LONGEST, 1, gen)
+    N, B, dev = count.shape[0], dt.shape[0], gen.device
+    # the dense rows of the segments: slot start + p of ray n at (n, p)
+    p = torch.arange(SEG_FWD_LONGEST, device=dev)
+    inside = p[None] < count[:, None]
+    slot = torch.where(inside, start[:, None] + p[None], 0).long()
+    ws = torch.rand(B, generator=gen, device=dev) / torch.clamp(
+        count, min=1)[rid.long()]
+    ts = torch.zeros(B, device=dev)
+    ts[slot[inside]] = (torch.cumsum(torch.where(inside, dt[slot], 0.0), 1)
+                        + torch.rand((N, 1), generator=gen,
+                                     device=dev))[inside]
+    g = torch.randn(N, generator=gen, device=dev)
+    rows = [x[slot] for x in (ws, dt, ts)] + [valid[slot] & inside]
+    seg = (start, count)
+    log(f"H4 segments, every length 0..{SEG_FWD_LONGEST}: N={N} B={B}")
+    loss = ds.distortion_compact_kernel(ws, dt, ts, valid, *seg)
+    d_ws = ds.distortion_compact_grad_kernel(g, ws, dt, ts, valid, *seg)
+    want = torch.zeros(B, device=dev)
+    want[slot[inside]] = distortion_serial(*rows, g)[inside]
+    return (max(chk.close("loss", loss, ds.distortion_compact_plain(
+                    ws, dt, ts, rid, start, valid, N), 1e-5),
+                chk.equal("loss = serial order", loss,
+                          distortion_serial(*rows)),
+                chk.equal("loss = dense H4", loss,
+                          ds.distortion_kernel(*rows))),
+            max(chk.close("d_ws", d_ws, ds.distortion_compact_grad_plain(
+                    g, ws, dt, ts, rid, start, valid, N), 1e-4),
+                chk.equal("d_ws = serial order, 0 outside the segments",
+                          d_ws, want),
+                chk.equal("d_ws = dense H4", d_ws[slot[inside]],
+                          ds.distortion_grad_kernel(g, *rows)[inside])))
 
 
 REPLACES = {

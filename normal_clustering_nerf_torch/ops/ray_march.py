@@ -630,6 +630,15 @@ def march_rays_test_round(rays_o, rays_d, cursor, t_far, alive, bitfield, *,
 SV_MAX_INTERVALS = 64
 
 
+def _div(x, s: float):
+    """x / s with one rounding on any device. PyTorch's CUDA kernel
+    divides by a Python scalar as a product with its reciprocal, a
+    rounding more, which can move the ceil of a quotient by a step off
+    kernel K1's `__fdiv_rn` (and the CPU's and JAX's division); a 0-dim
+    tensor on x's device is divided by as such."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
 def _sv_geometry(scale, grid_size, lo):
     """(Gc, mip bound, supervoxel edge, lattice steps per interval SI)."""
     if grid_size % 8:
@@ -666,8 +675,9 @@ def sv_intervals_plain(rays_o, rays_d, t0, t_end, hit, sv_mask, *, scale,
     tm = 0.5 * (b0 + b1)
     iv_valid = torch.isfinite(b1) & (b1 > b0 + 1e-9)
     tmz = torch.where(iv_valid, tm, torch.zeros_like(tm))
-    svc = [torch.clamp(torch.floor((rays_o[:, a:a + 1] + tmz * rays_d[:, a:a + 1]
-                                    + mb) / sv), 0, Gc - 1).to(torch.int64)
+    svc = [torch.clamp(torch.floor(_div(rays_o[:, a:a + 1]
+                                        + tmz * rays_d[:, a:a + 1] + mb, sv)),
+                       0, Gc - 1).to(torch.int64)
            for a in range(3)]
     sv_id = (svc[2] * Gc + svc[1]) * Gc + svc[0]
     occ_iv = (sv_mask[sv_id] > 0) & iv_valid
@@ -743,7 +753,7 @@ def sv_scan_plain(rays_o, rays_d, t0, t_end, hit, sv_mask, sv_payload, *,
     scan_end = torch.where(ivalid[:, -1], te_last, t_end)
 
     # ---- phase B: SI lattice steps from each interval's start
-    k0 = torch.ceil((ts_r - t0[:, None]) / lo)
+    k0 = torch.ceil(_div(ts_r - t0[:, None], lo))
     k0 = torch.where(ivalid, k0, torch.zeros_like(k0)).to(torch.int64) - 1
     kk = k0[:, :, None] + torch.arange(SI, device=dev)[None, None, :]
     tt = t0[:, None, None] + kk.to(torch.float32) * lo
@@ -753,7 +763,7 @@ def sv_scan_plain(rays_o, rays_d, t0, t_end, hit, sv_mask, sv_payload, *,
     loc = []
     for a in range(3):
         pos = rays_o[:, a, None, None] + tt * rays_d[:, a, None, None]
-        cell = torch.clamp(0.5 * (pos / mb + 1.0) * G, 0.0,
+        cell = torch.clamp(0.5 * (_div(pos, mb) + 1.0) * G, 0.0,
                            G - 1.0).to(torch.int64)
         own = own & ((cell >> 3) == svcs[a][:, :, None])
         loc.append(cell - 8 * svcs[a][:, :, None])
@@ -845,9 +855,10 @@ def march_rays_test_round_sv_plain(rays_o, rays_d, cursor, t_far, alive,
     # torch.round rounds half to even, as jnp.round does
     t_last = torch.where(valid, t_k, torch.full_like(t_k, -float("inf")))
     t_last = t_last.max(dim=1).values
-    k_last = torch.round((t_last - t0) / lo)
+    k_last = torch.round(_div(t_last - t0, lo))
     cur_full = t0 + (k_last + 1.0) * lo
-    cur_part = t0 + torch.ceil(torch.clamp(scan_end - t0, min=0.0) / lo) * lo
+    cur_part = t0 + torch.ceil(_div(torch.clamp(scan_end - t0, min=0.0),
+                                    lo)) * lo
     new_cursor = torch.where(ray_count >= K, cur_full, cur_part)
     return t_k, dt_k, valid, torch.where(hit, new_cursor, cursor)
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device time of the bootstrap march (H1) and of the dense compositing
-forward (H3) as the main path calls them.
+"""Device time of the bootstrap march (H1), the dense compositing forward
+(H3) and the distortion loss's forward and backward (H4) as the main path
+calls them, and of one kernel node at its least.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -12,12 +13,16 @@ It builds the bench trainer (triplane field) of the checkout at `--root`
 first refresh of the occupancy grid) and captures the arguments of the
 calls that `models/rendering.py` makes: `march_rays_train_bootstrap` and
 `composite_rays` in a bootstrap step, and the first `composite_rays` of a
-render of the held-out views (the first round, with T_start). It times
-each captured call, and the march on a full bitfield, under
-`torch.no_grad()`, each the mean of 20 replays of a CUDA graph of one
-call (`time_encodes.device_ms`). The calls go through the wrappers'
-public signatures, which every checkout of the port shares, so two
-checkouts compare in one call when the script runs in each in turns.
+render of the held-out views (the first round, with T_start); and those
+of `losses.distortion_loss_dense` in a bootstrap step, on which it calls
+`ops.distortion.distortion_kernel` and `distortion_grad_kernel` (the
+latter with a cotangent drawn from a seed). It times each captured call,
+the march on a full bitfield, and a one-element in-place add (the least
+time of one kernel node under this timing, the floor of the tiny
+kernels), under `torch.no_grad()`, each the mean of 20 replays of a CUDA
+graph of one call (`time_encodes.device_ms`). The calls go through the
+wrappers' public signatures, which every checkout of the port shares, so
+two checkouts compare in one call when the script runs in each in turns.
 Prints the card's name and power limit, then one JSON line.
 """
 import argparse
@@ -67,14 +72,17 @@ def main():
           else "nvidia-smi: not available", flush=True)
     t0 = time.perf_counter()
     import normal_clustering_nerf_torch as package
+    from normal_clustering_nerf_torch import losses
     from normal_clustering_nerf_torch.bench import bench_config, build_trainer
     from normal_clustering_nerf_torch.models import rendering
+    from normal_clustering_nerf_torch.ops import distortion
     tr = build_trainer(bench_config(), device="cuda")
     tr.mark_invisible_cells()
     tr.fit(1)
     step = lambda: tr.train_step_core(bootstrap=True)   # noqa: E731
     march = captured(rendering, "march_rays_train_bootstrap", step)
     comp = captured(rendering, "composite_rays", step)
+    dist = captured(losses, "distortion_loss_dense", step)
     with torch.no_grad():
         first = captured(rendering, "composite_rays",
                          lambda: tr.render_images(tr.scene_test.poses))
@@ -87,12 +95,20 @@ def main():
         "composite_fwd": comp + (rendering.composite_rays,),
         "composite_fwd, first test round": first + (rendering.composite_rays,),
     }
+    da = tuple(t.detach().contiguous() for t in dist[0])
+    g = torch.randn(da[0].shape[0], device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    calls["distortion_fwd"] = (da, {}, distortion.distortion_kernel)
+    calls["distortion_bwd"] = ((g,) + da, {}, distortion.distortion_grad_kernel)
+    one = torch.zeros(1, device="cuda")
+    calls["one-element add (floor)"] = ((one, 1.0), {}, torch.Tensor.add_)
     out = {"package": os.path.dirname(package.__file__)}
     for where, (ca, ckw, fn) in calls.items():
         def call(ca=ca, ckw=ckw, fn=fn):
             with torch.no_grad():
                 return fn(*ca, **ckw)
-        out[where] = {"shapes": [list(t.shape) for t in ca[:2]],
+        out[where] = {"shapes": [list(t.shape) for t in ca[:2]
+                                 if torch.is_tensor(t)],
                       "ms": device_ms(call)}
     out["march_kw"] = kw
     out["seconds"] = time.perf_counter() - t0
