@@ -48,14 +48,22 @@ Phases (any failed check raises, so the script exits non-zero):
      the two-level march with a 4-block budget, where rays truncate), H11
      (the flat budget, and half of it), H10 (three rounds of each mode over
      the held-out rays, and the full window at the Pallas probe P2's
-     (8192, 1024) block, beside P2's own form in torch). Then the training
+     (8192, 1024) block, beside P2's own form in torch); H9 (both marches)
+     and H10 (both modes) again at scene scale 0.3, where the mip bound is
+     not a power of two and the plain versions must divide by it as the
+     kernels do (`ops/ray_march.py:_div`). Then the training
      steps at the CPU tests' size run on the card and on the CPU from the
      same state and draws (bootstrap, sv, bitfield and flat steps): every
      loss and gradient must agree;
   3. set every launch count to 0, train STEPS (576) steps with
      `Trainer.fit`: 512 bootstrap steps, then 64 sv steps (counted apart);
      an occupancy refresh every 16 steps (every cell before step 256,
-     sampled after), the clustering ramp from step 500. Read the counts:
+     sampled after), the clustering ramp from step 500; the steps between
+     two refreshes run as one chunk, on the card replays of a CUDA graph
+     of the step (three eager steps of each march, then its capture; a
+     replay adds the launches its capture recorded to the counts, as
+     `kernels.CountedGraph` does; the flat path runs eager steps). Read
+     the counts:
      every training launcher must have launched, K1's training launcher 64
      times. Every loss must be finite and the loss must fall;
   4. K1 and H9-H11 against their plain versions on the trained occupancy,
@@ -109,7 +117,18 @@ Phases (any failed check raises, so the script exits non-zero):
      tables' zero fill alone; the fields' forwards also on the sv step's
      positions and at the refresh shape, with the modelled warp load
      counts logged beside the times; H1 also on a full bitfield, and H3's
-     forward also at the first test round's shape with T_start.
+     forward also at the first test round's shape with T_start;
+  7. CUDA-graph chunks: for the triplane path's bootstrap and sv march, the
+     bitfield path's march and the brick and tcnn fields' sv march, 16
+     replays of the graph the training phase captured, each against 3
+     eager steps from the state and generator state it started from:
+     sampled indices and rm / vr / trunc counts equal, losses and
+     parameters after within 2x the eager steps' spread (the fp32 atomics
+     of H2/H6/H8) plus 2^-20 of the largest value;
+     then graph steps against eager steps: host ms/step, the device's busy
+     ms/step and launches/step (torch.profiler), graph launches/step and
+     the idle share; and each field's optimizer update (clip and AdamW)
+     against its byte bound; printed as a "graph steps" JSON line.
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -118,6 +137,7 @@ when CUDA is not available.
 import argparse
 import dataclasses
 import json
+import logging
 import math
 import subprocess
 import sys
@@ -1802,6 +1822,65 @@ def check_bitfield(tr, occ, train_in, test_in, tag, need_trunc, step):
     return rec, (hits, noise, flat), flat_round
 
 
+SCALE_03 = 0.3   # a scene scale whose mip bound is not a power of two
+
+
+def check_scale(tr, occ, gen, scale=SCALE_03):
+    """H9 (the fine and the two-level march) and H10 (a full-window and a
+    window round) against their plain versions at scene scale `scale`,
+    where the mip bound is not a power of two: the plain versions' x / mb
+    (`occupancy_lookup`, `coarse_lookup`) must divide as the kernels'
+    __fdiv_rn does, not as a product with the reciprocal. N rays from
+    inside the box, random directions, on the occupancy `occ`. Returns
+    the largest error (0: every output identical)."""
+    from normal_clustering_nerf_torch.models.rendering import (
+        bucket_ladder, near_intervals, train_march_args)
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    rc, dev, N = tr.cfg.render, tr.device, tr.sampler.batch_size
+    m = dataclasses.replace(tr.cfg.model, scale=scale)
+    o = ((torch.rand((N, 3), generator=gen, device=dev) * 2.0 - 1.0)
+         * (0.9 * scale)).contiguous()
+    d = torch.randn((N, 3), generator=gen, device=dev)
+    d = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    hits = near_intervals(m, o, d).contiguous()
+    noise = torch.rand(N, generator=gen, device=dev)
+    bits, chk, errs = occ.density_bitfield, Check(), []
+    kw = train_march_args(m, rc, N, "fine")
+    for name, extra in (("fine", {}), ("two-level", dict(
+            coarse_occ=occ.coarse_occ, coarse_k_blocks=COARSE_K_BLOCKS))):
+        k = dict(kw, **extra)
+        got = rm.march_rays_train_dense(o, d, hits, bits, noise, **k)
+        ref = rm.march_rays_train_dense_plain(o, d, hits, bits, noise, **k)
+        log(f"H9 {name} at scale {scale}: N={N} S={k['march_steps']} "
+            f"K={ref.t.shape[1]}; rm/ray {int(ref.rm_samples) / N:.2f}, "
+            f"truncated rays {int(ref.trunc_rays)}")
+        errs += [chk.equal(f, getattr(got, f), getattr(ref, f)) for f in
+                 ("t", "dt", "valid", "ray_count", "rm_samples", "trunc_rays")]
+    mk = dict(cascades=m.cascades, scale=scale,
+              exp_step_factor=m.exp_step_factor, grid_size=m.grid_size,
+              max_samples=m.max_samples)
+    cursor, far = hits[:, 0].contiguous(), hits[:, 1].contiguous()
+    alive = cursor >= 0
+    K = next(k for b, k in bucket_ladder(N, max(1, rc.test_min_k),
+                                         rc.test_march_window)
+             if b >= int(alive.sum()))
+    for mode, fn, pfn, tkw in (
+            ("full", rm.march_rays_test_round_dense,
+             rm.march_rays_test_round_dense_plain,
+             dict(mk, n_steps=rc.test_n_samples)),
+            ("window", rm.march_rays_test_round_window,
+             rm.march_rays_test_round_window_plain,
+             dict(mk, S_march=rc.test_march_window, n_steps=K))):
+        targs = (o, d, cursor, far, alive, bits)
+        got, ref = fn(*targs, **tkw), pfn(*targs, **tkw)
+        log(f"H10 {mode} round at scale {scale}: N={N}, valid samples "
+            f"{int(ref[2].sum())}")
+        errs += [chk.equal(name, a, b) for name, a, b in
+                 zip(("t", "dt", "valid", "cursor"), got, ref)]
+    chk.done(f"H9 / H10 at scale {scale}")
+    return max(errs)
+
+
 def dense_of(mr, x, n_rays, width):
     """The flat slots of `mr` laid out as dense (N, width) rows."""
     from normal_clustering_nerf_torch.ops.segops import (
@@ -2302,7 +2381,7 @@ def profile(tr, name, out_dir, step_ms, n=4):
     import gzip
     import os
     import shutil
-    from normal_clustering_nerf_torch import kernels
+    from normal_clustering_nerf_torch.bench import split_device_time
     os.makedirs(out_dir, exist_ok=True)
     for boot in (True, False):
         tag = f"{name}_{'bootstrap' if boot else 'after'}"
@@ -2325,19 +2404,11 @@ def profile(tr, name, out_dir, step_ms, n=4):
         with open(trace, "rb") as f, gzip.open(trace + ".gz", "wb") as g:
             shutil.copyfileobj(f, g)
         os.remove(trace)
-        # each launcher's `<name>_kernel`, and the scatter H6 and H8 share
-        ours = tuple(f"{k.name}_kernel" for k in kernels.ALL_KERNELS) + (
-            "grad_scatter::scatter_kernel",)
-        gemm = ("gemm", "gemv", "nvjet", "cutlass")   # cuBLAS / CUTLASS names
-        split = {"port kernels": 0.0, "gemm": 0.0, "other": 0.0}
-        for e in dev:
-            key = ("port kernels" if any(o in e.key for o in ours) else
-                   "gemm" if any(s in e.key.lower() for s in gemm) else "other")
-            split[key] += e.self_device_time_total / 1e3 / n
+        split, launches = split_device_time(dev, n)
         busy = sum(split.values())
         log(f"profile of {n} {tag} steps: device busy {busy:.3f} ms/step ("
             + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-            + f"), {sum(e.count for e in dev) / n:.0f} device launches/step, "
+            + f"), {launches:.0f} device launches/step, "
             f"idle {1 - busy / step_ms[boot]:.3f} of the "
             f"{step_ms[boot]:.2f} ms step")
         for line in table.splitlines()[:24]:
@@ -2368,6 +2439,215 @@ def path_training(tr, name, launches, need, exact, phases=TWO_PHASES,
     return ms
 
 
+GRAPH_STEPS = 16   # a chunk of the graph phase: the steps between refreshes
+# the graph phase's chunks: (path, bootstrap march or not)
+GRAPH_CASES = (("triplane", True), ("triplane", False), ("bitfield", False),
+               ("brick", False), ("tcnn", False))
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def snapshot(tr):
+    """Copies of what a training step reads and writes: the parameters,
+    the optimizer's count and moments, the occupancy, the step and the
+    generator's state."""
+    def clone(d):
+        return {n: t.detach().clone() for n, t in d.items()}
+    return dict(params=clone(tr.params), occ=type(tr.occ)(
+        *(t.clone() for t in tr.occ)), step=tr.step,
+        opt={"count": tr.opt.state["count"], "mu": clone(tr.opt.state["mu"]),
+             "nu": clone(tr.opt.state["nu"])},
+        gen=tr.generator.get_state())
+
+
+def restore(tr, snap):
+    tr.load_state(snap["params"], snap["occ"], snap["opt"], snap["step"])
+    tr.generator.set_state(snap["gen"])
+
+
+def one_step(tr, bootstrap, graph):
+    """One step from the trainer's state: a replay of its captured graph
+    (`train_chunk(1)`) or an eager step (`train_step_core`). Returns the
+    step's sampled image and pixel indices, its metrics and the
+    parameters after it, copied."""
+    m = (tr.train_chunk(1, bootstrap) if graph
+         else tr.train_step_core(bootstrap))
+    b = tr.last_batch
+    out = (torch.cat([b["img_idxs"], b["pix_idxs"]]).clone(),
+           {k: v.detach().clone() for k, v in m.items()},
+           {k: p.detach().clone() for k, p in tr.params.items()})
+    sync(tr.device)
+    return out
+
+
+EAGER_STEPS = 3   # eager steps from each replay's state in the graph phase
+
+
+def within_spread(got, eager):
+    """A replay's value against the same value from EAGER_STEPS eager
+    steps from its state: the nearest must be within twice their spread
+    (the largest difference between two of them) plus 2^-20 of the
+    largest value. The spread is that of the fp32 atomics of H2/H6/H8
+    (and the k-means' index_add_): a sum's last bits, which AdamW
+    amplifies where a gradient nearly cancels, so that an entry of a
+    table can take one of a few values a step. Returns (err, spread,
+    ok)."""
+    err = min((got - e).abs().max().item() for e in eager)
+    spread = max((a - b).abs().max().item()
+                 for i, a in enumerate(eager) for b in eager[i + 1:])
+    tol = 2 * spread + 2.0 ** -20 * eager[0].abs().max().item()
+    return err, spread, err <= tol
+
+
+def check_graph_chunk(tr, path, bootstrap):
+    """A chunk of GRAPH_STEPS replays of the trainer's captured graph,
+    each held against EAGER_STEPS eager steps from the state and generator
+    state the replay started from: the sampled indices and the rm / vr /
+    trunc counts equal, the losses and the parameters after within the
+    eager steps' spread (`within_spread`). Step by step, because the fp32
+    atomics make whole runs part: a sum's last bit can flip a later
+    rounding, after which two runs of the same chunk, eager or graph,
+    follow different trajectories (parameters 1e-6 to 1e-3 apart after
+    16 steps, PERF.md section 6)."""
+    from normal_clustering_nerf_torch.models.rendering import (
+        train_march_kind)
+    kind = train_march_kind(tr.model.cfg, tr.cfg.render, tr.occ, bootstrap)
+    captured = [c["kind"] for c in tr.captures]
+    if tr.device.type == "cuda" and kind not in captured:
+        raise RuntimeError(f"{path}: the training phase captured no {kind} "
+                           f"graph (captures: {captured})")
+    tag, start = f"{path}, {kind} chunk", tr.step
+    states, graph = [], []
+    for _ in range(GRAPH_STEPS):
+        states.append(snapshot(tr))
+        graph.append(one_step(tr, bootstrap, True))
+    end = snapshot(tr)
+    if [c["kind"] for c in tr.captures] != captured:
+        raise RuntimeError(f"{tag}: a capture during the replays")
+    eager = []
+    for st in states:
+        runs = []
+        for _ in range(EAGER_STEPS):
+            restore(tr, st)
+            runs.append(one_step(tr, bootstrap, False))
+        eager.append(runs)
+    restore(tr, end)
+    chk, n_rays = Check(), tr.sampler.batch_size
+    log(f"graph phase, {tag} from step {start}: {GRAPH_STEPS} replays, "
+        f"each against {EAGER_STEPS} eager steps from its state")
+    chk.equal("sampled indices, every step",
+              torch.stack([g[0] for g in graph]),
+              torch.stack([e[0][0] for e in eager]))
+    for k in ("rm_samples_per_ray", "vr_samples_per_ray", "trunc_ray_frac"):
+        chk.equal(f"{k} as counts, every step",
+                  torch.stack([torch.round(g[1][k] * n_rays) for g in graph]),
+                  torch.stack([torch.round(e[0][1][k] * n_rays)
+                               for e in eager]))
+    for group, names, pick in (
+            ("losses", [k for k in graph[0][1] if k.startswith("loss_")],
+             lambda run, k: run[1][k]),
+            ("parameters", list(graph[0][2]), lambda run, k: run[2][k])):
+        worst, bad = (-1.0, 0.0, ""), []
+        for k in names:
+            for i, (g, runs) in enumerate(zip(graph, eager)):
+                err, spread, ok = within_spread(pick(g, k),
+                                                [pick(e, k) for e in runs])
+                worst = max(worst, (err, spread, k))
+                if not ok:
+                    bad.append(f"{k} step {i}: {err:.3e} (spread "
+                               f"{spread:.3e})")
+        log(f"  {group}: largest graph-eager difference {worst[0]:.3e} "
+            f"({worst[2]}; eager spread there {worst[1]:.3e}), "
+            + (f"{len(bad)} outside 2x the spread + 2^-20 of the largest "
+               f"value FAIL: {bad[:5]}" if bad else "every one within 2x "
+               "the spread + 2^-20 of the largest value of the nearest "
+               "eager step ok"))
+        if bad:
+            chk.failures.append(f"{group} ({len(bad)})")
+    chk.done(f"graph phase, {tag}")
+
+
+def graph_times(tr, path, bootstrap, reps=3, n=GRAPH_STEPS):
+    """Graph steps against eager steps: host ms/step (median of `reps`
+    chunks of `n`, each ended by a synchronize), and from one traced chunk
+    of each the device's busy ms/step split as the bench's profile splits
+    it, its launches a step, the graph launches a step and the idle
+    share against the host time."""
+    from normal_clustering_nerf_torch.bench import split_device_time
+
+    def eager():
+        for _ in range(n):
+            tr.train_step_core(bootstrap)
+
+    def graph():
+        tr.train_chunk(n, bootstrap)
+    out = {"path": path, "march": "bootstrap" if bootstrap else "after"}
+    for name, fn in (("eager", eager), ("graph", graph)):
+        ms = []
+        for _ in range(reps):
+            sync(tr.device)
+            t = time.perf_counter()
+            fn()
+            sync(tr.device)
+            ms.append((time.perf_counter() - t) * 1e3 / n)
+        host = sorted(ms)[reps // 2]
+        r = {"host_ms": host}
+        p, dev = traced(fn)
+        if dev:
+            split, launches = split_device_time(dev, n)
+            busy = sum(split.values())
+            r.update(busy_ms=busy, idle=1 - busy / host,
+                     launches=launches, split=split,
+                     graph_launches=sum(e.count for e in p.key_averages()
+                                        if e.key == "cudaGraphLaunch") / n)
+        out[name] = r
+        log(f"  {name} steps, {path} {out['march']}: host {host:.3f} ms/step"
+            + (f", device busy {r['busy_ms']:.3f} ms/step ("
+               + ", ".join(f"{k} {v:.3f}" for k, v in r["split"].items())
+               + f"), {r['launches']:.0f} device launches/step, "
+               f"{r['graph_launches']:.2f} graph launches/step, idle "
+               f"{r['idle']:.3f}" if dev else
+               "; the profiler recorded no device time: not measured"))
+    return out
+
+
+def time_adamw(tr, path):
+    """Device ms of the optimizer's update (clip and AdamW over every
+    parameter, on the last step's gradients), against its bound: 28
+    bytes a value (the gradient, the moments and the parameter read, the
+    moments and the parameter written). The trainer's parameters move on;
+    its device count is put back."""
+    n = sum(p.numel() for p in tr.params.values())
+    lr, bc1, bc2 = (torch.full((), v, device=tr.device)
+                    for v in tr.opt.schedule(tr.opt.state["count"]))
+    grads = dict(tr.last_grads)
+    ms = device_ms(lambda: tr.opt.update(grads, lr, bc1, bc2),
+                   f"{path} AdamW update")
+    tr.opt.count_t.fill_(tr.opt.state["count"])
+    out = {"adamw_ms": ms, "adamw_bound_ms": bound(28 * n, 0)[0],
+           "values": n}
+    log(f"  {path}: the optimizer's update over {n} values {ms:.4f} ms "
+        f"(bound {out['adamw_bound_ms']:.4f}, bytes)")
+    return out
+
+
+def graph_phase(paths):
+    """Phase 7: for each of GRAPH_CASES, the graph-replayed chunk against
+    eager steps (`check_graph_chunk`) and their times (`graph_times`);
+    then each field's optimizer update (`time_adamw`)."""
+    rows = []
+    for path, bootstrap in GRAPH_CASES:
+        tr = paths[path]
+        check_graph_chunk(tr, path, bootstrap)
+        rows.append(graph_times(tr, path, bootstrap))
+    for path in ("triplane", "brick", "tcnn"):
+        rows.append(dict(path=path, **time_adamw(paths[path], path)))
+    return rows
+
+
 def render_config(cfg, **kw):
     return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
 
@@ -2387,6 +2667,11 @@ def main():
 
     from normal_clustering_nerf_torch import kernels
     from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    trainer_log = logging.getLogger("normal_clustering_nerf_torch")
+    trainer_log.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stdout)
+    handler.setFormatter(logging.Formatter("[smoke trainer] %(message)s"))
+    trainer_log.addHandler(handler)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2422,6 +2707,9 @@ def main():
     early.update(check_bitfield(tr, occ_random, train_in, test_in,
                                 "random 20% occupancy", need_trunc=True,
                                 step=step)[0])
+    err = check_scale(tr, occ_random, gen)
+    for name in ("march_fine_train", "march_fine_test_round"):
+        early[name]["err"] = max(early[name]["err"], err)
     step_parity()
 
     log(f"phase 3, triplane: {STEPS} training steps through Trainer.fit")
@@ -2519,6 +2807,10 @@ def main():
     unlaunched = [k for k, c in launches.items() if not c]
     if unlaunched:
         raise RuntimeError(f"kernels no main path launched: {unlaunched}")
+    for name, t in paths.items():
+        log(f"graphs captured on the {name} path: "
+            + json.dumps([{k: c[k] for k in ("kind", "step", "ms")}
+                          for c in t.captures]))
 
     step_ms = {}
     for name, t in paths.items():
@@ -2535,6 +2827,8 @@ def main():
     if args.profile:
         for name, t in paths.items():
             profile(t, name, args.profile, step_ms[name])
+    log("phase 7: graph-replayed chunks against eager steps")
+    graph_rows = graph_phase(paths)
 
     out = []
     for k in kernels.ALL_KERNELS:
@@ -2556,6 +2850,7 @@ def main():
                                   f"(plain {o['plain_ms']:.4f}, bound "
                                   f"{o['bound_ms']:.4f})" for o in out))
     log(f"done in {time.time() - T0:.1f} s")
+    print(f"graph steps on {smi}: " + json.dumps(graph_rows))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

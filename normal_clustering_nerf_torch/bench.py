@@ -1,24 +1,36 @@
 """Training-throughput and quality benchmark of the port on one card.
 
     python -m normal_clustering_nerf_torch.bench [--hash_layout brick|tcnn]
+        [--compute_dtype float32] [--batch N] [--samples_per_ray K]
+        [--sv_intervals RI] [--min_losses] [--no_occ_update]
+        [--skip-quality] [--profile DIR]
 
-The JAX package's `bench.py` run at its defaults (the triplane field
-unless `--hash_layout` names the brick or the tcnn grid, as
-`bench.py:148-149`), on one CUDA device:
-build the bench configuration (`bench_config`, `build_trainer`), mark the
-invisible cells, train 600 warmup steps (past the occupancy warmup at
-256 and the bootstrap march at 512), time 200 steps, train on to step
-4000, validate on the 4 held-out views (the cold render), render them
-three more times (the median is the render rate), print one JSON line
-with the keys of `bench.py:212-277`, and then hold the four quality gates
-of `bench.py:313-338`, exiting non-zero when one fails. It writes no
-history file. On standard error it also logs each kernel's launches over
-the whole run, from the first step to the last render, as a JSON object.
+The JAX package's `bench.py` with the same flags (all but `--num_chips`),
+on one CUDA device: build the bench configuration (`bench_config`,
+`build_trainer`), mark the invisible cells, train 600 warmup steps (past
+the occupancy warmup at 256 and the bootstrap march at 512), time 200
+steps (`Trainer.fit`, which runs the 16 steps between two refreshes as
+replays of a CUDA graph, as `bench.py:112-131 run_steps` runs them as one
+dispatch), train on to step 4000, validate on the 4 held-out views (the
+cold render), render them three more times (the median is the render
+rate), print one JSON line with the keys of `bench.py:212-277`, and then
+hold the four quality gates of `bench.py:313-338`, exiting non-zero when
+one fails. `--skip-quality` stops after the timed window; `--min_losses`
+(rgb and opacity only) and `--no_occ_update` (no refresh in the timed
+window) are bench.py's cost probes; `--profile DIR` traces the timed
+window with torch.profiler. It writes no history file. On standard error
+it also logs the CUDA graphs captured and each kernel's launches over the
+whole run, from the first step to the last render, as a JSON object.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gzip
 import json
+import logging
+import os
+import shutil
 import sys
 import time
 
@@ -34,16 +46,25 @@ WARM_STEPS = 600      # past the occupancy warmup (256) and the bootstrap (512)
 TIMED_STEPS = 200
 TOTAL_STEPS = 4000    # the clustering ramp (500 + 2500) plus 1000 steps
 BASELINE_RAYS_PER_S = 0.25e6   # the reference on an RTX 2080 Ti (BASELINE.md)
+# H3's backward (and its segment launcher) takes at most 32 samples a ray
+MAX_SAMPLES_PER_RAY = 32
 
 
 def bench_config(batch: int = 8192, samples_per_ray: int = 16,
                  sv_intervals: int = 24, compute_dtype: str = "bfloat16",
-                 hash_layout: str = "triplane") -> TrainConfig:
+                 hash_layout: str = "triplane",
+                 min_losses: bool = False) -> TrainConfig:
     """`bench.py:44-109` at bench.py's defaults: the triplane field (or
     `hash_layout`) in bf16, 16 samples per ray with the full stratified
     tail, 24 sv intervals,
-    avoid_near annealing over 600 steps, the production loss weights, the
-    triangle sampler with 3-pixel legs, 4 epochs of 1000 steps."""
+    avoid_near annealing over 600 steps, the production loss weights (rgb
+    and opacity only with `min_losses`), the triangle sampler with 3-pixel
+    legs, 4 epochs of 1000 steps."""
+    loss = (LossConfig(opacity_w=1e-3) if min_losses else LossConfig(
+        opacity_w=1e-3, distortion_w=1e-3, norm_D_C_ort_dot_w=2e-3,
+        norm_D_C_centr_dot_w=2e-3, norm_D_C_centr_L1_w=2e-3,
+        norm_can_tres=0.01, norm_can_start=500, norm_can_grow=2500,
+        sem_w=0.04))
     return TrainConfig(
         model=ModelConfig(scale=0.5, grid_size=128, max_samples=1024,
                           pred_norm_nn=True, pred_norm_depth=True,
@@ -54,10 +75,7 @@ def bench_config(batch: int = 8192, samples_per_ray: int = 16,
                             sample_budget=batch * samples_per_ray,
                             sv_intervals=sv_intervals,
                             anneal_strategy="avoid_near", anneal_steps=600),
-        loss=LossConfig(opacity_w=1e-3, distortion_w=1e-3,
-                        norm_D_C_ort_dot_w=2e-3, norm_D_C_centr_dot_w=2e-3,
-                        norm_D_C_centr_L1_w=2e-3, norm_can_tres=0.01,
-                        norm_can_start=500, norm_can_grow=2500, sem_w=0.04),
+        loss=loss,
         data=DataConfig(batch_size=batch,
                         ray_sampling_strategy="all_images_triang",
                         triang_max_expand=3),
@@ -96,11 +114,64 @@ def gate_failures(out) -> list:
     return fails
 
 
-def main(argv=None):
+def parse_args(argv=None):
+    """bench.py:143-161's flags, but `--num_chips` (ROADMAP A10)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--profile", default="",
+                    help="directory for a torch.profiler trace of the timed "
+                         "window")
+    ap.add_argument("--skip-quality", action="store_true",
+                    help="throughput only: no training to step 4000, no "
+                         "validation, no gates")
+    ap.add_argument("--compute_dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
     ap.add_argument("--hash_layout", default="triplane",
                     choices=["brick", "tcnn", "triplane"])
+    ap.add_argument("--batch", type=int, default=8192)
+    ap.add_argument("--samples_per_ray", type=int, default=16,
+                    help="static march budget per ray; the port refuses "
+                         f"more than {MAX_SAMPLES_PER_RAY} (H3's backward "
+                         "takes at most 32 samples a ray)")
+    ap.add_argument("--sv_intervals", type=int, default=24)
+    ap.add_argument("--min_losses", action="store_true",
+                    help="rgb+opacity losses only (loss-block cost probe)")
+    ap.add_argument("--no_occ_update", action="store_true",
+                    help="skip occupancy refreshes in the timed window "
+                         "(occupancy-maintenance cost probe)")
     args = ap.parse_args(argv)
+    if args.samples_per_ray > MAX_SAMPLES_PER_RAY:
+        ap.error(f"--samples_per_ray {args.samples_per_ray}: the port "
+                 f"takes at most {MAX_SAMPLES_PER_RAY}")
+    return args
+
+
+def config_of(args) -> TrainConfig:
+    return bench_config(batch=args.batch,
+                        samples_per_ray=args.samples_per_ray,
+                        sv_intervals=args.sv_intervals,
+                        compute_dtype=args.compute_dtype,
+                        hash_layout=args.hash_layout,
+                        min_losses=args.min_losses)
+
+
+def split_device_time(events, n_steps: int):
+    """torch.profiler device events (`key_averages()`, device entries) ->
+    ms a step of the port's kernels (each launcher's `<name>_kernel` and
+    the scatter H6 and H8 share), of cuBLAS / CUTLASS products and of the
+    rest, and the device launches a step."""
+    ours = tuple(f"{k.name}_kernel" for k in kernels.ALL_KERNELS) + (
+        "grad_scatter::scatter_kernel",)
+    gemm = ("gemm", "gemv", "nvjet", "cutlass")
+    split = {"port kernels": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in events:
+        key = ("port kernels" if any(o in e.key for o in ours) else
+               "gemm" if any(g in e.key.lower() for g in gemm) else "other")
+        split[key] += e.self_device_time_total / 1e3 / n_steps
+    return split, sum(e.count for e in events) / n_steps
+
+
+def main(argv=None):
+    args = parse_args(argv)
     t_start = time.time()
 
     def log(msg):
@@ -109,10 +180,15 @@ def main(argv=None):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = bench_config(hash_layout=args.hash_layout)
+    cfg = config_of(args)
     tr = build_trainer(cfg)
-    log(f"card: {torch.cuda.get_device_name(tr.device)}; hash_layout "
-        f"{args.hash_layout}")
+    trainer_log = logging.getLogger("normal_clustering_nerf_torch")
+    trainer_log.setLevel(logging.INFO)
+    handler = logging.StreamHandler(sys.stderr)
+    handler.setFormatter(logging.Formatter("[bench trainer] %(message)s"))
+    trainer_log.addHandler(handler)
+    flags = {k: v for k, v in vars(args).items() if k != "profile"}
+    log(f"card: {torch.cuda.get_device_name(tr.device)}; {flags}")
     batch = cfg.data.batch_size
     tr.mark_invisible_cells()
 
@@ -126,11 +202,16 @@ def main(argv=None):
         f"{m['rm_samples_per_ray']:.1f}, vr/ray {m['vr_samples_per_ray']:.1f},"
         f" trunc {m['trunc_ray_frac']:.4f})")
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    hist = tr.fit(TIMED_STEPS)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t
+    from torch.profiler import ProfilerActivity, profile
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if args.profile else contextlib.nullcontext()) as prof:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        hist = tr.fit(TIMED_STEPS, occ_update=not args.no_occ_update)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    if args.profile:
+        write_profile(prof, args.profile, dt * 1e3 / TIMED_STEPS, log)
     rays_per_s = batch * TIMED_STEPS / dt
     out = {
         "metric": "train_rays_per_s",
@@ -143,6 +224,11 @@ def main(argv=None):
     log(f"train throughput {rays_per_s:,.0f} rays/s "
         f"({TIMED_STEPS / dt:.1f} it/s, {dt * 1e3 / TIMED_STEPS:.2f} ms/step;"
         f" rm/ray {hist[-1]['rm_samples_per_ray']:.2f})")
+    if args.skip_quality:
+        log(f"graphs captured: {json.dumps(tr.captures)}")
+        log(f"kernel launches in this run: {json.dumps(kernels.counts())}")
+        print(json.dumps(out), flush=True)
+        return
 
     log(f"training to step {TOTAL_STEPS} for the quality gates")
     m = tr.fit(TOTAL_STEPS - tr.step)[-1]
@@ -172,6 +258,7 @@ def main(argv=None):
         if k in val:
             out[k.replace("ang/clust/", "rot_")] = round(val[k], 2)
     out["render_rays_per_s"] = round(scene.n_images * W * H / render_s, 1)
+    log(f"graphs captured: {json.dumps(tr.captures)}")
     log(f"kernel launches in this run: {json.dumps(kernels.counts())}")
 
     # the record first, so that a failed gate cannot hide the measurement
@@ -181,6 +268,45 @@ def main(argv=None):
         log(f)
     if fails:
         sys.exit(1)
+
+
+def write_profile(prof, out_dir: str, step_ms: float, log):
+    """The timed window's trace (gzipped chrome trace and the per-kernel
+    table) into `out_dir`, and on the log the device's busy time a step,
+    split as `split_device_time`, its launches a step, its idle share
+    against the host's `step_ms`, and the largest "other" kernels."""
+    from torch.autograd import DeviceType
+    os.makedirs(out_dir, exist_ok=True)
+    dev = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA]
+    table = prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=60)
+    with open(os.path.join(out_dir, "bench_profile.txt"), "w") as f:
+        f.write(table)
+    trace = os.path.join(out_dir, "bench_trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace, "rb") as f, gzip.open(trace + ".gz", "wb") as g:
+        shutil.copyfileobj(f, g)
+    os.remove(trace)
+    if not dev:
+        log(f"profile written to {out_dir}: the profiler recorded no "
+            "device time")
+        return
+    split, launches = split_device_time(dev, TIMED_STEPS)
+    busy = sum(split.values())
+    graphs = sum(e.count for e in prof.key_averages()
+                 if e.key == "cudaGraphLaunch") / TIMED_STEPS
+    log(f"profile of the {TIMED_STEPS} timed steps (written to {out_dir}): "
+        f"device busy {busy:.3f} ms/step ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f"), {launches:.0f} device launches/step, {graphs:.2f} graph "
+        f"launches/step, idle {1 - busy / step_ms:.3f} of the "
+        f"{step_ms:.2f} ms step")
+    for e in sorted(dev, key=lambda e: -e.self_device_time_total)[:25]:
+        kind, _ = split_device_time([e], 1)
+        if kind["other"]:
+            log(f"  other: {e.self_device_time_total / 1e3 / TIMED_STEPS:.4f}"
+                f" ms/step, {e.count / TIMED_STEPS:.1f}/step  {e.key[:100]}")
 
 
 if __name__ == "__main__":

@@ -97,6 +97,6 @@ class RaySampler:
                              == torch.div(x3, W, rounding_mode="floor"),
                              x3n, x3)
         return {
-            "img_idxs": img.repeat_interleave(3),
+            "img_idxs": img[:, None].expand(n, 3).reshape(-1),
             "pix_idxs": torch.stack([x1, x2, x3], dim=1).reshape(-1),
         }

@@ -10,12 +10,15 @@ all at once.
 
 Every launch goes through `Kernel.launch`, which checks the
 `cudaGetLastError()` code the C function returns, raises if it is not 0,
-and counts the launch in `Kernel.launches`. Nothing here falls back to
-another implementation: a missing `nvcc`, a failed build or a failed
-launch raises.
+and counts the launch in `Kernel.launches`. A launch recorded into a CUDA
+graph runs at each replay, with no Python call: `capture_counts` takes
+the capture's calls off the counts, and `CountedGraph.replay` adds them
+back at every replay. Nothing here falls back to another implementation:
+a missing `nvcc`, a failed build or a failed launch raises.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -222,3 +225,34 @@ def reset_counts():
 
 def counts() -> Dict[str, int]:
     return {k.name: k.launches for k in ALL_KERNELS}
+
+
+@contextlib.contextmanager
+def capture_counts():
+    """Around a CUDA graph capture: yields a dict that, after the block,
+    holds {Kernel: launches} of the calls made in it, which are taken off
+    the counts again (a capture records the launches; it runs none)."""
+    before = {k: k.launches for k in ALL_KERNELS}
+    rec: Dict[Kernel, int] = {}
+    try:
+        yield rec
+    finally:
+        for k in ALL_KERNELS:
+            if k.launches != before[k]:
+                rec[k] = k.launches - before[k]
+                k.launches = before[k]
+
+
+class CountedGraph:
+    """A captured CUDA graph and the launches its capture recorded
+    (`capture_counts`): each `replay` runs the graph and adds them to the
+    counts."""
+
+    def __init__(self, graph, counts: Dict[Kernel, int]):
+        self.graph = graph
+        self.counts = dict(counts)
+
+    def replay(self):
+        self.graph.replay()
+        for k, n in self.counts.items():
+            k.launches += n

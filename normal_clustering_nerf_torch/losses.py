@@ -6,10 +6,16 @@ each behind the same finite guard. Other components raise
 NotImplementedError (ROADMAP A9).
 
 The clustering init draw is separable: `kmeans_init` takes the K indices.
+
+The weights that change with the step (each clustering term's ramp,
+the clustering window) come from `loss_schedule(step)` on the host, or as
+0-dim tensors in `sched`: a row of the trainer's step table, which a
+CUDA graph of the step reads at every replay.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import functools
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,6 +45,29 @@ def w_sched(w: float, step, start: float, grow: float) -> float:
     return min(max((step - start) * (w / max(grow, 1e-12)), 0.0), w)
 
 
+# the clustering terms, each with its weight's field of LossConfig
+CLUSTERING_TERMS = ("norm_D_C_ort_dot", "norm_D_C_centr_dot",
+                    "norm_D_C_centr_L1")
+
+
+def loss_schedule(lcfg: LossConfig, step: int) -> Dict[str, float]:
+    """The loss scalars of `step`: "w_<term>", each clustering term's
+    ramped weight (`w_sched`), and "in_window", 1.0 while the clustering
+    window is open (losses.py:314) and 0.0 after it."""
+    out = {f"w_{t}": w_sched(getattr(lcfg, f"{t}_w"), step,
+                             lcfg.norm_can_start, lcfg.norm_can_grow)
+           for t in CLUSTERING_TERMS}
+    out["in_window"] = float(step <= lcfg.norm_can_end
+                             or lcfg.norm_can_end == -1)
+    return out
+
+
+def _step_scalars(lcfg: LossConfig, step: int, device) -> Dict:
+    """`loss_schedule(step)` as 0-dim f32 tensors on `device`."""
+    return {k: torch.full((), v, device=device)
+            for k, v in loss_schedule(lcfg, step).items()}
+
+
 def triang_idx(seq_len: int) -> Dict[str, np.ndarray]:
     """x1/x2/x3 indices of flat triangle batches (losses.py:57-61)."""
     if seq_len % 3 != 0:
@@ -46,6 +75,15 @@ def triang_idx(seq_len: int) -> Dict[str, np.ndarray]:
                          "multiple of 3")
     pix = np.arange(seq_len, dtype=np.int64).reshape(-1, 3)
     return {"x1": pix[:, 0], "x2": pix[:, 1], "x3": pix[:, 2]}
+
+
+@functools.lru_cache(maxsize=8)
+def triang_idx_on(seq_len: int, device: torch.device) -> Dict:
+    """`triang_idx(seq_len)` as tensors on `device`, built once per batch
+    size and device (a copy from the host cannot be captured in a CUDA
+    graph)."""
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in triang_idx(seq_len).items()}
 
 
 def _cross_entropy(logits, labels_shifted, n_cls):
@@ -61,10 +99,12 @@ def _cross_entropy(logits, labels_shifted, n_cls):
 
 def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
                       kmeans_init: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None):
+                      generator: Optional[torch.Generator] = None,
+                      sched: Optional[Mapping] = None):
     """The paper's contribution (reference: losses.py:419-509): cluster
     the depth normals, then pull the three selected clusters to be
-    orthogonal and tight."""
+    orthogonal and tight. The weights are `sched`'s "w_<term>" (0-dim
+    tensors), else `loss_schedule(step)`'s."""
     if (lcfg.norm_D_C_can_dot_w > 0 or lcfg.norm_D_C_can_L1_w > 0
             or lcfg.discard_far_members):
         raise NotImplementedError(
@@ -101,13 +141,13 @@ def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
         for g in range(3)) / 3.0
     ok = (counts[0] > 0) & (counts[1] > 0) & (counts[2] > 0)
     zero = torch.zeros((), dtype=normals.dtype, device=normals.device)
+    if sched is None:
+        sched = _step_scalars(lcfg, step, normals.device)
     out = {}
-    for name, w, val in (
-            ("norm_D_C_ort_dot", lcfg.norm_D_C_ort_dot_w, loss_ort),
-            ("norm_D_C_centr_dot", lcfg.norm_D_C_centr_dot_w, loss_centr_dot),
-            ("norm_D_C_centr_L1", lcfg.norm_D_C_centr_L1_w, loss_centr_l1)):
-        ws = w_sched(w, step, lcfg.norm_can_start, lcfg.norm_can_grow)
-        out[name] = _finite_or_zero(torch.where(ok, ws * val, zero))
+    for name, val in zip(CLUSTERING_TERMS,
+                         (loss_ort, loss_centr_dot, loss_centr_l1)):
+        out[name] = _finite_or_zero(torch.where(ok, sched[f"w_{name}"] * val,
+                                                zero))
     return out
 
 
@@ -115,9 +155,12 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
                    mcfg: ModelConfig, *, step: int,
                    ray_sampling_strategy: str = "all_images",
                    kmeans_init: Optional[torch.Tensor] = None,
-                   generator: Optional[torch.Generator] = None
+                   generator: Optional[torch.Generator] = None,
+                   sched: Optional[Mapping] = None
                    ) -> Dict[str, torch.Tensor]:
-    """All loss components + 'total' (reference: losses.py:244-587)."""
+    """All loss components + 'total' (reference: losses.py:244-587). The
+    step's weights and clustering window are `sched`'s (0-dim tensors, a
+    row of the trainer's step table), else `loss_schedule(step)`'s."""
     unported = {"depth_w": lcfg.depth_w, "norm_depth_dot_w":
                 lcfg.norm_depth_dot_w, "norm_depth_L1_w": lcfg.norm_depth_L1_w,
                 "reg_depth_w": lcfg.reg_depth_w,
@@ -131,9 +174,7 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
     n = target["rgb"].shape[0]
     x123 = None
     if ray_sampling_strategy in TRIANG_STRATEGIES:
-        dev = pred["depth"].device
-        x123 = {k: torch.as_tensor(v, device=dev)
-                for k, v in triang_idx(n).items()}
+        x123 = triang_idx_on(n, pred["depth"].device)
     norm_depth = None
     if mcfg.pred_norm_depth:
         if x123 is None:
@@ -170,11 +211,14 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
                      or lcfg.norm_D_C_can_dot_w > 0
                      or lcfg.norm_D_C_can_L1_w > 0)
     if clustering_on:
+        if sched is None:
+            sched = _step_scalars(lcfg, step, norm_depth.device)
         cl = clustering_losses(norm_depth, lcfg, step,
-                               kmeans_init=kmeans_init, generator=generator)
-        in_window = step <= lcfg.norm_can_end or lcfg.norm_can_end == -1
+                               kmeans_init=kmeans_init, generator=generator,
+                               sched=sched)
+        in_window = sched["in_window"] > 0
         for k, v in cl.items():
-            loss_d[k] = v if in_window else torch.zeros_like(v)
+            loss_d[k] = torch.where(in_window, v, torch.zeros_like(v))
     if lcfg.sem_w > 0:
         loss_d["sem"] = _finite_or_zero(lcfg.sem_w * _cross_entropy(
             pred["sem"][:n], target["semantics"].to(torch.int64) - 1,

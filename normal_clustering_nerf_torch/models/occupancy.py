@@ -2,7 +2,8 @@
 package's `models/occupancy.py` (reference: models/ngp_mt.py:231-368).
 
 The density grid, bitfield and coverage counts live in an
-`OccupancyState`; every update returns a new state. Cells are indexed
+`OccupancyState`; every update returns a new state, which the trainer
+copies into its own (`OccupancyState.copy_`). Cells are indexed
 linearly, x fastest, within each cascade, which is the layout the march
 probes. Random draws (sampled cells, their jitter) are separable: each
 function that draws takes them as optional arguments.
@@ -36,6 +37,17 @@ class OccupancyState(NamedTuple):
     coarse_occ: torch.Tensor        # ((G/8)^3,) uint8, dilated
     sv_mask: torch.Tensor           # ((G/8)^3,) uint8
     sv_payload: torch.Tensor        # ((G/8)^3, 16) int32
+
+    def copy_(self, src: "OccupancyState") -> "OccupancyState":
+        """Copy every field of `src` into this state's own tensors, whose
+        shapes are fixed by the grid (a CUDA graph of a training step
+        holds their storages); returns self."""
+        for name, dst, s in zip(self._fields, self, src):
+            if dst.shape != s.shape or dst.dtype != s.dtype:
+                raise ValueError(f"{name}: {tuple(s.shape)} {s.dtype}, "
+                                 f"expected {tuple(dst.shape)} {dst.dtype}")
+            dst.copy_(s)
+        return self
 
 
 def _occ_cube(bitfield: torch.Tensor, G: int) -> torch.Tensor:

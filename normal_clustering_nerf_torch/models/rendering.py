@@ -22,7 +22,7 @@ composited by segments with T_start, until no ray is alive.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -38,20 +38,41 @@ from ..ops.ray_march import (
 )
 
 
-def anneal_hits(hits_t, global_step: int, strategy: str, anneal_steps: int):
+def anneal_schedule(global_step: int, anneal_steps: int):
+    """(n_i, on) of the 'avoid_near' interval annealing at `global_step`
+    (rendering.py:168-188): n_i = clip(step / anneal_steps, 0.5, 1) with
+    the step fraction in f32, as the JAX version computes it, and whether
+    the annealing applies (step < anneal_steps)."""
+    if anneal_steps <= 0 or global_step >= anneal_steps:
+        return 1.0, False
+    frac = float(np.float32(global_step) / np.float32(anneal_steps))
+    return min(max(frac, 0.5), 1.0), True
+
+
+def anneal_hits(hits_t, global_step: int, strategy: str, anneal_steps: int,
+                sched: Optional[Mapping] = None):
     """Training ray-interval annealing (reference: rendering.py:168-188);
-    the 'avoid_near' strategy (RegNeRF, ps = 0.5)."""
-    if anneal_steps <= 0 or strategy == "none" or global_step >= anneal_steps:
+    the 'avoid_near' strategy (RegNeRF, ps = 0.5). `sched` may hold the
+    step's "anneal_n_i" and "anneal_on" as 0-dim tensors (a row of the
+    trainer's step table); the intervals are then selected on the device:
+    with n_i = 1 the formula is not bit for bit t1, so it is not relied
+    on."""
+    if anneal_steps <= 0 or strategy == "none":
         return hits_t
+    if sched is None:
+        n_i, on = anneal_schedule(global_step, anneal_steps)
+        if not on:
+            return hits_t
+        n_i, on = torch.full((), n_i, device=hits_t.device), None
+    else:
+        n_i, on = sched["anneal_n_i"], sched["anneal_on"] > 0
     if strategy != "avoid_near":
         raise NotImplementedError(
             f"anneal_strategy {strategy!r} is not ported (ROADMAP A7)")
     t1, t2 = hits_t[:, 0], hits_t[:, 1]
-    # the step fraction in f32, as the JAX version computes it
-    frac = float(np.float32(global_step) / np.float32(anneal_steps))
     mid = (t1 + t2) / 2.0
-    n_i = min(max(frac, 0.5), 1.0)
-    return torch.stack([mid + n_i * (t1 - mid), t2], dim=-1)
+    out = torch.stack([mid + n_i * (t1 - mid), t2], dim=-1)
+    return out if on is None else torch.where(on, out, hits_t)
 
 
 def split_rend(cfg, rend) -> Dict[str, torch.Tensor]:
@@ -102,12 +123,12 @@ def near_intervals(cfg, rays_o, rays_d):
 
 
 def train_intervals(cfg, rcfg: RenderConfig, rays_o, rays_d,
-                    global_step: int = 0):
+                    global_step: int = 0, sched: Optional[Mapping] = None):
     """(N, 2) march interval of each training ray: the near-clamped box
-    hit and the interval annealing."""
+    hit and the interval annealing (at `global_step`, or `sched`'s)."""
     hits_t = near_intervals(cfg, rays_o, rays_d)
     return anneal_hits(hits_t, global_step, rcfg.anneal_strategy,
-                       rcfg.anneal_steps).contiguous()
+                       rcfg.anneal_steps, sched).contiguous()
 
 
 def uses_sv(cfg, rcfg: RenderConfig, occ) -> bool:
@@ -168,18 +189,20 @@ def render_train(model, occ, rays_o, rays_d, rcfg: RenderConfig, *,
                  global_step: int = 0, bootstrap: bool = False,
                  noise: Optional[torch.Tensor] = None,
                  bg: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None) -> Dict:
+                 generator: Optional[torch.Generator] = None,
+                 sched: Optional[Mapping] = None) -> Dict:
     """Render N rays; returns the keys of the JAX `render_train`'s branch
     of `rcfg.march_layout`. `occ` is the `OccupancyState`: the bootstrap
     and the fine march read its bitfield (the two-level march also its
     `coarse_occ`), the sv march its `sv_mask` and `sv_payload` (a state
     whose `sv_mask` is None has no sv march, as a JAX call without it).
     The flat layout marches the bitfield from step 0 (no bootstrap), as
-    the JAX flat branch does, into a budget of `sample_budget` slots."""
+    the JAX flat branch does, into a budget of `sample_budget` slots.
+    `sched` may hold the step's annealing scalars (see `anneal_hits`)."""
     cfg = model.cfg
     N = rays_o.shape[0]
     dev = rays_o.device
-    hits_t = train_intervals(cfg, rcfg, rays_o, rays_d, global_step)
+    hits_t = train_intervals(cfg, rcfg, rays_o, rays_d, global_step, sched)
     if noise is None:
         noise = torch.rand(N, generator=generator, device=dev)
     noise = noise * rcfg.march_noise

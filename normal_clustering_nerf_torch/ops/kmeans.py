@@ -34,14 +34,37 @@ def spherical_kmeans(normals, valid, K: int = 20, niter: int = 20, *,
     w = valid.to(normals.dtype)[:, None]
     for _ in range(niter):
         assign = torch.argmax(normals @ centroids.T, dim=-1)
-        sums = torch.zeros((K, 3), dtype=normals.dtype, device=normals.device)
-        sums.index_add_(0, assign, normals * w)
+        sums = _cluster_sums(normals * w, assign, K)
         norm = torch.linalg.norm(sums, dim=-1, keepdim=True)
         centroids = torch.where(norm > 1e-12,
                                 sums / torch.clamp(norm, min=1e-12),
                                 centroids)
     assign = torch.argmax(normals @ centroids.T, dim=-1)
     return centroids, assign
+
+
+def _cluster_sums(x, assign, K: int):
+    """(K, D) sums of the rows of x (M, D) by cluster: on the CPU added
+    in row order (index_add_, as the JAX segment sum does); on the card
+    `masked_sums`, whose order is fixed, where index_add_'s float atomics
+    add in an order that changes from run to run."""
+    if x.is_cuda:
+        return masked_sums(x, assign, K)
+    return torch.zeros((K, x.shape[1]), dtype=x.dtype,
+                       device=x.device).index_add_(0, assign, x)
+
+
+def masked_sums(x, assign, K: int):
+    """(K, D) sums of the rows of x (M, D) by cluster, each cluster's
+    masked (D, M) rows reduced along M."""
+    member = torch.arange(K, device=x.device)[:, None] == assign[None, :]
+    return (member[:, None, :] * x.T[None, :, :]).sum(-1)
+
+
+def _row(m, i):
+    """m[i] for a 0-dim index tensor `i` on m's device, without reading
+    `i` on the host (a CUDA graph cannot capture that read)."""
+    return m.index_select(0, i.view(1))[0]
 
 
 class ClusteringResult(NamedTuple):
@@ -68,13 +91,14 @@ def normals_clustering(normals, valid, *, K: int = 20, niter: int = 20,
     sizes = torch.zeros(K, dtype=torch.int64, device=normals.device)
     sizes.index_add_(0, assign, valid.to(torch.int64))
     c1 = torch.argmax(sizes)
-    criteria = sim_abs[:, c1][:, None] + sim_abs[c1, :][None, :] + sim_abs
+    criteria = (_row(sim_abs.T, c1)[:, None] + _row(sim_abs, c1)[None, :]
+                + sim_abs)
     mins, min_idx = torch.min(criteria, dim=0)
     c2 = torch.argmin(mins)
-    c3 = min_idx[c2]
+    c3 = _row(min_idx, c2)
 
     def member_mask(ci):
-        sel = (sim[ci] > t_similar if merge_clusters
+        sel = (_row(sim, ci) > t_similar if merge_clusters
                else torch.arange(K, device=normals.device) == ci)
         return sel[assign]
 
@@ -83,9 +107,9 @@ def normals_clustering(normals, valid, *, K: int = 20, niter: int = 20,
         new = torch.where(member_mask(ci) & valid, g + 1, new)
     if find_opposite:
         for g, ci in enumerate((c1, c2, c3)):
-            cand = sim[ci]
+            cand = _row(sim, ci)
             o = torch.argmin(cand)
-            is_opp = (-cand[o]) > t_similar
+            is_opp = (-_row(cand, o)) > t_similar
             new = torch.where(is_opp & member_mask(o) & valid, -(g + 1), new)
     centroids3 = centroids[torch.stack([c1, c2, c3])]
     return ClusteringResult(new, assign, centroids3)

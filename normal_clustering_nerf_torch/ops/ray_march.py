@@ -73,6 +73,16 @@ def t_step_grid(t0, n_steps, *, exp_step_factor, max_samples, grid_size,
                        torch.where(j <= jB, t_geo, t_lin_hi))
 
 
+def _div(x, s: float):
+    """x / s with one rounding on any device. PyTorch's CUDA kernel
+    divides by a Python scalar as a product with its reciprocal, a
+    rounding more, which can move the ceil of a quotient by a step, or a
+    position across a cell face, off the kernels' `__fdiv_rn` (K1, H9,
+    H10) and the CPU's and JAX's division; a 0-dim tensor on x's device
+    is divided by as such."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
+
+
 def occupancy_lookup(xyz, bitfield, *, cascades, scale, grid_size):
     """Occupancy bit at (..., 3) positions, single-cascade form
     (linear x-fastest cell index, ray_march.py:80-87)."""
@@ -81,7 +91,7 @@ def occupancy_lookup(xyz, bitfield, *, cascades, scale, grid_size):
             "multi-cascade occupancy lookup is not ported (ROADMAP A15)")
     G = grid_size
     mip_bound = min(0.5, scale)
-    cell = torch.clamp(0.5 * (xyz / mip_bound + 1.0) * G, 0.0,
+    cell = torch.clamp(0.5 * (_div(xyz, mip_bound) + 1.0) * G, 0.0,
                        G - 1.0).to(torch.int64)
     idx = (cell[..., 2] * G + cell[..., 1]) * G + cell[..., 0]
     return unpack_bit(bitfield, idx)
@@ -170,7 +180,7 @@ def coarse_lookup(xyz, coarse_occ, *, scale, grid_size):
     boundaries)."""
     Gc = grid_size // 8
     mip_bound = min(0.5, scale)
-    cell = torch.clamp(0.5 * (xyz / mip_bound + 1.0) * Gc, 0.0,
+    cell = torch.clamp(0.5 * (_div(xyz, mip_bound) + 1.0) * Gc, 0.0,
                        Gc - 1.0).to(torch.int64)
     idx = (cell[..., 2] * Gc + cell[..., 1]) * Gc + cell[..., 0]
     return coarse_occ[idx] > 0
@@ -628,15 +638,6 @@ def march_rays_test_round(rays_o, rays_d, cursor, t_far, alive, bitfield, *,
 # size; the bench's 24 intervals and the auto-full 3 * G/8 = 48 of the
 # 128^3 grid fit.
 SV_MAX_INTERVALS = 64
-
-
-def _div(x, s: float):
-    """x / s with one rounding on any device. PyTorch's CUDA kernel
-    divides by a Python scalar as a product with its reciprocal, a
-    rounding more, which can move the ceil of a quotient by a step off
-    kernel K1's `__fdiv_rn` (and the CPU's and JAX's division); a 0-dim
-    tensor on x's device is divided by as such."""
-    return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 def _sv_geometry(scale, grid_size, lo):

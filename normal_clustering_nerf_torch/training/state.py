@@ -15,16 +15,35 @@ the same gradients gives the same parameters to f32 rounding:
     then the update scaled by -lr(count);
   * lr(count): cosine annealing stepped per epoch,
     lr * 0.5 * (1 + cos(pi * epoch / num_epochs)).
+
+The scalars that change with the step (the lr, the bias corrections, the
+clustering loss weights, the interval annealing's fraction and whether
+it applies, the clustering window) are a table on the device,
+`schedule_table`, one row per step, computed once with the host
+functions below; a step indexes it with its device counters, so that a
+CUDA graph of the step reads the right row at every replay. The
+moments, like the parameters, are updated in their own storages.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 
-from ..config import OptimConfig
+from ..config import OptimConfig, TrainConfig
+from ..losses import CLUSTERING_TERMS, loss_schedule
+from ..models.rendering import anneal_schedule
+
+# the columns of `schedule_table`: row i holds the optimizer's scalars at
+# its count i (lr(i), the bias corrections 1 - b^(i+1)) and the trainer's
+# at its step i (each clustering term's weight, the annealing fraction and
+# whether it applies, whether the clustering window is open)
+SCHEDULE_COLUMNS = ("lr", "bc1", "bc2") + tuple(
+    f"w_{t}" for t in CLUSTERING_TERMS) + ("anneal_n_i", "anneal_on",
+                                          "in_window")
+OPT_COLUMNS = 3   # the optimizer's, indexed by its count
 
 
 def cosine_epoch_lr(base_lr: float, num_epochs: int, steps_per_epoch: int,
@@ -51,15 +70,36 @@ class AdamW:
         self.cfg = cfg
         self.b1, self.b2 = b1, b2
         self.state = self.init_state()
+        # the count on the device, which `update` advances (a captured
+        # step included); state["count"] is its host copy (`advance`)
+        self.count_t = torch.zeros((), dtype=torch.int64,
+                                   device=next(iter(params.values())).device)
 
     def init_state(self) -> Dict:
         return {"count": 0,
                 "mu": {n: torch.zeros_like(p) for n, p in self.params.items()},
                 "nu": {n: torch.zeros_like(p) for n, p in self.params.items()}}
 
+    @torch.no_grad()
+    def load_state(self, state: Dict):
+        """Take over `state` (count and moments) into this optimizer's own
+        storages, which a captured step reads and writes."""
+        for k in ("mu", "nu"):
+            for n, t in self.state[k].items():
+                t.copy_(state[k][n])
+        self.state["count"] = int(state["count"])
+        self.count_t.fill_(self.state["count"])
+
     def lr(self, count: int) -> float:
         o = self.cfg
         return cosine_epoch_lr(o.lr, o.num_epochs, o.steps_per_epoch, count)
+
+    def schedule(self, count: int) -> Tuple[float, float, float]:
+        """(lr, bc1, bc2) of the step taken at `count`: the lr at `count`
+        and the bias corrections 1 - b^(count + 1), in f32."""
+        f32, c = np.float32, np.float32(count + 1)
+        return (self.lr(count), float(f32(1.0) - f32(self.b1) ** c),
+                float(f32(1.0) - f32(self.b2) ** c))
 
     @staticmethod
     def clip(grads: Dict[str, torch.Tensor], max_norm: float):
@@ -70,24 +110,48 @@ class AdamW:
                 for n, g in grads.items()}, g_norm
 
     @torch.no_grad()
-    def step(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Update the parameters in place; returns the pre-clip norm."""
+    def update(self, grads: Dict[str, torch.Tensor], lr: torch.Tensor,
+               bc1: torch.Tensor, bc2: torch.Tensor) -> torch.Tensor:
+        """Update the parameters and the moments in place, on the device
+        only: `lr`, `bc1` and `bc2` are 0-dim f32 tensors (the row of
+        `schedule_table` at `count_t`), divided by as tensors (one
+        rounding on the card too, where a Python divisor becomes a product
+        with its reciprocal). Advances `count_t`; the caller advances the
+        host count (`advance`). Returns the pre-clip norm."""
         grads, g_norm = self.clip(grads, self.cfg.grad_clip)
         st = self.state
-        count = st["count"] + 1
-        f32 = np.float32
-        bc1 = float(f32(1.0) - f32(self.b1) ** f32(count))
-        bc2 = float(f32(1.0) - f32(self.b2) ** f32(count))
-        neg_lr = -self.lr(st["count"])
+        neg_lr = -lr
         wd = self.cfg.weight_decay_net
         for n, p in self.params.items():
             g = grads[n]
-            mu = (1 - self.b1) * g + self.b1 * st["mu"][n]
-            nu = (1 - self.b2) * (g * g) + self.b2 * st["nu"][n]
-            st["mu"][n], st["nu"][n] = mu, nu
+            mu, nu = st["mu"][n], st["nu"][n]
+            torch.add((1 - self.b1) * g, self.b1 * mu, out=mu)
+            torch.add((1 - self.b2) * (g * g), self.b2 * nu, out=nu)
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.cfg.adam_eps)
             if decays(n):
                 u = u + wd * p
             p.add_(u * neg_lr)
-        st["count"] = count
+        self.count_t.add_(1)
         return g_norm
+
+    def advance(self):
+        self.state["count"] += 1
+
+
+def schedule_row(opt: AdamW, cfg: TrainConfig, i: int) -> Tuple[float, ...]:
+    """Row i of `schedule_table`, from the host functions: the optimizer's
+    `schedule(i)`, `losses.loss_schedule` and
+    `models.rendering.anneal_schedule` at step i."""
+    loss = loss_schedule(cfg.loss, i)
+    n_i, on = anneal_schedule(i, cfg.render.anneal_steps)
+    return (*opt.schedule(i), *(loss[f"w_{t}"] for t in CLUSTERING_TERMS),
+            n_i, float(on), loss["in_window"])
+
+
+def schedule_table(opt: AdamW, cfg: TrainConfig, n_rows: int,
+                   device) -> torch.Tensor:
+    """(n_rows, len(SCHEDULE_COLUMNS)) f32 on `device`: the step scalars of
+    steps 0..n_rows-1 (see SCHEDULE_COLUMNS)."""
+    rows = np.array([schedule_row(opt, cfg, i) for i in range(n_rows)],
+                    np.float32).reshape(n_rows, len(SCHEDULE_COLUMNS))
+    return torch.as_tensor(rows, device=device)

@@ -7,25 +7,38 @@ supervoxel-run march or the bitfield march, or the flat layout's march
 from step 0, as `render.march_layout` and `render.march_coarse` choose;
 the field, compositing) -> multi-task loss -> gradients ->
 optax-equivalent clipped AdamW. `fit` refreshes the occupancy grid every
-`update_interval` steps (every cell before `warmup_steps`). `validate`
-renders the held-out views (`render_images`), computes the metric suite
-and recovers the Manhattan rotation. The JAX version's lax.scan
-chunking, shard_map, host sampler, render prewarming and the
-visualisation / prediction exports are not ported.
+`update_interval` steps (every cell before `warmup_steps`) and runs the
+steps between two refreshes as one chunk (`train_chunk`, the JAX
+trainer's `_make_chunk_fn`). `validate` renders the held-out views
+(`render_images`), computes the metric suite and recovers the Manhattan
+rotation. The JAX version's shard_map, host sampler, render prewarming
+and the visualisation / prediction exports are not ported.
 
-Random draws come from one `torch.Generator` seeded with `cfg.seed`; each
-step's draws can be handed in instead (`train_step_core(draws=...)`).
+On the card a chunk is a CUDA graph of one step, replayed once a step.
+Everything a step reads or writes stays in fixed storages: parameters,
+moments, occupancy (a refresh copies into it), the step counters on the
+device and the step table they index (`state.schedule_table`: the lr,
+the bias corrections, the loss weights, the annealing), and the rows
+that collect each step's metrics, which `fit` copies to the host once.
+
+Random draws come from one `torch.Generator` seeded with `cfg.seed`
+(registered with each graph, so that a replay draws what an eager step
+draws); each step's draws can be handed in instead
+(`train_step_core(draws=...)`).
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
+import time
 import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from .. import kernels
 from ..config import TrainConfig
 from ..datasets.base import SceneData
 from ..datasets.normals import extract_normals_from_depth_batch
@@ -36,12 +49,17 @@ from ..losses import compute_losses
 from ..metrics import NeRFMTMetricsPerIm
 from ..models.ngp_mt import NGPMT
 from ..models.occupancy import OccupancyGrid, OccupancyState
-from ..models.rendering import render_test, render_train
+from ..models.rendering import render_test, render_train, train_march_kind
 from ..utils.rotations import euler_angles_to_matrix
 from .rotation_recovery import rotation_recovery_errors
-from .state import AdamW
+from .state import OPT_COLUMNS, SCHEDULE_COLUMNS, AdamW, schedule_table
 
 _LABELS = ("semantics",)
+_log = logging.getLogger(__name__)
+# eager steps of a step kind, on a side stream, before its CUDA graph is
+# captured (as PyTorch's whole-network capture warms up: lazy
+# initialisation, the kernels' libraries, cuBLAS's handles)
+GRAPH_WARMUP = 3
 
 
 class Trainer:
@@ -87,10 +105,40 @@ class Trainer:
                     scene_train.labels[k], device=dev)
         self.params = dict(self.model.named_parameters())
         self.opt = AdamW(self.params, cfg.optim)
-        self.occ: OccupancyState = self.occ_grid.init_state()
-        self.step = 0
+        self._occ: OccupancyState = self.occ_grid.init_state()
+        self._step = 0
+        self._step_t = torch.zeros((), dtype=torch.int64, device=dev)
+        self._table = self._table_cfg = None   # see _ensure_rows
+        self._hist = self._hist_keys = None    # each step's metrics
+        self._graphs: Dict[str, kernels.CountedGraph] = {}
+        # a graph's own outputs: metrics, last_batch, last_grads
+        self._graph_out: Dict[str, tuple] = {}
+        self._warm: Dict[str, int] = {}
+        self._zero_grads: Dict[str, torch.Tensor] = {}
+        self._pool = self._side = None
+        self._flat_logged = False
+        self.captures: List[Dict] = []   # kind, step, ms of each capture
         self.last_grads: Dict[str, torch.Tensor] = {}
+        self.last_batch: Optional[Dict[str, torch.Tensor]] = None
         self.R_offset = self._build_R_offset()
+
+    @property
+    def step(self) -> int:
+        return self._step
+
+    @step.setter
+    def step(self, value: int):
+        self._step = int(value)
+        self._step_t.fill_(self._step)
+
+    @property
+    def occ(self) -> OccupancyState:
+        return self._occ
+
+    @occ.setter
+    def occ(self, value: OccupancyState):
+        """Assigning a state copies it into the trainer's own tensors."""
+        self._occ.copy_(value)
 
     def _build_R_offset(self) -> np.ndarray:
         """Scene rotation offset from the ZYX euler angles of the loss
@@ -111,7 +159,7 @@ class Trainer:
             for n, p in self.params.items():
                 p.copy_(params[n])
         self.occ = occ
-        self.opt.state = opt_state or self.opt.init_state()
+        self.opt.load_state(opt_state or self.opt.init_state())
         self.step = step
 
     # ------------------------------------------------------- occupancy ops
@@ -120,7 +168,9 @@ class Trainer:
         return 0.01 * m.max_samples / math.sqrt(3.0) * m.density_tresh_decay
 
     def occ_update(self, warmup: bool, *, jitter=None, cell_draws=None):
-        """Occupancy refresh (train_nerf.py:314-320)."""
+        """Occupancy refresh (train_nerf.py:314-320), eager between chunks
+        (the JAX trainer's `_occ_update` is a jit of its own); the new
+        state is copied into the trainer's tensors."""
         self.occ = self.occ_grid.update(
             self.occ, self.model.density, self.density_threshold(), warmup,
             generator=self.generator, jitter=jitter, cell_draws=cell_draws)
@@ -135,14 +185,53 @@ class Trainer:
             self.occ, s.poses, s.img_wh, self.cfg.model.near_dist, s.K)
 
     # ------------------------------------------------------------ train step
-    def train_step_core(self, bootstrap: bool = True,
-                        draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        """One optimisation step: the bootstrap march when `bootstrap`,
-        else the march `render_train` picks from the occupancy state (the
-        flat layout ignores `bootstrap`, as the JAX one does). `draws`
-        may hold this step's random draws: "batch" ({"img", "tri"}),
-        "noise" (N,), "bg" (3,) and "kmeans_init" (cluster_K,). Returns
-        the step's metrics as tensors (no host synchronisation)."""
+    def _ensure_rows(self, end: int):
+        """Make the step table and the metric rows cover the steps and
+        optimizer counts of this config up to `end - step` steps from now.
+        A new table drops the captured graphs, which read the old one and
+        this config's host-side branches."""
+        need = max(end, self.opt.state["count"] + end - self.step)
+        same = self._table_cfg is self.cfg
+        have = 0 if self._table is None else self._table.shape[0]
+        if same and need <= have:
+            return
+        o = self.cfg.optim
+        rows = max(need, o.num_epochs * o.steps_per_epoch,
+                   2 * have if same else 0)
+        self._drop_graphs()
+        self._table = schedule_table(self.opt, self.cfg, rows, self.device)
+        self._table_cfg = self.cfg
+        if self._hist is not None:
+            old, self._hist = self._hist, torch.zeros(
+                (rows, self._hist.shape[1]), device=self.device)
+            self._hist[:min(have, rows)] = old[:rows]
+
+    def _drop_graphs(self):
+        if self._graphs:
+            torch.cuda.synchronize(self.device)
+            _log.info(f"dropping the CUDA graphs of {sorted(self._graphs)} "
+                      f"at step {self.step}")
+        self._graphs.clear()
+        self._graph_out.clear()
+        self._warm.clear()
+
+    def _record(self, metrics: Dict[str, torch.Tensor]):
+        """Write the step's metrics into its row (on the device)."""
+        keys = tuple(metrics)
+        if self._hist is None or keys != self._hist_keys:
+            self._hist = torch.zeros((self._table.shape[0], len(keys)),
+                                     device=self.device)
+            self._hist_keys = keys
+        row = torch.stack([v.float() for v in metrics.values()])
+        self._hist.index_copy_(0, self._step_t.view(1), row[None])
+
+    def _step_body(self, bootstrap: bool,
+                   draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        """One optimisation step on the device, host state untouched but
+        for `last_grads` / `last_batch`: what a CUDA graph of a step
+        holds. The step's scalars are the rows of the step table at the
+        optimizer's and the trainer's device counters, which it
+        advances."""
         cfg, scene, g = self.cfg, self.scene, self.generator
         draws = dict(draws or {})
         for k, dt in (("noise", torch.float32), ("bg", torch.float32),
@@ -150,7 +239,11 @@ class Trainer:
             if k in draws:
                 draws[k] = torch.as_tensor(np.array(draws[k]), dtype=dt,
                                            device=self.device)
+        rows = self._table.index_select(
+            0, torch.stack([self.opt.count_t, self._step_t]))
+        sched = dict(zip(SCHEDULE_COLUMNS, rows[1]))
         batch = self.sampler.sample(g, draws.get("batch"))
+        self.last_batch = batch
         img, pix = batch["img_idxs"], batch["pix_idxs"]
         target = {"rgb": scene["rays"][img, pix][..., :3]}
         for k in _LABELS:
@@ -161,19 +254,18 @@ class Trainer:
             self.model, self.occ, rays_o.contiguous(),
             rays_d.contiguous(), cfg.render, global_step=self.step,
             bootstrap=bootstrap, noise=draws.get("noise"), bg=draws.get("bg"),
-            generator=g)
+            generator=g, sched=sched)
         loss_d = compute_losses(
             results, target, cfg.loss, self.model.cfg, step=self.step,
             ray_sampling_strategy=cfg.data.ray_sampling_strategy,
-            kmeans_init=draws.get("kmeans_init"), generator=g)
+            kmeans_init=draws.get("kmeans_init"), generator=g, sched=sched)
         names = list(self.params)
         grads = torch.autograd.grad(loss_d["total"],
                                     [self.params[n] for n in names],
                                     allow_unused=True)
-        self.last_grads = {n: torch.zeros_like(self.params[n]) if gr is None
-                           else gr for n, gr in zip(names, grads)}
-        self.opt.step(self.last_grads)
-        self.step += 1
+        self.last_grads = {n: self._zeros(n) if gr is None else gr
+                           for n, gr in zip(names, grads)}
+        self.opt.update(self.last_grads, *rows[0, :OPT_COLUMNS])
         n_rays = self.sampler.batch_size
         mse = torch.mean((results["rgb"][: target["rgb"].shape[0]].detach()
                           - target["rgb"]) ** 2)
@@ -184,23 +276,137 @@ class Trainer:
             "trunc_ray_frac": results["trunc_rays"].float() / n_rays,
         }
         metrics.update({f"loss_{k}": v.detach() for k, v in loss_d.items()})
+        self._record(metrics)
+        self._step_t.add_(1)
         return metrics
 
+    def _zeros(self, name: str) -> torch.Tensor:
+        """An unused parameter's gradient: zeros made at its first step."""
+        if name not in self._zero_grads:
+            self._zero_grads[name] = torch.zeros_like(self.params[name])
+        return self._zero_grads[name]
+
+    def _advance(self):
+        self._step += 1
+        self.opt.advance()
+
+    def train_step_core(self, bootstrap: bool = True,
+                        draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        """One eager optimisation step: the bootstrap march when
+        `bootstrap`, else the march `render_train` picks from the occupancy
+        state (the flat layout ignores `bootstrap`, as the JAX one does).
+        `draws` may hold this step's random draws: "batch" ({"img",
+        "tri"}), "noise" (N,), "bg" (3,) and "kmeans_init" (cluster_K,).
+        Returns the step's metrics as tensors (no host synchronisation)."""
+        self._ensure_rows(self.step + 1)
+        metrics = self._step_body(bootstrap, draws)
+        self._advance()
+        return metrics
+
+    def train_chunk(self, n: int, bootstrap: Optional[bool] = None
+                    ) -> Dict[str, torch.Tensor]:
+        """`n` steps of one march with no refresh: the JAX trainer's
+        `_make_chunk_fn` (one `lax.scan` dispatch). `bootstrap` defaults
+        to whether this step is before `render.bootstrap_steps`. On the
+        card, each march's first GRAPH_WARMUP steps run eagerly on a side
+        stream; its next step is captured as a CUDA graph and every step
+        after is a replay of it, with nothing on the host between replays.
+        The flat layout reads its segments' widths on the host and runs
+        eager steps. On the CPU the same body runs eagerly. Returns the
+        last step's metrics (tensors; on the card a graph's own, which its
+        next replay overwrites)."""
+        if bootstrap is None:
+            bootstrap = self.step < self.cfg.render.bootstrap_steps
+        self._ensure_rows(self.step + n)
+        m = None
+        on_card = self.device.type == "cuda"
+        if not on_card or self.cfg.render.march_layout == "flat":
+            if on_card and not self._flat_logged:
+                _log.info("flat march layout: eager steps, not a CUDA graph "
+                          "(its segment widths are read on the host)")
+                self._flat_logged = True
+            for _ in range(n):
+                m = self.train_step_core(bootstrap)
+            return m
+        kind = train_march_kind(self.model.cfg, self.cfg.render, self.occ,
+                                bootstrap)
+        for _ in range(n):
+            graph = self._graphs.get(kind)
+            if graph is None and self._warm.get(kind, 0) >= GRAPH_WARMUP:
+                graph = self._capture(kind, bootstrap)
+            if graph is None:
+                m = self._warm_step(kind, bootstrap)
+            else:
+                graph.replay()
+                self._advance()
+                m, self.last_batch, self.last_grads = self._graph_out[kind]
+        return m
+
+    def _warm_step(self, kind: str, bootstrap: bool):
+        """One eager step of `kind` before its capture, on a side stream."""
+        main = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        self._side.wait_stream(main)
+        with torch.cuda.stream(self._side):
+            m = self.train_step_core(bootstrap)
+        main.wait_stream(self._side)
+        self._warm[kind] = self._warm.get(kind, 0) + 1
+        return m
+
+    def _capture(self, kind: str, bootstrap: bool) -> kernels.CountedGraph:
+        """Capture one step of `kind` as a CUDA graph (the capture runs
+        nothing: the caller replays it for this step), in the trainer's
+        one graph memory pool, with the generator registered. The
+        kernels' launches it records are counted at each replay. A failed
+        capture raises."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        t = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        with kernels.capture_counts() as counts:
+            with torch.cuda.graph(graph, pool=self._pool):
+                metrics = self._step_body(bootstrap)
+        self._graphs[kind] = kernels.CountedGraph(graph, counts)
+        self._graph_out[kind] = (metrics, self.last_batch, self.last_grads)
+        rec = {"kind": kind, "step": self.step,
+               "ms": (time.perf_counter() - t) * 1e3,
+               "launches": {k.name: c for k, c in counts.items()}}
+        self.captures.append(rec)
+        _log.info(f"captured the {kind} step as a CUDA graph at step "
+                  f"{self.step} in {rec['ms']:.1f} ms "
+                  f"({sum(counts.values())} kernel launches of the port)")
+        return self._graphs[kind]
+
     # ------------------------------------------------------------------ fit
-    def fit(self, n_steps: int) -> List[Dict[str, float]]:
-        """Train `n_steps` steps from the current step, refreshing the
-        occupancy grid every `update_interval` steps. Call
-        `mark_invisible_cells()` once before the first step, as bench.py
-        does. Returns every step's metrics as floats."""
+    def fit(self, n_steps: int, occ_update: bool = True
+            ) -> List[Dict[str, float]]:
+        """Train `n_steps` steps from the current step as the JAX bench's
+        `run_steps` does: an occupancy refresh at every `update_interval`
+        boundary (unless not `occ_update`, its cost probe), a whole chunk
+        (`train_chunk`) where one fits before the end, single steps
+        otherwise. Call `mark_invisible_cells()` once before the first
+        step, as bench.py does. Returns every step's metrics as floats,
+        copied from the device once."""
         cfg = self.cfg
-        history = []
-        for _ in range(n_steps):
+        interval = cfg.optim.update_interval
+        start, end = self.step, self.step + n_steps
+        self._ensure_rows(end)
+        while self.step < end:
             step = self.step
-            if step % cfg.optim.update_interval == 0:
+            if step % interval == 0 and occ_update:
                 self.occ_update(warmup=step < cfg.optim.warmup_steps)
-            boot = step < cfg.render.bootstrap_steps
-            history.append(self.train_step_core(bootstrap=boot))
-        return [{k: float(v) for k, v in m.items()} for m in history]
+            whole = step % interval == 0 and step + interval <= end
+            self.train_chunk(interval if whole else 1)
+        return self._history(start, end)
+
+    def _history(self, start: int, end: int) -> List[Dict[str, float]]:
+        """The metrics of steps start..end-1 as floats (one copy)."""
+        if end <= start:
+            return []
+        rows = self._hist[start:end].cpu().tolist()
+        return [dict(zip(self._hist_keys, r)) for r in rows]
 
     # -------------------------------------------------------------- validate
     def render_images(self, poses) -> List[Dict]:

@@ -45,6 +45,60 @@ def test_bench_config_matches_bench_py(monkeypatch, layout):
     assert cfg.seed == jcfg.seed
 
 
+# (port argv, jax_bench.build_trainer keywords): each flag of
+# bench.py:143-161 that changes the configuration, alone and together
+FLAG_CASES = [
+    ([], {}),
+    (["--samples_per_ray", "32"], dict(samples_per_ray=32)),
+    (["--min_losses"], dict(min_losses=True)),
+    (["--batch", "4096"], dict(batch=4096)),
+    (["--compute_dtype", "float32"], dict(compute_dtype="float32")),
+    (["--sv_intervals", "8"], dict(sv_intervals=8)),
+    (["--hash_layout", "brick", "--min_losses", "--samples_per_ray", "24",
+      "--batch", "4096"],
+     dict(hash_layout="brick", min_losses=True, samples_per_ray=24,
+          batch=4096)),
+]
+
+
+@pytest.mark.parametrize("argv,jax_kw", FLAG_CASES,
+                         ids=[" ".join(a) or "defaults" for a, _ in FLAG_CASES])
+def test_bench_flags_match_bench_py(monkeypatch, argv, jax_kw):
+    """The configuration the port's flags build equals bench.py's
+    `build_trainer` at the same flags, field by field (bench.py's
+    defaults for the rest: batch 8192, bf16, triplane, 16 samples a ray,
+    24 sv intervals, the production losses)."""
+    monkeypatch.setattr(j_synthetic, "SyntheticDataset", _Scene)
+    monkeypatch.setattr(j_training, "Trainer", lambda *a: a)
+    kw = dict(batch=8192, compute_dtype="bfloat16", hash_layout="triplane",
+              samples_per_ray=16, sv_intervals=24, min_losses=False)
+    kw.update(jax_kw)
+    _, jcfg = jax_bench.build_trainer(kw.pop("batch"), **kw)
+    cfg = bench.config_of(bench.parse_args(argv))
+    for part in ("model", "render", "loss", "data", "optim"):
+        ours, ref = getattr(cfg, part), getattr(jcfg, part)
+        for f in dataclasses.fields(ours):
+            assert getattr(ours, f.name) == getattr(ref, f.name), \
+                f"{part}.{f.name}"
+    assert cfg.seed == jcfg.seed
+
+
+def test_bench_run_flags():
+    """The flags that shape the run and not the configuration: the cost
+    probes, the trace and the throughput-only run; more than 32 samples a
+    ray and `--num_chips` (ROADMAP A10) are refused."""
+    args = bench.parse_args(["--no_occ_update", "--skip-quality",
+                             "--profile", "trace_dir"])
+    assert args.no_occ_update and args.skip_quality
+    assert args.profile == "trace_dir"
+    defaults = bench.parse_args([])
+    assert not (defaults.no_occ_update or defaults.skip_quality
+                or defaults.min_losses or defaults.profile)
+    for argv in (["--samples_per_ray", "33"], ["--num_chips", "2"]):
+        with pytest.raises(SystemExit):
+            bench.parse_args(argv)
+
+
 PASS = {"psnr": 34.0, "trunc_ray_frac": 0.0, "norm_depth_ang_mean": 18.0,
         "rot_yaw_abs": 0.3, "rot_pitch_abs": 3.5, "rot_roll_abs": 3.2}
 

@@ -60,6 +60,25 @@ def test_normals_clustering_matches_jax():
     assert set(np.unique(N(out.assign_new))) >= {1, 2, 3}
 
 
+def test_card_cluster_sums_match_jax(monkeypatch):
+    """The clustering with the card's fixed-order cluster sums
+    (`kmeans.masked_sums`, run here on the CPU) against JAX, at the
+    tolerances above."""
+    monkeypatch.setattr(tk, "_cluster_sums", tk.masked_sums)
+    normals = np.nan_to_num(_manhattan_normals(1))
+    valid = np.abs(normals).sum(-1) != 0
+    key = jax.random.PRNGKey(4)
+    ref = jk.normals_clustering(J(normals), J(valid), key, K=20, niter=20,
+                                t_similar=0.99)
+    out = tk.normals_clustering(T(normals), T(valid), K=20, niter=20,
+                                t_similar=0.99,
+                                init_idx=T(_init_idx(key, normals, 20)))
+    np.testing.assert_array_equal(N(out.assign_new),
+                                  np.asarray(ref.assign_new))
+    np.testing.assert_allclose(N(out.centroids3), np.asarray(ref.centroids3),
+                               rtol=1e-5, atol=1e-6)
+
+
 def test_kmeans_draws_its_own_init():
     normals = torch.nn.functional.normalize(torch.randn(200, 3), dim=-1)
     valid = torch.ones(200, dtype=torch.bool)

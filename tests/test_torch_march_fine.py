@@ -206,3 +206,60 @@ def test_flat_test_round_matches_jax():
         np.testing.assert_array_equal(N(oc), np.asarray(rc))
         cur = np.asarray(rc)
         alive = alive & (cur < far)
+
+
+def _face_points(rng, scale, cells):
+    """(n, 3) f32 positions in the box of half-size `scale`, each
+    coordinate on a face of a grid of `cells` cells a side or a few ulps
+    off it (the rest uniform), where x / mb and x * (1 / mb) round apart."""
+    mb = np.float32(min(0.5, scale))
+    faces = (mb * (2.0 * np.arange(cells + 1) / cells - 1.0)).astype(np.float32)
+    near = [faces]
+    for k in (1, 2, 3):
+        near += [np.nextafter(faces, np.float32(np.inf)),
+                 np.nextafter(faces, np.float32(-np.inf))]
+        faces = near[-2]
+    vals = np.concatenate(near).astype(np.float32)
+    pts = rng.uniform(-mb, mb, (vals.size * 3, 3)).astype(np.float32)
+    for a in range(3):
+        pts[a * vals.size:(a + 1) * vals.size, a] = vals
+    return pts
+
+
+def _cells(x, mb, cells, reciprocal):
+    q = x * (np.float32(1.0) / mb) if reciprocal else x / mb
+    v = np.float32(0.5) * (q + np.float32(1.0)) * np.float32(cells)
+    return np.clip(v, 0, cells - 1).astype(np.int64)
+
+
+@pytest.mark.parametrize("scale", [0.3, 0.5])
+def test_lookups_divide_as_jax(scale):
+    """`occupancy_lookup` and `coarse_lookup` at a scale whose mip bound
+    is not a power of two (0.3) and at the bench's (0.5), on positions at
+    and next to the cell faces of the fine and the coarse grid, against
+    the JAX functions bit for bit (the coarse mask at grid 8G, so that it
+    has G cells a side too). At 0.3 the positions include some whose cell
+    a product with the reciprocal would move (the card's division by a
+    Python scalar): both functions divide through `_div`."""
+    rng = np.random.default_rng(31)
+    mb = np.float32(min(0.5, scale))
+    bits = rng.integers(0, 256, G ** 3 // 8, dtype=np.uint8)
+    coarse = rng.integers(0, 2, G ** 3, dtype=np.uint8)
+    cells = G
+    for fn in ("occupancy", "coarse"):
+        xyz = _face_points(rng, scale, cells)
+        moved = (_cells(xyz, mb, cells, True)
+                 != _cells(xyz, mb, cells, False)).any(-1).sum()
+        assert (moved > 0) == (scale == 0.3), (fn, moved)
+        if fn == "occupancy":
+            got = tm.occupancy_lookup(T(xyz), T(bits), cascades=1,
+                                      scale=scale, grid_size=G)
+            ref = jm.occupancy_lookup(J(xyz), jnp.zeros(xyz.shape[0]),
+                                      J(bits), cascades=1, scale=scale,
+                                      grid_size=G)
+        else:
+            got = tm.coarse_lookup(T(xyz), T(coarse), scale=scale,
+                                   grid_size=8 * G)
+            ref = jm.coarse_lookup(J(xyz), J(coarse), scale=scale,
+                                   grid_size=8 * G)
+        np.testing.assert_array_equal(N(got), np.asarray(ref), err_msg=fn)
