@@ -107,6 +107,23 @@ Phases (any failed check raises, so the script exits non-zero):
   from autograd with its zero rows, and H5 or H7 on that step's
   positions;
   `validate`;
+  then the preset path: the Hypersim preset's config
+  (experiments/hyperparameters.py:hypersim_flags, the literal
+  HYPERSIM_ARGV, through `TrainConfig.from_args`: the brick field, the
+  all_images_triang_patch sampler, 32 samples per ray, the auto-full sv
+  interval budget, the clustering losses, no distortion loss) on a
+  Manhattan room traced through Hypersim's standard camera at its own
+  1024 x 768, 32 train and 4 held-out views, made into scenes by the
+  Hypersim loader's function on arrays (`hypersim_scene`); the
+  projective marking on the card against the CPU (density marks equal,
+  coverage fractions equal but on cells within EDGE_PX of an image
+  edge, counted); the step parity of four samplers (patches, patches
+  with random poses and keep_N_tr, same-image patches, all_images
+  without depth normals) at the CPU tests' size; 576 counted steps
+  through `Trainer.fit` (H1, K1 64 times, H5/H6, H3; H4 never), the
+  clustering terms non-zero after step 500; K1 (both launchers) and H3
+  (forward and backward) against their plain versions at the path's
+  shapes; `validate` on the 4 held-out views (3.1 M rays);
   every launcher must have launched on some path;
   6. for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
@@ -119,7 +136,8 @@ Phases (any failed check raises, so the script exits non-zero):
      counts logged beside the times; H1 also on a full bitfield, and H3's
      forward also at the first test round's shape with T_start;
   7. CUDA-graph chunks: for the triplane path's bootstrap and sv march, the
-     bitfield path's march and the brick and tcnn fields' sv march, 16
+     bitfield path's march, the brick and tcnn fields' and the preset
+     path's sv march, 16
      replays of the graph the training phase captured, each against 3
      eager steps from the state and generator state it started from:
      sampled indices and rm / vr / trunc counts equal, losses and
@@ -335,6 +353,104 @@ def small_config(layout="triplane"):
                                   **SMALL_FIELD[layout]),
         render=dataclasses.replace(cfg.render, sample_budget=batch * 16),
         data=dataclasses.replace(cfg.data, batch_size=batch))
+
+
+# experiments/hyperparameters.py:hypersim_flags() (the Hypersim preset,
+# "ours"); tests/test_torch_config.py holds this literal equal to it
+HYPERSIM_ARGV = (
+    "--no_debug", "--split=train", "--split_factor=0.5", "--keep_N_tr=-1",
+    "--model_name=NGPMT", "--scale=0.5", "--grid_size=128",
+    "--density_tresh_decay=1.0", "--rend_max_samples=1024",
+    "--rend_near_dist=0.01", "--loss_opacity_w=1e-3",
+    "--loss_distortion_w=0", "--lr=1e-2", "--num_epochs=30",
+    "--batch_size=8192", "--triang_max_expand=0", "--anneal_strategy=none",
+    "--anneal_steps=0", "--dataset_name=hypersim", "--downsample=1.0",
+    "--load_depth_gt", "--load_norm_gt",
+    "--ray_sampling_strategy=all_images_triang_patch", "--pred_norm_depth",
+    "--loss_norm_D_C_ort_dot_w=2e-3", "--loss_norm_D_C_centr_dot_w=2e-3",
+    "--loss_norm_D_C_centr_L1_w=2e-3", "--loss_norm_can_tres=0.01",
+    "--loss_norm_can_start=500", "--loss_norm_can_end=-1",
+    "--loss_norm_can_grow=2500")
+PRESET_WH = (1024, 768)            # Hypersim's W_ORIG x H_ORIG
+PRESET_TRAIN, PRESET_TEST = 32, 4  # views of the preset path's room
+ROOM_R = 2.0                       # the room's half-width, asset units
+
+
+def preset_config():
+    """The port's config from the Hypersim preset's argv (`from_args`)."""
+    from normal_clustering_nerf_torch.config import TrainConfig
+    return TrainConfig.from_args(list(HYPERSIM_ARGV))
+
+
+def small_preset_config(**data):
+    """The preset configuration at the CPU tests' size: the brick field
+    cut as SMALL_FIELD["brick"], grid 32, batch 256 (4 patches of 8 x 8) at
+    16 samples per ray, a 16-step bootstrap; `data` replaces fields of its
+    DataConfig."""
+    cfg = preset_config()
+    batch = data.pop("batch_size", 256)
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, grid_size=32,
+                                  **SMALL_FIELD["brick"]),
+        render=dataclasses.replace(cfg.render, sample_budget=batch * 16,
+                                   bootstrap_steps=16),
+        data=dataclasses.replace(cfg.data, batch_size=batch, **data))
+
+
+def hypersim_room(wh, n_views, seed=7):
+    """A Manhattan room [-ROOM_R, ROOM_R]^3 traced through Hypersim's
+    standard camera (60-degree hfov, -z forward, v flipped, distance
+    depth) from `n_views` poses inside it, as tests/test_hypersim_e2e.py
+    writes its files. Returns the arrays a Hypersim split holds once its
+    files are read: images (n, H, W, 3), c2w poses (n, 3, 4) in asset
+    units, labels {"depth" (n, H, W) in meters (1 a unit), "normals" (n,
+    H, W, 3) world}, and the camera."""
+    import numpy as np
+    from normal_clustering_nerf_torch.datasets.hypersim import (
+        HypersimCamModel, standard_cam_matrices)
+    from normal_clustering_nerf_torch.datasets.synthetic import (
+        _lookat_pose, _trace_room)
+    W, H = wh
+    cam = HypersimCamModel(H, W, *standard_cam_matrices(W, H), 1.0)
+    rng = np.random.default_rng(seed)
+    imgs, poses, depth, normals = [], [], [], []
+    for i in range(n_views):
+        pos = rng.uniform(-0.5, 0.5, 3).astype(np.float32)
+        ang = 2 * np.pi * i / n_views + rng.uniform(0, 0.3)
+        target = np.array([np.cos(ang), 0.2 * np.sin(2 * ang), np.sin(ang)],
+                          np.float32) * ROOM_R
+        # _lookat_pose's columns are [right, up, forward]; the Hypersim
+        # camera looks down -z: R = [right, -up, -forward]
+        p = _lookat_pose(pos, target, np.array([0.0, -1.0, 0.0]))
+        R = np.stack([p[:, 0], -p[:, 1], -p[:, 2]], axis=1)
+        rd = cam.ray_dirs_cc @ R.T
+        rgb, d, nrm, _ = _trace_room(np.broadcast_to(pos, rd.shape), rd,
+                                     ROOM_R)
+        imgs.append(rgb.reshape(H, W, 3))
+        poses.append(np.concatenate([R, pos[:, None]], 1))
+        depth.append(d.reshape(H, W))
+        normals.append(nrm.reshape(H, W, 3))
+    labels = {"depth": np.stack(depth), "normals": np.stack(normals)}
+    return np.stack(imgs), np.stack(poses).astype(np.float32), labels, cam
+
+
+def hypersim_split(wh, n_train, n_test, seed=7):
+    """(train, test) SceneData of `hypersim_room`, made by the Hypersim
+    loader's function on arrays (`hypersim_scene`) over all views at once,
+    so that both splits share its bounds, then split: every
+    (n_train + n_test) // n_test-th view is held out."""
+    import numpy as np
+    from normal_clustering_nerf_torch.datasets.hypersim import hypersim_scene
+    n = n_train + n_test
+    imgs, poses, labels, cam = hypersim_room(wh, n, seed)
+    scene = hypersim_scene(imgs, poses, labels, cam,
+                           img_ids=[f"cam_00.{i:04d}" for i in range(n)])
+    held = np.arange(n) % (n // n_test) == n // n_test - 1
+    return tuple(dataclasses.replace(
+        scene, poses=scene.poses[idx], rays=scene.rays[idx],
+        labels={k: v[idx] for k, v in scene.labels.items()},
+        img_ids=[scene.img_ids[i] for i in idx])
+        for idx in (np.flatnonzero(~held), np.flatnonzero(held)))
 
 
 def _to_card(tree):
@@ -2350,7 +2466,7 @@ def validate(tr, name, need, absent=(), rotation=True):
         f"{out['norm_depth_ang_mean']:.3f}, rot yaw/pitch/roll "
         + "/".join(f"{out.get(k, float('nan')):.3f}" for k in rot)
         + f", ssim {out['ssim']:.4f}, depth_rmse {out['depth_rmse']:.4f}, "
-        f"miou {out['miou']:.4f}")
+        f"miou {out.get('miou', float('nan')):.4f}")
     return counts
 
 
@@ -2421,7 +2537,8 @@ TWO_PHASES = (("bootstrap", BOOT_STEPS), ("after the bootstrap", SV_STEPS))
 def path_training(tr, name, launches, need, exact, phases=TWO_PHASES,
                   fall=True):
     """Phase 3 of one path: `train`, the loss checks, and its launches
-    added to `launches`. Returns fit's ms/step over each phase."""
+    added to `launches`. Returns fit's ms/step over each phase and the
+    steps' metrics."""
     hist, counts, secs = train(tr, name, phases, need, exact)
     marks, i = [("first", 0)], 0
     for label, n in phases[:-1]:
@@ -2436,13 +2553,13 @@ def path_training(tr, name, launches, need, exact, phases=TWO_PHASES,
         + ", ".join(f"{m:.2f} ms/step over the {n} {label} steps"
                     for m, (label, n) in zip(ms, phases))
         + f" ({math.ceil(sum(n for _, n in phases) / 16)} refreshes)")
-    return ms
+    return ms, hist
 
 
 GRAPH_STEPS = 16   # a chunk of the graph phase: the steps between refreshes
 # the graph phase's chunks: (path, bootstrap march or not)
 GRAPH_CASES = (("triplane", True), ("triplane", False), ("bitfield", False),
-               ("brick", False), ("tcnn", False))
+               ("brick", False), ("tcnn", False), ("preset", False))
 
 
 def sync(dev):
@@ -2648,6 +2765,261 @@ def graph_phase(paths):
     return rows
 
 
+# ------------------------------------------------------------ preset path
+# the samplers of the preset path's step parity: (name, DataConfig changes)
+PRESET_SAMPLERS = (
+    ("all_images_triang_patch", {}),
+    ("all_images_triang_patch, random poses, keep_N_tr 6",
+     dict(random_tr_poses=True, keep_N_tr=6)),
+    ("same_image_triang_patch",
+     dict(ray_sampling_strategy="same_image_triang_patch")),
+    ("all_images, pred_norm_depth off",
+     dict(ray_sampling_strategy="all_images")))
+EDGE_PX = 1e-4   # a cell this close to an image edge may flip its coverage
+
+
+def preset_parity_config(data):
+    """`small_preset_config(**data)`; without depth normals (all_images)
+    also without the clustering terms, which take them."""
+    cfg = small_preset_config(**data)
+    if cfg.data.ray_sampling_strategy in ("all_images", "same_image"):
+        cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model, pred_norm_depth=False),
+            loss=dataclasses.replace(cfg.loss, norm_D_C_ort_dot_w=0.0,
+                                     norm_D_C_centr_dot_w=0.0,
+                                     norm_D_C_centr_L1_w=0.0))
+    return cfg
+
+
+def build_preset_trainer():
+    """The preset path's trainer: the Hypersim preset's config through
+    `from_args` on a Hypersim-camera room at PRESET_WH, PRESET_TRAIN train
+    and PRESET_TEST held-out views (`hypersim_split`), depth and world
+    normals as labels."""
+    from normal_clustering_nerf_torch.training import Trainer
+    t = time.perf_counter()
+    train, test = hypersim_split(PRESET_WH, PRESET_TRAIN, PRESET_TEST)
+    log(f"preset path: traced {PRESET_TRAIN} + {PRESET_TEST} views at "
+        f"{PRESET_WH[0]} x {PRESET_WH[1]} in "
+        f"{time.perf_counter() - t:.1f} s; train rays "
+        f"{train.rays.nbytes / 1e6:.0f} MB, normals "
+        f"{train.labels['normals'].nbytes / 1e6:.0f} MB, depth "
+        f"{train.labels['depth'].nbytes / 1e6:.0f} MB; scale "
+        f"{train.scale:.4f}, shift {train.proj[2].tolist()}")
+    return Trainer(preset_config(), train, test, device="cuda")
+
+
+def edge_margin(cells, occ_grid, scene, near):
+    """For each cell index of cascade 0, the least distance over the
+    cameras, in f64, of its projection's u or v to an image edge or of its
+    projected depth to 0 or `near` (the comparisons of the marking)."""
+    import numpy as np
+    M_ndc, M_uv, _, scale = (np.asarray(p, np.float64) for p in scene.proj)
+    x = occ_grid.cell_world_pos(occ_grid.cell_coords(cells.to(
+        occ_grid.device)), 0).double().cpu().numpy()             # (n, 3)
+    W, H = scene.img_wh
+    best = np.full(len(x), np.inf)
+    for pose in np.asarray(scene.poses, np.float64):
+        xc = (x - pose[:, 3]) @ pose[:, :3] * (2.0 * scale)
+        clip = np.concatenate([xc, np.ones((len(x), 1))], 1) @ M_ndc.T
+        uvd = (clip / clip[:, 3:]) @ M_uv.T
+        d = np.stack([np.abs(uvd[:, 0]), np.abs(uvd[:, 0] - W),
+                      np.abs(uvd[:, 1]), np.abs(uvd[:, 1] - H),
+                      np.abs(uvd[:, 2]), np.abs(uvd[:, 2] - near)], 1)
+        best = np.minimum(best, d.min(1))
+    return best
+
+
+def check_preset_marking(tr):
+    """The projective marking (`proj`) on the card against the CPU: the
+    density marks equal; the coverage fractions equal but on cells within
+    EDGE_PX of an image edge in some camera (the f32 products may round
+    either way there), which are counted."""
+    from normal_clustering_nerf_torch.models.occupancy import OccupancyGrid
+    s, near = tr.scene_train, tr.cfg.model.near_dist
+    t = time.perf_counter()
+    tr.mark_invisible_cells()
+    sync(tr.device)
+    card_s = time.perf_counter() - t
+    grid = OccupancyGrid(tr.cfg.model, torch.device("cpu"))
+    t = time.perf_counter()
+    ref = grid.mark_invisible_cells(grid.init_state(), s.poses, s.img_wh,
+                                    near, proj=s.proj)
+    cpu_s = time.perf_counter() - t
+    chk = Check()
+    dens = tr.occ.density_grid.cpu()
+    log(f"phase 2, preset: projective marking of {dens.numel()} cells in "
+        f"{s.n_images} cameras, card {card_s * 1e3:.1f} ms, CPU "
+        f"{cpu_s * 1e3:.1f} ms; {int((dens == -1).sum())} cells invisible")
+    chk.equal("density marks, card = CPU", dens, ref.density_grid)
+    diff = torch.nonzero(tr.occ.count_grid.cpu()[0]
+                         != ref.count_grid[0]).flatten()
+    margin = edge_margin(diff, grid, s, near)
+    far = int((margin > EDGE_PX).sum())
+    log(f"  count_grid: {diff.numel()} of {dens.numel()} cells differ, "
+        f"every one within {EDGE_PX} px of an image edge but {far} "
+        f"{'ok' if not far else 'FAIL'}")
+    if far:
+        chk.failures.append("count_grid away from the edges")
+    chk.done("preset marking")
+
+
+def preset_step_parity(seed=13):
+    """Training steps of the preset at the CPU tests' size
+    (`preset_parity_config`, a 64 x 48 Hypersim-camera room, 8 views) for
+    each of PRESET_SAMPLERS, on the card through the kernels and on the
+    CPU through the plain versions, from the same state and draws: a
+    bootstrap step at step 0 and an sv step at step 3000 (the clustering
+    at full weight), after a full refresh."""
+    import numpy as np
+    from normal_clustering_nerf_torch.models.occupancy import OccupancyState
+    from normal_clustering_nerf_torch.training import Trainer
+    train, _ = hypersim_split((64, 48), 8, 2)
+    rng = np.random.default_rng(seed)
+    chk = Check()
+    for name, data in PRESET_SAMPLERS:
+        cfg = preset_parity_config(data)
+        cpu = Trainer(cfg, train, device="cpu")
+        cpu.mark_invisible_cells()
+        cpu.occ_update(warmup=True)
+        card = Trainer(cfg, train, device="cuda")
+        for boot, step in ((True, 0), (False, 3000)):
+            cpu.step = step
+            card.load_state({n: p.detach().cuda()
+                             for n, p in cpu.params.items()},
+                            OccupancyState(*(t.cuda() for t in cpu.occ)),
+                            _to_card(cpu.opt.state), step)
+            batch = cpu.sampler.draw(torch.Generator().manual_seed(
+                int(rng.integers(1 << 30))))
+            n_rays = cpu.sampler.n_groups * cpu.sampler.group * (
+                2 if cfg.data.random_tr_poses else 1)
+            draws = {"batch": batch,
+                     "noise": rng.random(n_rays, dtype=np.float32)}
+            if cfg.model.pred_norm_depth:
+                n_norm = (n_rays // 2 if cfg.data.random_tr_poses
+                          else n_rays) // 64 * 49
+                draws["kmeans_init"] = rng.choice(n_norm, cfg.loss.cluster_K,
+                                                  replace=False)
+            ref = cpu.train_step_core(bootstrap=boot, draws=draws)
+            got = {k: v.cpu() for k, v in
+                   card.train_step_core(bootstrap=boot, draws=draws).items()}
+            log(f"preset step parity, {name}, "
+                f"{'bootstrap' if boot else 'sv'} step {step}: the card "
+                f"against the CPU ({n_rays} rays, rm/ray "
+                f"{float(ref['rm_samples_per_ray']):.3f})")
+            for k in sorted(ref):
+                if k.startswith("loss_"):
+                    chk.close(k, got[k], ref[k], 1e-4)
+            n = card.sampler.batch_size
+            for k in ("rm_samples_per_ray", "vr_samples_per_ray",
+                      "trunc_ray_frac"):
+                chk.equal(k, torch.round(got[k] * n), torch.round(ref[k] * n))
+            for k, g in cpu.last_grads.items():
+                chk.close(f"d {k}", card.last_grads[k].cpu(), g, 1e-3)
+    chk.done("preset step parity")
+
+
+def check_preset_kernels(tr, rec, gen):
+    """K1 and H3 at the preset's shapes on the trained occupancy: K1's
+    training launcher on a patch batch (K 32, the auto-full interval
+    budget) and its test round on the held-out rays (`check_k1`), H3's
+    forward and backward on that batch's sv-march samples through the
+    brick field (`check_composite_fwd` / `_bwd`, random cotangents). Their
+    calls are timed as variants of the records in `rec`."""
+    from normal_clustering_nerf_torch.models.rendering import (
+        field_raws, train_intervals, train_march_args)
+    from normal_clustering_nerf_torch.ops import composite as cp
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    batch = tr.sampler.sample(gen)
+    o, d = (t.contiguous() for t in tr._assemble_rays(batch))
+    N = o.shape[0]
+    noise = torch.rand(N, generator=gen, device=tr.device)
+    k1 = check_k1(tr, tr.occ, (o, d, None, noise), held_out_rays(tr),
+                  "preset, trained occupancy", need_trunc=False, step=tr.step)
+    k1["march_sv_test_round"].pop("first_round")
+    m, rc = tr.cfg.model, tr.cfg.render
+    kw = train_march_args(m, rc, N, "sv")
+    RI = rm._sv_intervals(kw["n_intervals"], m.grid_size)
+    hits = train_intervals(m, rc, o, d, tr.step)
+    mr = rm.march_rays_train_dense_sv(o, d, hits, tr.occ.sv_mask,
+                                      tr.occ.sv_payload, noise, **kw)
+    K = mr.t.shape[1]
+    xyz = (o[:, None, :] + mr.t[..., None] * d[:, None, :]).reshape(N * K, 3)
+    with torch.no_grad():
+        sig, raws = field_raws(tr.model, xyz, d[:, None, :].expand(
+            N, K, 3).reshape(N * K, 3))
+    C = raws.shape[-1]
+    ca = (sig.reshape(N, K).float().contiguous(),
+          raws.reshape(N, K, C).float().contiguous(), mr.dt, mr.t, mr.valid,
+          rc.T_threshold)
+    gs = (torch.randn(N, generator=gen, device=o.device),
+          torch.randn(N, generator=gen, device=o.device),
+          torch.randn((N, C), generator=gen, device=o.device),
+          torch.randn((N, K), generator=gen, device=o.device))
+    chk = Check()
+    log(f"H3 at the preset's shape: N={N} K={K} C={C}")
+    e_fwd = check_composite_fwd(chk, ca, cp.composite_kernel(*ca),
+                                cp.composite_plain(*ca))
+    e_bwd = check_composite_bwd(chk, ca, gs)
+    chk.done("H3 at the preset's shape")
+    tag = f"preset step (N {N}, K {K}, RI {RI})"
+    variants = {"march_sv_train": k1["march_sv_train"]["kernel"],
+                "march_sv_test_round": k1["march_sv_test_round"]["kernel"],
+                "composite_fwd": lambda: cp.composite_kernel(*ca),
+                "composite_bwd": lambda: cp.composite_grad_kernel(*ca, *gs)}
+    errs = {"march_sv_train": k1["march_sv_train"]["err"],
+            "march_sv_test_round": k1["march_sv_test_round"]["err"],
+            "composite_fwd": e_fwd, "composite_bwd": e_bwd}
+    for name, fn in variants.items():
+        rec[name]["err"] = max(rec[name]["err"], errs[name])
+        rec[name].setdefault("variants", {})[
+            "preset first test round" if name == "march_sv_test_round"
+            else tag] = fn
+
+
+def preset_path(rec, launches, gen):
+    """The preset path (phases 2, 3 and 5): the Hypersim preset's config
+    on the 1024 x 768 Hypersim-camera room, the projective marking against
+    the CPU, the four samplers' step parity, STEPS counted steps through
+    `Trainer.fit` (the brick field, K 32, the auto-full sv budget; H4 never
+    launches, its weight being 0), K1 and H3 at the path's shapes, and
+    `validate` on the held-out views. Returns the trainer and fit's
+    ms/step."""
+    tr = build_preset_trainer()
+    cfg = tr.cfg
+    log(f"phase 2, preset: trainer built from the Hypersim preset's argv "
+        f"({sum(p.numel() for p in tr.params.values())} parameters; "
+        f"{cfg.model.hash_layout} field, {cfg.data.ray_sampling_strategy}, "
+        f"batch {cfg.data.batch_size}, sample_budget "
+        f"{cfg.render.sample_budget} (K 32), sv_intervals "
+        f"{cfg.render.sv_intervals} (auto-full), random_bg "
+        f"{cfg.render.random_bg})")
+    check_preset_marking(tr)
+    preset_step_parity()
+    log(f"phase 3, preset: {STEPS} training steps through Trainer.fit")
+    ms, hist = path_training(
+        tr, "preset", launches, PATH_KERNELS[:3] + ("march_sv_train",)
+        + FIELD_KERNELS["brick"],
+        {"march_sv_train": SV_STEPS, "distortion_fwd": 0,
+         "distortion_bwd": 0, "march_fine_train": 0})
+    ramp = [i for i, h in enumerate(hist) if i >= 500
+            and h["loss_norm_D_C_ort_dot"] != 0.0]
+    log(f"  clustering terms non-zero at {len(ramp)} of the steps "
+        f"500-{len(hist) - 1} (ort_dot at the last step "
+        f"{hist[-1]['loss_norm_D_C_ort_dot']:.3e}); trunc_ray_frac at the "
+        f"last step {hist[-1]['trunc_ray_frac']:.4f}")
+    if not ramp:
+        raise RuntimeError("preset path: the clustering terms stayed 0 "
+                           "after step 500")
+    log("phase 4, preset: K1 and H3 at the preset's shapes")
+    check_preset_kernels(tr, rec, gen)
+    for name, c in validate(tr, "preset", ("march_sv_test_round",
+                                           "brick_fwd", "composite_fwd"),
+                            ("march_fine_test_round",)).items():
+        launches[name] += c
+    return tr, ms
+
+
 def render_config(cfg, **kw):
     return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
 
@@ -2718,7 +3090,7 @@ def main():
     shared = PATH_KERNELS + FIELD_KERNELS["triplane"]
     fit_ms = {"triplane": path_training(
         tr, "triplane", launches, shared,
-        {"march_sv_train": SV_STEPS, "march_fine_train": 0})}
+        {"march_sv_train": SV_STEPS, "march_fine_train": 0})[0]}
 
     log("phase 4: K1, H9-H11, the segment launchers and H3 with T_start "
         "on the trained occupancy")
@@ -2752,7 +3124,7 @@ def main():
         tb, "bitfield", launches,
         tuple(k for k in shared if k != "march_sv_train")
         + ("march_fine_train",),
-        {"march_fine_train": SV_STEPS, "march_sv_train": 0})
+        {"march_fine_train": SV_STEPS, "march_sv_train": 0})[0]
     for name, c in validate(tb, "bitfield", ("march_fine_test_round",
                                              "triplane_fwd", "composite_fwd"),
                             ("march_sv_test_round",)).items():
@@ -2773,7 +3145,7 @@ def main():
     fit_ms["flat"] = path_training(
         tf, "flat", launches, flat_kernels + FIELD_KERNELS["triplane"],
         {"march_fine_train": FLAT_STEPS, "march_bootstrap": 0,
-         "composite_fwd": 0}, phases=(("flat", FLAT_STEPS),), fall=False)
+         "composite_fwd": 0}, phases=(("flat", FLAT_STEPS),), fall=False)[0]
     for name, c in validate(tf, "flat", ("march_fine_test_round",
                                          "compact_samples",
                                          "composite_seg_fwd", "triplane_fwd"),
@@ -2794,13 +3166,14 @@ def main():
         log(f"phase 3, {layout}: {STEPS} training steps through Trainer.fit")
         fit_ms[layout] = path_training(
             tl, layout, launches, PATH_KERNELS + FIELD_KERNELS[layout],
-            {"march_sv_train": SV_STEPS})
+            {"march_sv_train": SV_STEPS})[0]
         check_step_cotangent(tl, rec)
         for name, c in validate(tl, layout, ("march_sv_test_round",
                                              FIELD_KERNELS[layout][0],
                                              "composite_fwd")).items():
             launches[name] += c
         paths[layout] = tl
+    paths["preset"], fit_ms["preset"] = preset_path(rec, launches, gen)
     missing = [k.name for k in kernels.ALL_KERNELS if k.name not in rec]
     if missing:
         raise RuntimeError(f"kernels not checked: {missing}")

@@ -1,11 +1,13 @@
 """Structured configuration of the PyTorch/CUDA port.
 
 The same dataclasses, field names and defaults as the JAX package's
-`config.py`, so one configuration builds either trainer. The CLI parser
-(`TrainConfig.from_args`) is not ported yet (ROADMAP A16).
+`config.py`, so one configuration builds either trainer, and the same
+reference-compatible CLI flags (`TrainConfig.from_args`), so a published
+preset's argv (experiments/hyperparameters.py) builds the port's config.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import math
 from dataclasses import dataclass, field
@@ -175,11 +177,23 @@ class OptimConfig:
     update_interval: int = 16
 
 
+# flags of the JAX CLI whose features the port does not have yet, with
+# their defaults and the ROADMAP item that brings them: from_args parses
+# them and refuses any other value
+_UNPORTED_FLAGS = {
+    "eval_lpips": (False, "A9"), "val_only": (False, "A6"),
+    "save_test_vis": (False, "A6"), "save_test_preds": (False, "A6"),
+    "save_train_preds": (False, "A6"), "ckpt_path": (None, "A6"),
+    "weight_path": (None, "A6"), "save_checkpoint": (False, "A6"),
+}
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     exp_name: str = ""
     log_root_dir: str = "./logs"
     seed: int = 1337
+    no_debug: bool = False   # False: a CLI run takes the debug schedule
     model: ModelConfig = field(default_factory=ModelConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
     loss: LossConfig = field(default_factory=LossConfig)
@@ -188,3 +202,162 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+    @staticmethod
+    def from_args(argv=None) -> "TrainConfig":
+        """Parse reference-compatible CLI flags (opt.py names) into a
+        TrainConfig, as the JAX package's `TrainConfig.from_args`
+        (config.py:329-483) does. Flags of features the port does not have
+        (multi-chip, LPIPS, checkpoints, exports) are parsed and refused
+        unless left at their defaults."""
+        p = argparse.ArgumentParser()
+        p.add_argument("--no_debug", action="store_true", default=False)
+        p.add_argument("--log_root_dir", type=str, default="./logs")
+        p.add_argument("--exp_name", type=str, default="")
+        p.add_argument("--seed", type=int, default=1337)
+        # dataset
+        p.add_argument("--data_root_dir", type=str, default="")
+        p.add_argument("--dataset_name", type=str, default="hypersim",
+                       choices=["hypersim", "scannet_manhattan",
+                                "replica_semnerf", "synthetic"])
+        p.add_argument("--split", type=str, default="train",
+                       choices=["train", "trainval", "trainvaltest"])
+        p.add_argument("--split_factor", type=float, default=0.5)
+        p.add_argument("--keep_N_tr", type=int, default=-1)
+        p.add_argument("--downsample", type=float, default=1.0)
+        for f in ["load_depth_gt", "load_norm_gt", "load_norm_depth_gt",
+                  "load_sem_gt", "load_sem_WF_gt"]:
+            p.add_argument(f"--{f}", action="store_true", default=False)
+        # model
+        p.add_argument("--model_name", type=str, default="NGPMT")
+        p.add_argument("--scale", type=float, default=0.5)
+        p.add_argument("--grid_size", type=int, default=128)
+        p.add_argument("--density_tresh_decay", type=float, default=1.0)
+        p.add_argument("--rend_max_samples", type=int, default=1024)
+        p.add_argument("--rend_near_dist", type=float, default=0.01)
+        for f in ["use_exposure", "pred_norm_nn", "pred_norm_nn_norm",
+                  "pred_norm_depth", "pred_sem"]:
+            p.add_argument(f"--{f}", action="store_true", default=False)
+        p.add_argument("--compute_dtype", type=str, default="float32",
+                       choices=["float32", "bfloat16"])
+        # losses
+        p.add_argument("--loss_opacity_w", type=float, default=1e-3)
+        for f in ["distortion_w", "depth_w", "sem_w"]:
+            p.add_argument(f"--loss_{f}", type=float, default=0)
+        p.add_argument("--loss_norm_GT_depth", action="store_true",
+                       default=False)
+        for f in ["norm_depth_dot_w", "norm_depth_L1_w", "reg_depth_w",
+                  "manhattan_nerf_w", "norm_D_C_ort_dot_w",
+                  "norm_D_C_centr_dot_w", "norm_D_C_centr_L1_w",
+                  "norm_D_C_can_dot_w", "norm_D_C_can_L1_w", "norm_can_tres",
+                  "norm_can_start"]:
+            p.add_argument(f"--loss_{f}", type=float, default=0)
+        p.add_argument("--loss_norm_can_end", type=float, default=-1)
+        p.add_argument("--loss_norm_can_grow", type=float, default=1)
+        for f in ["yaw", "pitch", "roll"]:
+            p.add_argument(f"--loss_norm_{f}_offset_ang", type=float,
+                           default=0)
+        # training
+        p.add_argument("--optimize_ext", action="store_true", default=False)
+        p.add_argument("--lr", type=float, default=1e-2)
+        p.add_argument("--lr_dR_norm_glob", type=float, default=0)
+        p.add_argument("--dR_norm_glob_coding", type=str,
+                       default="axis_angle")
+        p.add_argument("--num_epochs", type=int, default=4)
+        p.add_argument("--batch_size", type=int, default=8192)
+        p.add_argument("--ray_sampling_strategy", type=str,
+                       default="all_images",
+                       choices=["all_images", "same_image",
+                                "same_image_triang", "all_images_triang",
+                                "all_images_triang_val",
+                                "same_image_triang_patch",
+                                "all_images_triang_patch"])
+        p.add_argument("--random_tr_poses", action="store_true",
+                       default=False)
+        p.add_argument("--triang_max_expand", type=int, default=0)
+        p.add_argument("--anneal_strategy", type=str, default="none",
+                       choices=["avoid_near", "depth", "none"])
+        p.add_argument("--anneal_steps", type=int, default=0)
+        p.add_argument("--num_chips", type=int, default=0,
+                       help="0/1 = one card; more is ROADMAP A10")
+        p.add_argument("--grad_clip", type=float, default=0.05)
+        p.add_argument("--random_bg", action="store_true", default=False)
+        # validation
+        p.add_argument("--eval_lpips", action="store_true", default=False)
+        p.add_argument("--val_only", action="store_true", default=False)
+        p.add_argument("--save_test_vis", action="store_true", default=False)
+        p.add_argument("--downsample_vis", type=float, default=0.5)
+        p.add_argument("--save_test_preds", action="store_true",
+                       default=False)
+        p.add_argument("--save_train_preds", action="store_true",
+                       default=False)
+        p.add_argument("--downsample_pred_save", type=float, default=0.5)
+        p.add_argument("--ckpt_path", type=str, default=None)
+        p.add_argument("--weight_path", type=str, default=None)
+        p.add_argument("--save_checkpoint", action="store_true",
+                       default=False)
+        a = p.parse_args(argv)
+        refused = [f"--{k} (ROADMAP {item})"
+                   for k, (default, item) in _UNPORTED_FLAGS.items()
+                   if getattr(a, k) != default]
+        if a.num_chips not in (0, 1):
+            refused.append("--num_chips (ROADMAP A10)")
+        if refused:
+            raise NotImplementedError(f"flags not ported: {refused}")
+
+        return TrainConfig(
+            exp_name=a.exp_name, log_root_dir=a.log_root_dir, seed=a.seed,
+            no_debug=a.no_debug,
+            model=ModelConfig(
+                model_name=a.model_name, scale=a.scale,
+                grid_size=a.grid_size,
+                density_tresh_decay=a.density_tresh_decay,
+                max_samples=a.rend_max_samples, near_dist=a.rend_near_dist,
+                use_exposure=a.use_exposure, pred_norm_nn=a.pred_norm_nn,
+                pred_norm_nn_norm=a.pred_norm_nn_norm,
+                pred_norm_depth=a.pred_norm_depth, pred_sem=a.pred_sem,
+                compute_dtype=a.compute_dtype,
+            ),
+            render=RenderConfig(
+                random_bg=a.random_bg, anneal_strategy=a.anneal_strategy,
+                anneal_steps=a.anneal_steps, march_block=a.rend_max_samples,
+            ),
+            loss=LossConfig(
+                opacity_w=a.loss_opacity_w, distortion_w=a.loss_distortion_w,
+                depth_w=a.loss_depth_w, sem_w=a.loss_sem_w,
+                norm_GT_depth=a.loss_norm_GT_depth,
+                norm_depth_dot_w=a.loss_norm_depth_dot_w,
+                norm_depth_L1_w=a.loss_norm_depth_L1_w,
+                reg_depth_w=a.loss_reg_depth_w,
+                manhattan_nerf_w=a.loss_manhattan_nerf_w,
+                norm_D_C_ort_dot_w=a.loss_norm_D_C_ort_dot_w,
+                norm_D_C_centr_dot_w=a.loss_norm_D_C_centr_dot_w,
+                norm_D_C_centr_L1_w=a.loss_norm_D_C_centr_L1_w,
+                norm_D_C_can_dot_w=a.loss_norm_D_C_can_dot_w,
+                norm_D_C_can_L1_w=a.loss_norm_D_C_can_L1_w,
+                norm_can_tres=a.loss_norm_can_tres,
+                norm_can_start=int(a.loss_norm_can_start),
+                norm_can_end=int(a.loss_norm_can_end),
+                norm_can_grow=a.loss_norm_can_grow,
+                norm_yaw_offset_ang=a.loss_norm_yaw_offset_ang,
+                norm_pitch_offset_ang=a.loss_norm_pitch_offset_ang,
+                norm_roll_offset_ang=a.loss_norm_roll_offset_ang,
+            ),
+            data=DataConfig(
+                root_dir=a.data_root_dir, dataset_name=a.dataset_name,
+                split=a.split, split_factor=a.split_factor,
+                keep_N_tr=a.keep_N_tr, downsample=a.downsample,
+                load_depth_gt=a.load_depth_gt, load_norm_gt=a.load_norm_gt,
+                load_norm_depth_gt=a.load_norm_depth_gt,
+                load_sem_gt=a.load_sem_gt, load_sem_WF_gt=a.load_sem_WF_gt,
+                ray_sampling_strategy=a.ray_sampling_strategy,
+                batch_size=a.batch_size, random_tr_poses=a.random_tr_poses,
+                triang_max_expand=a.triang_max_expand,
+            ),
+            optim=OptimConfig(
+                lr=a.lr, num_epochs=a.num_epochs, grad_clip=a.grad_clip,
+                optimize_ext=a.optimize_ext,
+                lr_dR_norm_glob=a.lr_dR_norm_glob,
+                dR_norm_glob_coding=a.dR_norm_glob_coding,
+            ),
+        )

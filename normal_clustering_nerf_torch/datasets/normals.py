@@ -50,3 +50,11 @@ def extract_normals_from_depth_batch(depth, ray_dirs_cc, poses):
     n = torch.nn.functional.pad(n, (0, 0, 1, 1, 1, 1))
     invalid = (depth == 0.0) | torch.isnan(depth) | torch.isinf(depth)
     return torch.where(invalid[..., None], torch.zeros_like(n), n)
+
+
+def normals_from_depth(depth, ray_dirs_cc, poses):
+    """`extract_normals_from_depth_batch` on host numpy arrays, on the CPU
+    (the loaders' labels); returns numpy."""
+    return extract_normals_from_depth_batch(
+        torch.as_tensor(depth), torch.as_tensor(ray_dirs_cc),
+        torch.as_tensor(poses)).numpy()

@@ -1,9 +1,10 @@
 """Multi-task NeRF loss with Manhattan normal-clustering self-supervision —
 port of the JAX package's `losses.py` for the components the bench
-configuration switches on: rgb, opacity, distortion, the three
-normal-clustering terms (ort / centr_dot / centr_L1) and semantic CE,
-each behind the same finite guard. Other components raise
-NotImplementedError (ROADMAP A9).
+configuration and the published presets switch on: rgb, opacity,
+distortion, the three normal-clustering terms (ort / centr_dot /
+centr_L1) and semantic CE, each behind the same finite guard, over
+triangle or patch batches, with or without random-pose rays. Other
+components raise NotImplementedError (ROADMAP A5).
 
 The clustering init draw is separable: `kmeans_init` takes the K indices.
 
@@ -22,7 +23,7 @@ import torch
 
 from .config import LossConfig, ModelConfig
 from .datasets.normals import extract_normals_from_ray_batch, normalize
-from .datasets.sampler import TRIANG_STRATEGIES
+from .datasets.sampler import PATCH_STRATEGIES, TRIANG_STRATEGIES
 from .ops.distortion import distortion_loss, distortion_loss_dense
 from .ops.kmeans import normals_clustering
 
@@ -86,6 +87,36 @@ def triang_idx_on(seq_len: int, device: torch.device) -> Dict:
             for k, v in triang_idx(seq_len).items()}
 
 
+def patch_triang_idx(seq_len: int, patch_area: int,
+                     offsets_local) -> Dict[str, np.ndarray]:
+    """x1/x2/x3 indices of patch batches (losses.py:64-71): every
+    triangle inside each patch of `patch_area` rays."""
+    if seq_len % patch_area != 0:
+        raise ValueError(f"patch batch length {seq_len} is not a multiple "
+                         f"of the patch area {patch_area}")
+    pix = np.arange(seq_len, dtype=np.int64).reshape(-1, patch_area)
+    return {k: pix[:, np.asarray(offsets_local[k])].reshape(-1)
+            for k in ("x1", "x2", "x3")}
+
+
+@functools.lru_cache(maxsize=8)
+def _patch_triang_idx_on(seq_len: int, patch_area: int, local: tuple,
+                         device: torch.device) -> Dict:
+    offsets = dict(zip(("x1", "x2", "x3"), local))
+    return {k: torch.as_tensor(v, device=device)
+            for k, v in patch_triang_idx(seq_len, patch_area,
+                                         offsets).items()}
+
+
+def patch_triang_idx_on(seq_len: int, patch_area: int, offsets_local,
+                        device: torch.device) -> Dict:
+    """`patch_triang_idx` as tensors on `device`, built once per batch
+    size, patch and device (as `triang_idx_on`)."""
+    local = tuple(tuple(int(i) for i in offsets_local[k])
+                  for k in ("x1", "x2", "x3"))
+    return _patch_triang_idx_on(seq_len, patch_area, local, device)
+
+
 def _cross_entropy(logits, labels_shifted, n_cls):
     """CrossEntropyLoss(ignore_index=-1) on shifted labels."""
     valid = labels_shifted >= 0
@@ -109,7 +140,7 @@ def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
             or lcfg.discard_far_members):
         raise NotImplementedError(
             "canonical-axis snapping and member discard are not ported "
-            "(ROADMAP A9)")
+            "(ROADMAP A5)")
     tres = lcfg.norm_can_tres
     finite = torch.all(torch.isfinite(norm_D_C), dim=-1)
     nonzero = torch.sum(torch.abs(norm_D_C), dim=-1) != 0.0
@@ -154,13 +185,21 @@ def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
 def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
                    mcfg: ModelConfig, *, step: int,
                    ray_sampling_strategy: str = "all_images",
+                   random_tr_poses: bool = False,
+                   patch_area: Optional[int] = None,
+                   offsets_local: Optional[Dict] = None,
                    kmeans_init: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    sched: Optional[Mapping] = None
                    ) -> Dict[str, torch.Tensor]:
     """All loss components + 'total' (reference: losses.py:244-587). The
     step's weights and clustering window are `sched`'s (0-dim tensors, a
-    row of the trainer's step table), else `loss_schedule(step)`'s."""
+    row of the trainer's step table), else `loss_schedule(step)`'s.
+
+    With `random_tr_poses` the rays past the target's rows come from
+    random poses (losses.py:209-213): rgb takes the first rows, the depth
+    normals of the clustering the rest. The patch strategies take every
+    triangle of each patch (`patch_area`, `offsets_local`)."""
     unported = {"depth_w": lcfg.depth_w, "norm_depth_dot_w":
                 lcfg.norm_depth_dot_w, "norm_depth_L1_w": lcfg.norm_depth_L1_w,
                 "reg_depth_w": lcfg.reg_depth_w,
@@ -169,22 +208,29 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
     if on or lcfg.distortion_ts_bug_compat:
         raise NotImplementedError(
             f"loss components {on or ['distortion_ts_bug_compat']} are not "
-            "ported (ROADMAP A9)")
+            "ported (ROADMAP A5)")
     loss_d: Dict[str, torch.Tensor] = {}
     n = target["rgb"].shape[0]
+    unsup = n if random_tr_poses else 0
+    n_unsup = pred["rgb"].shape[0] - unsup
+    dev = pred["depth"].device
     x123 = None
     if ray_sampling_strategy in TRIANG_STRATEGIES:
-        x123 = triang_idx_on(n, pred["depth"].device)
+        x123 = triang_idx_on(n_unsup, dev)
+    elif ray_sampling_strategy in PATCH_STRATEGIES:
+        x123 = patch_triang_idx_on(n_unsup, patch_area, offsets_local, dev)
     norm_depth = None
     if mcfg.pred_norm_depth:
         if x123 is None:
-            raise ValueError("pred_norm_depth requires a *_triang "
-                             f"ray_sampling_strategy, got "
+            raise ValueError("pred_norm_depth requires a *_triang or "
+                             "*_triang_patch ray_sampling_strategy, got "
                              f"{ray_sampling_strategy!r}")
-        # the JAX version extracts the supervised and the unsupervised
-        # normals separately; without random poses both are these
+        # the normals of the unsupervised rays, which the clustering
+        # takes; the JAX version also extracts the supervised rays',
+        # which only the refused GT-normal and Manhattan terms read
         norm_depth = extract_normals_from_ray_batch(
-            pred["rays_o"], pred["rays_d"], pred["depth"], x123)
+            pred["rays_o"][unsup:], pred["rays_d"][unsup:],
+            pred["depth"][unsup:], x123)
 
     loss_d["rgb"] = _finite_or_zero(
         torch.mean((pred["rgb"][:n] - target["rgb"]) ** 2))

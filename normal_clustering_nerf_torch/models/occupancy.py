@@ -18,6 +18,7 @@ import torch
 from ..config import ModelConfig
 from ..device import as_index
 from ..ops.packbits import packbits, unpack_bits
+from ..ops.ray_march import _div
 
 # cameras per chunk of mark_invisible_cells: at G = 128 one camera's
 # projected cells are 3 x 128^3 floats (25 MB); 8 cameras keep the
@@ -225,17 +226,26 @@ class OccupancyGrid:
 
     # ---------------------------------------------------- visibility marks
     def mark_invisible_cells(self, state: OccupancyState, poses, img_wh,
-                             near_distance: float, K) -> OccupancyState:
+                             near_distance: float, K=None,
+                             proj: Optional[Tuple] = None) -> OccupancyState:
         """Mark cells no camera sees with density -1 and store each
-        cell's camera-coverage fraction (occupancy.py:240-291, pinhole K).
+        cell's camera-coverage fraction (occupancy.py:240-291): through
+        the pinhole `K`, or through Hypersim's projection matrices `proj`
+        = (M_ndc_from_cam, M_uv_from_ndc, shift, scale) (reference:
+        ngp_mt.py:291-321).
 
         Unlike the JAX version, which projects every cell into every
         camera at once (a (N_cams, 3, G^3) intermediate, 1.2 GB at 48
         cameras and G = 128), this loops over chunks of `_MARK_CHUNK`
         cameras and accumulates the per-cell counts.
         """
-        if not isinstance(K, torch.Tensor):
-            K = torch.as_tensor(np.asarray(K, np.float32), device=self.device)
+        def mat(m):
+            return torch.as_tensor(np.asarray(m, np.float32),
+                                   device=self.device)
+        if proj is not None:
+            M_ndc, M_uv, scale = mat(proj[0]), mat(proj[1]), float(proj[3])
+        elif not isinstance(K, torch.Tensor):
+            K = mat(K)
         poses = torch.as_tensor(poses, dtype=torch.float32, device=self.device)
         n_cams = poses.shape[0]
         G3 = self.G ** 3
@@ -251,14 +261,23 @@ class OccupancyGrid:
             for s in range(0, n_cams, _MARK_CHUNK):
                 sl = slice(s, s + _MARK_CHUNK)
                 xyzs_c = w2c_R[sl] @ xyzs_w + w2c_T[sl]          # (n, 3, G3)
-                uvd = K @ xyzs_c
-                uv = uvd[:, :2] / uvd[:, 2:]
+                if proj is not None:
+                    xc = xyzs_c * (2.0 * scale)                  # metric
+                    xc_h = torch.cat([xc, torch.ones_like(xc[:, :1])], 1)
+                    clip = M_ndc @ xc_h
+                    uvd = M_uv @ (clip / clip[:, 3:])
+                    uv = uvd[:, :2]
+                else:
+                    uvd = K @ xyzs_c
+                    uv = uvd[:, :2] / uvd[:, 2:]
                 in_image = ((uvd[:, 2] >= 0)
                             & (uv[:, 0] >= 0) & (uv[:, 0] < img_wh[0])
                             & (uv[:, 1] >= 0) & (uv[:, 1] < img_wh[1]))
                 n_cov += ((uvd[:, 2] >= near_distance) & in_image).sum(0)
                 too_near |= ((uvd[:, 2] < near_distance) & in_image).any(0)
-            count = n_cov.to(torch.float32) / n_cams
+            # a 0-dim divisor: CUDA divides by a Python scalar through its
+            # reciprocal, which can round a fraction one ulp off the CPU's
+            count = _div(n_cov.to(torch.float32), n_cams)
             valid = (count > 0) & ~too_near
             counts[c] = count
             density[c] = torch.where(valid, torch.zeros_like(count),

@@ -1,11 +1,12 @@
 """Training loop and validation of the port — the JAX package's
 `training/trainer.py` for one device, as plain eager steps.
 
-One step: sample a triangle batch -> assemble rays -> render (the
-bootstrap march before `render.bootstrap_steps`, after it the
-supervoxel-run march or the bitfield march, or the flat layout's march
-from step 0, as `render.march_layout` and `render.march_coarse` choose;
-the field, compositing) -> multi-task loss -> gradients ->
+One step: sample a batch (pixels, triangles or patches, half of them
+from random unseen poses under `random_tr_poses`) -> assemble rays ->
+render (the bootstrap march before `render.bootstrap_steps`, after it
+the supervoxel-run march or the bitfield march, or the flat layout's
+march from step 0, as `render.march_layout` and `render.march_coarse`
+choose; the field, compositing) -> multi-task loss -> gradients ->
 optax-equivalent clipped AdamW. `fit` refreshes the occupancy grid every
 `update_interval` steps (every cell before `warmup_steps`) and runs the
 steps between two refreshes as one chunk (`train_chunk`, the JAX
@@ -40,7 +41,7 @@ import torch
 
 from .. import kernels
 from ..config import TrainConfig
-from ..datasets.base import SceneData
+from ..datasets.base import SceneData, generate_random_poses
 from ..datasets.normals import extract_normals_from_depth_batch
 from ..datasets.ray_utils import get_rays
 from ..datasets.sampler import RaySampler
@@ -60,6 +61,7 @@ _log = logging.getLogger(__name__)
 # captured (as PyTorch's whole-network capture warms up: lazy
 # initialisation, the kernels' libraries, cuBLAS's handles)
 GRAPH_WARMUP = 3
+RANDOM_POSES = 10000   # random unseen poses of random_tr_poses (trainer.py:82)
 
 
 class Trainer:
@@ -75,11 +77,12 @@ class Trainer:
         unported = [k for k, on in (
             ("optimize_ext", cfg.optim.optimize_ext),
             ("lr_dR_norm_glob", cfg.optim.lr_dR_norm_glob > 0),
-            ("random_tr_poses", cfg.data.random_tr_poses),
-            ("keep_N_tr", cfg.data.keep_N_tr != -1),
             ("host_sampler", cfg.data.host_sampler)) if on]
         if unported:
-            raise NotImplementedError(f"{unported} not ported (ROADMAP A10)")
+            raise NotImplementedError(f"{unported} not ported (ROADMAP A7, "
+                                      "A9)")
+        if cfg.data.keep_N_tr != -1:
+            scene_train = scene_train.keep_first_n(cfg.data.keep_N_tr)
         self.cfg = cfg
         self.scene_train = scene_train
         self.scene_test = scene_test
@@ -87,10 +90,21 @@ class Trainer:
         init_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
         self.model = NGPMT(cfg.model, dev, generator=init_gen)
         self.occ_grid = OccupancyGrid(cfg.model, dev)
+        # random unseen poses (trainer.py:79-90), held once on the device:
+        # a step takes its rows by a device index
+        self.random_poses = None
+        if cfg.data.random_tr_poses:
+            rnd, _ = generate_random_poses(
+                scene_train.poses, scene_train.xyz_cam_min,
+                scene_train.xyz_cam_max, RANDOM_POSES, seed=cfg.seed)
+            self.random_poses = torch.as_tensor(rnd, device=dev)
         self.sampler = RaySampler(
             cfg.data.ray_sampling_strategy, cfg.data.batch_size,
             scene_train.img_wh, scene_train.n_images,
-            max_expand=cfg.data.triang_max_expand, device=dev)
+            max_expand=cfg.data.triang_max_expand,
+            patch_size=cfg.data.patch_size,
+            n_random_poses=RANDOM_POSES if cfg.data.random_tr_poses else 0,
+            device=dev)
         self.scene = {
             "poses": torch.as_tensor(scene_train.poses, dtype=torch.float32,
                                      device=dev),
@@ -176,13 +190,13 @@ class Trainer:
             generator=self.generator, jitter=jitter, cell_draws=cell_draws)
 
     def mark_invisible_cells(self):
-        """One-time camera-coverage marking (train_nerf.py:306-312)."""
+        """One-time camera-coverage marking (train_nerf.py:306-312), through
+        the scene's projection matrices where it has them (Hypersim), else
+        its pinhole K (trainer.py:220-240)."""
         s = self.scene_train
-        if s.K is None:
-            raise NotImplementedError(
-                "projection-matrix cameras (Hypersim) are ROADMAP A15")
         self.occ = self.occ_grid.mark_invisible_cells(
-            self.occ, s.poses, s.img_wh, self.cfg.model.near_dist, s.K)
+            self.occ, s.poses, s.img_wh, self.cfg.model.near_dist,
+            K=s.K if s.proj is None else None, proj=s.proj)
 
     # ------------------------------------------------------------ train step
     def _ensure_rows(self, end: int):
@@ -249,7 +263,7 @@ class Trainer:
         for k in _LABELS:
             if f"label_{k}" in scene:
                 target[k] = scene[f"label_{k}"][img, pix]
-        rays_o, rays_d = get_rays(scene["directions"][pix], scene["poses"][img])
+        rays_o, rays_d = self._assemble_rays(batch)
         results = render_train(
             self.model, self.occ, rays_o.contiguous(),
             rays_d.contiguous(), cfg.render, global_step=self.step,
@@ -258,6 +272,9 @@ class Trainer:
         loss_d = compute_losses(
             results, target, cfg.loss, self.model.cfg, step=self.step,
             ray_sampling_strategy=cfg.data.ray_sampling_strategy,
+            random_tr_poses=cfg.data.random_tr_poses,
+            patch_area=self.sampler.patch_area,
+            offsets_local=self.sampler.offsets_local,
             kmeans_init=draws.get("kmeans_init"), generator=g, sched=sched)
         names = list(self.params)
         grads = torch.autograd.grad(loss_d["total"],
@@ -280,6 +297,17 @@ class Trainer:
         self._step_t.add_(1)
         return metrics
 
+    def _assemble_rays(self, batch: Dict[str, torch.Tensor]):
+        """The batch's world rays (trainer.py:242-256); with random poses
+        the same pixels again from the batch's random poses after them."""
+        poses = self.scene["poses"][batch["img_idxs"]]
+        dirs = self.scene["directions"][batch["pix_idxs"]]
+        if self.random_poses is not None:
+            poses = torch.cat([poses,
+                               self.random_poses[batch["rnd_img_idxs"]]])
+            dirs = torch.cat([dirs, dirs])
+        return get_rays(dirs, poses)
+
     def _zeros(self, name: str) -> torch.Tensor:
         """An unused parameter's gradient: zeros made at its first step."""
         if name not in self._zero_grads:
@@ -295,8 +323,9 @@ class Trainer:
         """One eager optimisation step: the bootstrap march when
         `bootstrap`, else the march `render_train` picks from the occupancy
         state (the flat layout ignores `bootstrap`, as the JAX one does).
-        `draws` may hold this step's random draws: "batch" ({"img",
-        "tri"}), "noise" (N,), "bg" (3,) and "kmeans_init" (cluster_K,).
+        `draws` may hold this step's random draws: "batch" (the sampler's
+        `draw()`: {"img", "tri" / "corner" / "pix"[, "rnd"]}), "noise"
+        (N,), "bg" (3,) and "kmeans_init" (cluster_K,).
         Returns the step's metrics as tensors (no host synchronisation)."""
         self._ensure_rows(self.step + 1)
         metrics = self._step_body(bootstrap, draws)
@@ -458,7 +487,7 @@ class Trainer:
         if save_vis_dir or save_preds_dir or logger is not None:
             raise NotImplementedError(
                 "validation images, prediction export and loggers are "
-                "ROADMAP A16")
+                "ROADMAP A6")
         cfg = self.cfg
         scene = self.scene_test or self.scene_train
         agg = NeRFMTMetricsPerIm(

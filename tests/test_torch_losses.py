@@ -152,3 +152,92 @@ def test_compute_losses_values_and_gradients(step):
                                    rtol=1e-4, atol=1e-6, err_msg=k)
     if step:
         assert float(out["norm_D_C_ort_dot"].detach()) != 0.0
+
+
+PATCH = dict(patch_area=64, offsets_local={
+    k: np.asarray(v) for k, v in zip(
+        ("x1", "x2", "x3"),
+        (np.arange(64).reshape(8, 8)[1:, 1:].reshape(-1),
+         np.arange(64).reshape(8, 8)[:-1, 1:].reshape(-1),
+         np.arange(64).reshape(8, 8)[1:, :-1].reshape(-1)))})
+
+
+def test_patch_triang_idx_matches_jax():
+    for n in (64, 256):
+        ref = jl.patch_triang_idx(n, **PATCH)
+        out = tl.patch_triang_idx(n, **PATCH)
+        on = tl.patch_triang_idx_on(n, device=torch.device("cpu"), **PATCH)
+        for k in ("x1", "x2", "x3"):
+            np.testing.assert_array_equal(out[k], np.asarray(ref[k]))
+            np.testing.assert_array_equal(N(on[k]), np.asarray(ref[k]))
+    with pytest.raises(ValueError, match="patch area"):
+        tl.patch_triang_idx(100, **PATCH)
+
+
+@pytest.mark.parametrize("random_tr_poses", [False, True])
+def test_compute_losses_patch_batches(random_tr_poses):
+    """The patch branch (losses.py:215-246) at full clustering weights, on
+    8 patches of 8 x 8; with `random_tr_poses` the last 4 patches are the
+    random-pose rays: rgb on the first 256 rays, the clustering on the
+    normals of the others. Values and gradients at the tolerances above."""
+    jcfg, tcfg = slice_configs()
+    step, n = 3000, 512
+    pred, target = _pred_target(7, n=n)
+    # each patch looks at one wall of a box (axis patch % 3): its points
+    # lie on that plane, so the clustering finds three orthogonal groups
+    rng = np.random.default_rng(8)
+    uv = (np.stack(np.meshgrid(np.arange(8), np.arange(8)), -1)
+          .reshape(64, 2) - 3.5) * 0.03
+    d = np.zeros((n // 64, 64, 3))
+    for i in range(n // 64):
+        a = i % 3
+        d[i, :, a] = 1.0
+        d[i, :, [(a + 1) % 3, (a + 2) % 3]] = (uv + rng.normal(
+            0, 0.05, 2)).T
+    d = d.reshape(n, 3)
+    pred["rays_d"] = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(
+        np.float32)
+    axis = np.repeat(np.arange(n // 64) % 3, 64)
+    pred["depth"] = (1.0 / np.abs(pred["rays_d"][np.arange(n), axis])
+                     * rng.uniform(0.999, 1.001, n)).astype(np.float32)
+    gt = n // 2 if random_tr_poses else n
+    target = {k: v[:gt] for k, v in target.items()}
+    key = jax.random.PRNGKey(9)
+    kw = dict(ray_sampling_strategy="all_images_triang_patch",
+              random_tr_poses=random_tr_poses, **PATCH)
+
+    def loss_j(diff):
+        p = {k: J(v) for k, v in pred.items()}
+        p.update(diff)
+        return jl.compute_losses(
+            p, {k: J(v) for k, v in target.items()}, jcfg.loss, jcfg.model,
+            step=step, key=key, **kw)
+
+    (ref, vjp_fn) = jax.vjp(loss_j, {k: J(pred[k]) for k in DIFF})
+    g_ref = vjp_fn({k: jnp.ones_like(v) if k == "total" else jnp.zeros_like(v)
+                    for k, v in ref.items()})[0]
+    u = n - gt
+    nd = np.asarray(jl.extract_normals_from_ray_batch(
+        J(pred["rays_o"][gt % n:]), J(pred["rays_d"][gt % n:]),
+        J(pred["depth"][gt % n:]), jl.patch_triang_idx(u or n, **PATCH)))
+    init = _init_idx(key, nd, jcfg.loss.cluster_K)
+    tp = {k: T(v) for k, v in pred.items()}
+    for k in DIFF:
+        tp[k].requires_grad_(True)
+    out = tl.compute_losses(tp, {k: T(v) for k, v in target.items()},
+                            tcfg.loss, tcfg.model, step=step,
+                            kmeans_init=T(init), **kw)
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]), rtol=1e-5,
+                                   atol=1e-7, err_msg=k)
+    out["total"].backward()
+    for k in DIFF:
+        np.testing.assert_allclose(N(tp[k].grad), np.asarray(g_ref[k]),
+                                   rtol=1e-4, atol=1e-6, err_msg=k)
+    assert float(out["norm_D_C_ort_dot"].detach()) != 0.0
+    if random_tr_poses:
+        # the random-pose rays get no rgb gradient, the others no gradient
+        # through the clustering's depth
+        assert not N(tp["rgb"].grad)[gt:].any()
+        assert not N(tp["depth"].grad)[:gt].any()

@@ -144,3 +144,22 @@ def test_mark_invisible_cells_matches_jax():
                                   0.01, stt.K)
     _assert_states_equal(out, ref)
     assert (N(out.density_grid) == -1).any() and (N(out.density_grid) == 0).any()
+
+
+def test_mark_invisible_cells_with_proj_matches_jax():
+    """Hypersim's projection matrices (occupancy.py:240-291, the `proj`
+    tuple) on the smoke's Hypersim-camera room at 64 x 48, 8 views: the
+    marks and the coverage fractions equal JAX's."""
+    import chip_smoke
+    scene, _ = chip_smoke.hypersim_split((64, 48), 8, 2)
+    jg, tg = _grids()
+    proj = tuple(np.asarray(p, np.float32) if not np.isscalar(p)
+                 else float(p) for p in scene.proj)
+    ref = jg.mark_invisible_cells(jg.init_state(), J(scene.poses),
+                                  scene.img_wh, 0.01, proj=proj)
+    out = tg.mark_invisible_cells(tg.init_state(), scene.poses,
+                                  scene.img_wh, 0.01, proj=scene.proj)
+    _assert_states_equal(out, ref)
+    d = N(out.density_grid)
+    assert (d == -1).any() and (d == 0).any()
+    assert 0 < N(out.count_grid).max() <= 1
