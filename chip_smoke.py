@@ -123,7 +123,21 @@ Phases (any failed check raises, so the script exits non-zero):
   through `Trainer.fit` (H1, K1 64 times, H5/H6, H3; H4 never), the
   clustering terms non-zero after step 500; K1 (both launchers) and H3
   (forward and backward) against their plain versions at the path's
-  shapes; `validate` on the 4 held-out views (3.1 M rays);
+  shapes, and H1, H5 and H6 there too (each variant with its bound);
+  `validate` on the 4 held-out views (3.1 M rays);
+  then the baselines path (`BASELINES`): the step parity of the
+  "supervised" and the "regnerf" configuration at the CPU tests' size
+  (a bootstrap step at step 0 and an sv step at step 3000; theta_WF after
+  each); "supervised" at the bench configuration (depth, GT-normal,
+  Manhattan-SDF with theta_WF, snapping with discard_far_members,
+  distortion_ts_bug_compat, the 'depth' annealing, pred_norm_nn_norm, the
+  exposure tonemapper): 576 counted steps through `Trainer.fit` (H4's
+  backward never launches: the distortion fed ts gives no gradient), the
+  loss less that term falling, theta_WF finite and moved from 0, H4 at
+  ts inputs (bit for bit the serial order; the plain version within 1e-5
+  of the products the loss cancels), `validate` (no gate); "regnerf"
+  (8190 supervised and 8190 random-pose rays a batch): 576 counted steps,
+  reg_depth on after norm_can_start;
   every launcher must have launched on some path;
   6. for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
@@ -137,14 +151,17 @@ Phases (any failed check raises, so the script exits non-zero):
      forward also at the first test round's shape with T_start;
   7. CUDA-graph chunks: for the triplane path's bootstrap and sv march, the
      bitfield path's march, the brick and tcnn fields' and the preset
-     path's sv march, 16
+     path's sv march, and the two baselines' sv march (their config's
+     norm_can_start, clustering ramp and anneal_steps moved into the
+     chunk, after 3 eager steps and a capture at the new step table), 16
      replays of the graph the training phase captured, each against 3
      eager steps from the state and generator state it started from:
      sampled indices and rm / vr / trunc counts equal, losses and
      parameters after within 2x the eager steps' spread (the fp32 atomics
      of H2/H6/H8) plus 2^-20 of the largest value;
      then graph steps against eager steps: host ms/step, the device's busy
-     ms/step and launches/step (torch.profiler), graph launches/step and
+     ms/step and launches/step (torch.profiler, over 16 replays or
+     TRACED_EAGER eager steps), graph launches/step and
      the idle share; and each field's optimizer update (clip and AdamW)
      against its byte bound; printed as a "graph steps" JSON line.
 
@@ -270,6 +287,20 @@ class Check:
             self.failures.append(name)
         return err
 
+    def within(self, name, got, ref, tol):
+        """|got - ref| <= tol elementwise (`tol` a tensor of ref's
+        shape)."""
+        got, ref = got.float(), ref.float()
+        d = (got - ref).abs()
+        err = d.max().item() if ref.numel() else 0.0
+        ok = bool((d <= tol).all()) and bool(torch.isfinite(got).all())
+        log(f"  {name}: max_abs_err {err:.3e} (largest tolerance "
+            f"{tol.max().item() if tol.numel() else 0.0:.3e}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failures.append(name)
+        return err
+
     def equal(self, name, got, ref):
         bad = int((got != ref).sum())
         log(f"  {name}: {bad} of {ref.numel()} differ {'ok' if not bad else 'FAIL'}")
@@ -353,6 +384,43 @@ def small_config(layout="triplane"):
                                   **SMALL_FIELD[layout]),
         render=dataclasses.replace(cfg.render, sample_budget=batch * 16),
         data=dataclasses.replace(cfg.data, batch_size=batch))
+
+
+# the paper's baselines on a configuration (the bench's, or small_config):
+# the field's and the loss's fields each replaces. No preset publishes
+# their weights: the new terms take the clustering terms' 2e-3, depth_w
+# the JAX end-to-end test's 0.05 (tests/test_train_e2e.py:67). "supervised"
+# switches on every supervised term and option at once (depth-supervised
+# and normal-supervised NGP, Manhattan-SDF, the clustering variants);
+# "regnerf" adds the random-pose rays and RegNeRF's depth smoothness to
+# the bench's clustering terms
+BASELINES = {
+    "supervised": dict(
+        model=dict(pred_norm_nn_norm=True, use_exposure=True),
+        render=dict(anneal_strategy="depth", anneal_steps=600),
+        loss=dict(depth_w=0.05, norm_depth_L1_w=2e-3, norm_depth_dot_w=2e-3,
+                  manhattan_nerf_w=2e-3, norm_D_C_can_dot_w=2e-3,
+                  norm_D_C_can_L1_w=2e-3, discard_far_members=True,
+                  distortion_ts_bug_compat=True)),
+    "regnerf": dict(data=dict(random_tr_poses=True),
+                    loss=dict(reg_depth_w=1e-2)),
+}
+
+
+def baseline_config(name, cfg):
+    """`cfg` with the fields of BASELINES[name] replaced."""
+    return cfg.replace(**{sub: dataclasses.replace(getattr(cfg, sub), **kw)
+                          for sub, kw in BASELINES[name].items()})
+
+
+def small_baseline_config(name):
+    """BASELINES[name] at the CPU tests' size (`small_config`). With
+    random poses the 96 rays are 48 + 48, whose 16 random-pose triangles
+    the k-means draws its init from without replacement: 12 clusters."""
+    cfg = baseline_config(name, small_config())
+    if cfg.data.random_tr_poses:
+        cfg = cfg.replace(loss=dataclasses.replace(cfg.loss, cluster_K=12))
+    return cfg
 
 
 # experiments/hyperparameters.py:hypersim_flags() (the Hypersim preset,
@@ -830,6 +898,21 @@ def check_encode_fwd(chk, layout, table, x, spec, where):
     return max(errs)
 
 
+def bootstrap_bound(a, kw, mr):
+    """H1's bound on the march arguments `a` (rays_o, rays_d, hits,
+    bitfield, noise) and keywords `kw`, with its output `mr`: its inputs
+    read and outputs written once, and STEP_OPS a step of the steps the
+    rays take inside their box interval, each probed once (the kernel's
+    second pass is its own design choice). Returns (bound, probes)."""
+    S = kw["march_steps"]
+    b = nbytes(*a[:5]) + nbytes(mr.t, mr.dt, mr.valid, mr.ray_count) + 4
+    t1, t2 = a[2][:, 0], a[2][:, 1]
+    lo = math.sqrt(3.0) / kw["max_samples"]
+    in_box = torch.clamp(torch.ceil((t2 - (t1 + lo * a[4])) / lo), 0, S)
+    probes = int(torch.where(t1 >= 0, in_box, torch.zeros_like(in_box)).sum())
+    return bound(b, probes * STEP_OPS), probes
+
+
 def check_kernels(tr, gen):
     """Phase 2: H1-H4 against their plain versions on the main path's
     inputs. Returns {launcher name: record} with the largest error, the
@@ -857,14 +940,7 @@ def check_kernels(tr, gen):
               chk.equal("ray_count", got.ray_count, mr.ray_count),
               chk.equal("rm_samples", got.rm_samples, mr.rm_samples))
     hit = int((a[2][:, 0] >= 0).sum())
-    S = kw["march_steps"]
-    b = nbytes(*a[:5]) + nbytes(mr.t, mr.dt, mr.valid, mr.ray_count) + 4
-    # the steps this batch's rays take inside their box interval, each
-    # probed once (the kernel's second pass is its own design choice)
-    t1, t2 = a[2][:, 0], a[2][:, 1]
-    lo = math.sqrt(3.0) / kw["max_samples"]
-    in_box = torch.clamp(torch.ceil((t2 - (t1 + lo * a[4])) / lo), 0, S)
-    probes = int(torch.where(t1 >= 0, in_box, torch.zeros_like(in_box)).sum())
+    h1_bound, probes = bootstrap_bound(a, kw, mr)
     log(f"  rm/ray {float(mr.rm_samples) / N:.2f}, rays hitting the box "
         f"{hit}, steps inside it {probes}")
     # the edges: N - 3 rays (a ragged last block of the warps' blocks), one
@@ -888,7 +964,7 @@ def check_kernels(tr, gen):
     rec["march_bootstrap"] = dict(
         err=err, kernel=(lambda: rm.march_rays_train_bootstrap(*a, **kw)),
         plain=(lambda: rm.march_rays_train_dense_plain(*a, **kw)),
-        bound=bound(b, probes * STEP_OPS),
+        bound=h1_bound,
         variants={"full 128^3 bitfield": (
             lambda: rm.march_rays_train_bootstrap(*a[:3], full, a[4], **kw))})
 
@@ -2348,10 +2424,15 @@ def time_kernels(rec):
                 f"{r['step_cotangent_ms']:.4f} ms on a training step's; "
                 f"the zero fill alone {r['fill_ms']:.4f} ms, index_add_ "
                 f"{r['library_ms']:.4f} ms")
+        vbounds = r.pop("variant_bounds", {})
         for where, fn in r.pop("variants", {}).items():
             ms = device_ms(fn, f"{name} {where}")
             r.setdefault("variants_ms", {})[where] = ms
-            log(f"  {name} at the {where}: {ms:.4f} ms")
+            vb = vbounds.get(where)
+            if vb:
+                r.setdefault("variants_bound_ms", {})[where] = vb[0]
+            log(f"  {name} at the {where}: {ms:.4f} ms"
+                + (f" (bound {vb[0]:.6f}, {vb[1]})" if vb else ""))
         for where, c in r.pop("counts", {}).items():
             log_counts(name, where, c)
         if "at_p4_shape" in r:
@@ -2417,10 +2498,12 @@ def train(tr, name, phases, need, exact):
     return hist, counts, times
 
 
-def check_losses(hist, marks, fall=True):
+def check_losses(hist, marks, fall=True, untrained=()):
     """Every loss finite; the losses at the steps `marks` (label, index)
     logged; with `fall`, the mean of the last 6 steps under 0.75 of the
-    first 6 (the random background makes single steps noisy)."""
+    first 6 (the random background makes single steps noisy), of the
+    total less the components `untrained` (terms that give the parameters
+    no gradient)."""
     bad = [(i, k) for i, m in enumerate(hist) for k, v in m.items()
            if k.startswith("loss_") and not math.isfinite(v)]
     if bad:
@@ -2432,8 +2515,8 @@ def check_losses(hist, marks, fall=True):
             f"vr/ray {m['vr_samples_per_ray']:.3f} "
             f"trunc {m['trunc_ray_frac']:.4f}")
     q = 6
-    head, tail = (sum(m["loss_total"] for m in ms) / q
-                  for ms in (hist[:q], hist[-q:]))
+    head, tail = (sum(m["loss_total"] - sum(m[k] for k in untrained)
+                      for m in ms) / q for ms in (hist[:q], hist[-q:]))
     if fall and not tail < 0.75 * head:
         raise RuntimeError(f"the loss did not fall: mean {head:.6f} over the "
                            f"first {q} steps, {tail:.6f} over the last {q}")
@@ -2535,16 +2618,16 @@ TWO_PHASES = (("bootstrap", BOOT_STEPS), ("after the bootstrap", SV_STEPS))
 
 
 def path_training(tr, name, launches, need, exact, phases=TWO_PHASES,
-                  fall=True):
-    """Phase 3 of one path: `train`, the loss checks, and its launches
-    added to `launches`. Returns fit's ms/step over each phase and the
-    steps' metrics."""
+                  fall=True, untrained=()):
+    """Phase 3 of one path: `train`, the loss checks (`untrained`: see
+    `check_losses`), and its launches added to `launches`. Returns fit's
+    ms/step over each phase and the steps' metrics."""
     hist, counts, secs = train(tr, name, phases, need, exact)
     marks, i = [("first", 0)], 0
     for label, n in phases[:-1]:
         i += n
         marks += [(f"last {label}", i - 1), (f"first {phases[1][0]}", i)]
-    head, tail = check_losses(hist, marks + [("last", -1)], fall)
+    head, tail = check_losses(hist, marks + [("last", -1)], fall, untrained)
     for k, c in counts.items():
         launches[k] += c
     ms = [t * 1e3 / n for (_, n), t in zip(phases, secs)]
@@ -2559,7 +2642,8 @@ def path_training(tr, name, launches, need, exact, phases=TWO_PHASES,
 GRAPH_STEPS = 16   # a chunk of the graph phase: the steps between refreshes
 # the graph phase's chunks: (path, bootstrap march or not)
 GRAPH_CASES = (("triplane", True), ("triplane", False), ("bitfield", False),
-               ("brick", False), ("tcnn", False), ("preset", False))
+               ("brick", False), ("tcnn", False), ("preset", False),
+               ("supervised", False), ("regnerf", False))
 
 
 def sync(dev):
@@ -2687,22 +2771,27 @@ def check_graph_chunk(tr, path, bootstrap):
     chk.done(f"graph phase, {tag}")
 
 
+TRACED_EAGER = 4   # eager steps in graph_times' traced chunk: the profiler
+                   # took ~25 s to gather a chunk of 16 eager steps
+
+
 def graph_times(tr, path, bootstrap, reps=3, n=GRAPH_STEPS):
     """Graph steps against eager steps: host ms/step (median of `reps`
     chunks of `n`, each ended by a synchronize), and from one traced chunk
-    of each the device's busy ms/step split as the bench's profile splits
-    it, its launches a step, the graph launches a step and the idle
-    share against the host time."""
+    of each (of TRACED_EAGER eager steps, of `n` replays) the device's
+    busy ms/step split as the bench's profile splits it, its launches a
+    step, the graph launches a step and the idle share against the host
+    time."""
     from normal_clustering_nerf_torch.bench import split_device_time
 
-    def eager():
-        for _ in range(n):
+    def eager(k=n):
+        for _ in range(k):
             tr.train_step_core(bootstrap)
 
-    def graph():
-        tr.train_chunk(n, bootstrap)
+    def graph(k=n):
+        tr.train_chunk(k, bootstrap)
     out = {"path": path, "march": "bootstrap" if bootstrap else "after"}
-    for name, fn in (("eager", eager), ("graph", graph)):
+    for name, fn, k in (("eager", eager, TRACED_EAGER), ("graph", graph, n)):
         ms = []
         for _ in range(reps):
             sync(tr.device)
@@ -2712,14 +2801,14 @@ def graph_times(tr, path, bootstrap, reps=3, n=GRAPH_STEPS):
             ms.append((time.perf_counter() - t) * 1e3 / n)
         host = sorted(ms)[reps // 2]
         r = {"host_ms": host}
-        p, dev = traced(fn)
+        p, dev = traced(lambda: fn(k))
         if dev:
-            split, launches = split_device_time(dev, n)
+            split, launches = split_device_time(dev, k)
             busy = sum(split.values())
             r.update(busy_ms=busy, idle=1 - busy / host,
                      launches=launches, split=split,
                      graph_launches=sum(e.count for e in p.key_averages()
-                                        if e.key == "cudaGraphLaunch") / n)
+                                        if e.key == "cudaGraphLaunch") / k)
         out[name] = r
         log(f"  {name} steps, {path} {out['march']}: host {host:.3f} ms/step"
             + (f", device busy {r['busy_ms']:.3f} ms/step ("
@@ -2758,6 +2847,8 @@ def graph_phase(paths):
     rows = []
     for path, bootstrap in GRAPH_CASES:
         tr = paths[path]
+        if path in BASELINES:
+            shift_switches(tr)
         check_graph_chunk(tr, path, bootstrap)
         rows.append(graph_times(tr, path, bootstrap))
     for path in ("triplane", "brick", "tcnn"):
@@ -2920,12 +3011,15 @@ def preset_step_parity(seed=13):
 
 
 def check_preset_kernels(tr, rec, gen):
-    """K1 and H3 at the preset's shapes on the trained occupancy: K1's
-    training launcher on a patch batch (K 32, the auto-full interval
-    budget) and its test round on the held-out rays (`check_k1`), H3's
-    forward and backward on that batch's sv-march samples through the
-    brick field (`check_composite_fwd` / `_bwd`, random cotangents). Their
-    calls are timed as variants of the records in `rec`."""
+    """K1, H1, H3 and H5/H6 at the preset's shapes on the trained
+    occupancy: K1's training launcher on a patch batch (K 32, the
+    auto-full interval budget) and its test round on the held-out rays
+    (`check_k1`); H1 on the same rays (exact); H3's forward and backward
+    and H5's forward (bit for bit in f32 and bf16 out) and H6 on that
+    batch's sv-march samples through the brick field (random
+    cotangents). Their calls are timed as variants of the records in
+    `rec`, each with its bound at these inputs."""
+    from normal_clustering_nerf_torch.models import brick_hash as bh
     from normal_clustering_nerf_torch.models.rendering import (
         field_raws, train_intervals, train_march_args)
     from normal_clustering_nerf_torch.ops import composite as cp
@@ -2958,23 +3052,63 @@ def check_preset_kernels(tr, rec, gen):
           torch.randn((N, K), generator=gen, device=o.device))
     chk = Check()
     log(f"H3 at the preset's shape: N={N} K={K} C={C}")
-    e_fwd = check_composite_fwd(chk, ca, cp.composite_kernel(*ca),
-                                cp.composite_plain(*ca))
+    got = cp.composite_kernel(*ca)
+    e_fwd = check_composite_fwd(chk, ca, got, cp.composite_plain(*ca))
     e_bwd = check_composite_bwd(chk, ca, gs)
-    chk.done("H3 at the preset's shape")
+    flops = N * K * (10 + 2 * C)
+    # H1 on the same rays: the bootstrap march of the preset's first steps
+    ba = (o, d, train_intervals(m, rc, o, d, 0), tr.occ.density_bitfield,
+          noise)
+    bkw = train_march_args(m, rc, N, "bootstrap")
+    bref = rm.march_rays_train_dense_plain(*ba, **bkw)
+    bgot = rm.march_rays_train_bootstrap(*ba, **bkw)
+    log(f"H1 at the preset's shape: N={N} K={bref.t.shape[1]} "
+        f"S={bkw['march_steps']}")
+    e_h1 = max(chk.equal(f, getattr(bgot, f), getattr(bref, f))
+               for f in ("t", "dt", "valid", "ray_count", "rm_samples"))
+    # H5 / H6 on the sv step's samples, in the preset's compute dtype
+    spec, table = tr.model.spec, tr.model.hash_table.detach()
+    s = m.scale
+    x = ((xyz + s) / (2.0 * s)).contiguous()
+    M, out_dt = x.shape[0], tr.model.compute_dtype
+    g = torch.randn((M, spec.out_dim), generator=gen, device=o.device)
+    log(f"H5 / H6 at the preset's shape: M={M}")
+    e_h5 = check_encode_fwd(chk, "brick", table, x, spec, "preset sv step")
+    e_h6 = chk.close("H6 preset sv step", bh.encode_grad_kernel(x, g, spec),
+                     bh.encode_grad_plain(x, g, spec), 1e-4)
+    chk.done("H1, H3, H5 and H6 at the preset's shape")
+    ops = M * spec.n_levels * ENCODE_OPS
     tag = f"preset step (N {N}, K {K}, RI {RI})"
-    variants = {"march_sv_train": k1["march_sv_train"]["kernel"],
-                "march_sv_test_round": k1["march_sv_test_round"]["kernel"],
-                "composite_fwd": lambda: cp.composite_kernel(*ca),
-                "composite_bwd": lambda: cp.composite_grad_kernel(*ca, *gs)}
-    errs = {"march_sv_train": k1["march_sv_train"]["err"],
-            "march_sv_test_round": k1["march_sv_test_round"]["err"],
-            "composite_fwd": e_fwd, "composite_bwd": e_bwd}
-    for name, fn in variants.items():
-        rec[name]["err"] = max(rec[name]["err"], errs[name])
-        rec[name].setdefault("variants", {})[
-            "preset first test round" if name == "march_sv_test_round"
-            else tag] = fn
+    enc = f"preset sv step (M {M})"
+    # name: (where, call, error, bound at these inputs)
+    variants = {
+        "march_sv_train": (tag, k1["march_sv_train"]["kernel"],
+                           k1["march_sv_train"]["err"],
+                           k1["march_sv_train"]["bound"]),
+        "march_sv_test_round": (
+            "preset first test round", k1["march_sv_test_round"]["kernel"],
+            k1["march_sv_test_round"]["err"],
+            k1["march_sv_test_round"]["bound"]),
+        "composite_fwd": (tag, lambda: cp.composite_kernel(*ca), e_fwd,
+                          bound(nbytes(*ca[:5]) + nbytes(*got), flops)),
+        "composite_bwd": (tag, lambda: cp.composite_grad_kernel(*ca, *gs),
+                          e_bwd, bound(nbytes(*ca[:5], *gs)
+                                       + nbytes(*ca[:2]),
+                                       2 * flops + N * K * C * 3)),
+        "march_bootstrap": (
+            f"preset bootstrap step (N {N}, K {bref.t.shape[1]})",
+            lambda: rm.march_rays_train_bootstrap(*ba, **bkw), e_h1,
+            bootstrap_bound(ba, bkw, bref)[0]),
+        "brick_fwd": (enc, lambda: bh.encode_kernel(table, x, spec, out_dt),
+                      e_h5, bound(nbytes(x) + touched_encode_bytes(
+                          x, spec, "brick") + M * spec.out_dim
+                          * (2 if out_dt == torch.bfloat16 else 4), ops)),
+        "brick_bwd": (enc, lambda: bh.encode_grad_kernel(x, g, spec), e_h6,
+                      bound(nbytes(x, g, table), ops))}
+    for name, (where, fn, err, b) in variants.items():
+        rec[name]["err"] = max(rec[name]["err"], err)
+        rec[name].setdefault("variants", {})[where] = fn
+        rec[name].setdefault("variant_bounds", {})[where] = b
 
 
 def preset_path(rec, launches, gen):
@@ -3011,13 +3145,221 @@ def preset_path(rec, launches, gen):
     if not ramp:
         raise RuntimeError("preset path: the clustering terms stayed 0 "
                            "after step 500")
-    log("phase 4, preset: K1 and H3 at the preset's shapes")
+    log("phase 4, preset: K1, H1, H3 and H5/H6 at the preset's shapes")
     check_preset_kernels(tr, rec, gen)
     for name, c in validate(tr, "preset", ("march_sv_test_round",
                                            "brick_fwd", "composite_fwd"),
                             ("march_fine_test_round",)).items():
         launches[name] += c
     return tr, ms
+
+
+# ---------------------------------------------------------- baselines path
+# the baselines path's configurations: (name, batch_size); regnerf's batch
+# is 8190 supervised rays and as many from random poses
+BASELINE_RUNS = (("supervised", 8192), ("regnerf", 16384))
+
+
+def baseline_step_parity(seed=17):
+    """Training steps of each of BASELINES at the CPU tests' size
+    (`small_baseline_config`), on the card through the kernels and on the
+    CPU through the plain versions, from the same state and draws: a
+    bootstrap step at step 0 (the 'depth' annealing at n_i 0.05, the
+    clustering weights 0, the Manhattan term unweighted, reg_depth off)
+    and an sv step at step 3000 (every weight full, past norm_can_start
+    and the annealing), after a full refresh; theta_WF after each step."""
+    import numpy as np
+    from normal_clustering_nerf_torch.datasets.synthetic import (
+        SyntheticDataset)
+    from normal_clustering_nerf_torch.models.occupancy import OccupancyState
+    from normal_clustering_nerf_torch.training import Trainer
+    scene = SyntheticDataset(split="train", img_wh=(24, 24),
+                             n_images=6).load()
+    rng = np.random.default_rng(seed)
+    chk = Check()
+    for name in BASELINES:
+        cfg = small_baseline_config(name)
+        cpu = Trainer(cfg, scene, device="cpu")
+        cpu.mark_invisible_cells()
+        cpu.occ_update(warmup=True)
+        card = Trainer(cfg, scene, device="cuda")
+        n_rays = cpu.sampler.n_groups * cpu.sampler.group * (
+            2 if cfg.data.random_tr_poses else 1)
+        n_tri = (n_rays // 2 if cfg.data.random_tr_poses else n_rays) // 3
+        for boot, step in ((True, 0), (False, 3000)):
+            cpu.step = step
+            card.load_state({n: p.detach().cuda()
+                             for n, p in cpu.params.items()},
+                            OccupancyState(*(t.cuda() for t in cpu.occ)),
+                            _to_card(cpu.opt.state), step)
+            draws = {"batch": cpu.sampler.draw(torch.Generator().manual_seed(
+                         int(rng.integers(1 << 30)))),
+                     "noise": rng.random(n_rays, dtype=np.float32),
+                     "bg": rng.random(3, dtype=np.float32),
+                     "kmeans_init": rng.choice(n_tri, cfg.loss.cluster_K,
+                                               replace=False)}
+            ref = cpu.train_step_core(bootstrap=boot, draws=draws)
+            got = {k: v.cpu() for k, v in
+                   card.train_step_core(bootstrap=boot, draws=draws).items()}
+            log(f"baseline step parity, {name}, "
+                f"{'bootstrap' if boot else 'sv'} step {step}: the card "
+                f"against the CPU ({n_rays} rays, rm/ray "
+                f"{float(ref['rm_samples_per_ray']):.3f}; losses "
+                + ", ".join(f"{k[5:]} {float(v):.4g}" for k, v in ref.items()
+                            if k.startswith("loss_")) + ")")
+            for k in sorted(ref):
+                if k.startswith("loss_"):
+                    chk.close(k, got[k], ref[k], 1e-4)
+            n = card.sampler.batch_size
+            for k in ("rm_samples_per_ray", "vr_samples_per_ray",
+                      "trunc_ray_frac"):
+                chk.equal(k, torch.round(got[k] * n), torch.round(ref[k] * n))
+            for k, g in cpu.last_grads.items():
+                chk.close(f"d {k}", card.last_grads[k].cpu(), g, 1e-3)
+            if "theta_WF" in cpu.params:
+                chk.close("theta_WF after the step",
+                          card.params["theta_WF"].detach().cpu(),
+                          cpu.params["theta_WF"].detach(), 1e-3)
+    chk.done("baseline step parity")
+
+
+def check_ts_distortion(tr, rec, gen):
+    """H4 at the inputs `distortion_ts_bug_compat` gives it: a batch's
+    sv-march samples with their distances ts (up to ~sqrt(3)) as the
+    weights, forward and backward against the plain versions and bit for
+    bit the serial order; timed as a variant of H4's forward."""
+    from normal_clustering_nerf_torch.models.rendering import (
+        train_intervals, train_march_args)
+    from normal_clustering_nerf_torch.ops import distortion as ds
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    batch = tr.sampler.sample(gen)
+    o, d = (t.contiguous() for t in tr._assemble_rays(batch))
+    N = o.shape[0]
+    depth = tr.scene["label_depth"][batch["img_idxs"], batch["pix_idxs"]]
+    m, rc = tr.cfg.model, tr.cfg.render
+    mr = rm.march_rays_train_dense_sv(
+        o, d, train_intervals(m, rc, o, d, tr.step, depth_gt=depth),
+        tr.occ.sv_mask, tr.occ.sv_payload,
+        torch.rand(N, generator=gen, device=o.device),
+        **train_march_args(m, rc, N, "sv"))
+    K = mr.t.shape[1]
+    da = (mr.t, mr.dt, mr.t, mr.valid)
+    g = torch.randn(N, generator=gen, device=o.device)
+    chk = Check()
+    log(f"H4 at ts inputs (distortion_ts_bug_compat): N={N} K={K}, ts up "
+        f"to {float(mr.t.max()):.4f}")
+    # bit for bit the serial order, as on every input. Against the plain
+    # version (torch.cumsum) the forward is held to 1e-5 of the products
+    # it subtracts, 2 (A_s W_{s-1} + W_s A_{s-1}) summed over a ray's
+    # samples (W, A the running sums of w and w t): with weights up to
+    # sqrt(3) in place of weights summing to 1, the per-sample term
+    # 2 w_s (t_s W_{s-1} - A_{s-1}) cancels products of size ~W^2 t, whose
+    # f32 rounding is not 1e-5 of the largest loss
+    loss = ds.distortion_kernel(*da)
+    w = torch.where(mr.valid, mr.t, torch.zeros_like(mr.t))
+    W, A = torch.cumsum(w, 1), torch.cumsum(w * mr.t, 1)
+    cancelled = (2.0 * (A * (W - w) + W * (A - w * mr.t))).sum(1)
+    e_fwd = max(chk.within("loss", loss, ds.distortion_plain(*da),
+                           1e-5 * cancelled),
+                chk.equal("loss = serial order", loss,
+                          distortion_serial(*da)))
+    d_ws = ds.distortion_grad_kernel(g, *da)
+    e_bwd = max(chk.close("d_ws", d_ws, ds.distortion_grad_plain(g, *da),
+                          1e-4),
+                chk.equal("d_ws = serial order", d_ws,
+                          distortion_serial(*da, g)))
+    chk.done("H4 at ts inputs")
+    r = rec["distortion_fwd"]
+    r["err"] = max(r["err"], e_fwd)
+    rec["distortion_bwd"]["err"] = max(rec["distortion_bwd"]["err"], e_bwd)
+    where = f"ts as weights (N {N}, K {K})"
+    r.setdefault("variants", {})[where] = lambda: ds.distortion_kernel(*da)
+    r.setdefault("variant_bounds", {})[where] = bound(
+        nbytes(*da) + 4 * N, N * K * 12)
+
+
+def baselines_path(rec, launches, gen):
+    """The baselines path: `baseline_step_parity`, then each of
+    BASELINE_RUNS at the bench configuration (`baseline_config` on
+    `bench_config`): STEPS counted steps through `Trainer.fit` with their
+    loss checks (supervised: H4's backward never launches, the
+    distortion fed ts being gradient-free; theta_WF finite and moved from
+    0; H4 at ts inputs; `validate`, no gate. regnerf: reg_depth non-zero
+    after norm_can_start). Returns {name: trainer} and {name: fit's
+    ms/step}."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    baseline_step_parity()
+    trainers, fit_ms = {}, {}
+    for name, batch in BASELINE_RUNS:
+        tr = build_trainer(baseline_config(name, bench_config(batch=batch)),
+                           device="cuda")
+        tr.mark_invisible_cells()
+        lc = tr.cfg.loss
+        log(f"phase 3, {name}: {STEPS} training steps through Trainer.fit "
+            f"({sum(p.numel() for p in tr.params.values())} parameters, "
+            f"batch {batch}, labels on the card {list(tr.labels)}; "
+            f"loss {BASELINES[name]['loss']})")
+        need = (("march_bootstrap", "composite_fwd", "composite_bwd",
+                 "distortion_fwd", "march_sv_train")
+                + FIELD_KERNELS["triplane"])
+        exact = {"march_sv_train": SV_STEPS, "march_fine_train": 0}
+        if lc.distortion_ts_bug_compat:
+            exact["distortion_bwd"] = 0
+        else:
+            need += ("distortion_bwd",)
+        fit_ms[name], hist = path_training(
+            tr, name, launches, need, exact,
+            untrained=(("loss_distortion",) if lc.distortion_ts_bug_compat
+                       else ()))
+        # reg_depth and the Manhattan term must have come on; the
+        # snapping is logged (it is 0 while a cluster is empty, which
+        # discard_far_members makes likelier)
+        for k in ("loss_reg_depth", "loss_norm_WF", "loss_norm_D_C_can_dot"):
+            if k not in hist[0]:
+                continue
+            on = [i for i, h in enumerate(hist) if h[k] != 0.0]
+            log(f"  {k[5:]}: non-zero at {len(on)} of {len(hist)} steps "
+                f"(first {on[0] if on else None}), last "
+                f"{hist[-1][k]:.4e}")
+            if not on and k != "loss_norm_D_C_can_dot":
+                raise RuntimeError(f"{name} path: {k} stayed 0")
+        if "theta_WF" in tr.params:
+            theta = float(tr.params["theta_WF"].detach())
+            log(f"  theta_WF after {STEPS} steps: {theta:.6f}")
+            if not math.isfinite(theta) or theta == 0.0:
+                raise RuntimeError(f"{name} path: theta_WF {theta} is not "
+                                   "finite or has not moved from 0")
+        if lc.distortion_ts_bug_compat:
+            check_ts_distortion(tr, rec, gen)
+            for k, c in validate(tr, name, ("march_sv_test_round",
+                                            "triplane_fwd", "composite_fwd"),
+                                 ("march_fine_test_round",),
+                                 rotation=False).items():
+                launches[k] += c
+        trainers[name] = tr
+    return trainers, fit_ms
+
+
+def shift_switches(tr):
+    """Move the step switches of the trainer's config into its next graph
+    chunk, whose first step is returned: GRAPH_WARMUP eager steps and a
+    capture (the new config makes a new step table) come first; then
+    norm_can_start is 4 steps into the chunk (the clustering and snapping
+    ramp over 4 steps from there; reg_depth and the Manhattan term's
+    weighting from the step after it) and the interval annealing ends 8
+    steps in."""
+    from normal_clustering_nerf_torch.training.trainer import GRAPH_WARMUP
+    start = tr.step + GRAPH_WARMUP + 1
+    cfg = tr.cfg
+    tr.cfg = cfg.replace(
+        loss=dataclasses.replace(cfg.loss, norm_can_start=start + 4,
+                                 norm_can_grow=4.0),
+        render=dataclasses.replace(cfg.render, anneal_steps=start + 8))
+    tr.train_chunk(GRAPH_WARMUP + 1, False)
+    if tr.step != start:
+        raise RuntimeError(f"shift_switches: at step {tr.step}, not {start}")
+    log(f"graph phase: norm_can_start {start + 4}, anneal_steps "
+        f"{start + 8}, the chunk from step {start}")
 
 
 def render_config(cfg, **kw):
@@ -3174,6 +3516,9 @@ def main():
             launches[name] += c
         paths[layout] = tl
     paths["preset"], fit_ms["preset"] = preset_path(rec, launches, gen)
+    baselines, ms = baselines_path(rec, launches, gen)
+    paths.update(baselines)
+    fit_ms.update(ms)
     missing = [k.name for k in kernels.ALL_KERNELS if k.name not in rec]
     if missing:
         raise RuntimeError(f"kernels not checked: {missing}")
@@ -3212,7 +3557,8 @@ def main():
              "ms": r["ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
              "library_ms": r["library_ms"]}
-        o.update({key: r[key] for key in ("variants_ms", "fill_ms",
+        o.update({key: r[key] for key in ("variants_ms", "variants_bound_ms",
+                                          "fill_ms",
                                           "step_cotangent_ms",
                                           "p4_ms", "p4_library_ms",
                                           "p4_bound_ms", "p2_ms",

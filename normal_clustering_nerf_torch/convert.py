@@ -9,6 +9,8 @@ array converts 1:1. The brick and tcnn layouts keep the table as one
 leaf, `hash_table` ((L, n_bricks, 128) or (total_rows, F), the JAX
 layouts), which `_flatten` maps to the port's single `hash_table`
 parameter (tests/test_torch_slice_layouts.py carries such a state across).
+The Manhattan-SDF angle `theta_WF`, a top-level leaf beside "model",
+becomes the port's 0-dim parameter `theta_WF`.
 Inputs are numpy arrays (e.g. `np.asarray` of each leaf), so nothing of
 JAX is imported here.
 """
@@ -35,10 +37,16 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def convert_params(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
     """JAX params pytree (numpy leaves, with or without the top-level
-    "model" key) -> {port parameter name: f32 tensor}."""
-    tree = params_np["model"] if "model" in params_np else params_np
+    "model" key) -> {port parameter name: f32 tensor}. Beside "model", the
+    top-level leaves (`theta_WF`) keep their names."""
+    if "model" in params_np:
+        flat = _flatten(params_np["model"])
+        flat.update(_flatten({k: v for k, v in params_np.items()
+                              if k != "model"}))
+    else:
+        flat = _flatten(params_np)
     return {n: torch.as_tensor(a, dtype=torch.float32, device=device)
-            for n, a in _flatten(tree).items()}
+            for n, a in flat.items()}
 
 
 def convert_occupancy(occ_np, device) -> OccupancyState:
@@ -56,8 +64,10 @@ def convert_jax_state(params_np: Mapping, occ_np, optimizer,
                                        OccupancyState, Dict]:
     """(parameters, occupancy buffers, freshly built optimizer state) of
     the port from a JAX state. `optimizer` is the port's AdamW over the
-    target parameters; its state is rebuilt from zero moments (count 0),
-    as the JAX optimizer state is at step 0."""
+    target parameters (the model's and, with manhattan_nerf_w, theta_WF);
+    the names of the JAX state's leaves, top-level ones included, must be
+    exactly those. Its state is rebuilt from zero moments (count 0), as
+    the JAX optimizer state is at step 0."""
     params = convert_params(params_np, device)
     missing = set(optimizer.params) ^ set(params)
     if missing:

@@ -1,17 +1,19 @@
 """Multi-task NeRF loss with Manhattan normal-clustering self-supervision —
-port of the JAX package's `losses.py` for the components the bench
-configuration and the published presets switch on: rgb, opacity,
-distortion, the three normal-clustering terms (ort / centr_dot /
-centr_L1) and semantic CE, each behind the same finite guard, over
-triangle or patch batches, with or without random-pose rays. Other
-components raise NotImplementedError (ROADMAP A5).
+port of the JAX package's `losses.py`, every component: rgb, opacity,
+distortion (with `distortion_ts_bug_compat`), depth L2, the GT-normal L1
+and dot terms, RegNeRF's depth smoothness on the random-pose rays, the
+normal-clustering terms (ort / centr_dot / centr_L1, canonical-axis
+snapping, `discard_far_members`), the Manhattan-SDF wall/floor terms with
+the learned angle theta_WF, and semantic CE, each behind the same finite
+guard, over triangle or patch batches, with or without random-pose rays.
 
 The clustering init draw is separable: `kmeans_init` takes the K indices.
 
-The weights that change with the step (each clustering term's ramp,
-the clustering window) come from `loss_schedule(step)` on the host, or as
-0-dim tensors in `sched`: a row of the trainer's step table, which a
-CUDA graph of the step reads at every replay.
+The scalars that change with the step (each clustering term's ramp, the
+clustering window, whether the step is past `norm_can_start`) come from
+`loss_schedule(step)` on the host, or as 0-dim tensors in `sched`: a row
+of the trainer's step table, which a CUDA graph of the step reads at
+every replay.
 """
 from __future__ import annotations
 
@@ -46,20 +48,25 @@ def w_sched(w: float, step, start: float, grow: float) -> float:
     return min(max((step - start) * (w / max(grow, 1e-12)), 0.0), w)
 
 
-# the clustering terms, each with its weight's field of LossConfig
+# the clustering terms, each with its weight's field of LossConfig: the
+# three of the clusters, then the two of the canonical-axis snapping
 CLUSTERING_TERMS = ("norm_D_C_ort_dot", "norm_D_C_centr_dot",
-                    "norm_D_C_centr_L1")
+                    "norm_D_C_centr_L1", "norm_D_C_can_dot",
+                    "norm_D_C_can_L1")
 
 
 def loss_schedule(lcfg: LossConfig, step: int) -> Dict[str, float]:
     """The loss scalars of `step`: "w_<term>", each clustering term's
-    ramped weight (`w_sched`), and "in_window", 1.0 while the clustering
-    window is open (losses.py:314) and 0.0 after it."""
+    ramped weight (`w_sched`); "in_window", 1.0 while the clustering
+    window is open (losses.py:314) and 0.0 after it; "after_start", 1.0
+    once the step is past `norm_can_start` (the gate of `reg_depth` and
+    the switch of the Manhattan term, losses.py:303, :345)."""
     out = {f"w_{t}": w_sched(getattr(lcfg, f"{t}_w"), step,
                              lcfg.norm_can_start, lcfg.norm_can_grow)
            for t in CLUSTERING_TERMS}
     out["in_window"] = float(step <= lcfg.norm_can_end
                              or lcfg.norm_can_end == -1)
+    out["after_start"] = float(step > lcfg.norm_can_start)
     return out
 
 
@@ -117,15 +124,43 @@ def patch_triang_idx_on(seq_len: int, patch_area: int, offsets_local,
     return _patch_triang_idx_on(seq_len, patch_area, local, device)
 
 
-def _cross_entropy(logits, labels_shifted, n_cls):
-    """CrossEntropyLoss(ignore_index=-1) on shifted labels."""
+
+
+@functools.lru_cache(maxsize=8)
+def _const(values: tuple, device: torch.device) -> torch.Tensor:
+    """A constant f32 tensor on `device`, made once (a copy from the host
+    cannot be captured in a CUDA graph). Callers must not write to it."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+# the six signed canonical axes of the snapping (losses.py:165-168)
+_CANONICAL = ((1., 0., 0.), (-1., 0., 0.), (0., 1., 0.), (0., -1., 0.),
+              (0., 0., 1.), (0., 0., -1.))
+# the Manhattan-SDF wall/floor cross-entropy's class weights and label
+# smoothing (losses.py:325-328): wall, floor, the rest
+_WF_WEIGHT, _WF_SMOOTHING = (1.0, 1.0, 0.3), 0.1
+
+
+def _cross_entropy(logits, labels_shifted, n_cls, weight=None,
+                   label_smoothing=0.0):
+    """CrossEntropyLoss(ignore_index=-1[, weight, label_smoothing]) on
+    shifted labels, in the JAX package's formula (losses.py:74-91): with
+    a weight, the denominator is the sum of w[label] over valid rows."""
     valid = labels_shifted >= 0
     lab = torch.clamp(labels_shifted, 0, n_cls - 1)
     logp = torch.log_softmax(logits, dim=-1)
-    onehot = torch.nn.functional.one_hot(lab, n_cls).to(logp.dtype)
-    per = -torch.sum(onehot * logp, dim=-1)
+    q = torch.nn.functional.one_hot(lab, n_cls).to(logp.dtype)
+    if label_smoothing:
+        q = q * (1.0 - label_smoothing) + label_smoothing / n_cls
+    if weight is None:
+        per = -torch.sum(q * logp, dim=-1)
+        denom = valid.sum().to(per.dtype)
+    else:
+        per = -torch.sum(q * weight[None, :] * logp, dim=-1)
+        denom = torch.sum(torch.where(valid, weight[lab],
+                                      torch.zeros_like(per)))
     per = torch.where(valid, per, torch.zeros_like(per))
-    return torch.sum(per) / torch.clamp(valid.sum().to(per.dtype), min=1e-12)
+    return torch.sum(per) / torch.clamp(denom, min=1e-12)
 
 
 def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
@@ -134,13 +169,11 @@ def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
                       sched: Optional[Mapping] = None):
     """The paper's contribution (reference: losses.py:419-509): cluster
     the depth normals, then pull the three selected clusters to be
-    orthogonal and tight. The weights are `sched`'s "w_<term>" (0-dim
-    tensors), else `loss_schedule(step)`'s."""
-    if (lcfg.norm_D_C_can_dot_w > 0 or lcfg.norm_D_C_can_L1_w > 0
-            or lcfg.discard_far_members):
-        raise NotImplementedError(
-            "canonical-axis snapping and member discard are not ported "
-            "(ROADMAP A5)")
+    orthogonal and tight and, with the snapping weights, onto the
+    canonical axes they lie near. With `discard_far_members`, members
+    farther than `norm_can_tres` from their cluster's centroid leave it.
+    The weights are `sched`'s "w_<term>" (0-dim tensors), else
+    `loss_schedule(step)`'s."""
     tres = lcfg.norm_can_tres
     finite = torch.all(torch.isfinite(norm_D_C), dim=-1)
     nonzero = torch.sum(torch.abs(norm_D_C), dim=-1) != 0.0
@@ -154,6 +187,11 @@ def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
     normals = torch.where((assign < 0)[:, None], -normals, normals)
     assign = assign.abs()
     member = [assign == g + 1 for g in range(3)]
+    if lcfg.discard_far_members:
+        for g in range(3):
+            near = (1.0 - torch.sum(normals * clus.centroids3[g][None, :],
+                                    dim=-1)) <= tres
+            member[g] = member[g] & near
     counts = [m.sum() for m in member]
     cs = []
     for g in range(3):
@@ -174,12 +212,63 @@ def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
     zero = torch.zeros((), dtype=normals.dtype, device=normals.device)
     if sched is None:
         sched = _step_scalars(lcfg, step, normals.device)
-    out = {}
-    for name, val in zip(CLUSTERING_TERMS,
-                         (loss_ort, loss_centr_dot, loss_centr_l1)):
-        out[name] = _finite_or_zero(torch.where(ok, sched[f"w_{name}"] * val,
-                                                zero))
-    return out
+    terms = {"norm_D_C_ort_dot": (loss_ort, ok),
+             "norm_D_C_centr_dot": (loss_centr_dot, ok),
+             "norm_D_C_centr_L1": (loss_centr_l1, ok)}
+    if lcfg.norm_D_C_can_dot_w > 0 or lcfg.norm_D_C_can_L1_w > 0:
+        # canonical-axis snapping (losses.py:162-185)
+        can = _const(_CANONICAL, normals.device)
+        c_mat = torch.stack([c1, c2, c3])
+        dots = c_mat @ can.T
+        cond = (1.0 - dots) < tres * 3.0
+        snap = ok & torch.any(cond)
+        l1 = torch.sum(torch.abs(c_mat[:, None, :] - can[None, :, :]), dim=-1)
+        terms["norm_D_C_can_dot"] = (1.0 - _masked_mean(dots, cond), snap)
+        terms["norm_D_C_can_L1"] = (_masked_mean(l1, cond), snap)
+    return {name: _finite_or_zero(torch.where(on, sched[f"w_{name}"] * val,
+                                              zero))
+            for name, (val, on) in terms.items()}
+
+
+def _triangles(strategy: str, n: int, patch_area, offsets_local, dev):
+    """x1/x2/x3 indices of `n` rays of a triangle or patch batch, or None
+    for the pixel strategies."""
+    if strategy in TRIANG_STRATEGIES:
+        return triang_idx_on(n, dev)
+    if strategy in PATCH_STRATEGIES:
+        return patch_triang_idx_on(n, patch_area, offsets_local, dev)
+    return None
+
+
+def _wf_losses(lcfg: LossConfig, sem_pred, sem_tgt, nD, theta, after_start):
+    """The Manhattan-SDF baseline (losses.py:319-352) on the supervised
+    triangles: the weighted, smoothed wall/floor cross-entropy, and the
+    floor (Eq. 8) and wall (Eq. 9) terms of the depth normals `nD`,
+    weighted by the predicted class (Eq. 13) once `after_start`, else
+    unweighted with the walls' vertical part only."""
+    if sem_pred.shape[-1] != 3:
+        raise ValueError("manhattan_nerf_w needs 3 semantic channels (wall, "
+                         f"floor, the rest), got {sem_pred.shape[-1]}: the "
+                         "JAX loss fails there too")
+    soft = torch.softmax(sem_pred, dim=-1)
+    wf_ce = _cross_entropy(sem_pred, sem_tgt - 1, 3,
+                           weight=_const(_WF_WEIGHT, sem_pred.device),
+                           label_smoothing=_WF_SMOOTHING)
+    wall, floor = sem_tgt == 1, sem_tgt == 2
+    any_wall, any_floor = wall.sum() > 0, floor.sum() > 0
+    floor_term = 1.0 - nD[:, 2]
+    cos = nD[:, 0] * torch.cos(theta) + nD[:, 1] * torch.sin(theta)
+    wall_term = torch.abs(nD[:, 2]) + torch.minimum(
+        torch.abs(cos), torch.minimum(torch.abs(1 - cos),
+                                      torch.abs(1 + cos)))
+    joint = (_masked_mean(soft[:, 1] * floor_term, floor) * any_floor
+             + _masked_mean(soft[:, 0] * wall_term, wall) * any_wall)
+    geo = (_masked_mean(floor_term, floor) * any_floor
+           + _masked_mean(torch.abs(nD[:, 2]), wall) * any_wall)
+    wf = torch.where(after_start > 0, joint, geo)
+    norm_wf = torch.where(any_floor | any_wall, lcfg.manhattan_nerf_w * wf,
+                          torch.zeros_like(wf))
+    return (_finite_or_zero(lcfg.sem_w * wf_ce), _finite_or_zero(norm_wf))
 
 
 def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
@@ -190,47 +279,62 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
                    offsets_local: Optional[Dict] = None,
                    kmeans_init: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   sched: Optional[Mapping] = None
+                   sched: Optional[Mapping] = None,
+                   theta_WF: Optional[torch.Tensor] = None
                    ) -> Dict[str, torch.Tensor]:
-    """All loss components + 'total' (reference: losses.py:244-587). The
-    step's weights and clustering window are `sched`'s (0-dim tensors, a
-    row of the trainer's step table), else `loss_schedule(step)`'s.
+    """All loss components + 'total' (reference: losses.py:244-587), in
+    the JAX dict's order. The step's weights, clustering window and
+    `norm_can_start` switch are `sched`'s (0-dim tensors, a row of the
+    trainer's step table), else `loss_schedule(step)`'s. `theta_WF` is the
+    Manhattan-SDF term's learned angle (0 when None).
 
+    `target` holds "rgb" and the labels the configured terms read:
+    "depth" (depth_w), "normals" or, under `norm_GT_depth`,
+    "normals_depth" (the GT-normal terms), "semantics_WF"
+    (manhattan_nerf_w), "semantics" (sem_w without manhattan_nerf_w).
     With `random_tr_poses` the rays past the target's rows come from
-    random poses (losses.py:209-213): rgb takes the first rows, the depth
-    normals of the clustering the rest. The patch strategies take every
-    triangle of each patch (`patch_area`, `offsets_local`)."""
-    unported = {"depth_w": lcfg.depth_w, "norm_depth_dot_w":
-                lcfg.norm_depth_dot_w, "norm_depth_L1_w": lcfg.norm_depth_L1_w,
-                "reg_depth_w": lcfg.reg_depth_w,
-                "manhattan_nerf_w": lcfg.manhattan_nerf_w}
-    on = [k for k, v in unported.items() if v > 0]
-    if on or lcfg.distortion_ts_bug_compat:
-        raise NotImplementedError(
-            f"loss components {on or ['distortion_ts_bug_compat']} are not "
-            "ported (ROADMAP A5)")
+    random poses (losses.py:209-213): the supervised terms take the first
+    rows, the clustering and `reg_depth` the rest. The patch strategies
+    take every triangle of each patch (`patch_area`, `offsets_local`)."""
     loss_d: Dict[str, torch.Tensor] = {}
     n = target["rgb"].shape[0]
     unsup = n if random_tr_poses else 0
     n_unsup = pred["rgb"].shape[0] - unsup
     dev = pred["depth"].device
-    x123 = None
-    if ray_sampling_strategy in TRIANG_STRATEGIES:
-        x123 = triang_idx_on(n_unsup, dev)
-    elif ray_sampling_strategy in PATCH_STRATEGIES:
-        x123 = patch_triang_idx_on(n_unsup, patch_area, offsets_local, dev)
-    norm_depth = None
-    if mcfg.pred_norm_depth:
-        if x123 is None:
-            raise ValueError("pred_norm_depth requires a *_triang or "
-                             "*_triang_patch ray_sampling_strategy, got "
-                             f"{ray_sampling_strategy!r}")
-        # the normals of the unsupervised rays, which the clustering
-        # takes; the JAX version also extracts the supervised rays',
-        # which only the refused GT-normal and Manhattan terms read
+    if sched is None:
+        sched = _step_scalars(lcfg, step, dev)
+    x123_gt = _triangles(ray_sampling_strategy, n, patch_area,
+                         offsets_local, dev)
+    x123 = _triangles(ray_sampling_strategy, n_unsup, patch_area,
+                      offsets_local, dev)
+    clustering_on = any(getattr(lcfg, f"{t}_w") > 0 for t in CLUSTERING_TERMS)
+    gt_normals_on = lcfg.norm_depth_L1_w > 0 or lcfg.norm_depth_dot_w > 0
+    wf_on = lcfg.manhattan_nerf_w > 0
+    if mcfg.pred_norm_depth and x123 is None:
+        raise ValueError("pred_norm_depth requires a *_triang or "
+                         "*_triang_patch ray_sampling_strategy, got "
+                         f"{ray_sampling_strategy!r}")
+    if (clustering_on or gt_normals_on or wf_on) and not mcfg.pred_norm_depth:
+        raise ValueError("the clustering, GT-normal and Manhattan terms take "
+                         "the depth normals: set pred_norm_depth")
+    if lcfg.reg_depth_w > 0 and x123 is None:
+        raise ValueError("reg_depth_w requires a *_triang or *_triang_patch "
+                         f"ray_sampling_strategy, got "
+                         f"{ray_sampling_strategy!r}")
+    # the depth normals of the unsupervised rays (the clustering's) and of
+    # the supervised rays (the GT-normal and Manhattan terms'): the same
+    # rays and triangles unless random_tr_poses
+    norm_depth = norm_depth_gt = None
+    if clustering_on:
         norm_depth = extract_normals_from_ray_batch(
             pred["rays_o"][unsup:], pred["rays_d"][unsup:],
             pred["depth"][unsup:], x123)
+    if (gt_normals_on or wf_on) and (unsup or norm_depth is None):
+        norm_depth_gt = extract_normals_from_ray_batch(
+            pred["rays_o"][:n], pred["rays_d"][:n], pred["depth"][:n],
+            x123_gt)
+    elif gt_normals_on or wf_on:
+        norm_depth_gt = norm_depth
 
     loss_d["rgb"] = _finite_or_zero(
         torch.mean((pred["rgb"][:n] - target["rgb"]) ** 2))
@@ -239,33 +343,63 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
         loss_d["opacity"] = _finite_or_zero(
             lcfg.opacity_w * torch.mean(-o * torch.log(o)))
     if lcfg.distortion_w > 0:
-        if pred["ws"].ndim == 2:
+        # distortion_ts_bug_compat feeds ts as the weights (losses.py:290
+        # of the reference): the term then carries no gradient
+        ws = pred["ts"] if lcfg.distortion_ts_bug_compat else pred["ws"]
+        if ws.ndim == 2:
             # the dense (N, K) layout
-            dl = distortion_loss_dense(pred["ws"], pred["deltas"],
-                                       pred["ts"], pred["sample_valid"])
+            dl = distortion_loss_dense(ws, pred["deltas"], pred["ts"],
+                                       pred["sample_valid"])
         else:
             # the flat layout's ray-major segments (losses.py:266-270)
-            dl = distortion_loss(pred["ws"], pred["deltas"], pred["ts"],
+            dl = distortion_loss(ws, pred["deltas"], pred["ts"],
                                  pred["ray_id"], pred["ray_start"],
                                  pred["sample_valid"], pred["rgb"].shape[0],
                                  ray_count=pred["ray_count"])
         loss_d["distortion"] = _finite_or_zero(
             lcfg.distortion_w * torch.mean(dl))
-    clustering_on = (lcfg.norm_D_C_ort_dot_w > 0
-                     or lcfg.norm_D_C_centr_dot_w > 0
-                     or lcfg.norm_D_C_centr_L1_w > 0
-                     or lcfg.norm_D_C_can_dot_w > 0
-                     or lcfg.norm_D_C_can_L1_w > 0)
+    if lcfg.depth_w > 0:
+        d_t = target["depth"]
+        loss_d["depth"] = _finite_or_zero(lcfg.depth_w * _masked_mean(
+            (pred["depth"][:n] - d_t) ** 2, d_t > 0))
+    if gt_normals_on:
+        gt = target["normals_depth" if lcfg.norm_GT_depth else "normals"]
+        nom_tar = gt[x123_gt["x1"]]
+        m = torch.sum(torch.abs(nom_tar), dim=-1) > 0
+        if lcfg.norm_depth_L1_w > 0:
+            loss_d["norm_D_L1"] = _finite_or_zero(
+                lcfg.norm_depth_L1_w * _masked_mean(torch.sum(
+                    torch.abs(norm_depth_gt - nom_tar), dim=-1), m))
+        if lcfg.norm_depth_dot_w > 0:
+            dot = torch.sum(normalize(norm_depth_gt) * normalize(nom_tar),
+                            dim=-1)
+            loss_d["norm_D_dot"] = _finite_or_zero(
+                lcfg.norm_depth_dot_w * _masked_mean(1.0 - dot, m))
+    if lcfg.reg_depth_w > 0:
+        # RegNeRF's depth smoothness on the unsupervised rays
+        # (losses.py:299-304), from the step after norm_can_start
+        d_u = pred["depth"][unsup:]
+        d1 = d_u[x123["x1"]]
+        reg = (d1 - d_u[x123["x2"]]) ** 2 + (d1 - d_u[x123["x3"]]) ** 2
+        gated = torch.where(sched["after_start"] > 0, torch.mean(reg),
+                            torch.zeros((), device=dev))
+        loss_d["reg_depth"] = _finite_or_zero(lcfg.reg_depth_w * gated)
     if clustering_on:
-        if sched is None:
-            sched = _step_scalars(lcfg, step, norm_depth.device)
         cl = clustering_losses(norm_depth, lcfg, step,
                                kmeans_init=kmeans_init, generator=generator,
                                sched=sched)
         in_window = sched["in_window"] > 0
         for k, v in cl.items():
             loss_d[k] = torch.where(in_window, v, torch.zeros_like(v))
-    if lcfg.sem_w > 0:
+    if wf_on:
+        x1 = x123_gt["x1"]
+        theta = (theta_WF if theta_WF is not None
+                 else torch.zeros((), device=dev))
+        loss_d["sem_WF"], loss_d["norm_WF"] = _wf_losses(
+            lcfg, pred["sem"][:n][x1],
+            target["semantics_WF"][x1].to(torch.int64), norm_depth_gt, theta,
+            sched["after_start"])
+    if lcfg.sem_w > 0 and not wf_on:
         loss_d["sem"] = _finite_or_zero(lcfg.sem_w * _cross_entropy(
             pred["sem"][:n], target["semantics"].to(torch.int64) - 1,
             mcfg.n_sem_cls))

@@ -6,15 +6,21 @@
     brick-hash grid (models/brick_hash.py, kernels H5/H6); any other
     value, the tcnn hash grid (models/hash_encoding.py, kernels H7/H8)
   * sigma_net: enc -> 64 -> 16, ReLU, sigma = trunc_exp(h[:, 0])
-  * rgb_net: [d, h] (3+16) -> 64 -> 64 -> 3, trunc_sigmoid
+  * rgb_net: [d, h] (3+16) -> 64 -> 64 -> 3, trunc_sigmoid; with
+    `use_exposure` (HDR, ngp_mt.py:131-133) no output activation: the
+    three outputs are log-radiance, which the tonemapper_net_{0,1,2}
+    (1 -> 64 -> 1, trunc_sigmoid, one a channel) map to rgb, or which
+    `output_radiance` returns as radiance (trunc_exp)
   * sem_net / norm_net: 16 -> 64 -> 64 -> n_cls / 3
-All MLPs are bias-free (tcnn FullyFusedMLP style) and run as
-`torch.matmul` in the compute dtype: plain products, as the JAX package
-leaves them to XLA (ROADMAP K6 fuses them once a profile asks for it).
+The view direction enters rgb_net raw, as in the JAX forward (which
+bypasses its SH encoder, `models/sh_encoding.py`). All MLPs are
+bias-free (tcnn FullyFusedMLP style) and run as `torch.matmul` in the
+compute dtype: plain products, as the JAX package leaves them to XLA
+(ROADMAP K6 fuses them once a profile asks for it).
 
 Parameter names follow the JAX pytree: `hash_table.planes` and
 `hash_table.grid3d` (triplane) or one `hash_table` (brick, tcnn),
-`sigma_net.w0`, ..., so parameters convert 1:1.
+`sigma_net.w0`, ..., `tonemapper_net_0.w0`, so parameters convert 1:1.
 """
 from __future__ import annotations
 
@@ -58,9 +64,6 @@ class NGPMT(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.use_exposure:
-            raise NotImplementedError(
-                "the exposure tonemapper is not ported (ROADMAP A14)")
         self.cfg = cfg
         self.scale = cfg.scale
         grid = dict(n_levels=cfg.n_levels,
@@ -101,6 +104,10 @@ class NGPMT(nn.Module):
         if cfg.pred_norm_nn:
             self.norm_net = _init_mlp(
                 [geo] + [W] * cfg.head_hidden_layers + [3], generator, device)
+        if cfg.use_exposure:
+            for i in range(3):
+                setattr(self, f"tonemapper_net_{i}",
+                        _init_mlp([1, W, 1], generator, device))
 
     def density(self, x, return_feat: bool = False):
         """sigma at world positions x in [-scale, scale]^3."""
@@ -115,16 +122,36 @@ class NGPMT(nn.Module):
             return sigmas, h
         return sigmas
 
-    def forward(self, x, d) -> Dict[str, torch.Tensor]:
+    def log_radiance_to_rgb(self, log_radiances, exposure=None):
+        """HDR-NeRF tonemapping (ngp_mt.py:156-169): each channel's
+        log-radiance, plus log(exposure) when given, through its own
+        tonemapper MLP in the compute dtype."""
+        log_exposure = torch.log(exposure) if exposure is not None else 0.0
+        return torch.cat([
+            apply_mlp(getattr(self, f"tonemapper_net_{i}"),
+                      log_radiances[:, i:i + 1] + log_exposure,
+                      out_act="sigmoid", compute_dtype=self.compute_dtype)
+            for i in range(3)], dim=1)
+
+    def forward(self, x, d, exposure=None,
+                output_radiance: bool = False) -> Dict[str, torch.Tensor]:
         """Full field: (M, 3) positions and view directions -> sigmas (M,),
-        rgbs (M, 3) [+ sems, norms], all f32."""
+        rgbs (M, 3) [+ sems, norms], all f32. With `use_exposure`, rgbs
+        is the tonemapped log-radiance (at `exposure`, (M, 1), when given),
+        or with `output_radiance` the radiance itself."""
         sigmas, h = self.density(x, return_feat=True)
         d = d / torch.linalg.norm(d, dim=1, keepdim=True)
         if not self.cfg.rgb_use_dir:
             d = d * 0.0
         rgb_in = torch.cat([d.to(h.dtype), h], dim=1)
-        rgbs = apply_mlp(self.rgb_net, rgb_in, out_act="sigmoid",
+        hdr = self.cfg.use_exposure
+        rgbs = apply_mlp(self.rgb_net, rgb_in,
+                         out_act=None if hdr else "sigmoid",
                          compute_dtype=self.compute_dtype)
+        if hdr and output_radiance:
+            rgbs = trunc_exp(rgbs.to(torch.float32))
+        elif hdr:
+            rgbs = self.log_radiance_to_rgb(rgbs, exposure)
         out = {"sigmas": sigmas, "rgbs": rgbs.to(torch.float32)}
         if self.cfg.pred_sem:
             out["sems"] = apply_mlp(self.sem_net, h,

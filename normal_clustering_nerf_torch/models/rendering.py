@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..datasets.normals import normalize
 from ..ops.composite import composite_rays, composite_rays_compact
 from ..ops.ray_aabb import ray_aabb_intersect
 from ..ops.ray_march import (
@@ -38,52 +39,77 @@ from ..ops.ray_march import (
 )
 
 
-def anneal_schedule(global_step: int, anneal_steps: int):
-    """(n_i, on) of the 'avoid_near' interval annealing at `global_step`
-    (rendering.py:168-188): n_i = clip(step / anneal_steps, 0.5, 1) with
-    the step fraction in f32, as the JAX version computes it, and whether
-    the annealing applies (step < anneal_steps)."""
-    if anneal_steps <= 0 or global_step >= anneal_steps:
+# the lower clip of each strategy's n_i (rendering.py:44-55): RegNeRF's
+# ps = 0.5 for "avoid_near", 0.05 for "depth"
+_ANNEAL_CLIP = {"avoid_near": (0.5, 1.0), "depth": (0.05, 100.0)}
+
+
+def anneal_schedule(global_step: int, anneal_steps: int, strategy: str):
+    """(n_i, on) of the interval annealing `strategy` at `global_step`
+    (rendering.py:36-59): n_i = clip(step / anneal_steps, 0.5, 1) for
+    'avoid_near' and clip(step / anneal_steps, 0.05, 100) for 'depth',
+    with the step fraction in f32, as the JAX version computes it, and
+    whether the annealing applies (step < anneal_steps)."""
+    if anneal_steps <= 0 or global_step >= anneal_steps or strategy == "none":
         return 1.0, False
+    if strategy not in _ANNEAL_CLIP:
+        raise ValueError(f"anneal_strategy {strategy!r}")
+    lo, hi = _ANNEAL_CLIP[strategy]
     frac = float(np.float32(global_step) / np.float32(anneal_steps))
-    return min(max(frac, 0.5), 1.0), True
+    return min(max(frac, lo), hi), True
 
 
 def anneal_hits(hits_t, global_step: int, strategy: str, anneal_steps: int,
-                sched: Optional[Mapping] = None):
-    """Training ray-interval annealing (reference: rendering.py:168-188);
-    the 'avoid_near' strategy (RegNeRF, ps = 0.5). `sched` may hold the
-    step's "anneal_n_i" and "anneal_on" as 0-dim tensors (a row of the
-    trainer's step table); the intervals are then selected on the device:
-    with n_i = 1 the formula is not bit for bit t1, so it is not relied
-    on."""
+                sched: Optional[Mapping] = None,
+                depth_gt: Optional[torch.Tensor] = None):
+    """Training ray-interval annealing (reference: rendering.py:168-188):
+    'avoid_near' (RegNeRF, ps = 0.5) moves each ray's near end towards the
+    middle of its interval; 'depth' (ps = 0.05) shrinks the interval
+    towards the ray's GT depth `depth_gt` (N,), within the interval.
+    `sched` may hold the step's "anneal_n_i" and "anneal_on" as 0-dim
+    tensors (a row of the trainer's step table); the intervals are then
+    selected on the device: with n_i = 1 the formula is not bit for bit
+    the interval, so it is not relied on."""
     if anneal_steps <= 0 or strategy == "none":
         return hits_t
+    if strategy not in _ANNEAL_CLIP:
+        raise ValueError(f"anneal_strategy {strategy!r}")
+    if strategy == "depth" and (depth_gt is None
+                                or depth_gt.shape != hits_t.shape[:1]):
+        # the JAX version broadcasts depth_gt against every ray and fails
+        # the same way, e.g. under random_tr_poses, whose random-pose rays
+        # have no GT depth
+        raise ValueError(
+            "the 'depth' annealing takes one GT depth a ray: "
+            f"{hits_t.shape[0]} rays, depth_gt "
+            f"{None if depth_gt is None else tuple(depth_gt.shape)}")
     if sched is None:
-        n_i, on = anneal_schedule(global_step, anneal_steps)
+        n_i, on = anneal_schedule(global_step, anneal_steps, strategy)
         if not on:
             return hits_t
         n_i, on = torch.full((), n_i, device=hits_t.device), None
     else:
         n_i, on = sched["anneal_n_i"], sched["anneal_on"] > 0
-    if strategy != "avoid_near":
-        raise NotImplementedError(
-            f"anneal_strategy {strategy!r} is not ported (ROADMAP A7)")
     t1, t2 = hits_t[:, 0], hits_t[:, 1]
-    mid = (t1 + t2) / 2.0
-    out = torch.stack([mid + n_i * (t1 - mid), t2], dim=-1)
+    if strategy == "avoid_near":
+        mid = (t1 + t2) / 2.0
+        out = torch.stack([mid + n_i * (t1 - mid), t2], dim=-1)
+    else:
+        out = torch.stack(
+            [torch.maximum(depth_gt + n_i * (t1 - depth_gt), t1),
+             torch.minimum(depth_gt + n_i * (t2 - depth_gt), t2)], dim=-1)
     return out if on is None else torch.where(on, out, hits_t)
 
 
 def split_rend(cfg, rend) -> Dict[str, torch.Tensor]:
-    """rend channels -> rgb / norm_nn / sem (reference: rendering.py:214-224)."""
+    """rend channels -> rgb / norm_nn / sem (reference: rendering.py:214-224);
+    with `pred_norm_nn_norm` the composited normals are made unit length
+    (zero-safe, with a NaN-free gradient at zero vectors)."""
     out = {"rgb": rend[..., :3]}
     i = 3
     if cfg.pred_norm_nn:
-        if cfg.pred_norm_nn_norm:
-            raise NotImplementedError(
-                "pred_norm_nn_norm is not ported (ROADMAP A7)")
-        out["norm_nn"] = rend[..., i:i + 3]
+        norm = rend[..., i:i + 3]
+        out["norm_nn"] = normalize(norm) if cfg.pred_norm_nn_norm else norm
         i += 3
     if cfg.pred_sem:
         out["sem"] = rend[..., i:i + cfg.n_sem_cls]
@@ -123,12 +149,14 @@ def near_intervals(cfg, rays_o, rays_d):
 
 
 def train_intervals(cfg, rcfg: RenderConfig, rays_o, rays_d,
-                    global_step: int = 0, sched: Optional[Mapping] = None):
+                    global_step: int = 0, sched: Optional[Mapping] = None,
+                    depth_gt: Optional[torch.Tensor] = None):
     """(N, 2) march interval of each training ray: the near-clamped box
-    hit and the interval annealing (at `global_step`, or `sched`'s)."""
+    hit and the interval annealing (at `global_step`, or `sched`'s; the
+    'depth' strategy towards `depth_gt`)."""
     hits_t = near_intervals(cfg, rays_o, rays_d)
     return anneal_hits(hits_t, global_step, rcfg.anneal_strategy,
-                       rcfg.anneal_steps, sched).contiguous()
+                       rcfg.anneal_steps, sched, depth_gt).contiguous()
 
 
 def uses_sv(cfg, rcfg: RenderConfig, occ) -> bool:
@@ -190,7 +218,8 @@ def render_train(model, occ, rays_o, rays_d, rcfg: RenderConfig, *,
                  noise: Optional[torch.Tensor] = None,
                  bg: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None,
-                 sched: Optional[Mapping] = None) -> Dict:
+                 sched: Optional[Mapping] = None,
+                 depth_gt: Optional[torch.Tensor] = None) -> Dict:
     """Render N rays; returns the keys of the JAX `render_train`'s branch
     of `rcfg.march_layout`. `occ` is the `OccupancyState`: the bootstrap
     and the fine march read its bitfield (the two-level march also its
@@ -198,11 +227,14 @@ def render_train(model, occ, rays_o, rays_d, rcfg: RenderConfig, *,
     whose `sv_mask` is None has no sv march, as a JAX call without it).
     The flat layout marches the bitfield from step 0 (no bootstrap), as
     the JAX flat branch does, into a budget of `sample_budget` slots.
-    `sched` may hold the step's annealing scalars (see `anneal_hits`)."""
+    `sched` may hold the step's annealing scalars, and `depth_gt` the
+    rays' GT depth, which the 'depth' annealing takes (see
+    `anneal_hits`)."""
     cfg = model.cfg
     N = rays_o.shape[0]
     dev = rays_o.device
-    hits_t = train_intervals(cfg, rcfg, rays_o, rays_d, global_step, sched)
+    hits_t = train_intervals(cfg, rcfg, rays_o, rays_d, global_step, sched,
+                             depth_gt)
     if noise is None:
         noise = torch.rand(N, generator=generator, device=dev)
     noise = noise * rcfg.march_noise

@@ -2,23 +2,27 @@
 
 The JAX package optimises with
 `optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, eps=1e-15,
-weight_decay=1e-6, mask=not hash_table))` (training/state.py:43-79).
-This class repeats optax's arithmetic in the same order, so a step from
-the same gradients gives the same parameters to f32 rounding:
+weight_decay=1e-6, mask=not hash_table))` (training/state.py:43-79), and
+the Manhattan-SDF angle `theta_WF`, a parameter beside the model's, with
+`adam(schedule, eps=1e-15)`: the same update without weight decay, its
+gradient clipped with the others. This class repeats optax's arithmetic
+in the same order, so a step from the same gradients gives the same
+parameters to f32 rounding:
 
   * clipping: g <- g / ||g|| * max_norm only when ||g|| >= max_norm, with
     no epsilon (torch.nn.utils.clip_grad_norm_ scales by
     max_norm / (norm + 1e-6) and always, which is another update);
   * Adam moments mu = 0.1 g + 0.9 mu, nu = 0.001 g^2 + 0.999 nu, bias
     corrected by 1 - b^count, update mu_hat / (sqrt(nu_hat) + eps);
-  * decoupled weight decay added to the update (not to the hash table),
-    then the update scaled by -lr(count);
+  * decoupled weight decay added to the update (not to the hash table
+    or theta_WF), then the update scaled by -lr(count);
   * lr(count): cosine annealing stepped per epoch,
     lr * 0.5 * (1 + cos(pi * epoch / num_epochs)).
 
 The scalars that change with the step (the lr, the bias corrections, the
 clustering loss weights, the interval annealing's fraction and whether
-it applies, the clustering window) are a table on the device,
+it applies, the clustering window, whether the step is past
+`norm_can_start`) are a table on the device,
 `schedule_table`, one row per step, computed once with the host
 functions below; a step indexes it with its device counters, so that a
 CUDA graph of the step reads the right row at every replay. The
@@ -38,11 +42,12 @@ from ..models.rendering import anneal_schedule
 
 # the columns of `schedule_table`: row i holds the optimizer's scalars at
 # its count i (lr(i), the bias corrections 1 - b^(i+1)) and the trainer's
-# at its step i (each clustering term's weight, the annealing fraction and
-# whether it applies, whether the clustering window is open)
+# at its step i (each clustering term's weight, the configured annealing
+# strategy's fraction n_i and whether it applies, whether the clustering
+# window is open, whether the step is past norm_can_start)
 SCHEDULE_COLUMNS = ("lr", "bc1", "bc2") + tuple(
     f"w_{t}" for t in CLUSTERING_TERMS) + ("anneal_n_i", "anneal_on",
-                                          "in_window")
+                                          "in_window", "after_start")
 OPT_COLUMNS = 3   # the optimizer's, indexed by its count
 
 
@@ -57,8 +62,10 @@ def cosine_epoch_lr(base_lr: float, num_epochs: int, steps_per_epoch: int,
 
 
 def decays(name: str) -> bool:
-    """Weight decay on the networks, none on the hash table."""
-    return not name.split(".")[0] == "hash_table"
+    """Weight decay on the networks; none on the hash table
+    (train_nerf.py:284-285) or on theta_WF, which JAX's `build_optimizer`
+    gives plain Adam."""
+    return name.split(".")[0] not in ("hash_table", "theta_WF")
 
 
 class AdamW:
@@ -143,9 +150,10 @@ def schedule_row(opt: AdamW, cfg: TrainConfig, i: int) -> Tuple[float, ...]:
     `schedule(i)`, `losses.loss_schedule` and
     `models.rendering.anneal_schedule` at step i."""
     loss = loss_schedule(cfg.loss, i)
-    n_i, on = anneal_schedule(i, cfg.render.anneal_steps)
+    n_i, on = anneal_schedule(i, cfg.render.anneal_steps,
+                              cfg.render.anneal_strategy)
     return (*opt.schedule(i), *(loss[f"w_{t}"] for t in CLUSTERING_TERMS),
-            n_i, float(on), loss["in_window"])
+            n_i, float(on), loss["in_window"], loss["after_start"])
 
 
 def schedule_table(opt: AdamW, cfg: TrainConfig, n_rows: int,

@@ -6,8 +6,9 @@ from random unseen poses under `random_tr_poses`) -> assemble rays ->
 render (the bootstrap march before `render.bootstrap_steps`, after it
 the supervoxel-run march or the bitfield march, or the flat layout's
 march from step 0, as `render.march_layout` and `render.march_coarse`
-choose; the field, compositing) -> multi-task loss -> gradients ->
-optax-equivalent clipped AdamW. `fit` refreshes the occupancy grid every
+choose; the field, compositing) -> multi-task loss (the Manhattan-SDF
+term with its learned angle `theta_WF`, a parameter beside the model's)
+-> gradients -> optax-equivalent clipped AdamW. `fit` refreshes the occupancy grid every
 `update_interval` steps (every cell before `warmup_steps`) and runs the
 steps between two refreshes as one chunk (`train_chunk`, the JAX
 trainer's `_make_chunk_fn`). `validate` renders the held-out views
@@ -55,13 +56,27 @@ from ..utils.rotations import euler_angles_to_matrix
 from .rotation_recovery import rotation_recovery_errors
 from .state import OPT_COLUMNS, SCHEDULE_COLUMNS, AdamW, schedule_table
 
-_LABELS = ("semantics",)
 _log = logging.getLogger(__name__)
 # eager steps of a step kind, on a side stream, before its CUDA graph is
 # captured (as PyTorch's whole-network capture warms up: lazy
 # initialisation, the kernels' libraries, cuBLAS's handles)
 GRAPH_WARMUP = 3
 RANDOM_POSES = 10000   # random unseen poses of random_tr_poses (trainer.py:82)
+
+
+def loss_labels(cfg: TrainConfig) -> tuple:
+    """The scene labels the configured loss terms and the 'depth'
+    annealing read (trainer.py:322-326 gathers every label the scene
+    has; only these are moved to the card and gathered a step)."""
+    lc, rc = cfg.loss, cfg.render
+    gt_normals = lc.norm_depth_L1_w > 0 or lc.norm_depth_dot_w > 0
+    on = {"depth": lc.depth_w > 0 or (rc.anneal_strategy == "depth"
+                                      and rc.anneal_steps > 0),
+          "normals": gt_normals and not lc.norm_GT_depth,
+          "normals_depth": gt_normals and lc.norm_GT_depth,
+          "semantics": lc.sem_w > 0 and lc.manhattan_nerf_w == 0,
+          "semantics_WF": lc.manhattan_nerf_w > 0}
+    return tuple(k for k, v in on.items() if v)
 
 
 class Trainer:
@@ -113,11 +128,20 @@ class Trainer:
             "rays": torch.as_tensor(scene_train.rays, dtype=torch.float32,
                                     device=dev),
         }
-        for k in _LABELS:
-            if k in scene_train.labels:
-                self.scene[f"label_{k}"] = torch.as_tensor(
-                    scene_train.labels[k], device=dev)
+        self.labels = loss_labels(cfg)
+        missing = [k for k in self.labels if k not in scene_train.labels]
+        if missing:
+            raise ValueError(f"the configured loss terms read the labels "
+                             f"{missing}, which the scene lacks")
+        for k in self.labels:
+            self.scene[f"label_{k}"] = torch.as_tensor(
+                scene_train.labels[k], device=dev)
         self.params = dict(self.model.named_parameters())
+        if cfg.loss.manhattan_nerf_w > 0:
+            # the Manhattan-SDF wall angle (state.py:94-95 of the JAX
+            # package), optimised with the model by plain Adam
+            self.params["theta_WF"] = torch.nn.Parameter(
+                torch.zeros((), device=dev))
         self.opt = AdamW(self.params, cfg.optim)
         self._occ: OccupancyState = self.occ_grid.init_state()
         self._step = 0
@@ -260,22 +284,22 @@ class Trainer:
         self.last_batch = batch
         img, pix = batch["img_idxs"], batch["pix_idxs"]
         target = {"rgb": scene["rays"][img, pix][..., :3]}
-        for k in _LABELS:
-            if f"label_{k}" in scene:
-                target[k] = scene[f"label_{k}"][img, pix]
+        for k in self.labels:
+            target[k] = scene[f"label_{k}"][img, pix]
         rays_o, rays_d = self._assemble_rays(batch)
         results = render_train(
             self.model, self.occ, rays_o.contiguous(),
             rays_d.contiguous(), cfg.render, global_step=self.step,
             bootstrap=bootstrap, noise=draws.get("noise"), bg=draws.get("bg"),
-            generator=g, sched=sched)
+            generator=g, sched=sched, depth_gt=target.get("depth"))
         loss_d = compute_losses(
             results, target, cfg.loss, self.model.cfg, step=self.step,
             ray_sampling_strategy=cfg.data.ray_sampling_strategy,
             random_tr_poses=cfg.data.random_tr_poses,
             patch_area=self.sampler.patch_area,
             offsets_local=self.sampler.offsets_local,
-            kmeans_init=draws.get("kmeans_init"), generator=g, sched=sched)
+            kmeans_init=draws.get("kmeans_init"), generator=g, sched=sched,
+            theta_WF=self.params.get("theta_WF"))
         names = list(self.params)
         grads = torch.autograd.grad(loss_d["total"],
                                     [self.params[n] for n in names],

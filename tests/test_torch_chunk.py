@@ -55,11 +55,12 @@ def test_step_table_is_the_host_functions_and_the_jax_schedule():
                 "bc1": float(f32(1.0) - f32(0.9) ** f32(i + 1)),
                 "bc2": float(f32(1.0) - f32(0.999) ** f32(i + 1))}
         want.update(loss_schedule(cfg.loss, i))
-        n_i, on = anneal_schedule(i, cfg.render.anneal_steps)
+        n_i, on = anneal_schedule(i, cfg.render.anneal_steps,
+                                  cfg.render.anneal_strategy)
         want.update(anneal_n_i=n_i, anneal_on=float(on))
         for c in SCHEDULE_COLUMNS:
             assert col[c][i] == f32(want[c]), (c, i)
-    for c in ("anneal_on", "in_window"):
+    for c in ("anneal_on", "in_window", "after_start"):
         assert set(np.unique(col[c])) == {0.0, 1.0}, c
 
     steps = jnp.arange(STEPS)
@@ -72,8 +73,10 @@ def test_step_table_is_the_host_functions_and_the_jax_schedule():
                                    jnp.clip(steps / cfg.render.anneal_steps,
                                             0.5, 1.0), 1.0),
            "anneal_on": steps < cfg.render.anneal_steps,
-           "in_window": (steps <= lc.norm_can_end) | (lc.norm_can_end == -1)}
-    for t in ("norm_D_C_ort_dot", "norm_D_C_centr_dot", "norm_D_C_centr_L1"):
+           "in_window": (steps <= lc.norm_can_end) | (lc.norm_can_end == -1),
+           "after_start": steps > lc.norm_can_start}
+    for t in ("norm_D_C_ort_dot", "norm_D_C_centr_dot", "norm_D_C_centr_L1",
+              "norm_D_C_can_dot", "norm_D_C_can_L1"):
         ref[f"w_{t}"] = jl.w_sched(getattr(lc, f"{t}_w"), steps,
                                    lc.norm_can_start, lc.norm_can_grow)
     assert set(ref) == set(SCHEDULE_COLUMNS)

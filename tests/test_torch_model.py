@@ -98,11 +98,19 @@ def test_density_matches_jax(layout):
 
 
 def test_exposure_tonemapper_raises():
-    """Every hash layout is ported; the exposure tonemapper is not
-    (ROADMAP A14)."""
-    _, tc = slice_configs(use_exposure=True)
-    with pytest.raises(NotImplementedError):
-        TModel(tc.model, CPU)
+    """The exposure tonemapper is ported and no longer raises (the test
+    keeps the name of its refusal): `use_exposure` builds the three
+    tonemapper_net_{i} MLPs under the JAX tree's names and shapes, so
+    that `convert.py` carries them across (tests/test_torch_baselines.py
+    holds the field's outputs to JAX)."""
+    jc, tc = slice_configs(use_exposure=True)
+    tm = TModel(tc.model, CPU)
+    ref = jax.eval_shape(JModel(jc.model).init, jax.random.PRNGKey(0))
+    flat = {".".join(str(getattr(p, "key", p)) for p in path): v.shape
+            for path, v in jax.tree_util.tree_flatten_with_path(ref)[0]}
+    assert {n: tuple(p.shape) for n, p in tm.named_parameters()} == flat
+    assert {f"tonemapper_net_{i}.w{j}" for i in range(3)
+            for j in range(2)} <= set(flat)
 
 
 def test_layouts_size_the_encoding_as_jax():
