@@ -138,6 +138,29 @@ Phases (any failed check raises, so the script exits non-zero):
   of the products the loss cancels), `validate` (no gate); "regnerf"
   (8190 supervised and 8190 random-pose rays a batch): 576 counted steps,
   reg_depth on after norm_can_start;
+  then the CLI path (`normal_clustering_nerf_torch.train_nerf.main`, the
+  entry point a user runs, at CLI_ARGV: the Hypersim preset's argv on the
+  CLI's synthetic room, 12 train and 12 held-out views at 64 x 64, one
+  epoch of 1000 steps, with --save_test_vis, --save_test_preds,
+  --save_train_preds and --save_checkpoint): its launches counted (H1 512
+  times, K1's training launcher 488, its test-round launcher, H5/H6 and
+  H3 launched, H4 never); results.csv's metric/ and param/ columns; each
+  held-out view's pred and gt PNG read back (`read_png`, zlib) equal to
+  the panels of the run's own arrays; the test and train archives'
+  members and markers; the checkpoint; a second `main` from that
+  checkpoint with --val_only giving the same metrics (within the spread
+  of two `validate` calls on its trainer); a resume (`check_resume`): a
+  trainer at the same configuration fits 608 steps (graphs captured),
+  saves a checkpoint and fits 32 more; the checkpoint restored into that
+  trainer, graphs and all, and into a fresh one: the training state
+  equal to the checkpoint's bit for bit, and each of the 32 steps it
+  then takes through `fit` (the refresh at step 624 included) held, as
+  in 7., against three eager steps from the state it started from, the
+  first step also against the uninterrupted run's first step (losses
+  and parameters within 2x the eager steps' spread plus 2^-20 of the
+  largest value; sampled indices and sample counts equal);
+  the run's wall time by part and the checkpoint's size as a "CLI path"
+  JSON line;
   every launcher must have launched on some path;
   6. for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
@@ -2736,9 +2759,18 @@ def check_graph_chunk(tr, path, bootstrap):
             runs.append(one_step(tr, bootstrap, False))
         eager.append(runs)
     restore(tr, end)
-    chk, n_rays = Check(), tr.sampler.batch_size
     log(f"graph phase, {tag} from step {start}: {GRAPH_STEPS} replays, "
         f"each against {EAGER_STEPS} eager steps from its state")
+    hold_steps(f"graph phase, {tag}", graph, eager, tr.sampler.batch_size)
+
+
+def hold_steps(tag, graph, eager, n_rays, what="graph"):
+    """Steps (each as `one_step` returns it) against the EAGER_STEPS eager
+    steps from the state each started from (`eager`, a list a step): the
+    sampled indices and the rm / vr / trunc counts equal, the losses and
+    the parameters after within the eager steps' spread
+    (`within_spread`). Raises on any failure."""
+    chk = Check()
     chk.equal("sampled indices, every step",
               torch.stack([g[0] for g in graph]),
               torch.stack([e[0][0] for e in eager]))
@@ -2760,7 +2792,7 @@ def check_graph_chunk(tr, path, bootstrap):
                 if not ok:
                     bad.append(f"{k} step {i}: {err:.3e} (spread "
                                f"{spread:.3e})")
-        log(f"  {group}: largest graph-eager difference {worst[0]:.3e} "
+        log(f"  {group}: largest {what}-eager difference {worst[0]:.3e} "
             f"({worst[2]}; eager spread there {worst[1]:.3e}), "
             + (f"{len(bad)} outside 2x the spread + 2^-20 of the largest "
                f"value FAIL: {bad[:5]}" if bad else "every one within 2x "
@@ -2768,7 +2800,7 @@ def check_graph_chunk(tr, path, bootstrap):
                "eager step ok"))
         if bad:
             chk.failures.append(f"{group} ({len(bad)})")
-    chk.done(f"graph phase, {tag}")
+    chk.done(tag)
 
 
 TRACED_EAGER = 4   # eager steps in graph_times' traced chunk: the profiler
@@ -3362,6 +3394,311 @@ def shift_switches(tr):
         f"{start + 8}, the chunk from step {start}")
 
 
+# ---------------------------------------------------------------- CLI path
+# the CLI path's argv: the Hypersim preset on the synthetic room (12 train
+# and 12 held-out views at 64 x 64, the CLI's synthetic branch) for one
+# epoch, 1000 steps (past the bootstrap at 512), with every export and
+# the checkpoint
+CLI_ARGV = tuple("--dataset_name=synthetic" if a.startswith("--dataset_name=")
+                 else a for a in HYPERSIM_ARGV) + ("--num_epochs=1",)
+CLI_EXPORTS = ("--save_test_vis", "--save_test_preds", "--save_train_preds",
+               "--save_checkpoint")
+CLI_KERNELS = ("march_bootstrap", "march_sv_train", "march_sv_test_round",
+               "brick_fwd", "brick_bwd", "composite_fwd", "composite_bwd")
+RESUME_AT, RESUME_STEPS = 608, 32   # the resume check's checkpoint, steps
+
+
+def read_png(path):
+    """An 8-bit RGB PNG whose rows all use filter 0 (what
+    `training/visualize.save_vis_png` writes) -> (H, W, 3) uint8, read
+    with zlib; anything else raises."""
+    import struct
+    import zlib
+    import numpy as np
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if zlib.crc32(tag + body) != struct.unpack(
+                ">I", data[pos + 8 + n:pos + 12 + n])[0]:
+            raise ValueError(f"{path}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = ihdr
+    if (depth, ctype, interlace) != (8, 2, 0):
+        raise ValueError(f"{path}: not 8-bit RGB without interlace")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if raw[:, 0].any():
+        raise ValueError(f"{path}: a row filter other than 0")
+    return raw[:, 1:].reshape(h, w, 3)
+
+
+def dir_bytes(path):
+    import os
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs)
+
+
+def check_cli_artifacts(run, metrics):
+    """(c): results.csv with metric/ and param/ columns; a pred and a gt
+    PNG for each held-out view, decoding to the panels of the returned
+    predictions and of the view's ground truth; the test and train
+    archives with their markers and member names; the checkpoint."""
+    import csv
+    import os
+    import tarfile
+    import numpy as np
+    from normal_clustering_nerf_torch.training.trainer import validation_gt
+    from normal_clustering_nerf_torch.training.visualize import (
+        pack_vis_panel)
+    tr, d = run["trainer"], run["log_dir"]
+    with open(os.path.join(d, "results.csv"), newline="") as f:
+        header, row = list(csv.reader(f))
+    if ("metric/psnr" not in header or not any(
+            c.startswith("param/") for c in header)
+            or float(row[header.index("metric/psnr")]) != metrics["psnr"]):
+        raise RuntimeError(f"CLI path: results.csv header {header[:8]} ...")
+    scene, ds = tr.scene_test, tr.cfg.eval.downsample_vis
+    for i, img_id in enumerate(scene.img_ids):
+        for tag, want in (("pred", tr._last_val_preds[i]),
+                          ("gt", validation_gt(scene, i))):
+            got = read_png(os.path.join(d, "results", f"{img_id}_{tag}.png"))
+            want = pack_vis_panel(want, n_classes=max(scene.n_classes, 3),
+                                  downsample=ds)
+            if not np.array_equal(got, want):
+                raise RuntimeError(f"CLI path: {img_id}_{tag}.png is not "
+                                   "the panel of the run's arrays")
+    names = {"sem": "semantics", "norm": "normals"}
+    m = tr.cfg.model
+    heads = ("rgb", "depth") + ("norm_nn",) * m.pred_norm_nn + (
+        "sem",) * m.pred_sem
+    for split, tag, keys, ids in (
+            ("test", "pred", tr._last_val_preds[0], scene.img_ids),
+            ("train", "pred", heads, tr.scene_train.img_ids),
+            ("train", "gt", ("rgb",) + tuple(tr.scene_train.labels),
+             tr.scene_train.img_ids)):
+        path = os.path.join(d, "preds", f"{split}_{tag}.tar.gz")
+        with tarfile.open(path) as tar:
+            got = sorted(tar.getnames())
+        want = sorted(f"{tag}.{split}.{names.get(k, k)}.scene.{i}.npy"
+                      for k in keys for i in ids)
+        if got != want or not os.path.isfile(os.path.join(
+                d, "preds", f"{split}_{tag}.done")):
+            raise RuntimeError(f"CLI path: {path} holds {got[:4]} ..., "
+                               f"expected {want[:4]} ...")
+    ckpt = os.path.join(d, "ckpt")
+    if sorted(os.listdir(ckpt)) != ["layout_version.json", "state.pt"]:
+        raise RuntimeError(f"CLI path: checkpoint {os.listdir(ckpt)}")
+    log(f"  artifacts: results.csv ({len(header)} columns), "
+        f"{2 * scene.n_images} PNGs equal to the run's panels, "
+        f"test_pred / train_pred / train_gt archives with their members "
+        f"and markers, checkpoint {dir_bytes(ckpt)} bytes")
+    return dir_bytes(ckpt)
+
+
+def fit_step(tr, graph):
+    """One step of `fit` from the trainer's state, with the refresh due
+    at it: `fit(1)` (a replay of the trainer's captured graph, or before
+    the capture one of its warm-up steps) or eager (`occ_update`,
+    `train_step_core`). Returns what `one_step` returns, the metrics as
+    f64 0-dim tensors (fit's history holds them as f32 values)."""
+    if graph:
+        m = {k: torch.tensor(v, dtype=torch.float64, device=tr.device)
+             for k, v in tr.fit(1)[0].items()}
+    else:
+        o = tr.cfg.optim
+        if tr.step % o.update_interval == 0:
+            tr.occ_update(warmup=tr.step < o.warmup_steps)
+        m = {k: v.detach().double() for k, v in tr.train_step_core(
+            tr.step < tr.cfg.render.bootstrap_steps).items()}
+    b = tr.last_batch
+    out = (torch.cat([b["img_idxs"], b["pix_idxs"]]).clone(), m,
+           {k: p.detach().clone() for k, p in tr.params.items()})
+    sync(tr.device)
+    return out
+
+
+def check_restored(tr, ckpt_dir):
+    """Every tensor of the trainer's training state (its own, which its
+    graphs hold), its step, optimizer count and generator state, equal to
+    the checkpoint's, bit for bit."""
+    import os
+    from normal_clustering_nerf_torch.training.checkpoints import (
+        trainer_state)
+    ck = torch.load(os.path.join(ckpt_dir, "state.pt"), map_location="cpu",
+                    weights_only=True)
+    have = trainer_state(tr, dict)
+    bad = [f"{g}/{n}" for g in ("params", "occ")
+           for n, t in have[g].items() if not torch.equal(t.cpu(), ck[g][n])]
+    bad += [f"opt/{g}/{n}" for g in ("mu", "nu")
+            for n, t in have["opt"][g].items()
+            if not torch.equal(t.cpu(), ck["opt"][g][n])]
+    bad += [k for k, a, b in (("step", have["step"], ck["step"]),
+                              ("opt/count", have["opt"]["count"],
+                               ck["opt"]["count"]),
+                              ("count_t", int(tr.opt.count_t), ck["opt"][
+                                  "count"]),
+                              ("step_t", int(tr._step_t), ck["step"]))
+            if a != b]
+    if not torch.equal(have["generator"], ck["generator"]):
+        bad.append("generator")
+    return bad
+
+
+def check_resume(argv, ckpt_dir):
+    """(e): a trainer at the CLI path's preset configuration fits
+    RESUME_AT steps (its graphs captured), saves a checkpoint and fits
+    RESUME_STEPS more (the uninterrupted run). The checkpoint is restored
+    into that trainer, graphs and all, and into a fresh trainer; in each,
+    the training state equals the checkpoint's bit for bit, and each of
+    the RESUME_STEPS steps it then takes through `fit` is held against
+    EAGER_STEPS eager steps from the state it started from (phase 7's
+    rule, `hold_steps`), the first also the uninterrupted run's first
+    step, which started from the same state. Step by step, because whole
+    runs part (`check_graph_chunk`): some 30 steps from the checkpoint,
+    two runs, eager or graph, differ in a loss's third digit. A
+    restore that left a graph reading stale storages, or missed the
+    generator, the moments or the occupancy, fails the first step."""
+    from normal_clustering_nerf_torch.config import TrainConfig
+    from normal_clustering_nerf_torch.train_nerf import build_datasets
+    from normal_clustering_nerf_torch.training import Trainer
+    from normal_clustering_nerf_torch.training.checkpoints import (
+        restore_checkpoint, save_checkpoint)
+    cfg = TrainConfig.from_args(list(argv))
+    train_ds, test_ds = build_datasets(cfg)
+
+    def build():
+        return Trainer(cfg, train_ds.load(), test_ds.load(), device="cuda")
+    tr = build()
+    tr.mark_invisible_cells()
+    tr.fit(RESUME_AT)
+    captured = [c["kind"] for c in tr.captures]
+    t = time.perf_counter()
+    save_checkpoint(ckpt_dir, tr)
+    save_s = time.perf_counter() - t
+    first = fit_step(tr, True)
+    ref = [first[1]["loss_total"].item()] + [
+        h["loss_total"] for h in tr.fit(RESUME_STEPS - 1)]
+    n_rays, restore_s = tr.sampler.batch_size, []
+    for fresh, name in ((False, "the same trainer (graphs captured)"),
+                        (True, "a fresh trainer")):
+        if fresh:
+            del tr
+            tr = build()
+        sync(tr.device)
+        t = time.perf_counter()
+        restore_checkpoint(ckpt_dir, tr)
+        sync(tr.device)
+        restore_s.append(time.perf_counter() - t)
+        bad = check_restored(tr, ckpt_dir)
+        if bad:
+            raise RuntimeError(f"resume into {name}: the restored state "
+                               f"differs from the checkpoint in {bad[:8]}")
+        before = len(tr.captures)
+        graph, eager = [], []
+        for _ in range(RESUME_STEPS):
+            st = snapshot(tr)
+            graph.append(fit_step(tr, True))
+            end = snapshot(tr)
+            runs = []
+            for _ in range(EAGER_STEPS):
+                restore(tr, st)
+                runs.append(fit_step(tr, False))
+            eager.append(runs)
+            restore(tr, end)
+        kinds = [c["kind"] for c in tr.captures[before:]]
+        if (not kinds or set(kinds) - set(captured)) if fresh else kinds:
+            raise RuntimeError(f"resume into {name}: captures {kinds} after "
+                               f"the restore (the run's: {captured})")
+        tag = (f"resume into {name}, {RESUME_STEPS} steps from step "
+               f"{RESUME_AT}")
+        log(f"{tag}: restored state equal to the checkpoint's bit for bit; "
+            f"each step against {EAGER_STEPS} eager steps from its state")
+        hold_steps(tag, graph, eager, n_rays, what="resumed")
+        log(f"  the uninterrupted run's first step against the eager steps "
+            f"from the state restored into {name}")
+        hold_steps(f"{tag}, the uninterrupted run's first step", [first],
+                   eager[:1], n_rays, what="uninterrupted")
+        part = max(abs(g[1]["loss_total"].item() - r)
+                   for g, r in zip(graph, ref))
+        log(f"  over the {RESUME_STEPS} steps its loss_total parts from the "
+            f"uninterrupted run's by up to {part:.3e} (the fp32 atomics' "
+            f"divergence; not a gate)")
+    log(f"  resume ok; checkpoint save {save_s:.3f} s, restore "
+        f"{restore_s[0]:.3f} s, {dir_bytes(ckpt_dir)} bytes")
+    return save_s, restore_s[0]
+
+
+def cli_path(launches, smi):
+    """The CLI path: (a) `train_nerf.main` at CLI_ARGV with every export,
+    counted; (b) the launches of H1, K1 (both launchers), H5/H6 and H3,
+    and none of H4; (c) the artifacts (`check_cli_artifacts`); (d) a
+    second `main` from the checkpoint with `--val_only`, its metrics
+    equal to the first's within the spread of two `validate` calls on
+    its trainer; (e) `check_resume`; (f) the run's wall time by part and
+    the checkpoint's size, printed as a JSON line beside the card."""
+    import os
+    import shutil
+    from pathlib import Path
+    from normal_clustering_nerf_torch import train_nerf
+    root = Path(__file__).resolve().parent / "build" / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    # the CLI logs to W&B under --no_debug where wandb imports; the smoke
+    # starts no W&B service process
+    os.environ["WANDB_MODE"] = "disabled"
+    base = list(CLI_ARGV) + [f"--log_root_dir={root}"]
+    log(f"CLI path: train_nerf.main({base + ['--exp_name=cli'] + list(CLI_EXPORTS)})")
+    run = {}
+    metrics, counts, wall = counted(lambda: train_nerf.main(
+        base + ["--exp_name=cli"] + list(CLI_EXPORTS), run=run))
+    tr = run["trainer"]
+    log(f"  launches in the CLI run ({tr.step} steps, validate, "
+        f"{tr.scene_train.n_images} training views rendered): {counts}")
+    missing = [k for k in CLI_KERNELS if not counts[k]]
+    sv = tr.step - tr.cfg.render.bootstrap_steps
+    wrong = {k: (counts[k], v) for k, v in (
+        ("march_bootstrap", tr.cfg.render.bootstrap_steps),
+        ("march_sv_train", sv), ("distortion_fwd", 0),
+        ("distortion_bwd", 0)) if counts[k] != v}
+    if missing or wrong or tr.step != 1000:
+        raise RuntimeError(f"CLI path: step {tr.step}, never launched "
+                           f"{missing}, (count, expected) {wrong}")
+    for k, c in counts.items():
+        launches[k] += c
+    ckpt_bytes = check_cli_artifacts(run, metrics)
+    ckpt = os.path.join(run["log_dir"], "ckpt")
+    run2 = {}
+    metrics2 = train_nerf.main(base + ["--exp_name=cli_val",
+                                       f"--ckpt_path={ckpt}", "--val_only"],
+                               run=run2)
+    again = run2["trainer"].validate()
+    spread = max(abs(again[k] - metrics2[k]) for k in metrics2)
+    diff = max(abs(metrics2[k] - metrics[k]) for k in metrics)
+    log(f"  --val_only from the checkpoint: metrics differ from the run's "
+        f"by {diff:.3e} at most; two validate calls by {spread:.3e}")
+    if set(metrics2) != set(metrics) or diff > spread:
+        raise RuntimeError(f"CLI path: --val_only metrics {metrics2} vs "
+                           f"{metrics}")
+    times = dict(run["times"], wall=wall, val_only_restore=run2["times"][
+        "checkpoint_restore"], val_only_validate=run2["times"]["validate"])
+    del run, run2, tr
+    times["resume_save"], times["resume_restore"] = check_resume(
+        base, root / "resume_ckpt")
+    out = {"seconds": times, "checkpoint_bytes": ckpt_bytes,
+           "psnr": metrics["psnr"], "val_only_max_diff": diff,
+           "validate_spread": spread}
+    print(f"CLI path on {smi}: " + json.dumps(out))
+    shutil.rmtree(root)   # two checkpoints of ~220 MB
+    return out
+
+
 def render_config(cfg, **kw):
     return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
 
@@ -3519,6 +3856,7 @@ def main():
     baselines, ms = baselines_path(rec, launches, gen)
     paths.update(baselines)
     fit_ms.update(ms)
+    cli_path(launches, smi)
     missing = [k.name for k in kernels.ALL_KERNELS if k.name not in rec]
     if missing:
         raise RuntimeError(f"kernels not checked: {missing}")

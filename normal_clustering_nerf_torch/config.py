@@ -11,6 +11,7 @@ import argparse
 import dataclasses
 import math
 from dataclasses import dataclass, field
+from typing import Optional
 
 
 @dataclass(frozen=True)
@@ -179,13 +180,21 @@ class OptimConfig:
 
 # flags of the JAX CLI whose features the port does not have yet, with
 # their defaults and the ROADMAP item that brings them: from_args parses
-# them and refuses any other value
-_UNPORTED_FLAGS = {
-    "eval_lpips": (False, "A9"), "val_only": (False, "A6"),
-    "save_test_vis": (False, "A6"), "save_test_preds": (False, "A6"),
-    "save_train_preds": (False, "A6"), "ckpt_path": (None, "A6"),
-    "weight_path": (None, "A6"), "save_checkpoint": (False, "A6"),
-}
+# them and refuses any other value (the trainer refuses optimize_ext and
+# lr_dR_norm_glob, A7)
+_UNPORTED_FLAGS = {"eval_lpips": (False, "A9")}
+
+
+@dataclass(frozen=True)
+class EvalConfig:
+    """Validation / artifact options (reference: opt.py:167-196)."""
+    eval_lpips: bool = False
+    val_only: bool = False
+    save_test_vis: bool = False
+    downsample_vis: float = 0.5
+    save_test_preds: bool = False
+    save_train_preds: bool = False
+    downsample_pred_save: float = 0.5
 
 
 @dataclass(frozen=True)
@@ -194,11 +203,15 @@ class TrainConfig:
     log_root_dir: str = "./logs"
     seed: int = 1337
     no_debug: bool = False   # False: a CLI run takes the debug schedule
+    ckpt_path: Optional[str] = None
+    weight_path: Optional[str] = None
+    save_checkpoint: bool = False
     model: ModelConfig = field(default_factory=ModelConfig)
     render: RenderConfig = field(default_factory=RenderConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    eval: EvalConfig = field(default_factory=EvalConfig)
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
@@ -208,8 +221,8 @@ class TrainConfig:
         """Parse reference-compatible CLI flags (opt.py names) into a
         TrainConfig, as the JAX package's `TrainConfig.from_args`
         (config.py:329-483) does. Flags of features the port does not have
-        (multi-chip, LPIPS, checkpoints, exports) are parsed and refused
-        unless left at their defaults."""
+        (LPIPS, more than one card) are parsed and refused unless left at
+        their defaults."""
         p = argparse.ArgumentParser()
         p.add_argument("--no_debug", action="store_true", default=False)
         p.add_argument("--log_root_dir", type=str, default="./logs")
@@ -307,7 +320,8 @@ class TrainConfig:
 
         return TrainConfig(
             exp_name=a.exp_name, log_root_dir=a.log_root_dir, seed=a.seed,
-            no_debug=a.no_debug,
+            no_debug=a.no_debug, ckpt_path=a.ckpt_path,
+            weight_path=a.weight_path, save_checkpoint=a.save_checkpoint,
             model=ModelConfig(
                 model_name=a.model_name, scale=a.scale,
                 grid_size=a.grid_size,
@@ -360,4 +374,28 @@ class TrainConfig:
                 lr_dR_norm_glob=a.lr_dR_norm_glob,
                 dR_norm_glob_coding=a.dR_norm_glob_coding,
             ),
+            eval=EvalConfig(
+                eval_lpips=a.eval_lpips, val_only=a.val_only,
+                save_test_vis=a.save_test_vis, downsample_vis=a.downsample_vis,
+                save_test_preds=a.save_test_preds,
+                save_train_preds=a.save_train_preds,
+                downsample_pred_save=a.downsample_pred_save,
+            ),
+        )
+
+    def debug_overrides(self) -> "TrainConfig":
+        """The CLI's shrunken smoke-test schedule without `--no_debug`
+        (reference: train_nerf.py:813-866; config.py:485-497): grid 32,
+        128 samples a ray, every head, batch 256 as triangles, 100 steps."""
+        return dataclasses.replace(
+            self,
+            model=dataclasses.replace(
+                self.model, grid_size=32, max_samples=128,
+                pred_norm_nn=True, pred_norm_depth=True, pred_sem=True),
+            data=dataclasses.replace(
+                self.data, batch_size=256,
+                ray_sampling_strategy="all_images_triang"),
+            optim=dataclasses.replace(self.optim, num_epochs=2,
+                                      steps_per_epoch=50),
+            render=dataclasses.replace(self.render, march_block=128),
         )

@@ -35,6 +35,18 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
+# the JAX params tree's leaves beside "model" that the port has
+TOP_LEVEL = ("theta_WF",)
+
+
+def jax_path(name: str) -> str:
+    """The port's parameter name -> the "/"-joined path of its JAX leaf
+    in the TrainState params (the key of a JAX `save_weights` file):
+    "hash_table.planes" -> "model/hash_table/planes", "theta_WF" ->
+    "theta_WF". The reverse of `_flatten` under `convert_params`."""
+    return name if name in TOP_LEVEL else "model/" + name.replace(".", "/")
+
+
 def convert_params(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
     """JAX params pytree (numpy leaves, with or without the top-level
     "model" key) -> {port parameter name: f32 tensor}. Beside "model", the

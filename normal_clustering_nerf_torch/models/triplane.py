@@ -18,11 +18,37 @@ from __future__ import annotations
 
 from typing import Dict, NamedTuple
 
+import numpy as np
 import torch
 
 from .. import kernels
 
 PLANES = ((0, 1), (0, 2), (1, 2))
+# the row-lane layout version a weights file or checkpoint records
+# (triplane.py:41-46): v1 slot-major lanes (s*F + f), v2 feature-major
+# (f*S + s). The shapes are the same in both.
+TRIPLANE_LAYOUT_VERSION = 2
+
+
+def convert_rows_slot_to_feature_major(rows, n_slots: int) -> np.ndarray:
+    """(rows, F*S) slot-major (lane s*F + f) -> feature-major (lane
+    f*S + s) (triplane.py:47-55)."""
+    R, FS = rows.shape
+    F = FS // n_slots
+    return (np.asarray(rows).reshape(R, n_slots, F)
+            .transpose(0, 2, 1).reshape(R, FS))
+
+
+def convert_triplane_params_v1_to_v2(tp_params: Dict) -> Dict:
+    """A v1 {"planes", "grid3d"} dict of numpy arrays in the v2 layout
+    (triplane.py:58-66)."""
+    out = dict(tp_params)
+    out["planes"] = np.stack([
+        convert_rows_slot_to_feature_major(p, 16)
+        for p in np.asarray(tp_params["planes"])])
+    out["grid3d"] = convert_rows_slot_to_feature_major(
+        tp_params["grid3d"], 64)
+    return out
 
 
 class TriplaneSpec(NamedTuple):

@@ -13,8 +13,10 @@ term with its learned angle `theta_WF`, a parameter beside the model's)
 steps between two refreshes as one chunk (`train_chunk`, the JAX
 trainer's `_make_chunk_fn`). `validate` renders the held-out views
 (`render_images`), computes the metric suite and recovers the Manhattan
-rotation. The JAX version's shard_map, host sampler, render prewarming
-and the visualisation / prediction exports are not ported.
+rotation, and writes the prediction panels, the prediction archives and
+the logger's images and scalars on request; `save_train_preds` renders
+the training views into archives. The JAX version's shard_map, host
+sampler and render prewarming are not ported.
 
 On the card a chunk is a CUDA graph of one step, replayed once a step.
 Everything a step reads or writes stays in fixed storages: parameters,
@@ -33,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import math
+import os
 import time
 import warnings
 from typing import Dict, List, Optional
@@ -52,9 +55,10 @@ from ..metrics import NeRFMTMetricsPerIm
 from ..models.ngp_mt import NGPMT
 from ..models.occupancy import OccupancyGrid, OccupancyState
 from ..models.rendering import render_test, render_train, train_march_kind
-from ..utils.rotations import euler_angles_to_matrix
+from ..utils.rotations import R_offset_from_angles
 from .rotation_recovery import rotation_recovery_errors
 from .state import OPT_COLUMNS, SCHEDULE_COLUMNS, AdamW, schedule_table
+from .visualize import pack_vis_panel, save_preds_tar_gz, save_vis_png
 
 _log = logging.getLogger(__name__)
 # eager steps of a step kind, on a side stream, before its CUDA graph is
@@ -79,6 +83,21 @@ def loss_labels(cfg: TrainConfig) -> tuple:
     return tuple(k for k, v in on.items() if v)
 
 
+def validation_gt(scene: SceneData, i: int) -> Dict[str, np.ndarray]:
+    """View i's ground truth as `validate` scores and draws it: rgb and
+    the labels depth, normals, semantics and semantics_WF, as images
+    (trainer.py:573-580; other labels, normals_depth among them, are
+    left out)."""
+    W, H = scene.img_wh
+    gt = {"rgb": scene.rays[i, :, :3].reshape(H, W, 3)}
+    for k in ("depth", "normals", "semantics", "semantics_WF"):
+        if k in scene.labels:
+            v = scene.labels[k][i]
+            gt[k] = (v.reshape(H, W, -1) if v.ndim == 2
+                     and v.shape[-1] == 3 else v.reshape(H, W))
+    return gt
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, scene_train: SceneData,
                  scene_test: Optional[SceneData] = None, device=None):
@@ -89,13 +108,12 @@ class Trainer:
         if cfg.render.bootstrap_steps % cfg.optim.update_interval != 0:
             raise ValueError("render.bootstrap_steps must be a multiple of "
                              "optim.update_interval")
-        unported = [k for k, on in (
-            ("optimize_ext", cfg.optim.optimize_ext),
-            ("lr_dR_norm_glob", cfg.optim.lr_dR_norm_glob > 0),
-            ("host_sampler", cfg.data.host_sampler)) if on]
+        unported = [f"{k} (ROADMAP {item})" for k, on, item in (
+            ("optimize_ext", cfg.optim.optimize_ext, "A7"),
+            ("lr_dR_norm_glob", cfg.optim.lr_dR_norm_glob > 0, "A7"),
+            ("host_sampler", cfg.data.host_sampler, "A9")) if on]
         if unported:
-            raise NotImplementedError(f"{unported} not ported (ROADMAP A7, "
-                                      "A9)")
+            raise NotImplementedError(f"not ported: {unported}")
         if cfg.data.keep_N_tr != -1:
             scene_train = scene_train.keep_first_n(cfg.data.keep_N_tr)
         self.cfg = cfg
@@ -182,23 +200,27 @@ class Trainer:
         """Scene rotation offset from the ZYX euler angles of the loss
         config (reference: train_nerf.py:109-122)."""
         lc = self.cfg.loss
-        ang = np.array([lc.norm_yaw_offset_ang, lc.norm_pitch_offset_ang,
-                        lc.norm_roll_offset_ang]) * math.pi / 180.0
-        if np.all(ang == 0):
-            return np.eye(3, dtype=np.float32)
-        return euler_angles_to_matrix(ang, "ZYX").astype(np.float32)
+        R = R_offset_from_angles(lc.norm_yaw_offset_ang,
+                                 lc.norm_pitch_offset_ang,
+                                 lc.norm_roll_offset_ang)
+        return np.eye(3, dtype=np.float32) if R is None else R
 
     def load_state(self, params: Dict[str, torch.Tensor],
                    occ: OccupancyState, opt_state: Optional[Dict] = None,
                    step: int = 0):
         """Take over parameters, occupancy and optimizer state (e.g. from
-        `convert.convert_jax_state`)."""
-        with torch.no_grad():
-            for n, p in self.params.items():
-                p.copy_(params[n])
+        `convert.convert_jax_state` or a checkpoint), into the trainer's
+        own tensors."""
+        self.load_params(params)
         self.occ = occ
         self.opt.load_state(opt_state or self.opt.init_state())
         self.step = step
+
+    @torch.no_grad()
+    def load_params(self, params: Dict[str, torch.Tensor]):
+        """Copy `params` (every parameter's name) into the parameters."""
+        for n, p in self.params.items():
+            p.copy_(params[n])
 
     # ------------------------------------------------------- occupancy ops
     def density_threshold(self) -> float:
@@ -433,25 +455,44 @@ class Trainer:
         return self._graphs[kind]
 
     # ------------------------------------------------------------------ fit
-    def fit(self, n_steps: int, occ_update: bool = True
-            ) -> List[Dict[str, float]]:
+    def fit(self, n_steps: int, occ_update: bool = True, log_every: int = 0,
+            log_fn=print, logger=None) -> List[Dict[str, float]]:
         """Train `n_steps` steps from the current step as the JAX bench's
         `run_steps` does: an occupancy refresh at every `update_interval`
         boundary (unless not `occ_update`, its cost probe), a whole chunk
         (`train_chunk`) where one fits before the end, single steps
         otherwise. Call `mark_invisible_cells()` once before the first
-        step, as bench.py does. Returns every step's metrics as floats,
-        copied from the device once."""
+        step, as bench.py does. With `log_every`, after the chunk or step
+        that brings the step `log_every` or more past the last log, the
+        JAX trainer's line (trainer.py:445-459; it/s is the absolute step
+        over the time since `fit` began, as there) goes to `log_fn` and
+        the step's metrics under "train/" to `logger`: one read of the
+        device a log, between chunks. Returns every step's metrics as
+        floats, copied from the device once."""
         cfg = self.cfg
         interval = cfg.optim.update_interval
         start, end = self.step, self.step + n_steps
         self._ensure_rows(end)
+        t0, last_log = time.time(), start
         while self.step < end:
             step = self.step
             if step % interval == 0 and occ_update:
                 self.occ_update(warmup=step < cfg.optim.warmup_steps)
             whole = step % interval == 0 and step + interval <= end
             self.train_chunk(interval if whole else 1)
+            if log_every and self.step - last_log >= log_every:
+                last_log = step = self.step
+                m = self._history(step - 1, step)[0]
+                rate = step / max(time.time() - t0, 1e-9)
+                log_fn(f"step {step}/{end} "
+                       f"loss={m.get('loss_total', float('nan')):.4f} "
+                       f"psnr={m.get('psnr', float('nan')):.2f} "
+                       f"rm/ray={m.get('rm_samples_per_ray', 0):.1f} "
+                       f"vr/ray={m.get('vr_samples_per_ray', 0):.1f} "
+                       f"trunc={m.get('trunc_ray_frac', 0):.4f} "
+                       f"({rate:.1f} it/s)")
+                if logger is not None:
+                    logger.log_scalars(m, step, prefix="train/")
         return self._history(start, end)
 
     def _history(self, start: int, end: int) -> List[Dict[str, float]]:
@@ -462,15 +503,21 @@ class Trainer:
         return [dict(zip(self._hist_keys, r)) for r in rows]
 
     # -------------------------------------------------------------- validate
-    def render_images(self, poses) -> List[Dict]:
-        """Render whole images: the rays of every pose in one stream, cut
-        into `render.test_chunk` rays per `render_test` call
-        (trainer.py:467-535). Returns one dict of host numpy arrays per
-        image (rgb (H, W, 3), depth and opacity (H, W), norm_nn, sem) with
-        its share of total_samples; `self.last_render` holds the whole
-        render's samples and rounds."""
+    def render_image(self, pose, scene: Optional[SceneData] = None) -> Dict:
+        """Full-image render of one pose (train_nerf.py:381-401)."""
+        return self.render_images([pose], scene)[0]
+
+    def render_images(self, poses, scene: Optional[SceneData] = None
+                      ) -> List[Dict]:
+        """Render whole images through the camera (directions, size) of
+        `scene`, by default the held-out scene or else the training one:
+        the rays of every pose in one stream, cut into `render.test_chunk`
+        rays per `render_test` call (trainer.py:467-535). Returns one dict
+        of host numpy arrays per image (rgb (H, W, 3), depth and opacity
+        (H, W), norm_nn, sem) with its share of total_samples;
+        `self.last_render` holds the whole render's samples and rounds."""
         cfg, dev = self.cfg, self.device
-        scene = self.scene_test or self.scene_train
+        scene = scene or self.scene_test or self.scene_train
         W, H = scene.img_wh
         directions = torch.as_tensor(scene.directions, dtype=torch.float32,
                                      device=dev)
@@ -505,13 +552,13 @@ class Trainer:
                  save_preds_dir: Optional[str] = None, logger=None,
                  rotation_draws=None) -> Dict[str, float]:
         """Render the test split, compute the metric suite and recover the
-        Manhattan rotation (trainer.py:537-633). `rotation_draws` may hold
-        the k-means initial draws of each recovery restart; else they
-        come from a generator seeded with seed ^ 0xA11."""
-        if save_vis_dir or save_preds_dir or logger is not None:
-            raise NotImplementedError(
-                "validation images, prediction export and loggers are "
-                "ROADMAP A6")
+        Manhattan rotation (trainer.py:537-633); write each view's
+        prediction and ground-truth panels as `<img_id>_pred.png` /
+        `_gt.png` into `save_vis_dir`, the predictions' archive
+        `test_pred.tar.gz` into `save_preds_dir`, and the prediction panels
+        and "test/" scalars to `logger`. `rotation_draws` may hold the
+        k-means initial draws of each recovery restart; else they come
+        from a generator seeded with seed ^ 0xA11."""
         cfg = self.cfg
         scene = self.scene_test or self.scene_train
         agg = NeRFMTMetricsPerIm(
@@ -524,7 +571,6 @@ class Trainer:
             load_sem_WF_gt="semantics_WF" in scene.labels,
             n_classes=scene.n_classes,
         )
-        W, H = scene.img_wh
         preds = []
         all_res = self.render_images(list(scene.poses))
         directions = torch.as_tensor(scene.directions, dtype=torch.float32,
@@ -543,14 +589,22 @@ class Trainer:
                 pred["norm_depth"] = nd[0].cpu().numpy()
             if "sem" in res:
                 pred["sem"] = res["sem"]
-            gt = {"rgb": scene.rays[i, :, :3].reshape(H, W, 3)}
-            for k in ("depth", "normals", "semantics", "semantics_WF"):
-                if k in scene.labels:
-                    v = scene.labels[k][i]
-                    gt[k] = (v.reshape(H, W, -1) if v.ndim == 2
-                             and v.shape[-1] == 3 else v.reshape(H, W))
+            gt = validation_gt(scene, i)
             agg.update(pred, gt)
             preds.append(pred)
+            name = scene.img_ids[i] or i
+            n_cls = max(scene.n_classes, 3)
+            panel = (pack_vis_panel(pred, n_classes=n_cls,
+                                    downsample=cfg.eval.downsample_vis)
+                     if save_vis_dir or logger is not None else None)
+            if save_vis_dir:
+                save_vis_png(os.path.join(save_vis_dir, f"{name}_pred.png"),
+                             panel)
+                save_vis_png(os.path.join(save_vis_dir, f"{name}_gt.png"),
+                             pack_vis_panel(gt, n_classes=n_cls,
+                                            downsample=cfg.eval.downsample_vis))
+            if logger is not None:
+                logger.log_image(f"val/{name}", panel, self.step)
         out = agg.compute()
         if cfg.model.pred_norm_depth and preds:
             all_nd = np.concatenate(
@@ -569,5 +623,33 @@ class Trainer:
                 warnings.warn(f"rotation recovery failed: {e}",
                               RuntimeWarning)
                 out["ang/clust/failed"] = 1.0
+        if save_preds_dir:
+            save_preds_tar_gz(save_preds_dir,
+                              {k: [p[k] for p in preds] for k in preds[0]},
+                              scene.img_ids, "test", "pred")
+        if logger is not None:
+            logger.log_scalars(out, self.step, prefix="test/")
         self._last_val_preds = preds
         return out
+
+    def save_train_preds(self, save_dir: str):
+        """Render the training views one at a time and write the
+        predictions' and the labels' archives, `train_pred.tar.gz` and
+        `train_gt.tar.gz` (trainer.py:635-658; reference:
+        train_nerf.py:747-779)."""
+        scene = self.scene_train
+        W, H = scene.img_wh
+        preds, gts = [], []
+        for i in range(scene.n_images):
+            res = self.render_image(scene.poses[i], scene)
+            preds.append({k: res[k] for k in ("rgb", "depth", "norm_nn",
+                                              "sem") if k in res})
+            gt = {"rgb": scene.rays[i, :, :3].reshape(H, W, 3)}
+            for k, v in scene.labels.items():
+                gt[k] = (v[i].reshape(H, W, -1) if v[i].ndim == 2
+                         else v[i].reshape(H, W))
+            gts.append(gt)
+        for tag, rows in (("pred", preds), ("gt", gts)):
+            save_preds_tar_gz(save_dir, {k: [r[k] for r in rows]
+                                         for k in rows[0]},
+                              scene.img_ids, "train", tag)

@@ -27,6 +27,16 @@ def euler_angles_to_matrix(angles, convention: str = "ZYX"):
     return R
 
 
+def R_offset_from_angles(yaw_deg, pitch_deg, roll_deg):
+    """Scene rotation offset from yaw / pitch / roll in degrees (ZYX), or
+    None when all are zero (reference: train_nerf.py:109-122 builds it
+    from the loss_norm_*_offset_ang flags and hands it to the dataset)."""
+    ang = np.array([yaw_deg, pitch_deg, roll_deg], np.float64) * np.pi / 180.0
+    if np.all(ang == 0):
+        return None
+    return euler_angles_to_matrix(ang, "ZYX").astype(np.float32)
+
+
 def matrix_to_euler_angles(R, convention: str = "ZYX"):
     """Inverse of euler_angles_to_matrix for 'ZYX', the only convention
     the validation uses (train_nerf.py:521)."""
