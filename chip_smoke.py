@@ -107,6 +107,17 @@ Phases (any failed check raises, so the script exits non-zero):
   from autograd with its zero rows, and H5 or H7 on that step's
   positions;
   `validate`;
+  then the ext path (extrinsic optimisation: `optimize_ext` and
+  `lr_dR_norm_glob`, EXT_OPTIM): the step parity of a bootstrap and an sv
+  step with dR / dT / dR_glob for each field (every parameter after each
+  step held to the CPU's); the bench configuration with EXT_OPTIM through
+  `Trainer.fit` for 576 counted steps (H12, the triplane's position
+  gradient, once a step; K1 64 times), dR and dT moved and within 576
+  Adam updates at 1e-6 of their start, dR_glob exactly 0, losses falling,
+  `validate`; and 64 ext steps each of the brick (H13) and the tcnn field
+  (H14) at the bench configuration; phase 2 holds H12-H14 against their
+  plain versions on the batch, its cuts, the one-cell input and points
+  on cell and brick faces and at 0 and 1, under f32 and bf16 cotangents;
   then the preset path: the Hypersim preset's config
   (experiments/hyperparameters.py:hypersim_flags, the literal
   HYPERSIM_ARGV, through `TrainConfig.from_args`: the brick field, the
@@ -173,8 +184,8 @@ Phases (any failed check raises, so the script exits non-zero):
      counts logged beside the times; H1 also on a full bitfield, and H3's
      forward also at the first test round's shape with T_start;
   7. CUDA-graph chunks: for the triplane path's bootstrap and sv march, the
-     bitfield path's march, the brick and tcnn fields' and the preset
-     path's sv march, and the two baselines' sv march (their config's
+     bitfield path's march, the brick and tcnn fields', the preset and
+     the ext path's sv march, and the two baselines' sv march (their config's
      norm_can_start, clustering ramp and anneal_steps moved into the
      chunk, after 3 eager steps and a capture at the new step table), 16
      replays of the graph the training phase captured, each against 3
@@ -557,22 +568,56 @@ PARITY_STEPS = (("bootstrap", True, {}), ("sv", False, {}),
                 ("flat", False, dict(march_layout="flat")))
 
 
-def step_parity(layout="triplane", seed=11):
+# extrinsic optimisation, as the ext path trains it: dR / dT (H12-H14 on
+# the positions' gradient) and dR_glob, which nothing reads
+EXT_OPTIM = dict(optimize_ext=True, lr_dR_norm_glob=1e-4)
+EXT_LAYOUT_STEPS = 64   # ext steps of the brick and the tcnn field
+
+
+def ext_config(cfg):
+    return cfg.replace(optim=dataclasses.replace(cfg.optim, **EXT_OPTIM))
+
+
+def adam_step_bound(lr, b1=0.9, b2=0.999):
+    """The most one Adam update moves a value: lr |mu_hat| / sqrt(nu_hat)
+    <= lr (1 - b1) / sqrt((1 - b2) (1 - b1^2 / b2)), 7.27 lr, by
+    Cauchy-Schwarz over the moments' sums (the bias corrections' ratio
+    sqrt(1 - b2^t) / (1 - b1^t) is at most 1 for t >= 1, and eps only
+    lowers it), whatever the gradients and the clip."""
+    return lr * (1 - b1) / math.sqrt((1 - b2) * (1 - b1 * b1 / b2))
+
+
+def param_tolerance(g, lr):
+    """A parameter after one step on the card against the CPU's, where the
+    gradients agree to 1e-3 of the largest: 1e-2 of the step's lr, and 2 lr
+    where the CPU's gradient is within that tolerance of 0 (a first Adam
+    step is g / (|g| + eps), whose sign such a gradient does not fix)."""
+    tiny = g.abs() <= 1e-3 * g.abs().max()
+    return torch.where(tiny, 2.0 * lr, 1e-2 * lr)
+
+
+def step_parity(layout="triplane", seed=11, ext=False):
     """Training steps at `small_config(layout)`, each on the card through
     the kernels and on the CPU through the plain versions, from the same
     parameters, optimizer state, occupancy and draws (made with numpy from
     `seed`): a bootstrap step, then, after a refresh that rebuilds the sv
     tables and the coarse mask, a supervoxel-run step and (triplane) a
     step of the bitfield march without the sv march and a flat-layout
-    step. The CPU path is the one the tests hold against the JAX
-    package."""
+    step. With `ext` (EXT_OPTIM: the position-gradient kernels H12-H14),
+    the bootstrap and the sv step, and every parameter after each (dR, dT
+    and dR_glob, which stays 0, among them) held to the CPU's
+    (`param_tolerance`). The CPU path is the one the tests hold against
+    the JAX package."""
     import numpy as np
     from normal_clustering_nerf_torch.datasets.synthetic import (
         SyntheticDataset)
     from normal_clustering_nerf_torch.models.occupancy import OccupancyState
     from normal_clustering_nerf_torch.training import Trainer
+    from normal_clustering_nerf_torch.training.state import constant_lr
 
     cfg = small_config(layout)
+    if ext:
+        cfg = ext_config(cfg)
     scene = SyntheticDataset(split="train", img_wh=(24, 24),
                              n_images=6).load()
     cpu = Trainer(cfg, scene, device="cpu")
@@ -582,7 +627,9 @@ def step_parity(layout="triplane", seed=11):
     rng = np.random.default_rng(seed)
     n_tri = cfg.data.batch_size // 3
     chk = Check()
-    steps = PARITY_STEPS if layout == "triplane" else PARITY_STEPS[:2]
+    steps = (PARITY_STEPS if layout == "triplane" and not ext
+             else PARITY_STEPS[:2])
+    tag = f"{layout}{', ext' if ext else ''}"
     for name, boot, render in steps:
         for t in (cpu, card):
             t.cfg = cfg.replace(render=dataclasses.replace(cfg.render,
@@ -600,7 +647,7 @@ def step_parity(layout="triplane", seed=11):
         ref = cpu.train_step_core(bootstrap=boot, draws=draws)
         got = {k: v.cpu() for k, v in
                card.train_step_core(bootstrap=boot, draws=draws).items()}
-        log(f"step parity, {layout}, {name} step "
+        log(f"step parity, {tag}, {name} step "
             f"at grid {cfg.model.grid_size}, batch {cfg.data.batch_size}, "
             f"f32: the card against the CPU (rm/ray "
             f"{float(ref['rm_samples_per_ray']):.3f}, trunc "
@@ -620,12 +667,21 @@ def step_parity(layout="triplane", seed=11):
                       torch.round(ref[k] * n_rays))
         for n, g in cpu.last_grads.items():
             chk.close(f"d {n}", card.last_grads[n].cpu(), g, 1e-3)
+        if ext:
+            for n, p in cpu.params.items():
+                lr = constant_lr(n, cfg.optim) or cfg.optim.lr
+                chk.within(f"{n} after the step", card.params[n].detach()
+                           .cpu(), p.detach(),
+                           param_tolerance(cpu.last_grads[n], lr))
+            chk.equal("dR_glob after the step",
+                      card.params["dR_glob"].detach().cpu(),
+                      torch.zeros(3))
         if boot:   # the refresh that builds the sv tables and coarse mask
             cpu.occ_update(warmup=True)
             if not int(cpu.occ.sv_mask.sum()):
                 raise RuntimeError("step parity: the refresh left no "
                                    "occupied supervoxel")
-    chk.done(f"step parity, {layout}")
+    chk.done(f"step parity, {tag}")
 
 
 def main_path_inputs(tr, gen):
@@ -886,6 +942,46 @@ def edge_inputs(x, xc):
             ("one cell", xc))
 
 
+def face_inputs(x, spec, layout, gen):
+    """The batch with one coordinate of 64 samples per level (per table of
+    the triplane) on its cell faces and 64 on its stride-3 brick faces
+    (pos = x*scale + 0.5, or x*(R-1), an integer up to f32 rounding), and
+    16 samples at x = 0 and at 1.0 (where the brick and hash corners clamp
+    and the triplane's clip holds)."""
+    x = x.clone()
+    if layout == "triplane":
+        levels = [(float(r - 1), 0.0, r) for r in (spec.plane_res,
+                                                   spec.grid3d_res)]
+    else:
+        levels = [(spec.scales[l], 0.5, spec.resolutions[l])
+                  for l in range(spec.n_levels)]
+    i, dev = 0, x.device
+    for scale, off, res in levels:
+        for step in (1, 3):
+            n = step * torch.randint(0, max(res // step, 1), (64,),
+                                     generator=gen, device=dev)
+            a = int(torch.randint(0, 3, (1,), generator=gen, device=dev))
+            v = (n.float() - off) / torch.tensor(scale, dtype=torch.float32)
+            x[i:i + 64, a] = v.clamp(0.0, 1.0)
+            i += 64
+    x[i:i + 16] = 1.0
+    x[i + 16:i + 32] = 0.0
+    return x.contiguous()
+
+
+def check_dx(chk, label, kernel, plain, x, g, where):
+    """A position-gradient kernel (H12-H14) against its plain version on
+    `x` under the cotangent `g`: within DX_TOL of the largest |dx| (the
+    same chains of f32 operations in the same order, so a difference is
+    counted and logged). Returns the largest error."""
+    got, ref = kernel(x, g), plain(x, g.float())
+    bad = int((got != ref).sum())
+    log(f"  {label} {where}, {g.dtype} cotangent: {bad} of {ref.numel()} "
+        f"values differ from the plain version")
+    return chk.close(f"{label} {where}, {g.dtype} cotangent", got, ref,
+                     DX_TOL)
+
+
 def check_triplane_fwd(chk, planes, grid3d, x, spec, where):
     """H2's forward against its plain version on `x`, with f32 and bf16
     rows and f32 and bf16 output: f32 output within 2e-6 of the largest
@@ -1059,6 +1155,25 @@ def check_kernels(tr, gen):
         fill=(lambda: (torch.zeros(shapes[0], dtype=f32, device=x.device),
                        torch.zeros(shapes[1], dtype=f32, device=x.device))),
         bound=bound(nbytes(x, g) + nbytes(planes, grid3d), fwd_flops))
+
+    # H12: the position gradient, f32 and bf16 cotangents, on the batch,
+    # its cuts, the one-cell input and the faces
+    dx_k = lambda xx, gg: tp.encode_dx_kernel(planes, grid3d, xx, gg, spec)
+    dx_p = lambda xx, gg: tp.encode_dx_plain(planes, grid3d, xx, gg, spec)
+    # (drawn apart, so that the later checks keep their inputs)
+    xf = face_inputs(x, spec, "triplane",
+                     torch.Generator(device=x.device).manual_seed(10))
+    derrs = []
+    for where, xx in (("batch", x), ("faces", xf)) + edge_inputs(x, xc):
+        for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
+            derrs.append(check_dx(chk, "H12 dx", dx_k, dx_p, xx, gg, where))
+    g_dt = g.to(out_dt)   # the cotangent as a training step hands it
+    rec["triplane_dx"] = dict(
+        err=max(derrs), kernel=(lambda: dx_k(x, g_dt)),
+        plain=(lambda: dx_p(x, g_dt.float())),
+        library=(lambda: torch.index_select(all_rows, 0, rows)),
+        bound=bound(nbytes(x, g_dt) + table_b + 12 * M,
+                    M * TRIPLANE_DX_OPS))
 
     # H3 and H4 at two inputs: the untrained field's sigmas (the main
     # path's; no ray reaches T_threshold there), and the same sigmas scaled
@@ -1333,6 +1448,14 @@ PATH_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
                 "distortion_fwd", "distortion_bwd", "march_sv_train")
 P4_POINTS = 262_144   # experiments/pallas_gather2.py: M = 8192 rays x 32
 ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
+# f32 operations of the position gradients: per (sample, level) of H13 /
+# H14, the geometry (20), each of 8 corners' dot (3) and its 3 axis terms
+# (4 each), the scale and the level sum (6); per sample of H12, each
+# plane's 32 products and sums, 4 corners x 2 axes (3 each), the grid's 32
+# and 8 x 3 (4 each), and the geometry of the 4 tables (40)
+DX_OPS = 20 + 8 * (3 + 3 * 4) + 6
+TRIPLANE_DX_OPS = 3 * (64 + 4 * 2 * 3) + (64 + 8 * 3 * 4) + 40
+DX_TOL = 1e-6   # kernel against plain: the same chains of f32 operations
 
 
 def encode_module(layout):
@@ -1464,6 +1587,24 @@ def check_encoding(tr, gen):
         fill=(lambda: torch.zeros(spec.table_shape(), dtype=f32,
                                   device=x.device)),
         bound=bound(nbytes(x, g, table), ops))}
+    # H13 / H14: the position gradient, f32 and bf16 cotangents, on the
+    # batch, its cuts, the one-cell input and the faces (drawn apart)
+    dxl = {"brick": "brick_dx", "tcnn": "hash_grid_dx"}[layout]
+    dx_k = lambda xx, gg: mod.encode_dx_kernel(table, xx, gg, spec)
+    dx_p = lambda xx, gg: mod.encode_dx_plain(table, xx, gg, spec)
+    xf = face_inputs(x, spec, layout,
+                     torch.Generator(device=x.device).manual_seed(10))
+    derrs = []
+    for where, xx in (("batch", x), ("faces", xf)) + edge_inputs(x, xc):
+        for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
+            derrs.append(check_dx(chk, f"{LABEL[dxl]} dx", dx_k, dx_p, xx,
+                                  gg, where))
+    g_dt = g.to(out_dt)   # the cotangent as a training step hands it
+    rec[dxl] = dict(
+        err=max(derrs), kernel=(lambda: dx_k(x, g_dt)),
+        plain=(lambda: dx_p(x, g_dt.float())),
+        library=(lambda: torch.index_select(src, 0, rows)),
+        bound=bound(nbytes(x, g_dt) + touched + 12 * M, M * L * DX_OPS))
     if layout == "brick":
         # P4's shape: the (16, 8192, 128) table and 262,144 points, whose
         # rows P4 gathers whole into a (16, 262144, 128) f32 array
@@ -2418,6 +2559,10 @@ REPLACES = {
     "composite_seg_bwd": "normal_clustering_nerf_tpu/ops/composite.py:86",
     "distortion_seg_fwd": "normal_clustering_nerf_tpu/ops/distortion.py:19",
     "distortion_seg_bwd": "normal_clustering_nerf_tpu/ops/distortion.py:19",
+    # the need_dx branches of the encodes' custom VJPs
+    "triplane_dx": "normal_clustering_nerf_tpu/models/triplane.py:230",
+    "brick_dx": "normal_clustering_nerf_tpu/models/brick_hash.py:225",
+    "hash_grid_dx": "normal_clustering_nerf_tpu/models/hash_encoding.py:228",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
@@ -2427,7 +2572,8 @@ LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "hash_grid_bwd": "H8", "march_fine_train": "H9",
          "march_fine_test_round": "H10", "compact_samples": "H11",
          "composite_seg_fwd": "H3", "composite_seg_bwd": "H3",
-         "distortion_seg_fwd": "H4", "distortion_seg_bwd": "H4"}
+         "distortion_seg_fwd": "H4", "distortion_seg_bwd": "H4",
+         "triplane_dx": "H12", "brick_dx": "H13", "hash_grid_dx": "H14"}
 
 
 def time_kernels(rec):
@@ -2662,11 +2808,69 @@ def path_training(tr, name, launches, need, exact, phases=TWO_PHASES,
     return ms, hist
 
 
+def check_pose_deltas(tr, start, n_steps):
+    """After `n_steps` ext steps from the parameters `start`: dR and dT
+    moved, no value further than n_steps Adam updates at EXT_LR can move
+    it (`adam_step_bound`), and dR_glob, which nothing reads, exactly 0."""
+    from normal_clustering_nerf_torch.training.state import EXT_LR
+    lim = n_steps * adam_step_bound(EXT_LR) * (1 + 1e-5)
+    moved = {k: float((tr.params[k].detach() - start[k]).abs().max())
+             for k in ("dR", "dT")}
+    log(f"  pose deltas after {n_steps} steps: max |d dR| {moved['dR']:.3e}, "
+        f"max |d dT| {moved['dT']:.3e} (bound {lim:.3e}: {n_steps} x "
+        f"{adam_step_bound(EXT_LR):.3e}); dR_glob "
+        f"{tr.params['dR_glob'].detach().cpu().tolist()}")
+    bad = [k for k, v in moved.items() if not 0 < v <= lim]
+    if bad or bool((tr.params["dR_glob"] != 0).any()):
+        raise RuntimeError(f"pose deltas out of bounds: {moved}, bound "
+                           f"{lim}, dR_glob {tr.params['dR_glob']}")
+
+
+def ext_path(launches):
+    """The slice's path, extrinsic optimisation (EXT_OPTIM): the step
+    parity with dR / dT / dR_glob for the three fields; the bench
+    configuration with EXT_OPTIM through `Trainer.fit` for STEPS steps
+    (H12 once a step, K1 SV_STEPS times), its pose deltas
+    (`check_pose_deltas`) and `validate`; then EXT_LAYOUT_STEPS ext steps
+    of the brick (H13) and the tcnn field (H14) at the bench
+    configuration. Returns the triplane trainer and fit's ms/step."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    for layout in ("triplane", "brick", "tcnn"):
+        step_parity(layout, seed=23, ext=True)
+    tr = build_trainer(ext_config(bench_config()), device="cuda")
+    tr.mark_invisible_cells()
+    log(f"phase 3, ext: {STEPS} training steps through Trainer.fit with "
+        f"{EXT_OPTIM} ({tr.scene_train.n_images} images' dR and dT)")
+    start = {k: p.detach().clone() for k, p in tr.params.items()}
+    ms, _ = path_training(
+        tr, "ext", launches,
+        PATH_KERNELS + FIELD_KERNELS["triplane"] + ("triplane_dx",),
+        {"march_sv_train": SV_STEPS, "triplane_dx": STEPS})
+    check_pose_deltas(tr, start, STEPS)
+    for name, c in validate(tr, "ext", ("march_sv_test_round",
+                                        "triplane_fwd",
+                                        "composite_fwd")).items():
+        launches[name] += c
+    for layout in ("brick", "tcnn"):
+        tl = build_trainer(ext_config(bench_config(hash_layout=layout)),
+                           device="cuda")
+        tl.mark_invisible_cells()
+        dx = {"brick": "brick_dx", "tcnn": "hash_grid_dx"}[layout]
+        log(f"phase 3, {layout} ext: {EXT_LAYOUT_STEPS} training steps")
+        start = {k: p.detach().clone() for k, p in tl.params.items()}
+        path_training(tl, f"{layout} ext", launches,
+                      FIELD_KERNELS[layout] + (dx, "march_bootstrap"),
+                      {dx: EXT_LAYOUT_STEPS},
+                      phases=(("bootstrap", EXT_LAYOUT_STEPS),))
+        check_pose_deltas(tl, start, EXT_LAYOUT_STEPS)
+    return tr, ms
+
+
 GRAPH_STEPS = 16   # a chunk of the graph phase: the steps between refreshes
 # the graph phase's chunks: (path, bootstrap march or not)
 GRAPH_CASES = (("triplane", True), ("triplane", False), ("bitfield", False),
                ("brick", False), ("tcnn", False), ("preset", False),
-               ("supervised", False), ("regnerf", False))
+               ("supervised", False), ("regnerf", False), ("ext", False))
 
 
 def sync(dev):
@@ -3852,6 +4056,7 @@ def main():
                                              "composite_fwd")).items():
             launches[name] += c
         paths[layout] = tl
+    paths["ext"], fit_ms["ext"] = ext_path(launches)
     paths["preset"], fit_ms["preset"] = preset_path(rec, launches, gen)
     baselines, ms = baselines_path(rec, launches, gen)
     paths.update(baselines)

@@ -173,6 +173,7 @@ class OptimConfig:
     weight_decay_net: float = 1e-6
     optimize_ext: bool = False
     lr_dR_norm_glob: float = 0.0
+    # parsed and never read, as in the JAX package
     dR_norm_glob_coding: str = "axis_angle"
     warmup_steps: int = 256
     update_interval: int = 16
@@ -180,8 +181,7 @@ class OptimConfig:
 
 # flags of the JAX CLI whose features the port does not have yet, with
 # their defaults and the ROADMAP item that brings them: from_args parses
-# them and refuses any other value (the trainer refuses optimize_ext and
-# lr_dR_norm_glob, A7)
+# them and refuses any other value
 _UNPORTED_FLAGS = {"eval_lpips": (False, "A9")}
 
 

@@ -9,8 +9,9 @@ array converts 1:1. The brick and tcnn layouts keep the table as one
 leaf, `hash_table` ((L, n_bricks, 128) or (total_rows, F), the JAX
 layouts), which `_flatten` maps to the port's single `hash_table`
 parameter (tests/test_torch_slice_layouts.py carries such a state across).
-The Manhattan-SDF angle `theta_WF`, a top-level leaf beside "model",
-becomes the port's 0-dim parameter `theta_WF`.
+The top-level leaves beside "model" keep their names: the Manhattan-SDF
+angle `theta_WF` (0-dim), the extrinsic deltas `dR` and `dT` ((n_images,
+3) each) and the global rotation `dR_glob` ((3,)).
 Inputs are numpy arrays (e.g. `np.asarray` of each leaf), so nothing of
 JAX is imported here.
 """
@@ -36,7 +37,7 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 # the JAX params tree's leaves beside "model" that the port has
-TOP_LEVEL = ("theta_WF",)
+TOP_LEVEL = ("theta_WF", "dR", "dT", "dR_glob")
 
 
 def jax_path(name: str) -> str:
@@ -50,7 +51,7 @@ def jax_path(name: str) -> str:
 def convert_params(params_np: Mapping, device) -> Dict[str, torch.Tensor]:
     """JAX params pytree (numpy leaves, with or without the top-level
     "model" key) -> {port parameter name: f32 tensor}. Beside "model", the
-    top-level leaves (`theta_WF`) keep their names."""
+    top-level leaves (`TOP_LEVEL`) keep their names."""
     if "model" in params_np:
         flat = _flatten(params_np["model"])
         flat.update(_flatten({k: v for k, v in params_np.items()
@@ -76,7 +77,7 @@ def convert_jax_state(params_np: Mapping, occ_np, optimizer,
                                        OccupancyState, Dict]:
     """(parameters, occupancy buffers, freshly built optimizer state) of
     the port from a JAX state. `optimizer` is the port's AdamW over the
-    target parameters (the model's and, with manhattan_nerf_w, theta_WF);
+    target parameters (the model's and those of `TOP_LEVEL` it has);
     the names of the JAX state's leaves, top-level ones included, must be
     exactly those. Its state is rebuilt from zero moments (count 0), as
     the JAX optimizer state is at step 0."""

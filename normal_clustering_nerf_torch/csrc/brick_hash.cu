@@ -1,9 +1,11 @@
-// H5 / H6: brick-hash multiresolution encode, forward and table gradient.
+// H5 / H6: brick-hash multiresolution encode, forward and table gradient;
+// H13: its position gradient.
 //
 // Replaces the JAX package's `brick_encode_vjp`
 // (normal_clustering_nerf_tpu/models/brick_hash.py:198-243: forward
-// `_brick_encode_impl` :178-195, backward `_brick_vjp_bwd` :208-240 with
-// need_dx=False), and with it the Pallas row-gather probes that measured
+// `_brick_encode_impl` :178-195, backward `_brick_vjp_bwd` :208-240; its
+// need_dx branch, :225-239, is H13), and with it the Pallas row-gather
+// probes that measured
 // its gather stage on the TPU: `pallas16` (experiments/pallas_gather2.py:77,
 // the 16-level gather tab[l][idx[l]]) and its one-level forms
 // `pallas_gather` (experiments/pallas_gather_probe.py:44), `pallas_rows`
@@ -88,6 +90,16 @@
 // and reach the L2 as one reduction a corner; (5) the reductions of a
 // pass are 4 cells x 8 corners, so a warp instruction touches 4 rows (1-4
 // sectors each) where a lane-per-sample pass would touch 32.
+//
+// Position gradient (H13, used when camera extrinsics are optimised):
+// per level, the dot of each corner's slot pair with the level's cotangent
+// pair, times the derivative of the corner's trilinear weight along each
+// axis, times the level's scale; the levels summed in order. It reads what
+// H5 reads (8 float2 slots a (sample, level)) and the cotangent, and
+// writes 3 values a sample: its floor is the bytes. The design is H5's
+// tile and loads; the sums are chains in a fixed order (feature, corner,
+// level), which `encode_dx_plain` repeats, so each dx is one thread's
+// (no atomics) and bit for bit the plain version's.
 #include "grad_scatter.cuh"
 
 namespace {
@@ -99,12 +111,15 @@ constexpr unsigned P1 = 2654435761u, P2 = 805459861u;   // tcnn primes
 // `_brick_geometry` / `_w64` (see the file note): the 8 corner slots and
 // weights, the offset of the brick's row in the (L, n_bricks, 128) table,
 // and the cell's key, its clipped base vertex p0 (which fixes the row and
-// the slots).
+// the slots). With `aw`, also each axis' lower and upper weights and the
+// derivative of the upper one along the axis (1, or 0 on the top face,
+// where dw4 = oh1 - oh0 vanishes): aw[3a + 0, 1, 2].
 __device__ __forceinline__ long long corners(const float* __restrict__ x,
                                              const int* __restrict__ levels,
                                              int m, int l, int n_bricks,
                                              int slot[8], float w[8],
-                                             int key[3]) {
+                                             int key[3],
+                                             float* aw = nullptr) {
   const int4 lv = reinterpret_cast<const int4*>(levels)[l];
   const float scale = __int_as_float(lv.x);
   const int res = lv.y, nb = lv.z, dense = lv.w;
@@ -127,6 +142,11 @@ __device__ __forceinline__ long long corners(const float* __restrict__ x,
     } else {
       w0[a] = omf;
       w1[a] = f;
+    }
+    if (aw) {
+      aw[3 * a] = w0[a];
+      aw[3 * a + 1] = w1[a];
+      aw[3 * a + 2] = s1[a] == s0[a] ? 0.0f : 1.0f;
     }
   }
   long long row;
@@ -198,6 +218,79 @@ __global__ void __launch_bounds__(TILE * FWD_WARPS)
                     tid, nt);
 }
 
+// H13: the position gradient. The forward's tile (x and the cotangent
+// staged once, warp w levels w, w + warps, ...; lane = sample, the 8
+// corners' slots read as H5 reads them); per (sample, level) each
+// corner's dot gd_c = v.x * g0 + v.y * g1, then along axis a the sum in
+// corner order of gd_c times the corner's weight with axis a's factor
+// replaced by its derivative (-1 / +1 for the lower / upper slot, 0 on the
+// top face), times the level's scale, into shared memory; a thread per
+// (sample, axis) adds the levels in order and writes dx.
+constexpr int DX_WARPS = 8;
+
+template <bool BF16>
+__global__ void __launch_bounds__(TILE * DX_WARPS)
+    brick_dx_kernel(const float* __restrict__ table,
+                    const float* __restrict__ x,
+                    const int* __restrict__ levels,
+                    const void* __restrict__ g, float* __restrict__ dx,
+                    int M, int L, int n_bricks) {
+  extern __shared__ float4 smem[];
+  const int width = F * L, gstride = width + 1;
+  float* xs = reinterpret_cast<float*>(smem);
+  float* gs = xs + TILE * 3;
+  float* ds = gs + TILE * gstride;   // (L, TILE, 3)
+  const int lane = threadIdx.x, warps = blockDim.y;
+  const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
+  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
+  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
+  ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * width * m0,
+                  rows * width, width, gstride, gs, tid, nt);
+  __syncthreads();
+  const int i = min(lane, rows - 1);
+  const float* x3 = xs + 3 * i;
+  for (int l = threadIdx.y; l < L; l += warps) {
+    int slot[8], key[3];
+    float w[8], aw[9];
+    const float* row = table + corners(x3, levels, 0, l, n_bricks, slot, w,
+                                       key, aw);
+    float2 v[8];
+    ncn_load_pairs<1>(row, slot, v);
+    const float g0 = gs[i * gstride + F * l], g1 = gs[i * gstride + F * l + 1];
+    const float scale = __int_as_float(levels[4 * l]);
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int cs[3] = {(c >> 2) & 1, (c >> 1) & 1, c & 1};
+      const float gd = __fadd_rn(__fmul_rn(v[c].x, g0), __fmul_rn(v[c].y, g1));
+      float wa[3], da[3];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        wa[a] = cs[a] ? aw[3 * a + 1] : aw[3 * a];
+        da[a] = cs[a] ? aw[3 * a + 2] : -aw[3 * a + 2];
+      }
+      // wx * (wy * wz) with axis a's factor replaced by its derivative
+      acc[0] = __fadd_rn(acc[0], __fmul_rn(gd, __fmul_rn(da[0],
+                                                  __fmul_rn(wa[1], wa[2]))));
+      acc[1] = __fadd_rn(acc[1], __fmul_rn(gd, __fmul_rn(wa[0],
+                                                  __fmul_rn(da[1], wa[2]))));
+      acc[2] = __fadd_rn(acc[2], __fmul_rn(gd, __fmul_rn(wa[0],
+                                                  __fmul_rn(wa[1], da[2]))));
+    }
+    if (lane < rows) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        ds[(l * TILE + lane) * 3 + a] = __fmul_rn(acc[a], scale);
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * 3; e += nt) {
+    float s = 0.0f;
+    for (int l = 0; l < L; ++l) s = __fadd_rn(s, ds[l * TILE * 3 + e]);
+    dx[3LL * m0 + e] = s;
+  }
+}
+
 // H6's geometry for grad_scatter.cuh: the corners' f32 offsets in the
 // table (below 2^31: the wrapper checks the table's size).
 struct BrickGeom {
@@ -233,4 +326,24 @@ extern "C" int brick_bwd(const void* g, const void* x, const void* levels,
   return grad_scatter::launch(
       g, x, d_table, M, L, g_bf16,
       BrickGeom{static_cast<const int*>(levels), n_bricks}, stream);
+}
+
+extern "C" int brick_dx(const void* table, const void* x, const void* levels,
+                        const void* g, void* dx, int M, int L, int n_bricks,
+                        int g_bf16, cudaStream_t stream) {
+  const int warps = L < DX_WARPS ? L : DX_WARPS;
+  const size_t bytes =
+      sizeof(float) * TILE * (3 + (F * L + 1) + 3 * L);
+  auto kernel = g_bf16 ? brick_dx_kernel<true> : brick_dx_kernel<false>;
+  if (bytes > 48 * 1024) {   // the opt-in holds per device: set it each time
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
+      static_cast<const float*>(table), static_cast<const float*>(x),
+      static_cast<const int*>(levels), g, static_cast<float*>(dx), M, L,
+      n_bricks);
+  return static_cast<int>(cudaGetLastError());
 }

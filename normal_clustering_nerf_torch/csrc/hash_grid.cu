@@ -1,10 +1,11 @@
 // H7 / H8: multiresolution hash-grid encode (the tcnn layout), forward and
-// table gradient.
+// table gradient; H14: its position gradient.
 //
 // Replaces the JAX package's `hash_encode_vjp`
 // (normal_clustering_nerf_tpu/models/hash_encoding.py:133-248: forward
 // `_hash_encode_fwd_impl` :123-130, backward `_hash_vjp_bwd` :199-245 with
-// need_dx=False and the direct scatter). No Pallas kernel: the repo's
+// the direct scatter; its need_dx branch, :227-243, is H14). No Pallas
+// kernel: the repo's
 // Pallas probes (experiments/pallas_gather*.py) measured the brick
 // encode's gather and belong to H5.
 //
@@ -57,6 +58,18 @@
 // bit and shares a sector. The run-dedupe scatter of the JAX package
 // (hash_encoding.py:154-196, off by default) computes the same sum and is
 // not ported: the warp's merge of equal cells takes its place.
+//
+// Position gradient (H14, used when camera extrinsics are optimised; tcnn's
+// dL_dinput): per level and axis a, the sum in corner order of the
+// corner's row dotted with the level's cotangent pair times
+// ((+-1 * w_o1) * w_o2) * scale, the derivative of its weight along a (o1,
+// o2 the other axes, the weights from the unclipped fraction: the clip of
+// a corner index gets no derivative, as in JAX); the levels added in
+// order. It reads what H7 reads and the cotangent and writes 3 values a
+// sample: its floor is the bytes. The design is H7's tile and loads; the
+// sums are chains in a fixed order, which `encode_dx_plain` repeats, so
+// each dx is one thread's (no atomics) and bit for bit the plain
+// version's.
 #include "grad_scatter.cuh"
 
 namespace {
@@ -67,11 +80,13 @@ constexpr unsigned P1 = 2654435761u, P2 = 805459861u;   // tcnn primes
 // Rows (absolute, in the whole table) and weights of the 8 corners of
 // level l of the sample at x (its 3 coordinates), in the operation order
 // of `_level_corners`, and the cell's key, its base vertex p0 before the
-// clip (which fixes the rows).
+// clip (which fixes the rows); with `fr`, also each axis' fraction and
+// 1 - fraction (fr[2a], fr[2a + 1]).
 __device__ __forceinline__ void corners(const float* __restrict__ x,
                                         const int* __restrict__ levels,
                                         int l, int table_size, int row[8],
-                                        float w[8], int key[3]) {
+                                        float w[8], int key[3],
+                                        float* fr = nullptr) {
   const int4 lv = reinterpret_cast<const int4*>(levels)[l];
   const float scale = __int_as_float(lv.x);
   const int res = lv.y, dense = lv.z, offset = lv.w;
@@ -85,6 +100,10 @@ __device__ __forceinline__ void corners(const float* __restrict__ x,
     omf[a] = __fsub_rn(1.0f, f[a]);
     p0[a] = static_cast<int>(p0f);
     key[a] = p0[a];
+    if (fr) {
+      fr[2 * a] = f[a];
+      fr[2 * a + 1] = omf[a];
+    }
   }
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -155,6 +174,72 @@ __global__ void __launch_bounds__(TILE * FWD_WARPS)
                     tid, nt);
 }
 
+// H14: the position gradient. H7's tile (x and the cotangent staged once,
+// warp w levels w, w + warps, ...; lane = sample, the corners' rows read
+// as H7 reads them); each (sample, level)'s 3 axis sums go to shared
+// memory, and a thread per (sample, axis) adds the levels in order and
+// writes dx.
+constexpr int DX_WARPS = 8;
+
+template <bool BF16>
+__global__ void __launch_bounds__(TILE * DX_WARPS)
+    hash_grid_dx_kernel(const float* __restrict__ table,
+                        const float* __restrict__ x,
+                        const int* __restrict__ levels,
+                        const void* __restrict__ g, float* __restrict__ dx,
+                        int M, int L, int table_size) {
+  extern __shared__ float4 smem[];
+  const int width = F * L, gstride = width + 1;
+  float* xs = reinterpret_cast<float*>(smem);
+  float* gs = xs + TILE * 3;
+  float* ds = gs + TILE * gstride;   // (L, TILE, 3)
+  const int lane = threadIdx.x, warps = blockDim.y;
+  const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
+  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
+  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
+  ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * width * m0,
+                  rows * width, width, gstride, gs, tid, nt);
+  __syncthreads();
+  const int i = min(lane, rows - 1);
+  const float* x3 = xs + 3 * i;
+  for (int l = threadIdx.y; l < L; l += warps) {
+    int row[8], key[3];
+    float w[8], fr[6];
+    corners(x3, levels, l, table_size, row, w, key, fr);
+    float2 v[8];
+    if (levels[4 * l + 2])   // dense: warp-uniform
+      ncn_load_pairs<1>(table, row, v);
+    else
+      ncn_load_pairs<4>(table, row, v);
+    const float g0 = gs[i * gstride + F * l], g1 = gs[i * gstride + F * l + 1];
+    const float scale = __int_as_float(levels[4 * l]);
+    float acc[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int cs[3] = {(c >> 2) & 1, (c >> 1) & 1, c & 1};
+      const float gd = __fadd_rn(__fmul_rn(v[c].x, g0), __fmul_rn(v[c].y, g1));
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int o1 = a == 0 ? 1 : 0, o2 = a == 2 ? 1 : 2;
+        const float w1 = cs[o1] ? fr[2 * o1] : fr[2 * o1 + 1];
+        const float w2 = cs[o2] ? fr[2 * o2] : fr[2 * o2 + 1];
+        const float dw = __fmul_rn(__fmul_rn(cs[a] ? w1 : -w1, w2), scale);
+        acc[a] = __fadd_rn(acc[a], __fmul_rn(dw, gd));
+      }
+    }
+    if (lane < rows) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) ds[(l * TILE + lane) * 3 + a] = acc[a];
+    }
+  }
+  __syncthreads();
+  for (int e = tid; e < rows * 3; e += nt) {
+    float s = 0.0f;
+    for (int l = 0; l < L; ++l) s = __fadd_rn(s, ds[l * TILE * 3 + e]);
+    dx[3LL * m0 + e] = s;
+  }
+}
+
 // H8's geometry for grad_scatter.cuh: the corners' f32 offsets in the
 // table (below 2^31: the wrapper checks the table's size).
 struct HashGeom {
@@ -198,4 +283,26 @@ extern "C" int hash_grid_bwd(const void* g, const void* x, const void* levels,
   return grad_scatter::launch(
       g, x, d_table, M, L, g_bf16,
       HashGeom{static_cast<const int*>(levels), table_size}, stream);
+}
+
+extern "C" int hash_grid_dx(const void* table, const void* x,
+                            const void* levels, const void* g, void* dx,
+                            int M, int L, int table_size, int g_bf16,
+                            cudaStream_t stream) {
+  const int warps = L < DX_WARPS ? L : DX_WARPS;
+  const size_t bytes =
+      sizeof(float) * TILE * (3 + (F * L + 1) + 3 * L);
+  auto kernel = g_bf16 ? hash_grid_dx_kernel<true>
+                       : hash_grid_dx_kernel<false>;
+  if (bytes > 48 * 1024) {   // the opt-in holds per device: set it each time
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
+      static_cast<const float*>(table), static_cast<const float*>(x),
+      static_cast<const int*>(levels), g, static_cast<float*>(dx), M, L,
+      table_size);
+  return static_cast<int>(cudaGetLastError());
 }

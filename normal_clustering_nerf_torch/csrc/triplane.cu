@@ -1,8 +1,10 @@
-// H2: triplane + coarse-grid encode, forward and backward.
+// H2: triplane + coarse-grid encode, forward and backward; H12: its
+// position gradient.
 //
 // Replaces the JAX package's `triplane_encode_vjp`
 // (normal_clustering_nerf_tpu/models/triplane.py:196-253: `_encode_impl`
-// forward, `_tp_bwd` backward with need_dx=False). No Pallas kernel: the
+// forward, `_tp_bwd` backward; its need_dx branch, :229-250, is H12). No
+// Pallas kernel: the
 // repo's Pallas probes (experiments/pallas_gather*.py) measured the brick
 // encode's gather and belong to H5.
 //
@@ -65,6 +67,19 @@
 // terms and runs are merged by segmented shuffles; here a (sample, table)
 // has 32 terms, so the terms live one a lane and a run is summed in that
 // layout, which needs neither shuffles nor 32 values a lane.
+//
+// Position gradient (H12, the need_dx branch of `_tp_bwd`, used when
+// camera extrinsics are optimised): dx[a] of each sample, the dot of each
+// corner's f32 table row with the cotangent times the derivative of the
+// corner's weight along a (+-the other axis' weight), times R - 1; the
+// clip of the position gets no derivative, as in JAX. It reads what the
+// forward reads (the f32 rows: 128 values a sample) and the cotangent,
+// and writes 3 values a sample: its floor is the bytes, ~0.04 ms at the
+// bench batch. The design is the forward's tile (a warp a table, lane =
+// term, one warp load a (sample, table)), and the sums are chains in a
+// fixed order, feature then corner then table, which `encode_dx_plain`
+// repeats, so the result is bit for bit the plain version's (no FMA
+// either side) and each dx is written by one thread: no atomics.
 #include "common.cuh"
 
 namespace {
@@ -118,13 +133,17 @@ struct Geo {
 // The cell of a sample (p: its 3 coordinates) in table t: the offset of the
 // lowest corner of feature 0 in the planes' (t < 3) or grid3d's array,
 // which fixes the cell, and its 4 (8) corner weights into w, in the
-// order of the JAX geometry.
+// order of the JAX geometry; with `aw`, also the axes' lower and upper
+// weights (u0, u1, v0, v1 of a plane; x0, x1, y0, y1, z0, z1 of grid3d).
 __device__ __forceinline__ int cell_of(int t, const float* p, const Geo& g,
-                                       float* w) {
+                                       float* w, float* aw = nullptr) {
   if (t < 3) {
     // plane t spans axes (0, 1), (0, 2), (1, 2)
     const Axis u = axis_of(t == 2 ? p[1] : p[0], g.plane_res, g.plane_hi);
     const Axis v = axis_of(t == 0 ? p[1] : p[2], g.plane_res, g.plane_hi);
+    if (aw) {
+      aw[0] = u.w0; aw[1] = u.w1; aw[2] = v.w0; aw[3] = v.w1;
+    }
     w[0] = __fmul_rn(u.w0, v.w0);
     w[1] = __fmul_rn(u.w0, v.w1);
     w[2] = __fmul_rn(u.w1, v.w0);
@@ -135,6 +154,10 @@ __device__ __forceinline__ int cell_of(int t, const float* p, const Geo& g,
   const Axis ax = axis_of(p[0], g.grid_res, g.grid_hi);
   const Axis ay = axis_of(p[1], g.grid_res, g.grid_hi);
   const Axis az = axis_of(p[2], g.grid_res, g.grid_hi);
+  if (aw) {
+    aw[0] = ax.w0; aw[1] = ax.w1; aw[2] = ay.w0; aw[3] = ay.w1;
+    aw[4] = az.w0; aw[5] = az.w1;
+  }
 #pragma unroll
   for (int c = 0; c < 8; ++c)
     w[c] = __fmul_rn(__fmul_rn((c >> 2) & 1 ? ax.w1 : ax.w0,
@@ -279,6 +302,104 @@ __global__ void __launch_bounds__(TILE * TABLES) triplane_bwd_kernel(
   }
 }
 
+// H12: the position gradient. Lane = sample finds its cell (`cell_of`)
+// and its axes' weights; then, a sample at a time, lane = term (feature f,
+// corner c) reads the term's f32 table value, as the forward does, and
+// multiplies it by the sample's cotangent g[f]; the corner's dot gd_c =
+// sum_f value * g[f] is chained through the lanes c, c + C, ... in feature
+// order into lane c, which multiplies it by the corner's weight
+// derivatives along the table's 2 (3) axes; each axis' C terms are chained
+// into lane 0 in corner order, and the sum times (R - 1) goes to shared
+// memory. A thread per (sample, axis) then adds the tables' terms in the
+// JAX order and writes dx: every value is one thread's, no atomics.
+constexpr int AWS = 7;   // a sample's 6 axis weights, 1 pad
+constexpr int DXS = 4;   // a table's 2 (3) axis terms a sample, 1 pad
+
+template <int C>
+__device__ __forceinline__ void dx_cells(const float* __restrict__ table,
+                                         int key, const float* aw,
+                                         const float* gcol, int rows,
+                                         float scale, float* dxs) {
+  constexpr int NA = C == 4 ? 2 : 3;    // axes of the table
+  const int lane = threadIdx.x, c = lane % C, off = term_offset<C>(lane);
+  const int f = lane / C;
+  for (int i = 0; i < rows; ++i) {      // warp-uniform
+    const float v = __ldg(table + __shfl_sync(FULL, key, i) + off);
+    const float prod = __fmul_rn(v, gcol[i * GSTRIDE + f]);
+    float gd = __fadd_rn(0.0f, prod);
+#pragma unroll
+    for (int j = 1; j < 32 / C; ++j)
+      gd = __fadd_rn(gd, __shfl_down_sync(FULL, prod, j * C));
+    // lane c < C: the derivatives of corner c's weight along each axis
+    const float* a = aw + i * AWS;
+    float term[NA];
+    if constexpr (C == 4) {
+      const int cu = c >> 1, cv = c & 1;
+      const float wu = cu ? a[1] : a[0], wv = cv ? a[3] : a[2];
+      term[0] = __fmul_rn(gd, cu ? wv : -wv);
+      term[1] = __fmul_rn(gd, cv ? wu : -wu);
+    } else {
+      const int cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
+      const float wx = cx ? a[1] : a[0], wy = cy ? a[3] : a[2];
+      const float wz = cz ? a[5] : a[4];
+      const float yz = __fmul_rn(wy, wz), xz = __fmul_rn(wx, wz);
+      const float xy = __fmul_rn(wx, wy);
+      term[0] = __fmul_rn(gd, cx ? yz : -yz);
+      term[1] = __fmul_rn(gd, cy ? xz : -xz);
+      term[2] = __fmul_rn(gd, cz ? xy : -xy);
+    }
+#pragma unroll
+    for (int k = 0; k < NA; ++k) {
+      float s = __fadd_rn(0.0f, term[k]);
+#pragma unroll
+      for (int j = 1; j < C; ++j)
+        s = __fadd_rn(s, __shfl_down_sync(FULL, term[k], j));
+      if (lane == 0) dxs[i * DXS + k] = __fmul_rn(s, scale);
+    }
+  }
+}
+
+template <bool BF16>
+__global__ void __launch_bounds__(TILE * TABLES) triplane_dx_kernel(
+    const float* __restrict__ x, const float* __restrict__ planes,
+    const float* __restrict__ grid, const void* __restrict__ g,
+    float* __restrict__ dx, int M, Geo geo) {
+  __shared__ float xs[TILE * 3];
+  __shared__ float gs[TILE * GSTRIDE];
+  __shared__ float ws[TABLES][TILE * WSTRIDE];
+  __shared__ float aws[TABLES][TILE * AWS];
+  __shared__ float dxs[TABLES][TILE * DXS];
+  const int lane = threadIdx.x, t = threadIdx.y;
+  const int tid = t * TILE + lane, nt = TILE * TABLES;
+  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
+  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
+  ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * GW * m0,
+                  rows * GW, GW, GSTRIDE, gs, tid, nt);
+  __syncthreads();
+  const int key = cell_of(t, xs + 3 * min(lane, rows - 1), geo,
+                          ws[t] + lane * WSTRIDE, aws[t] + lane * AWS);
+  __syncwarp();   // the axis weights are read across lanes below
+  if (t < 3)
+    dx_cells<4>(planes, key, aws[t], gs + t * FP, rows,
+                static_cast<float>(geo.plane_res - 1), dxs[t]);
+  else
+    dx_cells<8>(grid, key, aws[t], gs + 3 * FP, rows,
+                static_cast<float>(geo.grid_res - 1), dxs[t]);
+  __syncthreads();
+  // the JAX order (triplane.py:229-250): the planes xy, xz, yz add their
+  // u and v terms to their axes, then grid3d its x, y, z terms
+  for (int e = tid; e < rows * 3; e += nt) {
+    const int i = e / 3, a = e % 3;
+    const float* p0 = dxs[0] + i * DXS;
+    const float* p1 = dxs[1] + i * DXS;
+    const float* p2 = dxs[2] + i * DXS;
+    const float first = a == 0 ? p0[0] : a == 1 ? p0[1] : p1[1];
+    const float second = a == 0 ? p1[0] : a == 1 ? p2[0] : p2[1];
+    dx[3LL * m0 + e] = __fadd_rn(__fadd_rn(first, second),
+                                 dxs[3][i * DXS + a]);
+  }
+}
+
 }  // namespace
 
 extern "C" int triplane_fwd(const void* x, const void* planes,
@@ -307,5 +428,18 @@ extern "C" int triplane_bwd(const void* x, const void* g, void* d_planes,
   kernel<<<ncn_blocks(M, TILE), dim3(TILE, TABLES), 0, stream>>>(
       static_cast<const float*>(x), g, static_cast<float*>(d_planes),
       static_cast<float*>(d_grid), M, geo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int triplane_dx(const void* x, const void* planes,
+                           const void* grid, const void* g, void* dx, int M,
+                           int plane_res, int nb2, int grid_res, int nb3,
+                           int plane_rows, float plane_hi, float grid_hi,
+                           int g_bf16, cudaStream_t stream) {
+  const Geo geo{plane_res, nb2, grid_res, nb3, plane_rows, plane_hi, grid_hi};
+  auto kernel = g_bf16 ? triplane_dx_kernel<true> : triplane_dx_kernel<false>;
+  kernel<<<ncn_blocks(M, TILE), dim3(TILE, TABLES), 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(planes),
+      static_cast<const float*>(grid), g, static_cast<float*>(dx), M, geo);
   return static_cast<int>(cudaGetLastError());
 }

@@ -49,3 +49,32 @@ def get_rays(directions: torch.Tensor, c2w: torch.Tensor):
         rays_d = torch.einsum("nij,nj->ni", c2w[..., :3], directions)
         rays_o = c2w[..., 3]
     return rays_o, rays_d
+
+
+def axisangle_to_R(v: torch.Tensor) -> torch.Tensor:
+    """Rodrigues axis-angle -> rotation matrix (JAX
+    `datasets/ray_utils.py:68-90`; reference: datasets/ray_utils.py:75-101):
+    R = I + sin|v|/|v| [v]x + (1 - cos|v|)/|v|^2 [v]x^2 with |v| + 1e-7 in
+    place of |v|, in the same order of operations. v (3,) or (B, 3) ->
+    (3, 3) or (B, 3, 3).
+
+    At v = 0 the norm's gradient is taken as 0 (PyTorch's, and the
+    reference's, convention for the norm of the zero vector). JAX's
+    `jnp.linalg.norm` gives NaN there, so a JAX step from the zero
+    initialisation of dR turns every parameter to NaN; the port keeps the
+    reference's finite gradient, which equals JAX's wherever JAX's is
+    finite."""
+    single = v.ndim == 1
+    if single:
+        v = v[None]
+    zero = torch.zeros_like(v[:, :1])
+    skew = torch.stack([
+        torch.cat([zero, -v[:, 2:3], v[:, 1:2]], 1),
+        torch.cat([v[:, 2:3], zero, -v[:, 0:1]], 1),
+        torch.cat([-v[:, 1:2], v[:, 0:1], zero], 1),
+    ], dim=1)
+    norm = torch.linalg.norm(v, dim=1)[:, None, None] + 1e-7
+    eye = torch.eye(3, dtype=v.dtype, device=v.device)[None]
+    R = (eye + (torch.sin(norm) / norm) * skew
+         + ((1 - torch.cos(norm)) / norm ** 2) * (skew @ skew))
+    return R[0] if single else R

@@ -178,6 +178,9 @@ TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F, I, I])
 TRIPLANE_BWD = Kernel("triplane_bwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F, I])
+# H12-H14, the encodes' position gradients (extrinsic optimisation)
+TRIPLANE_DX = Kernel("triplane_dx", "triplane.cu",
+                     [P, P, P, P, P, I, I, I, I, I, I, F, F, I])
 COMPOSITE_FWD = Kernel("composite_fwd", "composite.cu",
                        [P, P, P, P, P, P, I, I, I, F, P, P, P, P, P])
 COMPOSITE_BWD = Kernel("composite_bwd", "composite.cu",
@@ -210,12 +213,15 @@ BRICK_FWD = Kernel("brick_fwd", "brick_hash.cu", [P, P, P, P, I, I, I, I])
 BRICK_BWD = Kernel("brick_bwd", "brick_hash.cu", [P, P, P, P, I, I, I, I])
 HASH_FWD = Kernel("hash_grid_fwd", "hash_grid.cu", [P, P, P, P, I, I, I, I])
 HASH_BWD = Kernel("hash_grid_bwd", "hash_grid.cu", [P, P, P, P, I, I, I, I])
+BRICK_DX = Kernel("brick_dx", "brick_hash.cu", [P, P, P, P, P, I, I, I, I])
+HASH_DX = Kernel("hash_grid_dx", "hash_grid.cu", [P, P, P, P, P, I, I, I, I])
 
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
                MARCH_SV_TEST, BRICK_FWD, BRICK_BWD, HASH_FWD, HASH_BWD,
                MARCH_FINE_TRAIN, MARCH_FINE_TEST, COMPACT, COMPOSITE_SEG_FWD,
-               COMPOSITE_SEG_BWD, DISTORTION_SEG_FWD, DISTORTION_SEG_BWD)
+               COMPOSITE_SEG_BWD, DISTORTION_SEG_FWD, DISTORTION_SEG_BWD,
+               TRIPLANE_DX, BRICK_DX, HASH_DX)
 
 
 def reset_counts():

@@ -11,9 +11,10 @@ the brick coordinate with the tcnn XOR-prime hash. Vertices on a
 stride-3 face are stored once per adjacent brick (brick_hash.py:30-38).
 The table is (L, n_bricks, 64*F) and converts 1:1 from JAX.
 
-`brick_encode` launches kernels H5 (forward) and H6 (table gradient) of
+`brick_encode` launches kernels H5 (forward), H6 (table gradient) and
+H13 (position gradient, for extrinsic optimisation) of
 `csrc/brick_hash.cu` for CUDA tensors, and runs `encode_plain` /
-`encode_grad_plain` for CPU tensors. The cotangent arrives in the compute
+`encode_grad_plain` / `encode_dx_plain` for CPU tensors. The cotangent arrives in the compute
 dtype, f32 or bf16: H6 reads it as it is, the plain version casts it to
 f32 first.
 """
@@ -26,6 +27,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from .. import kernels
+from ..ops.chain import chain_sum
 
 _HASH_PRIMES = (1, 2654435761, 805459861)
 
@@ -89,17 +91,10 @@ def init_brick_table(spec: BrickGridSpec, generator: torch.Generator,
 
 
 # ------------------------------------------------------------ geometry
-def level_geometry(x, spec: BrickGridSpec, l: int):
-    """Brick row (M,), the 8 corner slots (M, 8) and their trilinear
-    weights (M, 8) of level l (brick_hash.py:115-147).
-
-    pos = x*scale + 0.5 with scale the f32 the JAX level constants hold;
-    p0 = clip(floor(pos), 0, res-1) and the fraction f from the unclipped
-    position. Along an axis the lower corner is slot l0 = p0 - 3b, the
-    upper l1 = min(p0+1, res-1) - 3b; where l1 == l0 (the top face) both
-    weights fall on one slot as (1-f) + f, as the one-hot sum gives, and
-    the upper corner's weight is 0. A corner's weight is wx * (wy * wz),
-    the order of `_w64`."""
+def level_axes(x, spec: BrickGridSpec, l: int):
+    """Brick row (M,) of level l and, per axis (M, 3) each: the lower and
+    upper local slots, whether they coincide (the top face), and the
+    lower and upper weights (see `level_geometry`)."""
     scale = torch.tensor(spec.scales[l], dtype=torch.float32)
     res, nb = spec.resolutions[l], spec.nb_axis[l]
     pos = x * scale + 0.5
@@ -118,6 +113,21 @@ def level_geometry(x, spec: BrickGridSpec, l: int):
         h = (b[:, 0] * _HASH_PRIMES[0] ^ b[:, 1] * _HASH_PRIMES[1]
              ^ b[:, 2] * _HASH_PRIMES[2])
         row = h & (spec.n_bricks - 1)
+    return row, l0, l1, top, w0, w1
+
+
+def level_geometry(x, spec: BrickGridSpec, l: int):
+    """Brick row (M,), the 8 corner slots (M, 8) and their trilinear
+    weights (M, 8) of level l (brick_hash.py:115-147).
+
+    pos = x*scale + 0.5 with scale the f32 the JAX level constants hold;
+    p0 = clip(floor(pos), 0, res-1) and the fraction f from the unclipped
+    position. Along an axis the lower corner is slot l0 = p0 - 3b, the
+    upper l1 = min(p0+1, res-1) - 3b; where l1 == l0 (the top face) both
+    weights fall on one slot as (1-f) + f, as the one-hot sum gives, and
+    the upper corner's weight is 0. A corner's weight is wx * (wy * wz),
+    the order of `_w64`."""
+    row, l0, l1, _, w0, w1 = level_axes(x, spec, l)
     slots, ws = [], []
     for c in range(8):
         cx, cy, cz = (c >> 2) & 1, (c >> 1) & 1, c & 1
@@ -166,6 +176,38 @@ def encode_grad_plain(x, g, spec: BrickGridSpec):
         d_table[l].view(-1).index_add_(0, _lanes(row, slots, F).reshape(-1),
                                        upd.reshape(-1))
     return d_table
+
+
+def encode_dx_plain(table, x, g, spec: BrickGridSpec):
+    """Plain PyTorch version of H13: the position gradient (M, 3) f32 of
+    the encode under the f32 cotangent g (M, L*F), the need_dx branch of
+    `_brick_vjp_bwd` (brick_hash.py:225-239). Per level, each corner's
+    slot dotted with the level's cotangent (feature order), times the
+    corner's weight wx * (wy * wz) with axis a's factor replaced by its
+    derivative (-1 for the lower slot, +1 for the upper, 0 on the top face
+    where JAX's dw4 = oh1 - oh0 vanishes), summed in corner order, times
+    the level's scale; the levels added in order."""
+    F = spec.n_features
+    per_level = [[], [], []]
+    for l in range(spec.n_levels):
+        row, slots, _ = level_geometry(x, spec, l)
+        _, _, _, top, w0, w1 = level_axes(x, spec, l)
+        d = torch.where(top, 0.0, 1.0)
+        vals = table[l].reshape(-1)[_lanes(row, slots, F)]      # (M, 8, F)
+        g_l = g[:, l * F:(l + 1) * F]
+        acc = [[], [], []]
+        for c in range(8):
+            cs = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+            gd = chain_sum([vals[:, c, f] * g_l[:, f] for f in range(F)])
+            wa = [(w1 if cc else w0)[:, a] for a, cc in enumerate(cs)]
+            da = [d[:, a] if cc else -d[:, a] for a, cc in enumerate(cs)]
+            acc[0].append(gd * (da[0] * (wa[1] * wa[2])))
+            acc[1].append(gd * (wa[0] * (da[1] * wa[2])))
+            acc[2].append(gd * (wa[0] * (wa[1] * da[2])))
+        scale = torch.tensor(spec.scales[l], dtype=torch.float32)
+        for a in range(3):
+            per_level[a].append(chain_sum(acc[a]) * scale)
+    return torch.stack([chain_sum(t) for t in per_level], 1)
 
 
 # ------------------------------------------------------------ kernels
@@ -228,12 +270,32 @@ def encode_grad_kernel(x, g, spec: BrickGridSpec):
     return d_table
 
 
+def encode_dx_kernel(table, x, g, spec: BrickGridSpec):
+    """H13: the position gradient (M, 3) f32 of g ((M, L*F) in f32 or
+    bf16, read in its own dtype)."""
+    M, dev, args = _kernel_args(x, spec)
+    tab = kernels.check(table, "table", torch.float32, spec.table_shape(), dev)
+    if table.data_ptr() % 16:
+        raise ValueError("table: H13 reads aligned slot pairs as 16-byte "
+                         "words; the table must start 16-byte aligned")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
+    gp = kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)
+    dx = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    if M > 0:
+        kernels.BRICK_DX.launch(tab, *args, gp, kernels.ptr(dx), M,
+                                spec.n_levels, spec.n_bricks,
+                                int(g.dtype == torch.bfloat16), device=dev)
+    return dx
+
+
 class BrickEncode(torch.autograd.Function):
-    """Table gradient only (need_dx=False: no extrinsic optimisation)."""
+    """The table gradient, and the position gradient (H13) when x needs
+    one (extrinsic optimisation: JAX's need_dx)."""
 
     @staticmethod
     def forward(ctx, table, x, spec, out_dtype):
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, table)
         ctx.spec = spec
         if x.is_cuda:
             return encode_kernel(table, x, spec, out_dtype)
@@ -241,20 +303,25 @@ class BrickEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        if x.is_cuda:   # the kernel reads g in the compute dtype
-            return (encode_grad_kernel(x, g.contiguous(), ctx.spec),
-                    None, None, None)
-        return encode_grad_plain(x, g, ctx.spec), None, None, None
+        x, table = ctx.saved_tensors
+        if x.is_cuda:   # the kernels read g in the compute dtype
+            g = g.contiguous()
+            grad, dx_fn = encode_grad_kernel, encode_dx_kernel
+        else:
+            g = g.to(torch.float32)
+            grad, dx_fn = encode_grad_plain, encode_dx_plain
+        dx = (dx_fn(table, x, g, ctx.spec) if ctx.needs_input_grad[1]
+              else None)
+        return grad(x, g, ctx.spec), dx, None, None
 
 
 def brick_encode(table: torch.Tensor, x: torch.Tensor, spec: BrickGridSpec,
                  compute_dtype=torch.float32, need_dx: bool = False):
     """Encode (M, 3) positions in [0,1]^3 -> (M, L*F) features, level-major:
-    the f32 fold cast to `compute_dtype` (brick_hash.py:246-257)."""
-    if need_dx:
-        raise NotImplementedError(
-            "position gradients (extrinsic optimisation) are not ported "
-            "(ROADMAP A16)")
+    the f32 fold cast to `compute_dtype` (brick_hash.py:246-257). With
+    `need_dx`, a gradient of x (H13) is computed when x requires one;
+    without it x gets none."""
+    if not need_dx:
+        x = x.detach()
     return BrickEncode.apply(table, x.to(torch.float32).contiguous(), spec,
                              compute_dtype)

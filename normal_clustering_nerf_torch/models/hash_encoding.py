@@ -10,9 +10,10 @@ wraparound, & (T-1). All levels share one (total_rows, F) table, level l
 at row `level_offsets[l]` (level sizes aligned to 8), so it converts 1:1
 from JAX.
 
-`hash_encode` launches kernels H7 (forward) and H8 (table gradient) of
+`hash_encode` launches kernels H7 (forward), H8 (table gradient) and
+H14 (position gradient, for extrinsic optimisation) of
 `csrc/hash_grid.cu` for CUDA tensors, and runs `encode_plain` /
-`encode_grad_plain` for CPU tensors. The cotangent arrives in the
+`encode_grad_plain` / `encode_dx_plain` for CPU tensors. The cotangent arrives in the
 compute dtype, f32 or bf16: H8 reads it as it is, the plain version casts
 it to f32 first. The JAX package's optional run-dedupe scatter
 (`_run_dedupe_scatter`, behind an environment toggle, off by default)
@@ -27,6 +28,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from .. import kernels
+from ..ops.chain import chain_sum
 
 _HASH_PRIMES = (1, 2654435761, 805459861)
 
@@ -92,17 +94,22 @@ def init_hash_table(spec: HashGridSpec, generator: torch.Generator,
     return u * 2e-4 - 1e-4
 
 
+def level_fraction(x, spec: HashGridSpec, l: int):
+    """Level l's base vertex floor(x*scale + 0.5) (M, 3) int64 and the
+    unclipped fraction (M, 3), with the level's scale as an f32."""
+    scale = torch.tensor(spec.scales[l], dtype=torch.float32)
+    pos = x * scale + 0.5
+    p0f = torch.floor(pos)
+    return p0f.to(torch.int64), pos - p0f
+
+
 def level_corners(x, spec: HashGridSpec, l: int):
     """Table rows (M, 8) and trilinear weights (M, 8) of level l
     (hash_encoding.py:99-120): pos = x*scale + 0.5 with the level's scale
     as an f32, corner c = floor(pos) + (cx, cy, cz) clipped per axis,
     weight (wx * wy) * wz from the unclipped fraction."""
-    scale = torch.tensor(spec.scales[l], dtype=torch.float32)
     res = spec.resolutions[l]
-    pos = x * scale + 0.5
-    p0f = torch.floor(pos)
-    w = pos - p0f
-    p0 = p0f.to(torch.int64)
+    p0, w = level_fraction(x, spec, l)
     rows, wts = [], []
     for c in range(8):
         cx, cy, cz = (c >> 2) & 1, (c >> 1) & 1, c & 1
@@ -152,6 +159,36 @@ def encode_grad_plain(x, g, spec: HashGridSpec):
         d_table.view(-1).index_add_(0, (rows[:, :, None] * F + f).reshape(-1),
                                     upd.reshape(-1))
     return d_table
+
+
+def encode_dx_plain(table, x, g, spec: HashGridSpec):
+    """Plain PyTorch version of H14: the position gradient (M, 3) f32 of
+    the encode under the f32 cotangent g (M, L*F), the need_dx branch of
+    `_hash_vjp_bwd` (hash_encoding.py:227-243): per level and axis a, the
+    sum in corner order of ((+-1 * w_o1) * w_o2) * scale, the derivative
+    of the corner's weight along a (o1, o2 the other axes, the weights
+    from the unclipped fraction), times the corner's row dotted with the
+    level's cotangent (feature order); the levels added in order."""
+    F = spec.n_features
+    dx = [[], [], []]
+    for l in range(spec.n_levels):
+        rows, _ = level_corners(x, spec, l)
+        _, w = level_fraction(x, spec, l)
+        vals = table[rows]                                  # (M, 8, F)
+        g_l = g[:, l * F:(l + 1) * F]
+        scale = torch.tensor(spec.scales[l], dtype=torch.float32)
+        acc = [[], [], []]
+        for c in range(8):
+            cs = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+            gd = chain_sum([vals[:, c, f] * g_l[:, f] for f in range(F)])
+            for a in range(3):
+                o1, o2 = [b for b in range(3) if b != a]
+                w1 = w[:, o1] if cs[o1] else 1.0 - w[:, o1]
+                w2 = w[:, o2] if cs[o2] else 1.0 - w[:, o2]
+                acc[a].append(((w1 if cs[a] else -w1) * w2) * scale * gd)
+        for a in range(3):
+            dx[a].append(chain_sum(acc[a]))
+    return torch.stack([chain_sum(t) for t in dx], 1)
 
 
 # ------------------------------------------------------------ kernels
@@ -214,12 +251,32 @@ def encode_grad_kernel(x, g, spec: HashGridSpec):
     return d_table
 
 
+def encode_dx_kernel(table, x, g, spec: HashGridSpec):
+    """H14: the position gradient (M, 3) f32 of g ((M, L*F) in f32 or
+    bf16, read in its own dtype)."""
+    M, dev, args = _kernel_args(x, spec)
+    tab = kernels.check(table, "table", torch.float32, spec.table_shape(), dev)
+    if table.data_ptr() % 16:
+        raise ValueError("table: H14 reads aligned row pairs as 16-byte "
+                         "words; the table must start 16-byte aligned")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
+    gp = kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)
+    dx = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    if M > 0:
+        kernels.HASH_DX.launch(tab, *args, gp, kernels.ptr(dx), M,
+                               spec.n_levels, spec.table_size,
+                               int(g.dtype == torch.bfloat16), device=dev)
+    return dx
+
+
 class HashEncode(torch.autograd.Function):
-    """Table gradient only (need_dx=False: no extrinsic optimisation)."""
+    """The table gradient, and the position gradient (H14) when x needs
+    one (extrinsic optimisation: JAX's need_dx)."""
 
     @staticmethod
     def forward(ctx, table, x, spec, out_dtype):
-        ctx.save_for_backward(x)
+        ctx.save_for_backward(x, table)
         ctx.spec = spec
         if x.is_cuda:
             return encode_kernel(table, x, spec, out_dtype)
@@ -227,20 +284,25 @@ class HashEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
-        if x.is_cuda:   # the kernel reads g in the compute dtype
-            return (encode_grad_kernel(x, g.contiguous(), ctx.spec),
-                    None, None, None)
-        return encode_grad_plain(x, g, ctx.spec), None, None, None
+        x, table = ctx.saved_tensors
+        if x.is_cuda:   # the kernels read g in the compute dtype
+            g = g.contiguous()
+            grad, dx_fn = encode_grad_kernel, encode_dx_kernel
+        else:
+            g = g.to(torch.float32)
+            grad, dx_fn = encode_grad_plain, encode_dx_plain
+        dx = (dx_fn(table, x, g, ctx.spec) if ctx.needs_input_grad[1]
+              else None)
+        return grad(x, g, ctx.spec), dx, None, None
 
 
 def hash_encode(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
                 compute_dtype=torch.float32, need_dx: bool = False):
     """Encode (M, 3) positions in [0,1]^3 -> (M, L*F) features, level-major:
-    the f32 blend cast to `compute_dtype` (hash_encoding.py:251-265)."""
-    if need_dx:
-        raise NotImplementedError(
-            "position gradients (extrinsic optimisation) are not ported "
-            "(ROADMAP A16)")
+    the f32 blend cast to `compute_dtype` (hash_encoding.py:251-265). With
+    `need_dx`, a gradient of x (H14) is computed when x requires one;
+    without it x gets none."""
+    if not need_dx:
+        x = x.detach()
     return HashEncode.apply(table, x.to(torch.float32).contiguous(), spec,
                             compute_dtype)

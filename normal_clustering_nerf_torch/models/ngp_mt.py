@@ -2,9 +2,11 @@
 `models/ngp_mt.py`.
 
   * encoding, by `hash_layout` (ngp_mt.py:78-102): `triplane`, the
-    triplane + coarse grid (models/triplane.py, kernel H2); `brick`, the
-    brick-hash grid (models/brick_hash.py, kernels H5/H6); any other
-    value, the tcnn hash grid (models/hash_encoding.py, kernels H7/H8)
+    triplane + coarse grid (models/triplane.py, kernels H2, H12);
+    `brick`, the brick-hash grid (models/brick_hash.py, kernels H5/H6,
+    H13); any other value, the tcnn hash grid (models/hash_encoding.py,
+    kernels H7/H8, H14); the position-gradient kernels (H12-H14) run
+    with `need_pos_grad` (extrinsic optimisation)
   * sigma_net: enc -> 64 -> 16, ReLU, sigma = trunc_exp(h[:, 0])
   * rgb_net: [d, h] (3+16) -> 64 -> 64 -> 3, trunc_sigmoid; with
     `use_exposure` (HDR, ngp_mt.py:131-133) no output activation: the
@@ -62,10 +64,14 @@ def apply_mlp(params: nn.ParameterDict, x, out_act=None,
 
 class NGPMT(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 need_pos_grad: bool = False):
         super().__init__()
         self.cfg = cfg
         self.scale = cfg.scale
+        # position gradients through the encode (H12-H14) only when camera
+        # extrinsics are optimised (ngp_mt.py:69-76)
+        self.need_pos_grad = need_pos_grad
         grid = dict(n_levels=cfg.n_levels,
                     n_features=cfg.n_features_per_level,
                     base_res=cfg.base_resolution,
@@ -115,7 +121,8 @@ class NGPMT(nn.Module):
         table = (dict(self.hash_table)
                  if isinstance(self.hash_table, nn.ParameterDict)
                  else self.hash_table)
-        enc = self._encode(table, xn, self.spec, self.compute_dtype)
+        enc = self._encode(table, xn, self.spec, self.compute_dtype,
+                           need_dx=self.need_pos_grad)
         h = apply_mlp(self.sigma_net, enc, compute_dtype=self.compute_dtype)
         sigmas = trunc_exp(h[:, 0].to(torch.float32))
         if return_feat:

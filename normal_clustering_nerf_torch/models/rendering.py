@@ -205,6 +205,26 @@ def train_march_args(cfg, rcfg: RenderConfig, n_rays: int, kind: str) -> Dict:
                 coarse_k_blocks=rcfg.coarse_k_blocks, tail_k=tail_k)
 
 
+def march_t(t, valid, hits_t, ray_id=None):
+    """The march's sample distances `t` ((N, K), or (B,) slots of the rays
+    `ray_id`) with the gradient JAX's autodiff gives them when the rays
+    carry one (extrinsic optimisation): its marches compute t_k = t1 +
+    lo*noise + k*lo where valid, 0 elsewhere, in closed form, with t1 the
+    near end of the annealed box interval `hits_t`, so d t_k / d t1 =
+    valid. The port's marches return t without a gradient; this adds
+    valid * (t1 - t1.detach()), zero in value. JAX stops the gradient of t
+    only where it builds the sample positions; t reaches the compositing
+    (depth) and the losses with it. The term vanishes when the camera is
+    inside the box (t1 clamped to 0 or near_dist); without a gradient on
+    the rays `t` is returned as it is."""
+    if not hits_t.requires_grad:
+        return t
+    t1 = hits_t[:, 0]
+    shift = t1 - t1.detach()
+    shift = shift[:, None] if ray_id is None else shift[ray_id.to(torch.int64)]
+    return t + torch.where(valid, shift, torch.zeros_like(shift))
+
+
 def _finish(cfg, rcfg, results, comp, bg, generator, dev):
     results.update(split_rend(cfg, comp["rend"]))
     if bg is None:
@@ -245,30 +265,34 @@ def render_train(model, occ, rays_o, rays_d, rcfg: RenderConfig, *,
         raise ValueError(f"march_layout {rcfg.march_layout!r}")
     kind = train_march_kind(cfg, rcfg, occ, bootstrap)
     kw = train_march_args(cfg, rcfg, N, kind)
+    # the march sees no gradient (its plain versions would carry one)
+    geo = (rays_o.detach(), rays_d.detach(), hits_t.detach())
     if kind == "bootstrap":
-        mr = march_rays_train_bootstrap(rays_o, rays_d, hits_t,
-                                        occ.density_bitfield, noise, **kw)
+        mr = march_rays_train_bootstrap(*geo, occ.density_bitfield, noise,
+                                        **kw)
     elif kind == "sv":
-        mr = march_rays_train_dense_sv(rays_o, rays_d, hits_t, occ.sv_mask,
-                                       occ.sv_payload, noise, **kw)
+        mr = march_rays_train_dense_sv(*geo, occ.sv_mask, occ.sv_payload,
+                                       noise, **kw)
     else:
         mr = march_rays_train_dense(
-            rays_o, rays_d, hits_t, occ.density_bitfield, noise,
+            *geo, occ.density_bitfield, noise,
             coarse_occ=occ.coarse_occ if rcfg.march_coarse else None, **kw)
     K = mr.t.shape[1]
-    # t is a constant of the geometry (no gradient to the march)
+    # t is a constant of the positions (JAX's stop_gradient there); the
+    # compositing and the losses take it with its gradient (`march_t`)
     xyz = (rays_o[:, None, :] + mr.t[..., None] * rays_d[:, None, :])
+    t = march_t(mr.t, mr.valid, hits_t)
     dirs = rays_d[:, None, :].expand(N, K, 3)
     sigmas, raws = field_raws(model, xyz.reshape(N * K, 3),
                               dirs.reshape(N * K, 3))
     comp = composite_rays(sigmas.reshape(N, K), raws.reshape(N, K, -1),
-                          mr.dt, mr.t, mr.valid, rcfg.T_threshold)
+                          mr.dt, t, mr.valid, rcfg.T_threshold)
     results = {
         "opacity": comp["opacity"],
         "depth": comp["depth"],
         "ws": comp["ws"],
         "deltas": mr.dt,
-        "ts": mr.t,
+        "ts": t,
         "ray_count": mr.ray_count,
         "sample_valid": mr.valid,
         "rm_samples": mr.rm_samples,
@@ -290,16 +314,17 @@ def _render_train_flat(model, occ, rays_o, rays_d, rcfg, hits_t, noise, bg,
     budget = rcfg.sample_budget or N * 32
     kw = train_march_args(cfg, rcfg, N, "fine")
     mr = march_rays_train(
-        rays_o, rays_d, hits_t, occ.density_bitfield, noise,
-        cascades=cfg.cascades, scale=cfg.scale,
+        rays_o.detach(), rays_d.detach(), hits_t.detach(),
+        occ.density_bitfield, noise, cascades=cfg.cascades, scale=cfg.scale,
         exp_step_factor=cfg.exp_step_factor, grid_size=cfg.grid_size,
         max_samples=cfg.max_samples, sample_budget=budget,
         march_steps=rcfg.march_block, per_ray_cap=kw["samples_per_ray"],
         tail_k=kw["tail_k"])
     rid = mr.ray_id.to(torch.int64)
     xyz = rays_o[rid] + mr.t[:, None] * rays_d[rid]
+    t = march_t(mr.t, mr.valid, hits_t, rid)
     sigmas, raws = field_raws(model, xyz, rays_d[rid])
-    comp = composite_rays_compact(sigmas, raws, mr.dt, mr.t, mr.ray_id,
+    comp = composite_rays_compact(sigmas, raws, mr.dt, t, mr.ray_id,
                                   mr.ray_start, mr.valid, N, rcfg.T_threshold,
                                   ray_count=mr.ray_count)
     results = {
@@ -307,7 +332,7 @@ def _render_train_flat(model, occ, rays_o, rays_d, rcfg, hits_t, noise, bg,
         "depth": comp["depth"],
         "ws": comp["ws"],
         "deltas": mr.dt,
-        "ts": mr.t,
+        "ts": t,
         "ray_id": mr.ray_id,
         "ray_start": mr.ray_start,
         "ray_count": mr.ray_count,

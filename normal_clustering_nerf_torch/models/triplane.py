@@ -9,8 +9,9 @@ lane f*16 + s; a grid row a 4x4x4 brick of 256 values, lane f*64 + s.
 The tables convert 1:1 from JAX parameters.
 
 `triplane_encode` launches kernel H2 (`csrc/triplane.cu`) for CUDA
-tensors, forward and backward, and runs `encode_plain` /
-`encode_grad_plain` for CPU tensors. The cotangent arrives in the compute
+tensors, forward and backward, and H12 for the position gradient
+(extrinsic optimisation), and runs `encode_plain` / `encode_grad_plain`
+/ `encode_dx_plain` for CPU tensors. The cotangent arrives in the compute
 dtype, f32 or bf16: H2 reads it as it is, the plain version casts it to
 f32 first.
 """
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import kernels
+from ..ops.chain import chain_sum
 
 PLANES = ((0, 1), (0, 2), (1, 2))
 # the row-lane layout version a weights file or checkpoint records
@@ -105,13 +107,16 @@ def _axis(pos):
     return b, p0 - 3 * b, 1.0 - f, f
 
 
+def _axes(x, res: int, spec: TriplaneSpec):
+    """Each column's (brick, slot, lower weight, upper weight)."""
+    pos = torch.clamp(x * (res - 1), 0.0, spec.clip_hi(res))
+    return [_axis(pos[:, a]) for a in range(x.shape[1])]
+
+
 def plane_corners(x2, spec: TriplaneSpec):
     """(M, 2) in [0,1]^2 -> brick row (M,), 4 corner slots (M, 4) and
     their bilinear weights (M, 4) (triplane.py:129-139)."""
-    R = spec.plane_res
-    pos = torch.clamp(x2 * (R - 1), 0.0, spec.clip_hi(R))
-    bu, lu, u0, u1 = _axis(pos[:, 0])
-    bv, lv, v0, v1 = _axis(pos[:, 1])
+    (bu, lu, u0, u1), (bv, lv, v0, v1) = _axes(x2, spec.plane_res, spec)
     row = bu * spec.nb2 + bv
     s00 = lu * 4 + lv
     slots = torch.stack([s00, s00 + 1, s00 + 4, s00 + 5], dim=1)
@@ -122,11 +127,8 @@ def plane_corners(x2, spec: TriplaneSpec):
 def grid_corners(x, spec: TriplaneSpec):
     """(M, 3) in [0,1]^3 -> brick row (M,), 8 corner slots (M, 8) and
     their trilinear weights (M, 8) (triplane.py:142-154)."""
-    R = spec.grid3d_res
-    pos = torch.clamp(x * (R - 1), 0.0, spec.clip_hi(R))
-    bx, lx, x0, x1 = _axis(pos[:, 0])
-    by, ly, y0, y1 = _axis(pos[:, 1])
-    bz, lz, z0, z1 = _axis(pos[:, 2])
+    ((bx, lx, x0, x1), (by, ly, y0, y1),
+     (bz, lz, z0, z1)) = _axes(x, spec.grid3d_res, spec)
     row = (bx * spec.nb3 + by) * spec.nb3 + bz
     s000 = lx * 16 + ly * 4 + lz
     slots, ws = [], []
@@ -188,6 +190,59 @@ def encode_grad_plain(x, g, spec: TriplaneSpec, plane_shape, grid_shape):
     return d_planes, d_grid
 
 
+def _dx_terms(table_flat, lanes, g, dws, scale: float):
+    """One table's position terms: each corner's dot of its F values with
+    g (M, F), feature by feature, times each axis' weight derivatives
+    (dws: per axis, (M, C)), summed corner by corner, times `scale`."""
+    vals = table_flat[lanes]                         # (M, F, C)
+    gd = chain_sum([vals[:, f] * g[:, f, None] for f in range(g.shape[1])])
+    return [chain_sum([gd[:, c] * dw[:, c] for c in range(dw.shape[1])])
+            * scale for dw in dws]
+
+
+def encode_dx_plain(planes, grid3d, x, g, spec: TriplaneSpec):
+    """Plain PyTorch version of H12: the position gradient (M, 3) f32 of
+    the encode under the f32 cotangent g (M, 3Fp+Fg), the need_dx branch
+    of `_tp_bwd` (triplane.py:229-250). Per plane, each corner's f32 row
+    values dotted with g (feature order), times the derivative of its
+    bilinear weight along u (+-v's weight) and along v (+-u's), summed in
+    corner order, times R_p - 1; the grid's the same over 8 corners and
+    three axes, times R_g - 1. dx[a] adds the planes' terms (xy, xz, yz)
+    then the grid's, as the JAX version does; the clip of the position
+    gets no derivative there either."""
+    Fp, Fg = spec.plane_feats, spec.grid3d_feats
+    terms = [[], [], []]
+    for pi, (a, b) in enumerate(PLANES):
+        x2 = torch.stack((x[:, a], x[:, b]), 1)
+        row, slots, _ = plane_corners(x2, spec)
+        (_, _, u0, u1), (_, _, v0, v1) = _axes(x2, spec.plane_res, spec)
+        # corners (u, v) = (0, 0), (0, 1), (1, 0), (1, 1)
+        dwu = torch.stack([-v0, -v1, v0, v1], 1)
+        dwv = torch.stack([-u0, u0, -u1, u1], 1)
+        du, dv = _dx_terms(planes[pi].reshape(-1),
+                           _lanes(row, slots, Fp, 128, 16),
+                           g[:, pi * Fp:(pi + 1) * Fp], (dwu, dwv),
+                           float(spec.plane_res - 1))
+        terms[a].append(du)
+        terms[b].append(dv)
+    row, slots, _ = grid_corners(x, spec)
+    w = [(w0, w1) for _, _, w0, w1 in _axes(x, spec.grid3d_res, spec)]
+    dws = [[], [], []]
+    for c in range(8):
+        cs = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
+        pick = [w[a][cs[a]] for a in range(3)]
+        for a in range(3):
+            o1, o2 = [o for o in range(3) if o != a]
+            prod = pick[o1] * pick[o2]
+            dws[a].append(prod if cs[a] else -prod)
+    gd = _dx_terms(grid3d.reshape(-1), _lanes(row, slots, Fg, 64 * Fg, 64),
+                   g[:, 3 * Fp:], [torch.stack(d, 1) for d in dws],
+                   float(spec.grid3d_res - 1))
+    for a in range(3):
+        terms[a].append(gd[a])
+    return torch.stack([(t[0] + t[1]) + t[2] for t in terms], 1)
+
+
 # ------------------------------------------------------------ kernels
 def _kernel_geometry(spec: TriplaneSpec):
     if spec.grid3d_feats != 4:
@@ -240,17 +295,39 @@ def encode_grad_kernel(x, g, spec: TriplaneSpec, plane_shape, grid_shape):
     return d_planes, d_grid
 
 
+def encode_dx_kernel(planes, grid3d, x, g, spec: TriplaneSpec):
+    """H12: the position gradient (M, 3) f32 of g ((M, 3Fp+Fg) in f32 or
+    bf16, read in its own dtype), from the f32 tables."""
+    geo = _kernel_geometry(spec)
+    M, dev, f32 = x.shape[0], x.device, torch.float32
+    if g.dtype not in (f32, torch.bfloat16):
+        raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
+    shapes = spec.param_shapes()
+    args = [kernels.check(x, "x", f32, (M, 3), dev),
+            kernels.check(planes, "planes", f32, shapes["planes"], dev),
+            kernels.check(grid3d, "grid3d", f32, shapes["grid3d"], dev),
+            kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)]
+    dx = torch.empty((M, 3), dtype=f32, device=dev)
+    if M > 0:
+        kernels.TRIPLANE_DX.launch(*args, kernels.ptr(dx), M, *geo,
+                                   int(g.dtype == torch.bfloat16), device=dev)
+    return dx
+
+
 class TriplaneEncode(torch.autograd.Function):
-    """Table gradients only (need_dx=False: no extrinsic optimisation).
-    The encode folds bf16 rows when `out_dtype` (the compute dtype) is
-    bf16, and returns its output in `out_dtype` (H2 writes it so; the
-    plain version's f32 sum is cast), so that the cotangent comes back in
-    it: H2's backward reads a bf16 cotangent as it is, the plain version
-    casts it to f32."""
+    """Table gradients, and the position gradient when x needs one
+    (extrinsic optimisation: JAX's need_dx). The encode folds bf16 rows
+    when `out_dtype` (the compute dtype) is bf16, and returns its output
+    in `out_dtype` (H2 writes it so; the plain version's f32 sum is cast),
+    so that the cotangent comes back in it: H2's backward and H12 read a
+    bf16 cotangent as it is, the plain versions cast it to f32 (exact)."""
 
     @staticmethod
     def forward(ctx, planes, grid3d, x, spec, out_dtype):
-        ctx.save_for_backward(x)
+        if ctx.needs_input_grad[2]:
+            ctx.save_for_backward(x, planes, grid3d)
+        else:
+            ctx.save_for_backward(x)
         ctx.spec = spec
         ctx.shapes = (planes.shape, grid3d.shape)
         bf16 = out_dtype == torch.bfloat16
@@ -260,13 +337,18 @@ class TriplaneEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        (x,) = ctx.saved_tensors
+        x = ctx.saved_tensors[0]
         if x.is_cuda:
-            fn, g = encode_grad_kernel, g.contiguous()
+            g = g.contiguous()
+            grad, dx_fn = encode_grad_kernel, encode_dx_kernel
         else:
-            fn, g = encode_grad_plain, g.to(torch.float32)
-        d_planes, d_grid = fn(x, g, ctx.spec, *ctx.shapes)
-        return d_planes, d_grid, None, None, None
+            g = g.to(torch.float32)
+            grad, dx_fn = encode_grad_plain, encode_dx_plain
+        d_planes, d_grid = grad(x, g, ctx.spec, *ctx.shapes)
+        dx = None
+        if ctx.needs_input_grad[2]:
+            dx = dx_fn(*ctx.saved_tensors[1:], x, g, ctx.spec)
+        return d_planes, d_grid, dx, None, None
 
 
 def triplane_encode(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -274,10 +356,10 @@ def triplane_encode(params: Dict[str, torch.Tensor], x: torch.Tensor,
                     need_dx: bool = False):
     """Encode (M, 3) positions in [0,1]^3 -> (M, 3Fp+Fg) features in
     `compute_dtype`. Under bf16 the folds use bf16 table values; the
-    output is accumulated in f32 and gradients are f32."""
-    if need_dx:
-        raise NotImplementedError(
-            "position gradients (extrinsic optimisation) are not ported "
-            "(ROADMAP A16)")
+    output is accumulated in f32 and gradients are f32. With `need_dx`,
+    a gradient of x (H12) is computed when x requires one; without it
+    (JAX's need_dx False) x gets none."""
+    if not need_dx:
+        x = x.detach()
     return TriplaneEncode.apply(params["planes"], params["grid3d"],
                                 x.contiguous(), spec, compute_dtype)

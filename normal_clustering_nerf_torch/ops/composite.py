@@ -125,20 +125,34 @@ def composite_grad_kernel(sigmas, raws, deltas, ts, valid, T_threshold,
     return d_sigmas, d_raws
 
 
+def _d_ts(ctx, g_depth, ws, ray_id=None):
+    """The gradient of ts when they carry one (extrinsic optimisation: the
+    march's start moves with the pose, models/rendering.py:march_t):
+    depth = sum ws * ts gives g_depth * ws (the segment's g_depth in the
+    flat layout); None otherwise, and when depth has no cotangent."""
+    if not ctx.needs_input_grad[3] or g_depth is None:
+        return None
+    g = g_depth.to(torch.float32)
+    if ray_id is None:
+        return g[:, None] * ws
+    rid = ray_id.to(torch.int64).clamp(0, g.shape[0] - 1)
+    return g[rid] * ws
+
+
 class CompositeRays(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sigmas, raws, deltas, ts, valid, T_threshold):
         fn = composite_kernel if sigmas.is_cuda else composite_plain
         opacity, depth, rend, ws, vr = fn(sigmas, raws, deltas, ts, valid,
                                           T_threshold)
-        ctx.save_for_backward(sigmas, raws, deltas, ts, valid)
+        ctx.save_for_backward(sigmas, raws, deltas, ts, valid, ws)
         ctx.T_threshold = T_threshold
         ctx.mark_non_differentiable(vr)
         return opacity, depth, rend, ws, vr
 
     @staticmethod
     def backward(ctx, g_op, g_depth, g_rend, g_ws, _g_vr):
-        sigmas, raws, deltas, ts, valid = ctx.saved_tensors
+        sigmas, raws, deltas, ts, valid, ws = ctx.saved_tensors
         N, K = sigmas.shape
 
         def grad(g, shape):
@@ -152,7 +166,7 @@ class CompositeRays(torch.autograd.Function):
         fn = composite_grad_kernel if sigmas.is_cuda else composite_grad_plain
         d_sigmas, d_raws = fn(sigmas, raws, deltas, ts, valid,
                               ctx.T_threshold, *gs)
-        return d_sigmas, d_raws, None, None, None, None
+        return d_sigmas, d_raws, None, _d_ts(ctx, g_depth, ws), None, None
 
 
 def composite_rays(sigmas, raws, deltas, ts, valid, T_threshold=1e-4,
@@ -163,7 +177,8 @@ def composite_rays(sigmas, raws, deltas, ts, valid, T_threshold=1e-4,
     T_start: optional (N,) transmittance each ray enters with (inference
     rounds continue a ray's composite; no gradient then).
     Returns opacity (N,), depth (N,), rend (N, C), ws (N, K) and
-    vr_samples (N,) int32. Gradients flow to sigmas and raws.
+    vr_samples (N,) int32. Gradients flow to sigmas and raws, and to ts
+    when they carry one (depth = sum ws * ts).
     """
     args = (sigmas.contiguous(), raws.contiguous(), deltas.contiguous(),
             ts.contiguous(), valid.contiguous(), float(T_threshold))
@@ -278,7 +293,7 @@ class CompositeRaysCompact(torch.autograd.Function):
             out = composite_compact_plain(sigmas, raws, deltas, ts, ray_id,
                                           ray_start, valid, N, T_threshold)
         ctx.save_for_backward(sigmas, raws, deltas, ts, ray_id, ray_start,
-                              ray_count, valid)
+                              ray_count, valid, out[3])
         ctx.T_threshold = T_threshold
         ctx.mark_non_differentiable(out[4])
         return out
@@ -286,7 +301,7 @@ class CompositeRaysCompact(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_op, g_depth, g_rend, g_ws, _g_vr):
         (sigmas, raws, deltas, ts, ray_id, ray_start, ray_count,
-         valid) = ctx.saved_tensors
+         valid, ws) = ctx.saved_tensors
         N, B = ray_start.shape[0], sigmas.shape[0]
 
         def grad(g, shape):
@@ -305,7 +320,8 @@ class CompositeRaysCompact(torch.autograd.Function):
             d_sigmas, d_raws = composite_compact_grad_plain(
                 sigmas, raws, deltas, ts, ray_id, ray_start, valid, N,
                 ctx.T_threshold, *gs)
-        return d_sigmas, d_raws, None, None, None, None, None, None, None
+        return (d_sigmas, d_raws, None, _d_ts(ctx, g_depth, ws, ray_id),
+                None, None, None, None, None)
 
 
 def composite_rays_compact(sigmas, raws, deltas, ts, ray_id, ray_start,
@@ -321,7 +337,7 @@ def composite_rays_compact(sigmas, raws, deltas, ts, ray_id, ray_start,
     ray_start, ray_count: (N,) int32; valid: (B,) bool; T_start: optional
     (N,) entering transmittance (forward only). Returns opacity (N,),
     depth (N,), rend (N, C), ws (B,) and vr_samples (N,) int32; gradients
-    flow to sigmas and raws.
+    flow to sigmas and raws, and to ts when they carry one.
     """
     if ray_start.shape[0] != n_rays:
         raise ValueError(f"ray_start holds {ray_start.shape[0]} rays, "

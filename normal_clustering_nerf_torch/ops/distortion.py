@@ -5,8 +5,13 @@ models/csrc/losses.cu:62-140).
 
 Per ray: sum_s 2*(wts_incl_s*ws_excl_s - ws_incl_s*wts_excl_s)
 + w_s^2*delta_s/3 over valid samples. The backward is the closed form of
-`distortion_reference_grad`; gradients flow to `ws` only (t and delta
-are constants of the march).
+`distortion_reference_grad`; gradients flow to `ws` only. delta is a
+constant of the march, and t carries at most the gradient of the march's
+start under extrinsic optimisation (`models/rendering.py:march_t`), the
+same for every valid sample of a ray: the loss, a sum of w_i w_j |t_i -
+t_j| and w^2 delta terms, does not change when a ray's valid ts move
+together, so that gradient's share of it is 0 (JAX's autodiff gives 0 up
+to rounding).
 
 `distortion_loss_dense` launches kernel H4 (`csrc/distortion.cu`) for
 CUDA tensors and runs the plain versions for CPU tensors;

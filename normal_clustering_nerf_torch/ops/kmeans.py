@@ -34,7 +34,7 @@ def spherical_kmeans(normals, valid, K: int = 20, niter: int = 20, *,
     w = valid.to(normals.dtype)[:, None]
     for _ in range(niter):
         assign = torch.argmax(normals @ centroids.T, dim=-1)
-        sums = _cluster_sums(normals * w, assign, K)
+        sums = cluster_sums(normals * w, assign, K)
         norm = torch.linalg.norm(sums, dim=-1, keepdim=True)
         centroids = torch.where(norm > 1e-12,
                                 sums / torch.clamp(norm, min=1e-12),
@@ -43,11 +43,12 @@ def spherical_kmeans(normals, valid, K: int = 20, niter: int = 20, *,
     return centroids, assign
 
 
-def _cluster_sums(x, assign, K: int):
+def cluster_sums(x, assign, K: int):
     """(K, D) sums of the rows of x (M, D) by cluster: on the CPU added
     in row order (index_add_, as the JAX segment sum does); on the card
     `masked_sums`, whose order is fixed, where index_add_'s float atomics
-    add in an order that changes from run to run."""
+    add in an order that changes from run to run (a CUDA graph's replay
+    would part from an eager step in the last bits)."""
     if x.is_cuda:
         return masked_sums(x, assign, K)
     return torch.zeros((K, x.shape[1]), dtype=x.dtype,

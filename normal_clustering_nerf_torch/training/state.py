@@ -3,9 +3,13 @@
 The JAX package optimises with
 `optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, eps=1e-15,
 weight_decay=1e-6, mask=not hash_table))` (training/state.py:43-79), and
-the Manhattan-SDF angle `theta_WF`, a parameter beside the model's, with
-`adam(schedule, eps=1e-15)`: the same update without weight decay, its
-gradient clipped with the others. This class repeats optax's arithmetic
+the parameters beside the model's each with its own Adam, no weight
+decay, their gradients clipped with the others: the Manhattan-SDF angle
+`theta_WF` with `adam(schedule)`, the per-image extrinsic deltas `dR` and
+`dT` (`optimize_ext`) with `adam(1e-6)`, the global normal-frame rotation
+`dR_glob` (`lr_dR_norm_glob > 0`) with `adam(lr_dR_norm_glob)`; a
+constant lr is a 0-dim tensor on the device, which the update scales by
+its negation as optax's `scale(-lr)` does. This class repeats optax's arithmetic
 in the same order, so a step from the same gradients gives the same
 parameters to f32 rounding:
 
@@ -61,11 +65,25 @@ def cosine_epoch_lr(base_lr: float, num_epochs: int, steps_per_epoch: int,
     return float(f32(base_lr * 0.5) * (f32(1.0) + c))
 
 
+# the lr of the extrinsic deltas dR / dT (state.py:69-71; reference:
+# train_nerf.py:267-270)
+EXT_LR = 1e-6
+
+
 def decays(name: str) -> bool:
     """Weight decay on the networks; none on the hash table
-    (train_nerf.py:284-285) or on theta_WF, which JAX's `build_optimizer`
-    gives plain Adam."""
-    return name.split(".")[0] not in ("hash_table", "theta_WF")
+    (train_nerf.py:284-285) or on the parameters beside the model's
+    (theta_WF, dR, dT, dR_glob), which JAX's `build_optimizer` gives plain
+    Adam."""
+    return name.split(".")[0] not in ("hash_table", "theta_WF", "dR", "dT",
+                                      "dR_glob")
+
+
+def constant_lr(name: str, cfg: OptimConfig):
+    """The constant lr of a parameter outside the cosine schedule: EXT_LR
+    for dR and dT, lr_dR_norm_glob for dR_glob; None for the others."""
+    return {"dR": EXT_LR, "dT": EXT_LR,
+            "dR_glob": cfg.lr_dR_norm_glob}.get(name)
 
 
 class AdamW:
@@ -77,10 +95,15 @@ class AdamW:
         self.cfg = cfg
         self.b1, self.b2 = b1, b2
         self.state = self.init_state()
+        dev = next(iter(params.values())).device
         # the count on the device, which `update` advances (a captured
         # step included); state["count"] is its host copy (`advance`)
-        self.count_t = torch.zeros((), dtype=torch.int64,
-                                   device=next(iter(params.values())).device)
+        self.count_t = torch.zeros((), dtype=torch.int64, device=dev)
+        # -lr of the parameters at a constant lr, as the f32 optax scales by
+        self.neg_const_lr = {
+            n: torch.tensor(-constant_lr(n, cfg), dtype=torch.float32,
+                            device=dev)
+            for n in params if constant_lr(n, cfg) is not None}
 
     def init_state(self) -> Dict:
         return {"count": 0,
@@ -137,7 +160,7 @@ class AdamW:
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.cfg.adam_eps)
             if decays(n):
                 u = u + wd * p
-            p.add_(u * neg_lr)
+            p.add_(u * self.neg_const_lr.get(n, neg_lr))
         self.count_t.add_(1)
         return g_norm
 

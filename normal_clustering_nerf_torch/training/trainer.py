@@ -8,8 +8,11 @@ the supervoxel-run march or the bitfield march, or the flat layout's
 march from step 0, as `render.march_layout` and `render.march_coarse`
 choose; the field, compositing) -> multi-task loss (the Manhattan-SDF
 term with its learned angle `theta_WF`, a parameter beside the model's)
--> gradients -> optax-equivalent clipped AdamW. `fit` refreshes the occupancy grid every
-`update_interval` steps (every cell before `warmup_steps`) and runs the
+-> gradients -> optax-equivalent clipped AdamW (with `optimize_ext` the
+per-image pose deltas dR / dT at their own lr, the positions' gradient
+reaching them through the encode's H12-H14). `fit` refreshes the
+occupancy grid every `update_interval` steps (every cell before
+`warmup_steps`) and runs the
 steps between two refreshes as one chunk (`train_chunk`, the JAX
 trainer's `_make_chunk_fn`). `validate` renders the held-out views
 (`render_images`), computes the metric suite and recovers the Manhattan
@@ -47,7 +50,7 @@ from .. import kernels
 from ..config import TrainConfig
 from ..datasets.base import SceneData, generate_random_poses
 from ..datasets.normals import extract_normals_from_depth_batch
-from ..datasets.ray_utils import get_rays
+from ..datasets.ray_utils import axisangle_to_R, get_rays
 from ..datasets.sampler import RaySampler
 from ..device import resolve_device
 from ..losses import compute_losses
@@ -55,6 +58,7 @@ from ..metrics import NeRFMTMetricsPerIm
 from ..models.ngp_mt import NGPMT
 from ..models.occupancy import OccupancyGrid, OccupancyState
 from ..models.rendering import render_test, render_train, train_march_kind
+from ..ops.kmeans import cluster_sums
 from ..utils.rotations import R_offset_from_angles
 from .rotation_recovery import rotation_recovery_errors
 from .state import OPT_COLUMNS, SCHEDULE_COLUMNS, AdamW, schedule_table
@@ -66,6 +70,26 @@ _log = logging.getLogger(__name__)
 # initialisation, the kernels' libraries, cuBLAS's handles)
 GRAPH_WARMUP = 3
 RANDOM_POSES = 10000   # random unseen poses of random_tr_poses (trainer.py:82)
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return cluster_sums(g, idx, ctx.n_rows), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] (2-D) whose gradient sums each row's entries in a fixed
+    order (`ops.kmeans.cluster_sums`): index_add_'s atomics on the card
+    would part graph replays from eager steps, which AdamW amplifies."""
+    return _GatherRows.apply(table, idx)
 
 
 def loss_labels(cfg: TrainConfig) -> tuple:
@@ -108,12 +132,9 @@ class Trainer:
         if cfg.render.bootstrap_steps % cfg.optim.update_interval != 0:
             raise ValueError("render.bootstrap_steps must be a multiple of "
                              "optim.update_interval")
-        unported = [f"{k} (ROADMAP {item})" for k, on, item in (
-            ("optimize_ext", cfg.optim.optimize_ext, "A7"),
-            ("lr_dR_norm_glob", cfg.optim.lr_dR_norm_glob > 0, "A7"),
-            ("host_sampler", cfg.data.host_sampler, "A9")) if on]
-        if unported:
-            raise NotImplementedError(f"not ported: {unported}")
+        if cfg.data.host_sampler:
+            raise NotImplementedError(
+                "not ported: ['host_sampler (ROADMAP A9)']")
         if cfg.data.keep_N_tr != -1:
             scene_train = scene_train.keep_first_n(cfg.data.keep_N_tr)
         self.cfg = cfg
@@ -121,7 +142,12 @@ class Trainer:
         self.scene_test = scene_test
         self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
         init_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
-        self.model = NGPMT(cfg.model, dev, generator=init_gen)
+        o = cfg.optim
+        # position gradients through the encode (H12-H14) when the
+        # extrinsics are optimised or dR_glob is (trainer.py:71-72)
+        self.model = NGPMT(cfg.model, dev, generator=init_gen,
+                           need_pos_grad=o.optimize_ext
+                           or o.lr_dR_norm_glob > 0)
         self.occ_grid = OccupancyGrid(cfg.model, dev)
         # random unseen poses (trainer.py:79-90), held once on the device:
         # a step takes its rows by a device index
@@ -155,6 +181,19 @@ class Trainer:
             self.scene[f"label_{k}"] = torch.as_tensor(
                 scene_train.labels[k], device=dev)
         self.params = dict(self.model.named_parameters())
+        # the JAX state's leaves beside the model (state.py:89-95): the
+        # per-image extrinsic deltas (axis-angle dR, translation dT); the
+        # global normal-frame rotation dR_glob, which the JAX step creates
+        # and optimises but never reads (its gradient is 0, and it stays
+        # 0); the Manhattan-SDF wall angle
+        n_img = scene_train.n_images
+        if o.optimize_ext:
+            for k in ("dR", "dT"):
+                self.params[k] = torch.nn.Parameter(
+                    torch.zeros((n_img, 3), device=dev))
+        if o.lr_dR_norm_glob > 0:
+            self.params["dR_glob"] = torch.nn.Parameter(
+                torch.zeros(3, device=dev))
         if cfg.loss.manhattan_nerf_w > 0:
             # the Manhattan-SDF wall angle (state.py:94-95 of the JAX
             # package), optimised with the model by plain Adam
@@ -344,10 +383,17 @@ class Trainer:
         return metrics
 
     def _assemble_rays(self, batch: Dict[str, torch.Tensor]):
-        """The batch's world rays (trainer.py:242-256); with random poses
-        the same pixels again from the batch's random poses after them."""
-        poses = self.scene["poses"][batch["img_idxs"]]
+        """The batch's world rays (trainer.py:242-256): with
+        `optimize_ext`, each image's pose rotated by axisangle_to_R(dR)
+        and translated by dT; with random poses the same pixels again from
+        the batch's random poses after them (not adjusted)."""
+        img = batch["img_idxs"]
+        poses = self.scene["poses"][img]
         dirs = self.scene["directions"][batch["pix_idxs"]]
+        if "dR" in self.params:
+            rot = axisangle_to_R(gather_rows(self.params["dR"], img))
+            t = poses[..., 3] + gather_rows(self.params["dT"], img)
+            poses = torch.cat([rot @ poses[..., :3], t[..., None]], dim=-1)
         if self.random_poses is not None:
             poses = torch.cat([poses,
                                self.random_poses[batch["rnd_img_idxs"]]])

@@ -188,10 +188,11 @@ def _step_config(name):
         loss=dataclasses.replace(cfg.loss, **SWITCHES))
 
 
-def _jax_step(jt, state):
-    """One bootstrap step of JAX's `train_step_core` (trainer.py:313-385)
-    without jit: its draws in the port's form, its loss components,
-    gradients and counters, and the state after its optimizer update."""
+def _jax_step(jt, state, bootstrap=True):
+    """One step of JAX's `train_step_core` (trainer.py:313-385), the
+    bootstrap march's by default, without jit: its draws in the port's
+    form, its loss components, gradients and counters, and the state after
+    its optimizer update."""
     cfg = jt.cfg
     key, k_batch, k_render, k_loss = jax.random.split(state.key, 4)
     draws = {"batch": sampler_draws(jt.sampler, k_batch)}
@@ -217,7 +218,8 @@ def _jax_step(jt, state):
                            depth_gt=target.get("depth"),
                            coarse_occ=state.occ.coarse_occ,
                            sv_mask=state.occ.sv_mask,
-                           sv_payload=state.occ.sv_payload, bootstrap=True)
+                           sv_payload=state.occ.sv_payload,
+                           bootstrap=bootstrap)
         loss_d = compute_losses(
             res, target, cfg.loss, jt.model.cfg, step=state.step, key=k_loss,
             ray_sampling_strategy=cfg.data.ray_sampling_strategy,

@@ -1,6 +1,7 @@
-"""Brick-hash encode (kernels H5/H6's plain versions) against the JAX
-package's `brick_encode_vjp` (forward `_brick_encode_impl`, backward
-`_brick_vjp_bwd`) and its numpy oracle `brick_encode_reference_np`.
+"""Brick-hash encode (kernels H5/H6's and H13's plain versions) against
+the JAX package's `brick_encode_vjp` (forward `_brick_encode_impl`,
+backward `_brick_vjp_bwd`, with need_dx its position gradient) and its
+numpy oracle `brick_encode_reference_np`.
 
 The JAX reference runs eagerly (`jax.disable_jit()`): its forward and
 backward are `lax.scan`s, whose compiled body XLA evaluates x*scale + 0.5
@@ -121,6 +122,30 @@ def test_table_gradient_matches_jax_vjp():
     assert np.count_nonzero(ref) > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_position_gradients_match_jax(dtype):
+    """The position gradient (H13's plain version, through
+    `brick_encode(need_dx=True)`) against `jax.vjp` of the eager JAX
+    `brick_encode(need_dx=True)` in the same compute dtype, the cotangent in
+    it, on `face_points` (cell faces, stride-3 brick faces, x = 0 and 1,
+    where the corners clamp). Tolerance: 1e-5 of the largest |dx|: the
+    same products, JAX folding the 64 slots (zeros included) by einsum, the levels in another order."""
+    spec_j, spec_t, table, x, g = _case(4)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda xx: jb.brick_encode(J(table), xx, spec_j, jdt,
+                                                need_dx=True), J(x))
+        ref = np.asarray(vjp(J(g, jdt))[0])
+    xt = T(x).requires_grad_(True)
+    tb.brick_encode(T(table), xt, spec_t, dtype, need_dx=True).backward(
+        T(g).to(dtype))
+    np.testing.assert_allclose(N(xt.grad), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    gf = T(g).to(dtype).to(torch.float32)
+    np.testing.assert_array_equal(
+        N(tb.encode_dx_plain(T(table), T(x), gf, spec_t)), N(xt.grad))
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """No fallback: the kernel wrappers take CUDA tensors only, and
     `brick_encode` picks them by the tensor's device."""
@@ -129,8 +154,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tb.encode_kernel(T(table), T(x), spec_t)
     with pytest.raises(ValueError, match="CUDA"):
         tb.encode_grad_kernel(T(x), T(g), spec_t)
-    with pytest.raises(NotImplementedError):
-        tb.brick_encode(T(table), T(x), spec_t, need_dx=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.encode_dx_kernel(T(table), T(x), T(g), spec_t)
 
 
 @settings(max_examples=25, deadline=None, database=None)

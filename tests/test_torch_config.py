@@ -95,13 +95,11 @@ def test_debug_overrides_match_jax(argv):
 
 
 @pytest.mark.parametrize("flag,item", [("--eval_lpips", "A9"),
-                                       ("--num_chips=4", "A10"),
-                                       ("--optimize_ext", "A7"),
-                                       ("--lr_dR_norm_glob=0.1", "A7")])
+                                       ("--num_chips=4", "A10")])
 def test_unported_flags_are_refused(flag, item):
     """The CLI refuses them naming their ROADMAP item: LPIPS and more
-    than one card when it parses the flags, extrinsic optimisation when
-    it builds the trainer."""
+    than one card when it parses the flags (extrinsic optimisation trains:
+    tests/test_torch_extrinsics.py)."""
     from normal_clustering_nerf_torch.train_nerf import main
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main([flag, "--dataset_name=synthetic"], device="cpu")

@@ -1,6 +1,7 @@
-"""tcnn hash-grid encode (kernels H7/H8's plain versions) against the JAX
-package's `hash_encode_vjp` (forward `_hash_encode_fwd_impl`, backward
-`_hash_vjp_bwd`, direct scatter) and its numpy oracle
+"""tcnn hash-grid encode (kernels H7/H8's and H14's plain versions)
+against the JAX package's `hash_encode_vjp` (forward
+`_hash_encode_fwd_impl`, backward `_hash_vjp_bwd`, direct scatter, with
+need_dx its position gradient) and its numpy oracle
 `hash_encode_reference_np`.
 
 The JAX reference runs eagerly (`jax.disable_jit()`), so that
@@ -96,14 +97,38 @@ def test_table_gradient_matches_jax_vjp():
     assert np.count_nonzero(ref) > 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_position_gradients_match_jax(dtype):
+    """The position gradient (H14's plain version, through
+    `hash_encode(need_dx=True)`) against `jax.vjp` of the eager JAX
+    `hash_encode(need_dx=True)` in the same compute dtype, the cotangent in
+    it, on `face_points` (cell faces, stride-3 brick faces, x = 0 and 1,
+    where the corners clamp). Tolerance: 1e-5 of the largest |dx|: the
+    same products, JAX summing by einsum, the levels in another order."""
+    spec_j, spec_t, table, x, g = _case(4)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda xx: jh.hash_encode(J(table), xx, spec_j, jdt,
+                                                need_dx=True), J(x))
+        ref = np.asarray(vjp(J(g, jdt))[0])
+    xt = T(x).requires_grad_(True)
+    th.hash_encode(T(table), xt, spec_t, dtype, need_dx=True).backward(
+        T(g).to(dtype))
+    np.testing.assert_allclose(N(xt.grad), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    gf = T(g).to(dtype).to(torch.float32)
+    np.testing.assert_array_equal(
+        N(th.encode_dx_plain(T(table), T(x), gf, spec_t)), N(xt.grad))
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     _, spec_t, table, x, g = _case(3)
     with pytest.raises(ValueError, match="CUDA"):
         th.encode_kernel(T(table), T(x), spec_t)
     with pytest.raises(ValueError, match="CUDA"):
         th.encode_grad_kernel(T(x), T(g), spec_t)
-    with pytest.raises(NotImplementedError):
-        th.hash_encode(T(table), T(x), spec_t, need_dx=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        th.encode_dx_kernel(T(table), T(x), T(g), spec_t)
 
 
 @settings(max_examples=25, deadline=None, database=None)

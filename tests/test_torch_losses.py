@@ -64,7 +64,7 @@ def test_card_cluster_sums_match_jax(monkeypatch):
     """The clustering with the card's fixed-order cluster sums
     (`kmeans.masked_sums`, run here on the CPU) against JAX, at the
     tolerances above."""
-    monkeypatch.setattr(tk, "_cluster_sums", tk.masked_sums)
+    monkeypatch.setattr(tk, "cluster_sums", tk.masked_sums)
     normals = np.nan_to_num(_manhattan_normals(1))
     valid = np.abs(normals).sum(-1) != 0
     key = jax.random.PRNGKey(4)

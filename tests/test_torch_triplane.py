@@ -1,6 +1,7 @@
-"""Triplane encode (kernel H2's plain versions) against the JAX package's
-`triplane_encode_vjp` (forward `_encode_impl`, backward `_tp_bwd`) and
-its numpy oracle `triplane_encode_reference_np`.
+"""Triplane encode (kernel H2's and H12's plain versions) against the JAX
+package's `triplane_encode_vjp` (forward `_encode_impl`, backward
+`_tp_bwd`, with need_dx its position gradient) and its numpy oracle
+`triplane_encode_reference_np`.
 
 Tolerances:
   * f32 forward and table gradients: rtol 1e-5, atol 1e-6 — the same
@@ -90,10 +91,50 @@ def test_table_gradients_match_jax_vjp(bf16):
                                        atol=1e-6, err_msg=k)
 
 
-def test_position_gradients_are_refused():
-    spec_j, spec_t, params, x, _ = _case(3, M=8)
-    with pytest.raises(NotImplementedError):
-        tt.triplane_encode(_tparams(params), T(x), spec_t, need_dx=True)
+def _face_points(rng, spec, x):
+    """x with one coordinate of 64 rows each on a plane cell face
+    (x*(R_p-1) an integer up to f32 rounding), a stride-3 plane brick
+    face, a grid3d cell face and a stride-3 grid3d brick face; the first
+    6 rows (the box's faces and corners, x = 1.0 where the clip holds)
+    kept."""
+    i = 6
+    for res in (spec.plane_res, spec.grid3d_res):
+        for n in (rng.integers(0, res, 64), 3 * rng.integers(0, res // 3, 64)):
+            x[i:i + 64, rng.integers(0, 3)] = (n / (res - 1)).astype(
+                np.float32)
+            i += 64
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_position_gradients_match_jax(dtype):
+    """The position gradient (H12's plain version, through
+    `triplane_encode(need_dx=True)`) against `jax.vjp` of the JAX
+    `triplane_encode(need_dx=True)` in the same compute dtype, the
+    cotangent in it (bf16: read as bf16, widened exactly), on random
+    points, cell and brick faces and the box's faces (x = 1.0, where the
+    clip gets no derivative). Tolerance: 1e-5 of the largest |dx|: the
+    same products, JAX summing 16 / 64 slots (zeros included) by einsum
+    in another order."""
+    spec_j, spec_t, params, x, g = _case(3)
+    x = _face_points(np.random.default_rng(13), spec_t, x)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    _, vjp = jax.vjp(lambda xx: jt.triplane_encode(
+        {k: J(v) for k, v in params.items()}, xx, spec_j, jdt,
+        need_dx=True), J(x))
+    ref = np.asarray(vjp(J(g, jdt))[0])
+    xt = T(x).requires_grad_(True)
+    out = tt.triplane_encode(_tparams(params), xt, spec_t, dtype,
+                             need_dx=True)
+    out.backward(T(g).to(dtype))
+    np.testing.assert_allclose(N(xt.grad), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
+    assert np.abs(ref).min() < np.abs(ref).max()
+    # the plain version itself, on the cotangent the autograd passed
+    gf = T(g).to(dtype).to(torch.float32)
+    np.testing.assert_array_equal(
+        N(tt.encode_dx_plain(T(params["planes"]), T(params["grid3d"]),
+                             T(x), gf, spec_t)), N(xt.grad))
 
 
 def test_bf16_output_matches_jax_triplane_encode():
@@ -121,6 +162,8 @@ def test_kernel_wrappers_refuse_cpu_tensors():
             tt.encode_kernel(planes, grid3d, T(x), spec_t, True, out_dtype)
     with pytest.raises(ValueError, match="CUDA"):
         tt.encode_grad_kernel(T(x), T(g), spec_t, planes.shape, grid3d.shape)
+    with pytest.raises(ValueError, match="CUDA"):
+        tt.encode_dx_kernel(planes, grid3d, T(x), T(g), spec_t)
 
 
 def test_warp_load_counter_on_hand_built_warps():
