@@ -73,7 +73,12 @@ Phases (any failed check raises, so the script exits non-zero):
      every length 0..32 and its segment forward on every length 0..64
      (bit for bit the serial order, with and without T_start), H4's
      segment launchers on every length 0..64 (bit for bit the serial
-     order and dense H4), and H3's
+     order and dense H4), H3's four launchers at C = 17, 46 and 99
+     channels (WIDE_C: past one tile of 16; 3 + 3 + NYU40's 40 classes;
+     four forward passes): the dense forward at K = 1, 16, 33, 64 with and
+     without T_start and the dense backward at K = 1, 16, 32 bit for bit
+     their serial orders (`composite_serial`, `composite_grad_serial`),
+     the segment launchers on every length 0..32 / 0..64, and H3's
      forward with T_start on the first test round's samples;
   5. validation: counts to 0, `Trainer.validate()` on the 4 held-out
      views, counts read: the test-round march, the field and the
@@ -118,6 +123,17 @@ Phases (any failed check raises, so the script exits non-zero):
   (H14) at the bench configuration; phase 2 holds H12-H14 against their
   plain versions on the batch, its cuts, the one-cell input and points
   on cell and brick faces and at 0 and 1, under f32 and bf16 cotangents;
+  then the 40-class path (`sem40_path`): the bench configuration on the
+  synthetic room with its semantics relabelled into 40 classes by a fixed
+  function of the pixel (C = 46), 64 counted steps through `Trainer.fit`
+  (a CUDA graph captured; H3 forward and backward launched, losses
+  finite) and `validate` through test rounds at 46 channels, which must
+  give a miou column; then the host-sampler path (`host_path`): the
+  triplane bench configuration with `host_sampler` (the native
+  prefetcher, built with g++ from the port's copy of raybatch.cpp), 576
+  counted steps through `Trainer.fit` (K1 64 times, losses falling); then
+  LPIPS with random weights on one held-out view, card against CPU
+  within LPIPS_RTOL, and its time;
   then the preset path: the Hypersim preset's config
   (experiments/hyperparameters.py:hypersim_flags, the literal
   HYPERSIM_ARGV, through `TrainConfig.from_args`: the brick field, the
@@ -170,6 +186,9 @@ Phases (any failed check raises, so the script exits non-zero):
   first step also against the uninterrupted run's first step (losses
   and parameters within 2x the eager steps' spread plus 2^-20 of the
   largest value; sampled indices and sample counts equal);
+  `--eval_lpips` through `main --val_only` from the checkpoint, with a
+  random-weights npz in a temporary directory ($NCNERF_LPIPS_WEIGHTS:
+  results.csv holds metric/lpips) and with none (a warning, no column);
   the run's wall time by part and the checkpoint's size as a "CLI path"
   JSON line;
   every launcher must have launched on some path;
@@ -181,13 +200,17 @@ Phases (any failed check raises, so the script exits non-zero):
      and H8 also on the training step's cotangent, and their gradient
      tables' zero fill alone; the fields' forwards also on the sv step's
      positions and at the refresh shape, with the modelled warp load
-     counts logged beside the times; H1 also on a full bitfield, and H3's
-     forward also at the first test round's shape with T_start;
+     counts logged beside the times; H1 also on a full bitfield, H3's
+     forward also at the first test round's shape with T_start, and H3's
+     four launchers at 46 channels (N 8190, K 16; "c46_*" keys);
   7. CUDA-graph chunks: for the triplane path's bootstrap and sv march, the
      bitfield path's march, the brick and tcnn fields', the preset and
-     the ext path's sv march, and the two baselines' sv march (their config's
+     the ext path's sv march, the two baselines' sv march (their config's
      norm_can_start, clustering ramp and anneal_steps moved into the
-     chunk, after 3 eager steps and a capture at the new step table), 16
+     chunk, after 3 eager steps and a capture at the new step table), the
+     40-class path's bootstrap march and the host-sampler path's sv march
+     (each replay read the host batch loaded for it, no two the same; its
+     eager steps take the replay's batch), 16
      replays of the graph the training phase captured, each against 3
      eager steps from the state and generator state it started from:
      sampled indices and rm / vr / trunc counts equal, losses and
@@ -196,8 +219,9 @@ Phases (any failed check raises, so the script exits non-zero):
      then graph steps against eager steps: host ms/step, the device's busy
      ms/step and launches/step (torch.profiler, over 16 replays or
      TRACED_EAGER eager steps), graph launches/step and
-     the idle share; and each field's optimizer update (clip and AdamW)
-     against its byte bound; printed as a "graph steps" JSON line.
+     the idle share (and the host sampler's prefetcher's batches/s); and
+     each field's optimizer update (clip and AdamW) against its byte
+     bound; printed as a "graph steps" JSON line.
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -212,6 +236,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile as torch_profile
@@ -1423,7 +1448,8 @@ def check_composite_bwd(chk, ca, gs):
     within 1e-5); d_raws bit for bit g_rend (x) ws with ws H3 forward's
     own output, which holds the backward's weights and inclusion mask to
     the forward's; d_sigmas exactly 0 on the samples that are invalid or
-    whose sigma*delta is clipped. Returns the largest error."""
+    whose sigma*delta is clipped; d_sigmas bit for bit its serial order
+    (`composite_grad_serial`). Returns the largest error."""
     from normal_clustering_nerf_torch.ops import composite as cp
     sig, _, dt, _, valid, _ = ca
     ws = cp.composite_kernel(*ca)[3]
@@ -1433,6 +1459,8 @@ def check_composite_bwd(chk, ca, gs):
     off = ~(valid & (raw_x > 0) & (raw_x < cp.SIGDT_MAX))
     return max(
         chk.close("d_sigmas", got[0], ref[0], 1e-4),
+        chk.equal("d_sigmas = serial order", got[0],
+                  composite_grad_serial(*ca, *gs)),
         chk.close("d_raws", got[1], ref[1], 1e-5),
         chk.equal("d_raws = g_rend x H3 fwd's ws", got[1],
                   gs[2][:, None, :] * ws[:, :, None]),
@@ -2533,6 +2561,134 @@ def check_seg_distortion_lengths(chk, gen):
                           ds.distortion_grad_kernel(g, *rows)[inside])))
 
 
+# ------------------------------------------------------------ many channels
+# H3's channel counts past one tile of BWD_TILE = 16 channels: 16 + 1; 3 +
+# 3 + 40, a pred_sem run on NYU40's classes; 101 sums, four forward passes
+WIDE_C = (17, 46, 99)
+SEM_CLASSES = 40   # NYU40's classes (Hypersim's n_valid_classes_scene bound)
+WIDE_TIMED = 3 + 3 + SEM_CLASSES
+WIDE_ROWS = 8190   # the bench batch's rays (2730 triangles)
+
+
+def composite_grad_serial(sigmas, raws, deltas, ts, valid, thr, g_op,
+                          g_depth, g_rend, g_ws):
+    """H3's backward d_sigmas in its order of f32 operations (each torch op
+    on the card rounds once): the prefix sums in the serial order, G_s =
+    ((g_op + g_depth t_s) + g_ws_s) + g_rend_0 raw_s0 + g_rend_1 raw_s1 +
+    ... in channel order over the included samples, the suffix sums of G
+    w back to front, dx = G T exp(-x) - suffix, times delta inside the
+    clip. The bit-for-bit reference of the lane-group kernel at any C."""
+    from normal_clustering_nerf_torch.ops.composite import SIGDT_MAX
+    N, K = sigmas.shape
+    raw_x = sigmas * deltas
+    x = torch.clamp(torch.where(valid, raw_x, 0.0), 0.0, SIGDT_MAX)
+    csum, T = sigmas.new_zeros(N), torch.empty_like(sigmas)
+    for s in range(K):
+        csum = csum + x[:, s]
+        T[:, s] = torch.exp(-(csum - x[:, s]))
+    inc = valid & (T > thr)
+    w = torch.where(inc, -torch.expm1(-x) * T, 0.0)
+    G = (g_op[:, None] + g_depth[:, None] * ts) + g_ws
+    for c in range(raws.shape[-1]):
+        G = G + g_rend[:, c:c + 1] * raws[:, :, c]
+    G = torch.where(inc, G, 0.0)
+    TE = torch.where(inc, T * torch.exp(-x), 0.0)
+    gw_ = G * w
+    suffix, after = sigmas.new_zeros(N), torch.empty_like(sigmas)
+    for s in reversed(range(K)):
+        after[:, s] = suffix
+        suffix = suffix + gw_[:, s]
+    inside = valid & (raw_x > 0) & (raw_x < SIGDT_MAX)
+    return torch.where(inside, (G * TE - after) * deltas, 0.0)
+
+
+def check_many_channels(rec, gen, thr):
+    """H3 at each of WIDE_C channels, on random rays as phase 2 draws them
+    (`composite_case`, `segment_case`): the dense forward at K = 1, 16, 33
+    and 64 with and without T_start (WIDE_ROWS rays and one:
+    `check_composite_fwd`, bit for bit the serial order), the dense
+    backward at K = 1, 16 and 32 (`check_composite_bwd`, d_sigmas bit for
+    bit `composite_grad_serial`), the segment backward on every length
+    0..32 and the segment forward on every length 0..64 with and without
+    T_start. Adds each launcher's largest error to `rec`; at WIDE_TIMED
+    channels and the bench's shape (WIDE_ROWS rays, K 16; the segments
+    those rows of 16 slots) gives each launcher its "wide" entry, timed
+    in phase 6."""
+    from normal_clustering_nerf_torch.ops import composite as cp
+    N, dev = WIDE_ROWS, gen.device
+    for C in WIDE_C:
+        chk = Check()
+        errs = {k: [] for k in ("composite_fwd", "composite_bwd",
+                                "composite_seg_fwd", "composite_seg_bwd")}
+        for k in (1, 16, 33, 64):
+            kca, _ = composite_case(N, k, C, gen)
+            T_start = torch.rand(N, generator=gen, device=dev)
+            T_start[::8] = thr * (1.0 + 2.0 * T_start[::8])
+            for n in (N, 1):
+                for tsn in (None, T_start[:n]):
+                    cut = tuple(t[:n] for t in kca) + (thr,)
+                    cut += () if tsn is None else (tsn,)
+                    ref = cp.composite_plain(*cut)
+                    got = cp.composite_kernel(*cut)
+                    log(f"H3 forward, C={C}: N={n} K={k}"
+                        f"{'' if tsn is None else ', T_start'}; rays ended "
+                        f"early {int((ref[4] < cut[4].sum(1)).sum())}")
+                    errs["composite_fwd"].append(
+                        check_composite_fwd(chk, cut, got, ref))
+        for k in (1, 16, 32):
+            kca, kgs = composite_case(N, k, C, gen)
+            for n in (N, 1):
+                log(f"H3 backward, C={C}: N={n} K={k}")
+                errs["composite_bwd"].append(check_composite_bwd(
+                    chk, tuple(t[:n] for t in kca) + (thr,),
+                    tuple(t[:n] for t in kgs)))
+        errs["composite_seg_bwd"].append(check_seg_lengths(chk, C, thr, gen))
+        errs["composite_seg_fwd"].append(
+            check_seg_fwd_lengths(chk, C, thr, gen))
+        chk.done(f"H3 at C = {C}")
+        for k, e in errs.items():
+            rec[k]["err"] = max(rec[k]["err"], *e)
+    C, K = WIDE_TIMED, 16
+    (sig, raws, dt, ts, valid), gs = composite_case(N, K, C, gen)
+    ca = (sig, raws, dt, ts, valid, thr)
+    out = cp.composite_kernel(*ca)
+    flops = N * K * (10 + 2 * C)
+    shape = f"N {N}, K {K}, C {C}"
+    rec["composite_fwd"]["wide"] = dict(
+        shape=shape, kernel=(lambda: cp.composite_kernel(*ca)),
+        plain=(lambda: cp.composite_plain(*ca)),
+        bound=bound(nbytes(*ca[:5]) + nbytes(*out), flops))
+    rec["composite_bwd"]["wide"] = dict(
+        shape=shape, kernel=(lambda: cp.composite_grad_kernel(*ca, *gs)),
+        plain=(lambda: cp.composite_grad_plain(*ca, *gs)),
+        bound=bound(nbytes(*ca[:5], *gs) + nbytes(sig, raws),
+                    2 * flops + N * K * C * 3))
+    # the rows as segments of K slots: ray n's slots [n K, n K + K)
+    B = N * K
+    fa = (sig.reshape(B), raws.reshape(B, C), dt.reshape(B), ts.reshape(B))
+    v = valid.reshape(B)
+    seg = (torch.arange(0, B, K, device=dev, dtype=torch.int32),
+           torch.full((N,), K, device=dev, dtype=torch.int32))
+    rid = torch.arange(N, device=dev, dtype=torch.int32).repeat_interleave(K)
+    sgs = gs[:3] + (gs[3].reshape(B),)
+    sout = cp.composite_compact_kernel(*fa, *seg, v, thr)
+    in_b = nbytes(*fa, v, *seg)
+    rec["composite_seg_fwd"]["wide"] = dict(
+        shape=f"B {B}, N {N}, C {C}",
+        kernel=(lambda: cp.composite_compact_kernel(*fa, *seg, v, thr)),
+        plain=(lambda: cp.composite_compact_plain(*fa, rid, seg[0], v, N,
+                                                  thr)),
+        bound=bound(in_b + nbytes(*sout), flops))
+    rec["composite_seg_bwd"]["wide"] = dict(
+        shape=f"B {B}, N {N}, C {C}",
+        kernel=(lambda: cp.composite_compact_grad_kernel(
+            *fa, *seg, v, thr, *sgs, max_len=K)),
+        plain=(lambda: cp.composite_compact_grad_plain(
+            *fa, rid, seg[0], v, N, thr, *sgs)),
+        bound=bound(in_b + nbytes(*sgs) + nbytes(*fa[:2]),
+                    2 * flops + N * K * C * 3))
+
+
 REPLACES = {
     "march_bootstrap": "normal_clustering_nerf_tpu/ops/ray_march.py:402",
     "triplane_fwd": "normal_clustering_nerf_tpu/models/triplane.py:177",
@@ -2604,6 +2760,16 @@ def time_kernels(rec):
                 + (f" (bound {vb[0]:.6f}, {vb[1]})" if vb else ""))
         for where, c in r.pop("counts", {}).items():
             log_counts(name, where, c)
+        if "wide" in r:
+            w = r.pop("wide")
+            r["c46_shape"] = w["shape"]
+            r["c46_ms"] = device_ms(w["kernel"], f"{name} C {WIDE_TIMED}")
+            r["c46_plain_ms"] = device_ms(w["plain"],
+                                          f"{name} C {WIDE_TIMED} plain")
+            r["c46_bound_ms"] = w["bound"][0]
+            log(f"  {name} at {w['shape']}: {r['c46_ms']:.4f} ms, plain "
+                f"{r['c46_plain_ms']:.4f} (bound {w['bound'][0]:.6f}, "
+                f"{w['bound'][1]})")
         if "at_p4_shape" in r:
             p4 = r.pop("at_p4_shape")
             r["p4_ms"] = device_ms(p4["kernel"], f"{name} P4")
@@ -2692,11 +2858,18 @@ def check_losses(hist, marks, fall=True, untrained=()):
     return head, tail
 
 
-def validate(tr, name, need, absent=(), rotation=True):
+def validate(tr, name, need, absent=(), rotation=True, metrics=(),
+             out=None):
     """Phase 5: `Trainer.validate()` on the held-out views, counted: the
     launchers in `need` must launch and those in `absent` must not; every
-    metric finite and, with `rotation`, the rotation recovered."""
-    out, counts, wall = counted(tr.validate)
+    metric finite, the columns `metrics` present and, with `rotation`, the
+    rotation recovered. The metrics go into `out` when given; returns the
+    counts."""
+    res, counts, wall = counted(tr.validate)
+    out = res if out is None else out
+    out.update(res)
+    if [k for k in metrics if k not in out]:
+        raise RuntimeError(f"{name} validate: no {metrics} in {sorted(out)}")
     log(f"launches in {name} validate: {counts}")
     for k in need:
         if not counts[k]:
@@ -2870,7 +3043,8 @@ GRAPH_STEPS = 16   # a chunk of the graph phase: the steps between refreshes
 # the graph phase's chunks: (path, bootstrap march or not)
 GRAPH_CASES = (("triplane", True), ("triplane", False), ("bitfield", False),
                ("brick", False), ("tcnn", False), ("preset", False),
-               ("supervised", False), ("regnerf", False), ("ext", False))
+               ("supervised", False), ("regnerf", False), ("ext", False),
+               ("sem40", True), ("host", False))
 
 
 def sync(dev):
@@ -2896,13 +3070,13 @@ def restore(tr, snap):
     tr.generator.set_state(snap["gen"])
 
 
-def one_step(tr, bootstrap, graph):
+def one_step(tr, bootstrap, graph, draws=None):
     """One step from the trainer's state: a replay of its captured graph
-    (`train_chunk(1)`) or an eager step (`train_step_core`). Returns the
-    step's sampled image and pixel indices, its metrics and the
-    parameters after it, copied."""
+    (`train_chunk(1)`) or an eager step (`train_step_core`, with `draws`).
+    Returns the step's sampled image and pixel indices, its metrics and
+    the parameters after it, copied."""
     m = (tr.train_chunk(1, bootstrap) if graph
-         else tr.train_step_core(bootstrap))
+         else tr.train_step_core(bootstrap, draws))
     b = tr.last_batch
     out = (torch.cat([b["img_idxs"], b["pix_idxs"]]).clone(),
            {k: v.detach().clone() for k, v in m.items()},
@@ -2948,24 +3122,47 @@ def check_graph_chunk(tr, path, bootstrap):
         raise RuntimeError(f"{path}: the training phase captured no {kind} "
                            f"graph (captures: {captured})")
     tag, start = f"{path}, {kind} chunk", tr.step
-    states, graph = [], []
+    states, graph, loaded = [], [], []
     for _ in range(GRAPH_STEPS):
         states.append(snapshot(tr))
         graph.append(one_step(tr, bootstrap, True))
+        if tr.native_sampler is not None:   # the host batch it was fed
+            loaded.append(tr.host_feed.block[0].long().reshape(-1).clone())
     end = snapshot(tr)
     if [c["kind"] for c in tr.captures] != captured:
         raise RuntimeError(f"{tag}: a capture during the replays")
+    if loaded:
+        check_host_batches(tag, graph, loaded)
     eager = []
-    for st in states:
-        runs = []
+    for st, g in zip(states, graph):
+        runs, draws = [], None
+        if loaded:   # the eager steps take the replay's host batch
+            img, pix = g[0].chunk(2)
+            draws = {"batch": {"img_idxs": img, "pix_idxs": pix}}
         for _ in range(EAGER_STEPS):
             restore(tr, st)
-            runs.append(one_step(tr, bootstrap, False))
+            runs.append(one_step(tr, bootstrap, False, draws))
         eager.append(runs)
     restore(tr, end)
     log(f"graph phase, {tag} from step {start}: {GRAPH_STEPS} replays, "
         f"each against {EAGER_STEPS} eager steps from its state")
     hold_steps(f"graph phase, {tag}", graph, eager, tr.sampler.batch_size)
+
+
+def check_host_batches(tag, graph, loaded):
+    """Host-sampler replays: each read the batch its chunk loaded into the
+    device block (indices equal), and no two read the same batch."""
+    chk = Check()
+    got = torch.stack([g[0] for g in graph])
+    chk.equal("replayed indices = the host batch loaded for the step", got,
+              torch.stack(loaded))
+    same = sum(bool((got[i] == got[j]).all()) for i in range(len(got))
+               for j in range(i))
+    log(f"  {same} of {len(got) * (len(got) - 1) // 2} pairs of replays "
+        f"read the same batch {'ok' if not same else 'FAIL'}")
+    if same:
+        chk.failures.append("a host batch read twice")
+    chk.done(tag)
 
 
 def hold_steps(tag, graph, eager, n_rays, what="graph"):
@@ -3027,6 +3224,10 @@ def graph_times(tr, path, bootstrap, reps=3, n=GRAPH_STEPS):
     def graph(k=n):
         tr.train_chunk(k, bootstrap)
     out = {"path": path, "march": "bootstrap" if bootstrap else "after"}
+    if tr.native_sampler is not None:
+        out["batches_per_s"] = prefetch_rate(tr.native_sampler)
+        log(f"  the native prefetcher, {tr.native_sampler.batch_size} rays "
+            f"a batch: {out['batches_per_s']:.1f} batches/s")
     for name, fn, k in (("eager", eager, TRACED_EAGER), ("graph", graph, n)):
         ms = []
         for _ in range(reps):
@@ -3890,6 +4091,7 @@ def cli_path(launches, smi):
     if set(metrics2) != set(metrics) or diff > spread:
         raise RuntimeError(f"CLI path: --val_only metrics {metrics2} vs "
                            f"{metrics}")
+    lpips_cli(base, ckpt)
     times = dict(run["times"], wall=wall, val_only_restore=run2["times"][
         "checkpoint_restore"], val_only_validate=run2["times"]["validate"])
     del run, run2, tr
@@ -3901,6 +4103,185 @@ def cli_path(launches, smi):
     print(f"CLI path on {smi}: " + json.dumps(out))
     shutil.rmtree(root)   # two checkpoints of ~220 MB
     return out
+
+
+# ------------------------------------------------ the 40-class semantic path
+SEM_STEPS = 64   # 4 chunks: 3 eager steps, a capture and replays
+
+
+def relabel_semantics(scene, n_cls=SEM_CLASSES):
+    """The scene with its semantics relabelled into `n_cls` classes by a
+    fixed function of the pixel: 1 + (13 (class - 1) + the pixel's 8 x 8
+    block) mod n_cls. semantics_WF (wall, floor, the rest) stays."""
+    W, H = scene.img_wh
+    pix = np.arange(W * H)
+    block = (pix // W // 8) * ((W + 7) // 8) + (pix % W) // 8
+    sem = scene.labels["semantics"]
+    new = 1 + (13 * (sem.astype(np.int64) - 1) + block[None]) % n_cls
+    return dataclasses.replace(scene, n_classes=n_cls, labels={
+        **scene.labels, "semantics": new.astype(sem.dtype)})
+
+
+def sem40_path(launches, smi):
+    """pred_sem with SEM_CLASSES classes (C = 46 channels through H3): the
+    bench configuration on the synthetic room with its semantics
+    relabelled (`relabel_semantics`), SEM_STEPS steps through
+    `Trainer.fit` (a CUDA graph captured and replayed; H3's forward and
+    backward launched, every loss finite), then `validate` through test
+    rounds at 46 channels with T_start, which must give a miou column.
+    Prints the path's launches and metrics as a JSON line; returns the
+    trainer and fit's ms/step."""
+    from normal_clustering_nerf_torch.bench import bench_config
+    from normal_clustering_nerf_torch.datasets.synthetic import (
+        SyntheticDataset)
+    from normal_clustering_nerf_torch.training import Trainer
+    scenes = [relabel_semantics(SyntheticDataset(
+        split=split, img_wh=(128, 128), n_images=n).load())
+        for split, n in (("train", 48), ("test", 4))]
+    tr = Trainer(bench_config(), *scenes, device="cuda")
+    C = tr.model.cfg.rend_channels
+    if C != WIDE_TIMED:
+        raise RuntimeError(f"40-class path: {C} channels, not {WIDE_TIMED}")
+    tr.mark_invisible_cells()
+    log(f"phase 3, 40 classes: {SEM_STEPS} training steps through "
+        f"Trainer.fit, n_sem_cls {tr.model.cfg.n_sem_cls}, C {C}")
+    ms, hist = path_training(
+        tr, "40 classes", launches,
+        ("march_bootstrap", "composite_fwd", "composite_bwd")
+        + FIELD_KERNELS["triplane"], {}, phases=(("bootstrap", SEM_STEPS),),
+        fall=False)
+    if tr.device.type == "cuda" and not tr.captures:
+        raise RuntimeError("40-class path: no CUDA graph captured")
+    out = {}
+    counts = validate(tr, "40 classes", ("composite_fwd",), rotation=False,
+                      metrics=("miou",), out=out)
+    for k, c in counts.items():
+        launches[k] += c
+    print(f"40-class path on {smi}: " + json.dumps({
+        "channels": C, "steps": SEM_STEPS, "fit_ms_per_step": ms[0],
+        "loss_sem": [hist[0]["loss_sem"], hist[-1]["loss_sem"]],
+        "validate_launches": {k: v for k, v in counts.items() if v},
+        "miou": out["miou"], "psnr": out["psnr"]}))
+    return tr, ms
+
+
+# -------------------------------------------------- the host-sampler path
+def prefetch_rate(sampler, n=64):
+    """Batches a second the native prefetcher delivers, over n batches
+    taken back to back (its threads sample and gather them meanwhile)."""
+    t = time.perf_counter()
+    for _ in range(n):
+        sampler.next_batch()
+    return n / (time.perf_counter() - t)
+
+
+def host_path(launches):
+    """The triplane bench configuration with `host_sampler`: each step's
+    indices come from the native prefetcher (built with g++ from the
+    port's copy of raybatch.cpp) through a pinned block copied to the card
+    once a chunk; STEPS steps through `Trainer.fit` (graphs captured and
+    replayed; K1 SV_STEPS times), losses falling. The graph phase holds its
+    replays to eager steps on the same batches. Returns the trainer and
+    fit's ms/step."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    cfg = bench_config()
+    tr = build_trainer(cfg.replace(data=dataclasses.replace(
+        cfg.data, host_sampler=True)), device="cuda")
+    tr.mark_invisible_cells()
+    log(f"phase 3, host sampler: {STEPS} training steps through Trainer.fit,"
+        f" {tr.native_sampler.batch_size} rays a batch from "
+        f"{tr.cfg.data.host_sampler_threads} prefetcher threads")
+    ms, _ = path_training(tr, "host sampler", launches,
+                          PATH_KERNELS + FIELD_KERNELS["triplane"],
+                          {"march_sv_train": SV_STEPS})
+    return tr, ms
+
+
+# ------------------------------------------------------------------ LPIPS
+LPIPS_RTOL = 1e-4   # card against CPU: cuDNN's and the CPU's f32 sums of
+                    # up to 4608 products a convolution, in other orders
+
+
+def lpips_check(tr):
+    """LPIPS with `random_weights`: on the card (cuDNN, TF32 off in the
+    metric) against the CPU on one held-out view's render and its ground
+    truth, within LPIPS_RTOL of the CPU's value; its time on the card, of
+    one call (host clock, the host-to-card copies included) and of the
+    network's device time (`device_ms`). Returns the times."""
+    from normal_clustering_nerf_torch.metrics import lpips as lp
+    scene = tr.scene_test
+    W, H = scene.img_wh
+    pred = np.clip(tr.render_image(scene.poses[0])["rgb"], 0, 1)
+    gt = scene.rays[0, :, :3].reshape(H, W, 3)
+    w = lp.random_weights(0)
+    card, cpu = lp.LPIPS(w, device="cuda"), lp.LPIPS(w, device="cpu")
+    a, b = card(pred, gt), cpu(pred, gt)
+    err = abs(a - b)
+    ok = err <= LPIPS_RTOL * abs(b) and math.isfinite(a)
+    log(f"phase 5, LPIPS of held-out view 0 ({W} x {H}), random weights: "
+        f"card {a:.8f}, CPU {b:.8f}, |diff| {err:.3e} (tol "
+        f"{LPIPS_RTOL * abs(b):.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError("LPIPS: card and CPU differ")
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        card(pred, gt)
+        host.append((time.perf_counter() - t) * 1e3)
+    x, y = (torch.as_tensor(i, dtype=torch.float32, device=card.device)[None]
+            * 2 - 1 for i in (pred, gt))
+    dev_ms = device_ms(lambda: lp._lpips_pair(card.params, card.lins, x, y),
+                       "LPIPS")
+    out = {"image": f"{W} x {H}", "call_ms": sorted(host)[2],
+           "device_ms": dev_ms, "card": a, "cpu": b}
+    log(f"  LPIPS a held-out image: {out['call_ms']:.3f} ms a call (median "
+        f"of 5), {dev_ms:.3f} ms on the card")
+    return out
+
+
+def lpips_cli(base, ckpt):
+    """`--eval_lpips` through the CLI: `train_nerf.main` with --val_only
+    from the CLI path's checkpoint, once with a random-weights npz in a
+    temporary directory ($NCNERF_LPIPS_WEIGHTS; results.csv must hold the
+    metric/lpips column) and once pointed at no file (a RuntimeWarning
+    and no lpips column)."""
+    import csv
+    import os
+    import tempfile
+    import warnings
+    from normal_clustering_nerf_torch import train_nerf
+    from normal_clustering_nerf_torch.metrics.lpips import random_weights
+    old = os.environ.get("NCNERF_LPIPS_WEIGHTS")
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            npz = os.path.join(d, "lpips_vgg.npz")
+            np.savez(npz, **random_weights(0))
+            for exp, weights in (("cli_lpips", npz),
+                                 ("cli_no_lpips", os.path.join(d, "none"))):
+                os.environ["NCNERF_LPIPS_WEIGHTS"] = weights
+                run = {}
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    m = train_nerf.main(base + [
+                        f"--exp_name={exp}", f"--ckpt_path={ckpt}",
+                        "--val_only", "--eval_lpips"], run=run)
+                with open(os.path.join(run["log_dir"], "results.csv")) as f:
+                    cols = next(csv.reader(f))
+                warned = any("LPIPS weight" in str(c.message) for c in caught)
+                has = "metric/lpips" in cols
+                log(f"  --eval_lpips, weights {'given' if exp == 'cli_lpips' else 'missing'}: "
+                    f"lpips {m.get('lpips')}, metric/lpips column "
+                    f"{'present' if has else 'absent'}, warned {warned}")
+                want = (True, False) if exp == "cli_lpips" else (False, True)
+                if (has, warned) != want or ("lpips" in m) != want[0]:
+                    raise RuntimeError(f"--eval_lpips ({exp}): column {has}, "
+                                       f"warned {warned}")
+    finally:
+        if old is None:
+            os.environ.pop("NCNERF_LPIPS_WEIGHTS", None)
+        else:
+            os.environ["NCNERF_LPIPS_WEIGHTS"] = old
 
 
 def render_config(cfg, **kw):
@@ -3986,6 +4367,8 @@ def main():
     rec.update(check_segments(tr, train_in, flat_in, flat_round, gen))
     for name, r in early.items():
         rec[name]["err"] = max(rec[name]["err"], r["err"])
+    log(f"phase 4, many channels: H3's launchers at C = {WIDE_C}")
+    check_many_channels(rec, gen, tr.cfg.render.T_threshold)
     err, rec["composite_fwd"]["variants"] = check_t_start(
         tr, rec["march_sv_test_round"].pop("first_round"))
     rec["composite_fwd"]["err"] = max(rec["composite_fwd"]["err"], err)
@@ -4057,6 +4440,9 @@ def main():
             launches[name] += c
         paths[layout] = tl
     paths["ext"], fit_ms["ext"] = ext_path(launches)
+    paths["sem40"], fit_ms["sem40"] = sem40_path(launches, smi)
+    paths["host"], fit_ms["host"] = host_path(launches)
+    lpips_times = lpips_check(tr)
     paths["preset"], fit_ms["preset"] = preset_path(rec, launches, gen)
     baselines, ms = baselines_path(rec, launches, gen)
     paths.update(baselines)
@@ -4090,6 +4476,7 @@ def main():
             profile(t, name, args.profile, step_ms[name])
     log("phase 7: graph-replayed chunks against eager steps")
     graph_rows = graph_phase(paths)
+    paths["host"].native_sampler.close()
 
     out = []
     for k in kernels.ALL_KERNELS:
@@ -4105,7 +4492,9 @@ def main():
                                           "step_cotangent_ms",
                                           "p4_ms", "p4_library_ms",
                                           "p4_bound_ms", "p2_ms",
-                                          "p2_library_ms", "p2_bound_ms")
+                                          "p2_library_ms", "p2_bound_ms",
+                                          "c46_shape", "c46_ms",
+                                          "c46_plain_ms", "c46_bound_ms")
                   if key in r})
         out.append(o)
     print("kernels: " + ", ".join(f"{o['name']} {o['ms']:.4f} ms "
@@ -4113,6 +4502,7 @@ def main():
                                   f"{o['bound_ms']:.4f})" for o in out))
     log(f"done in {time.time() - T0:.1f} s")
     print(f"graph steps on {smi}: " + json.dumps(graph_rows))
+    print(f"LPIPS on {smi}: " + json.dumps(lpips_times))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

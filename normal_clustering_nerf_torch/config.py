@@ -179,12 +179,6 @@ class OptimConfig:
     update_interval: int = 16
 
 
-# flags of the JAX CLI whose features the port does not have yet, with
-# their defaults and the ROADMAP item that brings them: from_args parses
-# them and refuses any other value
-_UNPORTED_FLAGS = {"eval_lpips": (False, "A9")}
-
-
 @dataclass(frozen=True)
 class EvalConfig:
     """Validation / artifact options (reference: opt.py:167-196)."""
@@ -220,9 +214,8 @@ class TrainConfig:
     def from_args(argv=None) -> "TrainConfig":
         """Parse reference-compatible CLI flags (opt.py names) into a
         TrainConfig, as the JAX package's `TrainConfig.from_args`
-        (config.py:329-483) does. Flags of features the port does not have
-        (LPIPS, more than one card) are parsed and refused unless left at
-        their defaults."""
+        (config.py:329-483) does. `--num_chips`, more than one card, which
+        the port does not have, is parsed and refused above 1."""
         p = argparse.ArgumentParser()
         p.add_argument("--no_debug", action="store_true", default=False)
         p.add_argument("--log_root_dir", type=str, default="./logs")
@@ -310,13 +303,9 @@ class TrainConfig:
         p.add_argument("--save_checkpoint", action="store_true",
                        default=False)
         a = p.parse_args(argv)
-        refused = [f"--{k} (ROADMAP {item})"
-                   for k, (default, item) in _UNPORTED_FLAGS.items()
-                   if getattr(a, k) != default]
         if a.num_chips not in (0, 1):
-            refused.append("--num_chips (ROADMAP A10)")
-        if refused:
-            raise NotImplementedError(f"flags not ported: {refused}")
+            raise NotImplementedError(
+                "flags not ported: ['--num_chips (ROADMAP A10)']")
 
         return TrainConfig(
             exp_name=a.exp_name, log_root_dir=a.log_root_dir, seed=a.seed,

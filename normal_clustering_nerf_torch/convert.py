@@ -90,3 +90,21 @@ def convert_jax_state(params_np: Mapping, occ_np, optimizer,
             raise ValueError(f"{n}: shape {tuple(params[n].shape)}, "
                              f"expected {tuple(p.shape)}")
     return params, convert_occupancy(occ_np, device), optimizer.init_state()
+
+
+def lpips_params(arrays: Mapping[str, np.ndarray], device=None
+                 ) -> Dict[str, torch.Tensor]:
+    """The LPIPS npz's arrays (metrics/lpips.py of the JAX package: VGG-16
+    '<conv>_w' (3, 3, in, out) HWIO, '<conv>_b' (out,), the linear heads
+    'lin0'..'lin4' of any shape holding (C,) values) as the port's f32
+    tensors on `device`: convolution weights OIHW for `F.conv2d`, heads
+    flattened to (C,)."""
+    out = {}
+    for k, v in arrays.items():
+        a = np.asarray(v, np.float32)
+        if k.endswith("_w"):
+            a = np.ascontiguousarray(np.transpose(a, (3, 2, 0, 1)))
+        elif k.startswith("lin"):
+            a = a.reshape(-1)
+        out[k] = torch.as_tensor(a, device=device)
+    return out

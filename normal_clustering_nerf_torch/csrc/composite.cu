@@ -71,6 +71,17 @@
 // to front in its serial order by a chain of __shfl_down_sync steps, so
 // d_sigmas keeps the first design's bits.
 //
+// Any channel count C >= 1 (C = 3 + 3 pred_norm_nn + n_sem_cls: 46 for
+// NYU40's classes). Past gw sums (C + 2 > gw) the forward is
+// `composite_fwd_wide_kernel`, which takes the C + 2 sums in passes of
+// gw, a sum a lane, each pass walking the row's chunks anew and staging
+// only its channels' raws; past BWD_TILE channels the backward stages
+// the raws BWD_TILE channels at a time and carries G_s through the tiles
+// in one register, in channel order. Shared memory is at most gw *
+// min(gw, C) + 2 gw floats a group in the forward and gw * BWD_TILE + gw
+// + BWD_TILE in the backward, whatever C. Below those counts both run
+// the designs above, compiled as before.
+//
 // The segment launchers (`composite_seg_fwd` / `composite_seg_bwd`)
 // replace the flat layout's `composite_rays_compact` (ops/composite.py:
 // 86-144) with the same bodies over ray-major segments instead of dense
@@ -118,13 +129,25 @@ __device__ __forceinline__ void store_sum(int i, float v, int n, int C,
     depth[n] = v;
 }
 
+// `rows` rows of tc contiguous values of src, each row `stride` floats
+// after the one before, into shared memory as rows of tc, by the group's
+// lanes tid < nt: one tile of channels of a row's samples.
+__device__ __forceinline__ void stage_tile(const float* __restrict__ src,
+                                           int rows, int tc, int stride,
+                                           float* dst, int tid, int nt) {
+  for (int e = tid; e < rows * tc; e += nt) {
+    const int j = e / tc;
+    dst[e] = __ldg(src + static_cast<size_t>(j) * stride + (e - j * tc));
+  }
+}
+
 // H3 forward: group grp of gw lanes takes ray blockIdx.x * (blockDim.x /
 // gw) + grp, lane s = sample c0 + s of each chunk [c0, c0 + gw). The
 // chunk loop and its chain run the warp's longest row (warp-uniform),
 // masked past each group's own row or past N. Every lane owns the sums
 // s, s + gw, ...; the launchers take gw >= C + 2 wherever a row may take
 // several chunks, so a lane then owns one sum, carried across them in
-// `acc`.
+// `acc`; past gw sums they launch `composite_fwd_wide_kernel`.
 constexpr int FWD_THREADS = 256;
 
 template <class Rows>
@@ -223,13 +246,126 @@ __global__ void __launch_bounds__(FWD_THREADS) composite_fwd_kernel(
   if (s == 0) vr[n] = n_inc - (early ? 1 : 0);
 }
 
+// H3 forward past gw sums (C + 2 > gw), the same mapping as
+// `composite_fwd_kernel`, with the C + 2 sums taken in passes of gw: in
+// pass [i0, i0 + gw) lane s owns sum i0 + s, carried across the chunks in
+// `acc`, and the chunks' raws of that pass's channels are staged (at most
+// gw of them, so that shared memory does not grow with C). A pass walks
+// the row's chunks anew (the chain, T and w are recomputed with the same
+// bits); the first writes ws and the sample counter. A kernel apart:
+// compiled into `composite_fwd_kernel` (one pass a constant), the pass
+// loop took 37-40 registers in place of 32, six blocks an SM in place of
+// eight, and a test round's composite at C 9 ~10% longer.
+template <class Rows>
+__global__ void __launch_bounds__(FWD_THREADS) composite_fwd_wide_kernel(
+    const float* __restrict__ sigmas, const float* __restrict__ raws,
+    const float* __restrict__ deltas, const float* __restrict__ ts,
+    const uint8_t* __restrict__ valid, const float* __restrict__ T_start,
+    Rows rows, int N, int C, int gw, float thr, float* __restrict__ opacity,
+    float* __restrict__ depth, float* __restrict__ rend,
+    float* __restrict__ ws, int* __restrict__ vr) {
+  extern __shared__ float sm[];
+  const int s = threadIdx.x & (gw - 1), grp = threadIdx.x / gw;
+  const int n = blockIdx.x * (blockDim.x / gw) + grp;
+  const int tw = min(gw, C);                  // the most channels a pass stages
+  float* rs = sm + grp * (gw * tw + 2 * gw);  // the chunk's raws, gw x tc
+  float* wsh = rs + gw * tw;                  // its w_s
+  float* tsh = wsh + gw;                      // its t_s
+  const bool live = n < N;
+  const size_t b = live ? rows.base(n) : 0;
+  const int len = live ? rows.len(n) : 0;
+  const float t_start = live && T_start ? T_start[n] : 1.0f;
+  const int wlen = __reduce_max_sync(FULL, len);
+  // the group's bits of a warp ballot
+  const int base = (threadIdx.x & 31) & ~(gw - 1);
+  const unsigned low = gw == 32 ? FULL : (1u << gw) - 1u;
+  const int n_sums = C + 2;
+  // at least one chunk, so that an empty row still writes its sums
+  const int n_chunks = max((wlen + gw - 1) / gw, 1);
+  for (int i0 = 0; i0 < n_sums; i0 += gw) {
+    const int i = i0 + s;                    // the lane's sum
+    const int tc = max(min(gw, C - i0), 0);  // the pass's channels [i0, i0 + tc)
+    float carry = 0.0f;   // csum of the samples before the chunk
+    float acc = 0.0f;     // sum i
+    int n_inc = 0;
+    bool early = false;
+    for (int ch = 0; ch < n_chunks; ++ch) {
+      const int c0 = ch * gw;
+      const int clen = max(min(gw, len - c0), 0);   // the group's samples
+      const int steps = min(gw, wlen - c0);         // the chain's, uniform
+      const size_t bs = b + c0 + s;
+      if (clen > 0 && tc == C)
+        ncn_stage<false>(raws + (b + c0) * C, clen * C, C, C, rs, s, gw);
+      else if (clen > 0 && tc > 0)
+        stage_tile(raws + (b + c0) * C + i0, clen, tc, C, rs, s, gw);
+      const bool in = s < clen;
+      bool v = false;
+      float sig = 0.0f, del = 0.0f, t = 0.0f;
+      if (in) {
+        v = valid[bs];
+        sig = sigmas[bs];
+        del = deltas[bs];
+        t = ts[bs];
+      }
+      const float x = clipped(sig, del, v);
+      float csum = __fadd_rn(carry, x);   // carry + x_c0 + ... + x_s, in order
+      for (int k = 1; k < steps; ++k) {
+        const float prev = __shfl_up_sync(FULL, csum, 1, gw);
+        if (s == k) csum = __fadd_rn(prev, x);
+      }
+      carry = __shfl_sync(FULL, csum, gw - 1, gw);
+      float T = expf(-__fsub_rn(csum, x));
+      if (T_start) T = __fmul_rn(T, t_start);
+      const float alpha = -expm1f(-x);
+      const bool inc = v && T > thr;
+      const float w = inc ? __fmul_rn(alpha, T) : 0.0f;
+      if (in && i0 == 0) ws[bs] = w;
+      const unsigned incm = (__ballot_sync(FULL, inc) >> base) & low;
+      const unsigned endm =
+          (__ballot_sync(FULL, inc && __fmul_rn(T, __fsub_rn(1.0f, alpha)) <= thr)
+           >> base) & low;
+      n_inc += __popc(incm);
+      early |= endm != 0u;
+      wsh[s] = w;
+      tsh[s] = t;
+      __syncwarp();   // the group's raws, w and t are staged
+      if (i < n_sums && incm) {
+        auto operand = [&](unsigned m) {   // the term of m's lowest sample
+          const int j = __ffs(m) - 1;
+          const float wj = wsh[j];
+          return i < C    ? __fmul_rn(wj, rs[j * tc + (i - i0)])
+                 : i == C ? wj
+                          : __fmul_rn(wj, tsh[j]);
+        };
+        float a = acc;
+        float p = operand(incm);
+        for (unsigned m = incm & (incm - 1u); m; m &= m - 1u) {
+          const float q = operand(m);
+          a = __fadd_rn(a, p);
+          p = q;
+        }
+        acc = __fadd_rn(a, p);
+      }
+      __syncwarp();   // the staging is read before the next chunk
+    }
+    if (live && i < n_sums) store_sum(i, acc, n, C, opacity, depth, rend);
+    if (live && i0 == 0 && s == 0) vr[n] = n_inc - (early ? 1 : 0);
+  }
+}
+
 // H3 backward: group grp of gw lanes takes ray blockIdx.x * (blockDim.x /
 // gw) + grp, lane s = sample s. Every lane runs the chains' max_len - 1
-// steps (warp-uniform), masked past its ray's length or past N.
+// steps (warp-uniform), masked past its ray's length or past N. With
+// WIDE (C > BWD_TILE) the ray's raws are staged BWD_TILE channels at a
+// time, so that shared memory does not grow with C, and G_s runs on
+// through the tiles in one register, in channel order; without it all C
+// at once, compiled as the design before channel tiles.
 constexpr int BWD_THREADS = 256;
+constexpr int BWD_TILE = 16;
 
 // d_raws of one ray, g_rend_c * w_s for its n_vals = len*C values, written
-// contiguously by the gw lanes of its group from shared memory: 16-byte
+// contiguously by the gw lanes of its group, w from shared memory and
+// g_rend from shared memory or, past one tile, device memory: 16-byte
 // stores where dst is 16-byte aligned.
 __device__ __forceinline__ void store_d_raws(float* __restrict__ dst,
                                              int n_vals, int C,
@@ -253,7 +389,7 @@ __device__ __forceinline__ void store_d_raws(float* __restrict__ dst,
     dst[e] = __fmul_rn(gr[e % C], w[e / C]);
 }
 
-template <class Rows>
+template <class Rows, bool WIDE>
 __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
     const float* __restrict__ deltas, const float* __restrict__ ts,
@@ -265,19 +401,25 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
   extern __shared__ float sm[];
   const int s = threadIdx.x & (gw - 1), grp = threadIdx.x / gw;
   const int n = blockIdx.x * (blockDim.x / gw) + grp;
-  float* rs = sm + grp * (gw * C + gw + C);   // the ray's raws, len x C
-  float* wsh = rs + gw * C;                   // its w_s
-  float* gr = wsh + gw;                       // its g_rend row
+  const int tw = WIDE ? BWD_TILE : C;
+  float* rs = sm + grp * (gw * tw + gw + tw);   // a tile of the raws, len x tc
+  float* wsh = rs + gw * tw;                    // the ray's w_s
+  float* gr = wsh + gw;                         // the tile's g_rend
   const bool live = n < N;
   const size_t b = live ? rows.base(n) : 0;
   // the launchers refuse rows longer than max_len <= gw; the clamp keeps
   // the lanes in bounds whatever the counts hold
   const int len = live ? min(rows.len(n), max_len) : 0;
-  if (live) {
-    ncn_stage<false>(raws + b * C, len * C, C, C, rs, s, gw);
-    for (int c = s; c < C; c += gw)
-      gr[c] = g_rend[static_cast<size_t>(n) * C + c];
-  }
+  const float* g_row = g_rend + static_cast<size_t>(n) * C;
+  auto stage = [&](int c0) {   // channels [c0, c0 + tc) of the ray
+    const int tc = min(tw, C - c0);
+    if (!WIDE)
+      ncn_stage<false>(raws + b * C, len * C, C, C, rs, s, gw);
+    else
+      stage_tile(raws + b * C + c0, len, tc, C, rs, s, gw);
+    for (int c = s; c < tc; c += gw) gr[c] = g_row[c0 + c];
+  };
+  if (live) stage(0);
   const bool in = s < len;
   bool v = false;
   float sig = 0.0f, del = 0.0f;
@@ -295,14 +437,24 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
   const float T = expf(-__fsub_rn(csum, x));
   const bool inc = v && T > thr;
   const float w = inc ? __fmul_rn(-expm1f(-x), T) : 0.0f;
-  __syncwarp();   // the group's raws and g_rend are staged
+  __syncwarp();   // the group's first tile of raws and g_rend is staged
   float G = 0.0f, TE = 0.0f;   // G_s and T_s*exp(-x_s) where included
   if (inc) {
     G = __fadd_rn(__fadd_rn(g_op[n], __fmul_rn(g_depth[n], ts[b + s])),
                   g_ws[b + s]);
-    const float* r = rs + s * C;
-    for (int c = 0; c < C; ++c) G = __fadd_rn(G, __fmul_rn(gr[c], r[c]));
     TE = __fmul_rn(T, expf(-x));
+  }
+  for (int c0 = 0;;) {
+    const int tc = min(tw, C - c0);
+    if (inc) {
+      const float* r = rs + s * tc;
+      for (int c = 0; c < tc; ++c) G = __fadd_rn(G, __fmul_rn(gr[c], r[c]));
+    }
+    c0 += tw;
+    if (!WIDE || c0 >= C) break;
+    __syncwarp();   // the tile is read
+    if (live) stage(c0);
+    __syncwarp();   // the next tile is staged
   }
   const float gw_s = __fmul_rn(G, w);
   float suffix = __fadd_rn(0.0f, gw_s);   // sum_{s'>=s} G w, back to front
@@ -320,7 +472,8 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
     wsh[s] = w;
   }
   __syncwarp();
-  if (live) store_d_raws(d_raws + b * C, len * C, C, gr, wsh, s, gw);
+  if (live)
+    store_d_raws(d_raws + b * C, len * C, C, WIDE ? g_row : gr, wsh, s, gw);
 }
 
 // gw: the power of two at or above the row bound max_len, at most 32
@@ -336,14 +489,14 @@ int launch_fwd(const void* sigmas, const void* raws, const void* deltas,
                Rows rows, int N, int max_len, int C, float thr, void* opacity,
                void* depth, void* rend, void* ws, void* vr,
                cudaStream_t stream) {
-  if (C > 16) return static_cast<int>(cudaErrorInvalidValue);
-  // as narrow as a row of several chunks allows (a sum a lane: gw >= C +
-  // 2), and no wider than the row bound
+  // as narrow as a row of several chunks allows in one pass (a sum a
+  // lane: gw >= C + 2), and no wider than the row bound
   const int gw = group_width(min(max_len, C + 2));
   const int per_block = FWD_THREADS / gw;
-  const size_t bytes = sizeof(float) * per_block * (gw * C + 2 * gw);
-  composite_fwd_kernel<<<ncn_blocks(N, per_block), FWD_THREADS, bytes,
-                         stream>>>(
+  const size_t bytes = sizeof(float) * per_block * (gw * min(gw, C) + 2 * gw);
+  auto kernel = C + 2 > gw ? composite_fwd_wide_kernel<Rows>
+                           : composite_fwd_kernel<Rows>;
+  kernel<<<ncn_blocks(N, per_block), FWD_THREADS, bytes, stream>>>(
       static_cast<const float*>(sigmas), static_cast<const float*>(raws),
       static_cast<const float*>(deltas), static_cast<const float*>(ts),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(T_start),
@@ -360,12 +513,14 @@ int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
                const void* g_depth, const void* g_rend, const void* g_ws,
                Rows rows, int N, int max_len, int C, float thr,
                void* d_sigmas, void* d_raws, cudaStream_t stream) {
-  if (max_len > MAXK || C > 16) return static_cast<int>(cudaErrorInvalidValue);
+  if (max_len > MAXK) return static_cast<int>(cudaErrorInvalidValue);
   const int gw = group_width(max_len);
   const int per_block = BWD_THREADS / gw;
-  const size_t bytes = sizeof(float) * per_block * (gw * C + gw + C);
-  composite_bwd_kernel<<<ncn_blocks(N, per_block), BWD_THREADS, bytes,
-                         stream>>>(
+  const int tw = min(C, BWD_TILE);
+  const size_t bytes = sizeof(float) * per_block * (gw * tw + gw + tw);
+  auto kernel = C > BWD_TILE ? composite_bwd_kernel<Rows, true>
+                             : composite_bwd_kernel<Rows, false>;
+  kernel<<<ncn_blocks(N, per_block), BWD_THREADS, bytes, stream>>>(
       static_cast<const float*>(sigmas), static_cast<const float*>(raws),
       static_cast<const float*>(deltas), static_cast<const float*>(ts),
       static_cast<const uint8_t*>(valid), static_cast<const float*>(g_op),

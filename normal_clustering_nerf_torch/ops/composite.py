@@ -75,12 +75,11 @@ def composite_grad_plain(sigmas, raws, deltas, ts, valid, T_threshold,
 def _check_inputs(sigmas, raws, deltas, ts, valid, max_k=32):
     """The backward takes a ray on at most 32 lanes, a lane a sample, so
     K <= 32; the forward takes longer rows in chunks of 32 and passes
-    max_k=None."""
+    max_k=None. Both take any channel count."""
     N, K = sigmas.shape
     C = raws.shape[-1]
-    if (max_k is not None and K > max_k) or C > 16:
-        raise ValueError(f"composite kernel takes K <= {max_k}, C <= 16; "
-                         f"got K={K}, C={C}")
+    if max_k is not None and K > max_k:
+        raise ValueError(f"composite kernel takes K <= {max_k}; got K={K}")
     dev, f32 = sigmas.device, torch.float32
     return N, K, C, [
         kernels.check(sigmas, "sigmas", f32, (N, K), dev),
@@ -222,8 +221,6 @@ def composite_compact_grad_plain(sigmas, raws, deltas, ts, ray_id,
 def _check_compact(sigmas, raws, deltas, ts, ray_start, ray_count, valid):
     B, C = raws.shape
     N = ray_start.shape[0]
-    if C > 16:
-        raise ValueError(f"composite kernel takes C <= 16, got C={C}")
     dev, f32, i32 = sigmas.device, torch.float32, torch.int32
     return B, N, C, [
         kernels.check(sigmas, "sigmas", f32, (B,), dev),

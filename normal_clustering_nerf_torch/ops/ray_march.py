@@ -20,7 +20,7 @@ for a uniform step grid (exp_step_factor 0) and one cascade:
 
 Each launches its kernel for CUDA tensors and runs its `*_plain` version,
 the same function in plain PyTorch, for CPU tensors. The multi-cascade
-lookup and the geometric step grid raise (ROADMAP A15).
+lookup and the geometric step grid raise (ROADMAP A9c / B8).
 """
 from __future__ import annotations
 
@@ -88,7 +88,7 @@ def occupancy_lookup(xyz, bitfield, *, cascades, scale, grid_size):
     (linear x-fastest cell index, ray_march.py:80-87)."""
     if cascades != 1:
         raise NotImplementedError(
-            "multi-cascade occupancy lookup is not ported (ROADMAP A15)")
+            "multi-cascade occupancy lookup is not ported (ROADMAP A9c / B8)")
     G = grid_size
     mip_bound = min(0.5, scale)
     cell = torch.clamp(0.5 * (_div(xyz, mip_bound) + 1.0) * G, 0.0,
@@ -169,7 +169,7 @@ def _uniform_step(exp_step_factor, max_samples, grid_size, scale) -> float:
     if not (exp_step_factor == 0.0 or lo >= hi):
         raise NotImplementedError(
             "the port's march takes a uniform step grid only "
-            "(exp_step_factor 0); the geometric grid is ROADMAP A15")
+            "(exp_step_factor 0); the geometric grid is ROADMAP A9c / B8")
     return lo
 
 
@@ -294,7 +294,7 @@ def _march_bootstrap_kernel(rays_o, rays_d, hits_t, bitfield, noise, *,
                             tail_k) -> DenseMarchResult:
     if cascades != 1:
         raise NotImplementedError(
-            "the march kernel takes one cascade (ROADMAP A15)")
+            "the march kernel takes one cascade (ROADMAP A9c / B8)")
     lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
     S = march_steps or max_samples
     K = min(samples_per_ray, S)
@@ -341,7 +341,7 @@ def _march_fine_kernel(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
                        coarse_k_blocks, tail_k) -> DenseMarchResult:
     if cascades != 1:
         raise NotImplementedError(
-            "the march kernel takes one cascade (ROADMAP A15)")
+            "the march kernel takes one cascade (ROADMAP A9c / B8)")
     lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
     S = march_steps or max_samples
     K = min(samples_per_ray, S)
@@ -460,7 +460,7 @@ def _march_test_kernel(rays_o, rays_d, cursor, t_far, alive, bitfield, *,
     first K occupied steps of the window."""
     if cascades != 1:
         raise NotImplementedError(
-            "the march kernel takes one cascade (ROADMAP A15)")
+            "the march kernel takes one cascade (ROADMAP A9c / B8)")
     lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
     N, dev, f32 = rays_o.shape[0], rays_o.device, torch.float32
     args = [kernels.check(rays_o, "rays_o", f32, (N, 3), dev),

@@ -18,8 +18,10 @@ trainer's `_make_chunk_fn`). `validate` renders the held-out views
 (`render_images`), computes the metric suite and recovers the Manhattan
 rotation, and writes the prediction panels, the prediction archives and
 the logger's images and scalars on request; `save_train_preds` renders
-the training views into archives. The JAX version's shard_map, host
-sampler and render prewarming are not ported.
+the training views into archives. With `host_sampler` the batches' indices
+come from the native prefetcher on the host (`HostFeed`) in place of the
+device sampler. The JAX version's shard_map and render prewarming are not
+ported.
 
 On the card a chunk is a CUDA graph of one step, replayed once a step.
 Everything a step reads or writes stays in fixed storages: parameters,
@@ -35,6 +37,7 @@ draws); each step's draws can be handed in instead
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import math
@@ -52,7 +55,7 @@ from ..datasets.base import SceneData, generate_random_poses
 from ..datasets.normals import extract_normals_from_depth_batch
 from ..datasets.ray_utils import axisangle_to_R, get_rays
 from ..datasets.sampler import RaySampler
-from ..device import resolve_device
+from ..device import as_index, resolve_device
 from ..losses import compute_losses
 from ..metrics import NeRFMTMetricsPerIm
 from ..models.ngp_mt import NGPMT
@@ -107,6 +110,61 @@ def loss_labels(cfg: TrainConfig) -> tuple:
     return tuple(k for k, v in on.items() if v)
 
 
+class HostFeed:
+    """The native host sampler's batches into a step, on the card also
+    into a captured one (trainer.py:269-285 of the JAX package hands a
+    chunk's `(n_steps, B)` index block to one `lax.scan`). `load(n)` takes
+    the next n batches from the prefetcher, writes their indices into a
+    pinned host block (two of them in turn: a block is rewritten only
+    after its last copy has finished) and copies them to a fixed device
+    block with one non-blocking copy, and sets the device row counter to
+    0; a step's `read()` takes the block's row at the counter and
+    advances it, so a replayed step reads each step's batch with nothing
+    on the host between replays. `prefetch(n)` pops batches ahead into a
+    host queue while the card runs a chunk."""
+
+    def __init__(self, sampler, n_rows: int, device: torch.device):
+        self.sampler = sampler
+        shape = (n_rows, 2, sampler.batch_size)
+        self.block = torch.zeros(shape, dtype=torch.int32, device=device)
+        self.row = torch.zeros((), dtype=torch.int64, device=device)
+        self.queue = collections.deque()
+        on_card = device.type == "cuda"
+        self.pinned = ([torch.empty(shape, dtype=torch.int32,
+                                    pin_memory=True) for _ in range(2)]
+                       if on_card else [self.block])
+        self.copied = [torch.cuda.Event() if on_card else None
+                       for _ in self.pinned]
+        self.turn = 0
+
+    def prefetch(self, n: int):
+        while len(self.queue) < n:
+            b = self.sampler.next_batch()
+            self.queue.append((b["img_idxs"], b["pix_idxs"]))
+
+    def load(self, n: int):
+        if n > self.block.shape[0]:
+            raise ValueError(f"{n} host batches, the block holds "
+                             f"{self.block.shape[0]}")
+        self.prefetch(n)
+        i, self.turn = self.turn, (self.turn + 1) % len(self.pinned)
+        host, ev = self.pinned[i], self.copied[i]
+        if ev is not None:
+            ev.synchronize()
+        rows = host.numpy()
+        for k in range(n):
+            rows[k, 0], rows[k, 1] = self.queue.popleft()
+        if ev is not None:
+            self.block[:n].copy_(host[:n], non_blocking=True)
+            ev.record()
+        self.row.zero_()
+
+    def read(self) -> Dict[str, torch.Tensor]:
+        row = self.block.index_select(0, self.row.view(1))[0].long()
+        self.row.add_(1)
+        return {"img_idxs": row[0], "pix_idxs": row[1]}
+
+
 def validation_gt(scene: SceneData, i: int) -> Dict[str, np.ndarray]:
     """View i's ground truth as `validate` scores and draws it: rgb and
     the labels depth, normals, semantics and semantics_WF, as images
@@ -132,9 +190,8 @@ class Trainer:
         if cfg.render.bootstrap_steps % cfg.optim.update_interval != 0:
             raise ValueError("render.bootstrap_steps must be a multiple of "
                              "optim.update_interval")
-        if cfg.data.host_sampler:
-            raise NotImplementedError(
-                "not ported: ['host_sampler (ROADMAP A9)']")
+        if cfg.data.host_sampler and cfg.data.random_tr_poses:
+            raise ValueError("host_sampler does not support random_tr_poses")
         if cfg.data.keep_N_tr != -1:
             scene_train = scene_train.keep_first_n(cfg.data.keep_N_tr)
         self.cfg = cfg
@@ -164,6 +221,22 @@ class Trainer:
             patch_size=cfg.data.patch_size,
             n_random_poses=RANDOM_POSES if cfg.data.random_tr_poses else 0,
             device=dev)
+        # the native host sampler (trainer.py:98-114): the step takes its
+        # indices from it in place of the device sampler's draws
+        self.native_sampler = self.host_feed = None
+        if cfg.data.host_sampler:
+            from ..datasets.native_sampler import NativeRaySampler
+            labels = scene_train.labels
+            self.native_sampler = NativeRaySampler(
+                cfg.data.ray_sampling_strategy, cfg.data.batch_size,
+                scene_train.img_wh, np.asarray(scene_train.rays)[..., :3],
+                depth=labels.get("depth"), normals=labels.get("normals"),
+                semantics=labels.get("semantics"),
+                max_expand=cfg.data.triang_max_expand,
+                patch_size=cfg.data.patch_size,
+                n_threads=cfg.data.host_sampler_threads, seed=cfg.seed)
+            self.host_feed = HostFeed(self.native_sampler,
+                                      cfg.optim.update_interval, dev)
         self.scene = {
             "poses": torch.as_tensor(scene_train.poses, dtype=torch.float32,
                                      device=dev),
@@ -341,7 +414,14 @@ class Trainer:
         rows = self._table.index_select(
             0, torch.stack([self.opt.count_t, self._step_t]))
         sched = dict(zip(SCHEDULE_COLUMNS, rows[1]))
-        batch = self.sampler.sample(g, draws.get("batch"))
+        given = draws.get("batch")
+        if given is not None and "img_idxs" in given:   # a host batch
+            batch = {k: as_index(given[k], self.device)
+                     for k in ("img_idxs", "pix_idxs")}
+        elif given is None and self.host_feed is not None:
+            batch = self.host_feed.read()
+        else:
+            batch = self.sampler.sample(g, given)
         self.last_batch = batch
         img, pix = batch["img_idxs"], batch["pix_idxs"]
         target = {"rgb": scene["rays"][img, pix][..., :3]}
@@ -416,10 +496,17 @@ class Trainer:
         `bootstrap`, else the march `render_train` picks from the occupancy
         state (the flat layout ignores `bootstrap`, as the JAX one does).
         `draws` may hold this step's random draws: "batch" (the sampler's
-        `draw()`: {"img", "tri" / "corner" / "pix"[, "rnd"]}), "noise"
-        (N,), "bg" (3,) and "kmeans_init" (cluster_K,).
+        `draw()`: {"img", "tri" / "corner" / "pix"[, "rnd"]}, or a host
+        batch {"img_idxs", "pix_idxs"}), "noise" (N,), "bg" (3,) and
+        "kmeans_init" (cluster_K,). With the host sampler and no batch
+        given, the step takes the prefetcher's next batch.
         Returns the step's metrics as tensors (no host synchronisation)."""
         self._ensure_rows(self.step + 1)
+        if self.host_feed is not None and "batch" not in (draws or {}):
+            self.host_feed.load(1)
+        return self._one_step(bootstrap, draws)
+
+    def _one_step(self, bootstrap: bool, draws: Optional[Dict] = None):
         metrics = self._step_body(bootstrap, draws)
         self._advance()
         return metrics
@@ -441,13 +528,15 @@ class Trainer:
         self._ensure_rows(self.step + n)
         m = None
         on_card = self.device.type == "cuda"
+        if self.host_feed is not None:
+            self.host_feed.load(n)
         if not on_card or self.cfg.render.march_layout == "flat":
             if on_card and not self._flat_logged:
                 _log.info("flat march layout: eager steps, not a CUDA graph "
                           "(its segment widths are read on the host)")
                 self._flat_logged = True
             for _ in range(n):
-                m = self.train_step_core(bootstrap)
+                m = self._one_step(bootstrap)
             return m
         kind = train_march_kind(self.model.cfg, self.cfg.render, self.occ,
                                 bootstrap)
@@ -461,6 +550,8 @@ class Trainer:
                 graph.replay()
                 self._advance()
                 m, self.last_batch, self.last_grads = self._graph_out[kind]
+        if self.host_feed is not None:   # the next chunk's, while this one runs
+            self.host_feed.prefetch(self.cfg.optim.update_interval)
         return m
 
     def _warm_step(self, kind: str, bootstrap: bool):
@@ -470,7 +561,7 @@ class Trainer:
             self._side = torch.cuda.Stream(self.device)
         self._side.wait_stream(main)
         with torch.cuda.stream(self._side):
-            m = self.train_step_core(bootstrap)
+            m = self._one_step(bootstrap)
         main.wait_stream(self._side)
         self._warm[kind] = self._warm.get(kind, 0) + 1
         return m
@@ -615,7 +706,8 @@ class Trainer:
             load_norm_gt=cfg.data.load_norm_gt or "normals" in scene.labels,
             load_sem_gt="semantics" in scene.labels,
             load_sem_WF_gt="semantics_WF" in scene.labels,
-            n_classes=scene.n_classes,
+            n_classes=scene.n_classes, eval_lpips=cfg.eval.eval_lpips,
+            device=self.device,
         )
         preds = []
         all_res = self.render_images(list(scene.poses))

@@ -94,12 +94,12 @@ def test_debug_overrides_match_jax(argv):
                                                             100)
 
 
-@pytest.mark.parametrize("flag,item", [("--eval_lpips", "A9"),
-                                       ("--num_chips=4", "A10")])
+@pytest.mark.parametrize("flag,item", [("--num_chips=4", "A10")])
 def test_unported_flags_are_refused(flag, item):
-    """The CLI refuses them naming their ROADMAP item: LPIPS and more
-    than one card when it parses the flags (extrinsic optimisation trains:
-    tests/test_torch_extrinsics.py)."""
+    """The CLI refuses them naming their ROADMAP item: more than one card
+    when it parses the flags (extrinsic optimisation trains:
+    tests/test_torch_extrinsics.py; --eval_lpips passes through:
+    tests/test_torch_lpips.py)."""
     from normal_clustering_nerf_torch.train_nerf import main
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main([flag, "--dataset_name=synthetic"], device="cpu")

@@ -249,7 +249,7 @@ def test_render_test_flat_matches_jax(table_scale):
 
 def test_render_test_refuses_unported_layouts():
     """A scene past scale 0.5 (several cascades, the geometric step grid:
-    ROADMAP A15) is refused by the bitfield test rounds of both layouts;
+    ROADMAP A9c / B8) is refused by the bitfield test rounds of both layouts;
     the flat layout and the rounds without the sv march themselves run
     (the tests above)."""
     _, _, tm = _models(0.0, grid_size=16, max_samples=128, scale=1.0)
@@ -257,7 +257,7 @@ def test_render_test_refuses_unported_layouts():
     *_, state = _occupancy(rng, 16, 0.6)
     o, d = _rays(rng, 8)
     for rc in (TRC(test_layout="flat"), TRC(march_coarse=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+        with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
             tr.render_test(tm, state, T(o), T(d), rc)
 
 

@@ -44,7 +44,7 @@ def test_steps_after_the_bootstrap_are_refused(scene, render):
     bitfield march over march_block steps) and in the flat layout train
     (tests/test_torch_slice.py holds them against JAX); what stays
     refused is a scene past scale 0.5: several cascades and the geometric
-    step grid (ROADMAP A15)."""
+    step grid (ROADMAP A9c / B8)."""
     _, cfg = slice_configs()
     cfg = cfg.replace(render=dataclasses.replace(cfg.render, **render))
     tr = Trainer(cfg, scene, device="cpu")
@@ -55,7 +55,7 @@ def test_steps_after_the_bootstrap_are_refused(scene, render):
         assert 0 < float(m["rm_samples_per_ray"]) <= 16
         assert float(m["trunc_ray_frac"]) == 0.0
     big = Trainer(replace_model(cfg, scale=1.0), scene, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
         big.train_step_core(bootstrap=False)
 
 

@@ -83,10 +83,12 @@ def test_rgb_metrics_match_jax():
                                    err_msg=name)
 
 
-def test_metric_aggregator_matches_jax():
+def test_metric_aggregator_matches_jax(tmp_path, monkeypatch):
     """Two images with every head and label, through update and compute:
     PSNR, the SSIMs, depth errors, both normal heads' angles (their
-    flip-minimum forms too) and the confusion-matrix scores."""
+    flip-minimum forms too) and the confusion-matrix scores; with
+    eval_lpips and no weight file, both warn and give the same columns
+    (tests/test_torch_lpips.py holds the column with a file)."""
     rng = np.random.default_rng(2)
     kw = dict(pred_norm_nn=True, pred_norm_depth=True, pred_sem=True,
               load_depth_gt=True, load_norm_gt=True, load_sem_gt=True,
@@ -111,8 +113,14 @@ def test_metric_aggregator_matches_jax():
     assert set(out) == set(ref)
     for k, v in ref.items():
         np.testing.assert_allclose(out[k], v, rtol=1e-6, err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmet.NeRFMTMetricsPerIm(eval_lpips=True)
+    monkeypatch.setenv("NCNERF_LPIPS_WEIGHTS", str(tmp_path / "none.npz"))
+    with pytest.warns(RuntimeWarning, match="no LPIPS weight file"):
+        agg_t = tmet.NeRFMTMetricsPerIm(eval_lpips=True, device="cpu", **kw)
+        agg_j = jmet.NeRFMTMetricsPerIm(eval_lpips=True, **kw)
+    agg_t.update(pred, gt)
+    agg_j.update(pred, gt)
+    assert set(agg_t.compute()) == set(agg_j.compute())
+    assert "lpips" not in agg_t.compute()
 
 
 def _manhattan_normals(rng, R, n=3000, noise=0.08):
