@@ -51,10 +51,16 @@ Phases (any failed check raises, so the script exits non-zero):
      (8192, 1024) block, beside P2's own form in torch); H9 (both marches)
      and H10 (both modes) again at scene scale 0.3, where the mip bound is
      not a power of two and the plain versions must divide by it as the
-     kernels do (`ops/ray_march.py:_div`). Then the training
+     kernels do (`ops/ray_march.py:_div`); H1, H9 (dense, and flat
+     through H11) and H10 (three rounds of each mode) at the scene scales
+     past 0.5 of CASCADE_SCALES (2, 2, 3 and 6 cascades, the geometric
+     step grid) on random rays inside and outside the box and a random
+     occupancy of every cascade, outputs identical, the share of probes
+     at each mip logged (`check_cascades`). Then the training
      steps at the CPU tests' size run on the card and on the CPU from the
-     same state and draws (bootstrap, sv, bitfield and flat steps): every
-     loss and gradient must agree;
+     same state and draws (bootstrap, sv, bitfield and flat steps; and a
+     bootstrap and a bitfield step at scale 1.0): every loss and gradient
+     must agree;
   3. set every launch count to 0, train STEPS (576) steps with
      `Trainer.fit`: 512 bootstrap steps, then 64 sv steps (counted apart);
      an occupancy refresh every 16 steps (every cell before step 256,
@@ -115,8 +121,10 @@ Phases (any failed check raises, so the script exits non-zero):
   then the ext path (extrinsic optimisation: `optimize_ext` and
   `lr_dR_norm_glob`, EXT_OPTIM): the step parity of a bootstrap and an sv
   step with dR / dT / dR_glob for each field (every parameter after each
-  step held to the CPU's); the bench configuration with EXT_OPTIM through
-  `Trainer.fit` for 576 counted steps (H12, the triplane's position
+  step held to the CPU's); the box hits of a batch of its rays with
+  direction components exactly 0, their ray gradient finite and their
+  values those without a gradient (`check_flat_rays`); the bench
+  configuration with EXT_OPTIM through `Trainer.fit` for 576 counted steps (H12, the triplane's position
   gradient, once a step; K1 64 times), dR and dT moved and within 576
   Adam updates at 1e-6 of their start, dR_glob exactly 0, losses falling,
   `validate`; and 64 ext steps each of the brick (H13) and the tcnn field
@@ -132,7 +140,14 @@ Phases (any failed check raises, so the script exits non-zero):
   triplane bench configuration with `host_sampler` (the native
   prefetcher, built with g++ from the port's copy of raybatch.cpp), 576
   counted steps through `Trainer.fit` (K1 64 times, losses falling); then
-  LPIPS with random weights on one held-out view, card against CPU
+  the cascades path (`cascades_path`): the bench configuration at scale
+  1.0 (2 cascades, exp_step_factor 1/256) on the synthetic room at twice
+  its width (walls in cascade 1), 576 counted steps through
+  `Trainer.fit` (H1 512 times, H9 64, K1 never; losses falling), H1, H9
+  and H10 against their plain versions at the path's shapes with some
+  kept samples past cascade 0, `validate` through bitfield window rounds
+  (psnr and norm_depth logged, no gate), a "cascades path" JSON line;
+  then LPIPS with random weights on one held-out view, card against CPU
   within LPIPS_RTOL, and its time;
   then the preset path: the Hypersim preset's config
   (experiments/hyperparameters.py:hypersim_flags, the literal
@@ -201,15 +216,17 @@ Phases (any failed check raises, so the script exits non-zero):
      tables' zero fill alone; the fields' forwards also on the sv step's
      positions and at the refresh shape, with the modelled warp load
      counts logged beside the times; H1 also on a full bitfield, H3's
-     forward also at the first test round's shape with T_start, and H3's
-     four launchers at 46 channels (N 8190, K 16; "c46_*" keys);
+     forward also at the first test round's shape with T_start, H3's
+     four launchers at 46 channels (N 8190, K 16; "c46_*" keys), and H1,
+     H9 and H10 at the cascades path's shapes, each with its bound
+     (logf and powf counted as operations; "cascades_*" keys);
   7. CUDA-graph chunks: for the triplane path's bootstrap and sv march, the
      bitfield path's march, the brick and tcnn fields', the preset and
      the ext path's sv march, the two baselines' sv march (their config's
      norm_can_start, clustering ramp and anneal_steps moved into the
      chunk, after 3 eager steps and a capture at the new step table), the
-     40-class path's bootstrap march and the host-sampler path's sv march
-     (each replay read the host batch loaded for it, no two the same; its
+     40-class path's bootstrap march, the cascades path's bitfield march
+     and the host-sampler path's sv march (each replay read the host batch loaded for it, no two the same; its
      eager steps take the replay's batch), 16
      replays of the graph the training phase captured, each against 3
      eager steps from the state and generator state it started from:
@@ -621,7 +638,22 @@ def param_tolerance(g, lr):
     return torch.where(tiny, 2.0 * lr, 1e-2 * lr)
 
 
-def step_parity(layout="triplane", seed=11, ext=False):
+# a scene past scale 0.5: 2 cascades and the geometric step
+# grid; the synthetic room at twice its width, its walls (|x| 0.8) in
+# cascade 1
+CASCADES_SCALE = 1.0
+CASCADES_ROOM = dict(room_half=0.8, scale=CASCADES_SCALE)
+# its step parity: the bootstrap march, then the bitfield march (no sv
+# march past one cascade)
+CASCADE_STEPS = (("bootstrap", True, {}), ("fine", False, {}))
+
+
+def cascades_config(cfg):
+    return cfg.replace(model=dataclasses.replace(cfg.model,
+                                                 scale=CASCADES_SCALE))
+
+
+def step_parity(layout="triplane", seed=11, ext=False, cascades=False):
     """Training steps at `small_config(layout)`, each on the card through
     the kernels and on the CPU through the plain versions, from the same
     parameters, optimizer state, occupancy and draws (made with numpy from
@@ -631,8 +663,10 @@ def step_parity(layout="triplane", seed=11, ext=False):
     step. With `ext` (EXT_OPTIM: the position-gradient kernels H12-H14),
     the bootstrap and the sv step, and every parameter after each (dR, dT
     and dR_glob, which stays 0, among them) held to the CPU's
-    (`param_tolerance`). The CPU path is the one the tests hold against
-    the JAX package."""
+    (`param_tolerance`). With `cascades`, the triplane at CASCADES_SCALE
+    on the CASCADES_ROOM scene: a bootstrap and a bitfield march step
+    (CASCADE_STEPS). The CPU path is the one the tests hold against the
+    JAX package."""
     import numpy as np
     from normal_clustering_nerf_torch.datasets.synthetic import (
         SyntheticDataset)
@@ -643,8 +677,10 @@ def step_parity(layout="triplane", seed=11, ext=False):
     cfg = small_config(layout)
     if ext:
         cfg = ext_config(cfg)
-    scene = SyntheticDataset(split="train", img_wh=(24, 24),
-                             n_images=6).load()
+    if cascades:
+        cfg = cascades_config(cfg)
+    scene = SyntheticDataset(split="train", img_wh=(24, 24), n_images=6,
+                             **(CASCADES_ROOM if cascades else {})).load()
     cpu = Trainer(cfg, scene, device="cpu")
     cpu.mark_invisible_cells()
     cpu.occ_update(warmup=True)
@@ -652,9 +688,10 @@ def step_parity(layout="triplane", seed=11, ext=False):
     rng = np.random.default_rng(seed)
     n_tri = cfg.data.batch_size // 3
     chk = Check()
-    steps = (PARITY_STEPS if layout == "triplane" and not ext
-             else PARITY_STEPS[:2])
-    tag = f"{layout}{', ext' if ext else ''}"
+    steps = (CASCADE_STEPS if cascades else PARITY_STEPS
+             if layout == "triplane" and not ext else PARITY_STEPS[:2])
+    tag = (f"{layout}{', ext' if ext else ''}"
+           f"{f', scale {CASCADES_SCALE}' if cascades else ''}")
     for name, boot, render in steps:
         for t in (cpu, card):
             t.cfg = cfg.replace(render=dataclasses.replace(cfg.render,
@@ -703,7 +740,7 @@ def step_parity(layout="triplane", seed=11, ext=False):
                       torch.zeros(3))
         if boot:   # the refresh that builds the sv tables and coarse mask
             cpu.occ_update(warmup=True)
-            if not int(cpu.occ.sv_mask.sum()):
+            if not cascades and not int(cpu.occ.sv_mask.sum()):
                 raise RuntimeError("step parity: the refresh left no "
                                    "occupied supervoxel")
     chk.done(f"step parity, {tag}")
@@ -2265,6 +2302,156 @@ def check_scale(tr, occ, gen, scale=SCALE_03):
     return max(errs)
 
 
+# scene scales past 0.5: 2, 2, 3 and 6 cascades, the geometric step grid;
+# at 0.75 the top cascade's bound is not a power of two
+CASCADE_SCALES = (0.75, 1.0, 2.0, 16.0)
+# f32 operations per probed step of the general grid (`Cascades` in
+# csrc/march_fine.cu), each powf or logf counted as one: t_k (at most 4,
+# powf among them), calc_dt (3), three positions (6), the mip (16: |x|,
+# the max, two frexp, clamps), its bound and reciprocal (3), three cells
+# (18); and per ray the phase bounds (12, one logf and one powf)
+CASCADE_STEP_OPS, CASCADE_RAY_OPS = 50, 12
+
+
+def grid_probes(t0, t2, hit, kw, S):
+    """Steps t_k (k < S) of each ray's grid from t0 (`t_step_grid` at the
+    march keywords `kw`) before t2, summed over the rays that march."""
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    tg = rm.t_step_grid(t0, S, exp_step_factor=kw["exp_step_factor"],
+                        max_samples=kw["max_samples"],
+                        grid_size=kw["grid_size"], scale=kw["scale"])
+    return int(((tg < t2[:, None]) & hit[:, None]).sum())
+
+
+def mip_shares(o, d, t, keep, m, max_samples):
+    """The share of the samples `t` (N, S) where `keep` at each cascade of
+    the model config `m`, as `cell_index` places them."""
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    dt = rm.calc_dt(t, m.exp_step_factor, max_samples, m.grid_size, m.scale)
+    xyz = o[:, None, :] + t[..., None] * d[:, None, :]
+    mip = rm.cell_index(xyz, cascades=m.cascades, scale=m.scale,
+                        grid_size=m.grid_size, dt=dt) // m.grid_size ** 3
+    n = torch.bincount(mip[keep], minlength=m.cascades)
+    return [round(float(c) / max(int(n.sum()), 1), 4) for c in n]
+
+
+def cascade_march_inputs(m, N, gen, dev, density=0.2):
+    """N rays for the scene scale of `m`: origins in 1.2x its box (some
+    outside it, some of those missing it), random directions, their
+    near-clamped box intervals, march noise, and a random occupancy of
+    `density` over every cascade's cells."""
+    from normal_clustering_nerf_torch.models.rendering import near_intervals
+    from normal_clustering_nerf_torch.ops.packbits import packbits
+    s = m.scale
+    o = ((torch.rand((N, 3), generator=gen, device=dev) * 2.0 - 1.0)
+         * (1.2 * s)).contiguous()
+    d = torch.randn((N, 3), generator=gen, device=dev)
+    d = (d / d.norm(dim=-1, keepdim=True)).contiguous()
+    hits = near_intervals(m, o, d).contiguous()
+    noise = torch.rand(N, generator=gen, device=dev)
+    occ = torch.rand(m.cascades * m.grid_size ** 3, generator=gen,
+                     device=dev) < density
+    return o, d, hits, packbits(occ.float(), 0.5), noise
+
+
+def check_cascades(tr, gen, scales=CASCADE_SCALES):
+    """H1 (the bootstrap march), H9 (the fine march, and the flat march
+    through H11) and H10 (TEST_ROUNDS rounds of each mode from the cursors
+    the last returned) against their plain versions at the scene scales
+    past 0.5 (several cascades, the geometric step grid), on
+    `cascade_march_inputs` at the bench's grid, batch and steps: outputs
+    identical (the kernels' logf and powf are CUDA's, as the plain
+    versions' torch.log and torch.pow on the card). Logs the share of the
+    fine march's in-range probes at each mip. Returns the largest error
+    of each launcher."""
+    from normal_clustering_nerf_torch.models.rendering import (
+        bucket_ladder, train_march_args)
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    rc, dev, N = tr.cfg.render, tr.device, tr.sampler.batch_size
+    errs = {k: [] for k in ("march_bootstrap", "march_fine_train",
+                            "compact_samples", "march_fine_test_round")}
+    chk = Check()
+    for scale in scales:
+        m = dataclasses.replace(tr.cfg.model, scale=scale)
+        o, d, hits, bits, noise = cascade_march_inputs(m, N, gen, dev)
+        args = (o, d, hits, bits, noise)
+        t1, t2 = hits[:, 0], hits[:, 1]
+        log(f"scale {scale}: {m.cascades} cascades, exp_step_factor "
+            f"{m.exp_step_factor}, N={N}, {int((t1 >= 0).sum())} rays hit "
+            f"the box")
+        for kind, name, fn in (
+                ("bootstrap", "march_bootstrap", rm.march_rays_train_bootstrap),
+                ("fine", "march_fine_train", rm.march_rays_train_dense)):
+            kw = train_march_args(m, rc, N, kind)
+            if kind == "fine":
+                kw["coarse_occ"] = None
+            got = fn(*args, **kw)
+            ref = rm.march_rays_train_dense_plain(*args, **kw)
+            t0 = t1 + rm.calc_dt(t1, m.exp_step_factor, kw["max_samples"],
+                                 m.grid_size, scale) * noise
+            tg = rm.t_step_grid(t0, kw["march_steps"],
+                                exp_step_factor=m.exp_step_factor,
+                                max_samples=kw["max_samples"],
+                                grid_size=m.grid_size, scale=scale)
+            probed = (t1 >= 0)[:, None] & (tg < t2[:, None])
+            log(f"{'H1' if kind == 'bootstrap' else 'H9'} {kind} at scale "
+                f"{scale}: S={kw['march_steps']} K={ref.t.shape[1]}; rm/ray "
+                f"{int(ref.rm_samples) / N:.2f}; in-range probes "
+                f"{int(probed.sum())}, by mip "
+                f"{mip_shares(o, d, tg, probed, m, kw['max_samples'])}; kept "
+                f"samples by mip "
+                f"{mip_shares(o, d, ref.t, ref.valid, m, kw['max_samples'])}")
+            errs[name] += [chk.equal(f, getattr(got, f), getattr(ref, f))
+                           for f in ("t", "dt", "valid", "ray_count",
+                                     "rm_samples", "trunc_rays")]
+            if kind == "fine":
+                fine_kw = kw
+        # the flat march: H9 at the per-ray cap, compacted by H11
+        budget = rc.sample_budget or N * 32
+        fkw = {k: v for k, v in fine_kw.items()
+               if k not in ("samples_per_ray", "coarse_occ",
+                            "coarse_k_blocks")}
+        got = rm.march_rays_train(*args, sample_budget=budget,
+                                  per_ray_cap=fine_kw["samples_per_ray"],
+                                  **fkw)
+        dense = rm.march_rays_train_dense_plain(*args, **fine_kw)
+        ref = rm.compact_samples_plain(dense.valid, dense.t, dense.dt, budget)
+        log(f"H9 + H11 flat at scale {scale}: B={budget}, "
+            f"{int(ref.valid.sum())} kept")
+        errs["compact_samples"] += [chk.equal(f"flat {f}", getattr(got, f),
+                                              getattr(ref, f))
+                                    for f in rm.MarchResult._fields]
+        # H10, both modes, TEST_ROUNDS rounds each
+        mk = dict(cascades=m.cascades, scale=scale,
+                  exp_step_factor=m.exp_step_factor, grid_size=m.grid_size,
+                  max_samples=m.max_samples)
+        rungs = bucket_ladder(N, max(4, rc.test_min_k), rc.test_march_window)
+        for mode in ("full", "window"):
+            cursor, far = t1.contiguous(), t2.contiguous()
+            alive = cursor >= 0
+            for r in range(TEST_ROUNDS):
+                if mode == "full":
+                    tkw = dict(mk, n_steps=rc.test_n_samples)
+                    fn, pfn = (rm.march_rays_test_round_dense,
+                               rm.march_rays_test_round_dense_plain)
+                else:
+                    K = next(k for b, k in rungs if b >= int(alive.sum()))
+                    tkw = dict(mk, S_march=rc.test_march_window, n_steps=K)
+                    fn, pfn = (rm.march_rays_test_round_window,
+                               rm.march_rays_test_round_window_plain)
+                targs = (o, d, cursor, far, alive, bits)
+                got, ref = fn(*targs, **tkw), pfn(*targs, **tkw)
+                log(f"H10 {mode} round {r} at scale {scale}: alive "
+                    f"{int(alive.sum())}, valid samples {int(ref[2].sum())}")
+                errs["march_fine_test_round"] += [
+                    chk.equal(name, a, b) for name, a, b in
+                    zip(("t", "dt", "valid", "cursor"), got, ref)]
+                cursor = ref[3]
+                alive = alive & (cursor < far)
+    chk.done(f"H1 / H9 / H10 at scales {scales}")
+    return {k: max(v) for k, v in errs.items()}
+
+
 def dense_of(mr, x, n_rays, width):
     """The flat slots of `mr` laid out as dense (N, width) rows."""
     from normal_clustering_nerf_torch.ops.segops import (
@@ -2770,6 +2957,18 @@ def time_kernels(rec):
             log(f"  {name} at {w['shape']}: {r['c46_ms']:.4f} ms, plain "
                 f"{r['c46_plain_ms']:.4f} (bound {w['bound'][0]:.6f}, "
                 f"{w['bound'][1]})")
+        if "cascades" in r:
+            c = r.pop("cascades")
+            r["cascades_shape"] = c["shape"]
+            r["cascades_launches"] = c["launches"]
+            r["cascades_ms"] = device_ms(c["kernel"], f"{name} cascades")
+            r["cascades_plain_ms"] = device_ms(c["plain"],
+                                               f"{name} cascades plain")
+            r["cascades_bound_ms"] = c["bound"][0]
+            log(f"  {name} on the cascades path ({c['shape']}; "
+                f"{c['launches']} launches): {r['cascades_ms']:.4f} ms, "
+                f"plain {r['cascades_plain_ms']:.4f} (bound "
+                f"{c['bound'][0]:.6f}, {c['bound'][1]})")
         if "at_p4_shape" in r:
             p4 = r.pop("at_p4_shape")
             r["p4_ms"] = device_ms(p4["kernel"], f"{name} P4")
@@ -2999,11 +3198,46 @@ def check_pose_deltas(tr, start, n_steps):
                            f"{lim}, dR_glob {tr.params['dR_glob']}")
 
 
+def check_flat_rays(tr, gen):
+    """The scene-box hits (`near_intervals`) of one batch of the trainer's
+    rays with a direction component set to exactly 0 in every third ray
+    (and a second one in every twelfth), as a rotated pose's product can
+    give: with a gradient on the rays the hits equal those without one bit
+    for bit, and the rays' gradient under a random cotangent is finite
+    (autodiff of 1/d gives 0 * inf = NaN there, which the global-norm clip
+    would spread to every parameter)."""
+    from normal_clustering_nerf_torch.models.rendering import near_intervals
+    batch = tr.sampler.sample(gen)
+    with torch.no_grad():
+        o, d = tr._assemble_rays(batch)
+    o, d = o.contiguous().clone(), d.contiguous().clone()
+    n = d.shape[0]
+    rows = torch.arange(0, n, 3, device=d.device)
+    d[rows, rows % 3] = 0.0
+    rows = torch.arange(0, n, 12, device=d.device)
+    d[rows, (rows + 1) % 3] = 0.0
+    ref = near_intervals(tr.cfg.model, o, d)
+    ro, rd = o.requires_grad_(True), d.requires_grad_(True)
+    got = near_intervals(tr.cfg.model, ro, rd)
+    cot = torch.randn(got.shape, generator=gen, device=got.device)
+    (got * cot).sum().backward()
+    zeros = int((d.detach() == 0).sum())
+    finite = all(bool(torch.isfinite(g).all()) for g in (ro.grad, rd.grad))
+    same = torch.equal(got.detach(), ref)
+    log(f"  box hits of {n} rays with {zeros} direction components exactly "
+        f"0: values {'equal' if same else 'DIFFER'} with and without a "
+        f"gradient, ray gradient {'finite' if finite else 'NOT FINITE'}")
+    if not (same and finite):
+        raise RuntimeError("the box hits' ray gradient is not finite on "
+                           "rays with a zero direction component, or its "
+                           "values moved")
+
+
 def ext_path(launches):
     """The slice's path, extrinsic optimisation (EXT_OPTIM): the step
-    parity with dR / dT / dR_glob for the three fields; the bench
-    configuration with EXT_OPTIM through `Trainer.fit` for STEPS steps
-    (H12 once a step, K1 SV_STEPS times), its pose deltas
+    parity with dR / dT / dR_glob for the three fields; `check_flat_rays`;
+    the bench configuration with EXT_OPTIM through `Trainer.fit` for STEPS
+    steps (H12 once a step, K1 SV_STEPS times), its pose deltas
     (`check_pose_deltas`) and `validate`; then EXT_LAYOUT_STEPS ext steps
     of the brick (H13) and the tcnn field (H14) at the bench
     configuration. Returns the triplane trainer and fit's ms/step."""
@@ -3012,6 +3246,7 @@ def ext_path(launches):
         step_parity(layout, seed=23, ext=True)
     tr = build_trainer(ext_config(bench_config()), device="cuda")
     tr.mark_invisible_cells()
+    check_flat_rays(tr, torch.Generator(device="cuda").manual_seed(29))
     log(f"phase 3, ext: {STEPS} training steps through Trainer.fit with "
         f"{EXT_OPTIM} ({tr.scene_train.n_images} images' dR and dT)")
     start = {k: p.detach().clone() for k, p in tr.params.items()}
@@ -3044,7 +3279,7 @@ GRAPH_STEPS = 16   # a chunk of the graph phase: the steps between refreshes
 GRAPH_CASES = (("triplane", True), ("triplane", False), ("bitfield", False),
                ("brick", False), ("tcnn", False), ("preset", False),
                ("supervised", False), ("regnerf", False), ("ext", False),
-               ("sem40", True), ("host", False))
+               ("sem40", True), ("host", False), ("cascades", False))
 
 
 def sync(dev):
@@ -4165,6 +4400,168 @@ def sem40_path(launches, smi):
     return tr, ms
 
 
+# ------------------------------------------------------ the cascades path
+def cascade_timing(tc, gen):
+    """H1, H9 and H10 at the cascades path's shapes, on its trained
+    trainer: H1 on a bootstrap batch (a fresh refresh's bitfield), H9's
+    fine march on that batch at the intervals after the annealing, H10's
+    first window round over the held-out rays at the renderer's K. Checks
+    each against its plain version (identical outputs), logs the share of
+    H9's kept samples at each mip (some must lie past cascade 0), and
+    returns {launcher: record} for `time_kernels`' "cascades" rows."""
+    from normal_clustering_nerf_torch.models.rendering import (
+        bucket_ladder, train_intervals, train_march_args)
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    m, rc, chk = tc.cfg.model, tc.cfg.render, Check()
+    inp = main_path_inputs(tc, gen)
+    a, kw = inp["march"]["args"], inp["march"]["kw"]
+    N = a[0].shape[0]
+    hit = a[2][:, 0] >= 0
+
+    def march_bound(args, kw, out, t0, t2, ok, S, extra=()):
+        probes = grid_probes(t0, t2, ok, kw, S)
+        return bound(nbytes(*args, *out, *extra) + 4,
+                     CASCADE_STEP_OPS * probes
+                     + CASCADE_RAY_OPS * int(ok.sum())), probes
+
+    def t0_of(t1, noise, kw):
+        return t1 + rm.calc_dt(t1, m.exp_step_factor, kw["max_samples"],
+                               m.grid_size, m.scale) * noise
+
+    recs, err = {}, {}
+    got = rm.march_rays_train_bootstrap(*a, **kw)
+    ref = rm.march_rays_train_dense_plain(*a, **kw)
+    err["march_bootstrap"] = max(chk.equal(f"H1 {f}", getattr(got, f),
+                                           getattr(ref, f))
+                                 for f in ("t", "dt", "valid", "ray_count",
+                                           "rm_samples"))
+    b, probes = march_bound(a, kw, (ref.t, ref.dt, ref.valid, ref.ray_count),
+                            t0_of(a[2][:, 0], a[4], kw), a[2][:, 1], hit,
+                            kw["march_steps"])
+    log(f"cascades H1: N={N} S={kw['march_steps']} K={ref.t.shape[1]}, "
+        f"{probes} steps inside the box")
+    recs["march_bootstrap"] = dict(
+        shape=f"N {N}, S {kw['march_steps']}, K {ref.t.shape[1]}, "
+        f"{m.cascades} cascades",
+        kernel=(lambda: rm.march_rays_train_bootstrap(*a, **kw)),
+        plain=(lambda: rm.march_rays_train_dense_plain(*a, **kw)), bound=b)
+
+    hits = train_intervals(m, rc, a[0], a[1], tc.step)
+    fa = (a[0], a[1], hits, tc.occ.density_bitfield, a[4])
+    fkw = dict(train_march_args(m, rc, N, "fine"), coarse_occ=None)
+    got = rm.march_rays_train_dense(*fa, **fkw)
+    ref = rm.march_rays_train_dense_plain(*fa, **fkw)
+    err["march_fine_train"] = max(chk.equal(f"H9 {f}", getattr(got, f),
+                                            getattr(ref, f))
+                                  for f in ("t", "dt", "valid", "ray_count",
+                                            "rm_samples", "trunc_rays"))
+    shares = mip_shares(a[0], a[1], ref.t, ref.valid, m, m.max_samples)
+    b, probes = march_bound(fa, fkw, (ref.t, ref.dt, ref.valid,
+                                      ref.ray_count),
+                            t0_of(hits[:, 0], a[4], fkw), hits[:, 1],
+                            hits[:, 0] >= 0, fkw["march_steps"])
+    log(f"cascades H9 fine on the trained occupancy: N={N} "
+        f"S={fkw['march_steps']}, rm/ray {int(ref.rm_samples) / N:.2f}, "
+        f"{probes} steps inside the box; kept samples by mip {shares}")
+    if not sum(shares[1:]) > 0:
+        raise RuntimeError(f"cascades path: no kept sample past cascade 0 "
+                           f"({shares})")
+    recs["march_fine_train"] = dict(
+        shape=f"N {N}, S {fkw['march_steps']}, K {ref.t.shape[1]}, "
+        f"{m.cascades} cascades",
+        kernel=(lambda: rm.march_rays_train_dense(*fa, **fkw)),
+        plain=(lambda: rm.march_rays_train_dense_plain(*fa, **fkw)), bound=b)
+
+    ro, rd, near, far = held_out_rays(tc)
+    alive = near >= 0
+    Kt = next(k for b_, k in bucket_ladder(ro.shape[0],
+                                           max(4, rc.test_min_k),
+                                           rc.test_march_window)
+              if b_ >= int(alive.sum()))
+    tkw = dict(cascades=m.cascades, scale=m.scale,
+               exp_step_factor=m.exp_step_factor, grid_size=m.grid_size,
+               max_samples=m.max_samples, S_march=rc.test_march_window,
+               n_steps=Kt)
+    targs = (ro, rd, near, far, alive, tc.occ.density_bitfield)
+    got = rm.march_rays_test_round_window(*targs, **tkw)
+    ref = rm.march_rays_test_round_window_plain(*targs, **tkw)
+    err["march_fine_test_round"] = max(
+        chk.equal(f"H10 {f}", x, y)
+        for f, x, y in zip(("t", "dt", "valid", "cursor"), got, ref))
+    gkw = dict(tkw, max_samples=m.max_samples)
+    ok = alive & (near >= 0)
+    probes = grid_probes(near, torch.minimum(ref[3], far), ok, gkw,
+                         rc.test_march_window)
+    log(f"cascades H10 window round: N={ro.shape[0]} S_march="
+        f"{rc.test_march_window} K={Kt}, {probes} steps probed")
+    recs["march_fine_test_round"] = dict(
+        shape=f"N {ro.shape[0]}, S_march {rc.test_march_window}, K {Kt}, "
+        f"{m.cascades} cascades",
+        kernel=(lambda: rm.march_rays_test_round_window(*targs, **tkw)),
+        plain=(lambda: rm.march_rays_test_round_window_plain(*targs, **tkw)),
+        bound=bound(nbytes(*targs, *ref), CASCADE_STEP_OPS * probes
+                    + CASCADE_RAY_OPS * int(ok.sum())))
+    chk.done("cascades path: H1 / H9 / H10 at its shapes")
+    return recs, err, shares
+
+
+def cascades_path(rec, launches, gen, smi):
+    """A scene past scale 0.5: the bench configuration at CASCADES_SCALE
+    (2 cascades, exp_step_factor 1/256) on the synthetic room of
+    CASCADES_ROOM (48 + 4 views at 128^2), STEPS steps through
+    `Trainer.fit`: H1 512 times, then the bitfield march H9 64 times (no
+    sv march past one cascade: K1 never), losses finite and falling; H1,
+    H9 and H10 at the path's shapes (`cascade_timing`: some kept samples
+    past cascade 0); `validate` through bitfield window rounds (H10),
+    psnr and norm_depth logged without a gate. Adds each launcher's
+    "cascades" record to `rec`, prints a "cascades path" JSON line and
+    returns the trainer and fit's ms/step."""
+    from normal_clustering_nerf_torch.bench import bench_config
+    from normal_clustering_nerf_torch.datasets.synthetic import (
+        SyntheticDataset)
+    from normal_clustering_nerf_torch.training import Trainer
+    scenes = [SyntheticDataset(split=split, img_wh=(128, 128), n_images=n,
+                               **CASCADES_ROOM).load()
+              for split, n in (("train", 48), ("test", 4))]
+    tc = Trainer(cascades_config(bench_config()), *scenes, device="cuda")
+    m = tc.model.cfg
+    tc.mark_invisible_cells()
+    log(f"phase 3, cascades: {STEPS} training steps through Trainer.fit at "
+        f"scale {m.scale}: {m.cascades} cascades, exp_step_factor "
+        f"{m.exp_step_factor}, bitfield {tuple(tc.occ.density_bitfield.shape)}")
+    ms, hist = path_training(
+        tc, "cascades", launches,
+        ("march_bootstrap", "march_fine_train", "composite_fwd",
+         "composite_bwd", "distortion_fwd", "distortion_bwd")
+        + FIELD_KERNELS["triplane"],
+        {"march_bootstrap": BOOT_STEPS, "march_fine_train": SV_STEPS,
+         "march_sv_train": 0})
+    recs, err, shares = cascade_timing(tc, gen)
+    out = {}
+    counts = validate(tc, "cascades", ("march_fine_test_round",
+                                       "triplane_fwd", "composite_fwd"),
+                      ("march_sv_test_round",), rotation=False, out=out)
+    for k, c in counts.items():
+        launches[k] += c
+    # the path's launches: fit's (checked exactly) and validate's
+    path_launches = {"march_bootstrap": BOOT_STEPS,
+                     "march_fine_train": SV_STEPS,
+                     "march_fine_test_round": counts["march_fine_test_round"]}
+    for name, r in recs.items():
+        r["launches"] = path_launches[name]
+        rec[name]["cascades"] = r
+        rec[name]["err"] = max(rec[name]["err"], err[name])
+    print(f"cascades path on {smi}: " + json.dumps({
+        "scale": m.scale, "cascades": m.cascades, "steps": STEPS,
+        "fit_ms_per_step": ms, "loss_total": [hist[0]["loss_total"],
+                                              hist[-1]["loss_total"]],
+        "kept_by_mip": shares,
+        "validate_launches": {k: v for k, v in counts.items() if v},
+        "psnr": out["psnr"],
+        "norm_depth_ang_mean": out["norm_depth_ang_mean"]}))
+    return tc, ms
+
+
 # -------------------------------------------------- the host-sampler path
 def prefetch_rate(sampler, n=64):
     """Batches a second the native prefetcher delivers, over n batches
@@ -4346,7 +4743,13 @@ def main():
     err = check_scale(tr, occ_random, gen)
     for name in ("march_fine_train", "march_fine_test_round"):
         early[name]["err"] = max(early[name]["err"], err)
+    log(f"phase 2, cascades: H1, H9 and H10 at scene scales "
+        f"{CASCADE_SCALES}")
+    for name, err in check_cascades(tr, gen).items():
+        r = early if name in early else rec
+        r[name]["err"] = max(r[name]["err"], err)
     step_parity()
+    step_parity(cascades=True)
 
     log(f"phase 3, triplane: {STEPS} training steps through Trainer.fit")
     launches = {k.name: 0 for k in kernels.ALL_KERNELS}
@@ -4442,6 +4845,8 @@ def main():
     paths["ext"], fit_ms["ext"] = ext_path(launches)
     paths["sem40"], fit_ms["sem40"] = sem40_path(launches, smi)
     paths["host"], fit_ms["host"] = host_path(launches)
+    paths["cascades"], fit_ms["cascades"] = cascades_path(rec, launches, gen,
+                                                          smi)
     lpips_times = lpips_check(tr)
     paths["preset"], fit_ms["preset"] = preset_path(rec, launches, gen)
     baselines, ms = baselines_path(rec, launches, gen)
@@ -4494,7 +4899,11 @@ def main():
                                           "p4_bound_ms", "p2_ms",
                                           "p2_library_ms", "p2_bound_ms",
                                           "c46_shape", "c46_ms",
-                                          "c46_plain_ms", "c46_bound_ms")
+                                          "c46_plain_ms", "c46_bound_ms",
+                                          "cascades_shape",
+                                          "cascades_launches", "cascades_ms",
+                                          "cascades_plain_ms",
+                                          "cascades_bound_ms")
                   if key in r})
         out.append(o)
     print("kernels: " + ", ".join(f"{o['name']} {o['ms']:.4f} ms "

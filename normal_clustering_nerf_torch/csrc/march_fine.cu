@@ -12,7 +12,8 @@
 // (:157-192), H11.
 //
 // H9 `march_fine_train`, per ray: the steps t_k = t0 + k*lo (t0 = t1 +
-// lo*noise) inside [t1, t2) whose occupancy bit is set; of those m_tot
+// lo*noise; on the general grid below, t_k of t_step_grid from t0 = t1 +
+// calc_dt(t1)*noise) inside [t1, t2) whose occupancy bit is set; of those m_tot
 // occupied steps the K slots that `stratified_budget` + `select_first_k`
 // keep. Lane l probes steps k = 32j + l; the bitfield is read as 32-bit
 // words in P2's form (the uint8 buffer is little-endian: bit i of byte n
@@ -38,7 +39,8 @@
 //
 // H10 `march_fine_test_round`, the same warp probe from each ray's
 // cursor over a window of S steps: K == 0 writes the whole (N, S) window
-// (t, dt = lo, valid) and the cursor S steps on for alive rays; K > 0
+// (t, dt = lo or calc_dt(t), valid) and the cursor S steps on for alive
+// rays (the grid restarts from each cursor, as JAX's t_step_grid); K > 0
 // writes the first K occupied steps and the cursor just past the K-th, or
 // past the window when fewer were found.
 //
@@ -47,6 +49,20 @@
 // wrapper), a warp per ray writes its valid samples ray-major from its
 // start, dropping those at or past the budget B, and the grid pads the
 // slots after the last sample (ray N-1, t = dt = 0, invalid).
+//
+// Scenes past scale 0.5 (several cascades, exp_step_factor 1/256): each
+// kernel body is a template on its step grid. `Uniform` is the grid of
+// one cascade and steps of lo, the code the bench runs. `Cascades` is the
+// reference's general form: t_k of `t_step_grid`'s closed form (:99-143;
+// steps of lo to A = lo/f, geometric with ratio 1 + f to B = hi/f, then
+// steps of hi) from per-ray phase bounds kA, tA, jB, tB that each lane
+// reads, dt = calc_dt(t_k) (:46-51), and the cell of `occupancy_lookup`'s
+// multi-cascade branch (:88-96): mip the larger of the position's and
+// the step's frexp exponents, x times the rounded reciprocal of
+// min(2^(mip-1), scale), the bit at mip * G^3 + cell. Its logf and powf
+// are CUDA's, as PyTorch's log and pow on the card (no fast-math flag).
+// Both grids grow with k, so a chunk whose first step is past t2 still
+// ends a ray's walk.
 //
 // Exactness: t, xyz and the cells are the reference's operations in its
 // order (t_step_grid :120, occupancy_lookup :83-86, coarse_lookup
@@ -88,6 +104,89 @@ __device__ __forceinline__ bool bit_at(const uint32_t* __restrict__ w, int c) {
   return (__ldg(w + (c >> 5)) >> (c & 31)) & 1u;
 }
 
+// The constants of the general grid past one cascade and a uniform step:
+// cascades, and t_step_grid's and calc_dt's f (0 for a uniform grid: the
+// host passes 0 where lo >= hi, as calc_dt is lo either way), hi, A =
+// lo/f, B = hi/f, 1 + f, log(1 + f), and scale. The kernels take it as
+// their last parameter and build their grid from lo, mb and it, so that
+// the `Uniform` bodies see the parameters they saw before it existed.
+struct GridArgs {
+  int cascades;
+  float f, hi, A, B, ratio, log_ratio, scale;
+};
+
+// The uniform step grid of one cascade (exp_step_factor 0): t_k = t0 +
+// k*lo, dt = lo, the cell of `occupancy_lookup`'s one-cascade branch.
+struct Uniform {
+  float lo, mb;
+  struct Line { float t0; };
+  __device__ static Uniform make(float lo, float mb, const GridArgs&) {
+    return {lo, mb};
+  }
+  __device__ Line line(float t0) const { return {t0}; }
+  __device__ float t(const Line& l, int k) const { return step_t(l.t0, k, lo); }
+  __device__ float dt(float) const { return lo; }
+  __device__ bool bit(const uint32_t* __restrict__ w, const Ray& r, float t,
+                      float, int G) const {
+    return bit_at(w, cell_at(r, t, mb, G));
+  }
+};
+
+// The general grid: geometric steps when f != 0, `cascades` cascades.
+struct Cascades {
+  float lo, mb;
+  GridArgs g;
+  // t0 (t0s = max(t0, 0) on the geometric grid) and the phase bounds
+  struct Line { float t0, kA, tA, jB, tB; };
+  __device__ static Cascades make(float lo, float mb, const GridArgs& g) {
+    return {lo, mb, g};
+  }
+  __device__ Line line(float t0) const {
+    Line l{t0, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (g.f == 0.0f) return l;
+    l.t0 = fmaxf(t0, 0.0f);
+    if (l.t0 <= g.A)
+      l.kA = __fadd_rn(floorf(__fdiv_rn(__fsub_rn(g.A, l.t0), lo)), 1.0f);
+    l.tA = __fadd_rn(l.t0, __fmul_rn(l.kA, lo));
+    if (l.tA <= g.B) {
+      const float q = logf(__fdiv_rn(g.B, fmaxf(l.tA, 1e-30f)));
+      l.jB = __fadd_rn(floorf(__fdiv_rn(q, g.log_ratio)), 1.0f);
+    }
+    l.tB = __fmul_rn(l.tA, powf(g.ratio, l.jB));
+    return l;
+  }
+  __device__ float t(const Line& l, int k) const {
+    if (g.f == 0.0f) return step_t(l.t0, k, lo);
+    const float kf = static_cast<float>(k);
+    if (kf <= l.kA) return __fadd_rn(l.t0, __fmul_rn(kf, lo));
+    const float j = __fsub_rn(kf, l.kA);
+    if (j <= l.jB) return __fmul_rn(l.tA, powf(g.ratio, j));
+    return __fadd_rn(l.tB, __fmul_rn(__fsub_rn(j, l.jB), g.hi));
+  }
+  // calc_dt (CUDA clamp: lo wins when lo > hi)
+  __device__ float dt(float t) const {
+    return fmaxf(lo, fminf(__fmul_rn(t, g.f), g.hi));
+  }
+  __device__ bool bit(const uint32_t* __restrict__ w, const Ray& r, float t,
+                      float dt, int G) const {
+    const int C = g.cascades;
+    if (C == 1) return bit_at(w, cell_at(r, t, mb, G));
+    const float x = __fadd_rn(r.ox, __fmul_rn(t, r.dx));
+    const float y = __fadd_rn(r.oy, __fmul_rn(t, r.dy));
+    const float z = __fadd_rn(r.oz, __fmul_rn(t, r.dz));
+    int e_pos, e_dt;
+    frexpf(fmaxf(fabsf(x), fmaxf(fabsf(y), fabsf(z))), &e_pos);
+    frexpf(__fmul_rn(dt, static_cast<float>(G)), &e_dt);
+    const int mip = max(min(max(e_pos + 1, 0), C - 1),
+                        min(max(e_dt, 0), C - 1));
+    const float bound = fminf(ldexpf(1.0f, mip - 1), g.scale);
+    const float inv = __fdiv_rn(1.0f, bound);
+    const int cell = (cell_of(z, bound, G, inv) * G + cell_of(y, bound, G, inv))
+                         * G + cell_of(x, bound, G, inv);
+    return bit_at(w, mip * G * G * G + cell);
+  }
+};
+
 __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
                                         const float* __restrict__ d, int n) {
   Ray r;
@@ -99,7 +198,7 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
 // H9's body (and H1's, with neither COARSE nor more than 128 steps). The
 // block's rm and trunc counts are summed in shared memory and added to
 // `sums` by one atomic each, not one per ray.
-template <bool COARSE, bool SHORT>
+template <bool COARSE, bool SHORT, class Steps>
 __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ hits_t, const uint32_t* __restrict__ bits,
@@ -107,7 +206,8 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     int N, int S, int K, int Kout, int tail_k, int G, int KB, float lo,
     float mb, float* __restrict__ t_out, float* __restrict__ dt_out,
     uint8_t* __restrict__ valid_out, int* __restrict__ count_out,
-    int* __restrict__ sums) {
+    int* __restrict__ sums, const GridArgs ga) {
+  const Steps st = Steps::make(lo, mb, ga);
   __shared__ unsigned cand_s[COARSE ? WARPS : 1][COARSE ? MAX_BLOCK_WORDS : 1];
   __shared__ int warp_rm[WARPS], warp_cut[WARPS];
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
@@ -119,7 +219,8 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     const float t1 = hits_t[2 * n];
     r.t2 = hits_t[2 * n + 1];
     r.hit = t1 >= 0.0f;
-    r.t0 = __fadd_rn(t1, __fmul_rn(lo, noise[n]));
+    r.t0 = __fadd_rn(t1, __fmul_rn(st.dt(t1), noise[n]));
+    const typename Steps::Line line = st.line(r.t0);
     unsigned* cand = cand_s[COARSE ? wib : 0];
 
     // pass 0 (two-level march): the candidate blocks, and the KB-th of them
@@ -129,12 +230,12 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
       const int n_blocks = S / 4;
       int found = 0, kb_block = -1;
       for (int jw = 0; jw * 32 < n_blocks; ++jw) {
-        if (!r.hit || !(step_t(r.t0, 4 * 32 * jw, lo) < r.t2)) break;
+        if (!r.hit || !(st.t(line, 4 * 32 * jw) < r.t2)) break;
         const int b = jw * 32 + lane;
         bool c = false;
         if (b < n_blocks) {
-          float tb = step_t(r.t0, 4 * b, lo);
-          c = tb < r.t2 && coarse[cell_at(r, tb, mb, G / 8)] > 0;
+          float tb = st.t(line, 4 * b);
+          c = tb < r.t2 && coarse[cell_at(r, tb, st.mb, G / 8)] > 0;
         }
         const unsigned m = __ballot_sync(FULL, c);
         if (lane == 0) cand[jw] = m;
@@ -161,19 +262,19 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     // one chunk of 32 steps: the occupied-and-kept ballot of steps 32j + lane
     auto probe = [&](int j) -> unsigned {
       const int k = 32 * j + lane;
-      const float t = step_t(r.t0, k, lo);
+      const float t = st.t(line, k);
       bool inc = k < k_end && t < r.t2;
       if (COARSE && inc) {
         const int blk = k >> 2;
         inc = (cand[blk >> 5] >> (blk & 31)) & 1u;
       }
-      if (inc) inc = bit_at(bits, cell_at(r, t, mb, G));
+      if (inc) inc = st.bit(bits, r, t, st.dt(t), G);
       return __ballot_sync(FULL, inc);
     };
     // a chunk is skipped whole when its first step is past t2 (t grows with
     // k) or, in the two-level march, when its 8 blocks hold no candidate
     auto chunk_live = [&](int j) -> bool {
-      if (!r.hit || 32 * j >= k_end || !(step_t(r.t0, 32 * j, lo) < r.t2))
+      if (!r.hit || 32 * j >= k_end || !(st.t(line, 32 * j) < r.t2))
         return false;
       if (COARSE) return ((cand[j >> 2] >> ((8 * j) & 31)) & 0xffu) != 0u;
       return true;
@@ -193,7 +294,7 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
         }
     } else {
       for (int j = 0; j < n_chunks; ++j) {
-        if (!r.hit || !(step_t(r.t0, 32 * j, lo) < r.t2)) break;
+        if (!r.hit || !(st.t(line, 32 * j) < r.t2)) break;
         if (chunk_live(j)) m_tot += __popc(probe(j));
       }
     }
@@ -217,8 +318,9 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
           const int slot = slot_of_rank(seen + __popc(m & lanes_below()) + 1,
                                         K1, K2, E, tail, &span);
           if (slot >= 0 && slot < n_valid) {
-            t_out[base + slot] = step_t(r.t0, 32 * j + lane, lo);
-            dt_out[base + slot] = __fmul_rn(lo, static_cast<float>(span));
+            const float t = st.t(line, 32 * j + lane);
+            t_out[base + slot] = t;
+            dt_out[base + slot] = __fmul_rn(st.dt(t), static_cast<float>(span));
             valid_out[base + slot] = 1;
           }
         }
@@ -260,13 +362,15 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
   }
 }
 
+template <class Steps>
 __global__ void __launch_bounds__(WARPS * 32) march_fine_test_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ cursor, const float* __restrict__ t_far,
     const uint8_t* __restrict__ alive, const uint32_t* __restrict__ bits,
     int N, int S, int K, int G, float lo, float mb, float* __restrict__ t_out,
     float* __restrict__ dt_out, uint8_t* __restrict__ valid_out,
-    float* __restrict__ cursor_out) {
+    float* __restrict__ cursor_out, const GridArgs ga) {
+  const Steps st = Steps::make(lo, mb, ga);
   const int lane = threadIdx.x & 31;
   const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (n >= N) return;
@@ -276,6 +380,7 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_test_kernel(
   r.t0 = cur;
   r.t2 = t_far[n];
   r.hit = al && cur >= 0.0f;
+  const typename Steps::Line line = st.line(cur);
   const int n_chunks = (S + 31) / 32;
 
   if (K == 0) {   // full window: every step written, masked by valid
@@ -283,14 +388,15 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_test_kernel(
     for (int j = 0; j < n_chunks; ++j) {
       const int k = 32 * j + lane;
       if (k >= S) break;
-      const float t = step_t(cur, k, lo);
+      const float t = st.t(line, k);
+      const float dt = st.dt(t);
       bool v = r.hit && t < r.t2;
-      if (v) v = bit_at(bits, cell_at(r, t, mb, G));
+      if (v) v = st.bit(bits, r, t, dt, G);
       t_out[base + k] = t;
-      dt_out[base + k] = lo;
+      dt_out[base + k] = dt;
       valid_out[base + k] = v;
     }
-    if (lane == 0) cursor_out[n] = al ? step_t(cur, S, lo) : cur;
+    if (lane == 0) cursor_out[n] = al ? st.t(line, S) : cur;
     return;
   }
 
@@ -298,16 +404,17 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_test_kernel(
   const size_t base = static_cast<size_t>(n) * K;
   int found = 0, last_k = -1;
   for (int j = 0; j < n_chunks && found < K; ++j) {
-    if (!r.hit || !(step_t(cur, 32 * j, lo) < r.t2)) break;
+    if (!r.hit || !(st.t(line, 32 * j) < r.t2)) break;
     const int k = 32 * j + lane;
-    const float t = step_t(cur, k, lo);
+    const float t = st.t(line, k);
+    const float dt = st.dt(t);
     bool v = k < S && t < r.t2;
-    if (v) v = bit_at(bits, cell_at(r, t, mb, G));
+    if (v) v = st.bit(bits, r, t, dt, G);
     const unsigned m = __ballot_sync(FULL, v);
     const int rank = found + __popc(m & lanes_below());
     if (v && rank < K) {
       t_out[base + rank] = t;
-      dt_out[base + rank] = lo;
+      dt_out[base + rank] = dt;
       valid_out[base + rank] = 1;
     }
     const int pc = __popc(m);
@@ -320,7 +427,7 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_test_kernel(
     valid_out[base + slot] = 0;
   }
   if (lane == 0)
-    cursor_out[n] = step_t(cur, found >= K ? last_k + 1 : S, lo);
+    cursor_out[n] = st.t(line, found >= K ? last_k + 1 : S);
 }
 
 __global__ void __launch_bounds__(WARPS * 32) compact_kernel(
@@ -367,14 +474,14 @@ __global__ void __launch_bounds__(WARPS * 32) compact_kernel(
   }
 }
 
-template <bool COARSE, bool SHORT>
+template <bool COARSE, bool SHORT, class Steps>
 int launch_train(const void* rays_o, const void* rays_d, const void* hits_t,
                  const void* bitfield, const void* noise, const void* coarse,
                  int N, int S, int K, int Kout, int tail_k, int G, int KB,
-                 float lo, float mip_bound, void* t_out, void* dt_out,
-                 void* valid_out, void* count_out, void* sums,
+                 float lo, float mip_bound, const GridArgs& ga, void* t_out,
+                 void* dt_out, void* valid_out, void* count_out, void* sums,
                  cudaStream_t stream) {
-  march_fine_train_kernel<COARSE, SHORT>
+  march_fine_train_kernel<COARSE, SHORT, Steps>
       <<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
           static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
           static_cast<const float*>(hits_t),
@@ -383,12 +490,17 @@ int launch_train(const void* rays_o, const void* rays_d, const void* hits_t,
           N, S, K, Kout, tail_k, G, KB, lo, mip_bound,
           static_cast<float*>(t_out), static_cast<float*>(dt_out),
           static_cast<uint8_t*>(valid_out), static_cast<int*>(count_out),
-          static_cast<int*>(sums));
+          static_cast<int*>(sums), ga);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// H1, H9 and H10 take, after lo and mip_bound = min(0.5, scale), the
+// `GridArgs` values as arguments: cascades, f, hi, A, B, ratio, log_ratio,
+// scale (ops/ray_march.py:step_args rounds them as JAX does). One cascade
+// and f = 0 run the `Uniform` bodies, the rest the `Cascades` ones.
+//
 // coarse may be null (no two-level march: KB must then be 0). sums: [rm,
 // trunc], zeroed by the caller (trunc is written only when KB > 0).
 extern "C" int march_fine_train(const void* rays_o, const void* rays_d,
@@ -396,17 +508,26 @@ extern "C" int march_fine_train(const void* rays_o, const void* rays_d,
                                 const void* noise, const void* coarse, int N,
                                 int S, int K, int Kout, int tail_k, int G,
                                 int KB, float lo, float mip_bound,
-                                void* t_out, void* dt_out, void* valid_out,
-                                void* count_out, void* sums,
+                                int cascades, float f, float hi, float A,
+                                float B, float ratio, float log_ratio,
+                                float scale, void* t_out, void* dt_out,
+                                void* valid_out, void* count_out, void* sums,
                                 cudaStream_t stream) {
-  if (KB > 0 && (coarse == nullptr || S / 4 > 32 * MAX_BLOCK_WORDS))
+  if ((KB > 0 && (coarse == nullptr || S / 4 > 32 * MAX_BLOCK_WORDS)) ||
+      cascades < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto launch = KB > 0     ? launch_train<true, false>
-                : S <= 128 ? launch_train<false, true>
-                           : launch_train<false, false>;
+  const GridArgs ga{cascades, f, hi, A, B, ratio, log_ratio, scale};
+  const bool uniform = cascades == 1 && f == 0.0f;
+  auto launch =
+      KB > 0 ? (uniform ? launch_train<true, false, Uniform>
+                        : launch_train<true, false, Cascades>)
+      : S <= 128 ? (uniform ? launch_train<false, true, Uniform>
+                            : launch_train<false, true, Cascades>)
+                 : (uniform ? launch_train<false, false, Uniform>
+                            : launch_train<false, false, Cascades>);
   return launch(rays_o, rays_d, hits_t, bitfield, noise, coarse, N, S, K,
-                Kout, tail_k, G, KB, lo, mip_bound, t_out, dt_out, valid_out,
-                count_out, sums, stream);
+                Kout, tail_k, G, KB, lo, mip_bound, ga, t_out, dt_out,
+                valid_out, count_out, sums, stream);
 }
 
 // H1: the bootstrap march, H9 without the coarse mask and with every
@@ -415,11 +536,14 @@ extern "C" int march_bootstrap(const void* rays_o, const void* rays_d,
                                const void* hits_t, const void* bitfield,
                                const void* noise, int N, int S, int K,
                                int tail_k, int G, float lo, float mip_bound,
-                               void* t_out, void* dt_out, void* valid_out,
-                               void* count_out, void* rm_out,
+                               int cascades, float f, float hi, float A,
+                               float B, float ratio, float log_ratio,
+                               float scale, void* t_out, void* dt_out,
+                               void* valid_out, void* count_out, void* rm_out,
                                cudaStream_t stream) {
   return march_fine_train(rays_o, rays_d, hits_t, bitfield, noise, nullptr, N,
-                          S, K, K, tail_k, G, 0, lo, mip_bound, t_out, dt_out,
+                          S, K, K, tail_k, G, 0, lo, mip_bound, cascades, f,
+                          hi, A, B, ratio, log_ratio, scale, t_out, dt_out,
                           valid_out, count_out, rm_out, stream);
 }
 
@@ -428,17 +552,25 @@ extern "C" int march_fine_test_round(const void* rays_o, const void* rays_d,
                                      const void* cursor, const void* t_far,
                                      const void* alive, const void* bitfield,
                                      int N, int S, int K, int G, float lo,
-                                     float mip_bound, void* t_out,
-                                     void* dt_out, void* valid_out,
-                                     void* cursor_out, cudaStream_t stream) {
-  if (K < 0 || K > S) return static_cast<int>(cudaErrorInvalidValue);
-  march_fine_test_kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
+                                     float mip_bound, int cascades, float f,
+                                     float hi, float A, float B, float ratio,
+                                     float log_ratio, float scale,
+                                     void* t_out, void* dt_out,
+                                     void* valid_out, void* cursor_out,
+                                     cudaStream_t stream) {
+  if (K < 0 || K > S || cascades < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const GridArgs ga{cascades, f, hi, A, B, ratio, log_ratio, scale};
+  auto kernel = cascades == 1 && f == 0.0f ? march_fine_test_kernel<Uniform>
+                                           : march_fine_test_kernel<Cascades>;
+  kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
       static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
       static_cast<const float*>(cursor), static_cast<const float*>(t_far),
-      static_cast<const uint8_t*>(alive), static_cast<const uint32_t*>(bitfield),
-      N, S, K, G, lo, mip_bound, static_cast<float*>(t_out),
+      static_cast<const uint8_t*>(alive),
+      static_cast<const uint32_t*>(bitfield), N, S, K, G, lo, mip_bound,
+      static_cast<float*>(t_out),
       static_cast<float*>(dt_out), static_cast<uint8_t*>(valid_out),
-      static_cast<float*>(cursor_out));
+      static_cast<float*>(cursor_out), ga);
   return static_cast<int>(cudaGetLastError());
 }
 

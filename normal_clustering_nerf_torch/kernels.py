@@ -172,8 +172,10 @@ def check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
 
 
 # H1, the bootstrap march: a launcher of H9's body
+# the step grid's arguments of H1, H9 and H10 (`ops/ray_march.step_args`)
+STEP_GRID = [F, F, I] + [F] * 7
 MARCH = Kernel("march_bootstrap", "march_fine.cu",
-               [P, P, P, P, P, I, I, I, I, I, F, F, P, P, P, P, P])
+               [P] * 5 + [I] * 5 + STEP_GRID + [P] * 5)
 TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F, I, I])
 TRIPLANE_BWD = Kernel("triplane_bwd", "triplane.cu",
@@ -195,9 +197,9 @@ MARCH_SV_TEST = Kernel("march_sv_test_round", "march_sv.cu",
                        [P] * 7 + [I] * 6 + [F] * 3 + [P] * 4)
 
 MARCH_FINE_TRAIN = Kernel("march_fine_train", "march_fine.cu",
-                          [P] * 6 + [I] * 7 + [F] * 2 + [P] * 5)
+                          [P] * 6 + [I] * 7 + STEP_GRID + [P] * 5)
 MARCH_FINE_TEST = Kernel("march_fine_test_round", "march_fine.cu",
-                         [P] * 6 + [I] * 4 + [F] * 2 + [P] * 4)
+                         [P] * 6 + [I] * 4 + STEP_GRID + [P] * 4)
 COMPACT = Kernel("compact_samples", "march_fine.cu",
                  [P] * 5 + [I] * 3 + [P] * 6)
 COMPOSITE_SEG_FWD = Kernel("composite_seg_fwd", "composite.cu",

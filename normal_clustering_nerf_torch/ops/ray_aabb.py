@@ -9,10 +9,27 @@ def ray_aabb_intersect(rays_o, rays_d, center, half_size):
 
     Returns hits_t (N, 2) [t_near, t_far], near clamped to 0, and
     (-1, -1) where the ray misses (t1 > t2 or t2 <= 0).
+
+    When the rays carry a gradient (extrinsic optimisation), a direction
+    component that is exactly 0 gives its slab ts of +-inf, which the min /
+    max never select; their gradient is 0 there. Autodiff of the plain
+    form gives 0 * inf = NaN for it (through 1/d and through the products
+    with 1/d), which the optimizer's global-norm clip spreads to every
+    parameter; JAX's autodiff does the same. So the ts of such a component
+    are taken detached and its gradient path is fed a finite stand-in; the
+    values are those of the plain form, bit for bit.
     """
-    inv_d = 1.0 / rays_d
-    t_lo = (center - half_size - rays_o) * inv_d
-    t_hi = (center + half_size - rays_o) * inv_d
+    lo, hi = center - half_size - rays_o, center + half_size - rays_o
+    if not (rays_o.requires_grad or rays_d.requires_grad):
+        inv_d = 1.0 / rays_d
+        t_lo, t_hi = lo * inv_d, hi * inv_d
+    else:
+        flat = rays_d == 0
+        inv_d = 1.0 / torch.where(flat, torch.ones_like(rays_d), rays_d)
+        inv_0 = (1.0 / rays_d).detach()
+        live = torch.where(flat, torch.zeros_like(inv_d), inv_d)
+        t_lo, t_hi = (torch.where(flat, (b * inv_0).detach(), b * live)
+                      for b in (lo, hi))
     t1 = torch.amax(torch.minimum(t_lo, t_hi), dim=-1)
     t2 = torch.amin(torch.maximum(t_lo, t_hi), dim=-1)
     hit = (t1 <= t2) & (t2 > 0)

@@ -1,5 +1,4 @@
-"""Occupancy ray marching — port of the JAX package's `ops/ray_march.py`
-for a uniform step grid (exp_step_factor 0) and one cascade:
+"""Occupancy ray marching — port of the JAX package's `ops/ray_march.py`:
 
   * `march_rays_train_bootstrap`: the bootstrap march of the first
     `bootstrap_steps` training steps, every step probed in the bitfield;
@@ -19,8 +18,10 @@ for a uniform step grid (exp_step_factor 0) and one cascade:
     `sv_scan_plain`'s algorithm.
 
 Each launches its kernel for CUDA tensors and runs its `*_plain` version,
-the same function in plain PyTorch, for CPU tensors. The multi-cascade
-lookup and the geometric step grid raise (ROADMAP A9c / B8).
+the same function in plain PyTorch, for CPU tensors. The bitfield marches
+(H1, H9, H10) take any scene scale: past 0.5 several cascades
+(`cell_index`) and the geometric step grid (`t_step_grid`); the sv march
+(K1) takes one cascade and a uniform grid, as JAX's (`rendering.uses_sv`).
 """
 from __future__ import annotations
 
@@ -43,31 +44,47 @@ def calc_dt(t, exp_step_factor, max_samples, grid_size, scale):
     return torch.clamp(torch.clamp(t * exp_step_factor, max=hi), min=lo)
 
 
-def t_step_grid(t0, n_steps, *, exp_step_factor, max_samples, grid_size,
-                scale):
-    """Closed-form t_k of the stepping recurrence t_{k+1} = t_k +
-    calc_dt(t_k), k in [0, n_steps): (N,) -> (N, n_steps)."""
+def step_phases(t0, *, exp_step_factor, max_samples, grid_size, scale):
+    """The phase bounds of the geometric grid from each t0 (JAX's
+    ray_march.py:122-137 operation for operation): t0s = max(t0, 0), kA
+    steps of lo to tA (while t <= A = lo/f), then jB geometric steps of
+    ratio 1 + f to tB (while t <= B = hi/f). Every division rounds once,
+    as JAX's: by a Python scalar through `_div`, and B / tA as a tensor
+    division (`_over`). Returns (t0s, kA, tA, jB, tB), each t0's shape."""
     lo = SQRT3 / max_samples
     hi = SQRT3 * 2.0 * scale / grid_size
     f = exp_step_factor
-    k = torch.arange(n_steps, dtype=torch.float32, device=t0.device)[None, :]
-    t0 = t0[:, None]
-    if f == 0.0 or lo >= hi:
-        return t0 + k * lo
     A, B = lo / f, hi / f
     t0s = torch.clamp(t0, min=0.0)
-    kA = torch.where(t0s <= A, torch.floor((A - t0s) / lo) + 1.0,
-                     torch.zeros_like(t0s))
+    zero = torch.zeros_like(t0s)
+    kA = torch.where(t0s <= A, torch.floor(_div(A - t0s, lo)) + 1.0, zero)
     tA = t0s + kA * lo
     ratio = 1.0 + f
     jB = torch.where(
         tA <= B,
-        torch.floor(torch.log(B / torch.clamp(tA, min=1e-30))
-                    / math.log(ratio)) + 1.0,
-        torch.zeros_like(tA))
-    tB = tA * torch.pow(ratio, jB)
+        torch.floor(_div(torch.log(_over(B, torch.clamp(tA, min=1e-30))),
+                         math.log(ratio))) + 1.0,
+        zero)
+    return t0s, kA, tA, jB, tA * torch.pow(ratio, jB)
+
+
+def t_step_grid(t0, n_steps, *, exp_step_factor, max_samples, grid_size,
+                scale):
+    """Closed-form t_k of the stepping recurrence t_{k+1} = t_k +
+    calc_dt(t_k), k in [0, n_steps): (N,) -> (N, n_steps). JAX's
+    ray_march.py:99-143: steps of lo while t <= A, geometric while t <= B,
+    then steps of hi (`step_phases`); f == 0 or lo >= hi: steps of lo."""
+    lo = SQRT3 / max_samples
+    hi = SQRT3 * 2.0 * scale / grid_size
+    f = exp_step_factor
+    k = torch.arange(n_steps, dtype=torch.float32, device=t0.device)[None, :]
+    if f == 0.0 or lo >= hi:
+        return t0[:, None] + k * lo
+    t0s, kA, tA, jB, tB = (x[:, None] for x in step_phases(
+        t0, exp_step_factor=f, max_samples=max_samples, grid_size=grid_size,
+        scale=scale))
     j = k - kA
-    t_geo = tA * torch.pow(ratio, torch.clamp(j, min=0.0))
+    t_geo = tA * torch.pow(1.0 + f, torch.clamp(j, min=0.0))
     t_lin_hi = tB + (j - jB) * hi
     return torch.where(k <= kA, t0s + k * lo,
                        torch.where(j <= jB, t_geo, t_lin_hi))
@@ -83,18 +100,57 @@ def _div(x, s: float):
     return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
-def occupancy_lookup(xyz, bitfield, *, cascades, scale, grid_size):
-    """Occupancy bit at (..., 3) positions, single-cascade form
-    (linear x-fastest cell index, ray_march.py:80-87)."""
-    if cascades != 1:
-        raise NotImplementedError(
-            "multi-cascade occupancy lookup is not ported (ROADMAP A9c / B8)")
+def _over(s: float, x):
+    """s / x with one rounding: PyTorch evaluates a Python scalar over a
+    tensor as x's reciprocal times s."""
+    return torch.full((), s, dtype=x.dtype, device=x.device) / x
+
+
+def _mip_from_pos(xyz, cascades):
+    """reference: models/csrc/raymarching.cu:19-23 (the frexp exponent of
+    the largest |coordinate|, plus 1), as ray_march.py:54-58."""
+    mx = torch.amax(torch.abs(xyz), dim=-1)
+    return torch.clamp(torch.frexp(mx).exponent + 1, 0, cascades - 1)
+
+
+def _mip_from_dt(dt, grid_size, cascades):
+    """reference: models/csrc/raymarching.cu:29-32, as ray_march.py:61-64."""
+    return torch.clamp(torch.frexp(dt * grid_size).exponent, 0, cascades - 1)
+
+
+def cell_index(xyz, *, cascades, scale, grid_size, dt=None):
+    """The bitfield index of the cell holding each (..., 3) position
+    (ray_march.py:67-96): linear x-fastest within a cascade, cascade `mip`
+    from bit mip * G^3. One cascade: mip 0 and x / min(0.5, scale).
+    Several: the step sizes `dt` (...) must be given; mip is the larger of
+    the position's and the step's, and the cell is x times the rounded
+    reciprocal of min(2^(mip-1), scale), as JAX computes it (at scale 0.75
+    that product is not the quotient)."""
     G = grid_size
-    mip_bound = min(0.5, scale)
-    cell = torch.clamp(0.5 * (_div(xyz, mip_bound) + 1.0) * G, 0.0,
+    if cascades == 1:
+        mip_bound = min(0.5, scale)
+        cell = torch.clamp(0.5 * (_div(xyz, mip_bound) + 1.0) * G, 0.0,
+                           G - 1.0).to(torch.int64)
+        return (cell[..., 2] * G + cell[..., 1]) * G + cell[..., 0]
+    if dt is None:
+        raise ValueError(f"the cell lookup at {cascades} cascades needs the "
+                         "step sizes dt (the mip depends on them)")
+    mip = torch.maximum(_mip_from_pos(xyz, cascades),
+                        _mip_from_dt(dt, G, cascades)).to(torch.int64)
+    # 2^(mip-1) exactly, with nothing read from the host
+    mip_bound = torch.clamp((torch.ones_like(mip) << mip).to(xyz.dtype) * 0.5,
+                            max=scale)
+    inv_b = _over(1.0, mip_bound)[..., None]
+    cell = torch.clamp(0.5 * (xyz * inv_b + 1.0) * G, 0.0,
                        G - 1.0).to(torch.int64)
-    idx = (cell[..., 2] * G + cell[..., 1]) * G + cell[..., 0]
-    return unpack_bit(bitfield, idx)
+    return ((mip * G + cell[..., 2]) * G + cell[..., 1]) * G + cell[..., 0]
+
+
+def occupancy_lookup(xyz, bitfield, *, cascades, scale, grid_size, dt=None):
+    """Occupancy bit at (..., 3) positions: the bit of `cell_index` in the
+    (cascades * G^3 / 8,) bitfield."""
+    return unpack_bit(bitfield, cell_index(
+        xyz, cascades=cascades, scale=scale, grid_size=grid_size, dt=dt))
 
 
 def select_first_k(include, k: int):
@@ -163,14 +219,19 @@ class DenseMarchResult(NamedTuple):
     trunc_rays: torch.Tensor  # () int32, 0: this march enumerates all
 
 
-def _uniform_step(exp_step_factor, max_samples, grid_size, scale) -> float:
+def step_args(cascades, exp_step_factor, max_samples, grid_size,
+              scale) -> list:
+    """The step grid's arguments of H1, H9 and H10 (`csrc/march_fine.cu`):
+    lo, min(0.5, scale), cascades, then t_step_grid's constants as Python
+    doubles, which ctypes rounds to f32 as JAX rounds its weak scalars: f
+    (0 where the grid is uniform: f 0 or lo >= hi, where calc_dt is lo
+    either way), hi, A = lo/f, B = hi/f, 1 + f, log(1 + f), and scale."""
     lo = SQRT3 / max_samples
     hi = SQRT3 * 2.0 * scale / grid_size
-    if not (exp_step_factor == 0.0 or lo >= hi):
-        raise NotImplementedError(
-            "the port's march takes a uniform step grid only "
-            "(exp_step_factor 0); the geometric grid is ROADMAP A9c / B8")
-    return lo
+    f = exp_step_factor if exp_step_factor != 0.0 and lo < hi else 0.0
+    A, B = (lo / f, hi / f) if f else (0.0, 0.0)
+    return [lo, min(0.5, scale), cascades, f, hi, A, B, 1.0 + f,
+            math.log(1.0 + f), scale]
 
 
 def coarse_lookup(xyz, coarse_occ, *, scale, grid_size):
@@ -216,7 +277,6 @@ def march_rays_train_dense_plain(rays_o, rays_d, hits_t, bitfield, noise, *,
     N = rays_o.shape[0]
     S = march_steps or max_samples
     K = min(samples_per_ray, S)
-    _uniform_step(exp_step_factor, max_samples, grid_size, scale)
     t1, t2 = hits_t[:, 0], hits_t[:, 1]
     dt0 = calc_dt(t1, exp_step_factor, max_samples, grid_size, scale)
     t0 = t1 + dt0 * noise
@@ -245,7 +305,7 @@ def march_rays_train_dense_plain(rays_o, rays_d, hits_t, bitfield, noise, *,
     dtg = calc_dt(tg, exp_step_factor, max_samples, grid_size, scale)
     xyz = rays_o[:, None, :] + tg[..., None] * rays_d[:, None, :]
     occ = occupancy_lookup(xyz, bitfield, cascades=cascades, scale=scale,
-                           grid_size=grid_size)
+                           grid_size=grid_size, dt=dtg)
     include = occ & gate & in_range(tg)
     sel, span = stratified_budget(include, K, tail_k)
     rm_samples = sel.sum().to(torch.int32)
@@ -267,21 +327,23 @@ def march_rays_train_dense_plain(rays_o, rays_d, hits_t, bitfield, noise, *,
     return DenseMarchResult(t_k, dt_k, valid, ray_count, rm_samples, trunc)
 
 
-def _march_inputs(rays_o, rays_d, hits_t, bitfield, noise, grid_size):
+def _march_inputs(rays_o, rays_d, hits_t, bitfield, noise, cascades,
+                  grid_size):
     N, dev, f32 = rays_o.shape[0], rays_o.device, torch.float32
     return N, [
         kernels.check(rays_o, "rays_o", f32, (N, 3), dev),
         kernels.check(rays_d, "rays_d", f32, (N, 3), dev),
         kernels.check(hits_t, "hits_t", f32, (N, 2), dev),
-        _bitfield_arg(bitfield, grid_size, dev),
+        _bitfield_arg(bitfield, cascades, grid_size, dev),
         kernels.check(noise, "noise", f32, (N,), dev),
     ]
 
 
-def _bitfield_arg(bitfield, grid_size, dev):
-    """The cascade-0 bitfield; H9 and H10 read it as 32-bit words."""
+def _bitfield_arg(bitfield, cascades, grid_size, dev):
+    """The (cascades * G^3 / 8,) bitfield; H1, H9 and H10 read it as 32-bit
+    words."""
     p = kernels.check(bitfield, "bitfield", torch.uint8,
-                      (grid_size ** 3 // 8,), dev)
+                      (cascades * grid_size ** 3 // 8,), dev)
     if bitfield.data_ptr() % 4:
         raise ValueError("bitfield: the march kernels read 32-bit words; "
                          "its storage must be 4-byte aligned")
@@ -292,14 +354,10 @@ def _march_bootstrap_kernel(rays_o, rays_d, hits_t, bitfield, noise, *,
                             cascades, scale, exp_step_factor, grid_size,
                             max_samples, samples_per_ray, march_steps,
                             tail_k) -> DenseMarchResult:
-    if cascades != 1:
-        raise NotImplementedError(
-            "the march kernel takes one cascade (ROADMAP A9c / B8)")
-    lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
     S = march_steps or max_samples
     K = min(samples_per_ray, S)
     N, args = _march_inputs(rays_o, rays_d, hits_t, bitfield, noise,
-                            grid_size)
+                            cascades, grid_size)
     dev, f32 = rays_o.device, torch.float32
     t = torch.empty((N, K), dtype=f32, device=dev)
     dt = torch.empty((N, K), dtype=f32, device=dev)
@@ -308,7 +366,9 @@ def _march_bootstrap_kernel(rays_o, rays_d, hits_t, bitfield, noise, *,
     rm = torch.zeros((1,), dtype=torch.int32, device=dev)
     if N > 0:
         kernels.MARCH.launch(
-            *args, N, S, K, tail_k, grid_size, lo, min(0.5, scale),
+            *args, N, S, K, tail_k, grid_size,
+            *step_args(cascades, exp_step_factor, max_samples, grid_size,
+                       scale),
             kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
             kernels.ptr(count), kernels.ptr(rm), device=dev)
     return DenseMarchResult(t, dt, valid, count, rm[0],
@@ -339,15 +399,11 @@ def _march_fine_kernel(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
                        scale, exp_step_factor, grid_size, max_samples,
                        samples_per_ray, march_steps, coarse_occ,
                        coarse_k_blocks, tail_k) -> DenseMarchResult:
-    if cascades != 1:
-        raise NotImplementedError(
-            "the march kernel takes one cascade (ROADMAP A9c / B8)")
-    lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
     S = march_steps or max_samples
     K = min(samples_per_ray, S)
     KB = _coarse_blocks(coarse_occ, cascades, S, K, coarse_k_blocks)
     N, args = _march_inputs(rays_o, rays_d, hits_t, bitfield, noise,
-                            grid_size)
+                            cascades, grid_size)
     dev, f32 = rays_o.device, torch.float32
     if KB:
         if grid_size % 8 or S > COARSE_MAX_STEPS:
@@ -366,7 +422,9 @@ def _march_fine_kernel(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
     sums = torch.zeros((2,), dtype=torch.int32, device=dev)  # rm, trunc
     if N > 0:
         kernels.MARCH_FINE_TRAIN.launch(
-            *args, N, S, K, Kout, tail_k, grid_size, KB, lo, min(0.5, scale),
+            *args, N, S, K, Kout, tail_k, grid_size, KB,
+            *step_args(cascades, exp_step_factor, max_samples, grid_size,
+                       scale),
             kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
             kernels.ptr(count), kernels.ptr(sums), device=dev)
     return DenseMarchResult(t, dt, valid, count, sums[0], sums[1])
@@ -404,7 +462,6 @@ def march_rays_test_round_dense_plain(rays_o, rays_d, cursor, t_far, alive,
                                       max_samples, n_steps):
     """Plain PyTorch version of H10's full-window mode: the JAX
     `march_rays_test_round_dense` (ray_march.py:820-856)."""
-    _uniform_step(exp_step_factor, max_samples, grid_size, scale)
     tg_ext = t_step_grid(cursor, n_steps + 1, exp_step_factor=exp_step_factor,
                          max_samples=max_samples, grid_size=grid_size,
                          scale=scale)
@@ -412,7 +469,7 @@ def march_rays_test_round_dense_plain(rays_o, rays_d, cursor, t_far, alive,
     dtg = calc_dt(tg, exp_step_factor, max_samples, grid_size, scale)
     xyz = rays_o[:, None, :] + tg[..., None] * rays_d[:, None, :]
     occ = occupancy_lookup(xyz, bitfield, cascades=cascades, scale=scale,
-                           grid_size=grid_size)
+                           grid_size=grid_size, dt=dtg)
     valid = (occ & alive[:, None] & (cursor >= 0)[:, None]
              & (tg < t_far[:, None]))
     return tg, dtg, valid, torch.where(alive, tg_ext[:, -1], cursor)
@@ -433,7 +490,7 @@ def march_rays_test_round_window_plain(rays_o, rays_d, cursor, t_far, alive,
     dtg = calc_dt(tg, exp_step_factor, max_samples, grid_size, scale)
     xyz = rays_o[:, None, :] + tg[..., None] * rays_d[:, None, :]
     occ = occupancy_lookup(xyz, bitfield, cascades=cascades, scale=scale,
-                           grid_size=grid_size)
+                           grid_size=grid_size, dt=dtg)
     include = (occ & alive[:, None] & (cursor >= 0)[:, None]
                & (tg < t_far[:, None]))
     sidx, valid = select_first_k(include, K)
@@ -458,17 +515,13 @@ def _march_test_kernel(rays_o, rays_d, cursor, t_far, alive, bitfield, *,
                        max_samples, S, K):
     """H10: K == 0 is the full-window mode ((N, S) outputs), else the
     first K occupied steps of the window."""
-    if cascades != 1:
-        raise NotImplementedError(
-            "the march kernel takes one cascade (ROADMAP A9c / B8)")
-    lo = _uniform_step(exp_step_factor, max_samples, grid_size, scale)
     N, dev, f32 = rays_o.shape[0], rays_o.device, torch.float32
     args = [kernels.check(rays_o, "rays_o", f32, (N, 3), dev),
             kernels.check(rays_d, "rays_d", f32, (N, 3), dev),
             kernels.check(cursor, "cursor", f32, (N,), dev),
             kernels.check(t_far, "t_far", f32, (N,), dev),
             kernels.check(alive, "alive", torch.bool, (N,), dev),
-            _bitfield_arg(bitfield, grid_size, dev)]
+            _bitfield_arg(bitfield, cascades, grid_size, dev)]
     W = K or S
     t = torch.empty((N, W), dtype=f32, device=dev)
     dt = torch.empty((N, W), dtype=f32, device=dev)
@@ -476,9 +529,11 @@ def _march_test_kernel(rays_o, rays_d, cursor, t_far, alive, bitfield, *,
     new_cursor = torch.empty((N,), dtype=f32, device=dev)
     if N > 0:
         kernels.MARCH_FINE_TEST.launch(
-            *args, N, S, K, grid_size, lo, min(0.5, scale), kernels.ptr(t),
-            kernels.ptr(dt), kernels.ptr(valid), kernels.ptr(new_cursor),
-            device=dev)
+            *args, N, S, K, grid_size,
+            *step_args(cascades, exp_step_factor, max_samples, grid_size,
+                       scale),
+            kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
+            kernels.ptr(new_cursor), device=dev)
     return t, dt, valid, new_cursor
 
 

@@ -141,6 +141,53 @@ def test_zero_pose_delta_gradient():
     np.testing.assert_allclose(np.asarray(g_near), want, rtol=0, atol=1e-3)
 
 
+def test_axis_parallel_rays_give_a_finite_box_gradient():
+    """A ray direction with a component exactly 0 (a rotated pose's
+    product can cancel to it) gives that slab ts of +-inf, never the near
+    or far end. JAX's autodiff of the slab test turns its gradient into
+    0 * inf = NaN, which the global-norm clip spreads to every parameter;
+    the port's hits are JAX's bit for bit, and its gradient is JAX's where
+    JAX's is finite and 0 where JAX's is NaN (the limit: a tiny component
+    keeps that slab unselected). Cameras inside the box (t1 clamped, the
+    extrinsic path's case) and outside it; one and two zero components."""
+    from normal_clustering_nerf_torch.ops.ray_aabb import ray_aabb_intersect
+    rng = np.random.default_rng(31)
+    n = 96
+    o = rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
+    o[n // 2:] = rng.uniform(-1.2, 1.2, (n - n // 2, 3))
+    d = rng.standard_normal((n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    for i in range(0, n, 3):
+        d[i, i % 3] = 0.0
+        if i % 4 == 0:
+            d[i, (i + 1) % 3] = 0.0
+    d[n // 2 + 1, 1] = -0.0
+    cot = rng.standard_normal((n, 2)).astype(np.float32)
+    half = np.full(3, 0.5, np.float32)
+
+    def loss_j(ro, rd):
+        hits = jr.ray_aabb_intersect(ro, rd, jnp.zeros(3), J(half))
+        return jnp.sum(hits * J(cot)), hits
+
+    (_, ref), (g_o, g_d) = jax.value_and_grad(
+        loss_j, argnums=(0, 1), has_aux=True)(J(o), J(d))
+    ro, rd = T(o).requires_grad_(True), T(d).requires_grad_(True)
+    hits = ray_aabb_intersect(ro, rd, torch.zeros(3), T(half))
+    (hits * T(cot)).sum().backward()
+    np.testing.assert_array_equal(N(hits), np.asarray(ref))
+    np.testing.assert_array_equal(
+        N(ray_aabb_intersect(T(o), T(d), torch.zeros(3), T(half))),
+        np.asarray(ref))
+    hit = np.asarray(ref)[:, 1] > 0
+    assert hit[: n // 2].all() and 0 < hit[n // 2:].sum() < n - n // 2
+    for got, r in ((ro.grad, g_o), (rd.grad, g_d)):
+        got, r = N(got), np.asarray(r)
+        nan = np.isnan(r)
+        assert nan.any() and np.isfinite(got).all()
+        assert (got[nan] == 0).all()
+        np.testing.assert_allclose(got[~nan], r[~nan], rtol=1e-6, atol=0)
+
+
 # ------------------------------------------------------------ optimizer
 @pytest.mark.parametrize("clip", [True, False])
 def test_optimizer_groups_match_optax(clip):

@@ -104,12 +104,21 @@ def test_march_through_the_aabb_port():
 
 
 def test_kernel_wrapper_refuses_non_uniform_steps():
+    """The call once refused (the geometric step grid, exp_step_factor
+    1/256) now runs: each ray's kept t grow, and dt is calc_dt(t) where
+    valid (no stratified tail, so no span scales it)."""
     o, d, hits, bitfield, noise = _inputs(0, 8, 32, 0.5)
-    with pytest.raises(NotImplementedError):
-        tm.march_rays_train_dense(
-            T(o), T(d), T(hits), T(bitfield), T(noise), cascades=1,
-            scale=2.0, exp_step_factor=1 / 256, grid_size=32,
-            max_samples=1024, samples_per_ray=16, march_steps=128)
+    kw = dict(cascades=1, scale=2.0, exp_step_factor=1 / 256, grid_size=32,
+              max_samples=1024)
+    out = tm.march_rays_train_dense(
+        T(o), T(d), T(hits), T(bitfield), T(noise), **kw,
+        samples_per_ray=16, march_steps=128)
+    v = out.valid
+    assert int(v.sum()) > 0
+    t = torch.where(v, out.t, torch.full_like(out.t, float("inf")))
+    assert bool((torch.diff(t, dim=1)[v[:, 1:]] > 0).all())
+    dt = tm.calc_dt(out.t, kw["exp_step_factor"], kw["max_samples"], 32, 2.0)
+    assert torch.equal(out.dt[v], dt[v])
 
 
 def test_bootstrap_march_is_a_launcher_of_the_fine_march():

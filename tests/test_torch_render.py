@@ -248,17 +248,23 @@ def test_render_test_flat_matches_jax(table_scale):
 
 
 def test_render_test_refuses_unported_layouts():
-    """A scene past scale 0.5 (several cascades, the geometric step grid:
-    ROADMAP A9c / B8) is refused by the bitfield test rounds of both layouts;
-    the flat layout and the rounds without the sv march themselves run
-    (the tests above)."""
-    _, _, tm = _models(0.0, grid_size=16, max_samples=128, scale=1.0)
+    """A scene past scale 0.5 (2 cascades, the geometric step grid), once
+    refused, renders through the bitfield rounds of both layouts: finite
+    outputs, samples taken, rays ended (tests/test_torch_cascades.py holds
+    both against JAX)."""
+    _, _, tm = _models(8.0, grid_size=16, max_samples=128, scale=1.0)
+    assert tm.cfg.cascades == 2
     rng = np.random.default_rng(1)
-    *_, state = _occupancy(rng, 16, 0.6)
+    bits = np.packbits(rng.random(2 * 16 ** 3) > 0.6, bitorder="little")
+    state = OccupancyGrid(TMC(grid_size=16, scale=1.0), CPU).init_state()
+    state = state._replace(density_bitfield=T(bits))
     o, d = _rays(rng, 8)
     for rc in (TRC(test_layout="flat"), TRC(march_coarse=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-            tr.render_test(tm, state, T(o), T(d), rc)
+        with torch.no_grad():
+            out = tr.render_test(tm, state, T(o), T(d), rc)
+        for k in ("rgb", "opacity", "depth"):
+            assert np.isfinite(N(out[k])).all(), k
+        assert out["total_samples"] > 0 and out["rounds"] > 0
 
 
 def test_bucket_ladder_matches_jax():

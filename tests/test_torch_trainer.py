@@ -42,9 +42,10 @@ def test_a_few_steps_give_a_finite_falling_loss(scene):
 def test_steps_after_the_bootstrap_are_refused(scene, render):
     """Steps after the bootstrap without the supervoxel-run march (the
     bitfield march over march_block steps) and in the flat layout train
-    (tests/test_torch_slice.py holds them against JAX); what stays
-    refused is a scene past scale 0.5: several cascades and the geometric
-    step grid (ROADMAP A9c / B8)."""
+    (tests/test_torch_slice.py holds them against JAX); a scene past scale
+    0.5 (several cascades and the geometric step grid), once refused,
+    trains too: its steps after the bootstrap have finite losses
+    (tests/test_torch_cascades.py holds them against JAX)."""
     _, cfg = slice_configs()
     cfg = cfg.replace(render=dataclasses.replace(cfg.render, **render))
     tr = Trainer(cfg, scene, device="cpu")
@@ -55,8 +56,12 @@ def test_steps_after_the_bootstrap_are_refused(scene, render):
         assert 0 < float(m["rm_samples_per_ray"]) <= 16
         assert float(m["trunc_ray_frac"]) == 0.0
     big = Trainer(replace_model(cfg, scale=1.0), scene, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-        big.train_step_core(bootstrap=False)
+    assert big.model.cfg.cascades == 2
+    big.occ_update(warmup=True)
+    for _ in range(2):
+        m = big.train_step_core(bootstrap=False)
+        assert math.isfinite(float(m["loss_total"]))
+        assert 0 < float(m["rm_samples_per_ray"]) <= 16
 
 
 def test_the_card_is_the_default_device(scene):
