@@ -6,6 +6,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py                  # what the acceptance run does
     python3 chip_smoke.py --profile DIR    # also trace 4 steps of each march
                                            # with each field
+    python3 chip_smoke.py --only distributed   # the distributed path alone
+                                               # (NCCL with two or more cards)
 
 Phases (any failed check raises, so the script exits non-zero):
   1. build the kernels (`csrc/*.cu`, one nvcc per source, all at once);
@@ -206,6 +208,22 @@ Phases (any failed check raises, so the script exits non-zero):
   results.csv holds metric/lpips) and with none (a warning, no column);
   the run's wall time by part and the checkpoint's size as a "CLI path"
   JSON line;
+  then the distributed path (`distributed_path`): 2 ranks of the port's
+  launcher (`parallel.launch.spawn`) sharing the one card over gloo, the
+  bench configuration at 2 x 4096 rays, 48 counted steps through
+  `Trainer.fit` (refreshes merged at 0, 16, 32): each rank's bootstrap
+  kernels launched, the loss falling, parameters, moments and occupancy
+  bit-identical across the ranks; one step's averaged update against a
+  one-process reference (rank 0 takes each rank's half-batch step from
+  the same state and generator state, twice, and averages: within 2x
+  the reference's spread + 2^-20 of the largest value, the spread of
+  H2's fp32 atomics); with more than one card visible, NCCL over all of
+  them: 64 counted steps with the all-reduce inside each rank's CUDA
+  graph, 16 replays held to eager steps (as in 7.), the replicas again,
+  a timed window of 64 steps, a traced chunk (the NCCL kernels' device
+  time), the all-reduce alone, a merge's time and on rank 0 a one-card
+  run of the same batch: a "multi-chip" JSON line with
+  `scaling_efficiency` (`--only distributed` runs this path alone);
   every launcher must have launched on some path;
   6. for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
@@ -272,8 +290,12 @@ P2_RAYS, P2_STEPS = 8192, 1024   # the Pallas probe P2's (rays, steps) block
 FLAT_STEPS = 64    # counted steps of the flat path
 
 
+MUTED = False   # a rank process of the distributed path other than rank 0
+
+
 def log(msg):
-    print(f"[smoke {time.time() - T0:7.1f}s] {msg}", flush=True)
+    if not MUTED:
+        print(f"[smoke {time.time() - T0:7.1f}s] {msg}", flush=True)
 
 
 def traced(fn):
@@ -4680,6 +4702,345 @@ def lpips_cli(base, ckpt):
         else:
             os.environ["NCNERF_LPIPS_WEIGHTS"] = old
 
+# ------------------------------------------------------- distributed path
+DIST_RANKS = 2        # gloo ranks sharing the one card
+DIST_STEPS = 48       # their steps: refreshes (and merges) at 0, 16 and 32
+NCCL_STEPS = 64       # steps of the NCCL run over every card: 4 merges
+NCCL_TIMED = 64       # its timed window, and the one-card reference's
+BOOT_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
+                "distortion_fwd", "distortion_bwd") + FIELD_KERNELS["triplane"]
+
+
+def replica_digest(tr):
+    """md5 of the bytes of every parameter, moment and occupancy field."""
+    import hashlib
+    h = hashlib.md5()
+    groups = (tr.params, tr.opt.state["mu"], tr.opt.state["nu"],
+              tr.occ._asdict())
+    for d in groups:
+        for n in sorted(d):
+            t = d[n].detach().contiguous()
+            h.update(t.view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def check_replicas(tr, tag):
+    """Every rank's parameters, moments and occupancy bit for bit rank
+    0's (their digests gathered)."""
+    from normal_clustering_nerf_torch.training.distributed import (
+        gather_objects)
+    digests = gather_objects(tr.axis, replica_digest(tr))
+    ok = len(set(digests)) == 1
+    log(f"  {tag}: the {len(digests)} replicas' parameters, moments and "
+        f"occupancy {'bit-identical ok' if ok else 'DIFFER FAIL'} "
+        f"({digests[0][:12]}...)")
+    if not ok:
+        raise RuntimeError(f"{tag}: replicas differ: {digests}")
+
+
+def rank_training(tr, name, n_steps):
+    """`n_steps` counted steps through `Trainer.fit` on every rank: each
+    rank's counts of the bootstrap kernels > 0 and K1's 0, the loss
+    falling (the mean of the last 6 steps under the first 6's), the
+    replicas identical. Returns rank 0's history and every rank's
+    counts."""
+    from normal_clustering_nerf_torch.training.distributed import (
+        gather_objects)
+    hist, counts, _ = train(tr, name, (("bootstrap", n_steps),),
+                            BOOT_KERNELS, {"march_sv_train": 0})
+    every = gather_objects(tr.axis, counts)
+    missing = [(r, k) for r, c in enumerate(every) for k in BOOT_KERNELS
+               if c[k] == 0]
+    log(f"  {name}: launches of each rank: "
+        + "; ".join(", ".join(f"{k} {c[k]}" for k in BOOT_KERNELS)
+                    for c in every))
+    if missing:
+        raise RuntimeError(f"{name}: kernels a rank never launched: "
+                           f"{missing}")
+    head, tail = check_losses(hist, (("first", 0), ("last", -1)),
+                              fall=False)
+    if not tail < head:
+        raise RuntimeError(f"{name}: the loss did not fall: {head:.6f} -> "
+                           f"{tail:.6f}")
+    check_replicas(tr, f"{name}, after {n_steps} steps")
+    return hist, every
+
+
+def averaged_update_parity(tr):
+    """One step's averaged update against a one-process reference: from
+    one state, every rank takes the step with its own generator (its
+    half-batch, noise and k-means draws) and the all-reduce; rank 0 then,
+    with no axis, takes each rank's step from the same state and
+    generator state (the same draws) twice and applies AdamW to the mean
+    of the two halves' gradients, in each of the four combinations. The
+    averaged gradient and the parameters after are held to those
+    references within twice their spread plus 2^-20 of the largest value
+    (`within_spread`): the spread is that of H2's fp32 atomics, which
+    make two computations of one half-batch's gradient part in their
+    last bits. The trainer's state is put back."""
+    from normal_clustering_nerf_torch.training.distributed import (
+        gather_objects, on_rank0)
+    from normal_clustering_nerf_torch.training.state import OPT_COLUMNS
+    axis = tr.axis
+    boot = tr.step < tr.cfg.render.bootstrap_steps
+    snap = snapshot(tr)
+    gens = gather_objects(axis, snap["gen"])
+
+    def clone(d):
+        return {n: t.detach().clone() for n, t in d.items()}
+    tr.train_step_core(boot)
+    got_grads, got_params = clone(tr.last_grads), clone(tr.params)
+
+    def reference():
+        tr.axis = None
+        try:
+            halves = []
+            for g in gens:
+                runs = []
+                for _ in range(2):
+                    restore(tr, snap)
+                    tr.generator.set_state(g)
+                    tr.train_step_core(boot)
+                    runs.append(clone(tr.last_grads))
+                halves.append(runs)
+            refs = []
+            for a in halves[0]:
+                for b in halves[1]:
+                    avg = {n: (a[n] + b[n]) / 2 for n in a}
+                    restore(tr, snap)
+                    rows = tr._table.index_select(
+                        0, torch.stack([tr.opt.count_t, tr._step_t]))
+                    tr.opt.update(avg, *rows[0, :OPT_COLUMNS])
+                    refs.append((avg, clone(tr.params)))
+        finally:
+            tr.axis = axis
+        chk, worst = Check(), {}
+        for what, got, idx in (("gradient", got_grads, 0),
+                               ("parameters after", got_params, 1)):
+            bad = []
+            for n in got:
+                err, spread, ok = within_spread(got[n],
+                                                [r[idx][n] for r in refs])
+                worst[what] = max(worst.get(what, (-1.0,)), (err, spread, n))
+                if not ok:
+                    bad.append(f"{n}: {err:.3e} (spread {spread:.3e})")
+            log(f"  averaged update, {what}: largest difference from the "
+                f"one-process reference {worst[what][0]:.3e} ({worst[what][2]}"
+                f"; the reference's spread there {worst[what][1]:.3e}) "
+                + (f"FAIL {bad[:4]}" if bad else "within 2x the spread + "
+                   "2^-20 of the largest value ok"))
+            if bad:
+                chk.failures.append(what)
+        chk.done("distributed path, averaged update")
+        return {k: v[0] for k, v in worst.items()}
+
+    out = on_rank0(axis, reference)
+    restore(tr, snap)
+    return out
+
+
+def gloo_rank(t0):
+    """A rank of the gloo run on one card: the bench configuration at
+    DIST_RANKS x 4096 rays, DIST_STEPS steps, then the averaged update's
+    parity. Returns (on rank 0) what the phase reports."""
+    global T0, MUTED
+    T0 = t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    from normal_clustering_nerf_torch.parallel.launch import (
+        initialize_multihost)
+    initialize_multihost(device="cuda", backend="gloo")
+    tr = build_trainer(bench_config(num_chips=DIST_RANKS), device="cuda")
+    MUTED = tr.axis.rank != 0
+    log(f"distributed path, gloo: {tr.axis.size} ranks on {tr.device}, "
+        f"{tr.sampler.batch_size} rays a rank (eager steps)")
+    tr.mark_invisible_cells()
+    check_replicas(tr, "gloo, after init and marking")
+    hist, every = rank_training(tr, "gloo", DIST_STEPS)
+    parity = averaged_update_parity(tr)
+    check_replicas(tr, "gloo, after the parity step")
+    return {"losses": [hist[0]["loss_total"], hist[-1]["loss_total"]],
+            "launches": every, "parity": parity}
+
+
+def merge_ms(tr, reps=5):
+    """Device ms of one merge of the trainer's occupancy (the MAX of the
+    grids and of the unpacked bits, the tables rebuilt): CUDA events on
+    rank 0 around each, every rank's card idle before; the median."""
+    from normal_clustering_nerf_torch.models.occupancy import OccupancyGrid
+    from normal_clustering_nerf_torch.training.distributed import barrier
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        barrier(tr.axis)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        OccupancyGrid.merge_across_chips(tr.occ, tr.axis.group)
+        b.record()
+        b.synchronize()
+        ms.append(a.elapsed_time(b))
+    return sorted(ms)[reps // 2]
+
+
+def allreduce_alone(tr, reps=10):
+    """Device ms of the step's all-reduce alone (a buffer of the
+    gradients' and the aux values' size, every rank's card idle and the
+    ranks at a barrier before each; CUDA events on this rank, the
+    median), and its bus rate: 2 (n - 1) / n of the bytes a card sends
+    and receives in a ring, over that time."""
+    from normal_clustering_nerf_torch.training.distributed import barrier
+    n_values = sum(p.numel() for p in tr.params.values()) + len(
+        tr._hist_keys)
+    buf = torch.ones(n_values, device=tr.device)
+    ms = []
+    for i in range(reps + 2):
+        torch.cuda.synchronize()
+        barrier(tr.axis)
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.distributed.all_reduce(buf, group=tr.axis.group)
+        b.record()
+        b.synchronize()
+        if i >= 2:
+            ms.append(a.elapsed_time(b))
+    med = sorted(ms)[reps // 2]
+    k = tr.axis.size
+    return {"values": n_values, "ms": med,
+            "bus_gb_per_s": 2 * (k - 1) / k * 4 * n_values / med / 1e6}
+
+
+def one_card_rays_per_s(warm, timed):
+    """A one-card trainer at the same global batch on this rank's card:
+    `warm` steps, then `timed` timed (the distributed window's phase)."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    tr = build_trainer(bench_config(), device="cuda")
+    tr.mark_invisible_cells()
+    tr.fit(warm)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.fit(timed)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    log(f"  one-card reference, steps {warm}-{warm + timed}: "
+        f"{tr.cfg.data.batch_size * timed / dt:,.0f} rays/s "
+        f"({dt * 1e3 / timed:.3f} ms/step)")
+    return tr.cfg.data.batch_size * timed / dt
+
+
+def nccl_rank(t0):
+    """A rank of the NCCL run over every card: NCCL_STEPS counted steps
+    (each march's graph captured with its all-reduce), replicas
+    identical, the graph chunk against eager steps, the replicas again, a
+    timed window of NCCL_TIMED steps, a traced chunk (the all-reduce's
+    device time), the merge's time, and on rank 0 the one-card reference
+    at the same batch and steps."""
+    global T0, MUTED
+    T0 = t0
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from normal_clustering_nerf_torch.bench import (bench_config,
+                                                    build_trainer,
+                                                    split_device_time)
+    from normal_clustering_nerf_torch.parallel.launch import (
+        initialize_multihost)
+    from normal_clustering_nerf_torch.training.distributed import (
+        barrier, on_rank0)
+    initialize_multihost(device="cuda")
+    n = torch.distributed.get_world_size()
+    tr = build_trainer(bench_config(num_chips=n), device="cuda")
+    MUTED = tr.axis.rank != 0
+    log(f"distributed path, nccl: {n} ranks, one a card, "
+        f"{tr.sampler.batch_size} rays a rank")
+    tr.mark_invisible_cells()
+    hist, every = rank_training(tr, f"nccl x{n}", NCCL_STEPS)
+    kinds = [c["kind"] for c in tr.captures]
+    log(f"  graphs captured: {kinds}")
+    if tr.device.type == "cuda" and "bootstrap" not in kinds:
+        raise RuntimeError(f"nccl: no bootstrap graph captured: {kinds}")
+    check_graph_chunk(tr, f"nccl x{n}", True)
+    check_replicas(tr, f"nccl x{n}, after the graph chunk")
+    warm = tr.step
+
+    def window():
+        torch.cuda.synchronize()
+        barrier(tr.axis)
+        t = time.perf_counter()
+        tr.fit(NCCL_TIMED)
+        torch.cuda.synchronize()
+        barrier(tr.axis)
+        return time.perf_counter() - t
+    dt = window()
+    batch = tr.cfg.data.batch_size
+    out = {"cards": n, "backend": tr.axis.backend,
+           "rays_a_rank": tr.sampler.batch_size,
+           "steps": [warm, warm + NCCL_TIMED],
+           "ms_per_step": dt * 1e3 / NCCL_TIMED,
+           "rays_per_s": batch * NCCL_TIMED / dt}
+    p, dev = traced(lambda: tr.fit(GRAPH_STEPS))
+    nccl = {e.key[:90]: {"ms_per_step": e.self_device_time_total / 1e3
+                         / GRAPH_STEPS, "per_step": e.count / GRAPH_STEPS}
+            for e in dev if "nccl" in e.key.lower()}
+    out["nccl_kernels"] = nccl   # a chunk's: its steps' SUM, its refresh's
+    sums = [v for k, v in nccl.items() if "sum" in k.lower()]   # MAX
+    out["allreduce_device_ms_per_step"] = (
+        sum(v["ms_per_step"] for v in sums) if dev else None)
+    out["allreduce_kernels_per_step"] = (
+        sum(v["per_step"] for v in sums) if dev else None)
+    if dev:
+        split, launches = split_device_time(dev, GRAPH_STEPS)
+        out["device_busy_ms_per_step"] = sum(split.values())
+        out["graph_launches_per_step"] = sum(
+            e.count for e in p.key_averages()
+            if e.key == "cudaGraphLaunch") / GRAPH_STEPS
+    out["merge_ms"] = merge_ms(tr)
+    out["allreduce_alone"] = allreduce_alone(tr)
+    check_replicas(tr, f"nccl x{n}, after {tr.step} steps")
+    one = on_rank0(tr.axis, one_card_rays_per_s, warm, NCCL_TIMED)
+    if one:
+        out["one_card_rays_per_s"] = one
+        out["scaling_efficiency"] = out["rays_per_s"] / (one * n)
+        out["rays_per_s_per_chip"] = out["rays_per_s"] / n
+    log(f"  nccl x{n}: {out['ms_per_step']:.3f} ms/step, "
+        f"{out['rays_per_s']:,.0f} rays/s, all-reduce "
+        + (f"{out['allreduce_device_ms_per_step']:.4f} device ms/step "
+           f"({out['allreduce_kernels_per_step']:.2f} kernels/step, "
+           f"{out['graph_launches_per_step']:.2f} graph launches/step)"
+           if dev else "not measured (no device events)")
+        + f", merge {out['merge_ms']:.3f} ms; the all-reduce alone "
+        f"{out['allreduce_alone']['ms']:.4f} ms over "
+        f"{out['allreduce_alone']['values']} values "
+        f"({out['allreduce_alone']['bus_gb_per_s']:.1f} GB/s bus)")
+    out["launches"] = every
+    return out
+
+
+def distributed_path(launches, smi):
+    """The distributed path (ROADMAP A10): DIST_RANKS gloo ranks on the one
+    card (both on card 0), and when more than one card is visible, NCCL
+    over every card, each run in processes of its own started by the
+    port's launcher (`parallel.launch.spawn`). Adds rank 0's launches to
+    `launches`; prints the "multi-chip" line of the NCCL run."""
+    from normal_clustering_nerf_torch.parallel.launch import spawn
+    res = spawn(gloo_rank, DIST_RANKS, (T0,), device="cuda",
+                local_ranks=[0] * DIST_RANKS)
+    log(f"distributed path, gloo: loss {res['losses'][0]:.6f} -> "
+        f"{res['losses'][1]:.6f}, averaged update within "
+        f"{json.dumps(res['parity'])}")
+    for k, c in res["launches"][0].items():
+        launches[k] += c
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"distributed path, nccl: not run: {cards} card visible, NCCL "
+            "over several cards needs two or more")
+        return None
+    out = spawn(nccl_rank, cards, (T0,), device="cuda")
+    for k, c in out.pop("launches")[0].items():
+        launches[k] += c
+    print(f"multi-chip on {smi}: " + json.dumps(out), flush=True)
+    return out
+
+
 
 def render_config(cfg, **kw):
     return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
@@ -4690,6 +5051,8 @@ def main():
     ap.add_argument("--profile", default="",
                     help="directory for torch.profiler traces of 4 steps "
                          "of each march")
+    ap.add_argument("--only", choices=["distributed"],
+                    help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the smoke runs on the card",
@@ -4720,6 +5083,14 @@ def main():
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 log(f"  {src}: {line.strip()}")
+    if args.only == "distributed":
+        distributed_path({k.name: 0 for k in kernels.ALL_KERNELS}, smi)
+        log(f"done in {time.time() - T0:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     tr = build_trainer(bench_config(), device="cuda")
     tr.mark_invisible_cells()
@@ -4853,6 +5224,7 @@ def main():
     paths.update(baselines)
     fit_ms.update(ms)
     cli_path(launches, smi)
+    distributed_path(launches, smi)
     missing = [k.name for k in kernels.ALL_KERNELS if k.name not in rec]
     if missing:
         raise RuntimeError(f"kernels not checked: {missing}")

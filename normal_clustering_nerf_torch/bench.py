@@ -1,12 +1,12 @@
-"""Training-throughput and quality benchmark of the port on one card.
+"""Training-throughput and quality benchmark of the port on the card.
 
     python -m normal_clustering_nerf_torch.bench [--hash_layout brick|tcnn]
         [--compute_dtype float32] [--batch N] [--samples_per_ray K]
         [--sv_intervals RI] [--min_losses] [--no_occ_update]
-        [--skip-quality] [--profile DIR]
+        [--skip-quality] [--profile DIR] [--num_chips N]
 
-The JAX package's `bench.py` with the same flags (all but `--num_chips`),
-on one CUDA device: build the bench configuration (`bench_config`,
+The JAX package's `bench.py` with the same flags, on CUDA devices: build
+the bench configuration (`bench_config`,
 `build_trainer`), mark the invisible cells, train 600 warmup steps (past
 the occupancy warmup at 256 and the bootstrap march at 512), time 200
 steps (`Trainer.fit`, which runs the 16 steps between two refreshes as
@@ -15,7 +15,14 @@ dispatch), train on to step 4000, validate on the 4 held-out views (the
 cold render), render them three more times (the median is the render
 rate), print one JSON line with the keys of `bench.py:212-277`, and then
 hold the four quality gates of `bench.py:313-338`, exiting non-zero when
-one fails. `--skip-quality` stops after the timed window; `--min_losses`
+one fails. With `--num_chips N` (bench.py:222-235) N ranks, one a card
+(started here unless a launcher did, `parallel.launch`), split the same
+global batch; the timed window gives the train rays/s of all of them, and
+then rank 0 alone times a one-card run of the same global batch (JAX's
+comment says the same per-chip batch, its code runs the same global
+one), for `scaling_efficiency` = rays/s / (one-card rays/s x N) and
+`rays_per_s_per_chip`; `validate` and the gates run on rank 0, which
+alone prints. `--skip-quality` stops after the timed window; `--min_losses`
 (rgb and opacity only) and `--no_occ_update` (no refresh in the timed
 window) are bench.py's cost probes; `--profile DIR` traces the timed
 window with torch.profiler. It writes no history file. On standard error
@@ -38,9 +45,12 @@ import torch
 
 from . import kernels
 from .config import (
-    DataConfig, LossConfig, ModelConfig, OptimConfig, RenderConfig,
-    TrainConfig,
+    DataConfig, LossConfig, ModelConfig, OptimConfig, ParallelConfig,
+    RenderConfig, TrainConfig,
 )
+from .parallel.launch import (initialize_multihost, launched, require_cards,
+                              spawn)
+from .training.distributed import barrier, on_rank0
 
 WARM_STEPS = 600      # past the occupancy warmup (256) and the bootstrap (512)
 TIMED_STEPS = 200
@@ -53,13 +63,18 @@ MAX_SAMPLES_PER_RAY = 32
 def bench_config(batch: int = 8192, samples_per_ray: int = 16,
                  sv_intervals: int = 24, compute_dtype: str = "bfloat16",
                  hash_layout: str = "triplane",
-                 min_losses: bool = False) -> TrainConfig:
+                 min_losses: bool = False, num_chips: int = 1) -> TrainConfig:
     """`bench.py:44-109` at bench.py's defaults: the triplane field (or
     `hash_layout`) in bf16, 16 samples per ray with the full stratified
     tail, 24 sv intervals,
     avoid_near annealing over 600 steps, the production loss weights (rgb
     and opacity only with `min_losses`), the triangle sampler with 3-pixel
-    legs, 4 epochs of 1000 steps."""
+    legs, 4 epochs of 1000 steps, the rays over `num_chips` ranks. The
+    march budget is a rank's batch times `samples_per_ray`, so that every
+    rank marches `samples_per_ray` samples a ray (JAX's bench gives every
+    chip the budget of the global batch, `bench.py:62`: its chips march
+    N times the samples a ray, 64 at 4 chips, past the 32 that H3's
+    backward takes)."""
     loss = (LossConfig(opacity_w=1e-3) if min_losses else LossConfig(
         opacity_w=1e-3, distortion_w=1e-3, norm_D_C_ort_dot_w=2e-3,
         norm_D_C_centr_dot_w=2e-3, norm_D_C_centr_L1_w=2e-3,
@@ -72,14 +87,16 @@ def bench_config(batch: int = 8192, samples_per_ray: int = 16,
                           compute_dtype=compute_dtype,
                           hash_layout=hash_layout),
         render=RenderConfig(march_block=1024,
-                            sample_budget=batch * samples_per_ray,
+                            sample_budget=batch // num_chips
+                            * samples_per_ray,
                             sv_intervals=sv_intervals,
                             anneal_strategy="avoid_near", anneal_steps=600),
         loss=loss,
         data=DataConfig(batch_size=batch,
                         ray_sampling_strategy="all_images_triang",
                         triang_max_expand=3),
-        optim=OptimConfig(num_epochs=4, steps_per_epoch=1000))
+        optim=OptimConfig(num_epochs=4, steps_per_epoch=1000),
+        parallel=ParallelConfig(mesh_shape=(num_chips,)))
 
 
 def build_trainer(cfg: TrainConfig, device=None):
@@ -115,7 +132,7 @@ def gate_failures(out) -> list:
 
 
 def parse_args(argv=None):
-    """bench.py:143-161's flags, but `--num_chips` (ROADMAP A10)."""
+    """bench.py:143-161's flags."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", default="",
                     help="directory for a torch.profiler trace of the timed "
@@ -138,20 +155,26 @@ def parse_args(argv=None):
     ap.add_argument("--no_occ_update", action="store_true",
                     help="skip occupancy refreshes in the timed window "
                          "(occupancy-maintenance cost probe)")
+    ap.add_argument("--num_chips", type=int, default=1,
+                    help="split the batch's rays over N cards and report "
+                         "the scaling efficiency")
     args = ap.parse_args(argv)
     if args.samples_per_ray > MAX_SAMPLES_PER_RAY:
         ap.error(f"--samples_per_ray {args.samples_per_ray}: the port "
                  f"takes at most {MAX_SAMPLES_PER_RAY}")
+    if args.num_chips < 1:
+        ap.error(f"--num_chips {args.num_chips}: one card or more")
     return args
 
 
-def config_of(args) -> TrainConfig:
+def config_of(args, num_chips=None) -> TrainConfig:
     return bench_config(batch=args.batch,
                         samples_per_ray=args.samples_per_ray,
                         sv_intervals=args.sv_intervals,
                         compute_dtype=args.compute_dtype,
                         hash_layout=args.hash_layout,
-                        min_losses=args.min_losses)
+                        min_losses=args.min_losses,
+                        num_chips=num_chips or args.num_chips)
 
 
 def split_device_time(events, n_steps: int):
@@ -170,25 +193,56 @@ def split_device_time(events, n_steps: int):
     return split, sum(e.count for e in events) / n_steps
 
 
+def one_card_rays_per_s(args, log) -> float:
+    """Train rays/s of a one-card trainer at the same global batch
+    (bench.py:222-233): WARM_STEPS steps, then TIMED_STEPS timed."""
+    tr = build_trainer(config_of(args, num_chips=1))
+    tr.mark_invisible_cells()
+    tr.fit(WARM_STEPS)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tr.fit(TIMED_STEPS, occ_update=not args.no_occ_update)
+    torch.cuda.synchronize()
+    rate = tr.cfg.data.batch_size * TIMED_STEPS / (time.perf_counter() - t)
+    log(f"one-card reference: {rate:,.0f} rays/s "
+        f"({tr.cfg.data.batch_size / rate * 1e3:.2f} ms/step)")
+    return rate
+
+
 def main(argv=None):
     args = parse_args(argv)
+    if args.num_chips > 1 and not launched():
+        require_cards(args.num_chips)
+        kernels.build_all()   # once, before the ranks load them
+        return spawn(main, args.num_chips, (argv,), device="cuda")
+    initialize_multihost(device="cuda")
     t_start = time.time()
-
-    def log(msg):
-        print(f"[bench {time.time() - t_start:7.1f}s] {msg}", file=sys.stderr,
-              flush=True)
-
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = config_of(args)
     tr = build_trainer(cfg)
-    trainer_log = logging.getLogger("normal_clustering_nerf_torch")
-    trainer_log.setLevel(logging.INFO)
-    handler = logging.StreamHandler(sys.stderr)
-    handler.setFormatter(logging.Formatter("[bench trainer] %(message)s"))
-    trainer_log.addHandler(handler)
+    axis = tr.axis
+    rank0 = axis is None or axis.rank == 0
+
+    def log(msg):
+        if rank0:
+            print(f"[bench {time.time() - t_start:7.1f}s] {msg}",
+                  file=sys.stderr, flush=True)
+
+    def sync():   # every rank's card done
+        torch.cuda.synchronize()
+        if axis is not None:
+            barrier(axis)
+
+    if rank0:
+        trainer_log = logging.getLogger("normal_clustering_nerf_torch")
+        trainer_log.setLevel(logging.INFO)
+        handler = logging.StreamHandler(sys.stderr)
+        handler.setFormatter(logging.Formatter("[bench trainer] %(message)s"))
+        trainer_log.addHandler(handler)
     flags = {k: v for k, v in vars(args).items() if k != "profile"}
-    log(f"card: {torch.cuda.get_device_name(tr.device)}; {flags}")
+    log(f"card: {torch.cuda.get_device_name(tr.device)} x {args.num_chips}; "
+        f"{flags}")
     batch = cfg.data.batch_size
     tr.mark_invisible_cells()
 
@@ -204,13 +258,13 @@ def main(argv=None):
 
     from torch.profiler import ProfilerActivity, profile
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-          if args.profile else contextlib.nullcontext()) as prof:
-        torch.cuda.synchronize()
+          if args.profile and rank0 else contextlib.nullcontext()) as prof:
+        sync()
         t = time.perf_counter()
         hist = tr.fit(TIMED_STEPS, occ_update=not args.no_occ_update)
-        torch.cuda.synchronize()
+        sync()
         dt = time.perf_counter() - t
-    if args.profile:
+    if args.profile and rank0:
         write_profile(prof, args.profile, dt * 1e3 / TIMED_STEPS, log)
     rays_per_s = batch * TIMED_STEPS / dt
     out = {
@@ -224,10 +278,21 @@ def main(argv=None):
     log(f"train throughput {rays_per_s:,.0f} rays/s "
         f"({TIMED_STEPS / dt:.1f} it/s, {dt * 1e3 / TIMED_STEPS:.2f} ms/step;"
         f" rm/ray {hist[-1]['rm_samples_per_ray']:.2f})")
+    if axis is not None:
+        launches = kernels.counts()
+        r1 = on_rank0(axis, one_card_rays_per_s, args, log)
+        if rank0:
+            out["num_chips"] = axis.size
+            out["scaling_efficiency"] = round(rays_per_s / (r1 * axis.size),
+                                              3)
+            out["rays_per_s_per_chip"] = round(rays_per_s / axis.size, 1)
+        for k in kernels.ALL_KERNELS:   # rank 0's one-card run is not
+            k.launches = launches[k.name]   # this run's
     if args.skip_quality:
         log(f"graphs captured: {json.dumps(tr.captures)}")
         log(f"kernel launches in this run: {json.dumps(kernels.counts())}")
-        print(json.dumps(out), flush=True)
+        if rank0:
+            print(json.dumps(out), flush=True)
         return
 
     log(f"training to step {TOTAL_STEPS} for the quality gates")
@@ -240,6 +305,10 @@ def main(argv=None):
     t = time.perf_counter()
     val = tr.validate()
     render_cold_s = time.perf_counter() - t
+    if not rank0:   # validate and the renders ran on rank 0
+        for _ in range(3):
+            tr.render_images(list(scene.poses))
+        return
     warm_times = []
     for _ in range(3):
         t = time.perf_counter()

@@ -11,7 +11,7 @@ import argparse
 import dataclasses
 import math
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -180,6 +180,22 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Cards of one run (config.py:283-292 of the JAX package): the rays
+    of a batch split over a 1-D "rays" axis of `mesh_shape[0]` ranks, one
+    process a card (`parallel.launch`); 1 is one card, -1 every rank of
+    the process group. The launcher's fields are the JAX package's; the
+    port reads the process group from the environment
+    (`parallel.launch.initialize_multihost`) and never these."""
+    mesh_shape: Tuple[int, ...] = (1,)
+    mesh_axis_names: Tuple[str, ...] = ("rays",)
+    multihost: bool = False
+    coordinator_address: Optional[str] = None
+    num_processes: int = 1
+    process_id: int = 0
+
+
+@dataclass(frozen=True)
 class EvalConfig:
     """Validation / artifact options (reference: opt.py:167-196)."""
     eval_lpips: bool = False
@@ -205,6 +221,7 @@ class TrainConfig:
     loss: LossConfig = field(default_factory=LossConfig)
     data: DataConfig = field(default_factory=DataConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
 
     def replace(self, **kw) -> "TrainConfig":
@@ -214,8 +231,8 @@ class TrainConfig:
     def from_args(argv=None) -> "TrainConfig":
         """Parse reference-compatible CLI flags (opt.py names) into a
         TrainConfig, as the JAX package's `TrainConfig.from_args`
-        (config.py:329-483) does. `--num_chips`, more than one card, which
-        the port does not have, is parsed and refused above 1."""
+        (config.py:329-483) does: `--num_chips` N sets
+        `parallel.mesh_shape` to (N,), 0 to (1,)."""
         p = argparse.ArgumentParser()
         p.add_argument("--no_debug", action="store_true", default=False)
         p.add_argument("--log_root_dir", type=str, default="./logs")
@@ -285,7 +302,8 @@ class TrainConfig:
                        choices=["avoid_near", "depth", "none"])
         p.add_argument("--anneal_steps", type=int, default=0)
         p.add_argument("--num_chips", type=int, default=0,
-                       help="0/1 = one card; more is ROADMAP A10")
+                       help="0/1 = one card; -1 = every rank of the "
+                            "process group; N = the rays over N cards")
         p.add_argument("--grad_clip", type=float, default=0.05)
         p.add_argument("--random_bg", action="store_true", default=False)
         # validation
@@ -303,9 +321,6 @@ class TrainConfig:
         p.add_argument("--save_checkpoint", action="store_true",
                        default=False)
         a = p.parse_args(argv)
-        if a.num_chips not in (0, 1):
-            raise NotImplementedError(
-                "flags not ported: ['--num_chips (ROADMAP A10)']")
 
         return TrainConfig(
             exp_name=a.exp_name, log_root_dir=a.log_root_dir, seed=a.seed,
@@ -363,6 +378,8 @@ class TrainConfig:
                 lr_dR_norm_glob=a.lr_dR_norm_glob,
                 dR_norm_glob_coding=a.dR_norm_glob_coding,
             ),
+            parallel=ParallelConfig(
+                mesh_shape=(a.num_chips if a.num_chips != 0 else 1,)),
             eval=EvalConfig(
                 eval_lpips=a.eval_lpips, val_only=a.val_only,
                 save_test_vis=a.save_test_vis, downsample_vis=a.downsample_vis,

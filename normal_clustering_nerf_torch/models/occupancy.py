@@ -14,6 +14,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ModelConfig
 from ..device import as_index
@@ -223,6 +224,27 @@ class OccupancyGrid:
         return OccupancyState(grid, bitfield, state.count_grid,
                               coarse_occupancy(bitfield, self.G),
                               *supervoxel_tables(bitfield, self.G))
+
+    # ------------------------------------------------------ several cards
+    @staticmethod
+    def merge_across_chips(state: OccupancyState, group) -> OccupancyState:
+        """Merge the ranks' refreshed grids (occupancy.py:294-315): each
+        rank sampled its own cells, and the union of their evidence is the
+        MAX of the density grids and the OR of the bitfields, taken as the
+        MAX of the unpacked bits (NCCL has no bitwise reduction, and a MAX
+        of packed bytes is no OR: max(0b01, 0b10) = 0b10), repacked. The
+        coarse mask and the sv tables are rebuilt from the merged bitfield
+        (dilation and any-reduction commute with the union); the coverage
+        counts are kept. Every rank returns the same state."""
+        grid = state.density_grid.clone()
+        dist.all_reduce(grid, op=dist.ReduceOp.MAX, group=group)
+        bits = unpack_bits(state.density_bitfield).to(torch.uint8)
+        dist.all_reduce(bits, op=dist.ReduceOp.MAX, group=group)
+        bitfield = packbits(bits, 0)
+        G = round(state.density_grid.shape[1] ** (1.0 / 3.0))
+        return OccupancyState(grid, bitfield, state.count_grid,
+                              coarse_occupancy(bitfield, G),
+                              *supervoxel_tables(bitfield, G))
 
     # ---------------------------------------------------- visibility marks
     def mark_invisible_cells(self, state: OccupancyState, poses, img_wh,

@@ -19,6 +19,14 @@ holds it, and marking again would zero the trained densities (the JAX
 CLI marks again, so its resumed run does not continue as the
 uninterrupted one).
 
+`--num_chips N` trains on N cards of this host (train_nerf.py:33-34 joins
+the hosts first): without a process group in the environment, `main`
+starts N processes itself (`parallel.launch.spawn`), each of which runs
+`main` as one rank (under a launcher each process is one already:
+`parallel.launch.initialize_multihost`). Rank 0 alone writes the
+logger's files, the exports, results.csv and the checkpoint, and its
+validation metrics are what `main` returns.
+
 It runs on the card. `NCNERF_PLATFORM` (the JAX CLI's variable) unset,
 "cuda" or "gpu" means the card, "cpu" the plain PyTorch versions on the
 CPU; anything else raises. `NCNERF_PROFILE_DIR=<dir>` traces `fit` with
@@ -107,9 +115,11 @@ def _fit(trainer, cfg: TrainConfig, logger):
 def main(argv=None, device=None, run: Optional[Dict] = None
          ) -> Dict[str, float]:
     """Train and validate as the flags in `argv` say; returns the
-    validation metrics. `device` overrides NCNERF_PLATFORM. A dict `run`
-    receives the trainer, the log directory and the wall seconds of each
-    part of the run ("times")."""
+    validation metrics (rank 0's; None on the other ranks). `device`
+    overrides NCNERF_PLATFORM. A dict `run` receives the trainer, the log
+    directory and the wall seconds of each part of the run ("times")."""
+    from .parallel.launch import (initialize_multihost, launched,
+                                  require_cards, spawn)
     from .training import Trainer
     from .training.checkpoints import (load_weights, restore_checkpoint,
                                        save_checkpoint)
@@ -117,9 +127,23 @@ def main(argv=None, device=None, run: Optional[Dict] = None
     from .training.results import save_results_csv
 
     cfg = TrainConfig.from_args(argv)
+    platform = platform_device(device)
+    n_ranks = cfg.parallel.mesh_shape[0]
+    if n_ranks != 1 and not launched():
+        if n_ranks == -1:
+            if platform != "cuda":
+                raise ValueError("--num_chips -1 (every card) runs on the "
+                                 "card; give the number of ranks")
+            n_ranks = torch.cuda.device_count()
+        if platform == "cuda":   # once, before the ranks load them
+            from . import kernels
+            require_cards(n_ranks)
+            kernels.build_all()
+        return spawn(main, n_ranks, (argv, device), device=platform)
+    initialize_multihost(device=platform)
     if not cfg.no_debug:
         cfg = cfg.debug_overrides()
-    dev = torch.device(platform_device(device))
+    dev = torch.device(platform)
     timer = _Timer(dev)
     train_ds, test_ds = timer("dataset", lambda: build_datasets(cfg))
     trainer = timer("dataset", lambda: Trainer(
@@ -133,9 +157,12 @@ def main(argv=None, device=None, run: Optional[Dict] = None
               lambda: restore_checkpoint(cfg.ckpt_path, trainer))
 
     log_dir = os.path.join(cfg.log_root_dir, cfg.exp_name or "run")
-    os.makedirs(log_dir, exist_ok=True)
-    logger = MetricLogger(log_dir, use_wandb=cfg.no_debug,
-                          run_name=cfg.exp_name)
+    rank0 = trainer.axis is None or trainer.axis.rank == 0
+    logger = None
+    if rank0:
+        os.makedirs(log_dir, exist_ok=True)
+        logger = MetricLogger(log_dir, use_wandb=cfg.no_debug,
+                              run_name=cfg.exp_name)
     if run is not None:
         run.update(trainer=trainer, log_dir=log_dir, times=timer.times)
 
@@ -150,22 +177,26 @@ def main(argv=None, device=None, run: Optional[Dict] = None
         save_preds_dir=os.path.join(log_dir, "preds")
         if cfg.eval.save_test_preds else None,
         logger=logger))
-    print("validation:", {k: round(v, 4) for k, v in metrics.items()})
+    if rank0:
+        print("validation:", {k: round(v, 4) for k, v in metrics.items()})
 
     if cfg.eval.save_train_preds:
         timer("exports", lambda: trainer.save_train_preds(
             os.path.join(log_dir, "preds")))
-    timer("exports", lambda: save_results_csv(
-        os.path.join(log_dir, "results.csv"), metrics, cfg,
-        info={"step": trainer.step,
-              "scene": getattr(train_ds, "scene_name",
-                               cfg.data.dataset_name)}))
-    logger.close()
+    if rank0:
+        timer("exports", lambda: save_results_csv(
+            os.path.join(log_dir, "results.csv"), metrics, cfg,
+            info={"step": trainer.step,
+                  "scene": getattr(train_ds, "scene_name",
+                                   cfg.data.dataset_name)}))
+        logger.close()
 
     if cfg.save_checkpoint:
         timer("checkpoint_save", lambda: save_checkpoint(
             os.path.join(log_dir, "ckpt"), trainer))
-    print("wall seconds:", {k: round(v, 3) for k, v in timer.times.items()})
+    if rank0:
+        print("wall seconds:",
+              {k: round(v, 3) for k, v in timer.times.items()})
     return metrics
 
 

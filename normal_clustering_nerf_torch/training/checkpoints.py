@@ -13,6 +13,12 @@ port writes only the current triplane layout, and refuses a full
 checkpoint tagged with another (the JAX restore converts a v1
 checkpoint's parameters but not its moments, `checkpoints.py:83`).
 
+On several ranks every rank calls `save_checkpoint`: the file also holds
+every rank's generator state, gathered to rank 0, and the world size;
+rank 0 writes it and the others wait at a barrier. A restore sets each
+rank's own generator, so that a resumed run on N cards continues as the
+uninterrupted one, and refuses a file of another world size.
+
 A weights file keeps the JAX format, so each package reads the other's:
 an npz of the parameters under their "/"-joined JAX paths
 (`convert.jax_path`) with `__triplane_layout__`; a v1 file's triplane
@@ -32,6 +38,7 @@ from ..convert import jax_path
 from ..models.occupancy import OccupancyState
 from ..models.triplane import (
     TRIPLANE_LAYOUT_VERSION, convert_triplane_params_v1_to_v2)
+from .distributed import barrier, gather_objects
 
 _LAYOUT_FILE = "layout_version.json"
 _STATE_FILE = "state.pt"
@@ -79,12 +86,25 @@ def _layout(state: Dict) -> Dict[str, tuple]:
             for g, d in groups.items() for n, t in d.items()}
 
 
+def _world_size(trainer) -> int:
+    return 1 if trainer.axis is None else trainer.axis.size
+
+
 def save_checkpoint(path: str, trainer):
-    """Write `trainer`'s full training state to the directory `path`."""
+    """Write `trainer`'s full training state to the directory `path` (on
+    several ranks: every rank calls it, rank 0 writes)."""
     path = os.path.abspath(path)
-    os.makedirs(path, exist_ok=True)
-    torch.save(trainer_state(trainer), os.path.join(path, _STATE_FILE))
-    _write_layout_tag(path)
+    state = trainer_state(trainer)
+    axis = trainer.axis
+    if axis is not None:
+        state["rank_generators"] = gather_objects(axis, state["generator"])
+        state["world_size"] = axis.size
+    if axis is None or axis.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        torch.save(state, os.path.join(path, _STATE_FILE))
+        _write_layout_tag(path)
+    if axis is not None:
+        barrier(axis)
 
 
 def restore_checkpoint(path: str, trainer):
@@ -98,6 +118,10 @@ def restore_checkpoint(path: str, trainer):
             f"(an npz of save_weights, which converts v1) instead")
     ck = torch.load(os.path.join(path, _STATE_FILE), map_location="cpu",
                     weights_only=True)
+    world = _world_size(trainer)
+    if ck.get("world_size", 1) != world:
+        raise ValueError(f"{path}: a checkpoint of {ck.get('world_size', 1)} "
+                         f"rank(s), this run has {world}")
     have, want = _layout(ck), _layout(trainer_state(trainer, dict))
     diff = sorted(k for k in have.keys() | want.keys()
                   if have.get(k) != want.get(k))
@@ -115,7 +139,9 @@ def restore_checkpoint(path: str, trainer):
                         f"{model[k]!r})" for k in diff))
     trainer.load_state(ck["params"], OccupancyState(**ck["occ"]),
                        ck["opt"], ck["step"])
-    trainer.generator.set_state(ck["generator"])
+    trainer.generator.set_state(
+        ck["generator"] if world == 1
+        else ck["rank_generators"][trainer.axis.rank])
     return trainer
 
 

@@ -20,8 +20,18 @@ rotation, and writes the prediction panels, the prediction archives and
 the logger's images and scalars on request; `save_train_preds` renders
 the training views into archives. With `host_sampler` the batches' indices
 come from the native prefetcher on the host (`HostFeed`) in place of the
-device sampler. The JAX version's shard_map and render prewarming are not
-ported.
+device sampler. The JAX version's render prewarming is not ported.
+
+On several cards (`cfg.parallel.mesh_shape` above 1, trainer.py:120-175
+of the JAX package; one process a card, `parallel.launch`) each rank
+draws `batch_size / n` rays with its own generator, the gradients and
+the step's metrics are averaged over the ranks between the backward and
+AdamW, each refresh's grids are merged, and rank 0's parameters,
+moments and occupancy are broadcast after init and after every load
+(`training.distributed`): the replicas stay bit-identical. `validate`,
+`render_images` and `save_train_preds` run on rank 0 (the others return
+None at a barrier). With NCCL the all-reduce is inside the step's CUDA
+graph; gloo runs eager steps.
 
 On the card a chunk is a CUDA graph of one step, replayed once a step.
 Everything a step reads or writes stays in fixed storages: parameters,
@@ -39,6 +49,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 import logging
 import math
 import os
@@ -62,7 +73,10 @@ from ..models.ngp_mt import NGPMT
 from ..models.occupancy import OccupancyGrid, OccupancyState
 from ..models.rendering import render_test, render_train, train_march_kind
 from ..ops.kmeans import cluster_sums
+from ..parallel.mesh import axis_size, make_mesh
 from ..utils.rotations import R_offset_from_angles
+from .distributed import (broadcast_, local_batch, mean_over_axis, on_rank0,
+                          shard_seed)
 from .rotation_recovery import rotation_recovery_errors
 from .state import OPT_COLUMNS, SCHEDULE_COLUMNS, AdamW, schedule_table
 from .visualize import pack_vis_panel, save_preds_tar_gz, save_vis_png
@@ -180,10 +194,37 @@ def validation_gt(scene: SceneData, i: int) -> Dict[str, np.ndarray]:
     return gt
 
 
+def rank0_only(fn):
+    """A method that runs on rank 0 alone: the other ranks wait for it at
+    a barrier and return None (its calls inside it do not wait again)."""
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kw):
+        if self.axis is None or self._in_rank0:
+            return fn(self, *args, **kw)
+
+        def run():
+            self._in_rank0 = True
+            try:
+                return fn(self, *args, **kw)
+            finally:
+                self._in_rank0 = False
+        return on_rank0(self.axis, run)
+    return wrapped
+
+
 class Trainer:
     def __init__(self, cfg: TrainConfig, scene_train: SceneData,
                  scene_test: Optional[SceneData] = None, device=None):
-        self.device = dev = resolve_device(device)
+        dev = resolve_device(device)
+        n_ranks = axis_size(cfg.parallel.mesh_shape)
+        if n_ranks > 1:
+            if cfg.data.host_sampler:
+                raise ValueError("host_sampler is single-device only")
+            local_batch(cfg.data.batch_size, n_ranks)
+        self.axis = make_mesh(cfg.parallel.mesh_shape,
+                              cfg.parallel.mesh_axis_names, dev)
+        self._in_rank0 = False
+        self.device = dev = dev if self.axis is None else self.axis.device
         if scene_train.n_classes:
             cfg = cfg.replace(model=dataclasses.replace(
                 cfg.model, n_sem_cls=scene_train.n_classes))
@@ -197,7 +238,9 @@ class Trainer:
         self.cfg = cfg
         self.scene_train = scene_train
         self.scene_test = scene_test
-        self.generator = torch.Generator(device=dev).manual_seed(cfg.seed)
+        rank = 0 if self.axis is None else self.axis.rank
+        self.generator = torch.Generator(device=dev).manual_seed(
+            shard_seed(cfg.seed, rank))
         init_gen = torch.Generator(device=dev).manual_seed(cfg.seed + 1)
         o = cfg.optim
         # position gradients through the encode (H12-H14) when the
@@ -215,7 +258,8 @@ class Trainer:
                 scene_train.xyz_cam_max, RANDOM_POSES, seed=cfg.seed)
             self.random_poses = torch.as_tensor(rnd, device=dev)
         self.sampler = RaySampler(
-            cfg.data.ray_sampling_strategy, cfg.data.batch_size,
+            cfg.data.ray_sampling_strategy,
+            local_batch(cfg.data.batch_size, n_ranks),
             scene_train.img_wh, scene_train.n_images,
             max_expand=cfg.data.triang_max_expand,
             patch_size=cfg.data.patch_size,
@@ -284,11 +328,12 @@ class Trainer:
         self._warm: Dict[str, int] = {}
         self._zero_grads: Dict[str, torch.Tensor] = {}
         self._pool = self._side = None
-        self._flat_logged = False
+        self._eager_logged = False
         self.captures: List[Dict] = []   # kind, step, ms of each capture
         self.last_grads: Dict[str, torch.Tensor] = {}
         self.last_batch: Optional[Dict[str, torch.Tensor]] = None
         self.R_offset = self._build_R_offset()
+        self._sync_replicas()
 
     @property
     def step(self) -> int:
@@ -327,12 +372,28 @@ class Trainer:
         self.occ = occ
         self.opt.load_state(opt_state or self.opt.init_state())
         self.step = step
+        self._sync_replicas(params=False)
 
     @torch.no_grad()
     def load_params(self, params: Dict[str, torch.Tensor]):
         """Copy `params` (every parameter's name) into the parameters."""
         for n, p in self.params.items():
             p.copy_(params[n])
+        self._sync_replicas(moments=False, occ=False)
+
+    def _sync_replicas(self, params=True, moments=True, occ=True):
+        """On several ranks, rank 0's parameters, moments and occupancy
+        into every rank's (the step and the count are host state that
+        every rank shares)."""
+        if self.axis is None:
+            return
+        ts = list(self.params.values()) if params else []
+        if moments:
+            ts += [t for k in ("mu", "nu")
+                   for t in self.opt.state[k].values()]
+        if occ:
+            ts += list(self._occ)
+        broadcast_(self.axis, ts)
 
     # ------------------------------------------------------- occupancy ops
     def density_threshold(self) -> float:
@@ -342,10 +403,15 @@ class Trainer:
     def occ_update(self, warmup: bool, *, jitter=None, cell_draws=None):
         """Occupancy refresh (train_nerf.py:314-320), eager between chunks
         (the JAX trainer's `_occ_update` is a jit of its own); the new
-        state is copied into the trainer's tensors."""
-        self.occ = self.occ_grid.update(
+        state is copied into the trainer's tensors. On several ranks each
+        refreshes with its own draws and the grids are merged
+        (`make_sharded_occ_update`)."""
+        new = self.occ_grid.update(
             self.occ, self.model.density, self.density_threshold(), warmup,
             generator=self.generator, jitter=jitter, cell_draws=cell_draws)
+        if self.axis is not None:
+            new = OccupancyGrid.merge_across_chips(new, self.axis.group)
+        self.occ = new
 
     def mark_invisible_cells(self):
         """One-time camera-coverage marking (train_nerf.py:306-312), through
@@ -355,6 +421,7 @@ class Trainer:
         self.occ = self.occ_grid.mark_invisible_cells(
             self.occ, s.poses, s.img_wh, self.cfg.model.near_dist,
             K=s.K if s.proj is None else None, proj=s.proj)
+        self._sync_replicas(params=False, moments=False)
 
     # ------------------------------------------------------------ train step
     def _ensure_rows(self, end: int):
@@ -445,19 +512,28 @@ class Trainer:
         grads = torch.autograd.grad(loss_d["total"],
                                     [self.params[n] for n in names],
                                     allow_unused=True)
-        self.last_grads = {n: self._zeros(n) if gr is None else gr
-                           for n, gr in zip(names, grads)}
-        self.opt.update(self.last_grads, *rows[0, :OPT_COLUMNS])
-        n_rays = self.sampler.batch_size
-        mse = torch.mean((results["rgb"][: target["rgb"].shape[0]].detach()
-                          - target["rgb"]) ** 2)
+        grads = {n: self._zeros(n) if gr is None else gr
+                 for n, gr in zip(names, grads)}
+        aux = {f"loss_{k}": v.detach() for k, v in loss_d.items()}
+        aux.update(
+            rm=results["rm_samples"].float(),
+            vr=results["vr_samples"].float(),
+            trunc=results["trunc_rays"].float(),
+            mse=torch.mean((results["rgb"][: target["rgb"].shape[0]].detach()
+                            - target["rgb"]) ** 2))
+        if self.axis is not None:   # pmean (trainer.py:362-364)
+            grads, aux = mean_over_axis(self.axis, grads, aux)
+        self.last_grads = grads
+        self.opt.update(grads, *rows[0, :OPT_COLUMNS])
+        n_rays = self.sampler.batch_size   # this rank's (trainer.py:375)
         metrics = {
-            "psnr": -10.0 * torch.log10(torch.clamp(mse, min=1e-12)),
-            "rm_samples_per_ray": results["rm_samples"].float() / n_rays,
-            "vr_samples_per_ray": results["vr_samples"].float() / n_rays,
-            "trunc_ray_frac": results["trunc_rays"].float() / n_rays,
+            "psnr": -10.0 * torch.log10(torch.clamp(aux.pop("mse"),
+                                                    min=1e-12)),
+            "rm_samples_per_ray": aux.pop("rm") / n_rays,
+            "vr_samples_per_ray": aux.pop("vr") / n_rays,
+            "trunc_ray_frac": aux.pop("trunc") / n_rays,
         }
-        metrics.update({f"loss_{k}": v.detach() for k, v in loss_d.items()})
+        metrics.update(aux)
         self._record(metrics)
         self._step_t.add_(1)
         return metrics
@@ -520,7 +596,8 @@ class Trainer:
         stream; its next step is captured as a CUDA graph and every step
         after is a replay of it, with nothing on the host between replays.
         The flat layout reads its segments' widths on the host and runs
-        eager steps. On the CPU the same body runs eagerly. Returns the
+        eager steps, and so does a gloo axis, whose all-reduce runs on the
+        host. On the CPU the same body runs eagerly. Returns the
         last step's metrics (tensors; on the card a graph's own, which its
         next replay overwrites)."""
         if bootstrap is None:
@@ -530,11 +607,17 @@ class Trainer:
         on_card = self.device.type == "cuda"
         if self.host_feed is not None:
             self.host_feed.load(n)
-        if not on_card or self.cfg.render.march_layout == "flat":
-            if on_card and not self._flat_logged:
-                _log.info("flat march layout: eager steps, not a CUDA graph "
-                          "(its segment widths are read on the host)")
-                self._flat_logged = True
+        why = ("flat march layout: eager steps, not a CUDA graph (its "
+               "segment widths are read on the host)"
+               if self.cfg.render.march_layout == "flat" else
+               f"{self.axis.backend} axis: eager steps, not a CUDA graph "
+               "(its all-reduce runs on the host)"
+               if self.axis is not None and self.axis.backend != "nccl"
+               else None)
+        if not on_card or why:
+            if on_card and not self._eager_logged:
+                _log.info(why)
+                self._eager_logged = True
             for _ in range(n):
                 m = self._one_step(bootstrap)
             return m
@@ -570,15 +653,23 @@ class Trainer:
         """Capture one step of `kind` as a CUDA graph (the capture runs
         nothing: the caller replays it for this step), in the trainer's
         one graph memory pool, with the generator registered. The
-        kernels' launches it records are counted at each replay. A failed
+        kernels' launches it records are counted at each replay. On
+        several cards the capture runs on the side stream of the eager
+        warm-up steps, which have run its NCCL all-reduce there. A failed
         capture raises."""
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         t = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
+        stream = None if self.axis is None else self._side
+        # a process group's watchdog thread queries its events while this
+        # thread captures: only this thread's calls are checked
+        mode = ("thread_local" if torch.distributed.is_initialized()
+                else "global")
         with kernels.capture_counts() as counts:
-            with torch.cuda.graph(graph, pool=self._pool):
+            with torch.cuda.graph(graph, pool=self._pool, stream=stream,
+                                  capture_error_mode=mode):
                 metrics = self._step_body(bootstrap)
         self._graphs[kind] = kernels.CountedGraph(graph, counts)
         self._graph_out[kind] = (metrics, self.last_batch, self.last_grads)
@@ -617,7 +708,8 @@ class Trainer:
                 self.occ_update(warmup=step < cfg.optim.warmup_steps)
             whole = step % interval == 0 and step + interval <= end
             self.train_chunk(interval if whole else 1)
-            if log_every and self.step - last_log >= log_every:
+            if (log_every and self.step - last_log >= log_every
+                    and (self.axis is None or self.axis.rank == 0)):
                 last_log = step = self.step
                 m = self._history(step - 1, step)[0]
                 rate = step / max(time.time() - t0, 1e-9)
@@ -640,10 +732,12 @@ class Trainer:
         return [dict(zip(self._hist_keys, r)) for r in rows]
 
     # -------------------------------------------------------------- validate
+    @rank0_only
     def render_image(self, pose, scene: Optional[SceneData] = None) -> Dict:
         """Full-image render of one pose (train_nerf.py:381-401)."""
         return self.render_images([pose], scene)[0]
 
+    @rank0_only
     def render_images(self, poses, scene: Optional[SceneData] = None
                       ) -> List[Dict]:
         """Render whole images through the camera (directions, size) of
@@ -685,6 +779,7 @@ class Trainer:
             results.append(res)
         return results
 
+    @rank0_only
     def validate(self, save_vis_dir: Optional[str] = None,
                  save_preds_dir: Optional[str] = None, logger=None,
                  rotation_draws=None) -> Dict[str, float]:
@@ -770,6 +865,7 @@ class Trainer:
         self._last_val_preds = preds
         return out
 
+    @rank0_only
     def save_train_preds(self, save_dir: str):
         """Render the training views one at a time and write the
         predictions' and the labels' archives, `train_pred.tar.gz` and

@@ -85,8 +85,9 @@ def test_bench_flags_match_bench_py(monkeypatch, argv, jax_kw):
 
 def test_bench_run_flags():
     """The flags that shape the run and not the configuration: the cost
-    probes, the trace and the throughput-only run; more than 32 samples a
-    ray and `--num_chips` (ROADMAP A10) are refused."""
+    probes, the trace and the throughput-only run; `--num_chips 2` parses
+    (ROADMAP A10); more than 32 samples a ray and fewer than one card are
+    refused."""
     args = bench.parse_args(["--no_occ_update", "--skip-quality",
                              "--profile", "trace_dir"])
     assert args.no_occ_update and args.skip_quality
@@ -94,9 +95,35 @@ def test_bench_run_flags():
     defaults = bench.parse_args([])
     assert not (defaults.no_occ_update or defaults.skip_quality
                 or defaults.min_losses or defaults.profile)
-    for argv in (["--samples_per_ray", "33"], ["--num_chips", "2"]):
+    assert defaults.num_chips == 1
+    assert bench.parse_args(["--num_chips", "2"]).num_chips == 2
+    for argv in (["--samples_per_ray", "33"], ["--num_chips", "0"]):
         with pytest.raises(SystemExit):
             bench.parse_args(argv)
+
+
+def test_num_chips_splits_the_batch_as_bench_py(monkeypatch):
+    """`--num_chips 2` builds bench.py's configuration at num_chips 2
+    (ParallelConfig mesh (2,), the same global batch), field by field,
+    but for the march budget: a rank's batch times samples_per_ray, where
+    bench.py gives each chip the global batch's."""
+    monkeypatch.setattr(j_synthetic, "SyntheticDataset", _Scene)
+    monkeypatch.setattr(j_training, "Trainer", lambda *a: a)
+    _, jcfg = jax_bench.build_trainer(
+        8192, num_chips=2, compute_dtype="bfloat16", hash_layout="triplane",
+        samples_per_ray=16, sv_intervals=24)
+    cfg = bench.config_of(bench.parse_args(["--num_chips", "2"]))
+    assert dataclasses.asdict(cfg.parallel) == \
+        dataclasses.asdict(jcfg.parallel)
+    assert cfg.data.batch_size == jcfg.data.batch_size == 8192
+    assert cfg.render.sample_budget == 4096 * 16
+    assert jcfg.render.sample_budget == 8192 * 16
+    for part in ("model", "render", "loss", "data", "optim"):
+        ours, ref = getattr(cfg, part), getattr(jcfg, part)
+        for f in dataclasses.fields(ours):
+            if (part, f.name) != ("render", "sample_budget"):
+                assert getattr(ours, f.name) == getattr(ref, f.name), \
+                    f"{part}.{f.name}"
 
 
 PASS = {"psnr": 34.0, "trunc_ray_frac": 0.0, "norm_depth_ang_mean": 18.0,
@@ -127,3 +154,5 @@ def test_bench_needs_the_card():
         bench.main(["--hash_layout", "brick"])
     with pytest.raises(SystemExit):   # bench.py's three choices only
         bench.main(["--hash_layout", "grid"])
+    with pytest.raises(RuntimeError, match="2 cards; 0 are visible"):
+        bench.main(["--num_chips", "2"])

@@ -2,7 +2,8 @@
 field, on the argv of each published preset (experiments/
 hyperparameters.py), on a few flags off their defaults and on each flag
 of the checkpoints and exports; `debug_overrides` against JAX's; the
-flags the port refuses, each naming its ROADMAP item; and the smoke's
+flag that was refused until the port had it (`--num_chips`, which now
+builds the JAX `ParallelConfig`); and the smoke's
 Hypersim argv literal against `hypersim_flags()`. Exact: the configs
 are plain values."""
 import dataclasses
@@ -20,7 +21,8 @@ from hyperparameters import PRESETS, hypersim_flags  # noqa: E402
 
 import chip_smoke  # noqa: E402
 
-SUBCONFIGS = ("model", "render", "loss", "data", "optim", "eval")
+SUBCONFIGS = ("model", "render", "loss", "data", "optim", "parallel",
+              "eval")
 TOP_LEVEL = ("exp_name", "log_root_dir", "seed", "no_debug", "ckpt_path",
              "weight_path", "save_checkpoint")
 OFF_DEFAULTS = ["--seed=3", "--exp_name=x", "--random_tr_poses",
@@ -96,10 +98,13 @@ def test_debug_overrides_match_jax(argv):
 
 @pytest.mark.parametrize("flag,item", [("--num_chips=4", "A10")])
 def test_unported_flags_are_refused(flag, item):
-    """The CLI refuses them naming their ROADMAP item: more than one card
-    when it parses the flags (extrinsic optimisation trains:
-    tests/test_torch_extrinsics.py; --eval_lpips passes through:
+    """No flag is refused any more: `--num_chips` (ROADMAP A10, the last)
+    builds the JAX package's `ParallelConfig`, mesh (4,), and the CLI
+    takes it (tests/test_torch_parallel.py trains with it; extrinsic
+    optimisation: tests/test_torch_extrinsics.py; --eval_lpips:
     tests/test_torch_lpips.py)."""
-    from normal_clustering_nerf_torch.train_nerf import main
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main([flag, "--dataset_name=synthetic"], device="cpu")
+    t = _assert_same(hypersim_flags() + [flag])
+    assert t.parallel.mesh_shape == (4,)
+    assert t.parallel == tcfg.ParallelConfig(mesh_shape=(4,))
+    assert _assert_same(["--num_chips=0"]).parallel.mesh_shape == (1,)
+    assert _assert_same(["--num_chips=-1"]).parallel.mesh_shape == (-1,)
