@@ -48,7 +48,9 @@ Phases (any failed check raises, so the script exits non-zero):
      budget with and without the stratified tail, a supervoxel re-entered
      across an invalid piece; every kind must occur); H9 (the bitfield march over 1024 steps, and
      the two-level march with a 4-block budget, where rays truncate), H11
-     (the flat budget, and half of it), H10 (three rounds of each mode over
+     (the flat budget, half of it, the one ray with the most samples, an
+     all-empty batch, and rows of 13 steps, which H11 reads a byte at a
+     time, bit for bit), H10 (three rounds of each mode over
      the held-out rays, and the full window at the Pallas probe P2's
      (8192, 1024) block, beside P2's own form in torch); H9 (both marches)
      and H10 (both modes) again at scene scale 0.3, where the mip bound is
@@ -70,7 +72,7 @@ Phases (any failed check raises, so the script exits non-zero):
      two refreshes run as one chunk, on the card replays of a CUDA graph
      of the step (three eager steps of each march, then its capture; a
      replay adds the launches its capture recorded to the counts, as
-     `kernels.CountedGraph` does; the flat path runs eager steps). Read
+     `kernels.CountedGraph` does; the flat path's step too). Read
      the counts:
      every training launcher must have launched, K1's training launcher 64
      times. Every loss must be finite and the loss must fall;
@@ -78,7 +80,11 @@ Phases (any failed check raises, so the script exits non-zero):
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
      T_start on a flat test round), H3's segment backward on segments of
-     every length 0..32 and its segment forward on every length 0..64
+     every length 0..32, and with max_len at the flat march's cap (16,
+     32; the bound the training step passes) on segments all shorter
+     than it (bit for bit at the longest segment's bound on the flat
+     batch; d_sigmas bit for bit `composite_grad_serial`, d_raws bit for
+     bit g_rend (x) ws), and its segment forward on every length 0..64
      (bit for bit the serial order, with and without T_start), H4's
      segment launchers on every length 0..64 (bit for bit the serial
      order and dense H4), H3's four launchers at C = 17, 46 and 99
@@ -101,8 +107,9 @@ Phases (any failed check raises, so the script exits non-zero):
   march_coarse False: 576 counted steps, H9 64 times and K1 never, and
   `validate` through bitfield bucket rounds, H10), the flat path
   (march_layout and test_layout "flat": FLAT_STEPS (64) counted steps
-  through H9, H11 and the segment launchers, finite losses, and `validate`
-  through flat rounds), and phases 2, 3 and 5 again at the bench
+  through H9, H11 and the segment launchers, the step captured as a
+  "flat" CUDA graph after 3 eager steps and replayed, finite losses, and
+  `validate` through flat rounds), and phases 2, 3 and 5 again at the bench
   configuration with the brick field (hash_layout "brick", kernels H5/H6)
   and with the tcnn hash grid ("tcnn", H7/H8): the encode kernels against
   their plain versions on the batch's march samples (forward in f32 and
@@ -239,7 +246,8 @@ Phases (any failed check raises, so the script exits non-zero):
      H9 and H10 at the cascades path's shapes, each with its bound
      (logf and powf counted as operations; "cascades_*" keys);
   7. CUDA-graph chunks: for the triplane path's bootstrap and sv march, the
-     bitfield path's march, the brick and tcnn fields', the preset and
+     bitfield path's march, the flat path's step, the brick and tcnn
+     fields', the preset and
      the ext path's sv march, the two baselines' sv march (their config's
      norm_can_start, clustering ramp and anneal_steps moved into the
      chunk, after 3 eager steps and a capture at the new step table), the
@@ -2170,6 +2178,23 @@ def check_bitfield(tr, occ, train_in, test_in, tag, need_trunc, step):
                   for f in rm.MarchResult._fields]
         if B == budget:
             flat = got
+    # H11 at its edges: the one ray with the most samples, an all-empty
+    # batch, and rows of 13 steps (not 16-byte rows: byte loads)
+    one = int(fine.ray_count.argmax())
+    S13 = 13
+    for what, ca, B in (
+            ("N = 1", tuple(x[one:one + 1].contiguous() for x in cargs),
+             fine.t.shape[1]),
+            ("all empty", (torch.zeros_like(fine.valid),) + cargs[1:], budget),
+            (f"S = {S13}", tuple(x[:, :S13].contiguous() for x in cargs),
+             N * S13 // 2)):
+        got = rm.compact_samples(*ca, B)
+        ref = rm.compact_samples_plain(*ca, B)
+        log(f"H11 compact, {what}, {tag}: N={ca[0].shape[0]} "
+            f"S={ca[0].shape[1]} B={B}, {int(ref.rm_samples)} samples, "
+            f"{int(ref.valid.sum())} kept")
+        cerrs += [chk.equal(f"{what}: {f}", getattr(got, f), getattr(ref, f))
+                  for f in rm.MarchResult._fields]
     rec["compact_samples"] = dict(
         kernel=(lambda: rm.compact_samples(*cargs, budget)),
         plain=(lambda: rm.compact_samples_plain(*cargs, budget)),
@@ -2379,7 +2404,8 @@ def cascade_march_inputs(m, N, gen, dev, density=0.2):
 def check_cascades(tr, gen, scales=CASCADE_SCALES):
     """H1 (the bootstrap march), H9 (the fine march, and the flat march
     through H11) and H10 (TEST_ROUNDS rounds of each mode from the cursors
-    the last returned) against their plain versions at the scene scales
+    the last returned; H11 on the first full window, as a flat test round
+    compacts it) against their plain versions at the scene scales
     past 0.5 (several cascades, the geometric step grid), on
     `cascade_march_inputs` at the bench's grid, batch and steps: outputs
     identical (the kernels' logf and powf are CUDA's, as the plain
@@ -2468,6 +2494,15 @@ def check_cascades(tr, gen, scales=CASCADE_SCALES):
                 errs["march_fine_test_round"] += [
                     chk.equal(name, a, b) for name, a, b in
                     zip(("t", "dt", "valid", "cursor"), got, ref)]
+                if mode == "full" and r == 0:
+                    # a flat test round: H11 on the window, N * n_steps slots
+                    cb = N * tkw["n_steps"]
+                    cg = rm.compact_samples(ref[2], ref[0], ref[1], cb)
+                    cr = rm.compact_samples_plain(ref[2], ref[0], ref[1], cb)
+                    errs["compact_samples"] += [
+                        chk.equal(f"round compact {f}", getattr(cg, f),
+                                  getattr(cr, f))
+                        for f in rm.MarchResult._fields]
                 cursor = ref[3]
                 alive = alive & (cursor < far)
     chk.done(f"H1 / H9 / H10 at scales {scales}")
@@ -2489,13 +2524,21 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
     flat training batch (the field's sigmas, and the same scaled by
     10^U(0, 4) per ray so that rays end early and sigma*delta reaches the
     clip), and the forward with T_start on the first flat test round's
-    samples. Returns the four launchers' records (timed on the batch)."""
-    from normal_clustering_nerf_torch.models.rendering import field_raws
+    samples. The backward also at max_len = the flat march's cap (the
+    bound the training step passes), bit for bit the same as at the
+    longest segment's. Returns the four launchers' records (timed on the
+    batch; the backward at the cap, as the training step calls it)."""
+    from normal_clustering_nerf_torch.models.rendering import (
+        field_raws, train_march_args)
     from normal_clustering_nerf_torch.ops import composite as cp
     from normal_clustering_nerf_torch.ops import distortion as ds
+    from normal_clustering_nerf_torch.ops.ray_march import flat_cap
     o, d = train_in[0], train_in[1]
     _, _, mr = flat_in
     N, B, K = o.shape[0], mr.t.shape[0], int(mr.ray_count.max())
+    m = tr.cfg.model
+    cap = flat_cap(m.max_samples, train_march_args(
+        m, tr.cfg.render, N, "fine")["samples_per_ray"])
     rid = mr.ray_id.long()
     with torch.no_grad():
         sig, raws = field_raws(tr.model, o[rid] + mr.t[:, None] * d[rid],
@@ -2540,12 +2583,17 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
             chk.equal("ws = dense H3", got[3][v], dg[3][at])))
         gref = cp.composite_compact_grad_plain(*ca, *gs)
         ggot = cp.composite_compact_grad_kernel(*ka, *gs)
+        gcap = cp.composite_compact_grad_kernel(*ka, *gs, max_len=cap)
         gdn = cp.composite_grad_kernel(*dd, *gs[:3], dense_of(mr, gs[3], N, K))
+        log(f"H3 segment backward, {tag} sigmas: max_len {K} (read from the "
+            f"counts) and {cap} (the march's cap)")
         errs["composite_seg_bwd"].append(max(
             chk.close("d_sigmas", ggot[0], gref[0], 1e-4),
             chk.close("d_raws", ggot[1], gref[1], 1e-5),
             chk.equal("d_sigmas = dense H3", ggot[0][v], gdn[0][at]),
-            chk.equal("d_raws = dense H3", ggot[1][v], gdn[1][at])))
+            chk.equal("d_raws = dense H3", ggot[1][v], gdn[1][at]),
+            chk.equal("d_sigmas at max_len = cap", gcap[0], ggot[0]),
+            chk.equal("d_raws at max_len = cap", gcap[1], ggot[1])))
         da = (ref[3].contiguous(), mr.dt, mr.t)
         dref = ds.distortion_compact_plain(*da, mr.ray_id, mr.ray_start, v, N)
         dgot = ds.distortion_compact_kernel(*da, v, *seg)
@@ -2567,6 +2615,7 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
         if tag == "main":
             mka, mda, mref = ka, da, ref
     errs["composite_seg_bwd"].append(check_seg_lengths(chk, C, thr, gen))
+    errs["composite_seg_bwd"].append(check_seg_cap(chk, C, thr, gen))
     errs["composite_seg_fwd"].append(check_seg_fwd_lengths(chk, C, thr, gen))
     for k, e in zip(("distortion_seg_fwd", "distortion_seg_bwd"),
                     check_seg_distortion_lengths(chk, gen)):
@@ -2583,7 +2632,7 @@ def check_segments(tr, train_in, flat_in, flat_round, gen):
             bound=bound(in_b + nbytes(*mref), flops)),
         "composite_seg_bwd": dict(
             kernel=(lambda: cp.composite_compact_grad_kernel(
-                *ka, *gs, max_len=K)),
+                *ka, *gs, max_len=cap)),
             plain=(lambda: cp.composite_compact_grad_plain(
                 *ka[:4], mr.ray_id, mr.ray_start, v, N, thr, *gs)),
             bound=bound(in_b + nbytes(*gs) + nbytes(sig, raws),
@@ -2686,6 +2735,61 @@ def check_seg_lengths(chk, C, thr, gen):
                          want))
 
 
+def segment_slots_2d(count, start, width):
+    """The segments laid out as dense (N, width) rows: where row n holds a
+    sample (p < count[n]) and the slot start[n] + p it comes from (0
+    elsewhere)."""
+    p = torch.arange(width, device=count.device)
+    inside = p[None] < count[:, None]
+    return inside, torch.where(inside, start[:, None] + p[None], 0).long()
+
+
+# (max_len, longest segment): the flat march's cap at the bench's 16 samples
+# a ray and at the 32 of a configuration without a sample budget, over
+# segments all shorter than it
+SEG_CAP_CASES = ((16, 7), (16, 15), (32, 16), (32, 31))
+
+
+def check_seg_cap(chk, C, thr, gen):
+    """H3's segment backward with `max_len` at the flat march's cap, the
+    bound the training step passes, on segments all shorter than it
+    (`segment_case`, every length 0..longest, for each of SEG_CAP_CASES):
+    against its plain version (the tolerances of `check_seg_lengths`),
+    d_sigmas bit for bit `composite_grad_serial` on the segments laid out
+    as dense rows and 0 outside them, d_raws bit for bit g_rend (x) the
+    segment forward's own ws. Returns the largest error."""
+    from normal_clustering_nerf_torch.ops import composite as cp
+    err = 0.0
+    for cap, longest in SEG_CAP_CASES:
+        (sig, raws, dt, ts), (count, start, rid, used, valid), g = (
+            segment_case(longest, C, gen))
+        N, B, dev = count.shape[0], sig.shape[0], gen.device
+        inside, slot = segment_slots_2d(count, start, longest)
+        rows = [x[slot] for x in (sig, raws, dt, ts)] + [valid[slot] & inside]
+        log(f"H3 segment backward at max_len {cap}, every length "
+            f"0..{longest}: N={N} B={B} C={C}")
+        got = cp.composite_compact_grad_kernel(sig, raws, dt, ts, start,
+                                               count, valid, thr, *g,
+                                               max_len=cap)
+        ref = cp.composite_compact_grad_plain(sig, raws, dt, ts, rid, start,
+                                              valid, N, thr, *g)
+        ws = cp.composite_compact_kernel(sig, raws, dt, ts, start, count,
+                                         valid, thr)[3]
+        ser = composite_grad_serial(*rows, thr, *g[:3],
+                                    torch.where(inside, g[3][slot], 0.0))
+        want = torch.zeros(B, device=dev)
+        want[slot[inside]] = ser[inside]
+        err = max(err,
+                  chk.close("d_sigmas", got[0], ref[0], 1e-4),
+                  chk.close("d_raws", got[1], ref[1], 1e-5),
+                  chk.equal("d_sigmas = serial order, 0 outside the "
+                            "segments", got[0], want),
+                  chk.equal("d_raws = g_rend x H3 segment fwd's ws", got[1],
+                            torch.where(used[:, None],
+                                        g[2][rid.long()] * ws[:, None], 0.0)))
+    return err
+
+
 def check_seg_fwd_lengths(chk, C, thr, gen):
     """H3's segment forward on segments of every length 0..SEG_FWD_LONGEST
     (`segment_case`), with and without T_start: against its plain version
@@ -2696,10 +2800,7 @@ def check_seg_fwd_lengths(chk, C, thr, gen):
     (sig, raws, dt, ts), (count, start, rid, _, valid), _ = segment_case(
         SEG_FWD_LONGEST, C, gen)
     N, B, dev = count.shape[0], sig.shape[0], gen.device
-    # the dense rows of the segments: slot start + p of ray n at (n, p)
-    p = torch.arange(SEG_FWD_LONGEST, device=dev)
-    inside = p[None] < count[:, None]
-    slot = torch.where(inside, start[:, None] + p[None], 0).long()
+    inside, slot = segment_slots_2d(count, start, SEG_FWD_LONGEST)
     rows = [x[slot] for x in (sig, raws, dt, ts)] + [valid[slot] & inside]
     T_start = torch.rand(N, generator=gen, device=dev)
     T_start[::8] = thr * (1.0 + 2.0 * T_start[::8])
@@ -2738,10 +2839,7 @@ def check_seg_distortion_lengths(chk, gen):
     (_, _, dt, _), (count, start, rid, _, valid), _ = segment_case(
         SEG_FWD_LONGEST, 1, gen)
     N, B, dev = count.shape[0], dt.shape[0], gen.device
-    # the dense rows of the segments: slot start + p of ray n at (n, p)
-    p = torch.arange(SEG_FWD_LONGEST, device=dev)
-    inside = p[None] < count[:, None]
-    slot = torch.where(inside, start[:, None] + p[None], 0).long()
+    inside, slot = segment_slots_2d(count, start, SEG_FWD_LONGEST)
     ws = torch.rand(B, generator=gen, device=dev) / torch.clamp(
         count, min=1)[rid.long()]
     ts = torch.zeros(B, device=dev)
@@ -3299,9 +3397,10 @@ def ext_path(launches):
 GRAPH_STEPS = 16   # a chunk of the graph phase: the steps between refreshes
 # the graph phase's chunks: (path, bootstrap march or not)
 GRAPH_CASES = (("triplane", True), ("triplane", False), ("bitfield", False),
-               ("brick", False), ("tcnn", False), ("preset", False),
-               ("supervised", False), ("regnerf", False), ("ext", False),
-               ("sem40", True), ("host", False), ("cascades", False))
+               ("flat", False), ("brick", False), ("tcnn", False),
+               ("preset", False), ("supervised", False), ("regnerf", False),
+               ("ext", False), ("sem40", True), ("host", False),
+               ("cascades", False))
 
 
 def sync(dev):
@@ -5186,6 +5285,13 @@ def main():
         tf, "flat", launches, flat_kernels + FIELD_KERNELS["triplane"],
         {"march_fine_train": FLAT_STEPS, "march_bootstrap": 0,
          "composite_fwd": 0}, phases=(("flat", FLAT_STEPS),), fall=False)[0]
+    flat_graphs = [c for c in tf.captures if c["kind"] == "flat"]
+    if not flat_graphs:
+        raise RuntimeError(f"flat path: the step was not captured as a CUDA "
+                           f"graph (captures: {tf.captures})")
+    log(f"  the flat step captured as a CUDA graph at step "
+        f"{flat_graphs[0]['step']} in {flat_graphs[0]['ms']:.1f} ms, its "
+        f"port launches a replay: {flat_graphs[0]['launches']}")
     for name, c in validate(tf, "flat", ("march_fine_test_round",
                                          "compact_samples",
                                          "composite_seg_fwd", "triplane_fwd"),

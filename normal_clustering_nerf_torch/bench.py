@@ -25,9 +25,15 @@ one), for `scaling_efficiency` = rays/s / (one-card rays/s x N) and
 alone prints. `--skip-quality` stops after the timed window; `--min_losses`
 (rgb and opacity only) and `--no_occ_update` (no refresh in the timed
 window) are bench.py's cost probes; `--profile DIR` traces the timed
-window with torch.profiler. It writes no history file. On standard error
-it also logs the CUDA graphs captured and each kernel's launches over the
-whole run, from the first step to the last render, as a JSON object.
+window with torch.profiler. The JSON record, with the run's `config`
+(bench.py:288-293's keys), the card's name and power limit and the time,
+is appended to `bench_history_torch.jsonl` at the repository root (the
+JAX bench's `bench_history.jsonl` is never written), and the throughput
+is logged against the best record of the same config on a card of the
+same name, with a warning past a 10% regression (bench.py:280-311); with
+several cards rank 0 alone writes. On standard error it also logs the
+CUDA graphs captured and each kernel's launches over the whole run, from
+the first step to the last render, as a JSON object.
 """
 from __future__ import annotations
 
@@ -38,8 +44,10 @@ import json
 import logging
 import os
 import shutil
+import subprocess
 import sys
 import time
+from typing import Dict, Optional
 
 import torch
 
@@ -58,6 +66,9 @@ TOTAL_STEPS = 4000    # the clustering ramp (500 + 2500) plus 1000 steps
 BASELINE_RAYS_PER_S = 0.25e6   # the reference on an RTX 2080 Ti (BASELINE.md)
 # H3's backward (and its segment launcher) takes at most 32 samples a ray
 MAX_SAMPLES_PER_RAY = 32
+HISTORY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "bench_history_torch.jsonl")
+REGRESSION_PCT = 10.0   # the warning's threshold (bench.py:309)
 
 
 def bench_config(batch: int = 8192, samples_per_ray: int = 16,
@@ -129,6 +140,62 @@ def gate_failures(out) -> list:
         elif not out[k] <= 5.0:
             fails.append(f"rotation-recovery gate failed: {k} {out[k]} > 5")
     return fails
+
+
+def card_info() -> Dict[str, str]:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them (the
+    power limit "not read" where nvidia-smi is not there)."""
+    try:
+        line = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.splitlines()[0]
+        name, limit = (x.strip() for x in line.rsplit(",", 1))
+    except (OSError, subprocess.CalledProcessError, IndexError, ValueError):
+        name, limit = torch.cuda.get_device_name(0), "not read"
+    return {"name": name, "power_limit": limit}
+
+
+def run_config(args) -> Dict:
+    """The history record's `config`, bench.py:288-293's keys."""
+    return {"batch": args.batch, "compute_dtype": args.compute_dtype,
+            "hash_layout": args.hash_layout,
+            "samples_per_ray": args.samples_per_ray,
+            "sv_intervals": args.sv_intervals, "num_chips": args.num_chips}
+
+
+def record_history(out: Dict, config: Dict, card: Dict[str, str], log,
+                   path: str = HISTORY) -> Optional[float]:
+    """Append the record `out` with its `config`, `card` and time to the
+    history file at `path` (bench.py:280-311), and log its throughput
+    against the best record at the same config on a card of the same
+    name, warning past a REGRESSION_PCT regression. Returns the change in
+    percent, None when no such record was there."""
+    rec = dict(out, config=config, card=card,
+               time=time.strftime("%Y-%m-%dT%H:%M:%S"))
+    best = None
+    try:
+        with open(path) as f:
+            for line in f:
+                h = json.loads(line)
+                if (h.get("config") == config
+                        and h.get("card", {}).get("name") == card["name"]):
+                    v = h.get("value", 0)
+                    best = v if best is None else max(best, v)
+    except FileNotFoundError:
+        pass
+    with open(path, "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    if not best:
+        return None
+    delta = (out["value"] - best) / best * 100
+    log(f"throughput vs best recorded at this config on {card['name']}: "
+        f"{delta:+.1f}%")
+    if delta < -REGRESSION_PCT:
+        log(f"WARNING: >{REGRESSION_PCT:.0f}% throughput regression vs best "
+            f"({best:,.0f})")
+    return delta
 
 
 def parse_args(argv=None):
@@ -293,6 +360,7 @@ def main(argv=None):
         log(f"kernel launches in this run: {json.dumps(kernels.counts())}")
         if rank0:
             print(json.dumps(out), flush=True)
+            record_history(out, run_config(args), card_info(), log)
         return
 
     log(f"training to step {TOTAL_STEPS} for the quality gates")
@@ -332,6 +400,7 @@ def main(argv=None):
 
     # the record first, so that a failed gate cannot hide the measurement
     print(json.dumps(out), flush=True)
+    record_history(out, run_config(args), card_info(), log)
     fails = gate_failures(out)
     for f in fails:
         log(f)

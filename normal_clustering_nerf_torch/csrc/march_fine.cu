@@ -44,11 +44,25 @@
 // writes the first K occupied steps and the cursor just past the K-th, or
 // past the window when fewer were found.
 //
-// H11 `compact_samples`: given (N, S) t, dt and valid, each ray's count
-// and the exclusive scan of the counts (torch.sum / torch.cumsum in the
-// wrapper), a warp per ray writes its valid samples ray-major from its
-// start, dropping those at or past the budget B, and the grid pads the
-// slots after the last sample (ray N-1, t = dt = 0, invalid).
+// H11 `compact_samples`: (N, S) t, dt and valid into B ray-major slots in
+// one launch, a thread a ray: each counts its row's valid steps (16-byte
+// loads of the rows where they are 16-byte aligned), the block scans its
+// 64 counts, and the blocks chain their prefixes by a single-pass scan
+// with decoupled look-back (each publishes its aggregate, then its
+// inclusive prefix, in one status word a block; a ticket gives the blocks
+// their order, so a block waits only on blocks that already run). The
+// valid samples then go to the slots from each ray's start, dropping
+// those at or past B, with the ray's start and kept count: for rows of at
+// most 32 steps (the training march's) the row is a bit mask and its t
+// and dt, loaded before the scan, go in slot order into shared memory, from
+// which a warp writes its 32 rays' slots a slot a lane (coalesced); longer
+// rows (test rounds' windows) a ray at a time by its warp, 32 steps a lane. The blocks after the ray
+// blocks wait for the last ray block's prefix, the total, and pad the
+// slots after the last sample (ray N-1, t = dt = 0, invalid). The ticket
+// and the status words live in a buffer kept for the device, zeroed once:
+// each call is an epoch, counted in the ticket's word and written into its
+// status words, so that a former call's words read as unpublished and the
+// next call, or a CUDA graph's next replay, needs no memset.
 //
 // Scenes past scale 0.5 (several cascades, exp_step_factor 1/256): each
 // kernel body is a template on its step grid. `Uniform` is the grid of
@@ -430,48 +444,319 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_test_kernel(
     cursor_out[n] = st.t(line, found >= K ? last_k + 1 : S);
 }
 
-__global__ void __launch_bounds__(WARPS * 32) compact_kernel(
-    const float* __restrict__ tg, const float* __restrict__ dtg,
-    const uint8_t* __restrict__ include, const int* __restrict__ count,
-    const int* __restrict__ start, int N, int S, int B,
-    int* __restrict__ ray_id, float* __restrict__ t_out,
-    float* __restrict__ dt_out, uint8_t* __restrict__ valid_out,
-    int* __restrict__ ray_start, int* __restrict__ ray_count) {
-  const int lane = threadIdx.x & 31;
-  const int n = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  if (n < N) {
-    const int st = start[n], cnt = count[n];
-    if (lane == 0) {
-      ray_start[n] = min(st, B);
-      ray_count[n] = max(min(B - st, cnt), 0);
-    }
-    const size_t row = static_cast<size_t>(n) * S;
-    int seen = 0;
-    for (int j = 0; 32 * j < S && seen < cnt && st + seen < B; ++j) {
-      const int s = 32 * j + lane;
-      const bool v = s < S && include[row + s];
-      const unsigned m = __ballot_sync(FULL, v);
-      const int pos = st + seen + __popc(m & lanes_below());
-      if (v && pos < B) {
-        ray_id[pos] = n;
-        t_out[pos] = tg[row + s];
-        dt_out[pos] = dtg[row + s];
-        valid_out[pos] = 1;
+// H11: a ray a thread, COMPACT_THREADS rays a block
+constexpr int COMPACT_THREADS = 64;
+constexpr int COMPACT_WARPS = COMPACT_THREADS / 32;
+constexpr int NARROW_S = 32;   // rows of at most this many steps: a mask a ray
+// the slots a padding thread writes
+constexpr int PAD_PER_THREAD = 8;
+// A look-back status word: the call's epoch (30 bits), a flag (2 bits) and
+// the value (32 bits). A word of another epoch, a former call's, reads as
+// not yet published, so the words need no zeroing between calls.
+constexpr unsigned long long HAS_AGGREGATE = 1ull << 32;
+constexpr unsigned long long HAS_PREFIX = 2ull << 32;
+constexpr int EPOCH_SHIFT = 34;
+
+// the flag of word w if it is of epoch tag `tag`, else 0
+__device__ __forceinline__ unsigned flag_of(unsigned long long w,
+                                            unsigned long long tag) {
+  return (w >> EPOCH_SHIFT) == (tag >> EPOCH_SHIFT)
+             ? static_cast<unsigned>(w >> 32) & 3u : 0u;
+}
+
+__device__ __forceinline__ unsigned long long load_status(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void store_status(unsigned long long* p,
+                                             unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+// steps [c, c + 16) of a row of `include` as 4 words, a byte a step;
+// bytes at or past S read as 0. VEC: one 16-byte load (S % 16 == 0, the
+// rows 16-byte aligned).
+template <bool VEC>
+__device__ __forceinline__ void row_chunk(const uint8_t* __restrict__ row,
+                                          int c, int S, unsigned (&w)[4]) {
+  if constexpr (VEC) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + c));
+    w[0] = u.x; w[1] = u.y; w[2] = u.z; w[3] = u.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      unsigned v = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int s = c + 4 * q + b;
+        if (s < S) v |= static_cast<unsigned>(__ldg(row + s)) << (8 * b);
       }
-      seen += __popc(m);
+      w[q] = v;
     }
   }
-  // padding after the last kept sample
-  const long long total = static_cast<long long>(start[N - 1]) + count[N - 1];
-  const int first_pad = static_cast<int>(min(total, static_cast<long long>(B)));
-  const int stride = gridDim.x * blockDim.x;
-  for (int b = first_pad + blockIdx.x * blockDim.x + threadIdx.x; b < B;
-       b += stride) {
+}
+
+// bit i set where step c + i of the chunk is included (16 bits)
+__device__ __forceinline__ unsigned chunk_mask(const unsigned (&w)[4]) {
+  unsigned m = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const unsigned x = __vcmpne4(w[q], 0u) & 0x80808080u;   // a byte's top bit
+    m |= ((x >> 7 | x >> 14 | x >> 21 | x >> 28) & 15u) << (4 * q);
+  }
+  return m;
+}
+
+// steps [c, c + 16) of a row of t or dt, issued together (VEC: four
+// 16-byte loads); values at or past S read as 0
+template <bool VEC>
+__device__ __forceinline__ void value_chunk(const float* __restrict__ row,
+                                            int c, int S, float* v) {
+  if constexpr (VEC) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 u = __ldg(reinterpret_cast<const float4*>(row + c) + q);
+      v[4 * q] = u.x; v[4 * q + 1] = u.y; v[4 * q + 2] = u.z;
+      v[4 * q + 3] = u.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) v[i] = c + i < S ? __ldg(row + c + i) : 0.0f;
+  }
+}
+
+// The block's prefix (the counts of the blocks before it) by decoupled
+// look-back, on warp 0: publish the aggregate, sum the predecessors'
+// aggregates back to the nearest inclusive prefix, 32 at a time, and
+// publish the inclusive prefix.
+__device__ __forceinline__ int look_back(unsigned long long* status,
+                                         unsigned long long tag, int tile,
+                                         int agg, int lane) {
+  if (tile == 0) {
+    if (lane == 0)
+      store_status(status, tag | HAS_PREFIX | static_cast<unsigned>(agg));
+    return 0;
+  }
+  if (lane == 0)
+    store_status(status + tile,
+                 tag | HAS_AGGREGATE | static_cast<unsigned>(agg));
+  int prefix = 0;
+  for (int look = tile - 1;; look -= 32) {
+    const int idx = look - lane;
+    unsigned long long w =
+        idx >= 0 ? load_status(status + idx) : tag | HAS_PREFIX;
+    while (__any_sync(FULL, flag_of(w, tag) == 0))
+      if (flag_of(w, tag) == 0) w = load_status(status + idx);
+    const unsigned pre = __ballot_sync(FULL, flag_of(w, tag) == 2);
+    const int stop = pre ? __ffs(pre) - 1 : 31;   // nearest prefix's lane
+    int v = lane <= stop ? static_cast<int>(w & 0xffffffffu) : 0;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+    prefix += v;
+    if (pre) break;
+  }
+  if (lane == 0)
+    store_status(status + tile,
+                 tag | HAS_PREFIX | static_cast<unsigned>(prefix + agg));
+  return prefix;
+}
+
+// Padding block p (of n_pad after the ray blocks): the slots from the
+// total, the last ray block's inclusive prefix, to B.
+__device__ __forceinline__ void pad_slots(
+    const unsigned long long* status, unsigned long long tag, int n_tiles,
+    int p, int n_pad, int N, int B, int* __restrict__ ray_id,
+    float* __restrict__ t_out, float* __restrict__ dt_out,
+    uint8_t* __restrict__ valid_out) {
+  __shared__ int s_total;
+  if (threadIdx.x == 0) {
+    unsigned long long w;
+    do w = load_status(status + n_tiles - 1); while (flag_of(w, tag) != 2);
+    s_total = static_cast<int>(w & 0xffffffffu);
+  }
+  __syncthreads();
+  for (int b = min(s_total, B) + p * COMPACT_THREADS + threadIdx.x; b < B;
+       b += n_pad * COMPACT_THREADS) {
     ray_id[b] = N - 1;
     t_out[b] = 0.0f;
     dt_out[b] = 0.0f;
     valid_out[b] = 0;
   }
+}
+
+// Ray block `tile`: the counts, the scan, and the samples' slots. WIDE:
+// rows of more than NARROW_S steps; each warp writes its rays' samples a ray
+// at a time (coalesced along the ray). Else each ray's row is a 32-bit mask
+// with its t and dt in registers; each lane puts its ray's samples in their
+// order into the warp's stretch of shared memory, and the warp copies the
+// stretch to its slots a slot a lane: coalesced stores.
+template <bool VEC, bool WIDE>
+__device__ __forceinline__ void compact_rays(
+    const float* __restrict__ tg, const float* __restrict__ dtg,
+    const uint8_t* __restrict__ include, int N, int S, int B, int n_tiles,
+    int tile, unsigned long long* status, unsigned long long tag,
+    int* __restrict__ ray_id, float* __restrict__ t_out,
+    float* __restrict__ dt_out,
+    uint8_t* __restrict__ valid_out, int* __restrict__ ray_start,
+    int* __restrict__ ray_count, int* __restrict__ rm_out) {
+  __shared__ int s_prefix, s_warp[COMPACT_WARPS];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n = tile * COMPACT_THREADS + tid;
+  const size_t base = static_cast<size_t>(n) * S;
+  const uint8_t* row = include + base;
+  // the count, and (narrow rows) the row's t and dt, all loads issued
+  // together before the scan so that their latency overlaps it
+  int cnt = 0;
+  unsigned mask = 0;
+  float tv[WIDE ? 1 : NARROW_S], dtv[WIDE ? 1 : NARROW_S];
+  if (n < N) {
+    if constexpr (!WIDE) {
+#pragma unroll
+      for (int c = 0; c < NARROW_S; c += 16) {   // constant c: registers
+        if (c < S) {
+          value_chunk<VEC>(tg + base, c, S, tv + c);
+          value_chunk<VEC>(dtg + base, c, S, dtv + c);
+        }
+      }
+    }
+    for (int c = 0; c < S; c += 16) {
+      unsigned w[4];
+      row_chunk<VEC>(row, c, S, w);
+      const unsigned m = chunk_mask(w);
+      if constexpr (WIDE)
+        cnt += __popc(m);
+      else
+        mask |= m << c;
+    }
+    if constexpr (!WIDE) cnt = __popc(mask);
+  }
+  // the block's exclusive scan of the counts
+  int x = cnt;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) s_warp[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int v = lane < COMPACT_WARPS ? s_warp[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < COMPACT_WARPS; o <<= 1) {
+      const int y = __shfl_up_sync(FULL, v, o);
+      if (lane >= o) v += y;
+    }
+    const int agg = __shfl_sync(FULL, v, COMPACT_WARPS - 1);
+    const int prefix = look_back(status, tag, tile, agg, lane);
+    if (lane < COMPACT_WARPS) s_warp[lane] = v;
+    if (lane == 0) {
+      s_prefix = prefix;
+      if (tile == n_tiles - 1) *rm_out = prefix + agg;
+    }
+  }
+  __syncthreads();
+  const int st = s_prefix + (warp ? s_warp[warp - 1] : 0) + x - cnt;
+  if (n < N) {
+    ray_start[n] = min(st, B);
+    ray_count[n] = max(min(B - st, cnt), 0);
+  }
+
+  if constexpr (WIDE) {
+    // the warp takes its 32 rays in turn, 32 steps a lane at a time: each
+    // step's rank by a ballot, the stores coalesced along the ray
+    const int ray0 = tile * COMPACT_THREADS + warp * 32;
+    for (int r = 0; r < 32 && ray0 + r < N; ++r) {
+      const int r_st = __shfl_sync(FULL, st, r);
+      const int r_end = min(r_st + __shfl_sync(FULL, cnt, r), B);
+      const size_t r_base = static_cast<size_t>(ray0 + r) * S;
+      int pos = r_st;
+#pragma unroll 2
+      for (int s0 = 0; s0 < S && pos < r_end; s0 += 32) {
+        const int s = s0 + lane;
+        const bool in = s < S;
+        const bool v = in && include[r_base + s];
+        const float t = in ? tg[r_base + s] : 0.0f;
+        const float dt = in ? dtg[r_base + s] : 0.0f;
+        const unsigned m = __ballot_sync(FULL, v);
+        const int q = pos + __popc(m & lanes_below());
+        if (v && q < r_end) {
+          ray_id[q] = ray0 + r;
+          t_out[q] = t;
+          dt_out[q] = dt;
+          valid_out[q] = 1;
+        }
+        pos += __popc(m);
+      }
+    }
+  } else {
+    // the warp's samples in slot order in shared memory (each lane its own
+    // ray's, from registers), then copied out a slot a lane
+    constexpr int WARP_SLOTS = 32 * NARROW_S;
+    __shared__ float s_t[COMPACT_WARPS][WARP_SLOTS];
+    __shared__ float s_dt[COMPACT_WARPS][WARP_SLOTS];
+    __shared__ uint8_t s_lane[COMPACT_WARPS][WARP_SLOTS];
+    const int first = __shfl_sync(FULL, st, 0);
+    const int total = __shfl_sync(FULL, st + cnt, 31) - first;
+    int pos = st - first;
+#pragma unroll
+    for (int s = 0; s < NARROW_S; ++s) {   // constant s: registers
+      if ((mask >> s) & 1u) {
+        s_t[warp][pos] = tv[s];
+        s_dt[warp][pos] = dtv[s];
+        s_lane[warp][pos] = static_cast<uint8_t>(lane);
+        ++pos;
+      }
+    }
+    __syncwarp();
+    const int ray0 = tile * COMPACT_THREADS + warp * 32;
+    const int count = min(total, B - first);
+#pragma unroll 4
+    for (int i = lane; i < count; i += 32) {
+      const int q = first + i;
+      ray_id[q] = ray0 + s_lane[warp][i];
+      t_out[q] = s_t[warp][i];
+      dt_out[q] = s_dt[warp][i];
+      valid_out[q] = 1;
+    }
+  }
+}
+
+// The ray blocks, then the padding blocks, in the order of their tickets.
+// work: [the epoch (high half) and the ticket (low half), a status word a
+// ray block]. The block that takes the call's last ticket starts the next
+// epoch at ticket 0.
+template <bool VEC, bool WIDE>
+__global__ void __launch_bounds__(COMPACT_THREADS) compact_kernel(
+    const float* __restrict__ tg, const float* __restrict__ dtg,
+    const uint8_t* __restrict__ include, int N, int S, int B, int n_tiles,
+    unsigned long long* __restrict__ work, int* __restrict__ ray_id,
+    float* __restrict__ t_out, float* __restrict__ dt_out,
+    uint8_t* __restrict__ valid_out, int* __restrict__ ray_start,
+    int* __restrict__ ray_count, int* __restrict__ rm_out) {
+  __shared__ unsigned long long s_ticket;
+  unsigned long long* status = work + 1;
+  if (threadIdx.x == 0) {
+    const unsigned long long t = atomicAdd(work, 1ull);
+    if (static_cast<unsigned>(t) == gridDim.x - 1)
+      atomicExch(work, ((t >> 32) + 1) << 32);
+    s_ticket = t;
+  }
+  __syncthreads();
+  const int tile = static_cast<int>(static_cast<unsigned>(s_ticket));
+  const unsigned long long tag =
+      ((s_ticket >> 32) & ((1ull << (64 - EPOCH_SHIFT)) - 1)) << EPOCH_SHIFT;
+  if (tile >= n_tiles)
+    pad_slots(status, tag, n_tiles, tile - n_tiles, gridDim.x - n_tiles, N,
+              B, ray_id, t_out, dt_out, valid_out);
+  else
+    compact_rays<VEC, WIDE>(tg, dtg, include, N, S, B, n_tiles, tile, status,
+                            tag, ray_id, t_out, dt_out, valid_out, ray_start,
+                            ray_count, rm_out);
 }
 
 template <bool COARSE, bool SHORT, class Steps>
@@ -574,18 +859,33 @@ extern "C" int march_fine_test_round(const void* rays_o, const void* rays_d,
   return static_cast<int>(cudaGetLastError());
 }
 
+// work: at least 1 + ceil(N / COMPACT_THREADS) 64-bit words (the epoch and
+// ticket, a status word a ray block), zeroed once: a buffer kept for the
+// device, whose calls must be ordered on one stream. The rm_out int is the
+// included samples before the budget cut.
 extern "C" int compact_samples(const void* tg, const void* dtg,
-                               const void* include, const void* count,
-                               const void* start, int N, int S, int B,
-                               void* ray_id, void* t_out, void* dt_out,
-                               void* valid_out, void* ray_start,
-                               void* ray_count, cudaStream_t stream) {
-  compact_kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
+                               const void* include, int N, int S, int B,
+                               void* work, void* ray_id, void* t_out,
+                               void* dt_out, void* valid_out, void* ray_start,
+                               void* ray_count, void* rm_out,
+                               cudaStream_t stream) {
+  if (N < 1 || S < 0 || B < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int n_tiles = ncn_blocks(N, COMPACT_THREADS);
+  const int n_pad = ncn_blocks(B, COMPACT_THREADS * PAD_PER_THREAD);
+  const bool vec = S % 16 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(include) |
+                     reinterpret_cast<uintptr_t>(tg) |
+                     reinterpret_cast<uintptr_t>(dtg)) & 15) == 0;
+  auto kernel = S > NARROW_S ? (vec ? compact_kernel<true, true>
+                                     : compact_kernel<false, true>)
+                             : (vec ? compact_kernel<true, false>
+                                    : compact_kernel<false, false>);
+  kernel<<<n_tiles + n_pad, COMPACT_THREADS, 0, stream>>>(
       static_cast<const float*>(tg), static_cast<const float*>(dtg),
-      static_cast<const uint8_t*>(include), static_cast<const int*>(count),
-      static_cast<const int*>(start), N, S, B, static_cast<int*>(ray_id),
+      static_cast<const uint8_t*>(include), N, S, B, n_tiles,
+      static_cast<unsigned long long*>(work), static_cast<int*>(ray_id),
       static_cast<float*>(t_out), static_cast<float*>(dt_out),
       static_cast<uint8_t*>(valid_out), static_cast<int*>(ray_start),
-      static_cast<int*>(ray_count));
+      static_cast<int*>(ray_count), static_cast<int*>(rm_out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -78,3 +78,60 @@ def axisangle_to_R(v: torch.Tensor) -> torch.Tensor:
     R = (eye + (torch.sin(norm) / norm) * skew
          + ((1 - torch.cos(norm)) / norm ** 2) * (skew @ skew))
     return R[0] if single else R
+
+
+# ------------------------------------------------------ numpy pose helpers
+def normalize_np(v):
+    return v / np.linalg.norm(v)
+
+
+def average_poses(poses, pts3d=None):
+    """The average pose (3, 4) of (N, 3, 4) poses, for centring: the
+    centre of the points `pts3d` (or of the cameras), the mean z axis, and
+    x, y made orthogonal to it (reference: ray_utils.py:109-148)."""
+    center = pts3d.mean(0) if pts3d is not None else poses[..., 3].mean(0)
+    z = normalize_np(poses[..., 2].mean(0))
+    y_ = poses[..., 1].mean(0)
+    x = normalize_np(np.cross(y_, z))
+    y = np.cross(z, x)
+    return np.stack([x, y, z, center], 1)
+
+
+def center_poses(poses, pts3d=None):
+    """The poses in the frame of their average pose, and the points
+    `pts3d` too when given (reference: ray_utils.py:151-179)."""
+    pose_avg = average_poses(poses, pts3d)
+    pose_avg_homo = np.eye(4)
+    pose_avg_homo[:3] = pose_avg
+    inv = np.linalg.inv(pose_avg_homo)
+    last = np.tile(np.array([0, 0, 0, 1.0]), (len(poses), 1, 1))
+    homo = np.concatenate([poses, last], 1)
+    centered = (inv @ homo)[:, :3]
+    if pts3d is not None:
+        pts = pts3d @ inv[:3, :3].T + inv[:3, 3]
+        return centered, pts
+    return centered
+
+
+def create_spheric_poses(radius, mean_h, n_poses=120):
+    """`n_poses` (3, 4) poses on a circle of `radius` around z at height
+    2 * mean_h, looking 15 degrees down (reference: ray_utils.py:181-216)."""
+    def spheric_pose(theta, phi, r):
+        trans = np.array([[1, 0, 0, 0], [0, 1, 0, 2 * mean_h], [0, 0, 1, -r]])
+        rot_phi = np.array([
+            [1, 0, 0],
+            [0, np.cos(phi), -np.sin(phi)],
+            [0, np.sin(phi), np.cos(phi)],
+        ])
+        rot_theta = np.array([
+            [np.cos(theta), 0, -np.sin(theta)],
+            [0, 1, 0],
+            [np.sin(theta), 0, np.cos(theta)],
+        ])
+        c2w = rot_theta @ rot_phi @ trans
+        return np.array([[-1, 0, 0], [0, 0, 1], [0, 1, 0]]) @ c2w
+
+    return np.stack([
+        spheric_pose(th, -np.pi / 12, radius)
+        for th in np.linspace(0, 2 * np.pi, n_poses + 1)[:-1]
+    ])

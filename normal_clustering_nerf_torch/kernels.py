@@ -201,7 +201,37 @@ MARCH_FINE_TRAIN = Kernel("march_fine_train", "march_fine.cu",
 MARCH_FINE_TEST = Kernel("march_fine_test_round", "march_fine.cu",
                          [P] * 6 + [I] * 4 + STEP_GRID + [P] * 4)
 COMPACT = Kernel("compact_samples", "march_fine.cu",
-                 [P] * 5 + [I] * 3 + [P] * 6)
+                 [P] * 3 + [I] * 3 + [P] * 8)
+COMPACT_RAYS = 64   # H11's rays a block: COMPACT_THREADS of march_fine.cu
+COMPACT_MIN_WORDS = 4096   # H11's first buffer: up to 262,080 rays
+_compact_work: Dict[torch.device, torch.Tensor] = {}
+_compact_retired: List[torch.Tensor] = []
+
+
+def compact_words(n_rays: int) -> int:
+    """64-bit words H11 uses for `n_rays` rays: the epoch and ticket, and
+    the look-back status word of each block of COMPACT_RAYS rays."""
+    return 1 + -(-n_rays // COMPACT_RAYS)
+
+
+def compact_workspace(n_rays: int, device: torch.device) -> torch.Tensor:
+    """H11's work buffer on `device`: one buffer a device, allocated zeroed
+    at its first use and kept for the process (each call is an epoch of
+    it, so no call zeroes it again; a CUDA graph's replays use the buffer
+    its capture saw, and a larger one replaces it for later calls, the old
+    one kept). H11's calls on one device must follow each other on the
+    stream."""
+    need = compact_words(n_rays)
+    buf = _compact_work.get(device)
+    if buf is None or buf.numel() < need:
+        if buf is not None:
+            _compact_retired.append(buf)
+        buf = torch.zeros(max(need, COMPACT_MIN_WORDS), dtype=torch.int64,
+                          device=device)
+        _compact_work[device] = buf
+    return buf
+
+
 COMPOSITE_SEG_FWD = Kernel("composite_seg_fwd", "composite.cu",
                            [P] * 8 + [I] * 2 + [F] + [P] * 5)
 COMPOSITE_SEG_BWD = Kernel("composite_seg_bwd", "composite.cu",

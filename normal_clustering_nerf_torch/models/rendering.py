@@ -32,7 +32,7 @@ from ..datasets.normals import normalize
 from ..ops.composite import composite_rays, composite_rays_compact
 from ..ops.ray_aabb import ray_aabb_intersect
 from ..ops.ray_march import (
-    march_rays_test_round, march_rays_test_round_sv,
+    flat_cap, march_rays_test_round, march_rays_test_round_sv,
     march_rays_test_round_window, march_rays_train,
     march_rays_train_bootstrap, march_rays_train_dense,
     march_rays_train_dense_sv,
@@ -169,8 +169,12 @@ def uses_sv(cfg, rcfg: RenderConfig, occ) -> bool:
 
 
 def train_march_kind(cfg, rcfg: RenderConfig, occ, bootstrap: bool) -> str:
-    """The dense layout's training march (rendering.py:163-196):
+    """The training march (rendering.py:163-196, 248-249): "flat" (H9 at
+    the per-ray cap and H11) for the flat layout, whatever `bootstrap`
+    is, as the JAX flat branch ignores it; in the dense layout
     "bootstrap" (H1), "sv" (K1) or "fine" (H9, the bitfield march)."""
+    if rcfg.march_layout == "flat":
+        return "flat"
     if bootstrap:
         return "bootstrap"
     return "sv" if uses_sv(cfg, rcfg, occ) else "fine"
@@ -324,9 +328,12 @@ def _render_train_flat(model, occ, rays_o, rays_d, rcfg, hits_t, noise, bg,
     xyz = rays_o[rid] + mr.t[:, None] * rays_d[rid]
     t = march_t(mr.t, mr.valid, hits_t, rid)
     sigmas, raws = field_raws(model, xyz, rays_d[rid])
-    comp = composite_rays_compact(sigmas, raws, mr.dt, t, mr.ray_id,
-                                  mr.ray_start, mr.valid, N, rcfg.T_threshold,
-                                  ray_count=mr.ray_count)
+    # no segment is longer than the march's cap: the backward's bound,
+    # known on the host, so that the step reads no count from the card
+    comp = composite_rays_compact(
+        sigmas, raws, mr.dt, t, mr.ray_id, mr.ray_start, mr.valid, N,
+        rcfg.T_threshold, ray_count=mr.ray_count,
+        max_len=flat_cap(cfg.max_samples, kw["samples_per_ray"]))
     results = {
         "opacity": comp["opacity"],
         "depth": comp["depth"],

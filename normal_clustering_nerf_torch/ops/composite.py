@@ -255,7 +255,8 @@ def composite_compact_grad_kernel(sigmas, raws, deltas, ts, ray_start,
                                   g_depth, g_rend, g_ws, max_len=None):
     """`max_len` bounds the segments (the backward takes a ray on at most
     32 lanes, a lane a sample, and sizes its lane groups by `max_len`);
-    None reads it from `ray_count` (a host sync)."""
+    None reads it from `ray_count` (a host sync, which a CUDA graph's
+    capture refuses)."""
     B, N, C, args, seg = _check_compact(sigmas, raws, deltas, ts, ray_start,
                                         ray_count, valid)
     if max_len is None:
@@ -280,7 +281,7 @@ def composite_compact_grad_kernel(sigmas, raws, deltas, ts, ray_start,
 class CompositeRaysCompact(torch.autograd.Function):
     @staticmethod
     def forward(ctx, sigmas, raws, deltas, ts, ray_id, ray_start, ray_count,
-                valid, T_threshold):
+                valid, T_threshold, max_len):
         N = ray_start.shape[0]
         if sigmas.is_cuda:
             out = composite_compact_kernel(sigmas, raws, deltas, ts,
@@ -291,7 +292,7 @@ class CompositeRaysCompact(torch.autograd.Function):
                                           ray_start, valid, N, T_threshold)
         ctx.save_for_backward(sigmas, raws, deltas, ts, ray_id, ray_start,
                               ray_count, valid, out[3])
-        ctx.T_threshold = T_threshold
+        ctx.T_threshold, ctx.max_len = T_threshold, max_len
         ctx.mark_non_differentiable(out[4])
         return out
 
@@ -312,23 +313,26 @@ class CompositeRaysCompact(torch.autograd.Function):
         if sigmas.is_cuda:
             d_sigmas, d_raws = composite_compact_grad_kernel(
                 sigmas, raws, deltas, ts, ray_start, ray_count, valid,
-                ctx.T_threshold, *gs)
+                ctx.T_threshold, *gs, max_len=ctx.max_len)
         else:
             d_sigmas, d_raws = composite_compact_grad_plain(
                 sigmas, raws, deltas, ts, ray_id, ray_start, valid, N,
                 ctx.T_threshold, *gs)
         return (d_sigmas, d_raws, None, _d_ts(ctx, g_depth, ws, ray_id),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def composite_rays_compact(sigmas, raws, deltas, ts, ray_id, ray_start,
                            valid, n_rays, T_threshold=1e-4, T_start=None, *,
-                           ray_count) -> Dict[str, torch.Tensor]:
+                           ray_count, max_len=None
+                           ) -> Dict[str, torch.Tensor]:
     """Composite flat ray-major sample segments (the JAX
     `composite_rays_compact`): ray n's samples are the budget slots
     [ray_start[n], ray_start[n] + ray_count[n]), in order (`ray_count`,
     which the kernel reads, is the march's; the plain version finds the
-    segments from `ray_id`).
+    segments from `ray_id`). `max_len`, a bound on the segments that the
+    caller knows (the march's cap), spares the backward on the card its
+    read of the longest one (`composite_compact_grad_kernel`).
 
     sigmas, deltas, ts: (B,) f32; raws: (B, C) f32; ray_id: (B,) int32;
     ray_start, ray_count: (N,) int32; valid: (B,) bool; T_start: optional
@@ -343,7 +347,8 @@ def composite_rays_compact(sigmas, raws, deltas, ts, ray_id, ray_start,
             ts.contiguous(), ray_id.contiguous(), ray_start.contiguous(),
             ray_count.contiguous(), valid.contiguous(), float(T_threshold))
     if T_start is None:
-        opacity, depth, rend, ws, vr = CompositeRaysCompact.apply(*args)
+        opacity, depth, rend, ws, vr = CompositeRaysCompact.apply(*args,
+                                                                  max_len)
     else:
         if torch.is_grad_enabled() and (sigmas.requires_grad
                                         or raws.requires_grad):

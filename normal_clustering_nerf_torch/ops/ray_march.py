@@ -628,23 +628,19 @@ def _compact_kernel(include, tg, dtg, budget: int) -> MarchResult:
     args = [kernels.check(tg, "tg", f32, (N, S), dev),
             kernels.check(dtg, "dtg", f32, (N, S), dev),
             kernels.check(include, "include", torch.bool, (N, S), dev)]
-    # the per-ray counts and their scan (ray-major slot of each ray's first
-    # sample before the budget cut)
-    count = include.sum(-1, dtype=i32)
-    end = torch.cumsum(count, 0, dtype=i32)
-    start = end - count
     out = MarchResult(torch.empty(B, dtype=i32, device=dev),
                       torch.empty(B, dtype=f32, device=dev),
                       torch.empty(B, dtype=f32, device=dev),
                       torch.empty(B, dtype=torch.bool, device=dev),
                       torch.empty(N, dtype=i32, device=dev),
                       torch.empty(N, dtype=i32, device=dev),
-                      end[-1] if N else torch.zeros((), dtype=i32,
-                                                    device=dev))
-    if N > 0 and B > 0:
-        kernels.COMPACT.launch(
-            *args, kernels.ptr(count), kernels.ptr(start), N, S, B,
-            *map(kernels.ptr, out[:6]), device=dev)
+                      torch.empty((), dtype=i32, device=dev))
+    if N == 0:
+        return out._replace(rm_samples=torch.zeros((), dtype=i32,
+                                                   device=dev))
+    kernels.COMPACT.launch(*args, N, S, B,
+                           kernels.ptr(kernels.compact_workspace(N, dev)),
+                           *map(kernels.ptr, out), device=dev)
     return out
 
 
@@ -653,9 +649,16 @@ def compact_samples(include, tg, dtg, budget: int) -> MarchResult:
     flat ray-major budget of B slots (the JAX `compact_samples`): samples
     past B are dropped (`rm_samples` counts them all, `ray_count` only
     those kept), `ray_start` is the exclusive scan of `ray_count`, and
-    padding slots take ray N-1, t = dt = 0, invalid. Kernel H11."""
+    padding slots take ray N-1, t = dt = 0, invalid. Kernel H11: one
+    launch, the counts' scan included."""
     fn = _compact_kernel if include.is_cuda else compact_samples_plain
     return fn(include, tg, dtg, budget)
+
+
+def flat_cap(max_samples: int, per_ray_cap: int = 0) -> int:
+    """The flat march's samples a ray at most: the dense march's K,
+    min(max_samples, per_ray_cap), or max_samples when no cap is set."""
+    return min(max_samples, per_ray_cap) if per_ray_cap else max_samples
 
 
 def march_rays_train(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
@@ -666,7 +669,7 @@ def march_rays_train(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
     JAX `march_rays_train`, the flat training oracle): the dense march
     (H9) at K = min(max_samples, per_ray_cap), whose sample set is the
     flat march's (ray_march.py:421-423), then `compact_samples` (H11)."""
-    cap = min(max_samples, per_ray_cap) if per_ray_cap else max_samples
+    cap = flat_cap(max_samples, per_ray_cap)
     mr = march_rays_train_dense(
         rays_o, rays_d, hits_t, bitfield, noise, cascades=cascades,
         scale=scale, exp_step_factor=exp_step_factor, grid_size=grid_size,

@@ -594,10 +594,10 @@ class Trainer:
         to whether this step is before `render.bootstrap_steps`. On the
         card, each march's first GRAPH_WARMUP steps run eagerly on a side
         stream; its next step is captured as a CUDA graph and every step
-        after is a replay of it, with nothing on the host between replays.
-        The flat layout reads its segments' widths on the host and runs
-        eager steps, and so does a gloo axis, whose all-reduce runs on the
-        host. On the CPU the same body runs eagerly. Returns the
+        after is a replay of it, with nothing on the host between replays
+        (the flat layout's step too, as the kind "flat"). A gloo axis,
+        whose all-reduce runs on the host, runs eager steps. On the CPU
+        the same body runs eagerly. Returns the
         last step's metrics (tensors; on the card a graph's own, which its
         next replay overwrites)."""
         if bootstrap is None:
@@ -607,10 +607,7 @@ class Trainer:
         on_card = self.device.type == "cuda"
         if self.host_feed is not None:
             self.host_feed.load(n)
-        why = ("flat march layout: eager steps, not a CUDA graph (its "
-               "segment widths are read on the host)"
-               if self.cfg.render.march_layout == "flat" else
-               f"{self.axis.backend} axis: eager steps, not a CUDA graph "
+        why = (f"{self.axis.backend} axis: eager steps, not a CUDA graph "
                "(its all-reduce runs on the host)"
                if self.axis is not None and self.axis.backend != "nccl"
                else None)

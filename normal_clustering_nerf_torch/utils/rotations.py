@@ -54,6 +54,41 @@ def matrix_to_euler_angles(R, convention: str = "ZYX"):
     return np.array([a, b, c])
 
 
+def matrix_to_quaternion(R):
+    """(3, 3) -> (w, x, y, z) unit quaternion: the trace form where the
+    trace is positive, else the form of the largest diagonal entry."""
+    R = np.asarray(R, np.float64)
+    t = np.trace(R)
+    if t > 0:
+        r = np.sqrt(1 + t)
+        w = 0.5 * r
+        x = (R[2, 1] - R[1, 2]) / (2 * r)
+        y = (R[0, 2] - R[2, 0]) / (2 * r)
+        z = (R[1, 0] - R[0, 1]) / (2 * r)
+    else:
+        i = int(np.argmax(np.diag(R)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        r = np.sqrt(1 + R[i, i] - R[j, j] - R[k, k])
+        q = np.empty(4)
+        q[0] = (R[k, j] - R[j, k]) / (2 * r)
+        q[i + 1] = 0.5 * r
+        q[j + 1] = (R[j, i] + R[i, j]) / (2 * r)
+        q[k + 1] = (R[k, i] + R[i, k]) / (2 * r)
+        w, x, y, z = q
+    q = np.array([w, x, y, z])
+    return q / np.linalg.norm(q)
+
+
+def quaternion_to_matrix(q):
+    """(w, x, y, z), normalised first -> (3, 3)."""
+    w, x, y, z = np.asarray(q, np.float64) / np.linalg.norm(q)
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+    ])
+
+
 def project_to_SO3(M):
     """Nearest rotation matrix by SVD (the reference round-trips through
     scipy's Rotation.from_matrix, train_nerf.py:512-513)."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Device time of the bootstrap march (H1), the dense compositing forward
-(H3) and the distortion loss's forward and backward (H4) as the main path
-calls them, and of one kernel node at its least.
+(H3), the distortion loss's forward and backward (H4) and the flat
+layout's compaction (H11) as the main path calls them, and of one kernel
+node at its least.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -16,16 +17,24 @@ calls that `models/rendering.py` makes: `march_rays_train_bootstrap` and
 render of the held-out views (the first round, with T_start); and those
 of `losses.distortion_loss_dense` in a bootstrap step, on which it calls
 `ops.distortion.distortion_kernel` and `distortion_grad_kernel` (the
-latter with a cotangent drawn from a seed). It times each captured call,
-the march on a full bitfield, and a one-element in-place add (the least
-time of one kernel node under this timing, the floor of the tiny
-kernels), under `torch.no_grad()`, each the mean of 20 replays of a CUDA
-graph of one call (`time_encodes.device_ms`). The calls go through the
-wrappers' public signatures, which every checkout of the port shares, so
-two checkouts compare in one call when the script runs in each in turns.
+latter with a cotangent drawn from a seed); and those of
+`ops.ray_march.compact_samples` in a flat-layout render of a bootstrap
+step's rays (`render_train` with march_layout "flat": the fine march at
+the per-ray cap into the bench's budget) and in the first round of a
+flat-layout render of the held-out views (the trainer's first
+`render_test` call again with test_layout "flat": the full window of
+test_n_samples steps into N x that). It times
+each captured call, the march on a full bitfield, and a one-element
+in-place add (the least time of one kernel node under this timing, the
+floor of the tiny kernels), under `torch.no_grad()`, each the mean of 20
+replays of a CUDA graph of one call (`time_encodes.device_ms`). The calls
+go through the wrappers' public signatures, which every checkout of the
+port shares, so two checkouts compare in one call when the script runs in
+each in turns.
 Prints the card's name and power limit, then one JSON line.
 """
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -75,7 +84,8 @@ def main():
     from normal_clustering_nerf_torch import losses
     from normal_clustering_nerf_torch.bench import bench_config, build_trainer
     from normal_clustering_nerf_torch.models import rendering
-    from normal_clustering_nerf_torch.ops import distortion
+    from normal_clustering_nerf_torch.ops import distortion, ray_march
+    from normal_clustering_nerf_torch.training import trainer
     tr = build_trainer(bench_config(), device="cuda")
     tr.mark_invisible_cells()
     tr.fit(1)
@@ -86,7 +96,19 @@ def main():
     with torch.no_grad():
         first = captured(rendering, "composite_rays",
                          lambda: tr.render_images(tr.scene_test.poses))
+        views, _ = captured(trainer, "render_test",
+                            lambda: tr.render_images(tr.scene_test.poses))
+        flat_test = dataclasses.replace(tr.cfg.render, test_layout="flat")
+        flat_round = captured(ray_march, "compact_samples",
+                              lambda: rendering.render_test(
+                                  *views[:4], flat_test))
     a, kw = march
+    flat = dataclasses.replace(tr.cfg.render, march_layout="flat")
+    with torch.no_grad():
+        compact = captured(ray_march, "compact_samples",
+                           lambda: rendering.render_train(
+                               tr.model, tr.occ, a[0], a[1], flat,
+                               global_step=tr.step))
     full = a[:3] + (torch.full_like(a[3], 255),) + a[4:]
     calls = {
         "march_bootstrap": (a, kw, rendering.march_rays_train_bootstrap),
@@ -100,6 +122,10 @@ def main():
         device="cuda").manual_seed(0))
     calls["distortion_fwd"] = (da, {}, distortion.distortion_kernel)
     calls["distortion_bwd"] = ((g,) + da, {}, distortion.distortion_grad_kernel)
+    calls["compact_samples, flat training march"] = compact + (
+        ray_march.compact_samples,)
+    calls["compact_samples, first flat test round"] = flat_round + (
+        ray_march.compact_samples,)
     one = torch.zeros(1, device="cuda")
     calls["one-element add (floor)"] = ((one, 1.0), {}, torch.Tensor.add_)
     out = {"package": os.path.dirname(package.__file__)}
