@@ -8,6 +8,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                            # with each field
     python3 chip_smoke.py --only distributed   # the distributed path alone
                                                # (NCCL with two or more cards)
+    python3 chip_smoke.py --only cascades      # check_cascades, the cascades
+                                               # path and its march times
 
 Phases (any failed check raises, so the script exits non-zero):
   1. build the kernels (`csrc/*.cu`, one nvcc per source, all at once);
@@ -59,8 +61,11 @@ Phases (any failed check raises, so the script exits non-zero):
      through H11) and H10 (three rounds of each mode) at the scene scales
      past 0.5 of CASCADE_SCALES (2, 2, 3 and 6 cascades, the geometric
      step grid) on random rays inside and outside the box and a random
-     occupancy of every cascade, outputs identical, the share of probes
-     at each mip logged (`check_cascades`). Then the training
+     occupancy of every cascade, and on adversarial rays (the camera at
+     the box's centre, origins past B = hi/f, near ends just past A =
+     lo/f, so that an H10 cursor reads the table of powers' step S),
+     outputs identical, the share of probes at each mip logged
+     (`check_cascades`). Then the training
      steps at the CPU tests' size run on the card and on the CPU from the
      same state and draws (bootstrap, sv, bitfield and flat steps; and a
      bootstrap and a bitfield step at scale 1.0): every loss and gradient
@@ -2401,17 +2406,60 @@ def cascade_march_inputs(m, N, gen, dev, density=0.2):
     return o, d, hits, packbits(occ.float(), 0.5), noise
 
 
+def cascade_adversarial_inputs(m, N, gen, dev, density=0.2):
+    """N rays at the scene scale of `m` that reach the step grid's edges,
+    in three groups: the camera at the box's centre (the geometric phase
+    from the near end on: past 1024 steps, jB > S, at scale 16; past 128
+    everywhere for the bootstrap march's grid), rays from origins past
+    B = hi/f aimed at points inside the box (tA > B, jB = 0: steps of hi
+    from the start), and rays from the centre whose near end is the first
+    float past A = lo/f of the fine grid (kA = 0 and jB >= the test
+    windows, so that an H10 cursor S steps on reads the table's last
+    entry, j = S); their box intervals (the third group's near end set),
+    march noise and a random occupancy of `density` over every cascade's
+    cells. Returns (o, d, hits, bitfield, noise)."""
+    from normal_clustering_nerf_torch.models.rendering import near_intervals
+    from normal_clustering_nerf_torch.ops.packbits import packbits
+    s = m.scale
+    hi = math.sqrt(3.0) * 2.0 * s / m.grid_size
+    lo = math.sqrt(3.0) / m.max_samples
+    A, B = lo / m.exp_step_factor, hi / m.exp_step_factor
+    d = torch.randn((N, 3), generator=gen, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    n3 = N // 3
+    group = torch.arange(N, device=dev) // max(n3, 1)
+    far = group == 1
+    aim = (torch.rand((N, 3), generator=gen, device=dev) * 1.8 - 0.9) * s
+    o = torch.where(far[:, None], aim - (B + 2.0 * math.sqrt(3.0) * s) * d,
+                    torch.zeros_like(d))
+    o, d = o.contiguous(), d.contiguous()
+    hits = near_intervals(m, o, d)
+    past_a = float(np.nextafter(np.float32(A), np.float32(np.inf)))
+    cursor = group >= 2
+    hits[:, 0] = torch.where(cursor, torch.full_like(hits[:, 0], past_a),
+                             hits[:, 0])
+    hits = hits.contiguous()
+    if not bool((hits[far, 0] > B).all()):
+        raise RuntimeError("adversarial rays: a far ray starts before B")
+    noise = torch.rand(N, generator=gen, device=dev)
+    occ = torch.rand(m.cascades * m.grid_size ** 3, generator=gen,
+                     device=dev) < density
+    return o, d, hits, packbits(occ.float(), 0.5), noise
+
+
 def check_cascades(tr, gen, scales=CASCADE_SCALES):
     """H1 (the bootstrap march), H9 (the fine march, and the flat march
     through H11) and H10 (TEST_ROUNDS rounds of each mode from the cursors
     the last returned; H11 on the first full window, as a flat test round
     compacts it) against their plain versions at the scene scales
     past 0.5 (several cascades, the geometric step grid), on
-    `cascade_march_inputs` at the bench's grid, batch and steps: outputs
-    identical (the kernels' logf and powf are CUDA's, as the plain
-    versions' torch.log and torch.pow on the card). Logs the share of the
-    fine march's in-range probes at each mip. Returns the largest error
-    of each launcher."""
+    `cascade_march_inputs` and on `cascade_adversarial_inputs` at the
+    bench's grid, batch and steps: outputs identical (the kernels read
+    (1 + f)^j from a table that torch.pow built, the plain versions'
+    own expression, and their per-ray logf and powf are CUDA's, as the
+    plain versions' torch.log and torch.pow on the card). Logs the share
+    of the fine march's in-range probes at each mip. Returns the largest
+    error of each launcher."""
     from normal_clustering_nerf_torch.models.rendering import (
         bucket_ladder, train_march_args)
     from normal_clustering_nerf_torch.ops import ray_march as rm
@@ -2419,14 +2467,17 @@ def check_cascades(tr, gen, scales=CASCADE_SCALES):
     errs = {k: [] for k in ("march_bootstrap", "march_fine_train",
                             "compact_samples", "march_fine_test_round")}
     chk = Check()
-    for scale in scales:
+    for scale, rays in ((s, r) for s in scales
+                        for r in ("random", "adversarial")):
         m = dataclasses.replace(tr.cfg.model, scale=scale)
-        o, d, hits, bits, noise = cascade_march_inputs(m, N, gen, dev)
+        make = (cascade_march_inputs if rays == "random"
+                else cascade_adversarial_inputs)
+        o, d, hits, bits, noise = make(m, N, gen, dev)
         args = (o, d, hits, bits, noise)
         t1, t2 = hits[:, 0], hits[:, 1]
-        log(f"scale {scale}: {m.cascades} cascades, exp_step_factor "
-            f"{m.exp_step_factor}, N={N}, {int((t1 >= 0).sum())} rays hit "
-            f"the box")
+        log(f"scale {scale}, {rays} rays: {m.cascades} cascades, "
+            f"exp_step_factor {m.exp_step_factor}, N={N}, "
+            f"{int((t1 >= 0).sum())} rays hit the box")
         for kind, name, fn in (
                 ("bootstrap", "march_bootstrap", rm.march_rays_train_bootstrap),
                 ("fine", "march_fine_train", rm.march_rays_train_dense)):
@@ -2442,8 +2493,14 @@ def check_cascades(tr, gen, scales=CASCADE_SCALES):
                                 max_samples=kw["max_samples"],
                                 grid_size=m.grid_size, scale=scale)
             probed = (t1 >= 0)[:, None] & (tg < t2[:, None])
+            _, _, _, jB, _ = rm.step_phases(
+                t0, exp_step_factor=m.exp_step_factor,
+                max_samples=kw["max_samples"], grid_size=m.grid_size,
+                scale=scale)
             log(f"{'H1' if kind == 'bootstrap' else 'H9'} {kind} at scale "
-                f"{scale}: S={kw['march_steps']} K={ref.t.shape[1]}; rm/ray "
+                f"{scale}, {rays} rays: S={kw['march_steps']} "
+                f"K={ref.t.shape[1]}; rays with jB > S "
+                f"{int(((jB > kw['march_steps']) & (t1 >= 0)).sum())}; rm/ray "
                 f"{int(ref.rm_samples) / N:.2f}; in-range probes "
                 f"{int(probed.sum())}, by mip "
                 f"{mip_shares(o, d, tg, probed, m, kw['max_samples'])}; kept "
@@ -2464,7 +2521,7 @@ def check_cascades(tr, gen, scales=CASCADE_SCALES):
                                   **fkw)
         dense = rm.march_rays_train_dense_plain(*args, **fine_kw)
         ref = rm.compact_samples_plain(dense.valid, dense.t, dense.dt, budget)
-        log(f"H9 + H11 flat at scale {scale}: B={budget}, "
+        log(f"H9 + H11 flat at scale {scale}, {rays} rays: B={budget}, "
             f"{int(ref.valid.sum())} kept")
         errs["compact_samples"] += [chk.equal(f"flat {f}", getattr(got, f),
                                               getattr(ref, f))
@@ -2489,8 +2546,9 @@ def check_cascades(tr, gen, scales=CASCADE_SCALES):
                                rm.march_rays_test_round_window_plain)
                 targs = (o, d, cursor, far, alive, bits)
                 got, ref = fn(*targs, **tkw), pfn(*targs, **tkw)
-                log(f"H10 {mode} round {r} at scale {scale}: alive "
-                    f"{int(alive.sum())}, valid samples {int(ref[2].sum())}")
+                log(f"H10 {mode} round {r} at scale {scale}, {rays} rays: "
+                    f"alive {int(alive.sum())}, valid samples "
+                    f"{int(ref[2].sum())}")
                 errs["march_fine_test_round"] += [
                     chk.equal(name, a, b) for name, a, b in
                     zip(("t", "dt", "valid", "cursor"), got, ref)]
@@ -3088,7 +3146,8 @@ def time_kernels(rec):
             log(f"  {name} on the cascades path ({c['shape']}; "
                 f"{c['launches']} launches): {r['cascades_ms']:.4f} ms, "
                 f"plain {r['cascades_plain_ms']:.4f} (bound "
-                f"{c['bound'][0]:.6f}, {c['bound'][1]})")
+                f"{c['bound'][0]:.6f}, {c['bound'][1]}); the Uniform body "
+                f"above {r['ms']:.4f} ms")
         if "at_p4_shape" in r:
             p4 = r.pop("at_p4_shape")
             r["p4_ms"] = device_ms(p4["kernel"], f"{name} P4")
@@ -4683,6 +4742,45 @@ def cascades_path(rec, launches, gen, smi):
     return tc, ms
 
 
+def cascades_only(smi):
+    """`--only cascades`: phase 2's `check_cascades` and the cascades path
+    (training, `cascade_timing`, validate), then the device time of H1,
+    H9 and H10 at the path's shapes beside the `Uniform` bodies' H1 and
+    H9 on the bench trainer's main-path batch (fine march at its steps)."""
+    from normal_clustering_nerf_torch import kernels
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    from normal_clustering_nerf_torch.models.rendering import (
+        train_intervals, train_march_args)
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    tr = build_trainer(bench_config(), device="cuda")
+    tr.mark_invisible_cells()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rec = {k: {"err": e} for k, e in check_cascades(tr, gen).items()}
+    launches = {k.name: 0 for k in kernels.ALL_KERNELS}
+    cascades_path(rec, launches, gen, smi)
+    a = main_path_inputs(tr, gen)["march"]["args"]
+    N = a[0].shape[0]
+    m, rc = tr.cfg.model, tr.cfg.render
+    boot = train_march_args(m, rc, N, "bootstrap")
+    fa = (a[0], a[1], train_intervals(m, rc, a[0], a[1], rc.anneal_steps),
+          a[3], a[4])
+    fine = dict(train_march_args(m, rc, N, "fine"), coarse_occ=None)
+    uniform = {
+        "march_bootstrap": lambda: rm.march_rays_train_bootstrap(*a, **boot),
+        "march_fine_train": lambda: rm.march_rays_train_dense(*fa, **fine)}
+    for name, r in rec.items():
+        c = r.get("cascades")
+        if c is None:
+            continue
+        ms = device_ms(c["kernel"], f"{name} cascades")
+        log(f"  {name} on the cascades path ({c['shape']}): {ms:.4f} ms "
+            f"(bound {c['bound'][0]:.6f}, {c['bound'][1]}), max error "
+            f"{r['err']}")
+        if name in uniform:
+            log(f"  {name}, the Uniform body at the bench scale: "
+                f"{device_ms(uniform[name], name):.4f} ms")
+
+
 # -------------------------------------------------- the host-sampler path
 def prefetch_rate(sampler, n=64):
     """Batches a second the native prefetcher delivers, over n batches
@@ -5150,7 +5248,7 @@ def main():
     ap.add_argument("--profile", default="",
                     help="directory for torch.profiler traces of 4 steps "
                          "of each march")
-    ap.add_argument("--only", choices=["distributed"],
+    ap.add_argument("--only", choices=["distributed", "cascades"],
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5182,8 +5280,11 @@ def main():
             if any(k in line for k in ("entry function", "registers",
                                        "spill")):
                 log(f"  {src}: {line.strip()}")
-    if args.only == "distributed":
-        distributed_path({k.name: 0 for k in kernels.ALL_KERNELS}, smi)
+    if args.only:
+        if args.only == "distributed":
+            distributed_path({k.name: 0 for k in kernels.ALL_KERNELS}, smi)
+        else:
+            cascades_only(smi)
         log(f"done in {time.time() - T0:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,10 @@
 // H1 `march_bootstrap`, the bootstrap march of the first 512 training
 // steps (`march_rays_train_dense` with coarse_occ=None, :402: S = 128
 // steps of sqrt(3)/128, K = 16), is a launcher of H9's body without pass
-// 0 and with every selected sample kept. At S <= 128 the body keeps pass
-// 1's (at most 4) ballot words in registers, and pass 2 recomputes only
-// its lane's t from them: no step's cell or bit is probed twice.
+// 0 and with every selected sample kept. At S <= 128 the uniform body
+// keeps pass 1's (at most 4) ballot words in registers, and pass 2
+// recomputes only its lane's t from them: no step's cell or bit is probed
+// twice (the general grid's body keeps them in shared memory, below).
 //
 // H10 `march_fine_test_round`, the same warp probe from each ray's
 // cursor over a window of S steps: K == 0 writes the whole (N, S) window
@@ -73,10 +74,25 @@
 // reads, dt = calc_dt(t_k) (:46-51), and the cell of `occupancy_lookup`'s
 // multi-cascade branch (:88-96): mip the larger of the position's and
 // the step's frexp exponents, x times the rounded reciprocal of
-// min(2^(mip-1), scale), the bit at mip * G^3 + cell. Its logf and powf
-// are CUDA's, as PyTorch's log and pow on the card (no fast-math flag).
-// Both grids grow with k, so a chunk whose first step is past t2 still
-// ends a ray's walk.
+// min(2^(mip-1), scale), the bit at mip * G^3 + cell. A probe of it costs
+// a few operations more than a uniform one, none of them a libm call:
+// (1 + f)^j is read from a table of the launch (`pow_tab`, j = 0..S and
+// more, built on the card by torch.pow, the plain version's own
+// expression: ops/ray_march.py:pow_table), the reciprocal is the exact
+// 2^(1-mip) wherever 2^(mip-1) <= scale and else 1/scale, which each
+// thread divides once, and the frexp exponents are read from the floats'
+// bits. The per-ray phase bounds keep CUDA's logf, as PyTorch's log on
+// the card (no fast-math flag), and read tB's power from the table too
+// unless jB lies past it (then CUDA's powf, as PyTorch's pow). Both grids
+// grow with k, so a chunk whose first step is past t2 still ends a ray's
+// walk. The `Cascades` train body (without the coarse mask) keeps each
+// chunk's ballot of pass 1 and the occupied count before it in shared
+// memory (2 * ceil(S / 32) words a warp), so that pass 2 probes nothing
+// again and takes a lane a slot, as K1's phase C: each lane finds the
+// chunk of its slot's target rank by a binary search of the counts and
+// the step by the ballot's bits, and writes t, dt and valid coalesced.
+// The `Uniform` bodies, the bench's code, keep their re-probing pass 2
+// past 128 steps: their probe is a few operations.
 //
 // Exactness: t, xyz and the cells are the reference's operations in its
 // order (t_step_grid :120, occupancy_lookup :83-86, coarse_lookup
@@ -121,17 +137,21 @@ __device__ __forceinline__ bool bit_at(const uint32_t* __restrict__ w, int c) {
 // The constants of the general grid past one cascade and a uniform step:
 // cascades, and t_step_grid's and calc_dt's f (0 for a uniform grid: the
 // host passes 0 where lo >= hi, as calc_dt is lo either way), hi, A =
-// lo/f, B = hi/f, 1 + f, log(1 + f), and scale. The kernels take it as
-// their last parameter and build their grid from lo, mb and it, so that
-// the `Uniform` bodies see the parameters they saw before it existed.
+// lo/f, B = hi/f, 1 + f, log(1 + f), scale, and the table of (1 + f)^j
+// with its length (null and 0 where f is 0). The kernels take it as their
+// last parameter and build their grid from lo, mb and it, so that the
+// `Uniform` bodies see the parameters they saw before it existed.
 struct GridArgs {
   int cascades;
   float f, hi, A, B, ratio, log_ratio, scale;
+  const float* pow_tab;
+  int pow_len;
 };
 
 // The uniform step grid of one cascade (exp_step_factor 0): t_k = t0 +
 // k*lo, dt = lo, the cell of `occupancy_lookup`'s one-cascade branch.
 struct Uniform {
+  static constexpr bool KEEP_BALLOTS = false;
   float lo, mb;
   struct Line { float t0; };
   __device__ static Uniform make(float lo, float mb, const GridArgs&) {
@@ -146,14 +166,22 @@ struct Uniform {
   }
 };
 
+// frexpf's exponent of a finite v >= 0: 0 at v == 0, as frexpf; a
+// subnormal v reads as -126 where frexpf gives less, which the mip's
+// clamp to [0, cascades - 1] takes to 0 either way
+__device__ __forceinline__ int frexp_exponent(float v) {
+  return v == 0.0f ? 0 : static_cast<int>(__float_as_uint(v) >> 23) - 126;
+}
+
 // The general grid: geometric steps when f != 0, `cascades` cascades.
 struct Cascades {
-  float lo, mb;
+  static constexpr bool KEEP_BALLOTS = true;
+  float lo, mb, inv_scale;
   GridArgs g;
   // t0 (t0s = max(t0, 0) on the geometric grid) and the phase bounds
   struct Line { float t0, kA, tA, jB, tB; };
   __device__ static Cascades make(float lo, float mb, const GridArgs& g) {
-    return {lo, mb, g};
+    return {lo, mb, __fdiv_rn(1.0f, g.scale), g};
   }
   __device__ Line line(float t0) const {
     Line l{t0, 0.0f, 0.0f, 0.0f, 0.0f};
@@ -166,15 +194,20 @@ struct Cascades {
       const float q = logf(__fdiv_rn(g.B, fmaxf(l.tA, 1e-30f)));
       l.jB = __fadd_rn(floorf(__fdiv_rn(q, g.log_ratio)), 1.0f);
     }
-    l.tB = __fmul_rn(l.tA, powf(g.ratio, l.jB));
+    // jB may exceed the table: then the ray's one powf
+    l.tB = __fmul_rn(l.tA, l.jB < static_cast<float>(g.pow_len)
+                               ? __ldg(g.pow_tab + static_cast<int>(l.jB))
+                               : powf(g.ratio, l.jB));
     return l;
   }
+  // k <= 32 * ceil(S / 32), so the geometric phase's j < the table's length
   __device__ float t(const Line& l, int k) const {
     if (g.f == 0.0f) return step_t(l.t0, k, lo);
     const float kf = static_cast<float>(k);
     if (kf <= l.kA) return __fadd_rn(l.t0, __fmul_rn(kf, lo));
     const float j = __fsub_rn(kf, l.kA);
-    if (j <= l.jB) return __fmul_rn(l.tA, powf(g.ratio, j));
+    if (j <= l.jB)
+      return __fmul_rn(l.tA, __ldg(g.pow_tab + static_cast<int>(j)));
     return __fadd_rn(l.tB, __fmul_rn(__fsub_rn(j, l.jB), g.hi));
   }
   // calc_dt (CUDA clamp: lo wins when lo > hi)
@@ -188,13 +221,16 @@ struct Cascades {
     const float x = __fadd_rn(r.ox, __fmul_rn(t, r.dx));
     const float y = __fadd_rn(r.oy, __fmul_rn(t, r.dy));
     const float z = __fadd_rn(r.oz, __fmul_rn(t, r.dz));
-    int e_pos, e_dt;
-    frexpf(fmaxf(fabsf(x), fmaxf(fabsf(y), fabsf(z))), &e_pos);
-    frexpf(__fmul_rn(dt, static_cast<float>(G)), &e_dt);
+    const int e_pos = frexp_exponent(fmaxf(fabsf(x), fmaxf(fabsf(y), fabsf(z))));
+    const int e_dt = frexp_exponent(__fmul_rn(dt, static_cast<float>(G)));
     const int mip = max(min(max(e_pos + 1, 0), C - 1),
                         min(max(e_dt, 0), C - 1));
-    const float bound = fminf(ldexpf(1.0f, mip - 1), g.scale);
-    const float inv = __fdiv_rn(1.0f, bound);
+    // min(2^(mip-1), scale) and its reciprocal: 2^(1-mip) exactly while
+    // the power of two is the smaller, else 1/scale rounded once
+    const float p = __int_as_float((126 + mip) << 23);
+    const float inv = p <= g.scale ? __int_as_float((128 - mip) << 23)
+                                   : inv_scale;
+    const float bound = fminf(p, g.scale);
     const int cell = (cell_of(z, bound, G, inv) * G + cell_of(y, bound, G, inv))
                          * G + cell_of(x, bound, G, inv);
     return bit_at(w, mip * G * G * G + cell);
@@ -209,9 +245,16 @@ __device__ __forceinline__ Ray load_ray(const float* __restrict__ o,
   return r;
 }
 
-// H9's body (and H1's, with neither COARSE nor more than 128 steps). The
-// block's rm and trunc counts are summed in shared memory and added to
-// `sums` by one atomic each, not one per ray.
+// H9's body (and H1's: no COARSE; SHORT, S <= 128, on the uniform grid).
+// The block's rm and trunc counts are summed in shared memory and added to
+// `sums` by one atomic each, not one per ray. KEEP (the general grid
+// without the coarse mask): the dynamic shared memory holds a warp's
+// ceil(S / 32) ballots, then as many counts before them.
+template <bool COARSE, class Steps>
+__host__ __device__ constexpr bool keeps_ballots() {
+  return !COARSE && Steps::KEEP_BALLOTS;
+}
+
 template <bool COARSE, bool SHORT, class Steps>
 __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
@@ -221,8 +264,10 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     float mb, float* __restrict__ t_out, float* __restrict__ dt_out,
     uint8_t* __restrict__ valid_out, int* __restrict__ count_out,
     int* __restrict__ sums, const GridArgs ga) {
+  constexpr bool KEEP = keeps_ballots<COARSE, Steps>();
   const Steps st = Steps::make(lo, mb, ga);
   __shared__ unsigned cand_s[COARSE ? WARPS : 1][COARSE ? MAX_BLOCK_WORDS : 1];
+  extern __shared__ unsigned kept_s[];
   __shared__ int warp_rm[WARPS], warp_cut[WARPS];
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int n = blockIdx.x * WARPS + wib;
@@ -294,12 +339,34 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
       return true;
     };
 
-    // pass 1: occupied count; at S <= 128 the (at most 4) ballots are kept
-    // in registers, so pass 2 probes nothing again
+    // pass 1: occupied count; with KEEP the live chunks' ballots and the
+    // counts before them go to shared memory, at S <= 128 the (at most 4)
+    // ballots to registers, so that pass 2 probes nothing again
     int m_tot = 0;
     const int n_chunks = (k_end + 31) / 32;
     unsigned word[4] = {0u, 0u, 0u, 0u};
-    if constexpr (SHORT) {
+    unsigned* ballot = kept_s + (KEEP ? 2 * wib * n_chunks : 0);
+    int* before = reinterpret_cast<int*>(ballot + n_chunks);
+    int n_live = 0;
+    if constexpr (KEEP) {
+      // the chunk's own in-range ballot is its guard (t grows with k): no
+      // step is computed twice
+      for (int j = 0; r.hit && j < n_chunks; ++j) {
+        const int k = 32 * j + lane;
+        const float t = st.t(line, k);
+        bool inc = k < k_end && t < r.t2;
+        if (!__any_sync(FULL, inc)) break;
+        if (inc) inc = st.bit(bits, r, t, st.dt(t), G);
+        const unsigned m = __ballot_sync(FULL, inc);
+        if (lane == 0) {
+          ballot[j] = m;
+          before[j] = m_tot;
+        }
+        m_tot += __popc(m);
+        n_live = j + 1;
+      }
+      __syncwarp();
+    } else if constexpr (SHORT) {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         if (chunk_live(j)) {
@@ -322,8 +389,27 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
     const int n_valid = min(rm, Kout);
     const size_t base = static_cast<size_t>(n) * Kout;
 
-    // pass 2: each kept rank writes its slot
-    if (n_valid > 0) {
+    // pass 2, KEEP: a lane a slot, the step of its target rank from the
+    // chunk whose count before it is the last below the rank
+    if constexpr (KEEP) {
+      for (int i = lane; i < n_valid; i += 32) {
+        int span;
+        const int rank = target_rank(i, K1, K2, E, tail, &span);
+        int lo_c = 0, hi_c = n_live;
+        while (hi_c - lo_c > 1) {
+          const int mid = (lo_c + hi_c) >> 1;
+          if (before[mid] < rank) lo_c = mid;
+          else hi_c = mid;
+        }
+        const float t =
+            st.t(line, 32 * lo_c + nth_bit(ballot[lo_c], rank - before[lo_c]));
+        t_out[base + i] = t;
+        dt_out[base + i] = __fmul_rn(st.dt(t), static_cast<float>(span));
+        valid_out[base + i] = 1;
+      }
+    }
+    // pass 2, otherwise: each kept rank writes its slot
+    if (!KEEP && n_valid > 0) {
       const int last = target_rank(n_valid - 1, K1, K2, E, tail);
       int seen = 0;
       auto emit = [&](int j, unsigned m) {
@@ -766,8 +852,18 @@ int launch_train(const void* rays_o, const void* rays_d, const void* hits_t,
                  float lo, float mip_bound, const GridArgs& ga, void* t_out,
                  void* dt_out, void* valid_out, void* count_out, void* sums,
                  cudaStream_t stream) {
-  march_fine_train_kernel<COARSE, SHORT, Steps>
-      <<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(
+  const auto kernel = march_fine_train_kernel<COARSE, SHORT, Steps>;
+  size_t smem = 0;
+  if constexpr (keeps_ballots<COARSE, Steps>()) {
+    smem = sizeof(unsigned) * 2 * WARPS * ((S + 31) / 32);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+  }
+  kernel<<<ncn_blocks(N, WARPS), WARPS * 32, smem, stream>>>(
           static_cast<const float*>(rays_o), static_cast<const float*>(rays_d),
           static_cast<const float*>(hits_t),
           static_cast<const uint32_t*>(bitfield),
@@ -783,8 +879,10 @@ int launch_train(const void* rays_o, const void* rays_d, const void* hits_t,
 
 // H1, H9 and H10 take, after lo and mip_bound = min(0.5, scale), the
 // `GridArgs` values as arguments: cascades, f, hi, A, B, ratio, log_ratio,
-// scale (ops/ray_march.py:step_args rounds them as JAX does). One cascade
-// and f = 0 run the `Uniform` bodies, the rest the `Cascades` ones.
+// scale (ops/ray_march.py:step_args rounds them as JAX does), pow_tab,
+// (1 + f)^j for j < pow_len (f32), and pow_len, at least 32 * ceil(S / 32)
+// + 1 (null and 0 where f is 0). One cascade and f = 0 run the `Uniform`
+// bodies, the rest the `Cascades` ones.
 //
 // coarse may be null (no two-level march: KB must then be 0). sums: [rm,
 // trunc], zeroed by the caller (trunc is written only when KB > 0).
@@ -795,21 +893,23 @@ extern "C" int march_fine_train(const void* rays_o, const void* rays_d,
                                 int KB, float lo, float mip_bound,
                                 int cascades, float f, float hi, float A,
                                 float B, float ratio, float log_ratio,
-                                float scale, void* t_out, void* dt_out,
+                                float scale, const void* pow_tab,
+                                int pow_len, void* t_out, void* dt_out,
                                 void* valid_out, void* count_out, void* sums,
                                 cudaStream_t stream) {
   if ((KB > 0 && (coarse == nullptr || S / 4 > 32 * MAX_BLOCK_WORDS)) ||
-      cascades < 1)
+      cascades < 1 ||
+      (f != 0.0f && (pow_tab == nullptr || pow_len <= 32 * ((S + 31) / 32))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const GridArgs ga{cascades, f, hi, A, B, ratio, log_ratio, scale};
+  const GridArgs ga{cascades, f, hi, A, B, ratio, log_ratio, scale,
+                    static_cast<const float*>(pow_tab), pow_len};
   const bool uniform = cascades == 1 && f == 0.0f;
   auto launch =
       KB > 0 ? (uniform ? launch_train<true, false, Uniform>
                         : launch_train<true, false, Cascades>)
-      : S <= 128 ? (uniform ? launch_train<false, true, Uniform>
-                            : launch_train<false, true, Cascades>)
-                 : (uniform ? launch_train<false, false, Uniform>
-                            : launch_train<false, false, Cascades>);
+      : !uniform ? launch_train<false, false, Cascades>
+      : S <= 128 ? launch_train<false, true, Uniform>
+                 : launch_train<false, false, Uniform>;
   return launch(rays_o, rays_d, hits_t, bitfield, noise, coarse, N, S, K,
                 Kout, tail_k, G, KB, lo, mip_bound, ga, t_out, dt_out,
                 valid_out, count_out, sums, stream);
@@ -823,13 +923,15 @@ extern "C" int march_bootstrap(const void* rays_o, const void* rays_d,
                                int tail_k, int G, float lo, float mip_bound,
                                int cascades, float f, float hi, float A,
                                float B, float ratio, float log_ratio,
-                               float scale, void* t_out, void* dt_out,
-                               void* valid_out, void* count_out, void* rm_out,
+                               float scale, const void* pow_tab, int pow_len,
+                               void* t_out, void* dt_out, void* valid_out,
+                               void* count_out, void* rm_out,
                                cudaStream_t stream) {
   return march_fine_train(rays_o, rays_d, hits_t, bitfield, noise, nullptr, N,
                           S, K, K, tail_k, G, 0, lo, mip_bound, cascades, f,
-                          hi, A, B, ratio, log_ratio, scale, t_out, dt_out,
-                          valid_out, count_out, rm_out, stream);
+                          hi, A, B, ratio, log_ratio, scale, pow_tab, pow_len,
+                          t_out, dt_out, valid_out, count_out, rm_out,
+                          stream);
 }
 
 // K == 0: full-window mode, (N, S) outputs; K > 0: first-K mode, (N, K).
@@ -840,12 +942,15 @@ extern "C" int march_fine_test_round(const void* rays_o, const void* rays_d,
                                      float mip_bound, int cascades, float f,
                                      float hi, float A, float B, float ratio,
                                      float log_ratio, float scale,
+                                     const void* pow_tab, int pow_len,
                                      void* t_out, void* dt_out,
                                      void* valid_out, void* cursor_out,
                                      cudaStream_t stream) {
-  if (K < 0 || K > S || cascades < 1)
+  if (K < 0 || K > S || cascades < 1 ||
+      (f != 0.0f && (pow_tab == nullptr || pow_len <= 32 * ((S + 31) / 32))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const GridArgs ga{cascades, f, hi, A, B, ratio, log_ratio, scale};
+  const GridArgs ga{cascades, f, hi, A, B, ratio, log_ratio, scale,
+                    static_cast<const float*>(pow_tab), pow_len};
   auto kernel = cascades == 1 && f == 0.0f ? march_fine_test_kernel<Uniform>
                                            : march_fine_test_kernel<Cascades>;
   kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(

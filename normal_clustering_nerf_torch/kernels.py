@@ -172,8 +172,9 @@ def check(t: torch.Tensor, name: str, dtype, shape=None, device=None):
 
 
 # H1, the bootstrap march: a launcher of H9's body
-# the step grid's arguments of H1, H9 and H10 (`ops/ray_march.step_args`)
-STEP_GRID = [F, F, I] + [F] * 7
+# the step grid's arguments of H1, H9 and H10 (`ops/ray_march.step_args`):
+# lo, mip_bound, cascades, seven constants, the powers' table, its length
+STEP_GRID = [F, F, I] + [F] * 7 + [P, I]
 MARCH = Kernel("march_bootstrap", "march_fine.cu",
                [P] * 5 + [I] * 5 + STEP_GRID + [P] * 5)
 TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",

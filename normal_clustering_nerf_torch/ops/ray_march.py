@@ -26,7 +26,7 @@ the same function in plain PyTorch, for CPU tensors. The bitfield marches
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -219,19 +219,63 @@ class DenseMarchResult(NamedTuple):
     trunc_rays: torch.Tensor  # () int32, 0: this march enumerates all
 
 
-def step_args(cascades, exp_step_factor, max_samples, grid_size,
-              scale) -> list:
-    """The step grid's arguments of H1, H9 and H10 (`csrc/march_fine.cu`):
-    lo, min(0.5, scale), cascades, then t_step_grid's constants as Python
-    doubles, which ctypes rounds to f32 as JAX rounds its weak scalars: f
-    (0 where the grid is uniform: f 0 or lo >= hi, where calc_dt is lo
-    either way), hi, A = lo/f, B = hi/f, 1 + f, log(1 + f), and scale."""
+# The geometric grid's powers (1 + f)^j, one table a (device, f), with at
+# least the entries of the fine march's 1024 steps (`pow_table_len`).
+POW_TABLE_MIN = 1025
+_pow_tables: Dict[Tuple[torch.device, float], torch.Tensor] = {}
+_pow_retired: List[torch.Tensor] = []
+
+
+def pow_table_len(n_steps: int) -> int:
+    """Entries of (1 + f)^j that H1, H9 and H10 read over `n_steps` steps:
+    j up to the last lane of the last chunk of 32 steps, and one more (H10's
+    cursor reads step n_steps)."""
+    return 32 * -(-n_steps // 32) + 1
+
+
+def pow_table(exp_step_factor: float, n: int, device) -> torch.Tensor:
+    """(1 + f)^j for j = 0..n-1 at least, f32 on `device`: torch.pow of
+    the Python scalar 1 + f over an arange, the expression `t_step_grid`
+    evaluates over j, so that on the card each entry is the plain
+    version's power of the same j. One table a (device, f), built at its
+    first use and kept; a longer request replaces it for later calls and
+    the old one is kept, since a captured CUDA graph reads the table its
+    capture saw. It is built outside a capture (the trainer's eager steps
+    come first); a first use inside one raises."""
+    device = torch.device(device)
+    key = (device, float(exp_step_factor))
+    tab = _pow_tables.get(key)
+    if tab is None or tab.numel() < n:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "the step grid's table of powers is built on its first use, "
+                "which must come before a CUDA graph capture")
+        if tab is not None:
+            _pow_retired.append(tab)
+        k = torch.arange(max(n, POW_TABLE_MIN), dtype=torch.float32,
+                         device=device)
+        tab = torch.pow(1.0 + exp_step_factor, k)
+        _pow_tables[key] = tab
+    return tab
+
+
+def step_args(cascades, exp_step_factor, max_samples, grid_size, scale,
+              n_steps, device) -> list:
+    """The step grid's arguments of H1, H9 and H10 (`csrc/march_fine.cu`)
+    over `n_steps` steps: lo, min(0.5, scale), cascades, then
+    t_step_grid's constants as Python doubles, which ctypes rounds to f32
+    as JAX rounds its weak scalars: f (0 where the grid is uniform: f 0 or
+    lo >= hi, where calc_dt is lo either way), hi, A = lo/f, B = hi/f,
+    1 + f, log(1 + f) and scale; last the pointer to `pow_table` on
+    `device` and its length (None and 0 where f is 0)."""
     lo = SQRT3 / max_samples
     hi = SQRT3 * 2.0 * scale / grid_size
     f = exp_step_factor if exp_step_factor != 0.0 and lo < hi else 0.0
     A, B = (lo / f, hi / f) if f else (0.0, 0.0)
+    tab = pow_table(f, pow_table_len(n_steps), device) if f else None
     return [lo, min(0.5, scale), cascades, f, hi, A, B, 1.0 + f,
-            math.log(1.0 + f), scale]
+            math.log(1.0 + f), scale,
+            kernels.ptr(tab) if f else None, tab.numel() if f else 0]
 
 
 def coarse_lookup(xyz, coarse_occ, *, scale, grid_size):
@@ -368,7 +412,7 @@ def _march_bootstrap_kernel(rays_o, rays_d, hits_t, bitfield, noise, *,
         kernels.MARCH.launch(
             *args, N, S, K, tail_k, grid_size,
             *step_args(cascades, exp_step_factor, max_samples, grid_size,
-                       scale),
+                       scale, S, dev),
             kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
             kernels.ptr(count), kernels.ptr(rm), device=dev)
     return DenseMarchResult(t, dt, valid, count, rm[0],
@@ -424,7 +468,7 @@ def _march_fine_kernel(rays_o, rays_d, hits_t, bitfield, noise, *, cascades,
         kernels.MARCH_FINE_TRAIN.launch(
             *args, N, S, K, Kout, tail_k, grid_size, KB,
             *step_args(cascades, exp_step_factor, max_samples, grid_size,
-                       scale),
+                       scale, S, dev),
             kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
             kernels.ptr(count), kernels.ptr(sums), device=dev)
     return DenseMarchResult(t, dt, valid, count, sums[0], sums[1])
@@ -531,7 +575,7 @@ def _march_test_kernel(rays_o, rays_d, cursor, t_far, alive, bitfield, *,
         kernels.MARCH_FINE_TEST.launch(
             *args, N, S, K, grid_size,
             *step_args(cascades, exp_step_factor, max_samples, grid_size,
-                       scale),
+                       scale, S, dev),
             kernels.ptr(t), kernels.ptr(dt), kernels.ptr(valid),
             kernels.ptr(new_cursor), device=dev)
     return t, dt, valid, new_cursor

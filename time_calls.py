@@ -23,8 +23,19 @@ step's rays (`render_train` with march_layout "flat": the fine march at
 the per-ray cap into the bench's budget) and in the first round of a
 flat-layout render of the held-out views (the trainer's first
 `render_test` call again with test_layout "flat": the full window of
-test_n_samples steps into N x that). It times
-each captured call, the march on a full bitfield, and a one-element
+test_n_samples steps into N x that). The fine march's `Uniform` body
+(H9 at the bench's scale) runs on the bootstrap step's rays, their
+intervals after the annealing and its bitfield, at the fine march's
+arguments without the coarse mask. Then, for the general step grid
+(`Cascades` bodies), it builds the bench configuration at scale 1.0 (2
+cascades, exp_step_factor 1/256) on the synthetic room at twice its width
+(48 + 4 views at 128^2), as `chip_smoke.py`'s cascades path does, trains
+CASCADE_STEPS steps through `Trainer.fit` (the bootstrap's 512 and 64 of
+the fine march), and captures H1's call in a bootstrap step, H9's in a
+step after it and H10's first window round of a render of the held-out
+views. It times
+each captured call (a march's with the occupied cells of its bitfield),
+the march on a full bitfield, and a one-element
 in-place add (the least time of one kernel node under this timing, the
 floor of the tiny kernels), under `torch.no_grad()`, each the mean of 20
 replays of a CUDA graph of one call (`time_encodes.device_ms`). The calls
@@ -45,6 +56,8 @@ import torch
 
 from time_encodes import device_ms
 
+CASCADE_STEPS = 576   # the cascades trainer's steps before its calls
+
 
 def captured(module, name, run):
     """Run `run()` with `module.<name>` spied on; return the (args, kwargs)
@@ -63,6 +76,44 @@ def captured(module, name, run):
     if not seen:
         raise RuntimeError(f"no call of {name}")
     return seen[0]
+
+
+def bits_set(bitfield):
+    """Occupied cells of a (cells / 8,) uint8 bitfield."""
+    ones = torch.tensor([bin(i).count("1") for i in range(256)],
+                        device=bitfield.device)
+    return int(ones[bitfield.long()].sum())
+
+
+def cascade_calls(bench_config):
+    """{label: (args, kwargs, fn)} of H1, H9 and H10 on the trained
+    cascades trainer (scale 1.0, 2 cascades, the geometric grid)."""
+    from normal_clustering_nerf_torch.datasets.synthetic import (
+        SyntheticDataset)
+    from normal_clustering_nerf_torch.models import rendering
+    from normal_clustering_nerf_torch.training import Trainer
+    cfg = bench_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, scale=1.0))
+    scenes = [SyntheticDataset(split=split, img_wh=(128, 128), n_images=n,
+                               room_half=0.8, scale=1.0).load()
+              for split, n in (("train", 48), ("test", 4))]
+    tc = Trainer(cfg, *scenes, device="cuda")
+    tc.mark_invisible_cells()
+    tc.fit(CASCADE_STEPS)
+    boot = captured(rendering, "march_rays_train_bootstrap",
+                    lambda: tc.train_step_core(bootstrap=True))
+    fine = captured(rendering, "march_rays_train_dense",
+                    lambda: tc.train_step_core(bootstrap=False))
+    with torch.no_grad():
+        window = captured(rendering, "march_rays_test_round_window",
+                          lambda: tc.render_images(tc.scene_test.poses))
+    tag = f"{tc.model.cfg.cascades} cascades"
+    return {f"march_bootstrap, {tag}": boot + (
+                rendering.march_rays_train_bootstrap,),
+            f"march_fine_train, {tag}": fine + (
+                rendering.march_rays_train_dense,),
+            f"march_fine_test_round, {tag}, first window round": window + (
+                rendering.march_rays_test_round_window,)}
 
 
 def main():
@@ -126,6 +177,14 @@ def main():
         ray_march.compact_samples,)
     calls["compact_samples, first flat test round"] = flat_round + (
         ray_march.compact_samples,)
+    m, rc = tr.cfg.model, tr.cfg.render
+    fine_kw = dict(rendering.train_march_args(m, rc, a[0].shape[0], "fine"),
+                   coarse_occ=None)
+    fine_hits = rendering.train_intervals(m, rc, a[0], a[1], rc.anneal_steps)
+    calls["march_fine_train, Uniform"] = (
+        (a[0], a[1], fine_hits, a[3], a[4]), fine_kw,
+        rendering.march_rays_train_dense)
+    calls.update(cascade_calls(bench_config))
     one = torch.zeros(1, device="cuda")
     calls["one-element add (floor)"] = ((one, 1.0), {}, torch.Tensor.add_)
     out = {"package": os.path.dirname(package.__file__)}
@@ -136,6 +195,9 @@ def main():
         out[where] = {"shapes": [list(t.shape) for t in ca[:2]
                                  if torch.is_tensor(t)],
                       "ms": device_ms(call)}
+        if where.startswith("march"):
+            out[where]["bits_set"] = bits_set(ca[5] if "test_round" in where
+                                              else ca[3])
     out["march_kw"] = kw
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
