@@ -31,9 +31,18 @@ Phases (any failed check raises, so the script exits non-zero):
      without T_start); H4's forward and backward also bit for bit their
      serial-order reference (`distortion_serial`), there and at K = 1,
      16, 32, 33 and 64 on random rows (N rays, one and none);
-     H3's backward also at K = 1, 16 and 32 on random rays (N rays,
-     one and none), its d_raws bit for bit g_rend (x) H3 forward's own ws
-     and its d_sigmas exactly 0 on invalid or clipped samples; H2's
+     H3's backward also at K = 1, 16, 32, 33, 64 and 128 (BWD_KS: lane
+     groups, then the long kernel's chunks) on random rays (N rays, one
+     and none), its d_raws bit for bit g_rend (x) H3 forward's own ws,
+     its d_sigmas bit for bit its serial order (`composite_grad_serial`)
+     and exactly 0 on invalid or clipped samples; H12, the triplane's
+     position gradient: H2's forward with the Jacobian (J bit for bit
+     `encode_jacobian_plain`, the features bit for bit H2's without J)
+     and H2's backward with its contraction (dx bit for bit
+     `contract_plain` of the plain J, the table gradients within 1e-4 of
+     the plain scatter's, no entry -0.0), on the batch, its cuts, the
+     one-cell input and points on cell and brick faces and at 0 and 1,
+     under f32 and bf16 cotangents (`check_dx`); H2's
      backward also under a bf16 cotangent read as bf16, with no
      entry -0.0; H2's forward with f32 and bf16 rows and f32 and bf16
      output, also on the batch cut to a ragged last tile, to one sample
@@ -85,8 +94,9 @@ Phases (any failed check raises, so the script exits non-zero):
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
      T_start on a flat test round), H3's segment backward on segments of
-     every length 0..32, and with max_len at the flat march's cap (16,
-     32; the bound the training step passes) on segments all shorter
+     every length 0..128 (SEG_BWD_LONGEST; d_sigmas bit for bit
+     `composite_grad_serial`), and with max_len at the flat march's cap
+     (16, 32, 64; the bound the training step passes) on segments all shorter
      than it (bit for bit at the longest segment's bound on the flat
      batch; d_sigmas bit for bit `composite_grad_serial`, d_raws bit for
      bit g_rend (x) ws), and its segment forward on every length 0..64
@@ -95,9 +105,9 @@ Phases (any failed check raises, so the script exits non-zero):
      order and dense H4), H3's four launchers at C = 17, 46 and 99
      channels (WIDE_C: past one tile of 16; 3 + 3 + NYU40's 40 classes;
      four forward passes): the dense forward at K = 1, 16, 33, 64 with and
-     without T_start and the dense backward at K = 1, 16, 32 bit for bit
+     without T_start and the dense backward at BWD_KS bit for bit
      their serial orders (`composite_serial`, `composite_grad_serial`),
-     the segment launchers on every length 0..32 / 0..64, and H3's
+     the segment launchers on every length 0..128 / 0..64, and H3's
      forward with T_start on the first test round's samples;
   5. validation: counts to 0, `Trainer.validate()` on the 4 held-out
      views, counts read: the test-round march, the field and the
@@ -138,19 +148,30 @@ Phases (any failed check raises, so the script exits non-zero):
   step held to the CPU's); the box hits of a batch of its rays with
   direction components exactly 0, their ray gradient finite and their
   values those without a gradient (`check_flat_rays`); the bench
-  configuration with EXT_OPTIM through `Trainer.fit` for 576 counted steps (H12, the triplane's position
-  gradient, once a step; K1 64 times), dR and dT moved and within 576
+  configuration with EXT_OPTIM through `Trainer.fit` for 576 counted
+  steps (H12, the triplane's position gradient, once a step: H2's forward
+  with the Jacobian and H2's backward with its contraction, never H2's
+  backward without it; K1 64 times), dR and dT moved and within 576
   Adam updates at 1e-6 of their start, dR_glob exactly 0, losses falling,
-  `validate`; and 64 ext steps each of the brick (H13) and the tcnn field
-  (H14) at the bench configuration; phase 2 holds H12-H14 against their
-  plain versions on the batch, its cuts, the one-cell input and points
-  on cell and brick faces and at 0 and 1, under f32 and bf16 cotangents;
+  `validate`; and 64 ext steps each of the brick (H13, a launch of its
+  own) and the tcnn field (H14: H7 with the Jacobian, and its
+  contraction in a launch of its own) at the bench configuration; phase 2
+  holds H12-H14 against
+  their plain versions on the batch, its cuts, the one-cell input and
+  points on cell and brick faces and at 0 and 1, under f32 and bf16
+  cotangents;
   then the 40-class path (`sem40_path`): the bench configuration on the
   synthetic room with its semantics relabelled into 40 classes by a fixed
   function of the pixel (C = 46), 64 counted steps through `Trainer.fit`
   (a CUDA graph captured; H3 forward and backward launched, losses
   finite) and `validate` through test rounds at 46 channels, which must
-  give a miou column; then the host-sampler path (`host_path`): the
+  give a miou column; then the K64 path (`k64_path`): the bench
+  configuration at 64 samples a ray (the rows a rank marches at
+  --num_chips 4 under the bench's global budget), H3's backward on a
+  bootstrap batch's rows of 64 bit for bit its serial order, then 64
+  counted steps through `Trainer.fit` (a CUDA graph captured; H3's
+  backward once a step, every launch on rows of 64 samples; the loss
+  falling); then the host-sampler path (`host_path`): the
   triplane bench configuration with `host_sampler` (the native
   prefetcher, built with g++ from the port's copy of raybatch.cpp), 576
   counted steps through `Trainer.fit` (K1 64 times, losses falling); then
@@ -247,7 +268,11 @@ Phases (any failed check raises, so the script exits non-zero):
      positions and at the refresh shape, with the modelled warp load
      counts logged beside the times; H1 also on a full bitfield, H3's
      forward also at the first test round's shape with T_start, H3's
-     four launchers at 46 channels (N 8190, K 16; "c46_*" keys), and H1,
+     four launchers at 46 channels (N 8190, K 16; "c46_*" keys), H3's
+     backward on the K64 path's rows (N 8190, K 64; "k64_*" keys), the
+     launchers of H12 and H14 beside themselves without the position
+     gradient (the variant NO_DX; the two differences added are the
+     position gradient's cost, `dx_cost_ms`), and H1,
      H9 and H10 at the cascades path's shapes, each with its bound
      (logf and powf counted as operations; "cascades_*" keys);
   7. CUDA-graph chunks: for the triplane path's bootstrap and sv march, the
@@ -1066,17 +1091,59 @@ def face_inputs(x, spec, layout, gen):
     return x.contiguous()
 
 
-def check_dx(chk, label, kernel, plain, x, g, where):
-    """A position-gradient kernel (H12-H14) against its plain version on
-    `x` under the cotangent `g`: within DX_TOL of the largest |dx| (the
-    same chains of f32 operations in the same order, so a difference is
-    counted and logged). Returns the largest error."""
-    got, ref = kernel(x, g), plain(x, g.float())
-    bad = int((got != ref).sum())
-    log(f"  {label} {where}, {g.dtype} cotangent: {bad} of {ref.numel()} "
-        f"values differ from the plain version")
-    return chk.close(f"{label} {where}, {g.dtype} cotangent", got, ref,
-                     DX_TOL)
+def check_dx(chk, label, kern, plain, x, g, where):
+    """A position gradient (H12, H14: the forward's Jacobian and its
+    contraction, in the table gradient's launch or beside it) against its
+    plain versions on `x` under the cotangent `g`. kern: (jac_fwd(x) -> (out,
+    jac), fwd(x) -> out, grad_dx(x, g, jac) -> (*table gradients, dx));
+    plain: (jacobian(x) -> jac, contract(jac, g) -> dx, grad(x, g) ->
+    table gradients). The Jacobian bit for bit the plain one, dx bit for
+    bit the plain contraction of the plain Jacobian with g in f32 (the
+    same chains of f32 operations in the same order), the features bit
+    for bit the forward's without the Jacobian, the table gradients
+    within 1e-4 of their largest value of the plain scatter's (the atomics'
+    order) with no entry -0.0. Returns the largest error."""
+    jac_fwd, fwd, grad_dx = kern
+    jacobian, contract, grad = plain
+    out, jac = jac_fwd(x)
+    *tabs, dx = grad_dx(x, g, jac)
+    ref_jac = jacobian(x)
+    ref_dx = contract(ref_jac, g.float())
+    tag = f"{label} {where}, {g.dtype} cotangent"
+    errs = [chk.equal(f"{tag}: J", jac, ref_jac),
+            chk.equal(f"{tag}: dx", dx, ref_dx),
+            chk.equal(f"{tag}: features = the forward's without J", out,
+                      fwd(x))]
+    for i, (got, ref) in enumerate(zip(tabs, grad(x, g.float()))):
+        errs.append(chk.close(f"{tag}: table gradient {i}", got, ref, 1e-4))
+        chk.no_negative_zero(f"{tag}: table gradient {i}", got)
+    return max(errs)
+
+
+# the launchers that carry a position gradient: the forward with its
+# Jacobian, and the table gradient with the Jacobian's contraction (H12)
+# or the contraction alone (H14)
+DX_LAUNCHERS = {"triplane": ("triplane_fwd_jac", "triplane_bwd_dx"),
+                "tcnn": ("hash_grid_fwd_jac", "hash_grid_contract")}
+NO_DX = "same launcher without the position gradient"
+
+
+def dx_records(layout, err, fwd, bwd, library, bound_fwd, bound_bwd):
+    """The `time_kernels` records of a position gradient's two launchers:
+    `fwd` and `bwd` are (kernel, the launcher without the position
+    gradient or None, plain version) calls on the same inputs, `library`
+    the two yardsticks. The launcher without the position gradient is
+    timed beside each (variant NO_DX), and the position gradient's cost,
+    each launcher's time less that variant's (all of it without one),
+    becomes the second's `dx_cost_ms`."""
+    f, b = DX_LAUNCHERS[layout]
+    rf = dict(err=err, kernel=fwd[0], plain=fwd[2], library=library[0],
+              bound=bound_fwd, variants={NO_DX: fwd[1]})
+    rb = dict(err=err, kernel=bwd[0], plain=bwd[2], library=library[1],
+              bound=bound_bwd, dx_pair=f)
+    if bwd[1] is not None:
+        rb["variants"] = {NO_DX: bwd[1]}
+    return {f: rf, b: rb}
 
 
 def check_triplane_fwd(chk, planes, grid3d, x, spec, where):
@@ -1253,24 +1320,45 @@ def check_kernels(tr, gen):
                        torch.zeros(shapes[1], dtype=f32, device=x.device))),
         bound=bound(nbytes(x, g) + nbytes(planes, grid3d), fwd_flops))
 
-    # H12: the position gradient, f32 and bf16 cotangents, on the batch,
-    # its cuts, the one-cell input and the faces
-    dx_k = lambda xx, gg: tp.encode_dx_kernel(planes, grid3d, xx, gg, spec)
-    dx_p = lambda xx, gg: tp.encode_dx_plain(planes, grid3d, xx, gg, spec)
+    # H12: the position gradient from H2's forward's Jacobian, contracted
+    # in H2's backward; f32 and bf16 cotangents, on the batch, its cuts,
+    # the one-cell input and the faces
+    kern = (lambda xx: tp.encode_jac_kernel(planes, grid3d, xx, spec,
+                                            compute_bf16, out_dt),
+            lambda xx: tp.encode_kernel(planes, grid3d, xx, spec,
+                                        compute_bf16, out_dt),
+            lambda xx, gg, jj: tp.encode_grad_dx_kernel(xx, gg, jj, spec,
+                                                        *shapes))
+    plain = (lambda xx: tp.encode_jacobian_plain(planes, grid3d, xx, spec),
+             lambda jj, gg: tp.contract_plain(jj, gg, spec),
+             lambda xx, gg: tp.encode_grad_plain(xx, gg, spec, *shapes))
     # (drawn apart, so that the later checks keep their inputs)
     xf = face_inputs(x, spec, "triplane",
                      torch.Generator(device=x.device).manual_seed(10))
     derrs = []
     for where, xx in (("batch", x), ("faces", xf)) + edge_inputs(x, xc):
         for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
-            derrs.append(check_dx(chk, "H12 dx", dx_k, dx_p, xx, gg, where))
+            derrs.append(check_dx(chk, "H12", kern, plain, xx, gg, where))
     g_dt = g.to(out_dt)   # the cotangent as a training step hands it
-    rec["triplane_dx"] = dict(
-        err=max(derrs), kernel=(lambda: dx_k(x, g_dt)),
-        plain=(lambda: dx_p(x, g_dt.float())),
-        library=(lambda: torch.index_select(all_rows, 0, rows)),
-        bound=bound(nbytes(x, g_dt) + table_b + 12 * M,
-                    M * TRIPLANE_DX_OPS))
+    jac = kern[0](x)[1]
+    jac_b = M * tp.jac_width(spec) * 4
+    rec.update(dx_records(
+        "triplane", max(derrs),
+        fwd=(lambda: kern[0](x), lambda: kern[1](x),
+             lambda: (tp.encode_plain(planes, grid3d, x, spec,
+                                      compute_bf16).to(out_dt),
+                      plain[0](x))),
+        bwd=(lambda: kern[2](x, g_dt, jac),
+             lambda: tp.encode_grad_kernel(x, g_dt, spec, *shapes),
+             lambda: (plain[2](x, g_dt.float()),
+                      plain[1](jac, g_dt.float()))),
+        library=(lambda: torch.index_select(all_rows, 0, rows),
+                 lambda: d_lib.index_add_(0, lanes, upd)),
+        bound_fwd=bound(nbytes(x) + table_b
+                        + M * out_dim * (2 if compute_bf16 else 4) + jac_b,
+                        fwd_flops + M * TRIPLANE_JAC_OPS),
+        bound_bwd=bound(nbytes(x, g_dt) + nbytes(planes, grid3d) + jac_b
+                        + 12 * M, fwd_flops + M * 2 * tp.jac_width(spec))))
 
     # H3 and H4 at two inputs: the untrained field's sigmas (the main
     # path's; no ray reaches T_threshold there), and the same sigmas scaled
@@ -1308,9 +1396,11 @@ def check_kernels(tr, gen):
             errs[k].append(e)
         if tag == "main":   # timed and bounded at the main path's input
             ma, mda, mgot = ca, da, got
-    # H3's backward at K = 1, 16 and 32 (lane groups of 1, 16 and 32), on
-    # N rays (a ragged last block at each K), one ray and none
-    for k in (1, 16, 32):
+    # H3's backward at K = 1, 16 and 32 (lane groups of 1, 16 and 32) and
+    # at K = 33, 64 and 128 (the long kernel: a warp a ray, two chunks of
+    # 32, the second of one sample; two; four), on N rays (a ragged last
+    # block at each K), one ray and none
+    for k in BWD_KS:
         kca, kgs = composite_case(N, k, C, gen)
         for n in (N, 1, 0):
             cut = tuple(t[:n] for t in kca) + (thr,)
@@ -1548,14 +1638,17 @@ PATH_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
                 "distortion_fwd", "distortion_bwd", "march_sv_train")
 P4_POINTS = 262_144   # experiments/pallas_gather2.py: M = 8192 rays x 32
 ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
-# f32 operations of the position gradients: per (sample, level) of H13 /
-# H14, the geometry (20), each of 8 corners' dot (3) and its 3 axis terms
-# (4 each), the scale and the level sum (6); per sample of H12, each
-# plane's 32 products and sums, 4 corners x 2 axes (3 each), the grid's 32
-# and 8 x 3 (4 each), and the geometry of the 4 tables (40)
+# f32 operations of the position gradients: per (sample, level) of H13,
+# the geometry (20), each of 8 corners' dot (3) and its 3 axis terms (4
+# each), the scale and the level sum (6); the Jacobians' beyond the
+# forward's, per (sample, level) of H14 the 3 axes' 4 weight-derivative
+# products (2 each) and 8 corners x 3 axes x 2 features' product and sum;
+# per sample of H12 each plane's 4 corners x 2 axes (a sign) and 8
+# features x 2 axes x (4 products and sums, a scale), grid3d's 8 corners'
+# 3 products and 4 features x 3 axes x (8 products and sums, a scale)
 DX_OPS = 20 + 8 * (3 + 3 * 4) + 6
-TRIPLANE_DX_OPS = 3 * (64 + 4 * 2 * 3) + (64 + 8 * 3 * 4) + 40
-DX_TOL = 1e-6   # kernel against plain: the same chains of f32 operations
+HASH_JAC_OPS = 3 * 4 * 2 + 8 * 3 * 2 * 2
+TRIPLANE_JAC_OPS = 3 * (4 * 2 + 8 * 2 * (4 * 2 + 1)) + (8 * 3 + 4 * 3 * (8 * 2 + 1))
 
 
 def encode_module(layout):
@@ -1689,22 +1782,57 @@ def check_encoding(tr, gen):
         bound=bound(nbytes(x, g, table), ops))}
     # H13 / H14: the position gradient, f32 and bf16 cotangents, on the
     # batch, its cuts, the one-cell input and the faces (drawn apart)
-    dxl = {"brick": "brick_dx", "tcnn": "hash_grid_dx"}[layout]
-    dx_k = lambda xx, gg: mod.encode_dx_kernel(table, xx, gg, spec)
-    dx_p = lambda xx, gg: mod.encode_dx_plain(table, xx, gg, spec)
     xf = face_inputs(x, spec, layout,
                      torch.Generator(device=x.device).manual_seed(10))
-    derrs = []
-    for where, xx in (("batch", x), ("faces", xf)) + edge_inputs(x, xc):
-        for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
-            derrs.append(check_dx(chk, f"{LABEL[dxl]} dx", dx_k, dx_p, xx,
-                                  gg, where))
+    wheres = (("batch", x), ("faces", xf)) + edge_inputs(x, xc)
     g_dt = g.to(out_dt)   # the cotangent as a training step hands it
-    rec[dxl] = dict(
-        err=max(derrs), kernel=(lambda: dx_k(x, g_dt)),
-        plain=(lambda: dx_p(x, g_dt.float())),
-        library=(lambda: torch.index_select(src, 0, rows)),
-        bound=bound(nbytes(x, g_dt) + touched + 12 * M, M * L * DX_OPS))
+    derrs = []
+    if layout == "brick":   # H13: a launch of its own
+        dx_k = lambda xx, gg: mod.encode_dx_kernel(table, xx, gg, spec)
+        dx_p = lambda xx, gg: mod.encode_dx_plain(table, xx, gg, spec)
+        for where, xx in wheres:
+            for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
+                got, ref = dx_k(xx, gg), dx_p(xx, gg.float())
+                log(f"  H13 dx {where}, {gg.dtype} cotangent: "
+                    f"{int((got != ref).sum())} of {ref.numel()} values "
+                    f"differ from the plain version")
+                derrs.append(chk.close(f"H13 dx {where}, {gg.dtype} "
+                                       f"cotangent", got, ref, 1e-6))
+        rec["brick_dx"] = dict(
+            err=max(derrs), kernel=(lambda: dx_k(x, g_dt)),
+            plain=(lambda: dx_p(x, g_dt.float())),
+            library=(lambda: torch.index_select(src, 0, rows)),
+            bound=bound(nbytes(x, g_dt) + touched + 12 * M, M * L * DX_OPS))
+    else:   # H14: H7's Jacobian, contracted in a launch of its own
+        kern = (lambda xx: mod.encode_jac_kernel(table, xx, spec, out_dt),
+                lambda xx: mod.encode_kernel(table, xx, spec, out_dt),
+                lambda xx, gg, jj: (mod.encode_grad_kernel(xx, gg, spec),
+                                    mod.contract_kernel(jj, gg, spec)))
+        plain = (lambda xx: mod.encode_jacobian_plain(table, xx, spec),
+                 mod.contract_plain,
+                 lambda xx, gg: (mod.encode_grad_plain(xx, gg, spec),))
+        for where, xx in wheres:
+            for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
+                derrs.append(check_dx(chk, "H14", kern, plain, xx, gg,
+                                      where))
+        jac = kern[0](x)[1]
+        jac_b = M * 3 * spec.out_dim * 4
+        rec.update(dx_records(
+            layout, max(derrs),
+            fwd=(lambda: kern[0](x), lambda: kern[1](x),
+                 lambda: (mod.encode_plain(table, x, spec).to(out_dt),
+                          plain[0](x))),
+            bwd=(lambda: mod.contract_kernel(jac, g_dt, spec), None,
+                 lambda: plain[1](jac, g_dt.float())),
+            library=(lambda: torch.index_select(src, 0, rows),
+                     lambda: torch.einsum("mk,mka->ma", g_dt.float(),
+                                          jac.view(M, -1, 3))),
+            bound_fwd=bound(nbytes(x) + touched + jac_b
+                            + M * spec.out_dim * (2 if out_dt == bf16
+                                                  else 4),
+                            ops + M * L * HASH_JAC_OPS),
+            bound_bwd=bound(nbytes(g_dt) + jac_b + 12 * M,
+                            M * 2 * 3 * spec.out_dim)))
     if layout == "brick":
         # P4's shape: the (16, 8192, 128) table and 262,144 points, whose
         # rows P4 gathers whole into a (16, 262144, 128) f32 array
@@ -2770,27 +2898,39 @@ def segment_case(longest, C, gen):
 
 
 def check_seg_lengths(chk, C, thr, gen):
-    """H3's segment backward on segments of every length 0..32
-    (`segment_case`) against its plain version (the tolerances of
-    `check_composite_bwd`), `max_len` read from the counts as in
-    training; d_raws bit for bit g_rend (x) the segment forward's own ws.
-    Returns the largest error."""
+    """H3's segment backward on segments of every length
+    0..SEG_BWD_LONGEST (`segment_case`; past 32 samples the long kernel's
+    chunks) against its plain version (the tolerances of
+    `check_composite_bwd`), `max_len` read from the counts as the plain
+    path does; d_sigmas bit for bit `composite_grad_serial` on the
+    segments laid out as dense rows and 0 outside them, d_raws bit for
+    bit g_rend (x) the segment forward's own ws. Returns the largest
+    error."""
     from normal_clustering_nerf_torch.ops import composite as cp
     (sig, raws, dt, ts), (count, start, rid, used, valid), g = segment_case(
-        32, C, gen)
-    N, B = count.shape[0], sig.shape[0]
-    log(f"H3 segment backward, every length 0..32: N={N} B={B} C={C}")
+        SEG_BWD_LONGEST, C, gen)
+    N, B, dev = count.shape[0], sig.shape[0], gen.device
+    log(f"H3 segment backward, every length 0..{SEG_BWD_LONGEST}: N={N} "
+        f"B={B} C={C}")
     ref = cp.composite_compact_grad_plain(sig, raws, dt, ts, rid, start,
                                           valid, N, thr, *g)
     ws = cp.composite_compact_kernel(sig, raws, dt, ts, start, count, valid,
                                      thr)[3]
     got = cp.composite_compact_grad_kernel(sig, raws, dt, ts, start, count,
                                            valid, thr, *g)
-    want = torch.where(used[:, None], g[2][rid.long()] * ws[:, None], 0.0)
+    inside, slot = segment_slots_2d(count, start, SEG_BWD_LONGEST)
+    rows = [x[slot] for x in (sig, raws, dt, ts)] + [valid[slot] & inside]
+    ser = composite_grad_serial(*rows, thr, *g[:3],
+                                torch.where(inside, g[3][slot], 0.0))
+    want = torch.zeros(B, device=dev)
+    want[slot[inside]] = ser[inside]
     return max(chk.close("d_sigmas", got[0], ref[0], 1e-4),
                chk.close("d_raws", got[1], ref[1], 1e-5),
+               chk.equal("d_sigmas = serial order, 0 outside the segments",
+                         got[0], want),
                chk.equal("d_raws = g_rend x H3 segment fwd's ws", got[1],
-                         want))
+                         torch.where(used[:, None],
+                                     g[2][rid.long()] * ws[:, None], 0.0)))
 
 
 def segment_slots_2d(count, start, width):
@@ -2803,9 +2943,10 @@ def segment_slots_2d(count, start, width):
 
 
 # (max_len, longest segment): the flat march's cap at the bench's 16 samples
-# a ray and at the 32 of a configuration without a sample budget, over
-# segments all shorter than it
-SEG_CAP_CASES = ((16, 7), (16, 15), (32, 16), (32, 31))
+# a ray, at the 32 of a configuration without a sample budget and at the
+# 64 of a rank of four cards under the bench's budget, over segments all
+# shorter than it
+SEG_CAP_CASES = ((16, 7), (16, 15), (32, 16), (32, 31), (64, 33), (64, 63))
 
 
 def check_seg_cap(chk, C, thr, gen):
@@ -2930,6 +3071,11 @@ def check_seg_distortion_lengths(chk, gen):
 # H3's channel counts past one tile of BWD_TILE = 16 channels: 16 + 1; 3 +
 # 3 + 40, a pred_sem run on NYU40's classes; 101 sums, four forward passes
 WIDE_C = (17, 46, 99)
+# H3 backward's row lengths in the checks: lane groups of 1, 16 and 32
+# lanes, and the long kernel's chunks of 32 (two, the second of one
+# sample; two; four)
+BWD_KS = (1, 16, 32, 33, 64, 128)
+SEG_BWD_LONGEST = 128   # the segment backward's longest segment
 SEM_CLASSES = 40   # NYU40's classes (Hypersim's n_valid_classes_scene bound)
 WIDE_TIMED = 3 + 3 + SEM_CLASSES
 WIDE_ROWS = 8190   # the bench batch's rays (2730 triangles)
@@ -2972,10 +3118,10 @@ def check_many_channels(rec, gen, thr):
     (`composite_case`, `segment_case`): the dense forward at K = 1, 16, 33
     and 64 with and without T_start (WIDE_ROWS rays and one:
     `check_composite_fwd`, bit for bit the serial order), the dense
-    backward at K = 1, 16 and 32 (`check_composite_bwd`, d_sigmas bit for
-    bit `composite_grad_serial`), the segment backward on every length
-    0..32 and the segment forward on every length 0..64 with and without
-    T_start. Adds each launcher's largest error to `rec`; at WIDE_TIMED
+    backward at BWD_KS (WIDE_ROWS rays, one and none:
+    `check_composite_bwd`, d_sigmas bit for bit `composite_grad_serial`),
+    the segment backward on every length 0..SEG_BWD_LONGEST and the
+    segment forward on every length 0..64 with and without T_start. Adds each launcher's largest error to `rec`; at WIDE_TIMED
     channels and the bench's shape (WIDE_ROWS rays, K 16; the segments
     those rows of 16 slots) gives each launcher its "wide" entry, timed
     in phase 6."""
@@ -3000,9 +3146,9 @@ def check_many_channels(rec, gen, thr):
                         f"early {int((ref[4] < cut[4].sum(1)).sum())}")
                     errs["composite_fwd"].append(
                         check_composite_fwd(chk, cut, got, ref))
-        for k in (1, 16, 32):
+        for k in BWD_KS:
             kca, kgs = composite_case(N, k, C, gen)
-            for n in (N, 1):
+            for n in (N, 1, 0):
                 log(f"H3 backward, C={C}: N={n} K={k}")
                 errs["composite_bwd"].append(check_composite_bwd(
                     chk, tuple(t[:n] for t in kca) + (thr,),
@@ -3080,10 +3226,15 @@ REPLACES = {
     "composite_seg_bwd": "normal_clustering_nerf_tpu/ops/composite.py:86",
     "distortion_seg_fwd": "normal_clustering_nerf_tpu/ops/distortion.py:19",
     "distortion_seg_bwd": "normal_clustering_nerf_tpu/ops/distortion.py:19",
-    # the need_dx branches of the encodes' custom VJPs
-    "triplane_dx": "normal_clustering_nerf_tpu/models/triplane.py:230",
+    # the need_dx branches of the encodes' custom VJPs: H12 and H14 from
+    # the forward's Jacobian, contracted in the table gradient's launch
+    "triplane_fwd_jac": "normal_clustering_nerf_tpu/models/triplane.py:230",
+    "triplane_bwd_dx": "normal_clustering_nerf_tpu/models/triplane.py:230",
     "brick_dx": "normal_clustering_nerf_tpu/models/brick_hash.py:225",
-    "hash_grid_dx": "normal_clustering_nerf_tpu/models/hash_encoding.py:228",
+    "hash_grid_fwd_jac":
+        "normal_clustering_nerf_tpu/models/hash_encoding.py:228",
+    "hash_grid_contract":
+        "normal_clustering_nerf_tpu/models/hash_encoding.py:228",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
@@ -3094,7 +3245,9 @@ LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "march_fine_test_round": "H10", "compact_samples": "H11",
          "composite_seg_fwd": "H3", "composite_seg_bwd": "H3",
          "distortion_seg_fwd": "H4", "distortion_seg_bwd": "H4",
-         "triplane_dx": "H12", "brick_dx": "H13", "hash_grid_dx": "H14"}
+         "triplane_fwd_jac": "H12", "triplane_bwd_dx": "H12",
+         "brick_dx": "H13", "hash_grid_fwd_jac": "H14",
+         "hash_grid_contract": "H14"}
 
 
 def time_kernels(rec):
@@ -3135,6 +3288,17 @@ def time_kernels(rec):
             log(f"  {name} at {w['shape']}: {r['c46_ms']:.4f} ms, plain "
                 f"{r['c46_plain_ms']:.4f} (bound {w['bound'][0]:.6f}, "
                 f"{w['bound'][1]})")
+        if "k64" in r:
+            k = r.pop("k64")
+            r["k64_shape"] = k["shape"]
+            r["k64_launches"] = k["launches"]
+            r["k64_ms"] = device_ms(k["kernel"], f"{name} K 64")
+            r["k64_plain_ms"] = device_ms(k["plain"], f"{name} K 64 plain")
+            r["k64_bound_ms"] = k["bound"][0]
+            log(f"  {name} at {k['shape']} ({k['launches']} launches on the "
+                f"K64 path): {r['k64_ms']:.4f} ms, plain "
+                f"{r['k64_plain_ms']:.4f} (bound {k['bound'][0]:.6f}, "
+                f"{k['bound'][1]})")
         if "cascades" in r:
             c = r.pop("cascades")
             r["cascades_shape"] = c["shape"]
@@ -3167,6 +3331,16 @@ def time_kernels(rec):
                 f"{P2_STEPS}: {r['p2_ms']:.4f} ms (bound "
                 f"{r['p2_bound_ms']:.4f}, {p2['bound'][1]}); P2's form in "
                 f"torch on precomputed cells: {r['p2_library_ms']:.4f} ms")
+    for name, r in rec.items():
+        if "dx_pair" in r:
+            f = rec[r["dx_pair"]]
+            own = r.get("variants_ms", {}).get(NO_DX, 0.0)
+            r["dx_cost_ms"] = (f["ms"] - f["variants_ms"][NO_DX]
+                               + r["ms"] - own)
+            log(f"  {LABEL[name]}'s position gradient: {r['dx_cost_ms']:.4f} "
+                f"ms = {r.pop('dx_pair')} {f['ms']:.4f} - "
+                f"{f['variants_ms'][NO_DX]:.4f} without the Jacobian + "
+                f"{name} {r['ms']:.4f} - {own:.4f} without the contraction")
     log("  timed from a CUDA graph: every call"
         + (f" but {', '.join(QUEUED)} (timed queued)" if QUEUED else ""))
 
@@ -3416,10 +3590,13 @@ def ext_path(launches):
     """The slice's path, extrinsic optimisation (EXT_OPTIM): the step
     parity with dR / dT / dR_glob for the three fields; `check_flat_rays`;
     the bench configuration with EXT_OPTIM through `Trainer.fit` for STEPS
-    steps (H12 once a step, K1 SV_STEPS times), its pose deltas
-    (`check_pose_deltas`) and `validate`; then EXT_LAYOUT_STEPS ext steps
-    of the brick (H13) and the tcnn field (H14) at the bench
-    configuration. Returns the triplane trainer and fit's ms/step."""
+    steps (H12 once a step: H2's forward with the Jacobian and H2's
+    backward with its contraction, never H2's backward without it; K1
+    SV_STEPS times), its pose deltas (`check_pose_deltas`) and `validate`;
+    then EXT_LAYOUT_STEPS ext steps of the brick (H13) and the tcnn field
+    (H14: H7 with the Jacobian, and its contraction beside H8) at the
+    bench configuration. Returns the triplane trainer and fit's
+    ms/step."""
     from normal_clustering_nerf_torch.bench import bench_config, build_trainer
     for layout in ("triplane", "brick", "tcnn"):
         step_parity(layout, seed=23, ext=True)
@@ -3429,10 +3606,12 @@ def ext_path(launches):
     log(f"phase 3, ext: {STEPS} training steps through Trainer.fit with "
         f"{EXT_OPTIM} ({tr.scene_train.n_images} images' dR and dT)")
     start = {k: p.detach().clone() for k, p in tr.params.items()}
+    jac_fwd, bwd_dx = DX_LAUNCHERS["triplane"]
     ms, _ = path_training(
         tr, "ext", launches,
-        PATH_KERNELS + FIELD_KERNELS["triplane"] + ("triplane_dx",),
-        {"march_sv_train": SV_STEPS, "triplane_dx": STEPS})
+        PATH_KERNELS + ("triplane_fwd", jac_fwd, bwd_dx),
+        {"march_sv_train": SV_STEPS, jac_fwd: STEPS, bwd_dx: STEPS,
+         "triplane_bwd": 0})
     check_pose_deltas(tr, start, STEPS)
     for name, c in validate(tr, "ext", ("march_sv_test_round",
                                         "triplane_fwd",
@@ -3442,12 +3621,19 @@ def ext_path(launches):
         tl = build_trainer(ext_config(bench_config(hash_layout=layout)),
                            device="cuda")
         tl.mark_invisible_cells()
-        dx = {"brick": "brick_dx", "tcnn": "hash_grid_dx"}[layout]
+        fwd, bwd = FIELD_KERNELS[layout]
+        if layout == "brick":
+            need, exact = (fwd, bwd, "brick_dx"), {"brick_dx":
+                                                   EXT_LAYOUT_STEPS}
+        else:   # H8 as without ext, H7 with the Jacobian, the contraction
+            jac_fwd, contract = DX_LAUNCHERS[layout]
+            need = (fwd, bwd, jac_fwd, contract)
+            exact = {jac_fwd: EXT_LAYOUT_STEPS, contract: EXT_LAYOUT_STEPS,
+                     bwd: EXT_LAYOUT_STEPS}
         log(f"phase 3, {layout} ext: {EXT_LAYOUT_STEPS} training steps")
         start = {k: p.detach().clone() for k, p in tl.params.items()}
         path_training(tl, f"{layout} ext", launches,
-                      FIELD_KERNELS[layout] + (dx, "march_bootstrap"),
-                      {dx: EXT_LAYOUT_STEPS},
+                      need + ("march_bootstrap",), exact,
                       phases=(("bootstrap", EXT_LAYOUT_STEPS),))
         check_pose_deltas(tl, start, EXT_LAYOUT_STEPS)
     return tr, ms
@@ -4580,6 +4766,68 @@ def sem40_path(launches, smi):
     return tr, ms
 
 
+# ------------------------------------------------------- rows of 64 samples
+K64_SPR = 64     # samples a ray: a rank's rows at --num_chips 4 under the
+                 # bench's budget (the global batch's, as JAX's bench.py:62)
+K64_STEPS = 64   # the path's counted steps: the bootstrap march, 4 chunks
+
+
+def k64_path(rec, launches, gen):
+    """The bench configuration at samples_per_ray K64_SPR on one card (a
+    budget of 8192 x 64, rows of 64 samples: what each rank marches at
+    --num_chips 4): H3's backward on the path's own inputs (a bootstrap
+    batch's march and field, `main_path_inputs`) bit for bit its serial
+    order (`check_composite_bwd`), timed with its bound ("k64_*" keys of
+    composite_bwd); then K64_STEPS counted steps through `Trainer.fit` (a
+    CUDA graph captured and replayed), the loss falling, H3's backward
+    launched once a step, each launch on rows of K64_SPR samples (the long
+    kernel). Returns the trainer and fit's ms/step."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    from normal_clustering_nerf_torch.models.rendering import (
+        train_march_args)
+    from normal_clustering_nerf_torch.ops import composite as cp
+    tr = build_trainer(bench_config(samples_per_ray=K64_SPR), device="cuda")
+    tr.mark_invisible_cells()
+    cfg = tr.cfg
+    K = train_march_args(cfg.model, cfg.render, cfg.data.batch_size,
+                         "bootstrap")["samples_per_ray"]
+    if K != K64_SPR:
+        raise RuntimeError(f"K64 path: the march's rows are {K} samples")
+    inp = main_path_inputs(tr, gen)
+    N, mr = inp["N"], inp["mr"]
+    ca = (inp["sigmas"], inp["raws"], mr.dt, mr.t, mr.valid,
+          cfg.render.T_threshold)
+    C = ca[1].shape[-1]
+    gs = (torch.randn(N, generator=gen, device="cuda"),
+          torch.randn(N, generator=gen, device="cuda"),
+          torch.randn((N, C), generator=gen, device="cuda"),
+          torch.randn((N, K), generator=gen, device="cuda"))
+    log(f"K64 path: H3's backward on a bootstrap batch's rows, N={N} K={K} "
+        f"C={C}, {int(mr.valid.sum())} valid samples")
+    chk = Check()
+    err = check_composite_bwd(chk, ca, gs)
+    chk.done("K64 path, H3 backward")
+    rec["composite_bwd"]["err"] = max(rec["composite_bwd"]["err"], err)
+    flops = N * K * (10 + 2 * C)
+    rec["composite_bwd"]["k64"] = dict(
+        shape=f"N {N}, K {K}, C {C}",
+        kernel=(lambda: cp.composite_grad_kernel(*ca, *gs)),
+        plain=(lambda: cp.composite_grad_plain(*ca, *gs)),
+        bound=bound(nbytes(*ca[:5], *gs) + nbytes(ca[0], ca[1]),
+                    2 * flops + N * K * C * 3))
+    log(f"phase 3, K64: {K64_STEPS} training steps through Trainer.fit, "
+        f"samples_per_ray {K64_SPR}")
+    ms, _ = path_training(
+        tr, "K64", launches,
+        ("march_bootstrap", "composite_fwd", "composite_bwd")
+        + FIELD_KERNELS["triplane"], {"composite_bwd": K64_STEPS},
+        phases=(("bootstrap", K64_STEPS),))
+    if not tr.captures:
+        raise RuntimeError("K64 path: no CUDA graph captured")
+    rec["composite_bwd"]["k64"]["launches"] = K64_STEPS
+    return tr, ms
+
+
 # ------------------------------------------------------ the cascades path
 def cascade_timing(tc, gen):
     """H1, H9 and H10 at the cascades path's shapes, on its trained
@@ -5422,6 +5670,7 @@ def main():
         paths[layout] = tl
     paths["ext"], fit_ms["ext"] = ext_path(launches)
     paths["sem40"], fit_ms["sem40"] = sem40_path(launches, smi)
+    paths["k64"], fit_ms["k64"] = k64_path(rec, launches, gen)
     paths["host"], fit_ms["host"] = host_path(launches)
     paths["cascades"], fit_ms["cascades"] = cascades_path(rec, launches, gen,
                                                           smi)
@@ -5482,7 +5731,10 @@ def main():
                                           "cascades_shape",
                                           "cascades_launches", "cascades_ms",
                                           "cascades_plain_ms",
-                                          "cascades_bound_ms")
+                                          "cascades_bound_ms", "dx_cost_ms",
+                                          "k64_shape", "k64_launches",
+                                          "k64_ms", "k64_plain_ms",
+                                          "k64_bound_ms")
                   if key in r})
         out.append(o)
     print("kernels: " + ", ".join(f"{o['name']} {o['ms']:.4f} ms "

@@ -64,8 +64,6 @@ WARM_STEPS = 600      # past the occupancy warmup (256) and the bootstrap (512)
 TIMED_STEPS = 200
 TOTAL_STEPS = 4000    # the clustering ramp (500 + 2500) plus 1000 steps
 BASELINE_RAYS_PER_S = 0.25e6   # the reference on an RTX 2080 Ti (BASELINE.md)
-# H3's backward (and its segment launcher) takes at most 32 samples a ray
-MAX_SAMPLES_PER_RAY = 32
 HISTORY = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "bench_history_torch.jsonl")
 REGRESSION_PCT = 10.0   # the warning's threshold (bench.py:309)
@@ -81,11 +79,10 @@ def bench_config(batch: int = 8192, samples_per_ray: int = 16,
     avoid_near annealing over 600 steps, the production loss weights (rgb
     and opacity only with `min_losses`), the triangle sampler with 3-pixel
     legs, 4 epochs of 1000 steps, the rays over `num_chips` ranks. The
-    march budget is a rank's batch times `samples_per_ray`, so that every
-    rank marches `samples_per_ray` samples a ray (JAX's bench gives every
-    chip the budget of the global batch, `bench.py:62`: its chips march
-    N times the samples a ray, 64 at 4 chips, past the 32 that H3's
-    backward takes)."""
+    march budget is the global batch times `samples_per_ray` on every
+    rank, as `bench.py:62` sets it: a rank marches budget // its rays
+    samples a ray, `num_chips` times `samples_per_ray` (64 at 4 cards
+    and the default 16)."""
     loss = (LossConfig(opacity_w=1e-3) if min_losses else LossConfig(
         opacity_w=1e-3, distortion_w=1e-3, norm_D_C_ort_dot_w=2e-3,
         norm_D_C_centr_dot_w=2e-3, norm_D_C_centr_L1_w=2e-3,
@@ -98,8 +95,7 @@ def bench_config(batch: int = 8192, samples_per_ray: int = 16,
                           compute_dtype=compute_dtype,
                           hash_layout=hash_layout),
         render=RenderConfig(march_block=1024,
-                            sample_budget=batch // num_chips
-                            * samples_per_ray,
+                            sample_budget=batch * samples_per_ray,
                             sv_intervals=sv_intervals,
                             anneal_strategy="avoid_near", anneal_steps=600),
         loss=loss,
@@ -213,9 +209,7 @@ def parse_args(argv=None):
                     choices=["brick", "tcnn", "triplane"])
     ap.add_argument("--batch", type=int, default=8192)
     ap.add_argument("--samples_per_ray", type=int, default=16,
-                    help="static march budget per ray; the port refuses "
-                         f"more than {MAX_SAMPLES_PER_RAY} (H3's backward "
-                         "takes at most 32 samples a ray)")
+                    help="static march budget per ray of the global batch")
     ap.add_argument("--sv_intervals", type=int, default=24)
     ap.add_argument("--min_losses", action="store_true",
                     help="rgb+opacity losses only (loss-block cost probe)")
@@ -226,9 +220,6 @@ def parse_args(argv=None):
                     help="split the batch's rays over N cards and report "
                          "the scaling efficiency")
     args = ap.parse_args(argv)
-    if args.samples_per_ray > MAX_SAMPLES_PER_RAY:
-        ap.error(f"--samples_per_ray {args.samples_per_ray}: the port "
-                 f"takes at most {MAX_SAMPLES_PER_RAY}")
     if args.num_chips < 1:
         ap.error(f"--num_chips {args.num_chips}: one card or more")
     return args

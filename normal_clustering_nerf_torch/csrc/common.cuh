@@ -58,6 +58,38 @@ __device__ __forceinline__ void ncn_stage(const void* __restrict__ src, int n,
   }
 }
 
+// Rows of `width` floats (a multiple of 4) of src, one after another, into
+// shared memory rows `stride` floats apart (a multiple of 4), by threads
+// tid < nt, 16 bytes a copy with cp.async: no registers hold the data, so
+// the copies run on while the threads go on; `ncn_async_wait` waits for
+// the thread's own copies (a barrier after it makes them the block's).
+// The lines are marked first to leave the L2 (evict_first): data read
+// once must not push out what a kernel's atomics reuse there. src and dst
+// must be 16-byte aligned.
+__device__ __forceinline__ void ncn_stage_async(const float* __restrict__ src,
+                                                int rows, int width,
+                                                int stride, float* dst,
+                                                int tid, int nt) {
+  unsigned long long policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  const int per = width / 4;
+  for (int q = tid; q < rows * per; q += nt) {
+    const int i = q / per, w = q - i * per;
+    const unsigned d = static_cast<unsigned>(
+        __cvta_generic_to_shared(dst + i * stride + 4 * w));
+    asm volatile(
+        "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
+        ::"r"(d), "l"(src + static_cast<long long>(i) * width + 4 * w),
+        "l"(policy)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void ncn_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 __device__ __forceinline__ unsigned ncn_pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const unsigned*>(&h);
@@ -67,7 +99,10 @@ __device__ __forceinline__ unsigned ncn_pack_bf16(float lo, float hi) {
 // `stride` floats apart) written contiguously to dst as f32, or rounded
 // once to bf16 when BF16, by the block's threads tid < nt: 16-byte stores
 // where dst is 16-byte aligned.
-template <bool BF16>
+// With STREAM the 16-byte stores are streaming ones (st.global.cs): data
+// that no kernel reads again soon should not push out of the L2 what the
+// kernel's own loads reuse.
+template <bool BF16, bool STREAM = false>
 __device__ __forceinline__ void ncn_unstage(const float* src, int n, int width,
                                             int stride, void* __restrict__ dst,
                                             int tid, int nt) {
@@ -89,7 +124,10 @@ __device__ __forceinline__ void ncn_unstage(const float* src, int n, int width,
       else
         u = make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
                        __float_as_uint(v[2]), __float_as_uint(v[3]));
-      reinterpret_cast<uint4*>(dst)[i] = u;
+      if constexpr (STREAM)
+        __stcs(reinterpret_cast<uint4*>(dst) + i, u);
+      else
+        reinterpret_cast<uint4*>(dst)[i] = u;
     }
     done = words * PER16;
   }

@@ -82,17 +82,34 @@
 // + BWD_TILE in the backward, whatever C. Below those counts both run
 // the designs above, compiled as before.
 //
+// Rows of any length. The backward's lane groups take rows of at most
+// LANE_ROWS = 32 samples (the main path's K 16). A longer row (K 64 a
+// rank when four cards split the bench's batch under the global budget,
+// as JAX's bench sets it; the flat layout's longer segments) goes to
+// `composite_bwd_long_kernel`: a warp a ray, in chunks of 32 samples, two
+// passes. Front to back, the prefix csum is carried across chunks as the
+// forward's `carry` is, so T, w and G are the lane kernel's; a chunk's
+// d_raws are written at once, G*T*exp(-x) goes to d_sigmas and G*w to a
+// scratch row the wrapper allocates (two values a sample: the walk back
+// reads both). Back to front, the suffix of G*w is chained through each
+// chunk starting from the sum carried in from the chunk after, so every
+// addition is the serial order's. Shared memory holds one chunk, so it
+// does not grow with K; device memory holds the two values a sample,
+// which one lane writes and reads again, so no fence is needed. At N
+// 8190, K 64, C 9 it takes 0.0323 ms against 0.0147 of bytes (~49 MB
+// moved; one H100 80GB HBM3, 700.00 W): a warp's two chains a chunk, and
+// its walk back, are dependent latencies, as the lane kernel's are.
+//
 // The segment launchers (`composite_seg_fwd` / `composite_seg_bwd`)
 // replace the flat layout's `composite_rays_compact` (ops/composite.py:
 // 86-144) with the same bodies over ray-major segments instead of dense
-// rows (a segment of 0..32 samples in the backward, any length in the
-// forward, the lanes past it masked); they keep JAX's per-ray math and
-// not its global cumsum minus segment base.
+// rows (segments of any length, the lanes past one masked); they keep
+// JAX's per-ray math and not its global cumsum minus segment base.
 #include "common.cuh"
 
 namespace {
 
-constexpr int MAXK = 32;
+constexpr int LANE_ROWS = 32;   // the longest row of the lane-group backward
 constexpr float SIGDT_MAX = 80.0f;
 
 // The rows a launcher reads: dense (N, K) rows, or the flat layout's
@@ -407,8 +424,9 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
   float* gr = wsh + gw;                         // the tile's g_rend
   const bool live = n < N;
   const size_t b = live ? rows.base(n) : 0;
-  // the launchers refuse rows longer than max_len <= gw; the clamp keeps
-  // the lanes in bounds whatever the counts hold
+  // the launchers send rows longer than LANE_ROWS to the long kernel, so
+  // max_len <= gw; the clamp keeps the lanes in bounds whatever the
+  // counts hold
   const int len = live ? min(rows.len(n), max_len) : 0;
   const float* g_row = g_rend + static_cast<size_t>(n) * C;
   auto stage = [&](int c0) {   // channels [c0, c0 + tc) of the ray
@@ -476,6 +494,129 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
     store_d_raws(d_raws + b * C, len * C, C, WIDE ? g_row : gr, wsh, s, gw);
 }
 
+// H3 backward past LANE_ROWS samples (the file note): a warp a ray, lane
+// s = sample c0 + s of each chunk [c0, c0 + 32). Pass 1 carries the
+// prefix csum across the chunks, writes each chunk's d_raws and keeps
+// G*T*exp(-x) in d_sigmas and G*w in `gwb`; pass 2 walks the chunks back
+// to front with the suffix of G*w carried in from the chunk after. The
+// channels are staged as in `composite_bwd_kernel`: all C at once, or
+// BWD_TILE at a time with WIDE.
+template <class Rows, bool WIDE>
+__global__ void __launch_bounds__(BWD_THREADS) composite_bwd_long_kernel(
+    const float* __restrict__ sigmas, const float* __restrict__ raws,
+    const float* __restrict__ deltas, const float* __restrict__ ts,
+    const uint8_t* __restrict__ valid, const float* __restrict__ g_op,
+    const float* __restrict__ g_depth, const float* __restrict__ g_rend,
+    const float* __restrict__ g_ws, Rows rows, int N, int C, int max_len,
+    float thr, float* __restrict__ d_sigmas, float* __restrict__ d_raws,
+    float* __restrict__ gwb) {
+  extern __shared__ float sm[];
+  const int s = threadIdx.x & 31, grp = threadIdx.x >> 5;
+  const int n = blockIdx.x * (blockDim.x >> 5) + grp;
+  if (n >= N) return;   // the whole warp: it is one ray
+  const int tw = WIDE ? BWD_TILE : C;
+  float* rs = sm + grp * (32 * tw + 32 + tw);   // a tile of a chunk's raws
+  float* wsh = rs + 32 * tw;                    // the chunk's w_s
+  float* gr = wsh + 32;                         // the tile's g_rend
+  const size_t b = rows.base(n);
+  const int len = min(rows.len(n), max_len);
+  const float* g_row = g_rend + static_cast<size_t>(n) * C;
+  const float gop = g_op[n], gdep = g_depth[n];
+  if (!WIDE)   // all C channels, read before the first chunk's sums
+    for (int c = s; c < C; c += 32) gr[c] = g_row[c];
+  const int n_chunks = (len + 31) / 32;
+  float carry = 0.0f;   // csum of the samples before the chunk
+  for (int ch = 0; ch < n_chunks; ++ch) {
+    const int c0 = ch * 32, clen = min(32, len - c0);
+    const float* rows_c = raws + (b + c0) * C;
+    auto stage = [&](int k0) {   // channels [k0, k0 + tc) of the chunk
+      if (!WIDE) {
+        ncn_stage<false>(rows_c, clen * C, C, C, rs, s, 32);
+      } else {
+        const int tc = min(tw, C - k0);
+        stage_tile(rows_c + k0, clen, tc, C, rs, s, 32);
+        for (int c = s; c < tc; c += 32) gr[c] = g_row[k0 + c];
+      }
+    };
+    stage(0);
+    const size_t bs = b + c0 + s;
+    const bool in = s < clen;
+    bool v = false;
+    float sig = 0.0f, del = 0.0f;
+    if (in) {
+      v = valid[bs];
+      sig = sigmas[bs];
+      del = deltas[bs];
+    }
+    const float x = clipped(sig, del, v);
+    float csum = __fadd_rn(carry, x);   // carry + x_c0 + ... + x_s, in order
+    for (int k = 1; k < clen; ++k) {
+      const float prev = __shfl_up_sync(FULL, csum, 1);
+      if (s == k) csum = __fadd_rn(prev, x);
+    }
+    carry = __shfl_sync(FULL, csum, clen - 1);
+    const float T = expf(-__fsub_rn(csum, x));
+    const bool inc = v && T > thr;
+    const float w = inc ? __fmul_rn(-expm1f(-x), T) : 0.0f;
+    __syncwarp();   // the chunk's first tile of raws and g_rend is staged
+    float G = 0.0f, TE = 0.0f;
+    if (inc) {
+      G = __fadd_rn(__fadd_rn(gop, __fmul_rn(gdep, ts[bs])), g_ws[bs]);
+      TE = __fmul_rn(T, expf(-x));
+    }
+    for (int k0 = 0;;) {
+      const int tc = min(tw, C - k0);
+      if (inc) {
+        const float* r = rs + s * tc;
+        for (int c = 0; c < tc; ++c) G = __fadd_rn(G, __fmul_rn(gr[c], r[c]));
+      }
+      k0 += tw;
+      if (!WIDE || k0 >= C) break;
+      __syncwarp();   // the tile is read
+      stage(k0);
+      __syncwarp();   // the next tile is staged
+    }
+    if (in) {
+      d_sigmas[bs] = __fmul_rn(G, TE);
+      gwb[bs] = __fmul_rn(G, w);
+      wsh[s] = w;
+    }
+    __syncwarp();
+    store_d_raws(d_raws + (b + c0) * C, clen * C, C, WIDE ? g_row : gr, wsh,
+                 s, 32);
+    __syncwarp();   // w and the raws are read before the next chunk
+  }
+  float later = 0.0f;   // sum of G*w over the samples after the chunk
+  for (int ch = n_chunks - 1; ch >= 0; --ch) {
+    const int c0 = ch * 32, clen = min(32, len - c0);
+    const size_t bs = b + c0 + s;
+    const bool in = s < clen;
+    bool v = false;
+    float sig = 0.0f, del = 0.0f, gte = 0.0f, gw_s = 0.0f;
+    if (in) {
+      v = valid[bs];
+      sig = sigmas[bs];
+      del = deltas[bs];
+      gte = d_sigmas[bs];
+      gw_s = gwb[bs];
+    }
+    float suffix = __fadd_rn(later, gw_s);   // sum_{s'>=s} G w, back to front
+    for (int k = clen - 2; k >= 0; --k) {
+      const float next = __shfl_down_sync(FULL, suffix, 1);
+      if (s == k) suffix = __fadd_rn(next, gw_s);
+    }
+    float after = __shfl_down_sync(FULL, suffix, 1);   // sum_{s'>s}
+    if (s == clen - 1) after = later;
+    later = __shfl_sync(FULL, suffix, 0);
+    if (in) {
+      const float dx = __fsub_rn(gte, after);
+      const float raw_x = __fmul_rn(sig, del);
+      const bool pass = v && raw_x > 0.0f && raw_x < SIGDT_MAX;
+      d_sigmas[bs] = pass ? __fmul_rn(dx, del) : 0.0f;
+    }
+  }
+}
+
 // gw: the power of two at or above the row bound max_len, at most 32
 inline int group_width(int max_len) {
   int gw = 1;
@@ -512,11 +653,27 @@ int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
                const void* ts, const void* valid, const void* g_op,
                const void* g_depth, const void* g_rend, const void* g_ws,
                Rows rows, int N, int max_len, int C, float thr,
-               void* d_sigmas, void* d_raws, cudaStream_t stream) {
-  if (max_len > MAXK) return static_cast<int>(cudaErrorInvalidValue);
+               void* d_sigmas, void* d_raws, void* scratch,
+               cudaStream_t stream) {
+  const int tw = min(C, BWD_TILE);
+  if (max_len > LANE_ROWS) {   // a warp a ray, chunks of 32 samples
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const int per_block = BWD_THREADS / 32;
+    const size_t bytes = sizeof(float) * per_block * (32 * tw + 32 + tw);
+    auto kernel = C > BWD_TILE ? composite_bwd_long_kernel<Rows, true>
+                               : composite_bwd_long_kernel<Rows, false>;
+    kernel<<<ncn_blocks(N, per_block), BWD_THREADS, bytes, stream>>>(
+        static_cast<const float*>(sigmas), static_cast<const float*>(raws),
+        static_cast<const float*>(deltas), static_cast<const float*>(ts),
+        static_cast<const uint8_t*>(valid), static_cast<const float*>(g_op),
+        static_cast<const float*>(g_depth),
+        static_cast<const float*>(g_rend), static_cast<const float*>(g_ws),
+        rows, N, C, max_len, thr, static_cast<float*>(d_sigmas),
+        static_cast<float*>(d_raws), static_cast<float*>(scratch));
+    return static_cast<int>(cudaGetLastError());
+  }
   const int gw = group_width(max_len);
   const int per_block = BWD_THREADS / gw;
-  const int tw = min(C, BWD_TILE);
   const size_t bytes = sizeof(float) * per_block * (gw * tw + gw + tw);
   auto kernel = C > BWD_TILE ? composite_bwd_kernel<Rows, true>
                              : composite_bwd_kernel<Rows, false>;
@@ -544,16 +701,17 @@ extern "C" int composite_fwd(const void* sigmas, const void* raws,
                     N, K, C, thr, opacity, depth, rend, ws, vr, stream);
 }
 
+// scratch: N*K floats when K > 32 (the long kernel's G*w), else unused
 extern "C" int composite_bwd(const void* sigmas, const void* raws,
                              const void* deltas, const void* ts,
                              const void* valid, const void* g_op,
                              const void* g_depth, const void* g_rend,
                              const void* g_ws, int N, int K, int C, float thr,
-                             void* d_sigmas, void* d_raws,
+                             void* d_sigmas, void* d_raws, void* scratch,
                              cudaStream_t stream) {
   return launch_bwd(sigmas, raws, deltas, ts, valid, g_op, g_depth, g_rend,
                     g_ws, DenseRows{K}, N, K, C, thr, d_sigmas, d_raws,
-                    stream);
+                    scratch, stream);
 }
 
 // The flat layout (composite_rays_compact): ray n's samples are the budget
@@ -573,7 +731,8 @@ extern "C" int composite_seg_fwd(const void* sigmas, const void* raws,
                     C + 2, C, thr, opacity, depth, rend, ws, vr, stream);
 }
 
-// max_len: the longest segment, which the caller has checked (<= 32).
+// max_len: a bound on the segments, which the caller knows; scratch: one
+// float a slot when max_len > 32 (the long kernel's G*w), else unused.
 extern "C" int composite_seg_bwd(const void* sigmas, const void* raws,
                                  const void* deltas, const void* ts,
                                  const void* valid, const void* g_op,
@@ -581,9 +740,11 @@ extern "C" int composite_seg_bwd(const void* sigmas, const void* raws,
                                  const void* g_ws, const void* ray_start,
                                  const void* ray_count, int N, int max_len,
                                  int C, float thr, void* d_sigmas,
-                                 void* d_raws, cudaStream_t stream) {
+                                 void* d_raws, void* scratch,
+                                 cudaStream_t stream) {
   SegmentRows rows{static_cast<const int*>(ray_start),
                    static_cast<const int*>(ray_count)};
   return launch_bwd(sigmas, raws, deltas, ts, valid, g_op, g_depth, g_rend,
-                    g_ws, rows, N, max_len, C, thr, d_sigmas, d_raws, stream);
+                    g_ws, rows, N, max_len, C, thr, d_sigmas, d_raws,
+                    scratch, stream);
 }

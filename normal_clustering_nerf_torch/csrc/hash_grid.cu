@@ -1,5 +1,6 @@
 // H7 / H8: multiresolution hash-grid encode (the tcnn layout), forward and
-// table gradient; H14: its position gradient.
+// table gradient; H14: its position gradient, from a Jacobian H7 writes
+// and a launch of its own contracts.
 //
 // Replaces the JAX package's `hash_encode_vjp`
 // (normal_clustering_nerf_tpu/models/hash_encoding.py:133-248: forward
@@ -59,17 +60,38 @@
 // (hash_encoding.py:154-196, off by default) computes the same sum and is
 // not ported: the warp's merge of equal cells takes its place.
 //
-// Position gradient (H14, used when camera extrinsics are optimised; tcnn's
-// dL_dinput): per level and axis a, the sum in corner order of the
-// corner's row dotted with the level's cotangent pair times
-// ((+-1 * w_o1) * w_o2) * scale, the derivative of its weight along a (o1,
-// o2 the other axes, the weights from the unclipped fraction: the clip of
-// a corner index gets no derivative, as in JAX); the levels added in
-// order. It reads what H7 reads and the cotangent and writes 3 values a
-// sample: its floor is the bytes. The design is H7's tile and loads; the
-// sums are chains in a fixed order, which `encode_dx_plain` repeats, so
-// each dx is one thread's (no atomics) and bit for bit the plain
-// version's.
+// Position gradient (H14, used when camera extrinsics are optimised; the
+// need_dx branch of `_hash_vjp_bwd`). The first design gathered the 8
+// corner rows of every (sample, level) a second time in the backward: at
+// ~82.5 sectors a sample that gather is H7's cost again (0.0944 ms against
+// H7's 0.0896 on one H100 80GB HBM3, 700.00 W). Here H7, which holds the
+// rows in registers, also writes the encode's Jacobian when x needs a
+// gradient (`hash_grid_fwd_jac`, tcnn's dy_dx): J[l][f][a], the sum in
+// corner order of row_c[f] * ((+-w_o1 * w_o2) * scale), the derivative of
+// corner c's weight along a (o1, o2 the other axes, the weights from the
+// unclipped fraction: the clip of a corner index gets no derivative, as in
+// JAX; |dw| is taken once for the two corners it serves, the sign
+// flipped exactly), 96 f32 a sample, staged in shared memory (rows padded
+// to an odd stride) and written as 16-byte streaming stores (J is read
+// once, in the backward: it should not push H7's rows out of the L2).
+// `hash_grid_contract` then takes dx[a] = sum over (l, f) in order of
+// g[l][f] * J[l][f][a], a thread a dx, no atomics. The sums are chains in
+// a fixed order, which `encode_jacobian_plain` and `contract_plain`
+// repeat, so J and dx are bit for bit the plain versions' (JAX sums over
+// the features first, then the corners: within 1e-5 of its largest
+// |dx|). What bounds the position gradient now: J's bytes, written once
+// and read once (50.3 MB at the ext path's 131,040 samples, ~0.03 ms at
+// 3.35 TB/s), where the gather moved ~35 MB of sectors at random.
+//
+// The contraction is a launch of its own, not a part of H8, which stages
+// the same cotangent: measured in one call (one H100 80GB HBM3, 700.00 W;
+// bf16 cotangent, 131,040 samples), H8 0.2020 ms, H8 with the contraction
+// after its levels (J copied by cp.async, evict-first, behind the
+// scatter) 0.2397, H8 and this launch 0.2330 (alone 0.0292); the
+// contraction inside H8 also raised its registers to 63 until capped. A
+// thread a sample reading its J row as float4 words took 0.0316. H7
+// without a gradient of x is compiled as before (a template flag), and
+// H8 is unchanged.
 #include "grad_scatter.cuh"
 
 namespace {
@@ -133,17 +155,19 @@ __device__ __forceinline__ void corners(const float* __restrict__ x,
 constexpr int TILE = 32;
 constexpr int FWD_WARPS = 16;
 
-template <bool BF16>
+template <bool BF16, bool JAC>
 __global__ void __launch_bounds__(TILE * FWD_WARPS)
     hash_grid_fwd_kernel(const float* __restrict__ table,
                          const float* __restrict__ x,
                          const int* __restrict__ levels,
-                         void* __restrict__ out, int M, int L,
-                         int table_size) {
+                         void* __restrict__ out, float* __restrict__ jac,
+                         int M, int L, int table_size) {
   extern __shared__ float4 smem[];
   const int width = F * L, ostride = width + 2;   // float2 stores: no
   float* xs = reinterpret_cast<float*>(smem);     // bank conflicts
   float* os = xs + TILE * 3;
+  const int jwidth = 3 * width, jstride = jwidth + 1;   // JAC: odd stride
+  float* js = os + TILE * ostride;
   const int lane = threadIdx.x, warps = blockDim.y;
   const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
   const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
@@ -152,8 +176,8 @@ __global__ void __launch_bounds__(TILE * FWD_WARPS)
   const float* x3 = xs + 3 * min(lane, rows - 1);
   for (int l = threadIdx.y; l < L; l += warps) {
     int row[8], key[3];
-    float w[8];
-    corners(x3, levels, l, table_size, row, w, key);
+    float w[8], fr[6];
+    corners(x3, levels, l, table_size, row, w, key, JAC ? fr : nullptr);
     float2 v[8];
     if (levels[4 * l + 2])   // dense: warp-uniform
       ncn_load_pairs<1>(table, row, v);
@@ -167,77 +191,50 @@ __global__ void __launch_bounds__(TILE * FWD_WARPS)
     }
     *reinterpret_cast<float2*>(os + lane * ostride + F * l) =
         make_float2(a0, a1);
+    if constexpr (JAC) {
+      const float scale = __int_as_float(levels[4 * l]);
+      // |dw| of a corner along a: (w_o1 * w_o2) * scale for its bits on
+      // the other axes o1 < o2; the bit on a gives the sign, exactly
+      float pw[3][4];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int o1 = a == 0 ? 1 : 0, o2 = a == 2 ? 1 : 2;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const float w1 = b >> 1 ? fr[2 * o1] : fr[2 * o1 + 1];
+          const float w2 = b & 1 ? fr[2 * o2] : fr[2 * o2 + 1];
+          pw[a][b] = __fmul_rn(__fmul_rn(w1, w2), scale);
+        }
+      }
+      float j0[3] = {0.0f, 0.0f, 0.0f}, j1[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int cs[3] = {(c >> 2) & 1, (c >> 1) & 1, c & 1};
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const int o1 = a == 0 ? 1 : 0, o2 = a == 2 ? 1 : 2;
+          const float p = pw[a][2 * cs[o1] + cs[o2]];
+          const float dw = cs[a] ? p : -p;
+          j0[a] = __fadd_rn(j0[a], __fmul_rn(v[c].x, dw));
+          j1[a] = __fadd_rn(j1[a], __fmul_rn(v[c].y, dw));
+        }
+      }
+      float* jr = js + lane * jstride + 3 * F * l;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        jr[a] = j0[a];
+        jr[3 + a] = j1[a];
+      }
+    }
   }
   __syncthreads();
   ncn_unstage<BF16>(os, rows * width, width, ostride,
                     static_cast<char*>(out) + (BF16 ? 2LL : 4LL) * width * m0,
                     tid, nt);
-}
-
-// H14: the position gradient. H7's tile (x and the cotangent staged once,
-// warp w levels w, w + warps, ...; lane = sample, the corners' rows read
-// as H7 reads them); each (sample, level)'s 3 axis sums go to shared
-// memory, and a thread per (sample, axis) adds the levels in order and
-// writes dx.
-constexpr int DX_WARPS = 8;
-
-template <bool BF16>
-__global__ void __launch_bounds__(TILE * DX_WARPS)
-    hash_grid_dx_kernel(const float* __restrict__ table,
-                        const float* __restrict__ x,
-                        const int* __restrict__ levels,
-                        const void* __restrict__ g, float* __restrict__ dx,
-                        int M, int L, int table_size) {
-  extern __shared__ float4 smem[];
-  const int width = F * L, gstride = width + 1;
-  float* xs = reinterpret_cast<float*>(smem);
-  float* gs = xs + TILE * 3;
-  float* ds = gs + TILE * gstride;   // (L, TILE, 3)
-  const int lane = threadIdx.x, warps = blockDim.y;
-  const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
-  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
-  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
-  ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * width * m0,
-                  rows * width, width, gstride, gs, tid, nt);
-  __syncthreads();
-  const int i = min(lane, rows - 1);
-  const float* x3 = xs + 3 * i;
-  for (int l = threadIdx.y; l < L; l += warps) {
-    int row[8], key[3];
-    float w[8], fr[6];
-    corners(x3, levels, l, table_size, row, w, key, fr);
-    float2 v[8];
-    if (levels[4 * l + 2])   // dense: warp-uniform
-      ncn_load_pairs<1>(table, row, v);
-    else
-      ncn_load_pairs<4>(table, row, v);
-    const float g0 = gs[i * gstride + F * l], g1 = gs[i * gstride + F * l + 1];
-    const float scale = __int_as_float(levels[4 * l]);
-    float acc[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int cs[3] = {(c >> 2) & 1, (c >> 1) & 1, c & 1};
-      const float gd = __fadd_rn(__fmul_rn(v[c].x, g0), __fmul_rn(v[c].y, g1));
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int o1 = a == 0 ? 1 : 0, o2 = a == 2 ? 1 : 2;
-        const float w1 = cs[o1] ? fr[2 * o1] : fr[2 * o1 + 1];
-        const float w2 = cs[o2] ? fr[2 * o2] : fr[2 * o2 + 1];
-        const float dw = __fmul_rn(__fmul_rn(cs[a] ? w1 : -w1, w2), scale);
-        acc[a] = __fadd_rn(acc[a], __fmul_rn(dw, gd));
-      }
-    }
-    if (lane < rows) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a) ds[(l * TILE + lane) * 3 + a] = acc[a];
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < rows * 3; e += nt) {
-    float s = 0.0f;
-    for (int l = 0; l < L; ++l) s = __fadd_rn(s, ds[l * TILE * 3 + e]);
-    dx[3LL * m0 + e] = s;
-  }
+  if constexpr (JAC)
+    ncn_unstage<false, true>(js, rows * jwidth, jwidth, jstride,
+                             jac + static_cast<long long>(jwidth) * m0, tid,
+                             nt);
 }
 
 // H8's geometry for grad_scatter.cuh: the corners' f32 offsets in the
@@ -255,16 +252,47 @@ struct HashGeom {
   }
 };
 
-}  // namespace
+// H14's contraction (`hash_grid_contract`): a block takes TILE samples,
+// stages their J rows (padded to 6L + 4 floats) and their cotangent (f32
+// or bf16, widened) with 16-byte loads, and a thread per (sample, axis)
+// adds g[l][f] * J[l][f][a] over (l, f) in order from 0; no atomics.
+constexpr int CONTRACT_THREADS = 128;
 
-extern "C" int hash_grid_fwd(const void* table, const void* x,
-                             const void* levels, void* out, int M, int L,
-                             int table_size, int out_bf16,
-                             cudaStream_t stream) {
+template <bool BF16>
+__global__ void __launch_bounds__(CONTRACT_THREADS) hash_grid_contract_kernel(
+    const void* __restrict__ g, const float* __restrict__ jac,
+    float* __restrict__ dx, int M, int L) {
+  extern __shared__ float4 smem[];
+  const int K = 2 * L, jstride = 3 * K + 4, gstride = K + 1;
+  float* js = reinterpret_cast<float*>(smem);
+  float* gs = js + TILE * jstride;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
+  ncn_stage<false>(jac + 3LL * K * m0, rows * 3 * K, 3 * K, jstride, js, tid,
+                   nt);
+  ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * K * m0,
+                  rows * K, K, gstride, gs, tid, nt);
+  __syncthreads();
+  for (int e = tid; e < rows * 3; e += nt) {
+    const int i = e / 3, a = e - 3 * i;
+    const float* gi = gs + i * gstride;
+    const float* ji = js + i * jstride + a;
+    float s = 0.0f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) s = __fadd_rn(s, __fmul_rn(gi[k], ji[3 * k]));
+    dx[3LL * m0 + e] = s;
+  }
+}
+
+template <bool JAC>
+int launch_fwd(const void* table, const void* x, const void* levels,
+               void* out, void* jac, int M, int L, int table_size,
+               int out_bf16, cudaStream_t stream) {
   const int warps = L < FWD_WARPS ? L : FWD_WARPS;
-  const size_t bytes = sizeof(float) * TILE * (3 + F * L + 2);
-  auto kernel = out_bf16 ? hash_grid_fwd_kernel<true>
-                         : hash_grid_fwd_kernel<false>;
+  const size_t bytes =
+      sizeof(float) * TILE * (3 + F * L + 2 + (JAC ? 3 * F * L + 1 : 0));
+  auto kernel = out_bf16 ? hash_grid_fwd_kernel<true, JAC>
+                         : hash_grid_fwd_kernel<false, JAC>;
   if (bytes > 48 * 1024) {   // the opt-in holds per device: set it each time
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -273,8 +301,28 @@ extern "C" int hash_grid_fwd(const void* table, const void* x,
   }
   kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
       static_cast<const float*>(table), static_cast<const float*>(x),
-      static_cast<const int*>(levels), out, M, L, table_size);
+      static_cast<const int*>(levels), out, static_cast<float*>(jac), M, L,
+      table_size);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int hash_grid_fwd(const void* table, const void* x,
+                             const void* levels, void* out, int M, int L,
+                             int table_size, int out_bf16,
+                             cudaStream_t stream) {
+  return launch_fwd<false>(table, x, levels, out, nullptr, M, L, table_size,
+                           out_bf16, stream);
+}
+
+// H7 with the Jacobian: jac (M, L, 2, 3) f32, 16-byte aligned.
+extern "C" int hash_grid_fwd_jac(const void* table, const void* x,
+                                 const void* levels, void* out, void* jac,
+                                 int M, int L, int table_size, int out_bf16,
+                                 cudaStream_t stream) {
+  return launch_fwd<true>(table, x, levels, out, jac, M, L, table_size,
+                          out_bf16, stream);
 }
 
 extern "C" int hash_grid_bwd(const void* g, const void* x, const void* levels,
@@ -285,24 +333,21 @@ extern "C" int hash_grid_bwd(const void* g, const void* x, const void* levels,
       HashGeom{static_cast<const int*>(levels), table_size}, stream);
 }
 
-extern "C" int hash_grid_dx(const void* table, const void* x,
-                            const void* levels, const void* g, void* dx,
-                            int M, int L, int table_size, int g_bf16,
-                            cudaStream_t stream) {
-  const int warps = L < DX_WARPS ? L : DX_WARPS;
-  const size_t bytes =
-      sizeof(float) * TILE * (3 + (F * L + 1) + 3 * L);
-  auto kernel = g_bf16 ? hash_grid_dx_kernel<true>
-                       : hash_grid_dx_kernel<false>;
+// H14's contraction of H7's Jacobian jac (M, L, 2, 3) f32 with the
+// cotangent g (M, 2L) into dx (M, 3) f32.
+extern "C" int hash_grid_contract(const void* g, const void* jac, void* dx,
+                                  int M, int L, int g_bf16,
+                                  cudaStream_t stream) {
+  const size_t bytes = sizeof(float) * TILE * (6 * L + 4 + 2 * L + 1);
+  auto kernel = g_bf16 ? hash_grid_contract_kernel<true> : hash_grid_contract_kernel<false>;
   if (bytes > 48 * 1024) {   // the opt-in holds per device: set it each time
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
-      static_cast<const float*>(table), static_cast<const float*>(x),
-      static_cast<const int*>(levels), g, static_cast<float*>(dx), M, L,
-      table_size);
+  kernel<<<ncn_blocks(M, TILE), CONTRACT_THREADS, bytes, stream>>>(
+      g, static_cast<const float*>(jac), static_cast<float*>(dx), M, L);
   return static_cast<int>(cudaGetLastError());
 }
+

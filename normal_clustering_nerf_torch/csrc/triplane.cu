@@ -1,5 +1,6 @@
 // H2: triplane + coarse-grid encode, forward and backward; H12: its
-// position gradient.
+// position gradient, from a Jacobian H2's forward writes and H2's backward
+// contracts.
 //
 // Replaces the JAX package's `triplane_encode_vjp`
 // (normal_clustering_nerf_tpu/models/triplane.py:196-253: `_encode_impl`
@@ -69,17 +70,37 @@
 // layout, which needs neither shuffles nor 32 values a lane.
 //
 // Position gradient (H12, the need_dx branch of `_tp_bwd`, used when
-// camera extrinsics are optimised): dx[a] of each sample, the dot of each
-// corner's f32 table row with the cotangent times the derivative of the
-// corner's weight along a (+-the other axis' weight), times R - 1; the
-// clip of the position gets no derivative, as in JAX. It reads what the
-// forward reads (the f32 rows: 128 values a sample) and the cotangent,
-// and writes 3 values a sample: its floor is the bytes, ~0.04 ms at the
-// bench batch. The design is the forward's tile (a warp a table, lane =
-// term, one warp load a (sample, table)), and the sums are chains in a
-// fixed order, feature then corner then table, which `encode_dx_plain`
-// repeats, so the result is bit for bit the plain version's (no FMA
-// either side) and each dx is written by one thread: no atomics.
+// camera extrinsics are optimised). The first design re-read in a launch
+// of its own the 128 f32 table values a sample that the forward had read,
+// and ran two shuffle chains a (sample, table): 0.0690 ms, about twice the
+// forward's 0.0361 on the same tile (one H100 80GB HBM3, 700.00 W). Here
+// the forward, which holds each term's f32 table value in a lane (it
+// rounds to bf16 in registers), also writes the encode's Jacobian when x
+// needs a gradient (`triplane_fwd_jac`): for plane p, feature f and its
+// axis k (u, v), J = (sum in corner order of value * dw_k) * (R_p - 1),
+// dw_k the derivative of the corner's bilinear weight along k (+-the other
+// axis' weight); for grid3d's feature f and axis a the same over 8 corners
+// (+-the product of the other two axes' weights) times R_g - 1: 3 x 8 x 2
+// + 4 x 3 = 60 f32 a sample. The sums over the corners are the chains a
+// shuffle fold would take (from 0, in corner order), taken by a lane a
+// (sample, feature pair) after a transpose of each 8 samples' terms
+// through shared memory (`jac_cells`): a fold a (sample, table, axis)
+// took the forward to 0.0709 ms, the transpose to 0.0567. J is staged in
+// shared memory and written as 16-byte streaming stores (J is read once,
+// in the backward). The clip of the position gets no derivative, as in
+// JAX. H2's backward, which stages the cotangent anyway, contracts J with
+// it (`triplane_bwd_dx`): the copy of the tile's J rows starts first
+// (cp.async, evict-first) and runs behind the scatter; then a thread per
+// (sample, axis) takes each table's term as the chain over its features
+// of g * J from 0, and adds them in the JAX order (the planes xy, xz, yz,
+// then grid3d); no atomics. `encode_jacobian_plain` and `contract_plain`
+// repeat each chain, so J and dx are bit for bit the plain versions' (no
+// FMA either side). J's bytes (31.4 MB at the ext path's 131,040
+// samples, written once and read once: ~0.019 ms at 3.35 TB/s) replace
+// the second read of the table rows: the position gradient now costs
+// ~0.03 ms. The forward without a gradient of x is compiled as before (a
+// template flag), and so is the backward (`triplane_bwd_kernel`; with the
+// contraction `triplane_bwd_dx_kernel`, the same body).
 #include "common.cuh"
 
 namespace {
@@ -180,13 +201,86 @@ __device__ __forceinline__ int term_offset(int lane) {
 // grid3d): sample i's cell is one warp load of its 32 terms; a feature's C
 // terms are summed into its first lane by shuffles in corner order, from
 // 0 as the reference folds them, and written to the tile's output row.
-// UNROLL samples' loads go out before their sums.
+// UNROLL samples' loads go out before their sums. With JAC, also their
+// Jacobian rows (`jac_cells`).
 constexpr int UNROLL = 8;
+constexpr int AWS = 7;   // a sample's 6 axis weights, 1 pad
+constexpr int JW = 3 * FP * 2 + FG * 3;   // 60: a sample's Jacobian
+constexpr int JSTRIDE = JW + 1;
 
-template <int C, bool BF16>
+// The derivatives along each of the table's NA axes (2 or 3) of the weight
+// of corner c, from the axes' lower and upper weights `a` (`cell_of`'s aw).
+template <int C>
+__device__ __forceinline__ void corner_dw(int c, const float* a, float* dw) {
+  if constexpr (C == 4) {
+    const int cu = c >> 1, cv = c & 1;
+    const float wu = cu ? a[1] : a[0], wv = cv ? a[3] : a[2];
+    dw[0] = cu ? wv : -wv;
+    dw[1] = cv ? wu : -wu;
+  } else {
+    const int cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
+    const float wx = cx ? a[1] : a[0], wy = cy ? a[3] : a[2];
+    const float wz = cz ? a[5] : a[4];
+    const float yz = __fmul_rn(wy, wz), xz = __fmul_rn(wx, wz);
+    const float xy = __fmul_rn(wx, wy);
+    dw[0] = cx ? yz : -yz;
+    dw[1] = cy ? xz : -xz;
+    dw[2] = cz ? xy : -xy;
+  }
+}
+
+// The Jacobian of UNROLL samples' cells from their terms `v` (lane =
+// term, as `fold_cells` loads them): the terms go through shared memory
+// `vs` (a sample's 32 in a row of VSTRIDE), and lane (u, q) = (lane / 4,
+// lane % 4) takes sample i0 + u: of a plane, features 2q and 2q + 1 along
+// u and v, of grid3d feature q along x, y and z; each the chain over the
+// corners in order, from 0, of value * dw (`corner_dw`, from the sample's
+// axis weights `aw`), times `scale`, into its Jacobian row `jrow` (feature
+// f's axes at f * NA). The same chains as a shuffle fold of each axis
+// would give, with no shuffle.
+constexpr int VSTRIDE = 33;
+
+template <int C>
+__device__ __forceinline__ void jac_cells(const float* v, const float* aw,
+                                          float scale, int i0, int rows,
+                                          float* vs, float* jrow) {
+  constexpr int NA = C == 4 ? 2 : 3;    // axes of the table
+  constexpr int FL = C == 4 ? 2 : 1;    // features a lane
+  const int lane = threadIdx.x;
+#pragma unroll
+  for (int u = 0; u < UNROLL; ++u) vs[u * VSTRIDE + lane] = v[u];
+  __syncwarp();
+  const int u = lane >> 2, q = lane & 3, i = i0 + u;
+  if (i < rows) {
+    const float* a = aw + i * AWS;
+    float dw[C][NA];
+#pragma unroll
+    for (int c = 0; c < C; ++c) corner_dw<C>(c, a, dw[c]);
+#pragma unroll
+    for (int ff = 0; ff < FL; ++ff) {
+      const int f = FL * q + ff;
+      const float* vf = vs + u * VSTRIDE + f * C;
+#pragma unroll
+      for (int k = 0; k < NA; ++k) {
+        float sum = 0.0f;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          sum = __fadd_rn(sum, __fmul_rn(vf[c], dw[c][k]));
+        jrow[i * JSTRIDE + f * NA + k] = __fmul_rn(sum, scale);
+      }
+    }
+  }
+  __syncwarp();   // vs is read before the next samples' terms
+}
+
+template <int C, bool BF16, bool JAC>
 __device__ __forceinline__ void fold_cells(const float* __restrict__ table,
                                            int key, const float* w, int rows,
-                                           float* orow) {
+                                           float* orow,
+                                           const float* aw = nullptr,
+                                           float scale = 0.0f,
+                                           float* vs = nullptr,
+                                           float* jrow = nullptr) {
   const int lane = threadIdx.x, c = lane % C, off = term_offset<C>(lane);
   for (int i0 = 0; i0 < rows; i0 += UNROLL) {   // warp-uniform
     float v[UNROLL];
@@ -205,48 +299,74 @@ __device__ __forceinline__ void fold_cells(const float* __restrict__ table,
         s = __fadd_rn(s, __shfl_down_sync(FULL, term, j));
       if (c == 0 && i0 + u < rows) orow[(i0 + u) * GW + lane / C] = s;
     }
+    if constexpr (JAC) jac_cells<C>(v, aw, scale, i0, rows, vs, jrow);
   }
 }
 
 // H2 forward: a block takes TILE samples (x staged once), warp t table t.
 // Lane = sample finds its cell and weights; then lane = term
 // (`fold_cells`); the tile's GW-value output rows are written from shared
-// memory as 16-byte words, in f32 or rounded once to bf16.
-template <bool BF16ROWS, bool BF16OUT>
+// memory as 16-byte words, in f32 or rounded once to bf16; with JAC also
+// its JW-value Jacobian rows, in f32.
+template <bool BF16ROWS, bool BF16OUT, bool JAC>
 __global__ void __launch_bounds__(TILE * TABLES) triplane_fwd_kernel(
     const float* __restrict__ x, const float* __restrict__ planes,
-    const float* __restrict__ grid, void* __restrict__ out, int M, Geo geo) {
+    const float* __restrict__ grid, void* __restrict__ out,
+    float* __restrict__ jac, int M, Geo geo) {
   __shared__ float xs[TILE * 3];
   __shared__ float ws[TABLES][TILE * WSTRIDE];
   __shared__ float os[TILE * GW];
+  __shared__ float aws[JAC ? TABLES : 1][JAC ? TILE * AWS : 1];
+  __shared__ float vss[JAC ? TABLES : 1][JAC ? UNROLL * VSTRIDE : 1];
+  __shared__ float js[JAC ? TILE * JSTRIDE : 1];
   const int lane = threadIdx.x, t = threadIdx.y;
   const int tid = t * TILE + lane, nt = TILE * TABLES;
   const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
   ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
   __syncthreads();
   const int key = cell_of(t, xs + 3 * min(lane, rows - 1), geo,
-                          ws[t] + lane * WSTRIDE);
+                          ws[t] + lane * WSTRIDE,
+                          JAC ? aws[JAC ? t : 0] + lane * AWS : nullptr);
   __syncwarp();   // the weights are read across lanes below
+  const int tj = JAC ? t : 0;
   if (t < 3)
-    fold_cells<4, BF16ROWS>(planes, key, ws[t], rows, os + t * FP);
+    fold_cells<4, BF16ROWS, JAC>(
+        planes, key, ws[t], rows, os + t * FP, aws[tj],
+        static_cast<float>(geo.plane_res - 1), vss[tj], js + t * 2 * FP);
   else
-    fold_cells<8, BF16ROWS>(grid, key, ws[t], rows, os + 3 * FP);
+    fold_cells<8, BF16ROWS, JAC>(
+        grid, key, ws[t], rows, os + 3 * FP, aws[tj],
+        static_cast<float>(geo.grid_res - 1), vss[tj], js + 3 * 2 * FP);
   __syncthreads();
   char* dst = static_cast<char*>(out) + (BF16OUT ? 2LL : 4LL) * GW * m0;
   ncn_unstage<BF16OUT>(os, rows * GW, GW, GW, dst, tid, nt);
+  if constexpr (JAC)
+    ncn_unstage<false, true>(js, rows * JW, JW, JSTRIDE,
+                             jac + static_cast<long long>(JW) * m0, tid, nt);
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(TILE * TABLES) triplane_bwd_kernel(
+// H2's backward (the kernels' body); with DX, also dx from the forward's
+// Jacobian `jac` (see the file note):
+// the copy of the tile's J rows into shared memory starts first
+// (cp.async, rows of JASYNC floats) and runs on behind the scatter; after
+// it, a thread per (sample, axis) contracts them with the cotangent.
+constexpr int JASYNC = JW + 8;   // 16-byte rows; 68 = 4 mod 32 banks
+
+template <bool BF16, bool DX>
+__device__ __forceinline__ void bwd_body(
     const float* __restrict__ x, const void* __restrict__ g,
     float* __restrict__ d_planes, float* __restrict__ d_grid, int M,
-    Geo geo) {
+    Geo geo, const float* __restrict__ jac, float* __restrict__ dx) {
   __shared__ float xs[TILE * 3];
   __shared__ float gs[TILE * GSTRIDE];
   __shared__ float ws[TABLES][TILE * WSTRIDE];
+  __shared__ __align__(16) float js[DX ? TILE * JASYNC : 1];
   const int lane = threadIdx.x, t = threadIdx.y;
   const int tid = t * TILE + lane, nt = TILE * TABLES;
   const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
+  if constexpr (DX)
+    ncn_stage_async(jac + static_cast<long long>(JW) * m0, rows, JW, JASYNC,
+                    js, tid, nt);
   ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
   ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * GW * m0,
                   rows * GW, GW, GSTRIDE, gs, tid, nt);
@@ -300,104 +420,92 @@ __global__ void __launch_bounds__(TILE * TABLES) triplane_bwd_kernel(
       atomicAdd(dst, s);
     }
   }
-}
-
-// H12: the position gradient. Lane = sample finds its cell (`cell_of`)
-// and its axes' weights; then, a sample at a time, lane = term (feature f,
-// corner c) reads the term's f32 table value, as the forward does, and
-// multiplies it by the sample's cotangent g[f]; the corner's dot gd_c =
-// sum_f value * g[f] is chained through the lanes c, c + C, ... in feature
-// order into lane c, which multiplies it by the corner's weight
-// derivatives along the table's 2 (3) axes; each axis' C terms are chained
-// into lane 0 in corner order, and the sum times (R - 1) goes to shared
-// memory. A thread per (sample, axis) then adds the tables' terms in the
-// JAX order and writes dx: every value is one thread's, no atomics.
-constexpr int AWS = 7;   // a sample's 6 axis weights, 1 pad
-constexpr int DXS = 4;   // a table's 2 (3) axis terms a sample, 1 pad
-
-template <int C>
-__device__ __forceinline__ void dx_cells(const float* __restrict__ table,
-                                         int key, const float* aw,
-                                         const float* gcol, int rows,
-                                         float scale, float* dxs) {
-  constexpr int NA = C == 4 ? 2 : 3;    // axes of the table
-  const int lane = threadIdx.x, c = lane % C, off = term_offset<C>(lane);
-  const int f = lane / C;
-  for (int i = 0; i < rows; ++i) {      // warp-uniform
-    const float v = __ldg(table + __shfl_sync(FULL, key, i) + off);
-    const float prod = __fmul_rn(v, gcol[i * GSTRIDE + f]);
-    float gd = __fadd_rn(0.0f, prod);
+  if constexpr (DX) {
+    ncn_async_wait();
+    __syncthreads();   // every thread's share of J has arrived
+    // a thread per (sample, axis): each table's term the chain over its
+    // features of g * J from 0; the JAX order (triplane.py:229-250): the
+    // planes xy, xz, yz add their u and v terms to their axes, then
+    // grid3d its x, y, z terms
+    for (int e = tid; e < rows * 3; e += nt) {
+      const int i = e / 3, a = e - 3 * i;
+      const float* gi = gs + i * GSTRIDE;
+      const float* ji = js + i * JASYNC;
+      auto term = [&](int p, int ax) {   // plane p's along its axis ax
+        float sum = 0.0f;
 #pragma unroll
-    for (int j = 1; j < 32 / C; ++j)
-      gd = __fadd_rn(gd, __shfl_down_sync(FULL, prod, j * C));
-    // lane c < C: the derivatives of corner c's weight along each axis
-    const float* a = aw + i * AWS;
-    float term[NA];
-    if constexpr (C == 4) {
-      const int cu = c >> 1, cv = c & 1;
-      const float wu = cu ? a[1] : a[0], wv = cv ? a[3] : a[2];
-      term[0] = __fmul_rn(gd, cu ? wv : -wv);
-      term[1] = __fmul_rn(gd, cv ? wu : -wu);
-    } else {
-      const int cx = (c >> 2) & 1, cy = (c >> 1) & 1, cz = c & 1;
-      const float wx = cx ? a[1] : a[0], wy = cy ? a[3] : a[2];
-      const float wz = cz ? a[5] : a[4];
-      const float yz = __fmul_rn(wy, wz), xz = __fmul_rn(wx, wz);
-      const float xy = __fmul_rn(wx, wy);
-      term[0] = __fmul_rn(gd, cx ? yz : -yz);
-      term[1] = __fmul_rn(gd, cy ? xz : -xz);
-      term[2] = __fmul_rn(gd, cz ? xy : -xy);
-    }
+        for (int ft = 0; ft < FP; ++ft)
+          sum = __fadd_rn(sum, __fmul_rn(gi[p * FP + ft],
+                                         ji[p * 2 * FP + 2 * ft + ax]));
+        return sum;
+      };
+      float gsum = 0.0f;
 #pragma unroll
-    for (int k = 0; k < NA; ++k) {
-      float s = __fadd_rn(0.0f, term[k]);
-#pragma unroll
-      for (int j = 1; j < C; ++j)
-        s = __fadd_rn(s, __shfl_down_sync(FULL, term[k], j));
-      if (lane == 0) dxs[i * DXS + k] = __fmul_rn(s, scale);
+      for (int ft = 0; ft < FG; ++ft)
+        gsum = __fadd_rn(gsum,
+                         __fmul_rn(gi[3 * FP + ft], ji[6 * FP + 3 * ft + a]));
+      const float first = a == 0 ? term(0, 0) : a == 1 ? term(0, 1)
+                                                       : term(1, 1);
+      const float second = a == 0 ? term(1, 0) : a == 1 ? term(2, 0)
+                                                        : term(2, 1);
+      dx[3LL * m0 + e] = __fadd_rn(__fadd_rn(first, second), gsum);
     }
   }
 }
 
 template <bool BF16>
-__global__ void __launch_bounds__(TILE * TABLES) triplane_dx_kernel(
-    const float* __restrict__ x, const float* __restrict__ planes,
-    const float* __restrict__ grid, const void* __restrict__ g,
-    float* __restrict__ dx, int M, Geo geo) {
-  __shared__ float xs[TILE * 3];
-  __shared__ float gs[TILE * GSTRIDE];
-  __shared__ float ws[TABLES][TILE * WSTRIDE];
-  __shared__ float aws[TABLES][TILE * AWS];
-  __shared__ float dxs[TABLES][TILE * DXS];
-  const int lane = threadIdx.x, t = threadIdx.y;
-  const int tid = t * TILE + lane, nt = TILE * TABLES;
-  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
-  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
-  ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * GW * m0,
-                  rows * GW, GW, GSTRIDE, gs, tid, nt);
-  __syncthreads();
-  const int key = cell_of(t, xs + 3 * min(lane, rows - 1), geo,
-                          ws[t] + lane * WSTRIDE, aws[t] + lane * AWS);
-  __syncwarp();   // the axis weights are read across lanes below
-  if (t < 3)
-    dx_cells<4>(planes, key, aws[t], gs + t * FP, rows,
-                static_cast<float>(geo.plane_res - 1), dxs[t]);
-  else
-    dx_cells<8>(grid, key, aws[t], gs + 3 * FP, rows,
-                static_cast<float>(geo.grid_res - 1), dxs[t]);
-  __syncthreads();
-  // the JAX order (triplane.py:229-250): the planes xy, xz, yz add their
-  // u and v terms to their axes, then grid3d its x, y, z terms
-  for (int e = tid; e < rows * 3; e += nt) {
-    const int i = e / 3, a = e % 3;
-    const float* p0 = dxs[0] + i * DXS;
-    const float* p1 = dxs[1] + i * DXS;
-    const float* p2 = dxs[2] + i * DXS;
-    const float first = a == 0 ? p0[0] : a == 1 ? p0[1] : p1[1];
-    const float second = a == 0 ? p1[0] : a == 1 ? p2[0] : p2[1];
-    dx[3LL * m0 + e] = __fadd_rn(__fadd_rn(first, second),
-                                 dxs[3][i * DXS + a]);
+__global__ void __launch_bounds__(TILE * TABLES) triplane_bwd_kernel(
+    const float* __restrict__ x, const void* __restrict__ g,
+    float* __restrict__ d_planes, float* __restrict__ d_grid, int M,
+    Geo geo) {
+  bwd_body<BF16, false>(x, g, d_planes, d_grid, M, geo, nullptr, nullptr);
+}
+
+// At most 40 registers: the 12 blocks an SM that the kernel without DX
+// runs (the body with DX took 46 registers).
+template <bool BF16>
+__global__ void __launch_bounds__(TILE * TABLES, 12) triplane_bwd_dx_kernel(
+    const float* __restrict__ x, const void* __restrict__ g,
+    float* __restrict__ d_planes, float* __restrict__ d_grid, int M,
+    Geo geo, const float* __restrict__ jac, float* __restrict__ dx) {
+  bwd_body<BF16, true>(x, g, d_planes, d_grid, M, geo, jac, dx);
+}
+
+template <bool JAC>
+int launch_fwd(const void* x, const void* planes, const void* grid, void* out,
+               void* jac, int M, const Geo& geo, int bf16, int out_bf16,
+               cudaStream_t stream) {
+  auto kernel = bf16 ? (out_bf16 ? triplane_fwd_kernel<true, true, JAC>
+                                 : triplane_fwd_kernel<true, false, JAC>)
+                     : (out_bf16 ? triplane_fwd_kernel<false, true, JAC>
+                                 : triplane_fwd_kernel<false, false, JAC>);
+  kernel<<<ncn_blocks(M, TILE), dim3(TILE, TABLES), 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(planes),
+      static_cast<const float*>(grid), out, static_cast<float*>(jac), M,
+      geo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool DX>
+int launch_bwd(const void* x, const void* g, const void* jac, void* d_planes,
+               void* d_grid, void* dx, int M, const Geo& geo, int g_bf16,
+               cudaStream_t stream) {
+  const dim3 grid(ncn_blocks(M, TILE)), block(TILE, TABLES);
+  const float* xf = static_cast<const float*>(x);
+  float* dp = static_cast<float*>(d_planes);
+  float* dg = static_cast<float*>(d_grid);
+  if constexpr (DX) {
+    auto kernel = g_bf16 ? triplane_bwd_dx_kernel<true>
+                         : triplane_bwd_dx_kernel<false>;
+    kernel<<<grid, block, 0, stream>>>(xf, g, dp, dg, M, geo,
+                                       static_cast<const float*>(jac),
+                                       static_cast<float*>(dx));
+  } else {
+    auto kernel = g_bf16 ? triplane_bwd_kernel<true>
+                         : triplane_bwd_kernel<false>;
+    kernel<<<grid, block, 0, stream>>>(xf, g, dp, dg, M, geo);
   }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -408,14 +516,19 @@ extern "C" int triplane_fwd(const void* x, const void* planes,
                             float plane_hi, float grid_hi, int bf16,
                             int out_bf16, cudaStream_t stream) {
   const Geo geo{plane_res, nb2, grid_res, nb3, plane_rows, plane_hi, grid_hi};
-  auto kernel = bf16 ? (out_bf16 ? triplane_fwd_kernel<true, true>
-                                 : triplane_fwd_kernel<true, false>)
-                     : (out_bf16 ? triplane_fwd_kernel<false, true>
-                                 : triplane_fwd_kernel<false, false>);
-  kernel<<<ncn_blocks(M, TILE), dim3(TILE, TABLES), 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(planes),
-      static_cast<const float*>(grid), out, M, geo);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(x, planes, grid, out, nullptr, M, geo, bf16,
+                           out_bf16, stream);
+}
+
+// H2's forward with the Jacobian: jac (M, 60) f32, 16-byte aligned.
+extern "C" int triplane_fwd_jac(const void* x, const void* planes,
+                                const void* grid, void* out, void* jac, int M,
+                                int plane_res, int nb2, int grid_res, int nb3,
+                                int plane_rows, float plane_hi, float grid_hi,
+                                int bf16, int out_bf16, cudaStream_t stream) {
+  const Geo geo{plane_res, nb2, grid_res, nb3, plane_rows, plane_hi, grid_hi};
+  return launch_fwd<true>(x, planes, grid, out, jac, M, geo, bf16, out_bf16,
+                          stream);
 }
 
 extern "C" int triplane_bwd(const void* x, const void* g, void* d_planes,
@@ -424,22 +537,18 @@ extern "C" int triplane_bwd(const void* x, const void* g, void* d_planes,
                             float plane_hi, float grid_hi, int g_bf16,
                             cudaStream_t stream) {
   const Geo geo{plane_res, nb2, grid_res, nb3, plane_rows, plane_hi, grid_hi};
-  auto kernel = g_bf16 ? triplane_bwd_kernel<true> : triplane_bwd_kernel<false>;
-  kernel<<<ncn_blocks(M, TILE), dim3(TILE, TABLES), 0, stream>>>(
-      static_cast<const float*>(x), g, static_cast<float*>(d_planes),
-      static_cast<float*>(d_grid), M, geo);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<false>(x, g, nullptr, d_planes, d_grid, nullptr, M, geo,
+                           g_bf16, stream);
 }
 
-extern "C" int triplane_dx(const void* x, const void* planes,
-                           const void* grid, const void* g, void* dx, int M,
-                           int plane_res, int nb2, int grid_res, int nb3,
-                           int plane_rows, float plane_hi, float grid_hi,
-                           int g_bf16, cudaStream_t stream) {
+// H2's backward with the contraction of the forward's Jacobian jac into dx
+// (M, 3) f32.
+extern "C" int triplane_bwd_dx(const void* x, const void* g, const void* jac,
+                               void* d_planes, void* d_grid, void* dx, int M,
+                               int plane_res, int nb2, int grid_res, int nb3,
+                               int plane_rows, float plane_hi, float grid_hi,
+                               int g_bf16, cudaStream_t stream) {
   const Geo geo{plane_res, nb2, grid_res, nb3, plane_rows, plane_hi, grid_hi};
-  auto kernel = g_bf16 ? triplane_dx_kernel<true> : triplane_dx_kernel<false>;
-  kernel<<<ncn_blocks(M, TILE), dim3(TILE, TABLES), 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(planes),
-      static_cast<const float*>(grid), g, static_cast<float*>(dx), M, geo);
-  return static_cast<int>(cudaGetLastError());
+  return launch_bwd<true>(x, g, jac, d_planes, d_grid, dx, M, geo, g_bf16,
+                          stream);
 }

@@ -181,13 +181,16 @@ TRIPLANE_FWD = Kernel("triplane_fwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F, I, I])
 TRIPLANE_BWD = Kernel("triplane_bwd", "triplane.cu",
                       [P, P, P, P, I, I, I, I, I, I, F, F, I])
-# H12-H14, the encodes' position gradients (extrinsic optimisation)
-TRIPLANE_DX = Kernel("triplane_dx", "triplane.cu",
-                     [P, P, P, P, P, I, I, I, I, I, I, F, F, I])
+# H12, the triplane encode's position gradient (extrinsic optimisation):
+# H2's forward with its Jacobian and H2's backward with its contraction
+TRIPLANE_FWD_JAC = Kernel("triplane_fwd_jac", "triplane.cu",
+                          [P, P, P, P, P, I, I, I, I, I, I, F, F, I, I])
+TRIPLANE_BWD_DX = Kernel("triplane_bwd_dx", "triplane.cu",
+                         [P, P, P, P, P, P, I, I, I, I, I, I, F, F, I])
 COMPOSITE_FWD = Kernel("composite_fwd", "composite.cu",
                        [P, P, P, P, P, P, I, I, I, F, P, P, P, P, P])
 COMPOSITE_BWD = Kernel("composite_bwd", "composite.cu",
-                       [P, P, P, P, P, P, P, P, P, I, I, I, F, P, P])
+                       [P, P, P, P, P, P, P, P, P, I, I, I, F, P, P, P])
 DISTORTION_FWD = Kernel("distortion_fwd", "distortion.cu",
                         [P, P, P, P, I, I, P])
 DISTORTION_BWD = Kernel("distortion_bwd", "distortion.cu",
@@ -236,7 +239,7 @@ def compact_workspace(n_rays: int, device: torch.device) -> torch.Tensor:
 COMPOSITE_SEG_FWD = Kernel("composite_seg_fwd", "composite.cu",
                            [P] * 8 + [I] * 2 + [F] + [P] * 5)
 COMPOSITE_SEG_BWD = Kernel("composite_seg_bwd", "composite.cu",
-                           [P] * 11 + [I] * 3 + [F] + [P] * 2)
+                           [P] * 11 + [I] * 3 + [F] + [P] * 3)
 DISTORTION_SEG_FWD = Kernel("distortion_seg_fwd", "distortion.cu",
                             [P] * 6 + [I] + [P])
 DISTORTION_SEG_BWD = Kernel("distortion_seg_bwd", "distortion.cu",
@@ -247,14 +250,20 @@ BRICK_BWD = Kernel("brick_bwd", "brick_hash.cu", [P, P, P, P, I, I, I, I])
 HASH_FWD = Kernel("hash_grid_fwd", "hash_grid.cu", [P, P, P, P, I, I, I, I])
 HASH_BWD = Kernel("hash_grid_bwd", "hash_grid.cu", [P, P, P, P, I, I, I, I])
 BRICK_DX = Kernel("brick_dx", "brick_hash.cu", [P, P, P, P, P, I, I, I, I])
-HASH_DX = Kernel("hash_grid_dx", "hash_grid.cu", [P, P, P, P, P, I, I, I, I])
+# H14, the tcnn encode's position gradient: H7 with its Jacobian, and the
+# Jacobian's contraction with the cotangent
+HASH_FWD_JAC = Kernel("hash_grid_fwd_jac", "hash_grid.cu",
+                      [P, P, P, P, P, I, I, I, I])
+HASH_CONTRACT = Kernel("hash_grid_contract", "hash_grid.cu",
+                       [P, P, P, I, I, I])
 
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
                MARCH_SV_TEST, BRICK_FWD, BRICK_BWD, HASH_FWD, HASH_BWD,
                MARCH_FINE_TRAIN, MARCH_FINE_TEST, COMPACT, COMPOSITE_SEG_FWD,
                COMPOSITE_SEG_BWD, DISTORTION_SEG_FWD, DISTORTION_SEG_BWD,
-               TRIPLANE_DX, BRICK_DX, HASH_DX)
+               TRIPLANE_FWD_JAC, TRIPLANE_BWD_DX, BRICK_DX, HASH_FWD_JAC,
+               HASH_CONTRACT)
 
 
 def reset_counts():

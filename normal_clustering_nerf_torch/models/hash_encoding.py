@@ -10,14 +10,18 @@ wraparound, & (T-1). All levels share one (total_rows, F) table, level l
 at row `level_offsets[l]` (level sizes aligned to 8), so it converts 1:1
 from JAX.
 
-`hash_encode` launches kernels H7 (forward), H8 (table gradient) and
-H14 (position gradient, for extrinsic optimisation) of
+`hash_encode` launches kernels H7 (forward) and H8 (table gradient) of
 `csrc/hash_grid.cu` for CUDA tensors, and runs `encode_plain` /
-`encode_grad_plain` / `encode_dx_plain` for CPU tensors. The cotangent arrives in the
-compute dtype, f32 or bf16: H8 reads it as it is, the plain version casts
-it to f32 first. The JAX package's optional run-dedupe scatter
-(`_run_dedupe_scatter`, behind an environment toggle, off by default)
-computes the same sum as the direct scatter and is not ported.
+`encode_grad_plain` for CPU tensors. When x needs a gradient (extrinsic
+optimisation) the position gradient, H14, comes from the encode's
+Jacobian: H7 writes it beside the features (`encode_jac_kernel`, plain
+`encode_jacobian_plain`) and a launch of its own contracts it with the
+cotangent (`contract_kernel`, plain `contract_plain`). The cotangent
+arrives in the compute dtype, f32 or bf16: the kernels read it as it is,
+the plain versions cast it to f32 first. The JAX package's optional
+run-dedupe scatter (`_run_dedupe_scatter`, behind an environment toggle,
+off by default) computes the same sum as the direct scatter and is not
+ported.
 """
 from __future__ import annotations
 
@@ -161,34 +165,52 @@ def encode_grad_plain(x, g, spec: HashGridSpec):
     return d_table
 
 
-def encode_dx_plain(table, x, g, spec: HashGridSpec):
-    """Plain PyTorch version of H14: the position gradient (M, 3) f32 of
-    the encode under the f32 cotangent g (M, L*F), the need_dx branch of
-    `_hash_vjp_bwd` (hash_encoding.py:227-243): per level and axis a, the
-    sum in corner order of ((+-1 * w_o1) * w_o2) * scale, the derivative
-    of the corner's weight along a (o1, o2 the other axes, the weights
-    from the unclipped fraction), times the corner's row dotted with the
-    level's cotangent (feature order); the levels added in order."""
+def encode_jacobian_plain(table, x, spec: HashGridSpec):
+    """Plain PyTorch version of H7's Jacobian: d(out)/dx (M, L*F*3) f32,
+    entry (l*F + f)*3 + a the sum in corner order of the corner's row
+    value f times ((+-1 * w_o1) * w_o2) * scale, the derivative of its
+    weight along a (o1, o2 the other axes, the weights from the unclipped
+    fraction: the clip of a corner index gets no derivative, as in
+    JAX)."""
     F = spec.n_features
-    dx = [[], [], []]
+    cols = []
     for l in range(spec.n_levels):
         rows, _ = level_corners(x, spec, l)
         _, w = level_fraction(x, spec, l)
         vals = table[rows]                                  # (M, 8, F)
-        g_l = g[:, l * F:(l + 1) * F]
         scale = torch.tensor(spec.scales[l], dtype=torch.float32)
-        acc = [[], [], []]
+        dw = [[], [], []]
         for c in range(8):
             cs = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
-            gd = chain_sum([vals[:, c, f] * g_l[:, f] for f in range(F)])
             for a in range(3):
                 o1, o2 = [b for b in range(3) if b != a]
                 w1 = w[:, o1] if cs[o1] else 1.0 - w[:, o1]
                 w2 = w[:, o2] if cs[o2] else 1.0 - w[:, o2]
-                acc[a].append(((w1 if cs[a] else -w1) * w2) * scale * gd)
-        for a in range(3):
-            dx[a].append(chain_sum(acc[a]))
-    return torch.stack([chain_sum(t) for t in dx], 1)
+                dw[a].append(((w1 if cs[a] else -w1) * w2) * scale)
+        for f in range(F):
+            for a in range(3):
+                cols.append(chain_sum([vals[:, c, f] * dw[a][c]
+                                       for c in range(8)]))
+    return torch.stack(cols, 1)
+
+
+def contract_plain(jac, g):
+    """Plain PyTorch version of H14's contraction: dx (M, 3) f32, dx[a] =
+    sum over k = l*F + f in order of g[k] * jac[k*3 + a] (g (M, L*F) f32),
+    each added to the sum so far from 0."""
+    return torch.stack([chain_sum([g[:, k] * jac[:, 3 * k + a]
+                                   for k in range(g.shape[1])])
+                        for a in range(3)], 1)
+
+
+def encode_dx_plain(table, x, g, spec: HashGridSpec):
+    """The position gradient (M, 3) f32 of the encode under the f32
+    cotangent g (M, L*F), as the kernels compute it: the Jacobian
+    contracted with g. JAX's need_dx branch of `_hash_vjp_bwd`
+    (hash_encoding.py:227-243) dots each corner's row with g first and
+    sums the corners after; the two orders agree within 1e-5 of the
+    largest |dx|."""
+    return contract_plain(encode_jacobian_plain(table, x, spec), g)
 
 
 # ------------------------------------------------------------ kernels
@@ -251,49 +273,80 @@ def encode_grad_kernel(x, g, spec: HashGridSpec):
     return d_table
 
 
-def encode_dx_kernel(table, x, g, spec: HashGridSpec):
-    """H14: the position gradient (M, 3) f32 of g ((M, L*F) in f32 or
-    bf16, read in its own dtype)."""
+def encode_jac_kernel(table, x, spec: HashGridSpec, out_dtype=torch.float32):
+    """H7 with the Jacobian (`hash_grid_fwd_jac`): the (M, L*F) features
+    in `out_dtype`, as `encode_kernel` writes them, and d(out)/dx (M,
+    L*F*3) f32 (`encode_jacobian_plain`'s layout)."""
     M, dev, args = _kernel_args(x, spec)
     tab = kernels.check(table, "table", torch.float32, spec.table_shape(), dev)
     if table.data_ptr() % 16:
-        raise ValueError("table: H14 reads aligned row pairs as 16-byte "
+        raise ValueError("table: H7 reads aligned row pairs as 16-byte "
                          "words; the table must start 16-byte aligned")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype {out_dtype}: f32 or bf16")
+    out = torch.empty((M, spec.out_dim), dtype=out_dtype, device=dev)
+    jac = torch.empty((M, 3 * spec.out_dim), dtype=torch.float32, device=dev)
+    if M > 0:
+        kernels.HASH_FWD_JAC.launch(tab, *args, kernels.ptr(out),
+                                    kernels.ptr(jac), M, spec.n_levels,
+                                    spec.table_size,
+                                    int(out_dtype == torch.bfloat16),
+                                    device=dev)
+    return out, jac
+
+
+def contract_kernel(jac, g, spec: HashGridSpec):
+    """H14's contraction (`hash_grid_contract`): the position gradient
+    (M, 3) f32 from H7's Jacobian `jac` (M, L*F*3) and g ((M, L*F) in f32
+    or bf16, read in its own dtype), in `contract_plain`'s order."""
+    if spec.n_features != 2:
+        raise NotImplementedError("the hash-grid kernels take n_features 2")
+    M, dev = jac.shape[0], jac.device
+    jp = kernels.check(jac, "jac", torch.float32, (M, 3 * spec.out_dim), dev)
     if g.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
     gp = kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)
     dx = torch.empty((M, 3), dtype=torch.float32, device=dev)
     if M > 0:
-        kernels.HASH_DX.launch(tab, *args, gp, kernels.ptr(dx), M,
-                               spec.n_levels, spec.table_size,
-                               int(g.dtype == torch.bfloat16), device=dev)
+        kernels.HASH_CONTRACT.launch(gp, jp, kernels.ptr(dx), M,
+                                     spec.n_levels,
+                                     int(g.dtype == torch.bfloat16),
+                                     device=dev)
     return dx
 
 
 class HashEncode(torch.autograd.Function):
-    """The table gradient, and the position gradient (H14) when x needs
-    one (extrinsic optimisation: JAX's need_dx)."""
+    """The table gradient, and with `jac` (x needs a gradient: JAX's
+    need_dx, extrinsic optimisation) the position gradient H14 from the
+    Jacobian the forward saves in place of the table."""
 
     @staticmethod
-    def forward(ctx, table, x, spec, out_dtype):
-        ctx.save_for_backward(x, table)
+    def forward(ctx, table, x, spec, out_dtype, jac=False):
         ctx.spec = spec
+        if not jac:
+            ctx.save_for_backward(x)
+            if x.is_cuda:
+                return encode_kernel(table, x, spec, out_dtype)
+            return encode_plain(table, x, spec).to(out_dtype)
         if x.is_cuda:
-            return encode_kernel(table, x, spec, out_dtype)
-        return encode_plain(table, x, spec).to(out_dtype)
+            out, J = encode_jac_kernel(table, x, spec, out_dtype)
+        else:
+            out = encode_plain(table, x, spec).to(out_dtype)
+            J = encode_jacobian_plain(table, x, spec)
+        ctx.save_for_backward(x, J)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, table = ctx.saved_tensors
-        if x.is_cuda:   # the kernels read g in the compute dtype
-            g = g.contiguous()
-            grad, dx_fn = encode_grad_kernel, encode_dx_kernel
-        else:
-            g = g.to(torch.float32)
-            grad, dx_fn = encode_grad_plain, encode_dx_plain
-        dx = (dx_fn(table, x, g, ctx.spec) if ctx.needs_input_grad[1]
-              else None)
-        return grad(x, g, ctx.spec), dx, None, None
+        x, *J = ctx.saved_tensors
+        card = x.is_cuda   # the kernels read g in the compute dtype
+        g = g.contiguous() if card else g.to(torch.float32)
+        grad = encode_grad_kernel if card else encode_grad_plain
+        dx = None
+        if J:
+            dx = (contract_kernel(J[0], g, ctx.spec) if card
+                  else contract_plain(J[0], g))
+        return grad(x, g, ctx.spec), dx, None, None, None
 
 
 def hash_encode(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
@@ -304,5 +357,6 @@ def hash_encode(table: torch.Tensor, x: torch.Tensor, spec: HashGridSpec,
     without it x gets none."""
     if not need_dx:
         x = x.detach()
+    jac = torch.is_grad_enabled() and x.requires_grad
     return HashEncode.apply(table, x.to(torch.float32).contiguous(), spec,
-                            compute_dtype)
+                            compute_dtype, jac)

@@ -9,11 +9,14 @@ lane f*16 + s; a grid row a 4x4x4 brick of 256 values, lane f*64 + s.
 The tables convert 1:1 from JAX parameters.
 
 `triplane_encode` launches kernel H2 (`csrc/triplane.cu`) for CUDA
-tensors, forward and backward, and H12 for the position gradient
-(extrinsic optimisation), and runs `encode_plain` / `encode_grad_plain`
-/ `encode_dx_plain` for CPU tensors. The cotangent arrives in the compute
-dtype, f32 or bf16: H2 reads it as it is, the plain version casts it to
-f32 first.
+tensors, forward and backward, and runs `encode_plain` /
+`encode_grad_plain` for CPU tensors. When x needs a gradient (extrinsic
+optimisation) the position gradient, H12, comes from the encode's
+Jacobian: H2's forward writes it beside the features
+(`encode_jac_kernel`, plain `encode_jacobian_plain`) and H2's backward
+contracts it with the cotangent (`encode_grad_dx_kernel`, plain
+`contract_plain`). The cotangent arrives in the compute dtype, f32 or
+bf16: H2 reads it as it is, the plain versions cast it to f32 first.
 """
 from __future__ import annotations
 
@@ -190,28 +193,27 @@ def encode_grad_plain(x, g, spec: TriplaneSpec, plane_shape, grid_shape):
     return d_planes, d_grid
 
 
-def _dx_terms(table_flat, lanes, g, dws, scale: float):
-    """One table's position terms: each corner's dot of its F values with
-    g (M, F), feature by feature, times each axis' weight derivatives
-    (dws: per axis, (M, C)), summed corner by corner, times `scale`."""
+def _jac_terms(table_flat, lanes, dws, scale: float):
+    """One table's Jacobian columns: for each feature and each axis (dws:
+    per axis, (M, C) weight derivatives), the corner terms value * dw
+    summed in corner order from 0, times `scale`; feature-major."""
     vals = table_flat[lanes]                         # (M, F, C)
-    gd = chain_sum([vals[:, f] * g[:, f, None] for f in range(g.shape[1])])
-    return [chain_sum([gd[:, c] * dw[:, c] for c in range(dw.shape[1])])
-            * scale for dw in dws]
+    return [chain_sum([vals[:, f, c] * dw[:, c] for c in range(dw.shape[1])])
+            * scale for f in range(vals.shape[1]) for dw in dws]
 
 
-def encode_dx_plain(planes, grid3d, x, g, spec: TriplaneSpec):
-    """Plain PyTorch version of H12: the position gradient (M, 3) f32 of
-    the encode under the f32 cotangent g (M, 3Fp+Fg), the need_dx branch
-    of `_tp_bwd` (triplane.py:229-250). Per plane, each corner's f32 row
-    values dotted with g (feature order), times the derivative of its
-    bilinear weight along u (+-v's weight) and along v (+-u's), summed in
-    corner order, times R_p - 1; the grid's the same over 8 corners and
-    three axes, times R_g - 1. dx[a] adds the planes' terms (xy, xz, yz)
-    then the grid's, as the JAX version does; the clip of the position
-    gets no derivative there either."""
+def encode_jacobian_plain(planes, grid3d, x, spec: TriplaneSpec):
+    """Plain PyTorch version of H2's Jacobian: d(out)/dx (M, 2*3Fp + 3Fg)
+    f32 from the f32 tables (JAX's need_dx reads them, whatever the
+    compute dtype): plane p's feature f along its axes u, v at p*2Fp +
+    2f + (0, 1), each the sum in corner order of the corner's value times
+    the derivative of its bilinear weight (+-the other axis' weight),
+    times R_p - 1; then grid3d's feature f along x, y, z at 6Fp + 3f +
+    (0, 1, 2), over 8 corners (+-the product of the other two axes'
+    weights), times R_g - 1. The clip of the position gets no derivative,
+    as in JAX."""
     Fp, Fg = spec.plane_feats, spec.grid3d_feats
-    terms = [[], [], []]
+    cols = []
     for pi, (a, b) in enumerate(PLANES):
         x2 = torch.stack((x[:, a], x[:, b]), 1)
         row, slots, _ = plane_corners(x2, spec)
@@ -219,12 +221,9 @@ def encode_dx_plain(planes, grid3d, x, g, spec: TriplaneSpec):
         # corners (u, v) = (0, 0), (0, 1), (1, 0), (1, 1)
         dwu = torch.stack([-v0, -v1, v0, v1], 1)
         dwv = torch.stack([-u0, u0, -u1, u1], 1)
-        du, dv = _dx_terms(planes[pi].reshape(-1),
-                           _lanes(row, slots, Fp, 128, 16),
-                           g[:, pi * Fp:(pi + 1) * Fp], (dwu, dwv),
+        cols += _jac_terms(planes[pi].reshape(-1),
+                           _lanes(row, slots, Fp, 128, 16), (dwu, dwv),
                            float(spec.plane_res - 1))
-        terms[a].append(du)
-        terms[b].append(dv)
     row, slots, _ = grid_corners(x, spec)
     w = [(w0, w1) for _, _, w0, w1 in _axes(x, spec.grid3d_res, spec)]
     dws = [[], [], []]
@@ -235,12 +234,40 @@ def encode_dx_plain(planes, grid3d, x, g, spec: TriplaneSpec):
             o1, o2 = [o for o in range(3) if o != a]
             prod = pick[o1] * pick[o2]
             dws[a].append(prod if cs[a] else -prod)
-    gd = _dx_terms(grid3d.reshape(-1), _lanes(row, slots, Fg, 64 * Fg, 64),
-                   g[:, 3 * Fp:], [torch.stack(d, 1) for d in dws],
-                   float(spec.grid3d_res - 1))
+    cols += _jac_terms(grid3d.reshape(-1), _lanes(row, slots, Fg, 64 * Fg, 64),
+                       [torch.stack(d, 1) for d in dws],
+                       float(spec.grid3d_res - 1))
+    return torch.stack(cols, 1)
+
+
+def contract_plain(jac, g, spec: TriplaneSpec):
+    """Plain PyTorch version of the contraction in H2's backward: dx (M, 3)
+    f32 from the Jacobian and the f32 cotangent g (M, 3Fp+Fg). Each
+    table's term along an axis is the chain over its features of g * J
+    from 0; dx[a] adds the planes' terms (xy, xz, yz) then the grid's, as
+    the JAX version does (triplane.py:229-250)."""
+    Fp, Fg = spec.plane_feats, spec.grid3d_feats
+    terms = [[], [], []]
+    for pi, axes in enumerate(PLANES):
+        for k, a in enumerate(axes):
+            terms[a].append(chain_sum([
+                g[:, pi * Fp + f] * jac[:, pi * 2 * Fp + 2 * f + k]
+                for f in range(Fp)]))
     for a in range(3):
-        terms[a].append(gd[a])
+        terms[a].append(chain_sum([g[:, 3 * Fp + f]
+                                   * jac[:, 6 * Fp + 3 * f + a]
+                                   for f in range(Fg)]))
     return torch.stack([(t[0] + t[1]) + t[2] for t in terms], 1)
+
+
+def encode_dx_plain(planes, grid3d, x, g, spec: TriplaneSpec):
+    """The position gradient (M, 3) f32 of the encode under the f32
+    cotangent g (M, 3Fp+Fg), as H2 computes it: the Jacobian contracted
+    with g. JAX's need_dx branch of `_tp_bwd` (triplane.py:229-250) dots
+    each corner's values with g first and sums the corners after; the
+    two orders agree within 1e-5 of the largest |dx|."""
+    return contract_plain(encode_jacobian_plain(planes, grid3d, x, spec), g,
+                          spec)
 
 
 # ------------------------------------------------------------ kernels
@@ -295,60 +322,104 @@ def encode_grad_kernel(x, g, spec: TriplaneSpec, plane_shape, grid_shape):
     return d_planes, d_grid
 
 
-def encode_dx_kernel(planes, grid3d, x, g, spec: TriplaneSpec):
-    """H12: the position gradient (M, 3) f32 of g ((M, 3Fp+Fg) in f32 or
-    bf16, read in its own dtype), from the f32 tables."""
+def encode_jac_kernel(planes, grid3d, x, spec: TriplaneSpec, bf16: bool,
+                      out_dtype=torch.float32):
+    """H2's forward with the Jacobian (`triplane_fwd_jac`): the features
+    as `encode_kernel` writes them, and d(out)/dx (M, 2*3Fp + 3Fg) f32
+    (`encode_jacobian_plain`'s layout) from the f32 tables."""
+    geo = _kernel_geometry(spec)
+    M, dev, f32 = x.shape[0], x.device, torch.float32
+    args = [kernels.check(x, "x", f32, (M, 3), dev),
+            kernels.check(planes, "planes", f32,
+                          spec.param_shapes()["planes"], dev),
+            kernels.check(grid3d, "grid3d", f32,
+                          spec.param_shapes()["grid3d"], dev)]
+    if out_dtype not in (f32, torch.bfloat16):
+        raise ValueError(f"out_dtype {out_dtype}: f32 or bf16")
+    out = torch.empty((M, spec.out_dim), dtype=out_dtype, device=dev)
+    jac = torch.empty((M, jac_width(spec)), dtype=f32, device=dev)
+    if M > 0:
+        kernels.TRIPLANE_FWD_JAC.launch(*args, kernels.ptr(out),
+                                        kernels.ptr(jac), M, *geo, int(bf16),
+                                        int(out_dtype == torch.bfloat16),
+                                        device=dev)
+    return out, jac
+
+
+def encode_grad_dx_kernel(x, g, jac, spec: TriplaneSpec, plane_shape,
+                          grid_shape):
+    """H2's backward with the contraction (`triplane_bwd_dx`): the table
+    gradients of g, as `encode_grad_kernel` computes them, and the
+    position gradient (M, 3) f32 from the forward's Jacobian `jac`."""
     geo = _kernel_geometry(spec)
     M, dev, f32 = x.shape[0], x.device, torch.float32
     if g.dtype not in (f32, torch.bfloat16):
         raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
-    shapes = spec.param_shapes()
     args = [kernels.check(x, "x", f32, (M, 3), dev),
-            kernels.check(planes, "planes", f32, shapes["planes"], dev),
-            kernels.check(grid3d, "grid3d", f32, shapes["grid3d"], dev),
-            kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)]
+            kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev),
+            kernels.check(jac, "jac", f32, (M, jac_width(spec)), dev)]
+    d_planes = torch.zeros(plane_shape, dtype=f32, device=dev)
+    d_grid = torch.zeros(grid_shape, dtype=f32, device=dev)
     dx = torch.empty((M, 3), dtype=f32, device=dev)
     if M > 0:
-        kernels.TRIPLANE_DX.launch(*args, kernels.ptr(dx), M, *geo,
-                                   int(g.dtype == torch.bfloat16), device=dev)
-    return dx
+        kernels.TRIPLANE_BWD_DX.launch(*args, kernels.ptr(d_planes),
+                                       kernels.ptr(d_grid), kernels.ptr(dx),
+                                       M, *geo,
+                                       int(g.dtype == torch.bfloat16),
+                                       device=dev)
+    return d_planes, d_grid, dx
+
+
+def jac_width(spec: TriplaneSpec) -> int:
+    """The Jacobian's columns a sample: 2 axes of each plane feature, 3 of
+    each grid3d feature."""
+    return 3 * spec.plane_feats * 2 + spec.grid3d_feats * 3
 
 
 class TriplaneEncode(torch.autograd.Function):
-    """Table gradients, and the position gradient when x needs one
-    (extrinsic optimisation: JAX's need_dx). The encode folds bf16 rows
+    """Table gradients, and with `jac` (x needs a gradient: JAX's need_dx,
+    extrinsic optimisation) the position gradient H12 from the Jacobian
+    the forward saves in place of the tables. The encode folds bf16 rows
     when `out_dtype` (the compute dtype) is bf16, and returns its output
     in `out_dtype` (H2 writes it so; the plain version's f32 sum is cast),
-    so that the cotangent comes back in it: H2's backward and H12 read a
-    bf16 cotangent as it is, the plain versions cast it to f32 (exact)."""
+    so that the cotangent comes back in it: H2's backward reads a bf16
+    cotangent as it is, the plain versions cast it to f32 (exact)."""
 
     @staticmethod
-    def forward(ctx, planes, grid3d, x, spec, out_dtype):
-        if ctx.needs_input_grad[2]:
-            ctx.save_for_backward(x, planes, grid3d)
-        else:
-            ctx.save_for_backward(x)
+    def forward(ctx, planes, grid3d, x, spec, out_dtype, jac=False):
         ctx.spec = spec
         ctx.shapes = (planes.shape, grid3d.shape)
         bf16 = out_dtype == torch.bfloat16
+        if not jac:
+            ctx.save_for_backward(x)
+            if x.is_cuda:
+                return encode_kernel(planes, grid3d, x, spec, bf16, out_dtype)
+            return encode_plain(planes, grid3d, x, spec, bf16).to(out_dtype)
         if x.is_cuda:
-            return encode_kernel(planes, grid3d, x, spec, bf16, out_dtype)
-        return encode_plain(planes, grid3d, x, spec, bf16).to(out_dtype)
+            out, J = encode_jac_kernel(planes, grid3d, x, spec, bf16,
+                                       out_dtype)
+        else:
+            out = encode_plain(planes, grid3d, x, spec, bf16).to(out_dtype)
+            J = encode_jacobian_plain(planes, grid3d, x, spec)
+        ctx.save_for_backward(x, J)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x = ctx.saved_tensors[0]
-        if x.is_cuda:
-            g = g.contiguous()
-            grad, dx_fn = encode_grad_kernel, encode_dx_kernel
-        else:
-            g = g.to(torch.float32)
-            grad, dx_fn = encode_grad_plain, encode_dx_plain
-        d_planes, d_grid = grad(x, g, ctx.spec, *ctx.shapes)
+        x, *J = ctx.saved_tensors
+        card = x.is_cuda
+        g = g.contiguous() if card else g.to(torch.float32)
         dx = None
-        if ctx.needs_input_grad[2]:
-            dx = dx_fn(*ctx.saved_tensors[1:], x, g, ctx.spec)
-        return d_planes, d_grid, dx, None, None
+        if not J:
+            grad = encode_grad_kernel if card else encode_grad_plain
+            d_planes, d_grid = grad(x, g, ctx.spec, *ctx.shapes)
+        elif card:
+            d_planes, d_grid, dx = encode_grad_dx_kernel(x, g, J[0], ctx.spec,
+                                                         *ctx.shapes)
+        else:
+            d_planes, d_grid = encode_grad_plain(x, g, ctx.spec, *ctx.shapes)
+            dx = contract_plain(J[0], g, ctx.spec)
+        return d_planes, d_grid, dx, None, None, None
 
 
 def triplane_encode(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -361,5 +432,6 @@ def triplane_encode(params: Dict[str, torch.Tensor], x: torch.Tensor,
     (JAX's need_dx False) x gets none."""
     if not need_dx:
         x = x.detach()
+    jac = torch.is_grad_enabled() and x.requires_grad
     return TriplaneEncode.apply(params["planes"], params["grid3d"],
-                                x.contiguous(), spec, compute_dtype)
+                                x.contiguous(), spec, compute_dtype, jac)

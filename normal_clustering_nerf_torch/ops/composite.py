@@ -72,14 +72,29 @@ def composite_grad_plain(sigmas, raws, deltas, ts, valid, T_threshold,
     return d_sigmas, d_raws
 
 
-def _check_inputs(sigmas, raws, deltas, ts, valid, max_k=32):
-    """The backward takes a ray on at most 32 lanes, a lane a sample, so
-    K <= 32; the forward takes longer rows in chunks of 32 and passes
-    max_k=None. Both take any channel count."""
+# H3's backward takes rows of up to LANE_ROWS samples on lane groups, a
+# lane a sample; longer rows on a warp in chunks of 32 samples, with a
+# scratch value a sample (`_long_scratch`)
+LANE_ROWS = 32
+
+
+def _long_scratch(n, max_len, device):
+    """The scratch of H3's long-row backward (a float a sample: its G*w,
+    read back on the walk from the last chunk), or None for rows the lane
+    groups take."""
+    if max_len <= LANE_ROWS:
+        return None
+    return torch.empty(n, dtype=torch.float32, device=device)
+
+
+def _ptr_or_null(t):
+    return None if t is None else kernels.ptr(t)
+
+
+def _check_inputs(sigmas, raws, deltas, ts, valid):
+    """Both launchers take any row length K and any channel count."""
     N, K = sigmas.shape
     C = raws.shape[-1]
-    if max_k is not None and K > max_k:
-        raise ValueError(f"composite kernel takes K <= {max_k}; got K={K}")
     dev, f32 = sigmas.device, torch.float32
     return N, K, C, [
         kernels.check(sigmas, "sigmas", f32, (N, K), dev),
@@ -92,7 +107,7 @@ def _check_inputs(sigmas, raws, deltas, ts, valid, max_k=32):
 
 def composite_kernel(sigmas, raws, deltas, ts, valid, T_threshold,
                      T_start=None):
-    N, K, C, args = _check_inputs(sigmas, raws, deltas, ts, valid, None)
+    N, K, C, args = _check_inputs(sigmas, raws, deltas, ts, valid)
     args.append(None if T_start is None else kernels.check(
         T_start, "T_start", torch.float32, (N,), sigmas.device))
     e = dict(dtype=torch.float32, device=sigmas.device)
@@ -118,9 +133,10 @@ def composite_grad_kernel(sigmas, raws, deltas, ts, valid, T_threshold,
     d_sigmas = torch.empty((N, K), dtype=f32, device=dev)
     d_raws = torch.empty((N, K, C), dtype=f32, device=dev)
     if N > 0:
+        scratch = _long_scratch(N * K, K, dev)
         kernels.COMPOSITE_BWD.launch(
             *args, *gargs, N, K, C, T_threshold, kernels.ptr(d_sigmas),
-            kernels.ptr(d_raws), device=dev)
+            kernels.ptr(d_raws), _ptr_or_null(scratch), device=dev)
     return d_sigmas, d_raws
 
 
@@ -253,17 +269,14 @@ def composite_compact_kernel(sigmas, raws, deltas, ts, ray_start, ray_count,
 def composite_compact_grad_kernel(sigmas, raws, deltas, ts, ray_start,
                                   ray_count, valid, T_threshold, g_op,
                                   g_depth, g_rend, g_ws, max_len=None):
-    """`max_len` bounds the segments (the backward takes a ray on at most
-    32 lanes, a lane a sample, and sizes its lane groups by `max_len`);
-    None reads it from `ray_count` (a host sync, which a CUDA graph's
-    capture refuses)."""
+    """`max_len` bounds the segments (the backward sizes its lane groups
+    by it, and past LANE_ROWS takes a ray a warp in chunks); None reads it
+    from `ray_count` (a host sync, which a CUDA graph's capture
+    refuses)."""
     B, N, C, args, seg = _check_compact(sigmas, raws, deltas, ts, ray_start,
                                         ray_count, valid)
     if max_len is None:
         max_len = int(ray_count.max()) if N else 0
-    if max_len > 32:
-        raise ValueError(f"the composite backward takes segments of <= 32 "
-                         f"samples, got {max_len}")
     dev, f32 = sigmas.device, torch.float32
     gargs = [kernels.check(g_op, "g_opacity", f32, (N,), dev),
              kernels.check(g_depth, "g_depth", f32, (N,), dev),
@@ -272,9 +285,11 @@ def composite_compact_grad_kernel(sigmas, raws, deltas, ts, ray_start,
     d_sigmas = torch.zeros(B, dtype=f32, device=dev)
     d_raws = torch.zeros((B, C), dtype=f32, device=dev)
     if N > 0:
+        scratch = _long_scratch(B, max_len, dev)
         kernels.COMPOSITE_SEG_BWD.launch(
             *args, *gargs, *seg, N, max_len, C, T_threshold,
-            kernels.ptr(d_sigmas), kernels.ptr(d_raws), device=dev)
+            kernels.ptr(d_sigmas), kernels.ptr(d_raws), _ptr_or_null(scratch),
+            device=dev)
     return d_sigmas, d_raws
 
 

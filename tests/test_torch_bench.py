@@ -50,6 +50,7 @@ def test_bench_config_matches_bench_py(monkeypatch, layout):
 FLAG_CASES = [
     ([], {}),
     (["--samples_per_ray", "32"], dict(samples_per_ray=32)),
+    (["--samples_per_ray", "64"], dict(samples_per_ray=64)),
     (["--min_losses"], dict(min_losses=True)),
     (["--batch", "4096"], dict(batch=4096)),
     (["--compute_dtype", "float32"], dict(compute_dtype="float32")),
@@ -86,8 +87,9 @@ def test_bench_flags_match_bench_py(monkeypatch, argv, jax_kw):
 def test_bench_run_flags():
     """The flags that shape the run and not the configuration: the cost
     probes, the trace and the throughput-only run; `--num_chips 2` parses
-    (ROADMAP A10); more than 32 samples a ray and fewer than one card are
-    refused."""
+    (ROADMAP A10); any number of samples a ray parses, 33 and 64
+    included (past one lane group of H3's backward); fewer than one card
+    is refused."""
     args = bench.parse_args(["--no_occ_update", "--skip-quality",
                              "--profile", "trace_dir"])
     assert args.no_occ_update and args.skip_quality
@@ -97,33 +99,36 @@ def test_bench_run_flags():
                 or defaults.min_losses or defaults.profile)
     assert defaults.num_chips == 1
     assert bench.parse_args(["--num_chips", "2"]).num_chips == 2
-    for argv in (["--samples_per_ray", "33"], ["--num_chips", "0"]):
-        with pytest.raises(SystemExit):
-            bench.parse_args(argv)
+    for k in (33, 64):
+        assert bench.parse_args(["--samples_per_ray", str(k)]
+                                ).samples_per_ray == k
+    with pytest.raises(SystemExit):
+        bench.parse_args(["--num_chips", "0"])
 
 
-def test_num_chips_splits_the_batch_as_bench_py(monkeypatch):
-    """`--num_chips 2` builds bench.py's configuration at num_chips 2
-    (ParallelConfig mesh (2,), the same global batch), field by field,
-    but for the march budget: a rank's batch times samples_per_ray, where
-    bench.py gives each chip the global batch's."""
+@pytest.mark.parametrize("num_chips", [2, 4])
+def test_num_chips_splits_the_batch_as_bench_py(monkeypatch, num_chips):
+    """`--num_chips N` builds bench.py's configuration at num_chips N
+    (ParallelConfig mesh (N,), the same global batch), field by field
+    with no exception: the march budget is the global batch's on every
+    rank (bench.py:62), so a rank of 8192 / N rays marches 16 N samples a
+    ray."""
     monkeypatch.setattr(j_synthetic, "SyntheticDataset", _Scene)
     monkeypatch.setattr(j_training, "Trainer", lambda *a: a)
     _, jcfg = jax_bench.build_trainer(
-        8192, num_chips=2, compute_dtype="bfloat16", hash_layout="triplane",
-        samples_per_ray=16, sv_intervals=24)
-    cfg = bench.config_of(bench.parse_args(["--num_chips", "2"]))
+        8192, num_chips=num_chips, compute_dtype="bfloat16",
+        hash_layout="triplane", samples_per_ray=16, sv_intervals=24)
+    cfg = bench.config_of(bench.parse_args(["--num_chips", str(num_chips)]))
     assert dataclasses.asdict(cfg.parallel) == \
         dataclasses.asdict(jcfg.parallel)
     assert cfg.data.batch_size == jcfg.data.batch_size == 8192
-    assert cfg.render.sample_budget == 4096 * 16
-    assert jcfg.render.sample_budget == 8192 * 16
+    assert cfg.render.sample_budget == jcfg.render.sample_budget == 8192 * 16
     for part in ("model", "render", "loss", "data", "optim"):
         ours, ref = getattr(cfg, part), getattr(jcfg, part)
         for f in dataclasses.fields(ours):
-            if (part, f.name) != ("render", "sample_budget"):
-                assert getattr(ours, f.name) == getattr(ref, f.name), \
-                    f"{part}.{f.name}"
+            assert getattr(ours, f.name) == getattr(ref, f.name), \
+                f"{part}.{f.name}"
+    assert cfg.seed == jcfg.seed
 
 
 PASS = {"psnr": 34.0, "trunc_ray_frac": 0.0, "norm_depth_ang_mean": 18.0,

@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import pytest
 
+import chip_smoke
 from test_torch_common import J, N, T
 
 from normal_clustering_nerf_torch.ops import composite as tc
@@ -56,11 +57,14 @@ def test_forward_matches_jax(seed):
     assert (valid & (sig * dt >= tc.SIGDT_MAX)).any()    # clipped samples
 
 
-@pytest.mark.parametrize("K", [1, 16, 32])
+@pytest.mark.parametrize("K", [1, 16, 32, 33, 64, 100])
 @pytest.mark.parametrize("seed", [2, 3])
 def test_backward_matches_jax_vjp_and_reference_grads(seed, K):
-    """At K = 1, 16 and 32: the row lengths for which H3's backward takes
-    a ray on a group of 1, 16 and 32 lanes."""
+    """At K = 1, 16 and 32, the row lengths for which H3's backward takes
+    a ray on a group of 1, 16 and 32 lanes; at K = 33, 64 and 100, rows
+    its long kernel takes on a warp in chunks of 32 (two chunks, the
+    second of one sample; two; four, the last of 4): 64 is a rank's row
+    at four cards under the bench's global budget."""
     sig, raws, dt, ts, valid, cot = _case(seed, K=K)
     assert (valid & (sig * dt >= tc.SIGDT_MAX)).any()    # clip mask used
     _, vjp = jax.vjp(lambda s, r: _jax_outputs(s, r, dt, ts, valid),
@@ -80,6 +84,23 @@ def test_backward_matches_jax_vjp_and_reference_grads(seed, K):
                            (d_raw_cuda, rt.grad, "d_raws reference")):
         np.testing.assert_allclose(N(got), np.asarray(ref), rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("K", [16, 64, 100])
+def test_serial_backward_reference_matches_jax_vjp(K):
+    """`chip_smoke.composite_grad_serial`, the order of f32 operations that
+    H3's backward keeps at every row length (the lane groups' and the long
+    kernel's chunks; the card holds d_sigmas to it bit for bit), against
+    `jax.vjp` of the JAX forward, within the tolerance of the backward's
+    plain version above."""
+    sig, raws, dt, ts, valid, cot = _case(9 + K, K=K)
+    _, vjp = jax.vjp(lambda s: _jax_outputs(s, J(raws), dt, ts, valid),
+                     J(sig))
+    ref = np.asarray(vjp(tuple(J(c) for c in cot))[0])
+    got = chip_smoke.composite_grad_serial(
+        T(sig), T(raws), T(dt), T(ts), T(valid), THR, *(T(c) for c in cot))
+    np.testing.assert_allclose(N(got), ref, rtol=1e-4, atol=1e-5)
+    assert (N(got) != 0).any()
 
 
 def test_d_raws_is_g_rend_times_forward_ws_bit_for_bit():
@@ -146,18 +167,8 @@ def test_segment_forward_on_every_length_matches_jax(with_t_start):
     to ~60, where JAX's global cumsum minus the segment base stays inside
     it. A tenth of the segments' slots are invalid, 7 padding slots
     follow the last segment."""
-    rng = np.random.default_rng(11)
-    count = rng.permutation(65).astype(np.int32)
-    n, used_slots = count.shape[0], int(count.sum())
-    start = (np.cumsum(count) - count).astype(np.int32)
-    B = used_slots + 7
-    ray_id = np.full(B, n - 1, np.int32)
-    ray_id[:used_slots] = np.repeat(np.arange(n), count)
-    valid = (np.arange(B) < used_slots) & (rng.random(B) >= 0.1)
-    dt = rng.uniform(0.002, 0.02, B).astype(np.float32)
-    ts = np.cumsum(dt).astype(np.float32)
-    sig = (8.0 * rng.random(B) ** 2).astype(np.float32)
-    raws = rng.standard_normal((B, 9)).astype(np.float32)
+    count, start, ray_id, valid, dt, ts, sig, raws, rng = _segments(11, 64)
+    n = count.shape[0]
     t_start = None
     if with_t_start:
         t_start = rng.random(n).astype(np.float32)
@@ -180,7 +191,58 @@ def test_segment_forward_on_every_length_matches_jax(with_t_start):
         assert (N(out["vr_samples"]) < n_valid).any()
 
 
-def test_kernel_wrapper_refuses_wide_rows():
-    sig, raws, dt, ts, valid, _ = _case(5, n=4, K=40)
-    with pytest.raises(ValueError):
-        tc._check_inputs(T(sig), T(raws), T(dt), T(ts), T(valid))
+def _segments(seed, longest):
+    """Flat composite inputs on segments of every length 0..longest in
+    shuffled order, a tenth of the slots invalid, 7 padding slots after
+    the last segment: (count, start, ray_id, valid, dt, ts, sig, raws)."""
+    rng = np.random.default_rng(seed)
+    count = rng.permutation(longest + 1).astype(np.int32)
+    n, used_slots = count.shape[0], int(count.sum())
+    start = (np.cumsum(count) - count).astype(np.int32)
+    B = used_slots + 7
+    ray_id = np.full(B, n - 1, np.int32)
+    ray_id[:used_slots] = np.repeat(np.arange(n), count)
+    valid = (np.arange(B) < used_slots) & (rng.random(B) >= 0.1)
+    dt = rng.uniform(0.002, 0.02, B).astype(np.float32)
+    ts = np.cumsum(dt).astype(np.float32)
+    sig = (8.0 * rng.random(B) ** 2).astype(np.float32)
+    raws = rng.standard_normal((B, 9)).astype(np.float32)
+    return count, start, ray_id, valid, dt, ts, sig, raws, rng
+
+
+def test_segment_backward_on_every_length_matches_jax():
+    """The flat layout's backward (the plain version of H3's segment
+    launcher, which past 32 samples takes a segment on a warp in chunks)
+    on segments of every length 0..64 against `jax.grad` of
+    `composite_rays_compact`, eager, under random cotangents on opacity,
+    depth, rend and ws: within the tolerance of tests/test_torch_flat.py
+    (rtol 1e-4, atol 1e-5 of the largest entry: JAX's global cumsum and
+    autodiff against the written-out backward); zero outside every
+    valid slot."""
+    count, start, ray_id, valid, dt, ts, sig, raws, rng = _segments(12, 64)
+    n, B = count.shape[0], sig.shape[0]
+    cot = (rng.standard_normal(n).astype(np.float32),
+           rng.standard_normal(n).astype(np.float32),
+           rng.standard_normal((n, 9)).astype(np.float32),
+           rng.standard_normal(B).astype(np.float32))
+    st, rt = T(sig).requires_grad_(True), T(raws).requires_grad_(True)
+    out = tc.composite_rays_compact(st, rt, T(dt), T(ts), T(ray_id),
+                                    T(start), T(valid), n, THR,
+                                    ray_count=T(count), max_len=64)
+    sum((out[k] * T(c)).sum() for k, c in
+        zip(("opacity", "depth", "rend", "ws"), cot)).backward()
+
+    def f(sg, rw):
+        o = jc.composite_rays_compact(sg, rw, J(dt), J(ts), J(ray_id),
+                                      J(start), J(valid), n, THR)
+        return sum(jax.numpy.sum(o[k] * J(c)) for k, c in
+                   zip(("opacity", "depth", "rend", "ws"), cot))
+    with jax.disable_jit():
+        g_sig, g_raws = jax.grad(f, argnums=(0, 1))(J(sig), J(raws))
+    for got, ref in ((st.grad, g_sig), (rt.grad, g_raws)):
+        r = np.asarray(ref)
+        np.testing.assert_allclose(N(got), r, rtol=1e-4,
+                                   atol=1e-5 * np.abs(r).max())
+    assert not N(st.grad)[~valid].any() and not N(rt.grad)[~valid].any()
+    n_valid = np.bincount(ray_id[valid], minlength=n)
+    assert (n_valid > 32).any()   # segments of two chunks

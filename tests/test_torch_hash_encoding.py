@@ -1,8 +1,8 @@
-"""tcnn hash-grid encode (kernels H7/H8's and H14's plain versions)
-against the JAX package's `hash_encode_vjp` (forward
-`_hash_encode_fwd_impl`, backward `_hash_vjp_bwd`, direct scatter, with
-need_dx its position gradient) and its numpy oracle
-`hash_encode_reference_np`.
+"""tcnn hash-grid encode (kernels H7/H8's plain versions, and H14's: the
+Jacobian H7 writes and its contraction) against the JAX package's
+`hash_encode_vjp` (forward `_hash_encode_fwd_impl`, backward
+`_hash_vjp_bwd`, direct scatter, with need_dx its position gradient) and
+its numpy oracle `hash_encode_reference_np`.
 
 The JAX reference runs eagerly (`jax.disable_jit()`), so that
 x*scale + 0.5 is rounded after the product, as the port and the oracle
@@ -121,14 +121,48 @@ def test_position_gradients_match_jax(dtype):
         N(th.encode_dx_plain(T(table), T(x), gf, spec_t)), N(xt.grad))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jacobian_columns_are_jax_vjps_of_one_hot_cotangents(dtype):
+    """The plain Jacobian (what H7 writes when x needs a gradient): its
+    column j, d out_j / dx (M, 3), against `jax.vjp` of the eager JAX
+    `hash_encode(need_dx=True)` in the compute dtype under the one-hot
+    cotangent e_j (1 on feature j of every sample, exact in bf16), on
+    `face_points`. Tolerance: 1e-5 of the column's largest |dx| (the same
+    products; JAX dots each corner's row with the cotangent first and sums
+    by einsum)."""
+    spec_j, spec_t, table, x, _ = _case(6, M=260)
+    M, D = x.shape[0], spec_t.out_dim
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda xx: jh.hash_encode(J(table), xx, spec_j, jdt,
+                                                need_dx=True), J(x))
+        ref = np.asarray(jax.vmap(lambda e: vjp(
+            jnp.broadcast_to(e, (M, D)))[0])(jnp.eye(D, dtype=jdt)))
+    jac = N(th.encode_jacobian_plain(T(table), T(x), spec_t)).reshape(M, D, 3)
+    assert np.abs(ref).max() > 0
+    for j in range(D):
+        np.testing.assert_allclose(jac[:, j], ref[j], rtol=0,
+                                   atol=1e-5 * np.abs(ref[j]).max(),
+                                   err_msg=f"column {j}")
+    # the autograd path saves this Jacobian and contracts it
+    xt = T(x).requires_grad_(True)
+    th.hash_encode(T(table), xt, spec_t, dtype, need_dx=True).backward(
+        torch.ones((M, D), dtype=dtype))
+    np.testing.assert_array_equal(N(xt.grad), N(th.contract_plain(
+        T(jac.reshape(M, -1)), torch.ones((M, D)))))
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     _, spec_t, table, x, g = _case(3)
+    jac = torch.zeros((x.shape[0], 3 * spec_t.out_dim))
     with pytest.raises(ValueError, match="CUDA"):
         th.encode_kernel(T(table), T(x), spec_t)
     with pytest.raises(ValueError, match="CUDA"):
         th.encode_grad_kernel(T(x), T(g), spec_t)
     with pytest.raises(ValueError, match="CUDA"):
-        th.encode_dx_kernel(T(table), T(x), T(g), spec_t)
+        th.encode_jac_kernel(T(table), T(x), spec_t)
+    with pytest.raises(ValueError, match="CUDA"):
+        th.contract_kernel(jac, T(g), spec_t)
 
 
 @settings(max_examples=25, deadline=None, database=None)

@@ -1,4 +1,5 @@
-"""Triplane encode (kernel H2's and H12's plain versions) against the JAX
+"""Triplane encode (kernel H2's plain versions, and H12's: the Jacobian
+H2's forward writes and its contraction in H2's backward) against the JAX
 package's `triplane_encode_vjp` (forward `_encode_impl`, backward
 `_tp_bwd`, with need_dx its position gradient) and its numpy oracle
 `triplane_encode_reference_np`.
@@ -154,16 +155,71 @@ def test_bf16_output_matches_jax_triplane_encode():
     assert int((bits[0] - bits[1]).abs().max()) <= 1
 
 
+def jacobian_columns(jac, spec):
+    """The plain Jacobian (M, 60) as (M, out_dim, 3): output feature j's
+    derivatives along x, y, z (0 along the axis a plane does not span)."""
+    Fp, Fg = spec.plane_feats, spec.grid3d_feats
+    full = np.zeros((jac.shape[0], spec.out_dim, 3), np.float32)
+    for p, axes in enumerate(tt.PLANES):
+        for f in range(Fp):
+            for k, a in enumerate(axes):
+                full[:, p * Fp + f, a] = jac[:, p * 2 * Fp + 2 * f + k]
+    for f in range(Fg):
+        full[:, 3 * Fp + f] = jac[:, 6 * Fp + 3 * f:6 * Fp + 3 * f + 3]
+    return full
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jacobian_columns_are_jax_vjps_of_one_hot_cotangents(dtype):
+    """The plain Jacobian (what H2's forward writes when x needs a
+    gradient): its column j, d out_j / dx (M, 3), against `jax.vjp` of
+    the JAX `triplane_encode(need_dx=True)` in the compute dtype under the
+    one-hot cotangent e_j (1 on feature j of every sample, exact in bf16),
+    on random points, cell and brick faces and the box's faces.
+    Tolerance: 1e-5 of the column's largest |dx| (the same products; JAX
+    dots each corner's values with the cotangent first and sums 16 / 64
+    slots by einsum)."""
+    spec_j, spec_t, params, x, _ = _case(6)
+    x = _face_points(np.random.default_rng(17), spec_t, x)
+    M, D = x.shape[0], spec_t.out_dim
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    _, vjp = jax.vjp(lambda xx: jt.triplane_encode(
+        {k: J(v) for k, v in params.items()}, xx, spec_j, jdt,
+        need_dx=True), J(x))
+    ref = np.asarray(jax.vmap(lambda e: vjp(
+        jnp.broadcast_to(e, (M, D)))[0])(jnp.eye(D, dtype=jdt)))
+    jac = tt.encode_jacobian_plain(T(params["planes"]), T(params["grid3d"]),
+                                   T(x), spec_t)
+    assert jac.shape == (M, tt.jac_width(spec_t))
+    full = jacobian_columns(N(jac), spec_t)
+    assert np.abs(ref).max() > 0
+    for j in range(D):
+        np.testing.assert_allclose(full[:, j], ref[j], rtol=0,
+                                   atol=1e-5 * np.abs(ref[j]).max(),
+                                   err_msg=f"column {j}")
+    # the autograd path saves this Jacobian and contracts it
+    xt = T(x).requires_grad_(True)
+    tt.triplane_encode(_tparams(params), xt, spec_t, dtype,
+                       need_dx=True).backward(torch.ones((M, D), dtype=dtype))
+    np.testing.assert_array_equal(N(xt.grad), N(tt.contract_plain(
+        jac, torch.ones((M, D)), spec_t)))
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     _, spec_t, params, x, g = _case(5, M=8)
     planes, grid3d = T(params["planes"]), T(params["grid3d"])
+    jac = torch.zeros((x.shape[0], tt.jac_width(spec_t)))
     for out_dtype in (torch.float32, torch.bfloat16):
         with pytest.raises(ValueError, match="CUDA"):
             tt.encode_kernel(planes, grid3d, T(x), spec_t, True, out_dtype)
+        with pytest.raises(ValueError, match="CUDA"):
+            tt.encode_jac_kernel(planes, grid3d, T(x), spec_t, True,
+                                 out_dtype)
     with pytest.raises(ValueError, match="CUDA"):
         tt.encode_grad_kernel(T(x), T(g), spec_t, planes.shape, grid3d.shape)
     with pytest.raises(ValueError, match="CUDA"):
-        tt.encode_dx_kernel(planes, grid3d, T(x), T(g), spec_t)
+        tt.encode_grad_dx_kernel(T(x), T(g), jac, spec_t, planes.shape,
+                                 grid3d.shape)
 
 
 def test_warp_load_counter_on_hand_built_warps():

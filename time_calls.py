@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Device time of the bootstrap march (H1), the dense compositing forward
-(H3), the distortion loss's forward and backward (H4) and the flat
+and backward (H3), the distortion loss's forward and backward (H4) and the flat
 layout's compaction (H11) as the main path calls them, and of one kernel
 node at its least.
 
@@ -13,7 +13,9 @@ It builds the bench trainer (triplane field) of the checkout at `--root`
 (`normal_clustering_nerf_torch.bench`), takes one training step (the
 first refresh of the occupancy grid) and captures the arguments of the
 calls that `models/rendering.py` makes: `march_rays_train_bootstrap` and
-`composite_rays` in a bootstrap step, and the first `composite_rays` of a
+`composite_rays` in a bootstrap step (on whose arguments it also calls
+`ops.composite.composite_grad_kernel`, H3's backward, with cotangents
+drawn from a seed), and the first `composite_rays` of a
 render of the held-out views (the first round, with T_start); and those
 of `losses.distortion_loss_dense` in a bootstrap step, on which it calls
 `ops.distortion.distortion_kernel` and `distortion_grad_kernel` (the
@@ -135,7 +137,8 @@ def main():
     from normal_clustering_nerf_torch import losses
     from normal_clustering_nerf_torch.bench import bench_config, build_trainer
     from normal_clustering_nerf_torch.models import rendering
-    from normal_clustering_nerf_torch.ops import distortion, ray_march
+    from normal_clustering_nerf_torch.ops import (composite, distortion,
+                                                  ray_march)
     from normal_clustering_nerf_torch.training import trainer
     tr = build_trainer(bench_config(), device="cuda")
     tr.mark_invisible_cells()
@@ -171,6 +174,12 @@ def main():
     da = tuple(t.detach().contiguous() for t in dist[0])
     g = torch.randn(da[0].shape[0], device="cuda", generator=torch.Generator(
         device="cuda").manual_seed(0))
+    cg = torch.Generator(device="cuda").manual_seed(1)
+    ca = tuple(t.detach().contiguous() for t in comp[0][:5]) + (comp[0][5],)
+    n, k, c = ca[1].shape
+    gs = tuple(torch.randn(shape, device="cuda", generator=cg)
+               for shape in ((n,), (n,), (n, c), (n, k)))
+    calls["composite_bwd"] = (ca + gs, {}, composite.composite_grad_kernel)
     calls["distortion_fwd"] = (da, {}, distortion.distortion_kernel)
     calls["distortion_bwd"] = ((g,) + da, {}, distortion.distortion_grad_kernel)
     calls["compact_samples, flat training march"] = compact + (
