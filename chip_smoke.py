@@ -102,9 +102,10 @@ Phases (any failed check raises, so the script exits non-zero):
      bit g_rend (x) ws), and its segment forward on every length 0..64
      (bit for bit the serial order, with and without T_start), H4's
      segment launchers on every length 0..64 (bit for bit the serial
-     order and dense H4), H3's four launchers at C = 17, 46 and 99
-     channels (WIDE_C: past one tile of 16; 3 + 3 + NYU40's 40 classes;
-     four forward passes): the dense forward at K = 1, 16, 33, 64 with and
+     order and dense H4), H3's four launchers at C = 17, 46, 48, 49 and
+     99 channels (WIDE_C: past the narrow backward's 16; 3 + 3 + NYU40's
+     40 classes; the wide backward's tile of 48 and one past it; four
+     forward passes): the dense forward at K = 1, 16, 33, 64 with and
      without T_start and the dense backward at BWD_KS bit for bit
      their serial orders (`composite_serial`, `composite_grad_serial`),
      the segment launchers on every length 0..128 / 0..64, and H3's
@@ -153,9 +154,10 @@ Phases (any failed check raises, so the script exits non-zero):
   with the Jacobian and H2's backward with its contraction, never H2's
   backward without it; K1 64 times), dR and dT moved and within 576
   Adam updates at 1e-6 of their start, dR_glob exactly 0, losses falling,
-  `validate`; and 64 ext steps each of the brick (H13, a launch of its
-  own) and the tcnn field (H14: H7 with the Jacobian, and its
-  contraction in a launch of its own) at the bench configuration; phase 2
+  `validate`; and 64 ext steps each of the brick (H13: H5 with the
+  Jacobian, and its contraction in a launch of its own) and the tcnn
+  field (H14: H7 with the Jacobian, and the same contraction body) at the
+  bench configuration; phase 2
   holds H12-H14 against
   their plain versions on the batch, its cuts, the one-cell input and
   points on cell and brick faces and at 0 and 1, under f32 and bf16
@@ -270,7 +272,7 @@ Phases (any failed check raises, so the script exits non-zero):
      forward also at the first test round's shape with T_start, H3's
      four launchers at 46 channels (N 8190, K 16; "c46_*" keys), H3's
      backward on the K64 path's rows (N 8190, K 64; "k64_*" keys), the
-     launchers of H12 and H14 beside themselves without the position
+     launchers of H12-H14 beside themselves without the position
      gradient (the variant NO_DX; the two differences added are the
      position gradient's cost, `dx_cost_ms`), and H1,
      H9 and H10 at the cascades path's shapes, each with its bound
@@ -1092,7 +1094,7 @@ def face_inputs(x, spec, layout, gen):
 
 
 def check_dx(chk, label, kern, plain, x, g, where):
-    """A position gradient (H12, H14: the forward's Jacobian and its
+    """A position gradient (H12-H14: the forward's Jacobian and its
     contraction, in the table gradient's launch or beside it) against its
     plain versions on `x` under the cotangent `g`. kern: (jac_fwd(x) -> (out,
     jac), fwd(x) -> out, grad_dx(x, g, jac) -> (*table gradients, dx));
@@ -1122,8 +1124,9 @@ def check_dx(chk, label, kern, plain, x, g, where):
 
 # the launchers that carry a position gradient: the forward with its
 # Jacobian, and the table gradient with the Jacobian's contraction (H12)
-# or the contraction alone (H14)
+# or the contraction alone (H13, H14: one body)
 DX_LAUNCHERS = {"triplane": ("triplane_fwd_jac", "triplane_bwd_dx"),
+                "brick": ("brick_fwd_jac", "brick_contract"),
                 "tcnn": ("hash_grid_fwd_jac", "hash_grid_contract")}
 NO_DX = "same launcher without the position gradient"
 
@@ -1638,15 +1641,15 @@ PATH_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
                 "distortion_fwd", "distortion_bwd", "march_sv_train")
 P4_POINTS = 262_144   # experiments/pallas_gather2.py: M = 8192 rays x 32
 ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
-# f32 operations of the position gradients: per (sample, level) of H13,
-# the geometry (20), each of 8 corners' dot (3) and its 3 axis terms (4
-# each), the scale and the level sum (6); the Jacobians' beyond the
-# forward's, per (sample, level) of H14 the 3 axes' 4 weight-derivative
-# products (2 each) and 8 corners x 3 axes x 2 features' product and sum;
-# per sample of H12 each plane's 4 corners x 2 axes (a sign) and 8
-# features x 2 axes x (4 products and sums, a scale), grid3d's 8 corners'
-# 3 products and 4 features x 3 axes x (8 products and sums, a scale)
-DX_OPS = 20 + 8 * (3 + 3 * 4) + 6
+# f32 operations of the Jacobians beyond the forward's: per (sample,
+# level) of H13 the 3 axes' 4 weight products, each of 8 corners x 3
+# axes' signed factor and its 2 features' product and sum, the scale (6);
+# per (sample, level) of H14 the 3 axes' 4 weight-derivative products (2
+# each) and 8 corners x 3 axes x 2 features' product and sum; per sample
+# of H12 each plane's 4 corners x 2 axes (a sign) and 8 features x 2 axes
+# x (4 products and sums, a scale), grid3d's 8 corners' 3 products and 4
+# features x 3 axes x (8 products and sums, a scale)
+BRICK_JAC_OPS = 3 * 4 + 8 * 3 * (1 + 2 * 2) + 6
 HASH_JAC_OPS = 3 * 4 * 2 + 8 * 3 * 2 * 2
 TRIPLANE_JAC_OPS = 3 * (4 * 2 + 8 * 2 * (4 * 2 + 1)) + (8 * 3 + 4 * 3 * (8 * 2 + 1))
 
@@ -1781,58 +1784,42 @@ def check_encoding(tr, gen):
                                   device=x.device)),
         bound=bound(nbytes(x, g, table), ops))}
     # H13 / H14: the position gradient, f32 and bf16 cotangents, on the
-    # batch, its cuts, the one-cell input and the faces (drawn apart)
+    # batch, its cuts, the one-cell input and the faces (drawn apart): the
+    # forward's Jacobian (H5 / H7), contracted in a launch of its own
     xf = face_inputs(x, spec, layout,
                      torch.Generator(device=x.device).manual_seed(10))
     wheres = (("batch", x), ("faces", xf)) + edge_inputs(x, xc)
     g_dt = g.to(out_dt)   # the cotangent as a training step hands it
+    label = "H13" if layout == "brick" else "H14"
+    kern = (lambda xx: mod.encode_jac_kernel(table, xx, spec, out_dt),
+            lambda xx: mod.encode_kernel(table, xx, spec, out_dt),
+            lambda xx, gg, jj: (mod.encode_grad_kernel(xx, gg, spec),
+                                mod.contract_kernel(jj, gg, spec)))
+    plain = (lambda xx: mod.encode_jacobian_plain(table, xx, spec),
+             mod.contract_plain,
+             lambda xx, gg: (mod.encode_grad_plain(xx, gg, spec),))
     derrs = []
-    if layout == "brick":   # H13: a launch of its own
-        dx_k = lambda xx, gg: mod.encode_dx_kernel(table, xx, gg, spec)
-        dx_p = lambda xx, gg: mod.encode_dx_plain(table, xx, gg, spec)
-        for where, xx in wheres:
-            for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
-                got, ref = dx_k(xx, gg), dx_p(xx, gg.float())
-                log(f"  H13 dx {where}, {gg.dtype} cotangent: "
-                    f"{int((got != ref).sum())} of {ref.numel()} values "
-                    f"differ from the plain version")
-                derrs.append(chk.close(f"H13 dx {where}, {gg.dtype} "
-                                       f"cotangent", got, ref, 1e-6))
-        rec["brick_dx"] = dict(
-            err=max(derrs), kernel=(lambda: dx_k(x, g_dt)),
-            plain=(lambda: dx_p(x, g_dt.float())),
-            library=(lambda: torch.index_select(src, 0, rows)),
-            bound=bound(nbytes(x, g_dt) + touched + 12 * M, M * L * DX_OPS))
-    else:   # H14: H7's Jacobian, contracted in a launch of its own
-        kern = (lambda xx: mod.encode_jac_kernel(table, xx, spec, out_dt),
-                lambda xx: mod.encode_kernel(table, xx, spec, out_dt),
-                lambda xx, gg, jj: (mod.encode_grad_kernel(xx, gg, spec),
-                                    mod.contract_kernel(jj, gg, spec)))
-        plain = (lambda xx: mod.encode_jacobian_plain(table, xx, spec),
-                 mod.contract_plain,
-                 lambda xx, gg: (mod.encode_grad_plain(xx, gg, spec),))
-        for where, xx in wheres:
-            for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
-                derrs.append(check_dx(chk, "H14", kern, plain, xx, gg,
-                                      where))
-        jac = kern[0](x)[1]
-        jac_b = M * 3 * spec.out_dim * 4
-        rec.update(dx_records(
-            layout, max(derrs),
-            fwd=(lambda: kern[0](x), lambda: kern[1](x),
-                 lambda: (mod.encode_plain(table, x, spec).to(out_dt),
-                          plain[0](x))),
-            bwd=(lambda: mod.contract_kernel(jac, g_dt, spec), None,
-                 lambda: plain[1](jac, g_dt.float())),
-            library=(lambda: torch.index_select(src, 0, rows),
-                     lambda: torch.einsum("mk,mka->ma", g_dt.float(),
-                                          jac.view(M, -1, 3))),
-            bound_fwd=bound(nbytes(x) + touched + jac_b
-                            + M * spec.out_dim * (2 if out_dt == bf16
-                                                  else 4),
-                            ops + M * L * HASH_JAC_OPS),
-            bound_bwd=bound(nbytes(g_dt) + jac_b + 12 * M,
-                            M * 2 * 3 * spec.out_dim)))
+    for where, xx in wheres:
+        for gg in (g[:xx.shape[0]], g[:xx.shape[0]].to(bf16)):
+            derrs.append(check_dx(chk, label, kern, plain, xx, gg, where))
+    jac = kern[0](x)[1]
+    jac_b = M * 3 * spec.out_dim * 4
+    jac_ops = BRICK_JAC_OPS if layout == "brick" else HASH_JAC_OPS
+    rec.update(dx_records(
+        layout, max(derrs),
+        fwd=(lambda: kern[0](x), lambda: kern[1](x),
+             lambda: (mod.encode_plain(table, x, spec).to(out_dt),
+                      plain[0](x))),
+        bwd=(lambda: mod.contract_kernel(jac, g_dt, spec), None,
+             lambda: plain[1](jac, g_dt.float())),
+        library=(lambda: torch.index_select(src, 0, rows),
+                 lambda: torch.einsum("mk,mka->ma", g_dt.float(),
+                                      jac.view(M, -1, 3))),
+        bound_fwd=bound(nbytes(x) + touched + jac_b
+                        + M * spec.out_dim * (2 if out_dt == bf16 else 4),
+                        ops + M * L * jac_ops),
+        bound_bwd=bound(nbytes(g_dt) + jac_b + 12 * M,
+                        M * 2 * 3 * spec.out_dim)))
     if layout == "brick":
         # P4's shape: the (16, 8192, 128) table and 262,144 points, whose
         # rows P4 gathers whole into a (16, 262144, 128) f32 array
@@ -3068,9 +3055,11 @@ def check_seg_distortion_lengths(chk, gen):
 
 
 # ------------------------------------------------------------ many channels
-# H3's channel counts past one tile of BWD_TILE = 16 channels: 16 + 1; 3 +
-# 3 + 40, a pred_sem run on NYU40's classes; 101 sums, four forward passes
-WIDE_C = (17, 46, 99)
+# H3's channel counts past its narrow backward (16 channels): 16 + 1; 3 +
+# 3 + 40, a pred_sem run on NYU40's classes; the wide backward's tile of
+# BWD_TILE = 48 channels and one past it (two tiles, the second of one
+# channel); 101 sums, four forward passes, three tiles
+WIDE_C = (17, 46, 48, 49, 99)
 # H3 backward's row lengths in the checks: lane groups of 1, 16 and 32
 # lanes, and the long kernel's chunks of 32 (two, the second of one
 # sample; two; four)
@@ -3226,11 +3215,13 @@ REPLACES = {
     "composite_seg_bwd": "normal_clustering_nerf_tpu/ops/composite.py:86",
     "distortion_seg_fwd": "normal_clustering_nerf_tpu/ops/distortion.py:19",
     "distortion_seg_bwd": "normal_clustering_nerf_tpu/ops/distortion.py:19",
-    # the need_dx branches of the encodes' custom VJPs: H12 and H14 from
-    # the forward's Jacobian, contracted in the table gradient's launch
+    # the need_dx branches of the encodes' custom VJPs: H12-H14 from the
+    # forward's Jacobian, contracted in the table gradient's launch (H12)
+    # or in a launch of its own (H13, H14)
     "triplane_fwd_jac": "normal_clustering_nerf_tpu/models/triplane.py:230",
     "triplane_bwd_dx": "normal_clustering_nerf_tpu/models/triplane.py:230",
-    "brick_dx": "normal_clustering_nerf_tpu/models/brick_hash.py:225",
+    "brick_fwd_jac": "normal_clustering_nerf_tpu/models/brick_hash.py:225",
+    "brick_contract": "normal_clustering_nerf_tpu/models/brick_hash.py:225",
     "hash_grid_fwd_jac":
         "normal_clustering_nerf_tpu/models/hash_encoding.py:228",
     "hash_grid_contract":
@@ -3246,7 +3237,8 @@ LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_seg_fwd": "H3", "composite_seg_bwd": "H3",
          "distortion_seg_fwd": "H4", "distortion_seg_bwd": "H4",
          "triplane_fwd_jac": "H12", "triplane_bwd_dx": "H12",
-         "brick_dx": "H13", "hash_grid_fwd_jac": "H14",
+         "brick_fwd_jac": "H13", "brick_contract": "H13",
+         "hash_grid_fwd_jac": "H14",
          "hash_grid_contract": "H14"}
 
 
@@ -3593,10 +3585,10 @@ def ext_path(launches):
     steps (H12 once a step: H2's forward with the Jacobian and H2's
     backward with its contraction, never H2's backward without it; K1
     SV_STEPS times), its pose deltas (`check_pose_deltas`) and `validate`;
-    then EXT_LAYOUT_STEPS ext steps of the brick (H13) and the tcnn field
-    (H14: H7 with the Jacobian, and its contraction beside H8) at the
-    bench configuration. Returns the triplane trainer and fit's
-    ms/step."""
+    then EXT_LAYOUT_STEPS ext steps of the brick (H13: H5 with the
+    Jacobian, and its contraction beside H6) and the tcnn field (H14: H7
+    with the Jacobian, and its contraction beside H8) at the bench
+    configuration. Returns the triplane trainer and fit's ms/step."""
     from normal_clustering_nerf_torch.bench import bench_config, build_trainer
     for layout in ("triplane", "brick", "tcnn"):
         step_parity(layout, seed=23, ext=True)
@@ -3621,15 +3613,13 @@ def ext_path(launches):
         tl = build_trainer(ext_config(bench_config(hash_layout=layout)),
                            device="cuda")
         tl.mark_invisible_cells()
+        # the table gradient as without ext, the forward with the
+        # Jacobian, the contraction
         fwd, bwd = FIELD_KERNELS[layout]
-        if layout == "brick":
-            need, exact = (fwd, bwd, "brick_dx"), {"brick_dx":
-                                                   EXT_LAYOUT_STEPS}
-        else:   # H8 as without ext, H7 with the Jacobian, the contraction
-            jac_fwd, contract = DX_LAUNCHERS[layout]
-            need = (fwd, bwd, jac_fwd, contract)
-            exact = {jac_fwd: EXT_LAYOUT_STEPS, contract: EXT_LAYOUT_STEPS,
-                     bwd: EXT_LAYOUT_STEPS}
+        jac_fwd, contract = DX_LAUNCHERS[layout]
+        need = (fwd, bwd, jac_fwd, contract)
+        exact = {jac_fwd: EXT_LAYOUT_STEPS, contract: EXT_LAYOUT_STEPS,
+                 bwd: EXT_LAYOUT_STEPS}
         log(f"phase 3, {layout} ext: {EXT_LAYOUT_STEPS} training steps")
         start = {k: p.detach().clone() for k, p in tl.params.items()}
         path_training(tl, f"{layout} ext", launches,

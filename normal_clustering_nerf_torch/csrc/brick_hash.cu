@@ -1,5 +1,6 @@
 // H5 / H6: brick-hash multiresolution encode, forward and table gradient;
-// H13: its position gradient.
+// H13: its position gradient, from a Jacobian H5 writes and a launch of
+// its own contracts.
 //
 // Replaces the JAX package's `brick_encode_vjp`
 // (normal_clustering_nerf_tpu/models/brick_hash.py:198-243: forward
@@ -91,15 +92,36 @@
 // pass are 4 cells x 8 corners, so a warp instruction touches 4 rows (1-4
 // sectors each) where a lane-per-sample pass would touch 32.
 //
-// Position gradient (H13, used when camera extrinsics are optimised):
-// per level, the dot of each corner's slot pair with the level's cotangent
-// pair, times the derivative of the corner's trilinear weight along each
-// axis, times the level's scale; the levels summed in order. It reads what
-// H5 reads (8 float2 slots a (sample, level)) and the cotangent, and
-// writes 3 values a sample: its floor is the bytes. The design is H5's
-// tile and loads; the sums are chains in a fixed order (feature, corner,
-// level), which `encode_dx_plain` repeats, so each dx is one thread's
-// (no atomics) and bit for bit the plain version's.
+// Position gradient (H13, used when camera extrinsics are optimised; the
+// need_dx branch of `_brick_vjp_bwd`). The first design, `brick_dx`,
+// gathered the 8 corner slots of every (sample, level) a
+// second time in the backward, on H5's tile and loads: at ~51 sectors a
+// sample that gather cost what H5 costs (0.0636 ms against H5's 0.0667 on
+// one H100 80GB HBM3, 700.00 W). Here H5, which holds the slots in
+// registers, also writes the encode's Jacobian when x needs a gradient
+// (`brick_fwd_jac`): J[l][f][a] = (sum in corner order of v_c[f] *
+// dw_c,a) * scale, dw_c,a = d_a * (w_o1 * w_o2), the derivative of
+// corner c's weight wx * (wy * wz) along a (o1 < o2 the other axes; d_a =
+// +1 for the upper slot, -1 for the lower, 0 on the top face, where JAX's
+// dw4 = oh1 - oh0 vanishes; the product with d_a is exact, so this is
+// `brick_dx`'s factor bit for bit), 96 f32 a sample in tcnn's layout (M,
+// L, 2, 3), staged in shared memory on an odd row stride and written as
+// 16-byte streaming stores (J is read once, in the backward). The
+// contraction is H14's body (contract.cuh, `brick_contract`): dx[a] = the
+// sum over (l, f) in order of g[l][f] * J[l][f][a], a thread a dx, no
+// atomics. `encode_jacobian_plain` and `contract_plain` repeat the chains,
+// so J and dx are bit for bit the plain versions' (JAX dots each slot
+// with the cotangent first: within 1e-5 of its largest |dx|). What bounds
+// the position gradient now: J's bytes, written once and read once (50.3
+// MB at the ext path's 131,040 samples, ~0.03 ms at 3.35 TB/s).
+// Measured on that input (one H100 80GB HBM3, 700.00 W; bf16
+// cotangent): the position gradient's cost 0.0438-0.0452 ms against
+// `brick_dx`'s 0.0599-0.0609 in the same run; H5 with J 0.0791 against
+// 0.0663 without, the contraction 0.0288. The contraction is a launch of
+// its own, as H14's: fused into H8's scatter (the same grad_scatter.cuh
+// H6 runs) it measured slower (hash_grid.cu's note), so H6 is unchanged.
+// H5 without a gradient of x is compiled as before (a template flag).
+#include "contract.cuh"
 #include "grad_scatter.cuh"
 
 namespace {
@@ -176,20 +198,23 @@ __device__ __forceinline__ long long corners(const float* __restrict__ x,
 // level, so more blocks' staging barriers overlap; 16 warps of one level,
 // 4 warps of 4 levels, two levels' loads issued together, x read without
 // staging, 8 float2 loads a level, or a sector read as two float4 lost
-// to it on the card.
+// to it on the card. With JAC it also writes the Jacobian (the file
+// note), its rows staged on an odd stride.
 constexpr int TILE = 32;
 constexpr int FWD_WARPS = 8;
 
-template <bool BF16>
+template <bool BF16, bool JAC>
 __global__ void __launch_bounds__(TILE * FWD_WARPS)
     brick_fwd_kernel(const float* __restrict__ table,
                      const float* __restrict__ x,
                      const int* __restrict__ levels, void* __restrict__ out,
-                     int M, int L, int n_bricks) {
+                     float* __restrict__ jac, int M, int L, int n_bricks) {
   extern __shared__ float4 smem[];
   const int width = F * L, ostride = width + 2;   // float2 stores: no
   float* xs = reinterpret_cast<float*>(smem);     // bank conflicts
   float* os = xs + TILE * 3;
+  const int jwidth = 3 * width, jstride = jwidth + 1;   // JAC: odd stride
+  float* js = os + TILE * ostride;
   const int lane = threadIdx.x, warps = blockDim.y;
   const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
   const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
@@ -198,9 +223,9 @@ __global__ void __launch_bounds__(TILE * FWD_WARPS)
   const float* x3 = xs + 3 * min(lane, rows - 1);
   for (int l = threadIdx.y; l < L; l += warps) {
     int slot[8], key[3];
-    float w[8];
+    float w[8], aw[9];
     const float* row = table + corners(x3, levels, 0, l, n_bricks, slot, w,
-                                       key);
+                                       key, JAC ? aw : nullptr);
     float2 v[8];
     ncn_load_pairs<1>(row, slot, v);   // z pairs: slots 2k, 2k + 1
     float a0 = 0.0f, a1 = 0.0f;
@@ -211,84 +236,48 @@ __global__ void __launch_bounds__(TILE * FWD_WARPS)
     }
     *reinterpret_cast<float2*>(os + lane * ostride + F * l) =
         make_float2(a0, a1);
+    if constexpr (JAC) {
+      // w_o1 * w_o2 of a corner's slots on the other axes o1 < o2 of a,
+      // by its bits there; d_a (0 or 1) times the sign of its bit on a
+      // then scales it exactly
+      float pw[3][4];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const int o1 = a == 0 ? 1 : 0, o2 = a == 2 ? 1 : 2;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          pw[a][b] = __fmul_rn(aw[3 * o1 + (b >> 1)], aw[3 * o2 + (b & 1)]);
+      }
+      float j0[3] = {0.0f, 0.0f, 0.0f}, j1[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int cs[3] = {(c >> 2) & 1, (c >> 1) & 1, c & 1};
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const int o1 = a == 0 ? 1 : 0, o2 = a == 2 ? 1 : 2;
+          const float d = cs[a] ? aw[3 * a + 2] : -aw[3 * a + 2];
+          const float dw = __fmul_rn(d, pw[a][2 * cs[o1] + cs[o2]]);
+          j0[a] = __fadd_rn(j0[a], __fmul_rn(v[c].x, dw));
+          j1[a] = __fadd_rn(j1[a], __fmul_rn(v[c].y, dw));
+        }
+      }
+      const float scale = __int_as_float(levels[4 * l]);
+      float* jr = js + lane * jstride + 3 * F * l;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        jr[a] = __fmul_rn(j0[a], scale);
+        jr[3 + a] = __fmul_rn(j1[a], scale);
+      }
+    }
   }
   __syncthreads();
   ncn_unstage<BF16>(os, rows * width, width, ostride,
                     static_cast<char*>(out) + (BF16 ? 2LL : 4LL) * width * m0,
                     tid, nt);
-}
-
-// H13: the position gradient. The forward's tile (x and the cotangent
-// staged once, warp w levels w, w + warps, ...; lane = sample, the 8
-// corners' slots read as H5 reads them); per (sample, level) each
-// corner's dot gd_c = v.x * g0 + v.y * g1, then along axis a the sum in
-// corner order of gd_c times the corner's weight with axis a's factor
-// replaced by its derivative (-1 / +1 for the lower / upper slot, 0 on the
-// top face), times the level's scale, into shared memory; a thread per
-// (sample, axis) adds the levels in order and writes dx.
-constexpr int DX_WARPS = 8;
-
-template <bool BF16>
-__global__ void __launch_bounds__(TILE * DX_WARPS)
-    brick_dx_kernel(const float* __restrict__ table,
-                    const float* __restrict__ x,
-                    const int* __restrict__ levels,
-                    const void* __restrict__ g, float* __restrict__ dx,
-                    int M, int L, int n_bricks) {
-  extern __shared__ float4 smem[];
-  const int width = F * L, gstride = width + 1;
-  float* xs = reinterpret_cast<float*>(smem);
-  float* gs = xs + TILE * 3;
-  float* ds = gs + TILE * gstride;   // (L, TILE, 3)
-  const int lane = threadIdx.x, warps = blockDim.y;
-  const int tid = threadIdx.y * TILE + lane, nt = warps * TILE;
-  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
-  ncn_stage<false>(x + 3LL * m0, rows * 3, 3, 3, xs, tid, nt);
-  ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * width * m0,
-                  rows * width, width, gstride, gs, tid, nt);
-  __syncthreads();
-  const int i = min(lane, rows - 1);
-  const float* x3 = xs + 3 * i;
-  for (int l = threadIdx.y; l < L; l += warps) {
-    int slot[8], key[3];
-    float w[8], aw[9];
-    const float* row = table + corners(x3, levels, 0, l, n_bricks, slot, w,
-                                       key, aw);
-    float2 v[8];
-    ncn_load_pairs<1>(row, slot, v);
-    const float g0 = gs[i * gstride + F * l], g1 = gs[i * gstride + F * l + 1];
-    const float scale = __int_as_float(levels[4 * l]);
-    float acc[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int cs[3] = {(c >> 2) & 1, (c >> 1) & 1, c & 1};
-      const float gd = __fadd_rn(__fmul_rn(v[c].x, g0), __fmul_rn(v[c].y, g1));
-      float wa[3], da[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        wa[a] = cs[a] ? aw[3 * a + 1] : aw[3 * a];
-        da[a] = cs[a] ? aw[3 * a + 2] : -aw[3 * a + 2];
-      }
-      // wx * (wy * wz) with axis a's factor replaced by its derivative
-      acc[0] = __fadd_rn(acc[0], __fmul_rn(gd, __fmul_rn(da[0],
-                                                  __fmul_rn(wa[1], wa[2]))));
-      acc[1] = __fadd_rn(acc[1], __fmul_rn(gd, __fmul_rn(wa[0],
-                                                  __fmul_rn(da[1], wa[2]))));
-      acc[2] = __fadd_rn(acc[2], __fmul_rn(gd, __fmul_rn(wa[0],
-                                                  __fmul_rn(wa[1], da[2]))));
-    }
-    if (lane < rows) {
-#pragma unroll
-      for (int a = 0; a < 3; ++a)
-        ds[(l * TILE + lane) * 3 + a] = __fmul_rn(acc[a], scale);
-    }
-  }
-  __syncthreads();
-  for (int e = tid; e < rows * 3; e += nt) {
-    float s = 0.0f;
-    for (int l = 0; l < L; ++l) s = __fadd_rn(s, ds[l * TILE * 3 + e]);
-    dx[3LL * m0 + e] = s;
-  }
+  if constexpr (JAC)
+    ncn_unstage<false, true>(js, rows * jwidth, jwidth, jstride,
+                             jac + static_cast<long long>(jwidth) * m0, tid,
+                             nt);
 }
 
 // H6's geometry for grad_scatter.cuh: the corners' f32 offsets in the
@@ -306,18 +295,44 @@ struct BrickGeom {
   }
 };
 
+template <bool JAC>
+int launch_fwd(const void* table, const void* x, const void* levels,
+               void* out, void* jac, int M, int L, int n_bricks,
+               int out_bf16, cudaStream_t stream) {
+  const int warps = L < FWD_WARPS ? L : FWD_WARPS;
+  const size_t bytes =
+      sizeof(float) * TILE * (3 + F * L + 2 + (JAC ? 3 * F * L + 1 : 0));
+  auto kernel = out_bf16 ? brick_fwd_kernel<true, JAC>
+                         : brick_fwd_kernel<false, JAC>;
+  if (bytes > 48 * 1024) {   // the opt-in holds per device: set it each time
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
+      static_cast<const float*>(table), static_cast<const float*>(x),
+      static_cast<const int*>(levels), out, static_cast<float*>(jac), M, L,
+      n_bricks);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int brick_fwd(const void* table, const void* x, const void* levels,
                          void* out, int M, int L, int n_bricks, int out_bf16,
                          cudaStream_t stream) {
-  const int warps = L < FWD_WARPS ? L : FWD_WARPS;
-  const size_t bytes = sizeof(float) * TILE * (3 + F * L + 2);
-  auto kernel = out_bf16 ? brick_fwd_kernel<true> : brick_fwd_kernel<false>;
-  kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
-      static_cast<const float*>(table), static_cast<const float*>(x),
-      static_cast<const int*>(levels), out, M, L, n_bricks);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<false>(table, x, levels, out, nullptr, M, L, n_bricks,
+                           out_bf16, stream);
+}
+
+// H5 with the Jacobian: jac (M, L, 2, 3) f32, 16-byte aligned.
+extern "C" int brick_fwd_jac(const void* table, const void* x,
+                             const void* levels, void* out, void* jac, int M,
+                             int L, int n_bricks, int out_bf16,
+                             cudaStream_t stream) {
+  return launch_fwd<true>(table, x, levels, out, jac, M, L, n_bricks,
+                          out_bf16, stream);
 }
 
 extern "C" int brick_bwd(const void* g, const void* x, const void* levels,
@@ -328,22 +343,9 @@ extern "C" int brick_bwd(const void* g, const void* x, const void* levels,
       BrickGeom{static_cast<const int*>(levels), n_bricks}, stream);
 }
 
-extern "C" int brick_dx(const void* table, const void* x, const void* levels,
-                        const void* g, void* dx, int M, int L, int n_bricks,
-                        int g_bf16, cudaStream_t stream) {
-  const int warps = L < DX_WARPS ? L : DX_WARPS;
-  const size_t bytes =
-      sizeof(float) * TILE * (3 + (F * L + 1) + 3 * L);
-  auto kernel = g_bf16 ? brick_dx_kernel<true> : brick_dx_kernel<false>;
-  if (bytes > 48 * 1024) {   // the opt-in holds per device: set it each time
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<ncn_blocks(M, TILE), dim3(TILE, warps), bytes, stream>>>(
-      static_cast<const float*>(table), static_cast<const float*>(x),
-      static_cast<const int*>(levels), g, static_cast<float*>(dx), M, L,
-      n_bricks);
-  return static_cast<int>(cudaGetLastError());
+// H13's contraction of H5's Jacobian jac (M, L, 2, 3) f32 with the
+// cotangent g (M, 2L) into dx (M, 3) f32: H14's body (contract.cuh).
+extern "C" int brick_contract(const void* g, const void* jac, void* dx, int M,
+                              int L, int g_bf16, cudaStream_t stream) {
+  return contract::launch(g, jac, dx, M, L, g_bf16, stream);
 }

@@ -75,12 +75,43 @@
 // NYU40's classes). Past gw sums (C + 2 > gw) the forward is
 // `composite_fwd_wide_kernel`, which takes the C + 2 sums in passes of
 // gw, a sum a lane, each pass walking the row's chunks anew and staging
-// only its channels' raws; past BWD_TILE channels the backward stages
-// the raws BWD_TILE channels at a time and carries G_s through the tiles
-// in one register, in channel order. Shared memory is at most gw *
-// min(gw, C) + 2 gw floats a group in the forward and gw * BWD_TILE + gw
-// + BWD_TILE in the backward, whatever C. Below those counts both run
-// the designs above, compiled as before.
+// only its channels' raws (at most gw * min(gw, C) + 2 gw floats a group
+// of shared memory, whatever C). Below that count it runs the design
+// above, compiled as before.
+//
+// The backward past BWD_NARROW = 16 channels (WIDE). It replaces the same
+// autodiff at the 40-class path's shape (N 8190, K 16, C 46: ~48 MB of
+// raws read and d_raws written, ~0.0157 ms at 3.35 TB/s). The first
+// design staged 16 channels at a time and took 0.0406 ms (one H100 80GB
+// HBM3, 700.00 W): G's loop read row s of a tile at s * 16 floats, so the
+// 32 lanes of a warp (two groups 288 floats apart, 0 modulo 32) fell on
+// two of the 32 banks, 16-way, for each of 46 channels; each d_raws value
+// took a division and a modulo by the runtime C and read g_rend from
+// device memory; and the tiles were staged a float at a time, a division
+// each. Here a tile is as wide as C up to BWD_TILE = 48, so C 46 is one
+// tile: the ray's K*C raws, one contiguous 16-byte-aligned block, are
+// staged with 16-byte loads (UNROLL in flight a lane) into rows of an odd
+// stride (tw | 1), and the groups of a warp start gw * stride floats
+// apart modulo 32 (`wide_region`), so G's loop reads each channel of the
+// warp's 32 rows from 32 banks. The staging and the d_raws stores find
+// each value's (sample, channel) by counters (`RowCol`), one division a
+// lane and not one a value; w and g_rend are read from shared memory, and
+// a tile's d_raws are written as soon as its g_rend is staged (w is known
+// before G), as 16-byte stores where the block is aligned. The sample's
+// sigma, delta, t and ws cotangent are loaded before the staging waits.
+// Past BWD_TILE, tiles of BWD_TILE channels (shared memory bounded
+// whatever C), G_s carried through them in channel order. A block keeps
+// BWD_THREADS threads and takes the shared-memory opt-in past 48 KB: at
+// C 46 and gw 16, 16 groups of 3,264 B (52.2 KB) at 64 registers a
+// thread: 4 blocks and 32 warps an SM, 512 blocks in one wave. Measured
+// in turns on one H100 80GB HBM3, 700.00 W (C 46; K 16 / K 64): this
+// design 0.0233 / 0.0863 ms; blocks of 4 warps within 48 KB (8 blocks,
+// the same 32 warps an SM) 0.0234 / 0.0860; UNROLL 4 0.0235 / 0.0891
+// (8: 0.0290 at K 16). On a 40-class step's own arguments it takes
+// 0.0235 ms against the first design's 0.0443, at 1.5x its bound.
+// The chains (the prefix, G's terms in channel order, the suffix) are
+// the narrow body's, so d_sigmas is bit for bit `composite_grad_serial`
+// and d_raws is g_rend (x) w exactly.
 //
 // Rows of any length. The backward's lane groups take rows of at most
 // LANE_ROWS = 32 samples (the main path's K 16). A longer row (K 64 a
@@ -372,18 +403,18 @@ __global__ void __launch_bounds__(FWD_THREADS) composite_fwd_wide_kernel(
 
 // H3 backward: group grp of gw lanes takes ray blockIdx.x * (blockDim.x /
 // gw) + grp, lane s = sample s. Every lane runs the chains' max_len - 1
-// steps (warp-uniform), masked past its ray's length or past N. With
-// WIDE (C > BWD_TILE) the ray's raws are staged BWD_TILE channels at a
-// time, so that shared memory does not grow with C, and G_s runs on
-// through the tiles in one register, in channel order; without it all C
-// at once, compiled as the design before channel tiles.
+// steps (warp-uniform), masked past its ray's length or past N. Without
+// WIDE (C <= BWD_NARROW) the ray's raws are staged all at once, compiled
+// as the design before channel tiles. With WIDE they are staged in tiles
+// of up to BWD_TILE channels on an odd row stride (the file note), and G_s
+// runs on through the tiles in one register, in channel order.
 constexpr int BWD_THREADS = 256;
-constexpr int BWD_TILE = 16;
+constexpr int BWD_NARROW = 16;   // the most channels of the narrow body
+constexpr int BWD_TILE = 48;     // WIDE: the most channels a tile stages
 
 // d_raws of one ray, g_rend_c * w_s for its n_vals = len*C values, written
-// contiguously by the gw lanes of its group, w from shared memory and
-// g_rend from shared memory or, past one tile, device memory: 16-byte
-// stores where dst is 16-byte aligned.
+// contiguously by the gw lanes of its group, w and g_rend from shared
+// memory: 16-byte stores where dst is 16-byte aligned (the narrow body).
 __device__ __forceinline__ void store_d_raws(float* __restrict__ dst,
                                              int n_vals, int C,
                                              const float* gr, const float* w,
@@ -406,6 +437,111 @@ __device__ __forceinline__ void store_d_raws(float* __restrict__ dst,
     dst[e] = __fmul_rn(gr[e % C], w[e / C]);
 }
 
+// WIDE: the (row j, column c) of a flat index e into rows of `width`
+// values, stepped by a fixed `step` with no division a value (one for the
+// start, one for the step).
+struct RowCol {
+  int j, c, dj, dc, width;
+  __device__ __forceinline__ RowCol(int e, int step, int w)
+      : j(e / w), c(e - (e / w) * w), dj(step / w), dc(step - (step / w) * w),
+        width(w) {}
+  __device__ __forceinline__ void next() {   // e += step
+    j += dj;
+    c += dc;
+    if (c >= width) {
+      c -= width;
+      ++j;
+    }
+  }
+  __device__ __forceinline__ void inc() {   // e += 1
+    if (++c == width) {
+      c = 0;
+      ++j;
+    }
+  }
+};
+
+// WIDE: floats a group's shared memory takes: gw rows of the tile on an
+// odd stride, then w_s and the tile's g_rend rounded up to 32 floats, so
+// that the groups of a warp start gw * stride floats apart modulo the 32
+// banks and G's loop reads each channel of the warp's 32 rows from 32
+// banks.
+__host__ __device__ __forceinline__ int wide_region(int gw, int tw) {
+  return gw * (tw | 1) + (gw + tw + 31) / 32 * 32;
+}
+
+// WIDE: `rows` samples x tc channels of a ray's raws (src: row 0, column
+// c0, rows C floats apart) into shared-memory rows `stride` floats apart.
+// The ray's whole block (tc == C) goes as 16-byte loads where it is
+// aligned, UNROLL words a lane in flight at a time; a tile of a wider ray
+// value by value.
+constexpr int UNROLL = 2;
+
+__device__ __forceinline__ void stage_wide(const float* __restrict__ src,
+                                           int rows, int tc, int C,
+                                           int stride, float* dst, int s,
+                                           int gw) {
+  const int n = rows * tc;
+  int done = 0;
+  if (tc == C && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+    const int words = n / 4;
+    RowCol p(4 * s, 4 * gw, tc);
+    for (int i0 = s; i0 < words; i0 += UNROLL * gw) {
+      float4 q[UNROLL];
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u)
+        if (i0 + u * gw < words)
+          q[u] = __ldg(reinterpret_cast<const float4*>(src) + i0 + u * gw);
+#pragma unroll
+      for (int u = 0; u < UNROLL; ++u) {
+        if (i0 + u * gw >= words) break;
+        RowCol e = p;
+        dst[e.j * stride + e.c] = q[u].x;
+        e.inc();
+        dst[e.j * stride + e.c] = q[u].y;
+        e.inc();
+        dst[e.j * stride + e.c] = q[u].z;
+        e.inc();
+        dst[e.j * stride + e.c] = q[u].w;
+        p.next();
+      }
+    }
+    done = 4 * words;
+  }
+  RowCol p(done + s, gw, tc);
+  for (int e = done + s; e < n; e += gw, p.next())
+    dst[p.j * stride + p.c] = __ldg(src + static_cast<size_t>(p.j) * C + p.c);
+}
+
+// WIDE: d_raws of `rows` samples x tc channels, g_rend_c * w_s with the
+// tile's g_rend and w from shared memory, to dst (row 0, column c0, rows
+// C floats apart): the ray's whole block (tc == C) as 16-byte stores
+// where it is aligned, a tile of a wider ray value by value.
+__device__ __forceinline__ void store_wide(float* __restrict__ dst, int rows,
+                                           int tc, int C, const float* gr,
+                                           const float* w, int s, int gw) {
+  const int n = rows * tc;
+  int done = 0;
+  if (tc == C && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+    const int words = n / 4;
+    RowCol p(4 * s, 4 * gw, tc);
+    for (int i = s; i < words; i += gw, p.next()) {
+      RowCol e = p;
+      float v[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[k] = __fmul_rn(gr[e.c], w[e.j]);
+        e.inc();
+      }
+      reinterpret_cast<float4*>(dst)[i] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+    done = 4 * words;
+  }
+  RowCol p(done + s, gw, tc);
+  for (int e = done + s; e < n; e += gw, p.next())
+    dst[static_cast<size_t>(p.j) * C + p.c] = __fmul_rn(gr[p.c], w[p.j]);
+}
+
 template <class Rows, bool WIDE>
 __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
@@ -418,10 +554,12 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
   extern __shared__ float sm[];
   const int s = threadIdx.x & (gw - 1), grp = threadIdx.x / gw;
   const int n = blockIdx.x * (blockDim.x / gw) + grp;
-  const int tw = WIDE ? BWD_TILE : C;
-  float* rs = sm + grp * (gw * tw + gw + tw);   // a tile of the raws, len x tc
-  float* wsh = rs + gw * tw;                    // the ray's w_s
-  float* gr = wsh + gw;                         // the tile's g_rend
+  const int tw = WIDE ? min(C, BWD_TILE) : C;
+  const int stride = WIDE ? (tw | 1) : tw;
+  float* rs = sm + grp * (WIDE ? wide_region(gw, tw)
+                               : gw * tw + gw + tw);   // a tile of the raws
+  float* wsh = rs + gw * stride;                       // the ray's w_s
+  float* gr = wsh + gw;                                // the tile's g_rend
   const bool live = n < N;
   const size_t b = live ? rows.base(n) : 0;
   // the launchers send rows longer than LANE_ROWS to the long kernel, so
@@ -431,21 +569,29 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
   const float* g_row = g_rend + static_cast<size_t>(n) * C;
   auto stage = [&](int c0) {   // channels [c0, c0 + tc) of the ray
     const int tc = min(tw, C - c0);
-    if (!WIDE)
+    if constexpr (!WIDE)
       ncn_stage<false>(raws + b * C, len * C, C, C, rs, s, gw);
     else
-      stage_tile(raws + b * C + c0, len, tc, C, rs, s, gw);
+      stage_wide(raws + b * C + c0, len, tc, C, stride, rs, s, gw);
     for (int c = s; c < tc; c += gw) gr[c] = g_row[c0 + c];
   };
-  if (live) stage(0);
   const bool in = s < len;
   bool v = false;
-  float sig = 0.0f, del = 0.0f;
-  if (in) {
-    v = valid[b + s];
-    sig = sigmas[b + s];
-    del = deltas[b + s];
-  }
+  float sig = 0.0f, del = 0.0f, t = 0.0f, gws = 0.0f;
+  auto load = [&] {   // the lane's sample
+    if (in) {
+      v = valid[b + s];
+      sig = sigmas[b + s];
+      del = deltas[b + s];
+      if (WIDE) {   // ahead of the staging's wait
+        t = ts[b + s];
+        gws = g_ws[b + s];
+      }
+    }
+  };
+  if (WIDE) load();
+  if (live) stage(0);
+  if (!WIDE) load();
   const float x = clipped(sig, del, v);
   float csum = __fadd_rn(0.0f, x);   // x_0 + ... + x_s, the forward's order
   for (int k = 1; k < max_len; ++k) {
@@ -455,19 +601,25 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
   const float T = expf(-__fsub_rn(csum, x));
   const bool inc = v && T > thr;
   const float w = inc ? __fmul_rn(-expm1f(-x), T) : 0.0f;
+  if (WIDE && in) wsh[s] = w;   // each tile's d_raws read it
   __syncwarp();   // the group's first tile of raws and g_rend is staged
   float G = 0.0f, TE = 0.0f;   // G_s and T_s*exp(-x_s) where included
   if (inc) {
-    G = __fadd_rn(__fadd_rn(g_op[n], __fmul_rn(g_depth[n], ts[b + s])),
-                  g_ws[b + s]);
+    if (!WIDE) {
+      t = ts[b + s];
+      gws = g_ws[b + s];
+    }
+    G = __fadd_rn(__fadd_rn(g_op[n], __fmul_rn(g_depth[n], t)), gws);
     TE = __fmul_rn(T, expf(-x));
   }
   for (int c0 = 0;;) {
     const int tc = min(tw, C - c0);
     if (inc) {
-      const float* r = rs + s * tc;
+      const float* r = rs + s * stride;
       for (int c = 0; c < tc; ++c) G = __fadd_rn(G, __fmul_rn(gr[c], r[c]));
     }
+    if (WIDE && live)
+      store_wide(d_raws + b * C + c0, len, tc, C, gr, wsh, s, gw);
     c0 += tw;
     if (!WIDE || c0 >= C) break;
     __syncwarp();   // the tile is read
@@ -487,11 +639,12 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
     const float raw_x = __fmul_rn(sig, del);
     const bool pass = v && raw_x > 0.0f && raw_x < SIGDT_MAX;
     d_sigmas[b + s] = pass ? __fmul_rn(dx, del) : 0.0f;
-    wsh[s] = w;
+    if (!WIDE) wsh[s] = w;
   }
-  __syncwarp();
-  if (live)
-    store_d_raws(d_raws + b * C, len * C, C, WIDE ? g_row : gr, wsh, s, gw);
+  if constexpr (!WIDE) {
+    __syncwarp();
+    if (live) store_d_raws(d_raws + b * C, len * C, C, gr, wsh, s, gw);
+  }
 }
 
 // H3 backward past LANE_ROWS samples (the file note): a warp a ray, lane
@@ -500,7 +653,8 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_kernel(
 // G*T*exp(-x) in d_sigmas and G*w in `gwb`; pass 2 walks the chunks back
 // to front with the suffix of G*w carried in from the chunk after. The
 // channels are staged as in `composite_bwd_kernel`: all C at once, or
-// BWD_TILE at a time with WIDE.
+// with WIDE in tiles of up to BWD_TILE on an odd stride, each tile's
+// d_raws written while its g_rend is staged.
 template <class Rows, bool WIDE>
 __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_long_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
@@ -514,10 +668,12 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_long_kernel(
   const int s = threadIdx.x & 31, grp = threadIdx.x >> 5;
   const int n = blockIdx.x * (blockDim.x >> 5) + grp;
   if (n >= N) return;   // the whole warp: it is one ray
-  const int tw = WIDE ? BWD_TILE : C;
-  float* rs = sm + grp * (32 * tw + 32 + tw);   // a tile of a chunk's raws
-  float* wsh = rs + 32 * tw;                    // the chunk's w_s
-  float* gr = wsh + 32;                         // the tile's g_rend
+  const int tw = WIDE ? min(C, BWD_TILE) : C;
+  const int stride = WIDE ? (tw | 1) : tw;
+  float* rs = sm + grp * (WIDE ? wide_region(32, tw)
+                               : 32 * tw + 32 + tw);   // a tile of a chunk
+  float* wsh = rs + 32 * stride;                       // the chunk's w_s
+  float* gr = wsh + 32;                                // the tile's g_rend
   const size_t b = rows.base(n);
   const int len = min(rows.len(n), max_len);
   const float* g_row = g_rend + static_cast<size_t>(n) * C;
@@ -534,7 +690,7 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_long_kernel(
         ncn_stage<false>(rows_c, clen * C, C, C, rs, s, 32);
       } else {
         const int tc = min(tw, C - k0);
-        stage_tile(rows_c + k0, clen, tc, C, rs, s, 32);
+        stage_wide(rows_c + k0, clen, tc, C, stride, rs, s, 32);
         for (int c = s; c < tc; c += 32) gr[c] = g_row[k0 + c];
       }
     };
@@ -558,6 +714,7 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_long_kernel(
     const float T = expf(-__fsub_rn(csum, x));
     const bool inc = v && T > thr;
     const float w = inc ? __fmul_rn(-expm1f(-x), T) : 0.0f;
+    if (WIDE && in) wsh[s] = w;   // each tile's d_raws read it
     __syncwarp();   // the chunk's first tile of raws and g_rend is staged
     float G = 0.0f, TE = 0.0f;
     if (inc) {
@@ -567,9 +724,11 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_long_kernel(
     for (int k0 = 0;;) {
       const int tc = min(tw, C - k0);
       if (inc) {
-        const float* r = rs + s * tc;
+        const float* r = rs + s * stride;
         for (int c = 0; c < tc; ++c) G = __fadd_rn(G, __fmul_rn(gr[c], r[c]));
       }
+      if (WIDE)
+        store_wide(d_raws + (b + c0) * C + k0, clen, tc, C, gr, wsh, s, 32);
       k0 += tw;
       if (!WIDE || k0 >= C) break;
       __syncwarp();   // the tile is read
@@ -579,11 +738,12 @@ __global__ void __launch_bounds__(BWD_THREADS) composite_bwd_long_kernel(
     if (in) {
       d_sigmas[bs] = __fmul_rn(G, TE);
       gwb[bs] = __fmul_rn(G, w);
-      wsh[s] = w;
+      if (!WIDE) wsh[s] = w;
     }
-    __syncwarp();
-    store_d_raws(d_raws + (b + c0) * C, clen * C, C, WIDE ? g_row : gr, wsh,
-                 s, 32);
+    if constexpr (!WIDE) {
+      __syncwarp();
+      store_d_raws(d_raws + (b + c0) * C, clen * C, C, gr, wsh, s, 32);
+    }
     __syncwarp();   // w and the raws are read before the next chunk
   }
   float later = 0.0f;   // sum of G*w over the samples after the chunk
@@ -648,6 +808,16 @@ int launch_fwd(const void* sigmas, const void* raws, const void* deltas,
   return static_cast<int>(cudaGetLastError());
 }
 
+// WIDE: a block's shared memory past 48 KB takes the opt-in (it holds
+// per device: set it at each launch)
+template <class Kernel>
+int wide_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
 template <class Rows>
 int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
                const void* ts, const void* valid, const void* g_op,
@@ -655,13 +825,16 @@ int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
                Rows rows, int N, int max_len, int C, float thr,
                void* d_sigmas, void* d_raws, void* scratch,
                cudaStream_t stream) {
+  const bool wide = C > BWD_NARROW;
   const int tw = min(C, BWD_TILE);
   if (max_len > LANE_ROWS) {   // a warp a ray, chunks of 32 samples
     if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const int per_block = BWD_THREADS / 32;
-    const size_t bytes = sizeof(float) * per_block * (32 * tw + 32 + tw);
-    auto kernel = C > BWD_TILE ? composite_bwd_long_kernel<Rows, true>
-                               : composite_bwd_long_kernel<Rows, false>;
+    const size_t bytes = sizeof(float) * per_block *
+                         (wide ? wide_region(32, tw) : 32 * tw + 32 + tw);
+    auto kernel = wide ? composite_bwd_long_kernel<Rows, true>
+                       : composite_bwd_long_kernel<Rows, false>;
+    if (const int e = wide_smem(kernel, bytes)) return e;
     kernel<<<ncn_blocks(N, per_block), BWD_THREADS, bytes, stream>>>(
         static_cast<const float*>(sigmas), static_cast<const float*>(raws),
         static_cast<const float*>(deltas), static_cast<const float*>(ts),
@@ -674,9 +847,11 @@ int launch_bwd(const void* sigmas, const void* raws, const void* deltas,
   }
   const int gw = group_width(max_len);
   const int per_block = BWD_THREADS / gw;
-  const size_t bytes = sizeof(float) * per_block * (gw * tw + gw + tw);
-  auto kernel = C > BWD_TILE ? composite_bwd_kernel<Rows, true>
-                             : composite_bwd_kernel<Rows, false>;
+  const size_t bytes = sizeof(float) * per_block *
+                       (wide ? wide_region(gw, tw) : gw * tw + gw + tw);
+  auto kernel = wide ? composite_bwd_kernel<Rows, true>
+                     : composite_bwd_kernel<Rows, false>;
+  if (const int e = wide_smem(kernel, bytes)) return e;
   kernel<<<ncn_blocks(N, per_block), BWD_THREADS, bytes, stream>>>(
       static_cast<const float*>(sigmas), static_cast<const float*>(raws),
       static_cast<const float*>(deltas), static_cast<const float*>(ts),

@@ -75,7 +75,8 @@
 // to an odd stride) and written as 16-byte streaming stores (J is read
 // once, in the backward: it should not push H7's rows out of the L2).
 // `hash_grid_contract` then takes dx[a] = sum over (l, f) in order of
-// g[l][f] * J[l][f][a], a thread a dx, no atomics. The sums are chains in
+// g[l][f] * J[l][f][a], a thread a dx, no atomics (contract.cuh, whose
+// body H13's `brick_contract` launches too). The sums are chains in
 // a fixed order, which `encode_jacobian_plain` and `contract_plain`
 // repeat, so J and dx are bit for bit the plain versions' (JAX sums over
 // the features first, then the corners: within 1e-5 of its largest
@@ -92,6 +93,7 @@
 // thread a sample reading its J row as float4 words took 0.0316. H7
 // without a gradient of x is compiled as before (a template flag), and
 // H8 is unchanged.
+#include "contract.cuh"
 #include "grad_scatter.cuh"
 
 namespace {
@@ -252,38 +254,6 @@ struct HashGeom {
   }
 };
 
-// H14's contraction (`hash_grid_contract`): a block takes TILE samples,
-// stages their J rows (padded to 6L + 4 floats) and their cotangent (f32
-// or bf16, widened) with 16-byte loads, and a thread per (sample, axis)
-// adds g[l][f] * J[l][f][a] over (l, f) in order from 0; no atomics.
-constexpr int CONTRACT_THREADS = 128;
-
-template <bool BF16>
-__global__ void __launch_bounds__(CONTRACT_THREADS) hash_grid_contract_kernel(
-    const void* __restrict__ g, const float* __restrict__ jac,
-    float* __restrict__ dx, int M, int L) {
-  extern __shared__ float4 smem[];
-  const int K = 2 * L, jstride = 3 * K + 4, gstride = K + 1;
-  float* js = reinterpret_cast<float*>(smem);
-  float* gs = js + TILE * jstride;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int m0 = blockIdx.x * TILE, rows = min(TILE, M - m0);
-  ncn_stage<false>(jac + 3LL * K * m0, rows * 3 * K, 3 * K, jstride, js, tid,
-                   nt);
-  ncn_stage<BF16>(static_cast<const char*>(g) + (BF16 ? 2LL : 4LL) * K * m0,
-                  rows * K, K, gstride, gs, tid, nt);
-  __syncthreads();
-  for (int e = tid; e < rows * 3; e += nt) {
-    const int i = e / 3, a = e - 3 * i;
-    const float* gi = gs + i * gstride;
-    const float* ji = js + i * jstride + a;
-    float s = 0.0f;
-#pragma unroll 4
-    for (int k = 0; k < K; ++k) s = __fadd_rn(s, __fmul_rn(gi[k], ji[3 * k]));
-    dx[3LL * m0 + e] = s;
-  }
-}
-
 template <bool JAC>
 int launch_fwd(const void* table, const void* x, const void* levels,
                void* out, void* jac, int M, int L, int table_size,
@@ -338,16 +308,5 @@ extern "C" int hash_grid_bwd(const void* g, const void* x, const void* levels,
 extern "C" int hash_grid_contract(const void* g, const void* jac, void* dx,
                                   int M, int L, int g_bf16,
                                   cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * TILE * (6 * L + 4 + 2 * L + 1);
-  auto kernel = g_bf16 ? hash_grid_contract_kernel<true> : hash_grid_contract_kernel<false>;
-  if (bytes > 48 * 1024) {   // the opt-in holds per device: set it each time
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(bytes));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<ncn_blocks(M, TILE), CONTRACT_THREADS, bytes, stream>>>(
-      g, static_cast<const float*>(jac), static_cast<float*>(dx), M, L);
-  return static_cast<int>(cudaGetLastError());
+  return contract::launch(g, jac, dx, M, L, g_bf16, stream);
 }
-

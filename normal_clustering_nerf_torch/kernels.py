@@ -249,7 +249,11 @@ BRICK_FWD = Kernel("brick_fwd", "brick_hash.cu", [P, P, P, P, I, I, I, I])
 BRICK_BWD = Kernel("brick_bwd", "brick_hash.cu", [P, P, P, P, I, I, I, I])
 HASH_FWD = Kernel("hash_grid_fwd", "hash_grid.cu", [P, P, P, P, I, I, I, I])
 HASH_BWD = Kernel("hash_grid_bwd", "hash_grid.cu", [P, P, P, P, I, I, I, I])
-BRICK_DX = Kernel("brick_dx", "brick_hash.cu", [P, P, P, P, P, I, I, I, I])
+# H13, the brick encode's position gradient: H5 with its Jacobian, and the
+# Jacobian's contraction with the cotangent (H14's body)
+BRICK_FWD_JAC = Kernel("brick_fwd_jac", "brick_hash.cu",
+                       [P, P, P, P, P, I, I, I, I])
+BRICK_CONTRACT = Kernel("brick_contract", "brick_hash.cu", [P, P, P, I, I, I])
 # H14, the tcnn encode's position gradient: H7 with its Jacobian, and the
 # Jacobian's contraction with the cotangent
 HASH_FWD_JAC = Kernel("hash_grid_fwd_jac", "hash_grid.cu",
@@ -262,8 +266,8 @@ ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                MARCH_SV_TEST, BRICK_FWD, BRICK_BWD, HASH_FWD, HASH_BWD,
                MARCH_FINE_TRAIN, MARCH_FINE_TEST, COMPACT, COMPOSITE_SEG_FWD,
                COMPOSITE_SEG_BWD, DISTORTION_SEG_FWD, DISTORTION_SEG_BWD,
-               TRIPLANE_FWD_JAC, TRIPLANE_BWD_DX, BRICK_DX, HASH_FWD_JAC,
-               HASH_CONTRACT)
+               TRIPLANE_FWD_JAC, TRIPLANE_BWD_DX, BRICK_FWD_JAC,
+               BRICK_CONTRACT, HASH_FWD_JAC, HASH_CONTRACT)
 
 
 def reset_counts():

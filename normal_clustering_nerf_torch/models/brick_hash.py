@@ -14,9 +14,12 @@ The table is (L, n_bricks, 64*F) and converts 1:1 from JAX.
 `brick_encode` launches kernels H5 (forward), H6 (table gradient) and
 H13 (position gradient, for extrinsic optimisation) of
 `csrc/brick_hash.cu` for CUDA tensors, and runs `encode_plain` /
-`encode_grad_plain` / `encode_dx_plain` for CPU tensors. The cotangent arrives in the compute
-dtype, f32 or bf16: H6 reads it as it is, the plain version casts it to
-f32 first.
+`encode_grad_plain` for CPU tensors. H13 is H5 writing the encode's
+Jacobian when x needs a gradient (`encode_jac_kernel`, plain
+`encode_jacobian_plain`) and a launch of the contraction H14 runs too
+(`contract_kernel`, plain `contract_plain`). The cotangent arrives in
+the compute dtype, f32 or bf16: H6 and the contraction read it as it
+is, the plain versions cast it to f32 first.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 
 from .. import kernels
 from ..ops.chain import chain_sum
+from .hash_encoding import contract_launch, contract_plain
 
 _HASH_PRIMES = (1, 2654435761, 805459861)
 
@@ -178,36 +182,44 @@ def encode_grad_plain(x, g, spec: BrickGridSpec):
     return d_table
 
 
-def encode_dx_plain(table, x, g, spec: BrickGridSpec):
-    """Plain PyTorch version of H13: the position gradient (M, 3) f32 of
-    the encode under the f32 cotangent g (M, L*F), the need_dx branch of
-    `_brick_vjp_bwd` (brick_hash.py:225-239). Per level, each corner's
-    slot dotted with the level's cotangent (feature order), times the
-    corner's weight wx * (wy * wz) with axis a's factor replaced by its
-    derivative (-1 for the lower slot, +1 for the upper, 0 on the top face
-    where JAX's dw4 = oh1 - oh0 vanishes), summed in corner order, times
-    the level's scale; the levels added in order."""
+def encode_jacobian_plain(table, x, spec: BrickGridSpec):
+    """Plain PyTorch version of H5's Jacobian: d(out)/dx (M, L*F*3) f32,
+    entry (l*F + f)*3 + a the sum in corner order of the corner's slot
+    value f times d_a * (w_o1 * w_o2), the derivative of its weight
+    wx * (wy * wz) along a (o1 < o2 the other axes; d_a = +1 for the
+    upper slot, -1 for the lower, 0 on the top face, where JAX's dw4 =
+    oh1 - oh0 vanishes), times the level's scale."""
     F = spec.n_features
-    per_level = [[], [], []]
+    cols = []
     for l in range(spec.n_levels):
         row, slots, _ = level_geometry(x, spec, l)
         _, _, _, top, w0, w1 = level_axes(x, spec, l)
         d = torch.where(top, 0.0, 1.0)
         vals = table[l].reshape(-1)[_lanes(row, slots, F)]      # (M, 8, F)
-        g_l = g[:, l * F:(l + 1) * F]
-        acc = [[], [], []]
+        dw = [[], [], []]
         for c in range(8):
             cs = ((c >> 2) & 1, (c >> 1) & 1, c & 1)
-            gd = chain_sum([vals[:, c, f] * g_l[:, f] for f in range(F)])
             wa = [(w1 if cc else w0)[:, a] for a, cc in enumerate(cs)]
-            da = [d[:, a] if cc else -d[:, a] for a, cc in enumerate(cs)]
-            acc[0].append(gd * (da[0] * (wa[1] * wa[2])))
-            acc[1].append(gd * (wa[0] * (da[1] * wa[2])))
-            acc[2].append(gd * (wa[0] * (wa[1] * da[2])))
+            for a in range(3):
+                o1, o2 = [b for b in range(3) if b != a]
+                da = d[:, a] if cs[a] else -d[:, a]
+                dw[a].append(da * (wa[o1] * wa[o2]))
         scale = torch.tensor(spec.scales[l], dtype=torch.float32)
-        for a in range(3):
-            per_level[a].append(chain_sum(acc[a]) * scale)
-    return torch.stack([chain_sum(t) for t in per_level], 1)
+        for f in range(F):
+            for a in range(3):
+                cols.append(chain_sum([vals[:, c, f] * dw[a][c]
+                                       for c in range(8)]) * scale)
+    return torch.stack(cols, 1)
+
+
+def encode_dx_plain(table, x, g, spec: BrickGridSpec):
+    """The position gradient (M, 3) f32 of the encode under the f32
+    cotangent g (M, L*F), as the kernels compute it: the Jacobian
+    contracted with g. JAX's need_dx branch of `_brick_vjp_bwd`
+    (brick_hash.py:225-239) dots each slot with g first and sums the
+    corners after; the two orders agree within 1e-5 of the largest
+    |dx|."""
+    return contract_plain(encode_jacobian_plain(table, x, spec), g)
 
 
 # ------------------------------------------------------------ kernels
@@ -270,49 +282,69 @@ def encode_grad_kernel(x, g, spec: BrickGridSpec):
     return d_table
 
 
-def encode_dx_kernel(table, x, g, spec: BrickGridSpec):
-    """H13: the position gradient (M, 3) f32 of g ((M, L*F) in f32 or
-    bf16, read in its own dtype)."""
+def encode_jac_kernel(table, x, spec: BrickGridSpec,
+                      out_dtype=torch.float32):
+    """H5 with the Jacobian (`brick_fwd_jac`): the (M, L*F) features in
+    `out_dtype`, as `encode_kernel` writes them, and d(out)/dx (M,
+    L*F*3) f32 (`encode_jacobian_plain`'s layout)."""
     M, dev, args = _kernel_args(x, spec)
     tab = kernels.check(table, "table", torch.float32, spec.table_shape(), dev)
     if table.data_ptr() % 16:
-        raise ValueError("table: H13 reads aligned slot pairs as 16-byte "
+        raise ValueError("table: H5 reads aligned slot pairs as 16-byte "
                          "words; the table must start 16-byte aligned")
-    if g.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError(f"g: dtype {g.dtype}, expected float32 or bfloat16")
-    gp = kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)
-    dx = torch.empty((M, 3), dtype=torch.float32, device=dev)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out_dtype {out_dtype}: f32 or bf16")
+    out = torch.empty((M, spec.out_dim), dtype=out_dtype, device=dev)
+    jac = torch.empty((M, 3 * spec.out_dim), dtype=torch.float32, device=dev)
     if M > 0:
-        kernels.BRICK_DX.launch(tab, *args, gp, kernels.ptr(dx), M,
-                                spec.n_levels, spec.n_bricks,
-                                int(g.dtype == torch.bfloat16), device=dev)
-    return dx
+        kernels.BRICK_FWD_JAC.launch(tab, *args, kernels.ptr(out),
+                                     kernels.ptr(jac), M, spec.n_levels,
+                                     spec.n_bricks,
+                                     int(out_dtype == torch.bfloat16),
+                                     device=dev)
+    return out, jac
+
+
+def contract_kernel(jac, g, spec: BrickGridSpec):
+    """H13's contraction (`brick_contract`) of H5's Jacobian, H14's body:
+    the position gradient (M, 3) f32 from `jac` (M, L*F*3) and g ((M,
+    L*F) in f32 or bf16, read in its own dtype), in `contract_plain`'s
+    order."""
+    return contract_launch(kernels.BRICK_CONTRACT, jac, g, spec)
 
 
 class BrickEncode(torch.autograd.Function):
-    """The table gradient, and the position gradient (H13) when x needs
-    one (extrinsic optimisation: JAX's need_dx)."""
+    """The table gradient, and with `jac` (x needs a gradient: JAX's
+    need_dx, extrinsic optimisation) the position gradient H13 from the
+    Jacobian the forward saves in place of the table."""
 
     @staticmethod
-    def forward(ctx, table, x, spec, out_dtype):
-        ctx.save_for_backward(x, table)
+    def forward(ctx, table, x, spec, out_dtype, jac=False):
         ctx.spec = spec
+        if not jac:
+            ctx.save_for_backward(x)
+            if x.is_cuda:
+                return encode_kernel(table, x, spec, out_dtype)
+            return encode_plain(table, x, spec).to(out_dtype)
         if x.is_cuda:
-            return encode_kernel(table, x, spec, out_dtype)
-        return encode_plain(table, x, spec).to(out_dtype)
+            out, J = encode_jac_kernel(table, x, spec, out_dtype)
+        else:
+            out = encode_plain(table, x, spec).to(out_dtype)
+            J = encode_jacobian_plain(table, x, spec)
+        ctx.save_for_backward(x, J)
+        return out
 
     @staticmethod
     def backward(ctx, g):
-        x, table = ctx.saved_tensors
-        if x.is_cuda:   # the kernels read g in the compute dtype
-            g = g.contiguous()
-            grad, dx_fn = encode_grad_kernel, encode_dx_kernel
-        else:
-            g = g.to(torch.float32)
-            grad, dx_fn = encode_grad_plain, encode_dx_plain
-        dx = (dx_fn(table, x, g, ctx.spec) if ctx.needs_input_grad[1]
-              else None)
-        return grad(x, g, ctx.spec), dx, None, None
+        x, *J = ctx.saved_tensors
+        card = x.is_cuda   # the kernels read g in the compute dtype
+        g = g.contiguous() if card else g.to(torch.float32)
+        grad = encode_grad_kernel if card else encode_grad_plain
+        dx = None
+        if J:
+            dx = (contract_kernel(J[0], g, ctx.spec) if card
+                  else contract_plain(J[0], g))
+        return grad(x, g, ctx.spec), dx, None, None, None
 
 
 def brick_encode(table: torch.Tensor, x: torch.Tensor, spec: BrickGridSpec,
@@ -323,5 +355,6 @@ def brick_encode(table: torch.Tensor, x: torch.Tensor, spec: BrickGridSpec,
     without it x gets none."""
     if not need_dx:
         x = x.detach()
+    jac = torch.is_grad_enabled() and x.requires_grad
     return BrickEncode.apply(table, x.to(torch.float32).contiguous(), spec,
-                             compute_dtype)
+                             compute_dtype, jac)

@@ -295,12 +295,15 @@ def encode_jac_kernel(table, x, spec: HashGridSpec, out_dtype=torch.float32):
     return out, jac
 
 
-def contract_kernel(jac, g, spec: HashGridSpec):
-    """H14's contraction (`hash_grid_contract`): the position gradient
-    (M, 3) f32 from H7's Jacobian `jac` (M, L*F*3) and g ((M, L*F) in f32
-    or bf16, read in its own dtype), in `contract_plain`'s order."""
+def contract_launch(kernel, jac, g, spec):
+    """A launch of the contraction body (`csrc/contract.cuh`) that H13 and
+    H14 share, through its launcher `kernel` (`kernels.BRICK_CONTRACT` or
+    `kernels.HASH_CONTRACT`): the position gradient (M, 3) f32 from a
+    forward's Jacobian `jac` (M, L*F*3) and g ((M, L*F) in f32 or bf16,
+    read in its own dtype), in `contract_plain`'s order. `spec` is the
+    encode's (n_levels, n_features, out_dim)."""
     if spec.n_features != 2:
-        raise NotImplementedError("the hash-grid kernels take n_features 2")
+        raise NotImplementedError("the contraction takes n_features 2")
     M, dev = jac.shape[0], jac.device
     jp = kernels.check(jac, "jac", torch.float32, (M, 3 * spec.out_dim), dev)
     if g.dtype not in (torch.float32, torch.bfloat16):
@@ -308,11 +311,15 @@ def contract_kernel(jac, g, spec: HashGridSpec):
     gp = kernels.check(g, "g", g.dtype, (M, spec.out_dim), dev)
     dx = torch.empty((M, 3), dtype=torch.float32, device=dev)
     if M > 0:
-        kernels.HASH_CONTRACT.launch(gp, jp, kernels.ptr(dx), M,
-                                     spec.n_levels,
-                                     int(g.dtype == torch.bfloat16),
-                                     device=dev)
+        kernel.launch(gp, jp, kernels.ptr(dx), M, spec.n_levels,
+                      int(g.dtype == torch.bfloat16), device=dev)
     return dx
+
+
+def contract_kernel(jac, g, spec: HashGridSpec):
+    """H14's contraction (`hash_grid_contract`) of H7's Jacobian:
+    `contract_launch`."""
+    return contract_launch(kernels.HASH_CONTRACT, jac, g, spec)
 
 
 class HashEncode(torch.autograd.Function):

@@ -1,4 +1,5 @@
-"""Brick-hash encode (kernels H5/H6's and H13's plain versions) against
+"""Brick-hash encode (kernels H5/H6's and H13's plain versions: H13 is
+H5's Jacobian and its contraction) against
 the JAX package's `brick_encode_vjp` (forward `_brick_encode_impl`,
 backward `_brick_vjp_bwd`, with need_dx its position gradient) and its
 numpy oracle `brick_encode_reference_np`.
@@ -146,16 +147,51 @@ def test_position_gradients_match_jax(dtype):
         N(tb.encode_dx_plain(T(table), T(x), gf, spec_t)), N(xt.grad))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_jacobian_columns_are_jax_vjps_of_one_hot_cotangents(dtype):
+    """The plain Jacobian (what H5 writes when x needs a gradient): its
+    column j, d out_j / dx (M, 3), against `jax.vjp` of the eager JAX
+    `brick_encode(need_dx=True)` in the compute dtype under the one-hot
+    cotangent e_j (1 on feature j of every sample, exact in bf16), on
+    `face_points` (cell faces, stride-3 brick faces, x = 0 and 1).
+    Tolerance: 1e-5 of the column's largest |dx| (the same products; JAX
+    dots each slot with the cotangent first and folds the 64 slots, zeros
+    included, by einsum)."""
+    spec_j, spec_t, table, x, _ = _case(6, M=260)
+    M, D = x.shape[0], spec_t.out_dim
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    with jax.disable_jit():
+        _, vjp = jax.vjp(lambda xx: jb.brick_encode(J(table), xx, spec_j, jdt,
+                                                need_dx=True), J(x))
+        ref = np.stack([np.asarray(vjp(jnp.broadcast_to(e, (M, D)))[0])
+                        for e in jnp.eye(D, dtype=jdt)])
+    jac = N(tb.encode_jacobian_plain(T(table), T(x), spec_t)).reshape(M, D, 3)
+    assert np.abs(ref).max() > 0
+    for j in range(D):
+        np.testing.assert_allclose(jac[:, j], ref[j], rtol=0,
+                                   atol=1e-5 * np.abs(ref[j]).max(),
+                                   err_msg=f"column {j}")
+    # the autograd path saves this Jacobian and contracts it
+    xt = T(x).requires_grad_(True)
+    tb.brick_encode(T(table), xt, spec_t, dtype, need_dx=True).backward(
+        torch.ones((M, D), dtype=dtype))
+    np.testing.assert_array_equal(N(xt.grad), N(tb.contract_plain(
+        T(jac.reshape(M, -1)), torch.ones((M, D)))))
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     """No fallback: the kernel wrappers take CUDA tensors only, and
     `brick_encode` picks them by the tensor's device."""
     _, spec_t, table, x, g = _case(3)
+    jac = torch.zeros((x.shape[0], 3 * spec_t.out_dim))
     with pytest.raises(ValueError, match="CUDA"):
         tb.encode_kernel(T(table), T(x), spec_t)
     with pytest.raises(ValueError, match="CUDA"):
         tb.encode_grad_kernel(T(x), T(g), spec_t)
     with pytest.raises(ValueError, match="CUDA"):
-        tb.encode_dx_kernel(T(table), T(x), T(g), spec_t)
+        tb.encode_jac_kernel(T(table), T(x), spec_t)
+    with pytest.raises(ValueError, match="CUDA"):
+        tb.contract_kernel(jac, T(g), spec_t)
 
 
 @settings(max_examples=25, deadline=None, database=None)

@@ -38,9 +38,10 @@ from normal_clustering_nerf_tpu.ops import composite as jc
 from normal_clustering_nerf_tpu.training import Trainer as JTrainer
 
 C, THR, N_CLS = 46, 1e-4, 40
+BWD_TILE = 48   # csrc/composite.cu: the most channels a wide backward tile takes
 
 
-def _case(seed, n=300, K=16):
+def _case(seed, n=300, K=16, C=C):
     """As tests/test_torch_composite.py draws its rays, at C channels."""
     rng = np.random.default_rng(seed)
     sig = np.exp(rng.normal(1.0, 2.0, (n, K))).astype(np.float32)
@@ -77,8 +78,11 @@ def test_forward_at_46_channels_matches_jax(K, with_t_start):
     assert (N(out["vr_samples"]) < valid.sum(1)).any()   # early stops seen
 
 
-def test_backward_at_46_channels_matches_jax_vjp():
-    sig, raws, dt, ts, valid, cot = _case(2)
+@pytest.mark.parametrize("c", [C, BWD_TILE, BWD_TILE + 1])
+def test_backward_at_46_channels_matches_jax_vjp(c):
+    """At C 46 and on both sides of the wide backward's tile edge (one
+    tile of BWD_TILE channels; two, the second of one channel), K 16."""
+    sig, raws, dt, ts, valid, cot = _case(2, C=c)
 
     def f(s, r):
         o = jc.composite_rays(s, r, J(dt), J(ts), J(valid), THR)

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device time of the bootstrap march (H1), the dense compositing forward
-and backward (H3), the distortion loss's forward and backward (H4) and the flat
-layout's compaction (H11) as the main path calls them, and of one kernel
-node at its least.
+and backward (H3, at 9 channels and at 46), the distortion loss's forward
+and backward (H4) and the flat layout's compaction (H11) as the main path
+calls them, and of one kernel node at its least.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -35,7 +35,16 @@ cascades, exp_step_factor 1/256) on the synthetic room at twice its width
 CASCADE_STEPS steps through `Trainer.fit` (the bootstrap's 512 and 64 of
 the fine march), and captures H1's call in a bootstrap step, H9's in a
 step after it and H10's first window round of a render of the held-out
-views. It times
+views. Then, for H3 past 16 channels, it builds the bench configuration
+on the synthetic room with its semantics relabelled into 40 classes
+(`chip_smoke.relabel_semantics`: C = 3 + 3 + 40 = 46, the smoke's
+40-class path), trains SEM40_STEPS steps through `Trainer.fit` (which
+captures its bootstrap step as a CUDA graph) and captures
+`composite_rays` in the next bootstrap step, on whose arguments it also
+calls H3's backward with cotangents drawn from a seed; and that
+trainer's graph step (host ms a step of 16 replays of its captured
+step, ended by a synchronize, the median of 3 chunks).
+It times
 each captured call (a march's with the occupied cells of its bitfield),
 the march on a full bitfield, and a one-element
 in-place add (the least time of one kernel node under this timing, the
@@ -56,9 +65,11 @@ import time
 
 import torch
 
+from chip_smoke import relabel_semantics
 from time_encodes import device_ms
 
 CASCADE_STEPS = 576   # the cascades trainer's steps before its calls
+SEM40_STEPS = 32      # the 40-class trainer's: a graph captured
 
 
 def captured(module, name, run):
@@ -116,6 +127,41 @@ def cascade_calls(bench_config):
                 rendering.march_rays_train_dense,),
             f"march_fine_test_round, {tag}, first window round": window + (
                 rendering.march_rays_test_round_window,)}
+
+
+def sem40_calls(bench_config):
+    """{label: (args, kwargs, fn)} of H3's forward and backward on a
+    40-class bootstrap step's own arguments (46 channels), and the
+    40-class trainer's graph step in ms."""
+    from normal_clustering_nerf_torch.datasets.synthetic import (
+        SyntheticDataset)
+    from normal_clustering_nerf_torch.models import rendering
+    from normal_clustering_nerf_torch.ops import composite
+    from normal_clustering_nerf_torch.training import Trainer
+    scenes = [relabel_semantics(SyntheticDataset(
+        split=split, img_wh=(128, 128), n_images=n).load())
+        for split, n in (("train", 48), ("test", 4))]
+    tr = Trainer(bench_config(), *scenes, device="cuda")
+    tr.mark_invisible_cells()
+    tr.fit(SEM40_STEPS)
+    comp = captured(rendering, "composite_rays",
+                    lambda: tr.train_step_core(bootstrap=True))
+    ca = tuple(t.detach().contiguous() for t in comp[0][:5]) + (comp[0][5],)
+    n, k, c = ca[1].shape
+    cg = torch.Generator(device="cuda").manual_seed(2)
+    gs = tuple(torch.randn(shape, device="cuda", generator=cg)
+               for shape in ((n,), (n,), (n, c), (n, k)))
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tr.train_chunk(16, True)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3 / 16)
+    return {f"composite_fwd, C {c}": comp + (rendering.composite_rays,),
+            f"composite_bwd, C {c}": (ca + gs, {},
+                                      composite.composite_grad_kernel)
+            }, sorted(ms)[1]
 
 
 def main():
@@ -194,6 +240,8 @@ def main():
         (a[0], a[1], fine_hits, a[3], a[4]), fine_kw,
         rendering.march_rays_train_dense)
     calls.update(cascade_calls(bench_config))
+    sem40, sem40_step_ms = sem40_calls(bench_config)
+    calls.update(sem40)
     one = torch.zeros(1, device="cuda")
     calls["one-element add (floor)"] = ((one, 1.0), {}, torch.Tensor.add_)
     out = {"package": os.path.dirname(package.__file__)}
@@ -207,6 +255,7 @@ def main():
         if where.startswith("march"):
             out[where]["bits_set"] = bits_set(ca[5] if "test_round" in where
                                               else ca[3])
+    out["40-class graph step"] = {"ms": sem40_step_ms}
     out["march_kw"] = kw
     out["seconds"] = time.perf_counter() - t0
     print(json.dumps(out), flush=True)
