@@ -62,8 +62,9 @@ Phases (any failed check raises, so the script exits non-zero):
      (the flat budget, half of it, the one ray with the most samples, an
      all-empty batch, and rows of 13 steps, which H11 reads a byte at a
      time, bit for bit), H10 (three rounds of each mode over
-     the held-out rays, and the full window at the Pallas probe P2's
-     (8192, 1024) block, beside P2's own form in torch); H9 (both marches)
+     the held-out rays, three of the first-K mode at K 48 and at K = the
+     window, and the full window at the Pallas probe P2's (8192, 1024)
+     block, beside P2's own form in torch); H9 (both marches)
      and H10 (both modes) again at scene scale 0.3, where the mip bound is
      not a power of two and the plain versions must divide by it as the
      kernels do (`ops/ray_march.py:_div`); H1, H9 (dense, and flat
@@ -102,10 +103,11 @@ Phases (any failed check raises, so the script exits non-zero):
      bit g_rend (x) ws), and its segment forward on every length 0..64
      (bit for bit the serial order, with and without T_start), H4's
      segment launchers on every length 0..64 (bit for bit the serial
-     order and dense H4), H3's four launchers at C = 17, 46, 48, 49 and
-     99 channels (WIDE_C: past the narrow backward's 16; 3 + 3 + NYU40's
-     40 classes; the wide backward's tile of 48 and one past it; four
-     forward passes): the dense forward at K = 1, 16, 33, 64 with and
+     order and dense H4), H3's four launchers at C = 17, 46, 48, 49, 99
+     and 130 channels (WIDE_C: past the narrow backward's 16; 3 + 3 +
+     NYU40's 40 classes; the wide backward's tile of 48 and one past it;
+     4 forward sums a lane; past the forward's 128 sums a walk, two
+     walks): the dense forward at K = 1, 16, 33, 64 with and
      without T_start and the dense backward at BWD_KS bit for bit
      their serial orders (`composite_serial`, `composite_grad_serial`),
      the segment launchers on every length 0..128 / 0..64, and H3's
@@ -2232,6 +2234,49 @@ def steps_in(t0, t_end, hit, lo, S):
     return torch.where(hit, n, torch.zeros_like(n))
 
 
+# H10's first-K cases past the renderer's ladder: K 48, not a multiple of
+# 32, and K equal to the window (None)
+WINDOW_KS = (48, None)
+
+
+def window_rounds(chk, targs, mk, S_win, K, tag, rounds=TEST_ROUNDS):
+    """H10's first-K mode at K (the window when None) over `rounds` rounds
+    from the cursors of `targs` (rays_o, rays_d, cursor, t_far, alive,
+    bitfield), each from the cursors the last returned: t, dt, valid and
+    the cursor bit for bit the plain version's. Returns the errors."""
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    o, d, cursor, far, alive, bits = targs
+    tkw = dict(mk, S_march=S_win, n_steps=K or S_win)
+    errs = []
+    for r in range(rounds):
+        a = (o, d, cursor, far, alive, bits)
+        got = rm.march_rays_test_round_window(*a, **tkw)
+        ref = rm.march_rays_test_round_window_plain(*a, **tkw)
+        log(f"H10 window round {r} at K={tkw['n_steps']}, {tag}: alive "
+            f"{int(alive.sum())}, valid samples {int(ref[2].sum())}, rays "
+            f"with K found {int((ref[2].sum(1) == tkw['n_steps']).sum())}")
+        errs += [chk.equal(name, x, y) for name, x, y in
+                 zip(("t", "dt", "valid", "cursor"), got, ref)]
+        cursor = ref[3]
+        alive = alive & (cursor < far)
+    return errs
+
+
+def window_chunks(targs, mk, S_win, K):
+    """How many of the window's chunks of 32 steps the first K occupied
+    steps of each ray that marches need (the K-th step's chunk; every
+    chunk when the window holds fewer): a histogram over 1..ceil(S_win /
+    32), from the plain full window's mask over the same steps."""
+    from normal_clustering_nerf_torch.ops import ray_march as rm
+    inc = rm.march_rays_test_round_dense_plain(
+        *targs, **dict(mk, n_steps=S_win))[2]
+    n_ch = -(-S_win // 32)
+    kth = (torch.cumsum(inc.int(), 1) < K).sum(1)   # S_win when fewer
+    need = torch.where(kth < S_win, kth // 32 + 1, torch.full_like(kth, n_ch))
+    marches = targs[4] & (targs[2] >= 0)
+    return torch.bincount(need[marches], minlength=n_ch + 1)[1:].tolist()
+
+
 def check_bitfield(tr, occ, train_in, test_in, tag, need_trunc, step):
     """H9, H10 and H11 against their plain versions on one occupancy: the
     fine march (H9) on the batch's rays with their march intervals at
@@ -2241,11 +2286,12 @@ def check_bitfield(tr, occ, train_in, test_in, tag, need_trunc, step):
     the tail); TEST_ROUNDS rounds of each H10 mode over the held-out rays,
     each from the cursors the last returned (the full window of
     test_n_samples steps, compacted by H11 into its N * n_steps budget, and
-    the first K of a test_march_window window with the renderer's K); and
-    H10's full window at P2's (8192, 1024) block, beside P2's own form in
-    torch. Sample sets, counts and cursors must be identical. Returns the
-    records of the three launchers and the flat batch for the segment
-    checks."""
+    the first K of a test_march_window window with the renderer's K, and
+    with K of WINDOW_KS; the chunks the first window round's rays need
+    logged); and H10's full window at P2's (8192, 1024) block, beside P2's
+    own form in torch. Sample sets, counts and cursors must be identical.
+    Returns the records of the three launchers and the flat batch for the
+    segment checks."""
     from normal_clustering_nerf_torch.models.rendering import (
         bucket_ladder, train_intervals, train_march_args)
     from normal_clustering_nerf_torch.ops import ray_march as rm
@@ -2363,7 +2409,9 @@ def check_bitfield(tr, occ, train_in, test_in, tag, need_trunc, step):
                 hit = alive & (cursor >= 0)
                 probed = int(steps_in(cursor, torch.minimum(ref[3], far), hit,
                                       lo, S_win).sum())
-                log(f"  work: {probed} steps probed")
+                log(f"  work: {probed} steps probed; rays needing 1.."
+                    f"{-(-S_win // 32)} chunks of 32 steps: "
+                    f"{window_chunks(targs, mk, S_win, tkw['n_steps'])}")
                 rec["march_fine_test_round"] = dict(
                     kernel=(lambda a=targs, k=tkw, f=fn: f(*a, **k)),
                     plain=(lambda a=targs, k=tkw, f=pfn: f(*a, **k)),
@@ -2371,6 +2419,9 @@ def check_bitfield(tr, occ, train_in, test_in, tag, need_trunc, step):
                                 + nbytes(*ref), STEP_OPS * probed))
             cursor = ref[3]
             alive = alive & (cursor < far)
+    for K in WINDOW_KS:
+        errs += window_rounds(chk, (ro, rd, near, far, near >= 0, bits), mk,
+                              S_win, K, tag)
     rec["compact_samples"]["err"] = max(cerrs)
 
     # H10's full window at P2's block: the first 8192 held-out rays from
@@ -2415,7 +2466,8 @@ SCALE_03 = 0.3   # a scene scale whose mip bound is not a power of two
 
 def check_scale(tr, occ, gen, scale=SCALE_03):
     """H9 (the fine and the two-level march) and H10 (a full-window and a
-    window round) against their plain versions at scene scale `scale`,
+    window round, and TEST_ROUNDS window rounds at each K of WINDOW_KS)
+    against their plain versions at scene scale `scale`,
     where the mip bound is not a power of two: the plain versions' x / mb
     (`occupancy_lookup`, `coarse_lookup`) must divide as the kernels'
     __fdiv_rn does, not as a product with the reciprocal. N rays from
@@ -2465,6 +2517,9 @@ def check_scale(tr, occ, gen, scale=SCALE_03):
             f"{int(ref[2].sum())}")
         errs += [chk.equal(name, a, b) for name, a, b in
                  zip(("t", "dt", "valid", "cursor"), got, ref)]
+    for K in WINDOW_KS:
+        errs += window_rounds(chk, (o, d, cursor, far, alive, bits), mk,
+                              rc.test_march_window, K, f"scale {scale}")
     chk.done(f"H9 / H10 at scale {scale}")
     return max(errs)
 
@@ -2565,8 +2620,10 @@ def cascade_adversarial_inputs(m, N, gen, dev, density=0.2):
 def check_cascades(tr, gen, scales=CASCADE_SCALES):
     """H1 (the bootstrap march), H9 (the fine march, and the flat march
     through H11) and H10 (TEST_ROUNDS rounds of each mode from the cursors
-    the last returned; H11 on the first full window, as a flat test round
-    compacts it) against their plain versions at the scene scales
+    the last returned, and of the first-K mode at each K of WINDOW_KS; H11
+    on the first full window, as a flat test round compacts it; the chunks
+    the first window round's rays need logged) against their plain
+    versions at the scene scales
     past 0.5 (several cascades, the geometric step grid), on
     `cascade_march_inputs` and on `cascade_adversarial_inputs` at the
     bench's grid, batch and steps: outputs identical (the kernels read
@@ -2663,7 +2720,10 @@ def check_cascades(tr, gen, scales=CASCADE_SCALES):
                 got, ref = fn(*targs, **tkw), pfn(*targs, **tkw)
                 log(f"H10 {mode} round {r} at scale {scale}, {rays} rays: "
                     f"alive {int(alive.sum())}, valid samples "
-                    f"{int(ref[2].sum())}")
+                    f"{int(ref[2].sum())}"
+                    + (f"; rays needing 1.. chunks of 32 steps "
+                       f"{window_chunks(targs, mk, rc.test_march_window, K)}"
+                       if mode == "window" and r == 0 else ""))
                 errs["march_fine_test_round"] += [
                     chk.equal(name, a, b) for name, a, b in
                     zip(("t", "dt", "valid", "cursor"), got, ref)]
@@ -2678,6 +2738,10 @@ def check_cascades(tr, gen, scales=CASCADE_SCALES):
                         for f in rm.MarchResult._fields]
                 cursor = ref[3]
                 alive = alive & (cursor < far)
+        for K in WINDOW_KS:
+            errs["march_fine_test_round"] += window_rounds(
+                chk, (o, d, t1.contiguous(), t2.contiguous(), t1 >= 0, bits),
+                mk, rc.test_march_window, K, f"scale {scale}, {rays} rays")
     chk.done(f"H1 / H9 / H10 at scales {scales}")
     return {k: max(v) for k, v in errs.items()}
 
@@ -3058,8 +3122,10 @@ def check_seg_distortion_lengths(chk, gen):
 # H3's channel counts past its narrow backward (16 channels): 16 + 1; 3 +
 # 3 + 40, a pred_sem run on NYU40's classes; the wide backward's tile of
 # BWD_TILE = 48 channels and one past it (two tiles, the second of one
-# channel); 101 sums, four forward passes, three tiles
-WIDE_C = (17, 46, 48, 49, 99)
+# channel); 101 sums, four a forward lane, three tiles; 132 sums, past the
+# forward's FWD_QMAX * 32 of one walk (two walks, the second staging a
+# tile of 2 channels)
+WIDE_C = (17, 46, 48, 49, 99, 130)
 # H3 backward's row lengths in the checks: lane groups of 1, 16 and 32
 # lanes, and the long kernel's chunks of 32 (two, the second of one
 # sample; two; four)
@@ -3102,6 +3168,47 @@ def composite_grad_serial(sigmas, raws, deltas, ts, valid, thr, g_op,
     return torch.where(inside, (G * TE - after) * deltas, 0.0)
 
 
+def stop_at_chunk_edges(sig, valid, K):
+    """Rows N/2 + i of a `composite_case` draw (torch or numpy) made to
+    stop early on the edges of H3 forward's chunks: every sample valid,
+    sigma 1 but at sample e of CHUNK_EDGES (< K) and at the row's last,
+    where sigma 1e4 clips sigma*delta at 80, so that sample e is the last
+    included (its T * (1 - alpha) below any threshold) and the chunk
+    after includes nothing. In place; returns {row: e}."""
+    stops = {}
+    for i, e in enumerate(e for e in CHUNK_EDGES + (K - 1,) if e < K):
+        n = sig.shape[0] // 2 + i
+        sig[n], valid[n] = 1.0, True
+        sig[n, e] = 1e4
+        stops[n] = e
+    return stops
+
+
+# samples on the edges of H3 forward's chunks of 16 and 32 lanes
+CHUNK_EDGES = (15, 16, 31, 32)
+
+
+def wide_fwd_layout(max_len, C):
+    """(gw, Q, dynamic shared memory bytes a block) of H3's forward past gw
+    sums, as csrc/composite.cu's `launch_fwd` and `fwd_region` take them;
+    None where the narrow kernel runs."""
+    gw = 1
+    while gw < min(max_len, C + 2) and gw < 32:
+        gw <<= 1
+    if C + 2 > gw:
+        q_gw = 1
+        while q_gw < -(-(C + 2) // 4) and q_gw < 32:
+            q_gw <<= 1
+        gw = max(gw, q_gw, 4)
+    if C + 2 <= gw:
+        return None
+    Q = min(-(-(C + 2) // gw), 4)
+    need = 2 * gw + 3 + gw * min(Q * gw, C)
+    region = ((need + 3) // 4 * 4 if gw >= 32
+              else (need - gw + 31) // 32 * 32 + gw)
+    return gw, Q, 4 * (256 // gw) * region
+
+
 def check_many_channels(rec, gen, thr):
     """H3 at each of WIDE_C channels, on random rays as phase 2 draws them
     (`composite_case`, `segment_case`): the dense forward at K = 1, 16, 33
@@ -3110,7 +3217,11 @@ def check_many_channels(rec, gen, thr):
     backward at BWD_KS (WIDE_ROWS rays, one and none:
     `check_composite_bwd`, d_sigmas bit for bit `composite_grad_serial`),
     the segment backward on every length 0..SEG_BWD_LONGEST and the
-    segment forward on every length 0..64 with and without T_start. Adds each launcher's largest error to `rec`; at WIDE_TIMED
+    segment forward on every length 0..64 with and without T_start; the
+    forward's rows include rows that stop on its chunks' edges
+    (`stop_at_chunk_edges`), and the layout of its wide kernel (lanes a
+    group, sums a lane, shared memory) is logged. Adds each launcher's
+    largest error to `rec`; at WIDE_TIMED
     channels and the bench's shape (WIDE_ROWS rays, K 16; the segments
     those rows of 16 slots) gives each launcher its "wide" entry, timed
     in phase 6."""
@@ -3122,6 +3233,11 @@ def check_many_channels(rec, gen, thr):
                                 "composite_seg_fwd", "composite_seg_bwd")}
         for k in (1, 16, 33, 64):
             kca, _ = composite_case(N, k, C, gen)
+            edges = stop_at_chunk_edges(kca[0], kca[4], k)
+            log(f"H3 forward's wide layout (gw, Q, shared bytes a block) at "
+                f"C={C} K={k}: {wide_fwd_layout(k, C)}, segments "
+                f"{wide_fwd_layout(C + 2, C)}; rows stopping at a sample: "
+                f"{edges}")
             T_start = torch.rand(N, generator=gen, device=dev)
             T_start[::8] = thr * (1.0 + 2.0 * T_start[::8])
             for n in (N, 1):

@@ -73,11 +73,24 @@
 //
 // Any channel count C >= 1 (C = 3 + 3 pred_norm_nn + n_sem_cls: 46 for
 // NYU40's classes). Past gw sums (C + 2 > gw) the forward is
-// `composite_fwd_wide_kernel`, which takes the C + 2 sums in passes of
-// gw, a sum a lane, each pass walking the row's chunks anew and staging
-// only its channels' raws (at most gw * min(gw, C) + 2 gw floats a group
-// of shared memory, whatever C). Below that count it runs the design
-// above, compiled as before.
+// `composite_fwd_wide_kernel`. It replaces the same `composite_rays` at
+// the 40-class path's shapes (N 8190, K 16, C 46: ~26 MB read and
+// written, ~0.0083 ms at 3.35 TB/s; its test rounds' rows of up to 64
+// samples with T_start). The first design took the C + 2 sums in
+// passes of gw, a sum a lane: each pass walked the row's chunks anew (the
+// loads of sigma, delta, t and valid, the 15-step shuffle chain, expf and
+// expm1f, both ballots), staged its 16 channels a float at a time with a
+// division each, and read them from group regions 0 modulo 32 floats
+// apart (the two groups of a warp on the same banks); 0.0257 ms at C 46,
+// 3.1x its bound. Here a lane owns Q = ceil((C + 2) / gw) <= FWD_QMAX sums
+// in registers (the kernel a template on Q: 3 at the bench's rows of 16,
+// 2 at a test round's 64 and on segments), so that the row is walked
+// once; each chunk's raws are copied once by cp.async, as one contiguous
+// block, and arrive while the chain runs; the Q chains are interleaved.
+// On a 40-class step's own arguments it takes 0.0124-0.0126 ms against
+// the first design's 0.0262 (one H100 80GB HBM3, 700.00 W, in turns),
+// 1.5x its bound, at 46-59 registers, 4 blocks of 8 warps an SM.
+// Below that count it runs the design above, compiled as before.
 //
 // The backward past BWD_NARROW = 16 channels (WIDE). It replaces the same
 // autodiff at the 40-class path's shape (N 8190, K 16, C 46: ~48 MB of
@@ -177,17 +190,29 @@ __device__ __forceinline__ void store_sum(int i, float v, int n, int C,
     depth[n] = v;
 }
 
-// `rows` rows of tc contiguous values of src, each row `stride` floats
-// after the one before, into shared memory as rows of tc, by the group's
-// lanes tid < nt: one tile of channels of a row's samples.
-__device__ __forceinline__ void stage_tile(const float* __restrict__ src,
-                                           int rows, int tc, int stride,
-                                           float* dst, int tid, int nt) {
-  for (int e = tid; e < rows * tc; e += nt) {
-    const int j = e / tc;
-    dst[e] = __ldg(src + static_cast<size_t>(j) * stride + (e - j * tc));
+// The (row j, column c) of a flat index e into rows of `width`
+// values, stepped by a fixed `step` with no division a value (one for the
+// start, one for the step).
+struct RowCol {
+  int j, c, dj, dc, width;
+  __device__ __forceinline__ RowCol(int e, int step, int w)
+      : j(e / w), c(e - (e / w) * w), dj(step / w), dc(step - (step / w) * w),
+        width(w) {}
+  __device__ __forceinline__ void next() {   // e += step
+    j += dj;
+    c += dc;
+    if (c >= width) {
+      c -= width;
+      ++j;
+    }
   }
-}
+  __device__ __forceinline__ void inc() {   // e += 1
+    if (++c == width) {
+      c = 0;
+      ++j;
+    }
+  }
+};
 
 // H3 forward: group grp of gw lanes takes ray blockIdx.x * (blockDim.x /
 // gw) + grp, lane s = sample c0 + s of each chunk [c0, c0 + gw). The
@@ -294,17 +319,82 @@ __global__ void __launch_bounds__(FWD_THREADS) composite_fwd_kernel(
   if (s == 0) vr[n] = n_inc - (early ? 1 : 0);
 }
 
-// H3 forward past gw sums (C + 2 > gw), the same mapping as
-// `composite_fwd_kernel`, with the C + 2 sums taken in passes of gw: in
-// pass [i0, i0 + gw) lane s owns sum i0 + s, carried across the chunks in
-// `acc`, and the chunks' raws of that pass's channels are staged (at most
-// gw of them, so that shared memory does not grow with C). A pass walks
-// the row's chunks anew (the chain, T and w are recomputed with the same
-// bits); the first writes ws and the sample counter. A kernel apart:
-// compiled into `composite_fwd_kernel` (one pass a constant), the pass
-// loop took 37-40 registers in place of 32, six blocks an SM in place of
-// eight, and a test round's composite at C 9 ~10% longer.
-template <class Rows>
+// H3 forward past gw sums (C + 2 > gw): the mapping of
+// `composite_fwd_kernel`, with lane s owning the Q sums i0 + s + q * gw
+// (q < Q, a compile-time count: the sums live in registers) of one walk
+// of the row's chunks; the launcher takes Q = ceil((C + 2) / gw) <=
+// FWD_QMAX, so that every row is walked once up to FWD_QMAX * 32 sums
+// (past them, walks of that many sums, each recomputing the chain with
+// the same bits). Each chunk's raws are staged once, a contiguous block
+// copied by cp.async at its own offset in its 16 bytes (no register holds
+// them, and the chain runs while they arrive), into rows of C floats: the
+// lanes of a group read one row's consecutive floats, and the groups of
+// a warp start gw floats apart modulo the 32 banks (`fwd_region`). A
+// lane's Q chains take the included samples in the serial order, each
+// with the next sample's operand loaded before its add, interleaved so
+// that their adds overlap; opacity's operand is w * 1 (= w exactly) and
+// depth's w * t, so one expression serves every sum. A kernel apart from
+// `composite_fwd_kernel`, which it would cost registers (a pass loop
+// compiled into it took 37-40 registers in place of 32).
+constexpr int FWD_QMAX = 4;   // the most sums a lane of the wide forward owns
+
+// The wide forward's floats of one group: a chunk's w_s and t_s, then its
+// raws (rows of tw floats, after up to 3 floats of lead: the block's
+// offset in its 16 bytes), rounded so that the regions start 16-byte
+// aligned (gw >= 4) and, below 32 lanes, gw floats apart modulo the 32
+// banks: when the groups of a warp read their rows' same columns, their
+// lanes fall on distinct banks.
+__host__ __device__ __forceinline__ int fwd_region(int gw, int tw) {
+  const int need = 2 * gw + 3 + gw * tw;
+  return gw >= 32 ? (need + 3) / 4 * 4 : (need - gw + 31) / 32 * 32 + gw;
+}
+
+__device__ __forceinline__ unsigned smem_address(const float* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// `rows` rows of tc floats of a ray's raws (src: row 0, rows C floats
+// apart) into shared memory as rows of tc floats, by lanes s < gw with
+// cp.async (`ncn_async_wait` waits for them). The whole block (tc == C:
+// one contiguous run) lands at src's offset in its 16 bytes from `dst`
+// (16-byte aligned, 3 floats of room), as 16-byte copies (marked to leave
+// the L2 first: read once) between 4-byte ones at its ends; a tile of a
+// wider ray float by float from `dst`. Returns where row 0 lies.
+__device__ __forceinline__ const float* stage_rows_async(
+    const float* __restrict__ src, int rows, int tc, int C, float* dst, int s,
+    int gw) {
+  if (tc == C) {
+    const int n = rows * C;
+    const int lead =
+        static_cast<int>((reinterpret_cast<uintptr_t>(src) >> 2) & 3);
+    float* out = dst + lead;
+    const int head = min((4 - lead) & 3, n);
+    const int words = (n - head) / 4;
+    unsigned long long policy;
+    asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+                 : "=l"(policy));
+    for (int i = s; i < words; i += gw)
+      asm volatile(
+          "cp.async.cg.shared.global.L2::cache_hint [%0], [%1], 16, %2;\n"
+          ::"r"(smem_address(out + head + 4 * i)), "l"(src + head + 4 * i),
+          "l"(policy) : "memory");
+    auto copy4 = [&](int e) {
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                   ::"r"(smem_address(out + e)), "l"(src + e) : "memory");
+    };
+    for (int e = s; e < head; e += gw) copy4(e);
+    for (int e = head + 4 * words + s; e < n; e += gw) copy4(e);
+    return out;
+  }
+  RowCol p(s, gw, tc);
+  for (int e = s; e < rows * tc; e += gw, p.next())
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 ::"r"(smem_address(dst + e)),
+                 "l"(src + static_cast<size_t>(p.j) * C + p.c) : "memory");
+  return dst;
+}
+
+template <class Rows, int Q>
 __global__ void __launch_bounds__(FWD_THREADS) composite_fwd_wide_kernel(
     const float* __restrict__ sigmas, const float* __restrict__ raws,
     const float* __restrict__ deltas, const float* __restrict__ ts,
@@ -312,13 +402,14 @@ __global__ void __launch_bounds__(FWD_THREADS) composite_fwd_wide_kernel(
     Rows rows, int N, int C, int gw, float thr, float* __restrict__ opacity,
     float* __restrict__ depth, float* __restrict__ rend,
     float* __restrict__ ws, int* __restrict__ vr) {
-  extern __shared__ float sm[];
+  extern __shared__ float4 sm_wide[];
   const int s = threadIdx.x & (gw - 1), grp = threadIdx.x / gw;
   const int n = blockIdx.x * (blockDim.x / gw) + grp;
-  const int tw = min(gw, C);                  // the most channels a pass stages
-  float* rs = sm + grp * (gw * tw + 2 * gw);  // the chunk's raws, gw x tc
-  float* wsh = rs + gw * tw;                  // its w_s
-  float* tsh = wsh + gw;                      // its t_s
+  const int n_sums = C + 2, span = Q * gw;   // the sums of one walk
+  const int tw = min(span, C);               // the most channels a walk stages
+  float* wsh = reinterpret_cast<float*>(sm_wide) + grp * fwd_region(gw, tw);
+  float* tsh = wsh + gw;                     // the chunk's t_s
+  float* stage = tsh + gw;                   // its raws, 16-byte aligned
   const bool live = n < N;
   const size_t b = live ? rows.base(n) : 0;
   const int len = live ? rows.len(n) : 0;
@@ -327,14 +418,25 @@ __global__ void __launch_bounds__(FWD_THREADS) composite_fwd_wide_kernel(
   // the group's bits of a warp ballot
   const int base = (threadIdx.x & 31) & ~(gw - 1);
   const unsigned low = gw == 32 ? FULL : (1u << gw) - 1u;
-  const int n_sums = C + 2;
   // at least one chunk, so that an empty row still writes its sums
   const int n_chunks = max((wlen + gw - 1) / gw, 1);
-  for (int i0 = 0; i0 < n_sums; i0 += gw) {
-    const int i = i0 + s;                    // the lane's sum
-    const int tc = max(min(gw, C - i0), 0);  // the pass's channels [i0, i0 + tc)
+  for (int i0 = 0; i0 < n_sums; i0 += span) {   // one walk up to span sums
+    const int tc = max(min(span, C - i0), 0);   // the walk's channels
+    // column of sum i0 + s + q * gw in a staged row (clamped: a sum past
+    // the channels reads a channel and takes 1 or t in its place)
+    int col[Q];
+    bool raw[Q], opq[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const int i = i0 + s + q * gw;
+      col[q] = max(min(s + q * gw, tc - 1), 0);
+      raw[q] = i < C;
+      opq[q] = i == C;
+    }
+    float acc[Q];
+#pragma unroll
+    for (int q = 0; q < Q; ++q) acc[q] = 0.0f;
     float carry = 0.0f;   // csum of the samples before the chunk
-    float acc = 0.0f;     // sum i
     int n_inc = 0;
     bool early = false;
     for (int ch = 0; ch < n_chunks; ++ch) {
@@ -342,10 +444,10 @@ __global__ void __launch_bounds__(FWD_THREADS) composite_fwd_wide_kernel(
       const int clen = max(min(gw, len - c0), 0);   // the group's samples
       const int steps = min(gw, wlen - c0);         // the chain's, uniform
       const size_t bs = b + c0 + s;
-      if (clen > 0 && tc == C)
-        ncn_stage<false>(raws + (b + c0) * C, clen * C, C, C, rs, s, gw);
-      else if (clen > 0 && tc > 0)
-        stage_tile(raws + (b + c0) * C + i0, clen, tc, C, rs, s, gw);
+      const float* rs = stage;
+      if (clen > 0 && tc > 0)
+        rs = stage_rows_async(raws + (b + c0) * C + i0, clen, tc, C, stage, s,
+                              gw);
       const bool in = s < clen;
       bool v = false;
       float sig = 0.0f, del = 0.0f, t = 0.0f;
@@ -376,28 +478,43 @@ __global__ void __launch_bounds__(FWD_THREADS) composite_fwd_wide_kernel(
       early |= endm != 0u;
       wsh[s] = w;
       tsh[s] = t;
+      ncn_async_wait();
       __syncwarp();   // the group's raws, w and t are staged
-      if (i < n_sums && incm) {
-        auto operand = [&](unsigned m) {   // the term of m's lowest sample
-          const int j = __ffs(m) - 1;
-          const float wj = wsh[j];
-          return i < C    ? __fmul_rn(wj, rs[j * tc + (i - i0)])
-                 : i == C ? wj
-                          : __fmul_rn(wj, tsh[j]);
+      if (incm) {
+        // the Q operands of sample j: w_j * (raw, 1 or t)
+        auto terms = [&](int j, float (&o)[Q]) {
+          const float wj = wsh[j], tj = tsh[j];
+          const float* row = rs + j * tc;
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            const float r = row[col[q]];
+            o[q] = __fmul_rn(wj, raw[q] ? r : opq[q] ? 1.0f : tj);
+          }
         };
-        float a = acc;
-        float p = operand(incm);
+        float p[Q];
+        terms(__ffs(incm) - 1, p);
         for (unsigned m = incm & (incm - 1u); m; m &= m - 1u) {
-          const float q = operand(m);
-          a = __fadd_rn(a, p);
-          p = q;
+          float nx[Q];
+          terms(__ffs(m) - 1, nx);
+#pragma unroll
+          for (int q = 0; q < Q; ++q) {
+            acc[q] = __fadd_rn(acc[q], p[q]);
+            p[q] = nx[q];
+          }
         }
-        acc = __fadd_rn(a, p);
+#pragma unroll
+        for (int q = 0; q < Q; ++q) acc[q] = __fadd_rn(acc[q], p[q]);
       }
       __syncwarp();   // the staging is read before the next chunk
     }
-    if (live && i < n_sums) store_sum(i, acc, n, C, opacity, depth, rend);
-    if (live && i0 == 0 && s == 0) vr[n] = n_inc - (early ? 1 : 0);
+    if (live) {
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const int i = i0 + s + q * gw;
+        if (i < n_sums) store_sum(i, acc[q], n, C, opacity, depth, rend);
+      }
+      if (i0 == 0 && s == 0) vr[n] = n_inc - (early ? 1 : 0);
+    }
   }
 }
 
@@ -436,30 +553,6 @@ __device__ __forceinline__ void store_d_raws(float* __restrict__ dst,
   for (int e = done + s; e < n_vals; e += gw)
     dst[e] = __fmul_rn(gr[e % C], w[e / C]);
 }
-
-// WIDE: the (row j, column c) of a flat index e into rows of `width`
-// values, stepped by a fixed `step` with no division a value (one for the
-// start, one for the step).
-struct RowCol {
-  int j, c, dj, dc, width;
-  __device__ __forceinline__ RowCol(int e, int step, int w)
-      : j(e / w), c(e - (e / w) * w), dj(step / w), dc(step - (step / w) * w),
-        width(w) {}
-  __device__ __forceinline__ void next() {   // e += step
-    j += dj;
-    c += dc;
-    if (c >= width) {
-      c -= width;
-      ++j;
-    }
-  }
-  __device__ __forceinline__ void inc() {   // e += 1
-    if (++c == width) {
-      c = 0;
-      ++j;
-    }
-  }
-};
 
 // WIDE: floats a group's shared memory takes: gw rows of the tile on an
 // odd stride, then w_s and the tile's g_rend rounded up to 32 floats, so
@@ -784,19 +877,27 @@ inline int group_width(int max_len) {
   return gw;
 }
 
-template <class Rows>
-int launch_fwd(const void* sigmas, const void* raws, const void* deltas,
-               const void* ts, const void* valid, const void* T_start,
-               Rows rows, int N, int max_len, int C, float thr, void* opacity,
-               void* depth, void* rend, void* ws, void* vr,
-               cudaStream_t stream) {
-  // as narrow as a row of several chunks allows in one pass (a sum a
-  // lane: gw >= C + 2), and no wider than the row bound
-  const int gw = group_width(min(max_len, C + 2));
+// A block's shared memory past 48 KB takes the opt-in (it holds
+// per device: set it at each launch)
+template <class Kernel>
+int wide_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
+}
+
+template <class Rows, int Q>
+int launch_fwd_wide(const void* sigmas, const void* raws, const void* deltas,
+                    const void* ts, const void* valid, const void* T_start,
+                    Rows rows, int N, int C, int gw, float thr, void* opacity,
+                    void* depth, void* rend, void* ws, void* vr,
+                    cudaStream_t stream) {
   const int per_block = FWD_THREADS / gw;
-  const size_t bytes = sizeof(float) * per_block * (gw * min(gw, C) + 2 * gw);
-  auto kernel = C + 2 > gw ? composite_fwd_wide_kernel<Rows>
-                           : composite_fwd_kernel<Rows>;
+  const size_t bytes =
+      sizeof(float) * per_block * fwd_region(gw, min(Q * gw, C));
+  const auto kernel = composite_fwd_wide_kernel<Rows, Q>;
+  if (const int e = wide_smem(kernel, bytes)) return e;
   kernel<<<ncn_blocks(N, per_block), FWD_THREADS, bytes, stream>>>(
       static_cast<const float*>(sigmas), static_cast<const float*>(raws),
       static_cast<const float*>(deltas), static_cast<const float*>(ts),
@@ -808,14 +909,38 @@ int launch_fwd(const void* sigmas, const void* raws, const void* deltas,
   return static_cast<int>(cudaGetLastError());
 }
 
-// WIDE: a block's shared memory past 48 KB takes the opt-in (it holds
-// per device: set it at each launch)
-template <class Kernel>
-int wide_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes)));
+template <class Rows>
+int launch_fwd(const void* sigmas, const void* raws, const void* deltas,
+               const void* ts, const void* valid, const void* T_start,
+               Rows rows, int N, int max_len, int C, float thr, void* opacity,
+               void* depth, void* rend, void* ws, void* vr,
+               cudaStream_t stream) {
+  // as narrow as a row of several chunks allows in one pass (a sum a
+  // lane: gw >= C + 2), and no wider than the row bound
+  int gw = group_width(min(max_len, C + 2));
+  // past gw sums: at most FWD_QMAX sums a lane, and groups of 4 lanes or
+  // more (16-byte aligned regions)
+  if (C + 2 > gw)
+    gw = max(max(gw, group_width((C + 2 + FWD_QMAX - 1) / FWD_QMAX)), 4);
+  if (C + 2 > gw) {
+    auto launch = (C + 2 + gw - 1) / gw == 2   ? launch_fwd_wide<Rows, 2>
+                  : (C + 2 + gw - 1) / gw == 3 ? launch_fwd_wide<Rows, 3>
+                                               : launch_fwd_wide<Rows, 4>;
+    return launch(sigmas, raws, deltas, ts, valid, T_start, rows, N, C, gw,
+                  thr, opacity, depth, rend, ws, vr, stream);
+  }
+  const int per_block = FWD_THREADS / gw;
+  const size_t bytes = sizeof(float) * per_block * (gw * C + 2 * gw);
+  composite_fwd_kernel<Rows><<<ncn_blocks(N, per_block), FWD_THREADS, bytes,
+                               stream>>>(
+      static_cast<const float*>(sigmas), static_cast<const float*>(raws),
+      static_cast<const float*>(deltas), static_cast<const float*>(ts),
+      static_cast<const uint8_t*>(valid), static_cast<const float*>(T_start),
+      rows, N, C, gw, thr,
+      static_cast<float*>(opacity), static_cast<float*>(depth),
+      static_cast<float*>(rend), static_cast<float*>(ws),
+      static_cast<int*>(vr));
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class Rows>

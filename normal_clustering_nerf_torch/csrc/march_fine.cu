@@ -43,7 +43,16 @@
 // (t, dt = lo or calc_dt(t), valid) and the cursor S steps on for alive
 // rays (the grid restarts from each cursor, as JAX's t_step_grid); K > 0
 // writes the first K occupied steps and the cursor just past the K-th, or
-// past the window when fewer were found.
+// past the window when fewer were found. Its writes bound the first-K
+// mode at 0.0121 ms (9 bytes a slot at 65,536 rays, K 64); it runs at
+// ~3x that, bound by its probes' instructions (~45 a lane a chunk on the
+// uniform grid, up to four chunks a ray). A chunk loop that stops at the
+// chunk of the K-th step, the probing lane writing its rank's slot,
+// measured no slower than H9's kept-ballot body (the chunks' probes
+// issued together or by pairs, the K-th step from the counts, a slot a
+// lane from shared memory), and faster on the general grid (PERF.md §6):
+// the loop stays, its `Uniform` probe multiplies where it divided
+// (below), and its `Uniform` blocks take 32 registers, 8 blocks an SM.
 //
 // H11 `compact_samples`: (N, S) t, dt and valid into B ray-major slots in
 // one launch, a thread a ray: each counts its row's valid steps (16-byte
@@ -96,10 +105,11 @@
 //
 // Exactness: t, xyz and the cells are the reference's operations in its
 // order (t_step_grid :120, occupancy_lookup :83-86, coarse_lookup
-// :387-390) with __fmul_rn/__fadd_rn/__fdiv_rn and --fmad=false (x /
-// mip_bound stays a division), so samples at cell boundaries select the
-// reference's cells. The cell, lattice-step and rank helpers are K1's too
-// (march_common.cuh).
+// :387-390) with __fmul_rn/__fadd_rn/__fdiv_rn and --fmad=false, so
+// samples at cell boundaries select the reference's cells. x / mip_bound
+// is a division, or where mip_bound is a power of two (the bench's 0.5)
+// the product with its exact reciprocal: the same float (`cell_of`). The
+// cell, lattice-step and rank helpers are K1's too (march_common.cuh).
 //
 // Bound on the H100: latency and the 256 KB bitfield's cache traffic.
 // P2's work at its shape is N*S probes; the outputs are 9 bytes per slot
@@ -121,11 +131,13 @@ struct Ray {
   bool hit;
 };
 
-// linear x-fastest cell of the point at t on a G^3 grid
-__device__ __forceinline__ int cell_at(const Ray& r, float t, float mb, int G) {
-  int cx = cell_of(__fadd_rn(r.ox, __fmul_rn(t, r.dx)), mb, G);
-  int cy = cell_of(__fadd_rn(r.oy, __fmul_rn(t, r.dy)), mb, G);
-  int cz = cell_of(__fadd_rn(r.oz, __fmul_rn(t, r.dz)), mb, G);
+// linear x-fastest cell of the point at t on a G^3 grid (inv_mb: 1 / mb
+// where mb is a power of two, else 0: `cell_of`)
+__device__ __forceinline__ int cell_at(const Ray& r, float t, float mb, int G,
+                                       float inv_mb) {
+  int cx = cell_of(__fadd_rn(r.ox, __fmul_rn(t, r.dx)), mb, G, inv_mb);
+  int cy = cell_of(__fadd_rn(r.oy, __fmul_rn(t, r.dy)), mb, G, inv_mb);
+  int cz = cell_of(__fadd_rn(r.oz, __fmul_rn(t, r.dz)), mb, G, inv_mb);
   return (cz * G + cy) * G + cx;
 }
 
@@ -138,31 +150,38 @@ __device__ __forceinline__ bool bit_at(const uint32_t* __restrict__ w, int c) {
 // cascades, and t_step_grid's and calc_dt's f (0 for a uniform grid: the
 // host passes 0 where lo >= hi, as calc_dt is lo either way), hi, A =
 // lo/f, B = hi/f, 1 + f, log(1 + f), scale, and the table of (1 + f)^j
-// with its length (null and 0 where f is 0). The kernels take it as their
-// last parameter and build their grid from lo, mb and it, so that the
-// `Uniform` bodies see the parameters they saw before it existed.
+// with its length (null and 0 where f is 0); and inv_mb, 1 / mb where the
+// mip bound mb = min(0.5, scale) is a power of two, else 0, which only
+// the `Uniform` grid reads (a kernel parameter, so that its probe's
+// choice of product or division is uniform: computed on the card, it
+// cost the uniform H10 ~11%). The kernels take it as their last
+// parameter and build their grid from lo, mb and it.
 struct GridArgs {
   int cascades;
   float f, hi, A, B, ratio, log_ratio, scale;
   const float* pow_tab;
   int pow_len;
+  float inv_mb;
 };
 
 // The uniform step grid of one cascade (exp_step_factor 0): t_k = t0 +
-// k*lo, dt = lo, the cell of `occupancy_lookup`'s one-cascade branch.
+// k*lo, dt = lo, the cell of `occupancy_lookup`'s one-cascade branch, x /
+// mb taken as x * inv_mb where mb is a power of two.
 struct Uniform {
   static constexpr bool KEEP_BALLOTS = false;
-  float lo, mb;
+  static constexpr int TEST_BLOCKS = 8;   // H10's blocks an SM at least
+  float lo, mb, inv_mb;
   struct Line { float t0; };
-  __device__ static Uniform make(float lo, float mb, const GridArgs&) {
-    return {lo, mb};
+  __device__ static Uniform make(float lo, float mb, const GridArgs& g) {
+    return {lo, mb, g.inv_mb};
   }
+  __device__ float inv() const { return inv_mb; }
   __device__ Line line(float t0) const { return {t0}; }
   __device__ float t(const Line& l, int k) const { return step_t(l.t0, k, lo); }
   __device__ float dt(float) const { return lo; }
   __device__ bool bit(const uint32_t* __restrict__ w, const Ray& r, float t,
                       float, int G) const {
-    return bit_at(w, cell_at(r, t, mb, G));
+    return bit_at(w, cell_at(r, t, mb, G, inv_mb));
   }
 };
 
@@ -176,6 +195,7 @@ __device__ __forceinline__ int frexp_exponent(float v) {
 // The general grid: geometric steps when f != 0, `cascades` cascades.
 struct Cascades {
   static constexpr bool KEEP_BALLOTS = true;
+  static constexpr int TEST_BLOCKS = 6;   // H10's: 40 registers, no spill
   float lo, mb, inv_scale;
   GridArgs g;
   // t0 (t0s = max(t0, 0) on the geometric grid) and the phase bounds
@@ -183,6 +203,7 @@ struct Cascades {
   __device__ static Cascades make(float lo, float mb, const GridArgs& g) {
     return {lo, mb, __fdiv_rn(1.0f, g.scale), g};
   }
+  __device__ float inv() const { return 0.0f; }   // x / mb divides
   __device__ Line line(float t0) const {
     Line l{t0, 0.0f, 0.0f, 0.0f, 0.0f};
     if (g.f == 0.0f) return l;
@@ -217,7 +238,7 @@ struct Cascades {
   __device__ bool bit(const uint32_t* __restrict__ w, const Ray& r, float t,
                       float dt, int G) const {
     const int C = g.cascades;
-    if (C == 1) return bit_at(w, cell_at(r, t, mb, G));
+    if (C == 1) return bit_at(w, cell_at(r, t, mb, G, 0.0f));
     const float x = __fadd_rn(r.ox, __fmul_rn(t, r.dx));
     const float y = __fadd_rn(r.oy, __fmul_rn(t, r.dy));
     const float z = __fadd_rn(r.oz, __fmul_rn(t, r.dz));
@@ -294,7 +315,8 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
         bool c = false;
         if (b < n_blocks) {
           float tb = st.t(line, 4 * b);
-          c = tb < r.t2 && coarse[cell_at(r, tb, st.mb, G / 8)] > 0;
+          c = tb < r.t2 &&
+              coarse[cell_at(r, tb, st.mb, G / 8, st.inv())] > 0;
         }
         const unsigned m = __ballot_sync(FULL, c);
         if (lane == 0) cand[jw] = m;
@@ -462,8 +484,13 @@ __global__ void __launch_bounds__(WARPS * 32) march_fine_train_kernel(
   }
 }
 
+// H10: a warp a ray, chunk by chunk from its cursor (the file note). At
+// least Steps::TEST_BLOCKS blocks an SM: 8 on the `Uniform` grid (32
+// registers a thread), 6 on the general one (its probe spills at 32
+// registers, and takes 50 when the bound leaves it free).
 template <class Steps>
-__global__ void __launch_bounds__(WARPS * 32) march_fine_test_kernel(
+__global__ void __launch_bounds__(WARPS * 32, Steps::TEST_BLOCKS)
+    march_fine_test_kernel(
     const float* __restrict__ rays_o, const float* __restrict__ rays_d,
     const float* __restrict__ cursor, const float* __restrict__ t_far,
     const uint8_t* __restrict__ alive, const uint32_t* __restrict__ bits,
@@ -902,7 +929,8 @@ extern "C" int march_fine_train(const void* rays_o, const void* rays_d,
       (f != 0.0f && (pow_tab == nullptr || pow_len <= 32 * ((S + 31) / 32))))
     return static_cast<int>(cudaErrorInvalidValue);
   const GridArgs ga{cascades, f, hi, A, B, ratio, log_ratio, scale,
-                    static_cast<const float*>(pow_tab), pow_len};
+                    static_cast<const float*>(pow_tab), pow_len,
+                    pow2_inverse(mip_bound)};
   const bool uniform = cascades == 1 && f == 0.0f;
   auto launch =
       KB > 0 ? (uniform ? launch_train<true, false, Uniform>
@@ -950,7 +978,8 @@ extern "C" int march_fine_test_round(const void* rays_o, const void* rays_d,
       (f != 0.0f && (pow_tab == nullptr || pow_len <= 32 * ((S + 31) / 32))))
     return static_cast<int>(cudaErrorInvalidValue);
   const GridArgs ga{cascades, f, hi, A, B, ratio, log_ratio, scale,
-                    static_cast<const float*>(pow_tab), pow_len};
+                    static_cast<const float*>(pow_tab), pow_len,
+                    pow2_inverse(mip_bound)};
   auto kernel = cascades == 1 && f == 0.0f ? march_fine_test_kernel<Uniform>
                                            : march_fine_test_kernel<Cascades>;
   kernel<<<ncn_blocks(N, WARPS), WARPS * 32, 0, stream>>>(

@@ -150,14 +150,26 @@ def test_ws_cotangent_alone_reaches_sigmas():
     np.testing.assert_allclose(N(st.grad), ref, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("K", [1, 16, 32, 33, 64])
-def test_forward_with_T_start_matches_jax(K):
+# The K are the edges of H3 forward's lanes at C = 9 (a group of 1 lane,
+# and groups of 16 taking a row in one chunk, two, two and a sample, and
+# four); at C 17, 46 and 99 (past 16 sums) the wide kernel's groups of
+# 8-32 lanes owning 2-4 sums a lane in one walk of the row.
+T_START_CASES = (
+    [pytest.param(k, 9, id=str(k)) for k in (1, 16, 32, 33, 64)]
+    + [pytest.param(k, c, id=f"C{c}-K{k}")
+       for c in (17, 46, 99) for k in (1, 16, 33, 64)])
+
+
+@pytest.mark.parametrize("K,C", T_START_CASES)
+def test_forward_with_T_start_matches_jax(K, C):
     """Inference rounds continue each ray from its transmittance so far
     (composite.py:60-61), at the test renderer's K up to 64; T_start near
-    the threshold makes rays stop on their first sample. The K are the
-    edges of H3 forward's lanes at C = 9: a group of 1 lane, and groups
-    of 16 taking a row in one chunk, two, two and a sample, and four."""
-    sig, raws, dt, ts, valid, _ = _case(6 + K, K=K)
+    the threshold makes rays stop on their first sample, and rows made to
+    stop on a chunk's edge (`chip_smoke.stop_at_chunk_edges`) stop there.
+    The plain version and `chip_smoke.composite_serial`, the serial order
+    H3's forward is held to bit for bit on the card, against JAX."""
+    sig, raws, dt, ts, valid, _ = _case(6 + K + C - 9, K=K, C=C)
+    stops = chip_smoke.stop_at_chunk_edges(sig, valid, K)
     rng = np.random.default_rng(K)
     T_start = rng.uniform(0.0, 1.0, sig.shape[0]).astype(np.float32)
     T_start[:20] = rng.uniform(THR, 3 * THR, 20)
@@ -165,11 +177,18 @@ def test_forward_with_T_start_matches_jax(K):
                             T_start=J(T_start))
     out = tc.composite_rays(T(sig), T(raws), T(dt), T(ts), T(valid), THR,
                             T_start=T(T_start))
-    for k in ("opacity", "depth", "rend", "ws"):
-        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]),
-                                   rtol=1e-5, atol=1e-6, err_msg=k)
-    np.testing.assert_array_equal(N(out["vr_samples"]),
-                                  np.asarray(ref["vr_samples"]))
+    ser = dict(zip(("opacity", "depth", "rend", "ws", "vr_samples"),
+                   chip_smoke.composite_serial(T(sig), T(raws), T(dt), T(ts),
+                                               T(valid), THR, T(T_start))))
+    for got in (out, ser):
+        for k in ("opacity", "depth", "rend", "ws"):
+            np.testing.assert_allclose(N(got[k]), np.asarray(ref[k]),
+                                       rtol=1e-5, atol=1e-6, err_msg=k)
+        np.testing.assert_array_equal(N(got["vr_samples"]),
+                                      np.asarray(ref["vr_samples"]))
+    vr = N(out["vr_samples"])
+    assert all(vr[n] <= e for n, e in stops.items())
+    assert (vr[list(stops)] == list(stops.values())).any()
     assert (N(out["opacity"]) <= T_start + 1e-5).all()   # f32 sums of 64 terms
     with pytest.raises(NotImplementedError):
         tc.composite_rays(T(sig).requires_grad_(True), T(raws), T(dt),

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from chip_smoke import composite_serial, stop_at_chunk_edges
 from test_torch_common import CPU, J, N, T, slice_configs
 from test_torch_slice import _flat as _flat_tree
 from test_torch_slice import _jax_draws
@@ -56,11 +57,32 @@ def _case(seed, n=300, K=16, C=C):
     return sig, raws, dt, ts, valid, cot
 
 
-@pytest.mark.parametrize("K,with_t_start", [(16, False), (64, True)])
-def test_forward_at_46_channels_matches_jax(K, with_t_start):
+# H3 forward past gw sums (csrc/composite.cu, the wide kernel): at 46, 48
+# and 49 channels, rows of 1 and 16 samples go to groups of 16 lanes with
+# 3-4 sums a lane, rows of 33 and 64 (a test round's) to groups of 32
+# with 2; T_start on the rows of 1 and 64
+FWD_CASES = [pytest.param(16, False, C, id="16-False"),
+             pytest.param(64, True, C, id="64-True")] + [
+    pytest.param(k, k in (1, 64), c, id=f"C{c}-K{k}")
+    for c in (C, BWD_TILE, BWD_TILE + 1) for k in (1, 16, 33, 64)
+    if (c, k) not in ((C, 16), (C, 64))]
+
+
+@pytest.mark.parametrize("K,with_t_start,c", FWD_CASES)
+def test_forward_at_46_channels_matches_jax(K, with_t_start, c):
     """K 16 (the bench's rows) and K 64 with T_start (a test round's: H3
-    takes such rows in chunks and the 48 sums in passes)."""
-    sig, raws, dt, ts, valid, _ = _case(K, K=K)
+    takes such rows in chunks and the 48 sums in one walk), and the other
+    row lengths and channel counts of FWD_CASES; rows made to stop on a
+    chunk's edge (`chip_smoke.stop_at_chunk_edges`) stop there; the plain
+    version and `chip_smoke.composite_serial`, the serial order the kernel
+    is held to bit for bit on the card, against JAX. The first two cases
+    hold each value within rtol 1e-5, atol 1e-6; the others within 1e-5 of
+    the output's largest value, as the card holds the kernel to the plain
+    version: their rows' channel sums of up to 64 terms of either sign
+    cancel (C 48 and 49 at K 33: a few sums of ~1e-1 off JAX's by ~6e-6,
+    whichever order of the port's sums)."""
+    sig, raws, dt, ts, valid, _ = _case(K + c - C, K=K, C=c)
+    stops = stop_at_chunk_edges(sig, valid, K)
     t_start = None
     if with_t_start:
         t_start = np.random.default_rng(1).uniform(0, 1, sig.shape[0])
@@ -69,13 +91,26 @@ def test_forward_at_46_channels_matches_jax(K, with_t_start):
                             T_start=None if t_start is None else J(t_start))
     out = tc.composite_rays(T(sig), T(raws), T(dt), T(ts), T(valid), THR,
                             T_start=None if t_start is None else T(t_start))
-    for k in ("opacity", "depth", "rend", "ws"):
-        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]),
-                                   rtol=1e-5, atol=1e-6, err_msg=k)
-    np.testing.assert_array_equal(N(out["vr_samples"]),
-                                  np.asarray(ref["vr_samples"]))
-    assert N(out["rend"]).shape[-1] == C
+    ser = dict(zip(("opacity", "depth", "rend", "ws", "vr_samples"),
+                   composite_serial(T(sig), T(raws), T(dt), T(ts), T(valid),
+                                    THR, None if t_start is None
+                                    else T(t_start))))
+    first = c == C and (K, with_t_start) in ((16, False), (64, True))
+    for got in (out, ser):
+        for k in ("opacity", "depth", "rend", "ws"):
+            g, r = N(got[k]), np.asarray(ref[k])
+            if first:
+                np.testing.assert_allclose(g, r, rtol=1e-5, atol=1e-6,
+                                           err_msg=k)
+            else:   # the card's rule (chip_smoke.check_composite_fwd)
+                assert np.abs(g - r).max() <= 1e-5 * np.abs(r).max(), k
+        np.testing.assert_array_equal(N(got["vr_samples"]),
+                                      np.asarray(ref["vr_samples"]))
+    assert N(out["rend"]).shape[-1] == c
     assert (N(out["vr_samples"]) < valid.sum(1)).any()   # early stops seen
+    vr = N(out["vr_samples"])
+    if t_start is None:
+        assert [vr[n] for n in stops] == list(stops.values())
 
 
 @pytest.mark.parametrize("c", [C, BWD_TILE, BWD_TILE + 1])

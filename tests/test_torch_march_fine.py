@@ -93,12 +93,13 @@ def test_two_level_march_matches_jax(clutter, kb, tail_k):
     np.testing.assert_array_equal(N(to.coarse_occupancy(T(bits), G)), coarse)
 
 
-def _cursor_rounds(fn_t, fn_j, o, d, hits, bits, rounds=3):
+def _cursor_rounds(fn_t, fn_j, o, d, hits, bits, rounds=3, alive=None):
     """Rounds from the box's near end, each from the cursors the last
-    returned; an eighth of the rays dead."""
+    returned; an eighth of the rays dead (or `alive` as given)."""
     cur, far = hits[:, 0], hits[:, 1]
-    alive = cur >= 0
-    alive[::8] = False
+    if alive is None:
+        alive = cur >= 0
+        alive[::8] = False
     for _ in range(rounds):
         ref = fn_j(J(o), J(d), J(cur), J(far), J(alive), J(bits))
         out = fn_t(T(o), T(d), T(cur), T(far), T(alive), T(bits))
@@ -142,15 +143,58 @@ def _jax_window_round(ro, rd, cur, far, sel, bitfield, *, S_march, K):
     return t_k, dt_k, svalid, new_cur
 
 
-@pytest.mark.parametrize("K", [16, 64])
-def test_window_round_matches_jax(K):
-    """K 16 of a 64-step window (most rays find K), and K = the window."""
-    o, d, hits, bits, _, _ = _inputs(4, 0.1)
+def _window_rays(o, d, hits, bits):
+    """`_inputs`' rays and bitfield with three rays appended along +x
+    through the cells (x, 25, 25), made empty below x = 16 and occupied
+    from it: ray 0 from 79.5 steps before x = 0 (its 48th occupied step
+    is a 128-step window's last), ray 1 from 10 steps past it (every step
+    of the window occupied), ray 2 alive from a cursor below 0. Returns
+    (o, d, hits, bits, alive, the three rays' rows)."""
+    lo = np.float32(np.sqrt(3.0) / MAX_S)
+    yz = np.float32(-0.5 + 25.5 / G)
+    cells = np.unpackbits(bits, bitorder="little").reshape(G, G, G)  # z, y, x
+    cells[25, 25, :16], cells[25, 25, 16:] = 0, 1
+    bits = np.packbits(cells.reshape(-1), bitorder="little")
+    o2 = np.array([[-0.5, yz, yz]] * 3, np.float32)
+    d2 = np.array([[1.0, 0.0, 0.0]] * 3, np.float32)
+    h2 = np.array([[0.5 - 79.5 * lo, 0.95], [0.5 + 10 * lo, 0.95],
+                   [-0.25, 0.95]], np.float32)
+    n = o.shape[0]
+    alive = hits[:, 0] >= 0
+    alive[::8] = False
+    return (np.concatenate([o, o2]), np.concatenate([d, d2]),
+            np.concatenate([hits, h2]), bits,
+            np.concatenate([alive, [True, True, True]]), n + np.arange(3))
+
+
+@pytest.mark.parametrize("K,S_march", [
+    pytest.param(16, 64, id="16"), pytest.param(64, 64, id="64"),
+    pytest.param(48, 128, id="48-of-128"),
+    pytest.param(128, 128, id="128-of-128")])
+def test_window_round_matches_jax(K, S_march):
+    """K 16 of a 64-step window (most rays find K), K = the window, K 48
+    (not a multiple of H10's 32-step chunks) of a 128-step window and K =
+    that window, three rounds from the cursors; with rays that find their
+    K-th occupied step on the window's last step (asserted for K 48 and
+    128), rays that find fewer than K, dead rays and an alive ray whose
+    cursor is below 0 (`_window_rays`)."""
+    o, d, hits, bits, alive, (a, b, below) = _window_rays(*_inputs(4, 0.1)[:4])
+    mkw = dict(MK, S_march=S_march, n_steps=K)
+    first = tm.march_rays_test_round_window_plain(
+        T(o), T(d), T(hits[:, 0]), T(hits[:, 1]), T(alive), T(bits), **mkw)
+    window = tm.march_rays_test_round_dense_plain(
+        T(o), T(d), T(hits[:, 0]), T(hits[:, 1]), T(alive), T(bits),
+        **dict(MK, n_steps=S_march))
+    found = N(first[2]).sum(1)
+    assert (found < K).any() and not found[below]
+    if S_march == 128:   # the K-th found on the window's last step
+        ray = a if K == 48 else b
+        assert found[ray] == K
+        assert N(first[0])[ray, -1] == N(window[0])[ray, -1]
     out = _cursor_rounds(
-        lambda *a: tm.march_rays_test_round_window(*a, **MK, S_march=64,
-                                                   n_steps=K),
-        lambda *a: _jax_window_round(*a, S_march=64, K=K),
-        o, d, hits, bits)
+        lambda *r: tm.march_rays_test_round_window(*r, **mkw),
+        lambda *r: _jax_window_round(*r, S_march=S_march, K=K),
+        o, d, hits, bits, alive=alive)
     assert int(out[2].sum()) > 0
     with pytest.raises(ValueError, match="S_march"):
         tm.march_rays_test_round_window(

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Device time of the bootstrap march (H1), the dense compositing forward
 and backward (H3, at 9 channels and at 46), the distortion loss's forward
-and backward (H4) and the flat layout's compaction (H11) as the main path
-calls them, and of one kernel node at its least.
+and backward (H4), the held-out render's bitfield march (H10, both modes)
+and the flat layout's compaction (H11) as the main path calls them, and of
+one kernel node at its least.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -25,7 +26,13 @@ step's rays (`render_train` with march_layout "flat": the fine march at
 the per-ray cap into the bench's budget) and in the first round of a
 flat-layout render of the held-out views (the trainer's first
 `render_test` call again with test_layout "flat": the full window of
-test_n_samples steps into N x that). The fine march's `Uniform` body
+test_n_samples steps into N x that), and in that round the full window
+itself (`ops.ray_march.march_rays_test_round_dense`, H10's full-window
+mode). For H10's first-K mode it builds the bitfield path's configuration
+as `chip_smoke.py` builds it (the bench configuration with march_coarse
+False), trains BITFIELD_STEPS steps through `Trainer.fit` and captures
+the first window round (`march_rays_test_round_window`) of a render of
+the held-out views. The fine march's `Uniform` body
 (H9 at the bench's scale) runs on the bootstrap step's rays, their
 intervals after the annealing and its bitfield, at the fine march's
 arguments without the coarse mask. Then, for the general step grid
@@ -41,9 +48,12 @@ on the synthetic room with its semantics relabelled into 40 classes
 40-class path), trains SEM40_STEPS steps through `Trainer.fit` (which
 captures its bootstrap step as a CUDA graph) and captures
 `composite_rays` in the next bootstrap step, on whose arguments it also
-calls H3's backward with cotangents drawn from a seed; and that
-trainer's graph step (host ms a step of 16 replays of its captured
-step, ended by a synchronize, the median of 3 chunks).
+calls H3's backward with cotangents drawn from a seed and H3's segment
+forward on its rows as segments of K slots (`composite_compact_kernel`),
+and in the first round of a render of the held-out views (rows of up to
+64 samples, T_start); and that trainer's graph step (host ms a step of
+16 replays of its captured step, ended by a synchronize, the median of 3
+chunks).
 It times
 each captured call (a march's with the occupied cells of its bitfield),
 the march on a full bitfield, and a one-element
@@ -65,10 +75,11 @@ import time
 
 import torch
 
-from chip_smoke import relabel_semantics
+from chip_smoke import relabel_semantics, render_config
 from time_encodes import device_ms
 
 CASCADE_STEPS = 576   # the cascades trainer's steps before its calls
+BITFIELD_STEPS = 576  # the bitfield trainer's (the smoke's bitfield path)
 SEM40_STEPS = 32      # the 40-class trainer's: a graph captured
 
 
@@ -129,6 +140,22 @@ def cascade_calls(bench_config):
                 rendering.march_rays_test_round_window,)}
 
 
+def bitfield_calls(bench_config, build_trainer):
+    """{label: (args, kwargs, fn)} of H10's first window round on the
+    trained bitfield path (the bench configuration without the sv
+    march)."""
+    from normal_clustering_nerf_torch.models import rendering
+    tb = build_trainer(render_config(bench_config(), march_coarse=False),
+                       device="cuda")
+    tb.mark_invisible_cells()
+    tb.fit(BITFIELD_STEPS)
+    with torch.no_grad():
+        window = captured(rendering, "march_rays_test_round_window",
+                          lambda: tb.render_images(tb.scene_test.poses))
+    return {"march_fine_test_round, Uniform, first window round": window + (
+        rendering.march_rays_test_round_window,)}
+
+
 def sem40_calls(bench_config):
     """{label: (args, kwargs, fn)} of H3's forward and backward on a
     40-class bootstrap step's own arguments (46 channels), and the
@@ -146,8 +173,16 @@ def sem40_calls(bench_config):
     tr.fit(SEM40_STEPS)
     comp = captured(rendering, "composite_rays",
                     lambda: tr.train_step_core(bootstrap=True))
+    with torch.no_grad():
+        first = captured(rendering, "composite_rays",
+                         lambda: tr.render_images(tr.scene_test.poses))
     ca = tuple(t.detach().contiguous() for t in comp[0][:5]) + (comp[0][5],)
     n, k, c = ca[1].shape
+    # the rows as segments of k slots: ray i's slots [i k, i k + k)
+    seg = (tuple(t.reshape((n * k,) + t.shape[2:]) for t in ca[:4])
+           + (torch.arange(0, n * k, k, device="cuda", dtype=torch.int32),
+              torch.full((n,), k, device="cuda", dtype=torch.int32),
+              ca[4].reshape(n * k), ca[5]))
     cg = torch.Generator(device="cuda").manual_seed(2)
     gs = tuple(torch.randn(shape, device="cuda", generator=cg)
                for shape in ((n,), (n,), (n, c), (n, k)))
@@ -160,7 +195,11 @@ def sem40_calls(bench_config):
         ms.append((time.perf_counter() - t) * 1e3 / 16)
     return {f"composite_fwd, C {c}": comp + (rendering.composite_rays,),
             f"composite_bwd, C {c}": (ca + gs, {},
-                                      composite.composite_grad_kernel)
+                                      composite.composite_grad_kernel),
+            f"composite_fwd, C {c}, first test round": first + (
+                rendering.composite_rays,),
+            f"composite_seg_fwd, C {c}, the step's rows as segments": (
+                seg, {}, composite.composite_compact_kernel),
             }, sorted(ms)[1]
 
 
@@ -202,6 +241,9 @@ def main():
         flat_round = captured(ray_march, "compact_samples",
                               lambda: rendering.render_test(
                                   *views[:4], flat_test))
+        full_window = captured(ray_march, "march_rays_test_round_dense",
+                               lambda: rendering.render_test(
+                                   *views[:4], flat_test))
     a, kw = march
     flat = dataclasses.replace(tr.cfg.render, march_layout="flat")
     with torch.no_grad():
@@ -232,6 +274,8 @@ def main():
         ray_march.compact_samples,)
     calls["compact_samples, first flat test round"] = flat_round + (
         ray_march.compact_samples,)
+    calls["march_fine_test_round, full window, first flat test round"] = (
+        full_window + (ray_march.march_rays_test_round_dense,))
     m, rc = tr.cfg.model, tr.cfg.render
     fine_kw = dict(rendering.train_march_args(m, rc, a[0].shape[0], "fine"),
                    coarse_occ=None)
@@ -240,6 +284,7 @@ def main():
         (a[0], a[1], fine_hits, a[3], a[4]), fine_kw,
         rendering.march_rays_train_dense)
     calls.update(cascade_calls(bench_config))
+    calls.update(bitfield_calls(bench_config, build_trainer))
     sem40, sem40_step_ms = sem40_calls(bench_config)
     calls.update(sem40)
     one = torch.zeros(1, device="cuda")
