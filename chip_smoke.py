@@ -10,6 +10,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                                # (NCCL with two or more cards)
     python3 chip_smoke.py --only cascades      # check_cascades, the cascades
                                                # path and its march times
+    python3 chip_smoke.py --only k7k8          # 320 steps, then K7, K8 and
+                                               # the refresh graph checked
 
 Phases (any failed check raises, so the script exits non-zero):
   1. build the kernels (`csrc/*.cu`, one nvcc per source, all at once);
@@ -90,8 +92,20 @@ Phases (any failed check raises, so the script exits non-zero):
      `kernels.CountedGraph` does; the flat path's step too). Read
      the counts:
      every training launcher must have launched, K1's training launcher 64
-     times. Every loss must be finite and the loss must fall;
-  4. K1 and H9-H11 against their plain versions on the trained occupancy,
+     times, K7 (`kmeans_cluster`, the clustering loss's k-means and
+     cluster selection) once a step, K8's `occ_merge_pack` and
+     `occ_tables` once a refresh and `occ_compact` once a sampled refresh
+     (20; from the second on, replays of the refresh's own CUDA graph).
+     Every loss must be finite and the loss must fall;
+  4. K7 against its plain version bit for bit (assign_new, assign_orig,
+     every centroid, centroids3) on one training step's own normals (M
+     2730) and on random sets (M = K, 4097, 65,536 with the rows read from
+     global memory, all rows invalid, one-ulp near-ties, K 12 and 20,
+     merge_clusters and find_opposite off); K8's three launchers bit for
+     bit at G 128 with 1 and 2 cascades on an empty, a full and a random
+     20% grid with invisible cells, and on the trained grid with a sampled
+     refresh's sigma grid; K1 and H9-H11 against their plain versions on
+     the trained occupancy,
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
      T_start on a flat test round), H3's segment backward on segments of
@@ -262,6 +276,12 @@ Phases (any failed check raises, so the script exits non-zero):
   run of the same batch: a "multi-chip" JSON line with
   `scaling_efficiency` (`--only distributed` runs this path alone);
   every launcher must have launched on some path;
+  then the sampled refresh of the triplane and the cascades path (2
+  cascades): run eagerly under torch.cuda.set_sync_debug_mode("error")
+  (no synchronizing call), and the trainer's replayed refresh graph equal
+  to it bit for bit from the same state and generator state; the host's
+  time to queue each and the card's to run it ("sampled refresh" JSON
+  line);
   6. for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
      yardstick (`index_select` of the rows a field's forward reads,
@@ -1640,7 +1660,14 @@ FIELD_KERNELS = {"triplane": ("triplane_fwd", "triplane_bwd"),
                  "brick": ("brick_fwd", "brick_bwd"),
                  "tcnn": ("hash_grid_fwd", "hash_grid_bwd")}
 PATH_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
-                "distortion_fwd", "distortion_bwd", "march_sv_train")
+                "distortion_fwd", "distortion_bwd", "march_sv_train",
+                "kmeans_cluster", "occ_compact", "occ_merge_pack",
+                "occ_tables")
+# K7 a step; K8 a refresh (every 16 steps), occ_compact only in the
+# sampled ones, from the warm-up's end (step 256)
+K7K8_LAUNCHES = {"kmeans_cluster": STEPS, "occ_merge_pack": STEPS // 16,
+                 "occ_tables": STEPS // 16,
+                 "occ_compact": (STEPS - 256) // 16}
 P4_POINTS = 262_144   # experiments/pallas_gather2.py: M = 8192 rays x 32
 ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
 # f32 operations of the Jacobians beyond the forward's: per (sample,
@@ -3305,6 +3332,283 @@ def check_many_channels(rec, gen, thr):
                     2 * flops + N * K * C * 3))
 
 
+# ------------------------------------------------------- K7 and K8 checks
+KMEANS_SETS = (   # (label, M, K, kind, merge_clusters, find_opposite)
+    ("M = K", 20, 20, "room", True, True),
+    ("M 4097", 4097, 20, "room", True, True),
+    ("M 65,536 (rows from global memory)", 65536, 20, "room", True, True),
+    ("all invalid", 4097, 20, "none", True, True),
+    ("near-ties", 2730, 20, "ties", True, True),
+    ("K 12", 2730, 12, "room", True, True),
+    ("K 12, no merge, no opposite", 2730, 12, "room", False, False),
+)
+
+
+def kmeans_set(M, kind, gen, dev):
+    """Normals of a rotated box room with noise (zero rows where invalid,
+    as the loss hands them in), or a few directions repeated and moved by
+    one ulp ("ties"), and their valid mask."""
+    q, _ = torch.linalg.qr(torch.randn(3, 3, generator=gen, device=dev))
+    axes = torch.cat([q, -q])
+    pick = torch.randint(0, 6, (M,), generator=gen, device=dev)
+    noise = 0.2 if kind == "ties" else 0.05
+    n = axes[pick] + noise * torch.randn(M, 3, generator=gen, device=dev)
+    n = torch.nn.functional.normalize(n, dim=-1)
+    if kind == "ties":
+        n = n[torch.randint(0, 8, (M,), generator=gen, device=dev)]
+        step = torch.randint(-1, 2, (M, 3), generator=gen, device=dev)
+        keep = torch.rand(M, 3, generator=gen, device=dev) < 0.3
+        n = (n.view(torch.int32) + (step * keep).to(torch.int32)).view(
+            torch.float32)
+    valid = (torch.rand(M, generator=gen, device=dev) < 0.8
+             if kind == "room" else
+             torch.zeros(M, dtype=torch.bool, device=dev) if kind == "none"
+             else torch.ones(M, dtype=torch.bool, device=dev))
+    if M <= 20:
+        valid[:] = True
+    n = torch.where(valid[:, None], n, torch.zeros_like(n)).contiguous()
+    return n, valid
+
+
+def step_normals(tr):
+    """The detached normals, valid mask and initial rows that one
+    training step after the bootstrap hands K7, captured in the wrapper's
+    call. The step is taken: the trainer's state moves on."""
+    from normal_clustering_nerf_torch.ops import kmeans as km
+    seen, kernel = [], km.normals_clustering_kernel
+
+    def spy(normals, valid, init_idx, *rest):
+        seen.append((normals.clone(), valid.clone(), init_idx.clone(), rest))
+        return kernel(normals, valid, init_idx, *rest)
+    km.normals_clustering_kernel = spy
+    try:
+        tr.train_step_core(bootstrap=False)
+    finally:
+        km.normals_clustering_kernel = kernel
+    if len(seen) != 1:
+        raise RuntimeError(f"a training step called K7 {len(seen)} times, "
+                           f"expected once")
+    return seen[0]
+
+
+def kmeans_bound(M, K, niter, n_valid):
+    """K7's bytes (normals, valid and the initial rows read; two int64
+    assignments, the centroids written) and f32 operations (every round's
+    dot products and comparisons, K x 6 a row; the sums of the valid
+    rows; the renormalisations)."""
+    return bound(M * 12 + M + K * 8 + 2 * M * 8 + K * 12 + 36,
+                 (niter + 1) * M * K * 6 + niter * (n_valid * 3 + K * 9))
+
+
+def check_kmeans(tr, rec, gen):
+    """K7 against its plain version, bit for bit (assign_new, assign_orig,
+    every centroid, centroids3): on one training step's own normals after
+    the main path's training, and on KMEANS_SETS; the calls on the step's
+    normals kept in `rec` for `time_kernels`."""
+    from normal_clustering_nerf_torch.ops import kmeans as km
+    normals, valid, init, (niter, t_sim, merge, opp) = step_normals(tr)
+    chk, err = Check(), 0.0
+    M, K = normals.shape[0], init.shape[0]
+    n_valid = int(valid.sum())
+    log(f"K7 on a training step's normals (step {tr.step - 1}): M={M}, "
+        f"K={K}, {niter} rounds, {n_valid} valid, t_similar {t_sim}")
+    sets = [("a training step's normals", normals, valid, init, merge, opp)]
+    for label, m, k, kind, mg, op in KMEANS_SETS:
+        n, v = kmeans_set(m, kind, gen, tr.device)
+        i = km.draw_init(v, k, gen)
+        sets.append((label, n, v, i, mg, op))
+    for label, n, v, i, mg, op in sets:
+        got, gc = km.normals_clustering_kernel(n, v, i, niter, t_sim, mg, op)
+        want, wc = km.normals_clustering_plain(
+            n, v, K=i.shape[0], niter=niter, t_similar=t_sim,
+            merge_clusters=mg, find_opposite=op, init_idx=i)
+        log(f"  {label}: M={n.shape[0]}, K={i.shape[0]}, labels "
+            f"{sorted(set(want.assign_new.tolist()))}")
+        for name, a, b in (("assign_new", got.assign_new, want.assign_new),
+                           ("assign_orig", got.assign_orig,
+                            want.assign_orig),
+                           ("centroids", gc, wc),
+                           ("centroids3", got.centroids3, want.centroids3)):
+            err = max(err, chk.equal(f"{label}: {name}", a, b))
+    chk.done("K7 against its plain version")
+    args = (normals, valid, init, niter, t_sim, merge, opp)
+    rec["kmeans_cluster"] = dict(
+        err=err, library=None,
+        kernel=lambda: km.normals_clustering_kernel(*args),
+        plain=lambda: km.normals_clustering_plain(
+            normals, valid, K=K, niter=niter, t_similar=t_sim,
+            merge_clusters=merge, find_opposite=opp, init_idx=init),
+        bound=kmeans_bound(M, K, niter, n_valid))
+
+
+def occ_grids(C, G3, gen, dev, thr):
+    """(label, (C, G3) density grid): none above `thr`, all above, and a
+    random 20% above with a tenth of the cells invisible (-1)."""
+    low = torch.rand(C, G3, generator=gen, device=dev) * thr
+    high = thr + 1.0 + 10.0 * torch.rand(C, G3, generator=gen, device=dev)
+    mixed = torch.where(torch.rand(C, G3, generator=gen, device=dev) < 0.2,
+                        high, low)
+    mixed[torch.rand(C, G3, generator=gen, device=dev) < 0.1] = -1.0
+    return (("empty", low), ("full", high), ("random 20%", mixed))
+
+
+def refresh_tmp(tr, gen):
+    """The sampled refresh's fresh sigma grid (`update`'s tmp) at the
+    trained grid, from cells and jitter drawn from `gen`."""
+    og = tr.occ_grid
+    draws = og.draw_update_cells(tr.occ, gen)
+    idx, coords = og.sample_update_cells(tr.occ, tr.density_threshold(),
+                                         draws)
+    jitter = torch.rand(coords.shape, generator=gen, device=tr.device)
+    tmp = torch.zeros_like(tr.occ.density_grid)
+    for c in range(og.cascades):
+        with torch.no_grad():
+            sig = tr.model.density(og.cell_world_pos(coords[c], c,
+                                                     jitter[c])).float()
+        tmp[c].scatter_reduce_(0, idx[c], sig, reduce="amax")
+    return tmp
+
+
+def check_occupancy(tr, rec, gen):
+    """K8's three launchers against their plain versions, bit for bit, at
+    G 128 with 1 and 2 cascades on an empty, a full and a random 20% grid
+    with invisible cells (`occ_grids`: occ_compact's counts and lists,
+    occ_merge_pack's grid, bitfield and mean, occ_tables' coarse mask, sv
+    mask and payload on the packed bits); then on the trained grid and a
+    sampled refresh's sigma grid (`refresh_tmp`), whose calls are kept in
+    `rec` for `time_kernels`."""
+    from normal_clustering_nerf_torch.models import occupancy as oc
+    dev, G = tr.device, tr.cfg.model.grid_size
+    G3, thr = G ** 3, tr.density_threshold()
+    chk, errs = Check(), {"occ_compact": 0.0, "occ_merge_pack": 0.0,
+                          "occ_tables": 0.0}
+    log(f"K8 at G {G}: occ_compact, occ_merge_pack, occ_tables against "
+        f"their plain versions")
+
+    def compare(label, grid, tmp):
+        lst, n = oc.occ_compact(grid, thr)
+        plst, pn = oc.occ_compact_plain(grid, thr)
+        e = chk.equal(f"{label}: occupied counts", n, pn)
+        for c in range(grid.shape[0]):
+            k = int(pn[c])
+            e = max(e, chk.equal(f"{label}: cascade {c}'s list ({k} cells)",
+                                 lst[c, :k], plst[c, :k]))
+        errs["occ_compact"] = max(errs["occ_compact"], e)
+        got = oc.occ_merge_pack(grid, tmp, 0.95, thr)
+        want = oc.occ_merge_pack_plain(grid, tmp, 0.95, thr)
+        errs["occ_merge_pack"] = max(errs["occ_merge_pack"], *(
+            chk.equal(f"{label}: {name}", a, b)
+            for name, a, b in zip(("grid'", "bitfield", "mean"), got, want)))
+        tables = oc.occ_tables(got[1], G)
+        plain = (oc.coarse_occupancy(got[1], G),
+                 *oc.supervoxel_tables(got[1], G))
+        errs["occ_tables"] = max(errs["occ_tables"], *(
+            chk.equal(f"{label}: {name}", a, b) for name, a, b in zip(
+                ("coarse_occ", "sv_mask", "sv_payload"), tables, plain)))
+        return got
+
+    for C in (1, 2):
+        for label, grid in occ_grids(C, G3, gen, dev, thr):
+            tmp = torch.where(torch.rand(C, G3, generator=gen, device=dev)
+                              < 0.25, 3 * thr * torch.rand(
+                                  C, G3, generator=gen, device=dev), 0.0)
+            compare(f"C {C}, {label}", grid.contiguous(), tmp)
+    grid = tr.occ.density_grid
+    tmp = refresh_tmp(tr, gen)
+    bits = compare(f"the trained grid (step {tr.step})", grid, tmp)[1]
+    chk.done("K8 against its plain versions")
+    n, n_occ = grid.numel(), int(oc.occ_compact_plain(grid, thr)[1].sum())
+    rec["occ_compact"] = dict(
+        err=errs["occ_compact"],
+        kernel=lambda: oc.occ_compact(grid, thr),
+        plain=lambda: oc.occ_compact_plain(grid, thr),
+        library=lambda: torch.nonzero(grid > thr),
+        bound=bound(4 * n + 4 * n_occ + 4 * grid.shape[0], n))
+    rec["occ_merge_pack"] = dict(
+        err=errs["occ_merge_pack"], library=None,
+        kernel=lambda: oc.occ_merge_pack(grid, tmp, 0.95, thr),
+        plain=lambda: oc.occ_merge_pack_plain(grid, tmp, 0.95, thr),
+        bound=bound(3 * 4 * n + n // 8 + 4, 5 * n))
+    Gc3 = (G // 8) ** 3
+    rec["occ_tables"] = dict(
+        err=errs["occ_tables"], library=None,
+        kernel=lambda: oc.occ_tables(bits, G),
+        plain=lambda: (oc.coarse_occupancy(bits, G),
+                       *oc.supervoxel_tables(bits, G)),
+        bound=bound(G3 // 8 + Gc3 * (2 + 64), 0))
+    log(f"  trained grid: {n_occ} of {n} cells above {thr:.4f}")
+
+
+def check_refresh_graph(tr, path):
+    """The sampled refresh with no host read: run eagerly under
+    torch.cuda.set_sync_debug_mode("error") (a synchronizing call raises),
+    and the trainer's replayed refresh graph (captured in its training)
+    equal to it bit for bit from the same occupancy and generator state,
+    the generator left in the same state. The host's time to queue each
+    and the card's time to run it (means of REFRESH_REPS; the state put
+    back after). Returns the times."""
+    from normal_clustering_nerf_torch.training.trainer import REFRESH
+    if REFRESH not in tr._graphs:
+        raise RuntimeError(f"{path}: no captured refresh graph (captures: "
+                           f"{[c['kind'] for c in tr.captures]})")
+    chk = Check()
+    start = snapshot(tr)
+    tr.occ_update(warmup=False)
+    sync(tr.device)
+    replayed, gen_r = [t.clone() for t in tr.occ], tr.generator.get_state()
+    restore(tr, start)
+    sync(tr.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tr._refresh(False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync(tr.device)
+    log(f"{path}: the sampled refresh ran eagerly under "
+        f"set_sync_debug_mode('error') with no synchronizing call")
+    for name, a, b in zip(tr.occ._fields, replayed, tr.occ):
+        chk.equal(f"{path}: replayed refresh's {name} = eager", a, b)
+    chk.equal(f"{path}: generator state after the replay = after the "
+              f"eager refresh", gen_r, tr.generator.get_state())
+    chk.done(f"{path}: the refresh graph")
+    times = {}
+    for label, fn in (("graph", lambda: tr.occ_update(warmup=False)),
+                      ("eager", lambda: tr._refresh(False))):
+        restore(tr, start)
+        sync(tr.device)
+        t = time.perf_counter()
+        for _ in range(REFRESH_REPS):
+            fn()
+        host_s = (time.perf_counter() - t) / REFRESH_REPS
+        sync(tr.device)
+        # the card's time: the calls queued behind a sleep twice as long
+        # as the host takes to queue them, so that they run back to back
+        restore(tr, start)
+        sync(tr.device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda._sleep(int((2 * host_s * REFRESH_REPS + 1e-3)
+                              * CARD_CLOCK_HZ))
+        ev[0].record()
+        for _ in range(REFRESH_REPS):
+            fn()
+        ev[1].record()
+        ev[1].synchronize()
+        times[label] = {"host_ms": host_s * 1e3,
+                        "device_ms": ev[0].elapsed_time(ev[1])
+                        / REFRESH_REPS}
+    restore(tr, start)
+    sync(tr.device)
+    log(f"  {path}: a sampled refresh, graph replay / eager: the host "
+        f"queues it in {times['graph']['host_ms']:.4f} / "
+        f"{times['eager']['host_ms']:.4f} ms, the card runs it in "
+        f"{times['graph']['device_ms']:.4f} / "
+        f"{times['eager']['device_ms']:.4f} ms (means of {REFRESH_REPS})")
+    return times
+
+
+REFRESH_REPS = 8
+
+
 REPLACES = {
     "march_bootstrap": "normal_clustering_nerf_tpu/ops/ray_march.py:402",
     "triplane_fwd": "normal_clustering_nerf_tpu/models/triplane.py:177",
@@ -3342,6 +3646,14 @@ REPLACES = {
         "normal_clustering_nerf_tpu/models/hash_encoding.py:228",
     "hash_grid_contract":
         "normal_clustering_nerf_tpu/models/hash_encoding.py:228",
+    # K7: normals_clustering with its spherical_kmeans (:20); K8: the
+    # refresh's occupied list (sample_update_cells), its merge, mean and
+    # pack (update, with ops/packbits.py:16) and its tables
+    # (supervoxel_tables, with coarse_occupancy :44)
+    "kmeans_cluster": "normal_clustering_nerf_tpu/ops/kmeans.py:61",
+    "occ_compact": "normal_clustering_nerf_tpu/models/occupancy.py:143",
+    "occ_merge_pack": "normal_clustering_nerf_tpu/models/occupancy.py:179",
+    "occ_tables": "normal_clustering_nerf_tpu/models/occupancy.py:68",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
@@ -3355,7 +3667,8 @@ LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "triplane_fwd_jac": "H12", "triplane_bwd_dx": "H12",
          "brick_fwd_jac": "H13", "brick_contract": "H13",
          "hash_grid_fwd_jac": "H14",
-         "hash_grid_contract": "H14"}
+         "hash_grid_contract": "H14", "kmeans_cluster": "K7",
+         "occ_compact": "K8", "occ_merge_pack": "K8", "occ_tables": "K8"}
 
 
 def time_kernels(rec):
@@ -5593,6 +5906,37 @@ def distributed_path(launches, smi):
 
 
 
+def k7k8_only(smi):
+    """`--only k7k8`: the triplane bench configuration trained past the
+    warm-up's end (K7 and K8's launches counted), `check_kmeans`,
+    `check_occupancy` and `check_refresh_graph`, and the four launchers'
+    times."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    tr = build_trainer(bench_config(), device="cuda")
+    tr.mark_invisible_cells()
+    n = 320
+    hist, counts, _ = counted(lambda: tr.fit(n))
+    want = {"kmeans_cluster": n, "occ_merge_pack": n // 16,
+            "occ_tables": n // 16, "occ_compact": (n - 256) // 16}
+    got = {k: counts[k] for k in want}
+    log(f"{n} steps: K7 / K8 launches {got} (expected {want}); captures "
+        f"{[(c['kind'], c['step']) for c in tr.captures]}")
+    if got != want:
+        raise RuntimeError(f"K7 / K8 launches {got}, expected {want}")
+    check_losses(hist, [("first", 0), ("last", -1)], fall=False)
+    rec, gen = {}, torch.Generator(device="cuda").manual_seed(7)
+    check_kmeans(tr, rec, gen)
+    check_occupancy(tr, rec, gen)
+    refresh = check_refresh_graph(tr, "triplane")
+    time_kernels(rec)
+    print(f"sampled refresh on {smi}: " + json.dumps(refresh))
+    print(json.dumps({"kernels": [
+        {"name": f"{LABEL[k]} {k}", "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": r["library_ms"], "max_abs_err": r["err"]}
+        for k, r in rec.items()]}))
+
+
 def render_config(cfg, **kw):
     return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
 
@@ -5602,7 +5946,7 @@ def main():
     ap.add_argument("--profile", default="",
                     help="directory for torch.profiler traces of 4 steps "
                          "of each march")
-    ap.add_argument("--only", choices=["distributed", "cascades"],
+    ap.add_argument("--only", choices=["distributed", "cascades", "k7k8"],
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -5637,6 +5981,8 @@ def main():
     if args.only:
         if args.only == "distributed":
             distributed_path({k.name: 0 for k in kernels.ALL_KERNELS}, smi)
+        elif args.only == "k7k8":
+            k7k8_only(smi)
         else:
             cascades_only(smi)
         log(f"done in {time.time() - T0:.1f} s")
@@ -5682,8 +6028,12 @@ def main():
     shared = PATH_KERNELS + FIELD_KERNELS["triplane"]
     fit_ms = {"triplane": path_training(
         tr, "triplane", launches, shared,
-        {"march_sv_train": SV_STEPS, "march_fine_train": 0})[0]}
+        {"march_sv_train": SV_STEPS, "march_fine_train": 0,
+         **K7K8_LAUNCHES})[0]}
 
+    log("phase 4: K7 on a step's normals, K8 on the trained grid")
+    check_kmeans(tr, rec, gen)
+    check_occupancy(tr, rec, gen)
     log("phase 4: K1, H9-H11, the segment launchers and H3 with T_start "
         "on the trained occupancy")
     rec.update(check_k1(tr, tr.occ, train_in, test_in, "trained occupancy",
@@ -5798,6 +6148,8 @@ def main():
             + json.dumps([{k: c[k] for k in ("kind", "step", "ms")}
                           for c in t.captures]))
 
+    refresh = {name: check_refresh_graph(paths[name], name)
+               for name in ("triplane", "cascades")}
     step_ms = {}
     for name, t in paths.items():
         boot_ms, sv_ms, warm_ms, sampled_ms = step_times(t)
@@ -5849,6 +6201,7 @@ def main():
     log(f"done in {time.time() - T0:.1f} s")
     print(f"graph steps on {smi}: " + json.dumps(graph_rows))
     print(f"LPIPS on {smi}: " + json.dumps(lpips_times))
+    print(f"sampled refresh on {smi}: " + json.dumps(refresh))
     print(json.dumps({"kernels": out}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -237,11 +237,12 @@ def config_of(args, num_chips=None) -> TrainConfig:
 
 def split_device_time(events, n_steps: int):
     """torch.profiler device events (`key_averages()`, device entries) ->
-    ms a step of the port's kernels (each launcher's `<name>_kernel` and
-    the scatter H6 and H8 share), of cuBLAS / CUTLASS products and of the
-    rest, and the device launches a step."""
+    ms a step of the port's kernels (each launcher's `<name>_kernel`, the
+    scatter H6 and H8 share, K8's merge and pack), of cuBLAS / CUTLASS
+    products and of the rest, and the device launches a step."""
     ours = tuple(f"{k.name}_kernel" for k in kernels.ALL_KERNELS) + (
-        "grad_scatter::scatter_kernel",)
+        "grad_scatter::scatter_kernel", "occ_merge_kernel",
+        "occ_pack_kernel")
     gemm = ("gemm", "gemv", "nvjet", "cutlass")
     split = {"port kernels": 0.0, "gemm": 0.0, "other": 0.0}
     for e in events:

@@ -119,6 +119,7 @@
 // that fill the 132 SMs, each step's probe on its own lane and the
 // selection by ballots instead of a serial rank walk; a block adds its
 // rays' rm (and trunc) to the batch totals with one atomic, not 8.
+#include "look_back.cuh"
 #include "march_common.cuh"
 
 namespace {
@@ -563,34 +564,6 @@ constexpr int COMPACT_WARPS = COMPACT_THREADS / 32;
 constexpr int NARROW_S = 32;   // rows of at most this many steps: a mask a ray
 // the slots a padding thread writes
 constexpr int PAD_PER_THREAD = 8;
-// A look-back status word: the call's epoch (30 bits), a flag (2 bits) and
-// the value (32 bits). A word of another epoch, a former call's, reads as
-// not yet published, so the words need no zeroing between calls.
-constexpr unsigned long long HAS_AGGREGATE = 1ull << 32;
-constexpr unsigned long long HAS_PREFIX = 2ull << 32;
-constexpr int EPOCH_SHIFT = 34;
-
-// the flag of word w if it is of epoch tag `tag`, else 0
-__device__ __forceinline__ unsigned flag_of(unsigned long long w,
-                                            unsigned long long tag) {
-  return (w >> EPOCH_SHIFT) == (tag >> EPOCH_SHIFT)
-             ? static_cast<unsigned>(w >> 32) & 3u : 0u;
-}
-
-__device__ __forceinline__ unsigned long long load_status(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p)
-               : "memory");
-  return v;
-}
-
-__device__ __forceinline__ void store_status(unsigned long long* p,
-                                             unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
-               : "memory");
-}
-
 // steps [c, c + 16) of a row of `include` as 4 words, a byte a step;
 // bytes at or past S read as 0. VEC: one 16-byte load (S % 16 == 0, the
 // rows 16-byte aligned).
@@ -643,42 +616,6 @@ __device__ __forceinline__ void value_chunk(const float* __restrict__ row,
   }
 }
 
-// The block's prefix (the counts of the blocks before it) by decoupled
-// look-back, on warp 0: publish the aggregate, sum the predecessors'
-// aggregates back to the nearest inclusive prefix, 32 at a time, and
-// publish the inclusive prefix.
-__device__ __forceinline__ int look_back(unsigned long long* status,
-                                         unsigned long long tag, int tile,
-                                         int agg, int lane) {
-  if (tile == 0) {
-    if (lane == 0)
-      store_status(status, tag | HAS_PREFIX | static_cast<unsigned>(agg));
-    return 0;
-  }
-  if (lane == 0)
-    store_status(status + tile,
-                 tag | HAS_AGGREGATE | static_cast<unsigned>(agg));
-  int prefix = 0;
-  for (int look = tile - 1;; look -= 32) {
-    const int idx = look - lane;
-    unsigned long long w =
-        idx >= 0 ? load_status(status + idx) : tag | HAS_PREFIX;
-    while (__any_sync(FULL, flag_of(w, tag) == 0))
-      if (flag_of(w, tag) == 0) w = load_status(status + idx);
-    const unsigned pre = __ballot_sync(FULL, flag_of(w, tag) == 2);
-    const int stop = pre ? __ffs(pre) - 1 : 31;   // nearest prefix's lane
-    int v = lane <= stop ? static_cast<int>(w & 0xffffffffu) : 0;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-    prefix += v;
-    if (pre) break;
-  }
-  if (lane == 0)
-    store_status(status + tile,
-                 tag | HAS_PREFIX | static_cast<unsigned>(prefix + agg));
-  return prefix;
-}
-
 // Padding block p (of n_pad after the ray blocks): the slots from the
 // total, the last ray block's inclusive prefix, to B.
 __device__ __forceinline__ void pad_slots(
@@ -687,11 +624,7 @@ __device__ __forceinline__ void pad_slots(
     float* __restrict__ t_out, float* __restrict__ dt_out,
     uint8_t* __restrict__ valid_out) {
   __shared__ int s_total;
-  if (threadIdx.x == 0) {
-    unsigned long long w;
-    do w = load_status(status + n_tiles - 1); while (flag_of(w, tag) != 2);
-    s_total = static_cast<int>(w & 0xffffffffu);
-  }
+  if (threadIdx.x == 0) s_total = scan::wait_prefix(status, tag, n_tiles - 1);
   __syncthreads();
   for (int b = min(s_total, B) + p * COMPACT_THREADS + threadIdx.x; b < B;
        b += n_pad * COMPACT_THREADS) {
@@ -765,7 +698,7 @@ __device__ __forceinline__ void compact_rays(
       if (lane >= o) v += y;
     }
     const int agg = __shfl_sync(FULL, v, COMPACT_WARPS - 1);
-    const int prefix = look_back(status, tag, tile, agg, lane);
+    const int prefix = scan::look_back(status, tag, tile, agg, lane);
     if (lane < COMPACT_WARPS) s_warp[lane] = v;
     if (lane == 0) {
       s_prefix = prefix;
@@ -851,18 +784,10 @@ __global__ void __launch_bounds__(COMPACT_THREADS) compact_kernel(
     float* __restrict__ t_out, float* __restrict__ dt_out,
     uint8_t* __restrict__ valid_out, int* __restrict__ ray_start,
     int* __restrict__ ray_count, int* __restrict__ rm_out) {
-  __shared__ unsigned long long s_ticket;
   unsigned long long* status = work + 1;
-  if (threadIdx.x == 0) {
-    const unsigned long long t = atomicAdd(work, 1ull);
-    if (static_cast<unsigned>(t) == gridDim.x - 1)
-      atomicExch(work, ((t >> 32) + 1) << 32);
-    s_ticket = t;
-  }
-  __syncthreads();
-  const int tile = static_cast<int>(static_cast<unsigned>(s_ticket));
-  const unsigned long long tag =
-      ((s_ticket >> 32) & ((1ull << (64 - EPOCH_SHIFT)) - 1)) << EPOCH_SHIFT;
+  const scan::Ticket ticket = scan::take_ticket(work);
+  const int tile = ticket.index;
+  const unsigned long long tag = ticket.tag;
   if (tile >= n_tiles)
     pad_slots(status, tag, n_tiles, tile - n_tiles, gridDim.x - n_tiles, N,
               B, ray_id, t_out, dt_out, valid_out);

@@ -208,8 +208,8 @@ COMPACT = Kernel("compact_samples", "march_fine.cu",
                  [P] * 3 + [I] * 3 + [P] * 8)
 COMPACT_RAYS = 64   # H11's rays a block: COMPACT_THREADS of march_fine.cu
 COMPACT_MIN_WORDS = 4096   # H11's first buffer: up to 262,080 rays
-_compact_work: Dict[torch.device, torch.Tensor] = {}
-_compact_retired: List[torch.Tensor] = []
+_scan_work: Dict[tuple, torch.Tensor] = {}
+_scan_retired: List[torch.Tensor] = []
 
 
 def compact_words(n_rays: int) -> int:
@@ -218,22 +218,30 @@ def compact_words(n_rays: int) -> int:
     return 1 + -(-n_rays // COMPACT_RAYS)
 
 
-def compact_workspace(n_rays: int, device: torch.device) -> torch.Tensor:
-    """H11's work buffer on `device`: one buffer a device, allocated zeroed
-    at its first use and kept for the process (each call is an epoch of
-    it, so no call zeroes it again; a CUDA graph's replays use the buffer
-    its capture saw, and a larger one replaces it for later calls, the old
-    one kept). H11's calls on one device must follow each other on the
-    stream."""
-    need = compact_words(n_rays)
-    buf = _compact_work.get(device)
-    if buf is None or buf.numel() < need:
+def scan_workspace(user: str, words: int, device: torch.device,
+                   min_words: int = 0) -> torch.Tensor:
+    """The work buffer of a single-pass scan (`csrc/look_back.cuh`) of
+    `user` ("compact": H11; "occ": K8's occupied list) on `device`: one
+    buffer a (user, device), allocated zeroed at its first use and kept
+    for the process (each call is an epoch of it, so no call zeroes it
+    again; a CUDA graph's replays use the buffer its capture saw, and a
+    larger one replaces it for later calls, the old one kept). A user's
+    calls on one device must follow each other on the stream."""
+    key = (user, device)
+    buf = _scan_work.get(key)
+    if buf is None or buf.numel() < words:
         if buf is not None:
-            _compact_retired.append(buf)
-        buf = torch.zeros(max(need, COMPACT_MIN_WORDS), dtype=torch.int64,
+            _scan_retired.append(buf)
+        buf = torch.zeros(max(words, min_words), dtype=torch.int64,
                           device=device)
-        _compact_work[device] = buf
+        _scan_work[key] = buf
     return buf
+
+
+def compact_workspace(n_rays: int, device: torch.device) -> torch.Tensor:
+    """H11's work buffer on `device` (`scan_workspace`)."""
+    return scan_workspace("compact", compact_words(n_rays), device,
+                          COMPACT_MIN_WORDS)
 
 
 COMPOSITE_SEG_FWD = Kernel("composite_seg_fwd", "composite.cu",
@@ -261,13 +269,24 @@ HASH_FWD_JAC = Kernel("hash_grid_fwd_jac", "hash_grid.cu",
 HASH_CONTRACT = Kernel("hash_grid_contract", "hash_grid.cu",
                        [P, P, P, I, I, I])
 
+# K7, spherical k-means and the Manhattan cluster selection (ops/kmeans.py)
+KMEANS_CLUSTER = Kernel("kmeans_cluster", "kmeans.cu",
+                        [P] * 3 + [I] * 3 + [F] + [I] * 2 + [P] * 5)
+# K8, the occupancy refresh (models/occupancy.py): the occupied list, the
+# merge with the threshold and the pack, the march's tables
+OCC_COMPACT = Kernel("occ_compact", "occupancy.cu", [P, F, I, I, P, P, P])
+OCC_MERGE_PACK = Kernel("occ_merge_pack", "occupancy.cu",
+                        [P, P, F, F, I, P, P, P, P])
+OCC_TABLES = Kernel("occ_tables", "occupancy.cu", [P, I, P, P, P])
+
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
                MARCH_SV_TEST, BRICK_FWD, BRICK_BWD, HASH_FWD, HASH_BWD,
                MARCH_FINE_TRAIN, MARCH_FINE_TEST, COMPACT, COMPOSITE_SEG_FWD,
                COMPOSITE_SEG_BWD, DISTORTION_SEG_FWD, DISTORTION_SEG_BWD,
                TRIPLANE_FWD_JAC, TRIPLANE_BWD_DX, BRICK_FWD_JAC,
-               BRICK_CONTRACT, HASH_FWD_JAC, HASH_CONTRACT)
+               BRICK_CONTRACT, HASH_FWD_JAC, HASH_CONTRACT, KMEANS_CLUSTER,
+               OCC_COMPACT, OCC_MERGE_PACK, OCC_TABLES)
 
 
 def reset_counts():

@@ -7,6 +7,14 @@ copies into its own (`OccupancyState.copy_`). Cells are indexed
 linearly, x fastest, within each cascade, which is the layout the march
 probes. Random draws (sampled cells, their jitter) are separable: each
 function that draws takes them as optional arguments.
+
+The refresh after the sigma eval is kernel K8 (`csrc/occupancy.cu`):
+`occ_compact` (each cascade's occupied list and count), `occ_merge_pack`
+(the EMA max-merge, the mean density in a fixed order, the threshold and
+the bitfield) and `occ_tables` (the march's supervoxel tables and coarse
+mask), each with its plain version (`*_plain`) for a CPU tensor. Nothing
+in `OccupancyGrid.update` reads the card on the host, so the trainer
+replays the sampled refresh as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -16,11 +24,18 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import kernels
 from ..config import ModelConfig
 from ..device import as_index
 from ..ops.packbits import packbits, unpack_bits
 from ..ops.ray_march import _div
 
+# K8's order of the mean density (`occ_merge_pack`): a lane a column of a
+# (C G^3 / COLUMNS, COLUMNS) view, then pairwise halvings within each of
+# the MERGE_BLOCKS blocks of MERGE_THREADS lanes, then across the blocks
+MERGE_BLOCKS = MERGE_THREADS = 256
+COLUMNS = MERGE_BLOCKS * MERGE_THREADS
+COMPACT_TILE = 4096   # occ_compact's cells a block
 # cameras per chunk of mark_invisible_cells: at G = 128 one camera's
 # projected cells are 3 x 128^3 floats (25 MB); 8 cameras keep the
 # intermediate at ~200 MB instead of the 1.2 GB of all 48 at once
@@ -90,6 +105,125 @@ def supervoxel_tables(bitfield: torch.Tensor, grid_size: int):
     return mask, words.to(torch.int32)
 
 
+def occ_compact(grid: torch.Tensor, density_threshold: float):
+    """Each cascade's cells whose density exceeds the threshold, in
+    ascending order, and their count: (list (C, G^3) int32, of which row
+    c's first count[c] entries are the cells, count (C,) int32). K8's
+    `occ_compact` on a CUDA tensor (past the count the list holds
+    whatever was there), `occ_compact_plain` on a CPU one."""
+    if not grid.is_cuda:
+        return occ_compact_plain(grid, density_threshold)
+    dev = grid.device
+    C, G3 = grid.shape
+    g = kernels.check(grid, "density_grid", torch.float32, (C, G3), dev)
+    work = kernels.scan_workspace("occ", 1 + C * -(-G3 // COMPACT_TILE),
+                                  dev)
+    lst = torch.empty((C, G3), dtype=torch.int32, device=dev)
+    count = torch.empty(C, dtype=torch.int32, device=dev)
+    kernels.OCC_COMPACT.launch(g, float(density_threshold), C, G3,
+                               kernels.ptr(work), kernels.ptr(lst),
+                               kernels.ptr(count), device=dev)
+    return lst, count
+
+
+def occ_compact_plain(grid: torch.Tensor, density_threshold: float):
+    """`occ_compact` as JAX builds the list (occupancy.py:164-168): each
+    occupied cell's rank by a cumsum, the cells scattered to their ranks
+    (the rest of the list is 0)."""
+    C, G3 = grid.shape
+    occ = grid > density_threshold
+    rank = torch.cumsum(occ.to(torch.int64), dim=1) - 1
+    dest = torch.where(occ, rank, G3)
+    cells = torch.arange(G3, dtype=torch.int32, device=grid.device)
+    lst = torch.zeros((C, G3 + 1), dtype=torch.int32, device=grid.device)
+    lst.scatter_(1, dest, cells.expand(C, G3))
+    return lst[:, :G3], occ.sum(dim=1).to(torch.int32)
+
+
+def occ_merge_pack(grid: torch.Tensor, tmp: torch.Tensor, decay: float,
+                   density_threshold: float):
+    """The refresh's merge and pack (occupancy.py:217-230): grid' =
+    where(grid < 0, grid, max(grid * decay, tmp)), thr = min(the mean of
+    grid''s positive cells, density_threshold), and the bitfield of
+    grid' > thr. Returns (grid', bitfield (C G^3 / 8,) uint8, the mean as
+    a 0-dim tensor). K8's `occ_merge_pack` on a CUDA tensor,
+    `occ_merge_pack_plain` (the same order of the mean's sum) on a CPU
+    one."""
+    if not grid.is_cuda:
+        return occ_merge_pack_plain(grid, tmp, decay, density_threshold)
+    dev = grid.device
+    n = grid.numel()
+    g = kernels.check(grid, "density_grid", torch.float32, device=dev)
+    t = kernels.check(tmp, "tmp", torch.float32, grid.shape, dev)
+    out = torch.empty_like(grid)
+    bits = torch.empty(n // 8, dtype=torch.uint8, device=dev)
+    partials = torch.empty(2 * MERGE_BLOCKS, dtype=torch.float32,
+                           device=dev)
+    mean = torch.empty((), dtype=torch.float32, device=dev)
+    kernels.OCC_MERGE_PACK.launch(
+        g, t, float(decay), float(density_threshold), n,
+        kernels.ptr(partials), kernels.ptr(out), kernels.ptr(bits),
+        kernels.ptr(mean), device=dev)
+    return out, bits, mean
+
+
+def fixed_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of x's values in K8's order: a lane a column of a (rows,
+    COLUMNS) view (x padded with +0.0, which changes no sum of
+    non-negative values) adds down its column, then pairwise halvings
+    within each block of MERGE_THREADS lanes, then across the blocks."""
+    flat = x.reshape(-1)
+    rows = -(-flat.numel() // COLUMNS)
+    cols = torch.zeros(rows * COLUMNS, dtype=x.dtype, device=x.device)
+    cols[:flat.numel()] = flat
+    cols = cols.view(rows, COLUMNS)
+    acc = torch.zeros(COLUMNS, dtype=x.dtype, device=x.device)
+    for i in range(rows):
+        acc = acc + cols[i]
+    part = acc.view(MERGE_BLOCKS, MERGE_THREADS)
+    h = MERGE_THREADS // 2
+    while h:
+        part = part[:, :h] + part[:, h:2 * h]
+        h //= 2
+    part = part[:, 0]
+    h = MERGE_BLOCKS // 2
+    while h:
+        part = part[:h] + part[h:2 * h]
+        h //= 2
+    return part[0]
+
+
+def occ_merge_pack_plain(grid, tmp, decay: float, density_threshold: float):
+    """`occ_merge_pack`'s plain version."""
+    new = torch.where(grid < 0, grid, torch.maximum(grid * decay, tmp))
+    pos = new > 0
+    total = fixed_order_sum(torch.where(pos, new, 0.0))
+    mean = total / torch.clamp(pos.sum(), min=1).to(torch.float32)
+    thr = torch.clamp(mean, max=density_threshold)
+    return new, packbits(new, thr), mean
+
+
+def occ_tables(bitfield: torch.Tensor, grid_size: int):
+    """(coarse_occ, sv_mask, sv_payload) of cascade 0's bits: K8's
+    `occ_tables` on a CUDA tensor, `coarse_occupancy` and
+    `supervoxel_tables` on a CPU one."""
+    if not bitfield.is_cuda:
+        return (coarse_occupancy(bitfield, grid_size),
+                *supervoxel_tables(bitfield, grid_size))
+    dev = bitfield.device
+    G, Gc3 = grid_size, (grid_size // 8) ** 3
+    if G % 8 or bitfield.dim() != 1 or bitfield.numel() < G ** 3 // 8:
+        raise ValueError(f"occ_tables: a bitfield of {bitfield.numel()} "
+                         f"bytes at G {G}")
+    b = kernels.check(bitfield, "bitfield", torch.uint8, device=dev)
+    coarse = torch.empty(Gc3, dtype=torch.uint8, device=dev)
+    mask = torch.empty(Gc3, dtype=torch.uint8, device=dev)
+    payload = torch.empty((Gc3, 16), dtype=torch.int32, device=dev)
+    kernels.OCC_TABLES.launch(b, G, kernels.ptr(coarse), kernels.ptr(mask),
+                              kernels.ptr(payload), device=dev)
+    return coarse, mask, payload
+
+
 class OccupancyGrid:
     """Static geometry + pure update functions (state passed explicitly)."""
 
@@ -149,30 +283,31 @@ class OccupancyGrid:
                             draws: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
         """M uniform + M occupied cells per cascade (occupancy.py:143-176):
         uniform over the cells whose density exceeds the threshold, or
-        uniform over all cells when none does.
+        uniform over all cells when none does. The occupied list and its
+        count stay on the device (`occ_compact`).
 
         `draws` holds "uniform" (C, M) cell indices and either "occ_rank"
         (C, M) ranks into the occupied list (cell indices when it is
         empty), as a test passes the JAX package's draws, or "occ_u"
-        (C, M) uniforms in [0, 1) scaled to that range.
+        (C, M) uniforms in [0, 1) scaled to that range: with n occupied
+        cells, list[min(floor(u n), n - 1)], else min(floor(u G^3),
+        G^3 - 1).
         Returns (indices (C, 2M), coords (C, 2M, 3)).
         """
         G3 = self.G ** 3
-        all_idx = []
-        for c in range(self.cascades):
-            occ = state.density_grid[c] > density_threshold
-            occ_list = torch.nonzero(occ).reshape(-1)
-            n_occ = occ_list.numel()
-            if "occ_rank" in draws:
-                r = as_index(draws["occ_rank"][c], self.device)
-            else:
-                r = (draws["occ_u"][c] * (n_occ if n_occ else G3)).long()
-                r = r.clamp(max=(n_occ if n_occ else G3) - 1)
-            occ_idx = occ_list[r] if n_occ > 0 else r
-            all_idx.append(torch.cat([as_index(draws["uniform"][c],
-                                               self.device),
-                                      occ_idx]))
-        idx = torch.stack(all_idx)
+        occ_list, n = occ_compact(state.density_grid, density_threshold)
+        n = n.to(torch.int64)[:, None]
+        if "occ_rank" in draws:
+            r = as_index(draws["occ_rank"], self.device)
+            listed = occ_list.gather(1, r)
+        else:
+            u = draws["occ_u"]
+            r = torch.minimum((u * n.to(u.dtype)).long(), n - 1).clamp_(min=0)
+            listed = occ_list.gather(1, r)
+            r = (u * G3).long().clamp_(max=G3 - 1)
+        occ_idx = torch.where(n > 0, listed.to(torch.int64), r)
+        idx = torch.cat([as_index(draws["uniform"], self.device), occ_idx],
+                        dim=1)
         return idx, self.cell_coords(idx)
 
     # ------------------------------------------------------------- updates
@@ -214,16 +349,10 @@ class OccupancyGrid:
             else:
                 # duplicate indices keep the max (occupancy.py:213-215)
                 tmp[c].scatter_reduce_(0, idx[c], sig, reduce="amax")
-        grid = torch.where(state.density_grid < 0, state.density_grid,
-                           torch.maximum(state.density_grid * decay, tmp))
-        pos = grid > 0
-        mean_density = (torch.where(pos, grid, torch.zeros_like(grid)).sum()
-                        / torch.clamp(pos.sum(), min=1))
-        thr = torch.clamp(mean_density, max=density_threshold)
-        bitfield = packbits(grid, thr)
+        grid, bitfield, _ = occ_merge_pack(state.density_grid, tmp, decay,
+                                           density_threshold)
         return OccupancyState(grid, bitfield, state.count_grid,
-                              coarse_occupancy(bitfield, self.G),
-                              *supervoxel_tables(bitfield, self.G))
+                              *occ_tables(bitfield, self.G))
 
     # ------------------------------------------------------ several cards
     @staticmethod
@@ -243,8 +372,7 @@ class OccupancyGrid:
         bitfield = packbits(bits, 0)
         G = round(state.density_grid.shape[1] ** (1.0 / 3.0))
         return OccupancyState(grid, bitfield, state.count_grid,
-                              coarse_occupancy(bitfield, G),
-                              *supervoxel_tables(bitfield, G))
+                              *occ_tables(bitfield, G))
 
     # ---------------------------------------------------- visibility marks
     def mark_invisible_cells(self, state: OccupancyState, poses, img_wh,

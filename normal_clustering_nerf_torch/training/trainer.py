@@ -72,7 +72,6 @@ from ..metrics import NeRFMTMetricsPerIm
 from ..models.ngp_mt import NGPMT
 from ..models.occupancy import OccupancyGrid, OccupancyState
 from ..models.rendering import render_test, render_train, train_march_kind
-from ..ops.kmeans import cluster_sums
 from ..parallel.mesh import axis_size, make_mesh
 from ..utils.rotations import R_offset_from_angles
 from .distributed import (broadcast_, local_batch, mean_over_axis, on_rank0,
@@ -87,6 +86,7 @@ _log = logging.getLogger(__name__)
 # initialisation, the kernels' libraries, cuBLAS's handles)
 GRAPH_WARMUP = 3
 RANDOM_POSES = 10000   # random unseen poses of random_tr_poses (trainer.py:82)
+REFRESH = "refresh"    # the kind of the sampled refresh's CUDA graph
 
 
 class _GatherRows(torch.autograd.Function):
@@ -99,13 +99,26 @@ class _GatherRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
-        return cluster_sums(g, idx, ctx.n_rows), None
+        return _row_sums(g, idx, ctx.n_rows), None
+
+
+def _row_sums(g, idx, n_rows: int):
+    """(n_rows, D) sums of the rows of g (M, D) by their index in idx: on
+    the CPU added in row order (index_add_, as JAX's segment sum does); on
+    the card each row's masked (D, M) products reduced along M, whose
+    order is fixed, where index_add_'s float atomics add in an order that
+    changes from run to run."""
+    if not g.is_cuda:
+        return torch.zeros((n_rows, g.shape[1]), dtype=g.dtype,
+                           device=g.device).index_add_(0, idx, g)
+    member = torch.arange(n_rows, device=g.device)[:, None] == idx[None, :]
+    return (member[:, None, :] * g.T[None, :, :]).sum(-1)
 
 
 def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table[idx] (2-D) whose gradient sums each row's entries in a fixed
-    order (`ops.kmeans.cluster_sums`): index_add_'s atomics on the card
-    would part graph replays from eager steps, which AdamW amplifies."""
+    order (`_row_sums`): index_add_'s atomics on the card would part graph
+    replays from eager steps, which AdamW amplifies."""
     return _GatherRows.apply(table, idx)
 
 
@@ -401,11 +414,29 @@ class Trainer:
         return 0.01 * m.max_samples / math.sqrt(3.0) * m.density_tresh_decay
 
     def occ_update(self, warmup: bool, *, jitter=None, cell_draws=None):
-        """Occupancy refresh (train_nerf.py:314-320), eager between chunks
-        (the JAX trainer's `_occ_update` is a jit of its own); the new
-        state is copied into the trainer's tensors. On several ranks each
-        refreshes with its own draws and the grids are merged
+        """Occupancy refresh (train_nerf.py:314-320; the JAX trainer's
+        `_occ_update` is a jit of its own); the new state is copied into
+        the trainer's tensors. On one card the sampled form with its own
+        draws runs eagerly once, is then captured as a CUDA graph of its
+        own (kind REFRESH, in the steps' pool, the generator registered)
+        and replayed at every later boundary; the warm-up form (every
+        cell) and given draws run eagerly. On several ranks each refreshes
+        eagerly with its own draws and the grids are merged
         (`make_sharded_occ_update`)."""
+        if (not warmup and jitter is None and cell_draws is None
+                and self.device.type == "cuda" and self.axis is None):
+            graph = self._graphs.get(REFRESH)
+            if graph is None and self._warm.get(REFRESH, 0) >= 1:
+                graph = self._capture(REFRESH, lambda: self._refresh(False))
+            if graph is not None:
+                graph.replay()
+                return
+            self._warm[REFRESH] = self._warm.get(REFRESH, 0) + 1
+        self._refresh(warmup, jitter, cell_draws)
+
+    def _refresh(self, warmup: bool, jitter=None, cell_draws=None):
+        """One refresh on the device, into the trainer's occupancy tensors:
+        what the refresh's CUDA graph holds."""
         new = self.occ_grid.update(
             self.occ, self.model.density, self.density_threshold(), warmup,
             generator=self.generator, jitter=jitter, cell_draws=cell_draws)
@@ -623,7 +654,8 @@ class Trainer:
         for _ in range(n):
             graph = self._graphs.get(kind)
             if graph is None and self._warm.get(kind, 0) >= GRAPH_WARMUP:
-                graph = self._capture(kind, bootstrap)
+                graph = self._capture(
+                    kind, lambda: self._step_body(bootstrap))
             if graph is None:
                 m = self._warm_step(kind, bootstrap)
             else:
@@ -646,11 +678,12 @@ class Trainer:
         self._warm[kind] = self._warm.get(kind, 0) + 1
         return m
 
-    def _capture(self, kind: str, bootstrap: bool) -> kernels.CountedGraph:
-        """Capture one step of `kind` as a CUDA graph (the capture runs
-        nothing: the caller replays it for this step), in the trainer's
-        one graph memory pool, with the generator registered. The
-        kernels' launches it records are counted at each replay. On
+    def _capture(self, kind: str, body) -> kernels.CountedGraph:
+        """Capture `body()` (one step of the march `kind`, or the refresh)
+        as a CUDA graph (the capture runs nothing: the caller replays it
+        for this step), in the trainer's one graph memory pool, with the
+        generator registered; a step's outputs are kept in `_graph_out`.
+        The kernels' launches it records are counted at each replay. On
         several cards the capture runs on the side stream of the eager
         warm-up steps, which have run its NCCL all-reduce there. A failed
         capture raises."""
@@ -667,14 +700,16 @@ class Trainer:
         with kernels.capture_counts() as counts:
             with torch.cuda.graph(graph, pool=self._pool, stream=stream,
                                   capture_error_mode=mode):
-                metrics = self._step_body(bootstrap)
+                out = body()
         self._graphs[kind] = kernels.CountedGraph(graph, counts)
-        self._graph_out[kind] = (metrics, self.last_batch, self.last_grads)
+        if kind != REFRESH:
+            self._graph_out[kind] = (out, self.last_batch, self.last_grads)
         rec = {"kind": kind, "step": self.step,
                "ms": (time.perf_counter() - t) * 1e3,
                "launches": {k.name: c for k, c in counts.items()}}
         self.captures.append(rec)
-        _log.info(f"captured the {kind} step as a CUDA graph at step "
+        what = "refresh" if kind == REFRESH else f"{kind} step"
+        _log.info(f"captured the {what} as a CUDA graph at step "
                   f"{self.step} in {rec['ms']:.1f} ms "
                   f"({sum(counts.values())} kernel launches of the port)")
         return self._graphs[kind]

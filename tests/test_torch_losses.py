@@ -60,11 +60,20 @@ def test_normals_clustering_matches_jax():
     assert set(np.unique(N(out.assign_new))) >= {1, 2, 3}
 
 
-def test_card_cluster_sums_match_jax(monkeypatch):
-    """The clustering with the card's fixed-order cluster sums
-    (`kmeans.masked_sums`, run here on the CPU) against JAX, at the
-    tolerances above."""
-    monkeypatch.setattr(tk, "cluster_sums", tk.masked_sums)
+def test_card_cluster_sums_match_jax():
+    """K7's fixed-order cluster sums (`kmeans.cluster_sums`: a warp's
+    lanes, then an xor butterfly; the card's order and, since K7, the
+    CPU's too) against JAX's segment sum, and the clustering with them
+    against JAX, at the tolerances above."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((1000, 3)).astype(np.float32)
+    assign = rng.integers(0, 20, 1000)
+    ok = rng.random(1000) < 0.8
+    ref = jax.ops.segment_sum(J(x * ok[:, None]), J(assign),
+                              num_segments=20)
+    got = tk.cluster_sums(T(x), T(assign).long(), 20, T(ok))
+    np.testing.assert_allclose(N(got), np.asarray(ref), rtol=1e-5,
+                               atol=1e-6)
     normals = np.nan_to_num(_manhattan_normals(1))
     valid = np.abs(normals).sum(-1) != 0
     key = jax.random.PRNGKey(4)
