@@ -99,11 +99,13 @@ Phases (any failed check raises, so the script exits non-zero):
      Every loss must be finite and the loss must fall;
   4. K7 against its plain version bit for bit (assign_new, assign_orig,
      every centroid, centroids3) on one training step's own normals (M
-     2730) and on random sets (M = K, 4097, 65,536 with the rows read from
-     global memory, all rows invalid, one-ulp near-ties, K 12 and 20,
-     merge_clusters and find_opposite off); K8's three launchers bit for
-     bit at G 128 with 1 and 2 cascades on an empty, a full and a random
-     20% grid with invisible cells, and on the trained grid with a sampled
+     2730) and on random sets (M = K, 4097, rotation recovery's 65,536 at
+     K 30 and 30 rounds, 262,144 with the rows read from global memory,
+     all rows invalid, one-ulp near-ties, K 12, 20, 33, 64 and 256,
+     merge_clusters and find_opposite off), and K 257 refused; K8's
+     three launchers bit for bit at G 128 with 1 and 2 cascades on an
+     empty, a full and a random 20% grid with invisible cells, and on the
+     trained grid with a sampled
      refresh's sigma grid; K1 and H9-H11 against their plain versions on
      the trained occupancy,
      the segment launchers of H3/H4 against their plain versions and bit
@@ -3333,14 +3335,20 @@ def check_many_channels(rec, gen, thr):
 
 
 # ------------------------------------------------------- K7 and K8 checks
-KMEANS_SETS = (   # (label, M, K, kind, merge_clusters, find_opposite)
-    ("M = K", 20, 20, "room", True, True),
-    ("M 4097", 4097, 20, "room", True, True),
-    ("M 65,536 (rows from global memory)", 65536, 20, "room", True, True),
-    ("all invalid", 4097, 20, "none", True, True),
-    ("near-ties", 2730, 20, "ties", True, True),
-    ("K 12", 2730, 12, "room", True, True),
-    ("K 12, no merge, no opposite", 2730, 12, "room", False, False),
+KMEANS_SETS = (   # (label, M, K, rounds (None: the step's), kind,
+                  #  merge_clusters, find_opposite)
+    ("M = K", 20, 20, None, "room", True, True),
+    ("M 4097", 4097, 20, None, "room", True, True),
+    ("K 33", 4097, 33, None, "room", True, True),
+    ("K 64", 4097, 64, None, "room", True, True),
+    ("K 256 (K7's most), 3 rounds", 4097, 256, 3, "room", True, True),
+    ("rotation recovery's shape", 65536, 30, 30, "room", True, True),
+    ("M 262,144 (rows from global memory), 3 rounds", 262144, 20, 3,
+     "room", True, True),
+    ("all invalid", 4097, 20, None, "none", True, True),
+    ("near-ties", 2730, 20, None, "ties", True, True),
+    ("K 12", 2730, 12, None, "room", True, True),
+    ("K 12, no merge, no opposite", 2730, 12, None, "room", False, False),
 )
 
 
@@ -3403,33 +3411,46 @@ def kmeans_bound(M, K, niter, n_valid):
 def check_kmeans(tr, rec, gen):
     """K7 against its plain version, bit for bit (assign_new, assign_orig,
     every centroid, centroids3): on one training step's own normals after
-    the main path's training, and on KMEANS_SETS; the calls on the step's
-    normals kept in `rec` for `time_kernels`."""
+    the main path's training and on KMEANS_SETS; K 257 refused. The calls
+    on the step's normals kept in `rec` for `time_kernels`."""
     from normal_clustering_nerf_torch.ops import kmeans as km
     normals, valid, init, (niter, t_sim, merge, opp) = step_normals(tr)
     chk, err = Check(), 0.0
     M, K = normals.shape[0], init.shape[0]
     n_valid = int(valid.sum())
+    log(f"K7's cluster of {km.BLOCKS} blocks: the card holds "
+        f"{km.cluster_occupancy(tr.device)} at once")
     log(f"K7 on a training step's normals (step {tr.step - 1}): M={M}, "
         f"K={K}, {niter} rounds, {n_valid} valid, t_similar {t_sim}")
-    sets = [("a training step's normals", normals, valid, init, merge, opp)]
-    for label, m, k, kind, mg, op in KMEANS_SETS:
+    sets = [("a training step's normals", normals, valid, init, niter,
+             merge, opp)]
+    for label, m, k, rounds, kind, mg, op in KMEANS_SETS:
         n, v = kmeans_set(m, kind, gen, tr.device)
         i = km.draw_init(v, k, gen)
-        sets.append((label, n, v, i, mg, op))
-    for label, n, v, i, mg, op in sets:
-        got, gc = km.normals_clustering_kernel(n, v, i, niter, t_sim, mg, op)
+        sets.append((label, n, v, i, niter if rounds is None else rounds,
+                     mg, op))
+    for label, n, v, i, rounds, mg, op in sets:
+        got, gc = km.normals_clustering_kernel(n, v, i, rounds, t_sim, mg,
+                                               op)
         want, wc = km.normals_clustering_plain(
-            n, v, K=i.shape[0], niter=niter, t_similar=t_sim,
+            n, v, K=i.shape[0], niter=rounds, t_similar=t_sim,
             merge_clusters=mg, find_opposite=op, init_idx=i)
-        log(f"  {label}: M={n.shape[0]}, K={i.shape[0]}, labels "
-            f"{sorted(set(want.assign_new.tolist()))}")
+        log(f"  {label}: M={n.shape[0]}, K={i.shape[0]}, {rounds} rounds, "
+            f"labels {sorted(set(want.assign_new.tolist()))}")
         for name, a, b in (("assign_new", got.assign_new, want.assign_new),
                            ("assign_orig", got.assign_orig,
                             want.assign_orig),
                            ("centroids", gc, wc),
                            ("centroids3", got.centroids3, want.centroids3)):
             err = max(err, chk.equal(f"{label}: {name}", a, b))
+    n, v = kmeans_set(4097, "room", gen, tr.device)
+    try:
+        km.normals_clustering_kernel(n, v, km.draw_init(v, 257, gen), 2,
+                                     t_sim, True, True)
+        log("  K 257: not refused FAIL")
+        chk.failures.append("K7 took K 257, past its 256")
+    except RuntimeError as e:
+        log(f"  K 257: refused ok ({e})")
     chk.done("K7 against its plain version")
     args = (normals, valid, init, niter, t_sim, merge, opp)
     rec["kmeans_cluster"] = dict(

@@ -119,6 +119,11 @@ def _load(source: str) -> ctypes.CDLL:
     return lib
 
 
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<source>`, built if it is not yet."""
+    return _load(source)
+
+
 class Kernel:
     """One exported C launcher: `int fn(args..., cudaStream_t)` that
     returns `cudaGetLastError()` after its launch."""

@@ -1,27 +1,30 @@
 """Spherical k-means and Manhattan cluster selection — port of the JAX
 package's `ops/kmeans.py` (reference: losses.py:47-166, where FAISS ran
 on the CPU): kernel K7 (`csrc/kmeans.cu`, `normals_clustering` on a CUDA
-tensor: the whole loop and the selection in one launch) and its plain
-version (`normals_clustering_plain`), which takes K7's arithmetic order
-with torch elementwise ops, so that the two agree bit for bit on the
-card: the dot products as (n0 c0 + n1 c1) + n2 c2 (`similarity`, not a
-matmul, whose FMA and split order would flip near-ties between the many
-near-duplicate centroids), the cluster sums in K7's lane-then-butterfly
-order (`cluster_sums`), the norm written out.
+tensor: the whole loop and the selection in one launch of a cluster of
+BLOCKS thread blocks) and its plain version (`normals_clustering_plain`),
+which takes K7's arithmetic order with torch elementwise ops, so that the
+two agree bit for bit on the card: the dot products as (n0 c0 + n1 c1) +
+n2 c2 (`similarity`, not a matmul, whose FMA and split order would flip
+near-ties between the many near-duplicate centroids), the cluster sums in
+K7's order (`cluster_sums`: a block's rows by lanes, a butterfly, then
+the blocks in order), the norm written out. Any number of clusters K:
+the plain version takes any, K7 up to 256 (a row's cluster is a byte).
 
 The centroid-init draw is separable: `init_idx` takes the K indices a
 test hands in from the JAX package's draw.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional
 
 import torch
 
 from .. import kernels
 
-LANES = 32    # K7 sums a cluster on one warp
-MAX_K = 32    # K7: a warp a cluster
+BLOCKS = 16   # K7's cluster: the rows in BLOCKS contiguous ranges
+LANES = 32    # a block sums a cluster on one warp
 
 
 def draw_init(valid: torch.Tensor, K: int,
@@ -44,27 +47,38 @@ def similarity(a, b):
 
 def cluster_sums(x, assign, K: int, valid=None):
     """(K, D) sums of the rows of x (M, D) by cluster (the valid rows
-    only, where `valid` is given), in K7's order: lane l of cluster k's
-    warp adds the rows l, l + 32, ... of cluster k in that order, from
-    +0.0, then the lanes' sums meet in an xor butterfly over offsets 16,
-    8, 4, 2, 1 (each lane adds the other's sum to its own), and lane 0's
-    is the sum. A row of another cluster adds +0.0, which changes no sum
-    (one that starts at +0.0 is never -0.0)."""
+    only, where `valid` is given), in K7's order: the rows are cut into
+    BLOCKS ranges of P = ceil(M / BLOCKS) rows, block b's from row b P;
+    in block b, lane l of cluster k's warp adds the range's rows l, l +
+    32, ... of cluster k in that order, from +0.0, then the lanes' sums
+    meet in an xor butterfly over offsets 16, 8, 4, 2, 1 (each lane adds
+    the other's sum to its own) and lane 0's is the block's partial; the
+    sum is the partials added in block order from +0.0. A row of another
+    cluster adds +0.0, which changes no sum (one that starts at +0.0 is
+    never -0.0)."""
     M, D = x.shape
-    rounds = -(-M // LANES)
+    P = -(-M // BLOCKS)
+    groups = -(-P // LANES)           # a block's row groups
     member = assign[None, :] == torch.arange(K, device=x.device)[:, None]
     if valid is not None:
         member = member & valid[None, :]
-    rows = torch.zeros((K, rounds * LANES, D), dtype=x.dtype, device=x.device)
-    rows[:, :M] = torch.where(member[..., None], x[None], 0.0)
-    rows = rows.reshape(K, rounds, LANES, D)
-    acc = torch.zeros((K, LANES, D), dtype=x.dtype, device=x.device)
-    for j in range(rounds):
-        acc = acc + rows[:, j]
+    # row r is row r % P of block r // P's range
+    r = torch.arange(M, device=x.device)
+    slot = (r // P) * (groups * LANES) + r % P
+    rows = torch.zeros((K, BLOCKS * groups * LANES, D), dtype=x.dtype,
+                       device=x.device)
+    rows[:, slot] = torch.where(member[..., None], x[None], 0.0)
+    rows = rows.reshape(K, BLOCKS, groups, LANES, D)
+    acc = torch.zeros((K, BLOCKS, LANES, D), dtype=x.dtype, device=x.device)
+    for j in range(groups):
+        acc = acc + rows[:, :, j]
     lane = torch.arange(LANES, device=x.device)
     for o in (16, 8, 4, 2, 1):
-        acc = acc + acc[:, lane ^ o]
-    return acc[:, 0]
+        acc = acc + acc[:, :, lane ^ o]
+    s = torch.zeros((K, D), dtype=x.dtype, device=x.device)
+    for b in range(BLOCKS):
+        s = s + acc[:, b, 0]
+    return s
 
 
 def spherical_kmeans(normals, valid, K: int = 20, niter: int = 20, *,
@@ -110,12 +124,8 @@ def normals_clustering(normals, valid, *, K: int = 20, niter: int = 20,
     clusters: C1 the biggest, (C2, C3) minimising the pairwise |cos|
     criteria; similar clusters merge into a group and opposite clusters
     get the negated label (kmeans.py:61-120). K7 on a CUDA tensor (it
-    reads nothing on the host), the plain version on a CPU one. K is at
-    most 32 (K7's warp a cluster)."""
-    if K > MAX_K:
-        raise ValueError(f"cluster_K {K}: K7 (csrc/kmeans.cu) takes at "
-                         f"most {MAX_K} clusters, a warp each; ROADMAP B14 "
-                         f"would lift the limit")
+    reads nothing on the host; K up to 256), the plain version on a CPU
+    one (any K)."""
     if init_idx is None:
         init_idx = draw_init(valid, K, generator)
     init_idx = torch.as_tensor(init_idx, device=normals.device)
@@ -133,21 +143,19 @@ def normals_clustering(normals, valid, *, K: int = 20, niter: int = 20,
 def normals_clustering_kernel(normals, valid, init_idx, niter: int,
                               t_similar: float, merge_clusters: bool,
                               find_opposite: bool):
-    """K7 on the card: (ClusteringResult, centroids (K, 3))."""
+    """K7 on the card: (ClusteringResult, centroids (K, 3)). K7 refuses K
+    past 256 (the launch raises)."""
     dev = normals.device
     M, K = normals.shape[0], init_idx.shape[0]
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"K7 takes 1 to {MAX_K} clusters, got {K}")
     if niter < 0 or M < 1:
         raise ValueError(f"K7: niter {niter}, {M} rows")
     normals = normals.detach().contiguous()
     n = kernels.check(normals, "normals", torch.float32, (M, 3), dev)
     v = kernels.check(valid, "valid", torch.bool, (M,), dev)
     i = kernels.check(init_idx, "init_idx", torch.int64, (K,), dev)
-    # K7's masks (32 words a group of 32 rows) and a byte a row, which it
-    # keeps here when the rows do not fit in shared memory
-    scratch = torch.empty(128 * -(-M // 32) + M, dtype=torch.uint8,
-                          device=dev)
+    # a byte a row for the rows' clusters, which K7 keeps here when a
+    # block's rows do not fit in its shared memory
+    scratch = torch.empty(M, dtype=torch.uint8, device=dev)
     new = torch.empty(M, dtype=torch.int64, device=dev)
     orig = torch.empty(M, dtype=torch.int64, device=dev)
     cent = torch.empty((K, 3), dtype=torch.float32, device=dev)
@@ -157,6 +165,20 @@ def normals_clustering_kernel(normals, valid, init_idx, niter: int,
         int(find_opposite), kernels.ptr(scratch), kernels.ptr(new),
         kernels.ptr(orig), kernels.ptr(cent), kernels.ptr(cent3), device=dev)
     return ClusteringResult(new, orig, cent3), cent
+
+
+def cluster_occupancy(device) -> int:
+    """How many of K7's clusters (BLOCKS blocks of 1024 threads, each with
+    the most shared memory a call takes) the card holds at once
+    (`cudaOccupancyMaxActiveClusters`); K7 refuses to launch at 0."""
+    fn = kernels.library("kmeans.cu").kmeans_cluster_occupancy
+    fn.argtypes, fn.restype = [ctypes.POINTER(ctypes.c_int)], ctypes.c_int
+    n = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(ctypes.byref(n))
+    if err:
+        raise RuntimeError(f"K7's occupancy query failed: CUDA error {err}")
+    return n.value
 
 
 def normals_clustering_plain(normals, valid, *, K: int = 20, niter: int = 20,

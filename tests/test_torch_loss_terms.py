@@ -234,6 +234,31 @@ def test_snapping_and_member_discard_match_jax():
     assert counts[True] != counts[False] and min(counts[True]) > 0
 
 
+def test_clustering_terms_at_cluster_K_40_match_jax():
+    """The clustering terms with cluster_K 40 (past one warp of clusters;
+    the port refused it once, the JAX package takes any K) on the box
+    room's normals of the snapping test, values and gradients."""
+    normals = _room_normals(2)
+    key = jax.random.PRNGKey(6)
+    init = _init_idx(key, normals, 40)
+    jcfg, tcfg = _configs(cluster_K=40)
+
+    def loss_j(x):
+        out = jl._clustering_losses(x, jcfg.loss, key, 3000)
+        return sum(out.values()), out
+
+    (_, ref), g_ref = jax.value_and_grad(loss_j, has_aux=True)(J(normals))
+    x = T(normals).requires_grad_(True)
+    out = tl.clustering_losses(x, tcfg.loss, 3000, kmeans_init=T(init))
+    assert set(out) == set(ref)
+    for k in ref:
+        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]), err_msg=k,
+                                   **VAL)
+    sum(out.values()).backward()
+    np.testing.assert_allclose(N(x.grad), np.asarray(g_ref), **GRAD)
+    assert N(x.grad).any()
+
+
 def _flat_pred(seed):
     """A flat-layout batch: the samples of test_torch_flat's rows
     compacted ray-major (the segments' ray_id, ray_start and ray_count,

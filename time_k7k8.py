@@ -18,6 +18,10 @@ has captured it). Then:
   (`losses.normals_clustering`) and times `ops.kmeans.normals_clustering`
   on them: the mean of 20 replays of a CUDA graph of one call
   (`time_encodes.device_ms`);
+- it times `normals_clustering` at rotation recovery's shape (M 65,536
+  room normals made from a seed, K 30, 30 rounds:
+  `training/rotation_recovery.py`), and the floor of K7's rounds: one
+  call on 8 rows at K 1 with 20 rounds less one with none, over 20;
 - it times a sampled refresh, `Trainer.occ_update(warmup=False)`: the
   host's time to queue one (the median of REPS), and the card's (REPS
   refreshes queued behind a sleep, by CUDA events);
@@ -46,6 +50,18 @@ from time_encodes import device_ms
 STEPS = 576    # the smoke's main path: 512 bootstrap steps, 64 sv steps
 REPS = 8       # refreshes a timing
 CHUNK = 16     # the steps between two refreshes
+
+
+def room_normals(M, gen):
+    """Unit normals of a rotated box room with noise, a fifth invalid (zero
+    rows, as the loss hands them in), and the valid mask."""
+    q, _ = torch.linalg.qr(torch.randn(3, 3, generator=gen, device="cuda"))
+    axes = torch.cat([q, -q])
+    pick = torch.randint(0, 6, (M,), generator=gen, device="cuda")
+    n = axes[pick] + 0.05 * torch.randn(M, 3, generator=gen, device="cuda")
+    n = torch.nn.functional.normalize(n, dim=-1)
+    valid = torch.rand(M, generator=gen, device="cuda") < 0.8
+    return torch.where(valid[:, None], n, 0.0).contiguous(), valid
 
 
 def traced(fn):
@@ -123,6 +139,19 @@ def main():
     out["normals_clustering"] = {
         "M": a[0].shape[0], "K": kw["K"], "niter": kw["niter"],
         "ms": device_ms(lambda: kmeans.normals_clustering(*a, **kw))}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, v = room_normals(65536, gen)
+    rot = dict(K=30, niter=30, init_idx=kmeans.draw_init(v, 30, gen))
+    out["rotation recovery"] = {
+        "M": 65536, "K": 30, "niter": 30,
+        "ms": device_ms(lambda: kmeans.normals_clustering(n, v, **rot))}
+    n8, v8 = room_normals(8, gen)
+    v8[:] = True
+    one = dict(K=1, init_idx=kmeans.draw_init(v8, 1, gen))
+    t0, t20 = (device_ms(lambda: kmeans.normals_clustering(
+        n8, v8, niter=r, **one)) for r in (0, 20))
+    out["round floor"] = {"M": 8, "K": 1, "ms_0_rounds": t0,
+                          "ms_20_rounds": t20, "ms_a_round": (t20 - t0) / 20}
 
     # the next boundary, then the refresh's times
     tr.fit(-tr.step % CHUNK)
