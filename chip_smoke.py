@@ -463,9 +463,12 @@ class Check:
             self.failures.append(name)
         return err
 
-    def equal(self, name, got, ref):
+    def equal(self, name, got, ref, quiet=False):
+        """got == ref everywhere; returns max |got - ref|. `quiet`: no
+        line of its own (the caller logs one for several)."""
         bad = int((got != ref).sum())
-        log(f"  {name}: {bad} of {ref.numel()} differ {'ok' if not bad else 'FAIL'}")
+        if not quiet:
+            log(f"  {name}: {bad} of {ref.numel()} differ {'ok' if not bad else 'FAIL'}")
         if bad:
             self.failures.append(name)
         return 0.0 if not bad else float((got.float() - ref.float()).abs().max())
@@ -3462,6 +3465,11 @@ def check_kmeans(tr, rec, gen):
         bound=kmeans_bound(M, K, niter, n_valid))
 
 
+# grid sizes K8 is held at besides the trained grid's: Gc = G / 8 of 1, 3,
+# 4, 5, 17 and 32 (occ_tables' byte and 16-byte loads; odd strides)
+OCC_SIZES = (8, 24, 32, 40, 136, 256)
+
+
 def occ_grids(C, G3, gen, dev, thr):
     """(label, (C, G3) density grid): none above `thr`, all above, and a
     random 20% above with a tenth of the cells invisible (-1)."""
@@ -3471,6 +3479,45 @@ def occ_grids(C, G3, gen, dev, thr):
                         high, low)
     mixed[torch.rand(C, G3, generator=gen, device=dev) < 0.1] = -1.0
     return (("empty", low), ("full", high), ("random 20%", mixed))
+
+
+def occ_edge_grids(C, G3, gen, dev, thr):
+    """(label, (C, G3) density grid) at occ_compact's tiles
+    (`COMPACT_TILE`): one cell above `thr` among the last 16 of each tile
+    (runs of one entry at every offset from a 16-byte boundary), and
+    ragged runs: tile t holds up to (7 t + 3) mod 19 cells above `thr` at
+    random places, every third tile none (zero aggregates between runs)."""
+    from normal_clustering_nerf_torch.models.occupancy import COMPACT_TILE
+    tiles = -(-G3 // COMPACT_TILE)
+    start = torch.arange(tiles, device=dev) * COMPACT_TILE
+    length = torch.clamp(start + COMPACT_TILE, max=G3) - start
+    low = torch.rand(C, G3, generator=gen, device=dev) * thr
+    one = low.clone()
+    pos = start + length - 16 + torch.randint(0, 16, (C, tiles),
+                                              generator=gen, device=dev)
+    one.scatter_(1, pos, thr + 1.0)
+    t = torch.arange(tiles, device=dev)
+    n = torch.where(t % 3 == 1, 0, (7 * t + 3) % 19)
+    j = torch.arange(19, device=dev)
+    pos = start[:, None] + (torch.rand(C, tiles, 19, generator=gen,
+                                       device=dev)
+                            * length[:, None]).long()
+    pos = torch.where(j < n[:, None], pos, G3).reshape(C, -1)
+    ragged = torch.cat([low, low[:, :1]], 1)
+    ragged.scatter_(1, pos, thr + 1.0)
+    return (("one cell in each tile's last 16", one),
+            ("ragged runs", ragged[:, :G3].contiguous()))
+
+
+def sparse_bitfield(G, gen, dev):
+    """Cascade 0's bitfield with half the supervoxels empty and a
+    twentieth of the others' cells set (the CPU tests' tables input)."""
+    Gc = G // 8
+    sv = torch.rand(Gc, 1, Gc, 1, Gc, 1, generator=gen, device=dev) < 0.5
+    cells = (torch.rand(Gc, 8, Gc, 8, Gc, 8, generator=gen, device=dev)
+             < 0.05) & sv
+    from normal_clustering_nerf_torch.ops.packbits import packbits
+    return packbits(cells.reshape(-1).to(torch.uint8), 0)
 
 
 def refresh_tmp(tr, gen):
@@ -3492,51 +3539,83 @@ def refresh_tmp(tr, gen):
 
 def check_occupancy(tr, rec, gen):
     """K8's three launchers against their plain versions, bit for bit, at
-    G 128 with 1 and 2 cascades on an empty, a full and a random 20% grid
-    with invisible cells (`occ_grids`: occ_compact's counts and lists,
-    occ_merge_pack's grid, bitfield and mean, occ_tables' coarse mask, sv
-    mask and payload on the packed bits); then on the trained grid and a
-    sampled refresh's sigma grid (`refresh_tmp`), whose calls are kept in
-    `rec` for `time_kernels`."""
+    the trained grid's G and at OCC_SIZES, with 1 and 2 cascades, on an
+    empty, a full and a random 20% grid with invisible cells (`occ_grids`)
+    and on `occ_edge_grids` (occ_compact's counts and the first count
+    entries of each list, occ_merge_pack's grid, bitfield and mean,
+    occ_tables' coarse mask, sv mask and payload on the packed bits), and
+    occ_tables on a `sparse_bitfield` at each G and on bitfields 4 and 1
+    bytes off 16-byte alignment; then on the trained grid and a sampled
+    refresh's sigma grid (`refresh_tmp`), whose calls are kept in `rec`
+    for `time_kernels`."""
     from normal_clustering_nerf_torch.models import occupancy as oc
     dev, G = tr.device, tr.cfg.model.grid_size
     G3, thr = G ** 3, tr.density_threshold()
     chk, errs = Check(), {"occ_compact": 0.0, "occ_merge_pack": 0.0,
                           "occ_tables": 0.0}
-    log(f"K8 at G {G}: occ_compact, occ_merge_pack, occ_tables against "
-        f"their plain versions")
+    log(f"K8 at G {G} and {OCC_SIZES}: occ_compact, occ_merge_pack, "
+        f"occ_tables against their plain versions")
 
-    def compare(label, grid, tmp):
+    def same(label, name, got, want, kernel, quiet):
+        errs[kernel] = max(errs[kernel], chk.equal(f"{label}: {name}", got,
+                                                   want, quiet))
+
+    def summary(label, since):
+        bad = len(chk.failures) - since
+        log(f"  {label}: {f'{bad} comparisons differ FAIL' if bad else 'ok'}")
+
+    def tables(label, bits, G, quiet):
+        got = oc.occ_tables(bits, G)
+        want = (oc.coarse_occupancy(bits, G),
+                *oc.supervoxel_tables(bits, G))
+        for name, a, b in zip(("coarse_occ", "sv_mask", "sv_payload"),
+                              got, want):
+            same(label, name, a, b, "occ_tables", quiet)
+
+    def compare(label, G, grid, tmp, quiet=False):
+        since = len(chk.failures)
         lst, n = oc.occ_compact(grid, thr)
         plst, pn = oc.occ_compact_plain(grid, thr)
-        e = chk.equal(f"{label}: occupied counts", n, pn)
+        same(label, "occupied counts", n, pn, "occ_compact", quiet)
         for c in range(grid.shape[0]):
             k = int(pn[c])
-            e = max(e, chk.equal(f"{label}: cascade {c}'s list ({k} cells)",
-                                 lst[c, :k], plst[c, :k]))
-        errs["occ_compact"] = max(errs["occ_compact"], e)
+            same(label, f"cascade {c}'s list ({k} cells)", lst[c, :k],
+                 plst[c, :k], "occ_compact", quiet)
         got = oc.occ_merge_pack(grid, tmp, 0.95, thr)
         want = oc.occ_merge_pack_plain(grid, tmp, 0.95, thr)
-        errs["occ_merge_pack"] = max(errs["occ_merge_pack"], *(
-            chk.equal(f"{label}: {name}", a, b)
-            for name, a, b in zip(("grid'", "bitfield", "mean"), got, want)))
-        tables = oc.occ_tables(got[1], G)
-        plain = (oc.coarse_occupancy(got[1], G),
-                 *oc.supervoxel_tables(got[1], G))
-        errs["occ_tables"] = max(errs["occ_tables"], *(
-            chk.equal(f"{label}: {name}", a, b) for name, a, b in zip(
-                ("coarse_occ", "sv_mask", "sv_payload"), tables, plain)))
+        for name, a, b in zip(("grid'", "bitfield", "mean"), got, want):
+            same(label, name, a, b, "occ_merge_pack", quiet)
+        tables(label, got[1], G, quiet)
+        if quiet:
+            summary(f"{label}: counts {pn.tolist()}", since)
         return got
 
-    for C in (1, 2):
-        for label, grid in occ_grids(C, G3, gen, dev, thr):
-            tmp = torch.where(torch.rand(C, G3, generator=gen, device=dev)
-                              < 0.25, 3 * thr * torch.rand(
-                                  C, G3, generator=gen, device=dev), 0.0)
-            compare(f"C {C}, {label}", grid.contiguous(), tmp)
+    for g in (G, *OCC_SIZES):
+        g3 = g ** 3
+        for C in (1, 2):
+            grids = occ_grids(C, g3, gen, dev, thr) + occ_edge_grids(
+                C, g3, gen, dev, thr)
+            for label, grid in grids:
+                tmp = torch.where(
+                    torch.rand(C, g3, generator=gen, device=dev) < 0.25,
+                    3 * thr * torch.rand(C, g3, generator=gen, device=dev),
+                    0.0)
+                compare(f"G {g}, C {C}, {label}", g, grid.contiguous(), tmp,
+                        quiet=g != G)
+        since = len(chk.failures)
+        bits = sparse_bitfield(g, gen, dev)
+        tables(f"G {g}, sparse bitfield", bits, g, True)
+        for off in (4, 1):
+            buf = torch.zeros(bits.numel() + 16, dtype=torch.uint8,
+                              device=dev)
+            view = buf[off:off + bits.numel()]
+            view.copy_(bits)
+            tables(f"G {g}, bitfield {off} bytes off", view, g, True)
+        summary(f"G {g}, a sparse bitfield, aligned and 4 and 1 bytes off",
+                since)
     grid = tr.occ.density_grid
     tmp = refresh_tmp(tr, gen)
-    bits = compare(f"the trained grid (step {tr.step})", grid, tmp)[1]
+    bits = compare(f"the trained grid (step {tr.step})", G, grid, tmp)[1]
     chk.done("K8 against its plain versions")
     n, n_occ = grid.numel(), int(oc.occ_compact_plain(grid, thr)[1].sum())
     rec["occ_compact"] = dict(

@@ -35,7 +35,7 @@ from ..ops.ray_march import _div
 # the MERGE_BLOCKS blocks of MERGE_THREADS lanes, then across the blocks
 MERGE_BLOCKS = MERGE_THREADS = 256
 COLUMNS = MERGE_BLOCKS * MERGE_THREADS
-COMPACT_TILE = 4096   # occ_compact's cells a block
+COMPACT_TILE = 16384   # occ_compact's cells a block
 # cameras per chunk of mark_invisible_cells: at G = 128 one camera's
 # projected cells are 3 x 128^3 floats (25 MB); 8 cameras keep the
 # intermediate at ~200 MB instead of the 1.2 GB of all 48 at once

@@ -5,7 +5,11 @@ refresh with no host read.
 
 - `occ_compact`: the occupied list and its count against JAX's cumsum
   list (occupancy.py:164-168, run with jnp as written there): empty, full,
-  one cell, a 20% share, G 32 and 64, C 1 and 2. Exact.
+  one cell, a 20% share, and the card smoke's edge grids
+  (`chip_smoke.occ_edge_grids`: a cell in each tile's last 16, ragged
+  runs, each checked to be as described), G 8, 24, 32, 40 and 64 (G 8
+  and 24: one tile, odd strides; G 40: a short last tile), C 1 and 2.
+  Exact.
 - The occupied draws: ranks to cells with JAX's draws (`sample_update_cells`
   against JAX's, cascades 1 and 2), and the uniforms' mapping. Exact.
 - The merge, the fixed-order mean and the pack against JAX's expressions
@@ -13,7 +17,9 @@ refresh with no host read.
   (every sum exact in f32, so any order gives JAX's bits), and the order
   itself against a numpy emulation on random values. Exact.
 - The tables against `supervoxel_tables` / `coarse_occupancy` of JAX:
-  random bits with bit-31 words, all zero, all one. Exact.
+  random bits with bit-31 words, all zero, all one, at G 8, 24, 32 and 64
+  (Gc 1 and 3: the borders and odd strides of `occ_tables`' byte path).
+  Exact.
 - `update` with every host read patched to raise.
 """
 import jax
@@ -22,6 +28,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from test_torch_common import CPU, J, N, T
 
 from normal_clustering_nerf_torch.config import ModelConfig as TM
@@ -61,10 +68,37 @@ def _jax_list(grid_c, thr):
     return np.asarray(occ_list), int(n_occ)
 
 
-@pytest.mark.parametrize("kind", ["empty", "full", "one", "p20"])
-@pytest.mark.parametrize("C,G", [(1, 32), (2, 64)])
+EDGE = {"edge": "one cell in each tile's last 16", "ragged": "ragged runs"}
+
+
+def _edge_grid(kind, C, G, seed):
+    """The card smoke's `occ_edge_grids` at THR, held to what its checks
+    rely on: one cell above THR in each of occ_compact's tiles, among its
+    last 16; ragged runs of at most (7 t + 3) mod 19 cells in tile t, none
+    in every third tile."""
+    gen = torch.Generator().manual_seed(seed)
+    grid = N(dict(chip_smoke.occ_edge_grids(C, G ** 3, gen, CPU,
+                                            THR))[EDGE[kind]])
+    tile = to.COMPACT_TILE
+    for c in range(C):
+        for t, s in enumerate(range(0, G ** 3, tile)):
+            above = np.flatnonzero(grid[c, s:s + tile] > THR)
+            if kind == "edge":
+                assert above.size == 1
+                assert above[0] >= min(tile, G ** 3 - s) - 16
+            else:
+                assert above.size <= (7 * t + 3) % 19
+                assert above.size == 0 or t % 3 != 1
+    assert (grid > THR).any()
+    return grid
+
+
+@pytest.mark.parametrize("kind", ["empty", "full", "one", "p20", "edge",
+                                  "ragged"])
+@pytest.mark.parametrize("C,G", [(1, 32), (2, 64), (1, 8), (2, 24),
+                                 (2, 40)])
 def test_occ_compact_matches_jax_list(kind, C, G):
-    grid = _grid(kind, C, G, seed=G + C)
+    grid = (_edge_grid if kind in EDGE else _grid)(kind, C, G, seed=G + C)
     lst, count = to.occ_compact(T(grid), THR)
     assert lst.shape == (C, G ** 3) and lst.dtype == torch.int32
     for c in range(C):
@@ -189,7 +223,7 @@ def test_fixed_order_sum_is_k8s_order():
 
 
 @pytest.mark.parametrize("kind", ["random", "zero", "one"])
-@pytest.mark.parametrize("G", [32, 64])
+@pytest.mark.parametrize("G", [32, 64, 8, 24])
 def test_tables_match_jax(kind, G):
     rng = np.random.default_rng(G)
     n = G ** 3 // 8
@@ -206,7 +240,7 @@ def test_tables_match_jax(kind, G):
     np.testing.assert_array_equal(N(payload), np.asarray(p_ref))
     np.testing.assert_array_equal(N(coarse),
                                   np.asarray(jo.coarse_occupancy(J(bf), G)))
-    if kind == "random":
+    if kind == "random" and Gc > 1:   # G 8: one supervoxel, no bit 31
         assert (np.asarray(p_ref) < 0).any() and not np.asarray(m_ref).all()
     if kind == "one":
         assert (N(payload) == -1).all() and N(coarse).all()

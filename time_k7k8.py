@@ -25,6 +25,12 @@ has captured it). Then:
 - it times a sampled refresh, `Trainer.occ_update(warmup=False)`: the
   host's time to queue one (the median of REPS), and the card's (REPS
   refreshes queued behind a sleep, by CUDA events);
+- it times K8's three launchers on that refresh's inputs at the trained
+  grid (`models/occupancy.py`): `occ_compact` on the density grid,
+  `occ_merge_pack` on the grid and a sampled refresh's sigma grid
+  (`chip_smoke.refresh_tmp`), `occ_tables` on the bitfield that pack
+  writes, each with `device_ms`; and the first two at 2 cascades, the
+  trained grid and its sigma grid twice (`k8_times`);
 - it traces (torch.profiler) a chunk of 16 graph steps
   (`train_chunk(16)`): the card's busy ms a step, split as the bench's
   profile splits it, and its launches a step; and a window of a refresh
@@ -45,6 +51,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from chip_smoke import refresh_tmp
 from time_encodes import device_ms
 
 STEPS = 576    # the smoke's main path: 512 bootstrap steps, 64 sv steps
@@ -94,6 +101,24 @@ def refresh_ms(tr):
     return sorted(host)[REPS // 2] * 1e3, start.elapsed_time(end) / REPS
 
 
+def k8_times(occupancy, grid, tmp, thr, G):
+    """Device ms of K8's launchers on (1, G^3) inputs: occ_compact,
+    occ_merge_pack and occ_tables (on the bitfield the pack writes) at one
+    cascade, occ_compact and occ_merge_pack at two (the inputs twice)."""
+    bits = occupancy.occ_merge_pack(grid, tmp, 0.95, thr)[1]
+    grid2, tmp2 = torch.cat([grid, grid]), torch.cat([tmp, tmp])
+    return {
+        "G": G, "occupied": int((grid > thr).sum()),
+        "occ_compact_ms": device_ms(lambda: occupancy.occ_compact(grid, thr)),
+        "occ_merge_pack_ms": device_ms(
+            lambda: occupancy.occ_merge_pack(grid, tmp, 0.95, thr)),
+        "occ_tables_ms": device_ms(lambda: occupancy.occ_tables(bits, G)),
+        "occ_compact_ms_2_cascades": device_ms(
+            lambda: occupancy.occ_compact(grid2, thr)),
+        "occ_merge_pack_ms_2_cascades": device_ms(
+            lambda: occupancy.occ_merge_pack(grid2, tmp2, 0.95, thr))}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=os.path.dirname(
@@ -114,6 +139,7 @@ def main():
     from normal_clustering_nerf_torch.bench import (bench_config,
                                                     build_trainer,
                                                     split_device_time)
+    from normal_clustering_nerf_torch.models import occupancy
     from normal_clustering_nerf_torch.ops import kmeans
     torch.backends.cuda.matmul.allow_tf32 = False
     tr = build_trainer(bench_config(), device="cuda")
@@ -157,6 +183,9 @@ def main():
     tr.fit(-tr.step % CHUNK)
     host, dev = refresh_ms(tr)
     out["sampled refresh"] = {"host_ms": host, "device_ms": dev}
+    out["K8 launchers"] = k8_times(occupancy, tr.occ.density_grid,
+                                   refresh_tmp(tr, gen),
+                                   tr.density_threshold(), tr.occ_grid.G)
 
     ev = traced(lambda: tr.train_chunk(CHUNK, False))
     split, launches = split_device_time(ev, CHUNK) if ev else ({}, 0)
