@@ -103,11 +103,13 @@ Phases (any failed check raises, so the script exits non-zero):
      K 30 and 30 rounds, 262,144 with the rows read from global memory,
      all rows invalid, one-ulp near-ties, K 12, 20, 33, 64 and 256,
      merge_clusters and find_opposite off), and K 257 refused; K8's
-     three launchers bit for bit at G 128 with 1 and 2 cascades on an
-     empty, a full and a random 20% grid with invisible cells, and on the
-     trained grid with a sampled
-     refresh's sigma grid; K1 and H9-H11 against their plain versions on
-     the trained occupancy,
+     launchers bit for bit at G 128 and `OCC_SIZES` with 1, 2 and 3
+     cascades (`check_occupancy`: empty, full, random 20% with invisible
+     cells, a sigma grid with NaN, every cell invisible, occ_compact's
+     edge grids; occ_merge_pack also against a second launch of its own;
+     occ_union on 1-4 ranks' bitfields), and on the trained grid with a
+     sampled refresh's sigma grid; K1 and H9-H11 against their plain
+     versions on the trained occupancy,
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
      T_start on a flat test round), H3's segment backward on segments of
@@ -265,12 +267,13 @@ Phases (any failed check raises, so the script exits non-zero):
   launcher (`parallel.launch.spawn`) sharing the one card over gloo, the
   bench configuration at 2 x 4096 rays, 48 counted steps through
   `Trainer.fit` (refreshes merged at 0, 16, 32): each rank's bootstrap
-  kernels launched, the loss falling, parameters, moments and occupancy
-  bit-identical across the ranks; one step's averaged update against a
-  one-process reference (rank 0 takes each rank's half-batch step from
-  the same state and generator state, twice, and averages: within 2x
-  the reference's spread + 2^-20 of the largest value, the spread of
-  H2's fp32 atomics); with more than one card visible, NCCL over all of
+  kernels launched and `occ_union` once a merge, the loss falling,
+  parameters, moments and occupancy bit-identical across the ranks; one
+  step's averaged update against a one-process reference (rank 0 takes
+  each rank's half-batch step from the same state and generator state,
+  twice, and averages: within 2x the reference's spread + 2^-20 of the
+  largest value, the spread of H2's fp32 atomics); a merge's time; with
+  more than one card visible, NCCL over all of
   them: 64 counted steps with the all-reduce inside each rank's CUDA
   graph, 16 replays held to eager steps (as in 7.), the replicas again,
   a timed window of 64 steps, a traced chunk (the NCCL kernels' device
@@ -3538,25 +3541,32 @@ def refresh_tmp(tr, gen):
 
 
 def check_occupancy(tr, rec, gen):
-    """K8's three launchers against their plain versions, bit for bit, at
-    the trained grid's G and at OCC_SIZES, with 1 and 2 cascades, on an
-    empty, a full and a random 20% grid with invisible cells (`occ_grids`)
-    and on `occ_edge_grids` (occ_compact's counts and the first count
-    entries of each list, occ_merge_pack's grid, bitfield and mean,
-    occ_tables' coarse mask, sv mask and payload on the packed bits), and
-    occ_tables on a `sparse_bitfield` at each G and on bitfields 4 and 1
-    bytes off 16-byte alignment; then on the trained grid and a sampled
-    refresh's sigma grid (`refresh_tmp`), whose calls are kept in `rec`
-    for `time_kernels`."""
+    """K8's launchers against their plain versions, bit for bit, at the
+    trained grid's G and at OCC_SIZES, with 1, 2 and 3 cascades (at G 256
+    and 2 or 3 cascades past what occ_merge_pack's blocks keep on the
+    SMs, so that its pack re-reads grid'), on an empty, a full and a
+    random 20% grid with invisible cells (`occ_grids`), the last also with
+    a sigma grid holding NaN, on an all-invisible grid and on
+    `occ_edge_grids` (occ_compact's counts and the first count entries of
+    each list, occ_merge_pack's grid, bitfield and mean, and the same from
+    a second launch on the same inputs, occ_tables' coarse mask, sv mask
+    and payload on the packed bits), and occ_tables on a
+    `sparse_bitfield` at each G and on bitfields 4 and 1 bytes off 16-byte
+    alignment; occ_union on 1-4 ranks' bitfields at G 8 and the trained
+    G; then on the trained grid and a sampled refresh's sigma grid
+    (`refresh_tmp`), whose calls are kept in `rec` for `time_kernels`,
+    with occ_union on two ranks' bitfields (the gloo phase's merge)."""
     from normal_clustering_nerf_torch.models import occupancy as oc
     dev, G = tr.device, tr.cfg.model.grid_size
     G3, thr = G ** 3, tr.density_threshold()
     chk, errs = Check(), {"occ_compact": 0.0, "occ_merge_pack": 0.0,
-                          "occ_tables": 0.0}
+                          "occ_tables": 0.0, "occ_union": 0.0}
     log(f"K8 at G {G} and {OCC_SIZES}: occ_compact, occ_merge_pack, "
-        f"occ_tables against their plain versions")
+        f"occ_tables, occ_union against their plain versions")
 
     def same(label, name, got, want, kernel, quiet):
+        if got.is_floating_point():   # NaN where the plain version has it
+            got, want = (torch.where(t.isnan(), -7.0, t) for t in (got, want))
         errs[kernel] = max(errs[kernel], chk.equal(f"{label}: {name}", got,
                                                    want, quiet))
 
@@ -3583,25 +3593,41 @@ def check_occupancy(tr, rec, gen):
                  plst[c, :k], "occ_compact", quiet)
         got = oc.occ_merge_pack(grid, tmp, 0.95, thr)
         want = oc.occ_merge_pack_plain(grid, tmp, 0.95, thr)
-        for name, a, b in zip(("grid'", "bitfield", "mean"), got, want):
+        again = oc.occ_merge_pack(grid, tmp, 0.95, thr)
+        for name, a, b, c in zip(("grid'", "bitfield", "mean"), got, want,
+                                 again):
             same(label, name, a, b, "occ_merge_pack", quiet)
+            if a.is_floating_point():
+                a, c = a.view(torch.int32), c.view(torch.int32)
+            same(label, f"{name}, a second launch's = the first's", c, a,
+                 "occ_merge_pack", quiet)
         tables(label, got[1], G, quiet)
         if quiet:
-            summary(f"{label}: counts {pn.tolist()}", since)
+            summary(f"{label}: counts {pn.tolist()}, mean "
+                    f"{float(want[2]):.6f}", since)
         return got
+
+    def sigma(C, g3):
+        return torch.where(
+            torch.rand(C, g3, generator=gen, device=dev) < 0.25,
+            3 * thr * torch.rand(C, g3, generator=gen, device=dev), 0.0)
 
     for g in (G, *OCC_SIZES):
         g3 = g ** 3
-        for C in (1, 2):
+        for C in (1, 2, 3):
             grids = occ_grids(C, g3, gen, dev, thr) + occ_edge_grids(
                 C, g3, gen, dev, thr)
             for label, grid in grids:
-                tmp = torch.where(
-                    torch.rand(C, g3, generator=gen, device=dev) < 0.25,
-                    3 * thr * torch.rand(C, g3, generator=gen, device=dev),
-                    0.0)
-                compare(f"G {g}, C {C}, {label}", g, grid.contiguous(), tmp,
-                        quiet=g != G)
+                compare(f"G {g}, C {C}, {label}", g, grid.contiguous(),
+                        sigma(C, g3), quiet=g != G)
+            tmp = sigma(C, g3)
+            tmp[torch.rand(C, g3, generator=gen, device=dev) < 0.01] = \
+                float("nan")
+            compare(f"G {g}, C {C}, random 20%, sigma 1% NaN", g,
+                    grids[2][1].contiguous(), tmp, quiet=g != G)
+            compare(f"G {g}, C {C}, every cell invisible", g,
+                    torch.full((C, g3), -1.0, device=dev), sigma(C, g3),
+                    quiet=g != G)
         since = len(chk.failures)
         bits = sparse_bitfield(g, gen, dev)
         tables(f"G {g}, sparse bitfield", bits, g, True)
@@ -3613,6 +3639,17 @@ def check_occupancy(tr, rec, gen):
             tables(f"G {g}, bitfield {off} bytes off", view, g, True)
         summary(f"G {g}, a sparse bitfield, aligned and 4 and 1 bytes off",
                 since)
+    since = len(chk.failures)
+    for nbytes in (8 ** 3 // 8, G3 // 8):
+        for world in (1, 2, 3, 4):
+            rows = torch.randint(0, 256, (world, nbytes), generator=gen,
+                                 device=dev, dtype=torch.uint8)
+            rows[:, 0] = 1 << torch.arange(world, device=dev,
+                                           dtype=torch.uint8)
+            same(f"{world} ranks' {nbytes} bytes", "union", oc.occ_union(rows),
+                 oc.occ_union_plain(rows), "occ_union", True)
+    summary(f"occ_union of 1-4 ranks' bitfields of 64 and {G3 // 8} bytes",
+            since)
     grid = tr.occ.density_grid
     tmp = refresh_tmp(tr, gen)
     bits = compare(f"the trained grid (step {tr.step})", G, grid, tmp)[1]
@@ -3636,6 +3673,16 @@ def check_occupancy(tr, rec, gen):
         plain=lambda: (oc.coarse_occupancy(bits, G),
                        *oc.supervoxel_tables(bits, G)),
         bound=bound(G3 // 8 + Gc3 * (2 + 64), 0))
+    # two ranks' bitfields, as the gloo phase's merge gathers them; one
+    # torch call ORs two rows
+    rows = torch.stack([bits, oc.occ_merge_pack(grid, sigma(1, G3), 0.95,
+                                                thr)[1]])
+    rec["occ_union"] = dict(
+        err=errs["occ_union"],
+        kernel=lambda: oc.occ_union(rows),
+        plain=lambda: oc.occ_union_plain(rows),
+        library=lambda: torch.bitwise_or(rows[0], rows[1]),
+        bound=bound(3 * rows.shape[1], 0))
     log(f"  trained grid: {n_occ} of {n} cells above {thr:.4f}")
 
 
@@ -3754,6 +3801,9 @@ REPLACES = {
     "occ_compact": "normal_clustering_nerf_tpu/models/occupancy.py:143",
     "occ_merge_pack": "normal_clustering_nerf_tpu/models/occupancy.py:179",
     "occ_tables": "normal_clustering_nerf_tpu/models/occupancy.py:68",
+    # the OR of several cards' bitfields (merge_across_chips' pmax of the
+    # unpacked bits)
+    "occ_union": "normal_clustering_nerf_tpu/models/occupancy.py:295",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
@@ -3768,7 +3818,8 @@ LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "brick_fwd_jac": "H13", "brick_contract": "H13",
          "hash_grid_fwd_jac": "H14",
          "hash_grid_contract": "H14", "kmeans_cluster": "K7",
-         "occ_compact": "K8", "occ_merge_pack": "K8", "occ_tables": "K8"}
+         "occ_compact": "K8", "occ_merge_pack": "K8", "occ_tables": "K8",
+         "occ_union": "K8"}
 
 
 def time_kernels(rec):
@@ -5704,14 +5755,16 @@ def check_replicas(tr, tag):
 
 def rank_training(tr, name, n_steps):
     """`n_steps` counted steps through `Trainer.fit` on every rank: each
-    rank's counts of the bootstrap kernels > 0 and K1's 0, the loss
+    rank's counts of the bootstrap kernels > 0, K1's 0 and occ_union's one
+    a refresh (each refresh's merge ORs the ranks' bitfields), the loss
     falling (the mean of the last 6 steps under the first 6's), the
     replicas identical. Returns rank 0's history and every rank's
     counts."""
     from normal_clustering_nerf_torch.training.distributed import (
         gather_objects)
     hist, counts, _ = train(tr, name, (("bootstrap", n_steps),),
-                            BOOT_KERNELS, {"march_sv_train": 0})
+                            BOOT_KERNELS, {"march_sv_train": 0,
+                                           "occ_union": -(-n_steps // 16)})
     every = gather_objects(tr.axis, counts)
     missing = [(r, k) for r, c in enumerate(every) for k in BOOT_KERNELS
                if c[k] == 0]
@@ -5806,7 +5859,8 @@ def averaged_update_parity(tr):
 def gloo_rank(t0):
     """A rank of the gloo run on one card: the bench configuration at
     DIST_RANKS x 4096 rays, DIST_STEPS steps, then the averaged update's
-    parity. Returns (on rank 0) what the phase reports."""
+    parity and a merge's time. Returns (on rank 0) what the phase
+    reports."""
     global T0, MUTED
     T0 = t0
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5825,13 +5879,14 @@ def gloo_rank(t0):
     parity = averaged_update_parity(tr)
     check_replicas(tr, "gloo, after the parity step")
     return {"losses": [hist[0]["loss_total"], hist[-1]["loss_total"]],
-            "launches": every, "parity": parity}
+            "launches": every, "parity": parity, "merge_ms": merge_ms(tr)}
 
 
 def merge_ms(tr, reps=5):
     """Device ms of one merge of the trainer's occupancy (the MAX of the
-    grids and of the unpacked bits, the tables rebuilt): CUDA events on
-    rank 0 around each, every rank's card idle before; the median."""
+    grids, the ranks' bitfields gathered and ORed, the tables rebuilt):
+    CUDA events on rank 0 around each, every rank's card idle before; the
+    median."""
     from normal_clustering_nerf_torch.models.occupancy import OccupancyGrid
     from normal_clustering_nerf_torch.training.distributed import barrier
     ms = []
@@ -5990,7 +6045,7 @@ def distributed_path(launches, smi):
                 local_ranks=[0] * DIST_RANKS)
     log(f"distributed path, gloo: loss {res['losses'][0]:.6f} -> "
         f"{res['losses'][1]:.6f}, averaged update within "
-        f"{json.dumps(res['parity'])}")
+        f"{json.dumps(res['parity'])}, merge {res['merge_ms']:.4f} ms")
     for k, c in res["launches"][0].items():
         launches[k] += c
     cards = torch.cuda.device_count()

@@ -1,4 +1,5 @@
-// K8: the occupancy refresh after the sigma eval, in three launchers.
+// K8: the occupancy refresh after the sigma eval, in three launchers, and
+// the union of several cards' bitfields.
 //
 // Replaces the JAX package's refresh (normal_clustering_nerf_tpu/models/
 // occupancy.py:179-237 `update`, with :143-176 `sample_update_cells`, :44
@@ -32,17 +33,39 @@
 // cell).
 //
 // `occ_merge_pack`: grid' = where(grid < 0, grid, max(grid * decay, tmp))
-// (torch.maximum's NaN rule), the mean of grid's positive cells, thr =
+// (torch.maximum's NaN rule), the mean of grid''s positive cells, thr =
 // min(mean, density_threshold), and the bitfield of grid' > thr, packed
-// little-endian (bit i of byte n = cell 8n + i). Two launches and no float
-// atomics: the merge writes grid' and its sums, a lane per column of a
-// (C G^3 / 65536, 65536) view adding its column's positive cells serially
-// (256 blocks of 256 lanes), each block halving its 256 sums pairwise in
-// shared memory; the pack's blocks each halve the 256 block sums the same
-// way (all get the same mean), and pack 32 cells a thread (eight 16-byte
-// loads, one 32-bit word). The plain version repeats the order with
-// elementwise adds. Bound: grid and tmp read, grid' written, ~25 MB at G
-// 128, C 1 (grid' is read again by the pack: 8 MB more, L2-warm).
+// little-endian (bit i of byte n = cell 8n + i). One launch and no float
+// atomics. Bound: grid and tmp read, grid' written (25 MB at G 128, C 1);
+// the bitfield is an eighth of a grid. The blocks are as many as the card
+// holds at once (two of 512 threads an SM) and walk tiles of 8192 cells,
+// a thread four float4 of grid and of tmp, k-major (a warp's load is 512
+// contiguous bytes), the next tile's loads issued before this tile's sums.
+// A tile's positive sum is taken in a fixed tree (the thread's 16 cells in
+// order, xor shuffles 16..1, then a warp the same over the 16 warp sums)
+// and stored with its count at the tile's index, so the order of the sums
+// is a function of n alone, never of the SM count; the plain version
+// repeats it with elementwise adds. A barrier of the whole grid (an epoch
+// and an arrival count in one word, zeroed once, as look_back.cuh keeps
+// its tickets) follows; then every block adds the tile sums the same way
+// (thread t tiles t, t + 512, ..., the same tree) to the same mean. The
+// pack reads no grid' back where it fits on the SMs: each block keeps its
+// first three tiles (96 KB of shared memory, so up to ~6.5 M cells, three
+// cascades at G 128) and re-reads its others; a warp's 32 quads make 4
+// words by shifts and xor shuffles, one 16-byte store. On the trained grid
+// (one H100, time_k7k8.py) blocks of 1024 threads and tiles of 16384
+// cells took as long at one cascade and 6% longer at two; 256 threads
+// 2-5% longer at both; storing a block's last tile after its arrival at
+// the barrier 14% longer at one; the tile sums as tagged words that every
+// block polls, in place of the barrier, 2-6% longer. An earlier design
+// ran two launches (the merge by columns of a (n / 65536, 65536) view on
+// 256 blocks, then a pack that read grid' back), 2.1x its bound at G 128
+// and 3.4x at 2 cascades, whose 50 MB pass L2's 50 MB.
+//
+// `occ_union`: the OR of several cards' bitfields, all-gathered
+// (`merge_across_chips`), a thread a 16-byte column looping over the
+// ranks (JAX takes the MAX of the unpacked bits, occupancy.py:295-312).
+// Bound: the rows read and the union written.
 //
 // `occ_tables`: from cascade 0's bitfield, the supervoxel-run march's 16
 // words a supervoxel (`sv_payload`: bit L = (lz 8 + ly) 8 + lx, word L >>
@@ -80,10 +103,16 @@ constexpr int TILE = COMPACT_THREADS * QUADS * 4;   // cells a block
 static_assert(QUADS == 4, "occ_compact packs two quad counts a word");
 constexpr int COMPACT_SMEM = (TILE / 4 + 1) * 16;
 
-constexpr int MERGE_BLOCKS = 256;
-constexpr int MERGE_THREADS = 256;
-constexpr int COLUMNS = MERGE_BLOCKS * MERGE_THREADS;
-constexpr int PACK_THREADS = MERGE_BLOCKS;   // a lane a block sum
+constexpr int MERGE_THREADS = 512;
+constexpr int MERGE_WARPS = MERGE_THREADS / 32;
+static_assert(MERGE_WARPS <= 32 && (MERGE_WARPS & (MERGE_WARPS - 1)) == 0,
+              "a warp halves the warp sums");
+constexpr int MERGE_QUADS = 4;   // a thread's float4 of a tile
+constexpr int TILE_QUADS = MERGE_THREADS * MERGE_QUADS;
+constexpr int MERGE_TILE = TILE_QUADS * 4;   // 8192 cells
+constexpr int TILE_BYTES = MERGE_TILE * 4;   // a tile of grid': 32 KB
+constexpr int MERGE_SLOTS = 3;   // tiles of grid' a block keeps (96 KB)
+constexpr int UNION_THREADS = 256;
 
 constexpr int SV_ROWS = 64;          // a supervoxel's (lz, ly) rows of 8 cells
 constexpr int TABLE_THREADS = 256;   // at most, in occ_tables
@@ -207,79 +236,195 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return a != a ? a : (b != b ? b : fmaxf(a, b));
 }
 
-// grid', and each block's sum and count of grid''s positive cells
-__global__ void __launch_bounds__(MERGE_THREADS) occ_merge_kernel(
-    const float* __restrict__ grid, const float* __restrict__ tmp,
-    float decay, int n, float* __restrict__ out,
-    float* __restrict__ part_sum, int* __restrict__ part_cnt) {
-  __shared__ float s_sum[MERGE_THREADS];
-  __shared__ int s_cnt[MERGE_THREADS];
-  const int tid = threadIdx.x;
-  float s = 0.0f;
-  int k = 0;
-#pragma unroll 4
-  for (int i = blockIdx.x * MERGE_THREADS + tid; i < n; i += COLUMNS) {
-    const float g = __ldg(grid + i);
-    const float m = g < 0.0f ? g : nan_max(__fmul_rn(g, decay), __ldg(tmp + i));
-    out[i] = m;
-    if (m > 0.0f) {
-      s = __fadd_rn(s, m);
-      ++k;
-    }
+__device__ __forceinline__ float merge1(float g, float t, float decay) {
+  return g < 0.0f ? g : nan_max(__fmul_rn(g, decay), t);
+}
+
+// s added over the warp's lanes by xor shuffles 16..1: every lane gets the
+// halvings' sum (lane i + lane i + h, h = 16..1; an add is commutative)
+__device__ __forceinline__ float warp_halvings(float s) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(FULL, s, o));
+  return s;
+}
+
+// The block's sum of every thread's s, and its count, the same in every
+// thread: the lanes' halvings, then the MERGE_WARPS warp sums (in s_sum /
+// s_cnt, read after the barrier inside) halved the same way.
+__device__ __forceinline__ float block_halvings(float s, int c, float* s_sum,
+                                                int* s_cnt, int& count) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  s = warp_halvings(s);
+  c = __reduce_add_sync(FULL, c);
+  if (lane == 0) {
+    s_sum[warp] = s;
+    s_cnt[warp] = c;
   }
-  s_sum[tid] = s;
-  s_cnt[tid] = k;
   __syncthreads();
-  for (int h = MERGE_THREADS / 2; h > 0; h >>= 1) {
-    if (tid < h) {
-      s_sum[tid] = __fadd_rn(s_sum[tid], s_sum[tid + h]);
-      s_cnt[tid] += s_cnt[tid + h];
-    }
-    __syncthreads();
+  // +0.0 past the warps: the halvings over 32 lanes are those over them
+  count = __reduce_add_sync(FULL, lane < MERGE_WARPS ? s_cnt[lane] : 0);
+  return warp_halvings(lane < MERGE_WARPS ? s_sum[lane] : 0.0f);
+}
+
+// A barrier of the whole grid, whose blocks are all resident: word holds
+// the epoch (high half) and the arrivals (low half); the last block to
+// arrive starts the next epoch with no arrivals, which releases the
+// others. The word is zeroed once, when it is made, and comes back to 0
+// arrivals after every call, whatever the grid.
+__device__ __forceinline__ void grid_barrier(unsigned long long* word) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    const unsigned long long t = atomicAdd(word, 1ull);
+    if (static_cast<unsigned>(t) == gridDim.x - 1)
+      atomicExch(word, ((t >> 32) + 1) << 32);
+    else
+      while ((scan::load_status(word) >> 32) == (t >> 32)) __nanosleep(64);
+    __threadfence();
   }
-  if (tid == 0) {
-    part_sum[blockIdx.x] = s_sum[0];
-    part_cnt[blockIdx.x] = s_cnt[0];
+  __syncthreads();
+}
+
+__device__ __forceinline__ void load_tile(const float4* __restrict__ grid,
+                                          const float4* __restrict__ tmp,
+                                          int p, int nq, float4* g,
+                                          float4* t) {
+#pragma unroll
+  for (int k = 0; k < MERGE_QUADS; ++k) {
+    const int q = p * TILE_QUADS + k * MERGE_THREADS + threadIdx.x;
+    if (q < nq) {
+      g[k] = __ldg(grid + q);
+      t[k] = __ldg(tmp + q);
+    }
   }
 }
 
-// the mean (every block the same halvings), thr, and the bitfield
-__global__ void __launch_bounds__(PACK_THREADS) occ_pack_kernel(
-    const float* __restrict__ grid, int n, const float* __restrict__ part_sum,
-    const int* __restrict__ part_cnt, float density_threshold,
-    unsigned* __restrict__ bits, float* __restrict__ mean_out) {
-  __shared__ float s_sum[MERGE_BLOCKS];
-  __shared__ int s_cnt[MERGE_BLOCKS];
-  __shared__ float s_thr;
-  const int tid = threadIdx.x;
-  s_sum[tid] = part_sum[tid];
-  s_cnt[tid] = part_cnt[tid];
-  __syncthreads();
-  for (int h = MERGE_BLOCKS / 2; h > 0; h >>= 1) {
-    if (tid < h) {
-      s_sum[tid] = __fadd_rn(s_sum[tid], s_sum[tid + h]);
-      s_cnt[tid] += s_cnt[tid + h];
-    }
-    __syncthreads();
+// the thread's quads of a tile into grid' and, where the block keeps the
+// tile, into its slot `keep`
+__device__ __forceinline__ void store_tile(const float4 (&m)[MERGE_QUADS],
+                                           int q0, int nq,
+                                           float4* __restrict__ out,
+                                           float4* keep) {
+#pragma unroll
+  for (int k = 0; k < MERGE_QUADS; ++k) {
+    const int q = q0 + k * MERGE_THREADS;
+    if (q >= nq) continue;
+    out[q] = m[k];
+    if (keep) keep[k * MERGE_THREADS + threadIdx.x] = m[k];
   }
+}
+
+// grid', the mean of its positive cells, thr and the bitfield in one
+// launch of resident blocks (see the launcher). Tile p: cells p MERGE_TILE
+// and on; quad k of thread t is the tile's quad k MERGE_THREADS + t. A
+// block's next tile is loaded while its tile's sums are taken.
+__global__ void __launch_bounds__(MERGE_THREADS, 2) occ_merge_pack_kernel(
+    const float4* __restrict__ grid, const float4* __restrict__ tmp,
+    float decay, float density_threshold, int n, int tiles, int slots,
+    unsigned long long* __restrict__ barrier, float* __restrict__ part_sum,
+    int* __restrict__ part_cnt, float4* __restrict__ out,
+    uint4* __restrict__ bits, float* __restrict__ mean_out) {
+  // the block's first `slots` tiles of grid', as the threads hold them
+  extern __shared__ float4 s_keep[];
+  __shared__ float s_sum[2][MERGE_WARPS];
+  __shared__ int s_cnt[2][MERGE_WARPS];
+  __shared__ float s_thr;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int nq = n / 4;
+  float4 g[MERGE_QUADS], t[MERGE_QUADS];
+  load_tile(grid, tmp, blockIdx.x, nq, g, t);
+  int j = 0;
+  for (int p = blockIdx.x; p < tiles; p += gridDim.x, ++j) {
+    const int q0 = p * TILE_QUADS + tid;
+    // the thread's positive cells added in order, quad by quad
+    float4 m[MERGE_QUADS];
+    float s = 0.0f;
+    int c = 0;
+#pragma unroll
+    for (int k = 0; k < MERGE_QUADS; ++k) {
+      m[k] = make_float4(merge1(g[k].x, t[k].x, decay),
+                         merge1(g[k].y, t[k].y, decay),
+                         merge1(g[k].z, t[k].z, decay),
+                         merge1(g[k].w, t[k].w, decay));
+      if (q0 + k * MERGE_THREADS >= nq) continue;
+      const float v[4] = {m[k].x, m[k].y, m[k].z, m[k].w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (v[e] > 0.0f) {
+          s = __fadd_rn(s, v[e]);
+          ++c;
+        }
+    }
+    store_tile(m, q0, nq, out, j < slots ? s_keep + j * TILE_QUADS : nullptr);
+    if (p + gridDim.x < tiles) load_tile(grid, tmp, p + gridDim.x, nq, g, t);
+    // two buffers in turn: the next tile's warp sums never overwrite
+    // those warp 0 still reads
+    int count;
+    const float sum = block_halvings(s, c, s_sum[j & 1], s_cnt[j & 1], count);
+    if (tid == 0) {
+      part_sum[p] = sum;
+      part_cnt[p] = count;
+    }
+  }
+  grid_barrier(barrier);
+  // every block the same sum of the tile sums: thread t adds tiles t,
+  // t + MERGE_THREADS, ... in order, then the block's halvings
+  float s = 0.0f;
+  int c = 0;
+  for (int p = tid; p < tiles; p += MERGE_THREADS) {
+    s = __fadd_rn(s, __ldcg(part_sum + p));
+    c += __ldcg(part_cnt + p);
+  }
+  int count;
+  const float sum = block_halvings(s, c, s_sum[0], s_cnt[0], count);
   if (tid == 0) {
-    const float mean =
-        __fdiv_rn(s_sum[0], static_cast<float>(max(s_cnt[0], 1)));
+    const float mean = __fdiv_rn(sum, static_cast<float>(max(count, 1)));
     s_thr = mean != mean ? mean : fminf(mean, density_threshold);
     if (blockIdx.x == 0) *mean_out = mean;
   }
   __syncthreads();
   const float thr = s_thr;
-  for (int w = blockIdx.x * PACK_THREADS + tid; w < n / 32;
-       w += gridDim.x * PACK_THREADS) {
-    const float4* q = reinterpret_cast<const float4*>(grid) + 8 * w;
-    unsigned word = 0;
+  // the pack: a warp's 32 quads (128 cells) are 4 words, lanes 8w..8w+7
+  // building word w by shifts and xor shuffles, lane 0 storing the 16
+  // bytes; the values from shared memory, past `slots` tiles from grid'
+  // (this thread's own stores)
+  j = 0;
+  for (int p = blockIdx.x; p < tiles; p += gridDim.x, ++j) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      word |= above(q[k], thr) << (4 * k);
+    for (int k = 0; k < MERGE_QUADS; ++k) {
+      const int q = p * TILE_QUADS + k * MERGE_THREADS + tid;
+      if (q - lane >= nq) continue;   // nq is a multiple of 32: whole warps
+      const float4 v = j < slots
+                           ? s_keep[j * TILE_QUADS + k * MERGE_THREADS + tid]
+                           : __ldcg(out + q);
+      unsigned w = above(v, thr) << 4 * (lane & 7);
+      w |= __shfl_xor_sync(FULL, w, 1);
+      w |= __shfl_xor_sync(FULL, w, 2);
+      w |= __shfl_xor_sync(FULL, w, 4);
+      const unsigned w1 = __shfl_sync(FULL, w, 8);
+      const unsigned w2 = __shfl_sync(FULL, w, 16);
+      const unsigned w3 = __shfl_sync(FULL, w, 24);
+      if (lane == 0) bits[q >> 5] = make_uint4(w, w1, w2, w3);
     }
-    bits[w] = word;
   }
+}
+
+// the OR of `world` rows of `cols` 16-byte words, a thread a column
+__global__ void __launch_bounds__(UNION_THREADS) occ_union_kernel(
+    const uint4* __restrict__ rows, int world, int cols,
+    uint4* __restrict__ out) {
+  const int i = blockIdx.x * UNION_THREADS + threadIdx.x;
+  if (i >= cols) return;
+  uint4 a = __ldg(rows + i);
+  for (int r = 1; r < world; ++r) {
+    const uint4 b = __ldg(rows + static_cast<size_t>(r) * cols + i);
+    a.x |= b.x;
+    a.y |= b.y;
+    a.z |= b.z;
+    a.w |= b.w;
+  }
+  out[i] = a;
 }
 
 // V bytes of the bitfield as 32-bit words (one word holding one byte at V 1)
@@ -438,29 +583,68 @@ extern "C" int occ_compact(const void* grid, float thr, int C, int G3,
   return static_cast<int>(cudaGetLastError());
 }
 
-// grid, tmp, grid_out: n f32 (n = C G^3, a multiple of 512; grid_out
-// 16-byte aligned); partials: 2 * 256 words (the block sums, then the
-// block counts); bitfield: n / 8 bytes, 4-byte aligned; mean_out: one f32.
+// grid, tmp, grid_out: n f32 (n = C G^3, a multiple of 512), bitfield n / 8
+// bytes, all 16-byte aligned; barrier: one 64-bit word, zeroed once (a
+// buffer kept for the device, its calls ordered on one stream); partials:
+// 2 ceil(n / 8192) words (the tile sums, then the tile counts); mean_out:
+// one f32. One launch of at most as many blocks as the card holds at once
+// (the occupancy API's count, taken once a device); an error, and no
+// launch, where it holds none or an alignment is not met.
 extern "C" int occ_merge_pack(const void* grid, const void* tmp, float decay,
-                              float density_threshold, int n, void* partials,
-                              void* grid_out, void* bitfield, void* mean_out,
-                              cudaStream_t stream) {
+                              float density_threshold, int n, void* barrier,
+                              void* partials, void* grid_out, void* bitfield,
+                              void* mean_out, cudaStream_t stream) {
   if (n < 512 || n % 512 != 0 ||
-      ((reinterpret_cast<uintptr_t>(grid_out) & 15) |
-       (reinterpret_cast<uintptr_t>(bitfield) & 3)) != 0)
+      ((reinterpret_cast<uintptr_t>(grid) | reinterpret_cast<uintptr_t>(tmp) |
+        reinterpret_cast<uintptr_t>(grid_out) |
+        reinterpret_cast<uintptr_t>(bitfield)) & 15) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto* sums = static_cast<float*>(partials);
-  auto* cnts = reinterpret_cast<int*>(sums + MERGE_BLOCKS);
-  occ_merge_kernel<<<MERGE_BLOCKS, MERGE_THREADS, 0, stream>>>(
-      static_cast<const float*>(grid), static_cast<const float*>(tmp), decay,
-      n, static_cast<float*>(grid_out), sums, cnts);
-  const cudaError_t e = cudaGetLastError();
+  static int resident[64];   // blocks the card holds at once, a device
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  occ_pack_kernel<<<ncn_blocks(n / 32, PACK_THREADS), PACK_THREADS, 0,
-                    stream>>>(static_cast<const float*>(grid_out), n, sums,
-                              cnts, density_threshold,
-                              static_cast<unsigned*>(bitfield),
-                              static_cast<float*>(mean_out));
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    const int smem = MERGE_SLOTS * TILE_BYTES;
+    int per_sm = 0, sms = 0;
+    e = cudaFuncSetAttribute(occ_merge_pack_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, occ_merge_pack_kernel, MERGE_THREADS, smem);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm * sms < 1)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[dev] = per_sm * sms;
+  }
+  const int tiles = ncn_blocks(n, MERGE_TILE);
+  const int blocks = min(tiles, resident[dev]);
+  // fewer slots than MERGE_SLOTS hold no fewer blocks at once
+  const int slots = min(ncn_blocks(tiles, blocks), MERGE_SLOTS);
+  auto* sums = static_cast<float*>(partials);
+  occ_merge_pack_kernel<<<blocks, MERGE_THREADS, slots * TILE_BYTES, stream>>>(
+      static_cast<const float4*>(grid), static_cast<const float4*>(tmp), decay,
+      density_threshold, n, tiles, slots,
+      static_cast<unsigned long long*>(barrier), sums,
+      reinterpret_cast<int*>(sums + tiles), static_cast<float4*>(grid_out),
+      static_cast<uint4*>(bitfield), static_cast<float*>(mean_out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rows: (world, nbytes) bytes, out: nbytes bytes, both 16-byte aligned,
+// nbytes a multiple of 16: out = the OR of the rows.
+extern "C" int occ_union(const void* rows, int world, int nbytes, void* out,
+                         cudaStream_t stream) {
+  if (world < 1 || nbytes < 16 || nbytes % 16 != 0 ||
+      ((reinterpret_cast<uintptr_t>(rows) | reinterpret_cast<uintptr_t>(out)) &
+       15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = nbytes / 16;
+  occ_union_kernel<<<ncn_blocks(cols, UNION_THREADS), UNION_THREADS, 0,
+                     stream>>>(static_cast<const uint4*>(rows), world, cols,
+                               static_cast<uint4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -226,7 +226,8 @@ def compact_words(n_rays: int) -> int:
 def scan_workspace(user: str, words: int, device: torch.device,
                    min_words: int = 0) -> torch.Tensor:
     """The work buffer of a single-pass scan (`csrc/look_back.cuh`) of
-    `user` ("compact": H11; "occ": K8's occupied list) on `device`: one
+    `user` ("compact": H11; "occ": K8's occupied list; "merge": the grid
+    barrier of K8's merge and pack) on `device`: one
     buffer a (user, device), allocated zeroed at its first use and kept
     for the process (each call is an epoch of it, so no call zeroes it
     again; a CUDA graph's replays use the buffer its capture saw, and a
@@ -278,11 +279,13 @@ HASH_CONTRACT = Kernel("hash_grid_contract", "hash_grid.cu",
 KMEANS_CLUSTER = Kernel("kmeans_cluster", "kmeans.cu",
                         [P] * 3 + [I] * 3 + [F] + [I] * 2 + [P] * 5)
 # K8, the occupancy refresh (models/occupancy.py): the occupied list, the
-# merge with the threshold and the pack, the march's tables
+# merge with the threshold and the pack, the march's tables; the union of
+# several cards' bitfields
 OCC_COMPACT = Kernel("occ_compact", "occupancy.cu", [P, F, I, I, P, P, P])
 OCC_MERGE_PACK = Kernel("occ_merge_pack", "occupancy.cu",
-                        [P, P, F, F, I, P, P, P, P])
+                        [P, P, F, F, I, P, P, P, P, P])
 OCC_TABLES = Kernel("occ_tables", "occupancy.cu", [P, I, P, P, P])
+OCC_UNION = Kernel("occ_union", "occupancy.cu", [P, I, I, P])
 
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
@@ -291,7 +294,7 @@ ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_SEG_BWD, DISTORTION_SEG_FWD, DISTORTION_SEG_BWD,
                TRIPLANE_FWD_JAC, TRIPLANE_BWD_DX, BRICK_FWD_JAC,
                BRICK_CONTRACT, HASH_FWD_JAC, HASH_CONTRACT, KMEANS_CLUSTER,
-               OCC_COMPACT, OCC_MERGE_PACK, OCC_TABLES)
+               OCC_COMPACT, OCC_MERGE_PACK, OCC_TABLES, OCC_UNION)
 
 
 def reset_counts():

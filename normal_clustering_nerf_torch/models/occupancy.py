@@ -12,9 +12,10 @@ The refresh after the sigma eval is kernel K8 (`csrc/occupancy.cu`):
 `occ_compact` (each cascade's occupied list and count), `occ_merge_pack`
 (the EMA max-merge, the mean density in a fixed order, the threshold and
 the bitfield) and `occ_tables` (the march's supervoxel tables and coarse
-mask), each with its plain version (`*_plain`) for a CPU tensor. Nothing
-in `OccupancyGrid.update` reads the card on the host, so the trainer
-replays the sampled refresh as a CUDA graph.
+mask), each with its plain version (`*_plain`) for a CPU tensor; on
+several cards `occ_union` ORs the ranks' gathered bitfields. Nothing in
+`OccupancyGrid.update` reads the card on the host, so the trainer replays
+the sampled refresh as a CUDA graph.
 """
 from __future__ import annotations
 
@@ -30,11 +31,14 @@ from ..device import as_index
 from ..ops.packbits import packbits, unpack_bits
 from ..ops.ray_march import _div
 
-# K8's order of the mean density (`occ_merge_pack`): a lane a column of a
-# (C G^3 / COLUMNS, COLUMNS) view, then pairwise halvings within each of
-# the MERGE_BLOCKS blocks of MERGE_THREADS lanes, then across the blocks
-MERGE_BLOCKS = MERGE_THREADS = 256
-COLUMNS = MERGE_BLOCKS * MERGE_THREADS
+# K8's order of the mean density (`occ_merge_pack`): tiles of MERGE_TILE
+# cells, thread t of MERGE_THREADS adding its cells of quads t + k
+# MERGE_THREADS (k < MERGE_QUADS) in order, then pairwise halvings over the
+# 32 lanes of a warp and over the warps; the tile sums the same way
+# (thread t adding tiles t, t + MERGE_THREADS, ... in order)
+MERGE_THREADS = 512
+MERGE_QUADS = 4
+MERGE_TILE = 4 * MERGE_QUADS * MERGE_THREADS
 COMPACT_TILE = 16384   # occ_compact's cells a block
 # cameras per chunk of mark_invisible_cells: at G = 128 one camera's
 # projected cells are 3 x 128^3 floats (25 MB); 8 cameras keep the
@@ -146,7 +150,7 @@ def occ_merge_pack(grid: torch.Tensor, tmp: torch.Tensor, decay: float,
     where(grid < 0, grid, max(grid * decay, tmp)), thr = min(the mean of
     grid''s positive cells, density_threshold), and the bitfield of
     grid' > thr. Returns (grid', bitfield (C G^3 / 8,) uint8, the mean as
-    a 0-dim tensor). K8's `occ_merge_pack` on a CUDA tensor,
+    a 0-dim tensor). K8's `occ_merge_pack` (one launch) on a CUDA tensor,
     `occ_merge_pack_plain` (the same order of the mean's sum) on a CPU
     one."""
     if not grid.is_cuda:
@@ -157,40 +161,56 @@ def occ_merge_pack(grid: torch.Tensor, tmp: torch.Tensor, decay: float,
     t = kernels.check(tmp, "tmp", torch.float32, grid.shape, dev)
     out = torch.empty_like(grid)
     bits = torch.empty(n // 8, dtype=torch.uint8, device=dev)
-    partials = torch.empty(2 * MERGE_BLOCKS, dtype=torch.float32,
+    partials = torch.empty(2 * -(-n // MERGE_TILE), dtype=torch.float32,
                            device=dev)
     mean = torch.empty((), dtype=torch.float32, device=dev)
     kernels.OCC_MERGE_PACK.launch(
         g, t, float(decay), float(density_threshold), n,
+        kernels.ptr(kernels.scan_workspace("merge", 1, dev)),
         kernels.ptr(partials), kernels.ptr(out), kernels.ptr(bits),
         kernels.ptr(mean), device=dev)
     return out, bits, mean
 
 
+def _halvings(part: torch.Tensor) -> torch.Tensor:
+    """(..., 2^k) -> (...): pairwise halvings over the last axis, element
+    i + h added to element i (h = 2^(k-1), ..., 1), as xor shuffles add."""
+    while part.shape[-1] > 1:
+        h = part.shape[-1] // 2
+        part = part[..., :h] + part[..., h:]
+    return part[..., 0]
+
+
+def _block_sum(v: torch.Tensor) -> torch.Tensor:
+    """(..., MERGE_THREADS) thread values -> (...): the halvings over the
+    lanes of each warp, then over the warps."""
+    return _halvings(_halvings(v.reshape(*v.shape[:-1], -1, 32)))
+
+
 def fixed_order_sum(x: torch.Tensor) -> torch.Tensor:
-    """The sum of x's values in K8's order: a lane a column of a (rows,
-    COLUMNS) view (x padded with +0.0, which changes no sum of
-    non-negative values) adds down its column, then pairwise halvings
-    within each block of MERGE_THREADS lanes, then across the blocks."""
+    """The sum of x's values in K8's order (x padded with +0.0 to whole
+    tiles, which changes no sum of non-negative values): each thread adds
+    its 16 cells in order, the tile's threads by `_block_sum`, then the
+    tile sums by the same two steps."""
     flat = x.reshape(-1)
-    rows = -(-flat.numel() // COLUMNS)
-    cols = torch.zeros(rows * COLUMNS, dtype=x.dtype, device=x.device)
-    cols[:flat.numel()] = flat
-    cols = cols.view(rows, COLUMNS)
-    acc = torch.zeros(COLUMNS, dtype=x.dtype, device=x.device)
-    for i in range(rows):
-        acc = acc + cols[i]
-    part = acc.view(MERGE_BLOCKS, MERGE_THREADS)
-    h = MERGE_THREADS // 2
-    while h:
-        part = part[:, :h] + part[:, h:2 * h]
-        h //= 2
-    part = part[:, 0]
-    h = MERGE_BLOCKS // 2
-    while h:
-        part = part[:h] + part[h:2 * h]
-        h //= 2
-    return part[0]
+    tiles = -(-flat.numel() // MERGE_TILE)
+    pad = torch.zeros(tiles * MERGE_TILE, dtype=x.dtype, device=x.device)
+    pad[:flat.numel()] = flat
+    # [tile, k, thread, cell of the quad] -> [tile, thread, (k, cell)]
+    cells = pad.view(tiles, MERGE_QUADS, MERGE_THREADS, 4).transpose(1, 2)
+    cells = cells.reshape(tiles, MERGE_THREADS, 4 * MERGE_QUADS)
+    acc = cells[..., 0]
+    for i in range(1, 4 * MERGE_QUADS):
+        acc = acc + cells[..., i]
+    part = _block_sum(acc)
+    rows = -(-tiles // MERGE_THREADS)
+    sums = torch.zeros(rows * MERGE_THREADS, dtype=x.dtype, device=x.device)
+    sums[:tiles] = part
+    sums = sums.view(rows, MERGE_THREADS)
+    acc = sums[0]
+    for i in range(1, rows):
+        acc = acc + sums[i]
+    return _block_sum(acc)
 
 
 def occ_merge_pack_plain(grid, tmp, decay: float, density_threshold: float):
@@ -201,6 +221,27 @@ def occ_merge_pack_plain(grid, tmp, decay: float, density_threshold: float):
     mean = total / torch.clamp(pos.sum(), min=1).to(torch.float32)
     thr = torch.clamp(mean, max=density_threshold)
     return new, packbits(new, thr), mean
+
+
+def occ_union(rows: torch.Tensor) -> torch.Tensor:
+    """The OR of the (world, N) uint8 rows (several cards' bitfields):
+    K8's `occ_union` on a CUDA tensor, `occ_union_plain` on a CPU one."""
+    if not rows.is_cuda:
+        return occ_union_plain(rows)
+    dev = rows.device
+    world, nbytes = rows.shape
+    r = kernels.check(rows, "rows", torch.uint8, device=dev)
+    out = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    kernels.OCC_UNION.launch(r, world, nbytes, kernels.ptr(out), device=dev)
+    return out
+
+
+def occ_union_plain(rows: torch.Tensor) -> torch.Tensor:
+    """`occ_union`'s plain version: a bitwise_or over the rows."""
+    out = rows[0].clone()
+    for row in rows[1:]:
+        out.bitwise_or_(row)
+    return out
 
 
 def occ_tables(bitfield: torch.Tensor, grid_size: int):
@@ -359,17 +400,19 @@ class OccupancyGrid:
     def merge_across_chips(state: OccupancyState, group) -> OccupancyState:
         """Merge the ranks' refreshed grids (occupancy.py:294-315): each
         rank sampled its own cells, and the union of their evidence is the
-        MAX of the density grids and the OR of the bitfields, taken as the
-        MAX of the unpacked bits (NCCL has no bitwise reduction, and a MAX
-        of packed bytes is no OR: max(0b01, 0b10) = 0b10), repacked. The
-        coarse mask and the sv tables are rebuilt from the merged bitfield
-        (dilation and any-reduction commute with the union); the coverage
-        counts are kept. Every rank returns the same state."""
+        MAX of the density grids and the OR of the bitfields (JAX takes the
+        MAX of the unpacked bits: NCCL has no bitwise reduction, and a MAX
+        of packed bytes is no OR), here the ranks' bitfields all-gathered
+        and ORed (`occ_union`). The coarse mask and the sv tables are
+        rebuilt from the merged bitfield (dilation and any-reduction
+        commute with the union); the coverage counts are kept. Every rank
+        returns the same state."""
         grid = state.density_grid.clone()
         dist.all_reduce(grid, op=dist.ReduceOp.MAX, group=group)
-        bits = unpack_bits(state.density_bitfield).to(torch.uint8)
-        dist.all_reduce(bits, op=dist.ReduceOp.MAX, group=group)
-        bitfield = packbits(bits, 0)
+        bits = state.density_bitfield
+        rows = bits.new_empty((dist.get_world_size(group), bits.numel()))
+        dist.all_gather(list(rows.unbind(0)), bits, group=group)
+        bitfield = occ_union(rows)
         G = round(state.density_grid.shape[1] ** (1.0 / 3.0))
         return OccupancyState(grid, bitfield, state.count_grid,
                               *occ_tables(bitfield, G))

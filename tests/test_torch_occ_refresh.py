@@ -14,8 +14,11 @@ refresh with no host read.
   against JAX's, cascades 1 and 2), and the uniforms' mapping. Exact.
 - The merge, the fixed-order mean and the pack against JAX's expressions
   and `packbits`, with the dyadic densities of `test_torch_occupancy.py`
-  (every sum exact in f32, so any order gives JAX's bits), and the order
-  itself against a numpy emulation on random values. Exact.
+  (every sum exact in f32, so any order gives JAX's bits), at sizes that
+  end mid-tile too, and the order itself against a numpy emulation of
+  K8's threads on random values. Exact.
+- `occ_union_plain` (several cards' bitfields) against JAX's MAX of the
+  unpacked bits, 1-4 ranks. Exact.
 - The tables against `supervoxel_tables` / `coarse_occupancy` of JAX:
   random bits with bit-31 words, all zero, all one, at G 8, 24, 32 and 64
   (Gc 1 and 3: the borders and odd strides of `occ_tables`' byte path).
@@ -172,7 +175,7 @@ def test_uniform_draws_map_to_cells(fill):
         np.testing.assert_array_equal(N(idx[c, :64]), uni[c])
 
 
-@pytest.mark.parametrize("C,G", [(1, 32), (2, 32), (1, 64)])
+@pytest.mark.parametrize("C,G", [(1, 32), (2, 32), (1, 64), (2, 40), (3, 16)])
 @pytest.mark.parametrize("decay", [0.5, 0.95])
 def test_merge_mean_and_pack_match_jax(C, G, decay):
     """The merge, the mean of the positive cells and the pack
@@ -200,26 +203,76 @@ def test_merge_mean_and_pack_match_jax(C, G, decay):
     assert 0 < np.unpackbits(N(bits)).mean() < 1
 
 
+def _np_halvings(v):
+    """(..., 32) -> (...): xor butterflies over the last axis, lane l
+    adding lane l ^ o (o = 16..1), every lane left with the same sum."""
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[..., lanes ^ o]).astype(np.float32)
+    assert (v == v[..., :1]).all()
+    return v[..., 0]
+
+
+def _np_block(v):
+    """(..., threads) values -> (...): each warp's butterflies, then one
+    warp's over the warp sums, +0.0 in its lanes past them."""
+    w = _np_halvings(v.reshape(*v.shape[:-1], -1, 32))
+    pad = np.zeros((*w.shape[:-1], 32), np.float32)
+    pad[..., :w.shape[-1]] = w
+    return _np_halvings(pad)
+
+
 def test_fixed_order_sum_is_k8s_order():
-    """`fixed_order_sum` against a numpy emulation of K8's order on random
-    non-negative values (column sums down 65,536 lanes, then halvings in
-    blocks of 256, then across the 256 blocks), bit for bit."""
+    """`fixed_order_sum` against a numpy emulation of K8's order, thread by
+    thread, on random non-negative values, bit for bit: tiles of 8192
+    cells, thread t of 512 adding its cells 4 (k 512 + t) + e (quad k < 4,
+    cell e < 4) of each tile in order, the tile's butterflies; then thread
+    t adding tiles t, t + 512, ... in order, the same butterflies. Sizes
+    that end mid-tile: 6 tiles, and 515 (more tiles than threads)."""
     rng = np.random.default_rng(8)
-    x = rng.random(2 * 32 ** 3 * 3 + 512).astype(np.float32)
-    cols = np.zeros(-(-x.size // to.COLUMNS) * to.COLUMNS, np.float32)
-    cols[:x.size] = x
-    acc = np.zeros(to.COLUMNS, np.float32)
-    for row in cols.reshape(-1, to.COLUMNS):
-        acc = (acc + row).astype(np.float32)
-    part = acc.reshape(to.MERGE_BLOCKS, to.MERGE_THREADS)
-    while part.shape[1] > 1:
-        h = part.shape[1] // 2
-        part = (part[:, :h] + part[:, h:]).astype(np.float32)
-    part = part[:, 0]
-    while part.size > 1:
-        h = part.size // 2
-        part = (part[:h] + part[h:]).astype(np.float32)
-    assert N(to.fixed_order_sum(T(x))) == part[0]
+    tile, threads = to.MERGE_TILE, to.MERGE_THREADS
+    assert (tile, threads, to.MERGE_QUADS) == (8192, 512, 4)
+    for n in (5 * tile + 5 * 512, (threads + 3) * tile - 3 * 512):
+        x = rng.random(n).astype(np.float32)
+        tiles = -(-n // tile)
+        pad = np.zeros(tiles * tile, np.float32)
+        pad[:n] = x
+        base = np.arange(tiles)[:, None] * tile
+        t = np.arange(threads)[None, :]
+        acc = np.zeros((tiles, threads), np.float32)
+        for k in range(4):
+            for e in range(4):
+                acc = (acc + pad[base + 4 * (k * threads + t) + e]).astype(
+                    np.float32)
+        part = _np_block(acc)
+        acc = np.zeros(threads, np.float32)
+        for p0 in range(0, tiles, threads):
+            p = p0 + np.arange(threads)
+            acc = (acc + np.where(p < tiles, part[np.minimum(p, tiles - 1)],
+                                  0)).astype(np.float32)
+        assert N(to.fixed_order_sum(T(x))) == _np_block(acc), n
+
+
+@pytest.mark.parametrize("world", [1, 2, 3, 4])
+def test_occ_union_plain_is_an_or(world):
+    """`occ_union_plain` of `world` ranks' bitfields against JAX's merge
+    of the bits (occupancy.py:301-305: unpacked, the MAX over the ranks,
+    packed again, jnp as written there with a max over the rows for the
+    pmax): random bytes, and byte 0 with a bit of its own a rank (disjoint
+    bits of one byte: their MAX would keep one, their OR keeps all)."""
+    rng = np.random.default_rng(world)
+    rows = rng.integers(0, 256, (world, 4096), dtype=np.uint8)
+    rows[:, 1] = 0
+    rows[:, 0] = 1 << np.arange(world)
+    masks = jnp.asarray([1, 2, 4, 8, 16, 32, 64, 128], jnp.uint8)
+    bits = (J(rows)[:, :, None] & masks) > 0
+    bits = jnp.max(bits.astype(jnp.uint8), axis=0)
+    want = np.asarray(jnp.sum(bits * masks, axis=-1, dtype=jnp.uint8))
+    got = to.occ_union(T(rows))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(N(got), want)
+    assert N(got)[0] == (1 << world) - 1 and N(got)[1] == 0
+    np.testing.assert_array_equal(N(got), np.bitwise_or.reduce(rows, axis=0))
 
 
 @pytest.mark.parametrize("kind", ["random", "zero", "one"])

@@ -29,8 +29,9 @@ has captured it). Then:
   grid (`models/occupancy.py`): `occ_compact` on the density grid,
   `occ_merge_pack` on the grid and a sampled refresh's sigma grid
   (`chip_smoke.refresh_tmp`), `occ_tables` on the bitfield that pack
-  writes, each with `device_ms`; and the first two at 2 cascades, the
-  trained grid and its sigma grid twice (`k8_times`);
+  writes, each with `device_ms`; the first two at 2 cascades, the
+  trained grid and its sigma grid twice; and `occ_union` on 2 and 4
+  ranks' bitfields where the checkout has it (`k8_times`);
 - it traces (torch.profiler) a chunk of 16 graph steps
   (`train_chunk(16)`): the card's busy ms a step, split as the bench's
   profile splits it, and its launches a step; and a window of a refresh
@@ -104,10 +105,13 @@ def refresh_ms(tr):
 def k8_times(occupancy, grid, tmp, thr, G):
     """Device ms of K8's launchers on (1, G^3) inputs: occ_compact,
     occ_merge_pack and occ_tables (on the bitfield the pack writes) at one
-    cascade, occ_compact and occ_merge_pack at two (the inputs twice)."""
+    cascade, occ_compact and occ_merge_pack at two (the inputs twice), and
+    where the checkout has it occ_union on 2 and 4 ranks' bitfields (that
+    bitfield and the ones packed from the grid and sigma grids shifted by
+    a cell)."""
     bits = occupancy.occ_merge_pack(grid, tmp, 0.95, thr)[1]
     grid2, tmp2 = torch.cat([grid, grid]), torch.cat([tmp, tmp])
-    return {
+    out = {
         "G": G, "occupied": int((grid > thr).sum()),
         "occ_compact_ms": device_ms(lambda: occupancy.occ_compact(grid, thr)),
         "occ_merge_pack_ms": device_ms(
@@ -117,6 +121,14 @@ def k8_times(occupancy, grid, tmp, thr, G):
             lambda: occupancy.occ_compact(grid2, thr)),
         "occ_merge_pack_ms_2_cascades": device_ms(
             lambda: occupancy.occ_merge_pack(grid2, tmp2, 0.95, thr))}
+    if hasattr(occupancy, "occ_union"):
+        ranks = torch.stack([bits] + [occupancy.occ_merge_pack(
+            grid.roll(r, 1), tmp.roll(r, 1), 0.95, thr)[1] for r in (1, 2, 3)])
+        for world in (2, 4):
+            rows = ranks[:world].contiguous()
+            out[f"occ_union_ms_{world}_ranks"] = device_ms(
+                lambda rows=rows: occupancy.occ_union(rows))
+    return out
 
 
 def main():
