@@ -12,6 +12,9 @@ Run from the repository root on a machine with one NVIDIA H100:
                                                # path and its march times
     python3 chip_smoke.py --only k7k8          # 320 steps, then K7, K8 and
                                                # the refresh graph checked
+    python3 chip_smoke.py --only k9            # 32 steps of each bench
+                                               # field, then K9 checked
+                                               # and timed
 
 Phases (any failed check raises, so the script exits non-zero):
   1. build the kernels (`csrc/*.cu`, one nvcc per source, all at once);
@@ -95,7 +98,9 @@ Phases (any failed check raises, so the script exits non-zero):
      times, K7 (`kmeans_cluster`, the clustering loss's k-means and
      cluster selection) once a step, K8's `occ_merge_pack` and
      `occ_tables` once a refresh and `occ_compact` once a sampled refresh
-     (20; from the second on, replays of the refresh's own CUDA graph).
+     (20; from the second on, replays of the refresh's own CUDA graph),
+     K9's `adamw_norm` and `adamw_step` (the optimizer's update) once a
+     step each.
      Every loss must be finite and the loss must fall;
   4. K7 against its plain version bit for bit (assign_new, assign_orig,
      every centroid, centroids3) on one training step's own normals (M
@@ -287,7 +292,12 @@ Phases (any failed check raises, so the script exits non-zero):
   to it bit for bit from the same state and generator state; the host's
   time to queue each and the card's to run it ("sampled refresh" JSON
   line);
-  6. for each path: step times and one refresh of each form; then the
+  6. K9 against its plain version bit for bit (every parameter and
+     moment, the norm, the count) on each bench field's parameters with
+     theta_WF, dR, dT and dR_glob beside them, three counts each with the
+     clip on and off, with contiguous gradients and with views into one
+     flat buffer at odd offsets, and with a NaN gradient (`check_adamw`);
+     for each path: step times and one refresh of each form; then the
      device time of each kernel, of its plain version and of its PyTorch
      yardstick (`index_select` of the rows a field's forward reads,
      `index_add_` of its backward's terms; for H5 also at P4's shape, for
@@ -321,9 +331,11 @@ Phases (any failed check raises, so the script exits non-zero):
      then graph steps against eager steps: host ms/step, the device's busy
      ms/step and launches/step (torch.profiler, over 16 replays or
      TRACED_EAGER eager steps), graph launches/step and
-     the idle share (and the host sampler's prefetcher's batches/s); and
-     each field's optimizer update (clip and AdamW) against its byte
-     bound; printed as a "graph steps" JSON line.
+     the idle share (and the host sampler's prefetcher's batches/s), the
+     launches of one optimizer update through K9 and through its plain
+     version and the step's launches had it been the plain version's; and
+     each field's optimizer update (K9, its plain version, torch's fused
+     AdamW) against its byte bound; printed as a "graph steps" JSON line.
 
 Prints the kernels' JSON line, the card's name and power limit, and as its
 last line {"ok": true, "device": {...}}. Exits non-zero without a result
@@ -1670,12 +1682,14 @@ FIELD_KERNELS = {"triplane": ("triplane_fwd", "triplane_bwd"),
 PATH_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
                 "distortion_fwd", "distortion_bwd", "march_sv_train",
                 "kmeans_cluster", "occ_compact", "occ_merge_pack",
-                "occ_tables")
+                "occ_tables", "adamw_norm", "adamw_step")
 # K7 a step; K8 a refresh (every 16 steps), occ_compact only in the
-# sampled ones, from the warm-up's end (step 256)
+# sampled ones, from the warm-up's end (step 256); K9's two launchers a
+# step
 K7K8_LAUNCHES = {"kmeans_cluster": STEPS, "occ_merge_pack": STEPS // 16,
                  "occ_tables": STEPS // 16,
-                 "occ_compact": (STEPS - 256) // 16}
+                 "occ_compact": (STEPS - 256) // 16, "adamw_norm": STEPS,
+                 "adamw_step": STEPS}
 P4_POINTS = 262_144   # experiments/pallas_gather2.py: M = 8192 rays x 32
 ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
 # f32 operations of the Jacobians beyond the forward's: per (sample,
@@ -3756,6 +3770,189 @@ def check_refresh_graph(tr, path):
 REFRESH_REPS = 8
 
 
+# ------------------------------------------------------------ K9 checks
+ADAMW_COUNTS = 3   # counts of each K9 case, each from the last's state
+# K9's cases: (label, gradient scale (1.0: the norm past grad_clip; 1e-7:
+# under it), gradients as views into one flat buffer at odd offsets, a
+# NaN gradient at the first count)
+ADAMW_CASES = (("clip on", 1.0, False, False),
+               ("clip off", 1e-7, False, False),
+               ("clip on, flat-buffer views", 1.0, True, False),
+               ("clip off, flat-buffer views", 1e-7, True, False),
+               ("a NaN gradient", 1.0, False, True))
+ADAMW_STEP_OPS = 16   # f32 operations a value of K9's update
+K9_STEPS = 32   # steps of each field before `--only k9`'s checks
+
+
+def adamw_opt(tr, seed, beside=True):
+    """An AdamW over clones of `tr`'s parameters and moments, with (where
+    `beside`) the parameters the ext path and the baselines add (theta_WF,
+    plain Adam at the schedule's lr; dR and dT at EXT_LR; dR_glob at
+    lr_dR_norm_glob: EXT_OPTIM) where the trainer has none, those drawn
+    from `seed` with zero moments; the count the trainer's."""
+    from normal_clustering_nerf_torch.training.state import AdamW
+    dev = tr.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n_img = tr.scene["poses"].shape[0]
+    params = {n: p.detach().clone() for n, p in tr.params.items()}
+    cfg = tr.cfg.optim
+    if beside:
+        extra = {"theta_WF": torch.full((), 0.2, device=dev),
+                 "dR": 1e-5 * torch.randn(n_img, 3, generator=gen,
+                                          device=dev),
+                 "dT": 1e-5 * torch.randn(n_img, 3, generator=gen,
+                                          device=dev),
+                 "dR_glob": torch.zeros(3, device=dev)}
+        params.update({n: t for n, t in extra.items() if n not in params})
+        cfg = dataclasses.replace(cfg, **EXT_OPTIM)
+    opt = AdamW(params, cfg)
+    for k in ("mu", "nu"):
+        for n, t in tr.opt.state[k].items():
+            opt.state[k][n].copy_(t)
+    opt.state["count"] = tr.opt.state["count"]
+    opt.count_t.fill_(opt.state["count"])
+    return opt
+
+
+def adamw_grads(opt, scale, views, gen):
+    """Random gradients of `opt`'s parameters: contiguous, or views into
+    one flat f32 buffer, the first 1 value in and each after a gap of 1-3
+    values (as `mean_over_axis` hands them over: no view 16-byte aligned
+    but by chance); NaN in the gaps."""
+    dev = opt.count_t.device
+    grads = {n: scale * torch.randn(p.shape, generator=gen, device=dev)
+             for n, p in opt.params.items()}
+    if not views:
+        return grads
+    gaps = [1] + torch.randint(1, 4, (len(grads) - 1,), generator=gen,
+                               device=dev).tolist()
+    flat = torch.full((sum(g.numel() for g in grads.values()) + sum(gaps),),
+                      float("nan"), device=dev)
+    out, i = {}, 0
+    for (n, g), gap in zip(grads.items(), gaps):
+        i += gap
+        out[n] = flat[i:i + g.numel()].view(g.shape)
+        out[n].copy_(g)
+        i += g.numel()
+    return out
+
+
+def bits_differ(a, b):
+    """Values of a and b whose bits differ (a NaN matching a NaN)."""
+    return int(((a.view(torch.int32) != b.view(torch.int32))
+                & ~(a.isnan() & b.isnan())).sum())
+
+
+def library_norm(gs):
+    """torch's own global norm of the gradients `gs`."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+
+
+def library_adamw(opt, gs, lr, norm=None):
+    """A call of torch's own fused AdamW over `opt`'s tensors with the
+    gradients `gs` (divided in place: the clip is its grad_scale), at one
+    weight decay for all: not K9's rounding (it decays p (1 - lr wd) and
+    divides sqrt(nu) by sqrt(bc2)). The norm `norm`, or taken in the call
+    by `library_norm`."""
+    hp = opt.hyper
+    ps, mus, nus = (list(d.values()) for d in (
+        opt.params, opt.state["mu"], opt.state["nu"]))
+    steps = [torch.full((), opt.state["count"] + 1.0, device=lr.device)
+             for _ in ps]
+    lr_f = float(lr)
+
+    def call():
+        n = library_norm(gs) if norm is None else norm
+        torch._fused_adamw_(ps, gs, mus, nus, [], steps, lr=lr_f,
+                            beta1=hp.b1, beta2=hp.b2,
+                            weight_decay=hp.weight_decay, eps=hp.eps,
+                            amsgrad=False, maximize=False,
+                            grad_scale=torch.clamp(n / hp.grad_clip,
+                                                   min=1.0))
+    return call
+
+
+def check_adamw(paths, rec, gen):
+    """K9 (`adamw_norm`, `adamw_step`) against its plain version, bit for
+    bit (every parameter and moment, the norm, the count), on each bench
+    field's parameters with the ext, theta_WF and dR_glob groups beside
+    them (`adamw_opt`), ADAMW_COUNTS counts of each of ADAMW_CASES: the
+    clip on and off, contiguous gradients and flat-buffer views, a NaN
+    gradient (every output NaN, as the plain version's); the lr and the
+    bias corrections views into one row, as the trainer hands them in.
+    The launches on the triplane field kept in `rec` for `time_kernels`."""
+    from normal_clustering_nerf_torch.ops import adamw
+    chk = Check()
+    for path in ("triplane", "brick", "tcnn"):
+        tr = paths[path]
+        for label, scale, views, nan in ADAMW_CASES:
+            seed = int(torch.randint(1 << 30, (1,), generator=gen,
+                                     device=tr.device))
+            k_opt, p_opt = adamw_opt(tr, seed), adamw_opt(tr, seed)
+            bad, norms = [], []
+            for c in range(ADAMW_COUNTS):
+                grads = adamw_grads(k_opt, scale, views, gen)
+                if nan and c == 0:
+                    g0 = next(iter(grads.values())).view(-1)
+                    g0[12345 % g0.numel()] = float("nan")
+                lr, bc1, bc2 = torch.tensor(
+                    k_opt.schedule(k_opt.state["count"]), device=tr.device)
+                got = k_opt.update(grads, lr, bc1, bc2)
+                want = adamw.clipped_adamw_plain(
+                    p_opt.slots(grads, lr), bc1, bc2, p_opt.count_t,
+                    p_opt.hyper)
+                for o in (k_opt, p_opt):
+                    o.advance()
+                norms.append(float(got))
+                pairs = [("g_norm", got, want),
+                         ("count", k_opt.count_t.float(),
+                          p_opt.count_t.float())]
+                for n in k_opt.params:
+                    pairs += [(n, k_opt.params[n], p_opt.params[n])] + [
+                        (f"{k} {n}", k_opt.state[k][n], p_opt.state[k][n])
+                        for k in ("mu", "nu")]
+                for name, a, b in pairs:
+                    d = bits_differ(a, b)
+                    if d:
+                        bad.append(f"count {c}: {name} {d} of {b.numel()}")
+            if nan and not (math.isnan(norms[0]) and all(
+                    bool(p.isnan().all()) for p in k_opt.params.values())):
+                bad.append(f"not every value NaN after a NaN gradient "
+                           f"(norms {norms})")
+            log(f"  K9, {path}, {label}: {len(k_opt.params)} tensors, "
+                f"{sum(p.numel() for p in k_opt.params.values())} values, "
+                f"norms {', '.join(f'{x:.6g}' for x in norms)}: "
+                + (f"FAIL {bad[:4]}" if bad else
+                   f"{ADAMW_COUNTS} counts, parameters, moments, norm and "
+                   f"count bit for bit the plain version's ok"))
+            if bad:
+                chk.failures.append(f"K9 {path} {label}")
+    chk.done("K9 against its plain version")
+    # the timed calls: the triplane field's own tensors, the clip on
+    tr = paths["triplane"]
+    opt = adamw_opt(tr, 1)
+    grads = adamw_grads(opt, 1.0, False, gen)
+    lr, bc1, bc2 = torch.tensor(opt.schedule(opt.state["count"]),
+                                device=tr.device)
+    slots = opt.slots(grads, lr)
+    plan, dev = adamw.make_plan(slots)
+    g_norm = adamw.global_norm_kernel(plan, opt.count_t, dev)
+    gs = list(grads.values())
+    n = sum(g.numel() for g in gs)
+    hp = opt.hyper
+    rec["adamw_norm"] = dict(
+        err=0.0, kernel=lambda: adamw.global_norm_kernel(plan, opt.count_t,
+                                                         dev),
+        plain=lambda: adamw.global_norm_plain(gs),
+        library=lambda: library_norm(gs), bound=bound(4 * n, 2 * n))
+    rec["adamw_step"] = dict(
+        err=0.0, kernel=lambda: adamw.adamw_step_kernel(plan, g_norm, bc1,
+                                                        bc2, hp, dev),
+        plain=lambda: adamw.adamw_step_plain(slots, g_norm, bc1, bc2, hp),
+        library=library_adamw(opt, gs, lr, g_norm),
+        bound=bound(28 * n, ADAMW_STEP_OPS * n))
+
+
 REPLACES = {
     "march_bootstrap": "normal_clustering_nerf_tpu/ops/ray_march.py:402",
     "triplane_fwd": "normal_clustering_nerf_tpu/models/triplane.py:177",
@@ -3804,6 +4001,10 @@ REPLACES = {
     # the OR of several cards' bitfields (merge_across_chips' pmax of the
     # unpacked bits)
     "occ_union": "normal_clustering_nerf_tpu/models/occupancy.py:295",
+    # K9: build_optimizer's chain (clip_by_global_norm, then adamw / adam
+    # by group), applied at training/trainer.py:365
+    "adamw_norm": "normal_clustering_nerf_tpu/training/state.py:43",
+    "adamw_step": "normal_clustering_nerf_tpu/training/state.py:43",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
@@ -3819,7 +4020,7 @@ LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "hash_grid_fwd_jac": "H14",
          "hash_grid_contract": "H14", "kmeans_cluster": "K7",
          "occ_compact": "K8", "occ_merge_pack": "K8", "occ_tables": "K8",
-         "occ_union": "K8"}
+         "occ_union": "K8", "adamw_norm": "K9", "adamw_step": "K9"}
 
 
 def time_kernels(rec):
@@ -4428,37 +4629,97 @@ def graph_times(tr, path, bootstrap, reps=3, n=GRAPH_STEPS):
     return out
 
 
+ADAMW_TRACED = 8   # updates in each of adamw_launches' traces
+
+
+def adamw_launches(tr):
+    """Device launches (torch.profiler) of one optimizer update of `tr`'s
+    parameters on its last step's gradients, through K9 and through its
+    plain version (on clones: the trainer's state stays): a trace of
+    ADAMW_TRACED updates each, taken again up to twice where it came back
+    without device events, then None."""
+    from normal_clustering_nerf_torch.ops import adamw
+    out = []
+    for plain in (False, True):
+        opt = adamw_opt(tr, 0, beside=False)
+        lr, bc1, bc2 = torch.tensor(opt.schedule(opt.state["count"]),
+                                    device=tr.device)
+        grads = dict(tr.last_grads)
+        fn = ((lambda: adamw.clipped_adamw_plain(
+            opt.slots(grads, lr), bc1, bc2, opt.count_t, opt.hyper))
+            if plain else (lambda: opt.update(grads, lr, bc1, bc2)))
+        fn()   # warm: the first K9 call may allocate its work buffer
+        for _ in range(3):
+            _, dev = traced(lambda: [fn() for _ in range(ADAMW_TRACED)])
+            if dev:
+                break
+        out.append(sum(e.count for e in dev) / ADAMW_TRACED if dev
+                   else None)
+    return tuple(out)
+
+
 def time_adamw(tr, path):
     """Device ms of the optimizer's update (clip and AdamW over every
-    parameter, on the last step's gradients), against its bound: 28
-    bytes a value (the gradient, the moments and the parameter read, the
-    moments and the parameter written). The trainer's parameters move on;
+    parameter, on the last step's gradients): K9 (`AdamW.update`, two
+    launches), its plain version, and torch's own (`library_adamw`: not
+    K9's rounding), against the bound of 28 bytes a value (the gradient, the moments and the parameter
+    read, the moments and the parameter written); the launches of one
+    update each way (`adamw_launches`). The trainer's parameters move on;
     its device count is put back."""
+    from normal_clustering_nerf_torch.ops import adamw
     n = sum(p.numel() for p in tr.params.values())
     lr, bc1, bc2 = (torch.full((), v, device=tr.device)
                     for v in tr.opt.schedule(tr.opt.state["count"]))
     grads = dict(tr.last_grads)
-    ms = device_ms(lambda: tr.opt.update(grads, lr, bc1, bc2),
+    opt = tr.opt
+    ms = device_ms(lambda: opt.update(grads, lr, bc1, bc2),
                    f"{path} AdamW update")
-    tr.opt.count_t.fill_(tr.opt.state["count"])
-    out = {"adamw_ms": ms, "adamw_bound_ms": bound(28 * n, 0)[0],
-           "values": n}
-    log(f"  {path}: the optimizer's update over {n} values {ms:.4f} ms "
-        f"(bound {out['adamw_bound_ms']:.4f}, bytes)")
+    plain_ms = device_ms(lambda: adamw.clipped_adamw_plain(
+        opt.slots(grads, lr), bc1, bc2, opt.count_t, opt.hyper),
+        f"{path} AdamW update plain")
+    library_ms = device_ms(
+        library_adamw(opt, [g.clone() for g in grads.values()], lr),
+        f"{path} AdamW update library")
+    opt.count_t.fill_(opt.state["count"])
+    k9, plain = adamw_launches(tr)
+    out = {"adamw_ms": ms, "adamw_plain_ms": plain_ms,
+           "adamw_library_ms": library_ms,
+           "adamw_bound_ms": bound(28 * n, 0)[0], "values": n,
+           "tensors": len(tr.params), "launches": k9, "plain_launches": plain}
+    log(f"  {path}: the optimizer's update over {n} values in "
+        f"{len(tr.params)} tensors: K9 {ms:.4f} ms ({k9} launches), plain "
+        f"{plain_ms:.4f} ms ({plain} launches), torch's foreach norm and "
+        f"fused AdamW {library_ms:.4f} ms (not K9's rounding); bound "
+        f"{out['adamw_bound_ms']:.4f}, bytes")
     return out
 
 
 def graph_phase(paths):
     """Phase 7: for each of GRAPH_CASES, the graph-replayed chunk against
-    eager steps (`check_graph_chunk`) and their times (`graph_times`);
-    then each field's optimizer update (`time_adamw`)."""
-    rows = []
+    eager steps (`check_graph_chunk`) and their times (`graph_times`),
+    with the launches of one optimizer update through K9 and through its
+    plain version (`adamw_launches`) and the graph step's launches with
+    the plain version's in place of K9's; then each field's optimizer
+    update (`time_adamw`)."""
+    rows, launches = [], {}
     for path, bootstrap in GRAPH_CASES:
         tr = paths[path]
         if path in BASELINES:
             shift_switches(tr)
         check_graph_chunk(tr, path, bootstrap)
-        rows.append(graph_times(tr, path, bootstrap))
+        row = graph_times(tr, path, bootstrap)
+        key = tuple((n, tuple(p.shape)) for n, p in tr.params.items())
+        if key not in launches:
+            launches[key] = adamw_launches(tr)
+        k9, plain = launches[key]
+        row["adamw_launches"] = {"k9": k9, "plain": plain}
+        g = row["graph"]
+        if "launches" in g and None not in (k9, plain):
+            g["launches_with_plain_update"] = g["launches"] - k9 + plain
+            log(f"  graph steps, {path} {row['march']}: {g['launches']:.0f} "
+                f"device launches a step, {g['launches_with_plain_update']:.0f}"
+                f" with the plain update ({k9} / {plain} launches an update)")
+        rows.append(row)
     for path in ("triplane", "brick", "tcnn"):
         rows.append(dict(path=path, **time_adamw(paths[path], path)))
     return rows
@@ -5723,7 +5984,8 @@ DIST_STEPS = 48       # their steps: refreshes (and merges) at 0, 16 and 32
 NCCL_STEPS = 64       # steps of the NCCL run over every card: 4 merges
 NCCL_TIMED = 64       # its timed window, and the one-card reference's
 BOOT_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
-                "distortion_fwd", "distortion_bwd") + FIELD_KERNELS["triplane"]
+                "distortion_fwd", "distortion_bwd", "adamw_norm",
+                "adamw_step") + FIELD_KERNELS["triplane"]
 
 
 def replica_digest(tr):
@@ -6092,6 +6354,36 @@ def k7k8_only(smi):
         for k, r in rec.items()]}))
 
 
+def k9_only(smi):
+    """`--only k9`: each bench field's trainer through K9_STEPS steps of
+    `Trainer.fit` (K9's two launchers counted, once a step each),
+    `check_adamw`, K9's launchers' times and each field's `time_adamw`."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    paths = {}
+    for layout in ("triplane", "brick", "tcnn"):
+        tr = build_trainer(bench_config(hash_layout=layout), device="cuda")
+        tr.mark_invisible_cells()
+        hist, counts, _ = counted(lambda: tr.fit(K9_STEPS))
+        got = {k: counts[k] for k in ("adamw_norm", "adamw_step")}
+        log(f"{layout}: {K9_STEPS} steps, K9's launches {got}; captures "
+            f"{[(c['kind'], c['step']) for c in tr.captures]}")
+        if got != {k: K9_STEPS for k in got}:
+            raise RuntimeError(f"{layout}: K9's launches {got}, expected "
+                               f"{K9_STEPS} each")
+        check_losses(hist, [("first", 0), ("last", -1)], fall=False)
+        paths[layout] = tr
+    rec, gen = {}, torch.Generator(device="cuda").manual_seed(7)
+    check_adamw(paths, rec, gen)
+    time_kernels(rec)
+    rows = [dict(path=p, **time_adamw(t, p)) for p, t in paths.items()]
+    print(f"optimizer update on {smi}: " + json.dumps(rows))
+    print(json.dumps({"kernels": [
+        {"name": f"{LABEL[k]} {k}", "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+         "library_ms": r["library_ms"], "max_abs_err": r["err"]}
+        for k, r in rec.items()]}))
+
+
 def render_config(cfg, **kw):
     return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
 
@@ -6101,7 +6393,8 @@ def main():
     ap.add_argument("--profile", default="",
                     help="directory for torch.profiler traces of 4 steps "
                          "of each march")
-    ap.add_argument("--only", choices=["distributed", "cascades", "k7k8"],
+    ap.add_argument("--only", choices=["distributed", "cascades", "k7k8",
+                                       "k9"],
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -6138,6 +6431,8 @@ def main():
             distributed_path({k.name: 0 for k in kernels.ALL_KERNELS}, smi)
         elif args.only == "k7k8":
             k7k8_only(smi)
+        elif args.only == "k9":
+            k9_only(smi)
         else:
             cascades_only(smi)
         log(f"done in {time.time() - T0:.1f} s")
@@ -6292,6 +6587,10 @@ def main():
     fit_ms.update(ms)
     cli_path(launches, smi)
     distributed_path(launches, smi)
+    log("phase 6: K9 against its plain version on the bench fields' "
+        "parameters")
+    check_adamw({k: paths[k] for k in ("triplane", "brick", "tcnn")}, rec,
+                gen)
     missing = [k.name for k in kernels.ALL_KERNELS if k.name not in rec]
     if missing:
         raise RuntimeError(f"kernels not checked: {missing}")

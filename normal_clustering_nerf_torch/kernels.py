@@ -227,7 +227,7 @@ def scan_workspace(user: str, words: int, device: torch.device,
                    min_words: int = 0) -> torch.Tensor:
     """The work buffer of a single-pass scan (`csrc/look_back.cuh`) of
     `user` ("compact": H11; "occ": K8's occupied list; "merge": the grid
-    barrier of K8's merge and pack) on `device`: one
+    barrier of K8's merge and pack; "adamw": K9's tickets) on `device`: one
     buffer a (user, device), allocated zeroed at its first use and kept
     for the process (each call is an epoch of it, so no call zeroes it
     again; a CUDA graph's replays use the buffer its capture saw, and a
@@ -286,6 +286,10 @@ OCC_MERGE_PACK = Kernel("occ_merge_pack", "occupancy.cu",
                         [P, P, F, F, I, P, P, P, P, P])
 OCC_TABLES = Kernel("occ_tables", "occupancy.cu", [P, I, P, P, P])
 OCC_UNION = Kernel("occ_union", "occupancy.cu", [P, I, I, P])
+# K9, the optimizer's update (ops/adamw.py): the global norm, then the
+# clip, the moments and the step of every parameter
+ADAMW_NORM = Kernel("adamw_norm", "adamw.cu", [P] * 5)
+ADAMW_STEP = Kernel("adamw_step", "adamw.cu", [P] * 4 + [F] * 7)
 
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
@@ -294,7 +298,8 @@ ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_SEG_BWD, DISTORTION_SEG_FWD, DISTORTION_SEG_BWD,
                TRIPLANE_FWD_JAC, TRIPLANE_BWD_DX, BRICK_FWD_JAC,
                BRICK_CONTRACT, HASH_FWD_JAC, HASH_CONTRACT, KMEANS_CLUSTER,
-               OCC_COMPACT, OCC_MERGE_PACK, OCC_TABLES, OCC_UNION)
+               OCC_COMPACT, OCC_MERGE_PACK, OCC_TABLES, OCC_UNION, ADAMW_NORM,
+               ADAMW_STEP)
 
 
 def reset_counts():

@@ -9,12 +9,14 @@ decay, their gradients clipped with the others: the Manhattan-SDF angle
 `dT` (`optimize_ext`) with `adam(1e-6)`, the global normal-frame rotation
 `dR_glob` (`lr_dR_norm_glob > 0`) with `adam(lr_dR_norm_glob)`; a
 constant lr is a 0-dim tensor on the device, which the update scales by
-its negation as optax's `scale(-lr)` does. This class repeats optax's arithmetic
-in the same order, so a step from the same gradients gives the same
-parameters to f32 rounding:
+its negation as optax's `scale(-lr)` does. The update is one call of
+`ops/adamw.py:clipped_adamw` over every parameter (kernel K9 on the card,
+two launches), which repeats optax's arithmetic in the same order, so a
+step from the same gradients gives the same parameters to f32 rounding:
 
   * clipping: g <- g / ||g|| * max_norm only when ||g|| >= max_norm, with
-    no epsilon (torch.nn.utils.clip_grad_norm_ scales by
+    no epsilon, ||g|| summed in K9's fixed order
+    (torch.nn.utils.clip_grad_norm_ scales by
     max_norm / (norm + 1e-6) and always, which is another update);
   * Adam moments mu = 0.1 g + 0.9 mu, nu = 0.001 g^2 + 0.999 nu, bias
     corrected by 1 - b^count, update mu_hat / (sqrt(nu_hat) + eps);
@@ -35,7 +37,7 @@ moments, like the parameters, are updated in their own storages.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +45,7 @@ import torch
 from ..config import OptimConfig, TrainConfig
 from ..losses import CLUSTERING_TERMS, loss_schedule
 from ..models.rendering import anneal_schedule
+from ..ops import adamw
 
 # the columns of `schedule_table`: row i holds the optimizer's scalars at
 # its count i (lr(i), the bias corrections 1 - b^(i+1)) and the trainer's
@@ -94,6 +97,8 @@ class AdamW:
         self.params = params
         self.cfg = cfg
         self.b1, self.b2 = b1, b2
+        self.hyper = adamw.Hyper(b1, b2, cfg.adam_eps, cfg.weight_decay_net,
+                                 cfg.grad_clip)
         self.state = self.init_state()
         dev = next(iter(params.values())).device
         # the count on the device, which `update` advances (a captured
@@ -131,38 +136,30 @@ class AdamW:
         return (self.lr(count), float(f32(1.0) - f32(self.b1) ** c),
                 float(f32(1.0) - f32(self.b2) ** c))
 
-    @staticmethod
-    def clip(grads: Dict[str, torch.Tensor], max_norm: float):
-        """optax.clip_by_global_norm."""
-        g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
-        keep = g_norm < max_norm
-        return {n: torch.where(keep, g, (g / g_norm) * max_norm)
-                for n, g in grads.items()}, g_norm
+    def slots(self, grads: Dict[str, torch.Tensor],
+              lr: torch.Tensor) -> List[adamw.Slot]:
+        """K9's tensors of a step, in the parameters' order: each
+        parameter with its gradient, its moments, its lr (the step table's
+        `lr`, or its constant one's negation) and its weight decay."""
+        st = self.state
+        return [adamw.Slot(p, grads[n], st["mu"][n], st["nu"][n],
+                           self.neg_const_lr.get(n, lr),
+                           n not in self.neg_const_lr, decays(n))
+                for n, p in self.params.items()]
 
     @torch.no_grad()
     def update(self, grads: Dict[str, torch.Tensor], lr: torch.Tensor,
                bc1: torch.Tensor, bc2: torch.Tensor) -> torch.Tensor:
         """Update the parameters and the moments in place, on the device
-        only: `lr`, `bc1` and `bc2` are 0-dim f32 tensors (the row of
+        only, through `ops.adamw.clipped_adamw` (K9 on the card, two
+        launches): `lr`, `bc1` and `bc2` are 0-dim f32 tensors (the row of
         `schedule_table` at `count_t`), divided by as tensors (one
         rounding on the card too, where a Python divisor becomes a product
-        with its reciprocal). Advances `count_t`; the caller advances the
-        host count (`advance`). Returns the pre-clip norm."""
-        grads, g_norm = self.clip(grads, self.cfg.grad_clip)
-        st = self.state
-        neg_lr = -lr
-        wd = self.cfg.weight_decay_net
-        for n, p in self.params.items():
-            g = grads[n]
-            mu, nu = st["mu"][n], st["nu"][n]
-            torch.add((1 - self.b1) * g, self.b1 * mu, out=mu)
-            torch.add((1 - self.b2) * (g * g), self.b2 * nu, out=nu)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.cfg.adam_eps)
-            if decays(n):
-                u = u + wd * p
-            p.add_(u * self.neg_const_lr.get(n, neg_lr))
-        self.count_t.add_(1)
-        return g_norm
+        with its reciprocal). Advances `count_t` (on the card, in K9's
+        first launch); the caller advances the host count (`advance`).
+        Returns the pre-clip norm."""
+        return adamw.clipped_adamw(self.slots(grads, lr), bc1, bc2,
+                                   self.count_t, self.hyper)
 
     def advance(self):
         self.state["count"] += 1
