@@ -15,6 +15,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only k9            # 32 steps of each bench
                                                # field, then K9 checked
                                                # and timed
+    python3 chip_smoke.py --only loss          # 64 steps of each bench
+                                               # field, then K10 checked
+                                               # at its edges and timed
 
 Phases (any failed check raises, so the script exits non-zero):
   1. build the kernels (`csrc/*.cu`, one nvcc per source, all at once);
@@ -99,8 +102,9 @@ Phases (any failed check raises, so the script exits non-zero):
      cluster selection) once a step, K8's `occ_merge_pack` and
      `occ_tables` once a refresh and `occ_compact` once a sampled refresh
      (20; from the second on, replays of the refresh's own CUDA graph),
-     K9's `adamw_norm` and `adamw_step` (the optimizer's update) once a
-     step each.
+     K9's `adamw_norm` and `adamw_step` (the optimizer's update) and
+     K10's `loss_rays`, `loss_clusters` and `loss_bwd` (the loss block)
+     once a step each.
      Every loss must be finite and the loss must fall;
   4. K7 against its plain version bit for bit (assign_new, assign_orig,
      every centroid, centroids3) on one training step's own normals (M
@@ -113,7 +117,16 @@ Phases (any failed check raises, so the script exits non-zero):
      cells, a sigma grid with NaN, every cell invisible, occ_compact's
      edge grids; occ_merge_pack also against a second launch of its own;
      occ_union on 1-4 ranks' bitfields), and on the trained grid with a
-     sampled refresh's sigma grid; K1 and H9-H11 against their plain
+     sampled refresh's sigma grid; K10 against its plain version on a
+     training step's own loss arguments (`check_loss_block`: the normals,
+     K7's assignment and the members bit for bit, the terms within rtol
+     1e-5 / atol 1e-7, every gradient within rtol 1e-4 / atol 1e-6; at
+     full weights, weights 0, rgb and opacity alone, past norm_can_end,
+     an empty cluster, snapping with the member discard, NaN and zero
+     normals, patch triangles, random poses, the rays' gradients, 40
+     classes, ts_bug_compat, a cotangent of every term, given normals;
+     the Function bit for bit its launchers; the base case on the brick
+     and tcnn fields too); K1 and H9-H11 against their plain
      versions on the trained occupancy,
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
@@ -1689,7 +1702,8 @@ PATH_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
 K7K8_LAUNCHES = {"kmeans_cluster": STEPS, "occ_merge_pack": STEPS // 16,
                  "occ_tables": STEPS // 16,
                  "occ_compact": (STEPS - 256) // 16, "adamw_norm": STEPS,
-                 "adamw_step": STEPS}
+                 "adamw_step": STEPS, "loss_rays": STEPS,
+                 "loss_clusters": STEPS, "loss_bwd": STEPS}
 P4_POINTS = 262_144   # experiments/pallas_gather2.py: M = 8192 rays x 32
 ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
 # f32 operations of the Jacobians beyond the forward's: per (sample,
@@ -3953,6 +3967,423 @@ def check_adamw(paths, rec, gen):
         bound=bound(28 * n, ADAMW_STEP_OPS * n))
 
 
+# ------------------------------------------------------------ K10 checks
+LOSS_STEPS = 64   # steps of each bench field before `--only loss`'s checks
+K10_LAUNCHERS = ("loss_rays", "loss_clusters", "loss_bwd")
+SEM_WIDE = 6 + SEM_CLASSES   # rend's columns before the 40 logits, and them
+
+
+def step_loss_args(tr):
+    """The arguments of `compute_losses` in one training step after the
+    bootstrap (the step is taken), copied: pred, target and the keyword
+    arguments; the semantic logits kept a strided view of a wider row, as
+    `split_rend` hands them over."""
+    from normal_clustering_nerf_torch.training import trainer as tm
+    seen, fn = [], tm.compute_losses
+
+    def spy(pred, target, lcfg, mcfg, **kw):
+        seen.append(({k: v.detach().clone() if torch.is_tensor(v) else v
+                      for k, v in pred.items()},
+                     {k: v.clone() for k, v in target.items()},
+                     {k: v for k, v in kw.items() if k != "sched"},
+                     {k: v.clone() for k, v in kw["sched"].items()}))
+        return fn(pred, target, lcfg, mcfg, **kw)
+    tm.compute_losses = spy
+    try:
+        tr.train_step_core(bootstrap=False)
+    finally:
+        tm.compute_losses = fn
+    pred, target, kw, sched = seen[0]
+    if "sem" in pred:
+        C = pred["sem"].shape[1]
+        wide = torch.zeros((pred["sem"].shape[0], 6 + C), device=tr.device)
+        wide[:, 6:] = pred["sem"]
+        pred["sem"] = wide[:, 6:]
+    return pred, target, kw, sched
+
+
+def max_abs(a, b):
+    d = (a.double() - b.double()).abs()
+    d = d[~(a.isnan() & b.isnan())]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def k10_args_copy(a, **ptrs):
+    from normal_clustering_nerf_torch.ops import loss_block as lb
+    c = lb._Args.from_buffer_copy(a)
+    for k, t in ptrs.items():
+        setattr(c, k, t.data_ptr())
+    return c
+
+
+def k10_pair(plan, inp, X, needs, g_terms, g_total, gen):
+    """K10's three launchers (with K7 between them) and the plain version
+    (with K7 on its own normals) on the same inputs X (GRAD_INPUTS)."""
+    from normal_clustering_nerf_torch.ops import kmeans as km
+    from normal_clustering_nerf_torch.ops import loss_block as lb
+    a, dev = lb.make_args(plan, inp, *X)
+    k = dict(zip(("nm", "valid", "slots"), lb.rays_kernel(a, plan, dev)))
+    p = dict(zip(("nm", "valid", "slots"), lb.rays_plain(plan, inp, *X)))
+    init = inp.kmeans_init
+    for r in (k, p):
+        r["clus"] = None
+        if plan.clustering:
+            if init is None:
+                init = km.draw_init(k["valid"], plan.K, gen)
+            r["clus"] = km.normals_clustering(
+                r["nm"], r["valid"], K=plan.K, niter=plan.niter,
+                t_similar=1.0 - plan.tres, init_idx=init)
+    names = ("terms", "total", "mse", "saved", "code")
+    k.update(zip(names, lb.clusters_kernel(a, plan, dev, k["clus"])))
+    c = p["clus"]
+    p.update(zip(names, lb.clusters_plain(
+        plan, inp, p["nm"], None if c is None else c.assign_new,
+        None if c is None else c.centroids3, p["slots"])))
+    shapes = [None if x is None else tuple(x.shape) for x in X]
+    k["grads"] = lb.bwd_kernel(a, plan, dev, k["saved"], k["code"], g_terms,
+                               g_total, needs, shapes)
+    p["grads"] = lb.bwd_plain(plan, inp, p["saved"], p["code"], g_terms,
+                              g_total, needs, *X)
+    return a, k, p, init
+
+
+def k10_compare(label, plan, inp, X, needs, gen, g_terms=None, quiet=False):
+    """`k10_pair` held bit for bit (the plain version repeats K10's
+    roundings and order of sums, and K10 has no float atomics): the
+    normals, their valid flags, K7's assignment and centroids, the
+    members' codes, the slots, the terms, their total, the rgb mean, the
+    saved state and every gradient. Returns (failures, the run (the
+    kernel's and the plain version's outputs, the inputs, each cluster's
+    members), the largest |kernel - plain| by launcher)."""
+    from normal_clustering_nerf_torch.ops import loss_block as lb
+    g_total = torch.ones((), device=X[1].device)
+    a, k, p, init = k10_pair(plan, inp, X, needs, g_terms, g_total, gen)
+    bad, err = [], {n: 0.0 for n in K10_LAUNCHERS}
+    d = bits_differ(k["nm"], p["nm"])
+    if d or not torch.equal(k["valid"], p["valid"]):
+        bad.append(f"normals: {d} values' bits differ")
+    if k["clus"] is not None:
+        for n in ("assign_new", "assign_orig", "centroids3"):
+            a_, b_ = getattr(k["clus"], n), getattr(p["clus"], n)
+            if not torch.equal(a_, b_):
+                bad.append(f"K7 {n} differs")
+    if not torch.equal(k["code"], p["code"]):
+        bad.append("member codes differ")
+    err["loss_rays"] = max(max_abs(k["nm"], p["nm"]),
+                           max_abs(k["slots"], p["slots"]))
+    err["loss_clusters"] = max(max_abs(k[n], p[n])
+                               for n in ("terms", "total", "mse"))
+    diff = {n: bits_differ(k[n], p[n])
+            for n in ("slots", "terms", "total", "mse", "saved")}
+    asked = [n for n, need in zip(lb.GRAD_INPUTS, needs) if need]
+    for n, gk, gp in zip(lb.GRAD_INPUTS, k["grads"], p["grads"]):
+        if (gk is None) != (gp is None):
+            bad.append(f"d {n}: kernel {gk is None}, plain {gp is None}")
+            continue
+        if gk is None:
+            continue
+        err["loss_bwd"] = max(err["loss_bwd"], max_abs(gk, gp.float()))
+        diff[f"d {n}"] = bits_differ(gk, gp.float())
+    bad += [f"{n}: {c} values' bits differ" for n, c in diff.items() if c]
+    code = k["code"].abs()
+    members = [int((code == g).sum()) for g in (1, 2, 3)]
+    if not quiet or bad:
+        log(f"  K10, {label}: {plan.n_rays} rays, {plan.n_tri} triangles, "
+            f"members {members}, terms "
+            + ", ".join(f"{t} {float(v):.6g}"
+                        for t, v in zip(plan.terms, k["terms"]))
+            + f"; grads {asked}; values whose bits differ {diff}: "
+            + (f"FAIL {bad}" if bad else "ok"))
+    return bad, dict(a=a, k=k, p=p, plan=plan, inp=inp, X=X, needs=needs,
+                     members=members), err
+
+
+def k10_case(tr, base, label, lcfg=None, mcfg=None, step=3000, ext=False,
+             edit=None, rows=None, n_sup=None, strategy=None, sched=None,
+             sem40=False, g_terms=False, gen=None):
+    """One case of `check_loss_block`: the step's arguments `base`
+    (`step_loss_args`), changed as the case says, through
+    `losses.block_inputs` and `k10_compare`."""
+    from normal_clustering_nerf_torch import losses
+    from normal_clustering_nerf_torch.datasets.sampler import (
+        build_patch_tables)
+    from normal_clustering_nerf_torch.ops import loss_block as lb
+    pred, target, kw, _ = base
+    lcfg = lcfg or tr.cfg.loss
+    mcfg = mcfg or tr.model.cfg
+    pred = {k: v.clone() if torch.is_tensor(v) else v
+            for k, v in pred.items()}
+    target = {k: v.clone() for k, v in target.items()}
+    kw = dict(kw)
+    if rows is not None:   # the first rows, as a batch of this size
+        pred = {k: v[:rows] if torch.is_tensor(v) and v.dim() and
+                v.shape[0] == base[0]["rgb"].shape[0] else v
+                for k, v in pred.items()}
+    n = n_sup or pred["rgb"].shape[0]
+    target = {k: v[:n] for k, v in target.items()}
+    if strategy is not None:
+        kw["ray_sampling_strategy"] = strategy
+        if "patch" in strategy:
+            t = build_patch_tables(tr.sampler.H, tr.sampler.W, 8)
+            kw["patch_area"] = 64
+            kw["offsets_local"] = {k: getattr(t, f"{k}_local")
+                                   for k in ("x1", "x2", "x3")}
+    kw["random_tr_poses"] = n_sup is not None
+    if sem40:
+        N = pred["rgb"].shape[0]
+        wide = torch.randn((N, SEM_WIDE), generator=gen, device=tr.device)
+        pred["sem"] = wide[:, 6:]
+        target["semantics"] = torch.randint(0, SEM_CLASSES + 1, (n,),
+                                            generator=gen, device=tr.device)
+        mcfg = dataclasses.replace(mcfg, n_sem_cls=SEM_CLASSES)
+    if edit is not None:
+        edit(pred)
+    if sched is None:
+        sched = losses._step_scalars(lcfg, step, tr.device)
+    plan, inp, xs = losses.block_inputs(
+        pred, target, lcfg, mcfg,
+        ray_sampling_strategy=kw["ray_sampling_strategy"],
+        random_tr_poses=kw["random_tr_poses"], patch_area=kw["patch_area"],
+        offsets_local=kw["offsets_local"], kmeans_init=None, generator=None,
+        sched=sched)
+    X = [None if xs.get(k) is None else xs[k].detach()
+         for k in lb.GRAD_INPUTS]
+    needs = [x is not None for x in X]
+    needs[2] = needs[2] and not lcfg.distortion_ts_bug_compat
+    needs[5] = needs[6] = ext and X[5] is not None
+    gt = (torch.randn(len(plan.terms), generator=gen, device=tr.device)
+          if g_terms else None)
+    return k10_compare(label, plan, inp, X, needs, gen, gt)
+
+
+def k10_function(tr, base, lcfg, ext, gen):
+    """`compute_losses` through K10's Function (as the trainer calls it)
+    against `k10_pair`'s launchers on the same inputs: the terms, the
+    total and every gradient bit for bit (the same kernels, no atomics),
+    and with `distortion_ts_bug_compat` no gradient of the weights."""
+    from normal_clustering_nerf_torch import losses
+    from normal_clustering_nerf_torch.ops import kmeans as km
+    from normal_clustering_nerf_torch.ops import loss_block as lb
+    pred, target, kw, _ = base
+    sched = losses._step_scalars(lcfg, 3000, tr.device)
+    leaves = ("rgb", "opacity", "ws", "depth") + (
+        ("rays_o", "rays_d") if ext else ())
+    p = {k: v.clone() if torch.is_tensor(v) else v for k, v in pred.items()}
+    for k in leaves:
+        p[k] = p[k].detach().requires_grad_(True)
+    # the logits a view of a leaf row, as split_rend hands them over
+    wide = torch.zeros((p["sem"].shape[0], 6 + p["sem"].shape[1]),
+                       device=tr.device)
+    wide[:, 6:] = p["sem"].detach()
+    wide.requires_grad_(True)
+    p["sem"] = wide[:, 6:]
+    init = {}
+    kw = {k: kw[k] for k in ("ray_sampling_strategy", "random_tr_poses",
+                             "patch_area", "offsets_local")}
+    draw = km.draw_init
+
+    def fixed(valid, K, generator):
+        init.setdefault("i", draw(valid, K, gen))
+        return init["i"]
+    km.draw_init = fixed
+    try:
+        out = losses.compute_losses(p, target, lcfg, tr.model.cfg, step=3000,
+                                    sched=sched, **kw)
+        out["total"].backward()
+        plan, inp, xs = losses.block_inputs(
+            {k: v.detach() if torch.is_tensor(v) else v
+             for k, v in p.items()}, target, lcfg, tr.model.cfg,
+            kmeans_init=init["i"], generator=None, sched=sched, **kw)
+    finally:
+        km.draw_init = draw
+    X = [None if xs.get(k) is None else xs[k].detach()
+         for k in lb.GRAD_INPUTS]
+    needs = [x is not None for x in X]
+    needs[2] = not lcfg.distortion_ts_bug_compat
+    needs[5] = needs[6] = ext and X[5] is not None
+    _, k, _, _ = k10_pair(plan, inp, X, needs, None,
+                          torch.ones((), device=tr.device), gen)
+    bad = []
+    got = torch.stack([out[t].detach() for t in plan.terms])
+    if bits_differ(got, k["terms"]):
+        bad.append("terms")
+    grads = {"rgb": p["rgb"].grad, "opacity": p["opacity"].grad,
+             "depth": p["depth"].grad, "sem": wide.grad[:, 6:]}
+    if ext:
+        grads.update(rays_o=p["rays_o"].grad, rays_d=p["rays_d"].grad)
+    for n, g in zip(lb.GRAD_INPUTS, k["grads"]):
+        if n in grads and (grads[n] is None or bits_differ(grads[n], g)):
+            bad.append(f"d {n}")
+    if lcfg.distortion_ts_bug_compat and p["ws"].grad is not None:
+        bad.append("ts_bug_compat: ws got a gradient")
+    if not lcfg.distortion_ts_bug_compat and p["ws"].grad is None:
+        bad.append("ws got no gradient")
+    return bad
+
+
+def k10_bound(plan, inp, X, needs):
+    """K10's launchers' bytes (each input read once, each output written
+    once) and f32 operations on this run's inputs X (GRAD_INPUTS) and
+    asked gradients `needs`, by launcher. loss_rays reads the supervised
+    rays' rgb, target, logits and labels, every ray's opacity and dl, the
+    clustering rays' o, d and depth and the triangles' indices, and
+    writes the normals, the flags and the slots (~45 operations a normal,
+    8 a ray, 12 + 6 C a supervised ray). loss_clusters reads the normals,
+    K7's assignment and the slots and writes the codes (two sweeps, ~60
+    operations a row). loss_bwd reads, for each asked gradient, what it
+    is made of (d rgb: the supervised rgb and target; d opacity: the
+    opacity; d dl: nothing, it is one constant; d sem: the supervised
+    logits and labels; d depth, d rays_o, d rays_d: the clustering rays'
+    o, d and depth, the indices, the table and the codes, and d depth the
+    other rays' d), and writes each asked gradient, d sem a row for every
+    ray (~10 operations a ray, 6 C a supervised one, ~90 a ray's entry of
+    the table: its triangle recomputed and differentiated)."""
+    N, n, T, C = plan.n_rays, plan.n_sup, plan.n_tri, plan.n_cls
+    M = N - plan.unsup if plan.clustering else 0
+    W = inp.table.shape[1] if plan.clustering else 0
+    lab = inp.labels.element_size() if C else 0
+    rgb, sem = n * 24, n * (C * 4 + lab)
+    tri = M * 28 + T * 24
+    rays = (rgb + sem + N * 4 + (N * 4 if X[2] is not None else 0) + tri)
+    asked = [need and x is not None for need, x in zip(needs, X)]
+    geo = any(asked[4:7]) and plan.clustering
+    reads = (rgb * asked[0] + N * 4 * asked[1] + sem * asked[3]
+             + (tri + M * W * 4 + T + (N - M) * 12 * asked[4]) * geo)
+    writes = sum(b for b, a in zip((N * 12, N * 4, N * 4, N * C * 4, N * 4,
+                                    N * 12, N * 12), asked) if a)
+    return {
+        "loss_rays": bound(rays + T * 13 + plan.blocks * 20,
+                           T * 45 + N * 8 + n * (12 + 6 * C)),
+        "loss_clusters": bound(T * 12 + T * 8 + T + plan.blocks * 20,
+                               T * 60),
+        "loss_bwd": bound(reads + writes,
+                          N * 10 + n * 6 * C + M * W * 90 * geo),
+    }
+
+
+def check_loss_block(tr, layout, rec, gen, full=True):
+    """K10 against its plain version on a training step's own arguments
+    (`step_loss_args`; `k10_compare`), at full weights (step 3000); with
+    `full` also at step 0 (weights 0), with rgb and opacity alone (no
+    depth or rays read), past norm_can_end, with an empty cluster (the
+    member discard at a tiny threshold), the snapping and the member
+    discard, NaN and zero normals, patch triangles, random poses
+    (triangles and patches), the ext path's ray gradients, 40 classes,
+    distortion_ts_bug_compat (no dl gradient) and a cotangent of every
+    term besides the total's; and `compute_losses` through the Function
+    against the launchers (`k10_function`). The triplane field's base
+    case is kept in `rec` for `time_kernels`."""
+    from normal_clustering_nerf_torch.ops import loss_block as lb
+    base = step_loss_args(tr)
+    lc = tr.cfg.loss
+    log(f"K10 on a training step's arguments ({layout}, step {tr.step - 1}): "
+        f"{base[0]['rgb'].shape[0]} rays, terms of {lc}")
+    failures, errs = [], {n: 0.0 for n in K10_LAUNCHERS}
+
+    def run(label, **kw):
+        bad, r, err = k10_case(tr, base, f"{layout}, {label}", gen=gen,
+                               **kw)
+        failures.extend(f"{label}: {b}" for b in bad)
+        for n in errs:
+            errs[n] = max(errs[n], err[n])
+        return r
+    r0 = run("step 3000 (full weights)")
+    if full:
+        rp = dataclasses.replace
+        run("step 0 (weights 0)", step=0)
+        run("rgb and opacity only (the bench's --min_losses)",
+            lcfg=rp(lc, distortion_w=0.0, sem_w=0.0, norm_D_C_ort_dot_w=0.0,
+                    norm_D_C_centr_dot_w=0.0, norm_D_C_centr_L1_w=0.0))
+        run("past norm_can_end", lcfg=rp(lc, norm_can_end=2000))
+        r = run("an empty cluster (member discard at 1e-7)",
+                lcfg=rp(lc, discard_far_members=True, norm_can_tres=1e-7))
+        cl = [float(v) for t, v in zip(r["plan"].terms, r["k"]["terms"])
+              if t in lb.CLUSTER_TERMS]
+        if min(r["members"]) or any(cl):
+            failures.append(f"an empty cluster: members {r['members']}, "
+                            f"clustering terms {cl} (expected a cluster "
+                            f"empty and the terms 0)")
+        # a threshold at which the centroids snap (1 - c . axis < 0.9)
+        r = run("snapping and member discard",
+                lcfg=rp(lc, norm_D_C_can_dot_w=2e-3, norm_D_C_can_L1_w=2e-3,
+                        discard_far_members=True, norm_can_tres=0.3))
+        snap = [float(v) for t, v in zip(r["plan"].terms, r["k"]["terms"])
+                if t in ("norm_D_C_can_dot", "norm_D_C_can_L1")]
+        if not all(snap):
+            failures.append(f"snapping: terms {snap} (expected them on)")
+
+        def nan_zero(pred):
+            pred["depth"][5] = float("nan")          # triangle 1
+            for r in (31, 32):                      # triangle 10: one point
+                pred["rays_o"][r] = pred["rays_o"][30]
+                pred["rays_d"][r] = pred["rays_d"][30]
+                pred["depth"][r] = pred["depth"][30]
+        run("NaN and zero normals", edit=nan_zero)
+        N = base[0]["rgb"].shape[0]
+        # the batch's first rays as patches of 8 x 8 (127 at the bench's
+        # 8190 rays); with random poses half of them of each kind
+        run("patch triangles", rows=N - N % 64,
+            strategy="all_images_triang_patch")
+        run("random poses", n_sup=N // 2)
+        run("random poses, patch triangles", rows=N - N % 128,
+            n_sup=(N - N % 128) // 2, strategy="all_images_triang_patch")
+        run("ext: ray gradients", ext=True)
+        run(f"{SEM_CLASSES} classes", sem40=True)
+        run("distortion_ts_bug_compat (no dl gradient)",
+            lcfg=rp(lc, distortion_ts_bug_compat=True))
+        run("a cotangent of every term", g_terms=True)
+        for ext in (False, True):
+            bad = k10_function(tr, base, lc, ext, gen)
+            log(f"  K10, {layout}: compute_losses through the Function"
+                f"{' (ext)' if ext else ''} bit for bit the launchers': "
+                + (f"FAIL {bad}" if bad else "ok"))
+            failures.extend(f"Function{' ext' if ext else ''}: {b}"
+                            for b in bad)
+        bad = k10_function(tr, base, rp(lc, distortion_ts_bug_compat=True),
+                           False, gen)
+        log("  K10: compute_losses with distortion_ts_bug_compat: "
+            + (f"FAIL {bad}" if bad else "no gradient of the weights ok"))
+        failures.extend(f"Function ts_bug_compat: {b}" for b in bad)
+        try:
+            lb.make_args(r0["plan"], r0["inp"],
+                         *[None if x is None else x.cpu() for x in r0["X"]])
+            failures.append("K10 took a CPU tensor")
+        except ValueError as e:
+            log(f"  K10 on a CPU tensor: refused ok ({e})")
+    if failures:
+        raise RuntimeError(f"K10 against its plain version: {failures}")
+    log(f"K10 against its plain version ({layout}): ok; max |kernel - "
+        f"plain| by launcher {errs}")
+    if rec is None:
+        return
+    a, k, p = r0["a"], r0["k"], r0["p"]
+    plan, inp, X, needs = r0["plan"], r0["inp"], r0["X"], r0["needs"]
+    bounds = k10_bound(plan, inp, X, needs)
+    dev = k["nm"].device
+    g_total = torch.ones((), device=dev)
+    shapes = [None if x is None else tuple(x.shape) for x in X]
+    ac = k10_args_copy(a, nm=k["nm"], slots=k["slots"])
+    rec["loss_rays"] = dict(
+        err=errs["loss_rays"], library=None, bound=bounds["loss_rays"],
+        kernel=lambda: lb.rays_kernel(k10_args_copy(a), plan, dev),
+        plain=lambda: lb.rays_plain(plan, inp, *X))
+    rec["loss_clusters"] = dict(
+        err=errs["loss_clusters"], library=None,
+        bound=bounds["loss_clusters"],
+        kernel=lambda: lb.clusters_kernel(ac, plan, dev, k["clus"]),
+        plain=lambda: lb.clusters_plain(plan, inp, p["nm"],
+                                        p["clus"].assign_new,
+                                        p["clus"].centroids3, p["slots"]))
+    rec["loss_bwd"] = dict(
+        err=errs["loss_bwd"], library=None, bound=bounds["loss_bwd"],
+        kernel=lambda: lb.bwd_kernel(k10_args_copy(a), plan, dev, k["saved"],
+                                     k["code"], None, g_total, needs,
+                                     shapes),
+        plain=lambda: lb.bwd_plain(plan, inp, p["saved"], p["code"], None,
+                                   g_total, needs, *X))
+
+
+
 REPLACES = {
     "march_bootstrap": "normal_clustering_nerf_tpu/ops/ray_march.py:402",
     "triplane_fwd": "normal_clustering_nerf_tpu/models/triplane.py:177",
@@ -4005,6 +4436,12 @@ REPLACES = {
     # by group), applied at training/trainer.py:365
     "adamw_norm": "normal_clustering_nerf_tpu/training/state.py:43",
     "adamw_step": "normal_clustering_nerf_tpu/training/state.py:43",
+    # K10: compute_losses' rgb, opacity, distortion and sem terms with the
+    # depth normals (datasets/normals.py) and their gradient; the
+    # clustering terms of _clustering_losses (:94)
+    "loss_rays": "normal_clustering_nerf_tpu/losses.py:189",
+    "loss_clusters": "normal_clustering_nerf_tpu/losses.py:94",
+    "loss_bwd": "normal_clustering_nerf_tpu/losses.py:189",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
@@ -4020,7 +4457,8 @@ LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "hash_grid_fwd_jac": "H14",
          "hash_grid_contract": "H14", "kmeans_cluster": "K7",
          "occ_compact": "K8", "occ_merge_pack": "K8", "occ_tables": "K8",
-         "occ_union": "K8", "adamw_norm": "K9", "adamw_step": "K9"}
+         "occ_union": "K8", "adamw_norm": "K9", "adamw_step": "K9",
+         "loss_rays": "K10", "loss_clusters": "K10", "loss_bwd": "K10"}
 
 
 def time_kernels(rec):
@@ -6384,6 +6822,42 @@ def k9_only(smi):
         for k, r in rec.items()]}))
 
 
+def loss_only(smi):
+    """`--only loss`: each bench field's trainer through LOSS_STEPS steps
+    of `Trainer.fit` (K10's three launchers counted, once a step each),
+    `check_loss_block` (every case on the triplane field, the base case
+    on the others), the triplane trainer's replayed graph steps against
+    eager steps, and K10's launchers' times."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    rec, gen = {}, torch.Generator(device="cuda").manual_seed(7)
+    launches = {}
+    paths = {}
+    for layout in ("triplane", "brick", "tcnn"):
+        tr = build_trainer(bench_config(hash_layout=layout), device="cuda")
+        tr.mark_invisible_cells()
+        hist, counts, _ = counted(lambda: tr.fit(LOSS_STEPS))
+        got = {k: counts[k] for k in K10_LAUNCHERS + ("kmeans_cluster",)}
+        log(f"{layout}: {LOSS_STEPS} steps, K10's and K7's launches {got}; "
+            f"captures {[(c['kind'], c['step']) for c in tr.captures]}")
+        if got != {k: LOSS_STEPS for k in got}:
+            raise RuntimeError(f"{layout}: K10's launches {got}, expected "
+                               f"{LOSS_STEPS} each")
+        for k in K10_LAUNCHERS:
+            launches[k] = launches.get(k, 0) + counts[k]
+        check_losses(hist, [("first", 0), ("last", -1)], fall=False)
+        check_loss_block(tr, layout, rec if layout == "triplane" else None,
+                         gen, full=layout == "triplane")
+        paths[layout] = tr
+    check_graph_chunk(paths["triplane"], "triplane", True)
+    time_kernels(rec)
+    print(json.dumps({"kernels": [
+        {"name": f"{LABEL[k]} {k}", "launches": launches[k], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+         "max_abs_err": r["err"]}
+        for k, r in rec.items()]}))
+
+
 def render_config(cfg, **kw):
     return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
 
@@ -6394,7 +6868,7 @@ def main():
                     help="directory for torch.profiler traces of 4 steps "
                          "of each march")
     ap.add_argument("--only", choices=["distributed", "cascades", "k7k8",
-                                       "k9"],
+                                       "k9", "loss"],
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -6433,6 +6907,8 @@ def main():
             k7k8_only(smi)
         elif args.only == "k9":
             k9_only(smi)
+        elif args.only == "loss":
+            loss_only(smi)
         else:
             cascades_only(smi)
         log(f"done in {time.time() - T0:.1f} s")
@@ -6481,8 +6957,10 @@ def main():
         {"march_sv_train": SV_STEPS, "march_fine_train": 0,
          **K7K8_LAUNCHES})[0]}
 
-    log("phase 4: K7 on a step's normals, K8 on the trained grid")
+    log("phase 4: K7 on a step's normals, K8 on the trained grid, K10 on "
+        "a step's loss arguments")
     check_kmeans(tr, rec, gen)
+    check_loss_block(tr, "triplane", rec, gen)
     check_occupancy(tr, rec, gen)
     log("phase 4: K1, H9-H11, the segment launchers and H3 with T_start "
         "on the trained occupancy")
@@ -6569,6 +7047,7 @@ def main():
             tl, layout, launches, PATH_KERNELS + FIELD_KERNELS[layout],
             {"march_sv_train": SV_STEPS})[0]
         check_step_cotangent(tl, rec)
+        check_loss_block(tl, layout, None, gen, full=False)
         for name, c in validate(tl, layout, ("march_sv_test_round",
                                              FIELD_KERNELS[layout][0],
                                              "composite_fwd")).items():

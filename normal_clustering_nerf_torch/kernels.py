@@ -290,6 +290,11 @@ OCC_UNION = Kernel("occ_union", "occupancy.cu", [P, I, I, P])
 # clip, the moments and the step of every parameter
 ADAMW_NORM = Kernel("adamw_norm", "adamw.cu", [P] * 5)
 ADAMW_STEP = Kernel("adamw_step", "adamw.cu", [P] * 4 + [F] * 7)
+# K10, the loss block (ops/loss_block.py): the normals and the rays' sums,
+# the clusters' terms after K7, the gradient; each takes the Args struct
+LOSS_RAYS = Kernel("loss_rays", "loss_block.cu", [P])
+LOSS_CLUSTERS = Kernel("loss_clusters", "loss_block.cu", [P])
+LOSS_BWD = Kernel("loss_bwd", "loss_block.cu", [P])
 
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
@@ -299,7 +304,7 @@ ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                TRIPLANE_FWD_JAC, TRIPLANE_BWD_DX, BRICK_FWD_JAC,
                BRICK_CONTRACT, HASH_FWD_JAC, HASH_CONTRACT, KMEANS_CLUSTER,
                OCC_COMPACT, OCC_MERGE_PACK, OCC_TABLES, OCC_UNION, ADAMW_NORM,
-               ADAMW_STEP)
+               ADAMW_STEP, LOSS_RAYS, LOSS_CLUSTERS, LOSS_BWD)
 
 
 def reset_counts():

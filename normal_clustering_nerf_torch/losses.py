@@ -26,8 +26,8 @@ import torch
 from .config import LossConfig, ModelConfig
 from .datasets.normals import extract_normals_from_ray_batch, normalize
 from .datasets.sampler import PATCH_STRATEGIES, TRIANG_STRATEGIES
+from .ops import loss_block as k10
 from .ops.distortion import distortion_loss, distortion_loss_dense
-from .ops.kmeans import normals_clustering
 
 
 def _masked_mean(x, mask, dim=None):
@@ -124,6 +124,32 @@ def patch_triang_idx_on(seq_len: int, patch_area: int, offsets_local,
     return _patch_triang_idx_on(seq_len, patch_area, local, device)
 
 
+@functools.lru_cache(maxsize=8)
+def _triang_table_on(seq_len: int, device: torch.device) -> torch.Tensor:
+    idx = triang_idx(seq_len)
+    return torch.as_tensor(k10.incidence_table_np(
+        idx["x1"], idx["x2"], idx["x3"], seq_len), device=device)
+
+
+@functools.lru_cache(maxsize=8)
+def _patch_table_on(seq_len: int, patch_area: int, local: tuple,
+                    device: torch.device) -> torch.Tensor:
+    idx = patch_triang_idx(seq_len, patch_area,
+                           dict(zip(("x1", "x2", "x3"), local)))
+    return torch.as_tensor(k10.incidence_table_np(
+        idx["x1"], idx["x2"], idx["x3"], seq_len), device=device)
+
+
+def incidence_table_on(strategy: str, seq_len: int, patch_area,
+                       offsets_local, device: torch.device) -> torch.Tensor:
+    """K10's ray -> (triangle, vertex) table (`ops/loss_block.py:
+    incidence_table_np`) of a triangle or patch batch of `seq_len` rays,
+    built once per batch shape and device, from the host's indices."""
+    if strategy in TRIANG_STRATEGIES:
+        return _triang_table_on(seq_len, device)
+    local = tuple(tuple(int(i) for i in offsets_local[k])
+                  for k in ("x1", "x2", "x3"))
+    return _patch_table_on(seq_len, patch_area, local, device)
 
 
 @functools.lru_cache(maxsize=8)
@@ -133,9 +159,6 @@ def _const(values: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(values, dtype=torch.float32, device=device)
 
 
-# the six signed canonical axes of the snapping (losses.py:165-168)
-_CANONICAL = ((1., 0., 0.), (-1., 0., 0.), (0., 1., 0.), (0., -1., 0.),
-              (0., 0., 1.), (0., 0., -1.))
 # the Manhattan-SDF wall/floor cross-entropy's class weights and label
 # smoothing (losses.py:325-328): wall, floor, the rest
 _WF_WEIGHT, _WF_SMOOTHING = (1.0, 1.0, 0.3), 0.1
@@ -163,71 +186,25 @@ def _cross_entropy(logits, labels_shifted, n_cls, weight=None,
     return torch.sum(per) / torch.clamp(denom, min=1e-12)
 
 
-def clustering_losses(norm_D_C, lcfg: LossConfig, step: int, *,
-                      kmeans_init: Optional[torch.Tensor] = None,
-                      generator: Optional[torch.Generator] = None,
-                      sched: Optional[Mapping] = None):
-    """The paper's contribution (reference: losses.py:419-509): cluster
-    the depth normals, then pull the three selected clusters to be
-    orthogonal and tight and, with the snapping weights, onto the
-    canonical axes they lie near. With `discard_far_members`, members
-    farther than `norm_can_tres` from their cluster's centroid leave it.
-    The weights are `sched`'s "w_<term>" (0-dim tensors), else
-    `loss_schedule(step)`'s."""
-    tres = lcfg.norm_can_tres
-    finite = torch.all(torch.isfinite(norm_D_C), dim=-1)
-    nonzero = torch.sum(torch.abs(norm_D_C), dim=-1) != 0.0
-    valid = finite & nonzero
-    normals = torch.where(valid[:, None], norm_D_C,
-                          torch.zeros_like(norm_D_C))
-    clus = normals_clustering(
-        normals.detach(), valid, K=lcfg.cluster_K, niter=lcfg.cluster_niter,
-        t_similar=1.0 - tres, init_idx=kmeans_init, generator=generator)
-    assign = clus.assign_new
-    normals = torch.where((assign < 0)[:, None], -normals, normals)
-    assign = assign.abs()
-    member = [assign == g + 1 for g in range(3)]
-    if lcfg.discard_far_members:
-        for g in range(3):
-            near = (1.0 - torch.sum(normals * clus.centroids3[g][None, :],
-                                    dim=-1)) <= tres
-            member[g] = member[g] & near
-    counts = [m.sum() for m in member]
-    cs = []
-    for g in range(3):
-        mean = _masked_mean(normals, member[g][:, None], dim=0)
-        cs.append(normalize(mean[None, :])[0])
-    c1, c2, c3 = cs
-    loss_ort = (torch.abs(torch.sum(c1 * c2)) + torch.abs(torch.sum(c1 * c3))
-                + torch.abs(torch.sum(c2 * c3))) / 3.0
-    loss_centr_dot = sum(
-        1.0 - _masked_mean(torch.sum(normals * cs[g][None, :], dim=-1),
-                           member[g])
-        for g in range(3)) / 3.0
-    loss_centr_l1 = sum(
-        _masked_mean(torch.sum(torch.abs(normals - cs[g][None, :]), dim=-1),
-                     member[g])
-        for g in range(3)) / 3.0
-    ok = (counts[0] > 0) & (counts[1] > 0) & (counts[2] > 0)
-    zero = torch.zeros((), dtype=normals.dtype, device=normals.device)
-    if sched is None:
-        sched = _step_scalars(lcfg, step, normals.device)
-    terms = {"norm_D_C_ort_dot": (loss_ort, ok),
-             "norm_D_C_centr_dot": (loss_centr_dot, ok),
-             "norm_D_C_centr_L1": (loss_centr_l1, ok)}
-    if lcfg.norm_D_C_can_dot_w > 0 or lcfg.norm_D_C_can_L1_w > 0:
-        # canonical-axis snapping (losses.py:162-185)
-        can = _const(_CANONICAL, normals.device)
-        c_mat = torch.stack([c1, c2, c3])
-        dots = c_mat @ can.T
-        cond = (1.0 - dots) < tres * 3.0
-        snap = ok & torch.any(cond)
-        l1 = torch.sum(torch.abs(c_mat[:, None, :] - can[None, :, :]), dim=-1)
-        terms["norm_D_C_can_dot"] = (1.0 - _masked_mean(dots, cond), snap)
-        terms["norm_D_C_can_L1"] = (_masked_mean(l1, cond), snap)
-    return {name: _finite_or_zero(torch.where(on, sched[f"w_{name}"] * val,
-                                              zero))
-            for name, (val, on) in terms.items()}
+def _cluster_terms(lcfg: LossConfig) -> tuple:
+    """The clustering terms a configuration computes: the three of the
+    clusters and, with a snapping weight, the two of the snapping."""
+    snap = lcfg.norm_D_C_can_dot_w > 0 or lcfg.norm_D_C_can_L1_w > 0
+    return CLUSTERING_TERMS if snap else CLUSTERING_TERMS[:3]
+
+
+def _plan(lcfg: LossConfig, terms: tuple, *, n_sup=0, n_rays=0, unsup=0,
+          n_tri=0, n_cls=0) -> k10.Plan:
+    return k10.Plan(n_sup=n_sup, n_rays=n_rays, unsup=unsup, n_tri=n_tri,
+                    n_cls=n_cls, terms=terms, w_op=lcfg.opacity_w,
+                    w_dist=lcfg.distortion_w, w_sem=lcfg.sem_w,
+                    tres=lcfg.norm_can_tres, K=lcfg.cluster_K,
+                    niter=lcfg.cluster_niter,
+                    discard=lcfg.discard_far_members)
+
+
+def _weights(sched: Mapping) -> tuple:
+    return tuple(sched[f"w_{t}"] for t in CLUSTERING_TERMS)
 
 
 def _triangles(strategy: str, n: int, patch_area, offsets_local, dev):
@@ -271,6 +248,66 @@ def _wf_losses(lcfg: LossConfig, sem_pred, sem_tgt, nD, theta, after_start):
     return (_finite_or_zero(lcfg.sem_w * wf_ce), _finite_or_zero(norm_wf))
 
 
+def block_inputs(pred: Dict, target: Dict, lcfg: LossConfig,
+                 mcfg: ModelConfig, *, ray_sampling_strategy: str,
+                 random_tr_poses: bool, patch_area, offsets_local,
+                 kmeans_init, generator, sched: Mapping):
+    """K10's plan, inputs and differentiable inputs ({name: tensor}) for
+    `compute_losses`' arguments: rgb always, opacity and distortion (of
+    H4's per-ray output) with their weights, the clustering terms, sem
+    without the Manhattan terms."""
+    n = target["rgb"].shape[0]
+    unsup = n if random_tr_poses else 0
+    n_unsup = pred["rgb"].shape[0] - unsup
+    dev = pred["depth"].device
+    clustering_on = any(getattr(lcfg, f"{t}_w") > 0 for t in CLUSTERING_TERMS)
+    x123 = _triangles(ray_sampling_strategy, n_unsup, patch_area,
+                      offsets_local, dev) if clustering_on else None
+    wf_on = lcfg.manhattan_nerf_w > 0
+    # K10's terms: rgb, opacity, distortion, the clustering terms, sem
+    sem_on = lcfg.sem_w > 0 and not wf_on
+    terms = (("rgb",) + (("opacity",) if lcfg.opacity_w > 0 else ())
+             + (("distortion",) if lcfg.distortion_w > 0 else ())
+             + (_cluster_terms(lcfg) if clustering_on else ())
+             + (("sem",) if sem_on else ()))
+    dl = None
+    if lcfg.distortion_w > 0:
+        # distortion_ts_bug_compat feeds ts as the weights (losses.py:290
+        # of the reference): the term then carries no gradient
+        ws = pred["ts"] if lcfg.distortion_ts_bug_compat else pred["ws"]
+        if ws.ndim == 2:
+            # the dense (N, K) layout
+            dl = distortion_loss_dense(ws, pred["deltas"], pred["ts"],
+                                       pred["sample_valid"])
+        else:
+            # the flat layout's ray-major segments (losses.py:266-270)
+            dl = distortion_loss(ws, pred["deltas"], pred["ts"],
+                                 pred["ray_id"], pred["ray_start"],
+                                 pred["sample_valid"], pred["rgb"].shape[0],
+                                 ray_count=pred["ray_count"])
+    labels = None
+    if sem_on:
+        labels = target["semantics"]
+        if labels.dtype not in (torch.int32, torch.int64):
+            labels = labels.to(torch.int64)
+    plan = _plan(lcfg, terms, n_sup=n, n_rays=pred["rgb"].shape[0],
+                 unsup=unsup,
+                 n_tri=len(x123["x1"]) if clustering_on else 0,
+                 n_cls=mcfg.n_sem_cls if sem_on else 0)
+    inp = k10.Inputs(
+        target["rgb"], labels,
+        tuple(x123[k] for k in ("x1", "x2", "x3")) if clustering_on else None,
+        incidence_table_on(ray_sampling_strategy, n_unsup, patch_area,
+                           offsets_local, dev) if clustering_on else None,
+        _weights(sched), sched["in_window"], kmeans_init, generator)
+    # the depth and the rays only where the clustering reads them
+    rays = ({k: pred[k] for k in ("depth", "rays_o", "rays_d")}
+            if clustering_on else {})
+    xs = dict(rgb=pred["rgb"], opacity=pred["opacity"], dl=dl,
+              sem=pred.get("sem") if sem_on else None, **rays)
+    return plan, inp, xs
+
+
 def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
                    mcfg: ModelConfig, *, step: int,
                    ray_sampling_strategy: str = "all_images",
@@ -280,7 +317,8 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
                    kmeans_init: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    sched: Optional[Mapping] = None,
-                   theta_WF: Optional[torch.Tensor] = None
+                   theta_WF: Optional[torch.Tensor] = None,
+                   stats: Optional[Dict] = None
                    ) -> Dict[str, torch.Tensor]:
     """All loss components + 'total' (reference: losses.py:244-587), in
     the JAX dict's order. The step's weights, clustering window and
@@ -295,7 +333,13 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
     With `random_tr_poses` the rays past the target's rows come from
     random poses (losses.py:209-213): the supervised terms take the first
     rows, the clustering and `reg_depth` the rest. The patch strategies
-    take every triangle of each patch (`patch_area`, `offsets_local`)."""
+    take every triangle of each patch (`patch_area`, `offsets_local`).
+
+    K10 (`ops/loss_block.py`) computes rgb, opacity, distortion (of H4's
+    per-ray output), the clustering terms and sem, with their gradient;
+    the other terms are torch ops added to its total. With `stats` (a
+    dict), its "mse" becomes the rgb mean before its guard (no
+    gradient)."""
     loss_d: Dict[str, torch.Tensor] = {}
     n = target["rgb"].shape[0]
     unsup = n if random_tr_poses else 0
@@ -321,43 +365,26 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
         raise ValueError("reg_depth_w requires a *_triang or *_triang_patch "
                          f"ray_sampling_strategy, got "
                          f"{ray_sampling_strategy!r}")
-    # the depth normals of the unsupervised rays (the clustering's) and of
-    # the supervised rays (the GT-normal and Manhattan terms'): the same
-    # rays and triangles unless random_tr_poses
-    norm_depth = norm_depth_gt = None
-    if clustering_on:
-        norm_depth = extract_normals_from_ray_batch(
-            pred["rays_o"][unsup:], pred["rays_d"][unsup:],
-            pred["depth"][unsup:], x123)
-    if (gt_normals_on or wf_on) and (unsup or norm_depth is None):
+    # the supervised rays' depth normals (the GT-normal and Manhattan
+    # terms'); the clustering's are K10's own
+    norm_depth_gt = None
+    if gt_normals_on or wf_on:
         norm_depth_gt = extract_normals_from_ray_batch(
             pred["rays_o"][:n], pred["rays_d"][:n], pred["depth"][:n],
             x123_gt)
-    elif gt_normals_on or wf_on:
-        norm_depth_gt = norm_depth
 
-    loss_d["rgb"] = _finite_or_zero(
-        torch.mean((pred["rgb"][:n] - target["rgb"]) ** 2))
-    if lcfg.opacity_w > 0:
-        o = pred["opacity"] + 1e-10
-        loss_d["opacity"] = _finite_or_zero(
-            lcfg.opacity_w * torch.mean(-o * torch.log(o)))
-    if lcfg.distortion_w > 0:
-        # distortion_ts_bug_compat feeds ts as the weights (losses.py:290
-        # of the reference): the term then carries no gradient
-        ws = pred["ts"] if lcfg.distortion_ts_bug_compat else pred["ws"]
-        if ws.ndim == 2:
-            # the dense (N, K) layout
-            dl = distortion_loss_dense(ws, pred["deltas"], pred["ts"],
-                                       pred["sample_valid"])
-        else:
-            # the flat layout's ray-major segments (losses.py:266-270)
-            dl = distortion_loss(ws, pred["deltas"], pred["ts"],
-                                 pred["ray_id"], pred["ray_start"],
-                                 pred["sample_valid"], pred["rgb"].shape[0],
-                                 ray_count=pred["ray_count"])
-        loss_d["distortion"] = _finite_or_zero(
-            lcfg.distortion_w * torch.mean(dl))
+    plan, inp, xs = block_inputs(
+        pred, target, lcfg, mcfg, ray_sampling_strategy=ray_sampling_strategy,
+        random_tr_poses=random_tr_poses, patch_area=patch_area,
+        offsets_local=offsets_local, kmeans_init=kmeans_init,
+        generator=generator, sched=sched)
+    block, total, mse = k10.loss_block(plan, inp, **xs)
+    if stats is not None:
+        stats["mse"] = mse
+
+    for k in ("rgb", "opacity", "distortion"):
+        if k in block:
+            loss_d[k] = block[k]
     if lcfg.depth_w > 0:
         d_t = target["depth"]
         loss_d["depth"] = _finite_or_zero(lcfg.depth_w * _masked_mean(
@@ -384,13 +411,9 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
         gated = torch.where(sched["after_start"] > 0, torch.mean(reg),
                             torch.zeros((), device=dev))
         loss_d["reg_depth"] = _finite_or_zero(lcfg.reg_depth_w * gated)
-    if clustering_on:
-        cl = clustering_losses(norm_depth, lcfg, step,
-                               kmeans_init=kmeans_init, generator=generator,
-                               sched=sched)
-        in_window = sched["in_window"] > 0
-        for k, v in cl.items():
-            loss_d[k] = torch.where(in_window, v, torch.zeros_like(v))
+    for k in CLUSTERING_TERMS:
+        if k in block:
+            loss_d[k] = block[k]
     if wf_on:
         x1 = x123_gt["x1"]
         theta = (theta_WF if theta_WF is not None
@@ -399,9 +422,11 @@ def compute_losses(pred: Dict, target: Dict, lcfg: LossConfig,
             lcfg, pred["sem"][:n][x1],
             target["semantics_WF"][x1].to(torch.int64), norm_depth_gt, theta,
             sched["after_start"])
-    if lcfg.sem_w > 0 and not wf_on:
-        loss_d["sem"] = _finite_or_zero(lcfg.sem_w * _cross_entropy(
-            pred["sem"][:n], target["semantics"].to(torch.int64) - 1,
-            mcfg.n_sem_cls))
-    loss_d["total"] = sum(loss_d.values())
+    if "sem" in block:
+        loss_d["sem"] = block["sem"]
+    # K10's total, then the other terms in the dict's order
+    for k, v in loss_d.items():
+        if k not in block:
+            total = total + v
+    loss_d["total"] = total
     return loss_d

@@ -526,6 +526,7 @@ class Trainer:
         for k in self.labels:
             target[k] = scene[f"label_{k}"][img, pix]
         rays_o, rays_d = self._assemble_rays(batch)
+        stats: Dict[str, torch.Tensor] = {}
         results = render_train(
             self.model, self.occ, rays_o.contiguous(),
             rays_d.contiguous(), cfg.render, global_step=self.step,
@@ -538,7 +539,7 @@ class Trainer:
             patch_area=self.sampler.patch_area,
             offsets_local=self.sampler.offsets_local,
             kmeans_init=draws.get("kmeans_init"), generator=g, sched=sched,
-            theta_WF=self.params.get("theta_WF"))
+            theta_WF=self.params.get("theta_WF"), stats=stats)
         names = list(self.params)
         grads = torch.autograd.grad(loss_d["total"],
                                     [self.params[n] for n in names],
@@ -550,8 +551,7 @@ class Trainer:
             rm=results["rm_samples"].float(),
             vr=results["vr_samples"].float(),
             trunc=results["trunc_rays"].float(),
-            mse=torch.mean((results["rgb"][: target["rgb"].shape[0]].detach()
-                            - target["rgb"]) ** 2))
+            mse=stats["mse"])   # K10's rgb mean before its guard
         if self.axis is not None:   # pmean (trainer.py:362-364)
             grads, aux = mean_over_axis(self.axis, grads, aux)
         self.last_grads = grads

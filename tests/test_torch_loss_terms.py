@@ -191,42 +191,58 @@ def _room_normals(seed, M=900, noise=0.08):
     return n.astype(np.float32)
 
 
+def _room_batch(seed, M=900):
+    """A triangle batch of 3 M rays whose depth normals are the box room's
+    (`_room_normals`, to ~1e-5): triangle i's corners P1, P1 + 0.05 u and
+    P1 + 0.05 v with u x v its normal, seen from origins spread by 0.05 at
+    depths in [0.5, 1.5]; the zero and NaN rows become triangles of no
+    area (zero normals: a NaN depth would give JAX's chain a NaN
+    gradient). `_pred_target`'s other outputs and targets."""
+    n = _room_normals(seed, M).astype(np.float64)
+    n = np.where(np.isfinite(n), n, 0.0)
+    rng = np.random.default_rng(seed + 50)
+    pred, target = _pred_target(seed, n=3 * M)
+    # an axis each normal is far from: u = n x axis (unit), v = n x u
+    u = np.cross(n, np.eye(3)[np.argmin(np.abs(n), -1)])
+    u /= np.maximum(np.linalg.norm(u, axis=1, keepdims=True), 1e-30)
+    v = np.cross(n, u)
+    P1 = rng.uniform(-1.0, 1.0, (M, 3)) + [0.0, 0.0, 3.0]
+    P = np.stack([P1, P1 + 0.05 * u, P1 + 0.05 * v], 1).reshape(-1, 3)
+    o = 0.05 * rng.standard_normal((3 * M, 3))
+    depth = rng.uniform(0.5, 1.5, 3 * M)
+    pred["rays_o"] = o.astype(np.float32)
+    pred["rays_d"] = ((P - o) / depth[:, None]).astype(np.float32)
+    pred["depth"] = depth.astype(np.float32)
+    return pred, target
+
+
 def test_snapping_and_member_discard_match_jax():
     """The clustering terms with the canonical-axis snapping and
-    `discard_far_members` on the normals of a box room, values and
-    gradients; the snapping is on (can_dot != 0) and the discard takes
-    members out of a cluster."""
+    `discard_far_members` on the depth normals of a box room's triangles
+    (`_room_batch`), through compute_losses: values and gradients; the
+    snapping is on (can_dot != 0) and the discard takes members out of a
+    cluster."""
     lc = dict(norm_D_C_can_dot_w=2e-3, norm_D_C_can_L1_w=2e-3,
               norm_can_tres=0.02)
-    normals = _room_normals(2)
-    key = jax.random.PRNGKey(6)
-    init = _init_idx(key, normals, 20)
+    pred, target = _room_batch(2)
+    nd = np.asarray(jl.extract_normals_from_ray_batch(
+        J(pred["rays_o"]), J(pred["rays_d"]), J(pred["depth"]),
+        jl.triang_idx(pred["depth"].shape[0])))
+    # the init `_compare` draws
+    init = _init_idx(jax.random.PRNGKey(5), nd, 20)
     counts = {}
     for discard in (False, True):
         jcfg, tcfg = _configs(discard_far_members=discard, **lc)
-
-        def loss_j(x):
-            out = jl._clustering_losses(x, jcfg.loss, key, 3000)
-            return sum(out.values()), out
-
-        (_, ref), g_ref = jax.value_and_grad(loss_j, has_aux=True)(
-            J(normals))
-        x = T(normals).requires_grad_(True)
-        out = tl.clustering_losses(x, tcfg.loss, 3000, kmeans_init=T(init))
-        assert set(out) == set(ref)
-        for k in ref:
-            np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]),
-                                       err_msg=k, **VAL)
-        sum(out.values()).backward()
-        np.testing.assert_allclose(N(x.grad), np.asarray(g_ref), **GRAD)
+        out, grads = _compare(jcfg, tcfg, pred, target, 3000,
+                              clustering=True)
         assert float(out["norm_D_C_can_dot"].detach()) != 0.0
+        assert N(grads["depth"]).any()
         # the members of each cluster, as the loss selects them
-        v = np.nan_to_num(normals)
-        ok = np.abs(v).sum(-1) != 0
-        clus = tk.normals_clustering(T(v), T(ok), K=20, niter=20,
+        ok = np.abs(nd).sum(-1) != 0
+        clus = tk.normals_clustering(T(nd), T(ok), K=20, niter=20,
                                      t_similar=0.98, init_idx=T(init))
         a = N(clus.assign_new)
-        flipped = np.where((a < 0)[:, None], -v, v)
+        flipped = np.where((a < 0)[:, None], -nd, nd)
         near = (1.0 - flipped @ N(clus.centroids3).T) <= 0.02
         counts[discard] = [int(((np.abs(a) == g + 1)
                                 & (near[:, g] | (not discard))).sum())
@@ -237,26 +253,13 @@ def test_snapping_and_member_discard_match_jax():
 def test_clustering_terms_at_cluster_K_40_match_jax():
     """The clustering terms with cluster_K 40 (past one warp of clusters;
     the port refused it once, the JAX package takes any K) on the box
-    room's normals of the snapping test, values and gradients."""
-    normals = _room_normals(2)
-    key = jax.random.PRNGKey(6)
-    init = _init_idx(key, normals, 40)
+    room's triangles of the snapping test, through compute_losses: values
+    and gradients."""
+    pred, target = _room_batch(2)
     jcfg, tcfg = _configs(cluster_K=40)
-
-    def loss_j(x):
-        out = jl._clustering_losses(x, jcfg.loss, key, 3000)
-        return sum(out.values()), out
-
-    (_, ref), g_ref = jax.value_and_grad(loss_j, has_aux=True)(J(normals))
-    x = T(normals).requires_grad_(True)
-    out = tl.clustering_losses(x, tcfg.loss, 3000, kmeans_init=T(init))
-    assert set(out) == set(ref)
-    for k in ref:
-        np.testing.assert_allclose(N(out[k]), np.asarray(ref[k]), err_msg=k,
-                                   **VAL)
-    sum(out.values()).backward()
-    np.testing.assert_allclose(N(x.grad), np.asarray(g_ref), **GRAD)
-    assert N(x.grad).any()
+    out, grads = _compare(jcfg, tcfg, pred, target, 3000, clustering=True)
+    assert float(out["norm_D_C_ort_dot"].detach()) != 0.0
+    assert N(grads["depth"]).any()
 
 
 def _flat_pred(seed):

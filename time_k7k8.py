@@ -15,7 +15,8 @@ It builds the bench trainer (triplane field) of that checkout
 256 are sampled, and a checkout that replays the refresh as a CUDA graph
 has captured it). Then:
 - it captures the arguments of `normals_clustering` in the next sv step
-  (`losses.normals_clustering`) and times `ops.kmeans.normals_clustering`
+  (`ops.loss_block.normals_clustering`, or `losses.normals_clustering`
+  in a checkout without K10) and times `ops.kmeans.normals_clustering`
   on them: the mean of 20 replays of a CUDA graph of one call
   (`time_encodes.device_ms`);
 - it times `normals_clustering` at rotation recovery's shape (M 65,536
@@ -159,16 +160,20 @@ def main():
     tr.fit(STEPS)
     out = {"package": os.path.dirname(package.__file__)}
 
-    fn, seen = losses.normals_clustering, []
+    try:   # K10's forward calls the clustering
+        from normal_clustering_nerf_torch.ops import loss_block as owner
+    except ImportError:   # a checkout before K10: the loss calls it
+        owner = losses
+    fn, seen = owner.normals_clustering, []
 
     def spy(*a, **kw):
         seen.append((a, kw))
         return fn(*a, **kw)
-    losses.normals_clustering = spy
+    owner.normals_clustering = spy
     try:
         tr.train_step_core(bootstrap=False)
     finally:
-        losses.normals_clustering = fn
+        owner.normals_clustering = fn
     a, kw = seen[0]
     # the initial rows drawn once: a graph of the call would not hold the
     # trainer's generator
