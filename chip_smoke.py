@@ -18,6 +18,9 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --only loss          # 64 steps of each bench
                                                # field, then K10 checked
                                                # at its edges and timed
+    python3 chip_smoke.py --only mlp           # 32 steps of each bench
+                                               # field, then K6 checked
+                                               # at its edges and timed
 
 Phases (any failed check raises, so the script exits non-zero):
   1. build the kernels (`csrc/*.cu`, one nvcc per source, all at once);
@@ -104,7 +107,9 @@ Phases (any failed check raises, so the script exits non-zero):
      (20; from the second on, replays of the refresh's own CUDA graph),
      K9's `adamw_norm` and `adamw_step` (the optimizer's update) and
      K10's `loss_rays`, `loss_clusters` and `loss_bwd` (the loss block)
-     once a step each.
+     and K6's `mlp_bwd` and `mlp_dw_reduce` (the field's MLPs' backward)
+     once a step each, K6's `mlp_fwd` at least once a step (also in each
+     refresh, the density mode).
      Every loss must be finite and the loss must fall;
   4. K7 against its plain version bit for bit (assign_new, assign_orig,
      every centroid, centroids3) on one training step's own normals (M
@@ -126,7 +131,16 @@ Phases (any failed check raises, so the script exits non-zero):
      normals, patch triangles, random poses, the rays' gradients, 40
      classes, ts_bug_compat, a cotangent of every term, given normals;
      the Function bit for bit its launchers; the base case on the brick
-     and tcnn fields too); K1 and H9-H11 against their plain
+     and tcnn fields too); the field's forward and backward on a step's
+     samples traced, K6's launchers and no GEMM (`check_field_path`), and
+     K6 against its plain version on a training
+     step's own field inputs and gradients (`check_mlp`, K6_MAX /
+     K6_MEAN / K6_DIFFER: sigmas, the raws, the encoding's, the directions' and every
+     weight's gradient; mlp_dw_reduce bit for bit; also with the
+     directions' gradient, rgb_use_dir off, use_exposure, 40 classes, at
+     1, 17 and 129 rows, the density mode at a sampled refresh's points,
+     a first test round, and the wrapper's refusals; the step's case on
+     the brick and tcnn fields too); K1 and H9-H11 against their plain
      versions on the trained occupancy,
      the segment launchers of H3/H4 against their plain versions and bit
      for bit against the dense launchers on the flat batch (and with
@@ -340,7 +354,9 @@ Phases (any failed check raises, so the script exits non-zero):
      eager steps from the state and generator state it started from:
      sampled indices and rm / vr / trunc counts equal, losses and
      parameters after within 2x the eager steps' spread (the fp32 atomics
-     of H2/H6/H8) plus 2^-20 of the largest value;
+     of H2/H6/H8) plus 2^-20 of the largest value; every captured graph
+     of a bf16 trainer holds K6 (its three launchers a step graph, the
+     density mode the refresh graph);
      then graph steps against eager steps: host ms/step, the device's busy
      ms/step and launches/step (torch.profiler, over 16 replays or
      TRACED_EAGER eager steps), graph launches/step and
@@ -370,6 +386,7 @@ from torch.profiler import ProfilerActivity, profile as torch_profile
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12       # f32 outside the tensor cores, same sheet
+H100_BF16_FLOPS = 989e12     # dense bf16 on the tensor cores, same sheet
 BOOT_STEPS, SV_STEPS = 512, 64
 STEPS = BOOT_STEPS + SV_STEPS   # the main path's steps: 0-575
 K1_CHUNK = 16384   # rays per plain-version call (its (N, 24, 67) tensors)
@@ -452,10 +469,10 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(n_bytes, n_flops):
-    """Least time (ms) for the work: bytes over the memory rate or f32
-    operations over the f32 rate, whichever is larger."""
-    t_b, t_f = n_bytes / H100_BYTES_PER_S, n_flops / H100_F32_FLOPS
+def bound(n_bytes, n_flops, flops_per_s=H100_F32_FLOPS):
+    """Least time (ms) for the work: bytes over the memory rate or
+    operations over their rate (f32 by default), whichever is larger."""
+    t_b, t_f = n_bytes / H100_BYTES_PER_S, n_flops / flops_per_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -1695,7 +1712,8 @@ FIELD_KERNELS = {"triplane": ("triplane_fwd", "triplane_bwd"),
 PATH_KERNELS = ("march_bootstrap", "composite_fwd", "composite_bwd",
                 "distortion_fwd", "distortion_bwd", "march_sv_train",
                 "kmeans_cluster", "occ_compact", "occ_merge_pack",
-                "occ_tables", "adamw_norm", "adamw_step")
+                "occ_tables", "adamw_norm", "adamw_step", "mlp_fwd",
+                "mlp_bwd", "mlp_dw_reduce")
 # K7 a step; K8 a refresh (every 16 steps), occ_compact only in the
 # sampled ones, from the warm-up's end (step 256); K9's two launchers a
 # step
@@ -1703,7 +1721,8 @@ K7K8_LAUNCHES = {"kmeans_cluster": STEPS, "occ_merge_pack": STEPS // 16,
                  "occ_tables": STEPS // 16,
                  "occ_compact": (STEPS - 256) // 16, "adamw_norm": STEPS,
                  "adamw_step": STEPS, "loss_rays": STEPS,
-                 "loss_clusters": STEPS, "loss_bwd": STEPS}
+                 "loss_clusters": STEPS, "loss_bwd": STEPS,
+                 "mlp_bwd": STEPS, "mlp_dw_reduce": STEPS}
 P4_POINTS = 262_144   # experiments/pallas_gather2.py: M = 8192 rays x 32
 ENCODE_OPS = 60       # f32 operations per (sample, level): pos, weights, fold
 # f32 operations of the Jacobians beyond the forward's: per (sample,
@@ -4384,6 +4403,381 @@ def check_loss_block(tr, layout, rec, gen, full=True):
 
 
 
+# ------------------------------------------------------------ K6 checks
+K6_LAUNCHERS = ("mlp_fwd", "mlp_bwd", "mlp_dw_reduce")
+MLP_STEPS = 32   # steps of each bench field before `--only mlp`'s checks
+# K6 against its plain version (the parent's bf16 chain, ops/mlp.py): both
+# round to bf16 at the same points and only the f32 order inside a product
+# differs, so a value rounds apart only where two f32 sums straddle a bf16
+# rounding edge: a flip of one bf16 ulp (2^-8 to 2^-7 of the value). A
+# flip in a hidden layer moves each later sum by one ulp of one input
+# times one weight (|w| <= sqrt(6 / 80) ~ 0.27 at the Xavier bound), far
+# under an ulp of the sum, so it flips few values further on. Hence, for
+# every output and every gradient (sigma as log(sigma) = h[:, 0]): the
+# largest difference within K6_MAX of the largest |value| (4 bf16 ulps at
+# the top binade), the mean difference within K6_MEAN of it (a wrong
+# weight, mask, rounding point or row moves most values, and so the
+# mean), and at most K6_DIFFER of the values plus K6_DIFFER_MIN differing
+# at all. The count is what sees a tile dropped or added twice in a
+# weight gradient's sum over 131,040 rows (~1024 tiles): that moves every
+# sum by ~0.1 %, under an ulp and so within the first two limits, but
+# rounds some 13-25 % of the values apart (the sum lies within 0.1 % of a
+# rounding edge that often), where flips of the f32 order rounded at
+# most 10 of 4096, 7 of 1216, 6 of 1024 and 2 of 192 values of a weight
+# gradient apart (48 of 4,193,280 of the encoding's gradient) in K6's
+# runs on the card
+# (tests/test_torch_mlp.py holds the rule to both: on a sum of the kind,
+# another order rounds 1 of 4096 values apart, a tile left out 692).
+# mlp_dw_reduce, on the same partials, is its plain version bit for bit.
+K6_MAX, K6_MEAN = 2.0 ** -5, 2.0 ** -10
+K6_DIFFER, K6_DIFFER_MIN = 2.0 ** -7, 8
+K6_ROWS = (1, 17, 129)   # one row, a part of a warp's 16, a tile and a row
+
+
+def k6_bound(plan, M, blocks, need_dd):
+    """K6's launchers' bounds at M rows: mlp_fwd reads the encoding, the
+    directions and the weights and writes sigmas and raws (2 operations a
+    multiply-add); mlp_bwd reads those and the gradients of sigmas and
+    raws, writes the encoding's gradient (the directions' when asked) and
+    the partials, and takes three times the forward's products (the
+    forward again, the inputs' gradients, the weights'); mlp_dw_reduce
+    reads the partials and writes the gradients (an f32 add a partial)."""
+    from normal_clustering_nerf_torch.ops import mlp
+    nw = sum(fi * fo for fi, fo in mlp.weight_shapes(plan))   # a row's MACs
+    rows_in = M * (plan.din * 2 + 12)
+    fwd = bound(rows_in + nw * 4 + M * (4 + plan.channels * 4), 2 * M * nw,
+                H100_BF16_FLOPS)
+    bwd = bound(rows_in + nw * 4 + M * (4 + plan.channels * 4)
+                + M * (plan.din * 2 + 12 * need_dd) + blocks * nw * 4,
+                6 * M * nw, H100_BF16_FLOPS)
+    red = bound(blocks * nw * 4 + nw * 4, blocks * nw)
+    return {"mlp_fwd": fwd, "mlp_bwd": bwd, "mlp_dw_reduce": red}
+
+
+def k6_rule(got, ref):
+    """K6's rule on one output (K6_MAX, K6_MEAN, K6_DIFFER): (ok, values
+    that differ, the limit on them, max |got - ref|, its limit, the mean
+    difference, its limit)."""
+    got, ref = got.double(), ref.double()
+    d = (got - ref).abs()
+    n = ref.numel()
+    top = ref.abs().max().item() if n else 0.0
+    err = d.max().item() if n else 0.0
+    mean = d.mean().item() if n else 0.0
+    differ = int((got != ref).sum())
+    most = K6_DIFFER * n + K6_DIFFER_MIN
+    ok = (bool(torch.isfinite(got).all()) and bool(torch.isfinite(ref).all())
+          and err <= K6_MAX * top and mean <= K6_MEAN * top
+          and differ <= most)
+    return ok, differ, most, err, K6_MAX * top, mean, K6_MEAN * top
+
+
+def k6_check(chk, name, got, ref):
+    """K6's rule (`k6_rule`) on one output, logged; returns max
+    |got - ref|."""
+    ok, differ, most, err, tol, mean, mtol = k6_rule(got, ref)
+    log(f"  {name}: {differ} of {ref.numel()} differ (tol {most:.0f}), "
+        f"max_abs_err {err:.3e} (tol {tol:.3e}), mean {mean:.3e} (tol "
+        f"{mtol:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        chk.failures.append(name)
+    return err
+
+
+def k6_pair(plan, enc, d, ws, g_sig, g_raws, need_dd):
+    """K6's three launchers and the plain version on the same inputs."""
+    from normal_clustering_nerf_torch.ops import mlp
+    k, p = {}, {}
+    k["sig"], k["raws"] = mlp.fwd_kernel(plan, enc, d, ws)
+    k["a"], k["d_enc"], k["d_d"], k["partial"] = mlp.bwd_partials(
+        plan, enc, d, ws, g_sig, g_raws, need_dd)
+    k["dw"] = mlp.dw_reduce_kernel(k["a"], k["partial"])
+    with torch.no_grad():
+        p["sig"], p["raws"] = mlp.field_mlp_plain(plan, enc, d, ws)
+        p["d_enc"], p["d_d"], p["dws"] = mlp.field_mlp_bwd_plain(
+            plan, enc, d, ws, g_sig, g_raws, need_dd)
+        p["dw"] = mlp.dw_reduce_plain(k["partial"])
+    torch.cuda.synchronize()
+    return k, p
+
+
+def k6_compare(label, plan, enc, d, ws, g_sig, g_raws, need_dd=False):
+    """K6 against its plain version (`k6_pair`) under K6's rule: log sigma,
+    the raws by head, the encoding's and the directions' gradients, each
+    weight's gradient; the reduction bit for bit. Returns (the failures,
+    max |kernel - plain| by launcher, the pair)."""
+    from normal_clustering_nerf_torch.ops import mlp
+    chk = Check()
+    k, p = k6_pair(plan, enc, d, ws, g_sig, g_raws, need_dd)
+    log(f"K6, {label}: M {enc.shape[0]}, {plan}")
+    ef = k6_check(chk, f"{label}: log sigma", torch.log(k["sig"]),
+                  torch.log(p["sig"]))
+    cols = [("rgb", 0, 3)] + ([("norm", 3, 3)] if plan.norm else [])
+    if plan.n_cls:
+        cols.append(("sem", 3 + 3 * plan.norm, plan.n_cls))
+    for name, c, w in cols:
+        ef = max(ef, k6_check(chk, f"{label}: raws, {name}",
+                              k["raws"][:, c:c + w], p["raws"][:, c:c + w]))
+    eb = k6_check(chk, f"{label}: the encoding's gradient", k["d_enc"],
+                  p["d_enc"])
+    if need_dd:
+        eb = max(eb, k6_check(chk, f"{label}: the directions' gradient",
+                              k["d_d"], p["d_d"]))
+    for i, (g, w) in enumerate(zip(mlp.split_grads(plan, k["dw"]),
+                                   p["dws"])):
+        eb = max(eb, k6_check(chk, f"{label}: weight {i}'s gradient", g, w))
+    chk.equal(f"{label}: mlp_dw_reduce = its plain version on the same "
+              f"partials", k["dw"], p["dw"])
+    return chk.failures, {"mlp_fwd": ef, "mlp_bwd": eb,
+                          "mlp_dw_reduce": 0.0}, (k, p)
+
+
+def _spy(module, name, record):
+    """Replace module.name by a function that records its calls."""
+    fn = getattr(module, name)
+
+    def spy(*args):
+        out = fn(*args)
+        record(args, out)
+        return out
+    setattr(module, name, spy)
+    return fn
+
+
+def step_field_args(tr):
+    """The field's K6 inputs in one eager training step after the
+    bootstrap (the step is taken), copied, and the gradients of sigmas and
+    raws that its backward got: (plan, enc, d, ws, g_sigma, g_raws)."""
+    from normal_clustering_nerf_torch.ops import mlp
+    seen = []
+
+    def record(args, out):
+        plan, enc, d, ws = args
+        r = dict(plan=plan, enc=enc.detach().clone(),
+                 d=d.detach().contiguous().clone(),
+                 ws=[w.detach().clone() for w in ws])
+        for key, t in zip(("g_sig", "g_raws"), out):
+            if t.requires_grad:
+                t.register_hook(lambda g, key=key, r=r: r.__setitem__(
+                    key, g.detach().contiguous().clone()))
+        seen.append(r)
+    fn = _spy(mlp, "field_mlp", record)
+    try:
+        tr.train_step_core(bootstrap=False)
+    finally:
+        mlp.field_mlp = fn
+    r = seen[0]
+    return r["plan"], r["enc"], r["d"], r["ws"], r["g_sig"], r["g_raws"]
+
+
+def refresh_field_input(tr):
+    """The encoding K6's density mode takes in an eager sampled refresh
+    (the trainer's state put back after)."""
+    from normal_clustering_nerf_torch.ops import mlp
+    seen = []
+    start = snapshot(tr)
+    fn = _spy(mlp, "field_density",
+              lambda args, out: seen.append(args[0].clone()))
+    try:
+        tr._refresh(False)
+    finally:
+        mlp.field_density = fn
+        restore(tr, start)
+        sync(tr.device)
+    return seen[0]
+
+
+def test_round_field_args(tr):
+    """K6's inputs in the first test round of the held-out views:
+    (plan, enc, d, ws)."""
+    from normal_clustering_nerf_torch.models.rendering import render_test
+    from normal_clustering_nerf_torch.ops import mlp
+    seen = []
+    fn = _spy(mlp, "field_mlp", lambda args, out: seen.append(
+        (args[0], args[1].clone(), args[2].contiguous().clone(),
+         [w.detach().clone() for w in args[3]])))
+    o, d, _, _ = held_out_rays(tr)
+    try:
+        render_test(tr.model, tr.occ, o, d, tr.cfg.render)
+    finally:
+        mlp.field_mlp = fn
+    return seen[0]
+
+
+def check_mlp(tr, layout, rec, gen, full=True):
+    """The field's path without GEMMs (`check_field_path`), and K6
+    against its plain version on a training step's own field inputs and
+    gradients (`step_field_args`, M 131,040 at the bench batch); with
+    `full` also with the directions' gradient (the ext path), rgb_use_dir
+    off, use_exposure, 40 classes (C 46), at K6_ROWS rows, the density
+    mode at a sampled refresh's point count, a first test round's inputs
+    (forward), and the wrapper's refusals. The triplane field's step case
+    is kept in `rec` for `time_kernels`."""
+    from normal_clustering_nerf_torch.ops import mlp
+    check_field_path(tr, layout)
+    plan, enc, d, ws, g_sig, g_raws = step_field_args(tr)
+    M = enc.shape[0]
+    failures, errs = [], {n: 0.0 for n in K6_LAUNCHERS}
+
+    def run(label, *args, **kw):
+        bad, err, _ = k6_compare(f"{layout}, {label}", *args, **kw)
+        failures.extend(bad)
+        for n in errs:
+            errs[n] = max(errs[n], err[n])
+    run("a training step", plan, enc, d, ws, g_sig, g_raws)
+    if full:
+        run("ext: the directions' gradient", plan, enc, d, ws, g_sig,
+            g_raws, need_dd=True)
+        run("rgb_use_dir off", plan._replace(use_dir=False), enc, d, ws,
+            g_sig, g_raws, need_dd=True)
+        run("use_exposure (no trunc_sigmoid)", plan._replace(exposure=True),
+            enc, d, ws, g_sig, g_raws)
+        p40 = plan._replace(n_cls=SEM_CLASSES)   # the bench has a sem head
+        w2 = (torch.rand((64, SEM_CLASSES), generator=gen, device=tr.device)
+              * 2 - 1) * math.sqrt(6.0 / (64 + SEM_CLASSES))
+        g40 = torch.randn((M, p40.channels), generator=gen,
+                          device=tr.device) * g_raws.std()
+        run(f"{SEM_CLASSES} classes (C {p40.channels})", p40, enc, d,
+            ws[:-1] + [w2], g_sig, g40)
+        for n in K6_ROWS:
+            run(f"{n} rows", plan, enc[:n].contiguous(), d[:n].contiguous(),
+                ws, g_sig[:n].contiguous(), g_raws[:n].contiguous())
+        chk = Check()
+        denc = refresh_field_input(tr)
+        got = mlp.field_density(denc, ws[:2])
+        with torch.no_grad():
+            want = mlp.density_plain(denc, ws[:2])[0]
+        log(f"K6's density mode at a sampled refresh's {denc.shape[0]} "
+            f"points")
+        errs["mlp_fwd"] = max(errs["mlp_fwd"], k6_check(
+            chk, f"{layout}, density mode: log sigma", torch.log(got),
+            torch.log(want)))
+        tplan, tenc, tdir, tws = test_round_field_args(tr)
+        tk = mlp.fwd_kernel(tplan, tenc, tdir, tws)
+        with torch.no_grad():
+            tp = mlp.field_mlp_plain(tplan, tenc, tdir, tws)
+        log(f"K6 on the first test round's {tenc.shape[0]} samples")
+        errs["mlp_fwd"] = max(errs["mlp_fwd"], k6_check(
+            chk, f"{layout}, first test round: log sigma", torch.log(tk[0]),
+            torch.log(tp[0])), k6_check(
+            chk, f"{layout}, first test round: raws", tk[1], tp[1]))
+        chk.refused("K6 on a CPU encoding", lambda: mlp.fwd_kernel(
+            plan, enc.cpu(), d.cpu(), [w.cpu() for w in ws]))
+        chk.refused("K6 on an f32 encoding", lambda: mlp.fwd_kernel(
+            plan, enc.float(), d, ws))
+        chk.refused("K6 on an encoding of 34 values", lambda: mlp.fwd_kernel(
+            plan._replace(din=34), enc, d, ws))
+        chk.refused("K6 at 43 classes with the normal head",
+                    lambda: mlp.fwd_kernel(plan._replace(n_cls=43), enc, d,
+                                           ws))
+        chk.refused("K6 at 43 classes without the normal head",
+                    lambda: mlp.fwd_kernel(
+                        plan._replace(n_cls=43, norm=False), enc, d, ws))
+        failures.extend(chk.failures)
+    if failures:
+        raise RuntimeError(f"K6 against its plain version: {failures}")
+    log(f"K6 against its plain version ({layout}): ok; max |kernel - "
+        f"plain| by launcher {errs}")
+    if rec is None:
+        return
+    bounds = k6_bound(plan, M, mlp.grid(M, enc.device, 1), False)
+    k, _ = k6_pair(plan, enc, d, ws, g_sig, g_raws, False)
+    # the parent's chain: torch.matmul and its glue under autograd, as a
+    # training step ran it; for mlp_bwd its forward and backward (K6's
+    # backward computes the forward again: the same work)
+    leaves = [enc.clone().requires_grad_(True)] + [
+        w.clone().requires_grad_(True) for w in ws]
+
+    def library_bwd():
+        with torch.enable_grad():
+            out = mlp.field_mlp_plain(plan, leaves[0], d, leaves[1:])
+            return torch.autograd.grad(out, leaves, (g_sig, g_raws))
+    rec["mlp_fwd"] = dict(
+        err=errs["mlp_fwd"], bound=bounds["mlp_fwd"],
+        kernel=lambda: mlp.fwd_kernel(plan, enc, d, ws),
+        plain=lambda: mlp.field_mlp_plain(plan, enc, d, ws),
+        library=lambda: mlp.field_mlp_plain(plan, leaves[0], d, leaves[1:]))
+    rec["mlp_bwd"] = dict(
+        err=errs["mlp_bwd"], bound=bounds["mlp_bwd"],
+        kernel=lambda: mlp.bwd_partials(plan, enc, d, ws, g_sig, g_raws,
+                                        False),
+        plain=lambda: mlp.field_mlp_bwd_plain(plan, enc, d, ws, g_sig,
+                                              g_raws, False),
+        library=library_bwd)
+    rec["mlp_dw_reduce"] = dict(
+        err=errs["mlp_dw_reduce"], bound=bounds["mlp_dw_reduce"],
+        library=lambda: k["partial"].sum(0).to(torch.bfloat16),
+        kernel=lambda: mlp.dw_reduce_kernel(k["a"], k["partial"]),
+        plain=lambda: mlp.dw_reduce_plain(k["partial"]))
+
+
+GEMM_KEYS = ("gemm", "gemv", "nvjet", "cutlass")   # cuBLAS / CUTLASS names
+
+
+def check_field_path(tr, layout, tries=3):
+    """The bf16 field as the training step calls it (`field_raws` on a
+    step's own samples, then the gradient of every parameter) traced:
+    K6's three launchers and no GEMM (cuBLAS / CUTLASS) on the card. A
+    trace without device events is taken again, up to `tries` times."""
+    from normal_clustering_nerf_torch.models import rendering
+    seen, fn = [], rendering.field_raws
+
+    def spy(model, xyz, dirs):
+        seen.append((xyz.detach().clone(), dirs.detach().clone()))
+        return fn(model, xyz, dirs)
+    rendering.field_raws = spy
+    try:
+        tr.train_step_core(bootstrap=False)
+    finally:
+        rendering.field_raws = fn
+    xyz, dirs = seen[0]
+    params = [p for p in tr.model.parameters() if p.requires_grad]
+
+    def run():
+        s, r = fn(tr.model, xyz, dirs)
+        torch.autograd.grad((s, r), params, (torch.ones_like(s),
+                                             torch.ones_like(r)),
+                            allow_unused=True)
+    run()
+    for _ in range(tries):
+        _, dev = traced(run)
+        if dev:
+            break
+    if not dev:
+        raise RuntimeError(f"{layout}: the profiler recorded no device "
+                           f"kernel of the field's path in {tries} traces")
+    names = {e.key: e.count for e in dev}
+    gemm = [k for k in names if any(g in k.lower() for g in GEMM_KEYS)]
+    k6 = {n: sum(c for k, c in names.items() if f"{n}_kernel" in k)
+          for n in K6_LAUNCHERS}
+    log(f"  {layout}: the field's forward and backward on a step's "
+        f"{xyz.shape[0]} samples: {sum(names.values())} device launches, "
+        f"K6 {k6}, GEMMs {gemm or 'none'}")
+    if gemm or not all(k6.values()):
+        raise RuntimeError(f"{layout}: the bf16 field path ran GEMMs "
+                           f"{gemm} or missed K6 ({k6})")
+
+
+def check_k6_captures(tr, path):
+    """A bf16 trainer's captured graphs hold K6: every step graph its
+    three launchers, the refresh graph its forward (the density mode)."""
+    if not tr.model.fused or tr.device.type != "cuda":
+        return
+    bad = []
+    for c in tr.captures:
+        need = ("mlp_fwd",) if c["kind"] == "refresh" else K6_LAUNCHERS
+        missing = [k for k in need if not c["launches"].get(k)]
+        if missing:
+            bad.append((c["kind"], missing))
+    if bad or not tr.captures:
+        raise RuntimeError(f"{path}: captured graphs without K6: {bad} "
+                           f"(captures {[c['kind'] for c in tr.captures]})")
+    log(f"  {path}: every captured graph launches K6 ("
+        + ", ".join(f"{c['kind']} " + "/".join(
+            str(c["launches"].get(k, 0)) for k in K6_LAUNCHERS)
+            for c in tr.captures) + ")")
+
+
 REPLACES = {
     "march_bootstrap": "normal_clustering_nerf_tpu/ops/ray_march.py:402",
     "triplane_fwd": "normal_clustering_nerf_tpu/models/triplane.py:177",
@@ -4442,6 +4836,11 @@ REPLACES = {
     "loss_rays": "normal_clustering_nerf_tpu/losses.py:189",
     "loss_clusters": "normal_clustering_nerf_tpu/losses.py:94",
     "loss_bwd": "normal_clustering_nerf_tpu/losses.py:189",
+    # K6: the four nets of NGPMT (_apply_mlp, chained by density and
+    # __call__ at :138 and :172) and their gradient
+    "mlp_fwd": "normal_clustering_nerf_tpu/models/ngp_mt.py:51",
+    "mlp_bwd": "normal_clustering_nerf_tpu/models/ngp_mt.py:51",
+    "mlp_dw_reduce": "normal_clustering_nerf_tpu/models/ngp_mt.py:51",
 }
 LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "composite_fwd": "H3", "composite_bwd": "H3",
@@ -4458,7 +4857,8 @@ LABEL = {"march_bootstrap": "H1", "triplane_fwd": "H2", "triplane_bwd": "H2",
          "hash_grid_contract": "H14", "kmeans_cluster": "K7",
          "occ_compact": "K8", "occ_merge_pack": "K8", "occ_tables": "K8",
          "occ_union": "K8", "adamw_norm": "K9", "adamw_step": "K9",
-         "loss_rays": "K10", "loss_clusters": "K10", "loss_bwd": "K10"}
+         "loss_rays": "K10", "loss_clusters": "K10", "loss_bwd": "K10",
+         "mlp_fwd": "K6", "mlp_bwd": "K6", "mlp_dw_reduce": "K6"}
 
 
 def time_kernels(rec):
@@ -5134,7 +5534,8 @@ def time_adamw(tr, path):
 
 def graph_phase(paths):
     """Phase 7: for each of GRAPH_CASES, the graph-replayed chunk against
-    eager steps (`check_graph_chunk`) and their times (`graph_times`),
+    eager steps (`check_graph_chunk`), K6 in every captured graph of a
+    bf16 trainer (`check_k6_captures`) and their times (`graph_times`),
     with the launches of one optimizer update through K9 and through its
     plain version (`adamw_launches`) and the graph step's launches with
     the plain version's in place of K9's; then each field's optimizer
@@ -5145,6 +5546,7 @@ def graph_phase(paths):
         if path in BASELINES:
             shift_switches(tr)
         check_graph_chunk(tr, path, bootstrap)
+        check_k6_captures(tr, path)
         row = graph_times(tr, path, bootstrap)
         key = tuple((n, tuple(p.shape)) for n, p in tr.params.items())
         if key not in launches:
@@ -6858,6 +7260,45 @@ def loss_only(smi):
         for k, r in rec.items()]}))
 
 
+def mlp_only(smi):
+    """`--only mlp`: each bench field's trainer through MLP_STEPS steps of
+    `Trainer.fit` (K6's backward launchers counted, once a step each),
+    `check_mlp` (every case on the triplane field, the step's case on the
+    others), K6 in the captured graphs, the triplane trainer's replayed
+    graph steps against eager steps, and K6's launchers' times."""
+    from normal_clustering_nerf_torch.bench import bench_config, build_trainer
+    rec, gen = {}, torch.Generator(device="cuda").manual_seed(7)
+    launches = {}
+    paths = {}
+    for layout in ("triplane", "brick", "tcnn"):
+        tr = build_trainer(bench_config(hash_layout=layout), device="cuda")
+        tr.mark_invisible_cells()
+        hist, counts, _ = counted(lambda: tr.fit(MLP_STEPS))
+        got = {k: counts[k] for k in K6_LAUNCHERS}
+        log(f"{layout}: {MLP_STEPS} steps, K6's launches {got}; captures "
+            f"{[(c['kind'], c['step']) for c in tr.captures]}")
+        if got["mlp_bwd"] != MLP_STEPS or got["mlp_dw_reduce"] != MLP_STEPS \
+                or got["mlp_fwd"] < MLP_STEPS:
+            raise RuntimeError(f"{layout}: K6's launches {got}, expected "
+                               f"{MLP_STEPS} backward ones and at least as "
+                               f"many forward")
+        for k in K6_LAUNCHERS:
+            launches[k] = launches.get(k, 0) + counts[k]
+        check_losses(hist, [("first", 0), ("last", -1)], fall=False)
+        check_mlp(tr, layout, rec if layout == "triplane" else None, gen,
+                  full=layout == "triplane")
+        check_k6_captures(tr, layout)
+        paths[layout] = tr
+    check_graph_chunk(paths["triplane"], "triplane", True)
+    time_kernels(rec)
+    print(json.dumps({"kernels": [
+        {"name": f"{LABEL[k]} {k}", "launches": launches[k], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+         "bound_by": r["bound"][1], "library_ms": r["library_ms"],
+         "max_abs_err": r["err"]}
+        for k, r in rec.items()]}))
+
+
 def render_config(cfg, **kw):
     return cfg.replace(render=dataclasses.replace(cfg.render, **kw))
 
@@ -6868,7 +7309,7 @@ def main():
                     help="directory for torch.profiler traces of 4 steps "
                          "of each march")
     ap.add_argument("--only", choices=["distributed", "cascades", "k7k8",
-                                       "k9", "loss"],
+                                       "k9", "loss", "mlp"],
                     help="build the kernels and run this phase alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -6909,6 +7350,8 @@ def main():
             k9_only(smi)
         elif args.only == "loss":
             loss_only(smi)
+        elif args.only == "mlp":
+            mlp_only(smi)
         else:
             cascades_only(smi)
         log(f"done in {time.time() - T0:.1f} s")
@@ -6958,9 +7401,10 @@ def main():
          **K7K8_LAUNCHES})[0]}
 
     log("phase 4: K7 on a step's normals, K8 on the trained grid, K10 on "
-        "a step's loss arguments")
+        "a step's loss arguments, K6 on a step's field inputs")
     check_kmeans(tr, rec, gen)
     check_loss_block(tr, "triplane", rec, gen)
+    check_mlp(tr, "triplane", rec, gen)
     check_occupancy(tr, rec, gen)
     log("phase 4: K1, H9-H11, the segment launchers and H3 with T_start "
         "on the trained occupancy")
@@ -7048,6 +7492,7 @@ def main():
             {"march_sv_train": SV_STEPS})[0]
         check_step_cotangent(tl, rec)
         check_loss_block(tl, layout, None, gen, full=False)
+        check_mlp(tl, layout, None, gen, full=False)
         for name, c in validate(tl, layout, ("march_sv_test_round",
                                              FIELD_KERNELS[layout][0],
                                              "composite_fwd")).items():

@@ -295,6 +295,12 @@ ADAMW_STEP = Kernel("adamw_step", "adamw.cu", [P] * 4 + [F] * 7)
 LOSS_RAYS = Kernel("loss_rays", "loss_block.cu", [P])
 LOSS_CLUSTERS = Kernel("loss_clusters", "loss_block.cu", [P])
 LOSS_BWD = Kernel("loss_bwd", "loss_block.cu", [P])
+# K6, the field's four MLPs (ops/mlp.py): the forward (or the density
+# mode), the backward with each block's partial weight gradients, and
+# their reduction; each takes the Args struct
+MLP_FWD = Kernel("mlp_fwd", "mlp.cu", [P])
+MLP_BWD = Kernel("mlp_bwd", "mlp.cu", [P])
+MLP_DW_REDUCE = Kernel("mlp_dw_reduce", "mlp.cu", [P])
 
 ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                COMPOSITE_BWD, DISTORTION_FWD, DISTORTION_BWD, MARCH_SV_TRAIN,
@@ -304,7 +310,8 @@ ALL_KERNELS = (MARCH, TRIPLANE_FWD, TRIPLANE_BWD, COMPOSITE_FWD,
                TRIPLANE_FWD_JAC, TRIPLANE_BWD_DX, BRICK_FWD_JAC,
                BRICK_CONTRACT, HASH_FWD_JAC, HASH_CONTRACT, KMEANS_CLUSTER,
                OCC_COMPACT, OCC_MERGE_PACK, OCC_TABLES, OCC_UNION, ADAMW_NORM,
-               ADAMW_STEP, LOSS_RAYS, LOSS_CLUSTERS, LOSS_BWD)
+               ADAMW_STEP, LOSS_RAYS, LOSS_CLUSTERS, LOSS_BWD, MLP_FWD,
+               MLP_BWD, MLP_DW_REDUCE)
 
 
 def reset_counts():

@@ -16,9 +16,12 @@
   * sem_net / norm_net: 16 -> 64 -> 64 -> n_cls / 3
 The view direction enters rgb_net raw, as in the JAX forward (which
 bypasses its SH encoder, `models/sh_encoding.py`). All MLPs are
-bias-free (tcnn FullyFusedMLP style) and run as `torch.matmul` in the
-compute dtype: plain products, as the JAX package leaves them to XLA
-(ROADMAP K6 fuses them once a profile asks for it).
+bias-free (tcnn FullyFusedMLP style). A bf16 model runs the four nets as
+kernel K6 (`ops/mlp.py`, `csrc/mlp.cu`: sigmas and the raws in one
+launch, the density mode for the refresh, the backward in two), its
+plain version on the CPU; the tonemappers stay torch ops on K6's
+log-radiance (ROADMAP B10c). An f32 model runs them as `torch.matmul`
+(ROADMAP B10b).
 
 Parameter names follow the JAX pytree: `hash_table.planes` and
 `hash_table.grid3d` (triplane) or one `hash_table` (brick, tcnn),
@@ -33,6 +36,7 @@ import torch
 from torch import nn
 
 from ..config import ModelConfig
+from ..ops import mlp
 from ..ops.trunc_exp import trunc_exp, trunc_sigmoid
 from .brick_hash import BrickGridSpec, brick_encode, init_brick_table
 from .hash_encoding import HashGridSpec, hash_encode, init_hash_table
@@ -91,6 +95,11 @@ class NGPMT(nn.Module):
             init, self._encode = init_hash_table, hash_encode
         self.compute_dtype = (torch.bfloat16 if cfg.compute_dtype == "bfloat16"
                               else torch.float32)
+        # bf16: the nets as K6, which takes their widths and layer counts
+        # only; f32: torch.matmul
+        self.fused = self.compute_dtype == torch.bfloat16
+        if self.fused:
+            mlp.check_model(cfg)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(0)
         W, geo = cfg.hidden_dim, cfg.geo_feat_dim
@@ -115,14 +124,40 @@ class NGPMT(nn.Module):
                 setattr(self, f"tonemapper_net_{i}",
                         _init_mlp([1, W, 1], generator, device))
 
-    def density(self, x, return_feat: bool = False):
-        """sigma at world positions x in [-scale, scale]^3."""
+    def encode(self, x):
+        """The encoding (M, out_dim) in the compute dtype of world
+        positions x in [-scale, scale]^3."""
         xn = (x + self.scale) / (2.0 * self.scale)
         table = (dict(self.hash_table)
                  if isinstance(self.hash_table, nn.ParameterDict)
                  else self.hash_table)
-        enc = self._encode(table, xn, self.spec, self.compute_dtype,
-                           need_dx=self.need_pos_grad)
+        return self._encode(table, xn, self.spec, self.compute_dtype,
+                            need_dx=self.need_pos_grad)
+
+    def mlp_weights(self) -> List[torch.Tensor]:
+        """The four nets' weights in `ops/mlp.py`'s order: sigma, rgb,
+        then norm and sem where the model has them."""
+        nets = [self.sigma_net, self.rgb_net]
+        if self.cfg.pred_norm_nn:
+            nets.append(self.norm_net)
+        if self.cfg.pred_sem:
+            nets.append(self.sem_net)
+        return [net[f"w{i}"] for net in nets for i in range(len(net))]
+
+    def mlp_plan(self) -> mlp.Plan:
+        cfg = self.cfg
+        return mlp.Plan(din=self.spec.out_dim,
+                        n_cls=cfg.n_sem_cls if cfg.pred_sem else 0,
+                        norm=cfg.pred_norm_nn, use_dir=cfg.rgb_use_dir,
+                        exposure=cfg.use_exposure)
+
+    def density(self, x, return_feat: bool = False):
+        """sigma at world positions x in [-scale, scale]^3 (K6's density
+        mode for a bf16 model; with `return_feat`, which the f32 forward
+        takes, also h)."""
+        enc = self.encode(x)
+        if self.fused and not return_feat:
+            return mlp.field_density(enc, self.mlp_weights()[:2])
         h = apply_mlp(self.sigma_net, enc, compute_dtype=self.compute_dtype)
         sigmas = trunc_exp(h[:, 0].to(torch.float32))
         if return_feat:
@@ -140,12 +175,33 @@ class NGPMT(nn.Module):
                       out_act="sigmoid", compute_dtype=self.compute_dtype)
             for i in range(3)], dim=1)
 
+    def raws(self, x, d, exposure=None, output_radiance: bool = False):
+        """K6 (a bf16 model): sigmas (M,) and the raws (M, C) f32 in its
+        order, rgb, norm, sem. With `use_exposure` the rgb columns are the
+        tonemapped log-radiance (at `exposure`, (M, 1), when given), or
+        with `output_radiance` the radiance itself."""
+        sigmas, raws = mlp.field_mlp(self.mlp_plan(), self.encode(x), d,
+                                     self.mlp_weights())
+        if self.cfg.use_exposure:
+            rgbs = (trunc_exp(raws[:, :3]) if output_radiance
+                    else self.log_radiance_to_rgb(raws[:, :3], exposure))
+            raws = torch.cat([rgbs.to(torch.float32), raws[:, 3:]], dim=1)
+        return sigmas, raws
+
     def forward(self, x, d, exposure=None,
                 output_radiance: bool = False) -> Dict[str, torch.Tensor]:
         """Full field: (M, 3) positions and view directions -> sigmas (M,),
         rgbs (M, 3) [+ sems, norms], all f32. With `use_exposure`, rgbs
         is the tonemapped log-radiance (at `exposure`, (M, 1), when given),
         or with `output_radiance` the radiance itself."""
+        if self.fused:
+            sigmas, raws = self.raws(x, d, exposure, output_radiance)
+            out = {"sigmas": sigmas, "rgbs": raws[:, :3]}
+            if self.cfg.pred_norm_nn:
+                out["norms"] = raws[:, 3:6]
+            if self.cfg.pred_sem:
+                out["sems"] = raws[:, raws.shape[1] - self.cfg.n_sem_cls:]
+            return out
         sigmas, h = self.density(x, return_feat=True)
         d = d / torch.linalg.norm(d, dim=1, keepdim=True)
         if not self.cfg.rgb_use_dir:

@@ -126,6 +126,12 @@ def bg_color(cfg, random_bg: bool, generator=None, device=None):
 
 
 def field_raws(model, xyz, dirs):
+    """(sigmas (M,), raws (M, C)) of the field at (M, 3) positions and
+    view directions: rgb, then norms and sems where the model has them.
+    A bf16 model's raws are K6's as they come (the rgb columns
+    tonemapped under `use_exposure`)."""
+    if model.fused:
+        return model.raws(xyz, dirs)
     out = model(xyz, dirs)
     raws = [out["rgbs"]]
     if model.cfg.pred_norm_nn:

@@ -1,7 +1,7 @@
 """Static check that the PyTorch port stands alone: no module of
-`normal_clustering_nerf_torch/`, not `chip_smoke.py`, not
-`time_encodes.py` and not `time_calls.py` imports JAX, jaxlib or the JAX
-package `normal_clustering_nerf_tpu`.
+`normal_clustering_nerf_torch/`, not `chip_smoke.py` and not the timing
+scripts (`time_*.py`) imports JAX, jaxlib or the JAX package
+`normal_clustering_nerf_tpu`.
 
 The check reads the sources (an AST scan) instead of importing them,
 because a process may have JAX imported before any test runs.
@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib", "normal_clustering_nerf_tpu")
 SOURCES = sorted(
     str(p.relative_to(ROOT))
     for p in (ROOT / "normal_clustering_nerf_torch").rglob("*.py")
-) + ["chip_smoke.py", "time_encodes.py", "time_calls.py"]
+) + ["chip_smoke.py", "time_encodes.py", "time_calls.py", "time_k7k8.py",
+     "time_loss.py"]
 
 
 def imported_modules(tree: ast.AST):
